@@ -1,0 +1,26 @@
+"""grace_tpu_torch — the SPH/BVH ray-tracing framework on PyTorch and CUDA.
+
+The port of ``grace_tpu`` to an NVIDIA H100: the same subpackages and
+public names, PyTorch tensors in place of JAX arrays, and hand-written CUDA
+kernels (``csrc/``, built with nvcc at first use) in place of the Pallas
+kernels. It imports neither JAX nor ``grace_tpu``. The slice ported so far
+is the column-density render: LBVH build, orthographic rays and spatial
+sort, splat bucketing, splat image, and the quarter-culled fused trace.
+"""
+
+from grace_tpu_torch.core.types import Octants, Rays, RaySortType, make_spheres
+from grace_tpu_torch.core.tree import Tree
+from grace_tpu_torch.build.sph import (
+    albvh_sph,
+    build_sph_tree,
+    euclidean_deltas_sph,
+    morton_keys_sph,
+    sort_by_morton,
+    surface_area_deltas_sph,
+    xor_deltas_sph,
+)
+from grace_tpu_torch.rays import gen as ray_gen
+from grace_tpu_torch.trace.pallas_kernel import pallas_trace_sph
+from grace_tpu_torch.trace.splat import bucket_prims_ortho, render_ortho_splat, splat_image
+
+__version__ = "0.1.0"

@@ -1,0 +1,115 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+Each kernel source compiles with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, at first use, into ``_kernels_build/``
+beside this file; the file name carries a hash of every ``csrc/`` source and
+of the flags, so an edited source builds anew. The library is loaded with
+``ctypes``. Each C entry point takes the CUDA device index and stream last,
+launches on that stream without synchronizing, and returns
+``cudaGetLastError()``; ``launch`` raises if that is not 0.
+
+Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_kernels_build")
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# name -> (source, extra nvcc flags, {entry point: argument kinds}); kinds
+# are "p" (device pointer) and "i" (int); the device index and the stream
+# follow them.
+KERNELS = {
+    # --fmad=false: the hit test must round b^2 exactly as the plain
+    # version does; the fused multiply-adds it wants are written as fmaf.
+    "trace_quarter": ("trace_quarter.cu", ["--fmad=false"],
+                      {"grace_trace_quarter": "pppppp" + "iiiiiii"}),
+    "splat": ("splat.cu", [],
+              {"grace_splat": "pppppppppp" + "iiiiiiiiii"}),
+}
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    found = path if os.path.exists(path) else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "build only on a machine with the CUDA toolkit")
+    return found
+
+
+def _library_path(name: str) -> str:
+    source, flags, _ = KERNELS[name]
+    h = hashlib.sha256()
+    for f in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
+    h.update(" ".join(_NVCC_FLAGS + flags).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(name: str) -> tuple[str, float, str]:
+    """Compile kernel ``name`` if its library is missing. Returns (library
+    path, seconds spent compiling, nvcc's output)."""
+    source, flags, _ = KERNELS[name]
+    lib = _library_path(name)
+    if os.path.exists(lib):
+        return lib, 0.0, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *_NVCC_FLAGS, *flags, "-o", tmp, os.path.join(CSRC, source)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{' '.join(cmd)}\n{log}")
+    os.replace(tmp, lib)
+    return lib, seconds, log
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    if name not in _LIBS:
+        path, _, _ = build(name)
+        lib = ctypes.CDLL(path)
+        for entry, kinds in KERNELS[name][2].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = ([ctypes.c_void_p if k == "p" else ctypes.c_int for k in kinds]
+                           + [ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        lib.grace_error_string.argtypes = [ctypes.c_int]
+        lib.grace_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` of kernel ``name`` with ``args`` on
+    ``device``'s current stream; raise on a CUDA error."""
+    lib = load(name)
+    kinds = KERNELS[name][2][entry]
+    if len(args) != len(kinds):
+        raise TypeError(f"{entry} takes {len(kinds)} arguments, got {len(args)}")
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    rc = getattr(lib, entry)(*args, index, stream)
+    if rc != 0:
+        msg = lib.grace_error_string(rc).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")

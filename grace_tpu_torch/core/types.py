@@ -1,0 +1,85 @@
+"""Core types: SoA ray batches, sphere packing, octant and ray-sort enums.
+
+PyTorch counterpart of ``grace_tpu.core.types``. A logical ray r is
+(origin[r], direction[r], length[r]); direction is always normalized.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+class Octants(enum.IntEnum):
+    """Octant encoding; bit 2 = +x, bit 1 = +y, bit 0 = +z."""
+
+    MMM = 0
+    MMP = 1
+    MPM = 2
+    MPP = 3
+    PMM = 4
+    PMP = 5
+    PPM = 6
+    PPP = 7
+
+
+class RaySortType(enum.IntEnum):
+    """Ray-coherence sorting strategies."""
+
+    NoSort = 0
+    DirectionSort = 1
+    EndPointSort = 2
+
+
+@dataclass
+class Rays:
+    """Batch of rays in SoA layout.
+
+    Attributes:
+      origins:    f32[R, 3] ray origins.
+      directions: f32[R, 3] normalized ray directions.
+      lengths:    f32[R]    maximum parametric distance along each ray.
+    """
+
+    origins: torch.Tensor
+    directions: torch.Tensor
+    lengths: torch.Tensor
+
+    @property
+    def n_rays(self) -> int:
+        return self.origins.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.origins.device
+
+    @classmethod
+    def from_arrays(cls, origins, directions, lengths, device=None) -> "Rays":
+        f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        return cls(f(origins), f(directions), f(lengths))
+
+    def to(self, device) -> "Rays":
+        return Rays(self.origins.to(device), self.directions.to(device),
+                    self.lengths.to(device))
+
+    def __getitem__(self, idx) -> "Rays":
+        return Rays(self.origins[idx], self.directions[idx], self.lengths[idx])
+
+
+def make_spheres(xyz, h, device=None) -> torch.Tensor:
+    """Pack sphere/SPH-particle data as f32[N, 4] = (x, y, z, h)."""
+    xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
+    h = torch.as_tensor(h, dtype=torch.float32, device=xyz.device)
+    return torch.cat([xyz, h[:, None]], dim=1)
+
+
+def octant_signs(octant: int) -> np.ndarray:
+    """(sx, sy, sz) in {-1, +1} for an Octants value."""
+    o = int(octant)
+    return np.array(
+        [1.0 if (o & 4) else -1.0, 1.0 if (o & 2) else -1.0, 1.0 if (o & 1) else -1.0],
+        dtype=np.float32,
+    )

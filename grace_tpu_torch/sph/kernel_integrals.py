@@ -1,0 +1,263 @@
+"""SPH cubic-spline (M4) kernel line integrals.
+
+PyTorch counterpart of ``grace_tpu.sph.kernel_integrals``. The 3D cubic
+spline with support radius 1 is
+
+    w(q) = (8/pi) * (1 - 6 q^2 + 6 q^3)   for 0   <= q <= 1/2
+    w(q) = (8/pi) * 2 (1 - q)^3           for 1/2 <  q <= 1
+
+and the dimensionless line integral at normalized impact parameter beta is
+F(beta) = Integral_{-z1}^{z1} w(sqrt(beta^2 + z^2)) dz, z1 = sqrt(1-beta^2);
+a particle of smoothing length h contributes F(b/h) / h^2.
+
+The derivations (f64 numpy quadrature and polynomial fits) are the same as
+``grace_tpu``'s. Their results are read from ``_horner_cache.npz`` beside
+this module, a byte-for-byte copy of ``grace_tpu``'s cache; the file is
+opened read-only, and a fit missing from it is derived in memory.
+The torch evaluators reproduce ``grace_tpu``'s f32 operation order.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import torch
+
+from grace_tpu_torch.ops.vecmath import fma, sqrt
+
+N_TABLE = 51
+_SIGMA = 8.0 / np.pi
+
+_COEFF_CACHE_PATH = os.path.join(os.path.dirname(__file__), "_horner_cache.npz")
+
+# The Gauss-Legendre nodes are the same for every quadrature of one order;
+# computing them once makes a fit that is not in the cache ~10x cheaper.
+_leggauss = functools.lru_cache(maxsize=None)(np.polynomial.legendre.leggauss)
+
+
+def _load_cache() -> dict:
+    if not os.path.exists(_COEFF_CACHE_PATH):
+        return {}
+    with np.load(_COEFF_CACHE_PATH) as z:
+        return {k: z[k] for k in z.files}
+
+
+_CACHE = _load_cache()
+
+
+def _cached_fit_multi(keys, fit_fn):
+    """Arrays ``keys`` from the cache, or from ``fit_fn`` (kept in memory)."""
+    if not all(k in _CACHE for k in keys):
+        for k, v in zip(keys, fit_fn()):
+            _CACHE[k] = np.asarray(v)
+    return tuple(_CACHE[k] for k in keys)
+
+
+def _cached_fit(key, fit_fn):
+    return _cached_fit_multi([key], lambda: (fit_fn(),))[0]
+
+
+def _w_dimensionless(q):
+    """Cubic spline w(q) with support radius 1 (numpy, f64)."""
+    q = np.asarray(q, np.float64)
+    inner = 1.0 - 6.0 * q * q + 6.0 * q * q * q
+    outer = 2.0 * (1.0 - q) ** 3
+    return _SIGMA * np.where(q <= 0.5, inner, np.where(q <= 1.0, outer, 0.0))
+
+
+def _line_integral_quadrature(beta: float, order: int = 96) -> float:
+    """F(beta) by piecewise Gauss-Legendre quadrature (f64)."""
+    beta = float(beta)
+    if beta >= 1.0:
+        return 0.0
+    z1 = np.sqrt(1.0 - beta * beta)
+    zs = np.sqrt(max(0.25 - beta * beta, 0.0))
+    x, w = _leggauss(order)
+
+    def seg(a, b):
+        if b <= a:
+            return 0.0
+        z = 0.5 * (b - a) * x + 0.5 * (b + a)
+        q = np.sqrt(beta * beta + z * z)
+        return 0.5 * (b - a) * np.sum(w * _w_dimensionless(q))
+
+    return 2.0 * (seg(0.0, zs) + seg(zs, z1))
+
+
+def make_kernel_integral_table(n: int = N_TABLE) -> np.ndarray:
+    """Table of F(i / (n-1)) for i in [0, n) (f64 numpy)."""
+    return np.array([_line_integral_quadrature(b) for b in np.linspace(0.0, 1.0, n)])
+
+
+KERNEL_INTEGRAL_TABLE = make_kernel_integral_table()
+N_DENSE = 2048
+DENSE_KERNEL_INTEGRAL_TABLE = make_kernel_integral_table(N_DENSE)
+
+
+def _fit_single_horner(deg: int = 14):
+    """Monomial coefficients of the weighted single-piece fit of
+    g(u) = F / v^{7/2} (v = 1 - u, u = beta^2) in t = 2u - 1."""
+    u = np.concatenate(
+        [np.linspace(0.0, 1.0, 6001)[:-1], 1.0 - np.geomspace(1e-7, 0.05, 500)])
+    u = np.unique(u)
+    f = np.array([_line_integral_quadrature(np.sqrt(x)) for x in u])
+    v = 1.0 - u
+    t = 2.0 * u - 1.0
+    c = np.polynomial.chebyshev.Chebyshev.fit(t, f / v**3.5, deg,
+                                              domain=[-1, 1], w=v**3.5)
+    return np.asarray(c.convert(kind=np.polynomial.Polynomial).coef, np.float64)
+
+
+def _fit_direct(deg: int):
+    """Monomial coefficients of a direct fit of F over u in [0, 1] in
+    t = 2u - 1 (no v^3 sqrt(v) prefactor)."""
+    u = np.concatenate([np.linspace(0.0, 1.0, 6001),
+                        1.0 - np.geomspace(1e-7, 0.05, 500)])
+    u = np.unique(u)
+    f = np.array([_line_integral_quadrature(np.sqrt(x)) for x in u])
+    c = np.polynomial.chebyshev.Chebyshev.fit(2.0 * u - 1.0, f, deg, domain=[-1, 1])
+    return np.asarray(c.convert(kind=np.polynomial.Polynomial).coef, np.float64)
+
+
+HORNER1_DEG = 14
+
+
+def horner1_coeffs(deg: int) -> np.ndarray:
+    """Weighted-fit coefficients (f64[deg + 1]) for a Horner degree."""
+    return _cached_fit(f"h{deg}", lambda: _fit_single_horner(deg))
+
+
+def direct_coeffs(deg: int) -> np.ndarray:
+    """Direct-fit coefficients (f64[deg + 1]) for a Horner degree."""
+    return _cached_fit(f"d{deg}", lambda: _fit_direct(deg))
+
+
+def integral_coeffs(integral_deg: int) -> np.ndarray:
+    """f32 coefficients of the ``cubic_spline_line_integral_horner1``
+    flavor ``integral_deg`` selects, lowest order first (the array the
+    trace kernel takes)."""
+    c = direct_coeffs(-integral_deg) if integral_deg < 0 else horner1_coeffs(integral_deg)
+    return np.asarray(c, np.float32)
+
+
+def _horner(t: torch.Tensor, coeffs: np.ndarray, deg: int) -> torch.Tensor:
+    """f32 Horner steps as fused multiply-adds (see ops.vecmath.fma)."""
+    acc = torch.full_like(t, float(np.float32(coeffs[deg])))
+    for k in range(deg - 1, -1, -1):
+        acc = fma(acc, t, float(np.float32(coeffs[k])))
+    return acc
+
+
+def cubic_spline_line_integral_direct_raw(u, deg: int):
+    """Unmasked direct-fit Horner poly(min(u, 1)) of degree ``deg``, with no
+    out-of-support zeroing (callers fuse the u < 1 test into their mask)."""
+    u = torch.as_tensor(u, dtype=torch.float32)
+    t = 2.0 * torch.clamp(u, max=1.0) - 1.0
+    return _horner(t, direct_coeffs(deg), deg)
+
+
+def cubic_spline_line_integral_horner1(u, deg: int = HORNER1_DEG):
+    """F(beta) from u = beta^2 via a single-piece Horner form.
+
+      deg > 0   weighted fit of F / v^3.5 times the v^3 sqrt(v) prefactor
+                (vanishes for u >= 1; u is clamped at 1).
+      deg < 0   direct fit of F of degree |deg|, zeroed for u >= 1.
+    """
+    u = torch.as_tensor(u, dtype=torch.float32)
+    if deg < 0:
+        d = -deg
+        t = 2.0 * torch.clamp(u, max=1.0) - 1.0
+        acc = _horner(t, direct_coeffs(d), d)
+        return torch.where(u < 1.0, acc, 0.0)
+    u = torch.clamp(u, max=1.0)
+    t = 2.0 * u - 1.0
+    acc = _horner(t, horner1_coeffs(deg), deg)
+    v = torch.clamp(1.0 - u, min=0.0)
+    return acc * ((v * v) * (v * sqrt(v)))
+
+
+# Separable rank-K bases of the splat renderer: F(sqrt(x^2 + y^2)) ~=
+# sum_k a_k(t_x) b_k(t_y), with a_k(t) = (1 - t) q_k(t), t = min(x^2, 1).
+# Coefficients are f64 [rank, deg + 1], monomial in t.
+SPLAT_RANK = 5
+SPLAT_DEG = 10
+SPLAT_DEG8 = 8
+
+
+def _splat_footprint(n: int):
+    x = np.linspace(-1.0, 1.0, n + 1)[:-1] + 1.0 / (n + 1)
+    t = x * x
+    beta2 = t[:, None] + t[None, :]
+    beta = np.sqrt(beta2)
+    xi = np.clip(beta, 0.0, 1.0) * (N_DENSE - 1)
+    i0 = np.minimum(xi.astype(int), N_DENSE - 2)
+    fr = xi - i0
+    G = np.where(beta2 >= 1.0, 0.0,
+                 DENSE_KERNEL_INTEGRAL_TABLE[i0] * (1.0 - fr)
+                 + DENSE_KERNEL_INTEGRAL_TABLE[i0 + 1] * fr)
+    return t, G
+
+
+def fit_splat_basis(rank: int = SPLAT_RANK, deg: int = SPLAT_DEG, n: int = 1024):
+    """Per-eigenvector polynomial fit of the separable footprint (deg10)."""
+    t, G = _splat_footprint(n)
+    m = 1.0 - t
+    Q = G / (m[:, None] * m[None, :])
+    lam, V = np.linalg.eigh(Q)
+    order = np.argsort(-np.abs(lam))
+    lam, V = lam[order[:rank]], V[:, order[:rank]]
+    a = np.zeros((rank, deg + 1))
+    b = np.zeros((rank, deg + 1))
+    for k in range(rank):
+        c = np.polynomial.chebyshev.Chebyshev.fit(t, V[:, k], deg, w=m)
+        q = c.convert(kind=np.polynomial.Polynomial).coef
+        q = np.pad(q, (0, deg + 1 - q.size))
+        root = np.sqrt(np.abs(lam[k]))
+        a[k] = q * root * np.sign(lam[k])
+        b[k] = q * root
+    return a, b
+
+
+def fit_splat_basis_joint(rank: int = SPLAT_RANK, deg: int = 8,
+                          n: int = 1024, n_irls: int = 8):
+    """Jointly optimal rank-r polynomial-separable fit (deg8), with IRLS
+    reweighting toward minimax."""
+    t, G = _splat_footprint(n)
+    P = np.vander(t, deg + 1, increasing=True)
+    U0 = (1.0 - t)[:, None] * P
+    w = np.ones(n)
+    best = None
+    for _ in range(n_irls):
+        Uw = w[:, None] * U0
+        Gw = w[:, None] * G * w[None, :]
+        Q, R = np.linalg.qr(Uw)
+        Y = Q.T @ Gw @ Q
+        Y = 0.5 * (Y + Y.T)
+        lam, V = np.linalg.eigh(Y)
+        order = np.argsort(-np.abs(lam))[:rank]
+        lam, V = lam[order], V[:, order]
+        Rinv = np.linalg.inv(R)
+        Ca = Rinv @ V * (np.sign(lam) * np.sqrt(np.abs(lam)))[None, :]
+        Cb = Rinv @ V * np.sqrt(np.abs(lam))[None, :]
+        err = np.abs((U0 @ Ca) @ (U0 @ Cb).T - G)
+        e = err.max()
+        if best is None or e < best[0]:
+            best = (e, Ca.T.copy(), Cb.T.copy())
+        rowerr = err.max(axis=1)
+        w = w * (0.25 + rowerr / (rowerr.mean() + 1e-30)) ** 0.5
+        w /= w.mean()
+    return best[1], best[2]
+
+
+SPLAT_A_COEFFS, SPLAT_B_COEFFS = _cached_fit_multi(
+    ["splat_a", "splat_b"], fit_splat_basis)
+SPLAT_A8_COEFFS, SPLAT_B8_COEFFS = _cached_fit_multi(
+    ["splat_a8", "splat_b8"], lambda: fit_splat_basis_joint(SPLAT_RANK, SPLAT_DEG8))
+
+# basis name -> (deg, a f64[rank, deg + 1], b f64[rank, deg + 1])
+SPLAT_BASES = {
+    "deg10": (SPLAT_DEG, SPLAT_A_COEFFS, SPLAT_B_COEFFS),
+    "deg8": (SPLAT_DEG8, SPLAT_A8_COEFFS, SPLAT_B8_COEFFS),
+}

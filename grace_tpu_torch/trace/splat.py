@@ -1,0 +1,310 @@
+"""Splatting renderer: SPH column density of a parallel ray grid.
+
+PyTorch counterpart of ``grace_tpu.trace.splat``. For a parallel ray grid
+the image is a sum of separable per-particle footprints,
+
+    I[j, i] = sum_p  w_p/h_p^2 * F(sqrt(xhat^2 + yhat^2)),
+    xhat = (X_i - pu_p)/h_p,   yhat = (Y_j - pv_p)/h_p
+
+and with the rank-K basis F(sqrt(x^2+y^2)) ~= sum_k a_k(x) b_k(y) each
+pixel patch is sum_k A_k @ B_k^T over the instances bucketed to it.
+
+  1. ``bucket_prims_ortho`` (per scene + camera): project particles to the
+     image plane, expand each to the (up to) 2x2 (row tile x column band)
+     keys its footprint touches, stable-sort the instances by key, and lay
+     them out as component-major (n_slabs, 8, chunk) slabs.
+  2. ``splat_image``: one CUDA block per key (``csrc/splat.cu``) builds the
+     A/B factors of its instances and accumulates its patch; on CPU
+     tensors, ``_splat_plain``.
+
+Camera conventions match ``rays.gen.orthographic_projection_rays``: pixel
+(j, i) is ray j*W + i, row 0 at the top.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from grace_tpu_torch import _kernels
+from grace_tpu_torch.ops.vecmath import cross, dot3, fma, normalize3
+from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
+
+
+class SplatBuckets(NamedTuple):
+    """Bucketed instance layout; ranges are per KEY = (row tile, column
+    band), keys row-major over bands: key = rt * nbx + cb."""
+
+    slabs: torch.Tensor      # f32[n_slabs_cap, 8, P]: rows 0-3 (4-7) = pu, pv,
+    #                          invh, scale of instance chunk 2s (2s+1)
+    slab_lo: torch.Tensor    # i32[n_keys] first slab overlapping each key's range
+    n_slabs: torch.Tensor    # i32[n_keys]
+    first: torch.Tensor      # i32[n_keys] global instance range [first, last)
+    last: torch.Tensor       # i32[n_keys]
+    xcols: torch.Tensor      # f32[W, 1] pixel-center coordinate along the right axis
+    yrows: torch.Tensor      # f32[H, 1] pixel-center coordinate along the up axis
+    overflow: torch.Tensor   # bool[] — some footprint exceeded a band span
+
+    def to(self, device) -> "SplatBuckets":
+        return SplatBuckets(*(t.to(device) for t in self))
+
+
+def _sorted_first_counts(key_s: torch.Tensor, n_keys: int) -> torch.Tensor:
+    """first[k] = #elements of SORTED ``key_s`` strictly below k, for
+    k = 0..n_keys (inclusive), i32[n_keys + 1]."""
+    thresholds = torch.arange(n_keys + 1, dtype=key_s.dtype, device=key_s.device)
+    return torch.searchsorted(key_s, thresholds, side="left").to(torch.int32)
+
+
+def _camera_frame(camera_position, look_at, view_up, device=None):
+    # grace_tpu jits bucket_prims_ortho, so this frame takes the fused
+    # normalize3; rays.gen mirrors the eager generators instead.
+    f32 =lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    view_dir = normalize3(f32(look_at) - f32(camera_position))
+    v = normalize3(cross(view_dir, f32(view_up)))
+    u = normalize3(cross(v, view_dir))
+    return view_dir, v, u
+
+
+def bucket_prims_ortho(spheres, camera_position, look_at, view_up,
+                       vertical_extent: float, length: float, resolution_x: int,
+                       resolution_y: int, tile_w: int = 64, tile_h: int = 128,
+                       chunk: int = 512, weights=None, band: int | None = None
+                       ) -> SplatBuckets:
+    """Per-(scene, camera) prep: project, cull by depth, bucket by key.
+
+    tile_w: image ROWS per tile, tile_h: image COLUMNS per tile; ``band``
+    (default tile_h) splits each tile into tile_h/band column bands.
+    Footprints are expanded to at most a 2x2 (row tile x band)
+    neighbourhood; a particle needing more sets the overflow flag.
+    """
+    w_res, h_res = resolution_x, resolution_y
+    if band is None:
+        band = tile_h
+    if w_res % tile_h or h_res % tile_w or tile_h % band:
+        raise ValueError("resolution must be a multiple of the tile shape "
+                         "and band must divide tile_h")
+    dev = spheres.device
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    n = spheres.shape[0]
+    view_dir, v, u = _camera_frame(camera_position, look_at, view_up, dev)
+    cam = f32(camera_position)
+    vext = f32(vertical_extent)
+    half_w = 0.5 * vext * (w_res / h_res)
+    half_h = 0.5 * vext
+
+    pos = spheres[:, :3]
+    h = spheres[:, 3]
+    pu = dot3(pos, v)                       # image x (columns)
+    pv = dot3(pos, u)                       # image y (rows)
+    depth = dot3(pos - cam, view_dir)
+
+    # Pixel-center coordinates in the image plane (top-left pixel first).
+    cu = dot3(cam, v)
+    cv = dot3(cam, u)
+    i = torch.arange(w_res, dtype=torch.float32, device=dev)
+    j = torch.arange(h_res, dtype=torch.float32, device=dev)
+    xcols = fma(2.0 * (i + 0.5) / w_res - 1.0, half_w, cu)        # ascending
+    yrows = fma(1.0 - 2.0 * (j + 0.5) / h_res, half_h, cv)        # descending
+    dx = 2.0 * half_w / w_res
+    dyr = -2.0 * half_h / h_res
+
+    inv_h2 = torch.where(h > 0, 1.0 / torch.clamp(h * h, min=1e-30), 0.0)
+    w_p = inv_h2 if weights is None else f32(weights) * inv_h2
+    # Along-ray acceptance for a parallel bundle: the foot of the
+    # perpendicular is at the particle depth, the same for every ray.
+    live = (h > 0) & (depth >= 0.0) & (depth < f32(length))
+    scale = torch.where(live, w_p, 0.0)
+
+    ntx = w_res // tile_h
+    nty = h_res // tile_w
+    n_bands = tile_h // band
+    nbx = ntx * n_bands
+    floor_i = lambda a: torch.floor(a).to(torch.int64)
+    x0 = xcols[0] - 0.5 * dx
+    y0 = yrows[0] - 0.5 * dyr
+    cb_lo = floor_i((pu - h - x0) / (dx * band))
+    cb_hi = floor_i((pu + h - x0) / (dx * band))
+    rt_lo = floor_i(((pv + h) - y0) / (dyr * tile_w))   # rows descend
+    rt_hi = floor_i(((pv - h) - y0) / (dyr * tile_w))
+    overflow = (live & ((cb_hi - cb_lo > 1) | (rt_hi - rt_lo > 1))).any()
+    cb_hi = torch.minimum(cb_hi, cb_lo + 1)
+    rt_hi = torch.minimum(rt_hi, rt_lo + 1)
+
+    # 4 instances per particle: the (up to) 2x2 touched keys; duplicates,
+    # out-of-image and dead particles get the sentinel key n_keys.
+    n_keys = nbx * nty
+    insts = []
+    for rr in range(2):
+        for cc in range(2):
+            cb = cb_lo + cc
+            rt = rt_lo + rr
+            ok = ((cb <= cb_hi) & (rt <= rt_hi) & (cb >= 0) & (cb < nbx)
+                  & (rt >= 0) & (rt < nty) & (scale > 0))
+            insts.append(torch.where(ok, rt * nbx + cb, n_keys))
+    tile_ids = torch.cat(insts)                               # [4n]
+    invh = torch.where(h > 0, 1.0 / torch.clamp(h, min=1e-30), 0.0)
+
+    # Stable sort: instances of one key keep the torch.cat order above.
+    key_s, order = torch.sort(tile_ids, stable=True)
+    tiled = lambda a: a.repeat(4)[order]
+    pu_s, pv_s = tiled(pu), tiled(pv)
+    if weights is None:
+        # scale = invh^2 is derivable from the sorted invh once dead
+        # particles carry invh = 0.
+        invh_s = tiled(torch.where(live, invh, 0.0))
+        scale_s = invh_s * invh_s
+    else:
+        invh_s, scale_s = tiled(invh), tiled(scale)
+
+    first = _sorted_first_counts(key_s, n_keys)
+    last = first[1:]
+    first = first[:-1]
+
+    # Two `chunk`-sized pieces per (8, chunk) slab: rows 0-3 = chunk 2s
+    # (pu, pv, invh, scale), rows 4-7 = chunk 2s+1.
+    per_slab = 2 * chunk
+    cap = ((4 * n + per_slab - 1) // per_slab) * per_slab
+    comp = [torch.nn.functional.pad(a, (0, cap - 4 * n)).reshape(-1, chunk)
+            for a in (pu_s, pv_s, invh_s, scale_s)]
+    slabs = torch.stack(comp, dim=1).reshape(-1, 8, chunk)
+    slab_lo = torch.div(first, per_slab, rounding_mode="floor")
+    n_slabs = torch.clamp(torch.div(last + per_slab - 1, per_slab,
+                                    rounding_mode="floor") - slab_lo, min=0)
+    return SplatBuckets(slabs, slab_lo.to(torch.int32), n_slabs.to(torch.int32),
+                        first, last, xcols[:, None], yrows[:, None], overflow)
+
+
+def _factor(t, coeffs):
+    """[rank] tensors (1 - t) * q_k(t) for f32 coefficients [rank, deg + 1]."""
+    m = 1.0 - t
+    deg = coeffs.shape[1] - 1
+    out = []
+    for k in range(coeffs.shape[0]):
+        acc = torch.full_like(t, float(coeffs[k, deg]))
+        for d in range(deg - 1, -1, -1):
+            acc = fma(acc, t, float(coeffs[k, d]))
+        out.append(acc * m)
+    return torch.stack(out)
+
+
+def _splat_plain(buckets: SplatBuckets, tile_w: int, band: int,
+                 a_coeffs: np.ndarray, b_coeffs: np.ndarray) -> torch.Tensor:
+    """Plain PyTorch version of the splat kernel: one key at a time, the
+    patch as a float32 matmul over (instance, rank). TF32 is switched off
+    for the matmul (and restored after): it keeps too few digits."""
+    w_res = buckets.xcols.shape[0]
+    h_res = buckets.yrows.shape[0]
+    nbx = w_res // band
+    chunk = buckets.slabs.shape[2]
+    # flat[c][g] = component c of global instance g
+    flat = buckets.slabs.reshape(-1, 2, 4, chunk).permute(2, 0, 1, 3).reshape(4, -1)
+    xs = buckets.xcols[:, 0]
+    ys = buckets.yrows[:, 0]
+    img = torch.zeros((h_res, w_res), dtype=torch.float32, device=xs.device)
+    first = buckets.first.tolist()
+    last = buckets.last.tolist()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for key, (g0, g1) in enumerate(zip(first, last)):
+            if g1 <= g0:
+                continue
+            pu, pv, invh, scl = flat[:, g0:g1]
+            r0 = (key // nbx) * tile_w
+            c0 = (key % nbx) * band
+            ya = (ys[r0:r0 + tile_w, None] - pv) * invh            # (TW, n)
+            xb = (xs[c0:c0 + band, None] - pu) * invh              # (BW, n)
+            fa = _factor(torch.clamp(ya * ya, max=1.0), a_coeffs)  # (K, TW, n)
+            fb = _factor(torch.clamp(xb * xb, max=1.0), b_coeffs) * scl
+            patch = fa.permute(1, 0, 2).reshape(tile_w, -1) @ \
+                fb.permute(0, 2, 1).reshape(-1, band)
+            img[r0:r0 + tile_w, c0:c0 + band] = patch
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return img
+
+
+@functools.lru_cache(maxsize=None)
+def _basis_tensors(basis: str, device: str):
+    _, a, b = SPLAT_BASES[basis]
+    f = lambda c: torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(device)
+    return f(a), f(b)
+
+
+def splat_image(buckets: SplatBuckets, tile_w: int = 64, tile_h: int = 128,
+                basis: str = "deg10") -> torch.Tensor:
+    """Render the bucketed scene: f32 image [H, W] (row 0 = top).
+
+    Launches ``csrc/splat.cu`` on CUDA tensors and runs ``_splat_plain`` on
+    CPU tensors. ``basis``: "deg10" (per-eigenvector fit, ~1.0e-4 max rel
+    err) or "deg8" (jointly optimal fit, ~3.1e-4, less factor work)."""
+    if basis not in SPLAT_BASES:
+        raise ValueError(f"unknown basis {basis!r}")
+    deg, a_c, b_c = SPLAT_BASES[basis]
+    w_res = buckets.xcols.shape[0]
+    h_res = buckets.yrows.shape[0]
+    n_keys = buckets.first.shape[0]
+    if w_res % tile_h or h_res % tile_w:
+        raise ValueError("image size must be a multiple of the tile shape")
+    n_bands, rem = divmod(n_keys, (w_res // tile_h) * (h_res // tile_w))
+    if rem or n_bands < 1 or tile_h % n_bands:
+        raise ValueError("bucket key count does not match the tile shape")
+    band = tile_h // n_bands
+    tensors = [buckets.slab_lo, buckets.n_slabs, buckets.first, buckets.last,
+               buckets.xcols, buckets.yrows, buckets.slabs]
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"splat_image: tensors on several devices {devs}")
+    if any(t.dtype != torch.int32 for t in tensors[:4]) or any(
+            t.dtype != torch.float32 for t in tensors[4:]):
+        raise TypeError("splat_image: expected i32 ranges and f32 coordinates/slabs")
+    if buckets.slabs.dim() != 3 or buckets.slabs.shape[1] != 8:
+        raise ValueError(f"splat_image: slabs shape {tuple(buckets.slabs.shape)}")
+    device = devs.pop()
+    a32 = np.asarray(a_c, np.float32)
+    b32 = np.asarray(b_c, np.float32)
+    if device.type == "cpu":
+        return _splat_plain(buckets, tile_w, band, a32, b32)
+    if device.type != "cuda":
+        raise ValueError(f"splat_image: unsupported device {device}")
+    if tile_w * band > 32 * 256:
+        raise ValueError(f"splat patch {tile_w}x{band} exceeds 8192 pixels")
+    rank = a32.shape[0]
+    fixed = tile_w + band + 2 * rank * (deg + 1)
+    sub = min(64, (48 * 1024 // 4 - fixed) // (rank * (tile_w + band)))
+    if sub < 1:
+        raise ValueError(f"splat patch {tile_w}x{band} does not fit shared memory")
+    a_t, b_t = _basis_tensors(basis, str(device))
+    args = [t.contiguous() for t in tensors]
+    out = torch.zeros((h_res, w_res), dtype=torch.float32, device=device)
+    _kernels.launch(
+        "splat", "grace_splat", device,
+        *[t.data_ptr() for t in args], a_t.data_ptr(), b_t.data_ptr(), out.data_ptr(),
+        n_keys, w_res // band, tile_w, band, buckets.slabs.shape[2], w_res,
+        buckets.slabs.shape[0], rank, deg, sub)
+    splat_image.launches += 1
+    return out
+
+
+splat_image.launches = 0
+
+
+def render_ortho_splat(spheres, camera_position, look_at, view_up,
+                       vertical_extent: float, length: float, resolution_x: int,
+                       resolution_y: int, weights=None, tile_w: int = 32,
+                       tile_h: int = 128, chunk: int = 512, band: int | None = 32,
+                       basis: str = "deg8"):
+    """One-call orthographic column-density render. Returns (image f32[H, W],
+    overflow bool[]). image[j, i] matches the cumulative trace of
+    ``orthographic_projection_rays`` ray j * W + i to the basis-fit
+    tolerance."""
+    buckets = bucket_prims_ortho(
+        spheres, camera_position, look_at, view_up, vertical_extent, length,
+        resolution_x, resolution_y, tile_w=tile_w, tile_h=tile_h, chunk=chunk,
+        weights=weights, band=band)
+    img = splat_image(buckets, tile_w=tile_w, tile_h=tile_h, basis=basis)
+    return img, buckets.overflow

@@ -1,0 +1,107 @@
+"""The CUDA kernels of grace_tpu_torch against their plain PyTorch versions.
+
+Needs a CUDA card: every test here carries the ``cuda`` marker and skips
+without one (a hand-written kernel has no CPU mode). The file imports
+neither JAX nor grace_tpu, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(``--noconftest``: the suite's conftest imports JAX for the parity tests.)
+Hit counts must be exact; column densities within rtol 1e-5 (the kernel
+sums the same f32 terms as the plain version, in another order); splat
+images within 1e-5 x max.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bench import make_clustered_particles
+from grace_tpu_torch.build.sph import build_sph_tree
+from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
+from grace_tpu_torch.trace import pallas_kernel as pk
+from grace_tpu_torch.trace import splat as sp
+from grace_tpu_torch.trace.pallas_broadphase import dense_tile_masks_quarter
+
+CAM = (0.5, 0.5, -2.0)
+LOOK = (0.5, 0.5, 0.5)
+UP = (0.0, 1.0, 0.0)
+SPLAT_TILE = dict(tile_w=32, tile_h=128)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def scene(dev):
+    """3000 clustered particles, Morton-sorted, and 50x39 sorted ortho rays
+    over a wide view (1950 rays: no tile multiple; some tiles and bands
+    see no particle)."""
+    spheres = torch.from_numpy(make_clustered_particles(np.random.default_rng(7), 3000))
+    ss, _, _ = build_sph_tree(spheres.to(dev), 16)
+    rays = orthographic_projection_rays(50, 39, CAM, LOOK, UP, 4.0, 6.0, device=dev)
+    rays_s, _, _ = spatial_sort_rays(rays)
+    return ss, rays_s
+
+
+def _trace_inputs(rays, spheres, tile):
+    rays = pk._pad_rays(rays, tile)
+    packed, _ = pk._pack_rays(rays, tile)
+    prims, _ = pk._pack_prims(spheres)
+    words, summary = dense_tile_masks_quarter(rays, spheres, tile)
+    return summary, words, packed, prims
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [128, 96])
+@pytest.mark.parametrize("mode,deg", [("hitcount", 14), ("cumulative", 14),
+                                      ("cumulative", 8), ("cumulative", -10),
+                                      ("cumulative", -12)])
+def test_trace_quarter_kernel_matches_plain(scene, tile, mode, deg):
+    ss, rays_s = scene
+    summary, words, packed, prims = _trace_inputs(rays_s, ss, tile)
+    assert rays_s.n_rays % tile and bool((words == 0).all(dim=1).any())
+    before = pk.trace_quarter.launches
+    got = pk.trace_quarter(summary, words, packed, prims, deg, mode)
+    assert pk.trace_quarter.launches == before + 1
+    want = pk._trace_quarter_plain(summary, words, packed, prims, deg, mode)
+    torch.cuda.synchronize()
+    if mode == "hitcount":
+        assert want.sum() > 0 and torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis", ["deg8", "deg10"])
+@pytest.mark.parametrize("band", [32, None])
+def test_splat_kernel_matches_plain(scene, basis, band):
+    ss, _ = scene
+    b = sp.bucket_prims_ortho(ss, CAM, LOOK, UP, 4.0, 6.0, 128, 128, chunk=256,
+                              band=band, **SPLAT_TILE)
+    assert bool((b.first == b.last).any())              # a band with no instance
+    before = sp.splat_image.launches
+    got = sp.splat_image(b, basis=basis, **SPLAT_TILE)
+    assert sp.splat_image.launches == before + 1
+    _, a, c = SPLAT_BASES[basis]
+    want = sp._splat_plain(b, SPLAT_TILE["tile_w"], band or SPLAT_TILE["tile_h"],
+                           np.asarray(a, np.float32), np.asarray(c, np.float32))
+    torch.cuda.synchronize()
+    assert want.max() > 0
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(scene):
+    ss, rays_s = scene
+    summary, words, packed, prims = _trace_inputs(rays_s, ss, 2048)
+    with pytest.raises(ValueError, match="rays per block"):
+        pk.trace_quarter(summary, words, packed, prims, 14, "cumulative")
+    with pytest.raises(ValueError, match="several devices"):
+        pk.trace_quarter(summary.cpu(), words, packed, prims, 14, "cumulative")
