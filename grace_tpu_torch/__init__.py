@@ -3,9 +3,11 @@
 The port of ``grace_tpu`` to an NVIDIA H100: the same subpackages and
 public names, PyTorch tensors in place of JAX arrays, and hand-written CUDA
 kernels (``csrc/``, built with nvcc at first use) in place of the Pallas
-kernels. It imports neither JAX nor ``grace_tpu``. The slice ported so far
-is the column-density render: LBVH build, orthographic rays and spatial
-sort, splat bucketing, splat image, and the quarter-culled fused trace.
+kernels. It imports neither JAX nor ``grace_tpu``. Ported so far: the
+column-density render (LBVH build, orthographic rays and spatial sort,
+splat bucketing, splat image), the fused trace on every broadphase route,
+and the generic BVH engine with its SPH hit-count and column-density
+facades.
 """
 
 from grace_tpu_torch.core.types import Octants, Rays, RaySortType, make_spheres
@@ -21,6 +23,7 @@ from grace_tpu_torch.build.sph import (
 )
 from grace_tpu_torch.rays import gen as ray_gen
 from grace_tpu_torch.trace.pallas_kernel import pallas_trace_sph
+from grace_tpu_torch.trace.sph import trace_cumulative_sph, trace_hitcounts_sph
 from grace_tpu_torch.trace.splat import bucket_prims_ortho, render_ortho_splat, splat_image
 
 __version__ = "0.1.0"

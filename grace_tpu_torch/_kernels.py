@@ -13,6 +13,7 @@ Nothing here runs at import: the CPU tests import every module.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -33,10 +34,15 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # are "p" (device pointer) and "i" (int); the device index and the stream
 # follow them.
 KERNELS = {
-    # --fmad=false: the hit test must round b^2 exactly as the plain
-    # version does; the fused multiply-adds it wants are written as fmaf.
+    # --fmad=false (the trace kernels): the hit test must round b^2 exactly
+    # as the plain version does; the fused multiply-adds it wants are
+    # written as fmaf.
     "trace_quarter": ("trace_quarter.cu", ["--fmad=false"],
                       {"grace_trace_quarter": "pppppp" + "iiiiiii"}),
+    "trace_bitmask": ("trace_bitmask.cu", ["--fmad=false"],
+                      {"grace_trace_bitmask": "ppppp" + "iiiiii"}),
+    "trace_list": ("trace_list.cu", ["--fmad=false"],
+                   {"grace_trace_list": "pppppp" + "iiiiiii"}),
     "splat": ("splat.cu", [],
               {"grace_splat": "pppppppppp" + "iiiiiiiiii"}),
 }
@@ -82,6 +88,13 @@ def build(name: str) -> tuple[str, float, str]:
         raise RuntimeError(f"nvcc failed for {source}:\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, lib)
     return lib, seconds, log
+
+
+def build_all() -> dict:
+    """Build every kernel library at once, one nvcc process each. Returns
+    {name: (library path, seconds, nvcc's output)}."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build, KERNELS)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,24 +16,18 @@
 // quarter. The slabs (8 x N_pad f32, 33.6 MB at a million particles) fit
 // the 50 MB L2, so after the first tiles the staging loads come from L2.
 // What the design does about it: all 32 quarters a word lists are staged
-// in shared memory at once (5 rows x 1024 f32 = 20 KB), so one pair of
-// barriers serves up to 1024 primitives, and the threads of a warp read
-// the same staged primitive at once (a broadcast, no bank conflicts). The
-// control flow is block-uniform, so no warp diverges on the mask walk.
-// Cumulative sums are Kahan-compensated, so the result does not depend on
-// the order the primitives are visited in beyond f32 rounding of each term.
+// in shared memory at once (stage.cuh: 1024 primitives, 20 KB), so one
+// pair of barriers serves up to 1024 primitives. The control flow is
+// block-uniform, so no warp diverges on the mask walk.
 
 #include <cstdint>
 
 #include "common.cuh"
-#include "seg_compute.cuh"
+#include "stage.cuh"
 
 namespace {
 
-constexpr int kWordQuarters = 32;      // quarters per mask word
-constexpr int kQuarterPrims = 32;      // primitives per quarter
-constexpr int kStage = kWordQuarters * kQuarterPrims;
-constexpr int kMaxCoeffs = 32;
+constexpr int kQuarterPrims = 32;  // primitives per quarter; 32 quarters a word
 
 __global__ void trace_quarter_kernel(const int32_t* __restrict__ summary,
                                      const int32_t* __restrict__ words,
@@ -43,18 +37,14 @@ __global__ void trace_quarter_kernel(const int32_t* __restrict__ summary,
                                      float* __restrict__ out, int n_swords,
                                      int n_words, int n_pad, int deg,
                                      int mode) {
-    __shared__ float s_x[kStage], s_y[kStage], s_z[kStage];
-    __shared__ float s_inv_h2[kStage], s_h2[kStage];
+    __shared__ StagedPrims s;
     __shared__ float s_coeffs[kMaxCoeffs];
 
     const int tile = blockDim.x;
     const int tid = threadIdx.x;
     const int64_t ray = static_cast<int64_t>(blockIdx.x) * tile + tid;
-    const int n_coeffs = (deg < 0 ? -deg : deg) + 1;
-    for (int i = tid; i < n_coeffs; i += tile) s_coeffs[i] = coeffs[i];
-
-    const float* rr = rays + ray * 16;
-    const RaySeg r = {rr[0], rr[1], rr[2], rr[3], rr[4], rr[5], rr[9]};
+    load_coeffs(s_coeffs, coeffs, deg);
+    const RaySeg r = load_ray(rays, ray);
     const int32_t* srow = summary + static_cast<int64_t>(blockIdx.x) * n_swords;
     const int32_t* wrow = words + static_cast<int64_t>(blockIdx.x) * n_words;
 
@@ -73,24 +63,12 @@ __global__ void trace_quarter_kernel(const int32_t* __restrict__ summary,
             for (int i = tid; i < n_prims; i += tile) {
                 unsigned m = word;  // the (i / 32)-th set bit of word
                 for (int k = i / kQuarterPrims; k > 0; --k) m &= m - 1;
-                const int q = w * kWordQuarters + __ffs(m) - 1;
-                const int p = q * kQuarterPrims + (i % kQuarterPrims);
-                const bool ok = p < n_pad;  // padding bits are never set
-                s_x[i] = ok ? __ldg(prims + p) : 0.0f;
-                s_y[i] = ok ? __ldg(prims + n_pad + p) : 0.0f;
-                s_z[i] = ok ? __ldg(prims + 2 * n_pad + p) : 0.0f;
-                s_inv_h2[i] = ok ? __ldg(prims + 4 * static_cast<int64_t>(n_pad) + p) : 0.0f;
-                s_h2[i] = ok ? __ldg(prims + 5 * static_cast<int64_t>(n_pad) + p) : 0.0f;
+                const int q = w * 32 + __ffs(m) - 1;
+                stage_prim(s, i, prims, n_pad,
+                           static_cast<int64_t>(q) * kQuarterPrims + (i % kQuarterPrims));
             }
             __syncthreads();
-            for (int i = 0; i < n_prims; ++i) {
-                const float v = seg_pair(r, s_x[i], s_y[i], s_z[i], s_inv_h2[i],
-                                         s_h2[i], mode, s_coeffs, deg);
-                const float y = v - comp;
-                const float t = acc + y;
-                comp = (t - acc) - y;
-                acc = t;
-            }
+            accumulate_staged(s, n_prims, r, mode, s_coeffs, deg, acc, comp);
         }
     }
     out[ray] = acc;
@@ -104,9 +82,7 @@ extern "C" int grace_trace_quarter(const int32_t* summary, const int32_t* words,
                                    int tile, int n_swords, int n_words,
                                    int n_pad, int deg, int mode, int device,
                                    void* stream) {
-    if (tile < 1 || tile > 1024 || (deg < 0 ? -deg : deg) + 1 > kMaxCoeffs) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (!trace_launch_ok(tile, deg)) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n_tiles > 0) {

@@ -5,7 +5,9 @@ Every ray tile's AABB is tested against every ``block``-primitive segment
 of the Morton-sorted particle array, and the overlaps are packed into i32
 bitmask words (bit s of word w = segment w*32+s). Segments are processed
 ``seg_block`` at a time, so the dense bool matrix is never larger than
-n_tiles x seg_block. Words and summaries are bit-exact with ``grace_tpu``.
+n_tiles x seg_block. ``compact_mask_words`` turns words into per-tile
+ascending id lists (``quarter_lists``, ``dense_tile_segments``). Words,
+summaries and lists are bit-exact with ``grace_tpu``.
 """
 
 from __future__ import annotations
@@ -93,3 +95,60 @@ def dense_tile_masks_quarter(rays: Rays, spheres, tile: int, seg_block: int = 81
     words = masks_for_tile_aabbs(tmin, tmax, spheres, seg_block, block=32)
     summary = pack_overlap_bits(words != 0)
     return words, summary
+
+
+def _popcount32(v: torch.Tensor) -> torch.Tensor:
+    """Per-element popcount of i32 words (SWAR, on the unsigned value)."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def compact_mask_words(words: torch.Tensor, max_q: int, rows: int = 1024):
+    """Set-bit compaction of bitmask words into per-tile id lists.
+
+    ``grace_tpu``'s form is gather-free one-hot matmuls, a TPU workaround;
+    here the bits are unpacked and each set bit is scattered to its rank
+    (a running count along the row), ``rows`` tiles at a time to bound the
+    [rows, n_words * 32] intermediates.
+
+    Returns (ids i32[T, max_q]: the set-bit ids (bit b of word w is id
+    w*32+b) in ascending order, the first max_q kept, zero-padded;
+    n i32[T] = min(count, max_q); overflow bool[T] = count > max_q).
+    """
+    n_tiles, n_words = words.shape
+    dev = words.device
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    ids = torch.zeros((n_tiles, max_q + 1), dtype=torch.int32, device=dev)
+    counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    bit_ids = torch.arange(n_words * 32, dtype=torch.int32, device=dev)
+    for r0 in range(0, n_tiles, rows):
+        w = words[r0:r0 + rows]
+        bits = ((w[:, :, None] >> shifts) & 1).reshape(w.shape[0], -1)
+        rank = torch.cumsum(bits, dim=1, dtype=torch.int32) - 1
+        slot = torch.where((bits == 1) & (rank < max_q), rank, max_q).long()
+        ids[r0:r0 + rows].scatter_(1, slot, bit_ids.expand_as(slot))
+        counts[r0:r0 + rows] = bits.sum(dim=1, dtype=torch.int32)
+    # the spare column took the unset bits and the ranks past max_q
+    return ids[:, :max_q].contiguous(), torch.clamp(counts, max=max_q), counts > max_q
+
+
+def quarter_lists(rays: Rays, spheres, tile: int, max_q: int = 512,
+                  seg_block: int = 8192):
+    """Per-tile ascending quarter-id lists (the ``broadphase="qlist"``
+    product): quarter-granularity cull, then set-bit compaction. Returns
+    (q_ids i32[n_tiles, max_q], n_q i32[n_tiles], overflow bool[n_tiles])."""
+    tmin, tmax = tile_aabbs(rays, tile)
+    words = masks_for_tile_aabbs(tmin, tmax, spheres, seg_block, block=32)
+    return compact_mask_words(words, max_q)
+
+
+def dense_tile_segments(rays: Rays, spheres, tile: int, max_chunks: int):
+    """Per-tile ascending, unique 128-primitive segment ids by dense
+    culling. Returns (seg_ids i32[n_tiles, max_chunks], n_segs
+    i32[n_tiles], overflow bool[n_tiles])."""
+    tmin, tmax = tile_aabbs(rays, tile)
+    words = masks_for_tile_aabbs(tmin, tmax, spheres)
+    return compact_mask_words(words, max_chunks)

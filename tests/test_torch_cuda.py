@@ -7,9 +7,10 @@ neither JAX nor grace_tpu, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest``: the suite's conftest imports JAX for the parity tests.)
-Hit counts must be exact; column densities within rtol 1e-5 (the kernel
-sums the same f32 terms as the plain version, in another order); splat
-images within 1e-5 x max.
+Hit counts must be exact; column densities within rtol 1e-5 (the kernels
+sum the same f32 terms as the plain versions, in another order); splat
+images within 1e-5 x max. Kernels: trace_quarter, trace_bitmask,
+trace_list (quarter and segment lists, with overflow), splat.
 """
 
 import numpy as np
@@ -22,7 +23,8 @@ from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_
 from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
 from grace_tpu_torch.trace import pallas_kernel as pk
 from grace_tpu_torch.trace import splat as sp
-from grace_tpu_torch.trace.pallas_broadphase import dense_tile_masks_quarter
+from grace_tpu_torch.trace.pallas_broadphase import (
+    dense_tile_masks, dense_tile_masks_quarter, dense_tile_segments, quarter_lists)
 
 CAM = (0.5, 0.5, -2.0)
 LOOK = (0.5, 0.5, 0.5)
@@ -78,6 +80,61 @@ def test_trace_quarter_kernel_matches_plain(scene, tile, mode, deg):
                                    atol=1e-6 * float(want.abs().max()))
 
 
+MODE_DEGS = [("hitcount", 14), ("cumulative", 14), ("cumulative", 8),
+             ("cumulative", -10), ("cumulative", -12)]
+
+
+def _assert_kernel_matches(got, want, mode):
+    torch.cuda.synchronize()
+    if mode == "hitcount":
+        assert want.sum() > 0 and torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [128, 96, 8])
+@pytest.mark.parametrize("mode,deg", MODE_DEGS)
+def test_trace_bitmask_kernel_matches_plain(scene, tile, mode, deg):
+    ss, rays_s = scene
+    rays = pk._pad_rays(rays_s, tile)
+    packed, _ = pk._pack_rays(rays, tile)
+    prims, _ = pk._pack_prims(ss)
+    words = dense_tile_masks(rays, ss, tile)
+    assert rays_s.n_rays % tile and bool((words == 0).all(dim=1).any())
+    before = pk.trace_bitmask.launches
+    got = pk.trace_bitmask(words, packed, prims, deg, mode)
+    assert pk.trace_bitmask.launches == before + 1
+    _assert_kernel_matches(got, pk._trace_bitmask_plain(words, packed, prims, deg, mode),
+                           mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [128, 96])
+@pytest.mark.parametrize("route", ["qlist", "list"])
+@pytest.mark.parametrize("mode,deg", MODE_DEGS)
+def test_trace_list_kernel_matches_plain(scene, tile, route, mode, deg):
+    """Quarter lists (group 32) and segment lists (group 128), each with a
+    capacity small enough that some tiles overflow."""
+    ss, rays_s = scene
+    rays = pk._pad_rays(rays_s, tile)
+    packed, _ = pk._pack_rays(rays, tile)
+    prims, _ = pk._pack_prims(ss)
+    if route == "qlist":
+        ids, n, ovf = quarter_lists(rays, ss, tile, max_q=16)
+        group = 32
+    else:
+        ids, n, ovf = dense_tile_segments(rays, ss, tile, 4)
+        group = 128
+    assert bool(ovf.any()) and bool((n == 0).any())
+    before = pk.trace_list.launches
+    got = pk.trace_list(n, ids, packed, prims, group, deg, mode)
+    assert pk.trace_list.launches == before + 1
+    _assert_kernel_matches(
+        got, pk._trace_list_plain(n, ids, packed, prims, group, deg, mode), mode)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("basis", ["deg8", "deg10"])
 @pytest.mark.parametrize("band", [32, None])
@@ -105,3 +162,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(scene):
         pk.trace_quarter(summary, words, packed, prims, 14, "cumulative")
     with pytest.raises(ValueError, match="several devices"):
         pk.trace_quarter(summary.cpu(), words, packed, prims, 14, "cumulative")
+    masks = dense_tile_masks(pk._pad_rays(rays_s, 2048), ss, 2048)
+    with pytest.raises(ValueError, match="rays per block"):
+        pk.trace_bitmask(masks, packed, prims, 14, "cumulative")
+    with pytest.raises(ValueError, match="words per tile"):
+        pk.trace_bitmask(masks[:, 1:], packed[:1024], prims, 14, "cumulative")
+    with pytest.raises(TypeError):
+        pk.trace_bitmask(masks.long(), packed, prims, 14, "cumulative")
+    n = torch.ones(1, dtype=torch.int32, device=ss.device)
+    ids = torch.zeros((1, 4), dtype=torch.int32, device=ss.device)
+    with pytest.raises(ValueError, match="rays per block"):
+        pk.trace_list(n, ids, packed, prims, 128, 14, "cumulative")
+    with pytest.raises(ValueError, match="group"):
+        pk.trace_list(n, ids, packed[:1024], prims, 64, 14, "cumulative")
+    with pytest.raises(ValueError, match="several devices"):
+        pk.trace_list(n.cpu(), ids, packed[:1024], prims, 128, 14, "cumulative")
+    with pytest.raises(ValueError, match="unknown mode"):
+        pk.trace_list(n, ids, packed[:1024], prims, 128, 14, "closest")

@@ -21,6 +21,7 @@ from grace_tpu.rays.gen import orthographic_projection_rays, spatial_sort_rays
 import grace_tpu_torch.trace.pallas_broadphase as tpb
 import grace_tpu_torch.trace.pallas_kernel as tpk
 from grace_tpu_torch import convert
+from tests.helper.torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CAM = (0.5, 0.5, -2.0)
 LOOK = (0.5, 0.5, 0.5)
@@ -116,12 +117,37 @@ def test_pallas_trace_sph_quarter(scene, mode, deg, tile, vmem):
 
 
 def test_other_broadphases_not_ported(scene):
-    _, _, _, ss_t, rays_t = scene
-    for bp in ("dense", "bitmask", "qlist", "xla", "list"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpk.pallas_trace_sph(rays_t, ss_t, broadphase=bp)
+    """Every route is ported now: none raises NotImplementedError (each is
+    held against grace_tpu by test_torch_trace_routes.py and
+    test_torch_trace_lists.py); an unknown mode still raises ValueError."""
+    _, tree, _, ss_t, rays_t = scene
+    tree_t = convert.tree_from_numpy(
+        *(np.asarray(x) for x in (tree.children, tree.child_aabbs, tree.leaves,
+                                  tree.root, tree.n_nodes, tree.n_leaves)),
+        tree.max_per_leaf)
+    for bp in ("dense", "bitmask", "qlist", "xla", "list", "pallas"):
+        values, overflow = tpk.pallas_trace_sph(rays_t, ss_t, tree_t, tile=128,
+                                                broadphase=bp, max_chunks=64)
+        assert values.shape == (rays_t.n_rays,) and overflow.shape == (13,)
     with pytest.raises(ValueError):
         tpk.pallas_trace_sph(rays_t, ss_t, broadphase="quarter", mode="closest")
+
+
+def test_negative_vmem_limit_streams(scene):
+    """A negative vmem_resident_limit is grace_tpu's streaming regime: the
+    quarter route returns what grace_tpu's streaming kernel returns, and
+    qlist raises grace_tpu's ValueError."""
+    ss, tree, rays_s, ss_t, rays_t = scene
+    vj, _ = jpk.pallas_trace_sph(rays_s, ss, tree, tile=64, mode="hitcount",
+                                 interpret=True, broadphase="quarter",
+                                 vmem_resident_limit=-1)
+    vt, _ = tpk.pallas_trace_sph(rays_t, ss_t, tile=64, mode="hitcount",
+                                 broadphase="quarter", vmem_resident_limit=-1)
+    assert np.asarray(vj).sum() > 0 and np.array_equal(np.asarray(vj), vt.numpy())
+    for pallas_trace_sph, s, r in ((jpk.pallas_trace_sph, ss, rays_s),
+                                   (tpk.pallas_trace_sph, ss_t, rays_t)):
+        with pytest.raises(ValueError, match="qlist"):
+            pallas_trace_sph(r, s, tile=64, broadphase="qlist", vmem_resident_limit=-1)
 
 
 def test_trace_quarter_rejects_mixed_devices(scene):
