@@ -18,12 +18,25 @@ rays), each with the kernels' launch counters set to 0 just before it:
      (CUDA), the qlist route and the list route (CUDA), in both modes, with
      list capacities sized from the measured maximum per tile; every
      route's hit counts must equal the quarter kernel's and its column
-     densities agree within rtol 1e-5, atol 1e-6 x max.
+     densities agree within rtol 1e-5, atol 1e-6 x max;
+  3. training: one step of the sort-free splat trainer (forward and
+     backward on CUDA, L2 loss against 1.01 x the trace image, SGD 1e-6)
+     and one of the fused differentiable renderer on the sorted rays
+     (forward and backward on CUDA); losses and updates finite, the
+     sort-free image within 1e-4 x max of the bucketed splat and within the
+     1e-3 gate of the trace, the fused forward within 5e-4 x max of the
+     trace, no overflow and no NaN poison.
+
+Before the main paths, the training kernels are held against their plain
+versions at edge shapes (a particle count that is not a multiple of 128,
+dead particles, tiles with no segment, a particle that covers every tile,
+tile_w 16 and 32, both bases, list overflow) and both trainers against
+directional finite differences.
 
 Prints stage and kernel times (CUDA events, warm, median) with the card's
-name and power limit, a JSON line describing each kernel, and last a JSON
-line with ``"ok": true``. Any failure raises, so the exit code is non-zero
-and no result line prints.
+name and power limit, the work each kernel's bound is computed from, a JSON
+line describing each kernel, and last a JSON line with ``"ok": true``. Any
+failure raises, so the exit code is non-zero and no result line prints.
 """
 
 import json
@@ -49,8 +62,34 @@ GATE = 1e-3
 MODE_DEGS = (("hitcount", 14), ("cumulative", 14), ("cumulative", -10),
              ("cumulative", 8), ("cumulative", -12))
 PK = "grace_tpu/trace/pallas_kernel.py"
+# The card's peaks for the bounds: 67 TFLOP/s FP32 outside the tensor cores
+# and 3.35 TB/s of HBM (NVIDIA's H100 SXM data sheet, 700 W).
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# Flops a kernel needs, by the operations of its source: a (ray, particle)
+# test (3 subtractions, 6 fmas, 2 products, 3 compares: 22); per hit the
+# degree-14 Horner integral with its prefactor (38), the fast Clenshaw F
+# with the weight (42), or F, dF/db2 and the five gradient sums (122).
+FLOPS_PAIR = 22
+FLOPS_HIT_H14 = 38
+FLOPS_HIT_FAST = 42
+FLOPS_HIT_FAST_BWD = 122
 
 _GPU = None
+
+
+def make_clustered_particles(rng, n):
+    """Gadget-like clustered distribution: Plummer-ish clumps in a unit box
+    (the bench scene's particles; the same draws as ``bench.py``'s copy)."""
+    n_clumps = 256
+    centers = rng.random((n_clumps, 3)).astype(np.float32)
+    assign = rng.integers(0, n_clumps, n)
+    scale = 0.02 + 0.05 * rng.random((n_clumps, 1)).astype(np.float32)
+    pos = centers[assign] + rng.standard_normal((n, 3)).astype(np.float32) * scale[assign]
+    pos = np.clip(pos, 0.0, 1.0)
+    # smoothing length ~ local density proxy
+    h = (0.005 + 0.01 * rng.random(n)).astype(np.float32)
+    return np.concatenate([pos, h[:, None]], axis=1).astype(np.float32)
 
 
 def log(msg):
@@ -154,7 +193,6 @@ def route_inputs(route, rays, spheres, tree, tile, max_chunks=2048, stack_size=1
 def small_checks(dev):
     """Kernels vs plain versions at small and edge shapes; every route vs
     the generic engine."""
-    from bench import make_clustered_particles
     from grace_tpu_torch.build.sph import build_sph_tree
     from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
     from grace_tpu_torch.trace.splat import bucket_prims_ortho
@@ -295,6 +333,276 @@ def entry_check(dev):
     return args
 
 
+def training_scene(dev, whole_image, n=3000, seed=11):
+    """Edge scene of the training kernels: n clustered particles (not a
+    multiple of 128), Morton-sorted; 5 with h = 0 and 3 beyond the far
+    plane (dead); with ``whole_image``, particle 100 at the center with
+    h = 5, whose segment covers every tile. Returns (spheres, weights)."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+
+    sp = make_clustered_particles(np.random.default_rng(seed), n)
+    ss, _, _ = build_sph_tree(torch.from_numpy(sp).to(dev), 16)
+    ss = ss.clone()
+    ss[:5, 3] = 0.0
+    ss[5:8, 2] = 50.0
+    if whole_image:
+        ss[100] = torch.tensor([0.5, 0.5, 0.5, 5.0], device=dev)
+    w = np.random.default_rng(seed + 1).random(n).astype(np.float32) + 0.5
+    return ss, torch.from_numpy(w).to(dev)
+
+
+def sortfree_inputs(spheres, weights, cam, tile_w, tile_h=128):
+    """(masks, transposed masks, coords, slabs) of the sort-free splat, as
+    splat_forward_sortfree and splat_backward_sortfree prepare them."""
+    from grace_tpu_torch.trace import splat_grad as sg
+    from grace_tpu_torch.trace.pallas_broadphase import pack_overlap_bits
+
+    proj = sg.project_ortho(spheres, weights, cam)
+    overlap = sg.projected_overlap(*proj, cam, tile_w, tile_h)
+    return (pack_overlap_bits(overlap), pack_overlap_bits(overlap.t()),
+            sg._coords(cam, spheres.device), sg.pack_proj_slabs(*proj))
+
+
+def check_sortfree(tag, inputs, g_image, basis, tile_w, bwd_rel, tile_h=128):
+    """Both sort-free kernels against their plain versions: the image
+    within 1e-5 x max (f32 sums in another order); each gradient row
+    within ``bwd_rel`` x its max (grace_tpu's gradient bounds: 3e-5, and
+    5e-4 where a footprint covers the whole image). Returns the max abs
+    errors (image, gradients)."""
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    masks, masks_t, coords, slabs = inputs
+    deg, a_c, b_c = sg._basis_coeffs(basis)
+    height, width = g_image.shape
+    ntx = width // tile_h
+    got = sg.splat_sortfree_fwd(masks, coords, slabs, basis, tile_w, tile_h, height, width)
+    want = sg._sortfree_fwd_plain(masks, coords, slabs, a_c, b_c, ntx, tile_w, tile_h,
+                                  height, width)
+    torch.cuda.synchronize()
+    err_f, top = check_close(f"{tag} splat_sortfree_fwd {basis}", got, want, 0.0,
+                             1e-5 * float(want.abs().max()))
+    got = sg.splat_sortfree_bwd(masks_t, coords, slabs, g_image, basis, tile_w, tile_h)
+    want = sg._sortfree_bwd_plain(masks_t, coords, slabs, g_image, a_c, b_c, ntx, tile_w,
+                                  tile_h)
+    torch.cuda.synchronize()
+    err_b = 0.0
+    for r in range(4):
+        scale = float(want[:, r].abs().max())
+        err_b = max(err_b, check_close(f"{tag} splat_sortfree_bwd {basis} row {r}",
+                                       got[:, r], want[:, r], 0.0, bwd_rel * scale)[0])
+    if not torch.equal(got[:, 4:], torch.zeros_like(got[:, 4:])):
+        raise AssertionError(f"{tag} splat_sortfree_bwd: padding rows not zero")
+    log(f"check splat_sortfree kernels vs plain: {tag} tile_w {tile_w} {basis}: image "
+        f"max abs err {err_f:.3g} (max value {top:.3g}), gradients max abs err {err_b:.3g} OK")
+    return err_f, err_b
+
+
+def render_inputs(rays, spheres, weights, g, tile, max_chunks, max_tiles):
+    """((fwd args), fwd overflow, (bwd args), bwd overflow) of the fused
+    renderer's kernels, as _fused_forward and _fused_backward prepare them."""
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import pallas_render as pr
+    from grace_tpu_torch.trace.pallas_broadphase import dense_tile_segments
+
+    ids, n, ovf = dense_tile_segments(rays, spheres, tile, max_chunks)
+    t_ids, n_t, ovf_t = pr.dense_segment_tiles(rays, spheres, pr.BWD_TILE, max_tiles)
+    return ((n, ids, pk._pack_rays(rays, tile)[0], pr._pack_prims_3d(spheres, weights)[0]),
+            ovf, (n_t, t_ids, pr._pack_prims_sub(spheres, weights)[0],
+                  pr._pack_rays_bwd(rays, g)[0]), ovf_t)
+
+
+def check_render(tag, fwd_args, bwd_args):
+    """Both fused-render kernels against their plain versions: column
+    densities within rtol 1e-5, atol 1e-6 x max; each gradient column
+    within 1e-5 x its max (the fused gradients' bound against grace_tpu).
+    Returns the max abs errors (values, gradients)."""
+    from grace_tpu_torch.trace import pallas_render as pr
+
+    got = pr.render_fwd(*fwd_args)
+    want = pr._render_fwd_plain(*fwd_args)
+    torch.cuda.synchronize()
+    err_f, top = check_close(f"{tag} render_fwd", got, want, 1e-5,
+                             1e-6 * float(want.abs().max()))
+    got = pr.render_bwd(*bwd_args)
+    want = pr._render_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    err_b = 0.0
+    for c in range(8):
+        scale = float(want[..., c].abs().max())
+        err_b = max(err_b, check_close(f"{tag} render_bwd column {c}", got[..., c],
+                                       want[..., c], 0.0, 1e-5 * scale)[0])
+    log(f"check render kernels vs plain: {tag}: values max abs err {err_f:.3g} (max value "
+        f"{top:.3g}), gradients max abs err {err_b:.3g} OK")
+    return err_f, err_b
+
+
+def directional_fd(name, loss, x0, grad, eps, floor, seed=7, n_dirs=4):
+    """Central differences of ``loss`` along random unit directions against
+    the autograd gradient, rtol 2e-2; directions whose derivative is below
+    ``floor`` (the f32 noise of the difference) are skipped. Raises unless
+    at least two are checked."""
+    rng = np.random.default_rng(seed)
+    checked = []
+    for _ in range(n_dirs):
+        d = torch.from_numpy(rng.standard_normal(tuple(x0.shape))).to(x0.device)
+        d /= d.norm()
+        with torch.no_grad():
+            fd = (float(loss((x0.double() + eps * d).float()))
+                  - float(loss((x0.double() - eps * d).float()))) / (2 * eps)
+        gd = float((grad.double() * d).sum())
+        if abs(gd) < floor:
+            continue
+        if abs(gd - fd) > 2e-2 * abs(fd):
+            raise AssertionError(f"finite differences {name}: autograd {gd:.6g} vs {fd:.6g}")
+        checked.append(f"{gd:.4g}/{fd:.4g}")
+    if len(checked) < 2:
+        raise AssertionError(f"finite differences {name}: {len(checked)} directions checked")
+    log(f"check finite differences {name}: autograd/central {', '.join(checked)} OK")
+
+
+def fd_checks(dev):
+    """Both trainers against directional finite differences on the card,
+    on grace_tpu's test scenes: 64 particles in a 128x64 image (weights
+    1e-3, mean-square loss), and 800 particles with 32x32 rays (a mean
+    square against a random target, summed in f64)."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+    from grace_tpu_torch.trace import pallas_render as pr
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    rng = np.random.default_rng(1234)
+    pos = (0.15 + 0.7 * rng.random((64, 3))).astype(np.float32)
+    h = (0.03 + 0.08 * rng.random(64)).astype(np.float32)
+    h[:5] = 0.0
+    pos[5:8, 2] = 50.0
+    s0 = torch.from_numpy(np.concatenate([pos, h[:, None]], axis=1)).to(dev)
+    w0 = torch.from_numpy((0.5 + rng.random(64)).astype(np.float32) * 1e-3).to(dev)
+    cam = sg.OrthoCamera(CAM, LOOK, UP, 1.4, LENGTH, 128, 64)
+    render = sg.make_splat_trainer(cam, tile_w=16, tile_h=128)
+    loss = lambda s: (render(s, w0).double() ** 2).mean()
+    s = s0.clone().requires_grad_(True)
+    loss(s).backward()
+    directional_fd("splat trainer (spheres)", loss, s0, s.grad, 2e-4, 1e-4)
+
+    sp = np.concatenate([0.2 + 0.6 * rng.random((800, 3)), 0.04 + 0.05 * rng.random((800, 1))],
+                        axis=1).astype(np.float32)
+    ss, _, _ = build_sph_tree(torch.from_numpy(sp).to(dev), 16)
+    w = torch.from_numpy((0.5 + rng.random(800)).astype(np.float32)).to(dev)
+    rays, _, _ = spatial_sort_rays(orthographic_projection_rays(32, 32, CAM, LOOK, UP, 1.2,
+                                                                LENGTH, device=dev))
+    tgt = torch.from_numpy(rng.standard_normal(1024)).to(dev)
+    fused = pr.make_fused_renderer(tile=64, max_chunks=64)
+    loss2 = lambda s, ww: ((fused(rays, s, ww).double() * 1e-3 - tgt) ** 2).mean()
+    s = ss.clone().requires_grad_(True)
+    ww = w.clone().requires_grad_(True)
+    loss2(s, ww).backward()
+    directional_fd("fused renderer (spheres)", lambda x: loss2(x, w), ss, s.grad, 1e-3, 1e-2)
+    directional_fd("fused renderer (weights)", lambda x: loss2(ss, x), w, ww.grad, 1e-2, 1e-3)
+
+
+def training_small_checks(dev):
+    """The four training kernels against their plain versions at edge
+    shapes, the fused renderer's overflow contracts, and both trainers
+    against finite differences."""
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+    from grace_tpu_torch.trace import pallas_render as pr
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    gen = torch.Generator().manual_seed(5)
+    # A wide view (extent 4 around the unit box) leaves tiles with no segment.
+    cam = sg.OrthoCamera(CAM, LOOK, UP, 4.0, LENGTH, 256, 128)
+    g_image = torch.randn(128, 256, generator=gen).to(dev)
+    rays, _, _ = spatial_sort_rays(orthographic_projection_rays(64, 64, CAM, LOOK, UP, 4.0,
+                                                                LENGTH, device=dev))
+    g_rays = torch.randn(rays.n_rays, generator=gen).to(dev)
+    for whole in (False, True):
+        ss, w = training_scene(dev, whole)
+        tag = "whole-image particle" if whole else "dead particles, empty tiles"
+        for tile_w in (16, 32):
+            inputs = sortfree_inputs(ss, w, cam, tile_w)
+            masks, masks_t, _, slabs = inputs
+            seg_tiles = _popcount_rows(masks_t)
+            if ss.shape[0] % 128 == 0 or not bool((slabs[:, 3] == 0).any()):
+                raise AssertionError("edge case lost: whole segments or no dead particle")
+            if whole != bool((seg_tiles == masks.shape[0]).any()):
+                raise AssertionError("edge case lost: whole-image segment")
+            if not whole and not bool((masks == 0).all(dim=1).any()):
+                raise AssertionError("edge case lost: no tile without a segment")
+            for basis in ("deg8", "deg10"):
+                check_sortfree(f"small {tag}", inputs, g_image, basis, tile_w,
+                               5e-4 if whole else 3e-5)
+        # roomy lists, then lists that overflow (max_chunks 3, max_tiles 1)
+        for tile, max_chunks, max_tiles in ((128, 2048, 64), (64, 3, 1)):
+            fwd_args, ovf, bwd_args, ovf_t = render_inputs(rays, ss, w, g_rays, tile,
+                                                           max_chunks, max_tiles)
+            tight = max_tiles == 1
+            if tight != bool(ovf.any()) or tight != bool(ovf_t.any()):
+                raise AssertionError(f"edge case lost: list overflow {tight} expected")
+            if not whole and not bool((fwd_args[0] == 0).any()):
+                raise AssertionError("edge case lost: no ray tile without a segment")
+            check_render(f"small {tag} tile {tile} max_chunks {max_chunks} max_tiles "
+                         f"{max_tiles}", fwd_args, bwd_args)
+    # The renderer's overflow contracts: the forward flag, the NaN poison.
+    ss, w = training_scene(dev, False)
+    _, flag = pr.make_fused_renderer(tile=64, max_chunks=1, return_overflow=True)(rays, ss, w)
+    roomy = pr.make_fused_renderer(tile=64, max_chunks=64, max_tiles_per_seg=64,
+                                   return_overflow=True)
+    _, flag_ok = roomy(rays, ss, w)
+    grads = []
+    for render in (pr.make_fused_renderer(tile=64, max_chunks=64, max_tiles_per_seg=1,
+                                          return_overflow=True), roomy):
+        s = ss.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        render(rays, s, ww)[0].sum().backward()
+        grads.append(bool(torch.isfinite(s.grad).all()) and bool(torch.isfinite(ww.grad).all()))
+    if not bool(flag) or bool(flag_ok) or grads != [False, True]:
+        raise AssertionError(f"fused renderer overflow contracts: flags {bool(flag)} "
+                             f"{bool(flag_ok)}, finite gradients {grads}")
+    log("check fused renderer overflow: max_chunks=1 flags, max_tiles_per_seg=1 poisons "
+        "with NaN, roomy lists neither OK")
+    fd_checks(dev)
+
+
+def footprint_work(spheres, weights, cam):
+    """(sum over live particles of rows x columns, and of rows + columns)
+    of the pixel centers inside each particle's footprint |d| < h: the
+    products and factor entries the separable image needs."""
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    pu, pv, invh, scale = sg.project_ortho(spheres, weights, cam)
+    *_, x0, dx, y0, dy = sg._camera_numerics(cam, spheres.device)
+    live = scale != 0
+    h = torch.where(live, 1.0 / invh.clamp(min=1e-30), 0.0).double()
+
+    def count(lo_edge, hi_edge, size):  # integers i in (lo_edge, hi_edge), 0 <= i < size
+        lo = torch.clamp(torch.floor(lo_edge) + 1, min=0)
+        hi = torch.clamp(torch.ceil(hi_edge) - 1, max=size - 1)
+        return torch.where(live, torch.clamp(hi - lo + 1, min=0), 0.0)
+
+    cols = count((pu.double() - h - float(x0)) / dx, (pu.double() + h - float(x0)) / dx,
+                 cam.resolution_x)
+    rows = count((float(y0) - pv.double() - h) / -dy, (float(y0) - pv.double() + h) / -dy,
+                 cam.resolution_y)
+    return float((rows * cols).sum()), float((rows + cols).sum())
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes):
+    """One kernel of the JSON line, with its bound: the larger of its flops
+    over the FP32 peak and its bytes over the memory rate."""
+    t_ops = flops / PEAK_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    log(f"bound {name}: {flops:.6g} flops -> {t_ops:.4f} ms, {n_bytes} bytes -> "
+        f"{t_bytes:.4f} ms; kernel {ms:.3f} ms")
+    return {"name": name, "route": "cuda", "source": f"grace_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+
+
 def main():
     global _GPU
     if not torch.cuda.is_available():
@@ -341,11 +649,10 @@ def run(dev, n_particles, side):
     # 2. kernels vs plain versions at small and edge shapes; routes vs the
     # engine; the driver entry's forward
     small_checks(dev)
+    training_small_checks(dev)
     entry_args = entry_check(dev)
 
     # 3. main path 1, the column-density render on the bench scene
-    from bench import make_clustered_particles
-
     spheres = torch.from_numpy(
         make_clustered_particles(np.random.default_rng(2026), n_particles)).to(dev)
     torch.cuda.synchronize()
@@ -449,7 +756,89 @@ def run(dev, n_particles, side):
     log(f"check splat kernel vs plain at {side}x{side}: max abs err {splat_err:.3g} "
         f"(max value {top:.3g}) OK")
 
-    # 6. times (CUDA events, warm, median; the plain versions ran warm in 5)
+    # 6. main path 3, training on the same scene: one step of each trainer
+    from grace_tpu_torch.trace import pallas_render as pr
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    n_rays = side * side
+    cam = sg.OrthoCamera(CAM, LOOK, UP, VEXT, LENGTH, side, side)
+    weights = torch.ones(n_particles, device=dev)
+    target2d = img_trace * 1.01
+    target = trace_v * 1.01
+    splat_render = sg.make_splat_trainer(cam, basis="deg8", **SPLAT_TILE)
+    fused_render = pr.make_fused_renderer(tile=TRACE_TILE, max_chunks=2048,
+                                          max_tiles_per_seg=2048, return_overflow=True)
+
+    def train_step(render, target):
+        """One step: forward, L2 loss, backward, SGD 1e-6. Returns (new
+        spheres, new weights, loss, forward output, overflow, gradients
+        finite)."""
+        s = sorted_spheres.detach().clone().requires_grad_(True)
+        w = weights.detach().clone().requires_grad_(True)
+        out = render(s, w)
+        values, ovf = out if isinstance(out, tuple) else (out, None)
+        loss = ((values - target) ** 2).sum() / n_rays
+        loss.backward()
+        finite = torch.isfinite(s.grad).all() & torch.isfinite(w.grad).all()
+        return (s.detach() - 1e-6 * s.grad, w.detach() - 1e-6 * w.grad, loss.detach(),
+                values.detach(), ovf, finite)
+
+    splat_step = lambda: train_step(splat_render, target2d)
+    general_step = lambda: train_step(lambda s, w: fused_render(rays_s, s, w), target)
+    torch.cuda.synchronize()
+    for fn in (sg.splat_sortfree_fwd, sg.splat_sortfree_bwd, pr.render_fwd, pr.render_bwd):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    steps = {"splat": splat_step(), "general": general_step()}
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    launches3 = {"splat_sortfree_fwd": sg.splat_sortfree_fwd.launches,
+                 "splat_sortfree_bwd": sg.splat_sortfree_bwd.launches,
+                 "render_fwd": pr.render_fwd.launches, "render_bwd": pr.render_bwd.launches}
+    if min(launches3.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches3}")
+    for name, (s1, w1, loss, _, ovf, finite) in steps.items():
+        if not (bool(torch.isfinite(loss)) and bool(torch.isfinite(s1).all())
+                and bool(torch.isfinite(w1).all())):
+            raise AssertionError(f"{name} step: non-finite loss or update")
+        if not bool(finite):
+            raise AssertionError(f"{name} step: NaN-poisoned or non-finite gradients")
+        if ovf is not None and bool(ovf):
+            raise AssertionError(f"{name} step: forward list overflow")
+    img_sf = steps["splat"][3]
+    # grace_tpu's two splat paths place pixel centers by different formulas
+    # (x0 + i dx here, the bucketing's affine map there), up to 1.3e-7 apart;
+    # at the bench scene's h >= 0.005 that moves the image by up to 2.9e-5 x
+    # max in grace_tpu itself, so the bound is 1e-4 x max, not 1e-5.
+    sf_err, sf_top = check_close("sort-free image vs bucketed splat", img_sf, img, 0.0,
+                                 1e-4 * float(img.abs().max()))
+    sf_rel = float((img_sf - img_trace).abs().max() / img_trace.abs().max())
+    if not sf_rel < GATE:
+        raise AssertionError(f"sort-free image vs trace rel err {sf_rel:.3g} >= {GATE}")
+    fused_v = steps["general"][3]
+    fused_err, _ = check_close("fused forward vs quarter trace", fused_v, trace_v, 0.0,
+                               5e-4 * float(trace_v.abs().max()))
+    log(f"main path 3 (training, {n_particles} particles, {side}x{side} rays): "
+        f"{wall3:.2f} s wall for both steps; splat loss {float(steps['splat'][2]):.6g}, "
+        f"general loss {float(steps['general'][2]):.6g}; sort-free image vs bucketed "
+        f"splat max abs err {sf_err:.3g} (max value {sf_top:.3g}), vs trace rel err "
+        f"{sf_rel:.3e} (gate {GATE}); fused forward vs trace max abs err {fused_err:.3g} "
+        f"(gate {5e-4 * float(trace_v.abs().max()):.3g}); no overflow, no poison; "
+        f"launches {launches3}")
+
+    # 7. the training kernels vs their plain versions at main path 3's shapes
+    sf_inputs = sortfree_inputs(sorted_spheres, weights, cam, SPLAT_TILE["tile_w"])
+    g_image = 2.0 * (img_sf - target2d) / n_rays
+    errs["sortfree_fwd"], errs["sortfree_bwd"] = check_sortfree(
+        "full", sf_inputs, g_image, "deg8", SPLAT_TILE["tile_w"], 3e-5)
+    g_rays = 2.0 * (fused_v - target) / n_rays
+    fwd_args, ovf, bwd_args, ovf_t = render_inputs(rays_s, sorted_spheres, weights, g_rays,
+                                                   TRACE_TILE, 2048, 2048)
+    if bool(ovf.any()) or bool(ovf_t.any()):
+        raise AssertionError("fused renderer lists overflow at the bench scene")
+    errs["render_fwd"], errs["render_bwd"] = check_render("full", fwd_args, bwd_args)
+
+    # 8. times (CUDA events, warm, median; the plain versions ran warm in 5 and 7)
     t = {}
     t["build_sph_tree"] = cuda_ms(lambda: build_sph_tree(spheres, MAX_PER_LEAF), reps=3)
     t["rays+sort"] = cuda_ms(lambda: spatial_sort_rays(orthographic_projection_rays(
@@ -492,31 +881,91 @@ def run(dev, n_particles, side):
         max_chunks=caps["qlist"]))
     t["entry forward (2048 spheres, 1024 rays)"] = cuda_ms(lambda: entry_forward(*entry_args),
                                                            reps=3)
+    masks, masks_t, coords, slabs = sf_inputs
+    deg8, a8c, b8c = sg._basis_coeffs("deg8")
+    t["sortfree setup (projection, overlap, masks)"] = cuda_ms(
+        lambda: sortfree_inputs(sorted_spheres, weights, cam, SPLAT_TILE["tile_w"]))
+    t["splat_sortfree_fwd kernel"] = cuda_ms(lambda: sg.splat_sortfree_fwd(
+        masks, coords, slabs, "deg8", 32, 128, side, side))
+    t["splat_sortfree_fwd plain"] = cuda_ms(lambda: sg._sortfree_fwd_plain(
+        masks, coords, slabs, a8c, b8c, side // 128, 32, 128, side, side), reps=2, warm=0)
+    t["splat_sortfree_bwd kernel"] = cuda_ms(lambda: sg.splat_sortfree_bwd(
+        masks_t, coords, slabs, g_image, "deg8", 32, 128))
+    t["splat_sortfree_bwd plain"] = cuda_ms(lambda: sg._sortfree_bwd_plain(
+        masks_t, coords, slabs, g_image, a8c, b8c, side // 128, 32, 128), reps=2, warm=0)
+    t["dense_tile_segments (fused forward, max_chunks 2048)"] = cuda_ms(
+        lambda: pb.dense_tile_segments(rays_s, sorted_spheres, TRACE_TILE, 2048))
+    t["dense_segment_tiles (fused backward, max_tiles 2048)"] = cuda_ms(
+        lambda: pr.dense_segment_tiles(rays_s, sorted_spheres, pr.BWD_TILE, 2048))
+    t["render_fwd kernel"] = cuda_ms(lambda: pr.render_fwd(*fwd_args))
+    t["render_fwd plain"] = cuda_ms(lambda: pr._render_fwd_plain(*fwd_args), reps=2, warm=0)
+    t["render_bwd kernel"] = cuda_ms(lambda: pr.render_bwd(*bwd_args))
+    t["render_bwd plain"] = cuda_ms(lambda: pr._render_bwd_plain(*bwd_args), reps=2, warm=0)
+    t["splat train step"] = cuda_ms(splat_step, reps=3)
+    t["general train step"] = cuda_ms(general_step, reps=3)
     for k, v in t.items():
         log(f"time {k}: {v:.3f} ms")
+
+    # 9. the work each kernel's bound is computed from
+    hits = int(quarter_hc.sum())
+    r_pad = packed.shape[0]
+    quarters = int(_popcount_rows(words).sum())
+    segments = int(_popcount_rows(bm_args[0]).sum())
+    q_listed = int(ql_args[0].sum())
+    sf_pairs = int(_popcount_rows(masks).sum())
+    fused_pairs = int(fwd_args[0].sum())
+    bwd_pairs = int(bwd_args[0].sum())
+    rows_x_cols, rows_plus_cols = footprint_work(sorted_spheres, weights, cam)
+    rank = a8c.shape[0]
+    log(f"work: {hits} ray-particle hits; trace_quarter {quarters} (tile, quarter) pairs; "
+        f"trace_bitmask {segments} (tile, segment) pairs; trace_list {q_listed} (tile, "
+        f"quarter) pairs on the qlist lists; splat and splat_sortfree "
+        f"{rows_x_cols:.0f} footprint (pixel, particle) products and {rows_plus_cols:.0f} "
+        f"factor entries, splat_sortfree {sf_pairs} (pixel tile, segment) pairs; "
+        f"render_fwd {fused_pairs} (ray tile, segment) pairs; render_bwd {bwd_pairs} "
+        f"(segment, ray tile) pairs")
+    trace_flops = lambda pairs: pairs * FLOPS_PAIR + hits * FLOPS_HIT_H14
+    splat_flops = rows_x_cols * rank * 2 + rows_plus_cols * rank * (2 * deg8 + 2)
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
-        {"name": "trace_quarter", "route": "cuda",
-         "source": "grace_tpu_torch/csrc/trace_quarter.cu",
-         "replaces": f"{PK}:348, {PK}:519, {PK}:121",
-         "launches": launches["trace_quarter"], "max_abs_err": trace_err,
-         "ms": t["trace kernel"], "plain_ms": t["trace plain"]},
-        {"name": "splat", "route": "cuda", "source": "grace_tpu_torch/csrc/splat.cu",
-         "replaces": "grace_tpu/trace/splat.py:282",
-         "launches": launches["splat"], "max_abs_err": splat_err,
-         "ms": t["splat kernel"], "plain_ms": t["splat plain"]},
-        {"name": "trace_bitmask", "route": "cuda",
-         "source": "grace_tpu_torch/csrc/trace_bitmask.cu",
-         "replaces": f"{PK}:283, {PK}:626",
-         "launches": launches2["trace_bitmask"], "max_abs_err": errs["trace_bitmask"],
-         "ms": t["trace_bitmask kernel"], "plain_ms": t["trace_bitmask plain"]},
-        {"name": "trace_list", "route": "cuda",
-         "source": "grace_tpu_torch/csrc/trace_list.cu",
-         "replaces": f"{PK}:459, {PK}:221, {PK}:174, {PK}:688",
-         "launches": launches2["trace_list"], "max_abs_err": errs["trace_list"],
-         "ms": t["trace_list kernel (qlist lists)"],
-         "plain_ms": t["trace_list plain (qlist lists)"]},
+        kernel_entry("trace_quarter", "trace_quarter.cu", f"{PK}:348, {PK}:519, {PK}:121",
+                     launches["trace_quarter"], trace_err, t["trace kernel"],
+                     t["trace plain"], trace_flops(quarters * 32 * TRACE_TILE),
+                     nbytes(summary, words, packed, prims) + r_pad * 4),
+        kernel_entry("splat", "splat.cu", "grace_tpu/trace/splat.py:282", launches["splat"],
+                     splat_err, t["splat kernel"], t["splat plain"], splat_flops,
+                     nbytes(*buckets[:7]) + n_rays * 4),
+        kernel_entry("trace_bitmask", "trace_bitmask.cu", f"{PK}:283, {PK}:626",
+                     launches2["trace_bitmask"], errs["trace_bitmask"],
+                     t["trace_bitmask kernel"], t["trace_bitmask plain"],
+                     trace_flops(segments * 128 * TRACE_TILE), nbytes(*bm_args) + r_pad * 4),
+        kernel_entry("trace_list", "trace_list.cu", f"{PK}:459, {PK}:221, {PK}:174, {PK}:688",
+                     launches2["trace_list"], errs["trace_list"],
+                     t["trace_list kernel (qlist lists)"], t["trace_list plain (qlist lists)"],
+                     trace_flops(q_listed * 32 * TRACE_TILE),
+                     nbytes(*ql_args[:4]) + r_pad * 4),
+        kernel_entry("splat_sortfree_fwd", "splat_sortfree.cu",
+                     "grace_tpu/trace/splat_grad.py:181", launches3["splat_sortfree_fwd"],
+                     errs["sortfree_fwd"], t["splat_sortfree_fwd kernel"],
+                     t["splat_sortfree_fwd plain"], splat_flops,
+                     nbytes(masks, coords, slabs) + n_rays * 4),
+        kernel_entry("splat_sortfree_bwd", "splat_sortfree.cu",
+                     "grace_tpu/trace/splat_grad.py:262", launches3["splat_sortfree_bwd"],
+                     errs["sortfree_bwd"], t["splat_sortfree_bwd kernel"],
+                     t["splat_sortfree_bwd plain"],
+                     rows_x_cols * rank * 6 + rows_plus_cols * rank * (4 * deg8 + 6),
+                     nbytes(masks_t, coords, slabs, g_image, slabs)),
+        kernel_entry("render_fwd", "render.cu", "grace_tpu/trace/pallas_render.py:70",
+                     launches3["render_fwd"], errs["render_fwd"], t["render_fwd kernel"],
+                     t["render_fwd plain"],
+                     fused_pairs * 128 * TRACE_TILE * FLOPS_PAIR + hits * FLOPS_HIT_FAST,
+                     nbytes(*fwd_args) + r_pad * 4),
+        kernel_entry("render_bwd", "render.cu", "grace_tpu/trace/pallas_render.py:110",
+                     launches3["render_bwd"], errs["render_bwd"], t["render_bwd kernel"],
+                     t["render_bwd plain"],
+                     bwd_pairs * 128 * pr.BWD_TILE * FLOPS_PAIR + hits * FLOPS_HIT_FAST_BWD,
+                     nbytes(*bwd_args, bwd_args[2])),
     ]}), flush=True)
 
 

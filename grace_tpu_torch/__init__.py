@@ -6,8 +6,9 @@ kernels (``csrc/``, built with nvcc at first use) in place of the Pallas
 kernels. It imports neither JAX nor ``grace_tpu``. Ported so far: the
 column-density render (LBVH build, orthographic rays and spatial sort,
 splat bucketing, splat image), the fused trace on every broadphase route,
-and the generic BVH engine with its SPH hit-count and column-density
-facades.
+the generic BVH engine with its SPH hit-count and column-density facades,
+and the training path: the record-based differentiable render, the
+sort-free splat trainer and the fused differentiable renderer.
 """
 
 from grace_tpu_torch.core.types import Octants, Rays, RaySortType, make_spheres
@@ -23,7 +24,15 @@ from grace_tpu_torch.build.sph import (
 )
 from grace_tpu_torch.rays import gen as ray_gen
 from grace_tpu_torch.trace.pallas_kernel import pallas_trace_sph
+from grace_tpu_torch.trace.pallas_render import make_fused_renderer
+from grace_tpu_torch.trace.render import render_column_density
 from grace_tpu_torch.trace.sph import trace_cumulative_sph, trace_hitcounts_sph
 from grace_tpu_torch.trace.splat import bucket_prims_ortho, render_ortho_splat, splat_image
+from grace_tpu_torch.trace.splat_grad import (
+    OrthoCamera,
+    make_splat_trainer,
+    splat_backward_sortfree,
+    splat_forward_sortfree,
+)
 
 __version__ = "0.1.0"

@@ -45,6 +45,12 @@ KERNELS = {
                    {"grace_trace_list": "pppppp" + "iiiiiii"}),
     "splat": ("splat.cu", [],
               {"grace_splat": "pppppppppp" + "iiiiiiiiii"}),
+    "splat_sortfree": ("splat_sortfree.cu", ["--fmad=false"],
+                       {"grace_splat_sortfree_fwd": "pppppp" + "iiiiiiiiiii",
+                        "grace_splat_sortfree_bwd": "ppppppp" + "iiiiiiiii"}),
+    "render": ("render.cu", ["--fmad=false"],
+               {"grace_render_fwd": "pppppp" + "iiii",
+                "grace_render_bwd": "pppppp" + "iii"}),
 }
 
 _LIBS: dict = {}
@@ -111,6 +117,21 @@ def load(name: str) -> ctypes.CDLL:
         lib.grace_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def check_tensors(name: str, ints, floats) -> torch.device:
+    """The checks every kernel wrapper makes: one device (CPU or CUDA) for
+    all tensors, i32 ``ints`` and f32 ``floats``. Returns the device."""
+    devs = {t.device for t in (*ints, *floats)}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devs}")
+    if any(t.dtype != torch.int32 for t in ints) or any(
+            t.dtype != torch.float32 for t in floats):
+        raise TypeError(f"{name}: expected i32 masks/lists and f32 values")
+    device = devs.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    return device
 
 
 def launch(name: str, entry: str, device: torch.device, *args) -> None:

@@ -4,8 +4,11 @@ The system has no weights; its state is particle arrays, trees, rays, splat
 buckets and fitted coefficients (the coefficients ship as a copy of
 ``grace_tpu``'s cache). Each converter takes the numpy arrays of a
 ``grace_tpu`` object (``np.asarray`` of each field) and returns the port's
-object on ``device``, so the two packages can be fed the same inputs stage
-by stage. Nothing here imports ``grace_tpu`` or JAX.
+object on ``device`` (default: the CUDA card; pass ``device="cpu"`` for
+CPU tensors), so the two packages can be fed the same inputs stage by
+stage. An ``OrthoCamera`` carries across as its plain tuple:
+``splat_grad.OrthoCamera(*cam)``. Nothing here imports ``grace_tpu`` or
+JAX.
 """
 
 from __future__ import annotations
@@ -14,12 +17,12 @@ import numpy as np
 import torch
 
 from grace_tpu_torch.core.tree import Tree
-from grace_tpu_torch.core.types import Rays
+from grace_tpu_torch.core.types import Rays, creation_device
 from grace_tpu_torch.trace.splat import SplatBuckets
 
 
 def _t(a, dtype, device):
-    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return torch.tensor(np.asarray(a), dtype=dtype, device=creation_device(device))
 
 
 def spheres_from_numpy(spheres, device=None) -> torch.Tensor:
@@ -48,3 +51,10 @@ def splat_buckets_from_numpy(slabs, slab_lo, n_slabs, first, last, xcols, yrows,
     return SplatBuckets(f32(slabs), i32(slab_lo), i32(n_slabs), i32(first),
                         i32(last), f32(xcols), f32(yrows),
                         _t(overflow, torch.bool, device))
+
+
+def trainer_params_from_numpy(spheres, weights=None, device=None):
+    """The trainers' parameters: (spheres f32[N, 4], weights f32[N] or
+    None), as leaf tensors a caller can mark ``requires_grad``."""
+    return (_t(spheres, torch.float32, device),
+            None if weights is None else _t(weights, torch.float32, device))

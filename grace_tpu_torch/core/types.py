@@ -2,6 +2,10 @@
 
 PyTorch counterpart of ``grace_tpu.core.types``. A logical ray r is
 (origin[r], direction[r], length[r]); direction is always normalized.
+
+Functions that make tensors from Python or numpy values put them on the
+card unless the caller passes ``device`` (``creation_device``); functions
+that take tensors follow their inputs' device.
 """
 
 from __future__ import annotations
@@ -11,6 +15,20 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+
+def creation_device(device=None, like=None) -> torch.device:
+    """The device a creator puts new tensors on: ``device`` if given, else
+    the device of ``like`` if that is a tensor, else the CUDA card. Raises
+    when that is CUDA and no card is present: a creator never falls back
+    to the CPU (pass ``device="cpu"`` for CPU tensors)."""
+    if device is None:
+        device = like.device if isinstance(like, torch.Tensor) else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("grace_tpu_torch creates tensors on the CUDA card by "
+                           "default and none is available; pass device='cpu'")
+    return device
 
 
 class Octants(enum.IntEnum):
@@ -58,6 +76,9 @@ class Rays:
 
     @classmethod
     def from_arrays(cls, origins, directions, lengths, device=None) -> "Rays":
+        """Rays on ``device`` (default: the origins' device if they are a
+        tensor, else the CUDA card)."""
+        device = creation_device(device, like=origins)
         f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
         return cls(f(origins), f(directions), f(lengths))
 
@@ -70,8 +91,10 @@ class Rays:
 
 
 def make_spheres(xyz, h, device=None) -> torch.Tensor:
-    """Pack sphere/SPH-particle data as f32[N, 4] = (x, y, z, h)."""
-    xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
+    """Pack sphere/SPH-particle data as f32[N, 4] = (x, y, z, h), on
+    ``device`` (default: xyz's device if it is a tensor, else the CUDA
+    card)."""
+    xyz = torch.as_tensor(xyz, dtype=torch.float32, device=creation_device(device, like=xyz))
     h = torch.as_tensor(h, dtype=torch.float32, device=xyz.device)
     return torch.cat([xyz, h[:, None]], dim=1)
 

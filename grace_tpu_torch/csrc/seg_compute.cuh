@@ -20,6 +20,21 @@ struct RaySeg {
     float ox, oy, oz, dx, dy, dz, len;
 };
 
+// b^2 of a particle at p against the ray (o, d): the distance along the
+// ray to the closest approach goes to dot, the impact vector to (bx, by, bz).
+__device__ __forceinline__ float impact(float px, float py, float pz, float ox, float oy,
+                                        float oz, float dx, float dy, float dz, float& dot,
+                                        float& bx, float& by, float& bz) {
+    const float rx = px - ox;
+    const float ry = py - oy;
+    const float rz = pz - oz;
+    dot = fmaf(rz, dz, fmaf(rx, dx, ry * dy));
+    bx = fmaf(-dot, dx, rx);
+    by = fmaf(-dot, dy, ry);
+    bz = fmaf(-dot, dz, rz);
+    return fmaf(bz, bz, fmaf(bx, bx, by * by));
+}
+
 // Column-density contribution F(b/h) / h^2 (cumulative) or the hit
 // indicator (hitcount) of one primitive (x, y, z, 1/h^2, h^2) on one ray.
 // coeffs holds |deg| + 1 f32 Horner coefficients, lowest order first:
@@ -29,14 +44,8 @@ __device__ __forceinline__ float seg_pair(const RaySeg& r, float px, float py,
                                           float pz, float inv_h2, float h2,
                                           int mode, const float* coeffs,
                                           int deg) {
-    const float rx = px - r.ox;
-    const float ry = py - r.oy;
-    const float rz = pz - r.oz;
-    const float dot = fmaf(rz, r.dz, fmaf(rx, r.dx, ry * r.dy));
-    const float bx = fmaf(-dot, r.dx, rx);
-    const float by = fmaf(-dot, r.dy, ry);
-    const float bz = fmaf(-dot, r.dz, rz);
-    const float b2 = fmaf(bz, bz, fmaf(bx, bx, by * by));
+    float dot, bx, by, bz;
+    const float b2 = impact(px, py, pz, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, dot, bx, by, bz);
     const bool along = (dot >= 0.0f) && (dot < r.len);
     if (mode == kModeHitcount) {
         return (along && b2 < h2) ? 1.0f : 0.0f;

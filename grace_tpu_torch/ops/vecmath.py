@@ -19,18 +19,28 @@ def _t(a) -> torch.Tensor:
     return torch.as_tensor(a)
 
 
+def _f64(*xs) -> bool:
+    """True if an operand is an f64 tensor (not a scalar): the f64 path
+    then stays in f64, where no rounding is mirrored."""
+    return any(x.dtype == torch.float64 and x.dim() > 0 for x in xs)
+
+
 def fma(a, b, c) -> torch.Tensor:
     """f32 ``a * b + c`` rounded once. The f32 product is exact in f64, so
     only the sum rounds twice (f64, then f32); that differs from a true
-    fused multiply-add in about one case in 2^28."""
+    fused multiply-add in about one case in 2^28. f64 operands give the
+    f64 ``a * b + c``."""
     a, b, c = _t(a), _t(b), _t(c)
-    return (a.double() * b.double() + c.double()).float()
+    r = a.double() * b.double() + c.double()
+    return r if _f64(a, b, c) else r.float()
 
 
 def sqrt(x) -> torch.Tensor:
     """Correctly rounded f32 square root. (PyTorch's vectorized CPU sqrt
-    is not always; the f64 root rounded to f32 is.)"""
-    return torch.sqrt(_t(x).double()).float()
+    is not always; the f64 root rounded to f32 is.) f64 stays f64."""
+    x = _t(x)
+    r = torch.sqrt(x.double())
+    return r if _f64(x) else r.float()
 
 
 def dot3(a, b):

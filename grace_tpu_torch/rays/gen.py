@@ -7,14 +7,15 @@ Conventions:
   * vectors are normalized as ``grace_tpu``'s generators do when called
     eagerly, as ``bench.py`` calls them (``normalize3_unfused``).
 
-Every generator takes the ``device`` its rays are created on.
+Every generator takes the ``device`` its rays are created on; the default
+is the CUDA card (``core.types.creation_device``), never a quiet CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from grace_tpu_torch.core.types import Rays
+from grace_tpu_torch.core.types import Rays, creation_device
 from grace_tpu_torch.ops.morton import morton_key_30bit_from_unit, morton_keys_from_centroids
 from grace_tpu_torch.ops.vecmath import cross, fma, normalize3_unfused
 
@@ -67,6 +68,7 @@ def orthographic_projection_rays(resolution_x: int, resolution_y: int,
                                  vertical_extent, length, device=None) -> Rays:
     """Orthographic camera: pixel-center origins in the image plane through
     camera_position, common direction toward look_at."""
+    device = creation_device(device)
     view_dir, v, u = _camera_basis(camera_position, look_at, view_up, device)
     aspect = resolution_x / resolution_y
     horizontal_extent = vertical_extent * aspect
@@ -84,6 +86,7 @@ def pinhole_camera_rays(resolution_x: int, resolution_y: int, camera_position,
                         look_at, view_up, fov_y, length, device=None) -> Rays:
     """Perspective pinhole camera: directions through pixel centers of an
     image plane at 1/tan(FOVy/2)."""
+    device = creation_device(device)
     view_dir, v, u = _camera_basis(camera_position, look_at, view_up, device)
     aspect = resolution_x / resolution_y
     n_pref = 1.0 / torch.tan(_f32(fov_y, device) / 2.0)

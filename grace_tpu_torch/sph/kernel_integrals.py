@@ -121,6 +121,126 @@ def _fit_direct(deg: int):
     return np.asarray(c.convert(kind=np.polynomial.Polynomial).coef, np.float64)
 
 
+def _fit_chebyshev_pieces():
+    """Piecewise Chebyshev fits of F: piece 1 in u = beta^2 on [0, 1/4]
+    (degree 14, and 8 for ``fast``), piece 2 as F / v^{7/2} in v = 1 - u
+    on [1/4, 1) (degree 10, and 6)."""
+    b1 = np.linspace(0.0, 0.5, 2001)
+    f1 = np.array([_line_integral_quadrature(b) for b in b1])
+    b2g = np.linspace(0.5, 1.0, 2001)[:-1]
+    f2 = np.array([_line_integral_quadrature(b) for b in b2g])
+    v = 1.0 - b2g * b2g
+    fit = np.polynomial.chebyshev.Chebyshev.fit
+    c1, c2 = fit(b1 * b1, f1, 14), fit(v, f2 / v**3.5, 10)
+    return (c1.coef, c1.domain, c2.coef, c2.domain,
+            fit(b1 * b1, f1, 8).coef, fit(v, f2 / v**3.5, 6).coef)
+
+
+_CHEB1, _CHEB1_DOM, _CHEB2, _CHEB2_DOM, _CHEB1_SHORT, _CHEB2_SHORT = _cached_fit_multi(
+    ["cheb1", "cheb1_dom", "cheb2", "cheb2_dom", "cheb1s", "cheb2s"], _fit_chebyshev_pieces)
+
+
+@functools.lru_cache(maxsize=None)
+def poly_constants(fast: bool) -> dict:
+    """The f32 constants of ``cubic_spline_line_integral_poly`` and its
+    gradient: the domain maps of both pieces (t = (2x - sum) * inv_width),
+    the two Chebyshev series, their ``chebder`` derivative series and the
+    derivative scales 2 / width. The CUDA kernels read the same values."""
+    c1 = _CHEB1_SHORT if fast else _CHEB1
+    c2 = _CHEB2_SHORT if fast else _CHEB2
+    f32 = lambda a: np.asarray(a, np.float32)
+    (lo1, hi1), (lo2, hi2) = _CHEB1_DOM, _CHEB2_DOM
+    return dict(
+        sum1=f32(lo1 + hi1), inv1=f32(1.0 / f32(hi1 - lo1)), scale1=f32(2.0 / (hi1 - lo1)),
+        sum2=f32(lo2 + hi2), inv2=f32(1.0 / f32(hi2 - lo2)), scale2=f32(2.0 / (hi2 - lo2)),
+        c1=f32(c1), c2=f32(c2), d1=f32(np.polynomial.chebyshev.chebder(c1)),
+        d2=f32(np.polynomial.chebyshev.chebder(c2)))
+
+
+def _clenshaw(coefs: np.ndarray, t: torch.Tensor) -> torch.Tensor:
+    """Chebyshev series sum_k c_k T_k(t) by Clenshaw's recurrence, each
+    step one fused multiply-add and an add, as compiled XLA rounds it."""
+    b1 = torch.zeros_like(t)
+    b2 = torch.zeros_like(t)
+    for c in coefs[:0:-1]:
+        b1, b2 = fma(2.0 * t, b1, -b2) + float(c), b1
+    return fma(t, b1, -b2) + float(coefs[0])
+
+
+def _poly_pieces(b2, fast: bool):
+    k = poly_constants(fast)
+    b2 = torch.as_tensor(b2, dtype=torch.float32)
+    t1 = torch.clamp((2.0 * b2 - float(k["sum1"])) * float(k["inv1"]), -1.0, 1.0)
+    v = torch.clamp(1.0 - b2, min=0.0)
+    t2 = torch.clamp((2.0 * v - float(k["sum2"])) * float(k["inv2"]), -1.0, 1.0)
+    return k, b2, t1, v, t2
+
+
+def cubic_spline_line_integral_poly(b2, fast: bool = False) -> torch.Tensor:
+    """F(beta) from beta^2 as f32 polynomial math: Clenshaw of the piece-1
+    series in b2 for b2 <= 1/4, v^{7/2} times the piece-2 series in
+    v = 1 - b2 for b2 < 1, else 0. ``fast`` takes the short fits (9 and 7
+    terms), the form of the fused differentiable renderer."""
+    k, b2, t1, v, t2 = _poly_pieces(b2, fast)
+    f_in = _clenshaw(k["c1"], t1)
+    f_out = _clenshaw(k["c2"], t2) * (v * v * v * sqrt(v))
+    return torch.where(b2 <= 0.25, f_in, torch.where(b2 < 1.0, f_out, 0.0))
+
+
+def cubic_spline_line_integral_poly_grad(b2, fast: bool = False) -> torch.Tensor:
+    """dF/d(beta^2) of ``cubic_spline_line_integral_poly``, the exact
+    derivative of the fit: the derivative series for piece 1, and
+    -(3.5 v^{5/2} P(v) + v^{7/2} P'(v)) for piece 2."""
+    k, b2, t1, v, t2 = _poly_pieces(b2, fast)
+    g_in = _clenshaw(k["d1"], t1) * float(k["scale1"])
+    p_v = _clenshaw(k["c2"], t2)
+    dp_v = _clenshaw(k["d2"], t2) * float(k["scale2"])
+    v2 = v * v
+    sq = sqrt(v)
+    g_out = -fma(v2 * v * sq, dp_v, 3.5 * v2 * sq * p_v)
+    return torch.where(b2 <= 0.25, g_in, torch.where(b2 < 1.0, g_out, 0.0))
+
+
+def cubic_spline_line_integral(beta) -> torch.Tensor:
+    """Closed-form F(beta) for beta >= 0, smooth and differentiable, in
+    the dtype of ``beta`` (exact in f64; f32 loses ~1e-3 to cancellation).
+
+    With s = sqrt(z^2 + beta^2): I1 = (z s + beta^2 log(z + s)) / 2,
+    I2 = beta^2 z + z^3 / 3, I3 = z s^3 / 4 + (3 beta^2 / 8)(z s + beta^2
+    log(z + s)); the inner piece integrates I0 - 6 I2 + 6 I3, the outer
+    2 (I0 - 3 I1 + 3 I2 - I3)."""
+    beta = torch.as_tensor(beta)
+    b2 = beta * beta
+    # The eps floors keep sqrt and log away from 0 where the clamps bind, so
+    # autograd sees a zero gradient there rather than 0 * inf.
+    eps = 1e-20
+    z1 = torch.sqrt(torch.clamp(1.0 - b2, min=eps))
+    zs = torch.sqrt(torch.clamp(0.25 - b2, min=eps))
+
+    def log_zps(z):
+        return torch.log(torch.clamp(z + torch.sqrt(z * z + b2), min=eps))
+
+    def i1(z):
+        return 0.5 * (z * torch.sqrt(z * z + b2) + b2 * log_zps(z))
+
+    def i2(z):
+        return b2 * z + z * z * z / 3.0
+
+    def i3(z):
+        s = torch.sqrt(z * z + b2)
+        return 0.25 * z * s * s * s + 0.375 * b2 * (z * s + b2 * log_zps(z))
+
+    def g_inner(z):
+        return z - 6.0 * i2(z) + 6.0 * i3(z)
+
+    def g_outer(z):
+        return 2.0 * (z - 3.0 * i1(z) + 3.0 * i2(z) - i3(z))
+
+    val = 2.0 * _SIGMA * ((g_inner(zs) - g_inner(torch.zeros_like(zs)))
+                          + (g_outer(z1) - g_outer(zs)))
+    return torch.where(beta < 1.0, val, torch.zeros_like(val))
+
+
 HORNER1_DEG = 14
 
 

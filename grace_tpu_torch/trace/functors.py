@@ -5,8 +5,11 @@
   on_hit_count                 per-ray hit count
   make_on_hit_sphere_cumulate  per-ray sum of SPH line integrals
                                lerp(table, (N-1) sqrt(b2)/h) / h^2
+  make_on_hit_record_ids       (ray, prim) id pair of every hit, for the
+                               differentiable render (trace/render.py)
 
-The record functors (per-hit buffers) come with the record pipeline.
+The record functors that store integrals and distances come with the
+record pipeline.
 """
 
 from __future__ import annotations
@@ -59,5 +62,29 @@ def make_on_hit_sphere_cumulate(spheres, table, weights=None):
             contrib = contrib * weights[prim_ids]
         contrib = torch.where(hit, contrib, 0.0)
         return ray_data + contrib.sum(dim=-1), global_state
+
+    return on_hit
+
+
+def make_on_hit_record_ids(capacity: int):
+    """On-hit functor writing each hit's (ray, prim) ids into the global
+    buffers ``ray`` and ``prim`` (i32[capacity]). ray_data is each ray's
+    write cursor, seeded with its offset (the exclusive cumulative hit
+    count); a hit goes to cursor + its rank among the ray's hits of this
+    leaf, and writes at or past ``capacity`` are dropped."""
+
+    def on_hit(carry, ray_ids, prim_ids, info, hit):
+        cursor, global_state = carry
+        hit_i = hit.to(torch.int32)
+        rank = torch.cumsum(hit_i, dim=-1, dtype=torch.int32) - hit_i
+        pos = cursor[:, None] + rank
+        pos = torch.where(hit & (pos < capacity), pos, capacity).long().flatten()
+        rays = ray_ids[:, None].expand(prim_ids.shape).flatten().to(torch.int32)
+        # A spare slot past the end takes the dropped writes.
+        state = {}
+        for key, vals in (("ray", rays), ("prim", prim_ids.flatten().to(torch.int32))):
+            buf = torch.cat([global_state[key], global_state[key].new_zeros(1)])
+            state[key] = buf.scatter(0, pos, vals)[:capacity]
+        return cursor + hit.sum(dim=-1, dtype=cursor.dtype), state
 
     return on_hit

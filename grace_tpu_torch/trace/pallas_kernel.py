@@ -91,11 +91,11 @@ def _pack_prims(spheres: torch.Tensor):
     return torch.cat([pt, inv_h2, h2, zeros, zeros], dim=0).contiguous(), n_pad
 
 
-def _seg_compute(ox, oy, oz, dx, dy, dz, ln, px, py, pz, inv_h2, h2, mode,
-                 integral_deg=HORNER1_DEG):
-    """Per-pair contributions of rays (column tensors) against primitives
-    (row tensors): the plain version of ``csrc/seg_compute.cuh``, with the
-    fused multiply-adds at the same places."""
+def _impact(px, py, pz, ox, oy, oz, dx, dy, dz):
+    """(b2, dot, bx, by, bz) of rays against primitives, broadcasting: the
+    squared impact parameter, the distance along the ray to the closest
+    approach and the impact vector, with the fused multiply-adds where
+    ``csrc/seg_compute.cuh`` (``impact``) has them."""
     rx = px - ox
     ry = py - oy
     rz = pz - oz
@@ -103,7 +103,15 @@ def _seg_compute(ox, oy, oz, dx, dy, dz, ln, px, py, pz, inv_h2, h2, mode,
     bx = fma(-dot, dx, rx)
     by = fma(-dot, dy, ry)
     bz = fma(-dot, dz, rz)
-    b2 = fma(bz, bz, fma(bx, bx, by * by))
+    return fma(bz, bz, fma(bx, bx, by * by)), dot, bx, by, bz
+
+
+def _seg_compute(ox, oy, oz, dx, dy, dz, ln, px, py, pz, inv_h2, h2, mode,
+                 integral_deg=HORNER1_DEG):
+    """Per-pair contributions of rays (column tensors) against primitives
+    (row tensors): the plain version of ``csrc/seg_compute.cuh``, with the
+    fused multiply-adds at the same places."""
+    b2, dot, *_ = _impact(px, py, pz, ox, oy, oz, dx, dy, dz)
     along = (dot >= 0.0) & (dot < ln)
     if mode == "hitcount":
         return ((b2 < h2) & along).to(torch.float32)
@@ -221,21 +229,13 @@ def _check_args(name, lists, rays_packed, prims, n_tiles, mode):
     (device, rays per tile)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    devs = {x.device for x in (*lists, rays_packed, prims)}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: tensors on several devices {devs}")
-    if (any(x.dtype != torch.int32 for x in lists)
-            or rays_packed.dtype != torch.float32 or prims.dtype != torch.float32):
-        raise TypeError(f"{name}: expected i32 masks/lists and f32 rays/prims")
+    device = _kernels.check_tensors(name, lists, (rays_packed, prims))
     if (n_tiles == 0 or rays_packed.dim() != 2 or rays_packed.shape[0] % n_tiles
             or rays_packed.shape[1] != 16 or prims.dim() != 2
             or prims.shape[0] != 8 or prims.shape[1] % SEG):
         raise ValueError(f"{name}: inconsistent shapes "
                          f"{[tuple(x.shape) for x in (*lists, rays_packed, prims)]}")
-    device = devs.pop()
     tile = rays_packed.shape[0] // n_tiles
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {device}")
     if device.type == "cuda" and tile > MAX_TILE:
         raise ValueError(f"tile {tile} > {MAX_TILE} rays per block")
     return device, tile

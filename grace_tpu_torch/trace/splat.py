@@ -191,11 +191,21 @@ def _factor(t, coeffs):
     return torch.stack(out)
 
 
+def _matmul_f32(a, b):
+    """``a @ b`` in full f32: TF32 is switched off for the product (and
+    restored after), since it keeps too few digits for the basis fit."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def _splat_plain(buckets: SplatBuckets, tile_w: int, band: int,
                  a_coeffs: np.ndarray, b_coeffs: np.ndarray) -> torch.Tensor:
     """Plain PyTorch version of the splat kernel: one key at a time, the
-    patch as a float32 matmul over (instance, rank). TF32 is switched off
-    for the matmul (and restored after): it keeps too few digits."""
+    patch as a full-f32 matmul over (instance, rank)."""
     w_res = buckets.xcols.shape[0]
     h_res = buckets.yrows.shape[0]
     nbx = w_res // band
@@ -207,24 +217,18 @@ def _splat_plain(buckets: SplatBuckets, tile_w: int, band: int,
     img = torch.zeros((h_res, w_res), dtype=torch.float32, device=xs.device)
     first = buckets.first.tolist()
     last = buckets.last.tolist()
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        for key, (g0, g1) in enumerate(zip(first, last)):
-            if g1 <= g0:
-                continue
-            pu, pv, invh, scl = flat[:, g0:g1]
-            r0 = (key // nbx) * tile_w
-            c0 = (key % nbx) * band
-            ya = (ys[r0:r0 + tile_w, None] - pv) * invh            # (TW, n)
-            xb = (xs[c0:c0 + band, None] - pu) * invh              # (BW, n)
-            fa = _factor(torch.clamp(ya * ya, max=1.0), a_coeffs)  # (K, TW, n)
-            fb = _factor(torch.clamp(xb * xb, max=1.0), b_coeffs) * scl
-            patch = fa.permute(1, 0, 2).reshape(tile_w, -1) @ \
-                fb.permute(0, 2, 1).reshape(-1, band)
-            img[r0:r0 + tile_w, c0:c0 + band] = patch
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for key, (g0, g1) in enumerate(zip(first, last)):
+        if g1 <= g0:
+            continue
+        pu, pv, invh, scl = flat[:, g0:g1]
+        r0 = (key // nbx) * tile_w
+        c0 = (key % nbx) * band
+        ya = (ys[r0:r0 + tile_w, None] - pv) * invh            # (TW, n)
+        xb = (xs[c0:c0 + band, None] - pu) * invh              # (BW, n)
+        fa = _factor(torch.clamp(ya * ya, max=1.0), a_coeffs)  # (K, TW, n)
+        fb = _factor(torch.clamp(xb * xb, max=1.0), b_coeffs) * scl
+        img[r0:r0 + tile_w, c0:c0 + band] = _matmul_f32(
+            fa.permute(1, 0, 2).reshape(tile_w, -1), fb.permute(0, 2, 1).reshape(-1, band))
     return img
 
 

@@ -46,9 +46,9 @@ def clustered_scene(n, seed, nx, ny, extent, max_per_leaf=16):
     tree_t = convert.tree_from_numpy(
         *(np.asarray(x) for x in (tree.children, tree.child_aabbs, tree.leaves,
                                   tree.root, tree.n_nodes, tree.n_leaves)),
-        tree.max_per_leaf)
-    return (ss, tree, rays_s), (convert.spheres_from_numpy(ss), tree_t,
-                                convert.rays_from_numpy(*arrs))
+        tree.max_per_leaf, device="cpu")
+    return (ss, tree, rays_s), (convert.spheres_from_numpy(ss, device="cpu"), tree_t,
+                                convert.rays_from_numpy(*arrs, device="cpu"))
 
 
 def assert_trace_match(want, got, mode):

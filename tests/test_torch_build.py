@@ -31,7 +31,7 @@ def _assert_same_build(s, mpl, delta_kind="euclidean", bits=30):
     assert np.array_equal(np.asarray(j[0]), t[0].numpy())          # sorted spheres
     assert np.array_equal(np.asarray(j[2]), t[2].numpy())          # permutation
     want = convert.tree_from_numpy(*(np.asarray(getattr(j[1], f)) for f in TREE_FIELDS),
-                                   j[1].max_per_leaf)
+                                   j[1].max_per_leaf, device="cpu")
     for f in TREE_FIELDS:
         a, b = getattr(want, f), getattr(t[1], f)
         assert a.dtype == b.dtype and torch.equal(a, b), f

@@ -38,12 +38,12 @@ def test_types_and_spheres():
     rng = np.random.default_rng(0)
     xyz = rng.random((50, 3)).astype(np.float32)
     h = rng.random(50).astype(np.float32)
-    _eq(jt.make_spheres(xyz, h), tt.make_spheres(xyz, h))
+    _eq(jt.make_spheres(xyz, h), tt.make_spheres(xyz, h, device="cpu"))
     for o in range(8):
         assert np.array_equal(jt.octant_signs(o), tt.octant_signs(o))
     assert [int(x) for x in jt.Octants] == [int(x) for x in tt.Octants]
     assert [x.name for x in jt.RaySortType] == [x.name for x in tt.RaySortType]
-    r = tt.Rays.from_arrays(xyz, xyz, h)
+    r = tt.Rays.from_arrays(xyz, xyz, h, device="cpu")
     assert r.n_rays == 50 and r[3:7].n_rays == 4 and r.to("cpu").device.type == "cpu"
 
 

@@ -10,14 +10,19 @@ neither JAX nor grace_tpu, so it also runs where JAX is not installed:
 Hit counts must be exact; column densities within rtol 1e-5 (the kernels
 sum the same f32 terms as the plain versions, in another order); splat
 images within 1e-5 x max. Kernels: trace_quarter, trace_bitmask,
-trace_list (quarter and segment lists, with overflow), splat.
+trace_list (quarter and segment lists, with overflow), splat, and the
+training kernels splat_sortfree_fwd / _bwd and render_fwd / _bwd (a
+particle count that is not a multiple of 128, dead particles, empty tiles,
+a particle that covers every tile, both bases, list overflow; gradients
+within grace_tpu's bounds), the fused renderer's overflow contracts and
+both trainers against finite differences. The edge scenes and checks are
+chip_smoke.py's.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from bench import make_clustered_particles
 from grace_tpu_torch.build.sph import build_sph_tree
 from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
 from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
@@ -25,6 +30,11 @@ from grace_tpu_torch.trace import pallas_kernel as pk
 from grace_tpu_torch.trace import splat as sp
 from grace_tpu_torch.trace.pallas_broadphase import (
     dense_tile_masks, dense_tile_masks_quarter, dense_tile_segments, quarter_lists)
+from grace_tpu_torch.trace import pallas_render as pr
+from grace_tpu_torch.trace import splat_grad as sg
+from chip_smoke import (
+    check_render, check_sortfree, fd_checks, make_clustered_particles, render_inputs,
+    sortfree_inputs, training_scene)
 
 CAM = (0.5, 0.5, -2.0)
 LOOK = (0.5, 0.5, 0.5)
@@ -179,3 +189,70 @@ def test_wrappers_reject_what_the_kernels_do_not_take(scene):
         pk.trace_list(n.cpu(), ids, packed[:1024], prims, 128, 14, "cumulative")
     with pytest.raises(ValueError, match="unknown mode"):
         pk.trace_list(n, ids, packed[:1024], prims, 128, 14, "closest")
+
+
+WIDE = sg.OrthoCamera(CAM, LOOK, UP, 4.0, 6.0, 256, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis", ["deg8", "deg10"])
+@pytest.mark.parametrize("tile_w", [16, 32])
+@pytest.mark.parametrize("whole", [False, True])
+def test_splat_sortfree_kernels_match_plain(dev, whole, tile_w, basis):
+    """3000 particles (not a multiple of 128), dead ones, a wide view with
+    empty tiles; with ``whole``, one particle covering every tile."""
+    ss, w = training_scene(dev, whole)
+    inputs = sortfree_inputs(ss, w, WIDE, tile_w)
+    masks, _, _, slabs = inputs
+    assert ss.shape[0] % 128 and bool((slabs[:, 3] == 0).any())
+    assert whole or bool((masks == 0).all(dim=1).any())          # a tile with no segment
+    g = torch.randn(128, 256, generator=torch.Generator().manual_seed(5)).to(dev)
+    before = (sg.splat_sortfree_fwd.launches, sg.splat_sortfree_bwd.launches)
+    check_sortfree("card test", inputs, g, basis, tile_w, 5e-4 if whole else 3e-5)
+    assert (sg.splat_sortfree_fwd.launches, sg.splat_sortfree_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lists", [(128, 2048, 64), (64, 3, 1)], ids=["roomy", "overflow"])
+@pytest.mark.parametrize("whole", [False, True])
+def test_render_kernels_match_plain(dev, whole, lists):
+    """Both fused-render kernels on roomy lists and on lists truncated by
+    max_chunks 3 and max_tiles 1 (both overflow flags set)."""
+    tile, max_chunks, max_tiles = lists
+    ss, w = training_scene(dev, whole)
+    rays, _, _ = spatial_sort_rays(orthographic_projection_rays(64, 64, CAM, LOOK, UP, 4.0,
+                                                                6.0, device=dev))
+    g = torch.randn(rays.n_rays, generator=torch.Generator().manual_seed(6)).to(dev)
+    fwd_args, ovf, bwd_args, ovf_t = render_inputs(rays, ss, w, g, tile, max_chunks,
+                                                   max_tiles)
+    assert bool(ovf.any()) == bool(ovf_t.any()) == (max_tiles == 1)
+    before = (pr.render_fwd.launches, pr.render_bwd.launches)
+    check_render("card test", fwd_args, bwd_args)
+    assert (pr.render_fwd.launches, pr.render_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_fused_renderer_overflow_contracts(dev):
+    """max_chunks overflow sets the forward flag; max_tiles_per_seg
+    overflow poisons every gradient with NaN; roomy lists do neither."""
+    ss, w = training_scene(dev, False)
+    rays, _, _ = spatial_sort_rays(orthographic_projection_rays(64, 64, CAM, LOOK, UP, 4.0,
+                                                                6.0, device=dev))
+    _, flag = pr.make_fused_renderer(tile=64, max_chunks=1, return_overflow=True)(rays, ss, w)
+    assert bool(flag)
+    for max_tiles, finite in ((1, False), (64, True)):
+        s = ss.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        render = pr.make_fused_renderer(tile=64, max_chunks=64, max_tiles_per_seg=max_tiles,
+                                        return_overflow=True)
+        values, flag = render(rays, s, ww)
+        assert not bool(flag)
+        values.sum().backward()
+        assert bool(torch.isfinite(s.grad).all()) == finite
+        assert bool(torch.isfinite(ww.grad).all()) == finite
+
+
+@pytest.mark.cuda
+def test_trainers_finite_differences(dev):
+    fd_checks(dev)

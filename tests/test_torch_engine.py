@@ -104,9 +104,10 @@ def scene():
     tree_t = convert.tree_from_numpy(
         *(np.asarray(x) for x in (tree.children, tree.child_aabbs, tree.leaves,
                                   tree.root, tree.n_nodes, tree.n_leaves)),
-        tree.max_per_leaf)
-    return (ss, tree, JRays.from_arrays(o, d, ln)), (convert.spheres_from_numpy(ss), tree_t,
-                                                     Rays.from_arrays(o, d, ln))
+        tree.max_per_leaf, device="cpu")
+    return (ss, tree, JRays.from_arrays(o, d, ln)), (
+        convert.spheres_from_numpy(ss, device="cpu"), tree_t,
+        Rays.from_arrays(o, d, ln, device="cpu"))
 
 
 def test_hitcounts_exact(scene):

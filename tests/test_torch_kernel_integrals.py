@@ -7,6 +7,7 @@ import filecmp
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -71,3 +72,51 @@ def test_direct_raw_matches(deg):
 def test_integral_coeffs_are_the_f32_fit(deg):
     c = jk.horner1_coeffs(deg) if deg > 0 else jk.direct_coeffs(-deg)
     assert np.array_equal(tk.integral_coeffs(deg), np.asarray(c, np.float32))
+
+
+def _b2_grid():
+    b2 = np.concatenate([np.linspace(0.0, 1.2, 24001), [0.25, 1.0],
+                         1.0 - np.geomspace(1e-7, 1e-2, 300)])
+    return b2.astype(np.float32)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("fast", [False, True])
+def test_poly_and_grad_match(fast, grad):
+    """The Clenshaw form of F and of dF/db2 (the fused renderer's integral
+    with fast=True) within 2e-7 x max|F| (resp. max|dF/db2|) of grace_tpu's
+    compiled form: the same fused multiply-adds, up to a few rare ulps."""
+    b2 = _b2_grid()
+    assert 0.25 in b2 and 1.0 in b2
+    jf = jk.cubic_spline_line_integral_poly_grad if grad else jk.cubic_spline_line_integral_poly
+    tf = tk.cubic_spline_line_integral_poly_grad if grad else tk.cubic_spline_line_integral_poly
+    j = np.asarray(jax.jit(jf, static_argnums=1)(b2, fast))
+    t = tf(torch.from_numpy(b2), fast).numpy()
+    assert t.dtype == np.float32 and np.abs(j).max() > 0
+    np.testing.assert_allclose(t, j, rtol=0, atol=2e-7 * np.abs(j).max())
+    assert np.all(t[b2 >= 1.0] == 0.0)
+
+
+def test_chebyshev_fits_equal():
+    for a, b in ((jk._CHEB1, tk._CHEB1), (jk._CHEB2, tk._CHEB2), (jk._CHEB1_DOM, tk._CHEB1_DOM),
+                 (jk._CHEB2_DOM, tk._CHEB2_DOM), (jk._CHEB1_SHORT, tk._CHEB1_SHORT),
+                 (jk._CHEB2_SHORT, tk._CHEB2_SHORT)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_closed_form_matches(dtype):
+    """The closed-form F (the gradient path's smooth option): f64 to 1e-12
+    x max; f32 within 1e-5 x max of grace_tpu's f32. In f32 both lose up to
+    ~1e-3 to cancellation, so the two libraries' log and sqrt roundings
+    show through at a few ulps of F(0)."""
+    beta = np.concatenate([np.linspace(0.0, 1.1, 2001), [0.5, 1.0]]).astype(dtype)
+    with jax.enable_x64(dtype == np.float64):
+        j = np.asarray(jk.cubic_spline_line_integral(jnp.asarray(beta)))
+    t = tk.cubic_spline_line_integral(torch.from_numpy(beta)).numpy()
+    assert t.dtype == dtype and np.all(t[beta >= 1.0] == 0.0)
+    tol = 1e-12 if dtype == np.float64 else 1e-5
+    np.testing.assert_allclose(t, j, rtol=0, atol=tol * np.abs(j).max())
+    if dtype == np.float64:
+        np.testing.assert_allclose(t[::100], [jk._line_integral_quadrature(b) for b in beta[::100]],
+                                   atol=1e-9)

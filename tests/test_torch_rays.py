@@ -16,6 +16,7 @@ import grace_tpu.rays.gen as jg
 from grace_tpu.core.types import Rays as JRays
 import grace_tpu_torch.rays.gen as tg
 from grace_tpu_torch import convert
+import grace_tpu_torch.core.types as tt
 
 CAM = (0.5, 0.5, -2.0)
 LOOK = (0.5, 0.5, 0.5)
@@ -30,7 +31,7 @@ def _rays_np(r):
 @pytest.mark.parametrize("camera", [(CAM, LOOK, UP), ((0.1, -0.3, 2.2), (0.6, 0.4, 0.5), (0.2, 1.0, 0.1))])
 def test_orthographic_rays(res, camera):
     j = jg.orthographic_projection_rays(*res, *camera, 1.2, 6.0)
-    t = tg.orthographic_projection_rays(*res, *camera, 1.2, 6.0)
+    t = tg.orthographic_projection_rays(*res, *camera, 1.2, 6.0, device="cpu")
     for a, b in zip(_rays_np(j), (t.origins, t.directions, t.lengths)):
         assert np.array_equal(a, b.numpy())
 
@@ -40,7 +41,7 @@ def test_orthographic_rays(res, camera):
 def test_pinhole_rays(camera):
     args = (48, 32, *camera, 0.9, 5.0)
     j = jg.pinhole_camera_rays(*args)
-    t = tg.pinhole_camera_rays(*args)
+    t = tg.pinhole_camera_rays(*args, device="cpu")
     for a, b in zip(_rays_np(j), (t.origins, t.directions, t.lengths)):
         assert np.array_equal(a, b.numpy())
 
@@ -63,7 +64,7 @@ def test_spatial_sort_exact(kind):
     else:
         arrs = _random_rays(np.random.default_rng(5), 3000)
     rj, oj, ij = jax.jit(jg.spatial_sort_rays)(JRays.from_arrays(*arrs))
-    rt, ot, it = tg.spatial_sort_rays(convert.rays_from_numpy(*arrs))
+    rt, ot, it = tg.spatial_sort_rays(convert.rays_from_numpy(*arrs, device="cpu"))
     assert np.array_equal(np.asarray(oj), ot.numpy())
     assert np.array_equal(np.asarray(ij), it.numpy())
     for a, b in zip(_rays_np(rj), (rt.origins, rt.directions, rt.lengths)):
@@ -75,3 +76,29 @@ def test_ray_dir_morton_keys_exact():
     j = jax.jit(jg.ray_dir_morton_keys)(d)
     t = tg.ray_dir_morton_keys(torch.from_numpy(d))
     assert np.array_equal(np.asarray(j).astype(np.int64), t.numpy())
+
+
+def test_creators_default_to_the_card():
+    """Called without ``device``, every creator makes CUDA tensors; with no
+    card it raises instead of giving CPU tensors."""
+    xyz = np.zeros((4, 3), np.float32)
+    h = np.ones(4, np.float32)
+    calls = [
+        lambda: tg.orthographic_projection_rays(8, 8, CAM, LOOK, UP, 1.2, 6.0).origins,
+        lambda: tg.pinhole_camera_rays(8, 8, CAM, LOOK, UP, 0.9, 5.0).directions,
+        lambda: tt.make_spheres(xyz, h),
+        lambda: tt.Rays.from_arrays(xyz, xyz, h).lengths,
+        lambda: convert.spheres_from_numpy(np.zeros((4, 4), np.float32)),
+        lambda: convert.rays_from_numpy(xyz, xyz, h).origins,
+        lambda: convert.trainer_params_from_numpy(np.zeros((4, 4), np.float32), h)[1],
+    ]
+    for make in calls:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+    # Tensors keep their device; device="cpu" gives CPU tensors.
+    assert tt.make_spheres(torch.zeros(4, 3), torch.ones(4)).device.type == "cpu"
+    assert tg.orthographic_projection_rays(8, 8, CAM, LOOK, UP, 1.2, 6.0,
+                                           device="cpu").origins.device.type == "cpu"

@@ -39,7 +39,8 @@ def particles():
 @pytest.fixture(scope="module")
 def port_render(particles):
     ss, tree, _ = tb.build_sph_tree(torch.from_numpy(particles), 32)
-    rays = tg.orthographic_projection_rays(SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH)
+    rays = tg.orthographic_projection_rays(SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH,
+                                      device="cpu")
     rays_s, _, inv = tg.spatial_sort_rays(rays)
     buckets = ts.bucket_prims_ortho(ss, CAM, LOOK, UP, VEXT, LENGTH, SIDE, SIDE,
                                     chunk=512, band=32, **SPLAT)
@@ -65,3 +66,15 @@ def test_splat_vs_trace_gate(port_render):
     assert np.isfinite(img_trace).all() and img_trace.max() > 0
     rel = np.abs(img - img_trace).max() / img_trace.max()
     assert rel < 1e-3, rel
+
+
+@pytest.mark.parametrize("seed,n", [(2026, 5000), (7, 3001)])
+def test_chip_smoke_particles_equal_bench(seed, n):
+    """chip_smoke.py keeps its own copy of bench.py's particle maker (the
+    port imports nothing of the JAX package): the same draws, bit for bit."""
+    import bench
+    import chip_smoke
+
+    want = bench.make_clustered_particles(np.random.default_rng(seed), n)
+    got = chip_smoke.make_clustered_particles(np.random.default_rng(seed), n)
+    assert got.dtype == want.dtype and np.array_equal(got, want)

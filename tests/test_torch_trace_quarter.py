@@ -40,7 +40,7 @@ def scene():
     rays = orthographic_projection_rays(41, 39, CAM, LOOK, UP, 2.4, 6.0)
     rays_s, _, _ = jax.jit(spatial_sort_rays)(rays)
     arrs = [np.asarray(x) for x in (rays_s.origins, rays_s.directions, rays_s.lengths)]
-    return ss, tree, rays_s, convert.spheres_from_numpy(ss), convert.rays_from_numpy(*arrs)
+    return ss, tree, rays_s, convert.spheres_from_numpy(ss, device="cpu"), convert.rays_from_numpy(*arrs, device="cpu")
 
 
 def _pad(rays, tile):
@@ -56,7 +56,8 @@ def _pad(rays, tile):
 def test_quarter_masks_bit_exact(scene, tile, seg_block):
     ss, _, rays_s, ss_t, _ = scene
     jr = _pad(rays_s, tile)
-    tr = convert.rays_from_numpy(*(np.asarray(x) for x in (jr.origins, jr.directions, jr.lengths)))
+    tr = convert.rays_from_numpy(*(np.asarray(x) for x in (jr.origins, jr.directions, jr.lengths)),
+                                 device="cpu")
     wj, sj = jpb.dense_tile_masks_quarter(jr, ss, tile, seg_block=seg_block)
     wt, st = tpb.dense_tile_masks_quarter(tr, ss_t, tile, seg_block=seg_block)
     assert np.array_equal(np.asarray(wj), wt.numpy())
@@ -124,7 +125,7 @@ def test_other_broadphases_not_ported(scene):
     tree_t = convert.tree_from_numpy(
         *(np.asarray(x) for x in (tree.children, tree.child_aabbs, tree.leaves,
                                   tree.root, tree.n_nodes, tree.n_leaves)),
-        tree.max_per_leaf)
+        tree.max_per_leaf, device="cpu")
     for bp in ("dense", "bitmask", "qlist", "xla", "list", "pallas"):
         values, overflow = tpk.pallas_trace_sph(rays_t, ss_t, tree_t, tile=128,
                                                 broadphase=bp, max_chunks=64)
