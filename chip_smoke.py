@@ -6,9 +6,10 @@ Builds the CUDA kernels from ``grace_tpu_torch/csrc`` (nvcc, first use, one
 process per source, all at once), checks each kernel against its plain
 PyTorch version on the card at small and edge shapes, holds every
 ``pallas_trace_sph`` route against the generic BVH engine, runs the driver
-entry's forward (build_sph_tree -> trace_cumulative_sph), then drives two
-main paths at the bench scene's size (2^20 clustered particles, 512x512
-rays), each with the kernels' launch counters set to 0 just before it:
+entry's forward (build_sph_tree -> trace_cumulative_sph), then drives five
+main paths at full size (the bench scene: 2^20 clustered particles, 512x512
+rays; the triangle workload: a 262,144-triangle torus), each with the
+kernels' launch counters set to 0 just before it:
 
   1. the column-density render: build_sph_tree -> orthographic rays +
      spatial sort -> bucket_prims_ortho -> splat_image (CUDA) and
@@ -25,13 +26,29 @@ rays), each with the kernels' launch counters set to 0 just before it:
      (forward and backward on CUDA); losses and updates finite, the
      sort-free image within 1e-4 x max of the bucketed splat and within the
      1e-3 gate of the trace, the fused forward within 5e-4 x max of the
-     trace, no overflow and no NaN poison.
+     trace, no overflow and no NaN poison;
+  4. per-hit records: pallas_trace_sph_records with 512 records a ray on
+     the default (quarter) route (CUDA) and the bitmask route (CUDA),
+     sort_records_by_distance and trace_sph(engine="pallas"); counts equal
+     the quarter trace's hit counts on every ray, rows that did not
+     overflow sum to its column density (rtol 1e-5, atol 1e-6 x max), the
+     routes are bit-equal, sorted rows non-decreasing, flat offsets the
+     exclusive cumsum;
+  5. triangles: render_triangles(engine="pallas") at 512x512 (build,
+     auto_camera, pinhole rays, the closest-hit and the shadow any-hit pass
+     on CUDA); every phase finite, the image in [0, 1], no list overflow,
+     any hit equal to a finite closest t, and on 4,096 rays the generic
+     engine's ids and t (rtol 1e-6) but on rays through shared edges,
+     where grace_tpu's two paths round the triangle test differently.
 
 Before the main paths, the training kernels are held against their plain
 versions at edge shapes (a particle count that is not a multiple of 128,
 dead particles, tiles with no segment, a particle that covers every tile,
 tile_w 16 and 32, both bases, list overflow) and both trainers against
-directional finite differences.
+directional finite differences; the record kernels at edge shapes (empty
+tiles, rows that overflow, every route and drain option bit-equal) and the
+triangle kernel (random meshes with faces culled, rays that miss the mesh
+box, tiles 32 and 64, both modes, lists cut by max_chunks).
 
 Prints stage and kernel times (CUDA events, warm, median) with the card's
 name and power limit, the work each kernel's bound is computed from, a JSON
@@ -62,6 +79,7 @@ GATE = 1e-3
 MODE_DEGS = (("hitcount", 14), ("cumulative", 14), ("cumulative", -10),
              ("cumulative", 8), ("cumulative", -12))
 PK = "grace_tpu/trace/pallas_kernel.py"
+PR = "grace_tpu/trace/pallas_records.py"
 # The card's peaks for the bounds: 67 TFLOP/s FP32 outside the tensor cores
 # and 3.35 TB/s of HBM (NVIDIA's H100 SXM data sheet, 700 W).
 PEAK_FLOPS = 67e12
@@ -74,6 +92,14 @@ FLOPS_PAIR = 22
 FLOPS_HIT_H14 = 38
 FLOPS_HIT_FAST = 42
 FLOPS_HIT_FAST_BWD = 122
+# A Moller-Trumbore test (pallas_tri._mt_candidates): the cross products p
+# and q (6 fmas, 6 products: 18), det and the three dots (8 fmas, 4
+# products: 20), 3 subtractions, |det| > eps with its select and the
+# division (3), 3 products by 1/det, u + v and 7 compares (8): 55.
+FLOPS_MT = 55
+RECORD_CAP = 512          # grace_tpu's record workload capacity
+TORUS = dict(n_u=512, n_v=256)   # grace_tpu's triangle workload: 262,144 triangles
+ENGINE_SUBSET = 4096      # rays of the triangle image held against the engine
 
 _GPU = None
 
@@ -563,6 +589,324 @@ def training_small_checks(dev):
     fd_checks(dev)
 
 
+def records_inputs(route, rays, spheres, tile):
+    """(kernel, plain version, arguments) of a record route, its inputs
+    prepared as pallas_trace_sph_records prepares them (capacity last)."""
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    rays = pk._pad_rays(rays, tile)
+    packed, _ = pk._pack_rays(rays, tile)
+    prims, _ = pk._pack_prims(spheres)
+    if route == "quarter":
+        words, summary = pb.dense_tile_masks_quarter(rays, spheres, tile)
+        return prc.records_quarter, prc._records_quarter_plain, (summary, words, packed, prims)
+    return (prc.records_bitmask, prc._records_bitmask_plain,
+            (pb.dense_tile_masks(rays, spheres, tile), packed, prims))
+
+
+def check_records(tag, kernel, plain, args, cap):
+    """A record kernel against its plain version on the same card tensors:
+    counts and indices exact (sentinels included), integrals and distances
+    within rtol 1e-6 (the same f32 operations; the plain version's fused
+    multiply-adds round through f64, one in ~2^28 of them a second time).
+    Returns (max abs err of integrals, of distances, the kernel's result,
+    the plain version's ms)."""
+    got = kernel(*args, cap)
+    want, plain_ms = timed(lambda: plain(*args, cap), args[0].device)
+    check_equal(f"{tag} counts", got[0], want[0])
+    check_equal(f"{tag} indices", got[1], want[1])
+    err_i = check_close(f"{tag} integrals", got[2], want[2], 1e-6, 0.0)[0]
+    err_d = check_close(f"{tag} distances", got[3], want[3], 1e-6, 0.0)[0]
+    return err_i, err_d, got, plain_ms
+
+
+def timed(fn, device):
+    """(fn(), its device time in ms from CUDA events), or (fn(), None)
+    off the card."""
+    if torch.device(device).type != "cuda":
+        return fn(), None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def colocated_scene(dev):
+    """grace_tpu's overflow scene: 512 spheres of radius 0.4 at (0.5, 0.5,
+    0.5) and 64 rays through their center; every ray hits all 512."""
+    from grace_tpu_torch.core.types import Rays, make_spheres
+
+    spheres = make_spheres(np.full((512, 3), 0.5, np.float32),
+                           np.full((512,), 0.4, np.float32), device=dev)
+    rays = Rays.from_arrays(np.tile([[0.5, 0.5, -2.0]], (64, 1)).astype(np.float32),
+                            np.tile([[0.0, 0.0, 1.0]], (64, 1)).astype(np.float32),
+                            np.full((64,), 6.0, np.float32), device=dev)
+    return spheres, rays
+
+
+def records_scene(dev):
+    """3000 clustered particles with 4x the bench scene's smoothing lengths
+    (about ten hits a ray), Morton-sorted, and 50x39 sorted ortho rays over
+    a wide view (1950 rays; some tiles see no particle)."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+
+    sp = make_clustered_particles(np.random.default_rng(7), 3000)
+    sp[:, 3] *= 4.0
+    ss, _, _ = build_sph_tree(torch.from_numpy(sp).to(dev), 16)
+    rays_s, _, _ = spatial_sort_rays(orthographic_projection_rays(50, 39, CAM, LOOK, UP, 4.0,
+                                                                  LENGTH, device=dev))
+    return ss, rays_s
+
+
+def records_small_checks(dev):
+    """The record kernels against their plain versions at edge shapes: 3000
+    particles (not a multiple of 128), 1950 rays (no tile multiple), tiles
+    that list nothing, rows that overflow (capacity 128 on the co-located
+    scene: counts exactly 512); and the quarter, bitmask and streaming
+    (vmem_resident_limit=0) routes of pallas_trace_sph_records bit-equal."""
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    ss, rays_s = records_scene(dev)
+    for route in ("quarter", "bitmask"):
+        for tile in (64, 96):
+            kernel, plain, args = records_inputs(route, rays_s, ss, tile)
+            if not bool((args[-3] == 0).all(dim=1).any()):
+                raise AssertionError("edge case lost: no tile without a listed primitive")
+            err_i, err_d, got, _ = check_records(f"small records {route} t{tile}", kernel,
+                                                 plain, args, 128)
+            log(f"check {kernel.__name__} kernel vs plain: tile {tile}, {int(got[0].sum())} "
+                f"hits, integrals max abs err {err_i:.3g}, distances {err_d:.3g} OK")
+    sp_o, rays_o = colocated_scene(dev)
+    for route in ("quarter", "bitmask"):
+        kernel, plain, args = records_inputs(route, rays_o, sp_o, 64)
+        got = check_records(f"overflow records {route}", kernel, plain, args, 128)[2]
+        if not bool((got[0] == 512).all()) or not bool((got[1] >= 0).all()):
+            raise AssertionError(f"overflow records {route}: counts not 512 or rows not full")
+    log("check record kernels vs plain on the co-located scene: counts 512, rows of 128 "
+        "full, OK")
+    for r, s in ((rays_s, ss), (rays_o, sp_o)):
+        base = prc.pallas_trace_sph_records(r, s, 128)
+        for kw in (dict(broadphase="bitmask"), dict(vmem_resident_limit=0),
+                   dict(broadphase="quarter", rank_method="prefix", group=1, drain="network")):
+            for a, b in zip(prc.pallas_trace_sph_records(r, s, 128, **kw), base):
+                check_equal(f"records route {kw} vs default", a, b)
+    log("check pallas_trace_sph_records: quarter, bitmask, streaming and every drain "
+        "option bit-equal OK")
+
+
+def random_mesh(rng, n):
+    """grace_tpu's test meshes: n triangles of random winding (about half
+    face away from any ray) around random points of the unit box."""
+    c = rng.random((n, 1, 3)).astype(np.float32)
+    return c + 0.08 * rng.standard_normal((n, 3, 3)).astype(np.float32)
+
+
+def torus_mesh(n_u=64, n_v=32, R=1.0, r=0.4):
+    """A procedural torus, 2 n_u n_v triangles (the same vertices and
+    winding as ``examples/render_triangle.py``'s)."""
+    u = np.linspace(0, 2 * np.pi, n_u, endpoint=False)
+    v = np.linspace(0, 2 * np.pi, n_v, endpoint=False)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    x = (R + r * np.cos(vv)) * np.cos(uu)
+    y = (R + r * np.cos(vv)) * np.sin(uu)
+    z = r * np.sin(vv)
+    verts = np.stack([x, y, z], axis=-1).reshape(-1, 3).astype(np.float32)
+
+    def vid(i, j):
+        return (i % n_u) * n_v + (j % n_v)
+
+    tris = []
+    for i in range(n_u):
+        for j in range(n_v):
+            a, b, c, d = vid(i, j), vid(i + 1, j), vid(i + 1, j + 1), vid(i, j + 1)
+            tris.append((a, b, c))
+            tris.append((a, c, d))
+    return verts[np.asarray(tris, np.int32)]
+
+
+def tri_inputs(rays, tris, tile, max_chunks):
+    """(trace_tri arguments, overflow) as pallas_trace_tri prepares them."""
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    rays = pk._pad_rays(rays, tile)
+    flat = tris.reshape(-1, 3)
+    rays = pt.clip_rays_to_aabb(rays, flat.amin(dim=0), flat.amax(dim=0))
+    seg_ids, seg_dist, n_segs, ovf = pt._dense_tile_segments_tri(rays, tris, tile, max_chunks)
+    return (n_segs, seg_ids, seg_dist, pk._pack_rays(rays, tile)[0], pt._pack_tris(tris)[0]), ovf
+
+
+def check_tri(tag, args, mode):
+    """The triangle kernel against its plain version: ids exact, t within
+    rtol 1e-6 (the same f32 operations). Returns (max abs err of t over the
+    hits, hits, chunks visited per tile by the plain version, the plain
+    version's ms)."""
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    t, ids = pt.trace_tri(*args, mode)
+    (t_p, ids_p, visited), plain_ms = timed(lambda: pt._tri_plain(*args, mode), args[0].device)
+    check_equal(f"{tag} ids", ids, ids_p)
+    check_equal(f"{tag} misses", t >= pt.BIG, t_p >= pt.BIG)
+    hit = t_p < pt.BIG
+    err = check_close(f"{tag} t", t[hit], t_p[hit], 1e-6, 0.0)[0]
+    return err, int(hit.sum()), visited, plain_ms
+
+
+def tri_small_checks(dev):
+    """The triangle kernel against its plain version: random meshes (about
+    half the faces culled), rays that miss the mesh box, tiles 32 and 64,
+    both modes, and lists truncated by max_chunks."""
+    from grace_tpu_torch.core.types import Rays
+
+    rng = np.random.default_rng(3)
+    tris = torch.from_numpy(random_mesh(rng, 3000)).to(dev)
+    r = 2000
+    d = rng.standard_normal((r, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = (rng.random((r, 3)) * 0.4 + 0.3).astype(np.float32)
+    o[:100] = [3.0, 3.0, 3.0]   # outside the box, pointing anywhere: most miss it
+    rays = Rays.from_arrays(o, d, np.full(r, 5.0, np.float32), device=dev)
+    for tile in (32, 64):
+        for max_chunks in (2048, 4):
+            args, ovf = tri_inputs(rays, tris, tile, max_chunks)
+            if (max_chunks == 4) != bool(ovf.any()) or not bool((args[3][:, 9] == 0).any()):
+                raise AssertionError("edge case lost: overflow or a ray clipped to nothing")
+            for mode in ("closest", "any"):
+                err, hits, visited, _ = check_tri(f"small tri t{tile} c{max_chunks} {mode}",
+                                                  args, mode)
+                log(f"check trace_tri kernel vs plain: tile {tile} max_chunks {max_chunks} "
+                    f"{mode}: {hits} hits, {int(visited.sum())} chunks visited, t max abs err "
+                    f"{err:.3g} OK")
+
+
+def records_gates(rec, rec_b, rec_sorted, flat, counts_want, column_density):
+    """Main path 4's gates: counts equal the quarter trace's hit counts on
+    every ray; the bitmask route's records equal the quarter route's bit
+    for bit; each row that did not overflow sums to the quarter trace's
+    column density within rtol 1e-5, atol 1e-6 x max (both the horner1
+    deg-14 integral); sorted rows are non-decreasing; the flat layout's
+    offsets are the exclusive cumsum of the kept counts. Returns a summary."""
+    check_equal("record counts vs quarter trace hit counts", rec.counts, counts_want)
+    for name, a, b in zip(rec._fields, rec_b, rec):
+        check_equal(f"records bitmask route vs quarter route ({name})", a, b)
+    cap = rec.capacity
+    kept = torch.clamp(rec.counts, max=cap)
+    full = rec.counts <= cap
+    scale = float(column_density.abs().max())
+    err, _ = check_close("record row sums vs quarter trace column density",
+                         rec.integrals.double().sum(dim=1)[full],
+                         column_density[full].double(), 1e-5, 1e-6 * scale)
+    col = torch.arange(1, cap, device=kept.device)
+    d = rec_sorted.distances
+    if bool(((d[:, 1:] < d[:, :-1]) & (col < kept[:, None])).any()):
+        raise AssertionError("sorted records: a row's distances decrease")
+    check_equal("sorted record counts", rec_sorted.counts, rec.counts)
+    check_equal("flat offsets vs exclusive cumsum", flat.offsets,
+                (torch.cumsum(kept, dim=0) - kept).to(torch.int32))
+    check_equal("flat counts", flat.counts, rec.counts)
+    if int(flat.total_hits) != int(rec.counts.sum()):
+        raise AssertionError("flat total_hits != sum of counts")
+    return (f"{int(rec.overflowed.sum())} rays overflowed (largest count "
+            f"{int(rec.counts.max())}); row sums of {int(full.sum())} rays vs quarter trace "
+            f"max abs err {err:.3g} (max value {scale:.3g}); sorted rows non-decreasing; "
+            "flat offsets the exclusive cumsum; bitmask route bit-equal")
+
+
+def engine_subset_gate(rays, sorted_tris, tree, t, ids):
+    """The kernel's closest hits (t, ids) on ``rays`` against the generic
+    engine's. grace_tpu's engine and its Pallas kernel round the triangle
+    test differently (the determinant's fused multiply-add falls on another
+    product), and the port keeps each path's rounding, so a ray through a
+    shared edge may hit a neighbour, or neither, in one path and not the
+    other (grace_tpu itself: 6 of the 4096 torus rays). Ids must be equal
+    on every ray except such edge rays, at most 1 in 100, each one where
+    the two roundings of the test disagree on one of the two triangles; t
+    within rtol 1e-6 wherever both hit. Returns
+    (edge rays, max abs err of t)."""
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    ref = mt.trace_closest_hit(rays, sorted_tris, tree)
+    both = torch.isfinite(ref.t) & torch.isfinite(t)
+    err, _ = check_close("subset t vs engine", t[both], ref.t[both], 1e-6, 0.0)
+    edge = torch.nonzero(ids != ref.tri).flatten().tolist()
+    if len(edge) > rays.n_rays // 100:
+        raise AssertionError(f"subset ids vs engine: {len(edge)} rays differ")
+    for b in edge:
+        r = rays[b:b + 1]
+        cols = [r.origins[:, 0], r.origins[:, 1], r.origins[:, 2], r.directions[:, 0],
+                r.directions[:, 1], r.directions[:, 2], r.lengths]
+        explained, ts = False, []
+        for i in {int(ids[b]), int(ref.tri[b])} - {-1}:
+            hit_e, t_e = mt.intersect_triangle(r.origins, r.directions, r.lengths,
+                                               sorted_tris[i:i + 1])
+            t_k = pt._mt_candidates(pt._pack_tris(sorted_tris[i:i + 1])[0][0],
+                                    *[c[:, None] for c in cols])
+            explained |= bool(hit_e[0]) != bool(t_k[0, 0] < pt.BIG)
+            ts.append(float(t_k[0, 0]) if bool(hit_e[0]) else float("inf"))
+        # or both hit both triangles at one t (a tie on the shared edge)
+        explained |= len(ts) == 2 and abs(ts[0] - ts[1]) <= 1e-6 * min(ts)
+        if not explained:
+            raise AssertionError(f"subset ids vs engine: ray {b} differs off an edge")
+    return len(edge), err
+
+
+def triangle_gates(tris, img, side):
+    """Main path 5's gates, on render_triangles' steps run again one by one:
+    every phase finite, the image in [0, 1] and lit exactly where the
+    closest-hit pass hits, no list overflow, any hit equal to a finite
+    closest t, and on a subset of ENGINE_SUBSET rays the kernel's ids equal
+    the generic engine's and t within rtol 1e-6. Returns the summary, the
+    primary pass's trace_tri arguments and its padded and clipped rays."""
+    import math
+
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.rays.gen import pinhole_camera_rays
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    if img.shape != (side, side) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("triangle image: bad shape or non-finite values")
+    if float(img.min()) < 0.0 or float(img.max()) > 1.0:
+        raise AssertionError("triangle image outside [0, 1]")
+    sorted_tris, tree, _ = mt.build_triangle_tree(tris)
+    cam, look, length = mt.auto_camera(sorted_tris, side)
+    rays = pinhole_camera_rays(side, side, cam.tolist(), look.tolist(), (0.0, 1.0, 0.0),
+                               math.pi / 3, float(length), device=tris.device)
+    t, ids, ovf = pt.pallas_trace_tri(rays, sorted_tris)
+    occ, _, ovf_any = pt.pallas_trace_tri(rays, sorted_tris, mode="any")
+    for name, x in (("sorted triangles", sorted_tris), ("camera", cam),
+                    ("ray origins", rays.origins),
+                    ("ray directions", rays.directions)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"triangle path: non-finite {name}")
+    hit = torch.isfinite(t)
+    if bool(torch.isnan(t).any()) or not bool(((ids >= 0) == hit).all()):
+        raise AssertionError("closest hits: NaN t, or ids and t disagree")
+    if bool(ovf.any()) or bool(ovf_any.any()):
+        raise AssertionError("triangle lists overflow")
+    check_equal("any hit vs finite closest t on the primary rays", occ, hit)
+    check_equal("image lit vs closest hits", img.flatten() > 0, hit)
+    sub = torch.arange(0, rays.n_rays, rays.n_rays // ENGINE_SUBSET, device=t.device)
+    n_edge, err = engine_subset_gate(rays[sub], sorted_tris, tree, t[sub], ids[sub])
+    args, _ = tri_inputs(rays, sorted_tris, 32, 2048)
+    rays_p = pk._pad_rays(rays, 32)
+    flat = sorted_tris.reshape(-1, 3)
+    summary = (f"{int(hit.sum())} of {rays.n_rays} rays hit, {int(occ.sum())} any-hits equal "
+               f"them; image in [{float(img.min()):.4g}, {float(img.max()):.4g}]; no overflow; "
+               f"{ENGINE_SUBSET} rays vs engine: ids equal but on {n_edge} edge rays, t max "
+               f"abs err {err:.3g}")
+    return {"summary": summary, "args": args, "sorted_tris": sorted_tris, "rays_padded": rays_p,
+            "rays_clipped": pt.clip_rays_to_aabb(rays_p, flat.amin(dim=0), flat.amax(dim=0))}
+
+
 def footprint_work(spheres, weights, cam):
     """(sum over live particles of rows x columns, and of rows + columns)
     of the pixel centers inside each particle's footprint |d| < h: the
@@ -650,6 +994,8 @@ def run(dev, n_particles, side):
     # engine; the driver entry's forward
     small_checks(dev)
     training_small_checks(dev)
+    records_small_checks(dev)
+    tri_small_checks(dev)
     entry_args = entry_check(dev)
 
     # 3. main path 1, the column-density render on the bench scene
@@ -838,7 +1184,74 @@ def run(dev, n_particles, side):
         raise AssertionError("fused renderer lists overflow at the bench scene")
     errs["render_fwd"], errs["render_bwd"] = check_render("full", fwd_args, bwd_args)
 
-    # 8. times (CUDA events, warm, median; the plain versions ran warm in 5 and 7)
+    # 8. main path 4, per-hit records on main path 1's scene and sorted rays
+    from grace_tpu_torch.trace import pallas_records as prc
+    from grace_tpu_torch.trace.sph import trace_sph
+
+    torch.cuda.synchronize()
+    prc.records_quarter.launches = 0
+    prc.records_bitmask.launches = 0
+    t0 = time.perf_counter()
+    rec = prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP)
+    rec_b = prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP,
+                                         broadphase="bitmask")
+    rec_sorted = prc.sort_records_by_distance(rec)
+    total_hits = int(rec.counts.sum())
+    flat = trace_sph(rays_s, sorted_spheres, tree, capacity=total_hits, engine="pallas",
+                     per_ray_capacity=RECORD_CAP)
+    torch.cuda.synchronize()
+    wall4 = time.perf_counter() - t0
+    launches4 = {"records_quarter": prc.records_quarter.launches,
+                 "records_bitmask": prc.records_bitmask.launches}
+    if min(launches4.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches4}")
+    rec_stats = records_gates(rec, rec_b, rec_sorted, flat, quarter_hc, trace_v)
+    del rec_b, rec_sorted, flat
+    log(f"main path 4 (per-hit records, {n_particles} particles, {side}x{side} rays, "
+        f"capacity {RECORD_CAP}): {wall4:.2f} s wall; {total_hits} hits, counts equal the "
+        f"quarter trace's on every ray; {rec_stats}; launches {launches4}")
+
+    # 9. main path 5, triangles: render_triangles on the CUDA kernel
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
+    torch.cuda.synchronize()
+    pt.trace_tri.launches = 0
+    t0 = time.perf_counter()
+    tri_img = mt.render_triangles(tris, resolution=side, engine="pallas")
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    launches5 = {"trace_tri": pt.trace_tri.launches}
+    if min(launches5.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches5}")
+    tri_state = triangle_gates(tris, tri_img, side)
+    log(f"main path 5 (triangles, {tris.shape[0]} triangle torus, {side}x{side} pinhole "
+        f"rays): {wall5:.2f} s wall; {tri_state['summary']}; launches {launches5}")
+
+    # 10. the record and triangle kernels vs their plain versions at the main
+    # paths' shapes, every tile
+    rq_args = records_inputs("quarter", rays_s, sorted_spheres, 64)[2]
+    rb_args = records_inputs("bitmask", rays_s, sorted_spheres, 64)[2]
+    plain_ms = {}
+    for name, kernel, plain, args in (
+            ("records_quarter", prc.records_quarter, prc._records_quarter_plain, rq_args),
+            ("records_bitmask", prc.records_bitmask, prc._records_bitmask_plain, rb_args)):
+        errs[name + " integral"], errs[name + " distance"], _, plain_ms[name] = check_records(
+            f"full {name}", kernel, plain, args, RECORD_CAP)
+        log(f"check {name} kernel vs plain on all {args[-2].shape[0] // 64} tiles, capacity "
+            f"{RECORD_CAP}: counts and indices equal, integrals max abs err "
+            f"{errs[name + ' integral']:.3g}, distances {errs[name + ' distance']:.3g} OK")
+    tri_args = tri_state["args"]
+    for mode in ("closest", "any"):
+        errs["tri " + mode], hits, visited, plain_ms["tri " + mode] = check_tri(
+            f"full tri {mode}", tri_args, mode)
+        tri_state["visited " + mode] = int(visited.sum())
+        log(f"check trace_tri kernel vs plain on all {visited.shape[0]} tiles ({mode}): ids "
+            f"equal, {hits} hits, t max abs err {errs['tri ' + mode]:.3g}, "
+            f"{int(visited.sum())} chunks visited OK")
+
+    # 11. times (CUDA events, warm, median; the plain versions ran warm in 5, 7 and 10)
     t = {}
     t["build_sph_tree"] = cuda_ms(lambda: build_sph_tree(spheres, MAX_PER_LEAF), reps=3)
     t["rays+sort"] = cuda_ms(lambda: spatial_sort_rays(orthographic_projection_rays(
@@ -903,10 +1316,32 @@ def run(dev, n_particles, side):
     t["render_bwd plain"] = cuda_ms(lambda: pr._render_bwd_plain(*bwd_args), reps=2, warm=0)
     t["splat train step"] = cuda_ms(splat_step, reps=3)
     t["general train step"] = cuda_ms(general_step, reps=3)
+    t["dense_tile_masks_quarter (records, tile 64)"] = cuda_ms(
+        lambda: records_inputs("quarter", rays_s, sorted_spheres, 64))
+    t["records_quarter kernel"] = cuda_ms(lambda: prc.records_quarter(*rq_args, RECORD_CAP))
+    t["records_quarter plain"] = plain_ms["records_quarter"]
+    t["records_bitmask kernel"] = cuda_ms(lambda: prc.records_bitmask(*rb_args, RECORD_CAP))
+    t["records_bitmask plain"] = plain_ms["records_bitmask"]
+    t["sort_records_by_distance"] = cuda_ms(lambda: prc.sort_records_by_distance(rec), reps=3)
+    t["pallas_trace_sph_records (default route)"] = cuda_ms(
+        lambda: prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP), reps=3)
+    t["build_primitive_tree (torus)"] = cuda_ms(lambda: mt.build_triangle_tree(tris), reps=3)
+    prim_rays = tri_state["rays_padded"]
+    flat_tris = tri_state["sorted_tris"].reshape(-1, 3)
+    t["clip_rays_to_aabb"] = cuda_ms(lambda: pt.clip_rays_to_aabb(
+        prim_rays, flat_tris.amin(dim=0), flat_tris.amax(dim=0)))
+    t["_dense_tile_segments_tri"] = cuda_ms(lambda: pt._dense_tile_segments_tri(
+        tri_state["rays_clipped"], tri_state["sorted_tris"], 32, 2048), reps=3)
+    t["trace_tri kernel (closest)"] = cuda_ms(lambda: pt.trace_tri(*tri_args, "closest"))
+    t["trace_tri plain (closest)"] = plain_ms["tri closest"]
+    t["trace_tri kernel (any)"] = cuda_ms(lambda: pt.trace_tri(*tri_args, "any"))
+    t["trace_tri plain (any)"] = plain_ms["tri any"]
+    t["render_triangles (pallas, whole)"] = cuda_ms(
+        lambda: mt.render_triangles(tris, resolution=side, engine="pallas"), reps=3)
     for k, v in t.items():
         log(f"time {k}: {v:.3f} ms")
 
-    # 9. the work each kernel's bound is computed from
+    # 12. the work each kernel's bound is computed from
     hits = int(quarter_hc.sum())
     r_pad = packed.shape[0]
     quarters = int(_popcount_rows(words).sum())
@@ -924,6 +1359,18 @@ def run(dev, n_particles, side):
         f"factor entries, splat_sortfree {sf_pairs} (pixel tile, segment) pairs; "
         f"render_fwd {fused_pairs} (ray tile, segment) pairs; render_bwd {bwd_pairs} "
         f"(segment, ray tile) pairs")
+    rec_quarters = int(_popcount_rows(rq_args[1]).sum())
+    rec_segments = int(_popcount_rows(rb_args[0]).sum())
+    rec_pad = rq_args[2].shape[0]
+    rec_bytes = rec_pad * RECORD_CAP * 12 + rec_pad * 4
+    tri_pairs = {m: tri_state["visited " + m] * pt.CHUNK for m in ("closest", "any")}
+    tri_tile = tri_args[3].shape[0] // tri_args[0].shape[0]
+    log(f"work: records {rec_quarters} (tile, quarter) pairs (records_quarter) and "
+        f"{rec_segments} (tile, segment) pairs (records_bitmask) at tile 64, {hits} hits, "
+        f"{rec_bytes} record bytes written ({rec_pad} rows x {RECORD_CAP} x 12 + counts); "
+        f"trace_tri (tile, segment) pairs visited {tri_pairs['closest']} (closest) and "
+        f"{tri_pairs['any']} (any) of {int(tri_args[0].sum())} listed, at tile {tri_tile}, "
+        f"{FLOPS_MT} flops a (ray, triangle) test")
     trace_flops = lambda pairs: pairs * FLOPS_PAIR + hits * FLOPS_HIT_H14
     splat_flops = rows_x_cols * rank * 2 + rows_plus_cols * rank * (2 * deg8 + 2)
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
@@ -966,6 +1413,19 @@ def run(dev, n_particles, side):
                      t["render_bwd plain"],
                      bwd_pairs * 128 * pr.BWD_TILE * FLOPS_PAIR + hits * FLOPS_HIT_FAST_BWD,
                      nbytes(*bwd_args, bwd_args[2])),
+        kernel_entry("records_quarter", "records.cu", f"{PR}:377", launches4["records_quarter"],
+                     errs["records_quarter integral"], t["records_quarter kernel"],
+                     t["records_quarter plain"], trace_flops(rec_quarters * 32 * 64),
+                     nbytes(*rq_args) + rec_bytes),
+        kernel_entry("records_bitmask", "records.cu", f"{PR}:333, {PR}:485",
+                     launches4["records_bitmask"], errs["records_bitmask integral"],
+                     t["records_bitmask kernel"], t["records_bitmask plain"],
+                     trace_flops(rec_segments * 128 * 64), nbytes(*rb_args) + rec_bytes),
+        kernel_entry("trace_tri", "tri.cu", "grace_tpu/trace/pallas_tri.py:192",
+                     launches5["trace_tri"], errs["tri closest"],
+                     t["trace_tri kernel (closest)"], t["trace_tri plain (closest)"],
+                     tri_pairs["closest"] * 128 * tri_tile * FLOPS_MT,
+                     nbytes(*tri_args) + tri_args[3].shape[0] * 8),
     ]}), flush=True)
 
 

@@ -51,6 +51,11 @@ KERNELS = {
     "render": ("render.cu", ["--fmad=false"],
                {"grace_render_fwd": "pppppp" + "iiii",
                 "grace_render_bwd": "pppppp" + "iii"}),
+    "records": ("records.cu", ["--fmad=false"],
+                {"grace_records_quarter": "ppppppppp" + "iiiiiii",
+                 "grace_records_bitmask": "pppppppp" + "iiiiii"}),
+    "tri": ("tri.cu", ["--fmad=false"],
+            {"grace_tri": "ppppppp" + "iiiiii"}),
 }
 
 _LIBS: dict = {}

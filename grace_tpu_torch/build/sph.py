@@ -5,8 +5,10 @@
     d = *_deltas_sph(spheres_sorted)
     tree = albvh_sph(spheres_sorted, d, mpl)
 
-or the one-call ``build_sph_tree``. Keys are int64 (63-bit keys as one
-value), sorted with a stable sort so ties keep ``grace_tpu``'s order.
+or the one-call ``build_sph_tree``; ``build_primitive_tree`` is the same
+pipeline for any primitive kind (e.g. ``ops.primitives.TRIANGLE``). Keys
+are int64 (63-bit keys as one value), sorted with a stable sort so ties
+keep ``grace_tpu``'s order.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from grace_tpu_torch.build import deltas as deltas_mod
 from grace_tpu_torch.build.lbvh import build_lbvh
 from grace_tpu_torch.core.tree import Tree
 from grace_tpu_torch.ops import morton
-from grace_tpu_torch.ops.primitives import SPHERE
+from grace_tpu_torch.ops.primitives import SPHERE, PrimitiveKind
 
 
 def morton_keys_sph(spheres, aabb_min=None, aabb_max=None, bits: int = 30):
@@ -77,3 +79,26 @@ def build_sph_tree(spheres, max_per_leaf: int, delta_kind: str = "euclidean",
         raise ValueError(f"unknown delta_kind {delta_kind!r}")
     tree = albvh_sph(sorted_spheres, d, max_per_leaf)
     return sorted_spheres, tree, perm
+
+
+def build_primitive_tree(prims, kind: PrimitiveKind, max_per_leaf: int,
+                         delta_kind: str = "xor", bits: int = 30
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Generic-primitive build: Morton keys of ``kind.centroid`` within the
+    centroids' bounds -> stable sort -> deltas -> LBVH over ``kind.aabb``.
+    Returns (sorted_prims, tree, permutation i32[N])."""
+    centroids = kind.centroid(prims)
+    keys = morton.morton_keys_from_centroids(centroids, centroids.amin(dim=0),
+                                             centroids.amax(dim=0), bits=bits)
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    sorted_prims = prims[perm]
+    if delta_kind == "xor":
+        d = xor_deltas_sph(keys_sorted, bits)
+    elif delta_kind == "euclidean":
+        d = deltas_mod.euclidean_deltas(sorted_prims, kind.centroid)
+    elif delta_kind == "surface_area":
+        d = deltas_mod.surface_area_deltas(sorted_prims, kind.aabb)
+    else:
+        raise ValueError(f"unknown delta_kind {delta_kind!r}")
+    mins, maxs = kind.aabb(sorted_prims)
+    return sorted_prims, build_lbvh(mins, maxs, d, max_per_leaf), perm.to(torch.int32)

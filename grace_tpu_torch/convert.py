@@ -1,7 +1,7 @@
 """Carry ``grace_tpu`` state into this package.
 
-The system has no weights; its state is particle arrays, trees, rays, splat
-buckets and fitted coefficients (the coefficients ship as a copy of
+The system has no weights; its state is particle arrays, triangle meshes,
+trees, rays, splat buckets and fitted coefficients (the coefficients ship as a copy of
 ``grace_tpu``'s cache). Each converter takes the numpy arrays of a
 ``grace_tpu`` object (``np.asarray`` of each field) and returns the port's
 object on ``device`` (default: the CUDA card; pass ``device="cpu"`` for
@@ -28,6 +28,11 @@ def _t(a, dtype, device):
 def spheres_from_numpy(spheres, device=None) -> torch.Tensor:
     """f32[N, 4] (x, y, z, h)."""
     return _t(spheres, torch.float32, device)
+
+
+def triangles_from_numpy(tris, device=None) -> torch.Tensor:
+    """f32[N, 3, 3] vertex triplets."""
+    return _t(tris, torch.float32, device)
 
 
 def rays_from_numpy(origins, directions, lengths, device=None) -> Rays:

@@ -35,6 +35,22 @@ __device__ __forceinline__ float impact(float px, float py, float pz, float ox, 
     return fmaf(bz, bz, fmaf(bx, bx, by * by));
 }
 
+// The weighted-fit line integral F(b/h) of u = b^2/h^2 (deg >= 0): Horner in
+// t = 2 min(u, 1) - 1, times v^3 sqrt(v) with v = max(1 - min(u, 1), 0), so
+// it vanishes for u >= 1. seg_pair's weighted branch and the record kernels
+// (records.cu) share it.
+__device__ __forceinline__ float horner1_integral(float u, const float* coeffs,
+                                                  int deg) {
+    const float uc = fminf(u, 1.0f);
+    const float t = 2.0f * uc - 1.0f;
+    float acc = coeffs[deg];
+    for (int k = deg - 1; k >= 0; --k) {
+        acc = fmaf(acc, t, coeffs[k]);
+    }
+    const float v = fmaxf(1.0f - uc, 0.0f);
+    return acc * ((v * v) * (v * sqrtf(v)));
+}
+
 // Column-density contribution F(b/h) / h^2 (cumulative) or the hit
 // indicator (hitcount) of one primitive (x, y, z, 1/h^2, h^2) on one ray.
 // coeffs holds |deg| + 1 f32 Horner coefficients, lowest order first:
@@ -51,17 +67,13 @@ __device__ __forceinline__ float seg_pair(const RaySeg& r, float px, float py,
         return (along && b2 < h2) ? 1.0f : 0.0f;
     }
     const float u = b2 * inv_h2;
-    const float uc = fminf(u, 1.0f);
-    const float t = 2.0f * uc - 1.0f;
-    const int d = deg < 0 ? -deg : deg;
-    float acc = coeffs[d];
-    for (int k = d - 1; k >= 0; --k) {
+    if (deg >= 0) {
+        return along ? horner1_integral(u, coeffs, deg) * inv_h2 : 0.0f;
+    }
+    const float t = 2.0f * fminf(u, 1.0f) - 1.0f;
+    float acc = coeffs[-deg];
+    for (int k = -deg - 1; k >= 0; --k) {
         acc = fmaf(acc, t, coeffs[k]);
     }
-    if (deg < 0) {
-        return (along && u < 1.0f) ? acc * inv_h2 : 0.0f;
-    }
-    const float v = fmaxf(1.0f - uc, 0.0f);
-    const float f = acc * ((v * v) * (v * sqrtf(v)));
-    return along ? f * inv_h2 : 0.0f;
+    return (along && u < 1.0f) ? acc * inv_h2 : 0.0f;
 }

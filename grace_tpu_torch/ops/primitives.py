@@ -35,3 +35,21 @@ def sphere_centroid(spheres) -> torch.Tensor:
 
 
 SPHERE = PrimitiveKind(centroid=sphere_centroid, aabb=sphere_aabb)
+
+
+def centroid_from_aabb(aabb_fn: AabbFn) -> CentroidFn:
+    """Generic centroid: the AABB midpoint."""
+
+    def centroid(prims):
+        mins, maxs = aabb_fn(prims)
+        return 0.5 * (mins + maxs)
+
+    return centroid
+
+
+def triangle_aabb(tris) -> Tuple[torch.Tensor, torch.Tensor]:
+    """AABB of triangles stored as f32[N, 3, 3] (three vertices)."""
+    return tris.amin(dim=-2), tris.amax(dim=-2)
+
+
+TRIANGLE = PrimitiveKind(centroid=centroid_from_aabb(triangle_aabb), aabb=triangle_aabb)

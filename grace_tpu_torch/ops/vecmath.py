@@ -12,6 +12,10 @@ compute instead, as its ray generators run.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
+
 import torch
 
 
@@ -83,3 +87,18 @@ def sgn(x):
     """Sign in {-1, 0, 1} as int32."""
     x = _t(x)
     return (x > 0).to(torch.int32) - (x < 0).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _tanf():
+    fn = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6").tanf
+    fn.argtypes, fn.restype = [ctypes.c_float], ctypes.c_float
+    return fn
+
+
+def tan_f32(x: float) -> float:
+    """The f32 tangent of the f32 nearest ``x``, as the C library's
+    ``tanf`` computes it. That is the value compiled XLA gives on the CPU
+    (``jnp.tan``); it is not always the correctly rounded one (at pi/6 it
+    is the other neighbour), and PyTorch's CPU ``tan`` differs from it."""
+    return float(_tanf()(float(x)))

@@ -17,7 +17,7 @@ import torch
 
 from grace_tpu_torch.core.types import Rays, creation_device
 from grace_tpu_torch.ops.morton import morton_key_30bit_from_unit, morton_keys_from_centroids
-from grace_tpu_torch.ops.vecmath import cross, fma, normalize3_unfused
+from grace_tpu_torch.ops.vecmath import cross, fma, normalize3_unfused, tan_f32
 
 
 def _f32(x, device=None) -> torch.Tensor:
@@ -89,7 +89,8 @@ def pinhole_camera_rays(resolution_x: int, resolution_y: int, camera_position,
     device = creation_device(device)
     view_dir, v, u = _camera_basis(camera_position, look_at, view_up, device)
     aspect = resolution_x / resolution_y
-    n_pref = 1.0 / torch.tan(_f32(fov_y, device) / 2.0)
+    half = float(torch.tensor(float(fov_y), dtype=torch.float32)) / 2.0
+    n_pref = 1.0 / _f32(tan_f32(half), device)
     x, y = _pixel_coords(resolution_x, resolution_y, aspect, device)
     dirs = normalize3_unfused(x[:, None] * v + y[:, None] * u + n_pref * view_dir)
     n = resolution_x * resolution_y

@@ -5,11 +5,10 @@
   on_hit_count                 per-ray hit count
   make_on_hit_sphere_cumulate  per-ray sum of SPH line integrals
                                lerp(table, (N-1) sqrt(b2)/h) / h^2
+  make_on_hit_sphere_record    (prim index, integral, distance) of every
+                               hit, for the per-hit trace (trace/sph.py)
   make_on_hit_record_ids       (ray, prim) id pair of every hit, for the
                                differentiable render (trace/render.py)
-
-The record functors that store integrals and distances come with the
-record pipeline.
 """
 
 from __future__ import annotations
@@ -66,6 +65,40 @@ def make_on_hit_sphere_cumulate(spheres, table, weights=None):
     return on_hit
 
 
+def _scatter_hits(cursor, hit, capacity, global_state, payloads):
+    """Write each hit's payloads at cursor + its rank among the ray's hits
+    of this leaf; positions at or past ``capacity`` are dropped (a spare
+    slot past the end takes them). Returns (new cursor, new state)."""
+    hit_i = hit.to(torch.int32)
+    rank = torch.cumsum(hit_i, dim=-1, dtype=torch.int32) - hit_i
+    pos = cursor[:, None] + rank
+    pos = torch.where(hit & (pos < capacity), pos, capacity).long().flatten()
+    state = {}
+    for key, vals in payloads.items():
+        buf = torch.cat([global_state[key], global_state[key].new_zeros(1)])
+        state[key] = buf.scatter(0, pos, vals.flatten().to(buf.dtype))[:capacity]
+    return cursor + hit.sum(dim=-1, dtype=cursor.dtype), state
+
+
+def make_on_hit_sphere_record(spheres, table, capacity: int):
+    """On-hit functor writing (prim index, integral, distance) of every hit
+    into the global buffers ``indices`` (i32), ``integrals`` and
+    ``distances`` (f32[capacity]). ray_data is each ray's write cursor,
+    seeded with its offset; a hit goes to cursor + its rank among the ray's
+    hits of this leaf, and writes at or past ``capacity`` are dropped."""
+    h_arr = spheres[:, 3]
+    table = torch.as_tensor(table, dtype=torch.float32, device=spheres.device)
+
+    def on_hit(carry, ray_ids, prim_ids, info, hit):
+        cursor, global_state = carry
+        contrib = sph_integral(info.b2, h_arr[prim_ids], table)
+        return _scatter_hits(cursor, hit, capacity, global_state,
+                             {"indices": prim_ids, "integrals": contrib,
+                              "distances": info.dist})
+
+    return on_hit
+
+
 def make_on_hit_record_ids(capacity: int):
     """On-hit functor writing each hit's (ray, prim) ids into the global
     buffers ``ray`` and ``prim`` (i32[capacity]). ray_data is each ray's
@@ -75,16 +108,8 @@ def make_on_hit_record_ids(capacity: int):
 
     def on_hit(carry, ray_ids, prim_ids, info, hit):
         cursor, global_state = carry
-        hit_i = hit.to(torch.int32)
-        rank = torch.cumsum(hit_i, dim=-1, dtype=torch.int32) - hit_i
-        pos = cursor[:, None] + rank
-        pos = torch.where(hit & (pos < capacity), pos, capacity).long().flatten()
-        rays = ray_ids[:, None].expand(prim_ids.shape).flatten().to(torch.int32)
-        # A spare slot past the end takes the dropped writes.
-        state = {}
-        for key, vals in (("ray", rays), ("prim", prim_ids.flatten().to(torch.int32))):
-            buf = torch.cat([global_state[key], global_state[key].new_zeros(1)])
-            state[key] = buf.scatter(0, pos, vals)[:capacity]
-        return cursor + hit.sum(dim=-1, dtype=cursor.dtype), state
+        return _scatter_hits(cursor, hit, capacity, global_state,
+                             {"ray": ray_ids[:, None].expand(prim_ids.shape),
+                              "prim": prim_ids})
 
     return on_hit

@@ -15,8 +15,12 @@ training kernels splat_sortfree_fwd / _bwd and render_fwd / _bwd (a
 particle count that is not a multiple of 128, dead particles, empty tiles,
 a particle that covers every tile, both bases, list overflow; gradients
 within grace_tpu's bounds), the fused renderer's overflow contracts and
-both trainers against finite differences. The edge scenes and checks are
-chip_smoke.py's.
+both trainers against finite differences; the record kernels (quarter and
+segment words, empty tiles, rows that overflow; counts and indices exact,
+integrals and distances within rtol 1e-6) and the triangle kernel (random
+meshes with faces culled, rays that miss the mesh box, both modes, lists
+cut by max_chunks; ids exact, t within rtol 1e-6). The edge scenes and
+checks are chip_smoke.py's.
 """
 
 import numpy as np
@@ -32,9 +36,12 @@ from grace_tpu_torch.trace.pallas_broadphase import (
     dense_tile_masks, dense_tile_masks_quarter, dense_tile_segments, quarter_lists)
 from grace_tpu_torch.trace import pallas_render as pr
 from grace_tpu_torch.trace import splat_grad as sg
+from grace_tpu_torch.trace import pallas_records as prc
+from grace_tpu_torch.trace import pallas_tri as pt
 from chip_smoke import (
-    check_render, check_sortfree, fd_checks, make_clustered_particles, render_inputs,
-    sortfree_inputs, training_scene)
+    check_records, check_render, check_sortfree, check_tri, colocated_scene, fd_checks,
+    make_clustered_particles, random_mesh, records_inputs, records_scene,
+    records_small_checks, render_inputs, sortfree_inputs, training_scene, tri_inputs)
 
 CAM = (0.5, 0.5, -2.0)
 LOOK = (0.5, 0.5, 0.5)
@@ -256,3 +263,82 @@ def test_fused_renderer_overflow_contracts(dev):
 @pytest.mark.cuda
 def test_trainers_finite_differences(dev):
     fd_checks(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [64, 96])
+@pytest.mark.parametrize("route", ["quarter", "bitmask"])
+def test_record_kernels_match_plain(dev, route, tile):
+    ss, rays_s = records_scene(dev)
+    kernel, plain, args = records_inputs(route, rays_s, ss, tile)
+    assert rays_s.n_rays % tile and bool((args[-3] == 0).all(dim=1).any())
+    before = kernel.launches
+    got = check_records(f"card test {route}", kernel, plain, args, 128)[2]
+    assert kernel.launches == before + 1 and int(got[0].sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["quarter", "bitmask"])
+def test_record_kernels_overflow(dev, route):
+    sp, rays = colocated_scene(dev)
+    kernel, plain, args = records_inputs(route, rays, sp, 64)
+    got = check_records(f"card test overflow {route}", kernel, plain, args, 128)[2]
+    assert bool((got[0] == 512).all()) and bool((got[1] >= 0).all())
+
+
+@pytest.mark.cuda
+def test_record_routes_and_drains_bit_equal(dev):
+    records_small_checks(dev)
+
+
+def _tri_rays(dev, rng, r=1000):
+    from grace_tpu_torch.core.types import Rays
+
+    d = rng.standard_normal((r, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = (rng.random((r, 3)) * 0.4 + 0.3).astype(np.float32)
+    o[:50] = [3.0, 3.0, 3.0]
+    return Rays.from_arrays(o, d, np.full(r, 5.0, np.float32), device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_chunks", [2048, 4])
+@pytest.mark.parametrize("mode", ["closest", "any"])
+@pytest.mark.parametrize("tile", [32, 64])
+def test_tri_kernel_matches_plain(dev, tile, mode, max_chunks):
+    rng = np.random.default_rng(3)
+    tris = torch.from_numpy(random_mesh(rng, 1000)).to(dev)
+    args, ovf = tri_inputs(_tri_rays(dev, rng), tris, tile, max_chunks)
+    assert bool(ovf.any()) == (max_chunks == 4)
+    before = pt.trace_tri.launches
+    _, hits, _, _ = check_tri(f"card test tri t{tile} {mode}", args, mode)
+    assert pt.trace_tri.launches == before + 1 and hits > 100
+
+
+@pytest.mark.cuda
+def test_record_and_tri_wrappers_reject_what_the_kernels_do_not_take(dev):
+    ss, rays_s = records_scene(dev)
+    _, _, (summary, words, packed, prims) = records_inputs("quarter", rays_s, ss, 2048)
+    with pytest.raises(ValueError, match="rays per block"):
+        prc.records_quarter(summary, words, packed, prims, 128)
+    with pytest.raises(ValueError, match="several devices"):
+        prc.records_quarter(summary.cpu(), words, packed, prims, 128)
+    _, _, (masks, packed64, prims) = records_inputs("bitmask", rays_s, ss, 64)
+    with pytest.raises(TypeError):
+        prc.records_bitmask(masks.long(), packed64, prims, 128)
+    with pytest.raises(TypeError):
+        prc.records_bitmask(masks, packed64.double(), prims, 128)
+    with pytest.raises(ValueError, match="words per tile"):
+        prc.records_bitmask(masks[:, 1:], packed64, prims, 128)
+    rng = np.random.default_rng(3)
+    args, _ = tri_inputs(_tri_rays(dev, rng), torch.from_numpy(random_mesh(rng, 300)).to(dev),
+                         32, 64)
+    n, ids, dist, rays, tris = args
+    with pytest.raises(ValueError, match="several devices"):
+        pt.trace_tri(n.cpu(), ids, dist, rays, tris, "closest")
+    with pytest.raises(TypeError):
+        pt.trace_tri(n, ids.long(), dist, rays, tris, "closest")
+    with pytest.raises(ValueError, match="unknown mode"):
+        pt.trace_tri(n, ids, dist, rays, tris, "nearest")
+    with pytest.raises(ValueError, match="rays per block"):
+        pt.trace_tri(n[:1], ids[:1], dist[:1], torch.cat([rays, rays]), tris, "closest")
