@@ -39,7 +39,9 @@ kernels' launch counters set to 0 just before it:
      on CUDA); every phase finite, the image in [0, 1], no list overflow,
      any hit equal to a finite closest t, and on 4,096 rays the generic
      engine's ids and t (rtol 1e-6) but on rays through shared edges,
-     where grace_tpu's two paths round the triangle test differently.
+     where grace_tpu's two paths round the triangle test differently; then
+     the triangle kernel against its plain version on every tile in both
+     modes (ids, misses and t bit-equal).
 
 Before the main paths, the training kernels are held against their plain
 versions at edge shapes (a particle count that is not a multiple of 128,
@@ -48,12 +50,15 @@ tile_w 16 and 32, both bases, list overflow) and both trainers against
 directional finite differences; the record kernels at edge shapes (empty
 tiles, rows that overflow, every route and drain option bit-equal) and the
 triangle kernel (random meshes with faces culled, rays that miss the mesh
-box, tiles 32 and 64, both modes, lists cut by max_chunks).
+box, tiles 8, 32, 64 and 96, both modes, lists cut by max_chunks).
 
-Prints stage and kernel times (CUDA events, warm, median) with the card's
-name and power limit, the work each kernel's bound is computed from, a JSON
-line describing each kernel, and last a JSON line with ``"ok": true``. Any
-failure raises, so the exit code is non-zero and no result line prints.
+Prints a ``resources`` line for each kernel redesigned for the card
+(registers a thread, shared bytes and threads a block, resident blocks and
+warps an SM), stage and kernel times (CUDA events, warm, median) with the
+card's name and power limit, the work each kernel's bound is computed from,
+a JSON line describing each kernel (the triangle kernel's two passes
+apart), and last a JSON line with ``"ok": true``. Any failure raises, so
+the exit code is non-zero and no result line prints.
 """
 
 import json
@@ -437,18 +442,12 @@ def render_inputs(rays, spheres, weights, g, tile, max_chunks, max_tiles):
                   pr._pack_rays_bwd(rays, g)[0]), ovf_t)
 
 
-def check_render(tag, fwd_args, bwd_args):
-    """Both fused-render kernels against their plain versions: column
-    densities within rtol 1e-5, atol 1e-6 x max; each gradient column
-    within 1e-5 x its max (the fused gradients' bound against grace_tpu).
-    Returns the max abs errors (values, gradients)."""
+def check_render_bwd(tag, bwd_args):
+    """The fused renderer's backward kernel against its plain version: each
+    gradient column within 1e-5 x its max (the fused gradients' bound
+    against grace_tpu). Returns the max abs error."""
     from grace_tpu_torch.trace import pallas_render as pr
 
-    got = pr.render_fwd(*fwd_args)
-    want = pr._render_fwd_plain(*fwd_args)
-    torch.cuda.synchronize()
-    err_f, top = check_close(f"{tag} render_fwd", got, want, 1e-5,
-                             1e-6 * float(want.abs().max()))
     got = pr.render_bwd(*bwd_args)
     want = pr._render_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
@@ -457,6 +456,21 @@ def check_render(tag, fwd_args, bwd_args):
         scale = float(want[..., c].abs().max())
         err_b = max(err_b, check_close(f"{tag} render_bwd column {c}", got[..., c],
                                        want[..., c], 0.0, 1e-5 * scale)[0])
+    return err_b
+
+
+def check_render(tag, fwd_args, bwd_args):
+    """Both fused-render kernels against their plain versions: column
+    densities within rtol 1e-5, atol 1e-6 x max; the gradients as
+    ``check_render_bwd``. Returns the max abs errors (values, gradients)."""
+    from grace_tpu_torch.trace import pallas_render as pr
+
+    got = pr.render_fwd(*fwd_args)
+    want = pr._render_fwd_plain(*fwd_args)
+    torch.cuda.synchronize()
+    err_f, top = check_close(f"{tag} render_fwd", got, want, 1e-5,
+                             1e-6 * float(want.abs().max()))
+    err_b = check_render_bwd(tag, bwd_args)
     log(f"check render kernels vs plain: {tag}: values max abs err {err_f:.3g} (max value "
         f"{top:.3g}), gradients max abs err {err_b:.3g} OK")
     return err_f, err_b
@@ -744,10 +758,10 @@ def tri_inputs(rays, tris, tile, max_chunks):
 
 
 def check_tri(tag, args, mode):
-    """The triangle kernel against its plain version: ids exact, t within
-    rtol 1e-6 (the same f32 operations). Returns (max abs err of t over the
-    hits, hits, chunks visited per tile by the plain version, the plain
-    version's ms)."""
+    """The triangle kernel against its plain version: ids, misses and t
+    where both hit equal bit for bit (the same f32 operations in the same
+    order). Returns (max abs err of t over the hits, so 0, hits, chunks
+    visited per tile by the plain version, the plain version's ms)."""
     from grace_tpu_torch.trace import pallas_tri as pt
 
     t, ids = pt.trace_tri(*args, mode)
@@ -755,14 +769,15 @@ def check_tri(tag, args, mode):
     check_equal(f"{tag} ids", ids, ids_p)
     check_equal(f"{tag} misses", t >= pt.BIG, t_p >= pt.BIG)
     hit = t_p < pt.BIG
-    err = check_close(f"{tag} t", t[hit], t_p[hit], 1e-6, 0.0)[0]
-    return err, int(hit.sum()), visited, plain_ms
+    check_equal(f"{tag} t", t[hit], t_p[hit])
+    return 0.0, int(hit.sum()), visited, plain_ms
 
 
 def tri_small_checks(dev):
     """The triangle kernel against its plain version: random meshes (about
-    half the faces culled), rays that miss the mesh box, tiles 32 and 64,
-    both modes, and lists truncated by max_chunks."""
+    half the faces culled), rays that miss the mesh box, tiles 8 (spare
+    lanes), 32, 64 and 96 (warp groups), both modes, and lists truncated by
+    max_chunks."""
     from grace_tpu_torch.core.types import Rays
 
     rng = np.random.default_rng(3)
@@ -773,7 +788,7 @@ def tri_small_checks(dev):
     o = (rng.random((r, 3)) * 0.4 + 0.3).astype(np.float32)
     o[:100] = [3.0, 3.0, 3.0]   # outside the box, pointing anywhere: most miss it
     rays = Rays.from_arrays(o, d, np.full(r, 5.0, np.float32), device=dev)
-    for tile in (32, 64):
+    for tile in (8, 32, 64, 96):
         for max_chunks in (2048, 4):
             args, ovf = tri_inputs(rays, tris, tile, max_chunks)
             if (max_chunks == 4) != bool(ovf.any()) or not bool((args[3][:, 9] == 0).any()):
@@ -989,6 +1004,10 @@ def run(dev, n_particles, side):
         log(f"build {name}: {seconds:.1f} s -> {path}")
         for line in ptxas:
             log(f"  ptxas {name}: {line}")
+    # what one launch of each kernel redesigned for the card holds
+    for label, name, entry, ints in (("trace_tri (tile 32)", "tri", "grace_tri_resources", (32,)),
+                                     ("render_bwd", "render", "grace_render_bwd_resources", ())):
+        log(f"resources {label}: {json.dumps(_kernels.resources(name, entry, dev, *ints))}")
 
     # 2. kernels vs plain versions at small and edge shapes; routes vs the
     # engine; the driver entry's forward
@@ -1218,11 +1237,13 @@ def run(dev, n_particles, side):
     tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
     torch.cuda.synchronize()
     pt.trace_tri.launches = 0
+    pt.trace_tri.launches_any = 0
     t0 = time.perf_counter()
     tri_img = mt.render_triangles(tris, resolution=side, engine="pallas")
     torch.cuda.synchronize()
     wall5 = time.perf_counter() - t0
-    launches5 = {"trace_tri": pt.trace_tri.launches}
+    launches5 = {"trace_tri closest": pt.trace_tri.launches - pt.trace_tri.launches_any,
+                 "trace_tri any": pt.trace_tri.launches_any}
     if min(launches5.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches5}")
     tri_state = triangle_gates(tris, tri_img, side)
@@ -1422,9 +1443,14 @@ def run(dev, n_particles, side):
                      t["records_bitmask kernel"], t["records_bitmask plain"],
                      trace_flops(rec_segments * 128 * 64), nbytes(*rb_args) + rec_bytes),
         kernel_entry("trace_tri", "tri.cu", "grace_tpu/trace/pallas_tri.py:192",
-                     launches5["trace_tri"], errs["tri closest"],
+                     launches5["trace_tri closest"], errs["tri closest"],
                      t["trace_tri kernel (closest)"], t["trace_tri plain (closest)"],
                      tri_pairs["closest"] * 128 * tri_tile * FLOPS_MT,
+                     nbytes(*tri_args) + tri_args[3].shape[0] * 8),
+        kernel_entry("trace_tri_any", "tri.cu", "grace_tpu/trace/pallas_tri.py:192",
+                     launches5["trace_tri any"], errs["tri any"],
+                     t["trace_tri kernel (any)"], t["trace_tri plain (any)"],
+                     tri_pairs["any"] * 128 * tri_tile * FLOPS_MT,
                      nbytes(*tri_args) + tri_args[3].shape[0] * 8),
     ]}), flush=True)
 

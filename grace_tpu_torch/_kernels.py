@@ -31,8 +31,8 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # name -> (source, extra nvcc flags, {entry point: argument kinds}); kinds
-# are "p" (device pointer) and "i" (int); the device index and the stream
-# follow them.
+# are "p" (pointer: to device memory, or for a ``*_resources`` query to a
+# host int[5]) and "i" (int); the device index and the stream follow them.
 KERNELS = {
     # --fmad=false (the trace kernels): the hit test must round b^2 exactly
     # as the plain version does; the fused multiply-adds it wants are
@@ -50,12 +50,14 @@ KERNELS = {
                         "grace_splat_sortfree_bwd": "ppppppp" + "iiiiiiiii"}),
     "render": ("render.cu", ["--fmad=false"],
                {"grace_render_fwd": "pppppp" + "iiii",
-                "grace_render_bwd": "pppppp" + "iii"}),
+                "grace_render_bwd": "pppppp" + "iii",
+                "grace_render_bwd_resources": "p"}),
     "records": ("records.cu", ["--fmad=false"],
                 {"grace_records_quarter": "ppppppppp" + "iiiiiii",
                  "grace_records_bitmask": "pppppppp" + "iiiiii"}),
     "tri": ("tri.cu", ["--fmad=false"],
-            {"grace_tri": "ppppppp" + "iiiiii"}),
+            {"grace_tri": "ppppppp" + "iiiiii",
+             "grace_tri_resources": "pi"}),
 }
 
 _LIBS: dict = {}
@@ -152,3 +154,30 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.grace_error_string(rc).decode()
         raise RuntimeError(f"{entry} failed: CUDA error {rc} ({msg})")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address, as the kernels that
+    stage it with 16-byte ``cp.async`` copies need (a fresh copy if not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def longest_first(counts: torch.Tensor) -> torch.Tensor:
+    """Launch order of a kernel's work units (ray tiles, segments) whose
+    walks over their lists are serial: longest list first. The longest
+    walks set the kernel's end; started first, they run while the short
+    ones fill the card around them."""
+    return torch.argsort(counts, descending=True, stable=True)
+
+
+RESOURCE_FIELDS = ("registers", "shared_bytes", "threads", "blocks_per_sm", "warps_per_sm")
+
+
+def resources(name: str, entry: str, device: torch.device, *ints) -> dict:
+    """What one launch of a kernel holds on ``device``, from its C query
+    ``entry``: registers a thread, shared bytes a block, threads a block,
+    and resident blocks and warps an SM (the CUDA occupancy calculator)."""
+    out = (ctypes.c_int * len(RESOURCE_FIELDS))()
+    launch(name, entry, device, ctypes.addressof(out), *ints)
+    return dict(zip(RESOURCE_FIELDS, out))

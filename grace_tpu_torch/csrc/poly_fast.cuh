@@ -33,7 +33,7 @@ __device__ __forceinline__ float clenshaw(const float* c, int n, float t) {
 
 __device__ __forceinline__ float clamp1(float x) { return fminf(fmaxf(x, -1.0f), 1.0f); }
 
-// F from b2 = (b / h)^2; 0 for b2 >= 1.
+// F from b2 = (b / h)^2; 0 for b2 >= 1 (render_fwd_kernel).
 __device__ __forceinline__ float poly_f(const float* k, float b2) {
     if (b2 <= 0.25f) return clenshaw(k + kPolyC1, kPolyN1, clamp1((2.0f * b2 - k[0]) * k[1]));
     if (!(b2 < 1.0f)) return 0.0f;
@@ -55,6 +55,30 @@ __device__ __forceinline__ float poly_df(const float* k, float b2) {
     const float v2 = v * v;
     const float sq = sqrtf(v);
     return -fmaf((v2 * v) * sq, dp_v, ((3.5f * v2) * sq) * p_v);
+}
+
+// F and dF/db2 from one evaluation: the domain map, piece 2's series p_v,
+// v, v * v and sqrtf(v) are computed once; each value takes the same
+// operations as poly_f and poly_df, so both round to the same bits.
+__device__ __forceinline__ void poly_f_df(const float* k, float b2, float& f, float& df) {
+    if (b2 <= 0.25f) {
+        const float t1 = clamp1((2.0f * b2 - k[0]) * k[1]);
+        f = clenshaw(k + kPolyC1, kPolyN1, t1);
+        df = clenshaw(k + kPolyD1, kPolyN1 - 1, t1) * k[2];
+        return;
+    }
+    if (!(b2 < 1.0f)) {
+        f = df = 0.0f;
+        return;
+    }
+    const float v = fmaxf(1.0f - b2, 0.0f);
+    const float t2 = clamp1((2.0f * v - k[3]) * k[4]);
+    const float p_v = clenshaw(k + kPolyC2, kPolyN2, t2);
+    const float dp_v = clenshaw(k + kPolyD2, kPolyN2 - 1, t2) * k[5];
+    const float v2 = v * v;
+    const float sq = sqrtf(v);
+    f = p_v * ((v2 * v) * sq);
+    df = -fmaf((v2 * v) * sq, dp_v, ((3.5f * v2) * sq) * p_v);
 }
 
 // The constants into shared memory; read only after the block's next barrier.

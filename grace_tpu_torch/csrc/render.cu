@@ -11,26 +11,46 @@
 // particles, 24 KB) in shared memory, a Kahan sum per ray. The per-tile
 // overflow flag against max_chunks comes from the list builder.
 //
-// Backward: replaces grace_tpu/trace/pallas_render.py::_bwd_kernel.
+// Backward: replaces grace_tpu/trace/pallas_render.py::_bwd_kernel (:110).
 // Segment-major: one block per 128-particle segment, one thread per
-// particle. The block walks its list of ray tiles (128 rays each), stages
-// each tile's (8 x 128) slab of origins, directions, lengths and
-// cotangents (4 KB) in shared memory, and every thread keeps five register
-// sums for its particle:
+// particle. The block walks its list of ray tiles (128 rays each; each
+// tile an (8 x 128) slab of origins, directions, lengths and cotangents,
+// 4 KB), and every thread keeps five register sums for its particle:
 //     d/dpos += g w F'(q2) / h^4 * 2 b_vec,
 //     d/dh   += -g (2 w / h^3) (F'(q2) q2 + F(q2)),
 //     d/dw   += g F(q2) / h^2,           q2 = b^2 / h^2,
 // F' the exact derivative of the fit. Every (ray, particle) pair is
-// visited once, with no atomics; the NaN poison for a list that
-// overflowed max_tiles stays in Python.
+// visited once, with no atomics, and a particle adds its hits in list
+// order, then ray order; the NaN poison for a list that overflowed
+// max_tiles stays in Python.
 //
 // What bounds both: the pair tests (about 22 flops each); the integral
 // (and its derivative) runs only for hits. Built with --fmad=false: the
 // fused multiply-adds of the hit test are written as fmaf where compiled
 // XLA forms them, so the hit set equals the plain version's.
+//
+// The backward's design: the block stages kBwdBatch ray tiles at a time
+// into one of two 16 KB buffers with cp.async, the next batch while it
+// tests this one, so a barrier pair covers kBwdBatch tiles and the loads
+// run ahead. A thread tests a staged tile in two phases: the pair test
+// against its 128 rays with no integral in the loop, collecting its hits
+// in a 128-bit mask (two 64-bit registers); then the gradient terms for
+// the set bits only, in ascending order, with F and F' from one Clenshaw
+// evaluation (poly_f_df). A warp thus runs the heavy branch as often as
+// its busiest lane hits, not once for every ray that any lane hits. A
+// segment's walk over its list is serial, and lists run from 1 to 1,512
+// tiles on the bench scene, so the wrapper (pallas_render.render_bwd)
+// launches the segments longest list first. Measured on the bench scene
+// (chip_ablation.py): one tile per barrier pair instead of four costs 2.5%,
+// waiting for each batch's copies instead of loading ahead under 1%, and
+// the warp passes through the hit branch fall to 76% of the earlier design's.
+// Replaced (the earlier design): one 4 KB tile per barrier pair, staged with
+// plain loads, and the hit branch (poly_f, then poly_df) inside the pair
+// loop.
 
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "common.cuh"
 #include "poly_fast.cuh"
 #include "stage.cuh"
@@ -39,6 +59,10 @@ namespace {
 
 constexpr int kSeg = 128;
 constexpr int kRayTile = 128;  // rays per backward tile
+constexpr int kRayRows = 8;    // ox oy oz dx dy dz len g
+constexpr int kBwdBatch = 4;   // ray tiles per barrier pair (pallas_render.BWD_BATCH)
+// Two 16 KB buffers and the constants a block: six blocks (24 warps) an SM.
+constexpr int kBwdMinBlocks = 6;
 
 struct StagedWeighted {
     float x[kStage], y[kStage], z[kStage], w[kStage], inv_h2[kStage], h2[kStage];
@@ -103,60 +127,137 @@ __global__ void render_fwd_kernel(const int32_t* __restrict__ counts,
     out[ray] = acc;
 }
 
-__global__ void __launch_bounds__(kSeg)
+struct Particle {
+    float px, py, pz, pw, h2, inv_h2, inv_h;
+};
+
+struct GradSums {
+    float x = 0.0f, y = 0.0f, z = 0.0f, h = 0.0f, w = 0.0f;
+};
+
+// 1 where the particle meets the ray (o, d, len): b^2 < h^2, 0 <= r.d < len.
+__device__ __forceinline__ uint32_t pair_hit(const Particle& p, float ox, float oy, float oz,
+                                             float dx, float dy, float dz, float len) {
+    float dot, bx, by, bz;
+    const float b2 = impact(p.px, p.py, p.pz, ox, oy, oz, dx, dy, dz, dot, bx, by, bz);
+    return (b2 < p.h2 && dot >= 0.0f && dot < len) ? 1u : 0u;
+}
+
+// Bit q: the particle meets staged ray base + q, q < 32 (rows read four
+// rays at a time, one float4 each).
+__device__ __forceinline__ uint32_t hit_bits32(const float (*s)[kRayTile], int base,
+                                               const Particle& p) {
+    uint32_t bits = 0;
+#pragma unroll
+    for (int q = 0; q < 32; q += 4) {
+        float4 r[7];
+#pragma unroll
+        for (int row = 0; row < 7; ++row) {
+            r[row] = *reinterpret_cast<const float4*>(s[row] + base + q);
+        }
+        bits |= pair_hit(p, r[0].x, r[1].x, r[2].x, r[3].x, r[4].x, r[5].x, r[6].x) << q;
+        bits |= pair_hit(p, r[0].y, r[1].y, r[2].y, r[3].y, r[4].y, r[5].y, r[6].y) << (q + 1);
+        bits |= pair_hit(p, r[0].z, r[1].z, r[2].z, r[3].z, r[4].z, r[5].z, r[6].z) << (q + 2);
+        bits |= pair_hit(p, r[0].w, r[1].w, r[2].w, r[3].w, r[4].w, r[5].w, r[6].w) << (q + 3);
+    }
+    return bits;
+}
+
+// The particle's gradient terms over one staged tile: the pair test of
+// all 128 rays into a mask, then the terms of the hits in ascending ray
+// order (the order of the earlier kernel's sums).
+__device__ __forceinline__ void accumulate_tile(const float (*s)[kRayTile], const Particle& p,
+                                                const float* s_poly, GradSums& a) {
+    uint64_t lo = 0, hi = 0;  // bit i of hi:lo: ray i hits
+#pragma unroll 1
+    for (int w = 0; w < kRayTile / 32; ++w) {  // shift each 32-ray word in from the top
+        const uint32_t bits = hit_bits32(s, 32 * w, p);
+        lo = (lo >> 32) | (hi << 32);
+        hi = (hi >> 32) | (static_cast<uint64_t>(bits) << 32);
+    }
+    while (lo | hi) {
+        int i;
+        if (lo) {
+            i = __ffsll(static_cast<long long>(lo)) - 1;
+            lo &= lo - 1;
+        } else {
+            i = 63 + __ffsll(static_cast<long long>(hi));
+            hi &= hi - 1;
+        }
+        float dot, bx, by, bz;
+        const float b2 = impact(p.px, p.py, p.pz, s[0][i], s[1][i], s[2][i], s[3][i], s[4][i],
+                                s[5][i], dot, bx, by, bz);
+        const float g = s[7][i];
+        const float q2 = b2 * p.inv_h2;
+        float f, fp;
+        poly_f_df(s_poly, q2, f, fp);
+        const float c_pos = g * ((((2.0f * p.pw) * fp) * p.inv_h2) * p.inv_h2);
+        a.x += c_pos * bx;
+        a.y += c_pos * by;
+        a.z += c_pos * bz;
+        a.h += (g * (((-2.0f * p.pw) * p.inv_h2) * p.inv_h)) * fmaf(fp, q2, f);
+        a.w += g * (f * p.inv_h2);
+    }
+}
+
+__global__ void __launch_bounds__(kSeg, kBwdMinBlocks)
 render_bwd_kernel(const int32_t* __restrict__ n_tiles, const int32_t* __restrict__ tile_ids,
                   const float* __restrict__ prims, const float* __restrict__ rays,
                   const float* __restrict__ poly, float* __restrict__ out, int max_tiles,
                   int64_t r_pad) {
-    __shared__ float s_r[8][kRayTile];  // ox oy oz dx dy dz len g
+    __shared__ __align__(16) float s_r[2][kBwdBatch][kRayRows][kRayTile];
     __shared__ float s_poly[kPolySize];
 
     const int seg = blockIdx.x;
     const int tid = threadIdx.x;
     load_poly(s_poly, poly);
-    const float* p = prims + (static_cast<int64_t>(seg) * kSeg + tid) * 8;
-    const float px = p[0], py = p[1], pz = p[2], ph = p[3], pw = p[4];
+    const float* pp = prims + (static_cast<int64_t>(seg) * kSeg + tid) * 8;
+    const float ph = pp[3];
     const float h2 = ph * ph;
-    const float inv_h2 = h2 > 0.0f ? 1.0f / fmaxf(h2, 1e-30f) : 0.0f;
-    const float inv_h = ph > 0.0f ? 1.0f / fmaxf(ph, 1e-30f) : 0.0f;
+    const Particle p{pp[0], pp[1], pp[2], pp[4], h2,
+                     h2 > 0.0f ? 1.0f / fmaxf(h2, 1e-30f) : 0.0f,
+                     ph > 0.0f ? 1.0f / fmaxf(ph, 1e-30f) : 0.0f};
     const int n = min(max(n_tiles[seg], 0), max_tiles);
     const int64_t n_ray_tiles = r_pad / kRayTile;
+    const int32_t* list = tile_ids + static_cast<int64_t>(seg) * max_tiles;
 
-    float ax = 0.0f, ay = 0.0f, az = 0.0f, ah = 0.0f, aw = 0.0f;
-    for (int k = 0; k < n; ++k) {
-        const int64_t t = tile_ids[static_cast<int64_t>(seg) * max_tiles + k];
-        __syncthreads();  // the previous slab is consumed
-        const bool ok = t >= 0 && t < n_ray_tiles;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-            // an out-of-range tile stages length -1: no ray hits
-            s_r[c][tid] = ok ? rays[c * r_pad + t * kRayTile + tid] : (c == 6 ? -1.0f : 0.0f);
-        }
-        __syncthreads();
-        for (int i = 0; i < kRayTile; ++i) {
-            float dot, bx, by, bz;
-            const float b2 = impact(px, py, pz, s_r[0][i], s_r[1][i], s_r[2][i], s_r[3][i],
-                                    s_r[4][i], s_r[5][i], dot, bx, by, bz);
-            if (b2 < h2 && dot >= 0.0f && dot < s_r[6][i]) {
-                const float g = s_r[7][i];
-                const float q2 = b2 * inv_h2;
-                const float f = poly_f(s_poly, q2);
-                const float fp = poly_df(s_poly, q2);
-                const float c_pos = g * ((((2.0f * pw) * fp) * inv_h2) * inv_h2);
-                ax += c_pos * bx;
-                ay += c_pos * by;
-                az += c_pos * bz;
-                ah += (g * (((-2.0f * pw) * inv_h2) * inv_h)) * fmaf(fp, q2, f);
-                aw += g * (f * inv_h2);
+    // Batch b's tiles into buffer b % 2: 16-byte copies, two a thread a
+    // tile; an out-of-range tile stages length -1 (no ray hits).
+    auto stage = [&](int b) {
+        for (int u = 0; u < kBwdBatch && b * kBwdBatch + u < n; ++u) {
+            const int64_t t = __ldg(list + b * kBwdBatch + u);
+            float(*dst)[kRayTile] = s_r[b % 2][u];
+            if (t >= 0 && t < n_ray_tiles) {
+                for (int c = tid; c < kRayRows * kRayTile / 4; c += kSeg) {
+                    const int row = c / (kRayTile / 4);
+                    const int col = 4 * (c % (kRayTile / 4));
+                    cp_async16(&dst[row][col], rays + row * r_pad + t * kRayTile + col);
+                }
+            } else {
+                for (int row = 0; row < kRayRows; ++row) dst[row][tid] = row == 6 ? -1.0f : 0.0f;
             }
         }
+    };
+
+    GradSums a;
+    const int n_batches = (n + kBwdBatch - 1) / kBwdBatch;
+    if (n_batches > 0) stage(0);
+    cp_async_commit();
+    for (int b = 0; b < n_batches; ++b) {
+        if (b + 1 < n_batches) stage(b + 1);  // buffer (b + 1) % 2 was released below
+        cp_async_commit();
+        cp_async_wait<1>();  // batch b's copies have landed
+        __syncthreads();
+        const int m = min(kBwdBatch, n - b * kBwdBatch);
+        for (int u = 0; u < m; ++u) accumulate_tile(s_r[b % 2][u], p, s_poly, a);
+        __syncthreads();  // buffer b % 2 is free for batch b + 2
     }
     float* o = out + (static_cast<int64_t>(seg) * kSeg + tid) * 8;
-    o[0] = ax;
-    o[1] = ay;
-    o[2] = az;
-    o[3] = ah;
-    o[4] = aw;
+    o[0] = a.x;
+    o[1] = a.y;
+    o[2] = a.z;
+    o[3] = a.h;
+    o[4] = a.w;
     o[5] = o[6] = o[7] = 0.0f;
 }
 
@@ -180,7 +281,7 @@ extern "C" int grace_render_bwd(const int32_t* n_tiles, const int32_t* tile_ids,
                                 const float* prims, const float* rays, const float* poly,
                                 float* out, int n_segs, int max_tiles, int r_pad, int device,
                                 void* stream) {
-    if (max_tiles < 0 || r_pad < 0 || r_pad % kRayTile) {
+    if (max_tiles < 0 || r_pad < 0 || r_pad % kRayTile || !aligned16(rays)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
@@ -190,4 +291,25 @@ extern "C" int grace_render_bwd(const int32_t* n_tiles, const int32_t* tile_ids,
             n_tiles, tile_ids, prims, rays, poly, out, max_tiles, r_pad);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// What a backward launch holds: out = registers a thread, shared bytes a
+// block, threads a block, resident blocks and warps an SM.
+extern "C" int grace_render_bwd_resources(int* out, int device, void* stream) {
+    (void)stream;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes attr;
+    int blocks;
+    err = cudaFuncGetAttributes(&attr, render_bwd_kernel);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, render_bwd_kernel, kSeg, 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[2] = kSeg;
+    out[3] = blocks;
+    out[4] = blocks * kSeg / 32;
+    return 0;
 }

@@ -39,6 +39,7 @@ from grace_tpu_torch.trace.pallas_kernel import MAX_TILE, _impact, _pack_rays
 
 SEG = 128
 BWD_TILE = 128  # rays per backward tile (one slab lane each)
+BWD_BATCH = 4   # ray tiles the backward kernel stages per barrier pair (csrc/render.cu)
 
 
 def _weights(weights, n_pad, n, like):
@@ -214,8 +215,8 @@ render_fwd.launches = 0
 def render_bwd(n_tiles, tile_ids, prims_sub, rays_bwd):
     """Per-particle gradients f32[n_segs, 128, 8] (columns d/dx, d/dy,
     d/dz, d/dh, d/dw, 3 zero) over each segment's list of 128-ray tiles:
-    launches ``csrc/render.cu`` on CUDA tensors, runs ``_render_bwd_plain``
-    on CPU tensors.
+    launches ``csrc/render.cu`` on CUDA tensors (the segments with the
+    longest lists first), runs ``_render_bwd_plain`` on CPU tensors.
 
     Args:
       n_tiles: i32[n_segs], listed tiles per segment (the first
@@ -233,13 +234,15 @@ def render_bwd(n_tiles, tile_ids, prims_sub, rays_bwd):
                          f"{[tuple(t.shape) for t in (n_tiles, tile_ids, prims_sub, rays_bwd)]}")
     if device.type == "cpu":
         return _render_bwd_plain(n_tiles, tile_ids, prims_sub, rays_bwd)
-    args = [t.contiguous() for t in (n_tiles, tile_ids, prims_sub, rays_bwd)]
-    out = torch.empty((n_segs, SEG, 8), dtype=torch.float32, device=device)
+    # the segments with the longest lists first (results go back to segment order)
+    order = _kernels.longest_first(n_tiles)
+    args = [n_tiles[order], tile_ids[order], prims_sub[order], _kernels.aligned(rays_bwd)]
+    out_o = torch.empty((n_segs, SEG, 8), dtype=torch.float32, device=device)
     _kernels.launch("render", "grace_render_bwd", device, *[t.data_ptr() for t in args],
-                    _poly_tensor(str(device)).data_ptr(), out.data_ptr(), n_segs,
+                    _poly_tensor(str(device)).data_ptr(), out_o.data_ptr(), n_segs,
                     tile_ids.shape[1], rays_bwd.shape[1])
     render_bwd.launches += 1
-    return out
+    return torch.empty_like(out_o).index_copy_(0, order, out_o)
 
 
 render_bwd.launches = 0

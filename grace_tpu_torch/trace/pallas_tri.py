@@ -9,9 +9,9 @@ launches ``csrc/tri.cu``. Two stages, as there:
               of ``n_intervals`` boxes along the tile's rays are listed
               front to back by a conservative entry distance
               (``_dense_tile_segments_tri``).
-  kernel      one CUDA block per ray tile, one thread per ray, walks its
-              list in order: Moller-Trumbore with back-face culling
-              against each listed segment's triangles, keeping the closest
+  kernel      one CUDA warp (or warp group) per ray tile, one thread per
+              ray, walks its list in order: Moller-Trumbore with back-face
+              culling against each listed segment's triangles, keeping the closest
               t and its triangle (or only t, for any-hit), and stops once
               no ray of the tile can find a closer hit past the next chunk
               of segments.
@@ -229,7 +229,8 @@ def _tri_plain(n_segs, seg_ids, seg_dist, rays_packed, tris3d, mode):
 def trace_tri(n_segs, seg_ids, seg_dist, rays_packed, tris3d, mode):
     """Closest hit (t, triangle id) or, for mode 'any', the closest t only,
     over each tile's front-to-back segment list: launches ``csrc/tri.cu``
-    on CUDA tensors, runs ``_tri_plain`` on CPU tensors.
+    on CUDA tensors (the tiles with the longest lists first), runs
+    ``_tri_plain`` on CPU tensors.
 
     Args:
       n_segs: i32[T], listed segments per tile (<= max_chunks).
@@ -258,17 +259,25 @@ def trace_tri(n_segs, seg_ids, seg_dist, rays_packed, tris3d, mode):
         return _tri_plain(n_segs, seg_ids, seg_dist, rays_packed, tris3d, mode)[:2]
     if tile > MAX_TILE:
         raise ValueError(f"tile {tile} > {MAX_TILE} rays per block")
-    args = [x.contiguous() for x in (n_segs, seg_ids, seg_dist, rays_packed, tris3d)]
-    t = torch.empty(rays_packed.shape[0], dtype=torch.float32, device=device)
-    ids = torch.empty(rays_packed.shape[0], dtype=torch.int32, device=device)
+    # the tiles with the longest lists first (results go back to tile order)
+    order = _kernels.longest_first(n_segs)
+    args = [n_segs[order], seg_ids[order], seg_dist[order],
+            rays_packed.reshape(n_tiles, tile, 16)[order].reshape(-1, 16),
+            _kernels.aligned(tris3d)]
+    t_o = torch.empty((n_tiles, tile), dtype=torch.float32, device=device)
+    ids_o = torch.empty((n_tiles, tile), dtype=torch.int32, device=device)
     _kernels.launch("tri", "grace_tri", device, *[a.data_ptr() for a in args],
-                    t.data_ptr(), ids.data_ptr(), n_tiles, tile, seg_ids.shape[1],
+                    t_o.data_ptr(), ids_o.data_ptr(), n_tiles, tile, seg_ids.shape[1],
                     tris3d.shape[0], MODES.index(mode), CHUNK)
     trace_tri.launches += 1
-    return t, ids
+    trace_tri.launches_any += mode == "any"
+    t = torch.empty_like(t_o).index_copy_(0, order, t_o)
+    ids = torch.empty_like(ids_o).index_copy_(0, order, ids_o)
+    return t.flatten(), ids.flatten()
 
 
-trace_tri.launches = 0
+trace_tri.launches = 0      # every launch
+trace_tri.launches_any = 0  # the any-hit launches among them
 
 
 def pallas_trace_tri(rays: Rays, tris: torch.Tensor, tile: int = 32, max_chunks: int = 2048,

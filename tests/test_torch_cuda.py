@@ -13,14 +13,15 @@ images within 1e-5 x max. Kernels: trace_quarter, trace_bitmask,
 trace_list (quarter and segment lists, with overflow), splat, and the
 training kernels splat_sortfree_fwd / _bwd and render_fwd / _bwd (a
 particle count that is not a multiple of 128, dead particles, empty tiles,
-a particle that covers every tile, both bases, list overflow; gradients
-within grace_tpu's bounds), the fused renderer's overflow contracts and
+a particle that covers every tile, both bases, list overflow, backward
+lists cut to lengths around the kernel's staging batch; gradients within
+grace_tpu's bounds), the fused renderer's overflow contracts and
 both trainers against finite differences; the record kernels (quarter and
 segment words, empty tiles, rows that overflow; counts and indices exact,
 integrals and distances within rtol 1e-6) and the triangle kernel (random
-meshes with faces culled, rays that miss the mesh box, both modes, lists
-cut by max_chunks; ids exact, t within rtol 1e-6). The edge scenes and
-checks are chip_smoke.py's.
+meshes with faces culled, rays that miss the mesh box, tiles 8 to 96,
+both modes, lists cut by max_chunks; ids, misses and t bit-equal). The
+edge scenes and checks are chip_smoke.py's.
 """
 
 import numpy as np
@@ -39,7 +40,8 @@ from grace_tpu_torch.trace import splat_grad as sg
 from grace_tpu_torch.trace import pallas_records as prc
 from grace_tpu_torch.trace import pallas_tri as pt
 from chip_smoke import (
-    check_records, check_render, check_sortfree, check_tri, colocated_scene, fd_checks,
+    check_records, check_render, check_render_bwd, check_sortfree, check_tri, colocated_scene,
+    fd_checks,
     make_clustered_particles, random_mesh, records_inputs, records_scene,
     records_small_checks, render_inputs, sortfree_inputs, training_scene, tri_inputs)
 
@@ -240,6 +242,29 @@ def test_render_kernels_match_plain(dev, whole, lists):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("length", [0, 1, pr.BWD_BATCH - 1, pr.BWD_BATCH, pr.BWD_BATCH + 1])
+def test_render_bwd_list_lengths(dev, length):
+    """The backward kernel with every segment's tile list cut to ``length``
+    entries: empty, one tile, and one batch of the kernel's staging less,
+    exactly and more. The scene has dead particles and particle 100, whose
+    footprint covers every ray of each tile it lists (all 128 bits of its
+    hit mask set)."""
+    ss, w = training_scene(dev, True)
+    rays, _, _ = spatial_sort_rays(orthographic_projection_rays(64, 64, CAM, LOOK, UP, 4.0,
+                                                                6.0, device=dev))
+    g = torch.randn(rays.n_rays, generator=torch.Generator().manual_seed(6)).to(dev)
+    n_t, t_ids, prims, rays_bwd = render_inputs(rays, ss, w, g, 128, 2048, 64)[2]
+    assert bool((prims[..., 3] == 0).any()) and int(n_t.max()) > length
+    seg, lane = divmod(100, 128)
+    b2, dot, *_ = pk._impact(*prims[seg, lane, :3], *rays_bwd[:6])
+    assert bool(((b2 < prims[seg, lane, 3] ** 2) & (dot >= 0) & (dot < rays_bwd[6])).all())
+    before = pr.render_bwd.launches
+    check_render_bwd(f"card test list length {length}",
+                     (torch.clamp(n_t, max=length), t_ids, prims, rays_bwd))
+    assert pr.render_bwd.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_fused_renderer_overflow_contracts(dev):
     """max_chunks overflow sets the forward flag; max_tiles_per_seg
     overflow poisons every gradient with NaN; roomy lists do neither."""
@@ -304,8 +329,10 @@ def _tri_rays(dev, rng, r=1000):
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_chunks", [2048, 4])
 @pytest.mark.parametrize("mode", ["closest", "any"])
-@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("tile", [8, 32, 64, 96])
 def test_tri_kernel_matches_plain(dev, tile, mode, max_chunks):
+    """Tiles of 8 rays (spare lanes), 32 and 64, and 96 (a group of three
+    warps that votes through a named barrier); t bit-equal where both hit."""
     rng = np.random.default_rng(3)
     tris = torch.from_numpy(random_mesh(rng, 1000)).to(dev)
     args, ovf = tri_inputs(_tri_rays(dev, rng), tris, tile, max_chunks)

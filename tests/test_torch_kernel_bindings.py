@@ -1,0 +1,57 @@
+"""The ctypes bindings of grace_tpu_torch's CUDA kernels against their
+sources, on the CPU (no nvcc needed): every declared C entry point exists
+in its source with the declared arguments, the constants Python shares
+with a kernel agree, and the wrappers' alignment helper gives the 16-byte
+addresses that the kernels' cp.async copies need."""
+
+import os
+import re
+
+import pytest
+import torch
+
+from grace_tpu_torch import _kernels
+from grace_tpu_torch.trace import pallas_render as pr
+from grace_tpu_torch.trace import pallas_tri as pt
+
+ENTRIES = [(name, entry, kinds) for name, (_, _, entries) in _kernels.KERNELS.items()
+           for entry, kinds in entries.items()]
+
+
+def _source(name):
+    with open(os.path.join(_kernels.CSRC, _kernels.KERNELS[name][0])) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name,entry,kinds", ENTRIES, ids=[e for _, e, _ in ENTRIES])
+def test_entry_point_matches_its_source(name, entry, kinds):
+    """The C signature takes the declared pointers and ints, then the
+    device index and the stream, and returns int."""
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", _source(name))
+    assert m, f"{entry} not defined in {_kernels.KERNELS[name][0]}"
+    params = [p.strip() for p in m.group(1).split(",")]
+    assert len(params) == len(kinds) + 2
+    for p, k in zip(params, kinds):
+        assert ("*" in p) == (k == "p"), (p, k)
+    assert params[-2] == "int device" and params[-1] == "void* stream"
+
+
+def test_shared_constants_agree():
+    render = _source("render")
+    assert re.search(rf"kBwdBatch = {pr.BWD_BATCH};", render)
+    assert re.search(rf"kRayTile = {pr.BWD_TILE};", render)
+    tri = _source("tri")
+    assert re.search(rf"kMaxChunk = {pt.CHUNK};", tri)
+    for name, value in (("kEps", pt.EPS), ("kBig", pt.BIG)):
+        assert float(re.search(name + r" = ([0-9.e+-]+)f;", tri).group(1)) == value
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_aligned_gives_16_byte_addresses(offset):
+    base = torch.arange(64, dtype=torch.float32)
+    view = base[offset:offset + 32]
+    out = _kernels.aligned(view)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, view)
+    assert (out.data_ptr() == view.data_ptr()) == (view.data_ptr() % 16 == 0)
+    t = _kernels.aligned(base.reshape(8, 8).t())
+    assert t.is_contiguous() and t.data_ptr() % 16 == 0
