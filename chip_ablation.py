@@ -1,22 +1,35 @@
-"""Ablations of the two kernels redesigned for the card, on one CUDA card.
+"""Ablations of the kernels redesigned for the card, on one CUDA card.
 
-    python3 chip_ablation.py
+    python3 chip_ablation.py [trace] [render_bwd] [trace_tri]   (default: all)
 
-Each variant is a copy of the kernel's source with one constant or one
-wait replaced, built as the package builds its libraries (into
-``_kernels_build/``); every variant must give the shipped kernel's bits,
-and the variants are timed in turns (CUDA events, median of 10), on the
-work units in the order the wrapper launches them (longest list first).
+Each variant is a copy of the kernel's sources with one constant, one wait
+or one device function replaced, built as the package builds its libraries
+(into ``_kernels_build/``); a variant must give the shipped kernel's bits
+where it sums the same terms in the same order, and the variants are timed
+in turns (CUDA events, median of 10), on the work units in the order the
+wrapper launches them (longest list first).
 
-  render_bwd (csrc/render.cu) on main path 3's backward inputs
-  (``chip_smoke.py``'s bench scene: 2^20 clustered particles, 512x512
-  sorted orthographic rays, weights 1, max_tiles 2048; the cotangents are
-  seeded normal numbers, which move no hit): kBwdBatch = 1, 2 and 4 ray
-  tiles per barrier pair, and batch 4 waiting for its own copies and the
-  next batch's before it tests (no load runs ahead). It also counts the
-  warp passes through the hit branch: the earlier design ran one for every
-  ray of a tile on which any of a warp's 32 particles hits, this design as
-  many as the warp's busiest particle has hits.
+  trace: trace_bitmask (B6, csrc/trace_bitmask.cu) on main path 2's
+  segment words and trace_list (B8, csrc/trace_list.cu) on its segment
+  lists (``chip_smoke.py``'s bench scene: 2^20 clustered particles, 512x512
+  sorted orthographic rays, tile 128), cumulative (degree 14) and hit
+  counts: stage.cuh's accumulate_staged as shipped before the cull (the
+  integral and the Kahan update for every pair; held within rtol 1e-5 of
+  the shipped sums, hit counts exact), the cull inline in one loop, the two
+  phases as shipped, the two phases with the other number of staging
+  buffers (two: the next batch's copies in flight while this one is
+  tested), and the integral phase over 64- and 128-slot masks instead of
+  32. Each variant's registers, shared bytes and resident warps come from
+  its resources query.
+
+  render_bwd (csrc/render.cu) on main path 3's backward inputs (the same
+  scene, weights 1, max_tiles 2048; the cotangents are seeded normal
+  numbers, which move no hit): kBwdBatch = 1, 2 and 4 ray tiles per barrier
+  pair, and batch 4 waiting for its own copies and the next batch's before
+  it tests (no load runs ahead). It also counts the warp passes through the
+  hit branch: the earlier design ran one for every ray of a tile on which
+  any of a warp's 32 particles hits, this design as many as the warp's
+  busiest particle has hits.
 
   trace_tri (csrc/tri.cu) on main path 5's closest-hit and any-hit inputs
   (the 262,144-triangle torus, 512x512 pinhole rays, tile 32):
@@ -24,9 +37,10 @@ work units in the order the wrapper launches them (longest list first).
   for each segment's copy before it tests the previous one.
 
 Then each shipped kernel on the same inputs launched in other orders of
-its work units (ray tiles, segments), through the C entry point without
-the wrappers' own longest-first order: as listed, longest list first, and
-the longest units alone, with the spread of the work a unit does.
+its work units (ray tiles, segments), through the C entry point: as
+listed, longest list first, and the longest units alone, with the spread
+of the work a unit does; for the trace kernels also trace_list on the
+quarter lists (B5, launched as listed by its wrapper).
 
 Prints the card's name and power limit first and a JSON summary last.
 Exits non-zero without a card.
@@ -39,62 +53,239 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 
 import numpy as np
 import torch
 
-from chip_smoke import (CAM, LENGTH, LOOK, MAX_PER_LEAF, N_PARTICLES, SIDE, TORUS, UP, VEXT,
-                        make_clustered_particles, render_inputs, torus_mesh, tri_inputs)
+from chip_smoke import (CAM, LENGTH, LOOK, MAX_PER_LEAF, N_PARTICLES, SIDE, TORUS, TRACE_TILE, UP,
+                        VEXT, _popcount_rows, check_close, make_clustered_particles,
+                        render_inputs, route_inputs, torus_mesh, tri_inputs)
 
-# kernel -> (library name, source, entry, variants {label: (text, replacement)})
+def swap(file, old, new):
+    """An edit of ``file`` that replaces its one occurrence of ``old``."""
+    def edit(text):
+        if text.count(old) != 1:
+            raise AssertionError(f"{file}: {old!r} is not in the source once")
+        return text.replace(old, new)
+    return file, edit
+
+
+def swap_function(file, name, replacement):
+    """An edit of ``file`` that replaces the definition of device function
+    ``name`` (from its signature to the first closing brace at column 0)."""
+    def edit(text):
+        start = text.index(f"__device__ __forceinline__ void {name}(")
+        return text[:start] + replacement + text[text.index("\n}\n", start) + 3:]
+    return file, edit
+
+
+# The two earlier forms of stage.cuh's accumulate_staged. The loop as
+# shipped before the cull: the integral and the Kahan update for every
+# staged pair, zero or not; it sums other terms (the +-0 ones too), so it
+# is held to the kernel-vs-plain tolerance, not to the shipped bits.
+EVERY_PAIR_LOOP = """__device__ __forceinline__ float seg_pair(const RaySeg& r, float px, float py,
+                                          float pz, float inv_h2, float h2,
+                                          int mode, const float* coeffs,
+                                          int deg) {
+    float dot, bx, by, bz;
+    const float b2 = impact(px, py, pz, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, dot, bx, by, bz);
+    const bool along = (dot >= 0.0f) && (dot < r.len);
+    if (mode == kModeHitcount) {
+        return (along && b2 < h2) ? 1.0f : 0.0f;
+    }
+    const float u = b2 * inv_h2;
+    if (deg >= 0) {
+        return along ? horner1_integral(u, coeffs, deg) * inv_h2 : 0.0f;
+    }
+    const float t = 2.0f * fminf(u, 1.0f) - 1.0f;
+    float acc = coeffs[-deg];
+    for (int k = -deg - 1; k >= 0; --k) {
+        acc = fmaf(acc, t, coeffs[k]);
+    }
+    return (along && u < 1.0f) ? acc * inv_h2 : 0.0f;
+}
+
+__device__ __forceinline__ void accumulate_staged(const StagedPrims& s, int n,
+                                                  const RaySeg& r, int mode,
+                                                  const float* s_coeffs,
+                                                  int deg, float& acc,
+                                                  float& comp) {
+    for (int i = 0; i < n; ++i) {
+        const float v = seg_pair(r, s.x[i], s.y[i], s.z[i], s.inv_h2[i],
+                                 s.h2[i], mode, s_coeffs, deg);
+        const float y = v - comp;
+        const float t = acc + y;
+        comp = (t - acc) - y;
+        acc = t;
+    }
+}
+"""
+# The cull inline: one loop, the integral and the update only for the pairs
+# that pass (the same terms in the same order as the two phases).
+CULL_INLINE = """__device__ __forceinline__ void accumulate_staged(const StagedPrims& s, int n,
+                                                  const RaySeg& r, int mode,
+                                                  const float* s_coeffs,
+                                                  int deg, float& acc,
+                                                  float& comp) {
+    for (int i = 0; i < n; ++i) {
+        float dot, bx, by, bz;
+        const float b2 = impact(s.x[i], s.y[i], s.z[i], r.ox, r.oy, r.oz, r.dx, r.dy,
+                                r.dz, dot, bx, by, bz);
+        const bool along = dot >= 0.0f && dot < r.len;
+        if (mode == kModeHitcount) {
+            if (along && b2 < s.h2[i]) acc += 1.0f;
+            continue;
+        }
+        const float u = b2 * s.inv_h2[i];
+        if (along && u < 1.0f) {
+            const float v = seg_term(u, s.inv_h2[i], s_coeffs, deg);
+            const float y = v - comp;
+            const float t = acc + y;
+            comp = (t - acc) - y;
+            acc = t;
+        }
+    }
+}
+"""
+# Phase 2 over wider masks: the warp runs the integral as often as its
+# busiest lane has passes among 64 (128) staged slots, instead of summing
+# each 32-slot word's busiest lane. The same terms in the same order.
+ADD_TERM = """__device__ __forceinline__ void add_term(const StagedPrims& s, int i, const RaySeg& r,
+                                         const float* s_coeffs, int deg, float& acc,
+                                         float& comp) {
+    float dot, bx, by, bz;
+    const float b2 = impact(s.x[i], s.y[i], s.z[i], r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, dot,
+                            bx, by, bz);
+    const float v = seg_term(b2 * s.inv_h2[i], s.inv_h2[i], s_coeffs, deg);
+    const float y = v - comp;
+    const float t = acc + y;
+    comp = (t - acc) - y;
+    acc = t;
+}
+
+__device__ __forceinline__ void accumulate_staged(const StagedPrims& s, int n,
+                                                  const RaySeg& r, int mode,
+                                                  const float* s_coeffs,
+                                                  int deg, float& acc,
+                                                  float& comp) {
+    if (mode == kModeHitcount) {
+        for (int base = 0; base < n; base += 32) {
+            acc += static_cast<float>(__popc(pass_bits32<true>(s, base, r)));
+        }
+        return;
+    }
+"""
+MASK64 = ADD_TERM + """    for (int base = 0; base < n; base += 64) {
+        uint64_t bits = pass_bits32<false>(s, base, r);
+        if (base + 32 < n) {
+            bits |= static_cast<uint64_t>(pass_bits32<false>(s, base + 32, r)) << 32;
+        }
+        while (bits) {
+            const int i = base + __ffsll(static_cast<long long>(bits)) - 1;
+            bits &= bits - 1;
+            add_term(s, i, r, s_coeffs, deg, acc, comp);
+        }
+    }
+}
+"""
+MASK128 = ADD_TERM + """    for (int base = 0; base < n; base += 128) {
+        uint64_t lo = pass_bits32<false>(s, base, r), hi = 0;
+        if (base + 32 < n) lo |= static_cast<uint64_t>(pass_bits32<false>(s, base + 32, r)) << 32;
+        if (base + 64 < n) hi = pass_bits32<false>(s, base + 64, r);
+        if (base + 96 < n) hi |= static_cast<uint64_t>(pass_bits32<false>(s, base + 96, r)) << 32;
+        while (lo | hi) {
+            int i;
+            if (lo) {
+                i = base + __ffsll(static_cast<long long>(lo)) - 1;
+                lo &= lo - 1;
+            } else {
+                i = base + 63 + __ffsll(static_cast<long long>(hi));
+                hi &= hi - 1;
+            }
+            add_term(s, i, r, s_coeffs, deg, acc, comp);
+        }
+    }
+}
+"""
+
+
+def trace_variants(source, shipped_buffers):
+    """The variants of a trace kernel whose source sets kStageBuffers to
+    ``shipped_buffers``: the two earlier loops, the two phases on 32-slot
+    masks (shipped) with the other buffer count, and wider masks."""
+    other = 3 - shipped_buffers
+    label = lambda k: f"two phases, {k} buffer{'s' if k > 1 else ''}"
+    return {
+        "integral every pair": [swap_function("stage.cuh", "accumulate_staged",
+                                              EVERY_PAIR_LOOP)],
+        "cull inline": [swap_function("stage.cuh", "accumulate_staged", CULL_INLINE)],
+        f"{label(shipped_buffers)} (shipped)": None,
+        label(other): [swap(source, f"kStageBuffers = {shipped_buffers};",
+                            f"kStageBuffers = {other};")],
+        "64-slot masks": [swap_function("stage.cuh", "accumulate_staged", MASK64)],
+        "128-slot masks": [swap_function("stage.cuh", "accumulate_staged", MASK128)],
+    }
+
+
+# Variants that sum other terms than the shipped kernel.
+NOT_BIT_EQUAL = {"integral every pair"}
+
+# kernel -> (library name, entry, variants {label: edits of a copy of csrc/,
+# None for the shipped source})
 ABLATIONS = {
-    "render_bwd": ("render", "render.cu", "grace_render_bwd", {
-        "batch 1": ("kBwdBatch = 4;", "kBwdBatch = 1;"),
-        "batch 2": ("kBwdBatch = 4;", "kBwdBatch = 2;"),
+    "render_bwd": ("render", "grace_render_bwd", {
+        "batch 1": [swap("render.cu", "kBwdBatch = 4;", "kBwdBatch = 1;")],
+        "batch 2": [swap("render.cu", "kBwdBatch = 4;", "kBwdBatch = 2;")],
         "batch 4 (shipped)": None,
-        "batch 4, no load ahead": ("cp_async_wait<1>();  // batch b's",
-                                   "cp_async_wait<0>();  // batch b's"),
+        "batch 4, no load ahead": [swap("render.cu", "cp_async_wait<1>();  // batch b's",
+                                        "cp_async_wait<0>();  // batch b's")],
     }),
-    "trace_tri": ("tri", "tri.cu", "grace_tri", {
-        "1 warp a block": ("kBlockWarps = 4;", "kBlockWarps = 1;"),
-        "2 warps a block": ("kBlockWarps = 4;", "kBlockWarps = 2;"),
+    "trace_tri": ("tri", "grace_tri", {
+        "1 warp a block": [swap("tri.cu", "kBlockWarps = 4;", "kBlockWarps = 1;")],
+        "2 warps a block": [swap("tri.cu", "kBlockWarps = 4;", "kBlockWarps = 2;")],
         "4 warps a block (shipped)": None,
-        "8 warps a block": ("kBlockWarps = 4;", "kBlockWarps = 8;"),
-        "4 warps, no copy ahead": ("cp_async_wait<1>();  // entry j's",
-                                   "cp_async_wait<0>();  // entry j's"),
+        "8 warps a block": [swap("tri.cu", "kBlockWarps = 4;", "kBlockWarps = 8;")],
+        "4 warps, no copy ahead": [swap("tri.cu", "cp_async_wait<1>();  // entry j's",
+                                        "cp_async_wait<0>();  // entry j's")],
     }),
+    "trace_bitmask": ("trace_bitmask", "grace_trace_bitmask",
+                      trace_variants("trace_bitmask.cu", 2)),
+    "trace_list_seg": ("trace_list", "grace_trace_list", trace_variants("trace_list.cu", 1)),
 }
 
 
-def build_variant(lib_name, source, entry, tag, swap):
-    """The C entry point ``entry`` of ``source`` with ``swap`` = (text,
-    replacement) applied (None: as shipped), built with the package's nvcc
-    flags."""
+def build_variant(lib_name, tag, edits):
+    """Library ``lib_name`` built from a copy of csrc/ with ``edits`` applied
+    (None: as shipped), with the package's nvcc flags; its entry points
+    bound as ``_kernels.load`` binds them."""
     from grace_tpu_torch import _kernels
 
     src_dir = os.path.join(_kernels.BUILD_DIR, "ablation", tag)
     shutil.rmtree(src_dir, ignore_errors=True)
     shutil.copytree(_kernels.CSRC, src_dir)
-    path = os.path.join(src_dir, source)
-    if swap is not None:
+    for file, edit in edits or ():
+        path = os.path.join(src_dir, file)
         with open(path) as f:
-            text = f.read()
-        if text.count(swap[0]) != 1:
-            raise AssertionError(f"{source}: {swap[0]!r} is not in the source once")
+            text = edit(f.read())
         with open(path, "w") as f:
-            f.write(text.replace(*swap))
+            f.write(text)
+    source = _kernels.KERNELS[lib_name][0]
     lib = os.path.join(src_dir, lib_name + ".so")
     cmd = [_kernels._nvcc(), *_kernels._NVCC_FLAGS, *_kernels.KERNELS[lib_name][1], "-o", lib,
-           path]
+           os.path.join(src_dir, source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {tag}:\n{res.stdout}{res.stderr}")
-    kinds = _kernels.KERNELS[lib_name][2][entry]
-    fn = getattr(ctypes.CDLL(lib), entry)
-    fn.argtypes = ([ctypes.c_void_p if k == "p" else ctypes.c_int for k in kinds]
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    for line in (res.stdout + res.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas {tag}: {line.strip()}", flush=True)
+    dll = ctypes.CDLL(lib)
+    for name, kinds in _kernels.KERNELS[lib_name][2].items():
+        getattr(dll, name).argtypes = ([ctypes.c_void_p if k == "p" else ctypes.c_int
+                                        for k in kinds] + [ctypes.c_int, ctypes.c_void_p])
+        getattr(dll, name).restype = ctypes.c_int
+    return dll
 
 
 def call(fn, args):
@@ -128,14 +319,27 @@ def tri_call(tri_args, mode):
     return args, (t, ids)
 
 
-def ablate(kernel, calls):
-    """Build every variant of ``kernel``, check its outputs equal the
-    shipped variant's on each of ``calls`` (label -> (args, outputs)), and
-    time them in turns. Returns {call label: {variant: ms}}."""
-    lib_name, source, entry, variants = ABLATIONS[kernel]
-    fns = {v: build_variant(lib_name, source, entry, f"{kernel}-{i}", swap)
-           for i, (v, swap) in enumerate(variants.items())}
-    shipped = next(v for v, swap in variants.items() if swap is None)
+def ablate(kernel, calls, resource_ints=None):
+    """Build every variant of ``kernel``, check its outputs on each of
+    ``calls`` (label -> (args, outputs)) against the shipped variant's, and
+    time them in turns. Outputs must be bit-equal, but for a variant in
+    NOT_BIT_EQUAL on a call not labelled hitcount: within rtol 1e-5, atol
+    1e-6 x max (the kernel-vs-plain tolerance). With ``resource_ints``,
+    prints each variant's resources from its ``*_resources`` query.
+    Returns {call label: {variant: ms}}."""
+    from grace_tpu_torch import _kernels
+
+    lib_name, entry, variants = ABLATIONS[kernel]
+    fns = {}
+    for i, (v, edits) in enumerate(variants.items()):
+        dll = build_variant(lib_name, f"{kernel}-{i}", edits)
+        fns[v] = getattr(dll, entry)
+        if resource_ints is not None:
+            out = (ctypes.c_int * len(_kernels.RESOURCE_FIELDS))()
+            call(getattr(dll, entry + "_resources"), [ctypes.addressof(out), *resource_ints])
+            print(f"resources {kernel} {v}: "
+                  f"{json.dumps(dict(zip(_kernels.RESOURCE_FIELDS, out)))}", flush=True)
+    shipped = next(v for v, edits in variants.items() if edits is None)
     result = {}
     for label, (args, outs) in calls.items():
         call(fns[shipped], args)
@@ -145,7 +349,10 @@ def ablate(kernel, calls):
                 o.fill_(-7)
             call(fn, args)
             torch.cuda.synchronize()
-            if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+            if v in NOT_BIT_EQUAL and "hitcount" not in label:
+                for o, w in zip(outs, want):
+                    check_close(f"{kernel} {label} {v}", o, w, 1e-5, 1e-6 * float(w.abs().max()))
+            elif not all(torch.equal(o, w) for o, w in zip(outs, want)):
                 raise AssertionError(f"{kernel} {label}: variant {v!r} differs from {shipped!r}")
         times = {v: [] for v in fns}
         order = list(fns) + list(fns)[::-1]
@@ -160,8 +367,10 @@ def ablate(kernel, calls):
                 times[v].append(start.elapsed_time(end))
         result[label] = {v: statistics.median(x) for v, x in times.items()}
         for v, x in times.items():
+            same = ("within rtol 1e-5 of" if v in NOT_BIT_EQUAL and "hitcount" not in label
+                    else "bits equal to")
             print(f"{kernel} {label} {v}: {statistics.median(x):.3f} ms (median of {len(x)}; "
-                  f"min {min(x):.3f}, max {max(x):.3f}); bits equal to {shipped}", flush=True)
+                  f"min {min(x):.3f}, max {max(x):.3f}); {same} {shipped}", flush=True)
     return result
 
 
@@ -296,7 +505,114 @@ def branch_passes(bwd_args):
     return old, new, hits
 
 
+def trace_call(kind, args, order, mode, deg=14):
+    """(kernel arguments, outputs) of grace_trace_bitmask (``kind``
+    "bitmask", ``args`` = (words, packed rays, prims)) or grace_trace_list
+    ("list", (counts, ids, packed rays, prims, group)) as the wrappers pass
+    them, tiles launched in ``order`` (None: as listed)."""
+    from grace_tpu_torch.trace import pallas_kernel as pk
+
+    if kind == "bitmask":
+        words, packed, prims = args
+        tensors = (words, order, packed, prims)
+        n_tiles = words.shape[0]
+        ints = (n_tiles, packed.shape[0] // n_tiles, words.shape[1], prims.shape[1] // 128)
+    else:
+        counts, ids, packed, prims, group = args
+        tensors = (counts, ids, order, packed, prims)
+        n_tiles = counts.shape[0]
+        ints = (n_tiles, packed.shape[0] // n_tiles, ids.shape[1], group, prims.shape[1])
+    if prims.data_ptr() % 16:
+        raise AssertionError("the trace kernels stage from 16-byte aligned slabs")
+    out = torch.empty(packed.shape[0], dtype=torch.float32, device=packed.device)
+    coeffs = pk._coeff_tensor(deg, str(packed.device))
+    return ([None if t is None else t.data_ptr() for t in tensors]
+            + [coeffs.data_ptr(), out.data_ptr(), *ints, deg, pk.MODES.index(mode)], (out,))
+
+
+def trace_orders(label, kind, args, longest, lengths):
+    """The shipped kernel on the bench inputs with its tiles launched as
+    listed, longest walk first (``longest``, the wrapper's order), and the
+    longest tiles alone (one a resident block of the card: their inputs
+    gathered, launched as listed); outputs bit-equal. Returns {order: ms}
+    (CUDA events, median of 10)."""
+    from grace_tpu_torch import _kernels
+
+    lib = "trace_bitmask" if kind == "bitmask" else "trace_list"
+    fn = getattr(_kernels.load(lib), f"grace_{lib}")
+    packed = args[1] if kind == "bitmask" else args[2]
+    n_tiles = lengths.shape[0]
+    tile = packed.shape[0] // n_tiles
+    spread(f"{label}: groups listed per tile", lengths)
+    resident = resident_warps(lib, f"grace_{lib}_resources", packed.device, tile) * 32 // tile
+    top = longest[:resident].long()
+    rows = packed.view(n_tiles, tile, 16)[top].reshape(-1, 16)
+    alone = ((args[0][top], rows, args[2]) if kind == "bitmask"
+             else (args[0][top], args[1][top], rows, args[3], args[4]))
+    base, (out,) = trace_call(kind, args, None, "cumulative")
+    call(fn, base)
+    want = out.clone()
+    result = {}
+    for name, (a, expect) in {
+            "as listed": (args, want), "longest first": (args, want),
+            f"longest {resident} alone": (alone, want.view(n_tiles, tile)[top].flatten())}.items():
+        c_args, (o,) = trace_call(kind, a, longest if name == "longest first" else None,
+                                  "cumulative")
+        call(fn, c_args)
+        torch.cuda.synchronize()
+        if not torch.equal(o, expect):
+            raise AssertionError(f"{label} {name}: results differ")
+        times = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call(fn, c_args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        result[name] = statistics.median(times)
+        print(f"{label} {name}: {result[name]:.3f} ms (median of 10; min {min(times):.3f}, "
+              f"max {max(times):.3f})", flush=True)
+    return result
+
+
+def trace_ablations(sorted_spheres, rays_s):
+    """B6 and B8 (and B5's launch order) on main path 2's inputs: the bench
+    scene's sorted rays at tile 128, segment words, segment lists and quarter
+    lists sized to the longest row."""
+    from grace_tpu_torch.trace import pallas_kernel as pk
+
+    bm = route_inputs("bitmask", rays_s, sorted_spheres, None, TRACE_TILE)[2]
+    sl = route_inputs("list", rays_s, sorted_spheres, None, TRACE_TILE,
+                      int(_popcount_rows(bm[0]).max()))[2]
+    q = route_inputs("quarter", rays_s, sorted_spheres, None, TRACE_TILE)[2][1]
+    ql = route_inputs("qlist", rays_s, sorted_spheres, None, TRACE_TILE,
+                      (int(_popcount_rows(q).max()) + 3) // 4 * 4)[2]
+    summary = {}
+    for kernel, kind, args, order in (
+            ("trace_bitmask", "bitmask", bm, pk.bitmask_tile_order(bm[0])),
+            ("trace_list_seg", "list", sl, pk.list_tile_order(sl[0], sl[1].shape[1]))):
+        summary[kernel] = ablate(kernel, {f"bench scene {m}": trace_call(kind, args, order, m)
+                                          for m in ("cumulative", "hitcount")}, (TRACE_TILE,))
+    summary["trace tile orders"] = {
+        "trace_bitmask": trace_orders("trace_bitmask tiles", "bitmask", bm,
+                                      pk.bitmask_tile_order(bm[0]), _popcount_rows(bm[0])),
+        "trace_list_seg": trace_orders("trace_list segment-list tiles", "list", sl,
+                                       pk.list_tile_order(sl[0], sl[1].shape[1]), sl[0]),
+        "trace_list_quarter": trace_orders("trace_list quarter-list tiles", "list", ql,
+                                           pk.list_tile_order(ql[0], ql[1].shape[1]), ql[0]),
+    }
+    return summary
+
+
+PARTS = ("trace", "render_bwd", "trace_tri")
+
+
 def main():
+    parts = sys.argv[1:] or list(PARTS)
+    if not set(parts) <= set(PARTS):
+        raise SystemExit(f"usage: chip_ablation.py [{' | '.join(PARTS)} ...]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_ablation: torch.cuda.is_available() is false")
     from grace_tpu_torch import _kernels
@@ -308,43 +624,51 @@ def main():
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    spheres = torch.from_numpy(
-        make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
-    sorted_spheres, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
-    rays_s, _, _ = spatial_sort_rays(orthographic_projection_rays(
-        SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH, device=dev))
-    g = torch.from_numpy(np.random.default_rng(5).standard_normal(rays_s.n_rays)
-                         .astype(np.float32)).to(dev)
-    weights = torch.ones(N_PARTICLES, device=dev)
-    _, _, bwd_args, ovf = render_inputs(rays_s, sorted_spheres, weights, g, 128, 2048, 2048)
-    if bool(ovf.any()):
-        raise AssertionError("backward tile lists overflow")
-    # the variants on the segments in the wrapper's order, longest list first
-    order = _kernels.longest_first(bwd_args[0])
-    by_len = tuple(a[order] for a in bwd_args[:3]) + (bwd_args[3],)
-    summary = {"render_bwd": ablate("render_bwd", {"bench scene": render_bwd_call(by_len)})}
-    del by_len
-    old, new, hits = branch_passes(bwd_args)
-    print(f"hit-branch warp passes: earlier design {old}, this design {new} "
-          f"({new / old:.4f} of them); {hits} hits", flush=True)
-    summary["render_bwd branch passes"] = {"earlier_design": old, "this_design": new, "hits": hits}
-    summary["render_bwd segment orders"] = render_bwd_orders(bwd_args)
-    del bwd_args
+    summary = {}
+    if "trace" in parts or "render_bwd" in parts:
+        spheres = torch.from_numpy(
+            make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
+        sorted_spheres, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+        rays_s, _, _ = spatial_sort_rays(orthographic_projection_rays(
+            SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH, device=dev))
+    if "trace" in parts:
+        summary.update(trace_ablations(sorted_spheres, rays_s))
+    if "render_bwd" in parts:
+        g = torch.from_numpy(np.random.default_rng(5).standard_normal(rays_s.n_rays)
+                             .astype(np.float32)).to(dev)
+        weights = torch.ones(N_PARTICLES, device=dev)
+        _, _, bwd_args, ovf = render_inputs(rays_s, sorted_spheres, weights, g, 128, 2048, 2048)
+        if bool(ovf.any()):
+            raise AssertionError("backward tile lists overflow")
+        # the variants on the segments in the wrapper's order, longest list first
+        order = _kernels.longest_first(bwd_args[0])
+        by_len = tuple(a[order] for a in bwd_args[:3]) + (bwd_args[3],)
+        summary["render_bwd"] = ablate("render_bwd", {"bench scene": render_bwd_call(by_len)})
+        del by_len
+        old, new, hits = branch_passes(bwd_args)
+        print(f"hit-branch warp passes: earlier design {old}, this design {new} "
+              f"({new / old:.4f} of them); {hits} hits", flush=True)
+        summary["render_bwd branch passes"] = {"earlier_design": old, "this_design": new,
+                                               "hits": hits}
+        summary["render_bwd segment orders"] = render_bwd_orders(bwd_args)
+        del bwd_args
 
-    tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
-    sorted_tris, _, _ = mt.build_triangle_tree(tris)
-    cam, look, length = mt.auto_camera(sorted_tris, SIDE)
-    rays = pinhole_camera_rays(SIDE, SIDE, cam.tolist(), look.tolist(), (0.0, 1.0, 0.0),
-                               math.pi / 3, float(length), device=dev)
-    tri_args, _ = tri_inputs(rays, sorted_tris, 32, 2048)
-    n_tiles = tri_args[0].shape[0]
-    order = _kernels.longest_first(tri_args[0])
-    by_len = (*(a[order] for a in tri_args[:3]),
-              tri_args[3].view(n_tiles, -1, 16)[order].reshape(-1, 16), tri_args[4])
-    summary["trace_tri"] = ablate("trace_tri", {m: tri_call(by_len, m)
-                                                for m in ("closest", "any")})
-    del by_len
-    summary["trace_tri tile orders"] = {m: tri_orders(tri_args, m) for m in ("closest", "any")}
+    if "trace_tri" in parts:
+        tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
+        sorted_tris, _, _ = mt.build_triangle_tree(tris)
+        cam, look, length = mt.auto_camera(sorted_tris, SIDE)
+        rays = pinhole_camera_rays(SIDE, SIDE, cam.tolist(), look.tolist(), (0.0, 1.0, 0.0),
+                                   math.pi / 3, float(length), device=dev)
+        tri_args, _ = tri_inputs(rays, sorted_tris, 32, 2048)
+        n_tiles = tri_args[0].shape[0]
+        order = _kernels.longest_first(tri_args[0])
+        by_len = (*(a[order] for a in tri_args[:3]),
+                  tri_args[3].view(n_tiles, -1, 16)[order].reshape(-1, 16), tri_args[4])
+        summary["trace_tri"] = ablate("trace_tri", {m: tri_call(by_len, m)
+                                                    for m in ("closest", "any")})
+        del by_len
+        summary["trace_tri tile orders"] = {m: tri_orders(tri_args, m)
+                                            for m in ("closest", "any")}
     print(json.dumps(summary), flush=True)
 
 

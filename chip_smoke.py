@@ -43,7 +43,10 @@ kernels' launch counters set to 0 just before it:
      the triangle kernel against its plain version on every tile in both
      modes (ids, misses and t bit-equal).
 
-Before the main paths, the training kernels are held against their plain
+The trace kernels are also held against their plain versions on particles
+at the edge of a ray's support (u = b^2 / h^2 within a few ulp of 1, on
+both sides), where the kernels start or stop taking the integral. Before
+the main paths, the training kernels are held against their plain
 versions at edge shapes (a particle count that is not a multiple of 128,
 dead particles, tiles with no segment, a particle that covers every tile,
 tile_w 16 and 32, both bases, list overflow) and both trainers against
@@ -56,8 +59,9 @@ Prints a ``resources`` line for each kernel redesigned for the card
 (registers a thread, shared bytes and threads a block, resident blocks and
 warps an SM), stage and kernel times (CUDA events, warm, median) with the
 card's name and power limit, the work each kernel's bound is computed from,
-a JSON line describing each kernel (the triangle kernel's two passes
-apart), and last a JSON line with ``"ok": true``. Any failure raises, so
+a JSON line describing each kernel (the list kernel on quarter and on
+segment lists apart, the triangle kernel's two passes apart), and last a
+JSON line with ``"ok": true``. Any failure raises, so
 the exit code is non-zero and no result line prints.
 """
 
@@ -221,6 +225,31 @@ def route_inputs(route, rays, spheres, tree, tile, max_chunks=2048, stack_size=1
     return pk.trace_list, pk._trace_list_plain, (n, ids, packed, prims, group), ovf
 
 
+def support_edge_scene(device, n=384, n_near=128, seed=5):
+    """(spheres f32[n, 4], 32x32 ortho rays, near bool[n_rays, n]): n
+    clustered particles with 4x the bench smoothing lengths, the last
+    n_near of them each placed beside one ray at b = h (1 + k ulp), k in
+    [-4, 4], so that u = b^2 / h^2 lands within a few ulp of 1, on both
+    sides (``near`` marks those pairs). The trace kernels take a pair's
+    integral only where u < 1."""
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays
+
+    rays = orthographic_projection_rays(32, 32, CAM, LOOK, UP, VEXT, LENGTH, device=device)
+    o, d = rays.origins.cpu().numpy(), rays.directions.cpu().numpy()
+    sp = make_clustered_particles(np.random.default_rng(seed), n)
+    sp[:, 3] *= 4.0
+    rng = np.random.default_rng(seed + 1)
+    near = np.zeros((rays.n_rays, n), bool)
+    for j, i in enumerate(rng.choice(rays.n_rays, n_near, replace=False)):
+        p = n - n_near + j
+        side = np.cross(d[i], [0.0, 1.0, 0.0]).astype(np.float32)
+        side /= np.linalg.norm(side)
+        f = np.float32(1.0) + np.float32(j % 9 - 4) * np.finfo(np.float32).eps
+        sp[p, :3] = o[i] + d[i] * np.float32(2.5) + side * (sp[p, 3] * f)
+        near[i, p] = True
+    return torch.from_numpy(sp).to(device), rays, torch.from_numpy(near).to(device)
+
+
 def small_checks(dev):
     """Kernels vs plain versions at small and edge shapes; every route vs
     the generic engine."""
@@ -262,6 +291,16 @@ def small_checks(dev):
             err, _ = check_kernel(f"small {route} t{tile}", kernel, plain, args, mode, deg)
             log(f"check trace_list kernel vs plain: {route} tile {tile} {kw} {mode} "
                 f"max abs err {err:.3g} OK")
+    # particles at the edge of a ray's support (u within a few ulp of 1)
+    sp_e, rays_e, _ = support_edge_scene(dev)
+    for route in ("quarter", "bitmask", "qlist", "list"):
+        kernel, plain, args, ovf = route_inputs(route, rays_e, sp_e, None, 128)
+        if bool(ovf.any()):
+            raise AssertionError(f"edge scene: {route} lists overflow")
+        errs = [check_kernel(f"support edge {route} {mode} deg {deg}", kernel, plain, args,
+                             mode, deg)[0] for mode, deg in MODE_DEGS]
+        log(f"check {kernel.__name__} kernel vs plain: {route} on particles at the edge of "
+            f"the support, every mode and degree, max abs err {max(errs):.3g} OK")
     engine_checks(ss, tree, rays_s)
     for band in (32, None):
         b = bucket_prims_ortho(ss, CAM, LOOK, UP, 4.0, LENGTH, 128, 128, chunk=256,
@@ -1005,8 +1044,12 @@ def run(dev, n_particles, side):
         for line in ptxas:
             log(f"  ptxas {name}: {line}")
     # what one launch of each kernel redesigned for the card holds
-    for label, name, entry, ints in (("trace_tri (tile 32)", "tri", "grace_tri_resources", (32,)),
-                                     ("render_bwd", "render", "grace_render_bwd_resources", ())):
+    for label, name, entry, ints in (
+            ("trace_bitmask (tile 128)", "trace_bitmask", "grace_trace_bitmask_resources",
+             (TRACE_TILE,)),
+            ("trace_list (tile 128)", "trace_list", "grace_trace_list_resources", (TRACE_TILE,)),
+            ("trace_tri (tile 32)", "tri", "grace_tri_resources", (32,)),
+            ("render_bwd", "render", "grace_render_bwd_resources", ())):
         log(f"resources {label}: {json.dumps(_kernels.resources(name, entry, dev, *ints))}")
 
     # 2. kernels vs plain versions at small and edge shapes; routes vs the
@@ -1058,6 +1101,7 @@ def run(dev, n_particles, side):
     torch.cuda.synchronize()
     pk.trace_bitmask.launches = 0
     pk.trace_list.launches = 0
+    pk.trace_list.launches_seg = 0
     t0 = time.perf_counter()
     general = {"default": [pk.pallas_trace_sph(rays_s, sorted_spheres, tree,
                                                tile=TRACE_TILE, mode=m)
@@ -1074,7 +1118,8 @@ def run(dev, n_particles, side):
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
     launches2 = {"trace_bitmask": pk.trace_bitmask.launches,
-                 "trace_list": pk.trace_list.launches}
+                 "trace_list": pk.trace_list.launches - pk.trace_list.launches_seg,
+                 "trace_list_seg": pk.trace_list.launches_seg}
     if min(launches2.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches2}")
     quarter_hc, _ = pk.pallas_trace_sph(rays_s, sorted_spheres, tree, tile=TRACE_TILE,
@@ -1108,10 +1153,12 @@ def run(dev, n_particles, side):
     bm_args = route_inputs("bitmask", rays_s, sorted_spheres, tree, TRACE_TILE)[2]
     ql_args = route_inputs("qlist", rays_s, sorted_spheres, tree, TRACE_TILE,
                            caps["qlist"])[2]
+    sl_args = route_inputs("list", rays_s, sorted_spheres, tree, TRACE_TILE, caps["list"])[2]
     errs = {}
     for name, kernel, plain, args in (
             ("trace_bitmask", pk.trace_bitmask, pk._trace_bitmask_plain, bm_args),
-            ("trace_list", pk.trace_list, pk._trace_list_plain, ql_args)):
+            ("trace_list", pk.trace_list, pk._trace_list_plain, ql_args),
+            ("trace_list_seg", pk.trace_list, pk._trace_list_plain, sl_args)):
         errs[name], top = check_kernel(f"full {name}", kernel, plain, args, "cumulative", 14)
         check_kernel(f"full {name}", kernel, plain, args, "hitcount", 14)
         log(f"check {name} kernel vs plain on all {packed.shape[0] // TRACE_TILE} tiles "
@@ -1298,6 +1345,9 @@ def run(dev, n_particles, side):
                                                           TRACE_TILE, max_q=caps["qlist"]))
     t["dense_tile_segments"] = cuda_ms(lambda: pb.dense_tile_segments(
         rays_p, sorted_spheres, TRACE_TILE, caps["list"]))
+    t["bitmask_tile_order"] = cuda_ms(lambda: pk.bitmask_tile_order(bm_args[0]))
+    t["list_tile_order (segment lists)"] = cuda_ms(
+        lambda: pk.list_tile_order(sl_args[0], sl_args[1].shape[1]))
     t["trace_bitmask kernel"] = cuda_ms(lambda: pk.trace_bitmask(*bm_args, 14, "cumulative"))
     t["trace_bitmask plain"] = cuda_ms(
         lambda: pk._trace_bitmask_plain(*bm_args, 14, "cumulative"), reps=2, warm=0)
@@ -1305,9 +1355,10 @@ def run(dev, n_particles, side):
         lambda: pk.trace_list(*ql_args, 14, "cumulative"))
     t["trace_list plain (qlist lists)"] = cuda_ms(
         lambda: pk._trace_list_plain(*ql_args, 14, "cumulative"), reps=2, warm=0)
-    sl_args = route_inputs("list", rays_s, sorted_spheres, tree, TRACE_TILE, caps["list"])[2]
     t["trace_list kernel (segment lists)"] = cuda_ms(
         lambda: pk.trace_list(*sl_args, 14, "cumulative"))
+    t["trace_list plain (segment lists)"] = cuda_ms(
+        lambda: pk._trace_list_plain(*sl_args, 14, "cumulative"), reps=2, warm=0)
     t["pallas_trace_sph default"] = cuda_ms(lambda: pk.pallas_trace_sph(
         rays_s, sorted_spheres, tree, tile=TRACE_TILE))
     t["pallas_trace_sph qlist"] = cuda_ms(lambda: pk.pallas_trace_sph(
@@ -1368,6 +1419,7 @@ def run(dev, n_particles, side):
     quarters = int(_popcount_rows(words).sum())
     segments = int(_popcount_rows(bm_args[0]).sum())
     q_listed = int(ql_args[0].sum())
+    s_listed = int(sl_args[0].sum())
     sf_pairs = int(_popcount_rows(masks).sum())
     fused_pairs = int(fwd_args[0].sum())
     bwd_pairs = int(bwd_args[0].sum())
@@ -1375,7 +1427,8 @@ def run(dev, n_particles, side):
     rank = a8c.shape[0]
     log(f"work: {hits} ray-particle hits; trace_quarter {quarters} (tile, quarter) pairs; "
         f"trace_bitmask {segments} (tile, segment) pairs; trace_list {q_listed} (tile, "
-        f"quarter) pairs on the qlist lists; splat and splat_sortfree "
+        f"quarter) pairs on the qlist lists and {s_listed} (tile, segment) pairs on the "
+        f"segment lists; splat and splat_sortfree "
         f"{rows_x_cols:.0f} footprint (pixel, particle) products and {rows_plus_cols:.0f} "
         f"factor entries, splat_sortfree {sf_pairs} (pixel tile, segment) pairs; "
         f"render_fwd {fused_pairs} (ray tile, segment) pairs; render_bwd {bwd_pairs} "
@@ -1408,11 +1461,16 @@ def run(dev, n_particles, side):
                      launches2["trace_bitmask"], errs["trace_bitmask"],
                      t["trace_bitmask kernel"], t["trace_bitmask plain"],
                      trace_flops(segments * 128 * TRACE_TILE), nbytes(*bm_args) + r_pad * 4),
-        kernel_entry("trace_list", "trace_list.cu", f"{PK}:459, {PK}:221, {PK}:174, {PK}:688",
+        kernel_entry("trace_list", "trace_list.cu", f"{PK}:459",
                      launches2["trace_list"], errs["trace_list"],
                      t["trace_list kernel (qlist lists)"], t["trace_list plain (qlist lists)"],
                      trace_flops(q_listed * 32 * TRACE_TILE),
                      nbytes(*ql_args[:4]) + r_pad * 4),
+        kernel_entry("trace_list_seg", "trace_list.cu", f"{PK}:221, {PK}:174, {PK}:688",
+                     launches2["trace_list_seg"], errs["trace_list_seg"],
+                     t["trace_list kernel (segment lists)"], t["trace_list plain (segment lists)"],
+                     trace_flops(segments * 128 * TRACE_TILE),
+                     nbytes(*sl_args[:4]) + r_pad * 4),
         kernel_entry("splat_sortfree_fwd", "splat_sortfree.cu",
                      "grace_tpu/trace/splat_grad.py:181", launches3["splat_sortfree_fwd"],
                      errs["sortfree_fwd"], t["splat_sortfree_fwd kernel"],

@@ -40,9 +40,11 @@ KERNELS = {
     "trace_quarter": ("trace_quarter.cu", ["--fmad=false"],
                       {"grace_trace_quarter": "pppppp" + "iiiiiii"}),
     "trace_bitmask": ("trace_bitmask.cu", ["--fmad=false"],
-                      {"grace_trace_bitmask": "ppppp" + "iiiiii"}),
+                      {"grace_trace_bitmask": "pppppp" + "iiiiii",
+                       "grace_trace_bitmask_resources": "pi"}),
     "trace_list": ("trace_list.cu", ["--fmad=false"],
-                   {"grace_trace_list": "pppppp" + "iiiiiii"}),
+                   {"grace_trace_list": "ppppppp" + "iiiiiii",
+                    "grace_trace_list_resources": "pi"}),
     "splat": ("splat.cu", [],
               {"grace_splat": "pppppppppp" + "iiiiiiiiii"}),
     "splat_sortfree": ("splat_sortfree.cu", ["--fmad=false"],

@@ -9,9 +9,14 @@
 // plain PyTorch version (pallas_kernel._seg_compute) rounds the same way.
 // That keeps hit counts (b^2 < h^2) exact against it.
 //
-// Cost: about 25 flops a pair for the hit test, plus |deg| + 1 fmas (and a
-// sqrt for deg > 0) for the integral.
+// The TPU form evaluates the integral for every pair and lets it vanish
+// outside the support (its vector unit has no use for a branch). Here the
+// pair test (pair_passes, about 18 operations) decides first, and only the
+// pairs that pass take the integral (seg_term: |deg| + 1 fmas, and a sqrt
+// for deg > 0); every pair it skips has a term of exactly +-0.
 #pragma once
+
+#include <cstdint>
 
 constexpr int kModeCumulative = 0;
 constexpr int kModeHitcount = 1;
@@ -37,7 +42,7 @@ __device__ __forceinline__ float impact(float px, float py, float pz, float ox, 
 
 // The weighted-fit line integral F(b/h) of u = b^2/h^2 (deg >= 0): Horner in
 // t = 2 min(u, 1) - 1, times v^3 sqrt(v) with v = max(1 - min(u, 1), 0), so
-// it vanishes for u >= 1. seg_pair's weighted branch and the record kernels
+// it vanishes for u >= 1. seg_term's weighted branch and the record kernels
 // (records.cu) share it.
 __device__ __forceinline__ float horner1_integral(float u, const float* coeffs,
                                                   int deg) {
@@ -51,29 +56,29 @@ __device__ __forceinline__ float horner1_integral(float u, const float* coeffs,
     return acc * ((v * v) * (v * sqrtf(v)));
 }
 
-// Column-density contribution F(b/h) / h^2 (cumulative) or the hit
-// indicator (hitcount) of one primitive (x, y, z, 1/h^2, h^2) on one ray.
-// coeffs holds |deg| + 1 f32 Horner coefficients, lowest order first:
-// deg > 0 is the weighted fit of F / v^3.5 times v^3 sqrt(v) (v = 1 - u),
-// deg < 0 the direct fit of F with the u < 1 support test fused in.
-__device__ __forceinline__ float seg_pair(const RaySeg& r, float px, float py,
-                                          float pz, float inv_h2, float h2,
-                                          int mode, const float* coeffs,
-                                          int deg) {
+// Whether a primitive at p passes the test of one ray: it lies along the
+// ray (0 <= r.d < len) and, in hitcount mode (w = h^2), b^2 < h^2; in
+// cumulative mode (w = 1/h^2), u = b^2 / h^2 < 1, the support of its term.
+template <bool kHitcount>
+__device__ __forceinline__ uint32_t pair_passes(const RaySeg& r, float px, float py, float pz,
+                                                float w) {
     float dot, bx, by, bz;
     const float b2 = impact(px, py, pz, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, dot, bx, by, bz);
-    const bool along = (dot >= 0.0f) && (dot < r.len);
-    if (mode == kModeHitcount) {
-        return (along && b2 < h2) ? 1.0f : 0.0f;
-    }
-    const float u = b2 * inv_h2;
-    if (deg >= 0) {
-        return along ? horner1_integral(u, coeffs, deg) * inv_h2 : 0.0f;
-    }
+    const bool in = kHitcount ? b2 < w : b2 * w < 1.0f;
+    return (in && dot >= 0.0f && dot < r.len) ? 1u : 0u;
+}
+
+// Column-density term F(b/h) / h^2 of a primitive with 1/h^2 = inv_h2 at
+// u = b^2 / h^2. coeffs holds |deg| + 1 f32 Horner coefficients, lowest
+// order first: deg >= 0 is the weighted fit (horner1_integral), exactly
+// +-0 for u >= 1; deg < 0 the direct fit of F, which is taken only where
+// u < 1. So a pair outside along && u < 1 adds nothing, and is skipped.
+__device__ __forceinline__ float seg_term(float u, float inv_h2, const float* coeffs, int deg) {
+    if (deg >= 0) return horner1_integral(u, coeffs, deg) * inv_h2;
     const float t = 2.0f * fminf(u, 1.0f) - 1.0f;
     float acc = coeffs[-deg];
     for (int k = -deg - 1; k >= 0; --k) {
         acc = fmaf(acc, t, coeffs[k]);
     }
-    return (along && u < 1.0f) ? acc * inv_h2 : 0.0f;
+    return acc * inv_h2;
 }

@@ -11,10 +11,11 @@
 // then that word's set bits. No quarter list is built: at a million
 // particles a tile has 32,768 possible quarters.
 //
-// What bounds it: the pair tests, about 25 flops a pair plus the integral's
-// Horner steps; every ray of a tile tests every primitive of every listed
-// quarter. The slabs (8 x N_pad f32, 33.6 MB at a million particles) fit
-// the 50 MB L2, so after the first tiles the staging loads come from L2.
+// What bounds it: the pair tests, about 18 operations each, plus the
+// integral for the pairs that pass (stage.cuh's two phases); every ray of
+// a tile tests every primitive of every listed quarter. The slabs (8 x
+// N_pad f32, 33.6 MB at a million particles) fit the 50 MB L2, so after
+// the first tiles the staging loads come from L2.
 // What the design does about it: all 32 quarters a word lists are staged
 // in shared memory at once (stage.cuh: 1024 primitives, 20 KB), so one
 // pair of barriers serves up to 1024 primitives. The control flow is

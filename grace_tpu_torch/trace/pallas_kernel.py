@@ -12,7 +12,8 @@ it denotes the CUDA-backed fused trace, not a Pallas kernel. Two stages:
               (``dense_tile_segments``, or the BVH walk ``tile_segments``).
   kernel      one CUDA block per ray tile walks its words or list in
               ascending order and accumulates each ray's column density (or
-              hit count) over the listed primitives:
+              hit count) over the listed primitives; the segment kernels
+              launch their tiles longest walk first:
                 csrc/trace_bitmask.cu  segment words     (``trace_bitmask``)
                 csrc/trace_quarter.cu  quarter words     (``trace_quarter``)
                 csrc/trace_list.cu     quarter/segment lists (``trace_list``)
@@ -43,7 +44,8 @@ from grace_tpu_torch.sph.kernel_integrals import (
     cubic_spline_line_integral_horner1, integral_coeffs)
 from grace_tpu_torch.trace.broadphase import collect_tile_chunks
 from grace_tpu_torch.trace.pallas_broadphase import (
-    dense_tile_masks, dense_tile_masks_quarter, dense_tile_segments, quarter_lists)
+    _popcount32, dense_tile_masks, dense_tile_masks_quarter, dense_tile_segments,
+    quarter_lists)
 
 DEFAULT_TILE = 512
 SEG = 128  # primitives per segment; the padding granularity
@@ -242,11 +244,12 @@ def _check_args(name, lists, rays_packed, prims, n_tiles, mode):
 
 
 def _launch(name, entry, device, tensors, ints, rays_packed, integral_deg, mode):
-    """Launch a trace kernel on ``device``; returns f32[R_pad]."""
-    args = [t.contiguous() for t in tensors]
+    """Launch a trace kernel on ``device`` (a None tensor passes a null
+    pointer); returns f32[R_pad]."""
+    args = [None if t is None else t.contiguous() for t in tensors]
     coeffs = _coeff_tensor(integral_deg, str(device))
     out = torch.empty(rays_packed.shape[0], dtype=torch.float32, device=device)
-    _kernels.launch(name, entry, device, *[a.data_ptr() for a in args],
+    _kernels.launch(name, entry, device, *[None if a is None else a.data_ptr() for a in args],
                     coeffs.data_ptr(), out.data_ptr(), *ints, integral_deg,
                     MODES.index(mode))
     return out
@@ -287,10 +290,25 @@ def trace_quarter(summary, words, rays_packed, prims, integral_deg, mode):
 trace_quarter.launches = 0
 
 
+def bitmask_tile_order(words: torch.Tensor) -> torch.Tensor:
+    """Launch order of ``trace_bitmask``'s tiles: by the number of set bits
+    in each tile's words (the segments its block walks), longest first,
+    ties in tile order; i32[n_tiles]."""
+    return _kernels.longest_first(_popcount32(words).sum(dim=1)).to(torch.int32)
+
+
+def list_tile_order(counts: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Launch order of ``trace_list``'s tiles on segment lists: by the
+    entries each block reads, min(count, max_len), longest first, ties in
+    tile order; i32[n_tiles]."""
+    return _kernels.longest_first(torch.clamp(counts, 0, max_len)).to(torch.int32)
+
+
 def trace_bitmask(words, rays_packed, prims, integral_deg, mode):
     """Per-ray column density / hit count over the 128-primitive segments
     each tile's words list: launches ``csrc/trace_bitmask.cu`` on CUDA
-    tensors, runs ``_trace_bitmask_plain`` on CPU tensors.
+    tensors, its tiles in ``bitmask_tile_order``, runs
+    ``_trace_bitmask_plain`` on CPU tensors.
 
     Args:
       words: i32[n_tiles, ceil(n_segs / 32)], bit s of word w = segment
@@ -311,7 +329,8 @@ def trace_bitmask(words, rays_packed, prims, integral_deg, mode):
     if device.type == "cpu":
         return _trace_bitmask_plain(words, rays_packed, prims, integral_deg, mode)
     out = _launch("trace_bitmask", "grace_trace_bitmask", device,
-                  (words, rays_packed, prims), (n_tiles, tile, n_words, n_segs),
+                  (words, bitmask_tile_order(words), rays_packed, _kernels.aligned(prims)),
+                  (n_tiles, tile, n_words, n_segs),
                   rays_packed, integral_deg, mode)
     trace_bitmask.launches += 1
     return out
@@ -323,7 +342,8 @@ trace_bitmask.launches = 0
 def trace_list(counts, ids, rays_packed, prims, group, integral_deg, mode):
     """Per-ray column density / hit count over each tile's list of
     ``group``-primitive groups: launches ``csrc/trace_list.cu`` on CUDA
-    tensors, runs ``_trace_list_plain`` on CPU tensors.
+    tensors (segment lists longest first, quarter lists as listed), runs
+    ``_trace_list_plain`` on CPU tensors.
 
     Args:
       counts: i32[n_tiles], listed groups per tile (only the first
@@ -347,15 +367,19 @@ def trace_list(counts, ids, rays_packed, prims, group, integral_deg, mode):
     if device.type == "cpu":
         return _trace_list_plain(counts, ids, rays_packed, prims, group,
                                  integral_deg, mode)
+    max_len = ids.shape[1]
+    order = list_tile_order(counts, max_len) if group == SEG else None
     out = _launch("trace_list", "grace_trace_list", device,
-                  (counts, ids, rays_packed, prims),
-                  (n_tiles, tile, ids.shape[1], group, prims.shape[1]),
+                  (counts, ids, order, rays_packed, _kernels.aligned(prims)),
+                  (n_tiles, tile, max_len, group, prims.shape[1]),
                   rays_packed, integral_deg, mode)
     trace_list.launches += 1
+    trace_list.launches_seg += group == SEG
     return out
 
 
-trace_list.launches = 0
+trace_list.launches = 0  # every launch
+trace_list.launches_seg = 0  # of them, on segment lists (group 128)
 
 
 def pallas_trace_sph(

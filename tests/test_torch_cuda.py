@@ -10,7 +10,10 @@ neither JAX nor grace_tpu, so it also runs where JAX is not installed:
 Hit counts must be exact; column densities within rtol 1e-5 (the kernels
 sum the same f32 terms as the plain versions, in another order); splat
 images within 1e-5 x max. Kernels: trace_quarter, trace_bitmask,
-trace_list (quarter and segment lists, with overflow), splat, and the
+trace_list (quarter and segment lists, with overflow; the segment kernels
+on rows of 0, 1, 8, 9 and all segments around their staging batch, in
+their longest-first launch order, and every trace kernel on particles at
+the edge of a ray's support), splat, and the
 training kernels splat_sortfree_fwd / _bwd and render_fwd / _bwd (a
 particle count that is not a multiple of 128, dead particles, empty tiles,
 a particle that covers every tile, both bases, list overflow, backward
@@ -43,7 +46,9 @@ from chip_smoke import (
     check_records, check_render, check_render_bwd, check_sortfree, check_tri, colocated_scene,
     fd_checks,
     make_clustered_particles, random_mesh, records_inputs, records_scene,
-    records_small_checks, render_inputs, sortfree_inputs, training_scene, tri_inputs)
+    records_small_checks, render_inputs, route_inputs, sortfree_inputs, support_edge_scene,
+    training_scene, tri_inputs)
+from grace_tpu_torch import _kernels
 
 CAM = (0.5, 0.5, -2.0)
 LOOK = (0.5, 0.5, 0.5)
@@ -154,6 +159,77 @@ def test_trace_list_kernel_matches_plain(scene, tile, route, mode, deg):
         got, pk._trace_list_plain(n, ids, packed, prims, group, deg, mode), mode)
 
 
+# Segments a tile lists: none, one, one staging batch of the kernels (8
+# segments, 1024 primitives), one more, all 24, and between.
+BATCH_EDGE_LENGTHS = [0, 1, 8, 9, 24, 16, 17, 3, 7, 2]
+
+
+@pytest.fixture(scope="module")
+def batch_edges(dev):
+    """(words, counts, ids i32[10, 24], packed rays, prims): 3000 clustered
+    particles (24 segments, the last one part padding), 32x40 ortho rays
+    over the box in 10 tiles of 128; tile t lists BATCH_EDGE_LENGTHS[t]
+    random segments, ascending, as words and as a segment list."""
+    sp = torch.from_numpy(make_clustered_particles(np.random.default_rng(9), 3000)).to(dev)
+    rays = orthographic_projection_rays(32, 40, CAM, LOOK, UP, 1.2, 6.0, device=dev)
+    packed, _ = pk._pack_rays(rays, 128)
+    prims, n_pad = pk._pack_prims(sp)
+    n_segs = n_pad // 128
+    rng = np.random.default_rng(10)
+    words = np.zeros((len(BATCH_EDGE_LENGTHS), 1), np.int64)
+    ids = np.zeros((len(BATCH_EDGE_LENGTHS), n_segs), np.int32)
+    for t, n in enumerate(BATCH_EDGE_LENGTHS):
+        segs = np.sort(rng.choice(n_segs, n, replace=False))
+        ids[t, :n] = segs
+        words[t, 0] = sum(1 << int(g) for g in segs)
+    t32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)
+    return (t32(words), t32(np.asarray(BATCH_EDGE_LENGTHS)), t32(ids), packed, prims)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,deg", MODE_DEGS)
+def test_trace_bitmask_batch_edges(batch_edges, mode, deg):
+    """Rows of 0, 1, 8, 9 and all segments, launched longest row first."""
+    words, _, _, packed, prims = batch_edges
+    order = pk.bitmask_tile_order(words)
+    assert order.tolist() != sorted(order.tolist())
+    before = pk.trace_bitmask.launches
+    got = pk.trace_bitmask(words, packed, prims, deg, mode)
+    assert pk.trace_bitmask.launches == before + 1
+    _assert_kernel_matches(got, pk._trace_bitmask_plain(words, packed, prims, deg, mode), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_len", [24, 12], ids=["roomy", "counts past max_len"])
+@pytest.mark.parametrize("mode,deg", MODE_DEGS)
+def test_trace_list_batch_edges(batch_edges, mode, deg, max_len):
+    """Segment lists of 0, 1, 8, 9 and all segments, launched longest list
+    first; with max_len 12, counts of 16, 17 and 24 read 12 entries."""
+    _, counts, ids, packed, prims = batch_edges
+    ids = ids[:, :max_len].contiguous()
+    order = pk.list_tile_order(counts, max_len)
+    assert order.tolist() != sorted(order.tolist())
+    assert (max_len < 24) == bool((counts > max_len).any())
+    before = (pk.trace_list.launches, pk.trace_list.launches_seg)
+    got = pk.trace_list(counts, ids, packed, prims, 128, deg, mode)
+    assert (pk.trace_list.launches, pk.trace_list.launches_seg) == (before[0] + 1, before[1] + 1)
+    _assert_kernel_matches(
+        got, pk._trace_list_plain(counts, ids, packed, prims, 128, deg, mode), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["quarter", "bitmask", "qlist", "list"])
+@pytest.mark.parametrize("mode,deg", MODE_DEGS)
+def test_trace_kernels_at_the_support_edge(dev, route, mode, deg):
+    """Particles placed at b = h (1 + k ulp) beside a ray, so u = b^2 / h^2
+    lands within a few ulp of 1 on both sides: the kernels take a pair's
+    integral only where u < 1, the plain versions everywhere."""
+    spheres, rays, near = support_edge_scene(dev)
+    kernel, plain, args, ovf = route_inputs(route, rays, spheres, None, 128)
+    assert int(near.sum()) == 128 and not bool(ovf.any())
+    _assert_kernel_matches(kernel(*args, deg, mode), plain(*args, deg, mode), mode)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("basis", ["deg8", "deg10"])
 @pytest.mark.parametrize("band", [32, None])
@@ -198,6 +274,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(scene):
         pk.trace_list(n.cpu(), ids, packed[:1024], prims, 128, 14, "cumulative")
     with pytest.raises(ValueError, match="unknown mode"):
         pk.trace_list(n, ids, packed[:1024], prims, 128, 14, "closest")
+    # the C entries stage with 16-byte copies: an unaligned slab is refused
+    out = torch.empty(1024, device=ss.device)
+    coeffs = pk._coeff_tensor(14, str(ss.device))
+    shifted = torch.empty(prims.numel() + 1, device=ss.device)[1:].view_as(prims)
+    for entry, ptrs, ints in (
+            ("grace_trace_bitmask", (masks[:1], None, packed[:1024], shifted),
+             (1, 1024, masks.shape[1], prims.shape[1] // 128)),
+            ("grace_trace_list", (n, ids, None, packed[:1024], shifted),
+             (1, 1024, 4, 128, prims.shape[1]))):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _kernels.launch(entry.split("_", 1)[1], entry, ss.device,
+                            *[None if p is None else p.data_ptr() for p in ptrs],
+                            coeffs.data_ptr(), out.data_ptr(), *ints, 14, 0)
 
 
 WIDE = sg.OrthoCamera(CAM, LOOK, UP, 4.0, 6.0, 256, 128)

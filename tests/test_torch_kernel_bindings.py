@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from grace_tpu_torch import _kernels
+from grace_tpu_torch.trace import pallas_kernel as pk
 from grace_tpu_torch.trace import pallas_render as pr
 from grace_tpu_torch.trace import pallas_tri as pt
 
@@ -40,6 +41,9 @@ def test_shared_constants_agree():
     render = _source("render")
     assert re.search(rf"kBwdBatch = {pr.BWD_BATCH};", render)
     assert re.search(rf"kRayTile = {pr.BWD_TILE};", render)
+    stage = open(os.path.join(_kernels.CSRC, "stage.cuh")).read()
+    assert re.search(rf"kMaxTile = {pk.MAX_TILE};", stage)
+    assert re.search(rf"kSegShift = {pk.SEG.bit_length() - 1};", _source("trace_bitmask"))
     tri = _source("tri")
     assert re.search(rf"kMaxChunk = {pt.CHUNK};", tri)
     for name, value in (("kEps", pt.EPS), ("kBig", pt.BIG)):

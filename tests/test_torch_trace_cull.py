@@ -1,0 +1,105 @@
+"""The pair cull of the trace kernels against grace_tpu's ``_seg_compute``.
+
+The CUDA trace kernels (csrc/stage.cuh, csrc/seg_compute.cuh) evaluate a
+pair's integral only where the ray runs along the particle and
+u = b^2 / h^2 < 1 (hit counts: where b^2 < h^2), and skip every other
+pair. That is right only if every term outside that support is exactly 0
+in the reference. Here grace_tpu's ``_seg_compute`` (jitted) and the
+port's plain ``_seg_compute`` see the same rays and particles, from a
+numpy seed: clustered particles, orthographic rays, and particles placed
+so that u lands within a few ulp of 1 on some rays, on both sides of it.
+The terms agree within the route tests' tolerance, hit indicators exactly,
+and outside the support every term is exactly 0 in both packages.
+
+Also the kernels' launch orders: a permutation of the tiles, longest walk
+first, ties in tile order, empty tiles last.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import grace_tpu.trace.pallas_kernel as jpk
+import grace_tpu_torch.trace.pallas_kernel as tpk
+from chip_smoke import support_edge_scene
+from tests.helper.torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
+
+
+@pytest.fixture(scope="module")
+def pairs():
+    """(ray columns f32[R, 1] x 7, particle slab f32[8, N], bool[R, N]
+    pairs at the edge of the support) of ``support_edge_scene``: 32x32
+    ortho rays, 384 clustered particles, the last 128 each at b = h (1 + k
+    ulp), k in [-4, 4], from one ray."""
+    spheres, rays, near = support_edge_scene("cpu")
+    packed, _ = tpk._pack_rays(rays, 1)
+    prims, _ = tpk._pack_prims(spheres)
+    return [packed[:, k:k + 1] for k in (0, 1, 2, 3, 4, 5, 9)], prims, near
+
+
+def _support(cols, prims, mode):
+    """Where a pair may contribute: along the ray and u < 1 (cumulative)
+    or b^2 < h^2 (hitcount)."""
+    b2, dot, *_ = tpk._impact(prims[0], prims[1], prims[2], *cols[:6])
+    along = (dot >= 0.0) & (dot < cols[6])
+    return along & ((b2 < prims[5]) if mode == "hitcount" else (b2 * prims[4] < 1.0)), b2
+
+
+@pytest.mark.parametrize("mode,deg", [("hitcount", 14), ("cumulative", 14), ("cumulative", 8),
+                                      ("cumulative", -10), ("cumulative", -12)])
+def test_terms_vanish_outside_the_support(pairs, mode, deg):
+    cols, prims, near = pairs
+    want = np.asarray(jax.jit(lambda slab, *c: jpk._seg_compute(
+        slab, *c, jax.numpy.zeros((c[0].shape[0], slab.shape[1]), jax.numpy.float32), mode,
+        deg))(prims.numpy(), *(c.numpy() for c in cols)))
+    got = tpk._seg_compute(*cols, prims[0], prims[1], prims[2], prims[4], prims[5], mode, deg)
+    support, b2 = _support(cols, prims, mode)
+    # the edge particles straddle u = 1 on their rays, within a few ulp
+    u = (b2 * prims[4])[near]
+    assert float((u - 1.0).abs().max()) < 1e-5
+    assert bool((u < 1.0).any()) and bool((u >= 1.0).any())
+    assert int(support.sum()) > 1000 and bool((~support).any())
+    if mode == "hitcount":
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+    outside = ~support.numpy()
+    assert not want[outside].any() and not got.numpy()[outside].any()
+    # and inside, the edge pairs on the near side of u = 1 still add something
+    if mode == "cumulative" and deg > 0:
+        assert bool((got[near & support] != 0).all())
+
+
+def _expected_order(lengths):
+    return sorted(range(len(lengths)), key=lambda t: -lengths[t])  # stable
+
+
+def test_bitmask_tile_order():
+    """Rows of random words with random popcounts (ties, empty rows, sign
+    bits): the order is the tiles by descending set bits, stable."""
+    rng = np.random.default_rng(8)
+    n_tiles, n_words = 40, 5
+    words = np.zeros((n_tiles, n_words), np.int64)
+    for t in range(n_tiles):
+        for b in rng.choice(32 * n_words, rng.integers(0, 6), replace=False):
+            words[t, b // 32] |= 1 << (b % 32)
+    words[3, 4] |= 1 << 31
+    words = (((words + 2**31) % 2**32) - 2**31).astype(np.int32)
+    lengths = [sum(bin(int(w) & 0xFFFFFFFF).count("1") for w in row) for row in words]
+    assert lengths.count(0) > 1 and len(set(lengths)) < n_tiles
+    order = tpk.bitmask_tile_order(torch.from_numpy(words))
+    assert order.dtype == torch.int32
+    assert order.tolist() == _expected_order(lengths)
+    assert sorted(order.tolist()) == list(range(n_tiles))
+    assert all(lengths[t] == 0 for t in order.tolist()[-lengths.count(0):])
+
+
+def test_list_tile_order():
+    """The segment-list order reads min(count, max_len) entries a tile:
+    counts past max_len tie with max_len; negative counts are empty."""
+    counts = torch.tensor([3, 0, 9, 12, 3, -2, 7, 8, 0, 1], dtype=torch.int32)
+    order = tpk.list_tile_order(counts, 8)
+    assert order.dtype == torch.int32
+    assert order.tolist() == _expected_order([min(max(c, 0), 8) for c in counts.tolist()])
+    assert order.tolist()[:3] == [2, 3, 7] and order.tolist()[-3:] == [1, 5, 8]
