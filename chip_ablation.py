@@ -1,6 +1,7 @@
 """Ablations of the kernels redesigned for the card, on one CUDA card.
 
-    python3 chip_ablation.py [trace] [render_bwd] [trace_tri]   (default: all)
+    python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [paths]   (default: all)
+    python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
 
 Each variant is a copy of the kernel's sources with one constant, one wait
 or one device function replaced, built as the package builds its libraries
@@ -36,6 +37,24 @@ wrapper launches them (longest list first).
   kBlockWarps = 1, 2, 4 and 8 warps a block, and the shipped block waiting
   for each segment's copy before it tests the previous one.
 
+  splat: splat.cu (B1) on main path 1's buckets and the sort-free forward
+  (B11) on main path 3's masks (the bench scene, 32 x 32 patches, deg8):
+  the support-only factors contracted densely, the culled contraction
+  with one row a thread, four rows a thread (shipped), the Horner degree
+  at run time, each patch cut into 2 or 4 blocks along its rows, and for
+  B11 a batch a segment; then the dense loops they replaced
+  (csrc/splat_dense.cu, csrc/splat_sortfree_fwd_dense.cu), listed against
+  heaviest-first order and batches of 32, 64 and 128 through the C
+  entries; for B1 the keys above one SM's mean share (and half of it)
+  split over several blocks with an ordered second pass (held within 1e-5
+  x max of the plain version).
+
+  paths: the splat frame (build, rays + sort, bucket, splat) and one
+  sort-free training step on the bench scene through the package's user
+  functions only, timed, with the device's busy share over each
+  (torch.profiler); with --package DIR, DIR's grace_tpu_torch runs them, so
+  that two checkouts compare in one call.
+
 Then each shipped kernel on the same inputs launched in other orders of
 its work units (ray tiles, segments), through the C entry point: as
 listed, longest list first, and the longest units alone, with the spread
@@ -54,13 +73,15 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 from chip_smoke import (CAM, LENGTH, LOOK, MAX_PER_LEAF, N_PARTICLES, SIDE, TORUS, TRACE_TILE, UP,
-                        VEXT, _popcount_rows, check_close, make_clustered_particles,
-                        render_inputs, route_inputs, torus_mesh, tri_inputs)
+                        VEXT, _popcount_rows, check_close, cuda_ms, make_clustered_particles,
+                        render_inputs, route_inputs, sortfree_fwd_dense, sortfree_inputs,
+                        splat_dense, torus_mesh, tri_inputs)
 
 def swap(file, old, new):
     """An edit of ``file`` that replaces its one occurrence of ``old``."""
@@ -606,11 +627,360 @@ def trace_ablations(sorted_spheres, rays_s):
     return summary
 
 
-PARTS = ("trace", "render_bwd", "trace_tri")
+# The splat kernels' variants (csrc/splat_common.cuh, splat.cu,
+# splat_sortfree.cu), each step of the redesign taken back in turn; every
+# variant sums the same terms in the same order, so all are bit-equal.
+# The factors built only inside the footprints (into zeroed arrays), then
+# contracted densely: every batch instance against every pixel.
+ZERO_FILL_BUILD = """\
+template <int DEG>
+__device__ __forceinline__ void build_factors(const Layout& l, int n, int tile_w, int band,
+                                              int rank, int deg) {
+    const int tw4 = padded_rows(tile_w);
+    for (int e = threadIdx.x; e < n * rank * tw4; e += kThreads) l.fa[e] = 0.0f;
+    for (int e = threadIdx.x; e < n * rank * band; e += kThreads) l.fb[e] = 0.0f;
+    __syncthreads();
+    build_support<DEG>(l, n, tile_w, band, rank, deg);
+}
+
+"""
+DENSE_CONTRACT = """\
+__device__ __forceinline__ void contract(const Layout& l, int n, int tile_w, int band, int rank,
+                                         float (&acc)[NT][kRows]) {
+    const int tw4 = padded_rows(tile_w);
+    const int n_groups = (band + 31) / 32;
+    const int tasks = n_tasks(tile_w, band);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+        const int task = warp + j * kWarps;
+        if (task >= tasks) continue;
+        const int r0 = task / n_groups * kRows;
+        const int c = min(task % n_groups * 32 + lane, band - 1);
+        for (int i = 0; i < n; ++i) {
+            const float* a = l.fa + i * rank * tw4 + r0;
+            const float* b = l.fb + i * rank * band + c;
+            for (int k = 0; k < rank; ++k) {
+                float av[kRows];
+                load_rows(a + k * tw4, av);
+                const float bv = b[k * band];
+#pragma unroll
+                for (int rr = 0; rr < kRows; ++rr) acc[j][rr] = fmaf(av[rr], bv, acc[j][rr]);
+            }
+        }
+    }
+}
+"""
+DENSE_STEP = [swap("splat_common.cuh", "__device__ __forceinline__ void build_factors(",
+                   "__device__ __forceinline__ void build_support("),
+              swap("splat_common.cuh", "// kRows consecutive A entries",
+                   ZERO_FILL_BUILD + "// kRows consecutive A entries"),
+              swap_function("splat_common.cuh", "contract", DENSE_CONTRACT)]
+ONE_ROW = [swap("splat_common.cuh", "constexpr int kRows = 4;", "constexpr int kRows = 1;")]
+
+
+def runtime_degree(file, prefix):
+    """The Horner loop with its degree at run time (no unrolled build)."""
+    return [swap(file, f"""return deg == 8 ? {prefix}kernel_for_nt<8>(nt)
+                    : deg == 10 ? {prefix}kernel_for_nt<10>(nt) : {prefix}kernel_for_nt<0>(nt);""",
+                 f"return {prefix}kernel_for_nt<0>(nt);")]
+
+
+def row_parts(file, shipped, parts):
+    """Each patch cut into ``parts`` blocks along its rows (``shipped``
+    as shipped)."""
+    return [swap(file, f"constexpr int kRowParts = {shipped};",
+                 f"constexpr int kRowParts = {parts};")]
+
+
+def splat_steps(file, prefix, shipped_parts):
+    """The redesign's steps up to the shipped row parts, each adding one to
+    the one before (its edits of the shipped source)."""
+    whole = row_parts(file, shipped_parts, 1)
+    deg = runtime_degree(file, prefix)
+    return {"support-only factors, dense contraction": DENSE_STEP + deg + whole,
+            "+ culled contraction, 1 row a thread": ONE_ROW + deg + whole,
+            "+ 4 rows a thread (register blocking)": deg + whole,
+            "+ Horner degree at compile time": whole}
+# B11 with a run_batch after every cull round (two listed segments)
+# instead of a batch that gathers several rounds.
+PER_SEGMENT = [swap("splat_sortfree.cu", "        parity ^= 1;\n",
+                    "        parity ^= 1;\n        if (n > 0) {\n"
+                    "            splat::run_batch<NT, DEG>(l, n, tile_w, band, rank, deg, acc);\n"
+                    "            n = 0;\n        }\n")]
+ABLATIONS.update({
+    "splat": ("splat", "grace_splat", {
+        **splat_steps("splat.cu", "", 4),
+        "+ rows over 4 blocks (shipped)": None,
+        "shipped, rows over 2 blocks": row_parts("splat.cu", 4, 2),
+        "shipped, rows over 8 blocks": row_parts("splat.cu", 4, 8),
+    }),
+    "splat_sortfree_fwd": ("splat_sortfree", "grace_splat_sortfree_fwd", {
+        **{f"{step}, a batch a round": edits + PER_SEGMENT
+           for step, edits in splat_steps("splat_sortfree.cu", "fwd_", 2).items()},
+        "+ rows over 2 blocks, a batch a round": PER_SEGMENT,
+        "+ batches across rounds (shipped)": None,
+        "shipped, rows over 1 block": row_parts("splat_sortfree.cu", 2, 1),
+        "shipped, rows over 4 blocks": row_parts("splat_sortfree.cu", 2, 4),
+    }),
+})
+
+
+def splat_call(buckets, order, sub, basis="deg8", tile_w=32, band=32):
+    """(kernel arguments, outputs) of grace_splat as splat_image passes
+    them, keys in ``order`` (None: as listed), ``sub`` instances a batch."""
+    from grace_tpu_torch.trace import splat as sp
+
+    deg, a, _ = sp.SPLAT_BASES[basis]
+    a_t, b_t = sp._basis_tensors(basis, str(buckets.slabs.device))
+    w_res, h_res = buckets.xcols.shape[0], buckets.yrows.shape[0]
+    out = torch.empty((h_res, w_res), dtype=torch.float32, device=buckets.slabs.device)
+    ptrs = [t.data_ptr() for t in (buckets.slab_lo, buckets.n_slabs, buckets.first,
+                                   buckets.last)]
+    ptrs += [None if order is None else order.data_ptr()]
+    ptrs += [t.data_ptr() for t in (buckets.xcols, buckets.yrows, buckets.slabs, a_t, b_t, out)]
+    return ptrs + [buckets.first.shape[0], w_res // band, tile_w, band, buckets.slabs.shape[2],
+                   w_res, buckets.slabs.shape[0], len(a), deg, sub], (out,)
+
+
+def sortfree_call(inputs, order, sub, basis="deg8", tile_w=32, tile_h=128):
+    """(kernel arguments, outputs) of grace_splat_sortfree_fwd as
+    splat_sortfree_fwd passes them for a SIDE x SIDE image, tiles in
+    ``order`` (None: as listed)."""
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    side = SIDE
+    masks, _, coords, slabs = inputs
+    deg, a, _ = sg._basis_coeffs(basis)
+    dev = slabs.device
+    out = torch.empty((side, side), dtype=torch.float32, device=dev)
+    ptrs = [masks.data_ptr(), None if order is None else order.data_ptr(), coords.data_ptr(),
+            slabs.data_ptr(), sg._basis_tensor(basis, "a", str(dev)).data_ptr(),
+            sg._basis_tensor(basis, "b", str(dev)).data_ptr(), out.data_ptr()]
+    return ptrs + [masks.shape[0], masks.shape[1], slabs.shape[0], side // tile_h, tile_w,
+                   tile_h, sg._fwd_band(tile_h), side, a.shape[0], deg, sub], (out,)
+
+
+def in_turns(label, runs, want, rtol=None):
+    """Time ``runs`` ({name: (function, its output or None)}) in turns, 5
+    times forward and back (CUDA events, median of 10), each output first
+    held bit-equal to ``want`` (with ``rtol``: within rtol x max). Returns
+    {name: ms}."""
+    for name, (fn, out) in runs.items():
+        if out is None:
+            continue
+        out.fill_(-7)
+        fn()
+        torch.cuda.synchronize()
+        if rtol is None:
+            if not torch.equal(out, want):
+                raise AssertionError(f"{label} {name}: {int((out != want).sum())} values differ")
+        else:
+            check_close(f"{label} {name}", out, want, 0.0, rtol * float(want.abs().max()))
+    times = {name: [] for name in runs}
+    for _ in range(5):
+        for name in list(runs) + list(runs)[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            runs[name][0]()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    result = {name: statistics.median(x) for name, x in times.items()}
+    for name, x in times.items():
+        same = f"within {rtol} x max of" if rtol is not None else "bits equal to"
+        print(f"{label} {name}: {result[name]:.3f} ms (median of {len(x)}; min {min(x):.3f}, "
+              f"max {max(x):.3f}); {same} the reference", flush=True)
+    return result
+
+
+def split_keys(buckets, threshold, tile_w=32, band=32):
+    """The bucketed image with every key of more than ``threshold``
+    instances cut into pieces of equal count: the first piece stays at the
+    key, piece p goes to a key of an extra row tile below the image (at
+    the key's column band; its rows repeat the key's rows). Returns (the
+    split buckets, [(key, piece key)] in piece order)."""
+    first, last = buckets.first.tolist(), buckets.last.tolist()
+    h_res, w_res = buckets.yrows.shape[0], buckets.xcols.shape[0]
+    nbx, nty = w_res // band, h_res // tile_w
+    pieces = []
+    for k, (lo, hi) in enumerate(zip(first, last)):
+        n_p = -(-(hi - lo) // threshold)
+        step = -(-(hi - lo) // max(n_p, 1))
+        for p in range(1, n_p):
+            pieces.append((k, lo + p * step, min(hi, lo + (p + 1) * step)))
+        if n_p > 1:
+            last[k] = lo + step
+    keys = list(zip(first, last)) + [(0, 0)] * (len(pieces) * nbx)
+    rows = [buckets.yrows]
+    moved = []
+    for m, (k, lo, hi) in enumerate(pieces):
+        v = (nty + m) * nbx + k % nbx
+        keys[v] = (lo, hi)
+        rows.append(buckets.yrows[k // nbx * tile_w:(k // nbx + 1) * tile_w])
+        moved.append((k, v))
+    dev = buckets.slabs.device
+    f, la = (torch.tensor(c, dtype=torch.int32, device=dev) for c in zip(*keys))
+    per_slab = 2 * buckets.slabs.shape[2]
+    slab_lo = torch.div(f, per_slab, rounding_mode="floor")
+    n_slabs = torch.clamp(torch.div(la + per_slab - 1, per_slab, rounding_mode="floor")
+                          - slab_lo, min=0)
+    return buckets._replace(first=f, last=la, slab_lo=slab_lo.to(torch.int32),
+                            n_slabs=n_slabs.to(torch.int32),
+                            yrows=torch.cat(rows).contiguous()), moved
+
+
+def splat_ablations(sorted_spheres, weights):
+    """B1 and B11 on main paths 1 and 3's inputs (the bench scene, 512x512,
+    32 x 32 patches, deg8): the dense loop replaced, the redesign's steps
+    taken back in turn, batch sizes, launch orders and, for B1, the
+    heaviest keys split over several blocks."""
+    from grace_tpu_torch import _kernels
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    buckets = sp.bucket_prims_ortho(sorted_spheres, CAM, LOOK, UP, VEXT, LENGTH, SIDE, SIDE,
+                                    tile_w=32, tile_h=128, chunk=512, band=32)
+    counts = buckets.last - buckets.first
+    spread("splat: instances per key", counts)
+    order = sp.splat_key_order(buckets.first, buckets.last)
+    summary = {"splat": ablate("splat", {"bench scene": splat_call(buckets, order,
+                                                                    sp.SPLAT_BATCH)},
+                               (32, 32, 5, 8, sp.SPLAT_BATCH))}
+    want = splat_dense(buckets, 32, 32, "deg8")
+    fn = _kernels.load("splat").grace_splat
+    dense = torch.empty_like(want)
+    runs = {"the dense loop (csrc/splat_dense.cu), as listed": (
+        lambda: dense.copy_(splat_dense(buckets, 32, 32, "deg8")), dense)}
+    for name, o, sub in (("as listed, batch 64", None, 64), ("heaviest first, batch 32", order, 32),
+                         ("heaviest first, batch 64 (shipped)", order, 64),
+                         ("heaviest first, batch 128", order, 128)):
+        args, (out,) = splat_call(buckets, o, sub)
+        runs[name] = (lambda a=args: call(fn, a), out)
+    summary["splat orders and batches"] = in_turns("splat", runs, want)
+    a8, b8 = (np.asarray(c, np.float32) for c in sp.SPLAT_BASES["deg8"][1:])
+    plain = sp._splat_plain(buckets, 32, 32, a8, b8)
+    per_sm = int(counts.sum()) // torch.cuda.get_device_properties(0).multi_processor_count
+    split_runs = {}
+    for threshold in (per_sm, per_sm // 2):
+        split, moved = split_keys(buckets, threshold)
+        s_order = sp.splat_key_order(split.first, split.last)
+        args, (out,) = splat_call(split, s_order, sp.SPLAT_BATCH)
+        img = torch.empty_like(plain)
+
+        def run(a=args, out=out, moved=moved, img=img, held=(split, s_order)):
+            call(fn, a)  # (held: the tensors behind a's pointers)
+            img.copy_(out[:SIDE])
+            nbx = SIDE // 32
+            for k, v in moved:  # the second pass, pieces in order
+                r, c, rv = k // nbx * 32, k % nbx * 32, v // nbx * 32
+                img[r:r + 32, c:c + 32] += out[rv:rv + 32, c:c + 32]
+
+        label = f"keys over {threshold} instances split ({len(moved)} extra pieces)"
+        split_runs[label] = (run, img)
+        split_runs[label + ", kernel alone"] = (lambda a=args, held=(split, s_order): call(fn, a),
+                                                None)
+    summary["splat split keys"] = in_turns("splat split", split_runs, plain, rtol=1e-5)
+
+    inputs = sortfree_inputs(sorted_spheres, weights, sg.OrthoCamera(
+        CAM, LOOK, UP, VEXT, LENGTH, SIDE, SIDE), 32)
+    spread("splat_sortfree_fwd: segments listed per tile", _popcount_rows(inputs[0]))
+    t_order = sg.sortfree_tile_order(inputs[0])
+    summary["splat_sortfree_fwd"] = ablate(
+        "splat_sortfree_fwd", {"bench scene": sortfree_call(inputs, t_order, sg.FWD_BATCH)},
+        (32, 32, 5, 8, sg.FWD_BATCH))
+    masks, _, coords, slabs = inputs
+    want = sortfree_fwd_dense(masks, coords, slabs, "deg8", 32, 128, SIDE, SIDE)
+    fn = _kernels.load("splat_sortfree").grace_splat_sortfree_fwd
+    dense = torch.empty_like(want)
+    runs = {"the dense loop (csrc/splat_sortfree_fwd_dense.cu), as listed": (
+        lambda: dense.copy_(sortfree_fwd_dense(masks, coords, slabs, "deg8", 32, 128, SIDE,
+                                               SIDE)), dense)}
+    for name, o, sub in (("as listed, batch 64", None, 64),
+                         ("heaviest first, batch 32", t_order, 32),
+                         ("heaviest first, batch 64 (shipped)", t_order, 64),
+                         ("heaviest first, batch 128", t_order, 128)):
+        args, (out,) = sortfree_call(inputs, o, sub)
+        runs[name] = (lambda a=args: call(fn, a), out)
+    summary["splat_sortfree_fwd orders and batches"] = in_turns("splat_sortfree_fwd", runs, want)
+    return summary
+
+
+def user_paths(sorted_spheres, weights):
+    """The splat frame (build, rays + sort, bucket, splat) and one sort-free
+    training step (forward, L2 loss against 1.01 x its image, backward, SGD
+    1e-6) on the bench scene, through the package's user functions only,
+    so that another checkout's package can run them (``--package``): each
+    timed (CUDA events, median of 10 after a warm run) and its device busy
+    share."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    cam = sg.OrthoCamera(CAM, LOOK, UP, VEXT, LENGTH, SIDE, SIDE)
+    render = sg.make_splat_trainer(cam, basis="deg8", tile_w=32, tile_h=128)
+    target = 1.01 * sg.splat_forward_sortfree(sorted_spheres, weights, cam, 32, 128, "deg8")
+
+    def train_step():
+        s = sorted_spheres.detach().clone().requires_grad_(True)
+        w = weights.detach().clone().requires_grad_(True)
+        ((render(s, w) - target) ** 2).sum().div(SIDE * SIDE).backward()
+        return s.detach() - 1e-6 * s.grad, w.detach() - 1e-6 * w.grad
+
+    def frame():
+        s, _, _ = build_sph_tree(sorted_spheres, MAX_PER_LEAF)
+        spatial_sort_rays(orthographic_projection_rays(SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH,
+                                                       device=s.device))
+        return sp.splat_image(sp.bucket_prims_ortho(s, CAM, LOOK, UP, VEXT, LENGTH, SIDE, SIDE,
+                                                    tile_w=32, tile_h=128, chunk=512, band=32),
+                              basis="deg8", tile_w=32, tile_h=128)
+
+    result = {}
+    for label, fn in (("splat frame", frame), ("sort-free train step", train_step)):
+        ms = cuda_ms(fn, reps=10)
+        print(f"{label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
+        result[label] = {"ms": ms, **device_busy(label, fn)}
+    return result
+
+
+def device_busy(label, fn):
+    """The device's busy share over one warm fn() (torch.profiler: the sum
+    of its kernels' times over the wall time, both with the profiler on),
+    and its six longest kernels. Returns {busy_ms, wall_ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{label}: device busy {busy:.3f} ms of {wall:.3f} ms wall ({busy / wall:.1%}, "
+          f"profiler on), {len(kernels)} kernels; longest: "
+          + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top), flush=True)
+    return {"busy_ms": busy, "wall_ms": wall}
+
+
+PARTS = ("trace", "render_bwd", "trace_tri", "splat", "paths")
 
 
 def main():
-    parts = sys.argv[1:] or list(PARTS)
+    args = sys.argv[1:]
+    if "--package" in args:  # time another checkout's package (the paths part)
+        i = args.index("--package")
+        sys.path.insert(0, os.path.abspath(args[i + 1]))
+        del args[i:i + 2]
+    parts = args or list(PARTS)
     if not set(parts) <= set(PARTS):
         raise SystemExit(f"usage: chip_ablation.py [{' | '.join(PARTS)} ...]")
     if not torch.cuda.is_available():
@@ -621,11 +991,14 @@ def main():
     from grace_tpu_torch.rays.gen import (orthographic_projection_rays, pinhole_camera_rays,
                                           spatial_sort_rays)
 
+    import grace_tpu_torch
+
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(f"package {os.path.dirname(grace_tpu_torch.__file__)}", flush=True)
     summary = {}
-    if "trace" in parts or "render_bwd" in parts:
+    if {"trace", "render_bwd", "splat", "paths"} & set(parts):
         spheres = torch.from_numpy(
             make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
         sorted_spheres, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
@@ -633,6 +1006,10 @@ def main():
             SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH, device=dev))
     if "trace" in parts:
         summary.update(trace_ablations(sorted_spheres, rays_s))
+    if "splat" in parts:
+        summary.update(splat_ablations(sorted_spheres, torch.ones(N_PARTICLES, device=dev)))
+    if "paths" in parts:
+        summary["paths"] = user_paths(sorted_spheres, torch.ones(N_PARTICLES, device=dev))
     if "render_bwd" in parts:
         g = torch.from_numpy(np.random.default_rng(5).standard_normal(rays_s.n_rays)
                              .astype(np.float32)).to(dev)

@@ -45,7 +45,14 @@ kernels' launch counters set to 0 just before it:
 
 The trace kernels are also held against their plain versions on particles
 at the edge of a ray's support (u = b^2 / h^2 within a few ulp of 1, on
-both sides), where the kernels start or stop taking the integral. Before
+both sides), where the kernels start or stop taking the integral. Both
+splat kernels are held bit-equal to the dense contractions they replaced
+(``csrc/splat_dense.cu``, ``csrc/splat_sortfree_fwd_dense.cu``) and within
+1e-5 x max of their plain versions: on the bench inputs, and on an edge
+scene (an empty key, a key of one instance, footprints whose edge lies at
+d^2 within a few ulp of 1 from a pixel centre, footprints covering whole
+patches, scale 0, bands 16 to 128, tile_w 8 to 64) launched heaviest
+first, as listed and heaviest last. Before
 the main paths, the training kernels are held against their plain
 versions at edge shapes (a particle count that is not a multiple of 128,
 dead particles, tiles with no segment, a particle that covers every tile,
@@ -57,8 +64,9 @@ box, tiles 8, 32, 64 and 96, both modes, lists cut by max_chunks).
 
 Prints a ``resources`` line for each kernel redesigned for the card
 (registers a thread, shared bytes and threads a block, resident blocks and
-warps an SM), stage and kernel times (CUDA events, warm, median) with the
-card's name and power limit, the work each kernel's bound is computed from,
+warps an SM), stage and kernel times (CUDA events, warm, median; the dense
+splat contractions and the launch-order helpers too) with the card's name
+and power limit, the work each kernel's bound is computed from,
 a JSON line describing each kernel (the list kernel on quarter and on
 segment lists apart, the triangle kernel's two passes apart), and last a
 JSON line with ``"ok": true``. Any failure raises, so
@@ -182,17 +190,121 @@ def check_kernel(tag, kernel, plain, args, mode, deg):
     return check_close(f"{tag} deg {deg}", got, want, 1e-5, 1e-6 * scale)
 
 
-def check_splat(tag, buckets, basis, tile_w, tile_h):
+def splat_dense(buckets, tile_w, band, basis):
+    """csrc/splat_dense.cu, the dense contraction splat.cu replaced, on the
+    same buckets (keys as listed): the bits splat_image must give."""
+    from grace_tpu_torch import _kernels
     from grace_tpu_torch.trace import splat as sp
 
-    got = sp.splat_image(buckets, tile_w=tile_w, tile_h=tile_h, basis=basis)
-    n_bands = buckets.first.shape[0] // ((got.shape[1] // tile_h) * (got.shape[0] // tile_w))
+    deg, a, _ = sp.SPLAT_BASES[basis]
+    rank = len(a)
+    w_res, h_res = buckets.xcols.shape[0], buckets.yrows.shape[0]
+    sub = min(64, (48 * 1024 // 4 - tile_w - band - 2 * rank * (deg + 1))
+              // (rank * (tile_w + band)))
+    a_t, b_t = sp._basis_tensors(basis, str(buckets.slabs.device))
+    out = torch.zeros((h_res, w_res), dtype=torch.float32, device=buckets.slabs.device)
+    _kernels.launch("splat_dense", "grace_splat_dense", buckets.slabs.device,
+                    *[t.contiguous().data_ptr() for t in (
+                        buckets.slab_lo, buckets.n_slabs, buckets.first, buckets.last,
+                        buckets.xcols, buckets.yrows, buckets.slabs)], a_t.data_ptr(),
+                    b_t.data_ptr(), out.data_ptr(), buckets.first.shape[0], w_res // band,
+                    tile_w, band, buckets.slabs.shape[2], w_res, buckets.slabs.shape[0], rank,
+                    deg, sub)
+    return out
+
+
+def sortfree_fwd_dense(masks, coords, slabs, basis, tile_w, tile_h, height, width):
+    """csrc/splat_sortfree_fwd_dense.cu, the dense contraction the sort-free
+    forward replaced, on the same inputs (tiles as listed): the bits
+    splat_sortfree_fwd must give."""
+    from grace_tpu_torch import _kernels
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    deg, a, _ = sg._basis_coeffs(basis)
+    rank = a.shape[0]
+    band = sg._fwd_band(tile_h)
+    sub = min(32, (48 * 1024 // 4 - (tile_w + band + 2 * rank * (deg + 1) + 5 * 128 + 8))
+              // (rank * (tile_w + band)))
+    dev = slabs.device
+    out = torch.empty((height, width), dtype=torch.float32, device=dev)
+    _kernels.launch("splat_sortfree_dense", "grace_splat_sortfree_fwd_dense", dev,
+                    masks.data_ptr(), coords.data_ptr(), slabs.data_ptr(),
+                    sg._basis_tensor(basis, "a", str(dev)).data_ptr(),
+                    sg._basis_tensor(basis, "b", str(dev)).data_ptr(), out.data_ptr(),
+                    masks.shape[0], masks.shape[1], slabs.shape[0], width // tile_h, tile_w,
+                    tile_h, band, width, rank, deg, sub)
+    return out
+
+
+def check_splat(tag, buckets, basis, tile_w, tile_h, order="heaviest"):
+    """splat.cu against the dense contraction (bit-equal) and the plain
+    version (within 1e-5 x max), keys in ``order``: "heaviest" (the
+    wrapper's), None (as listed) or an i32 permutation. Returns (max abs
+    error against the plain version, max value)."""
+    from grace_tpu_torch.trace import splat as sp
+
+    n_bands = buckets.first.shape[0] // ((buckets.xcols.shape[0] // tile_h)
+                                         * (buckets.yrows.shape[0] // tile_w))
+    band = tile_h // n_bands
+    if isinstance(order, str):
+        got = sp.splat_image(buckets, tile_w=tile_w, tile_h=tile_h, basis=basis)
+    else:
+        got = sp._splat_launch(buckets, tile_w, band, basis, order)
     _, a, b = sp.SPLAT_BASES[basis]
-    want = sp._splat_plain(buckets, tile_w, tile_h // n_bands,
-                           np.asarray(a, np.float32), np.asarray(b, np.float32))
+    want = sp._splat_plain(buckets, tile_w, band, np.asarray(a, np.float32),
+                           np.asarray(b, np.float32))
+    dense = splat_dense(buckets, tile_w, band, basis)
     torch.cuda.synchronize()
+    check_equal(f"splat {tag} {basis} vs the dense contraction", got, dense)
     return check_close(f"splat {tag} {basis}", got, want, 0.0,
                        1e-5 * float(want.abs().max()))
+
+
+def _edge_particles(centres, axis, other, k):
+    """(x, y, h) of a particle whose footprint edge along ``axis`` ("row":
+    pv = y, "col": pu = -x, the bench camera's exact frame) lies at d^2
+    within a few ulp of 1 from ``centres[len // 2]``: q 2.5 spacings past
+    the centre, invh = 1 / |c - q| moved by k ulp."""
+    f32 = np.float32
+    c = f32(centres[len(centres) // 2])
+    q = f32(c + f32(2.5) * f32(centres[1] - centres[0]))
+    invh = f32(f32(1.0) / abs(f32(c - q))) * f32(1.0 + k * np.finfo(f32).eps)
+    h = f32(f32(1.0) / invh)
+    return (other, q, h) if axis == "row" else (-q, other, h)
+
+
+def splat_edge_scene(device, seed=3):
+    """Particles f32[n, 4], Morton-sorted, for the splat kernels' edge
+    checks on a 4.0-wide view of the unit box (the bench camera: pu = -x
+    and pv = y exactly) at 128 x 128, where a 32-pixel key is 1.0 wide:
+    1500 clustered particles with 4x the bench smoothing lengths (keys off
+    the box stay empty), one alone in an empty key, one centred on the
+    corner of four keys, one whose footprint covers whole 32 x 32 patches,
+    and for each axis and each splat path's pixel centres (the bucketing's
+    and the sort-free map) 9 whose footprint edge lies at d^2 within a few
+    ulp of 1 from a centre (k ulp, k in [-4, 4])."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.ops.vecmath import fma
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    sph = make_clustered_particles(np.random.default_rng(seed), 1500)
+    sph[:, 3] *= 4.0
+    placed = [(2.0, 2.0, 0.1), (0.5, 0.5, 0.05), (1.0, 1.0, 0.55)]
+    probe = torch.tensor([[0.5, 0.5, 0.5, 0.05]])
+    b = sp.bucket_prims_ortho(probe, CAM, LOOK, UP, 4.0, LENGTH, 128, 128, tile_w=32,
+                              tile_h=128)
+    *_, x0, dx, y0, dy = sg._camera_numerics(sg.OrthoCamera(CAM, LOOK, UP, 4.0, LENGTH, 128,
+                                                            128), "cpu")
+    idx = torch.arange(48, 80, dtype=torch.float32)
+    maps = {"row": (b.yrows[48:80, 0], fma(idx, dy, y0)),
+            "col": (b.xcols[48:80, 0], fma(idx, dx, x0))}
+    for axis, pair in maps.items():
+        for centres in pair:
+            placed += [_edge_particles(centres.numpy(), axis, 0.5, k) for k in range(-4, 5)]
+    extra = np.array([[x, y, 0.5, h] for x, y, h in placed], np.float32)
+    spheres = torch.from_numpy(np.concatenate([sph, extra]))
+    return build_sph_tree(spheres.to(device), 16)[0]
 
 
 def route_inputs(route, rays, spheres, tree, tile, max_chunks=2048, stack_size=128):
@@ -445,12 +557,7 @@ def check_sortfree(tag, inputs, g_image, basis, tile_w, bwd_rel, tile_h=128):
     deg, a_c, b_c = sg._basis_coeffs(basis)
     height, width = g_image.shape
     ntx = width // tile_h
-    got = sg.splat_sortfree_fwd(masks, coords, slabs, basis, tile_w, tile_h, height, width)
-    want = sg._sortfree_fwd_plain(masks, coords, slabs, a_c, b_c, ntx, tile_w, tile_h,
-                                  height, width)
-    torch.cuda.synchronize()
-    err_f, top = check_close(f"{tag} splat_sortfree_fwd {basis}", got, want, 0.0,
-                             1e-5 * float(want.abs().max()))
+    err_f, top = check_sortfree_fwd(tag, inputs, basis, tile_w, tile_h, height, width)
     got = sg.splat_sortfree_bwd(masks_t, coords, slabs, g_image, basis, tile_w, tile_h)
     want = sg._sortfree_bwd_plain(masks_t, coords, slabs, g_image, a_c, b_c, ntx, tile_w,
                                   tile_h)
@@ -465,6 +572,110 @@ def check_sortfree(tag, inputs, g_image, basis, tile_w, bwd_rel, tile_h=128):
     log(f"check splat_sortfree kernels vs plain: {tag} tile_w {tile_w} {basis}: image "
         f"max abs err {err_f:.3g} (max value {top:.3g}), gradients max abs err {err_b:.3g} OK")
     return err_f, err_b
+
+
+def check_sortfree_fwd(tag, inputs, basis, tile_w, tile_h, height, width, order="heaviest"):
+    """The sort-free forward against the dense contraction (bit-equal) and
+    its plain version (within 1e-5 x max), tiles in ``order``: "heaviest"
+    (the wrapper's), None (as listed) or an i32 permutation. Returns (max
+    abs error against the plain version, max value)."""
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    masks, _, coords, slabs = inputs
+    deg, a_c, b_c = sg._basis_coeffs(basis)
+    if isinstance(order, str):
+        got = sg.splat_sortfree_fwd(masks, coords, slabs, basis, tile_w, tile_h, height, width)
+    else:
+        got = sg._sortfree_fwd_launch(masks, coords, slabs, basis, tile_w, tile_h, height, width,
+                                      order)
+    want = sg._sortfree_fwd_plain(masks, coords, slabs, a_c, b_c, width // tile_h, tile_w,
+                                  tile_h, height, width)
+    dense = sortfree_fwd_dense(masks, coords, slabs, basis, tile_w, tile_h, height, width)
+    torch.cuda.synchronize()
+    check_equal(f"{tag} splat_sortfree_fwd {basis} vs the dense contraction", got, dense)
+    return check_close(f"{tag} splat_sortfree_fwd {basis}", got, want, 0.0,
+                       1e-5 * float(want.abs().max()))
+
+
+# Edge shapes of the splat kernels on splat_edge_scene: (tile_w, tile_h,
+# band, chunk) of the bucketed splat, (tile_w, tile_h) of the sort-free
+# forward (band: the largest divisor of tile_h up to 32); launch orders.
+SPLAT_EDGE_CASES = ((32, 128, 32, 64), (32, 128, None, 64), (16, 64, 16, 64),
+                    (8, 64, 64, 64), (64, 128, 64, 64))
+SORTFREE_EDGE_CASES = ((8, 128), (64, 128), (32, 16), (16, 64))
+EDGE_ORDERS = ("heaviest", "listed", "reversed")
+
+
+def _edge_order(name, counts):
+    """The launch order ``name`` of work units with ``counts``: the
+    wrappers' (a string), None (as listed) or heaviest last."""
+    from grace_tpu_torch import _kernels
+
+    if name == "heaviest":
+        return name
+    if name == "listed":
+        return None
+    return _kernels.longest_first(counts).flip(0).to(torch.int32)
+
+
+def splat_edge_check(dev, case, order, basis="deg8", zero_scale=False):
+    """splat.cu on splat_edge_scene at one of SPLAT_EDGE_CASES (with
+    ``zero_scale``, every third instance's scale set to 0) in one of
+    EDGE_ORDERS, against the dense contraction and the plain version."""
+    from grace_tpu_torch.trace import splat as sp
+
+    tile_w, tile_h, band, chunk = case
+    b = sp.bucket_prims_ortho(splat_edge_scene(dev), CAM, LOOK, UP, 4.0, LENGTH, 128, 128,
+                              tile_w=tile_w, tile_h=tile_h, chunk=chunk, band=band)
+    counts = b.last - b.first
+    if int(counts.max()) <= 4 * chunk or (case == SPLAT_EDGE_CASES[0] and not (
+            bool((counts == 0).any()) and bool((counts == 1).any()))):
+        raise AssertionError("edge case lost: no key over several slabs, or no empty key or "
+                             "none of one instance")
+    if zero_scale:
+        slabs = b.slabs.clone()
+        slabs[:, 3, ::3] = 0.0
+        slabs[:, 7, 1::3] = 0.0
+        b = b._replace(slabs=slabs)
+    return check_splat(f"edge {case} {order}{' scale 0' if zero_scale else ''}", b, basis,
+                       tile_w, tile_h, _edge_order(order, counts))
+
+
+def sortfree_edge_check(dev, case, order, basis="deg8"):
+    """The sort-free forward on splat_edge_scene (weights 1, 5 particles
+    dead) at one of SORTFREE_EDGE_CASES in one of EDGE_ORDERS, against the
+    dense contraction and the plain version."""
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    tile_w, tile_h = case
+    spheres = splat_edge_scene(dev).clone()
+    spheres[::300, 3] = 0.0
+    cam = sg.OrthoCamera(CAM, LOOK, UP, 4.0, LENGTH, 128, 128)
+    inputs = sortfree_inputs(spheres, torch.ones(spheres.shape[0], device=dev), cam, tile_w,
+                             tile_h)
+    counts = _popcount_rows(inputs[0])
+    if case == SORTFREE_EDGE_CASES[0] and not bool((counts == 0).any()):
+        raise AssertionError("edge case lost: no tile without a segment")
+    return check_sortfree_fwd(f"edge {case} {order}", inputs, basis, tile_w, tile_h, 128, 128,
+                              _edge_order(order, counts))
+
+
+def splat_edge_checks(dev):
+    """Both splat kernels at every edge shape and launch order."""
+    for case in SPLAT_EDGE_CASES:
+        for order in EDGE_ORDERS:
+            err, top = splat_edge_check(dev, case, order)
+            log(f"check splat kernel vs dense (bit-equal) and plain: edge scene {case} {order}: "
+                f"max abs err {err:.3g} (max value {top:.3g}) OK")
+    for basis, zero in (("deg10", False), ("deg8", True)):
+        err, top = splat_edge_check(dev, SPLAT_EDGE_CASES[0], "heaviest", basis, zero)
+        log(f"check splat kernel vs dense and plain: edge scene {basis}, scale 0 {zero}: max abs "
+            f"err {err:.3g} OK")
+    for case in SORTFREE_EDGE_CASES:
+        for order in EDGE_ORDERS:
+            err, top = sortfree_edge_check(dev, case, order)
+            log(f"check splat_sortfree_fwd kernel vs dense (bit-equal) and plain: edge scene "
+                f"{case} {order}: max abs err {err:.3g} (max value {top:.3g}) OK")
 
 
 def render_inputs(rays, spheres, weights, g, tile, max_chunks, max_tiles):
@@ -1035,6 +1246,7 @@ def run(dev, n_particles, side):
     from grace_tpu_torch.trace import pallas_broadphase as pb
     from grace_tpu_torch.trace import pallas_kernel as pk
     from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace import splat_grad as sg
 
     t_start = time.perf_counter()
     # 1. build every kernel, one nvcc each, all at once
@@ -1049,12 +1261,17 @@ def run(dev, n_particles, side):
              (TRACE_TILE,)),
             ("trace_list (tile 128)", "trace_list", "grace_trace_list_resources", (TRACE_TILE,)),
             ("trace_tri (tile 32)", "tri", "grace_tri_resources", (32,)),
-            ("render_bwd", "render", "grace_render_bwd_resources", ())):
+            ("render_bwd", "render", "grace_render_bwd_resources", ()),
+            (f"splat (32 x 32 patch, deg8, batch {sp.SPLAT_BATCH})", "splat",
+             "grace_splat_resources", (32, 32, 5, 8, sp.SPLAT_BATCH)),
+            (f"splat_sortfree_fwd (32 x 32 patch, deg8, batch {sg.FWD_BATCH})", "splat_sortfree",
+             "grace_splat_sortfree_fwd_resources", (32, 32, 5, 8, sg.FWD_BATCH))):
         log(f"resources {label}: {json.dumps(_kernels.resources(name, entry, dev, *ints))}")
 
     # 2. kernels vs plain versions at small and edge shapes; routes vs the
     # engine; the driver entry's forward
     small_checks(dev)
+    splat_edge_checks(dev)
     training_small_checks(dev)
     records_small_checks(dev)
     tri_small_checks(dev)
@@ -1170,7 +1387,6 @@ def run(dev, n_particles, side):
 
     # 6. main path 3, training on the same scene: one step of each trainer
     from grace_tpu_torch.trace import pallas_render as pr
-    from grace_tpu_torch.trace import splat_grad as sg
 
     n_rays = side * side
     cam = sg.OrthoCamera(CAM, LOOK, UP, VEXT, LENGTH, side, side)
@@ -1329,7 +1545,20 @@ def run(dev, n_particles, side):
         **SPLAT_TILE))
     a8, b8 = (np.asarray(c, np.float32) for c in sp.SPLAT_BASES["deg8"][1:])
     t["splat kernel"] = cuda_ms(lambda: sp.splat_image(buckets, basis="deg8", **SPLAT_TILE))
+    t["splat_key_order"] = cuda_ms(lambda: sp.splat_key_order(buckets.first, buckets.last))
+    t["splat dense contraction (csrc/splat_dense.cu)"] = cuda_ms(
+        lambda: splat_dense(buckets, 32, 32, "deg8"))
     t["splat plain"] = cuda_ms(lambda: sp._splat_plain(buckets, 32, 32, a8, b8), reps=3)
+
+    def splat_frame():
+        s, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+        spatial_sort_rays(orthographic_projection_rays(side, side, CAM, LOOK, UP, VEXT, LENGTH,
+                                                       device=dev))
+        return sp.splat_image(sp.bucket_prims_ortho(s, CAM, LOOK, UP, VEXT, LENGTH, side, side,
+                                                    chunk=512, band=32, **SPLAT_TILE),
+                              basis="deg8", **SPLAT_TILE)
+
+    t["splat frame (build, rays + sort, bucket, splat)"] = cuda_ms(splat_frame, reps=3)
     t["masks_quarter"] = cuda_ms(lambda: route_inputs("quarter", rays_s, sorted_spheres,
                                                       tree, TRACE_TILE))
     t["trace kernel"] = cuda_ms(lambda: pk.trace_quarter(summary, words, packed, prims,
@@ -1372,6 +1601,9 @@ def run(dev, n_particles, side):
         lambda: sortfree_inputs(sorted_spheres, weights, cam, SPLAT_TILE["tile_w"]))
     t["splat_sortfree_fwd kernel"] = cuda_ms(lambda: sg.splat_sortfree_fwd(
         masks, coords, slabs, "deg8", 32, 128, side, side))
+    t["sortfree_tile_order"] = cuda_ms(lambda: sg.sortfree_tile_order(masks))
+    t["splat_sortfree_fwd dense contraction (csrc/splat_sortfree_fwd_dense.cu)"] = cuda_ms(
+        lambda: sortfree_fwd_dense(masks, coords, slabs, "deg8", 32, 128, side, side))
     t["splat_sortfree_fwd plain"] = cuda_ms(lambda: sg._sortfree_fwd_plain(
         masks, coords, slabs, a8c, b8c, side // 128, 32, 128, side, side), reps=2, warm=0)
     t["splat_sortfree_bwd kernel"] = cuda_ms(lambda: sg.splat_sortfree_bwd(

@@ -46,9 +46,11 @@ KERNELS = {
                    {"grace_trace_list": "ppppppp" + "iiiiiii",
                     "grace_trace_list_resources": "pi"}),
     "splat": ("splat.cu", [],
-              {"grace_splat": "pppppppppp" + "iiiiiiiiii"}),
+              {"grace_splat": "ppppppppppp" + "iiiiiiiiii",
+               "grace_splat_resources": "p" + "iiiii"}),
     "splat_sortfree": ("splat_sortfree.cu", ["--fmad=false"],
-                       {"grace_splat_sortfree_fwd": "pppppp" + "iiiiiiiiiii",
+                       {"grace_splat_sortfree_fwd": "ppppppp" + "iiiiiiiiiii",
+                        "grace_splat_sortfree_fwd_resources": "p" + "iiiii",
                         "grace_splat_sortfree_bwd": "ppppppp" + "iiiiiiiii"}),
     "render": ("render.cu", ["--fmad=false"],
                {"grace_render_fwd": "pppppp" + "iiii",
@@ -60,6 +62,13 @@ KERNELS = {
     "tri": ("tri.cu", ["--fmad=false"],
             {"grace_tri": "ppppppp" + "iiiiii",
              "grace_tri_resources": "pi"}),
+    # The dense contractions that splat.cu and splat_sortfree.cu's forward
+    # replaced, each with its file's flags: the references those kernels
+    # are held bit-equal to on the card. No wrapper launches them.
+    "splat_dense": ("splat_dense.cu", [],
+                    {"grace_splat_dense": "pppppppppp" + "iiiiiiiiii"}),
+    "splat_sortfree_dense": ("splat_sortfree_fwd_dense.cu", ["--fmad=false"],
+                             {"grace_splat_sortfree_fwd_dense": "pppppp" + "iiiiiiiiiii"}),
 }
 
 _LIBS: dict = {}

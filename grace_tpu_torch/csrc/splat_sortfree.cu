@@ -10,21 +10,24 @@
 // for |dx| >= h, so a particle adds nothing outside its footprint.
 //
 // Layout: a pixel tile has tile_w rows and tile_h columns; each tile gets
-// tile_h / band blocks, each owning a tile_w x band patch (no atomics, no
-// second pass), so that the bench grid's 64 tiles fill the card. Every
-// thread walks the tile's mask words in place, in ascending order, so the
-// control flow is block-uniform. Per listed segment the block first keeps
-// the particles with scale != 0 whose footprint reaches the patch (a
-// ballot compaction of the 128 lanes, in lane order: the others add exact
-// zeros), then, as splat.cu does, builds their factors in sub-chunks that
-// fit 48 KB of shared memory and adds the rank-K contraction into the
-// pixels each thread owns, in registers.
+// tile_h / band x kRowParts blocks, each owning a (tile_w / kRowParts) x
+// band patch (no atomics, no second pass), so that the bench grid's 64
+// tiles fill the card. Blocks take tiles in the wrapper's order (most
+// listed segments first). Every thread walks the tile's mask words in
+// place, in ascending order, so the control flow is block-uniform. The
+// block takes the listed segments two a round (threads 0-127 the first's
+// lanes, 128-255 the second's, loaded one round ahead) and keeps the
+// particles with scale != 0 whose footprint meets the patch (an O(1)
+// closed-form interval test, then the exact one: splat_common.cuh's
+// support_range; a ballot compaction in segment-then-lane order: the
+// others add exact zeros), appending them to a batch that gathers several
+// rounds; splat_common.cuh's run_batch adds a full batch into the patch,
+// over each footprint only.
 //
-// What bounds it: the contraction, tile_w * band * rank fmas per kept
-// particle, and the factor build, (tile_w + band) * rank * deg fmas. The
-// culling makes both scale with the footprints, not with the segments'
-// bounding boxes. All of it is FP32 FMA: TF32 keeps about three decimal
-// digits, too few for the basis fit.
+// What bounds it: the contraction over the footprints and the factor
+// build (splat_common.cuh), and per round one barrier and the cull of 256
+// lanes. The image is bit-equal to the dense contraction over the whole
+// patch (splat_sortfree_fwd_dense.cu).
 //
 // Backward: replaces grace_tpu/trace/splat_grad.py::_sortfree_bwd_kernel.
 // One block per segment, one thread per particle; the block walks the
@@ -48,10 +51,12 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "splat_common.cuh"
 
 namespace {
 
-constexpr int kFwdThreads = 256;
+using splat::kRows;
+constexpr int kFwdThreads = splat::kThreads;
 constexpr int kSeg = 128;
 constexpr int kMaxRows = 32;  // backward: rows of a tile (P/Q/R in registers)
 
@@ -71,135 +76,116 @@ __device__ __forceinline__ unsigned mask_word(const int32_t* __restrict__ row, i
     return v;
 }
 
-// Horner value q(t) of coefficients c[0..deg].
-__device__ __forceinline__ float horner(const float* c, int deg, float t) {
-    float q = c[deg];
-    for (int d = deg - 1; d >= 0; --d) q = fmaf(q, t, c[d]);
-    return q;
-}
+// Blocks a tile's patch is cut into along its rows, besides its bands.
+constexpr int kRowParts = 2;
 
-template <int NPT>  // output pixels per thread
+template <int NT, int DEG>  // tasks a warp holds; the basis degree (0: at run time)
 __global__ void __launch_bounds__(kFwdThreads)
-sortfree_fwd_kernel(const int32_t* __restrict__ masks, const float* __restrict__ coords,
-                    const float* __restrict__ slabs, const float* __restrict__ a_coeffs,
-                    const float* __restrict__ b_coeffs, float* __restrict__ out,
-                    int n_words, int n_segs, int ntx, int tile_w, int tile_h, int band,
-                    int width, int rank, int deg, int sub) {
-    extern __shared__ float smem[];
+sortfree_fwd_kernel(const int32_t* __restrict__ masks, const int32_t* __restrict__ order,
+                    const float* __restrict__ coords, const float* __restrict__ slabs,
+                    const float* __restrict__ a_coeffs, const float* __restrict__ b_coeffs,
+                    float* __restrict__ out, int n_words, int n_segs, int ntx, int rows,
+                    int parts, int tile_h, int band, int width, int rank, int deg, int sub) {
+    extern __shared__ float4 fwd_smem[];  // (the backward's is float smem[])
+    const int tile_w = rows;  // the rows this block owns
+    const splat::Layout l = splat::carve(fwd_smem, tile_w, band, rank, deg, sub);
+    int* warp_n = static_cast<int*>(l.extra);  // [2][kWarps] kept lanes per warp, by parity
     const int n_c = rank * (deg + 1);
-    float* ys = smem;                          // [tile_w]
-    float* xs = ys + tile_w;                   // [band]
-    float* ca = xs + band;                     // [rank][deg + 1]
-    float* cb = ca + n_c;                      // [rank][deg + 1]
-    float* prm = cb + n_c;                     // [4][kSeg] pu, pv, invh, scale
-    int* keep = reinterpret_cast<int*>(prm + 4 * kSeg);  // [kSeg] kept lanes
-    int* warp_n = keep + kSeg;                 // [4] kept lanes per warp
-    float* fa = reinterpret_cast<float*>(warp_n + 8);    // [sub][rank][tile_w]
-    float* fb = fa + sub * rank * tile_w;      // [sub][rank][band], times scale
-
-    const int n_bands = tile_h / band;
-    const int tile = blockIdx.x / n_bands;
-    const int row0 = (tile / ntx) * tile_w;
-    const int col0 = (tile % ntx) * tile_h + (blockIdx.x % n_bands) * band;
+    const int per_tile = tile_h / band * parts;
+    const int tile = order != nullptr ? order[blockIdx.x / per_tile] : blockIdx.x / per_tile;
+    const int within = blockIdx.x % per_tile;
+    const int row0 = (tile / ntx) * rows * parts + within % parts * rows;
+    const int col0 = (tile % ntx) * tile_h + within / parts * band;
     const int tid = threadIdx.x;
     const Coords cc = load_coords(coords);
-    for (int i = tid; i < tile_w; i += kFwdThreads) ys[i] = fmaf(static_cast<float>(row0 + i), cc.dy, cc.y0);
-    for (int i = tid; i < band; i += kFwdThreads) xs[i] = fmaf(static_cast<float>(col0 + i), cc.dx, cc.x0);
+    for (int i = tid; i < tile_w; i += kFwdThreads) l.ys[i] = fmaf(static_cast<float>(row0 + i), cc.dy, cc.y0);
+    for (int i = tid; i < band; i += kFwdThreads) l.xs[i] = fmaf(static_cast<float>(col0 + i), cc.dx, cc.x0);
     for (int i = tid; i < n_c; i += kFwdThreads) {
-        ca[i] = a_coeffs[i];
-        cb[i] = b_coeffs[i];
+        l.ca[i] = a_coeffs[i];
+        l.cb[i] = b_coeffs[i];
     }
-    const int n_pix = tile_w * band;
-    const int span = tile_w + band;
-    float acc[NPT];
-#pragma unroll
-    for (int j = 0; j < NPT; ++j) acc[j] = 0.0f;
     __syncthreads();
-
-    const int32_t* row = masks + static_cast<int64_t>(tile) * n_words;
-    for (int w = 0; w < n_words; ++w) {
-        unsigned bits = mask_word(row, w, n_words, n_segs);
-        while (bits != 0) {
-            const int seg = w * 32 + __ffs(bits) - 1;
-            bits &= bits - 1;
-            // 1. keep the lanes with scale != 0 whose footprint reaches the
-            // patch, in lane order
-            __syncthreads();  // the previous segment is consumed
-            bool kept = false;
-            unsigned ballot = 0;
-            if (tid < kSeg) {  // warps 0-3, whole
-                const float* s = slabs + static_cast<int64_t>(seg) * 8 * kSeg;
-                const float pu = s[tid], pv = s[kSeg + tid];
-                const float invh = s[2 * kSeg + tid], scl = s[3 * kSeg + tid];
-                bool in_y = false;
-                if (scl != 0.0f) {
-                    for (int i = 0; i < tile_w && !in_y; ++i) {
-                        const float d = (ys[i] - pv) * invh;
-                        in_y = d * d < 1.0f;
-                    }
-                    for (int i = 0; i < band && in_y && !kept; ++i) {
-                        const float d = (xs[i] - pu) * invh;
-                        kept = d * d < 1.0f;
-                    }
-                }
-                ballot = __ballot_sync(0xffffffffu, kept);
-                if ((tid & 31) == 0) warp_n[tid >> 5] = __popc(ballot);
-                prm[tid] = pu;
-                prm[kSeg + tid] = pv;
-                prm[2 * kSeg + tid] = invh;
-                prm[3 * kSeg + tid] = scl;
-            }
-            __syncthreads();
-            if (kept) {
-                int pos = __popc(ballot & ((1u << (tid & 31)) - 1u));
-                for (int v = 0; v < (tid >> 5); ++v) pos += warp_n[v];
-                keep[pos] = tid;
-            }
-            __syncthreads();
-            const int n_keep = warp_n[0] + warp_n[1] + warp_n[2] + warp_n[3];
-            // 2. factors and contraction, sub particles at a time
-            for (int base = 0; base < n_keep; base += sub) {
-                const int cnt = min(sub, n_keep - base);
-                for (int e = tid; e < cnt * span; e += kFwdThreads) {
-                    const int i = e / span;
-                    const int p = e - i * span;
-                    const int lane = keep[base + i];
-                    const float invh = prm[2 * kSeg + lane];
-                    const bool is_row = p < tile_w;
-                    const float d = is_row ? (ys[p] - prm[kSeg + lane]) * invh
-                                           : (xs[p - tile_w] - prm[lane]) * invh;
-                    const float t = fminf(d * d, 1.0f);
-                    const float m = 1.0f - t;
-                    for (int k = 0; k < rank; ++k) {
-                        if (is_row) {
-                            fa[(i * rank + k) * tile_w + p] = horner(ca + k * (deg + 1), deg, t) * m;
-                        } else {
-                            fb[(i * rank + k) * band + (p - tile_w)] =
-                                (horner(cb + k * (deg + 1), deg, t) * m) * prm[3 * kSeg + lane];
-                        }
-                    }
-                }
-                __syncthreads();
+    if (tid == 0) splat::finish_patch(l, tile_w, band);
+    float acc[NT][kRows];
 #pragma unroll
-                for (int j = 0; j < NPT; ++j) {
-                    const int pix = tid + j * kFwdThreads;
-                    if (pix < n_pix) {
-                        const float* ar = fa + pix / band;
-                        const float* br = fb + pix % band;
-                        float a = acc[j];
-                        for (int ik = 0; ik < cnt * rank; ++ik) a = fmaf(ar[ik * tile_w], br[ik * band], a);
-                        acc[j] = a;
-                    }
-                }
-                __syncthreads();
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) acc[j][r] = 0.0f;
+    }
+
+    // The tile's listed segments in ascending order, two a round: threads
+    // 0-127 take the first's lanes, 128-255 the second's, each particle
+    // loaded one round ahead.
+    const int32_t* row = masks + static_cast<int64_t>(tile) * n_words;
+    int w = 0;
+    unsigned bits = n_words > 0 ? mask_word(row, 0, n_words, n_segs) : 0u;
+    auto next_seg = [&]() {
+        while (bits == 0) {
+            if (++w >= n_words) return -1;
+            bits = mask_word(row, w, n_words, n_segs);
+        }
+        const int seg = w * 32 + __ffs(bits) - 1;
+        bits &= bits - 1;
+        return seg;
+    };
+    const int second = tid / kSeg;  // this thread's segment of a round
+    auto load = [&](int seg) {
+        const float* s = slabs + static_cast<int64_t>(seg) * 8 * kSeg + (tid - second * kSeg);
+        return make_float4(s[0], s[kSeg], s[2 * kSeg], s[3 * kSeg]);
+    };
+    int first = next_seg();
+    int mine = second == 0 ? first : next_seg();
+    if (second == 0) next_seg();  // every thread walks the same bits
+    float4 next = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (mine >= 0) next = load(mine);
+    __syncthreads();  // the patch's centres and steps
+
+    // Per round, keep the lanes with scale != 0 whose footprint meets the
+    // patch (the others add exact zeros), in segment-then-lane order, and
+    // append them to the batch, which run_batch adds in once it is full:
+    // the order of the dense contraction.
+    const int warp = tid >> 5;
+    int n = 0, parity = 0;
+    while (first >= 0) {
+        const float4 p = next;
+        const bool listed = mine >= 0;
+        first = next_seg();
+        const int other = next_seg();
+        mine = second == 0 ? first : other;
+        if (mine >= 0) next = load(mine);
+        bool kept = false;
+        int4 rng = make_int4(0, 0, 0, 0);
+        if (listed && p.w != 0.0f) {
+            rng = splat::footprint(l, tile_w, band, p);
+            kept = rng.x < rng.y;
+        }
+        const unsigned ballot = __ballot_sync(0xffffffffu, kept);
+        if ((tid & 31) == 0) warp_n[parity * splat::kWarps + warp] = __popc(ballot);
+        int pos = __popc(ballot & ((1u << (tid & 31)) - 1u));
+        __syncthreads();
+        const int* wn = warp_n + parity * splat::kWarps;
+        int n_round = 0;
+        for (int v = 0; v < splat::kWarps; ++v) {
+            pos += v < warp ? wn[v] : 0;
+            n_round += wn[v];
+        }
+        for (int done = 0; done < n_round;) {
+            const int take = min(n_round - done, sub - n);
+            if (kept && pos >= done && pos < done + take) {
+                l.prm[n + pos - done] = p;
+                l.rng[n + pos - done] = rng;
+            }
+            n += take;
+            done += take;
+            if (n == sub) {
+                splat::run_batch<NT, DEG>(l, n, tile_w, band, rank, deg, acc);
+                n = 0;
             }
         }
+        parity ^= 1;
     }
-#pragma unroll
-    for (int j = 0; j < NPT; ++j) {
-        const int pix = tid + j * kFwdThreads;
-        if (pix < n_pix) out[static_cast<int64_t>(row0 + pix / band) * width + col0 + pix % band] = acc[j];
-    }
+    if (n > 0) splat::run_batch<NT, DEG>(l, n, tile_w, band, rank, deg, acc);
+    splat::store_patch<NT>(acc, out, row0, col0, width, tile_w, band);
 }
 
 // alpha(t) = (1 - t) q(t) and its t-derivative q'(t) (1 - t) - q(t).
@@ -336,40 +322,85 @@ sortfree_bwd_kernel(const int32_t* __restrict__ masks_t, const float* __restrict
     for (int r = 4; r < 8; ++r) o[r * kSeg + tid] = 0.0f;
 }
 
+// Blocks a tile's rows are cut into: kRowParts where tile_w allows it.
+int row_parts(int tile_w) { return tile_w % kRowParts == 0 ? kRowParts : 1; }
+
+size_t fwd_smem_bytes(int tile_w, int band, int rank, int deg, int sub) {
+    return splat::layout_bytes(tile_w / row_parts(tile_w), band, rank, deg, sub,
+                               2 * splat::kWarps * sizeof(int));
+}
+
+using FwdKernel = void (*)(const int32_t*, const int32_t*, const float*, const float*,
+                           const float*, const float*, float*, int, int, int, int, int, int,
+                           int, int, int, int, int);
+
+template <int DEG>
+FwdKernel fwd_kernel_for_nt(int nt) {
+    switch (nt) {
+        case 1: return sortfree_fwd_kernel<1, DEG>;
+        case 2: return sortfree_fwd_kernel<2, DEG>;
+        case 4: return sortfree_fwd_kernel<4, DEG>;
+        case 8: return sortfree_fwd_kernel<8, DEG>;
+        case 16: return sortfree_fwd_kernel<16, DEG>;
+        default: return nullptr;
+    }
+}
+
+FwdKernel fwd_kernel_for(int tile_w, int band, int deg) {
+    const int nt = splat::tasks_per_warp(tile_w / row_parts(tile_w), band);
+    return deg == 8 ? fwd_kernel_for_nt<8>(nt)
+                    : deg == 10 ? fwd_kernel_for_nt<10>(nt) : fwd_kernel_for_nt<0>(nt);
+}
+
+bool fwd_valid(int tile_w, int band, int rank, int deg, int sub) {
+    return tile_w >= 1 && band >= 1 && rank >= 1 && deg >= 0 && sub >= 1 &&
+           sub <= splat::kMaxBatch && fwd_kernel_for(tile_w, band, deg) != nullptr &&
+           fwd_smem_bytes(tile_w, band, rank, deg, sub) <= splat::kMaxShared;
+}
+
 }  // namespace
 
-// Forward: one block per (pixel tile, column band). The wrapper picks band
-// (a divisor of tile_h, tile_w * band <= 2048) and sub (the particles whose
-// factors fit 48 KB of shared memory).
-extern "C" int grace_splat_sortfree_fwd(const int32_t* masks, const float* coords,
-                                        const float* slabs, const float* a_coeffs,
-                                        const float* b_coeffs, float* out, int n_tiles,
-                                        int n_words, int n_segs, int ntx, int tile_w,
-                                        int tile_h, int band, int width, int rank,
-                                        int deg, int sub, int device, void* stream) {
-    const int n_pix = tile_w * band;
-    const size_t smem = sizeof(float) *
-        (static_cast<size_t>(tile_w) + band + 2 * rank * (deg + 1) + 5 * kSeg + 8 +
-         static_cast<size_t>(sub) * rank * (tile_w + band));
-    if (n_pix < 1 || n_pix > 8 * kFwdThreads || band < 1 || tile_h % band != 0 || sub < 1 ||
-        smem > 48 * 1024 || n_words != (n_segs + 31) / 32) {
+// Forward: one block per (pixel tile, column band, row part), tile
+// order[b / (n_bands * parts)] for block b (order null: tile b / (n_bands *
+// parts)); parts is kRowParts where it divides tile_w. The wrapper
+// picks band (a divisor of tile_h) and sub, the particles a batch (at most
+// 128, their factors within 227 KB of shared memory).
+extern "C" int grace_splat_sortfree_fwd(const int32_t* masks, const int32_t* order,
+                                        const float* coords, const float* slabs,
+                                        const float* a_coeffs, const float* b_coeffs,
+                                        float* out, int n_tiles, int n_words, int n_segs,
+                                        int ntx, int tile_w, int tile_h, int band, int width,
+                                        int rank, int deg, int sub, int device, void* stream) {
+    if (!fwd_valid(tile_w, band, rank, deg, sub) || tile_h % band != 0 ||
+        n_words != (n_segs + 31) / 32) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int n_blocks = n_tiles * (tile_h / band);
+    const int parts = row_parts(tile_w);
+    const int n_blocks = n_tiles * (tile_h / band) * parts;
     if (n_blocks == 0) return static_cast<int>(cudaGetLastError());
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GRACE_SORTFREE_FWD(N)                                                          \
-    sortfree_fwd_kernel<N><<<n_blocks, kFwdThreads, smem, st>>>(                       \
-        masks, coords, slabs, a_coeffs, b_coeffs, out, n_words, n_segs, ntx, tile_w,   \
-        tile_h, band, width, rank, deg, sub);                                          \
-    return static_cast<int>(cudaGetLastError())
-    if (n_pix <= kFwdThreads) { GRACE_SORTFREE_FWD(1); }
-    if (n_pix <= 2 * kFwdThreads) { GRACE_SORTFREE_FWD(2); }
-    if (n_pix <= 4 * kFwdThreads) { GRACE_SORTFREE_FWD(4); }
-    GRACE_SORTFREE_FWD(8);
-#undef GRACE_SORTFREE_FWD
+    const FwdKernel kernel = fwd_kernel_for(tile_w, band, deg);
+    const size_t smem = fwd_smem_bytes(tile_w, band, rank, deg, sub);
+    err = splat::kernel_setup(kernel, smem, nullptr);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<n_blocks, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        masks, order, coords, slabs, a_coeffs, b_coeffs, out, n_words, n_segs, ntx,
+        tile_w / parts, parts, tile_h, band, width, rank, deg, sub);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// What a forward launch for this patch and batch holds (splat::kernel_setup's out).
+extern "C" int grace_splat_sortfree_fwd_resources(int* out, int tile_w, int band, int rank,
+                                                  int deg, int sub, int device, void* stream) {
+    (void)stream;
+    if (!fwd_valid(tile_w, band, rank, deg, sub)) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) {
+        err = splat::kernel_setup(fwd_kernel_for(tile_w, band, deg),
+                                  fwd_smem_bytes(tile_w, band, rank, deg, sub), out);
+    }
+    return static_cast<int>(err);
 }
 
 // Backward: one block of 128 threads per segment; tile_w <= 32 rows.

@@ -13,9 +13,10 @@ pixel patch is sum_k A_k @ B_k^T over the instances bucketed to it.
      image plane, expand each to the (up to) 2x2 (row tile x column band)
      keys its footprint touches, stable-sort the instances by key, and lay
      them out as component-major (n_slabs, 8, chunk) slabs.
-  2. ``splat_image``: one CUDA block per key (``csrc/splat.cu``) builds the
-     A/B factors of its instances and accumulates its patch; on CPU
-     tensors, ``_splat_plain``.
+  2. ``splat_image``: one CUDA block per key (``csrc/splat.cu``), keys with
+     the most instances first, builds the A/B factors of its instances
+     inside their footprints and accumulates its patch over the
+     footprints only; on CPU tensors, ``_splat_plain``.
 
 Camera conventions match ``rays.gen.orthographic_projection_rays``: pixel
 (j, i) is ray j*W + i, row 0 at the top.
@@ -232,6 +233,76 @@ def _splat_plain(buckets: SplatBuckets, tile_w: int, band: int,
     return img
 
 
+def support_interval(centres, q, invh):
+    """The pixel centres inside each particle's footprint along one axis,
+    as the splat kernels find them (``csrc/splat_common.cuh``
+    ``support_range``, operation for operation): the factor of centre c is
+    not +-0 where d = (c - q) * invh has d * d < 1.
+
+    Args:
+      centres: f32[n], monotone (one axis of a patch).
+      q, invh: f32[P], each particle's coordinate on that axis and 1 / h.
+
+    Returns ((lo, hi), (lo_t, hi_t)), each i64[P]: the closed-form interval
+    |centres[0] + p / inv_step - q| < h widened by the kernels' margin
+    (2 centres and 8 ulp of the operands' magnitude) and clipped to
+    [0, n), and the same trimmed with the exact test ([0, 0) if empty).
+    With fewer than two distinct centres the widened interval is [0, n).
+    """
+    n = centres.shape[0]
+    f32 = torch.float32
+    span = (centres[-1] - centres[0]) if n > 1 else centres.new_zeros(())
+    advance = bool(span != 0) and bool(torch.isfinite(span))
+    inv_step = (torch.tensor(float(n - 1), dtype=f32) / span.cpu()).to(centres.device) \
+        if advance else centres.new_zeros(())
+    lo = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    hi = torch.full_like(lo, n)
+    if advance:
+        h = (1.0 / invh).abs()
+        c0 = centres[0]
+        a = (q - h - c0) * inv_step
+        b = (q + h - c0) * inv_step
+        margin = 2.0 + (q.abs() + c0.abs() + h) * inv_step.abs() * 2.0 ** -20
+        f_lo = torch.floor(torch.fmin(a, b) - margin)
+        f_hi = torch.ceil(torch.fmax(a, b) + margin) + 1.0
+        top = torch.tensor(float(n), dtype=f32, device=q.device)
+        lo = torch.fmin(torch.fmax(f_lo, torch.zeros_like(f_lo)), top).to(torch.int64)
+        hi = torch.fmin(torch.fmax(f_hi, torch.zeros_like(f_hi)), top).to(torch.int64)
+    d = (centres[None, :] - q[:, None]) * invh[:, None]
+    idx = torch.arange(n, device=q.device)
+    keep = (d * d < 1.0) & (idx >= lo[:, None]) & (idx < hi[:, None])
+    found = keep.any(dim=1)
+    lo_t = torch.where(found, torch.argmax(keep.to(torch.int8), dim=1), 0)
+    hi_t = torch.where(found, n - torch.argmax(keep.flip(1).to(torch.int8), dim=1), 0)
+    return (lo, hi), (lo_t, hi_t)
+
+
+def splat_key_order(first: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """Launch order of ``splat_image``'s keys: most instances (last -
+    first) first, ties in key order; i32[n_keys]."""
+    return _kernels.longest_first(last - first).to(torch.int32)
+
+
+SPLAT_BATCH = 64   # instances a batch of csrc/splat.cu (its C entry's sub)
+MAX_BATCH = 128    # instances a batch of csrc/splat_common.cuh holds at most
+MAX_TASKS = 128    # (4-row strip, 32-column group) tasks of a kernel's patch
+ROWS = 4           # rows a thread of csrc/splat_common.cuh accumulates
+
+
+def batch_size(tile_w: int, band: int, rank: int, deg: int, want: int,
+               extra: int = 0) -> int:
+    """Instances a batch of ``csrc/splat_common.cuh`` holds for a tile_w x
+    band patch: ``want``, or fewer if more than MAX_BATCH or if their
+    factors would not fit 227 KB of shared memory (its ``layout_bytes``);
+    0 if the patch has more than MAX_TASKS tasks or not one instance fits."""
+    tw4 = -(-tile_w // ROWS) * ROWS
+    if (tw4 // ROWS) * -(-band // 32) > MAX_TASKS:
+        return 0
+    fixed = 4 * (tw4 + band + 2 * rank * (deg + 1) + 4) + extra
+    per = 4 * rank * (tw4 + band) + 32
+    return max(0, min(want, MAX_BATCH, (227 * 1024 - fixed) // per))
+
+
 @functools.lru_cache(maxsize=None)
 def _basis_tensors(basis: str, device: str):
     _, a, b = SPLAT_BASES[basis]
@@ -275,19 +346,37 @@ def splat_image(buckets: SplatBuckets, tile_w: int = 64, tile_h: int = 128,
         return _splat_plain(buckets, tile_w, band, a32, b32)
     if device.type != "cuda":
         raise ValueError(f"splat_image: unsupported device {device}")
-    if tile_w * band > 32 * 256:
-        raise ValueError(f"splat patch {tile_w}x{band} exceeds 8192 pixels")
-    rank = a32.shape[0]
-    fixed = tile_w + band + 2 * rank * (deg + 1)
-    sub = min(64, (48 * 1024 // 4 - fixed) // (rank * (tile_w + band)))
+    return _splat_launch(buckets, tile_w, band, basis,
+                         splat_key_order(buckets.first, buckets.last))
+
+
+def _splat_launch(buckets: SplatBuckets, tile_w: int, band: int, basis: str,
+                  order: torch.Tensor | None) -> torch.Tensor:
+    """``csrc/splat.cu`` on ``splat_image``'s checked CUDA inputs, its
+    keys' blocks launched in ``order`` (i32 key indices; None: as
+    listed)."""
+    deg, a_c, _ = SPLAT_BASES[basis]
+    rank = len(a_c)
+    sub = batch_size(tile_w, band, rank, deg, SPLAT_BATCH)
     if sub < 1:
-        raise ValueError(f"splat patch {tile_w}x{band} does not fit shared memory")
+        raise ValueError(f"splat patch {tile_w}x{band} too large for a block")
+    device = buckets.slabs.device
+    w_res = buckets.xcols.shape[0]
+    h_res = buckets.yrows.shape[0]
+    n_keys = buckets.first.shape[0]
     a_t, b_t = _basis_tensors(basis, str(device))
-    args = [t.contiguous() for t in tensors]
+    ranges = [t.contiguous() for t in (buckets.slab_lo, buckets.n_slabs, buckets.first,
+                                       buckets.last)]
+    coords = [t.contiguous() for t in (buckets.xcols, buckets.yrows, buckets.slabs)]
+    if order is not None:
+        order = order.to(device=device, dtype=torch.int32).contiguous()
+        if order.shape != (n_keys,):
+            raise ValueError(f"splat_image: order {tuple(order.shape)} for {n_keys} keys")
     out = torch.zeros((h_res, w_res), dtype=torch.float32, device=device)
     _kernels.launch(
         "splat", "grace_splat", device,
-        *[t.data_ptr() for t in args], a_t.data_ptr(), b_t.data_ptr(), out.data_ptr(),
+        *[t.data_ptr() for t in ranges], None if order is None else order.data_ptr(),
+        *[t.data_ptr() for t in coords], a_t.data_ptr(), b_t.data_ptr(), out.data_ptr(),
         n_keys, w_res // band, tile_w, band, buckets.slabs.shape[2], w_res,
         buckets.slabs.shape[0], rank, deg, sub)
     splat_image.launches += 1

@@ -9,7 +9,8 @@ splat pipeline: neither direction sorts or scatters.
             segment add exactly zero (the separable basis carries a
             (1 - t) factor that vanishes for |dx| >= h), so no instance
             masks are needed. Kernel: ``csrc/splat_sortfree.cu``
-            (``splat_sortfree_fwd``).
+            (``splat_sortfree_fwd``): tiles with the most listed segments
+            first, each particle's terms only inside its footprint.
   backward  the gradient of I = sum_k A_k diag(s) B_k^T with respect to the
             per-particle projections is itself a rank-K contraction of the
             cotangent tile G with the factors and their analytic
@@ -37,7 +38,7 @@ from grace_tpu_torch.ops.vecmath import dot3, fma
 from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
 from grace_tpu_torch.trace.pallas_broadphase import pack_overlap_bits
 from grace_tpu_torch.trace.pallas_kernel import _set_bits
-from grace_tpu_torch.trace.splat import _camera_frame, _factor, _matmul_f32
+from grace_tpu_torch.trace.splat import _camera_frame, _factor, _matmul_f32, batch_size
 
 SEG = 128  # particles per Morton segment = slab lane width
 MAX_BWD_ROWS = 32  # tile_w the backward kernel takes (rows in registers)
@@ -257,6 +258,25 @@ def _fwd_band(tile_h: int) -> int:
     return max(b for b in range(1, min(32, tile_h) + 1) if tile_h % b == 0)
 
 
+FWD_BATCH = 64  # particles a batch of the forward kernel (its C entry's sub)
+FWD_EXTRA = 64  # the forward's own shared bytes: kept lanes of 8 warps, two rounds
+
+
+@functools.lru_cache(maxsize=None)
+def _byte_popcounts(device: str) -> torch.Tensor:
+    return torch.tensor([bin(b).count("1") for b in range(256)], dtype=torch.int32,
+                        device=device)
+
+
+def sortfree_tile_order(masks: torch.Tensor) -> torch.Tensor:
+    """Launch order of the forward kernel's pixel tiles: most listed
+    segments (set bits of the tile's mask row) first, ties in tile order;
+    i32[n_tiles]. A byte table, a sum and a sort: a few small launches."""
+    rows = masks.contiguous().view(torch.uint8).long()
+    counts = _byte_popcounts(str(masks.device))[rows].sum(dim=1)
+    return _kernels.longest_first(counts).to(torch.int32)
+
+
 def splat_sortfree_fwd(masks, coords, slabs, basis, tile_w, tile_h, height, width):
     """Sort-free splat image f32[height, width] from the tile masks:
     launches ``csrc/splat_sortfree.cu`` on CUDA tensors, runs
@@ -284,19 +304,36 @@ def splat_sortfree_fwd(masks, coords, slabs, basis, tile_w, tile_h, height, widt
     if device.type == "cpu":
         return _sortfree_fwd_plain(masks, coords, slabs, a_c, b_c, ntx, tile_w, tile_h,
                                    height, width)
+    return _sortfree_fwd_launch(masks, coords, slabs, basis, tile_w, tile_h, height, width,
+                                sortfree_tile_order(masks))
+
+
+def _sortfree_fwd_launch(masks, coords, slabs, basis, tile_w, tile_h, height, width, order):
+    """``csrc/splat_sortfree.cu``'s forward on ``splat_sortfree_fwd``'s
+    checked CUDA inputs, its tiles' blocks launched in ``order`` (i32
+    tile indices; None: as listed)."""
+    deg, a_c, _ = _basis_coeffs(basis)
+    device = masks.device
     band = _fwd_band(tile_h)
     rank = a_c.shape[0]
-    fixed = tile_w + band + 2 * rank * (deg + 1) + 5 * SEG + 8
-    sub = min(32, (48 * 1024 // 4 - fixed) // (rank * (tile_w + band)))
-    if tile_w * band > 2048 or sub < 1:
+    sub = batch_size(tile_w, band, rank, deg, FWD_BATCH, extra=FWD_EXTRA)
+    if sub < 1:
         raise ValueError(f"splat_sortfree_fwd: tile {tile_w}x{tile_h} too large for a block")
+    n_tiles = masks.shape[0]
+    if order is not None:
+        order = order.to(device=device, dtype=torch.int32).contiguous()
+        if order.shape != (n_tiles,):
+            raise ValueError(f"splat_sortfree_fwd: order {tuple(order.shape)} for "
+                             f"{n_tiles} tiles")
     out = torch.empty((height, width), dtype=torch.float32, device=device)
-    args = [t.contiguous() for t in (masks, coords, slabs)]
+    masks, coords, slabs = (t.contiguous() for t in (masks, coords, slabs))
     _kernels.launch(
         "splat_sortfree", "grace_splat_sortfree_fwd", device,
-        *[t.data_ptr() for t in args], _basis_tensor(basis, "a", str(device)).data_ptr(),
+        masks.data_ptr(), None if order is None else order.data_ptr(), coords.data_ptr(),
+        slabs.data_ptr(), _basis_tensor(basis, "a", str(device)).data_ptr(),
         _basis_tensor(basis, "b", str(device)).data_ptr(), out.data_ptr(),
-        n_tiles, masks.shape[1], n_segs, ntx, tile_w, tile_h, band, width, rank, deg, sub)
+        n_tiles, masks.shape[1], slabs.shape[0], width // tile_h, tile_w, tile_h, band,
+        width, rank, deg, sub)
     splat_sortfree_fwd.launches += 1
     return out
 

@@ -33,7 +33,6 @@ import torch
 
 from grace_tpu_torch.build.sph import build_sph_tree
 from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
-from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
 from grace_tpu_torch.trace import pallas_kernel as pk
 from grace_tpu_torch.trace import splat as sp
 from grace_tpu_torch.trace.pallas_broadphase import (
@@ -43,11 +42,11 @@ from grace_tpu_torch.trace import splat_grad as sg
 from grace_tpu_torch.trace import pallas_records as prc
 from grace_tpu_torch.trace import pallas_tri as pt
 from chip_smoke import (
-    check_records, check_render, check_render_bwd, check_sortfree, check_tri, colocated_scene,
-    fd_checks,
+    EDGE_ORDERS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES, check_records, check_render,
+    check_render_bwd, check_sortfree, check_splat, check_tri, colocated_scene, fd_checks,
     make_clustered_particles, random_mesh, records_inputs, records_scene,
-    records_small_checks, render_inputs, route_inputs, sortfree_inputs, support_edge_scene,
-    training_scene, tri_inputs)
+    records_small_checks, render_inputs, route_inputs, sortfree_edge_check, sortfree_inputs,
+    splat_edge_check, support_edge_scene, training_scene, tri_inputs)
 from grace_tpu_torch import _kernels
 
 CAM = (0.5, 0.5, -2.0)
@@ -239,14 +238,63 @@ def test_splat_kernel_matches_plain(scene, basis, band):
                               band=band, **SPLAT_TILE)
     assert bool((b.first == b.last).any())              # a band with no instance
     before = sp.splat_image.launches
-    got = sp.splat_image(b, basis=basis, **SPLAT_TILE)
-    assert sp.splat_image.launches == before + 1
-    _, a, c = SPLAT_BASES[basis]
-    want = sp._splat_plain(b, SPLAT_TILE["tile_w"], band or SPLAT_TILE["tile_h"],
-                           np.asarray(a, np.float32), np.asarray(c, np.float32))
-    torch.cuda.synchronize()
-    assert want.max() > 0
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    _, top = check_splat("card test", b, basis, **SPLAT_TILE)   # bit-equal to the dense loop
+    assert sp.splat_image.launches == before + 1 and top > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", EDGE_ORDERS)
+@pytest.mark.parametrize("case", SPLAT_EDGE_CASES, ids=str)
+def test_splat_kernel_edge_cases(dev, case, order):
+    """The splat edge scene (an empty key, a key of one instance, keys over
+    many slabs, instances on key corners and at the edge of their support,
+    footprints covering whole patches) at band 16, 32, 64 and 128 and
+    tile_w 8 to 64, launched heaviest first, as listed and heaviest last:
+    bit-equal to the dense contraction, within 1e-5 x max of the plain
+    version."""
+    splat_edge_check(dev, case, order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis,zero_scale", [("deg10", False), ("deg8", True)])
+def test_splat_kernel_other_basis_and_zero_scale(dev, basis, zero_scale):
+    splat_edge_check(dev, SPLAT_EDGE_CASES[0], "heaviest", basis, zero_scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", EDGE_ORDERS)
+@pytest.mark.parametrize("case", SORTFREE_EDGE_CASES, ids=str)
+def test_splat_sortfree_fwd_edge_cases(dev, case, order):
+    """The sort-free forward on the splat edge scene (dead particles, tiles
+    with no segment, particles at the edge of their support, footprints
+    covering whole patches) at tile_w 8 to 64 and bands 16 and 32, in the
+    three launch orders: bit-equal to the dense contraction, within 1e-5 x
+    max of the plain version."""
+    before = sg.splat_sortfree_fwd.launches
+    sortfree_edge_check(dev, case, order)
+    assert sg.splat_sortfree_fwd.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_splat_resources_and_rejections(scene):
+    """The resource queries at the bench patch; the wrappers and C entries
+    refuse what the kernels do not take."""
+    ss, _ = scene
+    for lib, entry, batch in (("splat", "grace_splat_resources", sp.SPLAT_BATCH),
+                              ("splat_sortfree", "grace_splat_sortfree_fwd_resources",
+                               sg.FWD_BATCH)):
+        res = _kernels.resources(lib, entry, ss.device, 32, 32, 5, 8, batch)
+        assert res["threads"] == 256 and res["blocks_per_sm"] >= 1
+        # at least the batch's column factors (the rows are cut over blocks)
+        assert res["shared_bytes"] >= batch * 5 * 32 * 4 and 0 < res["registers"] <= 255
+        with pytest.raises(RuntimeError, match="CUDA error"):   # 129 instances a batch
+            _kernels.resources(lib, entry, ss.device, 32, 32, 5, 8, sp.MAX_BATCH + 1)
+        with pytest.raises(RuntimeError, match="CUDA error"):   # 2048 (strip, group) tasks
+            _kernels.resources(lib, entry, ss.device, 8192, 1, 5, 8, 1)
+    b = sp.bucket_prims_ortho(ss, CAM, LOOK, UP, 4.0, 6.0, 128, 128, chunk=256, band=32,
+                              **SPLAT_TILE)
+    with pytest.raises(ValueError, match="order"):
+        sp._splat_launch(b, 32, 32, "deg8", torch.zeros(3, dtype=torch.int32, device=ss.device))
 
 
 @pytest.mark.cuda

@@ -14,6 +14,8 @@ from grace_tpu_torch import _kernels
 from grace_tpu_torch.trace import pallas_kernel as pk
 from grace_tpu_torch.trace import pallas_render as pr
 from grace_tpu_torch.trace import pallas_tri as pt
+from grace_tpu_torch.trace import splat as sp
+from grace_tpu_torch.trace import splat_grad as sg
 
 ENTRIES = [(name, entry, kinds) for name, (_, _, entries) in _kernels.KERNELS.items()
            for entry, kinds in entries.items()]
@@ -48,6 +50,39 @@ def test_shared_constants_agree():
     assert re.search(rf"kMaxChunk = {pt.CHUNK};", tri)
     for name, value in (("kEps", pt.EPS), ("kBig", pt.BIG)):
         assert float(re.search(name + r" = ([0-9.e+-]+)f;", tri).group(1)) == value
+
+
+def test_splat_constants_agree():
+    """The wrappers size the splat kernels' batches and check their patches
+    with splat_common.cuh's constants and shared-memory layout."""
+    common = open(os.path.join(_kernels.CSRC, "splat_common.cuh")).read()
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", common):
+        consts[name] = eval(expr, {}, dict(consts))   # e.g. "kThreads / 32", "227 * 1024"
+    assert consts["kRows"] == sp.ROWS
+    assert consts["kWarps"] * consts["kMaxNT"] == sp.MAX_TASKS
+    assert consts["kMaxShared"] == 227 * 1024
+    assert consts["kMaxBatch"] == sp.MAX_BATCH
+    assert 1 <= sp.SPLAT_BATCH <= sp.MAX_BATCH and 1 <= sg.FWD_BATCH <= sp.MAX_BATCH
+    # the sort-free forward's own shared memory (batch_size's extra)
+    fwd = _source("splat_sortfree")
+    fwd = fwd[fwd.index("size_t fwd_smem_bytes"):]
+    assert "2 * splat::kWarps * sizeof(int));" in fwd[:fwd.index("}")]
+    assert sg.FWD_EXTRA == 2 * consts["kWarps"] * 4
+    # at the bench patch (32 x 32, rank 5, deg 8) a batch of 64 fits, and
+    # the largest batch; at 64 x 64, 89 instances' factors fill 227 KB
+    assert sp.batch_size(32, 32, 5, 8, 64) == 64 and sp.batch_size(32, 32, 5, 8, 10**6) == 128
+    assert sp.batch_size(64, 64, 5, 8, 10**6) == 89
+    assert sp.batch_size(8192, 1, 5, 8, 64) == 0      # too many (strip, group) tasks
+
+
+@pytest.mark.parametrize("entry,position", [("grace_splat", 4), ("grace_splat_sortfree_fwd", 1)])
+def test_splat_entries_take_the_launch_order(entry, position):
+    """The splat kernels take an i32 launch order (null: as listed) at the
+    argument the wrappers pass it."""
+    name = "splat" if entry == "grace_splat" else "splat_sortfree"
+    params = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", _source(name)).group(1)
+    assert params.split(",")[position].split() == ["const", "int32_t*", "order"]
 
 
 @pytest.mark.parametrize("offset", [0, 1, 4])
