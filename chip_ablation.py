@@ -1,6 +1,7 @@
 """Ablations of the kernels redesigned for the card, on one CUDA card.
 
-    python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [paths]   (default: all)
+    python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records] [paths]
+                             [--parent DIR]   (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
 
 Each variant is a copy of the kernel's sources with one constant, one wait
@@ -49,11 +50,33 @@ wrapper launches them (longest list first).
   split over several blocks with an ordered second pass (held within 1e-5
   x max of the plain version).
 
-  paths: the splat frame (build, rays + sort, bucket, splat) and one
-  sort-free training step on the bench scene through the package's user
-  functions only, timed, with the device's busy share over each
-  (torch.profiler); with --package DIR, DIR's grace_tpu_torch runs them, so
-  that two checkouts compare in one call.
+  records: grace_records_quarter (B16) and grace_records_bitmask (B15,
+  csrc/records.cu) on main path 4's inputs (the bench scene's sorted rays,
+  tile 64, 512 records a ray, quarter and segment words): with --parent
+  DIR (e.g. a git archive of the parent checkout), the parent's kernel
+  built from DIR/grace_tpu_torch/csrc as it was and with its per-slot test
+  and append replaced by the mask of 32 tests first; then the redesign's
+  steps (cp.async staging across word boundaries with direct hit stores and
+  the parent's sentinel fill, the fill a warp a row without division, the
+  hit stores staged in shared memory and written by the warp, the shipped
+  batch size), and the shipped kernel with other pending slots a ray, the
+  parent's sentinel fill, the flush a row at a time, the other number of staging buffers, launch
+  bounds of 256 threads, batches of half and twice the size; the shipped
+  kernel launched as listed, longest row first and shortest first. Every
+  variant's four outputs (counts, indices, integrals, distances) are held
+  bit-equal to the parent's (without --parent: to the first variant's),
+  but those of three variants that leave work out to show its cost (no
+  integral, no sentinel fill, counts only); each variant's resources; then
+  the whole record trace on both routes with the device's busy share, and
+  the two launch-order helpers at tile 64 beside the same order on the i64
+  popcount.
+
+  paths: the splat frame (build, rays + sort, bucket, splat), one sort-free
+  training step and the record trace on both routes (512 a ray) on the
+  bench scene through the package's user functions only, timed, with the
+  device's busy share over each (torch.profiler), and the two record
+  wrappers at tile 64; with --package DIR, DIR's grace_tpu_torch runs them,
+  so that two checkouts compare in one call.
 
 Then each shipped kernel on the same inputs launched in other orders of
 its work units (ray tiles, segments), through the C entry point: as
@@ -65,6 +88,7 @@ Prints the card's name and power limit first and a JSON summary last.
 Exits non-zero without a card.
 """
 
+import concurrent.futures
 import ctypes
 import json
 import math
@@ -80,8 +104,8 @@ import torch
 
 from chip_smoke import (CAM, LENGTH, LOOK, MAX_PER_LEAF, N_PARTICLES, SIDE, TORUS, TRACE_TILE, UP,
                         VEXT, _popcount_rows, check_close, cuda_ms, make_clustered_particles,
-                        render_inputs, route_inputs, sortfree_fwd_dense, sortfree_inputs,
-                        splat_dense, torus_mesh, tri_inputs)
+                        records_inputs, render_inputs, route_inputs, sortfree_fwd_dense,
+                        sortfree_inputs, splat_dense, torus_mesh, tri_inputs)
 
 def swap(file, old, new):
     """An edit of ``file`` that replaces its one occurrence of ``old``."""
@@ -276,15 +300,17 @@ ABLATIONS = {
 }
 
 
-def build_variant(lib_name, tag, edits):
-    """Library ``lib_name`` built from a copy of csrc/ with ``edits`` applied
-    (None: as shipped), with the package's nvcc flags; its entry points
-    bound as ``_kernels.load`` binds them."""
+def build_variant(lib_name, tag, edits, csrc=None, entries=None):
+    """Library ``lib_name`` built from a copy of ``csrc`` (default: the
+    package's csrc/) with ``edits`` applied (None: as shipped), with the
+    package's nvcc flags; its entry points (default: the package's, else
+    ``entries``, {name: argument kinds}) bound as ``_kernels.load`` binds
+    them."""
     from grace_tpu_torch import _kernels
 
     src_dir = os.path.join(_kernels.BUILD_DIR, "ablation", tag)
     shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(_kernels.CSRC, src_dir)
+    shutil.copytree(csrc or _kernels.CSRC, src_dir)
     for file, edit in edits or ():
         path = os.path.join(src_dir, file)
         with open(path) as f:
@@ -302,7 +328,7 @@ def build_variant(lib_name, tag, edits):
         if "registers" in line or "spill" in line:
             print(f"ptxas {tag}: {line.strip()}", flush=True)
     dll = ctypes.CDLL(lib)
-    for name, kinds in _kernels.KERNELS[lib_name][2].items():
+    for name, kinds in (entries or _kernels.KERNELS[lib_name][2]).items():
         getattr(dll, name).argtypes = ([ctypes.c_void_p if k == "p" else ctypes.c_int
                                         for k in kinds] + [ctypes.c_int, ctypes.c_void_p])
         getattr(dll, name).restype = ctypes.c_int
@@ -907,15 +933,325 @@ def splat_ablations(sorted_spheres, weights):
     return summary
 
 
-def user_paths(sorted_spheres, weights):
-    """The splat frame (build, rays + sort, bucket, splat) and one sort-free
+# The record kernels' variants (csrc/records.cu). The parent's kernel, as
+# it was before the redesign (from --parent DIR), with its entry points:
+PARENT_RECORD_ENTRIES = {"grace_records_quarter": "ppppppppp" + "iiiiiii",
+                         "grace_records_bitmask": "pppppppp" + "iiiiii"}
+# ... and with its per-slot test and append replaced by the mask of 32
+# tests first, then the integral and the append for the set bits only.
+MASK_THEN_APPEND = """__device__ __forceinline__ void append_staged(
+        const StagedPrims& s, const int* s_idx, int n, const RaySeg& r, const float* s_coeffs,
+        int deg, const RecordRows& out, int64_t row, int& cursor) {
+    for (int base = 0; base < n; base += 32) {
+        uint32_t bits = pass_bits32<true>(s, base, r);
+        while (bits) {
+            const int i = base + __ffs(bits) - 1;
+            bits &= bits - 1;
+            if (cursor < out.cap) {
+                float dot, bx, by, bz;
+                const float b2 = impact(s.x[i], s.y[i], s.z[i], r.ox, r.oy, r.oz, r.dx, r.dy,
+                                        r.dz, dot, bx, by, bz);
+                const float inv_h2 = s.inv_h2[i];
+                const int64_t at = row * out.cap + cursor;
+                out.idx[at] = s_idx[i];
+                out.intg[at] = horner1_integral(b2 * inv_h2, s_coeffs, deg) * inv_h2;
+                out.dist[at] = dot;
+            }
+            ++cursor;
+        }
+    }
+}
+"""
+# The shipped kernel's sentinel fill and counts taken back to the parent's:
+# the block over all tile x cap entries of its rows, a 64-bit division per
+# entry, the counts from shared memory.
+DIVISION_FILL = """    __device__ __forceinline__ void finish(int32_t* counts) {
+        if (__any_sync(members_, n_ > 0)) flush();
+        __shared__ int s_counts[kMaxTile];
+        counts[row0_ + lane_] = cursor_;
+        s_counts[threadIdx.x] = cursor_;
+        __syncthreads();
+        const int64_t first = row0_ + lane_ - threadIdx.x;
+        const int64_t n = static_cast<int64_t>(blockDim.x) * out_.cap;
+        for (int64_t e = threadIdx.x; e < n; e += blockDim.x) {
+            const int64_t rr = e / out_.cap;
+            const int64_t c = e - rr * out_.cap;
+            if (c >= s_counts[rr]) {
+                const int64_t at = (first + rr) * out_.cap + c;
+                out_.idx[at] = -1;
+                out_.intg[at] = 0.0f;
+                out_.dist[at] = -1.0f;
+            }
+        }
+    }
+
+"""
+
+
+def swap_between(file, start, end, replacement):
+    """An edit of ``file`` that replaces the text from ``start`` up to (not
+    including) ``end``."""
+    def edit(text):
+        i = text.index(start)
+        return text[:i] + replacement + text[text.index(end, i):]
+    return file, edit
+
+
+def records_const(name, shipped, value):
+    return swap("records.cu", f"constexpr int {name} = {shipped};",
+                f"constexpr int {name} = {value};")
+
+
+# The shipped warp flush taken back to a row at a time, the warp's lanes
+# along each row.
+ROW_FLUSH = """    __device__ __forceinline__ void flush() {
+        __syncwarp(members_);
+        for (int j = 0; j < lanes_; ++j) {
+            const int n = __shfl_sync(members_, n_, j);
+            const int c0 = __shfl_sync(members_, col_, j);
+            const int64_t at = (row0_ + j) * out_.cap + c0;
+            for (int c = lane_; c < n; c += lanes_) {
+                out_.idx[at + c] = p_idx_[j * kStride + c];
+                out_.intg[at + c] = p_intg_[j * kStride + c];
+                out_.dist[at + c] = p_dist_[j * kStride + c];
+            }
+        }
+        __syncwarp(members_);
+        col_ += n_;
+        n_ = 0;
+    }
+
+"""
+
+
+# The shipped append taken back to a store by each thread down its own
+# row, C entries from its neighbours' (no pending slots, so no dynamic
+# shared memory).
+DIRECT_STORES = """    template <typename Hit>
+    __device__ __forceinline__ void append(uint32_t bits, Hit hit) {
+        while (bits && cursor_ < out_.cap) {
+            const int q = __ffs(bits) - 1;
+            bits &= bits - 1;
+            const int64_t at = (row0_ + lane_) * out_.cap + cursor_;
+            int32_t id;
+            float v, d;
+            hit(q, id, v, d);
+            out_.idx[at] = id;
+            out_.intg[at] = v;
+            out_.dist[at] = d;
+            ++cursor_;
+        }
+        cursor_ += __popc(bits);  // past the capacity: counted only
+    }
+
+"""
+APPEND = "    template <typename Hit>\n    __device__ __forceinline__ void append("
+
+
+def record_variants(shipped):
+    """The redesign's steps, each adding one to the one before, then the
+    shipped kernel with one thing changed. ``shipped``: the shipped
+    constants {kPending, kStageBuffers, kBatch}."""
+    const = lambda name, value: records_const(name, shipped[name], value)
+    other_batch = 1024
+    batch = [const("kBatch", other_batch)]
+    direct = [swap_between("records.cu", APPEND, "    // The warp's pending records",
+                           DIRECT_STORES),
+              swap("records.cu", "*bytes = static_cast<size_t>((tile + 31) / 32) * 32 * 12 "
+                   "* kStride;", "*bytes = 0;")]
+    fill = [swap_between("records.cu", "    // The rest of the pending records", "  private:",
+                         DIVISION_FILL)]
+    steps = {
+        f"cp.async staging across words (batches of {other_batch}), direct stores, the "
+        "division fill": batch + direct + fill,
+        "+ the fill a warp a row, no division": batch + direct,
+        f"+ stores staged {shipped['kPending']} a ray, written by the warp": batch,
+        f"+ batches of {shipped['kBatch']} (shipped)": None,
+    }
+    for pending in (8, 12, 16, 32):
+        if pending != shipped["kPending"]:
+            steps[f"shipped, {pending} pending a ray"] = [const("kPending", pending)]
+    steps["shipped, the parent's fill (a 64-bit division an entry)"] = fill
+    steps["shipped, the flush a row at a time"] = [
+        swap_between("records.cu", "    // The warp's pending records, its rays' in turn",
+                     "    // The rest of the pending records", ROW_FLUSH)]
+    other = 3 - shipped["kStageBuffers"]
+    steps[f"shipped, {other} staging buffer{'s' if other > 1 else ''}"] = [
+        const("kStageBuffers", other)]
+
+    def bounds_256(text):   # registers up to 255 a thread (tiles of at most 256)
+        if text.count("__launch_bounds__(kMaxTile)") != 2:
+            raise AssertionError("records.cu: the two kernels' launch bounds moved")
+        return text.replace("__launch_bounds__(kMaxTile)", "__launch_bounds__(256)")
+
+    steps["shipped, launch bounds 256 (more registers)"] = [("records.cu", bounds_256)]
+    for b in (shipped["kBatch"] // 2, shipped["kBatch"] * 2):
+        steps[f"shipped, batches of {b} primitives"] = [const("kBatch", b)]
+    steps[NO_INTEGRAL] = [swap(
+        "records.cu", "v = horner1_integral(b2 * inv_h2, s_coeffs, deg) * inv_h2;", "v = inv_h2;")]
+    steps[NO_FILL] = [swap("records.cu", "for (int c = c0 + lane_; c < out_.cap; c += lanes_) {",
+                           "for (int c = out_.cap; c < out_.cap; c += lanes_) {")]
+    steps[COUNTS_ONLY] = [
+        swap_between("records.cu", APPEND, "    // The warp's pending records",
+                     APPEND + "uint32_t bits, Hit hit) {\n        cursor_ += __popc(bits);\n"
+                     "    }\n\n"),
+        swap_between("records.cu", "    // The rest of the pending records", "  private:",
+                     "    __device__ __forceinline__ void finish(int32_t* counts) {\n"
+                     "        counts[row0_ + lane_] = cursor_;\n    }\n\n")]
+    return steps
+
+
+# Variants that leave out part of the work, to see what it costs; their
+# rows are not compared. Counts only: the walk, the staging and the hit
+# test alone.
+NO_INTEGRAL = "shipped, no integral (1/h^2 in its place; rows not compared)"
+NO_FILL = "shipped, no sentinel fill (rows not compared)"
+COUNTS_ONLY = "shipped, counts only (no records written; rows not compared)"
+NOT_COMPARED = (NO_INTEGRAL, NO_FILL, COUNTS_ONLY)
+
+
+def shipped_record_constants():
+    from grace_tpu_torch import _kernels
+
+    with open(os.path.join(_kernels.CSRC, "records.cu")) as f:
+        text = f.read()
+    return {name: int(text.split(f"constexpr int {name} = ", 1)[1].split(";", 1)[0])
+            for name in ("kPending", "kStageBuffers", "kBatch")}
+
+
+def record_call(route, args, order, out, cap, parent=False):
+    """The C entry's arguments for the record kernel of ``route`` on
+    ``args`` (as ``chip_smoke.records_inputs`` gives them), its tiles in
+    ``order`` (None: as listed; the parent's entry takes none), its four
+    outputs written back to back into the i32 buffer ``out`` (counts, then
+    the index, integral and distance rows: the buffer compares their bits
+    at once)."""
+    from grace_tpu_torch.trace import pallas_kernel as pk
+
+    packed, prims = args[-2], args[-1]
+    if prims.data_ptr() % 16:
+        raise AssertionError("the record kernels stage from 16-byte aligned slabs")
+    r_pad = packed.shape[0]
+    n_tiles = args[-3].shape[0]
+    ptr = out.data_ptr()
+    outs = [ptr, ptr + 4 * r_pad, ptr + 4 * (r_pad + r_pad * cap),
+            ptr + 4 * (r_pad + 2 * r_pad * cap)]
+    coeffs = pk._coeff_tensor(14, str(packed.device)).data_ptr()
+    order_ptr = [] if parent else [None if order is None else order.data_ptr()]
+    if route == "quarter":
+        summary, words = args[0], args[1]
+        return ([summary.data_ptr(), words.data_ptr(), *order_ptr, packed.data_ptr(),
+                 prims.data_ptr(), coeffs, *outs, n_tiles, r_pad // n_tiles, summary.shape[1],
+                 words.shape[1], prims.shape[1], cap, 14])
+    return ([args[0].data_ptr(), *order_ptr, packed.data_ptr(), prims.data_ptr(), coeffs,
+             *outs, n_tiles, r_pad // n_tiles, args[0].shape[1], prims.shape[1] // 128, cap, 14])
+
+
+def record_ablations(sorted_spheres, rays_s, parent_dir):
+    """B16 and B15 on main path 4's inputs (the bench scene's sorted rays,
+    tile 64, 512 records a ray): the parent's kernel (from ``parent_dir``'s
+    grace_tpu_torch/csrc, as it was and with the mask before the append),
+    the redesign's steps and the shipped kernel's constants, each held
+    bit-equal to the parent's four outputs and timed in turns with the
+    shipped kernel launched as listed, longest row first and shortest
+    first; each variant's resources; then the whole record trace on both
+    routes with the device's busy share."""
+    from grace_tpu_torch import _kernels
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    cap, tile = 512, 64
+    shipped = shipped_record_constants()
+    variants = record_variants(shipped)
+    entry = {"quarter": "grace_records_quarter", "bitmask": "grace_records_bitmask"}
+    builds = {}   # variant -> build_variant's arguments; built at once, one nvcc each
+    if parent_dir is not None:
+        parent_csrc = os.path.join(parent_dir, "grace_tpu_torch", "csrc")
+        builds["parent"] = ("records", "records-parent", None, parent_csrc,
+                            PARENT_RECORD_ENTRIES)
+        builds["parent, mask then append"] = (
+            "records", "records-parent-mask",
+            [swap_function("records.cu", "append_staged", MASK_THEN_APPEND)], parent_csrc,
+            PARENT_RECORD_ENTRIES)
+    else:
+        print("records: no --parent DIR, so no parent rows; variants held to the first "
+              "variant", flush=True)
+    for i, (v, edits) in enumerate(variants.items()):
+        builds[v] = ("records", f"records-{i}", edits)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        dlls = dict(zip(builds, pool.map(lambda a: build_variant(*a), builds.values())))
+    shipped_name = next(v for v, edits in variants.items() if edits is None)
+    dev = rays_s.origins.device
+    summary = {}
+    for route in ("quarter", "bitmask"):
+        args = records_inputs(route, rays_s, sorted_spheres, tile)[2]
+        words = args[-3]
+        lengths = _popcount_rows(words)
+        spread(f"records {route}: groups listed per tile (tile {tile})", lengths)
+        longest = (pk.quarter_tile_order if route == "quarter" else pk.bitmask_tile_order)(words)
+        for v, dll in dlls.items():
+            if v.startswith("parent"):
+                continue
+            out = (ctypes.c_int * 5)()
+            call(getattr(dll, entry[route] + "_resources"), [ctypes.addressof(out), tile])
+            print(f"resources records_{route} {v}: "
+                  f"{json.dumps(dict(zip(_kernels.RESOURCE_FIELDS, out)))}", flush=True)
+        r_pad = args[-2].shape[0]
+        out = torch.empty(r_pad * (1 + 3 * cap), dtype=torch.int32, device=dev)
+        ref = next(iter(dlls))   # the parent where there is one
+        call(getattr(dlls[ref], entry[route]),
+             record_call(route, args, None, out, cap, ref.startswith("parent")))
+        torch.cuda.synchronize()
+        want = out.clone()
+        runs = {}
+        for v, dll in dlls.items():
+            fn = getattr(dll, entry[route])
+            if v.startswith("parent"):
+                runs[v] = (lambda f=fn, a=record_call(route, args, None, out, cap, True):
+                           call(f, a), out)
+                continue
+            orders = {"longest first": longest}
+            if v == shipped_name:
+                orders = {"as listed": None, "longest first": longest,
+                          "shortest first": longest.flip(0).contiguous()}
+            for name, o in orders.items():
+                runs[f"{v}, {name}"] = (lambda f=fn, a=record_call(route, args, o, out, cap),
+                                        held=o: call(f, a), None if v in NOT_COMPARED else out)
+        summary[f"records_{route}"] = in_turns(f"records_{route} (tile {tile}, cap {cap})",
+                                               runs, want)
+        del out, want
+    for name, kw in (("default (quarter) route", {}), ("bitmask route",
+                                                        {"broadphase": "bitmask"})):
+        fn = lambda kw=kw: prc.pallas_trace_sph_records(rays_s, sorted_spheres, cap, **kw)
+        ms = cuda_ms(fn, reps=5)
+        print(f"pallas_trace_sph_records {name}: {ms:.3f} ms (CUDA events, median of 5)",
+              flush=True)
+        summary[f"record trace, {name}"] = {"ms": ms, **device_busy(f"record trace {name}", fn)}
+    from grace_tpu_torch.trace.pallas_broadphase import _popcount32
+
+    for name in ("quarter_tile_order", "bitmask_tile_order"):
+        words = records_inputs(name.split("_")[0], rays_s, sorted_spheres, tile)[2][-3]
+        runs = {name: lambda: getattr(pk, name)(words),
+                "the same on the i64 popcount": lambda: _kernels.longest_first(
+                    _popcount32(words).sum(dim=1)).to(torch.int32)}
+        for label, fn in runs.items():
+            ms = cuda_ms(fn, reps=10)
+            print(f"{name} (tile {tile}), {label}: {ms:.3f} ms", flush=True)
+            summary[f"{name}, {label}"] = ms
+    return summary
+
+
+def user_paths(sorted_spheres, weights, rays_s):
+    """The splat frame (build, rays + sort, bucket, splat), one sort-free
     training step (forward, L2 loss against 1.01 x its image, backward, SGD
-    1e-6) on the bench scene, through the package's user functions only,
-    so that another checkout's package can run them (``--package``): each
-    timed (CUDA events, median of 10 after a warm run) and its device busy
-    share."""
+    1e-6) and the per-hit record trace (512 a ray, tile 64, both routes) on
+    the bench scene, through the package's user functions only, so that
+    another checkout's package can run them (``--package``): each timed
+    (CUDA events, median of 10 after a warm run) and its device busy
+    share; and the two record wrappers on main path 4's inputs, timed."""
     from grace_tpu_torch.build.sph import build_sph_tree
     from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+    from grace_tpu_torch.trace import pallas_records as prc
     from grace_tpu_torch.trace import splat as sp
     from grace_tpu_torch.trace import splat_grad as sg
 
@@ -938,10 +1274,21 @@ def user_paths(sorted_spheres, weights):
                               basis="deg8", tile_w=32, tile_h=128)
 
     result = {}
-    for label, fn in (("splat frame", frame), ("sort-free train step", train_step)):
+    for label, fn in (
+            ("splat frame", frame), ("sort-free train step", train_step),
+            ("record trace, default (quarter) route",
+             lambda: prc.pallas_trace_sph_records(rays_s, sorted_spheres, 512)),
+            ("record trace, bitmask route", lambda: prc.pallas_trace_sph_records(
+                rays_s, sorted_spheres, 512, broadphase="bitmask"))):
         ms = cuda_ms(fn, reps=10)
         print(f"{label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
         result[label] = {"ms": ms, **device_busy(label, fn)}
+    for route, wrapper in (("quarter", prc.records_quarter), ("bitmask", prc.records_bitmask)):
+        args = records_inputs(route, rays_s, sorted_spheres, 64)[2]
+        ms = cuda_ms(lambda: wrapper(*args, 512), reps=10)
+        print(f"records_{route} wrapper (tile 64, 512 a ray): {ms:.3f} ms (CUDA events, "
+              "median of 10)", flush=True)
+        result[f"records_{route} wrapper"] = ms
     return result
 
 
@@ -971,7 +1318,7 @@ def device_busy(label, fn):
     return {"busy_ms": busy, "wall_ms": wall}
 
 
-PARTS = ("trace", "render_bwd", "trace_tri", "splat", "paths")
+PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "paths")
 
 
 def main():
@@ -979,6 +1326,11 @@ def main():
     if "--package" in args:  # time another checkout's package (the paths part)
         i = args.index("--package")
         sys.path.insert(0, os.path.abspath(args[i + 1]))
+        del args[i:i + 2]
+    parent = None
+    if "--parent" in args:  # the parent's record kernel for the records part
+        i = args.index("--parent")
+        parent = os.path.abspath(args[i + 1])
         del args[i:i + 2]
     parts = args or list(PARTS)
     if not set(parts) <= set(PARTS):
@@ -998,7 +1350,7 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     print(f"package {os.path.dirname(grace_tpu_torch.__file__)}", flush=True)
     summary = {}
-    if {"trace", "render_bwd", "splat", "paths"} & set(parts):
+    if {"trace", "render_bwd", "splat", "records", "paths"} & set(parts):
         spheres = torch.from_numpy(
             make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
         sorted_spheres, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
@@ -1008,8 +1360,10 @@ def main():
         summary.update(trace_ablations(sorted_spheres, rays_s))
     if "splat" in parts:
         summary.update(splat_ablations(sorted_spheres, torch.ones(N_PARTICLES, device=dev)))
+    if "records" in parts:
+        summary.update(record_ablations(sorted_spheres, rays_s, parent))
     if "paths" in parts:
-        summary["paths"] = user_paths(sorted_spheres, torch.ones(N_PARTICLES, device=dev))
+        summary["paths"] = user_paths(sorted_spheres, torch.ones(N_PARTICLES, device=dev), rays_s)
     if "render_bwd" in parts:
         g = torch.from_numpy(np.random.default_rng(5).standard_normal(rays_s.n_rays)
                              .astype(np.float32)).to(dev)

@@ -60,7 +60,9 @@ tile_w 16 and 32, both bases, list overflow) and both trainers against
 directional finite differences; the record kernels at edge shapes (empty
 tiles, rows that overflow, every route and drain option bit-equal) and the
 triangle kernel (random meshes with faces culled, rays that miss the mesh
-box, tiles 8, 32, 64 and 96, both modes, lists cut by max_chunks).
+box, tiles 8, 32, 64 and 96, both modes, lists cut by max_chunks). The
+record kernels are also launched as listed, longest mask row first and
+shortest first, each launch bit-equal.
 
 Prints a ``resources`` line for each kernel redesigned for the card
 (registers a thread, shared bytes and threads a block, resident blocks and
@@ -886,6 +888,41 @@ def check_records(tag, kernel, plain, args, cap):
     return err_i, err_d, got, plain_ms
 
 
+def check_record_orders(tag, route, args, cap):
+    """The record kernel of ``route`` with its tiles launched as listed,
+    longest mask row first and shortest first (each tile's rows written in
+    place), each into its own outputs filled with -7 first (a NaN as f32),
+    so that an entry no launch wrote shows: counts and indices equal to
+    the plain version's, integrals and distances within rtol 1e-6 of it,
+    and all four outputs equal, bit for bit, to the wrapper's launch."""
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    kernel, plain = {"quarter": (prc.records_quarter, prc._records_quarter_plain),
+                     "bitmask": (prc.records_bitmask, prc._records_bitmask_plain)}[route]
+    words = args[-3]
+    longest = pk.quarter_tile_order(words) if route == "quarter" else pk.bitmask_tile_order(words)
+    want = plain(*args, cap)
+    wrapper = kernel(*args, cap)
+    kept = []   # every launch's outputs stay allocated, so none reuses another's memory
+    for name, order in (
+            ("as listed", torch.arange(words.shape[0], dtype=torch.int32, device=words.device)),
+            ("longest first", longest), ("shortest first", longest.flip(0).contiguous())):
+        outs = prc._outputs(args[-2], cap)
+        for o in outs:
+            o.view(torch.int32).fill_(-7)
+        got = prc._records_launch(route, args, order, outs)
+        kept.append(got)
+        check_equal(f"{tag} launched {name}: counts", got[0], want[0])
+        check_equal(f"{tag} launched {name}: indices", got[1], want[1])
+        check_close(f"{tag} launched {name}: integrals", got[2], want[2], 1e-6, 0.0)
+        check_close(f"{tag} launched {name}: distances", got[3], want[3], 1e-6, 0.0)
+        for field, a, b in zip(("counts", "indices", "integrals", "distances"), got, wrapper):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"{tag} launched {name}: {field} differ from the "
+                                     "wrapper's launch")
+
+
 def timed(fn, device):
     """(fn(), its device time in ms from CUDA events), or (fn(), None)
     off the card."""
@@ -933,8 +970,9 @@ def records_small_checks(dev):
     """The record kernels against their plain versions at edge shapes: 3000
     particles (not a multiple of 128), 1950 rays (no tile multiple), tiles
     that list nothing, rows that overflow (capacity 128 on the co-located
-    scene: counts exactly 512); and the quarter, bitmask and streaming
-    (vmem_resident_limit=0) routes of pallas_trace_sph_records bit-equal."""
+    scene: counts exactly 512), three launch orders bit-equal; and the
+    quarter, bitmask and streaming (vmem_resident_limit=0) routes of
+    pallas_trace_sph_records bit-equal."""
     from grace_tpu_torch.trace import pallas_records as prc
 
     ss, rays_s = records_scene(dev)
@@ -945,16 +983,20 @@ def records_small_checks(dev):
                 raise AssertionError("edge case lost: no tile without a listed primitive")
             err_i, err_d, got, _ = check_records(f"small records {route} t{tile}", kernel,
                                                  plain, args, 128)
+            check_record_orders(f"small records {route} t{tile}", route, args, 128)
             log(f"check {kernel.__name__} kernel vs plain: tile {tile}, {int(got[0].sum())} "
-                f"hits, integrals max abs err {err_i:.3g}, distances {err_d:.3g} OK")
+                f"hits, integrals max abs err {err_i:.3g}, distances {err_d:.3g}; launched "
+                "as listed, longest first and shortest first into outputs filled with -7: "
+                "equal to plain and bit-equal OK")
     sp_o, rays_o = colocated_scene(dev)
     for route in ("quarter", "bitmask"):
         kernel, plain, args = records_inputs(route, rays_o, sp_o, 64)
         got = check_records(f"overflow records {route}", kernel, plain, args, 128)[2]
         if not bool((got[0] == 512).all()) or not bool((got[1] >= 0).all()):
             raise AssertionError(f"overflow records {route}: counts not 512 or rows not full")
+        check_record_orders(f"overflow records {route}", route, args, 128)
     log("check record kernels vs plain on the co-located scene: counts 512, rows of 128 "
-        "full, OK")
+        "full, in three launch orders, OK")
     for r, s in ((rays_s, ss), (rays_o, sp_o)):
         base = prc.pallas_trace_sph_records(r, s, 128)
         for kw in (dict(broadphase="bitmask"), dict(vmem_resident_limit=0),
@@ -1262,6 +1304,8 @@ def run(dev, n_particles, side):
             ("trace_list (tile 128)", "trace_list", "grace_trace_list_resources", (TRACE_TILE,)),
             ("trace_tri (tile 32)", "tri", "grace_tri_resources", (32,)),
             ("render_bwd", "render", "grace_render_bwd_resources", ()),
+            ("records_quarter (tile 64)", "records", "grace_records_quarter_resources", (64,)),
+            ("records_bitmask (tile 64)", "records", "grace_records_bitmask_resources", (64,)),
             (f"splat (32 x 32 patch, deg8, batch {sp.SPLAT_BATCH})", "splat",
              "grace_splat_resources", (32, 32, 5, 8, sp.SPLAT_BATCH)),
             (f"splat_sortfree_fwd (32 x 32 patch, deg8, batch {sg.FWD_BATCH})", "splat_sortfree",
@@ -1626,6 +1670,10 @@ def run(dev, n_particles, side):
     t["records_quarter plain"] = plain_ms["records_quarter"]
     t["records_bitmask kernel"] = cuda_ms(lambda: prc.records_bitmask(*rb_args, RECORD_CAP))
     t["records_bitmask plain"] = plain_ms["records_bitmask"]
+    t["quarter_tile_order (records, tile 64)"] = cuda_ms(
+        lambda: pk.quarter_tile_order(rq_args[1]))
+    t["bitmask_tile_order (records, tile 64)"] = cuda_ms(
+        lambda: pk.bitmask_tile_order(rb_args[0]))
     t["sort_records_by_distance"] = cuda_ms(lambda: prc.sort_records_by_distance(rec), reps=3)
     t["pallas_trace_sph_records (default route)"] = cuda_ms(
         lambda: prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP), reps=3)

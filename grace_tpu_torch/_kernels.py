@@ -57,8 +57,10 @@ KERNELS = {
                 "grace_render_bwd": "pppppp" + "iii",
                 "grace_render_bwd_resources": "p"}),
     "records": ("records.cu", ["--fmad=false"],
-                {"grace_records_quarter": "ppppppppp" + "iiiiiii",
-                 "grace_records_bitmask": "pppppppp" + "iiiiii"}),
+                {"grace_records_quarter": "pppppppppp" + "iiiiiii",
+                 "grace_records_bitmask": "ppppppppp" + "iiiiii",
+                 "grace_records_quarter_resources": "pi",
+                 "grace_records_bitmask_resources": "pi"}),
     "tri": ("tri.cu", ["--fmad=false"],
             {"grace_tri": "ppppppp" + "iiiiii",
              "grace_tri_resources": "pi"}),

@@ -1,6 +1,6 @@
 // Shared-memory staging of primitives for the fused SPH trace kernels
-// (trace_quarter.cu, trace_bitmask.cu, trace_list.cu; records.cu stages
-// with stage_prim too).
+// (trace_quarter.cu, trace_bitmask.cu, trace_list.cu) and the record
+// kernels (records.cu).
 //
 // One block per ray tile, one thread per ray. Between a pair of barriers
 // the block copies up to kStage primitives' five rows (x, y, z, 1/h^2, h^2:
@@ -28,9 +28,12 @@ constexpr int kStage = 1024;   // primitives staged per pair of barriers
 constexpr int kMaxCoeffs = 32;
 constexpr int kMaxTile = 1024;  // rays (threads) a block
 
-struct __align__(16) StagedPrims {
-    float x[kStage], y[kStage], z[kStage], inv_h2[kStage], h2[kStage];
+// N staged primitives' rows; the trace kernels stage kStage at a time.
+template <int N>
+struct __align__(16) StagedRows {
+    float x[N], y[N], z[N], inv_h2[N], h2[N];
 };
+using StagedPrims = StagedRows<kStage>;
 static_assert(sizeof(StagedPrims) == 5 * kStage * sizeof(float), "rows are back to back");
 
 // Slot i <- primitive p. A p outside [0, n_pad) stages h = 0, which can
@@ -52,8 +55,8 @@ __device__ __forceinline__ void stage_prim(StagedPrims& s, int i,
 // for. A group outside [0, n_pad >> shift) stages zeros (h = 0, as
 // stage_prim). Needs prims 16-byte aligned, n_pad a multiple of 4 and
 // shift >= 2.
-template <typename Ids>
-__device__ __forceinline__ void stage_groups(StagedPrims& s, int k, int shift,
+template <int N, typename Ids>
+__device__ __forceinline__ void stage_groups(StagedRows<N>& s, int k, int shift,
                                              const float* __restrict__ prims, int64_t n_pad,
                                              Ids ids) {
     const int chunks = (k << shift) >> 2;  // 16-byte chunks a row
@@ -62,7 +65,7 @@ __device__ __forceinline__ void stage_groups(StagedPrims& s, int k, int shift,
         const int row = c / chunks;  // x, y, z, 1/h^2, h^2: slab rows 0-2, 4, 5
         const int col = 4 * (c - row * chunks);
         const int64_t g = ids(col >> shift);
-        float* dst = rows + row * kStage + col;
+        float* dst = rows + row * N + col;
         if (g >= 0 && g < (n_pad >> shift)) {
             cp_async16(dst, prims + (row < 3 ? row : row + 1) * n_pad + (g << shift) +
                                 (col & ((1 << shift) - 1)));
@@ -90,8 +93,8 @@ __device__ __forceinline__ void load_coeffs(float* s_coeffs,
 
 // Bit q: staged slot base + q passes pair_passes against r; four slots a
 // shared load.
-template <bool kHitcount>
-__device__ __forceinline__ uint32_t pass_bits32(const StagedPrims& s, int base,
+template <bool kHitcount, int N>
+__device__ __forceinline__ uint32_t pass_bits32(const StagedRows<N>& s, int base,
                                                 const RaySeg& r) {
     const float* w = kHitcount ? s.h2 : s.inv_h2;
     uint32_t bits = 0;
@@ -143,37 +146,47 @@ __device__ __forceinline__ void accumulate_staged(const StagedPrims& s, int n,
 }
 
 // A block's whole walk through a ring of kBuffers staging buffers:
-// stage_next(buf) stages the next batch into buf with stage_groups and
+// stage_next(b) stages the next batch into buffer b with stage_groups and
 // returns its primitive count (a multiple of 32, the same on every thread),
-// 0 when no batch is left; each batch is then added by accumulate_staged.
-// With one buffer: stage, wait, test, and a barrier before the next copy;
-// with two (twice the shared memory), batch b + 1 is copied while batch b
-// is tested.
-template <int kBuffers, typename StageNext>
-__device__ __forceinline__ void trace_staged(StagedPrims* s, StageNext stage_next,
-                                             const RaySeg& r, int mode, const float* s_coeffs,
-                                             int deg, float& acc, float& comp) {
+// 0 when no batch is left; consume(b, n) then reads buffer b's n
+// primitives. With one buffer: stage, wait, consume, and a barrier before
+// the next copy; with two (twice the shared memory), batch b + 1 is copied
+// while batch b is consumed.
+template <int kBuffers, typename StageNext, typename Consume>
+__device__ __forceinline__ void staged_batches(StageNext stage_next, Consume consume) {
     static_assert(kBuffers == 1 || kBuffers == 2, "one or two buffers");
     int n = 0;
     if (kBuffers == 2) {
-        n = stage_next(s[0]);
+        n = stage_next(0);
         cp_async_commit();
     }
     for (int b = 0;; ++b) {
         int n_ahead = 0;
         if (kBuffers == 2) {
-            if (n > 0) n_ahead = stage_next(s[(b + 1) & 1]);  // freed at the end of b - 1
+            if (n > 0) n_ahead = stage_next((b + 1) & 1);  // freed at the end of b - 1
         } else {
-            n = stage_next(s[0]);
+            n = stage_next(0);
         }
         cp_async_commit();
         cp_async_wait<kBuffers - 1>();  // batch b has landed
         if (n == 0) break;
         __syncthreads();
-        accumulate_staged(s[b & (kBuffers - 1)], n, r, mode, s_coeffs, deg, acc, comp);
+        consume(b & (kBuffers - 1), n);
         __syncthreads();  // this buffer is free
         if (kBuffers == 2) n = n_ahead;
     }
+}
+
+// The trace kernels' walk: staged_batches over the buffers s[0, kBuffers),
+// stage_next(buffer) as above, each batch added by accumulate_staged.
+template <int kBuffers, typename StageNext>
+__device__ __forceinline__ void trace_staged(StagedPrims* s, StageNext stage_next,
+                                             const RaySeg& r, int mode, const float* s_coeffs,
+                                             int deg, float& acc, float& comp) {
+    staged_batches<kBuffers>([&](int b) { return stage_next(s[b]); },
+                             [&](int b, int n) {
+                                 accumulate_staged(s[b], n, r, mode, s_coeffs, deg, acc, comp);
+                             });
 }
 
 // Launch checks shared by the trace entry points.
@@ -183,11 +196,11 @@ inline bool trace_launch_ok(int tile, int deg) {
 
 // Gives a trace kernel the largest shared-memory carveout (without it the
 // runtime may hold fewer 20 KB blocks an SM) and, where out is not null,
-// fills out with what one launch of tile threads holds: registers a
-// thread, shared bytes a block, threads a block, resident blocks and warps
-// an SM.
+// fills out with what one launch of tile threads and dynamic bytes of
+// shared memory holds: registers a thread, shared bytes a block (static
+// and dynamic), threads a block, resident blocks and warps an SM.
 template <typename Kernel>
-cudaError_t trace_kernel_setup(Kernel kernel, int tile, int* out) {
+cudaError_t trace_kernel_setup(Kernel kernel, int tile, int* out, size_t dynamic = 0) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                            cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess || out == nullptr) return err;
@@ -195,11 +208,11 @@ cudaError_t trace_kernel_setup(Kernel kernel, int tile, int* out) {
     int blocks;
     err = cudaFuncGetAttributes(&attr, kernel);
     if (err == cudaSuccess) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tile, 0);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tile, dynamic);
     }
     if (err != cudaSuccess) return err;
     out[0] = attr.numRegs;
-    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[1] = static_cast<int>(attr.sharedSizeBytes + dynamic);
     out[2] = tile;
     out[3] = blocks;
     out[4] = blocks * ((tile + 31) / 32);

@@ -44,7 +44,7 @@ from grace_tpu_torch.sph.kernel_integrals import (
     cubic_spline_line_integral_horner1, integral_coeffs)
 from grace_tpu_torch.trace.broadphase import collect_tile_chunks
 from grace_tpu_torch.trace.pallas_broadphase import (
-    _popcount32, dense_tile_masks, dense_tile_masks_quarter, dense_tile_segments,
+    dense_tile_masks, dense_tile_masks_quarter, dense_tile_segments,
     quarter_lists)
 
 DEFAULT_TILE = 512
@@ -290,11 +290,35 @@ def trace_quarter(summary, words, rays_packed, prims, integral_deg, mode):
 trace_quarter.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _byte_bits(device: str) -> torch.Tensor:
+    """u8[256]: the set bits of each byte value."""
+    return torch.tensor([bin(b).count("1") for b in range(256)], dtype=torch.uint8,
+                        device=device)
+
+
+def _row_set_bits(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each row of i32 words, i32[n_rows]: each word's four
+    bytes looked up in a 256-entry table and summed along the row (three
+    tensor operations; a SWAR popcount takes fifteen, and on the card each
+    costs a launch)."""
+    row_bytes = words.contiguous().view(torch.uint8)
+    return _byte_bits(str(words.device))[row_bytes.int()].sum(dim=1, dtype=torch.int32)
+
+
 def bitmask_tile_order(words: torch.Tensor) -> torch.Tensor:
     """Launch order of ``trace_bitmask``'s tiles: by the number of set bits
     in each tile's words (the segments its block walks), longest first,
     ties in tile order; i32[n_tiles]."""
-    return _kernels.longest_first(_popcount32(words).sum(dim=1)).to(torch.int32)
+    return _kernels.longest_first(_row_set_bits(words)).to(torch.int32)
+
+
+def quarter_tile_order(words: torch.Tensor) -> torch.Tensor:
+    """Launch order of ``records_quarter``'s tiles: by the quarters each
+    tile's quarter words list (their set bits), longest first, ties in tile
+    order; i32[n_tiles]. The same count as ``bitmask_tile_order``'s, on
+    words of 32-primitive quarters."""
+    return bitmask_tile_order(words)
 
 
 def list_tile_order(counts: torch.Tensor, max_len: int) -> torch.Tensor:

@@ -12,7 +12,10 @@ records are dropped).
 cursor. On the card one thread is one ray with a cursor in a register: it
 tests the staged primitives in order and appends each hit at its cursor.
 So ``rank_method``, ``group`` and ``drain`` are checked as ``grace_tpu``
-checks them and select nothing; every value gives the same records.
+checks them and select nothing; every value gives the same records. The
+kernels launch the tiles longest mask row first (``quarter_tile_order``,
+``bitmask_tile_order``) and write each tile's rows in place, so the launch
+order changes no bit either.
 
 Broadphase as ``grace_tpu``'s: 32-primitive quarter words
 (``dense_tile_masks_quarter``, the default while the slabs fit
@@ -35,7 +38,7 @@ from grace_tpu_torch.sph.kernel_integrals import HORNER1_DEG, cubic_spline_line_
 from grace_tpu_torch.trace.pallas_broadphase import dense_tile_masks, dense_tile_masks_quarter
 from grace_tpu_torch.trace.pallas_kernel import (
     MAX_TILE, QUARTER, SEG, _coeff_tensor, _impact, _listed_quarters, _pack_prims,
-    _pack_rays, _pad_rays, _set_bits)
+    _pack_rays, _pad_rays, _set_bits, bitmask_tile_order, quarter_tile_order)
 
 INDEX_SENTINEL = -1
 VALUE_SENTINEL = 0.0
@@ -139,26 +142,76 @@ def _check_args(name, lists, rays_packed, prims, n_tiles, cap):
     return device, tile
 
 
-def _launch(entry, device, tensors, ints, rays_packed, cap):
-    """Launch a record kernel on ``device``; returns (counts, idx, integral,
-    distance) as the plain versions do."""
+def _check_quarter(summary, words, rays_packed, prims, cap):
+    """``records_quarter``'s checks; returns (device, rays per tile)."""
+    n_tiles, n_words = words.shape
+    device, tile = _check_args("records_quarter", (summary, words), rays_packed, prims,
+                               n_tiles, cap)
+    if (summary.shape != (n_tiles, (n_words + 31) // 32)
+            or n_words != (prims.shape[1] // QUARTER + 31) // 32):
+        raise ValueError("records_quarter: inconsistent shapes "
+                         f"{summary.shape} {words.shape} {prims.shape}")
+    return device, tile
+
+
+def _check_bitmask(words, rays_packed, prims, cap):
+    """``records_bitmask``'s checks; returns (device, rays per tile)."""
+    n_tiles, n_words = words.shape if words.dim() == 2 else (0, 0)
+    device, tile = _check_args("records_bitmask", (words,), rays_packed, prims, n_tiles,
+                               cap)
+    n_segs = prims.shape[1] // SEG
+    if n_words != (n_segs + 31) // 32:
+        raise ValueError(f"records_bitmask: {n_words} words per tile, "
+                         f"{n_segs} segments need {(n_segs + 31) // 32}")
+    return device, tile
+
+
+def _outputs(rays_packed, cap):
+    """Uninitialised (counts, idx, integral, distance) for a record kernel,
+    which writes every entry."""
+    r_pad, dev = rays_packed.shape[0], rays_packed.device
+    return (torch.empty(r_pad, dtype=torch.int32, device=dev),
+            torch.empty((r_pad, cap), dtype=torch.int32, device=dev),
+            torch.empty((r_pad, cap), dtype=torch.float32, device=dev),
+            torch.empty((r_pad, cap), dtype=torch.float32, device=dev))
+
+
+def _launch(entry, tensors, ints, outs):
+    """Launch a record kernel on the device of ``outs`` (counts, idx,
+    integral, distance), which it fills; returns ``outs``."""
     args = [t.contiguous() for t in tensors]
+    device = outs[0].device
     coeffs = _coeff_tensor(HORNER1_DEG, str(device))
-    r_pad = rays_packed.shape[0]
-    counts = torch.empty(r_pad, dtype=torch.int32, device=device)
-    idx = torch.empty((r_pad, cap), dtype=torch.int32, device=device)
-    intg = torch.empty((r_pad, cap), dtype=torch.float32, device=device)
-    dist = torch.empty((r_pad, cap), dtype=torch.float32, device=device)
     _kernels.launch("records", entry, device, *[a.data_ptr() for a in args],
-                    coeffs.data_ptr(), counts.data_ptr(), idx.data_ptr(), intg.data_ptr(),
-                    dist.data_ptr(), *ints, cap, HORNER1_DEG)
-    return counts, idx, intg, dist
+                    coeffs.data_ptr(), *[o.data_ptr() for o in outs], *ints, outs[1].shape[1],
+                    HORNER1_DEG)
+    return outs
+
+
+def _quarter_launch(summary, words, rays_packed, prims, order, outs):
+    n_tiles, n_words = words.shape
+    out = _launch("grace_records_quarter",
+                  (summary, words, order, rays_packed, _kernels.aligned(prims)),
+                  (n_tiles, rays_packed.shape[0] // n_tiles, summary.shape[1], n_words,
+                   prims.shape[1]), outs)
+    records_quarter.launches += 1
+    return out
+
+
+def _bitmask_launch(words, rays_packed, prims, order, outs):
+    n_tiles, n_words = words.shape
+    out = _launch("grace_records_bitmask", (words, order, rays_packed, _kernels.aligned(prims)),
+                  (n_tiles, rays_packed.shape[0] // n_tiles, n_words, prims.shape[1] // SEG),
+                  outs)
+    records_bitmask.launches += 1
+    return out
 
 
 def records_quarter(summary, words, rays_packed, prims, cap):
     """Per-ray record rows over the quarters each tile's masks list:
     launches ``csrc/records.cu`` (``grace_records_quarter``) on CUDA
-    tensors, runs ``_records_quarter_plain`` on CPU tensors.
+    tensors, its tiles in ``quarter_tile_order``, runs
+    ``_records_quarter_plain`` on CPU tensors.
 
     Args:
       summary: i32[n_tiles, ceil(n_words / 32)].
@@ -170,20 +223,11 @@ def records_quarter(summary, words, rays_packed, prims, cap):
     Returns (counts i32[R_pad], indices i32[R_pad, cap], integrals
     f32[R_pad, cap], distances f32[R_pad, cap]).
     """
-    n_tiles, n_words = words.shape
-    device, tile = _check_args("records_quarter", (summary, words), rays_packed, prims,
-                               n_tiles, cap)
-    if (summary.shape != (n_tiles, (n_words + 31) // 32)
-            or n_words != (prims.shape[1] // QUARTER + 31) // 32):
-        raise ValueError("records_quarter: inconsistent shapes "
-                         f"{summary.shape} {words.shape} {prims.shape}")
+    device, _ = _check_quarter(summary, words, rays_packed, prims, cap)
     if device.type == "cpu":
         return _records_quarter_plain(summary, words, rays_packed, prims, cap)
-    out = _launch("grace_records_quarter", device, (summary, words, rays_packed, prims),
-                  (n_tiles, tile, summary.shape[1], n_words, prims.shape[1]),
-                  rays_packed, cap)
-    records_quarter.launches += 1
-    return out
+    return _quarter_launch(summary, words, rays_packed, prims, quarter_tile_order(words),
+                           _outputs(rays_packed, cap))
 
 
 records_quarter.launches = 0
@@ -192,33 +236,56 @@ records_quarter.launches = 0
 def records_bitmask(words, rays_packed, prims, cap):
     """Per-ray record rows over the 128-primitive segments each tile's
     words list: launches ``csrc/records.cu`` (``grace_records_bitmask``) on
-    CUDA tensors, runs ``_records_bitmask_plain`` on CPU tensors.
+    CUDA tensors, its tiles in ``bitmask_tile_order``, runs
+    ``_records_bitmask_plain`` on CPU tensors.
 
     Args:
       words: i32[n_tiles, ceil(n_segs / 32)], bit s of word w = segment
         w*32+s (``dense_tile_masks``); bits past n_segs are ignored.
       rays_packed: f32[n_tiles * tile, 16] (``_pack_rays``).
       prims: f32[8, N_pad] (``_pack_prims``), n_segs = N_pad / 128.
-      cap: records per ray row.
+      cap: as ``records_quarter``.
 
     Returns as ``records_quarter``.
     """
-    n_tiles, n_words = words.shape if words.dim() == 2 else (0, 0)
-    device, tile = _check_args("records_bitmask", (words,), rays_packed, prims, n_tiles,
-                               cap)
-    n_segs = prims.shape[1] // SEG
-    if n_words != (n_segs + 31) // 32:
-        raise ValueError(f"records_bitmask: {n_words} words per tile, "
-                         f"{n_segs} segments need {(n_segs + 31) // 32}")
+    device, _ = _check_bitmask(words, rays_packed, prims, cap)
     if device.type == "cpu":
         return _records_bitmask_plain(words, rays_packed, prims, cap)
-    out = _launch("grace_records_bitmask", device, (words, rays_packed, prims),
-                  (n_tiles, tile, n_words, n_segs), rays_packed, cap)
-    records_bitmask.launches += 1
-    return out
+    return _bitmask_launch(words, rays_packed, prims, bitmask_tile_order(words),
+                           _outputs(rays_packed, cap))
 
 
 records_bitmask.launches = 0
+
+
+def _records_launch(route, args, order, outs):
+    """The record kernel of ``route`` ('quarter' or 'bitmask') on the CUDA
+    arguments its wrapper takes (``args``, the capacity left out), its
+    tiles launched in ``order`` in place of the wrapper's longest row
+    first, into ``outs`` (as ``_outputs`` gives them; every entry is
+    written): for checks that neither the launch order nor what the
+    outputs held before changes a bit.
+
+    ``order``: i32[n_tiles] on the arguments' device, a permutation of the
+    tiles (block b works on tile order[b]); checked, with a host sync.
+    """
+    check, launch = {"quarter": (_check_quarter, _quarter_launch),
+                     "bitmask": (_check_bitmask, _bitmask_launch)}[route]
+    device, _ = check(*args, outs[1].shape[1])
+    n_tiles = args[-3].shape[0]
+    if (not isinstance(order, torch.Tensor) or order.dtype != torch.int32
+            or order.shape != (n_tiles,) or order.device != device):
+        raise ValueError(f"records_{route}: order must be i32[{n_tiles}] on {device}")
+    if not torch.equal(torch.sort(order).values,
+                       torch.arange(n_tiles, dtype=torch.int32, device=device)):
+        raise ValueError(f"records_{route}: order is not a permutation of the {n_tiles} tiles")
+    want = [(t.shape, t.dtype, t.device) for t in _outputs(args[-2], outs[1].shape[1])]
+    if ([(t.shape, t.dtype, t.device) for t in outs] != want
+            or not all(t.is_contiguous() for t in outs)):
+        raise ValueError(f"records_{route}: outputs must be contiguous {want}")
+    if device.type != "cuda":
+        raise ValueError(f"records_{route}: the kernel runs on CUDA tensors, not {device}")
+    return launch(*args, order, outs)
 
 
 def pallas_trace_sph_records(

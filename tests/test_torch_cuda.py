@@ -20,8 +20,10 @@ a particle that covers every tile, both bases, list overflow, backward
 lists cut to lengths around the kernel's staging batch; gradients within
 grace_tpu's bounds), the fused renderer's overflow contracts and
 both trainers against finite differences; the record kernels (quarter and
-segment words, empty tiles, rows that overflow; counts and indices exact,
-integrals and distances within rtol 1e-6) and the triangle kernel (random
+segment words, tiles of 48 to 1024 rays, empty tiles, rows that overflow,
+row capacities that are no multiple of 4, three launch orders bit-equal,
+their resources, unaligned slabs and bad orders refused; counts and
+indices exact, integrals and distances within rtol 1e-6) and the triangle kernel (random
 meshes with faces culled, rays that miss the mesh box, tiles 8 to 96,
 both modes, lists cut by max_chunks; ids, misses and t bit-equal). The
 edge scenes and checks are chip_smoke.py's.
@@ -42,7 +44,8 @@ from grace_tpu_torch.trace import splat_grad as sg
 from grace_tpu_torch.trace import pallas_records as prc
 from grace_tpu_torch.trace import pallas_tri as pt
 from chip_smoke import (
-    EDGE_ORDERS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES, check_records, check_render,
+    EDGE_ORDERS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES, check_record_orders, check_records,
+    check_render,
     check_render_bwd, check_sortfree, check_splat, check_tri, colocated_scene, fd_checks,
     make_clustered_particles, random_mesh, records_inputs, records_scene,
     records_small_checks, render_inputs, route_inputs, sortfree_edge_check, sortfree_inputs,
@@ -428,15 +431,48 @@ def test_trainers_finite_differences(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [64, 96])
+@pytest.mark.parametrize("tile", [64, 96, 48, 1024])
 @pytest.mark.parametrize("route", ["quarter", "bitmask"])
 def test_record_kernels_match_plain(dev, route, tile):
+    """Tiles of 2 and 3 warps, 48 (a warp cut in half) and 1024 (the
+    largest block: 32 warps' pending slots, 209 KB of shared memory);
+    tiles that list nothing (but at 1024, whose two tiles both list some);
+    counts and indices exact."""
     ss, rays_s = records_scene(dev)
     kernel, plain, args = records_inputs(route, rays_s, ss, tile)
-    assert rays_s.n_rays % tile and bool((args[-3] == 0).all(dim=1).any())
+    assert rays_s.n_rays % tile
+    assert bool((args[-3] == 0).all(dim=1).any()) == (tile < 1024)
     before = kernel.launches
     got = check_records(f"card test {route}", kernel, plain, args, 128)[2]
     assert kernel.launches == before + 1 and int(got[0].sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [5, 37, 130])
+@pytest.mark.parametrize("route", ["quarter", "bitmask"])
+def test_record_kernels_row_capacities(dev, route, cap):
+    """Row capacities that are no multiple of 4 (rows of 5 overflow on many
+    rays): counts exact past the capacity, only the first cap records
+    written."""
+    ss, rays_s = records_scene(dev)
+    kernel, plain, args = records_inputs(route, rays_s, ss, 64)
+    got = check_records(f"card test {route} cap {cap}", kernel, plain, args, cap)[2]
+    assert got[1].shape[1] == cap and (cap > 5 or bool((got[0] > cap).any()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [64, 48])
+@pytest.mark.parametrize("route", ["quarter", "bitmask"])
+def test_record_kernels_launch_orders(dev, route, tile):
+    """As listed, longest mask row first and shortest first, each into
+    outputs filled with -7: the plain version's records, and the same bits
+    in every order (each tile's rows are written in place)."""
+    ss, rays_s = records_scene(dev)
+    _, _, args = records_inputs(route, rays_s, ss, tile)
+    check_record_orders(f"card test {route} t{tile}", route, args, 128)
+    sp, rays = colocated_scene(dev)
+    _, _, args = records_inputs(route, rays, sp, 64)
+    check_record_orders(f"card test overflow {route}", route, args, 128)
 
 
 @pytest.mark.cuda
@@ -477,6 +513,53 @@ def test_tri_kernel_matches_plain(dev, tile, mode, max_chunks):
     before = pt.trace_tri.launches
     _, hits, _, _ = check_tri(f"card test tri t{tile} {mode}", args, mode)
     assert pt.trace_tri.launches == before + 1 and hits > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [64, 48, 1024])
+def test_record_resources(dev, tile):
+    """Both record kernels fit the card at the tile: registers, shared
+    memory (the staged batch and the pending slots) and resident warps."""
+    for entry in ("grace_records_quarter_resources", "grace_records_bitmask_resources"):
+        res = _kernels.resources("records", entry, dev, tile)
+        assert res["threads"] == tile and res["blocks_per_sm"] >= 1
+        assert 0 < res["registers"] <= 255 and res["registers"] * tile <= 65536
+        assert 0 < res["shared_bytes"] <= 227 * 1024 and res["warps_per_sm"] <= 64
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _kernels.resources("records", "grace_records_quarter_resources", dev, 1025)
+
+
+@pytest.mark.cuda
+def test_record_kernels_refuse_unaligned_slabs_and_bad_orders(dev):
+    ss, rays_s = records_scene(dev)
+    for route in ("quarter", "bitmask"):
+        _, _, args = records_inputs(route, rays_s, ss, 64)
+        n_tiles = args[-3].shape[0]
+        # the C entries stage with 16-byte copies: an unaligned slab is refused
+        prims = args[-1]
+        shifted = torch.empty(prims.numel() + 1, device=dev)[1:].view_as(prims)
+        shifted.copy_(prims)
+        outs = prc._outputs(args[-2], 128)
+        coeffs = pk._coeff_tensor(14, str(dev))
+        if route == "quarter":
+            ptrs = (args[0], args[1], None, args[2], shifted)
+            ints = (n_tiles, 64, args[0].shape[1], args[1].shape[1], prims.shape[1])
+        else:
+            ptrs = (args[0], None, args[1], shifted)
+            ints = (n_tiles, 64, args[0].shape[1], prims.shape[1] // 128)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _kernels.launch("records", f"grace_records_{route}", dev,
+                            *[None if p is None else p.data_ptr() for p in ptrs],
+                            coeffs.data_ptr(), *[o.data_ptr() for o in outs], *ints, 128, 14)
+        # a launch in another order refuses one that is not a permutation
+        # of the tiles
+        good = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+        for bad in (good[:-1], good.long(), good.cpu(), torch.zeros_like(good),
+                    good.flip(0) + 1):
+            with pytest.raises(ValueError, match="order"):
+                prc._records_launch(route, args, bad, prc._outputs(args[-2], 128))
+        with pytest.raises(ValueError, match="outputs"):
+            prc._records_launch(route, args, good, prc._outputs(args[-2], 128)[::-1])
 
 
 @pytest.mark.cuda

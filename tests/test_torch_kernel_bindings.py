@@ -85,6 +85,34 @@ def test_splat_entries_take_the_launch_order(entry, position):
     assert params.split(",")[position].split() == ["const", "int32_t*", "order"]
 
 
+@pytest.mark.parametrize("entry,position", [("grace_records_quarter", 2),
+                                            ("grace_records_bitmask", 1)])
+def test_record_entries_take_the_launch_order(entry, position):
+    """The record kernels take an i32 launch order (null: as listed) at the
+    argument the wrappers pass it, and a 16-byte aligned slab after the
+    rays."""
+    params = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", _source("records")).group(1)
+    params = [p.split() for p in params.split(",")]
+    assert params[position] == ["const", "int32_t*", "order"]
+    assert params[position + 1] == ["const", "float*", "rays"]
+    assert params[position + 2] == ["const", "float*", "prims"]
+
+
+def test_record_constants_agree():
+    """records.cu's group sizes are the wrappers' segment and quarter, and
+    its batch holds whole segments (its ids array: up to 8 segments or 32
+    quarters a batch)."""
+    src = _source("records")
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert 1 << consts["kSegShift"] == pk.SEG and 1 << consts["kQuarterShift"] == pk.QUARTER
+    assert consts["kBatch"] % pk.SEG == 0 and consts["kBatch"] <= 1024
+    assert consts["kStageBuffers"] in (1, 2)
+    # pending slots a ray, at an odd stride
+    assert consts["kPending"] > 0 and consts["kPending"] % 2 == 0
+    assert "constexpr int kStride = kPending + 1;" in src
+    assert "records_launch_ok(tile, cap, deg, prims)" in src and "aligned16(prims)" in src
+
+
 @pytest.mark.parametrize("offset", [0, 1, 4])
 def test_aligned_gives_16_byte_addresses(offset):
     base = torch.arange(64, dtype=torch.float32)

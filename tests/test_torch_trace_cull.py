@@ -12,7 +12,8 @@ The terms agree within the route tests' tolerance, hit indicators exactly,
 and outside the support every term is exactly 0 in both packages.
 
 Also the kernels' launch orders: a permutation of the tiles, longest walk
-first, ties in tile order, empty tiles last.
+first, ties in tile order, empty tiles last; the record wrappers take any
+permutation and refuse anything else.
 """
 
 import jax
@@ -93,6 +94,76 @@ def test_bitmask_tile_order():
     assert order.tolist() == _expected_order(lengths)
     assert sorted(order.tolist()) == list(range(n_tiles))
     assert all(lengths[t] == 0 for t in order.tolist()[-lengths.count(0):])
+
+
+def test_row_set_bits_exact():
+    """The order helpers' i32 popcount equals the i64 one (``_popcount32``,
+    held against grace_tpu's) on random words and the edge words."""
+    from grace_tpu_torch.trace.pallas_broadphase import _popcount32
+
+    rng = np.random.default_rng(10)
+    words = rng.integers(-2**31, 2**31, (300, 41), dtype=np.int64).astype(np.int32)
+    words[0, :6] = [-2**31, -1, 0, 2**31 - 1, 1, -2]
+    words[1] = -1
+    w = torch.from_numpy(words)
+    got = tpk._row_set_bits(w)
+    assert got.dtype == torch.int32 and int(got[1]) == 41 * 32
+    assert torch.equal(got, _popcount32(w).sum(dim=1))
+
+
+def test_quarter_tile_order():
+    """Rows of random quarter words (ties, empty rows, the sign bit set): a
+    permutation of the tiles, by descending listed quarters, ties in tile
+    order, empty tiles last."""
+    rng = np.random.default_rng(9)
+    n_tiles, n_words = 33, 3
+    words = rng.integers(-2**31, 2**31, (n_tiles, n_words), dtype=np.int64)
+    words &= rng.integers(-2**31, 2**31, (n_tiles, n_words), dtype=np.int64)  # sparser
+    words[rng.choice(n_tiles, 6, replace=False)] = 0
+    words[5] = words[9]                                                     # a tie
+    words[7, 2] = -2**31
+    words = words.astype(np.int32)
+    lengths = [sum(bin(int(w) & 0xFFFFFFFF).count("1") for w in row) for row in words]
+    assert lengths.count(0) >= 6 and len(set(lengths)) < n_tiles
+    order = tpk.quarter_tile_order(torch.from_numpy(words))
+    assert order.dtype == torch.int32
+    assert order.tolist() == _expected_order(lengths)
+    assert sorted(order.tolist()) == list(range(n_tiles))
+    assert all(lengths[t] == 0 for t in order.tolist()[-lengths.count(0):])
+    assert order.tolist().index(5) < order.tolist().index(9)
+
+
+def test_record_wrappers_check_the_launch_order():
+    """A record launch in another order than the wrappers' (longest row
+    first) takes a permutation of the tiles and refuses anything else, and
+    outputs of other shapes; on CPU tensors it is refused (the wrappers run
+    the plain versions there, whose records no order changes)."""
+    from grace_tpu_torch.trace import pallas_broadphase as tpb
+    from grace_tpu_torch.trace import pallas_records as tpr
+
+    spheres, rays, _ = support_edge_scene("cpu")
+    rays = tpk._pad_rays(rays, 64)
+    packed, _ = tpk._pack_rays(rays, 64)
+    prims, _ = tpk._pack_prims(spheres)
+    words, summary = tpb.dense_tile_masks_quarter(rays, spheres, 64)
+    masks = tpb.dense_tile_masks(rays, spheres, 64)
+    n_tiles = words.shape[0]
+    for route, args in (("quarter", (summary, words, packed, prims)),
+                        ("bitmask", (masks, packed, prims))):
+        outs = tpr._outputs(packed, 128)
+        assert [tuple(o.shape) for o in outs] == [(packed.shape[0],)] + [
+            (packed.shape[0], 128)] * 3
+        good = torch.arange(n_tiles, dtype=torch.int32).flip(0).contiguous()
+        for bad in (good[:-1], good.long(), torch.zeros_like(good), good + 1):
+            with pytest.raises(ValueError, match="order"):
+                tpr._records_launch(route, args, bad, outs)
+        with pytest.raises(ValueError, match="outputs"):
+            tpr._records_launch(route, args, good, outs[::-1])
+        wide = tpr._outputs(packed, 129)
+        with pytest.raises(ValueError, match="outputs"):
+            tpr._records_launch(route, args, good, outs[:1] + wide[1:2] + outs[2:])
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tpr._records_launch(route, args, good, outs)
 
 
 def test_list_tile_order():
