@@ -1,6 +1,7 @@
 """Ablations of the kernels redesigned for the card, on one CUDA card.
 
-    python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records] [paths]
+    python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
+                             [sortfree_bwd] [render_fwd] [paths]
                              [--parent DIR]   (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
 
@@ -71,8 +72,35 @@ wrapper launches them (longest list first).
   the two launch-order helpers at tile 64 beside the same order on the i64
   popcount.
 
+  sortfree_bwd: grace_splat_sortfree_bwd (B12, csrc/splat_sortfree.cu) on
+  main path 3's backward inputs (the bench scene, tiles of 32 x 128, deg8,
+  a seeded normal cotangent image, which moves no footprint), with the
+  spread of listed tiles and footprint products over the segments: with
+  --parent DIR the parent's kernel built from DIR/grace_tpu_torch/csrc;
+  then the redesign's steps as listed (the footprint cull alone: a row a
+  pass, the Horner degree at run time, the tile staged by plain loads; +
+  factors once a pass; + cp.async staging), the shipped kernel as listed
+  (it takes no order), with other rows a pass, the other number of
+  staging buffers, the degree at run time, the column stride not rounded
+  up, the tile staged a row at a time, built with a launch order and
+  launched as listed, most listed tiles first and fewest first (and the
+  time of that order), and a leave-out variant (footprints found, nothing
+  added).
+  Every output but the leave-out's bit-equal to the parent's.
+
+  render_fwd: grace_render_fwd (B13, csrc/render.cu) on main path 3's
+  forward inputs (the bench scene's sorted rays, tile 128, max_chunks
+  2048): with --parent DIR the parent's kernel and the parent with its
+  per-slot hit branch replaced by a mask of 32 tests first, both as
+  listed; the redesign's steps as listed (the mask on float4 rows, staged
+  by plain loads; + cp.async), the shipped kernel launched longest list
+  first, as listed and shortest first, with the other number of staging
+  buffers, and a leave-out variant (the weight in place of the term).
+  Every output but the leave-out's bit-equal to the parent's.
+
   paths: the splat frame (build, rays + sort, bucket, splat), one sort-free
-  training step and the record trace on both routes (512 a ray) on the
+  training step, one fused-renderer step and the record trace on both
+  routes (512 a ray) on the
   bench scene through the package's user functions only, timed, with the
   device's busy share over each (torch.profiler), and the two record
   wrappers at tile 64; with --package DIR, DIR's grace_tpu_torch runs them,
@@ -815,7 +843,8 @@ def in_turns(label, runs, want, rtol=None):
             times[name].append(start.elapsed_time(end))
     result = {name: statistics.median(x) for name, x in times.items()}
     for name, x in times.items():
-        same = f"within {rtol} x max of" if rtol is not None else "bits equal to"
+        same = ("not compared with" if runs[name][1] is None else
+                f"within {rtol} x max of" if rtol is not None else "bits equal to")
         print(f"{label} {name}: {result[name]:.3f} ms (median of {len(x)}; min {min(x):.3f}, "
               f"max {max(x):.3f}); {same} the reference", flush=True)
     return result
@@ -1241,10 +1270,303 @@ def record_ablations(sorted_spheres, rays_s, parent_dir):
     return summary
 
 
+# The training kernels' variants: B12 (csrc/splat_sortfree.cu's backward)
+# and B13 (csrc/render.cu's forward). The parents' entry points (B13's
+# before its order argument), for --parent DIR:
+PARENT_TRAIN_ENTRIES = {"splat_sortfree": {"grace_splat_sortfree_bwd": "ppppppp" + "iiiiiiiii"},
+                        "render": {"grace_render_fwd": "pppppp" + "iiii"}}
+
+
+def shipped_const(file, name):
+    """The value of ``constexpr int name`` in the package's csrc/file."""
+    from grace_tpu_torch import _kernels
+
+    with open(os.path.join(_kernels.CSRC, file)) as f:
+        return int(f.read().split(f"constexpr int {name} = ", 1)[1].split(";", 1)[0])
+
+
+def csrc_const(file, name, value):
+    """An edit of csrc/file that sets ``constexpr int name`` to ``value``."""
+    return swap(file, f"constexpr int {name} = {shipped_const(file, name)};",
+                f"constexpr int {name} = {value};")
+
+
+BWD = "splat_sortfree.cu"
+# The cotangent tile copied by each thread's loads and stores, not cp.async.
+BWD_PLAIN_LOADS = swap(
+    BWD, "cp_async4(g + j * gs + i, g_image + static_cast<int64_t>(row0 + i) * width + col0 + j);",
+    "g[j * gs + i] = g_image[static_cast<int64_t>(row0 + i) * width + col0 + j];")
+BWD_RUNTIME_DEGREE = swap(BWD, """return deg == 8 ? sortfree_bwd_kernel<8>
+                    : deg == 10 ? sortfree_bwd_kernel<10> : sortfree_bwd_kernel<0>;""",
+                          "return sortfree_bwd_kernel<0>;")
+# B12's cotangent tile staged a row at a time, without a division an element.
+BWD_ROW_STAGING = swap(BWD, """        for (int e = tid; e < tile_w * tile_h; e += kSeg) {
+            const int i = e / tile_h;
+            const int j = e - i * tile_h;
+            cp_async4(g + j * gs + i, g_image + static_cast<int64_t>(row0 + i) * width + col0 + j);
+        }
+""", """        for (int i = 0; i < tile_w; ++i) {
+            const float* src = g_image + static_cast<int64_t>(row0 + i) * width + col0;
+            for (int j = tid; j < tile_h; j += kSeg) cp_async4(g + j * gs + i, src + j);
+        }
+""")
+# B12 with a launch order, which the shipped kernel does not take: block b
+# on segment order[b], the entry's second argument.
+BWD_ORDERED = "shipped + a launch order (block b on segment order[b])"
+BWD_ORDER_EDITS = [
+    swap(BWD, "sortfree_bwd_kernel(const int32_t* __restrict__ masks_t, const float* __restrict__ "
+         "coords,", "sortfree_bwd_kernel(const int32_t* __restrict__ masks_t, const int32_t* "
+         "__restrict__ order,\n                    const float* __restrict__ coords,"),
+    swap(BWD, "const int seg = static_cast<int>(blockIdx.x);",
+         "const int seg = order[blockIdx.x];"),
+    swap(BWD, "using BwdKernel = void (*)(const int32_t*, const float*,",
+         "using BwdKernel = void (*)(const int32_t*, const int32_t*, const float*,"),
+    swap(BWD, 'extern "C" int grace_splat_sortfree_bwd(const int32_t* masks_t, '
+         "const float* coords,", 'extern "C" int grace_splat_sortfree_bwd(const int32_t* '
+         "masks_t, const int32_t* order, const float* coords,"),
+    swap(BWD, "        masks_t, coords, slabs, g_image,",
+         "        masks_t, order, coords, slabs, g_image,"),
+]
+# Leave-out variants (their outputs are not compared): B12 finding each
+# footprint and adding nothing (the walk, the staging and support_range
+# alone); B13 with the weight in place of the term (no poly_f).
+BWD_NOTHING_ADDED = "shipped, footprints found, nothing added (not compared)"
+FWD_NO_TERM = "shipped, the weight in place of the term (no poly_f; not compared)"
+
+
+def sortfree_bwd_variants():
+    """B12's redesign in steps, each adding one to the one before (as
+    listed), then the shipped kernel with one thing changed."""
+    rows, bufs = shipped_const(BWD, "kBwdRows"), shipped_const(BWD, "kBwdBuffers")
+    steps = {
+        "footprint cull alone (a row a pass, Horner degree at run time, plain loads)": [
+            csrc_const(BWD, "kBwdRows", 1), BWD_RUNTIME_DEGREE, BWD_PLAIN_LOADS],
+        f"+ factors once a pass ({rows} rows a pass, Horner degree at compile time)": [
+            BWD_PLAIN_LOADS],
+        f"+ cp.async staging, {bufs} buffer{'s' if bufs > 1 else ''} (shipped)": None,
+    }
+    for r in (4, 8, 12, 16):
+        if r != rows:
+            steps[f"shipped, {r} rows a pass"] = [csrc_const(BWD, "kBwdRows", r)]
+    steps["shipped, at most 64 registers (8 blocks an SM)"] = [swap(
+        BWD, "__global__ void __launch_bounds__(kSeg)\nsortfree_bwd_kernel",
+        "__global__ void __launch_bounds__(kSeg, 8)\nsortfree_bwd_kernel")]
+    steps["shipped, the column stride tile_w + 7, not rounded up to a multiple of 8"] = [swap(
+        BWD, "return (tile_w + kBwdRows + 6) / 8 * 8;", "return tile_w + kBwdRows - 1;")]
+    steps[f"shipped, {3 - bufs} buffer{'s' if bufs == 1 else ''}"] = [
+        csrc_const(BWD, "kBwdBuffers", 3 - bufs)]
+    steps["shipped, Horner degree at run time"] = [BWD_RUNTIME_DEGREE]
+    steps["shipped, the tile staged a row at a time (no division)"] = [BWD_ROW_STAGING]
+    steps[BWD_ORDERED] = BWD_ORDER_EDITS
+    steps[BWD_NOTHING_ADDED] = [swap(
+        BWD, "        bwd_footprint<DEG>(g, gs, xs, ys, ca, cb, rank, deg, r, c, pu, pv, invh, "
+        "g_pu, g_pv, g_t2,\n                           g_s);",
+        "        g_s += static_cast<float>(r.y - r.x + c.y - c.x);")]
+    return steps
+
+
+# B13's parent with its per-slot hit branch replaced by the mask of 32
+# tests first, then the terms of the set bits in ascending order.
+PARENT_MASK_THEN_TERM = """        for (int q0 = 0; q0 < n_prims; q0 += 32) {
+            uint32_t bits = 0;
+#pragma unroll
+            for (int q = 0; q < 32; ++q) {
+                bits |= pair_passes<true>(r, s.x[q0 + q], s.y[q0 + q], s.z[q0 + q],
+                                          s.h2[q0 + q]) << q;
+            }
+            while (bits) {
+                const int i = q0 + __ffs(bits) - 1;
+                bits &= bits - 1;
+                float dot, bx, by, bz;
+                const float b2 = impact(s.x[i], s.y[i], s.z[i], r.ox, r.oy, r.oz, r.dx, r.dy,
+                                        r.dz, dot, bx, by, bz);
+                const float v = (s.w[i] * poly_f(s_poly, b2 * s.inv_h2[i])) * s.inv_h2[i];
+                const float y = v - comp;
+                const float t = acc + y;
+                comp = (t - acc) - y;
+                acc = t;
+            }
+        }
+    }
+    out[ray] = acc;
+"""
+
+
+def render_fwd_variants():
+    """B13's redesign in steps (as listed), then the shipped kernel with
+    one thing changed."""
+    bufs = shipped_const("render.cu", "kFwdBuffers")
+    return {
+        "mask then term, float4 rows, staged by plain loads": [swap(
+            "stage.cuh", "            cp_async16(dst, src(row, g) + (col & ((1 << shift) - 1)));",
+            "            *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(\n"
+            "                src(row, g) + (col & ((1 << shift) - 1)));")],
+        f"+ cp.async, {bufs} buffer{'s' if bufs > 1 else ''} (shipped)": None,
+        f"shipped, {3 - bufs} buffer{'s' if bufs == 1 else ''} of {1024 // (3 - bufs)}": [
+            csrc_const("render.cu", "kFwdBuffers", 3 - bufs)],
+        FWD_NO_TERM: [swap(
+            "render.cu", "const float v = (sb.w[i] * poly_f(s_poly, b2 * sb.p.inv_h2[i])) * "
+            "sb.p.inv_h2[i];", "const float v = sb.w[i];")],
+    }
+
+
+def build_all(builds):
+    """{name: build_variant(*arguments)} for {name: arguments}, one nvcc each, at once."""
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        return dict(zip(builds, pool.map(lambda a: build_variant(*a), builds.values())))
+
+
+def train_ablation(label, lib, entry, variants, parent_dir, parent_edits, make_args, orders,
+                   not_compared, resource_ints, ordered=None):
+    """Build ``variants`` of kernel ``entry`` of library ``lib`` (and with
+    ``parent_dir``, the parent's kernel as it was and with
+    ``parent_edits``), print each one's resources, then time them in turns
+    on ``make_args(order)`` (the C entry's arguments and its output; the
+    parent's entry takes no order): the steps before the shipped one as
+    listed, the shipped one in each of ``orders`` ({name: i32 order or
+    None}; the first is the wrapper's), the variants in ``ordered``
+    ({variant: ({name: i32 order}, the entry table it is bound with)}) in
+    each of theirs, the rest in the wrapper's order. Every output is held
+    bit-equal to the parent's (without it, to the first variant's), but
+    those in ``not_compared``."""
+    from grace_tpu_torch import _kernels
+
+    builds = {}
+    if parent_dir is not None:
+        csrc = os.path.join(parent_dir, "grace_tpu_torch", "csrc")
+        for name, edits in (("parent", None), *parent_edits.items()):
+            builds[name] = (lib, f"{label}-{name}".replace(" ", "_").replace(",", ""), edits,
+                            csrc, PARENT_TRAIN_ENTRIES[lib])
+    else:
+        print(f"{label}: no --parent DIR, so no parent rows; variants held to the first one",
+              flush=True)
+    ordered = ordered or {}
+    for i, (v, edits) in enumerate(variants.items()):
+        builds[v] = (lib, f"{label}-{i}", edits) + ((None, ordered[v][1]) if v in ordered else ())
+    dlls = build_all(builds)
+    shipped = next(v for v, edits in variants.items() if edits is None)
+    before = list(variants)[:list(variants).index(shipped)]
+    for v, dll in dlls.items():
+        if v in variants:
+            out = (ctypes.c_int * 5)()
+            call(getattr(dll, entry + "_resources"), [ctypes.addressof(out), *resource_ints])
+            print(f"resources {label} {v}: "
+                  f"{json.dumps(dict(zip(_kernels.RESOURCE_FIELDS, out)))}", flush=True)
+    runs = {}
+    want = None
+    for v, dll in dlls.items():
+        fn = getattr(dll, entry)
+        if v not in variants:   # the parent's: no order argument
+            args, out = make_args(None, parent=True)
+            runs[f"{v}, as listed"] = (lambda f=fn, a=args: call(f, a), out)
+        else:
+            named = orders if v == shipped else ordered[v][0] if v in ordered else (
+                {"as listed": None} if v in before else dict([next(iter(orders.items()))]))
+            for name, order in named.items():
+                args, out = make_args(order)
+                runs[f"{v}, {name}"] = (lambda f=fn, a=args, held=order: call(f, a),
+                                        None if v in not_compared else out)
+        if want is None:   # the parent's output, else the first variant's
+            first, out = next(iter(runs.values()))
+            first()
+            torch.cuda.synchronize()
+            want = out.clone()
+    return in_turns(label, runs, want)
+
+
+def sortfree_bwd_ablations(sorted_spheres, weights, parent_dir):
+    """B12 on main path 3's backward inputs (the bench scene, 512x512,
+    tiles of 32 x 128, deg8; the cotangent a seeded normal image, which
+    moves no footprint): the spread of the work over segments, then the
+    parent, the redesign's steps, the shipped kernel (as listed) with
+    other constants, and with a launch order (most listed tiles first,
+    fewest first) and the order's own time."""
+    from grace_tpu_torch import _kernels
+    from chip_smoke import footprint_counts
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    cam = sg.OrthoCamera(CAM, LOOK, UP, VEXT, LENGTH, SIDE, SIDE)
+    masks, masks_t, coords, slabs = sortfree_inputs(sorted_spheres, weights, cam, 32)
+    tiles = _popcount_rows(masks_t)
+    spread("splat_sortfree_bwd: tiles listed per segment", tiles)
+    rows, cols = footprint_counts(sorted_spheres, weights, cam)
+    n_segs = slabs.shape[0]
+    products = torch.nn.functional.pad(rows * cols, (0, n_segs * 128 - rows.shape[0]))
+    spread("splat_sortfree_bwd: footprint products per segment", products.view(-1, 128).sum(1))
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal((SIDE, SIDE))
+                         .astype(np.float32)).to(slabs.device)
+    deg, a_c, _ = sg._basis_coeffs("deg8")
+    dev = slabs.device
+    a_t, b_t = (sg._basis_tensor("deg8", side, str(dev)) for side in ("a", "b"))
+    most = sg.sortfree_tile_order(masks_t)   # the segments by listed tiles, most first
+
+    def make_args(order, parent=False):
+        out = torch.empty((n_segs, 8, 128), dtype=torch.float32, device=dev)
+        head = [masks_t.data_ptr()] + ([] if order is None else [order.data_ptr()])
+        return head + [t.data_ptr() for t in (coords, slabs, g, a_t, b_t, out)] + [
+            n_segs, masks_t.shape[1], masks.shape[0], SIDE // 128, 32, 128, SIDE,
+            a_c.shape[0], deg], out
+
+    ms = cuda_ms(lambda: sg.sortfree_tile_order(masks_t), reps=10)
+    print(f"splat_sortfree_bwd: the order most listed tiles first (sortfree_tile_order on the "
+          f"transposed masks) {ms:.3f} ms", flush=True)
+    entries = {**_kernels.KERNELS["splat_sortfree"][2],
+               "grace_splat_sortfree_bwd": "pppppppp" + "iiiiiiiii"}
+    return train_ablation("splat_sortfree_bwd", "splat_sortfree", "grace_splat_sortfree_bwd",
+                          sortfree_bwd_variants(), parent_dir, {}, make_args,
+                          {"as listed": None}, (BWD_NOTHING_ADDED,),
+                          (32, 128, a_c.shape[0], deg), {BWD_ORDERED: (
+                              {"as listed (order 0, 1, ...)": torch.arange(
+                                  n_segs, dtype=torch.int32, device=dev),
+                               "most listed tiles first": most,
+                               "fewest first": most.flip(0).contiguous()}, entries)})
+
+
+def render_fwd_ablations(sorted_spheres, weights, rays_s, parent_dir):
+    """B13 on main path 3's forward inputs (the bench scene's sorted rays,
+    tile 128, max_chunks 2048): the spread of the lists, then the parent
+    (and with its 32 tests into a mask first), the redesign's steps, the
+    shipped kernel's buffers and its launch orders (longest list first, as
+    listed, shortest first)."""
+    from grace_tpu_torch import _kernels
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import pallas_render as pr
+
+    fwd_args, ovf, _, _ = render_inputs(rays_s, sorted_spheres, weights,
+                                        torch.zeros(rays_s.n_rays, device=weights.device),
+                                        128, 2048, 2048)
+    if bool(ovf.any()):
+        raise AssertionError("forward segment lists overflow")
+    counts, ids, rays_packed, prims = fwd_args
+    prims = _kernels.aligned(prims)
+    spread("render_fwd: segments listed per tile", counts)
+    dev = counts.device
+    n_tiles = counts.shape[0]
+    poly = pr._poly_tensor(str(dev))
+    longest = pk.list_tile_order(counts, ids.shape[1])
+
+    def make_args(order, parent=False):
+        out = torch.empty(rays_packed.shape[0], dtype=torch.float32, device=dev)
+        head = [counts.data_ptr(), ids.data_ptr()] + (
+            [] if parent else [None if order is None else order.data_ptr()])
+        return head + [t.data_ptr() for t in (rays_packed, prims, poly, out)] + [
+            n_tiles, rays_packed.shape[0] // n_tiles, ids.shape[1], prims.shape[0]], out
+
+    parent_edits = {"parent, 32 tests into a mask, then the terms": [swap_between(
+        "render.cu", "        for (int i = 0; i < n_prims; ++i) {",
+        "struct Particle {", PARENT_MASK_THEN_TERM + "}\n\n")]}
+    return train_ablation("render_fwd", "render", "grace_render_fwd", render_fwd_variants(),
+                          parent_dir, parent_edits, make_args, {
+                              "longest list first": longest, "as listed": None,
+                              "shortest first": longest.flip(0).contiguous()},
+                          (FWD_NO_TERM,), (128,))
+
+
 def user_paths(sorted_spheres, weights, rays_s):
     """The splat frame (build, rays + sort, bucket, splat), one sort-free
     training step (forward, L2 loss against 1.01 x its image, backward, SGD
-    1e-6) and the per-hit record trace (512 a ray, tile 64, both routes) on
+    1e-6), one fused-renderer step (the same on the sorted rays, tile 128)
+    and the per-hit record trace (512 a ray, tile 64, both routes) on
     the bench scene, through the package's user functions only, so that
     another checkout's package can run them (``--package``): each timed
     (CUDA events, median of 10 after a warm run) and its device busy
@@ -1252,6 +1574,7 @@ def user_paths(sorted_spheres, weights, rays_s):
     from grace_tpu_torch.build.sph import build_sph_tree
     from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
     from grace_tpu_torch.trace import pallas_records as prc
+    from grace_tpu_torch.trace import pallas_render as pr
     from grace_tpu_torch.trace import splat as sp
     from grace_tpu_torch.trace import splat_grad as sg
 
@@ -1273,9 +1596,19 @@ def user_paths(sorted_spheres, weights, rays_s):
                                                     tile_w=32, tile_h=128, chunk=512, band=32),
                               basis="deg8", tile_w=32, tile_h=128)
 
+    fused = pr.make_fused_renderer(tile=128, max_chunks=2048, max_tiles_per_seg=2048)
+    fused_target = 1.01 * fused(rays_s, sorted_spheres, weights).detach()
+
+    def fused_step():
+        s = sorted_spheres.detach().clone().requires_grad_(True)
+        w = weights.detach().clone().requires_grad_(True)
+        ((fused(rays_s, s, w) - fused_target) ** 2).sum().div(SIDE * SIDE).backward()
+        return s.detach() - 1e-6 * s.grad, w.detach() - 1e-6 * w.grad
+
     result = {}
     for label, fn in (
             ("splat frame", frame), ("sort-free train step", train_step),
+            ("fused train step", fused_step),
             ("record trace, default (quarter) route",
              lambda: prc.pallas_trace_sph_records(rays_s, sorted_spheres, 512)),
             ("record trace, bitmask route", lambda: prc.pallas_trace_sph_records(
@@ -1318,7 +1651,8 @@ def device_busy(label, fn):
     return {"busy_ms": busy, "wall_ms": wall}
 
 
-PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "paths")
+PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
+         "paths")
 
 
 def main():
@@ -1328,7 +1662,7 @@ def main():
         sys.path.insert(0, os.path.abspath(args[i + 1]))
         del args[i:i + 2]
     parent = None
-    if "--parent" in args:  # the parent's record kernel for the records part
+    if "--parent" in args:  # the parent's kernels (records, sortfree_bwd, render_fwd)
         i = args.index("--parent")
         parent = os.path.abspath(args[i + 1])
         del args[i:i + 2]
@@ -1350,7 +1684,8 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     print(f"package {os.path.dirname(grace_tpu_torch.__file__)}", flush=True)
     summary = {}
-    if {"trace", "render_bwd", "splat", "records", "paths"} & set(parts):
+    if {"trace", "render_bwd", "splat", "records", "sortfree_bwd", "render_fwd",
+            "paths"} & set(parts):
         spheres = torch.from_numpy(
             make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
         sorted_spheres, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
@@ -1362,6 +1697,12 @@ def main():
         summary.update(splat_ablations(sorted_spheres, torch.ones(N_PARTICLES, device=dev)))
     if "records" in parts:
         summary.update(record_ablations(sorted_spheres, rays_s, parent))
+    if "sortfree_bwd" in parts:
+        summary["splat_sortfree_bwd"] = sortfree_bwd_ablations(
+            sorted_spheres, torch.ones(N_PARTICLES, device=dev), parent)
+    if "render_fwd" in parts:
+        summary["render_fwd"] = render_fwd_ablations(
+            sorted_spheres, torch.ones(N_PARTICLES, device=dev), rays_s, parent)
     if "paths" in parts:
         summary["paths"] = user_paths(sorted_spheres, torch.ones(N_PARTICLES, device=dev), rays_s)
     if "render_bwd" in parts:

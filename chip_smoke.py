@@ -62,7 +62,12 @@ tiles, rows that overflow, every route and drain option bit-equal) and the
 triangle kernel (random meshes with faces culled, rays that miss the mesh
 box, tiles 8, 32, 64 and 96, both modes, lists cut by max_chunks). The
 record kernels are also launched as listed, longest mask row first and
-shortest first, each launch bit-equal.
+shortest first, and the fused forward's tiles as listed and shortest first
+besides the wrapper's longest list first, at every check of those
+kernels: each launch into outputs of its own filled with a poison value,
+held against the plain version and bit-equal to the wrapper's launch. The
+sort-free backward is checked at tile_w 8, 16 and 32, and 8 to 64 on the
+splat edge scene.
 
 Prints a ``resources`` line for each kernel redesigned for the card
 (registers a thread, shared bytes and threads a block, resident blocks and
@@ -553,13 +558,23 @@ def check_sortfree(tag, inputs, g_image, basis, tile_w, bwd_rel, tile_h=128):
     within ``bwd_rel`` x its max (grace_tpu's gradient bounds: 3e-5, and
     5e-4 where a footprint covers the whole image). Returns the max abs
     errors (image, gradients)."""
+    height, width = g_image.shape
+    err_f, top = check_sortfree_fwd(tag, inputs, basis, tile_w, tile_h, height, width)
+    err_b = check_sortfree_bwd(tag, inputs, g_image, basis, tile_w, bwd_rel, tile_h)
+    log(f"check splat_sortfree kernels vs plain: {tag} tile_w {tile_w} {basis}: image "
+        f"max abs err {err_f:.3g} (max value {top:.3g}), gradients max abs err {err_b:.3g} OK")
+    return err_f, err_b
+
+
+def check_sortfree_bwd(tag, inputs, g_image, basis, tile_w, bwd_rel, tile_h=128):
+    """The sort-free backward against its plain version: each gradient row
+    within ``bwd_rel`` x its max, the padding rows zero. Returns the max
+    abs error."""
     from grace_tpu_torch.trace import splat_grad as sg
 
-    masks, masks_t, coords, slabs = inputs
+    _, masks_t, coords, slabs = inputs
     deg, a_c, b_c = sg._basis_coeffs(basis)
-    height, width = g_image.shape
-    ntx = width // tile_h
-    err_f, top = check_sortfree_fwd(tag, inputs, basis, tile_w, tile_h, height, width)
+    ntx = g_image.shape[1] // tile_h
     got = sg.splat_sortfree_bwd(masks_t, coords, slabs, g_image, basis, tile_w, tile_h)
     want = sg._sortfree_bwd_plain(masks_t, coords, slabs, g_image, a_c, b_c, ntx, tile_w,
                                   tile_h)
@@ -571,9 +586,7 @@ def check_sortfree(tag, inputs, g_image, basis, tile_w, bwd_rel, tile_h=128):
                                        got[:, r], want[:, r], 0.0, bwd_rel * scale)[0])
     if not torch.equal(got[:, 4:], torch.zeros_like(got[:, 4:])):
         raise AssertionError(f"{tag} splat_sortfree_bwd: padding rows not zero")
-    log(f"check splat_sortfree kernels vs plain: {tag} tile_w {tile_w} {basis}: image "
-        f"max abs err {err_f:.3g} (max value {top:.3g}), gradients max abs err {err_b:.3g} OK")
-    return err_f, err_b
+    return err_b
 
 
 def check_sortfree_fwd(tag, inputs, basis, tile_w, tile_h, height, width, order="heaviest"):
@@ -606,6 +619,7 @@ SPLAT_EDGE_CASES = ((32, 128, 32, 64), (32, 128, None, 64), (16, 64, 16, 64),
                     (8, 64, 64, 64), (64, 128, 64, 64))
 SORTFREE_EDGE_CASES = ((8, 128), (64, 128), (32, 16), (16, 64))
 EDGE_ORDERS = ("heaviest", "listed", "reversed")
+SORTFREE_BWD_EDGE_ROWS = (8, 16, 32, 64)   # tile_w of the backward's edge checks (tile_h 128)
 
 
 def _edge_order(name, counts):
@@ -662,6 +676,21 @@ def sortfree_edge_check(dev, case, order, basis="deg8"):
                               _edge_order(order, counts))
 
 
+def sortfree_bwd_edge_check(dev, tile_w, basis):
+    """The sort-free backward on splat_edge_scene (weights 1, 5 particles
+    dead; footprint edges at d^2 within a few ulp of 1 from a pixel centre,
+    footprints covering whole 32 x 32 patches) at tile_w x 128, a seeded
+    normal cotangent, against its plain version."""
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    spheres = splat_edge_scene(dev).clone()
+    spheres[::300, 3] = 0.0
+    cam = sg.OrthoCamera(CAM, LOOK, UP, 4.0, LENGTH, 128, 128)
+    inputs = sortfree_inputs(spheres, torch.ones(spheres.shape[0], device=dev), cam, tile_w)
+    g = torch.randn(128, 128, generator=torch.Generator().manual_seed(tile_w)).to(dev)
+    return check_sortfree_bwd(f"edge tile_w {tile_w}", inputs, g, basis, tile_w, 3e-5)
+
+
 def splat_edge_checks(dev):
     """Both splat kernels at every edge shape and launch order."""
     for case in SPLAT_EDGE_CASES:
@@ -678,6 +707,11 @@ def splat_edge_checks(dev):
             err, top = sortfree_edge_check(dev, case, order)
             log(f"check splat_sortfree_fwd kernel vs dense (bit-equal) and plain: edge scene "
                 f"{case} {order}: max abs err {err:.3g} (max value {top:.3g}) OK")
+    for tile_w in SORTFREE_BWD_EDGE_ROWS:
+        for basis in ("deg8", "deg10"):
+            err = sortfree_bwd_edge_check(dev, tile_w, basis)
+            log(f"check splat_sortfree_bwd kernel vs plain: edge scene tile_w {tile_w} {basis}: "
+                f"gradients max abs err {err:.3g} OK")
 
 
 def render_inputs(rays, spheres, weights, g, tile, max_chunks, max_tiles):
@@ -711,20 +745,40 @@ def check_render_bwd(tag, bwd_args):
     return err_b
 
 
-def check_render(tag, fwd_args, bwd_args):
-    """Both fused-render kernels against their plain versions: column
-    densities within rtol 1e-5, atol 1e-6 x max; the gradients as
-    ``check_render_bwd``. Returns the max abs errors (values, gradients)."""
+def check_render_fwd(tag, fwd_args):
+    """The fused renderer's forward against its plain version: column
+    densities within rtol 1e-5, atol 1e-6 x max; its tiles launched as the
+    wrapper does (longest list first), then as listed and shortest first,
+    each of these into an output of its own filled with a poison value
+    (kept alive, so that a ray no block wrote shows), held against the
+    plain version as the wrapper's launch and bit-equal to it. Returns
+    (max abs err, max value)."""
+    from grace_tpu_torch.trace import pallas_kernel as pk
     from grace_tpu_torch.trace import pallas_render as pr
 
     got = pr.render_fwd(*fwd_args)
     want = pr._render_fwd_plain(*fwd_args)
+    atol = 1e-6 * float(want.abs().max())
+    shortest = pk.list_tile_order(fwd_args[0], fwd_args[1].shape[1]).flip(0).contiguous()
+    kept = []
+    for name, order in (("as listed", None), ("shortest list first", shortest)):
+        out = torch.empty_like(got)
+        out.view(torch.int32).fill_(-7)
+        kept.append(pr._render_fwd_launch(*fwd_args, order, out))
+        check_close(f"{tag} render_fwd {name}", out, want, 1e-5, atol)
+        check_equal(f"{tag} render_fwd {name} vs the wrapper's order", out, got)
     torch.cuda.synchronize()
-    err_f, top = check_close(f"{tag} render_fwd", got, want, 1e-5,
-                             1e-6 * float(want.abs().max()))
+    return check_close(f"{tag} render_fwd", got, want, 1e-5, atol)
+
+
+def check_render(tag, fwd_args, bwd_args):
+    """Both fused-render kernels against their plain versions: the
+    forward as ``check_render_fwd``, the gradients as
+    ``check_render_bwd``. Returns the max abs errors (values, gradients)."""
+    err_f, top = check_render_fwd(tag, fwd_args)
     err_b = check_render_bwd(tag, bwd_args)
     log(f"check render kernels vs plain: {tag}: values max abs err {err_f:.3g} (max value "
-        f"{top:.3g}), gradients max abs err {err_b:.3g} OK")
+        f"{top:.3g}; three launch orders bit-equal), gradients max abs err {err_b:.3g} OK")
     return err_f, err_b
 
 
@@ -810,7 +864,7 @@ def training_small_checks(dev):
     for whole in (False, True):
         ss, w = training_scene(dev, whole)
         tag = "whole-image particle" if whole else "dead particles, empty tiles"
-        for tile_w in (16, 32):
+        for tile_w in (8, 16, 32):
             inputs = sortfree_inputs(ss, w, cam, tile_w)
             masks, masks_t, _, slabs = inputs
             seg_tiles = _popcount_rows(masks_t)
@@ -1214,10 +1268,9 @@ def triangle_gates(tris, img, side):
             "rays_clipped": pt.clip_rays_to_aabb(rays_p, flat.amin(dim=0), flat.amax(dim=0))}
 
 
-def footprint_work(spheres, weights, cam):
-    """(sum over live particles of rows x columns, and of rows + columns)
-    of the pixel centers inside each particle's footprint |d| < h: the
-    products and factor entries the separable image needs."""
+def footprint_counts(spheres, weights, cam):
+    """(rows, columns) f64[n] of the pixel centers inside each particle's
+    footprint |d| < h (0 for a dead particle)."""
     from grace_tpu_torch.trace import splat_grad as sg
 
     pu, pv, invh, scale = sg.project_ortho(spheres, weights, cam)
@@ -1234,6 +1287,14 @@ def footprint_work(spheres, weights, cam):
                  cam.resolution_x)
     rows = count((float(y0) - pv.double() - h) / -dy, (float(y0) - pv.double() + h) / -dy,
                  cam.resolution_y)
+    return rows, cols
+
+
+def footprint_work(spheres, weights, cam):
+    """(sum over live particles of rows x columns, and of rows + columns)
+    of the pixel centers inside each particle's footprint |d| < h: the
+    products and factor entries the separable image needs."""
+    rows, cols = footprint_counts(spheres, weights, cam)
     return float((rows * cols).sum()), float((rows + cols).sum())
 
 
@@ -1309,7 +1370,10 @@ def run(dev, n_particles, side):
             (f"splat (32 x 32 patch, deg8, batch {sp.SPLAT_BATCH})", "splat",
              "grace_splat_resources", (32, 32, 5, 8, sp.SPLAT_BATCH)),
             (f"splat_sortfree_fwd (32 x 32 patch, deg8, batch {sg.FWD_BATCH})", "splat_sortfree",
-             "grace_splat_sortfree_fwd_resources", (32, 32, 5, 8, sg.FWD_BATCH))):
+             "grace_splat_sortfree_fwd_resources", (32, 32, 5, 8, sg.FWD_BATCH)),
+            ("splat_sortfree_bwd (32 x 128 tile, deg8)", "splat_sortfree",
+             "grace_splat_sortfree_bwd_resources", (32, 128, 5, 8)),
+            ("render_fwd (tile 128)", "render", "grace_render_fwd_resources", (TRACE_TILE,))):
         log(f"resources {label}: {json.dumps(_kernels.resources(name, entry, dev, *ints))}")
 
     # 2. kernels vs plain versions at small and edge shapes; routes vs the
@@ -1659,6 +1723,11 @@ def run(dev, n_particles, side):
     t["dense_segment_tiles (fused backward, max_tiles 2048)"] = cuda_ms(
         lambda: pr.dense_segment_tiles(rays_s, sorted_spheres, pr.BWD_TILE, 2048))
     t["render_fwd kernel"] = cuda_ms(lambda: pr.render_fwd(*fwd_args))
+    t["list_tile_order (fused forward)"] = cuda_ms(
+        lambda: pk.list_tile_order(fwd_args[0], fwd_args[1].shape[1]))
+    listed_out = torch.empty(fwd_args[2].shape[0], dtype=torch.float32, device=dev)
+    t["render_fwd kernel, as listed"] = cuda_ms(
+        lambda: pr._render_fwd_launch(*fwd_args, None, listed_out))
     t["render_fwd plain"] = cuda_ms(lambda: pr._render_fwd_plain(*fwd_args), reps=2, warm=0)
     t["render_bwd kernel"] = cuda_ms(lambda: pr.render_bwd(*bwd_args))
     t["render_bwd plain"] = cuda_ms(lambda: pr._render_bwd_plain(*bwd_args), reps=2, warm=0)

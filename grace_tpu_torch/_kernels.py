@@ -51,9 +51,11 @@ KERNELS = {
     "splat_sortfree": ("splat_sortfree.cu", ["--fmad=false"],
                        {"grace_splat_sortfree_fwd": "ppppppp" + "iiiiiiiiiii",
                         "grace_splat_sortfree_fwd_resources": "p" + "iiiii",
-                        "grace_splat_sortfree_bwd": "ppppppp" + "iiiiiiiii"}),
+                        "grace_splat_sortfree_bwd": "ppppppp" + "iiiiiiiii",
+                        "grace_splat_sortfree_bwd_resources": "p" + "iiii"}),
     "render": ("render.cu", ["--fmad=false"],
-               {"grace_render_fwd": "pppppp" + "iiii",
+               {"grace_render_fwd": "ppppppp" + "iiii",
+                "grace_render_fwd_resources": "pi",
                 "grace_render_bwd": "pppppp" + "iii",
                 "grace_render_bwd_resources": "p"}),
     "records": ("records.cu", ["--fmad=false"],

@@ -1,5 +1,6 @@
 // Asynchronous global -> shared copies and named-barrier votes, shared by
-// the kernels that stage ahead (tri.cu, render.cu's backward).
+// the kernels that stage ahead (tri.cu, render.cu, stage.cuh's walk,
+// splat_sortfree.cu's backward).
 //
 // cp.async copies 16 bytes a thread without passing through registers; a
 // thread commits its copies as a group and waits until at most N of its
@@ -12,6 +13,13 @@
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// The same for one 4-byte element (any 4-byte aligned addresses; cached
+// in L1 as well: .ca is the only form below 16 bytes).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -8,8 +8,21 @@
 // F the Clenshaw fit of poly_fast.cuh. Layout: as trace_list.cu with
 // 128-particle groups: one block per ray tile, one thread per ray, the
 // tile's first min(count, max_len) segments staged 8 at a time (1,024
-// particles, 24 KB) in shared memory, a Kahan sum per ray. The per-tile
-// overflow flag against max_chunks comes from the list builder.
+// particles' x, y, z, 1/h^2, h^2 and w, 24 KB) with 16-byte cp.async
+// copies, through stage.cuh's walk (staged_batches), a Kahan sum per ray.
+// The per-tile overflow flag against max_chunks comes from the list
+// builder.
+//
+// The forward's design (the trace kernels' loop, stage.cuh): a thread
+// tests 32 staged particles against its ray into a mask (pass_bits32, the
+// same hit test b^2 < h^2 along the ray, rows read as float4), then adds
+// w F(b^2 / h^2) / h^2 and the Kahan update for the set bits only, in
+// ascending slot order: every ray keeps its hits, their order and its
+// Kahan sum, so the output is bit-equal to the integral taken inside the
+// pair loop (chip_ablation.py render_fwd holds it so). A tile's walk over
+// its list is serial and lists are long-tailed, so the
+// wrapper launches the tiles longest list first (``order``): block b
+// renders tile order[b] and writes that tile's rays in place.
 //
 // Backward: replaces grace_tpu/trace/pallas_render.py::_bwd_kernel (:110).
 // Segment-major: one block per 128-particle segment, one thread per
@@ -64,66 +77,76 @@ constexpr int kBwdBatch = 4;   // ray tiles per barrier pair (pallas_render.BWD_
 // Two 16 KB buffers and the constants a block: six blocks (24 warps) an SM.
 constexpr int kBwdMinBlocks = 6;
 
-struct StagedWeighted {
-    float x[kStage], y[kStage], z[kStage], w[kStage], inv_h2[kStage], h2[kStage];
+constexpr int kSegShift = 7;  // log2(kSeg)
+// One staging buffer: two of 512 particles (the next batch in flight, in
+// the same shared memory) took 5% longer on the bench scene
+// (chip_ablation.py render_fwd).
+constexpr int kFwdBuffers = 1;
+constexpr int kFwdSlots = kStage / kFwdBuffers;  // particles a batch
+
+// kFwdSlots staged particles' rows: the hit test's (x, y, z, 1/h^2, h^2)
+// and the weights, back to back.
+struct __align__(16) StagedWeighted {
+    StagedRows<kFwdSlots> p;
+    float w[kFwdSlots];
 };
+static_assert(sizeof(StagedWeighted) == 6 * kFwdSlots * sizeof(float), "rows are back to back");
 
-// Slot i <- particle lane of segment seg of the (n_segs, 8, 128) slabs
-// (rows x y z h w 1/h^2 h^2 pad); a segment outside [0, n_segs) stages
-// h^2 = 0, which never hits.
-__device__ __forceinline__ void stage_weighted(StagedWeighted& s, int i,
-                                               const float* __restrict__ prims,
-                                               int64_t seg, int lane, int n_segs) {
-    const bool ok = seg >= 0 && seg < n_segs;
-    const float* p = prims + (ok ? seg : 0) * 8 * kSeg + lane;
-    s.x[i] = ok ? __ldg(p) : 0.0f;
-    s.y[i] = ok ? __ldg(p + kSeg) : 0.0f;
-    s.z[i] = ok ? __ldg(p + 2 * kSeg) : 0.0f;
-    s.w[i] = ok ? __ldg(p + 4 * kSeg) : 0.0f;
-    s.inv_h2[i] = ok ? __ldg(p + 5 * kSeg) : 0.0f;
-    s.h2[i] = ok ? __ldg(p + 6 * kSeg) : 0.0f;
-}
+// Row r of StagedWeighted <- row fwd_slab_row(r) of a (8, 128) segment slab
+// (rows x y z h w 1/h^2 h^2 pad).
+__device__ __forceinline__ int fwd_slab_row(int r) { return r < 3 ? r : r < 5 ? r + 2 : 4; }
 
-__global__ void render_fwd_kernel(const int32_t* __restrict__ counts,
-                                  const int32_t* __restrict__ ids,
-                                  const float* __restrict__ rays,
-                                  const float* __restrict__ prims,
-                                  const float* __restrict__ poly,
-                                  float* __restrict__ out, int max_len, int n_segs) {
-    __shared__ StagedWeighted s;
+__global__ void __launch_bounds__(kMaxTile)
+render_fwd_kernel(const int32_t* __restrict__ counts, const int32_t* __restrict__ ids,
+                  const int32_t* __restrict__ order, const float* __restrict__ rays,
+                  const float* __restrict__ prims, const float* __restrict__ poly,
+                  float* __restrict__ out, int n_tiles, int max_len, int n_segs) {
+    __shared__ StagedWeighted s[kFwdBuffers];
     __shared__ float s_poly[kPolySize];
-    constexpr int kBatch = kStage / kSeg;
 
-    const int tile = blockDim.x;
-    const int tid = threadIdx.x;
-    const int64_t ray = static_cast<int64_t>(blockIdx.x) * tile + tid;
+    const int t = order != nullptr ? order[blockIdx.x] : static_cast<int>(blockIdx.x);
+    if (t < 0 || t >= n_tiles) return;
+    const int64_t ray = static_cast<int64_t>(t) * blockDim.x + threadIdx.x;
     load_poly(s_poly, poly);
     const RaySeg r = load_ray(rays, ray);
-    const int32_t* row = ids + static_cast<int64_t>(blockIdx.x) * max_len;
-    const int n = min(max(counts[blockIdx.x], 0), max_len);
+    const int32_t* row = ids + static_cast<int64_t>(t) * max_len;
+    const int n = min(max(counts[t], 0), max_len);
 
+    int base = 0;  // list entries staged so far
+    // The next (up to kFwdSlots / kSeg) listed segments into buffer b; a
+    // segment outside [0, n_segs) stages h^2 = 0, which never hits.
+    auto stage_next = [&](int b) {
+        const int k = min(kFwdSlots / kSeg, n - base);
+        if (k <= 0) return 0;
+        const int32_t* batch = row + base;
+        stage_rows<kFwdSlots>(
+            reinterpret_cast<float*>(&s[b]), 6, k, kSegShift, n_segs,
+            [&](int j) { return static_cast<int64_t>(__ldg(batch + j)); },
+            [&](int rr, int64_t g) { return prims + (g * 8 + fwd_slab_row(rr)) * kSeg; });
+        base += k;
+        return k * kSeg;
+    };
     float acc = 0.0f;
     float comp = 0.0f;  // Kahan compensation
-    for (int base = 0; base < n; base += kBatch) {
-        const int n_prims = min(kBatch, n - base) * kSeg;
-        __syncthreads();  // the previous batch is consumed
-        for (int i = tid; i < n_prims; i += tile) {
-            stage_weighted(s, i, prims, __ldg(row + base + i / kSeg), i % kSeg, n_segs);
-        }
-        __syncthreads();
-        for (int i = 0; i < n_prims; ++i) {
-            float dot, bx, by, bz;
-            const float b2 = impact(s.x[i], s.y[i], s.z[i], r.ox, r.oy, r.oz, r.dx, r.dy,
-                                    r.dz, dot, bx, by, bz);
-            if (b2 < s.h2[i] && dot >= 0.0f && dot < r.len) {
-                const float v = (s.w[i] * poly_f(s_poly, b2 * s.inv_h2[i])) * s.inv_h2[i];
+    auto consume = [&](int b, int m) {
+        const StagedWeighted& sb = s[b];
+        for (int q = 0; q < m; q += 32) {
+            uint32_t bits = pass_bits32<true>(sb.p, q, r);
+            while (bits) {
+                const int i = q + __ffs(bits) - 1;
+                bits &= bits - 1;
+                float dot, bx, by, bz;
+                const float b2 = impact(sb.p.x[i], sb.p.y[i], sb.p.z[i], r.ox, r.oy, r.oz, r.dx,
+                                        r.dy, r.dz, dot, bx, by, bz);
+                const float v = (sb.w[i] * poly_f(s_poly, b2 * sb.p.inv_h2[i])) * sb.p.inv_h2[i];
                 const float y = v - comp;
-                const float t = acc + y;
-                comp = (t - acc) - y;
-                acc = t;
+                const float tt = acc + y;
+                comp = (tt - acc) - y;
+                acc = tt;
             }
         }
-    }
+    };
+    staged_batches<kFwdBuffers>(stage_next, consume);
     out[ray] = acc;
 }
 
@@ -263,18 +286,32 @@ render_bwd_kernel(const int32_t* __restrict__ n_tiles, const int32_t* __restrict
 
 }  // namespace
 
-extern "C" int grace_render_fwd(const int32_t* counts, const int32_t* ids, const float* rays,
-                                const float* prims, const float* poly, float* out,
-                                int n_tiles, int tile, int max_len, int n_segs, int device,
-                                void* stream) {
-    if (tile < 1 || tile > 1024 || max_len < 0) return static_cast<int>(cudaErrorInvalidValue);
+// order: i32[n_tiles], block b renders tile order[b] (a permutation of
+// [0, n_tiles)); null: block b renders tile b. prims 16-byte aligned.
+extern "C" int grace_render_fwd(const int32_t* counts, const int32_t* ids, const int32_t* order,
+                                const float* rays, const float* prims, const float* poly,
+                                float* out, int n_tiles, int tile, int max_len, int n_segs,
+                                int device, void* stream) {
+    if (tile < 1 || tile > kMaxTile || max_len < 0 || !aligned16(prims)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = trace_kernel_setup(render_fwd_kernel, tile, nullptr);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n_tiles > 0) {
         render_fwd_kernel<<<n_tiles, tile, 0, static_cast<cudaStream_t>(stream)>>>(
-            counts, ids, rays, prims, poly, out, max_len, n_segs);
+            counts, ids, order, rays, prims, poly, out, n_tiles, max_len, n_segs);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// What a forward launch of tile threads a block holds (trace_kernel_setup's out).
+extern "C" int grace_render_fwd_resources(int* out, int tile, int device, void* stream) {
+    (void)stream;
+    if (tile < 1 || tile > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) err = trace_kernel_setup(render_fwd_kernel, tile, out);
+    return static_cast<int>(err);
 }
 
 extern "C" int grace_render_bwd(const int32_t* n_tiles, const int32_t* tile_ids,

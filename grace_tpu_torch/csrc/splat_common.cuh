@@ -316,9 +316,10 @@ inline int tasks_per_warp(int tile_w, int band) {
 }
 
 // Let kernel take smem bytes of dynamic shared memory; with out, also fill
-// registers, shared bytes, threads, resident blocks and warps an SM.
+// registers, shared bytes, threads, resident blocks and warps an SM (for
+// blocks of `threads`).
 template <typename Kernel>
-cudaError_t kernel_setup(Kernel kernel, size_t smem, int* out) {
+cudaError_t kernel_setup(Kernel kernel, size_t smem, int* out, int threads = kThreads) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                            cudaSharedmemCarveoutMaxShared);
     if (err == cudaSuccess) {
@@ -330,14 +331,14 @@ cudaError_t kernel_setup(Kernel kernel, size_t smem, int* out) {
     int blocks;
     err = cudaFuncGetAttributes(&attr, kernel);
     if (err == cudaSuccess) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
     }
     if (err != cudaSuccess) return err;
     out[0] = attr.numRegs;
     out[1] = static_cast<int>(attr.sharedSizeBytes + smem);
-    out[2] = kThreads;
+    out[2] = threads;
     out[3] = blocks;
-    out[4] = blocks * kWarps;
+    out[4] = blocks * threads / 32;
     return cudaSuccess;
 }
 

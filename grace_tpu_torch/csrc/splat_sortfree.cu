@@ -31,34 +31,52 @@
 //
 // Backward: replaces grace_tpu/trace/splat_grad.py::_sortfree_bwd_kernel.
 // One block per segment, one thread per particle; the block walks the
-// tiles of its transposed mask row (no list, so no capacity). For each
-// tile it stages the cotangent tile G in shared memory, and each thread
-// accumulates, for k = 1..rank,
+// tiles of its transposed mask row (no list, so no capacity), in ascending
+// order. For each tile every thread accumulates, for k = 1..rank,
 //     P_k(i) = sum_j G_ij b_k(j),  Q_k(i) = sum_j G_ij b'_k(j) dtx/dpu(j),
 //     R_k(i) = sum_j G_ij b'_k(j) dtx/dlog(invh)(j)
-// over the tile's rows i in registers, then contracts them with its own
-// a_k(i) and a'_k(i): g_scale += a P, g_pu += a Q, g_pv += a' dty/dpv P,
+// over the tile's rows i, then contracts them with its own a_k(i) and
+// a'_k(i): g_scale += a P, g_pu += a Q, g_pv += a' dty/dpv P,
 // g_t2 += a' dty/dlog(invh) P + a R. That is M_k = G^T A_k and
-// N_k = G B_k without storing either. Columns outside every particle's
-// footprint add exact zeros, so the block runs only the columns some
-// particle of the segment reaches (a shared min/max). Particles with
-// scale 0 write zero rows.
+// N_k = G B_k without storing either. Particles with scale 0 write zero
+// rows.
 //
-// What bounds it: 3 fmas per (row, column, rank, particle) of the P/Q/R
-// sums. G reads are warp broadcasts; each thread keeps 3 * 32 sums in
-// registers.
+// What bounds it: 3 fmas per (row, column, rank) of a particle's
+// footprint in the tile, the factor build (a Horner value and derivative
+// per rank and footprint row or column), and the shared loads of the
+// cotangent tile G. The design: outside a particle's footprint every term
+// is exactly +-0 (b = (1 - 1) q(1), and the derivative terms carry
+// in_x / in_y = 0), and fmaf(x, +-0, acc) leaves acc as it is, so a
+// thread runs only the rows and columns of its own footprint
+// (splat_common.cuh's support_range: O(1), the closed form trimmed by the
+// exact test) and a particle outside the tile does nothing. Per rank it
+// takes the footprint's rows kBwdRows at a time (P, Q, R in registers:
+// no runtime index), builds each column's factors once a pass and each
+// row's once, with the Horner loop unrolled for the bases' degrees (8,
+// 10); each particle keeps the order of additions of the earlier design
+// (per k: columns ascending into each row's P, Q, R, then rows ascending
+// into the four sums), so the gradients keep its bits up to the sign of
+// an all-zero sum. G is staged column-major (the rows of a column back to
+// back: the rows of a pass are one immediate offset apart) with 4-byte
+// cp.async copies through stage.cuh's walk (staged_batches). The segments
+// launch as listed, block b on segment b: their work is even on the
+// bench scene (10,096 footprint products a segment on average, 11,970 at
+// most), and most listed tiles first took 4-5% off the kernel, 0.04-0.05
+// ms, for an order that costs 0.13-0.21 ms (chip_ablation.py
+// sortfree_bwd builds that variant).
 
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "common.cuh"
 #include "splat_common.cuh"
+#include "stage.cuh"
 
 namespace {
 
 using splat::kRows;
 constexpr int kFwdThreads = splat::kThreads;
 constexpr int kSeg = 128;
-constexpr int kMaxRows = 32;  // backward: rows of a tile (P/Q/R in registers)
 
 struct Coords {
     float x0, dx, y0, dy;
@@ -188,13 +206,19 @@ sortfree_fwd_kernel(const int32_t* __restrict__ masks, const int32_t* __restrict
     splat::store_patch<NT>(acc, out, row0, col0, width, tile_w, band);
 }
 
-// alpha(t) = (1 - t) q(t) and its t-derivative q'(t) (1 - t) - q(t).
-__device__ __forceinline__ void poly_and_deriv(const float* c, int deg, float t,
-                                               float& val, float& der) {
+// alpha(t) = (1 - t) q(t) and its t-derivative q'(t) (1 - t) - q(t), one
+// Horner loop for both; DEG > 0 fixes the degree at compile time (the
+// loop unrolled), DEG = 0 takes deg at run time. The same operations
+// either way.
+template <int DEG>
+__device__ __forceinline__ void poly_and_deriv(const float* c, int deg, float t, float& val,
+                                               float& der) {
+    const int d0 = DEG > 0 ? DEG : deg;
     const float m = 1.0f - t;
-    float q = c[deg];
+    float q = c[d0];
     float dq = 0.0f;
-    for (int d = deg - 1; d >= 0; --d) {
+#pragma unroll
+    for (int d = d0 - 1; d >= 0; --d) {
         dq = fmaf(dq, t, q);
         q = fmaf(q, t, c[d]);
     }
@@ -202,7 +226,87 @@ __device__ __forceinline__ void poly_and_deriv(const float* c, int deg, float t,
     der = fmaf(dq, m, -q);
 }
 
-template <int TW>  // rows held in registers, >= tile_w
+// Footprint rows a pass (P, Q, R in registers) and cotangent tiles staged
+// at a time. On the bench scene (chip_ablation.py sortfree_bwd), 4 rows a
+// pass took 18-22% longer (more passes, each rebuilding the column
+// factors), 12 rows 11-12% and 16 rows 2-3% longer (96 registers: 20 warps
+// an SM, not 28); a second buffer, the next tile in flight, 10-27% longer
+// (20 warps).
+constexpr int kBwdRows = 8;
+constexpr int kBwdBuffers = 1;
+
+// Floats between two columns of a staged cotangent tile: tile_w rows and
+// at least kBwdRows - 1 zero rows (a pass may run past the tile's last
+// row), rounded up to a multiple of 8. On the bench scene the rounded
+// stride (40 at tile_w 32) ran 11-13% faster than tile_w + kBwdRows - 1
+// (chip_ablation.py sortfree_bwd); the inner loop's code is the same, and
+// the cause was not found.
+__host__ __device__ inline int bwd_col_stride(int tile_w) {
+    return (tile_w + kBwdRows + 6) / 8 * 8;
+}
+
+// Floats of a staging buffer: the tile, its column and row centres.
+__host__ __device__ inline int bwd_buffer_floats(int tile_w, int tile_h) {
+    return tile_h * bwd_col_stride(tile_w) + tile_h + tile_w;
+}
+
+size_t bwd_smem_bytes(int tile_w, int tile_h, int rank, int deg) {
+    return sizeof(float) * (static_cast<size_t>(kBwdBuffers) * bwd_buffer_floats(tile_w, tile_h) +
+                            2 * rank * (deg + 1));
+}
+
+// One particle's terms over a staged tile: its footprint rows [r.x, r.y)
+// and columns [c.x, c.y); g the column-major tile (column stride gs), xs
+// and ys its centres, ca and cb the basis coefficients.
+template <int DEG>
+__device__ __forceinline__ void bwd_footprint(const float* g, int gs, const float* xs,
+                                              const float* ys, const float* ca, const float* cb,
+                                              int rank, int deg, int2 r, int2 c, float pu, float pv,
+                                              float invh, float& g_pu, float& g_pv, float& g_t2,
+                                              float& g_s) {
+    const int n_c = (DEG > 0 ? DEG : deg) + 1;
+    for (int k = 0; k < rank; ++k) {
+        const float* ck_a = ca + k * n_c;
+        const float* ck_b = cb + k * n_c;
+        for (int rb = r.x; rb < r.y; rb += kBwdRows) {
+            float p_s[kBwdRows], q_s[kBwdRows], r_s[kBwdRows];
+#pragma unroll
+            for (int u = 0; u < kBwdRows; ++u) p_s[u] = q_s[u] = r_s[u] = 0.0f;
+            for (int j = c.x; j < c.y; ++j) {
+                const float xb = (xs[j] - pu) * invh;
+                const float xb2 = xb * xb;  // < 1: in_x = 1
+                float b_v, b_d;
+                poly_and_deriv<DEG>(ck_b, deg, xb2, b_v, b_d);
+                const float bq = b_d * ((-2.0f * xb) * invh);
+                const float br = b_d * (2.0f * xb2);
+                const float* gj = g + j * gs + rb;
+#pragma unroll
+                for (int u = 0; u < kBwdRows; ++u) {
+                    const float gv = gj[u];
+                    p_s[u] = fmaf(gv, b_v, p_s[u]);
+                    q_s[u] = fmaf(gv, bq, q_s[u]);
+                    r_s[u] = fmaf(gv, br, r_s[u]);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < kBwdRows; ++u) {
+                if (rb + u < r.y) {
+                    const float ya = (ys[rb + u] - pv) * invh;
+                    const float ya2 = ya * ya;  // < 1: in_y = 1
+                    float a_v, a_d;
+                    poly_and_deriv<DEG>(ck_a, deg, ya2, a_v, a_d);
+                    const float ap = a_d * p_s[u];
+                    g_s = fmaf(a_v, p_s[u], g_s);
+                    g_pu = fmaf(a_v, q_s[u], g_pu);
+                    g_pv = fmaf(ap, (-2.0f * ya) * invh, g_pv);
+                    g_t2 = fmaf(ap, 2.0f * ya2, fmaf(a_v, r_s[u], g_t2));
+                }
+            }
+        }
+    }
+}
+
+template <int DEG>
 __global__ void __launch_bounds__(kSeg)
 sortfree_bwd_kernel(const int32_t* __restrict__ masks_t, const float* __restrict__ coords,
                     const float* __restrict__ slabs, const float* __restrict__ g_image,
@@ -211,14 +315,14 @@ sortfree_bwd_kernel(const int32_t* __restrict__ masks_t, const float* __restrict
                     int tile_h, int width, int rank, int deg) {
     extern __shared__ float smem[];
     const int n_c = rank * (deg + 1);
-    float* g = smem;                    // [TW][tile_h] cotangent tile, rows >= tile_w zero
-    float* xs = g + TW * tile_h;        // [tile_h]
-    float* ys = xs + tile_h;            // [TW]
-    float* ca = ys + TW;                // [rank][deg + 1]
+    const int gs = bwd_col_stride(tile_w);
+    const int per_buffer = bwd_buffer_floats(tile_w, tile_h);
+    float* ca = smem + kBwdBuffers * per_buffer;  // [rank][deg + 1]
     float* cb = ca + n_c;
-    int* range = reinterpret_cast<int*>(cb + n_c);  // [2] columns [lo, hi) any particle reaches
+    // buffer b: the tile [tile_h][gs], then xs [tile_h], ys [tile_w]
+    auto tile_of = [&](int b) { return smem + b * per_buffer; };
 
-    const int seg = blockIdx.x;
+    const int seg = static_cast<int>(blockIdx.x);
     const int tid = threadIdx.x;
     const Coords cc = load_coords(coords);
     const float* s = slabs + static_cast<int64_t>(seg) * 8 * kSeg;
@@ -228,98 +332,81 @@ sortfree_bwd_kernel(const int32_t* __restrict__ masks_t, const float* __restrict
         ca[i] = a_coeffs[i];
         cb[i] = b_coeffs[i];
     }
-    for (int e = tile_w * tile_h + tid; e < TW * tile_h; e += kSeg) g[e] = 0.0f;
-
-    float g_pu = 0.0f, g_pv = 0.0f, g_t2 = 0.0f, g_s = 0.0f;
-    const int32_t* row = masks_t + static_cast<int64_t>(seg) * n_twords;
-    for (int w = 0; w < n_twords; ++w) {
-        unsigned bits = mask_word(row, w, n_twords, n_tiles);
-        while (bits != 0) {
-            const int t = w * 32 + __ffs(bits) - 1;
-            bits &= bits - 1;
-            const int row0 = (t / ntx) * tile_w;
-            const int col0 = (t % ntx) * tile_h;
-            __syncthreads();  // the previous tile is consumed
-            for (int e = tid; e < tile_w * tile_h; e += kSeg) {
-                const int i = e / tile_h;
-                g[e] = g_image[static_cast<int64_t>(row0 + i) * width + col0 + (e - i * tile_h)];
-            }
-            for (int j = tid; j < tile_h; j += kSeg) xs[j] = fmaf(static_cast<float>(col0 + j), cc.dx, cc.x0);
-            for (int i = tid; i < tile_w; i += kSeg) ys[i] = fmaf(static_cast<float>(row0 + i), cc.dy, cc.y0);
-            if (tid == 0) {
-                range[0] = tile_h;
-                range[1] = 0;
-            }
-            __syncthreads();
-            if (scl != 0.0f) {
-                bool any_row = false;
-                for (int i = 0; i < tile_w && !any_row; ++i) {
-                    const float d = (ys[i] - pv) * invh;
-                    any_row = d * d < 1.0f;
-                }
-                int lo = tile_h, hi = 0;
-                for (int j = 0; j < tile_h && any_row; ++j) {
-                    const float d = (xs[j] - pu) * invh;
-                    if (d * d < 1.0f) {
-                        lo = min(lo, j);
-                        hi = j + 1;
-                    }
-                }
-                if (lo < hi) {
-                    atomicMin(range, lo);
-                    atomicMax(range + 1, hi);
-                }
-            }
-            __syncthreads();
-            const int j_lo = range[0], j_hi = range[1];
-            for (int k = 0; k < rank && j_lo < j_hi; ++k) {
-                const float* ck_a = ca + k * (deg + 1);
-                const float* ck_b = cb + k * (deg + 1);
-                float p_s[TW], q_s[TW], r_s[TW];
-#pragma unroll
-                for (int i = 0; i < TW; ++i) p_s[i] = q_s[i] = r_s[i] = 0.0f;
-                for (int j = j_lo; j < j_hi; ++j) {
-                    const float xb = (xs[j] - pu) * invh;
-                    const float xb2 = xb * xb;
-                    const float in_x = xb2 < 1.0f ? 1.0f : 0.0f;
-                    float b_v, b_d;
-                    poly_and_deriv(ck_b, deg, fminf(xb2, 1.0f), b_v, b_d);
-                    const float bq = b_d * (((-2.0f * xb) * invh) * in_x);
-                    const float br = b_d * ((2.0f * xb2) * in_x);
-                    const float* gj = g + j;
-#pragma unroll
-                    for (int i = 0; i < TW; ++i) {
-                        const float gv = gj[i * tile_h];
-                        p_s[i] = fmaf(gv, b_v, p_s[i]);
-                        q_s[i] = fmaf(gv, bq, q_s[i]);
-                        r_s[i] = fmaf(gv, br, r_s[i]);
-                    }
-                }
-#pragma unroll
-                for (int i = 0; i < TW; ++i) {
-                    if (i < tile_w) {
-                        const float ya = (ys[i] - pv) * invh;
-                        const float ya2 = ya * ya;
-                        const float in_y = ya2 < 1.0f ? 1.0f : 0.0f;
-                        float a_v, a_d;
-                        poly_and_deriv(ck_a, deg, fminf(ya2, 1.0f), a_v, a_d);
-                        const float ap = a_d * p_s[i];
-                        g_s = fmaf(a_v, p_s[i], g_s);
-                        g_pu = fmaf(a_v, q_s[i], g_pu);
-                        g_pv = fmaf(ap, ((-2.0f * ya) * invh) * in_y, g_pv);
-                        g_t2 = fmaf(ap, (2.0f * ya2) * in_y, fmaf(a_v, r_s[i], g_t2));
-                    }
-                }
-            }
+    const int pad = gs - tile_w;  // zero rows under each column, never staged
+    for (int b = 0; b < kBwdBuffers; ++b) {
+        for (int e = tid; e < tile_h * pad; e += kSeg) {
+            tile_of(b)[e / pad * gs + tile_w + e % pad] = 0.0f;
         }
     }
-    float* o = out + static_cast<int64_t>(seg) * 8 * kSeg;
+
+    // The listed tiles in ascending order, the same on every thread.
+    const int32_t* row = masks_t + static_cast<int64_t>(seg) * n_twords;
+    int w = 0;
+    unsigned bits = n_twords > 0 ? mask_word(row, 0, n_twords, n_tiles) : 0u;
+    // The next listed tile's cotangents (column-major) and centres into
+    // buffer b; returns the tile + 1, 0 past the last.
+    auto stage_next = [&](int b) {
+        while (bits == 0) {
+            if (++w >= n_twords) return 0;
+            bits = mask_word(row, w, n_twords, n_tiles);
+        }
+        const int t = w * 32 + __ffs(bits) - 1;
+        bits &= bits - 1;
+        const int row0 = (t / ntx) * tile_w;
+        const int col0 = (t % ntx) * tile_h;
+        float* g = tile_of(b);
+        for (int e = tid; e < tile_w * tile_h; e += kSeg) {
+            const int i = e / tile_h;
+            const int j = e - i * tile_h;
+            cp_async4(g + j * gs + i, g_image + static_cast<int64_t>(row0 + i) * width + col0 + j);
+        }
+        float* xs = g + tile_h * gs;
+        float* ys = xs + tile_h;
+        for (int j = tid; j < tile_h; j += kSeg) {
+            xs[j] = fmaf(static_cast<float>(col0 + j), cc.dx, cc.x0);
+        }
+        for (int i = tid; i < tile_w; i += kSeg) {
+            ys[i] = fmaf(static_cast<float>(row0 + i), cc.dy, cc.y0);
+        }
+        return t + 1;
+    };
+
+    float g_pu = 0.0f, g_pv = 0.0f, g_t2 = 0.0f, g_s = 0.0f;
     const bool live = scl != 0.0f;
+    auto consume = [&](int b, int) {
+        if (!live) return;
+        const float* g = tile_of(b);
+        const float* xs = g + tile_h * gs;
+        const float* ys = xs + tile_h;
+        const int2 r = splat::support_range(ys, tile_w, splat::inverse_step(ys, tile_w), pv, invh);
+        if (r.x == r.y) return;
+        const int2 c = splat::support_range(xs, tile_h, splat::inverse_step(xs, tile_h), pu, invh);
+        if (c.x == c.y) return;
+        bwd_footprint<DEG>(g, gs, xs, ys, ca, cb, rank, deg, r, c, pu, pv, invh, g_pu, g_pv, g_t2,
+                           g_s);
+    };
+    staged_batches<kBwdBuffers>(stage_next, consume);
+
+    float* o = out + static_cast<int64_t>(seg) * 8 * kSeg;
     o[tid] = live ? g_pu * scl : 0.0f;
     o[kSeg + tid] = live ? g_pv * scl : 0.0f;
     o[2 * kSeg + tid] = live ? g_t2 * scl : 0.0f;
     o[3 * kSeg + tid] = live ? g_s : 0.0f;
     for (int r = 4; r < 8; ++r) o[r * kSeg + tid] = 0.0f;
+}
+
+using BwdKernel = void (*)(const int32_t*, const float*, const float*, const float*,
+                           const float*, const float*, float*, int, int, int, int, int, int, int,
+                           int);
+
+BwdKernel bwd_kernel_for(int deg) {
+    return deg == 8 ? sortfree_bwd_kernel<8>
+                    : deg == 10 ? sortfree_bwd_kernel<10> : sortfree_bwd_kernel<0>;
+}
+
+bool bwd_valid(int tile_w, int tile_h, int rank, int deg) {
+    return tile_w >= 1 && tile_h >= 1 && rank >= 1 && deg >= 0 &&
+           bwd_smem_bytes(tile_w, tile_h, rank, deg) <= splat::kMaxShared;
 }
 
 // Blocks a tile's rows are cut into: kRowParts where tile_w allows it.
@@ -403,31 +490,39 @@ extern "C" int grace_splat_sortfree_fwd_resources(int* out, int tile_w, int band
     return static_cast<int>(err);
 }
 
-// Backward: one block of 128 threads per segment; tile_w <= 32 rows.
+// Backward: one block of 128 threads per segment; a tile whose staged
+// cotangents do not fit in a block's shared memory is refused.
 extern "C" int grace_splat_sortfree_bwd(const int32_t* masks_t, const float* coords,
                                         const float* slabs, const float* g_image,
-                                        const float* a_coeffs, const float* b_coeffs,
-                                        float* out, int n_segs, int n_twords, int n_tiles,
-                                        int ntx, int tile_w, int tile_h, int width,
-                                        int rank, int deg, int device, void* stream) {
-    const int tw = tile_w <= 8 ? 8 : tile_w <= 16 ? 16 : kMaxRows;
-    const size_t smem = sizeof(float) *
-        (static_cast<size_t>(tw + 1) * tile_h + tw + 2 * rank * (deg + 1) + 2);
-    if (tile_w < 1 || tile_w > kMaxRows || tile_h < 1 || smem > 48 * 1024 ||
-        n_twords != (n_tiles + 31) / 32) {
+                                        const float* a_coeffs, const float* b_coeffs, float* out,
+                                        int n_segs, int n_twords, int n_tiles, int ntx,
+                                        int tile_w, int tile_h, int width, int rank, int deg,
+                                        int device, void* stream) {
+    if (!bwd_valid(tile_w, tile_h, rank, deg) || n_twords != (n_tiles + 31) / 32) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n_segs == 0) return static_cast<int>(cudaGetLastError());
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GRACE_SORTFREE_BWD(T)                                                          \
-    sortfree_bwd_kernel<T><<<n_segs, kSeg, smem, st>>>(                                \
-        masks_t, coords, slabs, g_image, a_coeffs, b_coeffs, out, n_twords, n_tiles,   \
-        ntx, tile_w, tile_h, width, rank, deg);                                        \
-    return static_cast<int>(cudaGetLastError())
-    if (tw == 8) { GRACE_SORTFREE_BWD(8); }
-    if (tw == 16) { GRACE_SORTFREE_BWD(16); }
-    GRACE_SORTFREE_BWD(32);
-#undef GRACE_SORTFREE_BWD
+    const BwdKernel kernel = bwd_kernel_for(deg);
+    const size_t smem = bwd_smem_bytes(tile_w, tile_h, rank, deg);
+    err = splat::kernel_setup(kernel, smem, nullptr, kSeg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<n_segs, kSeg, smem, static_cast<cudaStream_t>(stream)>>>(
+        masks_t, coords, slabs, g_image, a_coeffs, b_coeffs, out, n_twords, n_tiles, ntx, tile_w,
+        tile_h, width, rank, deg);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// What a backward launch for this tile holds (splat::kernel_setup's out).
+extern "C" int grace_splat_sortfree_bwd_resources(int* out, int tile_w, int tile_h, int rank,
+                                                  int deg, int device, void* stream) {
+    (void)stream;
+    if (!bwd_valid(tile_w, tile_h, rank, deg)) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) {
+        err = splat::kernel_setup(bwd_kernel_for(deg), bwd_smem_bytes(tile_w, tile_h, rank, deg),
+                                  out, kSeg);
+    }
+    return static_cast<int>(err);
 }

@@ -1,6 +1,8 @@
 // Shared-memory staging of primitives for the fused SPH trace kernels
-// (trace_quarter.cu, trace_bitmask.cu, trace_list.cu) and the record
-// kernels (records.cu).
+// (trace_quarter.cu, trace_bitmask.cu, trace_list.cu), the record kernels
+// (records.cu) and the fused renderer's forward (render.cu); its walk
+// (staged_batches) also stages the sort-free backward's cotangent tiles
+// (splat_sortfree.cu).
 //
 // One block per ray tile, one thread per ray. Between a pair of barriers
 // the block copies up to kStage primitives' five rows (x, y, z, 1/h^2, h^2:
@@ -49,30 +51,41 @@ __device__ __forceinline__ void stage_prim(StagedPrims& s, int i,
     s.h2[i] = ok ? __ldg(prims + 5 * n_pad + p) : 0.0f;
 }
 
-// Slots [0, k << shift) <- the groups ids(0), ..., ids(k - 1) of 1 << shift
-// primitives each (group g: primitives [g << shift, (g + 1) << shift)),
-// every row in 16-byte cp.async copies that the caller commits and waits
-// for. A group outside [0, n_pad >> shift) stages zeros (h = 0, as
-// stage_prim). Needs prims 16-byte aligned, n_pad a multiple of 4 and
-// shift >= 2.
-template <int N, typename Ids>
-__device__ __forceinline__ void stage_groups(StagedRows<N>& s, int k, int shift,
-                                             const float* __restrict__ prims, int64_t n_pad,
-                                             Ids ids) {
+// Rows [0, n_rows) of a staging buffer of N slots a row (the rows back to
+// back from `rows`), slots [0, k << shift) <- the groups ids(0), ...,
+// ids(k - 1) of 1 << shift primitives each: row r of group g is read from
+// src(r, g) on, in 16-byte cp.async copies that the caller commits and
+// waits for. A group outside [0, n_groups) stages zeros (h = 0, as
+// stage_prim). Needs every src(r, g) 16-byte aligned and shift >= 2.
+template <int N, typename Ids, typename Src>
+__device__ __forceinline__ void stage_rows(float* rows, int n_rows, int k, int shift,
+                                           int64_t n_groups, Ids ids, Src src) {
     const int chunks = (k << shift) >> 2;  // 16-byte chunks a row
-    float* rows = reinterpret_cast<float*>(&s);
-    for (int c = threadIdx.x; c < 5 * chunks; c += blockDim.x) {
-        const int row = c / chunks;  // x, y, z, 1/h^2, h^2: slab rows 0-2, 4, 5
+    for (int c = threadIdx.x; c < n_rows * chunks; c += blockDim.x) {
+        const int row = c / chunks;
         const int col = 4 * (c - row * chunks);
         const int64_t g = ids(col >> shift);
         float* dst = rows + row * N + col;
-        if (g >= 0 && g < (n_pad >> shift)) {
-            cp_async16(dst, prims + (row < 3 ? row : row + 1) * n_pad + (g << shift) +
-                                (col & ((1 << shift) - 1)));
+        if (g >= 0 && g < n_groups) {
+            cp_async16(dst, src(row, g) + (col & ((1 << shift) - 1)));
         } else {
             *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         }
     }
+}
+
+// The five rows of s <- the groups ids(0), ..., ids(k - 1) of the
+// component-major f32[8, n_pad] slabs (x, y, z, 1/h^2, h^2: slab rows
+// 0-2, 4, 5), as stage_rows. Needs prims 16-byte aligned and n_pad a
+// multiple of 4.
+template <int N, typename Ids>
+__device__ __forceinline__ void stage_groups(StagedRows<N>& s, int k, int shift,
+                                             const float* __restrict__ prims, int64_t n_pad,
+                                             Ids ids) {
+    stage_rows<N>(reinterpret_cast<float*>(&s), 5, k, shift, n_pad >> shift, ids,
+                  [&](int row, int64_t g) {
+                      return prims + (row < 3 ? row : row + 1) * n_pad + (g << shift);
+                  });
 }
 
 // This thread's ray from its f32[16] row (o, d, 1/d, len, ...).
@@ -146,12 +159,13 @@ __device__ __forceinline__ void accumulate_staged(const StagedPrims& s, int n,
 }
 
 // A block's whole walk through a ring of kBuffers staging buffers:
-// stage_next(b) stages the next batch into buffer b with stage_groups and
-// returns its primitive count (a multiple of 32, the same on every thread),
-// 0 when no batch is left; consume(b, n) then reads buffer b's n
-// primitives. With one buffer: stage, wait, consume, and a barrier before
-// the next copy; with two (twice the shared memory), batch b + 1 is copied
-// while batch b is consumed.
+// stage_next(b) stages the next batch into buffer b with cp.async copies
+// and returns a positive tag of it, the same on every thread (the trace
+// and record kernels: its primitive count, a multiple of 32), 0 when no
+// batch is left; consume(b, n) then reads buffer b's batch of tag n. With
+// one buffer: stage, wait, consume, and a barrier before the next copy;
+// with two (twice the shared memory), batch b + 1 is copied while batch b
+// is consumed.
 template <int kBuffers, typename StageNext, typename Consume>
 __device__ __forceinline__ void staged_batches(StageNext stage_next, Consume consume) {
     static_assert(kBuffers == 1 || kBuffers == 2, "one or two buffers");

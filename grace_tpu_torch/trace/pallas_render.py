@@ -35,7 +35,8 @@ from grace_tpu_torch.sph.kernel_integrals import (
 from grace_tpu_torch.trace.broadphase import tile_aabbs
 from grace_tpu_torch.trace.pallas_broadphase import (
     compact_mask_words, dense_tile_segments, pack_overlap_bits, segment_aabbs)
-from grace_tpu_torch.trace.pallas_kernel import MAX_TILE, _impact, _pack_rays
+from grace_tpu_torch.trace.pallas_kernel import (MAX_TILE, _impact, _pack_rays,
+                                                 list_tile_order)
 
 SEG = 128
 BWD_TILE = 128  # rays per backward tile (one slab lane each)
@@ -175,18 +176,8 @@ def _render_bwd_plain(n_tiles, tile_ids, prims_sub, rays_bwd):
     return out.reshape(n_segs, SEG, 8)
 
 
-def render_fwd(counts, ids, rays_packed, prims3d):
-    """Per-ray weighted column density f32[R_pad] over each tile's segment
-    list: launches ``csrc/render.cu`` on CUDA tensors, runs
-    ``_render_fwd_plain`` on CPU tensors.
-
-    Args:
-      counts: i32[n_tiles], listed segments per tile (only the first
-        min(count, max_len) ids of a row are read).
-      ids: i32[n_tiles, max_len] segment ids.
-      rays_packed: f32[n_tiles * tile, 16] (``pallas_kernel._pack_rays``).
-      prims3d: f32[n_segs, 8, 128] (``_pack_prims_3d``).
-    """
+def _check_fwd(counts, ids, rays_packed, prims3d):
+    """The forward's device, types and shapes; returns the device."""
     n_tiles = counts.shape[0] if counts.dim() == 1 else 0
     device = _kernels.check_tensors("render_fwd", [counts, ids], [rays_packed, prims3d])
     if (n_tiles == 0 or ids.dim() != 2 or ids.shape[0] != n_tiles
@@ -195,18 +186,75 @@ def render_fwd(counts, ids, rays_packed, prims3d):
             or tuple(prims3d.shape[1:]) != (8, SEG)):
         raise ValueError("render_fwd: inconsistent shapes "
                          f"{[tuple(t.shape) for t in (counts, ids, rays_packed, prims3d)]}")
-    tile = rays_packed.shape[0] // n_tiles
+    return device
+
+
+def render_fwd(counts, ids, rays_packed, prims3d):
+    """Per-ray weighted column density f32[R_pad] over each tile's segment
+    list: launches ``csrc/render.cu`` on CUDA tensors (the tiles with the
+    longest lists first, ``list_tile_order``), runs ``_render_fwd_plain``
+    on CPU tensors.
+
+    Args:
+      counts: i32[n_tiles], listed segments per tile (only the first
+        min(count, max_len) ids of a row are read).
+      ids: i32[n_tiles, max_len] segment ids.
+      rays_packed: f32[n_tiles * tile, 16] (``pallas_kernel._pack_rays``).
+      prims3d: f32[n_segs, 8, 128] (``_pack_prims_3d``).
+    """
+    device = _check_fwd(counts, ids, rays_packed, prims3d)
     if device.type == "cpu":
         return _render_fwd_plain(counts, ids, rays_packed, prims3d)
+    return _render_fwd_cuda(counts, ids, rays_packed, prims3d,
+                            list_tile_order(counts, ids.shape[1]))
+
+
+def _render_fwd_cuda(counts, ids, rays_packed, prims3d, order, out=None):
+    """``csrc/render.cu``'s forward on ``render_fwd``'s checked CUDA
+    inputs, block b on tile order[b] (``order`` i32[n_tiles]; None: tile
+    b); each block writes its tile's rays in place, into ``out`` (None: a
+    new f32[R_pad])."""
+    n_tiles = counts.shape[0]
+    tile = rays_packed.shape[0] // n_tiles
     if tile > MAX_TILE:
         raise ValueError(f"tile {tile} > {MAX_TILE} rays per block")
-    args = [t.contiguous() for t in (counts, ids, rays_packed, prims3d)]
-    out = torch.empty(rays_packed.shape[0], dtype=torch.float32, device=device)
-    _kernels.launch("render", "grace_render_fwd", device, *[t.data_ptr() for t in args],
-                    _poly_tensor(str(device)).data_ptr(), out.data_ptr(), n_tiles, tile,
+    counts, ids, rays_packed = (t.contiguous() for t in (counts, ids, rays_packed))
+    prims3d = _kernels.aligned(prims3d)
+    if out is None:
+        out = torch.empty(rays_packed.shape[0], dtype=torch.float32, device=counts.device)
+    _kernels.launch("render", "grace_render_fwd", counts.device, counts.data_ptr(),
+                    ids.data_ptr(), None if order is None else order.data_ptr(),
+                    rays_packed.data_ptr(), prims3d.data_ptr(),
+                    _poly_tensor(str(counts.device)).data_ptr(), out.data_ptr(), n_tiles, tile,
                     ids.shape[1], prims3d.shape[0])
     render_fwd.launches += 1
     return out
+
+
+def _render_fwd_launch(counts, ids, rays_packed, prims3d, order, out):
+    """``render_fwd``'s kernel with its tiles launched in ``order`` in
+    place of the wrapper's longest list first, into ``out``: for checks
+    that the launch order changes no bit. ``order``: None (as listed) or
+    i32[n_tiles] on the inputs' CUDA device, a permutation of the tiles
+    (checked, with a host sync); ``out``: f32[R_pad] on that device,
+    contiguous. Returns ``out``."""
+    device = _check_fwd(counts, ids, rays_packed, prims3d)
+    if device.type != "cuda":
+        raise ValueError(f"render_fwd: the kernel runs on CUDA tensors, not {device}")
+    if (not isinstance(out, torch.Tensor) or out.dtype != torch.float32
+            or out.shape != (rays_packed.shape[0],) or out.device != device
+            or not out.is_contiguous()):
+        raise ValueError(f"render_fwd: out must be a contiguous f32[{rays_packed.shape[0]}] "
+                         f"on {device}")
+    n_tiles = counts.shape[0]
+    if order is not None and (
+            not isinstance(order, torch.Tensor) or order.dtype != torch.int32
+            or order.shape != (n_tiles,) or order.device != device
+            or not torch.equal(torch.sort(order).values,
+                               torch.arange(n_tiles, dtype=torch.int32, device=device))):
+        raise ValueError(f"render_fwd: order must be a permutation of the {n_tiles} tiles, "
+                         f"i32 on {device}")
+    return _render_fwd_cuda(counts, ids, rays_packed, prims3d, order, out)
 
 
 render_fwd.launches = 0

@@ -18,7 +18,8 @@ splat pipeline: neither direction sorts or scatters.
             CUDA block owns one segment's gradient and walks the tiles of
             its transposed bitmask row, so every (tile, segment) pair is
             visited once, with no atomics and no list capacity
-            (``splat_sortfree_bwd``).
+            (``splat_sortfree_bwd``): each particle's terms only inside
+            its footprint.
 
 The chain from (g_pu, g_pv, g_t2, g_scale) back to spheres and weights is
 elementwise PyTorch outside the kernels. On CPU tensors each kernel wrapper
@@ -41,7 +42,6 @@ from grace_tpu_torch.trace.pallas_kernel import _set_bits
 from grace_tpu_torch.trace.splat import _camera_frame, _factor, _matmul_f32, batch_size
 
 SEG = 128  # particles per Morton segment = slab lane width
-MAX_BWD_ROWS = 32  # tile_w the backward kernel takes (rows in registers)
 
 
 def _basis_coeffs(basis: str):
@@ -369,11 +369,9 @@ def splat_sortfree_bwd(masks_t, coords, slabs, g_image, basis, tile_w, tile_h):
         return _sortfree_bwd_plain(masks_t, coords, slabs, g_image, a_c, b_c, ntx,
                                    tile_w, tile_h)
     rank = a_c.shape[0]
-    if tile_w > MAX_BWD_ROWS or (MAX_BWD_ROWS + 1) * tile_h + 2 * rank * (deg + 1) + 40 > 12 * 1024:
-        raise ValueError(f"splat_sortfree_bwd: tile {tile_w}x{tile_h} too large for a block "
-                         f"(at most {MAX_BWD_ROWS} rows and a 48 KB cotangent tile)")
     out = torch.empty((n_segs, 8, SEG), dtype=torch.float32, device=device)
     args = [t.contiguous() for t in (masks_t, coords, slabs, g_image)]
+    # the C entry refuses a tile whose staged cotangents pass a block's shared memory
     _kernels.launch(
         "splat_sortfree", "grace_splat_sortfree_bwd", device,
         *[t.data_ptr() for t in args], _basis_tensor(basis, "a", str(device)).data_ptr(),

@@ -16,9 +16,12 @@ their longest-first launch order, and every trace kernel on particles at
 the edge of a ray's support), splat, and the
 training kernels splat_sortfree_fwd / _bwd and render_fwd / _bwd (a
 particle count that is not a multiple of 128, dead particles, empty tiles,
-a particle that covers every tile, both bases, list overflow, backward
-lists cut to lengths around the kernel's staging batch; gradients within
-grace_tpu's bounds), the fused renderer's overflow contracts and
+a particle that covers every tile, both bases, tile_w 8 to 32, list
+overflow, backward lists cut to lengths around the kernel's staging batch,
+the sort-free backward on the splat edge scene at tile_w 8 to 64, the sort-free backward and
+the fused forward in three launch orders each bit-equal; gradients within
+grace_tpu's bounds; their resources, an unaligned slab and bad orders
+refused), the fused renderer's overflow contracts and
 both trainers against finite differences; the record kernels (quarter and
 segment words, tiles of 48 to 1024 rays, empty tiles, rows that overflow,
 row capacities that are no multiple of 4, three launch orders bit-equal,
@@ -44,11 +47,13 @@ from grace_tpu_torch.trace import splat_grad as sg
 from grace_tpu_torch.trace import pallas_records as prc
 from grace_tpu_torch.trace import pallas_tri as pt
 from chip_smoke import (
-    EDGE_ORDERS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES, check_record_orders, check_records,
+    EDGE_ORDERS, SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
+    check_record_orders, check_records,
     check_render,
     check_render_bwd, check_sortfree, check_splat, check_tri, colocated_scene, fd_checks,
     make_clustered_particles, random_mesh, records_inputs, records_scene,
-    records_small_checks, render_inputs, route_inputs, sortfree_edge_check, sortfree_inputs,
+    records_small_checks, render_inputs, route_inputs, sortfree_bwd_edge_check,
+    sortfree_edge_check, sortfree_inputs,
     splat_edge_check, support_edge_scene, training_scene, tri_inputs)
 from grace_tpu_torch import _kernels
 
@@ -345,7 +350,7 @@ WIDE = sg.OrthoCamera(CAM, LOOK, UP, 4.0, 6.0, 256, 128)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("basis", ["deg8", "deg10"])
-@pytest.mark.parametrize("tile_w", [16, 32])
+@pytest.mark.parametrize("tile_w", [16, 32, 8])
 @pytest.mark.parametrize("whole", [False, True])
 def test_splat_sortfree_kernels_match_plain(dev, whole, tile_w, basis):
     """3000 particles (not a multiple of 128), dead ones, a wide view with
@@ -363,6 +368,68 @@ def test_splat_sortfree_kernels_match_plain(dev, whole, tile_w, basis):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("basis", ["deg8", "deg10"])
+@pytest.mark.parametrize("tile_w", SORTFREE_BWD_EDGE_ROWS)
+def test_splat_sortfree_bwd_edge_scene(dev, tile_w, basis):
+    """The backward on the splat edge scene (footprint edges at d^2 within
+    a few ulp of 1 from a pixel centre, footprints covering whole 32 x 32
+    patches, dead particles), within 3e-5 x max of the plain version."""
+    before = sg.splat_sortfree_bwd.launches
+    sortfree_bwd_edge_check(dev, tile_w, basis)
+    assert sg.splat_sortfree_bwd.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_training_kernel_resources_and_rejections(dev):
+    """The training kernels' resource queries; the backward's C entry
+    refuses a tile whose cotangents pass a block's shared memory, and the
+    wrapper raises on that; the forward's C entry refuses an unaligned
+    slab, and a launch in another order one that is not a permutation of
+    the tiles or an output that is not its own f32[R_pad]."""
+    res = _kernels.resources("splat_sortfree", "grace_splat_sortfree_bwd_resources", dev,
+                             32, 128, 5, 8)
+    assert res["threads"] == 128 and res["blocks_per_sm"] >= 1
+    assert res["shared_bytes"] >= 4 * 32 * 128      # the staged cotangent tile at least
+    assert 0 < res["registers"] <= 255
+    with pytest.raises(RuntimeError, match="CUDA error"):   # past 227 KB of shared memory
+        _kernels.resources("splat_sortfree", "grace_splat_sortfree_bwd_resources", dev,
+                           32, 2048, 5, 8)
+    coords = torch.tensor([0.0, 0.0, 1e-3, 1e-3], device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sg.splat_sortfree_bwd(torch.zeros((1, 1), dtype=torch.int32, device=dev), coords,
+                              torch.zeros((1, 8, 128), device=dev),
+                              torch.zeros((32, 2048), device=dev), "deg8", 32, 2048)
+    res = _kernels.resources("render", "grace_render_fwd_resources", dev, 128)
+    assert res["threads"] == 128 and res["blocks_per_sm"] >= 1 and res["registers"] <= 64
+    ss, w = training_scene(dev, False)
+    rays, _, _ = spatial_sort_rays(orthographic_projection_rays(64, 64, CAM, LOOK, UP, 4.0,
+                                                                6.0, device=dev))
+    fwd_args = render_inputs(rays, ss, w, torch.zeros(rays.n_rays, device=dev), 128, 2048,
+                             64)[0]
+    counts, ids, packed, prims = fwd_args
+    shifted = torch.empty(prims.numel() + 1, device=dev)[1:].view_as(prims)
+    shifted.copy_(prims)
+    out = torch.empty(packed.shape[0], device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _kernels.launch("render", "grace_render_fwd", dev, counts.data_ptr(), ids.data_ptr(),
+                        None, packed.data_ptr(), shifted.data_ptr(),
+                        pr._poly_tensor(str(dev)).data_ptr(), out.data_ptr(), counts.shape[0],
+                        128, ids.shape[1], prims.shape[0])
+    # the wrapper passes an aligned copy of an unaligned slab
+    assert torch.equal(pr.render_fwd(counts, ids, packed, shifted),
+                       pr.render_fwd(counts, ids, packed, prims))
+    good = torch.arange(counts.shape[0], dtype=torch.int32, device=dev)
+    out = torch.empty(packed.shape[0], device=dev)
+    for bad in (good[:-1], good.long(), good.cpu(), torch.zeros_like(good), good.flip(0) + 1):
+        with pytest.raises(ValueError, match="order"):
+            pr._render_fwd_launch(*fwd_args, bad, out)
+    for bad in (out[:-1], out.double(), out.cpu(), torch.empty(2 * out.shape[0], device=dev)[::2],
+                None):
+        with pytest.raises(ValueError, match="out"):
+            pr._render_fwd_launch(*fwd_args, good, bad)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lists", [(128, 2048, 64), (64, 3, 1)], ids=["roomy", "overflow"])
 @pytest.mark.parametrize("whole", [False, True])
 def test_render_kernels_match_plain(dev, whole, lists):
@@ -377,8 +444,8 @@ def test_render_kernels_match_plain(dev, whole, lists):
                                                    max_tiles)
     assert bool(ovf.any()) == bool(ovf_t.any()) == (max_tiles == 1)
     before = (pr.render_fwd.launches, pr.render_bwd.launches)
-    check_render("card test", fwd_args, bwd_args)
-    assert (pr.render_fwd.launches, pr.render_bwd.launches) == (before[0] + 1, before[1] + 1)
+    check_render("card test", fwd_args, bwd_args)   # the forward in three launch orders
+    assert (pr.render_fwd.launches, pr.render_bwd.launches) == (before[0] + 3, before[1] + 1)
 
 
 @pytest.mark.cuda

@@ -85,6 +85,30 @@ def test_splat_entries_take_the_launch_order(entry, position):
     assert params.split(",")[position].split() == ["const", "int32_t*", "order"]
 
 
+@pytest.mark.parametrize("entry,position", [("grace_splat_sortfree_bwd", None),
+                                            ("grace_render_fwd", 2)])
+def test_training_entries_take_the_launch_order(entry, position):
+    """The fused forward takes an i32 launch order (null: as listed) at the
+    argument its wrapper passes it, and refuses an unaligned slab (it
+    stages with 16-byte copies); the sort-free backward takes none (block
+    b runs segment b) and refuses a tile past a block's shared memory."""
+    name = "splat_sortfree" if entry == "grace_splat_sortfree_bwd" else "render"
+    src = _source(name)
+    params = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src).group(1)
+    params = [p.split() for p in params.split(",")]
+    body = src[src.index(f'extern "C" int {entry}('):]
+    body = body[:body.index("cudaSetDevice")]
+    if position is None:
+        assert ["const", "int32_t*", "order"] not in params
+        assert params[:2] == [["const", "int32_t*", "masks_t"], ["const", "float*", "coords"]]
+        assert "!bwd_valid(tile_w, tile_h, rank, deg)" in body
+        assert "bwd_smem_bytes(tile_w, tile_h, rank, deg) <= splat::kMaxShared" in src
+    else:
+        assert params[position] == ["const", "int32_t*", "order"]
+        assert params[position + 2] == ["const", "float*", "prims"]
+        assert "!aligned16(prims)" in body
+
+
 @pytest.mark.parametrize("entry,position", [("grace_records_quarter", 2),
                                             ("grace_records_bitmask", 1)])
 def test_record_entries_take_the_launch_order(entry, position):

@@ -1,9 +1,10 @@
 """The footprint cull of the splat kernels against grace_tpu's factors.
 
 The CUDA splat kernels (csrc/splat_common.cuh, used by csrc/splat.cu and
-the forward of csrc/splat_sortfree.cu) build a particle's factors only for
-the pixel centres inside its footprint, d = (c - q) * invh with d * d < 1,
-and add only those terms. They find that interval in closed form, widened
+the forward of csrc/splat_sortfree.cu, and the backward of
+csrc/splat_sortfree.cu) build a particle's factors only for the pixel
+centres inside its footprint, d = (c - q) * invh with d * d < 1, and add
+only those terms. They find that interval in closed form, widened
 by a margin, then trimmed with the exact test; the port's
 ``support_interval`` does the same arithmetic on the CPU. That is right
 only if (a) the widened interval contains every centre inside the
@@ -11,12 +12,16 @@ footprint, and (b) every term outside the footprint is exactly 0 in the
 reference. Here (a) is checked on the splat edge scene, whose placed
 particles put a pixel centre at d^2 within a few ulp of 1 on both sides
 (for both splat paths' pixel centres) and whose largest footprints cover
-whole patches, and (b) on grace_tpu's factor (``grace_tpu.trace.splat``
-``_factor``, jitted) and on the sort-free plain path's factor expression,
-for the same particles and centres.
+whole patches, at the forward's patches and the backward's tiles, and (b)
+on grace_tpu's factor (``grace_tpu.trace.splat`` ``_factor``, jitted), on
+the sort-free plain path's factor expression, and on every factor of the
+sort-free backward (``grace_tpu.trace.splat_grad._poly_and_deriv`` with
+its kernel's in_x / in_y products, jitted), for the same particles and
+centres.
 
 Also the kernels' launch orders: a permutation of the keys (tiles), most
-instances (listed segments) first, ties in key order, empty ones last.
+instances (listed segments, list entries read) first, ties in key order,
+empty ones last.
 """
 
 import jax
@@ -26,9 +31,14 @@ import pytest
 import torch
 
 import grace_tpu.trace.splat as jsp
+import grace_tpu.trace.splat_grad as jsg
+import grace_tpu_torch.trace.pallas_kernel as tpk
+import grace_tpu_torch.trace.pallas_render as tpr
 import grace_tpu_torch.trace.splat as tsp
 import grace_tpu_torch.trace.splat_grad as tsg
-from chip_smoke import CAM, LENGTH, LOOK, UP, splat_edge_scene
+from chip_smoke import (CAM, LENGTH, LOOK, SORTFREE_BWD_EDGE_ROWS, UP, render_inputs,
+                        splat_edge_scene, training_scene)
+from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
 from grace_tpu_torch.ops.vecmath import fma
 from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
 from tests.helper.torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -90,6 +100,26 @@ def test_interval_holds_every_centre_in_the_footprint(scene, path, axis):
     assert whole > 0, "no footprint covers a whole patch"
 
 
+@pytest.mark.parametrize("tile_w", SORTFREE_BWD_EDGE_ROWS)
+def test_interval_holds_every_centre_at_the_backward_tiles(scene, tile_w):
+    """The sort-free backward's tiles: tile_w rows by 128 columns of the
+    sort-free centres; the interval holds every centre of each footprint
+    and, trimmed, is the footprint exactly."""
+    pu, pv, invh, centres = scene
+    n_edge = 0
+    for axis, q, size in (("row", pv, tile_w), ("col", pu, 128)):
+        c_all = centres["sortfree"][axis]
+        for p0 in range(0, SIDE, size):
+            c = c_all[p0:p0 + size]
+            inside = _d2(c, q, invh) < 1.0
+            (lo, hi), (lo_t, hi_t) = tsp.support_interval(c, q, invh)
+            idx = torch.arange(size)
+            assert not bool((inside & ~((idx >= lo[:, None]) & (idx < hi[:, None]))).any())
+            assert torch.equal((idx >= lo_t[:, None]) & (idx < hi_t[:, None]), inside)
+            n_edge += int(((_d2(c, q, invh) - 1.0).abs() < 1e-5).sum())
+    assert n_edge > 0, "no centre at d^2 within a few ulp of 1"
+
+
 def test_interval_degenerate_centres():
     """One centre, or centres that do not advance: the interval starts
     from all of them and the exact test trims it."""
@@ -133,6 +163,44 @@ def test_terms_vanish_outside_the_footprint(scene, path, basis):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("basis", ["deg8", "deg10"])
+def test_backward_terms_vanish_outside_the_footprint(scene, basis):
+    """grace_tpu's sort-free backward factors, jitted: b_v, b_d dtx/dpu and
+    b_d dtx/dlog(invh) of the columns, a_v, a_d dty/dpv and a_d
+    dty/dlog(invh) of the rows (the derivative factors with the kernel's
+    in_x / in_y), are exactly 0 at every centre outside a footprint, and
+    the values are not 0 inside; so are the port's plain factors."""
+    pu, pv, invh, centres = scene
+    deg, a_c, b_c = SPLAT_BASES[basis]
+    for axis, q, coeffs in (("row", pv, a_c), ("col", pu, b_c)):
+        c = centres["sortfree"][axis]
+        coeffs = np.asarray(coeffs, np.float32)
+
+        def factors(cc, qq, ih):   # _sortfree_bwd_kernel's per-axis factors
+            d = (cc - qq) * ih
+            d2 = d * d
+            inside = (d2 < 1.0).astype(jnp.float32)
+            v, der = jsg._poly_and_deriv(jnp.minimum(d2, 1.0), coeffs, deg)
+            dpos, dlog = (-2.0) * d * ih * inside, 2.0 * d2 * inside
+            return (jnp.stack(v), jnp.stack([x * dpos for x in der]),
+                    jnp.stack([x * dlog for x in der]))
+
+        want = [np.asarray(f) for f in jax.jit(factors)(c.numpy()[None, :], q.numpy()[:, None],
+                                                        invh.numpy()[:, None])]
+        inside = (_d2(c, q, invh) < 1.0).numpy()
+        assert int(inside.sum()) > 1000 and bool((~inside).any())
+        for f in want:
+            assert not f[:, ~inside].any()
+        assert want[0][:, inside].any(axis=0).all()
+        d = (c[None, :] - q[:, None]) * invh[:, None]
+        v, der = tsg._poly_and_deriv(torch.clamp(d * d, max=1.0), coeffs)
+        in_d = torch.from_numpy(inside).float()
+        got = [v, der * (-2.0 * d * invh[:, None] * in_d), der * (2.0 * d * d * in_d)]
+        for g, w in zip(got, want):
+            assert not g.numpy()[:, ~inside].any()
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6 * np.abs(w).max())
+
+
 def _expected_order(lengths):
     return sorted(range(len(lengths)), key=lambda k: -lengths[k])  # stable
 
@@ -168,3 +236,22 @@ def test_sortfree_tile_order():
     assert order.tolist() == _expected_order(lengths)
     assert order.tolist()[0] == 7
     assert all(lengths[t] == 0 for t in order.tolist()[-lengths.count(0):])
+
+
+def test_render_fwd_tile_order():
+    """The fused forward's tiles on the training scene's lists (tile 64,
+    tiles with no segment, lists cut at max_len): a permutation of the
+    tiles by descending entries read, min(count, max_len), ties in tile
+    order; a launch in another order takes CUDA tensors only."""
+    ss, w = training_scene("cpu", False)
+    rays, _, _ = spatial_sort_rays(orthographic_projection_rays(64, 64, CAM, LOOK, UP, 4.0,
+                                                                LENGTH, device="cpu"))
+    for max_chunks in (2048, 3):
+        fwd_args = render_inputs(rays, ss, w, torch.zeros(rays.n_rays), 64, max_chunks, 8)[0]
+        counts, ids = fwd_args[0], fwd_args[1]
+        read = torch.clamp(counts, 0, ids.shape[1]).tolist()
+        assert 0 in read and len(set(read)) < len(read)
+        order = tpk.list_tile_order(counts, ids.shape[1])
+        assert order.dtype == torch.int32 and order.tolist() == _expected_order(read)
+        with pytest.raises(ValueError, match="CUDA"):
+            tpr._render_fwd_launch(*fwd_args, order, torch.empty(fwd_args[2].shape[0]))
