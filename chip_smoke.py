@@ -6,7 +6,7 @@ Builds the CUDA kernels from ``grace_tpu_torch/csrc`` (nvcc, first use, one
 process per source, all at once), checks each kernel against its plain
 PyTorch version on the card at small and edge shapes, holds every
 ``pallas_trace_sph`` route against the generic BVH engine, runs the driver
-entry's forward (build_sph_tree -> trace_cumulative_sph), then drives five
+entry's forward (build_sph_tree -> trace_cumulative_sph), then drives six
 main paths at full size (the bench scene: 2^20 clustered particles, 512x512
 rays; the triangle workload: a 262,144-triangle torus), each with the
 kernels' launch counters set to 0 just before it:
@@ -42,6 +42,24 @@ kernels' launch counters set to 0 just before it:
      where grace_tpu's two paths round the triangle test differently; then
      the triangle kernel against its plain version on every tile in both
      modes (ids, misses and t bit-equal).
+  6. a Gadget snapshot through random and HEALPix rays, on the bench
+     particles (``snapshot_path``): write_gadget_gas, then read_gadget_gas
+     (native library), _np_read and 4 shards, each bit-equal; build_sph_tree,
+     save_scene and load_scene(device=...), bit-equal; project_gadget's
+     512x512 plane-parallel field through the default route (CUDA) and the
+     quarter route (CUDA), hit counts equal and column densities within
+     rtol 1e-5, atol 1e-6 x max, then to_colormap and write_bmp (786,486
+     bytes, a valid header); the integral normalization on a padded
+     1024x1024 field (|sum x area / N - 1| < 5e-4); 262,144 sorted
+     isotropic rays from the box centre on both routes, 1,024 of them
+     against the generic engine (hit counts equal); 196,608 HEALPix rays
+     (nside 128, rotated) on both routes; Rayleigh z, An, Gn and Fn of
+     65,536 of the isotropic and of the HEALPix directions below their 0.01
+     critical values, one-octant directions rejected, An, Gn and Ripley's K
+     of 4,096 against float64, and the Ripley band (1,000 samples of 256)
+     accepting an isotropic bundle and rejecting a biased one; then each
+     stage's time and B3's and B6's on each ray set, and their share of the
+     path's wall time.
 
 The trace kernels are also held against their plain versions on particles
 at the edge of a ray's support (u = b^2 / h^2 within a few ulp of 1, on
@@ -81,9 +99,11 @@ the exit code is non-zero and no result line prints.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -124,6 +144,19 @@ FLOPS_MT = 55
 RECORD_CAP = 512          # grace_tpu's record workload capacity
 TORUS = dict(n_u=512, n_v=256)   # grace_tpu's triangle workload: 262,144 triangles
 ENGINE_SUBSET = 4096      # rays of the triangle image held against the engine
+# Main path 6: a Gadget snapshot through random and HEALPix rays, on the
+# bench particles. SNAPSHOT_SIZES are its widths (a CPU rehearsal passes
+# smaller ones): the projection's and the integral field's rays a side, the
+# isotropic rays and the engine's subset of them, the HEALPix nside, the
+# directions of the statistics and of their float64 subset, and the Ripley
+# band's bundle size and samples.
+SNAPSHOT_SIZES = dict(proj_side=512, integral_side=1024, iso_rays=262_144, engine_rays=1024,
+                      nside=128, stats_dirs=65_536, stats_subset=4_096, band_dirs=256,
+                      band_samples=1000)
+SNAPSHOT_SEED = 2026        # torch.Generator seeds of path 6's draws start here
+INTEGRAL_TOL = 5e-4         # the reference's integral normalization gate
+BAND_SCALES = np.array([0.1, 0.5, 1.0, np.pi / 2], np.float32)   # test_hypothesis.py's
+PATH6_FULL = "isotropic"    # path 6's set whose every tile is held to the plain versions
 
 _GPU = None
 
@@ -184,11 +217,13 @@ def check_equal(name, got, want):
         raise AssertionError(f"{name}: {n} values differ")
 
 
-def check_kernel(tag, kernel, plain, args, mode, deg):
+def check_kernel(tag, kernel, plain, args, mode, deg, want=None):
     """A trace kernel vs its plain version on the same card tensors:
-    hit counts exact, column densities within rtol 1e-5, atol 1e-6 x max."""
+    hit counts exact, column densities within rtol 1e-5, atol 1e-6 x max.
+    ``want`` is the plain version's output where the caller has it."""
     got = kernel(*args, deg, mode)
-    want = plain(*args, deg, mode)
+    if want is None:
+        want = plain(*args, deg, mode)
     torch.cuda.synchronize()
     if mode == "hitcount":
         check_equal(f"{tag} hitcount", got, want)
@@ -1298,6 +1333,420 @@ def footprint_work(spheres, weights, cam):
     return float((rows * cols).sum()), float((rows + cols).sum())
 
 
+
+
+def check_tensor_bits(name, got, want):
+    """Two tensors of one dtype equal bit for bit (floats by their bits)."""
+    if got.dtype != want.dtype or got.device != want.device:
+        raise AssertionError(f"{name}: dtype or device differ")
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    check_equal(name, bits(got), bits(want))
+
+
+def both_routes(tag, rays, spheres, tree):
+    """pallas_trace_sph on the default route (B6) and on
+    broadphase="quarter" (B3), in both modes. Gates (path 2's): no
+    overflow, hit counts equal, the default route's column densities within
+    rtol 1e-5, atol 1e-6 x max of the quarter route's. Returns (column
+    density, hit counts, summary)."""
+    from grace_tpu_torch.trace.pallas_kernel import pallas_trace_sph
+
+    out = {}
+    for bp in ("dense", "quarter"):
+        for mode in ("cumulative", "hitcount"):
+            out[bp, mode], ovf = pallas_trace_sph(rays, spheres, tree, tile=TRACE_TILE,
+                                                  broadphase=bp, mode=mode)
+            if bool(ovf.any()):
+                raise AssertionError(f"{tag}: overflow on route {bp}")
+    hc, cd = out["dense", "hitcount"], out["dense", "cumulative"]
+    if int(hc.sum()) == 0:
+        raise AssertionError(f"{tag}: no hits")
+    check_equal(f"{tag}: default route hit counts vs quarter route", hc,
+                out["quarter", "hitcount"])
+    want = out["quarter", "cumulative"]
+    err, top = check_close(f"{tag}: default route column density vs quarter route", cd, want,
+                           1e-5, 1e-6 * float(want.abs().max()))
+    return cd, hc, (f"{tag}: {rays.n_rays} rays, {int(hc.sum())} hits, hit counts equal on "
+                    f"both routes, column density max abs err {err:.3g} (max {top:.3g})")
+
+
+def f64_statistics(d, angles):
+    """(An, Gn) over the pairs i != j and Ripley's K at ``angles`` in
+    float64 on the host, and for each angle the K that the pairs whose
+    dot product lies within 2^-22 of its cosine carry: f32 dot products
+    and cosines may count those either way."""
+    d = d.astype(np.float64)
+    n = d.shape[0]
+    dots = np.clip(d @ d.T, -1.0, 1.0)
+    cos = np.cos(np.asarray(angles, np.float64))
+    counts = np.array([np.count_nonzero(dots >= c) for c in cos])
+    near = np.array([np.count_nonzero(np.abs(dots - c) <= 2.0 ** -22) for c in cos])
+    np.fill_diagonal(dots, 1.0)
+    psi = np.arccos(dots)
+    coeff = 4.0 / (n * np.pi)
+    scale = n * (n / (4.0 * np.pi))
+    return (n - coeff * psi.sum() * 0.5, n / 2.0 - coeff * np.sin(psi).sum() * 0.5,
+            (counts - n) / scale, near / scale)
+
+
+def statistics_gates(dev, iso_dirs, hp_dirs, sizes):
+    """Main path 6's statistics on the card: the isotropic and the HEALPix
+    directions pass Rayleigh z, An, Gn and Fn at 0.01; one-octant
+    directions are rejected by z and An; on a subset, An and Gn within 1e-4
+    relative and K within 1e-3 relative (plus the pairs on a threshold) of
+    a float64 evaluation; the Ripley band accepts an isotropic bundle and
+    rejects one biased toward +z (test_hypothesis.py's criteria). Returns
+    summary lines."""
+    from grace_tpu_torch.core.types import Octants
+    from grace_tpu_torch.rays import hypothesis as hy
+    from grace_tpu_torch.rays import statistics as st
+    from grace_tpu_torch.rays.gen import uniform_random_rays_single_octant
+
+    lines = []
+    for name, d in (("isotropic", iso_dirs), ("HEALPix", hp_dirs)):
+        z = float(st.rayleigh_z(d))
+        bg = {k: float(v) for k, v in st.beran_gine_statistics(d).items()}
+        if not (z < st.RAYLEIGH_Z_CRIT[0.01] and bg["An"] < st.BERAN_AN_CRIT[0.01]
+                and bg["Gn"] < st.GINE_GN_CRIT[0.01] and bg["Fn"] < st.GINE_FN_CRIT[0.01]):
+            raise AssertionError(f"{name} directions: uniformity rejected at 0.01: z {z}, {bg}")
+        lines.append(f"{name} ({d.shape[0]} directions): z {z:.4g}, An {bg['An']:.4g}, "
+                     f"Gn {bg['Gn']:.4g}, Fn {bg['Fn']:.4g}, below their 0.01 critical values")
+    octant = uniform_random_rays_single_octant(
+        torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 3), sizes["stats_dirs"], (0, 0, 0),
+        1.0, Octants.PPP, device=dev).directions
+    z_o, an_o = float(st.rayleigh_z(octant)), float(st.beran_gine_statistics(octant)["An"])
+    if not (z_o > st.RAYLEIGH_Z_CRIT[0.01] and an_o > st.BERAN_AN_CRIT[0.01]):
+        raise AssertionError(f"one-octant directions not rejected: z {z_o}, An {an_o}")
+    lines.append(f"one octant ({octant.shape[0]}): z {z_o:.4g}, An {an_o:.4g}, rejected")
+
+    sub = iso_dirs[:sizes["stats_subset"]]
+    bg = st.beran_gine_statistics(sub)
+    k = st.ripley_k_sphere(sub, hy.DEFAULT_SCALES).cpu().numpy().astype(np.float64)
+    an64, gn64, k64, k_near = f64_statistics(sub.cpu().numpy(), hy.DEFAULT_SCALES)
+    for name, got, want in (("An", float(bg["An"]), an64), ("Gn", float(bg["Gn"]), gn64)):
+        if not abs(got - want) <= 1e-4 * abs(want):
+            raise AssertionError(f"{name} {got} vs float64 {want}: beyond 1e-4 relative")
+    k_err = np.abs(k - k64)
+    if (k_err > 1e-3 * np.abs(k64) + k_near).any():
+        raise AssertionError(f"Ripley K vs float64 beyond 1e-3 relative: {k} vs {k64}")
+    pairs = sub.shape[0] * (sub.shape[0] / (4.0 * np.pi))      # K's unit in pairs
+    lines.append(f"subset ({sub.shape[0]}) vs float64: An {float(bg['An']):.6g} / {an64:.6g}, "
+                 f"Gn {float(bg['Gn']):.6g} / {gn64:.6g}; K max rel err "
+                 f"{float((k_err / np.abs(k64)).max()):.3g}, pairs counted otherwise by scale "
+                 f"{np.rint(k_err * pairs).astype(int).tolist()}, pairs within 2^-22 of the "
+                 f"threshold {np.rint(k_near * pairs).astype(int).tolist()}")
+
+    n_dirs, n_samples = sizes["band_dirs"], sizes["band_samples"]
+    band = hy.ripley_csr_band(torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 4), n_dirs,
+                              BAND_SCALES, n_samples=n_samples, device=dev)
+    iso = hy.isotropic_directions(torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 5), n_dirs,
+                                  device=dev)
+    _, resid, p = hy.ripley_isotropy_test(iso, band)
+    outside = (resid < band.lower) | (resid > band.upper)
+    if not (outside.sum() <= 1 and p.min() > 1 / (n_samples + 1)):
+        raise AssertionError(f"Ripley band rejects an isotropic bundle: {resid}, p {p}")
+    biased = hy.isotropic_directions(torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 6),
+                                     n_dirs, device=dev)
+    biased[:, 2] = 0.4 + biased[:, 2].abs()
+    biased /= torch.linalg.norm(biased, dim=1, keepdim=True)
+    rejected, _, p_b = hy.ripley_isotropy_test(biased, band)
+    if not (rejected and p_b.min() <= 0.05):
+        raise AssertionError(f"Ripley band accepts a +z-biased bundle: p {p_b}")
+    lines.append(f"Ripley band ({n_samples} samples of {n_dirs}): isotropic bundle inside "
+                 f"(min p {p.min():.3g}), +z-biased rejected (min p {p_b.min():.3g})")
+    return lines
+
+
+def wall_ms(fn):
+    """(fn(), its host wall time in ms)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def snapshot_path(dev, particles, sizes=SNAPSHOT_SIZES):
+    """Main path 6 on ``particles`` (f32[N, 4]), through the entry points a
+    user calls, with the trace kernels' launch counters set to 0 first:
+
+      1. the native IO library must load; write_gadget_gas, then
+         read_gadget_gas, _np_read and four read_gadget_gas_shard: each
+         bit-equal to the written array;
+      2. build_sph_tree, save_scene, load_scene(device=...): every tree
+         field and the spheres bit-equal;
+      3. plane_parallel_random_rays over the particles' extent
+         (project_gadget's field), both routes (``both_routes``), the
+         log-scaled image through to_colormap and write_bmp (a valid
+         header, 54 + 3 side^2 bytes);
+      4. the integral normalization: plane-parallel rays over the extent
+         padded by the largest h, |sum of column density x cell area / N
+         - 1| < 5e-4 on the default route;
+      5. isotropic rays from the box centre (hitcount_stats's rays),
+         direction-sorted: the sort is a permutation of the unsorted
+         draw's rays; both routes; a strided subset's hit counts equal the
+         generic engine's;
+      6. HEALPix rays from the centre, rotated: both routes;
+      7. ``statistics_gates`` on the unsorted draw's first directions.
+
+    Returns a dict: the trace kernels' ``launches``, summary ``lines``,
+    host ``wall`` times of the file stages {name: ms}, the ``ray_sets``
+    {name: rays}, the sorted ``spheres`` and ``tree``, the path's wall
+    ``ms`` and the unsorted draw's ``iso_dirs``."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.io import checkpoint, gadget, images, native
+    from grace_tpu_torch.ops.extrema import min_max
+    from grace_tpu_torch.rays import gen
+    from grace_tpu_torch.rays.healpix import healpix_rays
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace.sph import trace_hitcounts_sph
+
+    wall, lines, ray_sets = {}, [], {}
+    n = particles.shape[0]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    pk.trace_bitmask.launches = 0
+    pk.trace_quarter.launches = 0
+    t_path = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "snapshot.gdt")
+        lib, wall["native IO library (g++ at first use, load)"] = wall_ms(native.load)
+        if lib is None:
+            raise AssertionError(f"the native IO library did not load: {native.build_error}")
+        _, wall["write_gadget_gas"] = wall_ms(lambda: gadget.write_gadget_gas(snap, particles))
+        written = torch.from_numpy(particles)
+        back, wall["read_gadget_gas"] = wall_ms(lambda: gadget.read_gadget_gas(snap))
+        check_tensor_bits("read_gadget_gas", torch.from_numpy(back), written)
+        np_back, wall["_np_read"] = wall_ms(lambda: gadget._np_read(snap))
+        check_tensor_bits("_np_read", torch.from_numpy(np_back), written)
+        shards, wall["read_gadget_gas_shard x 4"] = wall_ms(lambda: np.concatenate(
+            [gadget.read_gadget_gas_shard(snap, s, 4) for s in range(4)]))
+        check_tensor_bits("read_gadget_gas_shard x 4", torch.from_numpy(shards), written)
+        lines.append(f"snapshot: {n} particles, {os.path.getsize(snap)} bytes; native reader, "
+                     "numpy reader and 4 shards bit-equal to the written array")
+
+        spheres = torch.from_numpy(back).to(dev)
+        ss, tree, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+        ckpt = os.path.join(tmp, "scene.npz")
+        _, wall["save_scene"] = wall_ms(lambda: checkpoint.save_scene(ckpt, ss, tree))
+        (ss2, tree2, w2), wall["load_scene"] = wall_ms(
+            lambda: checkpoint.load_scene(ckpt, device=dev))
+        check_tensor_bits("checkpoint spheres", ss2, ss)
+        for f in ("children", "child_aabbs", "leaves", "root", "n_nodes", "n_leaves"):
+            check_tensor_bits(f"checkpoint tree.{f}", getattr(tree2, f), getattr(tree, f))
+        if tree2.max_per_leaf != tree.max_per_leaf or w2 is not None:
+            raise AssertionError("checkpoint: max_per_leaf or weights differ")
+        lines.append(f"checkpoint: {os.path.getsize(ckpt)} bytes, spheres and every tree "
+                     "field bit-equal after the round trip")
+
+        mins, maxs = (v.cpu().numpy() for v in min_max(ss[:, :3]))
+        ext = float((maxs - mins).max())
+        side = sizes["proj_side"]
+        ray_sets["projection"] = gen.plane_parallel_random_rays(
+            torch.Generator(dev).manual_seed(SNAPSHOT_SEED), side, side,
+            (mins[0], mins[1], mins[2] - ext), (ext, 0, 0), (0, ext, 0), 3 * ext, device=dev)
+        cd, _, line = both_routes("projection", ray_sets["projection"], ss, tree)
+        lines.append(line)
+        bmp = os.path.join(tmp, "density.bmp")
+        _, wall["to_colormap + write_bmp"] = wall_ms(lambda: images.write_bmp(
+            bmp, images.to_colormap(cd.reshape(side, side), log_scale=True)))
+        raw = open(bmp, "rb").read()
+        field = lambda lo, hi: int.from_bytes(raw[lo:hi], "little")
+        if (len(raw) != 54 + 3 * side * side or raw[:2] != b"BM" or field(2, 6) != len(raw)
+                or field(10, 14) != 54 or field(14, 18) != 40
+                or (field(18, 22), field(22, 26), field(26, 28), field(28, 30))
+                != (side, side, 1, 24)):
+            raise AssertionError(f"density.bmp: {len(raw)} bytes or its header is wrong")
+        lines.append(f"density.bmp: {len(raw)} bytes, 24-bit {side}x{side} header")
+
+        hmax = float(ss[:, 3].max())
+        span = ext + 2.0 * hmax
+        res = sizes["integral_side"]
+        ray_sets["integral"] = gen.plane_parallel_random_rays(
+            torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 1), res, res,
+            (mins[0] - hmax, mins[1] - hmax, mins[2] - hmax - span), (span, 0, 0), (0, span, 0),
+            3 * span, device=dev)
+        cd_i, ovf = pk.pallas_trace_sph(ray_sets["integral"], ss, tree, tile=TRACE_TILE)
+        norm = float(cd_i.double().sum()) * (span / res) ** 2 / n
+        if bool(ovf.any()) or not abs(norm - 1.0) < INTEGRAL_TOL:
+            raise AssertionError(f"integral normalization {norm!r}: |x - 1| >= {INTEGRAL_TOL}")
+        lines.append(f"integral normalization ({res}x{res} rays over {span:.6g}^2): sum x "
+                     f"area / N = {norm!r} (|x - 1| = {abs(norm - 1):.3g} < {INTEGRAL_TOL})")
+
+        centre = (0.5, 0.5, 0.5)
+        iso_gen = lambda: torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 2)
+        ray_sets["isotropic"] = iso = gen.uniform_random_rays(iso_gen(), sizes["iso_rays"],
+                                                              centre, 2.0, device=dev)
+        unsorted = gen.uniform_random_rays(iso_gen(), sizes["iso_rays"], centre, 2.0,
+                                           sort=False, device=dev)
+        order = torch.argsort(gen.ray_dir_morton_keys(unsorted.directions), stable=True)
+        check_tensor_bits("sorted isotropic rays vs the unsorted draw, sorted",
+                          iso.directions, unsorted.directions[order])
+        _, hc, line = both_routes("isotropic", iso, ss, tree)
+        lines.append(line)
+        sub = torch.arange(0, sizes["iso_rays"], sizes["iso_rays"] // sizes["engine_rays"],
+                           device=dev)
+        hc_engine, wall["trace_hitcounts_sph (engine subset)"] = wall_ms(
+            lambda: trace_hitcounts_sph(iso[sub], ss, tree).cpu())
+        check_equal("isotropic subset: default route vs engine hit counts", hc[sub].cpu(),
+                    hc_engine)
+        lines.append(f"engine subset: {sub.numel()} rays, hit counts equal the default "
+                     f"route's ({int(hc_engine.sum())} hits)")
+
+        ray_sets["HEALPix"] = healpix_rays(torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 7),
+                                           sizes["nside"], centre, 2.0, device=dev)
+        lines.append(both_routes("HEALPix", ray_sets["HEALPix"], ss, tree)[2])
+        lines += statistics_gates(dev, unsorted.directions[:sizes["stats_dirs"]],
+                                  ray_sets["HEALPix"].directions, sizes)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t_path) * 1e3
+    launches = {"trace_bitmask": pk.trace_bitmask.launches,
+                "trace_quarter": pk.trace_quarter.launches}
+    return dict(launches=launches, lines=lines, wall=wall, ray_sets=ray_sets, spheres=ss,
+                tree=tree, ms=path_ms, iso_dirs=unsorted.directions[:sizes["stats_dirs"]])
+
+
+def snapshot_inputs(ray_sets, ss, tree):
+    """{set: {kernel: leading arguments}} of B6 (``trace_bitmask``) and B3
+    (``trace_quarter``) on each of path 6's ray sets, prepared as
+    pallas_trace_sph prepares them."""
+    return {name: {"trace_bitmask": route_inputs("bitmask", rays, ss, tree, TRACE_TILE)[2],
+                   "trace_quarter": route_inputs("quarter", rays, ss, tree, TRACE_TILE)[2]}
+            for name, rays in ray_sets.items()}
+
+
+def heavy_tiles(words, n_heavy=32, n_spread=32):
+    """Ascending tile ids of a check subset: the ``n_heavy`` tiles whose
+    words list the most segments or quarters (their set bits) and
+    ``n_spread`` tiles spread evenly over the rest."""
+    n_tiles = words.shape[0]
+    heavy = torch.argsort(_popcount_rows(words), descending=True, stable=True)[:n_heavy]
+    spread = torch.linspace(0, n_tiles - 1, min(n_spread, n_tiles),
+                            device=words.device).round().long()
+    return torch.unique(torch.cat([heavy, spread]))
+
+
+def tile_subset(args, tiles):
+    """A trace kernel's leading arguments (``route_inputs``) restricted to
+    ``tiles``: the rows of every per-tile tensor and those tiles' packed
+    rays; the primitives as they are."""
+    *lists, packed, prims = args
+    tile = packed.shape[0] // lists[0].shape[0]
+    rows = (tiles[:, None] * tile + torch.arange(tile, device=tiles.device)).flatten()
+    return (*[t[tiles] for t in lists], packed[rows], prims)
+
+
+def snapshot_kernel_checks(inputs, full="isotropic"):
+    """B6 and B3 against their plain versions (``check_kernel``'s gates,
+    deg 14) on path 6's inputs: on every ray set, the ``heavy_tiles`` of
+    each kernel's own lists in both modes; on all tiles of the ``full``
+    set in cumulative mode, the plain version timed once (CUDA events).
+    Returns ({kernel: max abs err of the full set}, {kernel: plain ms on
+    the full set}, summary lines)."""
+    from grace_tpu_torch.trace import pallas_kernel as pk
+
+    plain = {"trace_bitmask": pk._trace_bitmask_plain, "trace_quarter": pk._trace_quarter_plain}
+    errs, plain_ms, lines = {}, {}, []
+    for name, by_kernel in inputs.items():
+        for kname, args in by_kernel.items():
+            kernel = getattr(pk, kname)
+            words = args[0] if kname == "trace_bitmask" else args[1]
+            tiles = heavy_tiles(words)
+            sub = tile_subset(args, tiles)
+            err, top = check_kernel(f"path 6 {name} {kname} subset", kernel, plain[kname], sub,
+                                    "cumulative", 14)
+            check_kernel(f"path 6 {name} {kname} subset", kernel, plain[kname], sub,
+                         "hitcount", 14)
+            listed = _popcount_rows(words[tiles])
+            lines.append(f"{kname} vs plain on {name}'s {tiles.numel()} tiles with the longest "
+                         f"lists and spread (up to {int(listed.max())} listed, mean "
+                         f"{float(listed.float().mean()):.1f}; all tiles' mean "
+                         f"{float(_popcount_rows(words).float().mean()):.1f}), cumulative deg "
+                         f"14 and hitcount: max abs err {err:.3g} (max value {top:.3g})")
+    for kname, args in inputs[full].items():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain[kname](*args, 14, "cumulative")
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[kname] = start.elapsed_time(end)
+        errs[kname], top = check_kernel(f"path 6 {full} {kname}", getattr(pk, kname),
+                                        plain[kname], args, "cumulative", 14, want)
+        lines.append(f"{kname} vs plain on all {args[0].shape[0]} tiles of {full} "
+                     f"(cumulative deg 14): max abs err {errs[kname]:.3g} (max value "
+                     f"{top:.3g}); plain {plain_ms[kname]:.3f} ms")
+    return errs, plain_ms, lines
+
+
+def snapshot_times(dev, ray_sets, inputs, ss, tree, iso_dirs, sizes=SNAPSHOT_SIZES):
+    """Path 6's device stages (CUDA events, warm median) and, for each ray
+    set, B6 and B3 in both modes on that set's ``inputs`` with the work
+    behind them. Returns (stage ms, {(set, kernel, mode): ms}, {set:
+    {kernel: (flops, bytes)}} of one cumulative launch, work lines)."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.rays import gen
+    from grace_tpu_torch.rays import hypothesis as hy
+    from grace_tpu_torch.rays import statistics as st
+    from grace_tpu_torch.rays.healpix import healpix_rays
+    from grace_tpu_torch.trace import pallas_kernel as pk
+
+    g = torch.Generator(dev)
+    side, res = sizes["proj_side"], sizes["integral_side"]
+    t = {
+        "build_sph_tree": cuda_ms(lambda: build_sph_tree(ss, MAX_PER_LEAF), reps=3),
+        f"plane_parallel_random_rays {side}x{side}": cuda_ms(
+            lambda: gen.plane_parallel_random_rays(g, side, side, (0, 0, 0), (1, 0, 0),
+                                                   (0, 1, 0), 3.0, device=dev)),
+        f"plane_parallel_random_rays {res}x{res}": cuda_ms(
+            lambda: gen.plane_parallel_random_rays(g, res, res, (0, 0, 0), (1, 0, 0),
+                                                   (0, 1, 0), 3.0, device=dev)),
+        f"uniform_random_rays {sizes['iso_rays']} (sorted)": cuda_ms(
+            lambda: gen.uniform_random_rays(g, sizes["iso_rays"], (0.5,) * 3, 2.0, device=dev)),
+        f"healpix_rays nside {sizes['nside']}": cuda_ms(
+            lambda: healpix_rays(g, sizes["nside"], (0.5,) * 3, 2.0, device=dev)),
+        f"rayleigh_z ({sizes['stats_dirs']})": cuda_ms(lambda: st.rayleigh_z(iso_dirs)),
+        f"beran_gine_statistics ({sizes['stats_dirs']})": cuda_ms(
+            lambda: st.beran_gine_statistics(iso_dirs), reps=3),
+        f"beran_gine_statistics (HEALPix, {ray_sets['HEALPix'].n_rays})": cuda_ms(
+            lambda: st.beran_gine_statistics(ray_sets["HEALPix"].directions), reps=3),
+        f"ripley_k_sphere ({sizes['stats_subset']}, 12 scales)": cuda_ms(
+            lambda: st.ripley_k_sphere(iso_dirs[:sizes["stats_subset"]], hy.DEFAULT_SCALES)),
+        f"ripley_csr_band ({sizes['band_samples']} x {sizes['band_dirs']})": cuda_ms(
+            lambda: hy.ripley_csr_band(g, sizes["band_dirs"], BAND_SCALES,
+                                       n_samples=sizes["band_samples"], device=dev),
+            reps=1, warm=0),
+    }
+    for name, rays in ray_sets.items():
+        t[f"pallas_trace_sph default ({name})"] = cuda_ms(
+            lambda: pk.pallas_trace_sph(rays, ss, tree, tile=TRACE_TILE))
+    kernels, work, lines = {}, {}, []
+    for name, rays in ray_sets.items():
+        bm, qa = inputs[name]["trace_bitmask"], inputs[name]["trace_quarter"]
+        for mode in ("cumulative", "hitcount"):
+            kernels[name, "trace_bitmask", mode] = cuda_ms(
+                lambda: pk.trace_bitmask(*bm, 14, mode))
+            kernels[name, "trace_quarter", mode] = cuda_ms(
+                lambda: pk.trace_quarter(*qa, 14, mode))
+        hits = int(pk.trace_bitmask(*bm, 14, "hitcount").to(torch.int64).sum())
+        segments, quarters = int(_popcount_rows(bm[0]).sum()), int(_popcount_rows(qa[1]).sum())
+        # the bounds of the main paths' trace kernels (operations), on this set
+        flops = lambda tests: tests * FLOPS_PAIR + hits * FLOPS_HIT_H14
+        out_bytes = bm[1].shape[0] * 4
+        work[name] = {"trace_bitmask": (flops(segments * 128 * TRACE_TILE),
+                                        nbytes(*bm) + out_bytes),
+                      "trace_quarter": (flops(quarters * 32 * TRACE_TILE),
+                                        nbytes(*qa) + out_bytes)}
+        bound = {k: max(f / PEAK_FLOPS, b / PEAK_BYTES) * 1e3
+                 for k, (f, b) in work[name].items()}
+        b6, b3 = (kernels[name, k, "cumulative"] for k in ("trace_bitmask", "trace_quarter"))
+        lines.append(f"{name}: {rays.n_rays} rays in {bm[0].shape[0]} tiles, {hits} hits, "
+                     f"{segments} (tile, segment) pairs (B6), {quarters} (tile, quarter) pairs "
+                     f"(B3), {100 * hits / (segments * 128 * TRACE_TILE):.3f}% of B6's pair "
+                     f"tests hit; cumulative B6 {b6:.3f} ms (bound "
+                     f"{bound['trace_bitmask']:.3f}), B3 {b3:.3f} ms (bound "
+                     f"{bound['trace_quarter']:.3f}); B6 {b6 * 1e6 / rays.n_rays:.1f} ns a ray")
+    return t, kernels, work, lines
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1386,8 +1835,8 @@ def run(dev, n_particles, side):
     entry_args = entry_check(dev)
 
     # 3. main path 1, the column-density render on the bench scene
-    spheres = torch.from_numpy(
-        make_clustered_particles(np.random.default_rng(2026), n_particles)).to(dev)
+    particles = make_clustered_particles(np.random.default_rng(2026), n_particles)
+    spheres = torch.from_numpy(particles).to(dev)
     torch.cuda.synchronize()
     pk.trace_quarter.launches = 0
     sp.splat_image.launches = 0
@@ -1643,7 +2092,38 @@ def run(dev, n_particles, side):
             f"equal, {hits} hits, t max abs err {errs['tri ' + mode]:.3g}, "
             f"{int(visited.sum())} chunks visited OK")
 
-    # 11. times (CUDA events, warm, median; the plain versions ran warm in 5, 7 and 10)
+    # 11. main path 6, a Gadget snapshot through random and HEALPix rays
+    path6 = snapshot_path(dev, particles)
+    launches6 = path6["launches"]
+    if min(launches6.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches6}")
+    for line in path6["lines"]:
+        log(f"check path 6 {line} OK")
+    log(f"main path 6 (Gadget snapshot, {n_particles} particles, random and HEALPix rays): "
+        f"{path6['ms'] / 1e3:.2f} s wall; launches {launches6}")
+    inputs6 = snapshot_inputs(path6["ray_sets"], path6["spheres"], path6["tree"])
+    errs6, plain6, check6 = snapshot_kernel_checks(inputs6, PATH6_FULL)
+    for line in check6:
+        log(f"check path 6 {line} OK")
+    t6, k6, work6, lines6 = snapshot_times(dev, path6["ray_sets"], inputs6, path6["spheres"],
+                                           path6["tree"], path6["iso_dirs"])
+    del inputs6
+    for k, v in {**path6["wall"], **t6}.items():
+        log(f"time path 6 {k}: {v:.3f} ms" + (" (wall clock)" if k in path6["wall"] else ""))
+    for (name, kernel, mode), v in k6.items():
+        log(f"time path 6 {kernel} kernel ({name}, {mode}): {v:.3f} ms")
+    for line in lines6:
+        log(f"work path 6 {line}")
+    # the path's trace calls: both routes in both modes on every ray set but
+    # the integral field's, which takes one default cumulative trace. The
+    # sum is of warm medians timed after the path, so the share is an
+    # estimate: the path's own first launches ran cold.
+    in_kernels = sum(v for (name, kernel, mode), v in k6.items()
+                     if name != "integral" or (kernel, mode) == ("trace_bitmask", "cumulative"))
+    log(f"path 6 share of its wall time in B3 and B6, estimated from warm medians: "
+        f"{in_kernels:.3f} ms of {path6['ms']:.3f} ms ({100 * in_kernels / path6['ms']:.2f}%)")
+
+    # 12. times (CUDA events, warm, median; the plain versions ran warm in 5, 7 and 10)
     t = {}
     t["build_sph_tree"] = cuda_ms(lambda: build_sph_tree(spheres, MAX_PER_LEAF), reps=3)
     t["rays+sort"] = cuda_ms(lambda: spatial_sort_rays(orthographic_projection_rays(
@@ -1762,7 +2242,7 @@ def run(dev, n_particles, side):
     for k, v in t.items():
         log(f"time {k}: {v:.3f} ms")
 
-    # 12. the work each kernel's bound is computed from
+    # 13. the work each kernel's bound is computed from
     hits = int(quarter_hc.sum())
     r_pad = packed.shape[0]
     quarters = int(_popcount_rows(words).sum())
@@ -1859,6 +2339,11 @@ def run(dev, n_particles, side):
                      t["trace_tri kernel (any)"], t["trace_tri plain (any)"],
                      tri_pairs["any"] * 128 * tri_tile * FLOPS_MT,
                      nbytes(*tri_args) + tri_args[3].shape[0] * 8),
+        # path 6's launches of B3 and B6, held and timed on its fan-out set
+        *[kernel_entry(f"{k} (path 6)", f"{k}.cu", replaces, launches6[k], errs6[k],
+                       k6[PATH6_FULL, k, "cumulative"], plain6[k], *work6[PATH6_FULL][k])
+          for k, replaces in (("trace_quarter", f"{PK}:348, {PK}:519, {PK}:121"),
+                              ("trace_bitmask", f"{PK}:283, {PK}:626"))],
     ]}), flush=True)
 
 

@@ -9,8 +9,11 @@ splat bucketing, splat image), the fused trace on every broadphase route,
 the generic BVH engine with its SPH hit-count and column-density facades,
 the training path (the record-based differentiable render, the
 sort-free splat trainer and the fused differentiable renderer), per-hit
-records (``trace_sph``, ``pallas_trace_sph_records``) and triangle meshes
-(``models.triangle.render_triangles``, ``trace.pallas_tri``).
+records (``trace_sph``, ``pallas_trace_sph_records``), triangle meshes
+(``models.triangle.render_triangles``, ``trace.pallas_tri``), random and
+HEALPix rays with their uniformity statistics and hypothesis tests,
+snapshot, mesh, image and checkpoint IO (``io``), timers and profiling
+(``utils``), and the examples (``grace_tpu_torch.examples``).
 """
 
 from grace_tpu_torch.core.types import Octants, Rays, RaySortType, make_spheres
@@ -26,6 +29,8 @@ from grace_tpu_torch.build.sph import (
     xor_deltas_sph,
 )
 from grace_tpu_torch.rays import gen as ray_gen
+from grace_tpu_torch.rays import statistics as ray_statistics
+from grace_tpu_torch.rays import hypothesis as ray_hypothesis
 from grace_tpu_torch.trace.pallas_kernel import pallas_trace_sph
 from grace_tpu_torch.trace.pallas_records import (
     RecordTraceResult,
@@ -48,5 +53,6 @@ from grace_tpu_torch.trace.splat_grad import (
     splat_backward_sortfree,
     splat_forward_sortfree,
 )
+from grace_tpu_torch.io.checkpoint import load_scene, save_scene
 
 __version__ = "0.1.0"
