@@ -1,7 +1,7 @@
 """Ablations of the kernels redesigned for the card, on one CUDA card.
 
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
-                             [sortfree_bwd] [render_fwd] [paths]
+                             [sortfree_bwd] [render_fwd] [paths] [statistics]
                              [--parent DIR]   (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
 
@@ -105,6 +105,12 @@ wrapper launches them (longest list first).
   device's busy share over each (torch.profiler), and the two record
   wrappers at tile 64; with --package DIR, DIR's grace_tpu_torch runs them,
   so that two checkouts compare in one call.
+
+  statistics: Beran's An and Gine's Gn of main path 6's HEALPix set
+  (196,608 directions) and of 65,536 of its isotropic draws, with the pair
+  terms in f32 on the directions as drawn, in f32 on the directions
+  normalized in f64, and in f64 as shipped, each timed; against float64
+  evaluations of the directions normalized and as drawn.
 
 Then each shipped kernel on the same inputs launched in other orders of
 its work units (ray tiles, segments), through the C entry point: as
@@ -1651,8 +1657,89 @@ def device_busy(label, fn):
     return {"busy_ms": busy, "wall_ms": wall}
 
 
+def f32_pair_sums(d):
+    """An and Gn with the pair terms in f32 (dot products by ``matmul_f32``,
+    acos, sin) and the sums in f64, the pair (i, i) dropped: the form the
+    statistics had before they took the terms in f64."""
+    from grace_tpu_torch.ops.vecmath import matmul_f32
+
+    n = d.shape[0]
+    rows = max(1, (1 << 26) // n)
+    psi_s = sin_s = 0.0
+    for b0 in range(0, n, rows):
+        dots = torch.clamp(matmul_f32(d[b0:b0 + rows], d.T), -1.0, 1.0)
+        k = torch.arange(dots.shape[0], device=d.device)
+        dots[k, b0 + k] = 1.0
+        psi = dots.acos_()
+        psi_s += float(psi.sum(dtype=torch.float64))
+        sin_s += float(psi.sin_().sum(dtype=torch.float64))
+    coeff = 4.0 / (n * math.pi)
+    return n - coeff * psi_s * 0.5, n / 2.0 - coeff * sin_s * 0.5
+
+
+def f64_as_drawn(d):
+    """An and Gn in float64 of the directions as drawn, as ``grace_tpu``
+    defines them (acos of the raw dot products), the pair (i, i) dropped."""
+    u = d.double()
+    n = u.shape[0]
+    rows = max(1, (1 << 24) // n)
+    psi_s = sin_s = 0.0
+    for b0 in range(0, n, rows):
+        x = torch.clamp(u[b0:b0 + rows] @ u.T, -1.0, 1.0)
+        k = torch.arange(x.shape[0], device=x.device)
+        x[k, b0 + k] = 1.0
+        psi = torch.acos(x)
+        psi_s += float(psi.sum())
+        sin_s += float(torch.sin(psi).sum())
+    coeff = 4.0 / (n * math.pi)
+    return n - coeff * psi_s * 0.5, n / 2.0 - coeff * sin_s * 0.5
+
+
+def statistics_forms():
+    """An and Gn of main path 6's directions (the HEALPix set, nside 128,
+    and the first 65,536 isotropic draws) by three forms, timed: the pair
+    terms in f32 on the directions as drawn, in f32 on the directions
+    normalized in f64, and the shipped ``beran_gine_statistics`` (f64
+    terms of the normalized directions); against float64 evaluations of
+    the directions normalized (``chip_smoke.f64_an_gn``, the chord form)
+    and as drawn (``f64_as_drawn``)."""
+    from chip_smoke import SNAPSHOT_SEED, f64_an_gn
+    from grace_tpu_torch.rays import gen
+    from grace_tpu_torch.rays import statistics as st
+    from grace_tpu_torch.rays.healpix import healpix_rays
+
+    dev = torch.device("cuda", 0)
+    sets = {
+        "HEALPix nside 128": healpix_rays(torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 7),
+                                          128, (0.5, 0.5, 0.5), 2.0, device=dev).directions,
+        "isotropic 65536": gen.uniform_random_rays(
+            torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 2), 262_144, (0.5, 0.5, 0.5), 2.0,
+            sort=False, device=dev).directions[:65_536]}
+    out = {}
+    for name, d in sets.items():
+        u = d.double()
+        unit32 = (u / torch.linalg.vector_norm(u, dim=1, keepdim=True)).float()
+
+        def shipped():
+            bg = st.beran_gine_statistics(d)
+            return float(bg["An"]), float(bg["Gn"])
+
+        forms = {"f32 terms": lambda: f32_pair_sums(d),
+                 "f32 terms, normalized": lambda: f32_pair_sums(unit32),
+                 "f64 terms (shipped)": shipped}
+        res = {"n": d.shape[0], "mean |d|^2 - 1": float(((u * u).sum(dim=1) - 1).mean()),
+               "float64, normalized": f64_an_gn(d),
+               "float64, as drawn": f64_as_drawn(d)}
+        for form, fn in forms.items():
+            an, gn = fn()
+            res[form] = {"An": an, "Gn": gn, "ms": cuda_ms(fn, reps=3)}
+        print(f"statistics {name}: {json.dumps(res)}", flush=True)
+        out[name] = res
+    return out
+
+
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
-         "paths")
+         "paths", "statistics")
 
 
 def main():
@@ -1725,6 +1812,8 @@ def main():
         summary["render_bwd segment orders"] = render_bwd_orders(bwd_args)
         del bwd_args
 
+    if "statistics" in parts:
+        summary["statistics"] = statistics_forms()
     if "trace_tri" in parts:
         tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
         sorted_tris, _, _ = mt.build_triangle_tree(tris)

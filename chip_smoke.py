@@ -6,7 +6,7 @@ Builds the CUDA kernels from ``grace_tpu_torch/csrc`` (nvcc, first use, one
 process per source, all at once), checks each kernel against its plain
 PyTorch version on the card at small and edge shapes, holds every
 ``pallas_trace_sph`` route against the generic BVH engine, runs the driver
-entry's forward (build_sph_tree -> trace_cumulative_sph), then drives six
+entry's forward (build_sph_tree -> trace_cumulative_sph), then drives seven
 main paths at full size (the bench scene: 2^20 clustered particles, 512x512
 rays; the triangle workload: a 262,144-triangle torus), each with the
 kernels' launch counters set to 0 just before it:
@@ -55,11 +55,28 @@ kernels' launch counters set to 0 just before it:
      against the generic engine (hit counts equal); 196,608 HEALPix rays
      (nside 128, rotated) on both routes; Rayleigh z, An, Gn and Fn of
      65,536 of the isotropic and of the HEALPix directions below their 0.01
-     critical values, one-octant directions rejected, An, Gn and Ripley's K
-     of 4,096 against float64, and the Ripley band (1,000 samples of 256)
-     accepting an isotropic bundle and rejecting a biased one; then each
-     stage's time and B3's and B6's on each ray set, and their share of the
-     path's wall time.
+     critical values, the HEALPix An and Gn within 1e-4 of a float64
+     evaluation of the normalized directions, one-octant directions
+     rejected, An, Gn and Ripley's K of 4,096 against float64, and the
+     Ripley band (1,000 samples of 256) accepting an isotropic bundle and
+     rejecting a biased one; then each stage's time and B3's and B6's on
+     each ray set, and their share of the path's wall time.
+  7. the sharded routes of grace_tpu_torch.parallel on one NCCL rank
+     (``sharded_path``: multihost.initialize at a file store, make_mesh(1,
+     1)): on main path 1's scene sharded_pallas_render on the bitmask (B6)
+     and the quarter route (B3), ring_pallas_render with its hoisted masks
+     (B6) and sharded_splat_render on path 1's banded deg8 buckets (B1),
+     each bit-equal to the call without the mesh, and the data-parallel
+     splat step of dryrun_multichip through allreduce_sum (B11, B12), loss
+     and gradients bit-equal to make_splat_trainer's; at dryrun_multichip's
+     sizes replicated_sharded_render and sharded_train_step within rtol
+     1e-5 of the engine's render, loss and update, and an undersized
+     capacity setting the flag that check_overflow raises on; then each
+     route and its single-device call timed, with the collectives each
+     route runs timed alone, in one line. One card takes one NCCL rank:
+     rings of 2 and 4 and meshes of 2 x 2 run in
+     tests/test_torch_parallel.py on the CPU (gloo). The process group is
+     torn down at the end.
 
 The trace kernels are also held against their plain versions on particles
 at the edge of a ray's support (u = b^2 / h^2 within a few ulp of 1, on
@@ -157,6 +174,10 @@ SNAPSHOT_SEED = 2026        # torch.Generator seeds of path 6's draws start here
 INTEGRAL_TOL = 5e-4         # the reference's integral normalization gate
 BAND_SCALES = np.array([0.1, 0.5, 1.0, np.pi / 2], np.float32)   # test_hypothesis.py's
 PATH6_FULL = "isotropic"    # path 6's set whose every tile is held to the plain versions
+# Main path 7: the sharded routes on one rank. DRYRUN is
+# __graft_entry__.dryrun_multichip's size on a mesh of one: particles a
+# shard, rays a rank, hit capacity, leaf size and learning rate.
+DRYRUN = dict(n_per_shard=64, rays_per_rank=16, capacity=4096, max_per_leaf=8, lr=1e-3)
 
 _GPU = None
 
@@ -1371,16 +1392,19 @@ def both_routes(tag, rays, spheres, tree):
 
 
 def f64_statistics(d, angles):
-    """(An, Gn) over the pairs i != j and Ripley's K at ``angles`` in
-    float64 on the host, and for each angle the K that the pairs whose
-    dot product lies within 2^-22 of its cosine carry: f32 dot products
-    and cosines may count those either way."""
+    """(An, Gn) over the pairs i != j of the directions normalized, and
+    Ripley's K at ``angles`` of the directions as given, in float64 on the
+    host; and for each angle the K that the pairs whose dot product lies
+    within 2^-22 of its cosine carry: f32 dot products and cosines may
+    count those either way."""
     d = d.astype(np.float64)
     n = d.shape[0]
     dots = np.clip(d @ d.T, -1.0, 1.0)
     cos = np.cos(np.asarray(angles, np.float64))
     counts = np.array([np.count_nonzero(dots >= c) for c in cos])
     near = np.array([np.count_nonzero(np.abs(dots - c) <= 2.0 ** -22) for c in cos])
+    u = d / np.linalg.norm(d, axis=1, keepdims=True)
+    dots = np.clip(u @ u.T, -1.0, 1.0)
     np.fill_diagonal(dots, 1.0)
     psi = np.arccos(dots)
     coeff = 4.0 / (n * np.pi)
@@ -1389,14 +1413,37 @@ def f64_statistics(d, angles):
             (counts - n) / scale, near / scale)
 
 
+def f64_an_gn(d):
+    """(An, Gn) of the directions ``d`` normalized, in float64 on their
+    device, by another route than the port's: the chord form over every
+    ordered pair, psi = 2 atan2(|a - b|, |a + b|) and sin psi =
+    |a - b| |a + b| / 2, from the difference and sum vectors themselves
+    (no dot product, no acos or sin, and the pairs (i, i) add 0 of
+    themselves), in row blocks of 2^22 pairs."""
+    u = d.double()
+    u = u / torch.linalg.vector_norm(u, dim=1, keepdim=True)
+    n = u.shape[0]
+    rows = max(1, (1 << 22) // n)
+    psi_s = sin_s = 0.0
+    for b0 in range(0, n, rows):
+        a = u[b0:b0 + rows, None]
+        m = torch.linalg.vector_norm(a - u, dim=2)
+        p = torch.linalg.vector_norm(a + u, dim=2)
+        psi_s += float((2.0 * torch.atan2(m, p)).sum())
+        sin_s += float((m * p).sum()) / 2.0
+    coeff = 4.0 / (n * np.pi)
+    return n - coeff * psi_s * 0.5, n / 2.0 - coeff * sin_s * 0.5
+
+
 def statistics_gates(dev, iso_dirs, hp_dirs, sizes):
     """Main path 6's statistics on the card: the isotropic and the HEALPix
     directions pass Rayleigh z, An, Gn and Fn at 0.01; one-octant
-    directions are rejected by z and An; on a subset, An and Gn within 1e-4
-    relative and K within 1e-3 relative (plus the pairs on a threshold) of
-    a float64 evaluation; the Ripley band accepts an isotropic bundle and
-    rejects one biased toward +z (test_hypothesis.py's criteria). Returns
-    summary lines."""
+    directions are rejected by z and An; the HEALPix An and Gn within 1e-4
+    of float64's chord form on the normalized directions (``f64_an_gn``);
+    on a subset, An and Gn within 1e-4 relative and K within 1e-3 relative
+    (plus the pairs on a threshold) of a float64 evaluation; the Ripley
+    band accepts an isotropic bundle and rejects one biased toward +z
+    (test_hypothesis.py's criteria). Returns summary lines."""
     from grace_tpu_torch.core.types import Octants
     from grace_tpu_torch.rays import hypothesis as hy
     from grace_tpu_torch.rays import statistics as st
@@ -1411,6 +1458,14 @@ def statistics_gates(dev, iso_dirs, hp_dirs, sizes):
             raise AssertionError(f"{name} directions: uniformity rejected at 0.01: z {z}, {bg}")
         lines.append(f"{name} ({d.shape[0]} directions): z {z:.4g}, An {bg['An']:.4g}, "
                      f"Gn {bg['Gn']:.4g}, Fn {bg['Fn']:.4g}, below their 0.01 critical values")
+    an64, gn64 = f64_an_gn(hp_dirs)
+    norm_err = float(((hp_dirs.double() ** 2).sum(dim=1) - 1.0).mean())
+    if not (abs(bg["An"] - an64) <= 1e-4 and abs(bg["Gn"] - gn64) <= 1e-4):
+        raise AssertionError(f"HEALPix An {bg['An']!r}, Gn {bg['Gn']!r} vs float64 {an64!r}, "
+                             f"{gn64!r}: beyond 1e-4")
+    lines.append(f"HEALPix ({hp_dirs.shape[0]}) vs float64's chord form on the normalized directions: An "
+                 f"{bg['An']!r} / {an64!r}, Gn {bg['Gn']!r} / {gn64!r} (within 1e-4); mean "
+                 f"|d|^2 - 1 of the f32 directions {norm_err:.3g}")
     octant = uniform_random_rays_single_octant(
         torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 3), sizes["stats_dirs"], (0, 0, 0),
         1.0, Octants.PPP, device=dev).directions
@@ -1747,6 +1802,305 @@ def snapshot_times(dev, ray_sets, inputs, ss, tree, iso_dirs, sizes=SNAPSHOT_SIZ
     return t, kernels, work, lines
 
 
+def bench_scene(spheres, side):
+    """Main path 1's scene from the particles ``spheres`` (a tensor on the
+    device the path runs on): the Morton-sorted particles and their tree,
+    the sorted orthographic rays with the inverse of their sort, and the
+    banded splat buckets. Paths 1 and 7 run on it."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+    from grace_tpu_torch.trace import splat as sp
+
+    ss, tree, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+    rays_s, _, inv = spatial_sort_rays(orthographic_projection_rays(
+        side, side, CAM, LOOK, UP, VEXT, LENGTH, device=spheres.device))
+    buckets = sp.bucket_prims_ortho(ss, CAM, LOOK, UP, VEXT, LENGTH, side, side, chunk=512,
+                                    band=32, **SPLAT_TILE)
+    return dict(spheres=ss, tree=tree, rays=rays_s, inv=inv, buckets=buckets, side=side)
+
+
+def dryrun_scene(dev):
+    """``dryrun_multichip``'s draws on a mesh of one rank: (spheres, rays,
+    targets), and an undersized scene whose rays all cross a clump of
+    large particles."""
+    from grace_tpu_torch.core.types import Rays
+
+    rng = np.random.default_rng(1)
+    n, r = DRYRUN["n_per_shard"], DRYRUN["rays_per_rank"]
+    spheres = np.concatenate([rng.random((n, 3)), 0.1 + 0.1 * rng.random((n, 1))],
+                             axis=1).astype(np.float32)
+    d = rng.standard_normal((r, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = rng.random((r, 3)).astype(np.float32) * 0.2 - 0.6
+    rays = Rays.from_arrays(o, d, np.full((r,), 4.0, np.float32), device=dev)
+    targets = torch.from_numpy(rng.random(r).astype(np.float32)).to(dev)
+    clump = np.concatenate([rng.random((n, 3)) * 0.2 - 0.1, np.full((n, 1), 0.3)],
+                           axis=1).astype(np.float32)
+    through = Rays.from_arrays(np.tile([[0.0, 0.0, -2.0]], (r, 1)),
+                               np.tile([[0.0, 0.0, 1.0]], (r, 1)), np.full((r,), 6.0), device=dev)
+    return (torch.from_numpy(spheres).to(dev), rays, targets,
+            torch.from_numpy(clump).to(dev), through)
+
+
+def _path7_counters():
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    return {"splat": sp.splat_image, "trace_quarter": pk.trace_quarter,
+            "trace_bitmask": pk.trace_bitmask, "splat_sortfree_fwd": sg.splat_sortfree_fwd,
+            "splat_sortfree_bwd": sg.splat_sortfree_bwd}
+
+
+def engine_train_step(spheres, rays, targets, capacity, max_per_leaf, lr):
+    """The single-device twin of ``sharded_train_step``: the engine render
+    of the sorted particles (gradients through the sort's gather), L2 loss,
+    SGD. Returns (new spheres, loss)."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.trace.render import find_hits, integrate_hits
+
+    s = spheres.detach().clone().requires_grad_(True)
+    sorted_plain, tree, perm = build_sph_tree(spheres.detach(), max_per_leaf)
+    img = integrate_hits(find_hits(rays, sorted_plain, tree, capacity), rays, s[perm.long()],
+                         rays.n_rays)
+    loss = ((img - targets) ** 2).sum()
+    loss.backward()
+    return spheres.detach() - lr * s.grad, loss.detach()
+
+
+def sharded_times(mesh, scene, splat_step, dry):
+    """Path 7's routes and their single-device twins (CUDA events, warm
+    median of 5, in turns: twin, route, route, twin; the mean of each
+    side's two medians), and the collectives each route runs, timed alone
+    on the same tensors. Returns {route: (ms, single-device ms,
+    collectives ms)}."""
+    import torch.distributed as dist
+
+    from grace_tpu_torch.parallel import multihost as mh
+    from grace_tpu_torch.parallel import sharding as sh
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace.broadphase import tile_aabbs
+    from grace_tpu_torch.trace.render import find_hits, integrate_hits
+
+    ss, rays, buckets = scene["spheres"], scene["rays"], scene["buckets"]
+    sd, rays_d, targets_d, ssd, treed = dry
+    cap, leaf, lr = DRYRUN["capacity"], DRYRUN["max_per_leaf"], DRYRUN["lr"]
+    local = mh.global_to_host_local(mesh, mh.P(("rays", "space")), rays)
+    dev = ss.device
+    tmin, tmax = tile_aabbs(local, TRACE_TILE)
+    space, rays_group = mesh.get_group("space"), mesh.get_group("rays")
+
+    def gather_aabbs():
+        for x in (tmin, tmax):
+            dist.all_gather([torch.empty_like(x)], x, group=space)
+
+    image = torch.zeros(scene["side"], scene["side"], device=dev)
+    scalar = torch.zeros((), device=dev)
+    grad = torch.zeros_like(sd)
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+    c = {"flag": cuda_ms(lambda: sh.mesh_any(mesh, flag)),
+         "aabbs": cuda_ms(gather_aabbs),
+         "image": cuda_ms(lambda: sh.allreduce_sum(image, mesh)),
+         "loss": cuda_ms(lambda: sh.allreduce_sum(scalar, mesh)),
+         "grad": cuda_ms(lambda: dist.all_reduce(grad.clone(), group=rays_group))}
+    trace = lambda bp: (lambda: pk.pallas_trace_sph(rays, ss, tile=TRACE_TILE, broadphase=bp))
+    routes = {
+        "sharded_pallas_render bitmask": (
+            lambda: sh.sharded_pallas_render(mesh, local, ss, tile=TRACE_TILE),
+            trace("bitmask"), c["flag"]),
+        "sharded_pallas_render quarter": (
+            lambda: sh.sharded_pallas_render(mesh, local, ss, tile=TRACE_TILE,
+                                             broadphase="quarter"),
+            trace("quarter"), c["flag"]),
+        "ring_pallas_render": (
+            lambda: sh.ring_pallas_render(mesh, local, ss, tile=TRACE_TILE),
+            trace("bitmask"), c["aabbs"] + c["flag"]),
+        "sharded_splat_render": (
+            lambda: sh.sharded_splat_render(mesh, buckets, basis="deg8", **SPLAT_TILE),
+            lambda: sp.splat_image(buckets, basis="deg8", **SPLAT_TILE), 0.0),
+        "splat step (allreduce_sum)": (lambda: splat_step(mesh), lambda: splat_step(None),
+                                       c["image"]),
+        "replicated_sharded_render (dryrun size)": (
+            lambda: sh.replicated_sharded_render(mesh, rays_d, ssd, treed, cap),
+            lambda: integrate_hits(find_hits(rays_d, ssd, treed, cap), rays_d, ssd,
+                                   rays_d.n_rays), c["flag"]),
+        "sharded_train_step (dryrun size)": (
+            lambda: sh.sharded_train_step(mesh, rays_d, sd, targets_d, cap, leaf, lr),
+            lambda: engine_train_step(sd, rays_d, targets_d, cap, leaf, lr),
+            c["flag"] + c["loss"] + c["grad"]),
+    }
+    out = {}
+    for name, (f, f1, coll) in routes.items():
+        one = [cuda_ms(f1)]
+        sharded = [cuda_ms(f), cuda_ms(f)]
+        one.append(cuda_ms(f1))
+        out[name] = (statistics.mean(sharded), statistics.mean(one), coll)
+    return out
+
+
+def sharded_path(dev, scene, time_routes=False):
+    """Main path 7, the sharded routes of ``grace_tpu_torch.parallel`` on
+    one rank: ``multihost.initialize`` (NCCL on the card, gloo on the
+    CPU, meeting at a file store), ``make_mesh(1, 1)``, and with the
+    launch counters of B1, B3, B6, B11 and B12 set to 0 just before:
+
+      1. on ``scene`` (``bench_scene``): ``sharded_pallas_render`` on the
+         bitmask and the quarter route, ``ring_pallas_render`` with its
+         hoisted masks and ``sharded_splat_render`` (banded, deg8), each
+         bit-equal to the same call without the mesh; one data-parallel
+         splat training step through ``allreduce_sum`` (dryrun_multichip's
+         step), loss and gradients bit-equal to ``make_splat_trainer``'s;
+      2. at dryrun_multichip's sizes, ``replicated_sharded_render`` and
+         ``sharded_train_step`` within rtol 1e-5 of the single-device
+         engine render, loss and update; an undersized capacity sets the
+         flag and ``check_overflow`` raises.
+
+    The counters are read after the sharded calls and before their
+    single-device twins. With ``time_routes`` (the card), each route and
+    its twin are timed (CUDA events, warm median) with the collectives
+    each route runs. The process group is torn down at the end, also on
+    failure. Returns a dict: ``launches``, check ``lines`` and, when
+    timed, ``times`` {route: (ms, single-device ms, collectives ms)}."""
+    import torch.distributed as dist
+
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.core.errors import GraceError, check_overflow
+    from grace_tpu_torch.parallel import multihost as mh
+    from grace_tpu_torch.parallel import sharding as sh
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace.render import find_hits, integrate_hits
+    from grace_tpu_torch.trace.splat_grad import OrthoCamera, make_splat_trainer
+
+    ss, rays, buckets, side = scene["spheres"], scene["rays"], scene["buckets"], scene["side"]
+    cam = OrthoCamera(CAM, LOOK, UP, VEXT, LENGTH, side, side)
+    render = make_splat_trainer(cam, basis="deg8", **SPLAT_TILE)
+    lines, out = [], {}
+    R, S = mh.P(("rays", "space")), mh.P("space")
+    with tempfile.TemporaryDirectory() as tmp:
+        mh.initialize("file://" + os.path.join(tmp, "store"), 1, 0,
+                      backend=None if dev.type == "cuda" else "gloo")
+        try:
+            mesh = sh.make_mesh(1, 1, dev.type)
+            local_rays = mh.global_to_host_local(mesh, R, rays)
+            img_single = sp.splat_image(buckets, basis="deg8", **SPLAT_TILE)
+            target = 1.01 * img_single
+
+            def splat_step(mesh):
+                """dryrun_multichip's data-parallel step: the rank's
+                particles rendered, images summed (``allreduce_sum``), L2
+                loss; without a mesh, the single-device step."""
+                blk = ss if mesh is None else mh.global_to_host_local(mesh, R, ss)
+                s = blk.detach().clone().requires_grad_(True)
+                w = torch.ones(s.shape[0], device=dev, requires_grad=True)
+                img = render(s, w)
+                if mesh is not None:
+                    img = sh.allreduce_sum(img, mesh)
+                loss = ((img - target) ** 2).sum()
+                loss.backward()
+                return loss.detach(), s.grad, w.grad
+
+            sd, rays_d, targets_d, clump, through = dryrun_scene(dev)
+            cap, leaf, lr = DRYRUN["capacity"], DRYRUN["max_per_leaf"], DRYRUN["lr"]
+            ssd, treed, _ = build_sph_tree(sd, leaf)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            counters = _path7_counters()
+            for fn in counters.values():
+                fn.launches = 0
+            got = {
+                "bitmask": sh.sharded_pallas_render(mesh, local_rays, ss, tile=TRACE_TILE),
+                "quarter": sh.sharded_pallas_render(mesh, local_rays, ss, tile=TRACE_TILE,
+                                                    broadphase="quarter"),
+                "ring": sh.ring_pallas_render(mesh, local_rays,
+                                              mh.global_to_host_local(mesh, S, ss),
+                                              tile=TRACE_TILE),
+                "splat": sh.sharded_splat_render(mesh, buckets, basis="deg8", **SPLAT_TILE),
+                "splat step": splat_step(mesh),
+                "replicated": sh.replicated_sharded_render(
+                    mesh, mh.global_to_host_local(mesh, R, rays_d), ssd, treed, cap),
+                "train": sh.sharded_train_step(mesh, mh.global_to_host_local(mesh, R, rays_d),
+                                               mh.global_to_host_local(mesh, S, sd),
+                                               mh.global_to_host_local(mesh, R, targets_d),
+                                               cap, leaf, lr),
+                "undersized": sh.sharded_train_step(mesh, through, clump,
+                                                    torch.zeros_like(targets_d), 4, leaf, lr),
+            }
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out["launches"] = {k: fn.launches for k, fn in counters.items()}
+
+            want = {"bitmask": pk.pallas_trace_sph(rays, ss, tile=TRACE_TILE,
+                                                   broadphase="bitmask"),
+                    "quarter": pk.pallas_trace_sph(rays, ss, tile=TRACE_TILE,
+                                                   broadphase="quarter")}
+            want["ring"] = want["bitmask"]
+            for route in ("bitmask", "quarter", "ring"):
+                (v, ovf), (v1, _) = got[route], want[route]
+                check_equal(f"path 7 {route} vs the single-device trace", v, v1)
+                if bool(ovf):
+                    raise AssertionError(f"path 7 {route}: overflow flag set")
+            check_equal("path 7 sharded_splat_render vs splat_image", got["splat"], img_single)
+            lines.append(f"sharded_pallas_render (bitmask, quarter), ring_pallas_render "
+                         f"(hoisted masks) and sharded_splat_render (banded, deg8) on "
+                         f"{rays.n_rays} rays and {ss.shape[0]} particles: bit-equal to "
+                         "the calls without the mesh, no overflow")
+            single = splat_step(None)
+            for name, a, b in zip(("loss", "particle gradients", "weight gradients"),
+                                  got["splat step"], single):
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"path 7 splat step: non-finite {name}")
+                check_equal(f"path 7 splat step {name} vs make_splat_trainer's", a, b)
+            lines.append(f"data-parallel splat step through allreduce_sum: loss "
+                         f"{float(got['splat step'][0]):.6g}, loss and gradients bit-equal "
+                         "to make_splat_trainer's")
+
+            img1 = integrate_hits(find_hits(rays_d, ssd, treed, cap), rays_d, ssd, rays_d.n_rays)
+            img_r, ovf_r = got["replicated"]
+            check_close("path 7 replicated_sharded_render vs the engine", img_r, img1, 1e-5, 0.0)
+            new1, loss1 = engine_train_step(sd, rays_d, targets_d, cap, leaf, lr)
+            new, loss, ovf_t = got["train"]
+            check_close("path 7 sharded_train_step loss vs the engine", loss, loss1, 1e-5, 0.0)
+            upd1 = new1 - sd
+            check_close("path 7 sharded_train_step update", new - sd, upd1, 1e-5,
+                        1e-5 * float(upd1.abs().max()))
+            if bool(ovf_r) or bool(ovf_t) or not bool(torch.isfinite(new).all()):
+                raise AssertionError("path 7 dryrun size: overflow or a non-finite update")
+            flag = got["undersized"][2]
+            if not bool(flag):
+                raise AssertionError("path 7: an undersized capacity did not set the flag")
+            try:
+                check_overflow(flag, "sharded train step hit-capacity overflow")
+            except GraceError:
+                pass
+            else:
+                raise AssertionError("path 7: check_overflow did not raise on the flag")
+            lines.append(f"dryrun size ({sd.shape[0]} particles, {rays_d.n_rays} rays): "
+                         f"replicated_sharded_render and sharded_train_step (loss "
+                         f"{float(loss):.6g}) within rtol 1e-5 of the engine's render, loss "
+                         "and update; capacity 4 sets the flag and check_overflow raises")
+            if time_routes:
+                out["times"] = sharded_times(mesh, scene, splat_step,
+                                             (sd, rays_d, targets_d, ssd, treed))
+        finally:
+            dist.destroy_process_group()
+    out["lines"] = lines
+    return out
+
+
+def path7_line(times, launches, wall_s):
+    """The one line of path 7's times: each route beside its single-device
+    call, and the share of the route that the collectives it runs take
+    when timed alone."""
+    parts = [f"{name} {ms:.3f} ms (single-device {one:.3f} ms; collectives {coll:.3f} ms, "
+             f"{100 * coll / ms:.1f}%)" for name, (ms, one, coll) in times.items()]
+    return (f"main path 7 (sharded routes on one NCCL rank, mesh (1, 1); the bench scene and "
+            f"dryrun_multichip's sizes): {wall_s:.2f} s wall with the timing; "
+            + "; ".join(parts) + f"; launches {launches}; rings of 2 and 4 and meshes of "
+            "2 x 2 run in tests/test_torch_parallel.py on the CPU (gloo), not on this one card")
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1841,11 +2195,9 @@ def run(dev, n_particles, side):
     pk.trace_quarter.launches = 0
     sp.splat_image.launches = 0
     t0 = time.perf_counter()
-    sorted_spheres, tree, _ = build_sph_tree(spheres, MAX_PER_LEAF)
-    rays = orthographic_projection_rays(side, side, CAM, LOOK, UP, VEXT, LENGTH, device=dev)
-    rays_s, _, inv = spatial_sort_rays(rays)
-    buckets = sp.bucket_prims_ortho(sorted_spheres, CAM, LOOK, UP, VEXT, LENGTH,
-                                    side, side, chunk=512, band=32, **SPLAT_TILE)
+    scene = bench_scene(spheres, side)
+    sorted_spheres, tree, rays_s, inv, buckets = (
+        scene[k] for k in ("spheres", "tree", "rays", "inv", "buckets"))
     if bool(buckets.overflow):
         raise AssertionError("splat tile overflow at the bench scene")
     img = sp.splat_image(buckets, basis="deg8", **SPLAT_TILE)
@@ -2122,6 +2474,17 @@ def run(dev, n_particles, side):
                      if name != "integral" or (kernel, mode) == ("trace_bitmask", "cumulative"))
     log(f"path 6 share of its wall time in B3 and B6, estimated from warm medians: "
         f"{in_kernels:.3f} ms of {path6['ms']:.3f} ms ({100 * in_kernels / path6['ms']:.2f}%)")
+
+    # 11b. main path 7, the sharded routes on one NCCL rank
+    t7 = time.perf_counter()
+    path7 = sharded_path(dev, scene, time_routes=True)
+    wall7 = time.perf_counter() - t7
+    launches7 = path7["launches"]
+    if min(launches7.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches7}")
+    for line in path7["lines"]:
+        log(f"check path 7 {line} OK")
+    log(path7_line(path7["times"], launches7, wall7))
 
     # 12. times (CUDA events, warm, median; the plain versions ran warm in 5, 7 and 10)
     t = {}

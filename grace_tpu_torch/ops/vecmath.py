@@ -39,6 +39,26 @@ def fma(a, b, c) -> torch.Tensor:
     return r if _f64(a, b, c) else r.float()
 
 
+def matmul_f32(a, b) -> torch.Tensor:
+    """``a @ b`` with every f32 product kept in full f32: TensorFloat-32,
+    which keeps a 10-bit mantissa, is switched off for the call and the
+    caller's setting is restored after it, also when the product raises.
+    The switch is ``torch.backends.cuda.matmul.fp32_precision`` ("ieee")
+    where torch has it (2.9 and later; there, reading the legacy
+    ``allow_tf32`` raises once a caller has set the new switch), else
+    ``torch.backends.cuda.matmul.allow_tf32``. Both are what
+    ``torch.set_float32_matmul_precision`` sets for cuBLAS."""
+    m = torch.backends.cuda.matmul
+    name, off = (("fp32_precision", "ieee") if hasattr(m, "fp32_precision")
+                 else ("allow_tf32", False))
+    saved = getattr(m, name)
+    setattr(m, name, off)
+    try:
+        return a @ b
+    finally:
+        setattr(m, name, saved)
+
+
 def sqrt(x) -> torch.Tensor:
     """Correctly rounded f32 square root. (PyTorch's vectorized CPU sqrt
     is not always; the f64 root rounded to f32 is.) f64 stays f64."""

@@ -20,6 +20,7 @@ import math
 import torch
 
 from grace_tpu_torch.core.types import Rays, creation_device
+from grace_tpu_torch.ops.vecmath import matmul_f32
 from grace_tpu_torch.rays.gen import _draw
 
 _JRLL = (2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4)
@@ -111,7 +112,7 @@ def healpix_rays(generator, nside: int, origin, length, rotate: bool = True,
     n = 12 * nside * nside
     vec = pix2vec_nest(nside, torch.arange(n, dtype=torch.int64, device=device))
     if rotate:
-        vec = vec @ random_rotation_matrix(generator, device).T
+        vec = matmul_f32(vec, random_rotation_matrix(generator, device).T)
     origins = torch.as_tensor(origin, dtype=torch.float32, device=device).expand(n, 3)
     return Rays(origins.contiguous(), vec,
                 torch.full((n,), float(length), dtype=torch.float32, device=device))

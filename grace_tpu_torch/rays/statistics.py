@@ -4,13 +4,36 @@ Fn = An + Gn, Ripley's K on the sphere, and their critical values
 (Keilson et al. 1983 / chi-squared(3)).
 
 The O(n^2) pair sums run on the directions' device in blocks of rows: each
-block a [B, n] product ``rows @ d.T`` in f32, clipped, then ``acos`` and
-``sin`` (An, Gn) or compares against the thresholds (K), each block reduced
-on the device. Sums accumulate in f64, so An and Gn, small differences of
-terms of order n, keep their digits; ``grace_tpu`` sums in f32 and is
-about 1e-4 relative from the f64 values at n = 4096. The pair (i, i) adds
-exactly 0, as the definition over i != j has it (in f32, acos(|d|^2) is up
-to 3.5e-4 where |d|^2 rounds below 1; ``grace_tpu`` adds those terms).
+block a [B, n] product ``rows @ d.T``, clipped, then ``acos`` and ``sin``
+(An, Gn, in f64) or compares against the thresholds (K, in full f32 by
+``matmul_f32``: never TF32), each block reduced on the device.
+``grace_tpu`` sums in f32 and is about 1e-4 relative from the f64 values
+at n = 4096.
+
+An and Gn are statistics of points on the unit sphere, and three things
+move them by more than f32 terms can afford (An and Gn are n minus sums of
+n^2 terms, so a relative error e of a sum moves them by e n / 2 to e n):
+
+  * the directions' norms. An f32 direction's |d|^2 is off 1 by up to a
+    few 1e-7 (a rotation in f32 scales the HEALPix set by about 1 - 2e-7),
+    and Gn moves by about n (|d|^2 - 1) / 2: a few hundredths at
+    n = 196,608, more than the statistic. So the pair terms are taken
+    between the directions normalized in f64;
+  * pairs near parallel or antipodal, where acos is ill-conditioned: an
+    error e of an f32 dot product moves psi by e / sin psi, and by
+    sqrt(2 e) at |x| = 1 (a HEALPix set holds every antipode);
+  * the f32 acos and sin themselves: a bias of a fraction of an ulp a
+    term, invisible in one term, is a bias of the sum, and the sum is
+    what An and Gn keep.
+
+So the pair terms are formed in f64 throughout: dot products of the
+normalized directions, acos, sin, and the sums. The blocks are bound by
+memory, not by the f64 arithmetic, so this costs about what f32 did on
+the card. The pair (i, i) adds exactly 0, as the definition over i != j
+has it (``grace_tpu`` adds acos(|d|^2), up to 3.5e-4 a pair in f32).
+
+Ripley's K counts the raw directions' dot products, as ``grace_tpu`` does
+(bit-equal below 2^24 pairs).
 """
 
 from __future__ import annotations
@@ -22,6 +45,7 @@ import numpy as np
 import torch
 
 from grace_tpu_torch.core.types import creation_device
+from grace_tpu_torch.ops.vecmath import matmul_f32
 
 # Critical values: reject uniformity when exceeded.
 RAYLEIGH_Z_CRIT = {0.05: 7.815, 0.01: 11.35}          # chi^2, 3 dof
@@ -29,8 +53,8 @@ BERAN_AN_CRIT = {0.2: 1.414, 0.05: 2.207, 0.01: 3.090}
 GINE_GN_CRIT = {0.2: 0.646, 0.05: 0.884, 0.01: 1.135}
 GINE_FN_CRIT = {0.2: 1.948, 0.05: 2.748, 0.01: 3.633}
 
-# Elements of one block's [..., B, n] product.
-BLOCK_ELEMENTS = 1 << 26
+# Elements of one block's [..., B, n] product (256 MB in f64).
+BLOCK_ELEMENTS = 1 << 25
 
 
 def _directions(directions) -> torch.Tensor:
@@ -58,19 +82,21 @@ def _row_blocks(n: int, batch: int = 1):
 
 
 def _pair_sums(directions):
-    """(sum of psi_ij, sum of sin psi_ij) over ordered pairs i != j, f64."""
-    d = _directions(directions)
-    n = d.shape[0]
-    psi_s = torch.zeros((), dtype=torch.float64, device=d.device)
-    sin_s = torch.zeros((), dtype=torch.float64, device=d.device)
+    """(sum of psi_ij, sum of sin psi_ij) over ordered pairs i != j of the
+    directions normalized, all in f64."""
+    d = _directions(directions).double()
+    u = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    n = u.shape[0]
+    psi_s = torch.zeros((), dtype=torch.float64, device=u.device)
+    sin_s = torch.zeros((), dtype=torch.float64, device=u.device)
     starts, rows = _row_blocks(n)
     for b0 in starts:
-        dots = torch.clamp(d[b0:b0 + rows] @ d.T, -1.0, 1.0)   # [B, n]
-        k = torch.arange(dots.shape[0], device=d.device)
+        dots = (u[b0:b0 + rows] @ u.T).clamp_(-1.0, 1.0)     # [B, n]
+        k = torch.arange(dots.shape[0], device=u.device)
         dots[k, b0 + k] = 1.0
         psi = dots.acos_()
-        psi_s += psi.sum(dtype=torch.float64)
-        sin_s += psi.sin_().sum(dtype=torch.float64)
+        psi_s += psi.sum()
+        sin_s += psi.sin_().sum()
     return psi_s, sin_s
 
 
@@ -94,8 +120,7 @@ def _ripley_counts(d: torch.Tensor, cos_th: torch.Tensor) -> torch.Tensor:
     starts, rows = _row_blocks(n, c)
     for b0 in starts:
         block = d[:, b0:b0 + rows]
-        dots = block[0] @ dt[0] if c == 1 else torch.bmm(block, dt)
-        dots = torch.clamp(dots, -1.0, 1.0).reshape(c, -1)
+        dots = torch.clamp(matmul_f32(block, dt), -1.0, 1.0).reshape(c, -1)
         for s in range(cos_th.shape[0]):
             counts[:, s] += (dots >= cos_th[s]).sum(dim=1)
     return counts

@@ -140,6 +140,28 @@ _CHEB1, _CHEB1_DOM, _CHEB2, _CHEB2_DOM, _CHEB1_SHORT, _CHEB2_SHORT = _cached_fit
     ["cheb1", "cheb1_dom", "cheb2", "cheb2_dom", "cheb1s", "cheb2s"], _fit_chebyshev_pieces)
 
 
+def _fit_unified_horner(deg: int = 10):
+    """Monomial coefficients of the unified select-Horner form: piece 1
+    (u <= 1/4) fits F in t = u / 0.125 - 1, piece 2 (u > 1/4) fits
+    F / v^{7/2} in t = v / 0.375 - 1 (v = 1 - u), both of degree ``deg``."""
+    u1 = np.linspace(0.0, 0.25, 3001)
+    f1 = np.array([_line_integral_quadrature(np.sqrt(x)) for x in u1])
+    c1 = np.polynomial.chebyshev.Chebyshev.fit(u1 / 0.125 - 1.0, f1, deg, domain=[-1, 1])
+    u2 = np.unique(np.concatenate(
+        [np.linspace(0.25, 1.0, 4001)[:-1], 1.0 - np.geomspace(1e-7, 0.05, 400)]))
+    f2 = np.array([_line_integral_quadrature(np.sqrt(x)) for x in u2])
+    v2 = 1.0 - u2
+    c2 = np.polynomial.chebyshev.Chebyshev.fit(v2 / 0.375 - 1.0, f2 / v2**3.5, deg,
+                                               domain=[-1, 1])
+    return tuple(np.asarray(c.convert(kind=np.polynomial.Polynomial).coef, np.float64)
+                 for c in (c1, c2))
+
+
+HORNER_DEG = 10
+_HORNER_C1, _HORNER_C2 = _cached_fit_multi(
+    [f"uh{HORNER_DEG}_1", f"uh{HORNER_DEG}_2"], lambda: _fit_unified_horner(HORNER_DEG))
+
+
 @functools.lru_cache(maxsize=None)
 def poly_constants(fast: bool) -> dict:
     """The f32 constants of ``cubic_spline_line_integral_poly`` and its
@@ -298,6 +320,27 @@ def cubic_spline_line_integral_horner1(u, deg: int = HORNER1_DEG):
     return acc * ((v * v) * (v * sqrt(v)))
 
 
+def cubic_spline_line_integral_horner(u) -> torch.Tensor:
+    """F(beta) from u = beta^2 via the unified select-Horner form of degree
+    ``HORNER_DEG``: per element the coefficients of its piece, one Horner
+    recurrence, and the v^3 sqrt(v) prefactor on piece 2, which vanishes
+    for u >= 1 (u is clamped at 1, so a far primitive's u cannot overflow
+    the powers). Each step is a multiply and then an add, as in
+    ``grace_tpu``'s eager call; the square root is correctly rounded."""
+    u = torch.clamp(torch.as_tensor(u, dtype=torch.float32), max=1.0)
+    piece1 = u <= 0.25
+    f32 = lambda c: float(np.float32(c))
+    pick = lambda c1, c2: torch.where(piece1, f32(c1), f32(c2))
+    a = pick(1.0 / 0.125, -1.0 / 0.375)
+    b = pick(-1.0, 0.625 / 0.375)
+    t = a * u + b
+    acc = pick(_HORNER_C1[HORNER_DEG], _HORNER_C2[HORNER_DEG])
+    for k in range(HORNER_DEG - 1, -1, -1):
+        acc = acc * t + pick(_HORNER_C1[k], _HORNER_C2[k])
+    v = torch.clamp(1.0 - u, min=0.0)
+    return torch.where(piece1, acc, acc * ((v * v) * (v * sqrt(v))))
+
+
 # Separable rank-K bases of the splat renderer: F(sqrt(x^2 + y^2)) ~=
 # sum_k a_k(t_x) b_k(t_y), with a_k(t) = (1 - t) q_k(t), t = min(x^2, 1).
 # Coefficients are f64 [rank, deg + 1], monomial in t.
@@ -381,3 +424,14 @@ SPLAT_BASES = {
     "deg10": (SPLAT_DEG, SPLAT_A_COEFFS, SPLAT_B_COEFFS),
     "deg8": (SPLAT_DEG8, SPLAT_A8_COEFFS, SPLAT_B8_COEFFS),
 }
+
+
+def splat_basis_reference(x, y) -> np.ndarray:
+    """The fitted separable model (the deg10 basis) at pixel offsets (x, y),
+    evaluated in numpy f64: the reference that bounds |model - F|."""
+    def side(coeffs, t):
+        t = np.clip(np.asarray(t, np.float64) ** 2, 0.0, 1.0)
+        return np.stack([np.polynomial.polynomial.polyval(t, c) * (1.0 - t) for c in coeffs],
+                        axis=-1)
+
+    return np.sum(side(SPLAT_A_COEFFS, x) * side(SPLAT_B_COEFFS, y), axis=-1)

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from grace_tpu_torch import _kernels
-from grace_tpu_torch.ops.vecmath import cross, dot3, fma, normalize3
+from grace_tpu_torch.ops.vecmath import cross, dot3, fma, matmul_f32, normalize3
 from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
 
 
@@ -192,17 +192,6 @@ def _factor(t, coeffs):
     return torch.stack(out)
 
 
-def _matmul_f32(a, b):
-    """``a @ b`` in full f32: TF32 is switched off for the product (and
-    restored after), since it keeps too few digits for the basis fit."""
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return a @ b
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-
-
 def _splat_plain(buckets: SplatBuckets, tile_w: int, band: int,
                  a_coeffs: np.ndarray, b_coeffs: np.ndarray) -> torch.Tensor:
     """Plain PyTorch version of the splat kernel: one key at a time, the
@@ -228,7 +217,7 @@ def _splat_plain(buckets: SplatBuckets, tile_w: int, band: int,
         xb = (xs[c0:c0 + band, None] - pu) * invh              # (BW, n)
         fa = _factor(torch.clamp(ya * ya, max=1.0), a_coeffs)  # (K, TW, n)
         fb = _factor(torch.clamp(xb * xb, max=1.0), b_coeffs) * scl
-        img[r0:r0 + tile_w, c0:c0 + band] = _matmul_f32(
+        img[r0:r0 + tile_w, c0:c0 + band] = matmul_f32(
             fa.permute(1, 0, 2).reshape(tile_w, -1), fb.permute(0, 2, 1).reshape(-1, band))
     return img
 

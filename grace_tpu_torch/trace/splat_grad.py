@@ -35,11 +35,11 @@ import numpy as np
 import torch
 
 from grace_tpu_torch import _kernels
-from grace_tpu_torch.ops.vecmath import dot3, fma
+from grace_tpu_torch.ops.vecmath import dot3, fma, matmul_f32
 from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
 from grace_tpu_torch.trace.pallas_broadphase import pack_overlap_bits
 from grace_tpu_torch.trace.pallas_kernel import _set_bits
-from grace_tpu_torch.trace.splat import _camera_frame, _factor, _matmul_f32, batch_size
+from grace_tpu_torch.trace.splat import _camera_frame, _factor, batch_size
 
 SEG = 128  # particles per Morton segment = slab lane width
 
@@ -196,7 +196,7 @@ def _sortfree_fwd_plain(masks, coords, slabs, a_c, b_c, ntx, tile_w, tile_h, hei
         xb = (xs[:, None] - pu) * invh                                 # (TH, n)
         fa = _factor(torch.clamp(ya * ya, max=1.0), a_c)              # (K, TW, n)
         fb = _factor(torch.clamp(xb * xb, max=1.0), b_c) * scl         # (K, TH, n)
-        patch = _matmul_f32(fa.permute(1, 0, 2).reshape(tile_w, -1),
+        patch = matmul_f32(fa.permute(1, 0, 2).reshape(tile_w, -1),
                             fb.permute(0, 2, 1).reshape(rank * pu.shape[0], tile_h))
         r0, c0 = (t // ntx) * tile_w, (t % ntx) * tile_h
         img[r0:r0 + tile_w, c0:c0 + tile_h] = patch
@@ -232,8 +232,8 @@ def _sortfree_bwd_plain(masks_t, coords, slabs, g_image, a_c, b_c, ntx, tile_w, 
         xb2 = xb * xb
         in_x = (xb2 < 1.0).to(torch.float32)
         b_v, b_d = _poly_and_deriv(torch.clamp(xb2, max=1.0), b_c)     # (K, TH, P)
-        m = _matmul_f32(g.t(), a_v)                                    # (K, TH, P)
-        n = _matmul_f32(g, b_v)                                        # (K, TW, P)
+        m = matmul_f32(g.t(), a_v)                                    # (K, TH, P)
+        n = matmul_f32(g, b_v)                                        # (K, TW, P)
         na = n * a_d
         mb = m * b_d
         g_s = (m * b_v).sum(dim=(0, 1))
@@ -480,5 +480,5 @@ def splat_reference_torch(spheres, weights, cam: OrthoCamera, basis: str = "deg8
     b_f = _factor(torch.clamp(xb * xb, max=1.0), b_c)
     img = torch.zeros((cam.resolution_y, cam.resolution_x), dtype=torch.float32, device=dev)
     for k in range(a_c.shape[0]):
-        img = img + _matmul_f32(a_f[k], (b_f[k] * scale[None, :]).t())
+        img = img + matmul_f32(a_f[k], (b_f[k] * scale[None, :]).t())
     return img

@@ -656,3 +656,51 @@ def test_record_and_tri_wrappers_reject_what_the_kernels_do_not_take(dev):
         pt.trace_tri(n, ids, dist, rays, tris, "nearest")
     with pytest.raises(ValueError, match="rays per block"):
         pt.trace_tri(n[:1], ids[:1], dist[:1], torch.cat([rays, rays]), tris, "closest")
+
+
+@pytest.mark.cuda
+def test_f32_products_ignore_tf32(dev, scene):
+    """With TensorFloat-32 on (``set_float32_matmul_precision("high")``),
+    the f32 products that go through ``vecmath.matmul_f32`` give the bits
+    they give with it off: the HEALPix rotation, the Ripley counts (one
+    bundle and a batch, the ``bmm`` form), An and Gn, and the splat's and
+    the sort-free splat's plain contractions and dense oracle. A plain
+    ``@`` under the same setting does change (TF32 is in effect)."""
+    from grace_tpu_torch.rays import hypothesis as hy
+    from grace_tpu_torch.rays import statistics as st
+    from grace_tpu_torch.rays.healpix import healpix_rays
+
+    ss, _ = scene
+    buckets = sp.bucket_prims_ortho(ss, CAM, LOOK, UP, 1.2, 6.0, 128, 64, chunk=128, band=32,
+                                    **SPLAT_TILE)
+    a8, b8 = (np.asarray(c, np.float32) for c in sp.SPLAT_BASES["deg8"][1:])
+    cam = sg.OrthoCamera(CAM, LOOK, UP, 1.2, 6.0, 128, 64)
+    weights = torch.ones(ss.shape[0], device=dev)
+    inputs = sortfree_inputs(ss, weights, cam, 32)
+
+    def products():
+        d = healpix_rays(torch.Generator(dev).manual_seed(3), 64, (0.5, 0.5, 0.5), 2.0,
+                         device=dev).directions
+        bg = st.beran_gine_statistics(d[:8192])
+        cos = st._cos_f32(torch.as_tensor(hy.DEFAULT_SCALES, device=dev))
+        return [d, bg["An"], bg["Gn"], st.ripley_k_sphere(d[:4096], hy.DEFAULT_SCALES),
+                st._ripley_counts(d[:3000].reshape(3, 1000, 3), cos),
+                sp._splat_plain(buckets, 32, 32, a8, b8),
+                sg._sortfree_fwd_plain(inputs[0], inputs[2], inputs[3], a8, b8, 1, 32, 128, 64,
+                                       128),
+                sg.splat_reference_torch(ss, weights, cam)]
+
+    prev = torch.get_float32_matmul_precision()
+    off = products()
+    x = torch.randn(4096, 3, device=dev)
+    rot = torch.randn(3, 3, device=dev)
+    plain_off = x @ rot
+    torch.set_float32_matmul_precision("high")
+    try:
+        on = products()
+        plain_on = x @ rot
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert not torch.equal(plain_on, plain_off)
+    for i, (a, b) in enumerate(zip(on, off)):
+        assert torch.equal(a, b), i

@@ -120,3 +120,57 @@ def test_closed_form_matches(dtype):
     if dtype == np.float64:
         np.testing.assert_allclose(t[::100], [jk._line_integral_quadrature(b) for b in beta[::100]],
                                    atol=1e-9)
+
+
+def test_unified_horner_coefficients_equal():
+    assert tk.HORNER_DEG == jk.HORNER_DEG == 10
+    assert np.array_equal(jk._HORNER_C1, tk._HORNER_C1)
+    assert np.array_equal(jk._HORNER_C2, tk._HORNER_C2)
+
+
+def test_unified_horner_bit_equal_to_eager_grace_tpu():
+    """``grace_tpu``'s eager call rounds each multiply and add apart, as the
+    port does: bit-equal on the grid, at the piece boundary u = 1/4 and its
+    neighbours, and past the support. (Under jit XLA contracts the Horner
+    steps into FMAs, ROADMAP C7; that form is not held here.)"""
+    quarter = np.float32(0.25)
+    u = np.concatenate([_u_grid(), [np.nextafter(quarter, np.float32(0)), quarter,
+                                    np.nextafter(quarter, np.float32(1)), 0.0, np.inf]])
+    u = u.astype(np.float32)
+    j = np.asarray(jk.cubic_spline_line_integral_horner(u))
+    t = tk.cubic_spline_line_integral_horner(torch.from_numpy(u)).numpy()
+    assert t.dtype == np.float32 and np.array_equal(t, j)
+
+
+def test_unified_horner_matches_quadrature():
+    """The port of grace_tpu's own bound for the select-Horner form: <= 6e-5
+    abs error over the support, exactly 0 outside, no NaN/inf for huge u."""
+    b = np.linspace(0.0, 1.0, 4001)
+    quad = tk.make_kernel_integral_table(4001)
+    got = tk.cubic_spline_line_integral_horner(torch.from_numpy((b * b).astype(np.float32)))
+    np.testing.assert_allclose(got.numpy(), quad, atol=6e-5)
+    far = tk.cubic_spline_line_integral_horner(torch.tensor([1.0, 2.0, 1e6, np.inf]))
+    assert torch.equal(far, torch.zeros(4)), far
+
+
+def test_splat_basis_reference_equals_grace_tpu():
+    x = np.linspace(-1.3, 1.3, 201)
+    j = jk.splat_basis_reference(x[:, None], x[None, :])
+    t = tk.splat_basis_reference(x[:, None], x[None, :])
+    assert isinstance(t, np.ndarray) and t.dtype == np.float64 and np.array_equal(t, j)
+
+
+def test_basis_fit_error_bound():
+    """The port of grace_tpu's bound for the separable model: within 1.5e-4
+    relative of F everywhere, and exactly 0 at and beyond the per-axis
+    clamp."""
+    x = np.linspace(-1.3, 1.3, 401)
+    model = tk.splat_basis_reference(x[:, None], x[None, :])
+    beta = np.sqrt(np.minimum(x[:, None] ** 2 + x[None, :] ** 2, 4.0))
+    xi = np.clip(beta, 0, 1) * (tk.N_DENSE - 1)
+    i0 = np.minimum(xi.astype(int), tk.N_DENSE - 2)
+    fr = xi - i0
+    table = tk.DENSE_KERNEL_INTEGRAL_TABLE
+    truth = np.where(beta >= 1.0, 0.0, table[i0] * (1 - fr) + table[i0 + 1] * fr)
+    assert np.abs(model - truth).max() < 1.5e-4 * truth.max()
+    assert np.all(model[np.abs(x) >= 1.0, :] == 0.0)

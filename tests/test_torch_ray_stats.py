@@ -200,3 +200,94 @@ def test_ripley_counts_past_f32_precision():
     got = tst.ripley_k_sphere(torch.from_numpy(d), angles).numpy().astype(np.float64)
     _, _, want, near = f64_statistics(d, angles)
     assert np.all(np.abs(got - want) <= near + 1e-7 * want)
+
+
+def _f64_an_gn(d):
+    """An and Gn of the directions normalized, in float64 row blocks."""
+    u = d.astype(np.float64)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    n = u.shape[0]
+    psi_s = sin_s = 0.0
+    for b0 in range(0, n, 1024):
+        x = np.clip(u[b0:b0 + 1024] @ u.T, -1.0, 1.0)
+        k = np.arange(x.shape[0])
+        x[k, b0 + k] = 1.0
+        psi = np.arccos(x)
+        psi_s += psi.sum()
+        sin_s += np.sin(psi).sum()
+    coeff = 4.0 / (n * np.pi)
+    return n - coeff * psi_s * 0.5, n / 2.0 - coeff * sin_s * 0.5
+
+
+@pytest.mark.parametrize("nside", [16, 32])
+def test_healpix_an_gn_match_float64(nside):
+    """On rotated HEALPix directions (3,072 and 12,288; every antipode in
+    the set, nearest neighbours 0.06 and 0.03 rad apart), An and Gn are
+    within 1e-4 of a float64 evaluation of the normalized directions. The
+    f32 rotation scales the set by about 1 - 2e-7, which moves Gn of the
+    raw directions by about n (|d|^2 - 1) / 2 (-0.0025 at 12,288), and
+    acos of an f32 dot product at an antipode is off by up to 3.5e-4."""
+    import grace_tpu_torch.rays.healpix as th
+
+    d = th.healpix_rays(torch.Generator().manual_seed(nside), nside, (0.5, 0.5, 0.5), 2.0,
+                        device="cpu").directions
+    norms2 = (d.double() ** 2).sum(dim=1)
+    assert float((norms2 - 1).abs().max()) > 1e-7      # the set is not of unit vectors
+    got = tst.beran_gine_statistics(d)
+    an, gn = _f64_an_gn(d.numpy())
+    assert abs(float(got["An"]) - an) <= 1e-4, (float(got["An"]), an)
+    assert abs(float(got["Gn"]) - gn) <= 1e-4, (float(got["Gn"]), gn)
+    assert gn > 0 and float(got["Gn"]) > 0
+
+
+def test_near_parallel_and_antipodal_pairs():
+    """On a set holding exact antipodes and pairs 1e-4 rad apart, where
+    acos of an f32 dot product is off by up to 3.5e-4 a pair, the pair
+    sums are within rtol 1e-9 (psi) and 1e-8 (sin psi) of float64's chord
+    form, psi = 2 atan2(|a - b|, |a + b|); acos of the f32 dot products
+    misses both (3.7e-8 and 6.0e-8)."""
+    base = torch.from_numpy(iso(9, 256)).double()
+    turn = torch.tensor([[1.0, 0.0, 0.0], [0.0, np.cos(1e-4), -np.sin(1e-4)],
+                         [0.0, np.sin(1e-4), np.cos(1e-4)]], dtype=torch.float64)
+    d = torch.cat([base, -base, base @ turn.T]).float()
+    psi, sin = tst._pair_sums(d)
+    u = d.double() / torch.linalg.vector_norm(d.double(), dim=1, keepdim=True)
+    m = torch.cdist(u, u, compute_mode="donot_use_mm_for_euclid_dist")
+    p = torch.cdist(u, -u, compute_mode="donot_use_mm_for_euclid_dist")
+    assert torch.allclose(psi, (2 * torch.atan2(m, p)).sum(), rtol=1e-9, atol=0)
+    assert torch.allclose(sin, (m * p / 2).sum(), rtol=1e-8, atol=0)
+
+
+def test_matmul_f32_restores_the_callers_setting():
+    """``matmul_f32`` turns TF32 off for its product only and restores the
+    caller's switch after it, also when the product raises."""
+    from grace_tpu_torch.ops.vecmath import matmul_f32
+
+    m = torch.backends.cuda.matmul
+    name, on, off = (("fp32_precision", "tf32", "ieee") if hasattr(m, "fp32_precision")
+                     else ("allow_tf32", True, False))
+    seen = []
+
+    class Probe:
+        def __init__(self, fail):
+            self.fail = fail
+
+        def __matmul__(self, other):
+            seen.append(getattr(m, name))
+            if self.fail:
+                raise RuntimeError("product failed")
+            return other
+
+    saved = getattr(m, name)
+    try:
+        for setting in (on, off):
+            setattr(m, name, setting)
+            assert matmul_f32(Probe(False), 7) == 7
+            with pytest.raises(RuntimeError, match="product failed"):
+                matmul_f32(Probe(True), 7)
+            assert getattr(m, name) == setting
+        assert seen == [off] * 4
+        a = torch.randn(5, 3, dtype=torch.float32)
+        assert torch.equal(matmul_f32(a, a.T), a @ a.T)
+    finally:
+        setattr(m, name, saved)
