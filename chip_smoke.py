@@ -6,7 +6,7 @@ Builds the CUDA kernels from ``grace_tpu_torch/csrc`` (nvcc, first use, one
 process per source, all at once), checks each kernel against its plain
 PyTorch version on the card at small and edge shapes, holds every
 ``pallas_trace_sph`` route against the generic BVH engine, runs the driver
-entry's forward (build_sph_tree -> trace_cumulative_sph), then drives seven
+entry's forward (build_sph_tree -> trace_cumulative_sph), then drives eight
 main paths at full size (the bench scene: 2^20 clustered particles, 512x512
 rays; the triangle workload: a 262,144-triangle torus), each with the
 kernels' launch counters set to 0 just before it:
@@ -77,6 +77,29 @@ kernels' launch counters set to 0 just before it:
      rings of 2 and 4 and meshes of 2 x 2 run in
      tests/test_torch_parallel.py on the CPU (gloo). The process group is
      torn down at the end.
+  8. the generic engine's walk on the card (``engine_path``;
+     csrc/bvh_walk.cu, one thread a ray, with engine.trace's call counter
+     held at 0): the driver entry's forward, trace_hitcounts_sph,
+     trace_cumulative_sph and trace_sph(engine="xla") on path 1's scene and
+     rays, and render_triangles(engine="xla") on the torus; the entry's
+     walk bit-equal to the plain walk (sums within rtol 1e-5); on the bench
+     scene hit counts equal the default route's (B6) but on rays where the
+     two packages' pair tests round apart, each explained, sums within 5e-4
+     x max of it, the records the particles of the record route's sorted
+     rows (B16) with distances within 1e-6 and integrals within 5e-4 x
+     max, and every 64th ray's counts and sums against the plain walk; the
+     torus image bit-equal to engine="pallas" wherever the two renders'
+     closest ids and occlusion agree, their differences explained edge
+     rays; then the kernels and the plain walk timed at each size (the
+     plain walk once at full size, its output held to the kernel's).
+
+The engine's walk is held bit-equal to the plain walk (engine.trace) at
+edge shapes first: a stack of 4 (on the rays whose overflowed walk ends),
+rays on box planes with zero direction components, rays that miss
+everything, a leaf of one primitive, record buffers that overflow,
+weights on and off, triangles in both modes, and the overflow message
+under GRACE_TPU_DEBUG. Path 6 also holds the walk's hit counts on all
+262,144 isotropic rays against B6.
 
 The trace kernels are also held against their plain versions on particles
 at the edge of a ray's support (u = b^2 / h^2 within a few ulp of 1, on
@@ -110,7 +133,8 @@ warps an SM), stage and kernel times (CUDA events, warm, median; the dense
 splat contractions and the launch-order helpers too) with the card's name
 and power limit, the work each kernel's bound is computed from,
 a JSON line describing each kernel (the list kernel on quarter and on
-segment lists apart, the triangle kernel's two passes apart), and last a
+segment lists apart, the triangle kernel's two passes apart, the engine's
+walk for spheres and for triangles apart), and last a
 JSON line with ``"ok": true``. Any failure raises, so
 the exit code is non-zero and no result line prints.
 """
@@ -161,6 +185,15 @@ FLOPS_MT = 55
 RECORD_CAP = 512          # grace_tpu's record workload capacity
 TORUS = dict(n_u=512, n_v=256)   # grace_tpu's triangle workload: 262,144 triangles
 ENGINE_SUBSET = 4096      # rays of the triangle image held against the engine
+WALK_SUBSET = 64          # path 8: every 64th bench ray against the plain walk
+# Flops of the engine's walk (csrc/bvh_walk.cu): the slab test of one child
+# box (6 subtractions, 6 products, 6 min/max, the 3 max and 3 min of the
+# clamp, a compare: 25; a node tests two), and per hit the table integral
+# (1/h, the f64 square root, 2 products, the truncation and 2 clamps, 2
+# subtractions, the fma (2), (1/h)^2 and its product, the weight and the
+# sum: 15).
+FLOPS_SLAB = 25
+FLOPS_HIT_LERP = 15
 # Main path 6: a Gadget snapshot through random and HEALPix rays, on the
 # bench particles. SNAPSHOT_SIZES are its widths (a CPU rehearsal passes
 # smaller ones): the projection's and the integral field's rays a side, the
@@ -576,6 +609,432 @@ def entry_check(dev):
         f"{int(counts.sum())} hits; vs bitmask route max abs err {err:.3g} "
         f"(max value {top:.3g}) OK")
     return args
+
+
+def plane_rays(rng, aabbs, n, device):
+    """``n`` axis-aligned rays (two zero direction components, some -0)
+    whose origins lie on a plane of one of the boxes ``aabbs`` f32[k, 2, 3]
+    (numpy) on a zero axis: the slab test meets (min - o) * inf = NaN."""
+    from grace_tpu_torch.core.types import Rays
+
+    o = np.empty((n, 3), np.float32)
+    d = np.zeros((n, 3), np.float32)
+    for i in range(n):
+        axis = i % 3
+        d[i, axis] = 1.0 if i % 2 else -1.0
+        box = aabbs[rng.integers(len(aabbs))]
+        o[i] = box[0] - 0.2 * d[i]
+        plane = (axis + 1 + i % 2) % 3
+        o[i, plane] = box[rng.integers(2), plane]
+        d[i, (axis + 1) % 3] = -0.0 if i % 4 == 0 else 0.0
+    return Rays.from_arrays(o, d, np.full(n, 1.5, np.float32), device=device)
+
+
+def walk_edge_rays(rng, tree, centre, spread, n, length, device):
+    """The rays the walk is held to its plain version on: ``n`` random rays
+    from around ``centre``, n // 4 on box planes with zero direction
+    components, and n // 8 that start outside the scene and point away
+    from it (they miss every box)."""
+    from grace_tpu_torch.core.types import Rays
+
+    o = (np.asarray(centre) + spread * (rng.random((n, 3)) - 0.5)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    miss = n // 8
+    o[:miss] = np.asarray(centre) + 10.0 * d[:miss]
+    rays = Rays.from_arrays(o, d, np.full(n, length, np.float32), device=device)
+    aabbs = tree.child_aabbs.reshape(-1, 2, 3).cpu().numpy()
+    planes = plane_rays(rng, aabbs[np.isfinite(aabbs).all(axis=(1, 2))], n // 4, device)
+    return Rays(*(torch.cat([a, b]) for a, b in zip(
+        (rays.origins, rays.directions, rays.lengths),
+        (planes.origins, planes.directions, planes.lengths))))
+
+
+def walk_flags(rays, prims, tree, kind, stack_size):
+    """The walk kernel's per-ray flags at ``stack_size`` (0; 1 where the
+    stack overflowed; 2 where an overflowed walk repeats an entry forever
+    and was cut: the plain walk would never end there)."""
+    from grace_tpu_torch.trace import walk as wk
+
+    n = rays.n_rays
+    if kind == "sph":
+        out = (torch.empty(n, dtype=torch.int32, device=prims.device),)
+        return wk._launch_sph(rays, prims, tree, "count", stack_size, None, None, None, 0, out)
+    out = (torch.empty(n, dtype=torch.float32, device=prims.device),
+           torch.empty(n, dtype=torch.int32, device=prims.device))
+    return wk._launch_tri(rays, prims, tree, "closest", stack_size, out)
+
+
+def walk_visits(rays, prims, tree, kind):
+    """(internal nodes tested, primitives tested, most nodes on one ray) of
+    the walk over ``rays``, from the kernel's visit counters (a count or
+    closest launch with them on)."""
+    from grace_tpu_torch.trace import walk as wk
+
+    n, dev = rays.n_rays, prims.device
+    visits = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    if kind == "sph":
+        wk._launch_sph(rays, prims, tree, "count", 64, None, None, None, 0,
+                       (torch.empty(n, dtype=torch.int32, device=dev),), visits)
+    else:
+        wk._launch_tri(rays, prims, tree, "closest", 64,
+                       (torch.empty(n, device=dev), torch.empty(n, dtype=torch.int32,
+                                                                device=dev)), visits)
+    tot = visits.long().sum(dim=0)
+    return int(tot[0]), int(tot[1]), int(visits[:, 0].max())
+
+
+def check_walk_sph(tag, rays, spheres, tree, stack_size=64, weights=None, capacity=None):
+    """walk_sph (the kernel on the card) against its plain version
+    (engine.trace) on the same tensors: hit counts, record buffers (the
+    (index, integral, distance) and (ray, prim) passes, every slot, fill
+    and dropped writes included) bit-equal; cumulative sums, unweighted and
+    with ``weights``, within rtol 1e-5, atol 1e-6 x max (a leaf's terms
+    summed in another order). ``capacity`` (default: the hits) bounds the
+    record buffers. Returns a summary."""
+    from grace_tpu_torch.trace import walk as wk
+
+    kw = dict(stack_size=stack_size)
+    counts = wk.walk_sph(rays, spheres, tree, "count", **kw)
+    check_equal(f"{tag} walk counts", counts, wk._walk_sph_plain(rays, spheres, tree, "count",
+                                                                 **kw))
+    errs = []
+    for w in (None, weights):
+        got = wk.walk_sph(rays, spheres, tree, "cumulative", weights=w, **kw)
+        want = wk._walk_sph_plain(rays, spheres, tree, "cumulative", weights=w, **kw)
+        errs.append(check_close(f"{tag} walk cumulative (weights {w is not None})", got, want,
+                                1e-5, 1e-6 * float(want.abs().max()))[0])
+    total = int(counts.sum())
+    cap = total if capacity is None else capacity
+    offsets = (torch.cumsum(counts, dim=0, dtype=torch.int32) - counts).to(torch.int32)
+    for mode, fill in (("records", (-1, 0.5, -1.0)), ("ids", None)):
+        rkw = dict(cursors=offsets, capacity=cap, fill=fill, **kw)
+        got = wk.walk_sph(rays, spheres, tree, mode, **rkw)
+        want = wk._walk_sph_plain(rays, spheres, tree, mode, **rkw)
+        for i, (g, w) in enumerate(zip(got, want)):
+            check_tensor_bits(f"{tag} walk {mode} buffer {i}", g, w)
+    return (f"{tag}: {rays.n_rays} rays, {total} hits (capacity {cap}), stack {stack_size}; "
+            f"counts and records bit-equal, cumulative max abs err {max(errs):.3g}")
+
+
+def check_walk_tri(tag, rays, tris, tree, stack_size=64):
+    """walk_tri against its plain version on the same tensors: closest ids
+    and t, and occlusion, bit-equal. Returns a summary."""
+    from grace_tpu_torch.trace import walk as wk
+
+    t, ids = wk.walk_tri(rays, tris, tree, "closest", stack_size)
+    t_p, ids_p = wk._walk_tri_plain(rays, tris, tree, "closest", stack_size)
+    check_equal(f"{tag} walk closest ids", ids, ids_p)
+    check_tensor_bits(f"{tag} walk closest t", t, t_p)
+    occ = wk.walk_tri(rays, tris, tree, "any", stack_size)
+    check_equal(f"{tag} walk any", occ, wk._walk_tri_plain(rays, tris, tree, "any", stack_size))
+    return (f"{tag}: {rays.n_rays} rays, stack {stack_size}; {int((ids >= 0).sum())} closest "
+            f"hits and {int(occ.sum())} occluded, ids, t and occlusion bit-equal")
+
+
+def walk_small_checks(dev):
+    """The walk kernel against its plain version at edge shapes: clustered
+    particles at 16 a leaf and at 1 a leaf (every leaf one primitive),
+    rays on box planes with zero direction components and rays that miss
+    everything, weights on and off, record buffers of the hits and of half
+    of them (writes past the end dropped), a stack of 4 (on the rays whose
+    walk ends; it overflows on others too); triangles of a random mesh and
+    a small torus, closest and any, stacks of 64 and 4; and the overflow
+    flag raising with the plain walk's message under GRACE_TPU_DEBUG.
+    Returns the summaries."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.core.errors import GraceError
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.trace import walk as wk
+
+    rng = np.random.default_rng(17)
+    lines = []
+    particles = torch.from_numpy(make_clustered_particles(rng, 3000)).to(dev)
+    weights = torch.from_numpy((0.5 + rng.random(3000)).astype(np.float32)).to(dev)
+    for mpl in (16, 1):
+        ss, tree, _ = build_sph_tree(particles, mpl)
+        if mpl == 1 and int(tree.leaves[:, 1].max()) != 1:
+            raise AssertionError("edge case lost: a leaf holds more than one primitive")
+        rays = walk_edge_rays(rng, tree, (0.5, 0.5, 0.5), 0.8, 1024, 1.2, dev)
+        lines.append(check_walk_sph(f"clustered, {mpl} a leaf", rays, ss, tree,
+                                    weights=weights))
+        hits = int(wk.walk_sph(rays, ss, tree, "count").sum())
+        lines.append(check_walk_sph(f"clustered, {mpl} a leaf, half capacity", rays, ss, tree,
+                                    capacity=hits // 2))
+        flags = walk_flags(rays, ss, tree, "sph", 4)
+        if not (bool((flags == 1).any()) and int((flags == 0).sum()) > 0):
+            raise AssertionError("edge case lost: a stack of 4 overflows nowhere")
+        keep = flags != 2
+        lines.append(check_walk_sph(f"clustered, {mpl} a leaf, {int(keep.sum())} rays whose "
+                                    f"walk ends", rays[keep], ss, tree, stack_size=4,
+                                    weights=weights) + f" ({int((flags == 1).sum())} overflow)")
+    for name, tris in (("random mesh", random_mesh(rng, 2000)), ("torus", torus_mesh(48, 24))):
+        st, tree, _ = mt.build_triangle_tree(torch.from_numpy(tris).to(dev))
+        rays = walk_edge_rays(rng, tree, (0.5, 0.5, 0.5) if name != "torus" else (0, 0, 0),
+                              2.0, 1024, 4.0, dev)
+        lines.append(check_walk_tri(name, rays, st, tree))
+        flags = walk_flags(rays, st, tree, "tri", 4)
+        keep = flags != 2
+        lines.append(check_walk_tri(f"{name}, {int(keep.sum())} rays whose walk ends",
+                                    rays[keep], st, tree, stack_size=4)
+                     + f" ({int((flags == 1).sum())} overflow)")
+    # the overflow flag: both walks raise with the same message under debug
+    ss, tree, _ = build_sph_tree(particles, 16)
+    rays = walk_edge_rays(np.random.default_rng(5), tree, (0.5, 0.5, 0.5), 0.8, 256, 1.2, dev)
+    rays = rays[walk_flags(rays, ss, tree, "sph", 4) != 2]
+    saved = os.environ.get("GRACE_TPU_DEBUG")
+    os.environ["GRACE_TPU_DEBUG"] = "1"
+    messages = []
+    try:
+        for fn in (wk.walk_sph, wk._walk_sph_plain):
+            try:
+                fn(rays, ss, tree, "count", stack_size=4)
+            except GraceError as e:
+                messages.append(str(e))
+    finally:
+        if saved is None:
+            del os.environ["GRACE_TPU_DEBUG"]
+        else:
+            os.environ["GRACE_TPU_DEBUG"] = saved
+    if len(messages) != 2 or messages[0] != messages[1] or wk.OVERFLOW_MESSAGE not in messages[0]:
+        raise AssertionError(f"overflow under GRACE_TPU_DEBUG: {messages}")
+    lines.append(f"stack of 4 under GRACE_TPU_DEBUG: the kernel and the plain walk raise "
+                 f"'{messages[0]}'")
+    return lines
+
+
+def count_gate(tag, rays, spheres, got, want):
+    """The walk's hit counts ``got`` against a fused route's ``want`` on the
+    same rays: equal on every ray but those where the two pair tests round
+    apart. The engine's test sums the dot product x, y, z
+    (``ops.intersect.sphere_hit``), the routes' y, x, z
+    (``pallas_kernel._impact``, ``seg_compute.cuh``), so a particle within
+    an ulp of a ray's boundary can be hit in one and not the other. At most
+    1 ray in 10,000 may differ, and on each the walk's count must equal the
+    engine test's over every particle and the route's the route test's.
+    Returns the number of such rays."""
+    from grace_tpu_torch.ops.intersect import sphere_hit
+    from grace_tpu_torch.trace import pallas_kernel as pk
+
+    diff = torch.nonzero(got != want).flatten().tolist()
+    if len(diff) > max(1, rays.n_rays // 10_000):
+        raise AssertionError(f"{tag}: hit counts differ on {len(diff)} rays")
+    x, y, z, h = spheres.unbind(dim=1)
+    for r in diff:
+        o, d, ln = rays.origins[r], rays.directions[r], rays.lengths[r]
+        engine = sphere_hit(o, d, ln, spheres)[0]
+        b2, dot, *_ = pk._impact(x, y, z, *o.unbind(), *d.unbind())
+        route = (b2 < h * h) & (dot >= 0.0) & (dot < ln)
+        if int(engine.sum()) != int(got[r]) or int(route.sum()) != int(want[r]):
+            raise AssertionError(f"{tag}: ray {r}'s counts differ off the rounding boundary")
+    return len(diff)
+
+
+def records_by_ray_and_index(ray, index, integral, distance):
+    """Flat records sorted by (ray, index): an order that does not depend
+    on the distances, which two paths may round apart."""
+    order = torch.argsort(index, stable=True)
+    order = order[torch.argsort(ray[order], stable=True)]
+    return ray[order], index[order], integral[order], distance[order]
+
+
+def records_gate(flat, rec_sorted, keep):
+    """trace_sph(engine="xla")'s flat records against the record route's
+    sorted rows (B16, ``sort_records_by_distance``) on the rays ``keep``
+    (rows that did not overflow, counts equal): the same particles on every
+    ray; distances within rtol 1e-6, atol 1e-6 (each path sums the dot
+    product in its own order, ``count_gate``); integrals within 5e-4 x max
+    (the table lerp against the Horner fit, grace_tpu's route-vs-engine
+    tolerance). Both sides are compared in (ray, index) order. Returns
+    (records compared, distances that differ, their max abs err, the
+    integrals' max abs err)."""
+    n_rays, cap = rec_sorted.indices.shape
+    dev = flat.counts.device
+    ray_flat = torch.repeat_interleave(torch.arange(n_rays, device=dev), flat.counts.long(),
+                                       output_size=int(flat.total_hits))
+    sel = keep[ray_flat]
+    xla = records_by_ray_and_index(ray_flat[sel], flat.indices[:ray_flat.numel()][sel],
+                                   flat.integrals[:ray_flat.numel()][sel],
+                                   flat.distances[:ray_flat.numel()][sel])
+    valid = (torch.arange(cap, device=dev)[None, :] < rec_sorted.counts[:, None]) & keep[:, None]
+    rows = torch.arange(n_rays, device=dev)[:, None].expand(n_rays, cap)
+    b16 = records_by_ray_and_index(rows[valid], rec_sorted.indices[valid],
+                                   rec_sorted.integrals[valid], rec_sorted.distances[valid])
+    check_equal("records: rays", xla[0], b16[0])
+    check_equal("records: particle indices", xla[1], b16[1])
+    dist_err, _ = check_close("records: distances", xla[3], b16[3], 1e-6, 1e-6)
+    int_err, _ = check_close("records: integrals", xla[2], b16[2], 0.0,
+                             5e-4 * float(b16[2].abs().max()))
+    return xla[0].numel(), int((xla[3] != b16[3]).sum()), dist_err, int_err
+
+
+def torus_engine_gate(tris, img_x, side):
+    """render_triangles(engine="xla") (the walk) against engine="pallas"
+    (tri.cu) on the torus. The two round the triangle test differently
+    (ROADMAP C12), so: the closest ids equal on every ray but explained
+    edge rays (``explain_edge_rays``); each path's t bit-equal to its own
+    test's (``intersect_triangle``, ``pallas_tri._mt_candidates``) on its
+    triangle, so that where the ids agree t differs only by the tests'
+    roundings (the relative difference is reported);
+    on the pallas pass's shadow rays the walk's occlusion equals tri.cu's
+    but on at most 1 ray in 100, each with a triangle the two tests
+    disagree on; and the images equal bit for bit on every pixel whose
+    closest id and occlusion agree between the two renders. Returns (a
+    summary, the primary and shadow rays, sorted triangles, tree and the
+    walk's closest hits)."""
+    import math
+
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.rays.gen import pinhole_camera_rays
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    img_p = mt.render_triangles(tris, resolution=side, engine="pallas")
+    sorted_tris, tree, _ = mt.build_triangle_tree(tris)
+    cam, look, length = mt.auto_camera(sorted_tris, side)
+    rays = pinhole_camera_rays(side, side, cam.tolist(), look.tolist(), (0.0, 1.0, 0.0),
+                               math.pi / 3, float(length), device=tris.device)
+    t_p, id_p, _ = pt.pallas_trace_tri(rays, sorted_tris)
+    closest_x = mt.trace_closest_hit(rays, sorted_tris, tree)
+    n_edge = explain_edge_rays("torus ids, walk vs pallas", rays, sorted_tris, id_p,
+                               closest_x.tri)
+    # t: each path's exactly its own test's on its triangle, so where the
+    # ids agree the two differ only by the tests' roundings
+    packed = pt._pack_tris(sorted_tris)[0]
+    cols = [c[:, None] for c in (*rays.origins.unbind(1), *rays.directions.unbind(1),
+                                 rays.lengths)]
+    for name, t, ids in (("walk", closest_x.t, closest_x.tri), ("pallas", t_p, id_p)):
+        hit = ids >= 0
+        tri = torch.clamp(ids, min=0).long()
+        if name == "walk":
+            own = mt.intersect_triangle(rays.origins, rays.directions, rays.lengths,
+                                        sorted_tris[tri])[1]
+        else:
+            lanes = packed.permute(0, 2, 1).reshape(-1, 16)[tri]
+            own = pt._mt_candidates(lanes[:, :, None], *cols)[:, 0]
+        check_tensor_bits(f"torus {name} t vs its own test", t[hit], own[hit])
+    agree = (closest_x.tri == id_p) & (id_p >= 0)
+    t_rel = ((closest_x.t - t_p).abs() / t_p.abs())[agree]
+    t_err, n_t = float(t_rel.max()), int((t_rel > 1e-6).sum())
+    light = (0.3, 1.0, 0.6)
+    _, _, shadow_p = mt.shadow_inputs(rays, sorted_tris, mt.ClosestHit(t_p, id_p), light, length)
+    _, _, shadow_x = mt.shadow_inputs(rays, sorted_tris, closest_x, light, length)
+    occ_pp = pt.pallas_trace_tri(shadow_p, sorted_tris, mode="any")[0]
+    occ_xp = mt.trace_any_hit(shadow_p, sorted_tris, tree)
+    occ_xx = mt.trace_any_hit(shadow_x, sorted_tris, tree)
+    hit = torch.isfinite(t_p)
+    any_diff = torch.nonzero((occ_xp != occ_pp) & hit).flatten().tolist()
+    if len(any_diff) > rays.n_rays // 100:
+        raise AssertionError(f"torus shadow rays: occlusion differs on {len(any_diff)} rays")
+    for b in any_diff:
+        r = shadow_p[b:b + 1]
+        hit_e, _ = mt.intersect_triangle(r.origins[:, None], r.directions[:, None],
+                                         r.lengths[:, None], sorted_tris[None])
+        cols = [r.origins[:, 0], r.origins[:, 1], r.origins[:, 2], r.directions[:, 0],
+                r.directions[:, 1], r.directions[:, 2], r.lengths]
+        t_k = pt._mt_candidates(packed, *[c[:, None] for c in cols]).flatten()
+        t_k = t_k[:sorted_tris.shape[0]]
+        if not bool((hit_e[0] != (t_k < pt.BIG)).any()):
+            raise AssertionError(f"torus shadow ray {b}: occlusion differs off an edge")
+    same = (closest_x.tri == id_p) & (occ_xx == occ_pp)
+    check_tensor_bits("torus image where ids and occlusion agree", img_x.flatten()[same],
+                      img_p.flatten()[same])
+    return (f"closest ids equal but on {n_edge} explained edge rays; each path's t "
+            f"bit-equal to its own test's, where the ids agree within rel {t_err:.3g} ({n_t} "
+            f"past 1e-6: the tests' roundings); on the pallas shadow rays occlusion equal but on {len(any_diff)} "
+            f"explained rays; image bit-equal on {int(same.sum())} of {rays.n_rays} pixels "
+            f"({int((~same).sum())} where the renders' ids or occlusion differ)"), dict(
+                rays=rays, shadow=shadow_x, sorted_tris=sorted_tris, tree=tree,
+                closest=closest_x)
+
+
+def engine_path(dev, scene, tris, entry_args, side):
+    """Main path 8, the generic engine's walk, through the facades a user
+    calls, with the walk's launch counters and engine.trace's call counter
+    set to 0 first: the driver entry's forward (``entry_forward``), on
+    ``scene`` (path 1's) trace_hitcounts_sph, trace_cumulative_sph and
+    trace_sph(engine="xla") over every ray, and render_triangles(engine=
+    "xla") of ``tris`` at ``side`` x ``side``. Gates: the entry's walk
+    against the plain walk (``check_walk_sph``); on the scene, hit counts
+    against the default route (B6, ``count_gate``), sums within 5e-4 x max
+    of it (table against Horner), the records against the record route's
+    sorted rows (B16, ``records_gate``), and every WALK_SUBSET-th ray's
+    count and sum against the plain walk; the torus image against
+    engine="pallas" (``torus_engine_gate``). Returns launches, the plain
+    walk's calls, wall time, lines and what the timing needs."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.core.types import Rays
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.trace import engine
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import pallas_records as prc
+    from grace_tpu_torch.trace import walk as wk
+    from grace_tpu_torch.trace.sph import trace_cumulative_sph, trace_hitcounts_sph, trace_sph
+
+    ss, tree, rays = scene["spheres"], scene["tree"], scene["rays"]
+    route_cd, ovf = pk.pallas_trace_sph(rays, ss, tree, tile=TRACE_TILE)
+    route_hc, ovf_h = pk.pallas_trace_sph(rays, ss, tree, tile=TRACE_TILE, mode="hitcount")
+    if bool(ovf.any()) or bool(ovf_h.any()):
+        raise AssertionError("path 8: the default route overflows")
+    capacity = int(route_hc.sum()) + 1024   # room for rays the two pair tests round apart
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    wk.walk_sph.launches = wk.walk_tri.launches = engine.trace.calls = 0
+    t0 = time.perf_counter()
+    entry = entry_forward(*entry_args)
+    hc = trace_hitcounts_sph(rays, ss, tree)
+    cd = trace_cumulative_sph(rays, ss, tree)
+    flat = trace_sph(rays, ss, tree, capacity=capacity)
+    img = mt.render_triangles(tris, resolution=side, engine="xla")
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"bvh_walk_sph": wk.walk_sph.launches, "bvh_walk_tri": wk.walk_tri.launches}
+    plain_calls = engine.trace.calls
+    lines = []
+
+    # the driver entry: the walk against the plain walk on the same card
+    ss_e, tree_e, _ = build_sph_tree(entry_args[0], max_per_leaf=16)
+    rays_e = Rays(*entry_args[1:])
+    if entry.shape != (rays_e.n_rays,) or not bool(torch.isfinite(entry).all()):
+        raise AssertionError("path 8 entry forward: bad shape or non-finite values")
+    check_tensor_bits("path 8 entry forward vs its walk", entry,
+                      wk.walk_sph(rays_e, ss_e, tree_e, "cumulative"))
+    lines.append("driver entry " + check_walk_sph("vs the plain walk", rays_e, ss_e, tree_e))
+
+    # the bench scene: the routes, the records, the plain walk on a subset
+    n_diff = count_gate("path 8 walk vs default route", rays, ss, hc, route_hc)
+    err, top = check_close("path 8 walk sums vs default route", cd, route_cd, 0.0,
+                           5e-4 * float(route_cd.abs().max()))
+    lines.append(f"bench scene: {rays.n_rays} rays, {int(hc.sum())} hits; hit counts equal the "
+                 f"default route's but on {n_diff} rays where the pair tests round apart (each "
+                 f"explained); sums max abs err {err:.3g} (max {top:.3g}, gate 5e-4 x max)")
+    check_equal("path 8 trace_sph counts", flat.counts, hc)
+    check_equal("path 8 trace_sph offsets", flat.offsets,
+                (torch.cumsum(hc, dim=0) - hc).to(torch.int32))
+    if int(flat.total_hits) != int(hc.sum()) or int(flat.total_hits) > capacity:
+        raise AssertionError("path 8 trace_sph: total_hits != sum of counts, or overflow")
+    rec = prc.sort_records_by_distance(prc.pallas_trace_sph_records(rays, ss, RECORD_CAP))
+    keep = (rec.counts <= RECORD_CAP) & (rec.counts == hc)
+    n_rec, n_dist, dist_err, int_err = records_gate(flat, rec, keep)
+    del rec
+    lines.append(f"trace_sph(engine=\"xla\"), capacity {capacity}: {int(flat.total_hits)} "
+                 f"records; on {int(keep.sum())} rays (rows of B16 that did not overflow) "
+                 f"{n_rec} records, the same particles as B16's sorted rows, distances within "
+                 f"{dist_err:.3g} ({n_dist} differ), integrals within {int_err:.3g} (table "
+                 "against Horner)")
+    del flat
+    sub = torch.arange(0, rays.n_rays, WALK_SUBSET, device=dev)
+    check_equal("path 8 subset counts vs the plain walk", hc[sub],
+                wk._walk_sph_plain(rays[sub], ss, tree, "count"))
+    want = wk._walk_sph_plain(rays[sub], ss, tree, "cumulative")
+    sub_err, _ = check_close("path 8 subset sums vs the plain walk", cd[sub], want, 1e-5,
+                             1e-6 * float(want.abs().max()))
+    lines.append(f"{sub.numel()} rays (every {WALK_SUBSET}th) vs the plain walk: counts "
+                 f"bit-equal, sums max abs err {sub_err:.3g}")
+    summary, torus = torus_engine_gate(tris, img, side)
+    lines.append(f"torus ({tris.shape[0]} triangles, {side}x{side}): {summary}")
+    return dict(launches=launches, plain_calls=plain_calls, wall=wall, lines=lines, hc=hc,
+                cd=cd, sub=sub, sub_err=sub_err, capacity=capacity, entry=(ss_e, tree_e, rays_e),
+                torus=torus)
 
 
 def training_scene(dev, whole_image, n=3000, seed=11):
@@ -1253,15 +1712,27 @@ def engine_subset_gate(rays, sorted_tris, tree, t, ids):
     ref = mt.trace_closest_hit(rays, sorted_tris, tree)
     both = torch.isfinite(ref.t) & torch.isfinite(t)
     err, _ = check_close("subset t vs engine", t[both], ref.t[both], 1e-6, 0.0)
-    edge = torch.nonzero(ids != ref.tri).flatten().tolist()
+    return explain_edge_rays("subset ids vs engine", rays, sorted_tris, ids, ref.tri), err
+
+
+def explain_edge_rays(tag, rays, sorted_tris, ids, ref_ids):
+    """Rays whose closest triangle differs between the triangle kernel
+    (``ids``, pallas_tri's test) and the engine (``ref_ids``): at most 1 in
+    100, each where the two roundings of the test disagree on one of the
+    two triangles, or where both hit both at one t (a tie on the shared
+    edge). Returns their number."""
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    edge = torch.nonzero(ids != ref_ids).flatten().tolist()
     if len(edge) > rays.n_rays // 100:
-        raise AssertionError(f"subset ids vs engine: {len(edge)} rays differ")
+        raise AssertionError(f"{tag}: {len(edge)} rays differ")
     for b in edge:
         r = rays[b:b + 1]
         cols = [r.origins[:, 0], r.origins[:, 1], r.origins[:, 2], r.directions[:, 0],
                 r.directions[:, 1], r.directions[:, 2], r.lengths]
         explained, ts = False, []
-        for i in {int(ids[b]), int(ref.tri[b])} - {-1}:
+        for i in {int(ids[b]), int(ref_ids[b])} - {-1}:
             hit_e, t_e = mt.intersect_triangle(r.origins, r.directions, r.lengths,
                                                sorted_tris[i:i + 1])
             t_k = pt._mt_candidates(pt._pack_tris(sorted_tris[i:i + 1])[0][0],
@@ -1271,8 +1742,8 @@ def engine_subset_gate(rays, sorted_tris, tree, t, ids):
         # or both hit both triangles at one t (a tie on the shared edge)
         explained |= len(ts) == 2 and abs(ts[0] - ts[1]) <= 1e-6 * min(ts)
         if not explained:
-            raise AssertionError(f"subset ids vs engine: ray {b} differs off an edge")
-    return len(edge), err
+            raise AssertionError(f"{tag}: ray {b} differs off an edge")
+    return len(edge)
 
 
 def triangle_gates(tris, img, side):
@@ -1645,6 +2116,12 @@ def snapshot_path(dev, particles, sizes=SNAPSHOT_SIZES):
                     hc_engine)
         lines.append(f"engine subset: {sub.numel()} rays, hit counts equal the default "
                      f"route's ({int(hc_engine.sum())} hits)")
+        hc_walk, wall["trace_hitcounts_sph (all isotropic rays)"] = wall_ms(
+            lambda: trace_hitcounts_sph(iso, ss, tree).cpu())
+        n_diff = count_gate("isotropic: walk vs default route", iso, ss, hc_walk, hc.cpu())
+        lines.append(f"the walk on all {iso.n_rays} isotropic rays: hit counts equal the "
+                     f"default route's but on {n_diff} rays where the two pair tests round "
+                     "apart (each explained)")
 
         ray_sets["HEALPix"] = healpix_rays(torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 7),
                                            sizes["nside"], centre, 2.0, device=dev)
@@ -2153,6 +2630,7 @@ def run(dev, n_particles, side):
     from grace_tpu_torch.trace import pallas_kernel as pk
     from grace_tpu_torch.trace import splat as sp
     from grace_tpu_torch.trace import splat_grad as sg
+    from grace_tpu_torch.sph.kernel_integrals import DENSE_KERNEL_INTEGRAL_TABLE
 
     t_start = time.perf_counter()
     # 1. build every kernel, one nvcc each, all at once
@@ -2176,7 +2654,9 @@ def run(dev, n_particles, side):
              "grace_splat_sortfree_fwd_resources", (32, 32, 5, 8, sg.FWD_BATCH)),
             ("splat_sortfree_bwd (32 x 128 tile, deg8)", "splat_sortfree",
              "grace_splat_sortfree_bwd_resources", (32, 128, 5, 8)),
-            ("render_fwd (tile 128)", "render", "grace_render_fwd_resources", (TRACE_TILE,))):
+            ("render_fwd (tile 128)", "render", "grace_render_fwd_resources", (TRACE_TILE,)),
+            ("bvh_walk_sph (cumulative)", "bvh_walk", "grace_walk_resources", (0, 1)),
+            ("bvh_walk_tri (closest)", "bvh_walk", "grace_walk_resources", (1, 0))):
         log(f"resources {label}: {json.dumps(_kernels.resources(name, entry, dev, *ints))}")
 
     # 2. kernels vs plain versions at small and edge shapes; routes vs the
@@ -2186,6 +2666,8 @@ def run(dev, n_particles, side):
     training_small_checks(dev)
     records_small_checks(dev)
     tri_small_checks(dev)
+    for line in walk_small_checks(dev):
+        log(f"check bvh_walk kernel vs plain walk: {line} OK")
     entry_args = entry_check(dev)
 
     # 3. main path 1, the column-density render on the bench scene
@@ -2486,6 +2968,21 @@ def run(dev, n_particles, side):
         log(f"check path 7 {line} OK")
     log(path7_line(path7["times"], launches7, wall7))
 
+    # 11c. main path 8, the generic engine's walk on the card
+    from grace_tpu_torch.trace import walk as wk
+
+    path8 = engine_path(dev, scene, tris, entry_args, side)
+    launches8 = path8["launches"]
+    if min(launches8.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches8}")
+    if path8["plain_calls"] != 0:
+        raise AssertionError(f"path 8 entered the plain walk {path8['plain_calls']} times")
+    for line in path8["lines"]:
+        log(f"check path 8 {line} OK")
+    log(f"main path 8 (the engine's walk: entry forward, bench scene counts, sums and records, "
+        f"torus render): {path8['wall']:.2f} s wall; the plain walk entered 0 times; "
+        f"launches {launches8}")
+
     # 12. times (CUDA events, warm, median; the plain versions ran warm in 5, 7 and 10)
     t = {}
     t["build_sph_tree"] = cuda_ms(lambda: build_sph_tree(spheres, MAX_PER_LEAF), reps=3)
@@ -2546,6 +3043,8 @@ def run(dev, n_particles, side):
         max_chunks=caps["qlist"]))
     t["entry forward (2048 spheres, 1024 rays)"] = cuda_ms(lambda: entry_forward(*entry_args),
                                                            reps=3)
+    t["build_sph_tree (entry, 2048 spheres)"] = cuda_ms(
+        lambda: build_sph_tree(entry_args[0], max_per_leaf=16), reps=3)
     masks, masks_t, coords, slabs = sf_inputs
     deg8, a8c, b8c = sg._basis_coeffs("deg8")
     t["sortfree setup (projection, overlap, masks)"] = cuda_ms(
@@ -2602,6 +3101,53 @@ def run(dev, n_particles, side):
     t["trace_tri plain (any)"] = plain_ms["tri any"]
     t["render_triangles (pallas, whole)"] = cuda_ms(
         lambda: mt.render_triangles(tris, resolution=side, engine="pallas"), reps=3)
+    # the engine's walk (path 8): the kernel and the plain walk at each size;
+    # the plain walk runs once at the full sizes (its output held to the
+    # kernel's there too), warm on the subset and the entry
+    hc8, cd8 = path8["hc"], path8["cd"]
+    offsets8 = (torch.cumsum(hc8, dim=0, dtype=torch.int32) - hc8).to(torch.int32)
+    t["bvh_walk_sph kernel (cumulative, bench)"] = cuda_ms(
+        lambda: wk.walk_sph(rays_s, sorted_spheres, tree, "cumulative"))
+    t["bvh_walk_sph kernel (count, bench)"] = cuda_ms(
+        lambda: wk.walk_sph(rays_s, sorted_spheres, tree, "count"))
+    t["bvh_walk_sph kernel (records pass, bench)"] = cuda_ms(
+        lambda: wk.walk_sph(rays_s, sorted_spheres, tree, "records", cursors=offsets8,
+                            capacity=path8["capacity"]), reps=3)
+    t["trace_sph (engine xla, bench: count, scan, records)"] = cuda_ms(
+        lambda: trace_sph(rays_s, sorted_spheres, tree, capacity=path8["capacity"]), reps=3)
+    rays8 = rays_s[path8["sub"]]
+    t["bvh_walk_sph kernel (cumulative, bench subset)"] = cuda_ms(
+        lambda: wk.walk_sph(rays8, sorted_spheres, tree, "cumulative"))
+    t["plain walk (cumulative, bench subset)"] = cuda_ms(
+        lambda: wk._walk_sph_plain(rays8, sorted_spheres, tree, "cumulative"), reps=2, warm=0)
+    cd_plain, t["plain walk (cumulative, bench)"] = timed(
+        lambda: wk._walk_sph_plain(rays_s, sorted_spheres, tree, "cumulative"), dev)
+    walk_err, _ = check_close("bench walk sums vs the plain walk", cd8, cd_plain, 1e-5,
+                              1e-6 * float(cd_plain.abs().max()))
+    del cd_plain
+    ss_e, tree_e, rays_e = path8["entry"]
+    t["bvh_walk_sph kernel (cumulative, entry)"] = cuda_ms(
+        lambda: wk.walk_sph(rays_e, ss_e, tree_e, "cumulative"))
+    t["plain walk (cumulative, entry)"] = cuda_ms(
+        lambda: wk._walk_sph_plain(rays_e, ss_e, tree_e, "cumulative"), reps=3)
+    torus = path8["torus"]
+    tri8 = (torus["sorted_tris"], torus["tree"])
+    t["bvh_walk_tri kernel (closest, torus)"] = cuda_ms(
+        lambda: wk.walk_tri(torus["rays"], *tri8, "closest"))
+    t["bvh_walk_tri kernel (any, torus shadow rays)"] = cuda_ms(
+        lambda: wk.walk_tri(torus["shadow"], *tri8, "any"))
+    (t_pl, id_pl), t["plain walk (closest, torus)"] = timed(
+        lambda: wk._walk_tri_plain(torus["rays"], *tri8, "closest"), dev)
+    check_equal("torus walk ids vs the plain walk", torus["closest"].tri, id_pl)
+    check_tensor_bits("torus walk t vs the plain walk", torus["closest"].t, t_pl)
+    occ_pl, t["plain walk (any, torus shadow rays)"] = timed(
+        lambda: wk._walk_tri_plain(torus["shadow"], *tri8, "any"), dev)
+    check_equal("torus walk occlusion vs the plain walk", occ_pl,
+                wk.walk_tri(torus["shadow"], *tri8, "any"))
+    log(f"check path 8 the plain walk once at the full sizes: bench sums max abs err "
+        f"{walk_err:.3g}; torus ids, t and occlusion bit-equal OK")
+    t["render_triangles (xla, whole)"] = cuda_ms(
+        lambda: mt.render_triangles(tris, resolution=side, engine="xla"), reps=3)
     for k, v in t.items():
         log(f"time {k}: {v:.3f} ms")
 
@@ -2639,6 +3185,14 @@ def run(dev, n_particles, side):
         f"{FLOPS_MT} flops a (ray, triangle) test")
     trace_flops = lambda pairs: pairs * FLOPS_PAIR + hits * FLOPS_HIT_H14
     splat_flops = rows_x_cols * rank * 2 + rows_plus_cols * rank * (2 * deg8 + 2)
+    nodes_s, tested_s, most_s = walk_visits(rays_s, sorted_spheres, tree, "sph")
+    nodes_t, tested_t, most_t = walk_visits(torus["rays"], *tri8, "tri")
+    walk_hits = int(hc8.sum())
+    log(f"work: bvh_walk_sph on the bench scene {nodes_s} node tests (two boxes each, "
+        f"{FLOPS_SLAB} flops a box), {tested_s} sphere tests ({FLOPS_PAIR} flops), {walk_hits} "
+        f"hits ({FLOPS_HIT_LERP} flops), most node tests on one ray {most_s}; bvh_walk_tri on "
+        f"the torus's primary rays {nodes_t} node tests, {tested_t} triangle tests "
+        f"({FLOPS_MT} flops), most node tests on one ray {most_t}")
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -2702,6 +3256,22 @@ def run(dev, n_particles, side):
                      t["trace_tri kernel (any)"], t["trace_tri plain (any)"],
                      tri_pairs["any"] * 128 * tri_tile * FLOPS_MT,
                      nbytes(*tri_args) + tri_args[3].shape[0] * 8),
+        # the engine's walk (not a TPU kernel): main path 8
+        kernel_entry("bvh_walk_sph", "bvh_walk.cu", "grace_tpu/trace/engine.py:100",
+                     launches8["bvh_walk_sph"], walk_err,
+                     t["bvh_walk_sph kernel (cumulative, bench)"],
+                     t["plain walk (cumulative, bench)"],
+                     nodes_s * 2 * FLOPS_SLAB + tested_s * FLOPS_PAIR + walk_hits * FLOPS_HIT_LERP,
+                     nbytes(rays_s.origins, rays_s.directions, rays_s.lengths, sorted_spheres,
+                            tree.children, tree.child_aabbs, tree.leaves)
+                     + 4 * len(DENSE_KERNEL_INTEGRAL_TABLE) + rays_s.n_rays * 4),
+        kernel_entry("bvh_walk_tri", "bvh_walk.cu", "grace_tpu/trace/engine.py:100",
+                     launches8["bvh_walk_tri"], 0.0, t["bvh_walk_tri kernel (closest, torus)"],
+                     t["plain walk (closest, torus)"],
+                     nodes_t * 2 * FLOPS_SLAB + tested_t * FLOPS_MT,
+                     nbytes(torus["rays"].origins, torus["rays"].directions,
+                            torus["rays"].lengths, tri8[0], tri8[1].children,
+                            tri8[1].child_aabbs, tri8[1].leaves) + torus["rays"].n_rays * 8),
         # path 6's launches of B3 and B6, held and timed on its fan-out set
         *[kernel_entry(f"{k} (path 6)", f"{k}.cu", replaces, launches6[k], errs6[k],
                        k6[PATH6_FULL, k, "cumulative"], plain6[k], *work6[PATH6_FULL][k])

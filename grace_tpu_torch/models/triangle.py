@@ -2,10 +2,12 @@
 counterpart of ``grace_tpu.models.triangle``).
 
 Moller-Trumbore intersection with back-face culling, closest-hit and
-any-hit (shadow) traces on the generic engine, camera auto-framing, and a
-Lambert + hard-shadow render (``render_triangles``) on either the engine or
-the CUDA triangle kernel (``trace.pallas_tri``). Triangles are f32[T, 3, 3]
-vertex triplets; the LBVH build is ``build_primitive_tree`` with the
+any-hit (shadow) traces on the generic engine's walk
+(``trace.walk.walk_tri``: the CUDA walk on the card, ``engine.trace`` on
+the CPU), camera auto-framing, and a Lambert + hard-shadow render
+(``render_triangles``) on either the engine's walk or the CUDA triangle
+kernel (``trace.pallas_tri``). Triangles are f32[T, 3, 3] vertex
+triplets; the LBVH build is ``build_primitive_tree`` with the
 ``TRIANGLE`` kind and XOR deltas.
 
 The engine's intersection uses ``grace_tpu``'s compiled rounding (the
@@ -26,7 +28,7 @@ from grace_tpu_torch.core.types import Rays, creation_device
 from grace_tpu_torch.ops.primitives import TRIANGLE
 from grace_tpu_torch.ops.vecmath import cross, dot3, normalize3_unfused, tan_f32
 from grace_tpu_torch.rays.gen import pinhole_camera_rays
-from grace_tpu_torch.trace.engine import TraceFunctors, trace
+from grace_tpu_torch.trace.walk import walk_tri
 
 EPS = 1e-7
 
@@ -64,37 +66,13 @@ class ClosestHit(NamedTuple):
 def trace_closest_hit(rays: Rays, tris, tree, stack_size: int = 64) -> ClosestHit:
     """Closest-hit trace: each ray keeps its least t (ties: the first
     triangle of a leaf in order, then the earlier leaf)."""
-
-    def on_hit(carry, ray_ids, prim_ids, info, hit):
-        (t_min, tri_min), g = carry
-        t = torch.where(hit, info, torch.inf)
-        best = torch.argmin(t, dim=1, keepdim=True)
-        bt = torch.gather(t, 1, best)[:, 0]
-        btri = torch.gather(prim_ids, 1, best)[:, 0].to(torch.int32)
-        closer = bt < t_min
-        return (torch.where(closer, bt, t_min), torch.where(closer, btri, tri_min)), g
-
-    n, dev = rays.n_rays, rays.origins.device
-    init = (torch.full((n,), torch.inf, dtype=torch.float32, device=dev),
-            torch.full((n,), -1, dtype=torch.int32, device=dev))
-    fx = TraceFunctors(intersect=intersect_triangle, on_hit=on_hit)
-    (t, tri), _ = trace(rays, tree, tris, fx, ray_data_init=init, stack_size=stack_size)
+    t, tri = walk_tri(rays, tris, tree, "closest", stack_size)
     return ClosestHit(t=t, tri=tri)
 
 
 def trace_any_hit(rays: Rays, tris, tree, stack_size: int = 64) -> torch.Tensor:
     """Occlusion (shadow) trace: bool[R], any hit along each ray."""
-
-    def on_hit(carry, ray_ids, prim_ids, info, hit):
-        occluded, g = carry
-        return occluded | hit.any(dim=1), g
-
-    fx = TraceFunctors(intersect=intersect_triangle, on_hit=on_hit)
-    occ, _ = trace(rays, tree, tris, fx,
-                   ray_data_init=torch.zeros(rays.n_rays, dtype=torch.bool,
-                                             device=rays.origins.device),
-                   stack_size=stack_size)
-    return occ
+    return walk_tri(rays, tris, tree, "any", stack_size)
 
 
 def auto_camera(tris, resolution: int, fov_y: float = math.pi / 3):
@@ -111,13 +89,33 @@ def auto_camera(tris, resolution: int, fov_y: float = math.pi / 3):
     return cam, center, 4.0 * dist
 
 
+def shadow_inputs(rays: Rays, sorted_tris, hitrec: ClosestHit, light_dir, length):
+    """What ``render_triangles`` shades a closest-hit pass with: the hit
+    mask, |n . l| of each hit face, and the shadow rays toward the light
+    from each hit point (offset 1e-3 along the normal)."""
+    dev = sorted_tris.device
+    hit_mask = torch.isfinite(hitrec.t)
+    tri = sorted_tris[torch.clamp(hitrec.tri, 0, sorted_tris.shape[0] - 1).long()]
+    n = normalize3_unfused(cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]))
+    # Back-face culling makes every primary hit a front face; |n . l| shades.
+    light = normalize3_unfused(torch.tensor(light_dir, dtype=torch.float32, device=dev))
+    p = n * light
+    lambert = ((p[:, 0] + p[:, 1]) + p[:, 2]).abs()
+    hit_p = rays.origins + rays.directions * torch.where(hit_mask, hitrec.t, 0.0)[:, None]
+    shadow_o = hit_p + n * 1e-3
+    shadow = Rays(shadow_o, light.expand(shadow_o.shape).contiguous(),
+                  torch.full((rays.n_rays,), float(length), dtype=torch.float32, device=dev))
+    return hit_mask, lambert, shadow
+
+
 def render_triangles(tris, resolution: int = 256, light_dir=(0.3, 1.0, 0.6),
                      ambient: float = 0.15, max_per_leaf: int = 8, engine: str = "xla",
                      device=None) -> torch.Tensor:
     """Lambert + hard-shadow render of a triangle mesh, f32[res, res]: a
     primary closest-hit pass from ``auto_camera``'s pinhole, then a shadow
     any-hit pass toward the light. engine='xla' traces on the generic
-    engine, 'pallas' through ``pallas_trace_tri`` (the CUDA kernel on the
+    engine's walk (``trace.walk.walk_tri``: ``csrc/bvh_walk.cu`` on the
+    card), 'pallas' through ``pallas_trace_tri`` (``csrc/tri.cu`` on the
     card). ``tris`` (f32[T, 3, 3], a tensor or array) goes to ``device``
     (default: its own device if a tensor, else the CUDA card)."""
     if engine not in ("xla", "pallas"):
@@ -135,17 +133,7 @@ def render_triangles(tris, resolution: int = 256, light_dir=(0.3, 1.0, 0.6),
         hitrec = ClosestHit(t=t, tri=tri_id)
     else:
         hitrec = trace_closest_hit(rays, sorted_tris, tree)
-    hit_mask = torch.isfinite(hitrec.t)
-    tri = sorted_tris[torch.clamp(hitrec.tri, 0, sorted_tris.shape[0] - 1).long()]
-    n = normalize3_unfused(cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]))
-    # Back-face culling makes every primary hit a front face; |n . l| shades.
-    light = normalize3_unfused(torch.tensor(light_dir, dtype=torch.float32, device=dev))
-    p = n * light
-    lambert = ((p[:, 0] + p[:, 1]) + p[:, 2]).abs()
-    hit_p = rays.origins + rays.directions * torch.where(hit_mask, hitrec.t, 0.0)[:, None]
-    shadow_o = hit_p + n * 1e-3
-    shadow = Rays(shadow_o, light.expand(shadow_o.shape).contiguous(),
-                  torch.full((rays.n_rays,), float(length), dtype=torch.float32, device=dev))
+    hit_mask, lambert, shadow = shadow_inputs(rays, sorted_tris, hitrec, light_dir, length)
     if engine == "pallas":
         occluded, _, _ = pallas_trace_tri(shadow, sorted_tris, mode="any")
     else:

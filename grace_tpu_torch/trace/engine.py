@@ -10,6 +10,12 @@ until every stack is empty (one device-to-host read of ``any(sp > 0)`` per
 step). The user extension points are the ``TraceFunctors`` callables; see
 ``grace_tpu_torch.trace.functors`` for the stock set.
 
+This loop is the plain version of ``trace.walk``'s CUDA walk
+(``csrc/bvh_walk.cu``, one thread a ray), which runs the stock functor
+sets of the SPH facades and the triangle traces on the card; it stays the
+route for user-defined functors, as ``grace_tpu``'s engine is the fallback
+for exotic functors. ``trace.calls`` counts its calls.
+
 Out-of-range stack reads clamp to the last column and pushes past
 ``stack_size`` are dropped, as ``grace_tpu``'s gathers and ``mode="drop"``
 scatters do, so a too-small stack truncates the walk in the same way.
@@ -64,6 +70,7 @@ def trace(
 
     Returns (ray_data, global_state) after every ray's traversal ends.
     """
+    trace.calls += 1
     n_rays = rays.n_rays
     dev = rays.origins.device
     mpl = tree.max_per_leaf
@@ -128,6 +135,9 @@ def trace(
     if functors.ray_exit is not None:
         ray_data = functors.ray_exit(ray_data)
     return ray_data, global_state
+
+
+trace.calls = 0
 
 
 def trace_bruteforce(rays: Rays, prims: torch.Tensor, intersect_fn, reduce_fn,

@@ -3,8 +3,9 @@
 PyTorch counterpart of ``grace_tpu.trace.render``: pixel gradients with
 respect to particle positions, smoothing lengths and weights, in two steps.
 
-  1. ``find_hits``: the generic engine records the (ray, particle) id pair
-     of every intersection. Discrete and not differentiable: the hit set is
+  1. ``find_hits``: the generic engine's walk (``trace.walk.walk_sph``: the
+     CUDA walk on the card) records the (ray, particle) id pair of every
+     intersection. Discrete and not differentiable: the hit set is
      a constant of the backward pass (its boundary has measure zero).
   2. ``integrate_hits``: gathers, the kernel line integral per record and
      a per-ray sum by ``index_add``. All of it is differentiable, so
@@ -27,9 +28,8 @@ from grace_tpu_torch.ops.intersect import sphere_hit
 from grace_tpu_torch.ops.vecmath import sqrt
 from grace_tpu_torch.sph.kernel_integrals import (
     DENSE_KERNEL_INTEGRAL_TABLE, cubic_spline_line_integral)
-from grace_tpu_torch.trace import functors as F
-from grace_tpu_torch.trace.engine import TraceFunctors, trace
 from grace_tpu_torch.trace.sph import trace_hitcounts_sph
+from grace_tpu_torch.trace.walk import walk_sph
 
 _DEFAULT_TABLE = np.asarray(DENSE_KERNEL_INTEGRAL_TABLE, np.float32)
 
@@ -47,20 +47,14 @@ def find_hits(rays: Rays, spheres, tree: Tree, capacity: int,
     ray r's hits fill positions [offset_r, offset_r + count_r) in traversal
     order, offset_r the exclusive cumulative hit count; records past
     ``capacity`` are dropped (``total_hits`` still counts them)."""
-    dev = rays.origins.device
     counts = trace_hitcounts_sph(rays, spheres, tree, stack_size)
     offsets = (torch.cumsum(counts, dim=0, dtype=torch.int32) - counts).to(torch.int32)
     total = counts.sum(dtype=torch.int32)
-    fx = TraceFunctors(intersect=F.intersect_sphere,
-                       on_hit=F.make_on_hit_record_ids(capacity))
-    buffers = dict(ray=torch.full((capacity,), -1, dtype=torch.int32, device=dev),
-                   prim=torch.zeros(capacity, dtype=torch.int32, device=dev))
-    _, buffers = trace(rays, tree, spheres, fx, ray_data_init=offsets,
-                       global_init=buffers, stack_size=stack_size)
-    pos = torch.arange(capacity, dtype=torch.int32, device=dev)
-    valid = (buffers["ray"] >= 0) & (pos < total)
-    return HitRecords(ray=buffers["ray"], prim=buffers["prim"], valid=valid,
-                      total_hits=total)
+    ray, prim = walk_sph(rays, spheres, tree, "ids", stack_size, cursors=offsets,
+                         capacity=capacity)
+    pos = torch.arange(capacity, dtype=torch.int32, device=ray.device)
+    valid = (ray >= 0) & (pos < total)
+    return HitRecords(ray=ray, prim=prim, valid=valid, total_hits=total)
 
 
 def integrate_hits(records: HitRecords, rays: Rays, spheres, n_rays: int,

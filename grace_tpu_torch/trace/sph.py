@@ -1,5 +1,7 @@
-"""SPH trace facades on the generic engine (PyTorch counterpart of
-``grace_tpu.trace.sph``).
+"""SPH trace facades on the generic engine's walk (PyTorch counterpart of
+``grace_tpu.trace.sph``). They call ``trace.walk.walk_sph``: the CUDA walk
+(``csrc/bvh_walk.cu``) on the card, ``engine.trace`` with the stock
+functors on the CPU.
 
   trace_hitcounts_sph       per-ray hit counts
   trace_cumulative_sph      per-ray column density
@@ -18,39 +20,23 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from grace_tpu_torch.core.tree import Tree
 from grace_tpu_torch.core.types import Rays
-from grace_tpu_torch.sph.kernel_integrals import DENSE_KERNEL_INTEGRAL_TABLE
-from grace_tpu_torch.trace import functors as F
-from grace_tpu_torch.trace.engine import TraceFunctors, trace
-
-_DEFAULT_TABLE = np.asarray(DENSE_KERNEL_INTEGRAL_TABLE, np.float32)
+from grace_tpu_torch.trace.walk import walk_sph
 
 
 def trace_hitcounts_sph(rays: Rays, spheres, tree: Tree, stack_size: int = 64):
     """Per-ray intersection counts, i32[R]."""
-    fx = TraceFunctors(intersect=F.intersect_sphere, on_hit=F.on_hit_count)
-    counts, _ = trace(rays, tree, spheres, fx,
-                      ray_data_init=torch.zeros(rays.n_rays, dtype=torch.int32,
-                                                device=rays.origins.device),
-                      stack_size=stack_size)
-    return counts
+    return walk_sph(rays, spheres, tree, "count", stack_size)
 
 
 def trace_cumulative_sph(rays: Rays, spheres, tree: Tree, table=None,
                          weights=None, stack_size: int = 64):
     """Per-ray accumulated kernel line integrals (column density), f32[R]."""
-    table = _DEFAULT_TABLE if table is None else table
-    fx = TraceFunctors(intersect=F.intersect_sphere,
-                       on_hit=F.make_on_hit_sphere_cumulate(spheres, table, weights))
-    sums, _ = trace(rays, tree, spheres, fx,
-                    ray_data_init=torch.zeros(rays.n_rays, dtype=torch.float32,
-                                              device=rays.origins.device),
-                    stack_size=stack_size)
-    return sums
+    return walk_sph(rays, spheres, tree, "cumulative", stack_size, table=table,
+                    weights=weights)
 
 
 class SphTraceResult(NamedTuple):
@@ -75,23 +61,15 @@ def _records_result(rays, spheres, per_ray_capacity, drain, capacity, sentinels)
 def _engine_records(rays, spheres, tree, capacity, table, stack_size, sentinels):
     """The engine's two passes: counts, exclusive offsets (with one slot
     per ray for a sentinel when ``sentinels`` holds the fill values), then
-    a re-walk scattering each hit at its ray's cursor."""
+    a re-walk writing each hit at its ray's cursor."""
     counts = trace_hitcounts_sph(rays, spheres, tree, stack_size)
     stride = counts + (1 if sentinels else 0)
     offsets = (torch.cumsum(stride, dim=0, dtype=torch.int32) - stride).to(torch.int32)
     total = stride.sum(dtype=torch.int32)
-    table = _DEFAULT_TABLE if table is None else table
-    fx = TraceFunctors(intersect=F.intersect_sphere,
-                       on_hit=F.make_on_hit_sphere_record(spheres, table, capacity))
-    fill = sentinels or (0, 0.0, 0.0)
-    dev = spheres.device
-    buffers = {"indices": torch.full((capacity,), fill[0], dtype=torch.int32, device=dev),
-               "integrals": torch.full((capacity,), fill[1], dtype=torch.float32, device=dev),
-               "distances": torch.full((capacity,), fill[2], dtype=torch.float32, device=dev)}
-    _, buffers = trace(rays, tree, spheres, fx, ray_data_init=offsets,
-                       global_init=buffers, stack_size=stack_size)
-    return SphTraceResult(offsets, counts, buffers["indices"], buffers["integrals"],
-                          buffers["distances"], total)
+    indices, integrals, distances = walk_sph(
+        rays, spheres, tree, "records", stack_size, table=table, cursors=offsets,
+        capacity=capacity, fill=sentinels or None)
+    return SphTraceResult(offsets, counts, indices, integrals, distances, total)
 
 
 def trace_sph(rays: Rays, spheres, tree: Tree, capacity: int, table=None,

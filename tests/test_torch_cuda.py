@@ -28,8 +28,13 @@ row capacities that are no multiple of 4, three launch orders bit-equal,
 their resources, unaligned slabs and bad orders refused; counts and
 indices exact, integrals and distances within rtol 1e-6) and the triangle kernel (random
 meshes with faces culled, rays that miss the mesh box, tiles 8 to 96,
-both modes, lists cut by max_chunks; ids, misses and t bit-equal). The
-edge scenes and checks are chip_smoke.py's.
+both modes, lists cut by max_chunks; ids, misses and t bit-equal), and
+the engine's walk (bvh_walk.cu) against the plain walk at its edge shapes
+(a stack of 4, rays on box planes and rays that miss, a leaf of one
+primitive, record buffers that overflow, weights on and off, triangles
+in both modes), every facade of the walk on the card without entering
+engine.trace, and the walk's resources and refusals. The edge scenes and
+checks are chip_smoke.py's.
 """
 
 import numpy as np
@@ -54,7 +59,7 @@ from chip_smoke import (
     make_clustered_particles, random_mesh, records_inputs, records_scene,
     records_small_checks, render_inputs, route_inputs, sortfree_bwd_edge_check,
     sortfree_edge_check, sortfree_inputs,
-    splat_edge_check, support_edge_scene, training_scene, tri_inputs)
+    splat_edge_check, support_edge_scene, training_scene, tri_inputs, walk_small_checks)
 from grace_tpu_torch import _kernels
 
 CAM = (0.5, 0.5, -2.0)
@@ -704,3 +709,99 @@ def test_f32_products_ignore_tf32(dev, scene):
     assert not torch.equal(plain_on, plain_off)
     for i, (a, b) in enumerate(zip(on, off)):
         assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_walk_kernel_matches_plain_walk_at_edge_shapes(dev):
+    """csrc/bvh_walk.cu against the plain walk (engine.trace) on the card,
+    chip_smoke's edge shapes: clustered particles at 16 and at 1 a leaf,
+    rays on box planes with zero direction components and rays that miss,
+    weights on and off, record buffers of the hits and of half of them, a
+    stack of 4, a random mesh and a torus in both modes, and the overflow
+    message under GRACE_TPU_DEBUG. Counts, records, ids, t and occlusion
+    bit-equal; sums within rtol 1e-5."""
+    lines = walk_small_checks(dev)
+    assert len(lines) == 11 and "raise" in lines[-1]
+
+
+@pytest.mark.cuda
+def test_walk_facades_run_the_kernel_on_the_card(dev):
+    """Every facade of the engine's walk runs csrc/bvh_walk.cu on CUDA
+    tensors and never enters engine.trace, and gives the CPU's results:
+    counts, records, ids, triangle ids, t and occlusion equal; sums within
+    rtol 1e-5."""
+    from grace_tpu_torch.core.types import Rays
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.trace import engine, walk as wk
+    from grace_tpu_torch.trace import render as tr
+    from grace_tpu_torch.trace import sph as tsph
+
+    rng = np.random.default_rng(21)
+    particles = torch.from_numpy(make_clustered_particles(rng, 3000))
+    ss, tree, _ = build_sph_tree(particles, 16)
+    rays = orthographic_projection_rays(40, 30, CAM, LOOK, UP, 1.2, 6.0, device="cpu")
+    tris = torch.from_numpy(random_mesh(rng, 1500))
+    st, ttree, _ = mt.build_triangle_tree(tris)
+    o = (rng.random((900, 3)) * 0.4 + 0.3).astype(np.float32)
+    d = rng.standard_normal((900, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    trays = Rays.from_arrays(o, d, np.full(900, 3.0, np.float32), device="cpu")
+    w = torch.from_numpy((0.5 + rng.random(3000)).astype(np.float32))
+    calls = {
+        "trace_hitcounts_sph": lambda r, s, t, *_: tsph.trace_hitcounts_sph(r, s, t),
+        "trace_cumulative_sph": lambda r, s, t, w_: tsph.trace_cumulative_sph(r, s, t,
+                                                                               weights=w_),
+        "trace_sph": lambda r, s, t, *_: tsph.trace_sph(r, s, t, capacity=40000),
+        "trace_with_sentinels_sph": lambda r, s, t, *_: tsph.trace_with_sentinels_sph(
+            r, s, t, capacity=42000),
+        "find_hits": lambda r, s, t, *_: tr.find_hits(r, s, t, 40000),
+        "render_column_density": lambda r, s, t, w_: tr.render_column_density(r, s, t, 40000,
+                                                                              weights=w_),
+    }
+    tri_calls = {"trace_closest_hit": mt.trace_closest_hit, "trace_any_hit": mt.trace_any_hit}
+    cpu = {k: fn(rays, ss, tree, w) for k, fn in calls.items()}
+    cpu.update({k: fn(trays, st, ttree) for k, fn in tri_calls.items()})
+    g = lambda x: x.to(dev)
+    wk.walk_sph.launches = wk.walk_tri.launches = engine.trace.calls = 0
+    card = {k: fn(rays.to(dev), g(ss), tree.to(dev), g(w)) for k, fn in calls.items()}
+    card.update({k: fn(trays.to(dev), g(st), ttree.to(dev)) for k, fn in tri_calls.items()})
+    torch.cuda.synchronize()
+    assert engine.trace.calls == 0
+    assert wk.walk_sph.launches == 10 and wk.walk_tri.launches == 2
+    for k in cpu:
+        a = cpu[k] if isinstance(cpu[k], tuple) else (cpu[k],)
+        b = card[k] if isinstance(card[k], tuple) else (card[k],)
+        for x, y in zip(a, b):
+            y = y.cpu()
+            if x.dtype == torch.float32 and k in ("trace_cumulative_sph",
+                                                  "render_column_density"):
+                torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-6 * float(x.abs().max()))
+            elif x.dtype == torch.float32 and k.startswith("trace_") and x.dim() == 1 and \
+                    k != "trace_closest_hit":
+                torch.testing.assert_close(y, x, rtol=1e-6, atol=1e-6)   # integrals, distances
+            else:
+                assert torch.equal(y, x), k
+
+
+@pytest.mark.cuda
+def test_walk_resources_and_rejections(dev):
+    """The walk's resource query, and the C entries refusing a stack past
+    128 entries and an unknown mode (the wrappers raise ValueError first)."""
+    from grace_tpu_torch.trace import walk as wk
+
+    for kind, mode in ((0, 0), (0, 1), (0, 2), (0, 3), (1, 0), (1, 1)):
+        res = _kernels.resources("bvh_walk", "grace_walk_resources", dev, kind, mode)
+        assert res["threads"] == 128 and res["blocks_per_sm"] >= 1
+    particles = torch.from_numpy(make_clustered_particles(np.random.default_rng(2), 500))
+    ss, tree, _ = build_sph_tree(particles.to(dev), 8)
+    rays = orthographic_projection_rays(8, 8, CAM, LOOK, UP, 1.2, 6.0, device=dev)
+    out = (torch.empty(64, dtype=torch.int32, device=dev),)
+    with pytest.raises(RuntimeError, match="grace_walk_sph failed"):
+        wk._launch_sph(rays, ss, tree, "count", wk.MAX_STACK + 1, None, None, None, 0, out)
+    with pytest.raises(ValueError):
+        wk.walk_sph(rays, ss, tree, "count", stack_size=wk.MAX_STACK + 1)
+    with pytest.raises(ValueError):
+        wk.walk_tri(rays, ss, tree, "nearest")
+    flags = wk._launch_sph(rays, ss, tree, "count", wk.MAX_STACK, None, None, None, 0, out)
+    torch.cuda.synchronize()
+    assert int(flags.max()) == 0 and torch.equal(out[0], wk.walk_sph(rays, ss, tree, "count"))

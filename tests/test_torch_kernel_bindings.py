@@ -146,3 +146,22 @@ def test_aligned_gives_16_byte_addresses(offset):
     assert (out.data_ptr() == view.data_ptr()) == (view.data_ptr() % 16 == 0)
     t = _kernels.aligned(base.reshape(8, 8).t())
     assert t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+def test_walk_constants_agree():
+    """bvh_walk.cu's stack cap, mode numbers and triangle epsilon are the
+    wrapper's (trace/walk.py) and the engine's intersection's."""
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.trace import walk
+
+    src = _source("bvh_walk")
+    assert re.search(rf"constexpr int kMaxStack = {walk.MAX_STACK};", src)
+    names = {"count": "kCount", "cumulative": "kCumulative", "records": "kRecords",
+             "ids": "kIds", "closest": "kClosest", "any": "kAny"}
+    for modes in (walk.SPH_MODES, walk.TRI_MODES):
+        for i, mode in enumerate(modes):
+            assert re.search(rf"constexpr int {names[mode]} = {i};", src), mode
+    assert float(re.search(r"kEps = ([0-9.e+-]+)f;", src).group(1)) == mt.EPS
+    # the walk runs the engine's rounding: no nvcc contraction, NaN-propagating min/max
+    assert _kernels.KERNELS["bvh_walk"][1] == ["--fmad=false"]
+    assert "fminf(a, b)" in src and "a != a || b != b" in src
