@@ -1,7 +1,7 @@
 """Ablations of the kernels redesigned for the card, on one CUDA card.
 
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
-                             [sortfree_bwd] [render_fwd] [paths] [statistics]
+                             [sortfree_bwd] [render_fwd] [paths] [statistics] [walk]
                              [--parent DIR]   (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
 
@@ -112,6 +112,20 @@ wrapper launches them (longest list first).
   normalized in f64, and in f64 as shipped, each timed; against float64
   evaluations of the directions normalized and as drawn.
 
+  walk: the engine's walk (csrc/bvh_walk.cu, E1) on the driver entry's
+  1,024 random rays, the bench scene's sorted rays and every 64th of them,
+  path 6's isotropic and HEALPix fan-out rays on the bench particles, and
+  the torus's primary (closest) and shadow (any, closest) rays: the packet
+  walk as shipped, with leaf tests by pairs at no step, at steps of up to
+  8 or 24 lanes and at every step (shipped: up to 16), without closest
+  pruning and without the any-hit exit, the per-ray walk (route 1), and
+  with --parent DIR PR 12's kernel built from DIR/grace_tpu_torch/csrc;
+  every output bit-equal to the per-ray walk's, timed in turns, with the
+  packet's restarts, steps a warp and active lanes a step, and the
+  device's busy share during the shipped packet and per-ray walks; first
+  the f32 <-> f64 conversions and f64 operations in each compiled walk
+  kernel (cuobjdump -sass).
+
 Then each shipped kernel on the same inputs launched in other orders of
 its work units (ray tiles, segments), through the C entry point: as
 listed, longest list first, and the longest units alone, with the spread
@@ -127,6 +141,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -136,10 +151,11 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import (CAM, LENGTH, LOOK, MAX_PER_LEAF, N_PARTICLES, SIDE, TORUS, TRACE_TILE, UP,
-                        VEXT, _popcount_rows, check_close, cuda_ms, make_clustered_particles,
+from chip_smoke import (CAM, LENGTH, LOOK, MAX_PER_LEAF, N_PARTICLES, SIDE, SNAPSHOT_SEED,
+                        SNAPSHOT_SIZES, TORUS, TRACE_TILE, UP, VEXT, _popcount_rows, check_close,
+                        cuda_ms, entry_inputs, make_clustered_particles, packet_summary,
                         records_inputs, render_inputs, route_inputs, sortfree_fwd_dense,
-                        sortfree_inputs, splat_dense, torus_mesh, tri_inputs)
+                        sortfree_inputs, splat_dense, torus_mesh, tri_inputs, walk_outputs)
 
 def swap(file, old, new):
     """An edit of ``file`` that replaces its one occurrence of ``old``."""
@@ -1738,8 +1754,194 @@ def statistics_forms():
     return out
 
 
+# The engine's walk (csrc/bvh_walk.cu, E1): the packet walk as shipped and
+# with one of its parts taken out, each held bit-equal to the per-ray walk.
+# PR 12's kernel (--parent DIR) has the entries without stats and route.
+_PAIR_LANES = lambda n: swap("bvh_walk.cu", "constexpr int kPairLanes = 16;",
+                             f"constexpr int kPairLanes = {n};")
+WALK_VARIANTS = {
+    "packet (shipped)": None,
+    "no pair tests": [_PAIR_LANES(0)],
+    "pair tests up to 8 lanes": [_PAIR_LANES(8)],
+    "pair tests up to 24 lanes": [_PAIR_LANES(24)],
+    "pair tests at every step": [_PAIR_LANES(32)],
+    "no closest pruning": [swap("bvh_walk.cu", "constexpr bool kPrune = true;",
+                                "constexpr bool kPrune = false;")],
+    "no any-hit exit": [swap("bvh_walk.cu", "constexpr bool kAnyExit = true;",
+                             "constexpr bool kAnyExit = false;")],
+}
+WALK_PARENT_ENTRIES = {"grace_walk_sph": "p" * 16 + "i" * 9, "grace_walk_tri": "p" * 12 + "i" * 7}
+
+
+def walk_call(dll, kind, mode, rays, prims, tree, route, parent=False):
+    """(C entry, arguments, outputs, tensors to keep) of one walk launch
+    through ``dll``, as ``trace.walk._launch_sph`` / ``_launch_tri`` pass
+    them (the parent's entries take no stats and no route)."""
+    from grace_tpu_torch.sph.kernel_integrals import DENSE_KERNEL_INTEGRAL_TABLE
+    from grace_tpu_torch.trace import walk as wk
+
+    n, dev = rays.n_rays, prims.device
+    base = wk._launch_args(rays, prims, tree)
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    tail = [] if parent else [wk.ROUTES.index(route)]
+    if kind == "sph":
+        table = torch.as_tensor(DENSE_KERNEL_INTEGRAL_TABLE, dtype=torch.float32, device=dev)
+        outs = (torch.empty(n, device=dev, dtype=torch.int32 if mode == "count"
+                            else torch.float32),)
+        ptrs = [t.data_ptr() for t in base] + [table.data_ptr(), 0, 0, outs[0].data_ptr(), 0, 0,
+                                               0, flags.data_ptr()] + ([] if parent else [0])
+        ints = [n, prims.shape[0], tree.capacity, tree.leaf_capacity, tree.max_per_leaf, 64,
+                table.shape[0], wk.SPH_MODES.index(mode), 0]
+        return dll.grace_walk_sph, ptrs + ints + tail, outs, (base, table, flags)
+    outs = ((torch.empty(n, device=dev), torch.empty(n, dtype=torch.int32, device=dev))
+            if mode == "closest" else (torch.empty(n, dtype=torch.bool, device=dev),))
+    ptrs = [t.data_ptr() for t in base] + [o.data_ptr() for o in outs] + [0] * (2 - len(outs)) \
+        + [0, flags.data_ptr()] + ([] if parent else [0])
+    ints = [n, prims.shape[0], tree.capacity, tree.leaf_capacity, tree.max_per_leaf, 64,
+            wk.TRI_MODES.index(mode)]
+    return dll.grace_walk_tri, ptrs + ints + tail, outs, (base, flags)
+
+
+def walk_ray_sets(dev):
+    """The walk's ray sets: {name: (kind, modes, rays, prims, tree)}: the
+    driver entry's 1,024 random rays (2,048 spheres, 16 a leaf), the bench
+    scene's 262,144 sorted orthographic rays and every 64th of them (2^20
+    particles, 32 a leaf), path 6's fan-out sets (262,144 isotropic rays,
+    direction-sorted, and 196,608 HEALPix rays from the box centre), and
+    the torus (262,144 triangles, 8 a leaf): its primary rays (closest) and
+    their shadow rays (any), as render_triangles makes them."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.core.types import Rays
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.rays import gen
+    from grace_tpu_torch.rays.healpix import healpix_rays
+
+    spheres_e, o, d, ln = entry_inputs(dev)
+    ss_e, tree_e, _ = build_sph_tree(spheres_e, max_per_leaf=16)
+    spheres = torch.from_numpy(
+        make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
+    ss, tree, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+    rays_s, _, _ = gen.spatial_sort_rays(gen.orthographic_projection_rays(
+        SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH, device=dev))
+    centre = (0.5, 0.5, 0.5)
+    iso = gen.uniform_random_rays(torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 2),
+                                  SNAPSHOT_SIZES["iso_rays"], centre, 2.0, device=dev)
+    hp = healpix_rays(torch.Generator(dev).manual_seed(SNAPSHOT_SEED + 7),
+                      SNAPSHOT_SIZES["nside"], centre, 2.0, device=dev)
+    tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
+    sorted_tris, ttree, _ = mt.build_triangle_tree(tris)
+    cam, look, length = mt.auto_camera(sorted_tris, SIDE)
+    primary = gen.pinhole_camera_rays(SIDE, SIDE, cam.tolist(), look.tolist(), (0.0, 1.0, 0.0),
+                                      math.pi / 3, float(length), device=dev)
+    closest = mt.trace_closest_hit(primary, sorted_tris, ttree)
+    _, _, shadow = mt.shadow_inputs(primary, sorted_tris, closest, (0.3, 1.0, 0.6), length)
+    sph = ("cumulative", "count")
+    return {
+        "entry": ("sph", sph, Rays(o, d, ln), ss_e, tree_e),
+        "bench": ("sph", sph, rays_s, ss, tree),
+        "bench, every 64th ray": ("sph", sph, rays_s[torch.arange(0, rays_s.n_rays, 64,
+                                                                   device=dev)], ss, tree),
+        "isotropic (fan-out)": ("sph", sph, iso, ss, tree),
+        "HEALPix (fan-out)": ("sph", sph, hp, ss, tree),
+        "torus primary": ("tri", ("closest",), primary, sorted_tris, ttree),
+        "torus shadow": ("tri", ("any", "closest"), shadow, sorted_tris, ttree),
+    }
+
+
+def walk_conversions(lib):
+    """Static counts of the f32 <-> f64 conversions and the f64 operations
+    in each kernel of the walk library ``lib`` (cuobjdump -sass): the exact
+    fma_f64's cost, which the card runs at 16 conversions an SM a clock."""
+    from grace_tpu_torch import _kernels
+
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    for f in sass.split("Function : ")[1:]:
+        head = f.splitlines()[0]
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", f)
+        count = lambda prefix: sum(op.startswith(prefix) for op in ops)
+        name = next(k for k in ("packet_sph_kernel", "packet_tri_kernel", "walk_sph_kernel",
+                                "walk_tri_kernel") if k in head)
+        print(f"walk sass {name}<{head.split('ILi')[1][0]}>: {count('F2F.F64.F32')} "
+              f"F2F.F64.F32, {count('F2F.F32.F64')} F2F.F32.F64, {count('DMUL')} DMUL, "
+              f"{count('DADD')} DADD, {len(ops)} instructions", flush=True)
+
+
+def walk_ablations(parent_dir):
+    """The packet walk (as shipped and without leaf batches, closest
+    pruning or the any-hit exit), the per-ray walk and, with
+    ``parent_dir``, PR 12's kernel, on each of ``walk_ray_sets``' sets and
+    modes: outputs bit-equal to the per-ray walk's, then timed in turns
+    (CUDA events, median of 10); the packet's restarts, steps a warp and
+    active lanes a step; and the device's busy share during the shipped
+    walk and the per-ray walk. Returns {set mode: {variant: ms}}."""
+    from grace_tpu_torch import _kernels
+    from grace_tpu_torch.trace import walk as wk
+
+    dev = torch.device("cuda", 0)
+    dlls = {v: build_variant("bvh_walk", f"walk-{i}", edits)
+            for i, (v, edits) in enumerate(WALK_VARIANTS.items())}
+    walk_conversions(os.path.join(_kernels.BUILD_DIR, "ablation", "walk-0", "bvh_walk.so"))
+    if parent_dir is not None:
+        dlls["parent (PR 12, per-ray)"] = build_variant(
+            "bvh_walk", "walk-parent", None, os.path.join(parent_dir, "grace_tpu_torch", "csrc"),
+            WALK_PARENT_ENTRIES)
+    else:
+        print("walk: no --parent DIR, so no parent rows", flush=True)
+    result = {}
+    for name, (kind, modes, rays, prims, tree) in walk_ray_sets(dev).items():
+        for mode in modes:
+            label = f"{name} {mode}"
+            runs = {}
+            for v, dll in dlls.items():
+                if (v == "no closest pruning" and mode != "closest") or (
+                        v == "no any-hit exit" and mode != "any"):
+                    continue
+                runs[v] = walk_call(dll, kind, mode, rays, prims, tree, "packet",
+                                    parent=v.startswith("parent"))
+            runs["per-ray (shipped route 1)"] = walk_call(dlls["packet (shipped)"], kind, mode,
+                                                          rays, prims, tree, "per_ray")
+            fn, args, want, _ = runs["per-ray (shipped route 1)"]
+            call(fn, args)
+            torch.cuda.synchronize()
+            bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+            for v, (fn, args, outs, _) in runs.items():
+                call(fn, args)
+                torch.cuda.synchronize()
+                if not all(torch.equal(bits(o), bits(w)) for o, w in zip(outs, want)):
+                    raise AssertionError(f"walk {label}: {v} differs from the per-ray walk")
+            times = {v: [] for v in runs}
+            order = list(runs) + list(runs)[::-1]
+            for _ in range(5):
+                for v in order:
+                    fn, args, _, _ = runs[v]
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    call(fn, args)
+                    end.record()
+                    torch.cuda.synchronize()
+                    times[v].append(start.elapsed_time(end))
+            result[label] = {v: statistics.median(x) for v, x in times.items()}
+            _, _, _, st = walk_outputs(rays, prims, tree, kind, mode, 64, "packet", stats=True)
+            restarts, steps, lanes = packet_summary(st)
+            print(f"walk {label}: {rays.n_rays} rays; packet {restarts} restarts, {steps:.1f} "
+                  f"steps a warp, {lanes:.2f} active lanes a step", flush=True)
+            for v, x in times.items():
+                print(f"walk {label} {v}: {statistics.median(x):.3f} ms (median of {len(x)}; "
+                      f"min {min(x):.3f}, max {max(x):.3f}); bits equal to the per-ray walk",
+                      flush=True)
+            if name in ("bench", "torus primary", "torus shadow", "isotropic (fan-out)"):
+                for v in ("packet (shipped)", "per-ray (shipped route 1)"):
+                    fn, args, _, _ = runs[v]
+                    result[f"{label} {v} busy"] = device_busy(f"walk {label} {v}",
+                                                              lambda: call(fn, args))
+    return result
+
+
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
-         "paths", "statistics")
+         "paths", "statistics", "walk")
 
 
 def main():
@@ -1749,7 +1951,7 @@ def main():
         sys.path.insert(0, os.path.abspath(args[i + 1]))
         del args[i:i + 2]
     parent = None
-    if "--parent" in args:  # the parent's kernels (records, sortfree_bwd, render_fwd)
+    if "--parent" in args:  # the parent's kernels (records, sortfree_bwd, render_fwd, walk)
         i = args.index("--parent")
         parent = os.path.abspath(args[i + 1])
         del args[i:i + 2]
@@ -1814,6 +2016,8 @@ def main():
 
     if "statistics" in parts:
         summary["statistics"] = statistics_forms()
+    if "walk" in parts:
+        summary["walk"] = walk_ablations(parent)
     if "trace_tri" in parts:
         tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
         sorted_tris, _, _ = mt.build_triangle_tree(tris)

@@ -78,8 +78,8 @@ kernels' launch counters set to 0 just before it:
      tests/test_torch_parallel.py on the CPU (gloo). The process group is
      torn down at the end.
   8. the generic engine's walk on the card (``engine_path``;
-     csrc/bvh_walk.cu, one thread a ray, with engine.trace's call counter
-     held at 0): the driver entry's forward, trace_hitcounts_sph,
+     csrc/bvh_walk.cu, a warp's 32 rays as one packet, with engine.trace's
+     call counter held at 0): the driver entry's forward, trace_hitcounts_sph,
      trace_cumulative_sph and trace_sph(engine="xla") on path 1's scene and
      rays, and render_triangles(engine="xla") on the torus; the entry's
      walk bit-equal to the plain walk (sums within rtol 1e-5); on the bench
@@ -90,16 +90,24 @@ kernels' launch counters set to 0 just before it:
      max, and every 64th ray's counts and sums against the plain walk; the
      torus image bit-equal to engine="pallas" wherever the two renders'
      closest ids and occlusion agree, their differences explained edge
-     rays; then the kernels and the plain walk timed at each size (the
-     plain walk once at full size, its output held to the kernel's).
+     rays; the packet walk bit-equal to the per-ray walk (PR 12's kernel,
+     the packet's restart route) in every mode on the entry, the bench
+     scene and the torus's primary and shadow rays, no warp restarting;
+     then the packet walk, the per-ray walk and the plain walk timed at
+     each size (the plain walk once at full size, its counts, sums and
+     triangle outputs held to the kernel's); path 6's timing also gives
+     the walk's cumulative and count times on the isotropic and HEALPix
+     rays beside B6's.
 
 The engine's walk is held bit-equal to the plain walk (engine.trace) at
 edge shapes first: a stack of 4 (on the rays whose overflowed walk ends),
 rays on box planes with zero direction components, rays that miss
 everything, a leaf of one primitive, record buffers that overflow,
 weights on and off, triangles in both modes, and the overflow message
-under GRACE_TPU_DEBUG. Path 6 also holds the walk's hit counts on all
-262,144 isotropic rays against B6.
+under GRACE_TPU_DEBUG; and the packet walk bit-equal to the per-ray walk
+there in every mode, at a ragged ray count and at stacks of 64 (no warp
+restarts) and 4 (warps restart). Path 6 also holds the walk's hit counts
+on all 262,144 isotropic rays against B6.
 
 The trace kernels are also held against their plain versions on particles
 at the edge of a ray's support (u = b^2 / h^2 within a few ulp of 1, on
@@ -654,34 +662,107 @@ def walk_flags(rays, prims, tree, kind, stack_size):
     """The walk kernel's per-ray flags at ``stack_size`` (0; 1 where the
     stack overflowed; 2 where an overflowed walk repeats an entry forever
     and was cut: the plain walk would never end there)."""
-    from grace_tpu_torch.trace import walk as wk
-
-    n = rays.n_rays
-    if kind == "sph":
-        out = (torch.empty(n, dtype=torch.int32, device=prims.device),)
-        return wk._launch_sph(rays, prims, tree, "count", stack_size, None, None, None, 0, out)
-    out = (torch.empty(n, dtype=torch.float32, device=prims.device),
-           torch.empty(n, dtype=torch.int32, device=prims.device))
-    return wk._launch_tri(rays, prims, tree, "closest", stack_size, out)
+    mode = "count" if kind == "sph" else "closest"
+    return walk_outputs(rays, prims, tree, kind, mode, stack_size, "packet", visits=False)[1]
 
 
 def walk_visits(rays, prims, tree, kind):
     """(internal nodes tested, primitives tested, most nodes on one ray) of
     the walk over ``rays``, from the kernel's visit counters (a count or
-    closest launch with them on)."""
+    closest launch of the per-ray walk with them on: the plain walk's work,
+    unpruned, whatever walks it)."""
+    mode = "count" if kind == "sph" else "closest"
+    visits = walk_outputs(rays, prims, tree, kind, mode, 64, "per_ray")[2]
+    tot = visits.long().sum(dim=0)
+    return int(tot[0]), int(tot[1]), int(visits[:, 0].max())
+
+
+def walk_outputs(rays, prims, tree, kind, mode, stack_size, route, weights=None, cursors=None,
+                 capacity=0, stats=False, visits=True):
+    """One launch of the walk kernel on ``route`` ("packet" or "per_ray")
+    in ``mode``, through ``_launch_sph`` / ``_launch_tri``: (outputs,
+    overflow flags, visits i32[R, 2] or None, stats i32[warps, 3] or None).
+    The record modes write into buffers poisoned with -7 first."""
+    from grace_tpu_torch.sph.kernel_integrals import DENSE_KERNEL_INTEGRAL_TABLE
     from grace_tpu_torch.trace import walk as wk
 
     n, dev = rays.n_rays, prims.device
-    visits = torch.zeros((n, 2), dtype=torch.int32, device=dev)
-    if kind == "sph":
-        wk._launch_sph(rays, prims, tree, "count", 64, None, None, None, 0,
-                       (torch.empty(n, dtype=torch.int32, device=dev),), visits)
+    visits = torch.full((n, 2), -7, dtype=torch.int32, device=dev) if visits else None
+    st = (torch.full((-(-n // wk.WARP), len(wk.STATS_FIELDS)), -7, dtype=torch.int32,
+                     device=dev) if stats else None)
+    if kind == "tri":
+        outs = ((torch.empty(n, device=dev), torch.empty(n, dtype=torch.int32, device=dev))
+                if mode == "closest" else (torch.empty(n, dtype=torch.bool, device=dev),))
+        flags = wk._launch_tri(rays, prims, tree, mode, stack_size, outs, visits, st, route)
+        return outs, flags, visits, st
+    table = (torch.as_tensor(DENSE_KERNEL_INTEGRAL_TABLE, dtype=torch.float32, device=dev)
+             if mode in ("cumulative", "records") else None)
+    if mode in ("count", "cumulative"):
+        outs = (torch.empty(n, device=dev, dtype=torch.int32 if mode == "count"
+                            else torch.float32),)
+        cursors, capacity = None, 0
     else:
-        wk._launch_tri(rays, prims, tree, "closest", 64,
-                       (torch.empty(n, device=dev), torch.empty(n, dtype=torch.int32,
-                                                                device=dev)), visits)
-    tot = visits.long().sum(dim=0)
-    return int(tot[0]), int(tot[1]), int(visits[:, 0].max())
+        outs = tuple(torch.full((capacity,), -7, dtype=dt, device=dev) for dt in (
+            (torch.int32, torch.float32, torch.float32) if mode == "records"
+            else (torch.int32, torch.int32)))
+    flags = wk._launch_sph(rays, prims, tree, mode, stack_size, table,
+                           weights if mode == "cumulative" else None, cursors, capacity, outs,
+                           visits, st, route)
+    return outs, flags, visits, st
+
+
+def packet_summary(stats):
+    """(warps restarted, mean packet steps a warp, mean active lanes a step)
+    from the packet walk's stats."""
+    st = stats.long()
+    return (int(st[:, 0].sum()), float(st[:, 1].double().mean()),
+            float(st[:, 2].sum()) / max(1, int(st[:, 1].sum())))
+
+
+def check_walk_routes(tag, rays, prims, tree, kind, stack_size=64, weights=None,
+                      capacity=None):
+    """The packet walk against the per-ray walk (PR 12's kernel, the
+    restart route) on the same card tensors, in every mode of ``kind``:
+    counts, cumulative sums (weights off and on), record buffers (every
+    slot), ids, t and occlusion bit-equal; flags and visit counts equal but
+    where the walk may differ by design (an occluded ray's any-hit walk;
+    the closest walk pruned at stacks of PRUNE_STACK and above, on rays
+    whose per-ray walk overflows). Returns (summary, restarted warps)."""
+    from grace_tpu_torch.trace import walk as wk
+
+    modes = wk.SPH_MODES if kind == "sph" else wk.TRI_MODES
+    restarts, lines = 0, []
+    cursors, cap = None, 0
+    for mode in modes:
+        for w in ((None, weights) if mode == "cumulative" and weights is not None else (None,)):
+            if mode in ("records", "ids"):
+                counts = walk_outputs(rays, prims, tree, kind, "count", stack_size,
+                                      "per_ray")[0][0]
+                cursors = (torch.cumsum(counts, dim=0, dtype=torch.int32) - counts).to(
+                    torch.int32)
+                cap = int(counts.sum()) if capacity is None else capacity
+            got, flags, visits, st = walk_outputs(rays, prims, tree, kind, mode, stack_size,
+                                                  "packet", w, cursors, cap, stats=True)
+            want, flags_w, visits_w, _ = walk_outputs(rays, prims, tree, kind, mode,
+                                                      stack_size, "per_ray", w, cursors, cap)
+            label = f"{tag} packet vs per-ray walk, {mode}" + (", weights" if w is not None
+                                                               else "")
+            for i, (g, x) in enumerate(zip(got, want)):
+                check_tensor_bits(f"{label} output {i}", g, x)
+            same = torch.ones_like(flags, dtype=torch.bool)
+            if mode == "any":
+                same = ~want[0]
+            elif mode == "closest" and stack_size >= wk.PRUNE_STACK:
+                same = flags_w == 0
+            check_equal(f"{label} flags", flags[same], flags_w[same])
+            if mode not in ("closest", "any"):
+                check_equal(f"{label} visits", visits, visits_w)
+            r, steps, lanes = packet_summary(st)
+            restarts += r
+            lines.append(f"{mode}{' weighted' if w is not None else ''} {r} restarts, "
+                         f"{steps:.1f} steps a warp, {lanes:.2f} lanes a step")
+    return (f"{tag}: {rays.n_rays} rays, stack {stack_size}; the packet walk bit-equal to the "
+            f"per-ray walk in every mode ({'; '.join(lines)})"), restarts
 
 
 def check_walk_sph(tag, rays, spheres, tree, stack_size=64, weights=None, capacity=None):
@@ -739,9 +820,11 @@ def walk_small_checks(dev):
     everything, weights on and off, record buffers of the hits and of half
     of them (writes past the end dropped), a stack of 4 (on the rays whose
     walk ends; it overflows on others too); triangles of a random mesh and
-    a small torus, closest and any, stacks of 64 and 4; and the overflow
-    flag raising with the plain walk's message under GRACE_TPU_DEBUG.
-    Returns the summaries."""
+    a small torus, closest and any, stacks of 64 and 4; the packet walk
+    against the per-ray walk (``check_walk_routes``) on the same shapes at
+    a ragged ray count (1,250), no warp restarting at a stack of 64 and
+    some at 4; and the overflow flag raising with the plain walk's message
+    under GRACE_TPU_DEBUG. Returns the summaries."""
     from grace_tpu_torch.build.sph import build_sph_tree
     from grace_tpu_torch.core.errors import GraceError
     from grace_tpu_torch.models import triangle as mt
@@ -778,6 +861,27 @@ def walk_small_checks(dev):
         lines.append(check_walk_tri(f"{name}, {int(keep.sum())} rays whose walk ends",
                                     rays[keep], st, tree, stack_size=4)
                      + f" ({int((flags == 1).sum())} overflow)")
+    # the packet walk against the per-ray walk (PR 12's kernel, its restart
+    # route) on the same edge shapes: a ragged ray count, stacks of 64
+    # (no warp restarts) and 4 (warps restart)
+    for mpl in (16, 1):
+        ss, tree, _ = build_sph_tree(particles, mpl)
+        rays = walk_edge_rays(rng, tree, (0.5, 0.5, 0.5), 0.8, 1000, 1.2, dev)
+        for stack in (64, 4):
+            line, restarts = check_walk_routes(f"clustered, {mpl} a leaf", rays, ss, tree,
+                                               "sph", stack, weights=weights)
+            if (restarts > 0) != (stack == 4):
+                raise AssertionError(f"{line}: restarts {restarts} at stack {stack}")
+            lines.append(line)
+    for name, tris in (("random mesh", random_mesh(rng, 2000)), ("torus", torus_mesh(48, 24))):
+        st, tree, _ = mt.build_triangle_tree(torch.from_numpy(tris).to(dev))
+        rays = walk_edge_rays(rng, tree, (0.5, 0.5, 0.5) if name != "torus" else (0, 0, 0),
+                              2.0, 1000, 4.0, dev)
+        for stack in (64, 4):
+            line, restarts = check_walk_routes(name, rays, st, tree, "tri", stack)
+            if (restarts > 0) != (stack == 4):
+                raise AssertionError(f"{line}: restarts {restarts} at stack {stack}")
+            lines.append(line)
     # the overflow flag: both walks raise with the same message under debug
     ss, tree, _ = build_sph_tree(particles, 16)
     rays = walk_edge_rays(np.random.default_rng(5), tree, (0.5, 0.5, 0.5), 0.8, 256, 1.2, dev)
@@ -959,8 +1063,11 @@ def engine_path(dev, scene, tris, entry_args, side):
     of it (table against Horner), the records against the record route's
     sorted rows (B16, ``records_gate``), and every WALK_SUBSET-th ray's
     count and sum against the plain walk; the torus image against
-    engine="pallas" (``torus_engine_gate``). Returns launches, the plain
-    walk's calls, wall time, lines and what the timing needs."""
+    engine="pallas" (``torus_engine_gate``); the packet walk bit-equal to
+    the per-ray walk (PR 12's kernel) in every mode on the entry, the bench
+    scene and the torus's primary and shadow rays, with no warp restarting
+    at the default stack (``check_walk_routes``). Returns launches, the
+    plain walk's calls, wall time, lines and what the timing needs."""
     from grace_tpu_torch.build.sph import build_sph_tree
     from grace_tpu_torch.core.types import Rays
     from grace_tpu_torch.models import triangle as mt
@@ -999,6 +1106,11 @@ def engine_path(dev, scene, tris, entry_args, side):
     check_tensor_bits("path 8 entry forward vs its walk", entry,
                       wk.walk_sph(rays_e, ss_e, tree_e, "cumulative"))
     lines.append("driver entry " + check_walk_sph("vs the plain walk", rays_e, ss_e, tree_e))
+    packet = {}   # the kernel's routes: on the card only
+    for tag, args in (("driver entry", (rays_e, ss_e, tree_e, "sph")),
+                      ("bench scene", (rays, ss, tree, "sph"))) if dev.type == "cuda" else ():
+        line, packet[tag] = check_walk_routes(tag, *args)
+        lines.append(line)
 
     # the bench scene: the routes, the records, the plain walk on a subset
     n_diff = count_gate("path 8 walk vs default route", rays, ss, hc, route_hc)
@@ -1032,6 +1144,12 @@ def engine_path(dev, scene, tris, entry_args, side):
                  f"bit-equal, sums max abs err {sub_err:.3g}")
     summary, torus = torus_engine_gate(tris, img, side)
     lines.append(f"torus ({tris.shape[0]} triangles, {side}x{side}): {summary}")
+    for tag, r in ((("torus primary rays", torus["rays"]), ("torus shadow rays", torus["shadow"]))
+                   if dev.type == "cuda" else ()):
+        line, packet[tag] = check_walk_routes(tag, r, torus["sorted_tris"], torus["tree"], "tri")
+        lines.append(line)
+    if any(packet.values()):
+        raise AssertionError(f"path 8: packet warps restarted at the default stack: {packet}")
     return dict(launches=launches, plain_calls=plain_calls, wall=wall, lines=lines, hc=hc,
                 cd=cd, sub=sub, sub_err=sub_err, capacity=capacity, entry=(ss_e, tree_e, rays_e),
                 torus=torus)
@@ -2212,14 +2330,17 @@ def snapshot_kernel_checks(inputs, full="isotropic"):
 def snapshot_times(dev, ray_sets, inputs, ss, tree, iso_dirs, sizes=SNAPSHOT_SIZES):
     """Path 6's device stages (CUDA events, warm median) and, for each ray
     set, B6 and B3 in both modes on that set's ``inputs`` with the work
-    behind them. Returns (stage ms, {(set, kernel, mode): ms}, {set:
-    {kernel: (flops, bytes)}} of one cumulative launch, work lines)."""
+    behind them, and the engine's walk (E1, the packet walk and the per-ray
+    walk) in cumulative and count mode on the isotropic and HEALPix sets.
+    Returns (stage ms, {(set, kernel, mode): ms}, {set: {kernel: (flops,
+    bytes)}} of one cumulative launch, work lines)."""
     from grace_tpu_torch.build.sph import build_sph_tree
     from grace_tpu_torch.rays import gen
     from grace_tpu_torch.rays import hypothesis as hy
     from grace_tpu_torch.rays import statistics as st
     from grace_tpu_torch.rays.healpix import healpix_rays
     from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import walk as wk
 
     g = torch.Generator(dev)
     side, res = sizes["proj_side"], sizes["integral_side"]
@@ -2276,6 +2397,24 @@ def snapshot_times(dev, ray_sets, inputs, ss, tree, iso_dirs, sizes=SNAPSHOT_SIZ
                      f"tests hit; cumulative B6 {b6:.3f} ms (bound "
                      f"{bound['trace_bitmask']:.3f}), B3 {b3:.3f} ms (bound "
                      f"{bound['trace_quarter']:.3f}); B6 {b6 * 1e6 / rays.n_rays:.1f} ns a ray")
+    # the engine's walk (E1) on the fan-out sets, beside B6
+    for name in ("isotropic", "HEALPix"):
+        rays = ray_sets[name]
+        for mode, b6_mode in (("cumulative", "cumulative"), ("count", "hitcount")):
+            kernels[name, "bvh_walk_sph", mode] = cuda_ms(
+                lambda: wk.walk_sph(rays, ss, tree, mode))
+            kernels[name, "bvh_walk_sph per-ray", mode] = cuda_ms(
+                lambda: walk_outputs(rays, ss, tree, "sph", mode, 64, "per_ray", visits=False))
+        restarts, steps, lanes = packet_summary(
+            walk_outputs(rays, ss, tree, "sph", "count", 64, "packet", stats=True)[3])
+        lines.append(
+            f"{name}: the walk (E1) cumulative {kernels[name, 'bvh_walk_sph', 'cumulative']:.3f} "
+            f"ms, count {kernels[name, 'bvh_walk_sph', 'count']:.3f} ms (per-ray walk "
+            f"{kernels[name, 'bvh_walk_sph per-ray', 'cumulative']:.3f} and "
+            f"{kernels[name, 'bvh_walk_sph per-ray', 'count']:.3f}), beside B6's "
+            f"{kernels[name, 'trace_bitmask', 'cumulative']:.3f} and "
+            f"{kernels[name, 'trace_bitmask', 'hitcount']:.3f} ms; packet {restarts} restarts, "
+            f"{steps:.1f} steps a warp, {lanes:.2f} active lanes a step")
     return t, kernels, work, lines
 
 
@@ -2654,10 +2793,14 @@ def run(dev, n_particles, side):
              "grace_splat_sortfree_fwd_resources", (32, 32, 5, 8, sg.FWD_BATCH)),
             ("splat_sortfree_bwd (32 x 128 tile, deg8)", "splat_sortfree",
              "grace_splat_sortfree_bwd_resources", (32, 128, 5, 8)),
-            ("render_fwd (tile 128)", "render", "grace_render_fwd_resources", (TRACE_TILE,)),
-            ("bvh_walk_sph (cumulative)", "bvh_walk", "grace_walk_resources", (0, 1)),
-            ("bvh_walk_tri (closest)", "bvh_walk", "grace_walk_resources", (1, 0))):
+            ("render_fwd (tile 128)", "render", "grace_render_fwd_resources", (TRACE_TILE,))):
         log(f"resources {label}: {json.dumps(_kernels.resources(name, entry, dev, *ints))}")
+    from grace_tpu_torch.trace import walk as wk
+
+    for kind, mode in (("sph", "cumulative"), ("tri", "closest"), ("tri", "any")):
+        for route in wk.ROUTES:
+            log(f"resources bvh_walk_{kind} ({mode}, {route}): "
+                f"{json.dumps(wk.walk_resources(dev, kind, mode, route))}")
 
     # 2. kernels vs plain versions at small and edge shapes; routes vs the
     # engine; the driver entry's forward
@@ -2969,8 +3112,6 @@ def run(dev, n_particles, side):
     log(path7_line(path7["times"], launches7, wall7))
 
     # 11c. main path 8, the generic engine's walk on the card
-    from grace_tpu_torch.trace import walk as wk
-
     path8 = engine_path(dev, scene, tris, entry_args, side)
     launches8 = path8["launches"]
     if min(launches8.values()) < 1:
@@ -3101,15 +3242,21 @@ def run(dev, n_particles, side):
     t["trace_tri plain (any)"] = plain_ms["tri any"]
     t["render_triangles (pallas, whole)"] = cuda_ms(
         lambda: mt.render_triangles(tris, resolution=side, engine="pallas"), reps=3)
-    # the engine's walk (path 8): the kernel and the plain walk at each size;
-    # the plain walk runs once at the full sizes (its output held to the
-    # kernel's there too), warm on the subset and the entry
+    # the engine's walk (path 8): the kernel (the packet walk), the per-ray
+    # walk (PR 12's kernel) and the plain walk at each size; the plain walk
+    # runs once at the full sizes (its counts, sums and triangle outputs
+    # held to the kernel's there too), warm on the subset and the entry
     hc8, cd8 = path8["hc"], path8["cd"]
     offsets8 = (torch.cumsum(hc8, dim=0, dtype=torch.int32) - hc8).to(torch.int32)
+    per_ray = lambda *a: walk_outputs(*a, 64, "per_ray", visits=False)
     t["bvh_walk_sph kernel (cumulative, bench)"] = cuda_ms(
         lambda: wk.walk_sph(rays_s, sorted_spheres, tree, "cumulative"))
+    t["bvh_walk_sph per-ray walk (cumulative, bench)"] = cuda_ms(
+        lambda: per_ray(rays_s, sorted_spheres, tree, "sph", "cumulative"))
     t["bvh_walk_sph kernel (count, bench)"] = cuda_ms(
         lambda: wk.walk_sph(rays_s, sorted_spheres, tree, "count"))
+    t["bvh_walk_sph per-ray walk (count, bench)"] = cuda_ms(
+        lambda: per_ray(rays_s, sorted_spheres, tree, "sph", "count"))
     t["bvh_walk_sph kernel (records pass, bench)"] = cuda_ms(
         lambda: wk.walk_sph(rays_s, sorted_spheres, tree, "records", cursors=offsets8,
                             capacity=path8["capacity"]), reps=3)
@@ -3118,6 +3265,8 @@ def run(dev, n_particles, side):
     rays8 = rays_s[path8["sub"]]
     t["bvh_walk_sph kernel (cumulative, bench subset)"] = cuda_ms(
         lambda: wk.walk_sph(rays8, sorted_spheres, tree, "cumulative"))
+    t["bvh_walk_sph per-ray walk (cumulative, bench subset)"] = cuda_ms(
+        lambda: per_ray(rays8, sorted_spheres, tree, "sph", "cumulative"))
     t["plain walk (cumulative, bench subset)"] = cuda_ms(
         lambda: wk._walk_sph_plain(rays8, sorted_spheres, tree, "cumulative"), reps=2, warm=0)
     cd_plain, t["plain walk (cumulative, bench)"] = timed(
@@ -3125,9 +3274,15 @@ def run(dev, n_particles, side):
     walk_err, _ = check_close("bench walk sums vs the plain walk", cd8, cd_plain, 1e-5,
                               1e-6 * float(cd_plain.abs().max()))
     del cd_plain
+    hc_plain, t["plain walk (count, bench)"] = timed(
+        lambda: wk._walk_sph_plain(rays_s, sorted_spheres, tree, "count"), dev)
+    check_equal("bench walk counts vs the plain walk", hc8, hc_plain)
+    del hc_plain
     ss_e, tree_e, rays_e = path8["entry"]
     t["bvh_walk_sph kernel (cumulative, entry)"] = cuda_ms(
         lambda: wk.walk_sph(rays_e, ss_e, tree_e, "cumulative"))
+    t["bvh_walk_sph per-ray walk (cumulative, entry)"] = cuda_ms(
+        lambda: per_ray(rays_e, ss_e, tree_e, "sph", "cumulative"))
     t["plain walk (cumulative, entry)"] = cuda_ms(
         lambda: wk._walk_sph_plain(rays_e, ss_e, tree_e, "cumulative"), reps=3)
     torus = path8["torus"]
@@ -3136,6 +3291,10 @@ def run(dev, n_particles, side):
         lambda: wk.walk_tri(torus["rays"], *tri8, "closest"))
     t["bvh_walk_tri kernel (any, torus shadow rays)"] = cuda_ms(
         lambda: wk.walk_tri(torus["shadow"], *tri8, "any"))
+    t["bvh_walk_tri per-ray walk (closest, torus)"] = cuda_ms(
+        lambda: per_ray(torus["rays"], *tri8, "tri", "closest"))
+    t["bvh_walk_tri per-ray walk (any, torus shadow rays)"] = cuda_ms(
+        lambda: per_ray(torus["shadow"], *tri8, "tri", "any"))
     (t_pl, id_pl), t["plain walk (closest, torus)"] = timed(
         lambda: wk._walk_tri_plain(torus["rays"], *tri8, "closest"), dev)
     check_equal("torus walk ids vs the plain walk", torus["closest"].tri, id_pl)
@@ -3144,8 +3303,8 @@ def run(dev, n_particles, side):
         lambda: wk._walk_tri_plain(torus["shadow"], *tri8, "any"), dev)
     check_equal("torus walk occlusion vs the plain walk", occ_pl,
                 wk.walk_tri(torus["shadow"], *tri8, "any"))
-    log(f"check path 8 the plain walk once at the full sizes: bench sums max abs err "
-        f"{walk_err:.3g}; torus ids, t and occlusion bit-equal OK")
+    log(f"check path 8 the plain walk once at the full sizes: bench counts bit-equal, sums max "
+        f"abs err {walk_err:.3g}; torus ids, t and occlusion bit-equal OK")
     t["render_triangles (xla, whole)"] = cuda_ms(
         lambda: mt.render_triangles(tris, resolution=side, engine="xla"), reps=3)
     for k, v in t.items():

@@ -67,9 +67,9 @@ KERNELS = {
             {"grace_tri": "ppppppp" + "iiiiii",
              "grace_tri_resources": "pi"}),
     "bvh_walk": ("bvh_walk.cu", ["--fmad=false"],
-                 {"grace_walk_sph": "p" * 16 + "i" * 9,
-                  "grace_walk_tri": "p" * 12 + "i" * 7,
-                  "grace_walk_resources": "pii"}),
+                 {"grace_walk_sph": "p" * 17 + "i" * 10,
+                  "grace_walk_tri": "p" * 13 + "i" * 8,
+                  "grace_walk_resources": "piii"}),
     # The dense contractions that splat.cu and splat_sortfree.cu's forward
     # replaced, each with its file's flags: the references those kernels
     # are held bit-equal to on the card. No wrapper launches them.

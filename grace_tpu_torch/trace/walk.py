@@ -2,10 +2,12 @@
 hand-written CUDA kernel.
 
 ``walk_sph`` and ``walk_tri`` launch ``csrc/bvh_walk.cu`` on CUDA tensors:
-one thread a ray walks the tree to its end with its own stack, in the
-lockstep walk's order (``trace/engine.py``), so every ray visits the same
-leaves in the same sequence. On CPU tensors they run the plain version,
-``engine.trace`` with the stock functors. The SPH facades
+a warp walks its 32 rays as one packet, one stack of (node, lane mask)
+entries in shared memory, in the lockstep walk's order for every ray
+(``trace/engine.py``), so every ray visits the same leaves in the same
+sequence; a warp in which a ray's stack would overflow walks its rays
+again one thread a ray, as the plain walk does. On CPU tensors they run the plain
+version, ``engine.trace`` with the stock functors. The SPH facades
 (``trace/sph.py``, ``trace/render.find_hits``) and the triangle traces
 (``models/triangle.py``) call them; user-defined ``TraceFunctors`` keep
 ``engine.trace``.
@@ -29,10 +31,19 @@ Counts, records, triangle ids, t and occlusion are bit-equal to the plain
 walk's; cumulative sums within rtol 1e-5 (the kernel adds a leaf's terms
 in leaf order, torch's ``sum`` in its own). A stack of ``stack_size``
 entries (at most ``MAX_STACK``) truncates the walk as the plain walk's
-does; under ``GRACE_TPU_DEBUG`` an overflow raises with its message.
+does; under ``GRACE_TPU_DEBUG`` an overflow raises with its message. Two
+departures. The any-hit walk stops a ray at its first hit, so an
+occluded ray's overflow flag and visit counts may differ from the plain
+walk's (its occlusion does not). The closest walk, at ``stack_size`` of
+``PRUNE_STACK`` and above, skips boxes that lie past a ray's best t,
+which shortens its stack: a ray whose plain walk would overflow there
+may end unoverflowed, with its true closest hit where the plain walk's
+truncated walk need not find it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -45,9 +56,17 @@ from grace_tpu_torch.sph.kernel_integrals import DENSE_KERNEL_INTEGRAL_TABLE
 from grace_tpu_torch.trace import engine
 from grace_tpu_torch.trace import functors as F
 
-MAX_STACK = 128   # bvh_walk.cu's kMaxStack: the stack a thread holds
+MAX_STACK = 128   # bvh_walk.cu's kMaxStack: the largest stack_size, and a packet's entries
+PRUNE_STACK = 64  # bvh_walk.cu's kPruneStack: closest-hit pruning at stacks of this and above
 SPH_MODES = ("count", "cumulative", "records", "ids")
 TRI_MODES = ("closest", "any")
+# bvh_walk.cu's routes: the packet walk (restarting warps on the per-ray
+# walk), and the per-ray walk alone, which the card checks hold it to
+ROUTES = ("packet", "per_ray")
+WARP = 32
+# a warp's stats on route "packet": restarted (0 or 1), its packet steps and
+# its active lanes summed over the steps
+STATS_FIELDS = ("restarted", "steps", "lane_steps")
 OVERFLOW_MESSAGE = "traversal stack overflow: raise stack_size"
 _FILLS = {"records": (0, 0.0, 0.0), "ids": (-1, 0)}
 
@@ -74,48 +93,74 @@ def _check(name, rays: Rays, prims, prim_shape, tree: Tree, stack_size, mode, mo
 
 def _launch_args(rays: Rays, prims, tree: Tree):
     """The tensors every walk launch reads, contiguous (held by the caller
-    until the launch is enqueued): the rays, the primitives (16-byte
-    aligned: the SPH walk loads a sphere as one float4) and the tree, its
-    ``root`` left on the card."""
+    until the launch is enqueued): the rays, the primitives and the tree's
+    arrays 16-byte aligned (a sphere and a node's boxes load as float4, a
+    node's children and a leaf as int2), its ``root`` left on the card."""
     return [t.contiguous() for t in (rays.origins, rays.directions, rays.lengths)] + [
-        _kernels.aligned(prims)] + [t.contiguous() for t in (
-            tree.children, tree.child_aabbs, tree.leaves, tree.root)]
+        _kernels.aligned(t) for t in (prims, tree.children, tree.child_aabbs, tree.leaves)] + [
+        tree.root.contiguous()]
 
 
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+def _stats_check(stats, route, n):
+    if stats is not None and (route != "packet" or stats.shape != (-(-n // WARP),
+                                                                   len(STATS_FIELDS))):
+        raise ValueError("walk stats: route 'packet' and i32[ceil(R / 32), 3] only")
+    return ROUTES.index(route)
+
+
 def _launch_sph(rays, spheres, tree, mode, stack_size, table, weights, cursors, capacity,
-                outs, visits=None):
+                outs, visits=None, stats=None, route="packet"):
     """One launch of ``grace_walk_sph`` into ``outs`` (the mode's one to
     three output tensors); ``visits`` (i32[R, 2] or None) takes each ray's
-    internal nodes and spheres tested. Returns the per-ray overflow flags."""
+    internal nodes and spheres tested, ``stats`` (i32[ceil(R / 32), 3] or
+    None) each warp's ``STATS_FIELDS``. ``route`` "per_ray" walks every ray
+    one thread a ray (the card checks' reference). Returns the per-ray
+    overflow flags."""
     n = rays.n_rays
     overflow = torch.empty(n, dtype=torch.int32, device=spheres.device)
     args = _launch_args(rays, spheres, tree)
     opt = [None if t is None else t.contiguous() for t in (table, weights, cursors)]
     outs = list(outs) + [None] * (3 - len(outs))
+    r = _stats_check(stats, route, n)
     _kernels.launch("bvh_walk", "grace_walk_sph", spheres.device,
-                    *[_ptr(t) for t in args + opt + outs + [visits, overflow]],
+                    *[_ptr(t) for t in args + opt + outs + [visits, overflow, stats]],
                     n, spheres.shape[0], tree.capacity, tree.leaf_capacity, tree.max_per_leaf,
                     stack_size, 0 if table is None else table.shape[0], SPH_MODES.index(mode),
-                    capacity)
+                    capacity, r)
     return overflow
 
 
-def _launch_tri(rays, tris, tree, mode, stack_size, outs, visits=None):
+def _launch_tri(rays, tris, tree, mode, stack_size, outs, visits=None, stats=None,
+                route="packet"):
     """One launch of ``grace_walk_tri`` into ``outs`` ((t, ids) or
-    (occluded,)); ``visits`` as ``_launch_sph``'s. Returns the overflow
-    flags."""
+    (occluded,)); ``visits``, ``stats`` and ``route`` as ``_launch_sph``'s.
+    Returns the overflow flags."""
     overflow = torch.empty(rays.n_rays, dtype=torch.int32, device=tris.device)
     args = _launch_args(rays, tris, tree)
     outs = list(outs) + [None] * (2 - len(outs))
+    r = _stats_check(stats, route, rays.n_rays)
     _kernels.launch("bvh_walk", "grace_walk_tri", tris.device,
-                    *[_ptr(t) for t in args + outs + [visits, overflow]],
+                    *[_ptr(t) for t in args + outs + [visits, overflow, stats]],
                     rays.n_rays, tris.shape[0], tree.capacity, tree.leaf_capacity,
-                    tree.max_per_leaf, stack_size, TRI_MODES.index(mode))
+                    tree.max_per_leaf, stack_size, TRI_MODES.index(mode), r)
     return overflow
+
+
+def walk_resources(device, kind: str, mode: str, route: str = "packet") -> dict:
+    """What one launch of the walk kernel holds on ``device`` (kind "sph"
+    or "tri", ``mode``, ``route``): ``_kernels.RESOURCE_FIELDS`` and
+    ``local_bytes`` a thread (the per-ray walk's stack)."""
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    out = (ctypes.c_int * len(fields))()
+    modes = SPH_MODES if kind == "sph" else TRI_MODES
+    _kernels.launch("bvh_walk", "grace_walk_resources", torch.device(device),
+                    ctypes.addressof(out), ("sph", "tri").index(kind), modes.index(mode),
+                    ROUTES.index(route))
+    return dict(zip(fields, out))
 
 
 def _sph_args(rays, spheres, tree, mode, stack_size, table, weights, cursors, capacity, fill):

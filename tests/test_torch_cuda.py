@@ -32,8 +32,10 @@ both modes, lists cut by max_chunks; ids, misses and t bit-equal), and
 the engine's walk (bvh_walk.cu) against the plain walk at its edge shapes
 (a stack of 4, rays on box planes and rays that miss, a leaf of one
 primitive, record buffers that overflow, weights on and off, triangles
-in both modes), every facade of the walk on the card without entering
-engine.trace, and the walk's resources and refusals. The edge scenes and
+in both modes), the packet walk bit-equal to the per-ray walk in every
+mode (a ragged ray count, stacks of 64 and 4), every facade of the walk
+on the card without entering engine.trace, and the walk's resources and
+refusals. The edge scenes and
 checks are chip_smoke.py's.
 """
 
@@ -53,13 +55,14 @@ from grace_tpu_torch.trace import pallas_records as prc
 from grace_tpu_torch.trace import pallas_tri as pt
 from chip_smoke import (
     EDGE_ORDERS, SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
-    check_record_orders, check_records,
+    check_record_orders, check_records, check_walk_routes,
     check_render,
     check_render_bwd, check_sortfree, check_splat, check_tri, colocated_scene, fd_checks,
     make_clustered_particles, random_mesh, records_inputs, records_scene,
     records_small_checks, render_inputs, route_inputs, sortfree_bwd_edge_check,
     sortfree_edge_check, sortfree_inputs,
-    splat_edge_check, support_edge_scene, training_scene, tri_inputs, walk_small_checks)
+    splat_edge_check, support_edge_scene, training_scene, tri_inputs, walk_edge_rays,
+    walk_small_checks)
 from grace_tpu_torch import _kernels
 
 CAM = (0.5, 0.5, -2.0)
@@ -719,9 +722,10 @@ def test_walk_kernel_matches_plain_walk_at_edge_shapes(dev):
     weights on and off, record buffers of the hits and of half of them, a
     stack of 4, a random mesh and a torus in both modes, and the overflow
     message under GRACE_TPU_DEBUG. Counts, records, ids, t and occlusion
-    bit-equal; sums within rtol 1e-5."""
+    bit-equal; sums within rtol 1e-5. Then the packet walk against the
+    per-ray walk on the same shapes (every mode bit-equal)."""
     lines = walk_small_checks(dev)
-    assert len(lines) == 11 and "raise" in lines[-1]
+    assert len(lines) == 19 and "raise" in lines[-1]
 
 
 @pytest.mark.cuda
@@ -784,14 +788,46 @@ def test_walk_facades_run_the_kernel_on_the_card(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sph", "tri"])
+@pytest.mark.parametrize("stack_size", [64, 4])
+def test_packet_walk_matches_per_ray_walk(dev, kind, stack_size):
+    """The packet walk (route "packet") bit-equal to the per-ray walk (PR
+    12's kernel, its restart route) in every mode of ``kind``, on 1,250
+    rays (a ragged last warp of 2 lanes) around clustered particles or a
+    random mesh, with box-plane rays and rays that miss: no warp restarts
+    at a stack of 64, warps restart at 4."""
+    from grace_tpu_torch.models import triangle as mt
+
+    rng = np.random.default_rng(23)
+    if kind == "sph":
+        particles = torch.from_numpy(make_clustered_particles(rng, 3000)).to(dev)
+        prims, tree, _ = build_sph_tree(particles, 16)
+        centre, spread, length = (0.5, 0.5, 0.5), 0.8, 1.2
+        weights = torch.from_numpy((0.5 + rng.random(3000)).astype(np.float32)).to(dev)
+    else:
+        prims, tree, _ = mt.build_triangle_tree(torch.from_numpy(random_mesh(rng, 2000)).to(dev))
+        centre, spread, length, weights = (0.5, 0.5, 0.5), 2.0, 4.0, None
+    rays = walk_edge_rays(rng, tree, centre, spread, 1000, length, dev)
+    assert rays.n_rays == 1250
+    _, restarts = check_walk_routes(kind, rays, prims, tree, kind, stack_size, weights=weights)
+    assert (restarts > 0) == (stack_size == 4)
+
+
+@pytest.mark.cuda
 def test_walk_resources_and_rejections(dev):
-    """The walk's resource query, and the C entries refusing a stack past
-    128 entries and an unknown mode (the wrappers raise ValueError first)."""
+    """The walk's resource query (the packet kernels hold their stacks in
+    shared memory and no local stack; the per-ray walk's 128-entry stack
+    is local), and the C entries refusing a stack past 128 entries and an
+    unknown mode (the wrappers raise ValueError first)."""
     from grace_tpu_torch.trace import walk as wk
 
-    for kind, mode in ((0, 0), (0, 1), (0, 2), (0, 3), (1, 0), (1, 1)):
-        res = _kernels.resources("bvh_walk", "grace_walk_resources", dev, kind, mode)
-        assert res["threads"] == 128 and res["blocks_per_sm"] >= 1
+    for kind, modes in (("sph", wk.SPH_MODES), ("tri", wk.TRI_MODES)):
+        for mode in modes:
+            res = wk.walk_resources(dev, kind, mode, "packet")
+            assert res["threads"] == 128 and res["blocks_per_sm"] >= 1
+            assert res["shared_bytes"] >= 4 * 1024 and res["local_bytes"] < 512
+            res = wk.walk_resources(dev, kind, mode, "per_ray")
+            assert res["shared_bytes"] == 0 and res["local_bytes"] >= 512
     particles = torch.from_numpy(make_clustered_particles(np.random.default_rng(2), 500))
     ss, tree, _ = build_sph_tree(particles.to(dev), 8)
     rays = orthographic_projection_rays(8, 8, CAM, LOOK, UP, 1.2, 6.0, device=dev)

@@ -150,7 +150,9 @@ def test_aligned_gives_16_byte_addresses(offset):
 
 def test_walk_constants_agree():
     """bvh_walk.cu's stack cap, mode numbers and triangle epsilon are the
-    wrapper's (trace/walk.py) and the engine's intersection's."""
+    wrapper's (trace/walk.py) and the engine's intersection's; its pruning
+    threshold, routes, stats fields and warp size are the wrapper's, and
+    its C entries take the arguments the binding declares."""
     from grace_tpu_torch.models import triangle as mt
     from grace_tpu_torch.trace import walk
 
@@ -165,3 +167,19 @@ def test_walk_constants_agree():
     # the walk runs the engine's rounding: no nvcc contraction, NaN-propagating min/max
     assert _kernels.KERNELS["bvh_walk"][1] == ["--fmad=false"]
     assert "fminf(a, b)" in src and "a != a || b != b" in src
+    # the packet walk: pruning threshold, routes, stats, warps of 32 a block
+    assert re.search(rf"constexpr int kPruneStack = {walk.PRUNE_STACK};", src)
+    for i, route in enumerate(walk.ROUTES):
+        name = {"packet": "kPacket", "per_ray": "kPerRay"}[route]
+        assert re.search(rf"constexpr int {name} = {i};", src), route
+    assert re.search(rf"constexpr int kStats = {len(walk.STATS_FIELDS)};", src)
+    consts = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["kThreads"] % walk.WARP == 0 and 0 <= consts["kPairLanes"] <= walk.WARP
+    assert consts["kChunk"] == walk.WARP and "constexpr int kRedo = -1;" in src
+    # each C entry's parameters: pointers and ints in the binding's order,
+    # then the device and the stream
+    for entry, kinds in _kernels.KERNELS["bvh_walk"][2].items():
+        params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1).split(",")
+        got = "".join("p" if "*" in p else "i" for p in params[:-2])
+        assert got == kinds, entry
+        assert params[-2].split() == ["int", "device"] and "stream" in params[-1]

@@ -1,17 +1,27 @@
 """The generic engine's walk for the stock functors (``trace.walk``) on the
 CPU.
 
-``csrc/bvh_walk.cu`` walks each ray to its end in one thread, where the
-plain walk (``engine.trace``) steps every ray together. A per-ray walk
-written here in numpy, in the kernel's order and with its stack clamped
-and dropping as the kernel's, is held bit-equal to the lockstep walk's hit
-counts, record positions and triangle ids and t: at stacks of 64 and 4 and
-on rays that lie on box planes with zero direction components. That pins
-the claim the kernel rests on: each ray's stack evolves from its own data
-alone, so the order of leaves is the same. The facades reach the plain
-walk on CPU tensors (``engine.trace.calls`` moves, the kernels' launch
-counts do not) and still match ``grace_tpu`` at the existing tolerances.
+``csrc/bvh_walk.cu`` walks a warp's 32 rays as one packet (one stack of
+node and lane-mask entries), and walks a ray to its end in one thread
+where a warp restarts; the plain walk (``engine.trace``) steps every ray
+together. Two walks written here in numpy model the kernel: the per-ray
+walk, in the kernel's order and with its stack clamped and dropping as
+the kernel's, and the packet walk (ballots of the lanes' box hits, a
+warp that would overflow a lane's stack restarting on the per-ray walk,
+closest-hit pruning and the any-hit exit). Both are held to the lockstep
+walk's hit counts, record positions, sums and triangle ids and t, per
+lane, at stacks of 64 and 4, on a ragged last warp, on warps of
+diverging rays and on rays that lie on box planes with zero direction
+components. That pins the claims the kernel rests on: each ray's stack
+evolves from its own data alone, and the entries that carry a lane's bit
+are that lane's own stack, so the order of leaves is the same. The
+facades reach the plain walk on CPU tensors (``engine.trace.calls``
+moves, the kernels' launch counts do not) and still match ``grace_tpu``
+at the existing tolerances.
 """
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +41,7 @@ import grace_tpu_torch.trace.sph as tsph
 from grace_tpu_torch import convert
 from grace_tpu_torch.core.types import Rays
 from grace_tpu_torch.trace import engine, walk
+from grace_tpu_torch.trace import functors as TF
 from tests.helper.torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 F32, F64 = np.float32, np.float64
@@ -277,6 +288,262 @@ def test_per_ray_order_equals_lockstep_triangles(tri_scene, stack_size):
     assert np.array_equal(occ.numpy(), id_want >= 0)
 
 
+_SRC = open(os.path.join(os.path.dirname(walk.__file__), os.pardir, "csrc",
+                         "bvh_walk.cu")).read()
+
+
+def _kernel_float(name):
+    return F32(float.fromhex(re.search(rf"constexpr float {name} = (0x[0-9a-fp+-]+)f;",
+                                       _SRC).group(1)))
+
+
+PRUNE_SCALE, PRUNE_SLACK = _kernel_float("kPruneScale"), _kernel_float("kPruneSlack")
+
+
+def _beyond(o, inv, box, t_best):
+    """bvh_walk.cu's pruning test in f32: box f32[2, 3] widened by delta on
+    every side lies past t_best along the ray."""
+    lo, hi = box[0], box[1]
+    ext = max(max(hi[0] - lo[0], hi[1] - lo[1]), hi[2] - lo[2])
+    delta = PRUNE_SCALE * ((t_best + ext) + np.abs(o).max())
+    entry = F32(-np.inf)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for k in range(3):
+            plane = lo[k] - delta if inv[k] >= 0 else hi[k] + delta
+            x = (plane - o[k]) * inv[k]
+            entry = F32(np.nan) if np.isnan(entry) or np.isnan(x) else max(entry, x)
+    return bool(entry > t_best * (F32(1) + PRUNE_SLACK))
+
+
+def packet_walk(o, d, ln, tree, stack_size, leaf_fn, prune=None):
+    """bvh_walk.cu's packet walk of one warp's k <= 32 rays (o, d f32[k, 3],
+    ln f32[k]): one stack of (node, lane mask) entries with the top in
+    hand; at a node the lanes of the mask test both child boxes (a lane
+    leaves a hit child where ``prune(lane, box)``), L and R the masks of
+    their hits: both non-zero, (left, L) goes below (right, R) on top; one,
+    that child takes the slot; none, the entry is popped. At a leaf
+    ``leaf_fn(lane, ids)`` runs for each lane of the mask and returns
+    whether the lane leaves the walk (the any-hit exit). Each lane counts
+    its own depth. Returns None where the warp restarts (a lane's depth
+    past ``stack_size``, the packet's entries past MAX_STACK, the step
+    bound), else the packet's steps."""
+    children, aabbs, leaves, root, mpl = tree
+    k = len(o)
+    with np.errstate(divide="ignore"):
+        inv = F32(1) / d
+    live = m = (1 << k) - 1
+    top, stack, depth, steps = root, [], [1] * k, 0
+    bound = 4 * (len(children) + len(leaves)) + 64
+    while True:
+        if m:
+            if steps == bound:
+                return None
+            steps += 1
+            lanes = [i for i in range(k) if m >> i & 1]
+            if top >= 0:
+                node = min(top, len(children) - 1)
+                L = R = 0
+                for i in lanes:
+                    with np.errstate(invalid="ignore"):
+                        hits = _boxes_hit(o[i], inv[i], ln[i], aabbs[node])
+                    hits = [bool(h) and not (prune and prune(i, aabbs[node, c]))
+                            for c, h in enumerate(hits)]
+                    L, R = L | hits[0] << i, R | hits[1] << i
+                    depth[i] += hits[0] + hits[1] - 1
+                if max(depth) > stack_size:
+                    return None
+                if L and R:
+                    if len(stack) + 2 > walk.MAX_STACK:
+                        return None
+                    stack.append((children[node, 0], L))
+                    top, m = children[node, 1], R
+                    continue
+                if L | R:
+                    top, m = children[node, 0 if L else 1], L | R
+                    continue
+            else:
+                first, count = leaves[min(max(~top, 0), len(leaves) - 1)]
+                ids = np.clip(first + np.arange(max(min(count, mpl), 0)), 0, None)
+                for i in lanes:
+                    if leaf_fn(i, ids):
+                        live &= ~(1 << i)
+                    depth[i] -= 1
+        if not stack or not live:
+            return steps
+        top, mask = stack.pop()
+        m = mask & live
+
+
+def walk_warps(rays, tree, n_prims, stack_size, leaf_fn, reset, prune=None):
+    """The kernel's route over every ray: warps of 32 consecutive rays (the
+    last ragged) in the packet walk; a warp that restarts has its lanes'
+    state reset (``reset(ray)``) and walks each ray per ray. ``leaf_fn``
+    and ``prune`` take the ray's index. Returns the flags (0, or the
+    per-ray walk's) and the restarted warps."""
+    o, d, ln = (t.numpy() for t in (rays.origins, rays.directions, rays.lengths))
+    ids_clip = lambda ids: np.clip(ids, 0, n_prims - 1)
+    flags, restarted = np.zeros(len(o), np.int32), []
+    for w0 in range(0, len(o), 32):
+        sl = slice(w0, min(len(o), w0 + 32))
+        steps = packet_walk(o[sl], d[sl], ln[sl], tree, stack_size,
+                            lambda i, ids: leaf_fn(w0 + i, ids_clip(ids)),
+                            prune and (lambda i, box: prune(w0 + i, box)))
+        if steps is None:
+            restarted.append(w0 // 32)
+            for r in range(sl.start, sl.stop):
+                reset(r)
+                flags[r] = per_ray_walk(o[r], d[r], ln[r], tree, n_prims, stack_size,
+                                        lambda ids, r=r: leaf_fn(r, ids))
+    return flags, restarted
+
+
+class SphLanes:
+    """Each ray's state in bvh_walk.cu's SPH modes: the leaves in walk
+    order, the hit count, the records (prim, distance), and the weighted
+    cumulative sum (a leaf's terms in leaf order, then the leaf's sum)."""
+
+    def __init__(self, rays, spheres, table, weights):
+        self.o, self.d, self.ln = (t.numpy() for t in (rays.origins, rays.directions,
+                                                       rays.lengths))
+        self.s, self.table, self.w = spheres.numpy(), torch.from_numpy(table), weights
+        self.leaves, self.records = {}, {}
+        self.counts = np.zeros(len(self.o), np.int32)
+        self.sums = np.zeros(len(self.o), F32)
+        for r in range(len(self.o)):
+            self.reset(r)
+
+    def reset(self, r):
+        self.leaves[r], self.records[r] = [], []
+        self.counts[r], self.sums[r] = 0, 0
+
+    def leaf(self, r, ids):
+        s = self.s[ids]
+        p = s[:, :3] - self.o[r]
+        dist = _dot3(p, self.d[r][None])
+        b = _fma(-dist[:, None], self.d[r][None], p)
+        b2 = _dot3(b, b)
+        hit = (b2 < s[:, 3] * s[:, 3]) & (dist >= 0) & (dist < self.ln[r])
+        terms = TF.sph_integral(torch.from_numpy(b2[hit]), torch.from_numpy(s[hit, 3]),
+                                self.table).numpy() * self.w[ids[hit]]
+        leaf_sum = F32(0)
+        for x in terms:
+            leaf_sum = F32(leaf_sum + x)
+        self.sums[r] = F32(self.sums[r] + leaf_sum)
+        self.leaves[r].append(tuple(ids))
+        self.records[r] += list(zip(ids[hit], dist[hit]))
+        self.counts[r] += int(hit.sum())
+        return False
+
+
+@pytest.mark.parametrize("stack_size", [64, 4])
+def test_packet_walk_equals_lockstep_sph(sph_scene, stack_size):
+    """The packet walk, per lane, equals the per-ray walk's leaf sequence,
+    counts, records and weighted sums (bit for bit) and the lockstep walk's
+    counts, record positions (prim, ray, distance) and sums (rtol 1e-5: it
+    sums a leaf in torch's order) on the rays whose walk ends, over 10
+    warps of diverging rays, the last one ragged (12 lanes) and the last
+    two holding the box-plane rays; at a stack of 4 warps restart."""
+    _, (ss, tree_t, rays) = sph_scene
+    table = np.asarray(DENSE_KERNEL_INTEGRAL_TABLE, F32)
+    w = (0.5 + np.random.default_rng(34).random(ss.shape[0])).astype(F32)
+    tree = _tree_np(tree_t)
+    per_ray = SphLanes(rays, ss, table, w)
+    o, d, ln = per_ray.o, per_ray.d, per_ray.ln
+    want_flags = np.array([per_ray_walk(o[r], d[r], ln[r], tree, ss.shape[0], stack_size,
+                                        lambda ids, r=r: per_ray.leaf(r, ids))
+                           for r in range(len(o))])
+    packet = SphLanes(rays, ss, table, w)
+    flags, restarted = walk_warps(rays, tree, ss.shape[0], stack_size, packet.leaf,
+                                  packet.reset)
+    assert rays.n_rays % 32 == 12 and bool(restarted) == (stack_size == 4)
+    assert np.array_equal(flags, want_flags)
+    assert packet.leaves == per_ray.leaves and packet.records == per_ray.records
+    assert np.array_equal(packet.counts, per_ray.counts)
+    assert np.array_equal(packet.sums.view(np.int32), per_ray.sums.view(np.int32))
+    keep = flags != 2
+    rk = rays[torch.from_numpy(keep)]
+    counts = packet.counts[keep]
+    assert counts.sum() > 0
+    assert np.array_equal(tsph.trace_hitcounts_sph(rk, ss, tree_t, stack_size=stack_size)
+                          .numpy(), counts)
+    cap = int(counts.sum())
+    res = tsph.trace_sph(rk, ss, tree_t, capacity=cap, stack_size=stack_size)
+    want = [(p, r, dist) for r in np.flatnonzero(keep) for p, dist in packet.records[r]]
+    assert np.array_equal(res.indices.numpy(), np.array([x[0] for x in want], np.int32))
+    assert np.array_equal(res.distances.numpy(), np.array([x[2] for x in want], F32))
+    sums = tsph.trace_cumulative_sph(rk, ss, tree_t, table, torch.from_numpy(w),
+                                     stack_size=stack_size).numpy()
+    np.testing.assert_allclose(packet.sums[keep], sums, rtol=1e-5,
+                               atol=1e-6 * np.abs(sums).max())
+
+
+class TriLanes:
+    """Each ray's state in bvh_walk.cu's triangle modes: the closest t and
+    triangle (a strict < in walk order), with pruning past the best t, or
+    occlusion with the any-hit exit."""
+
+    def __init__(self, rays, tris, mode, stack_size):
+        self.o, self.d, self.ln = (t.numpy() for t in (rays.origins, rays.directions,
+                                                       rays.lengths))
+        with np.errstate(divide="ignore"):
+            self.inv = F32(1) / self.d
+        self.tris, self.mode = tris.numpy(), mode
+        self.pruning = mode == "closest" and stack_size >= walk.PRUNE_STACK
+        self.pruned = self.exits = 0
+        n = len(self.o)
+        self.t, self.ids = np.full(n, np.inf, F32), np.full(n, -1, np.int32)
+        self.occluded = np.zeros(n, bool)
+
+    def reset(self, r):
+        self.t[r], self.ids[r], self.occluded[r] = np.inf, -1, False
+
+    def leaf(self, r, ids):
+        hit, t = _triangles_hit(self.o[r], self.d[r], self.ln[r], self.tris[ids])
+        for p, tp, h in zip(ids, t, hit):
+            if self.mode == "any" and h:
+                self.occluded[r] = True
+                self.exits += 1
+                return True
+            if h and tp < self.t[r]:
+                self.t[r], self.ids[r] = tp, p
+        return False
+
+    def prune(self, r, box):
+        out = (self.pruning and self.t[r] < np.inf
+               and _beyond(self.o[r], self.inv[r], box, self.t[r]))
+        self.pruned += out
+        return out
+
+
+@pytest.mark.parametrize("stack_size", [64, 4])
+def test_packet_walk_equals_lockstep_triangles(tri_scene, stack_size):
+    """The packet walk with closest-hit pruning (at stacks of PRUNE_STACK
+    and above) and the any-hit exit, per lane, equals the lockstep walk's
+    closest ids and t and occlusion bit for bit on the rays whose walk ends
+    (200 rays: a ragged last warp of 8 lanes, box-plane rays in the last
+    two); pruning and the exit both fire."""
+    _, (st, tree_t, rays) = tri_scene
+    tree = _tree_np(tree_t)
+    res = {}
+    for mode in walk.TRI_MODES:
+        lanes = TriLanes(rays, st, mode, stack_size)
+        flags, restarted = walk_warps(rays, tree, st.shape[0], stack_size, lanes.leaf,
+                                      lanes.reset, lanes.prune)
+        res[mode] = lanes, flags
+        assert bool(restarted) == (stack_size == 4)
+    assert rays.n_rays % 32 == 8
+    closest, flags = res["closest"]
+    assert (closest.pruned > 0) == (stack_size >= walk.PRUNE_STACK)
+    assert res["any"][0].exits > 20
+    keep = flags != 2
+    rk = rays[torch.from_numpy(keep)]
+    got = tt.trace_closest_hit(rk, st, tree_t, stack_size=stack_size)
+    assert np.array_equal(closest.ids[keep], got.tri.numpy()) and (got.tri >= 0).sum() > 20
+    assert np.array_equal(closest.t[keep].view(np.int32), got.t.numpy().view(np.int32))
+    occ = tt.trace_any_hit(rk, st, tree_t, stack_size=stack_size).numpy()
+    assert np.array_equal(res["any"][0].occluded[keep], occ)
+
+
 def _facade_cases():
     table = np.asarray(DENSE_KERNEL_INTEGRAL_TABLE, F32)
     w = (0.5 + np.random.default_rng(33).random(1500)).astype(F32)
@@ -356,6 +623,15 @@ def test_wrappers_reject_what_the_kernel_does_not_take(sph_scene, tri_scene):
     with pytest.raises(ValueError, match="shapes"):
         walk.walk_tri(Rays(rays.origins, rays.directions, rays.lengths[:-1]),
                       tri_scene[1][0], tri_scene[1][1], "closest")
+    # the packet route's stats: one row of STATS_FIELDS a warp, on that route only
+    out = (torch.empty(rays.n_rays, dtype=torch.int32),)
+    rows = torch.zeros((-(-rays.n_rays // walk.WARP), len(walk.STATS_FIELDS)), dtype=torch.int32)
+    with pytest.raises(ValueError, match="stats"):
+        walk._launch_sph(rays, ss, tree_t, "count", 64, None, None, None, 0, out, stats=rows,
+                         route="per_ray")
+    with pytest.raises(ValueError, match="stats"):
+        walk._launch_tri(rays, tri_scene[1][0], tri_scene[1][1], "any", 64,
+                         (torch.empty(rays.n_rays, dtype=torch.bool),), stats=rows[:1])
     # the plain walk still takes the largest stack the kernel holds
     full = walk.walk_sph(rays, ss, tree_t, "count", stack_size=walk.MAX_STACK)
     assert torch.equal(full, tsph.trace_hitcounts_sph(rays, ss, tree_t))
