@@ -2,8 +2,9 @@
 
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
                              [sortfree_bwd] [render_fwd] [paths] [statistics] [walk]
-                             [--parent DIR]   (default: all parts)
+                             [build] [--parent DIR]   (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
+    python3 chip_ablation.py build --package DIR
 
 Each variant is a copy of the kernel's sources with one constant, one wait
 or one device function replaced, built as the package builds its libraries
@@ -125,6 +126,15 @@ wrapper launches them (longest list first).
   device's busy share during the shipped packet and per-ray walks; first
   the f32 <-> f64 conversions and f64 operations in each compiled walk
   kernel (cuobjdump -sass).
+
+  build: the LBVH build and what it feeds, through the package's user
+  functions only (so --package DIR times another checkout's, e.g. the
+  parent's plain build): build_sph_tree on the bench scene (max_per_leaf
+  32) and on its Morton-sorted particles (path 6's form), on the driver
+  entry's 2,048 spheres (16) with the entry forward, build_primitive_tree
+  on the torus (XOR deltas, 8) and render_triangles on both engines at
+  512 x 512; each timed, with the device's busy share and its device
+  operations (kernels, copies, memsets) over one call.
 
 Then each shipped kernel on the same inputs launched in other orders of
 its work units (ray tiles, segments), through the C entry point: as
@@ -1650,7 +1660,8 @@ def user_paths(sorted_spheres, weights, rays_s):
 def device_busy(label, fn):
     """The device's busy share over one warm fn() (torch.profiler: the sum
     of its kernels' times over the wall time, both with the profiler on),
-    and its six longest kernels. Returns {busy_ms, wall_ms}."""
+    and its six longest kernels. Returns {busy_ms, wall_ms, device_ops}:
+    device_ops counts its kernels, copies and memsets."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1670,7 +1681,41 @@ def device_busy(label, fn):
     print(f"{label}: device busy {busy:.3f} ms of {wall:.3f} ms wall ({busy / wall:.1%}, "
           f"profiler on), {len(kernels)} kernels; longest: "
           + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top), flush=True)
-    return {"busy_ms": busy, "wall_ms": wall}
+    return {"busy_ms": busy, "wall_ms": wall, "device_ops": len(kernels)}
+
+
+def build_paths():
+    """The build and what it feeds (the ``build`` part), through the
+    package's user functions only: each timed (CUDA events, median of 10
+    after a warm run) with ``device_busy``'s share and device operations."""
+    from grace_tpu_torch.build.sph import build_primitive_tree, build_sph_tree
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.ops.primitives import TRIANGLE
+    from chip_smoke import entry_forward
+
+    dev = torch.device("cuda", 0)
+    spheres = torch.from_numpy(
+        make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
+    sorted_spheres, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+    entry = entry_inputs(dev)
+    tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
+    result = {}
+    for label, fn in (
+            ("build_sph_tree, bench scene", lambda: build_sph_tree(spheres, MAX_PER_LEAF)),
+            ("build_sph_tree, sorted bench particles (path 6)",
+             lambda: build_sph_tree(sorted_spheres, MAX_PER_LEAF)),
+            ("build_sph_tree, entry (2048 spheres)", lambda: build_sph_tree(entry[0], 16)),
+            ("entry forward", lambda: entry_forward(*entry)),
+            ("build_primitive_tree, torus", lambda: build_primitive_tree(tris, TRIANGLE, 8,
+                                                                         "xor")),
+            ("render_triangles xla", lambda: mt.render_triangles(tris, resolution=SIDE,
+                                                                 engine="xla")),
+            ("render_triangles pallas", lambda: mt.render_triangles(tris, resolution=SIDE,
+                                                                    engine="pallas"))):
+        ms = cuda_ms(fn, reps=10)
+        print(f"build part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
+        result[label] = {"ms": ms, **device_busy(f"build part {label}", fn)}
+    return result
 
 
 def f32_pair_sums(d):
@@ -1941,12 +1986,12 @@ def walk_ablations(parent_dir):
 
 
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
-         "paths", "statistics", "walk")
+         "paths", "statistics", "walk", "build")
 
 
 def main():
     args = sys.argv[1:]
-    if "--package" in args:  # time another checkout's package (the paths part)
+    if "--package" in args:  # time another checkout's package (the paths and build parts)
         i = args.index("--package")
         sys.path.insert(0, os.path.abspath(args[i + 1]))
         del args[i:i + 2]
@@ -2016,6 +2061,8 @@ def main():
 
     if "statistics" in parts:
         summary["statistics"] = statistics_forms()
+    if "build" in parts:
+        summary["build"] = build_paths()
     if "walk" in parts:
         summary["walk"] = walk_ablations(parent)
     if "trace_tri" in parts:

@@ -99,6 +99,19 @@ kernels' launch counters set to 0 just before it:
      the walk's cumulative and count times on the isotropic and HEALPix
      rays beside B6's.
 
+Before any other check, ``check_build`` holds the LBVH build's kernels
+(csrc/build.cu: Morton keys, deltas, the two climbs) to the plain build
+bit for bit (keys, permutation, sorted primitives, deltas, split ranges,
+every Tree field) on the bench scene, the entry's spheres, the torus,
+63-bit keys with XOR and with surface-area deltas, all points identical,
+runs of equal keys, max_per_leaf 1 and 32, N = 2 and 3 and signed zeros
+at the box edge, and runs each entry build twice (bit-equal) under
+torch.cuda.set_sync_debug_mode("error"); where a delta equals the
+sentinel (two spheres at opposite corners, 63-bit keys) the climb's tree
+is the valid one and the plain build's keeps the reference's fault
+(ROADMAP C19). Every main path builds through those kernels; their
+launches are counted on each path.
+
 The engine's walk is held bit-equal to the plain walk (engine.trace) at
 edge shapes first: a stack of 4 (on the rays whose overflowed walk ends),
 rays on box planes with zero direction components, rays that miss
@@ -142,7 +155,8 @@ splat contractions and the launch-order helpers too) with the card's name
 and power limit, the work each kernel's bound is computed from,
 a JSON line describing each kernel (the list kernel on quarter and on
 segment lists apart, the triangle kernel's two passes apart, the engine's
-walk for spheres and for triangles apart), and last a
+walk for spheres and for triangles apart, the build's four kernels with
+their launches on each main path), and last a
 JSON line with ``"ok": true``. Any failure raises, so
 the exit code is non-zero and no result line prints.
 """
@@ -219,6 +233,7 @@ PATH6_FULL = "isotropic"    # path 6's set whose every tile is held to the plain
 # __graft_entry__.dryrun_multichip's size on a mesh of one: particles a
 # shard, rays a rank, hit capacity, leaf size and learning rate.
 DRYRUN = dict(n_per_shard=64, rays_per_rank=16, capacity=4096, max_per_leaf=8, lr=1e-3)
+BUILD_SEED = 2026           # check_build's small scenes
 
 _GPU = None
 
@@ -1953,6 +1968,271 @@ def check_tensor_bits(name, got, want):
     check_equal(name, bits(got), bits(want))
 
 
+BUILD_FIELDS = ("children", "child_aabbs", "leaves", "root", "n_nodes", "n_leaves")
+
+
+def build_stages(prims, kind, max_per_leaf, delta_kind, bits, plain):
+    """Every stage of the build, through the public functions (the kernels
+    of csrc/build.cu, or with ``plain`` every step's plain version): keys,
+    the stable sort, the sorted primitives, the deltas, phase A's split
+    ranges (``lbvh_ranges``, or ``cartesian_tree_ranges``) and the tree."""
+    from grace_tpu_torch.build import deltas as bd
+    from grace_tpu_torch.build import lbvh
+    from grace_tpu_torch.build.sph import xor_deltas_sph
+    from grace_tpu_torch.ops import morton
+
+    c = kind.centroid(prims)
+    keys = morton.morton_keys_from_centroids(c, c.amin(dim=0), c.amax(dim=0), bits=bits,
+                                             plain=plain)
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    sp = prims[perm]
+    if delta_kind == "xor":
+        d = xor_deltas_sph(keys_sorted, bits, plain)
+    elif delta_kind == "euclidean":
+        d = bd.euclidean_deltas(sp, kind.centroid, plain=plain)
+    else:
+        d = bd.surface_area_deltas(sp, kind.aabb, plain=plain)
+    mins, maxs = kind.aabb(sp)
+    l, r = (lbvh.cartesian_tree_ranges(d) if plain else lbvh.lbvh_ranges(d, max_per_leaf)[:2])
+    tree = lbvh.build_lbvh(mins, maxs, d, max_per_leaf, plain=plain)
+    out = {"keys": keys, "permutation": perm.to(torch.int32), "sorted primitives": sp,
+           "deltas": d, "split ranges l": l.to(torch.int32), "split ranges r": r.to(torch.int32)}
+    out.update({f: getattr(tree, f) for f in BUILD_FIELDS})
+    return out
+
+
+def entry_build(prims, kind, max_per_leaf, delta_kind, bits):
+    """The user's entry: build_sph_tree for spheres, build_primitive_tree
+    for another kind. Returns (sorted primitives, tree, permutation)."""
+    from grace_tpu_torch.build.sph import build_primitive_tree, build_sph_tree
+    from grace_tpu_torch.ops.primitives import SPHERE
+
+    if kind is SPHERE:
+        return build_sph_tree(prims, max_per_leaf, delta_kind, bits)
+    return build_primitive_tree(prims, kind, max_per_leaf, delta_kind, bits)
+
+
+def check_build_case(tag, prims, kind, max_per_leaf, delta_kind="euclidean", bits=30):
+    """The CUDA build against the plain build on the same card tensors, bit
+    for bit: keys, permutation, sorted primitives, deltas, phase A's ranges
+    and every Tree field; then the entry point twice under
+    torch.cuda.set_sync_debug_mode("error") (a host sync raises), each run
+    bit-equal to the staged one. Returns (n_leaves, root, {stage: max abs
+    err}), the errors of the keys, deltas, ranges and boxes (0: bit-equal)."""
+    want = build_stages(prims, kind, max_per_leaf, delta_kind, bits, plain=True)
+    got = build_stages(prims, kind, max_per_leaf, delta_kind, bits, plain=False)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, w in want.items():
+        check_tensor_bits(f"{tag} {name}", got[name], w)
+        if w.numel():
+            g, w64 = got[name].double(), w.double()
+            errs[name] = float(torch.where(g == w64, 0.0, (g - w64).abs()).max())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runs = [entry_build(prims, kind, max_per_leaf, delta_kind, bits) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for i, (sp, tree, perm) in enumerate(runs):
+        check_tensor_bits(f"{tag} entry run {i} sorted primitives", sp, got["sorted primitives"])
+        check_tensor_bits(f"{tag} entry run {i} permutation", perm, got["permutation"])
+        for f in BUILD_FIELDS:
+            check_tensor_bits(f"{tag} entry run {i} {f}", getattr(tree, f), got[f])
+    return int(got["n_leaves"]), int(got["root"]), errs
+
+
+def signed_zero_spheres(rng, n):
+    """Spheres of radius +0 or -0 whose x is +0 or -0 (their boxes' x ends
+    are +-0, at the scene box's edge), the rest random."""
+    s = np.concatenate([rng.random((n, 3)), np.zeros((n, 1))], axis=1).astype(np.float32)
+    s[:, 0] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    s[:, 3] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    return s
+
+
+# check_build's cases: tag -> (scene, primitives, max_per_leaf, delta kind,
+# key bits): the full-size scenes (the bench's 2^20 clustered particles, the
+# driver entry's 2,048 spheres, the torus) and the edge cases.
+BUILD_CASES = {
+    "bench scene (2^20 clustered particles, mpl 16, euclidean)":
+        ("bench", N_PARTICLES, 16, "euclidean", 30),
+    "entry (2048 spheres, mpl 16)": ("entry", 2048, 16, "euclidean", 30),
+    "torus (262,144 triangles, mpl 8, xor)": ("torus", 262_144, 8, "xor", 30),
+    "63-bit keys, xor (3000 spheres)": ("random", 3000, 16, "xor", 63),
+    "63-bit keys, surface area (3000 spheres)": ("random", 3000, 16, "surface_area", 63),
+    "all points identical (3000)": ("identical", 3000, 16, "euclidean", 30),
+    "runs of equal keys, xor (3000)": ("equal_keys", 3000, 16, "xor", 30),
+    "mpl 1 (3000 spheres)": ("random", 3000, 1, "euclidean", 30),
+    "mpl 32 (3000 spheres)": ("random", 3000, 32, "euclidean", 30),
+    "N = 2, mpl 1": ("random", 2, 1, "euclidean", 30),
+    "N = 3, mpl 1": ("random", 3, 1, "euclidean", 30),
+    "signed zeros at the box edge (1000 spheres)": ("signed_zeros", 1000, 4, "euclidean", 30),
+}
+
+
+def build_case(tag, dev):
+    """The inputs of check_build's case ``tag`` on ``dev``: (primitives,
+    kind, max_per_leaf, delta kind, bits)."""
+    from grace_tpu_torch.ops.primitives import SPHERE, TRIANGLE
+
+    scene, n, mpl, delta_kind, bits = BUILD_CASES[tag]
+    rng = np.random.default_rng(BUILD_SEED + list(BUILD_CASES).index(tag))
+    kind = SPHERE
+    if scene == "bench":
+        prims = make_clustered_particles(np.random.default_rng(2026), n)
+    elif scene == "entry":
+        return entry_inputs(dev)[0], kind, mpl, delta_kind, bits
+    elif scene == "torus":
+        prims, kind = torus_mesh(**TORUS), TRIANGLE
+    elif scene == "random":
+        prims = np.concatenate([rng.random((n, 3)), 0.01 + 0.05 * rng.random((n, 1))], axis=1)
+    elif scene == "identical":
+        prims = np.tile([[0.3, 0.6, 0.2, 0.05]], (n, 1))
+    elif scene == "equal_keys":       # 30 points, 100 copies each: runs of zero deltas
+        prims = np.concatenate([np.repeat(rng.random((30, 3)), n // 30, axis=0),
+                                np.full((n, 1), 0.02)], axis=1)[rng.permutation(n)]
+    else:
+        prims = signed_zero_spheres(rng, n)
+    prims = torch.from_numpy(np.ascontiguousarray(prims, np.float32)).to(dev)
+    return prims, kind, mpl, delta_kind, bits
+
+
+def check_sentinel_build(dev):
+    """Two spheres at opposite corners with 63-bit keys: their XOR delta is
+    the sentinel 0xFFFFFFFF (ROADMAP C19). The plain build (grace_tpu's
+    rule) leaves node 0's right child at node 0; the climb gives the valid
+    tree: both leaves under the root, every other field as the plain
+    build's."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+
+    s = torch.tensor([[0, 0, 0, 0.1], [1, 1, 1, 0.1]], dtype=torch.float32, device=dev)
+    _, plain, _ = build_sph_tree(s, 1, "xor", 63, plain=True)
+    _, tree, _ = build_sph_tree(s, 1, "xor", 63)
+    if plain.children.tolist() != [[~0, 0]] or tree.children.tolist() != [[~0, ~1]]:
+        raise AssertionError(f"sentinel delta: children {tree.children.tolist()}, plain "
+                             f"{plain.children.tolist()}")
+    for f in ("child_aabbs", "leaves", "root", "n_nodes", "n_leaves"):
+        check_tensor_bits(f"sentinel delta {f}", getattr(tree, f), getattr(plain, f))
+    return "sentinel delta (two spheres at opposite corners, 63-bit xor): children [[~0, ~1]] " \
+           "(plain [[~0, 0]], C19), every other field bit-equal"
+
+
+def check_build(dev):
+    """The check_build phase: every case of ``BUILD_CASES`` and the
+    sentinel case. Returns (its lines, the bench scene's max abs errors by
+    stage)."""
+    lines, bench_errs = [], None
+    for tag in BUILD_CASES:
+        n_leaves, root, errs = check_build_case(tag, *build_case(tag, dev))
+        bench_errs = bench_errs or errs
+        lines.append(f"{tag}: keys, permutation, sorted primitives, deltas, split ranges and "
+                     f"every tree field bit-equal to the plain build ({n_leaves} leaves, root "
+                     f"{root}); the entry twice, bit-equal, no host sync")
+    lines.append(check_sentinel_build(dev))
+    p, m = torch.zeros(1, device=dev), -torch.zeros(1, device=dev)
+    signs = [f"{float(f(a, b)):+}" for f in (torch.minimum, torch.maximum)
+             for a, b in ((p, m), (m, p))]
+    lines.append(f"signed zeros on the card (ROADMAP C20): torch.minimum(+0, -0), (-0, +0) = "
+                 f"{signs[0]}, {signs[1]}; torch.maximum = {signs[2]}, {signs[3]}")
+    return lines, bench_errs
+
+
+def build_counters():
+    """The build kernels' launch counts (csrc/build.cu)."""
+    from grace_tpu_torch.build import deltas as bd
+    from grace_tpu_torch.build import lbvh
+    from grace_tpu_torch.ops import morton
+
+    return {"build_morton_keys": morton.morton_keys_cuda.launches,
+            "build_deltas": bd.deltas_cuda.launches,
+            "build_lbvh_ranges": lbvh.lbvh_ranges.launches,
+            "build_lbvh_nodes": lbvh.lbvh_nodes.launches}
+
+
+def zero_build_counters():
+    from grace_tpu_torch.build import deltas as bd
+    from grace_tpu_torch.build import lbvh
+    from grace_tpu_torch.ops import morton
+
+    for fn in (morton.morton_keys_cuda, bd.deltas_cuda, lbvh.lbvh_ranges, lbvh.lbvh_nodes):
+        fn.launches = 0
+
+
+def build_times(spheres, entry_spheres, tris):
+    """The build's times (CUDA events, warm median, ms): each step of
+    build_sph_tree alone on the bench scene at the main path's
+    max_per_leaf, kernels and the torch calls between them, each kernel's
+    plain version, and the plain build at each full size (the bench, the
+    entry's 2,048 spheres, the torus). Returns (times, {kernel and "build":
+    (operations, bytes)}): each kernel's inputs read once and outputs
+    written once; the whole build's adds the torch calls' (the sort as one
+    read of the keys and one write of the sorted keys and permutation: CUB's
+    radix passes are not counted)."""
+    from grace_tpu_torch.build import deltas as bd
+    from grace_tpu_torch.build import lbvh
+    from grace_tpu_torch.build.sph import build_primitive_tree, build_sph_tree
+    from grace_tpu_torch.ops import morton
+    from grace_tpu_torch.ops.primitives import SPHERE, TRIANGLE
+
+    n, mpl = spheres.shape[0], MAX_PER_LEAF
+    c = SPHERE.centroid(spheres)
+    lo, hi = c.amin(dim=0), c.amax(dim=0)
+    keys = morton.morton_keys_cuda(c, lo, hi, 30)
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    ss = spheres[perm]
+    d = bd.deltas_cuda("euclidean", a=SPHERE.centroid(ss))
+    mins, maxs = SPHERE.aabb(ss)
+    l, r, first, count, mark = lbvh.lbvh_ranges(d, mpl)
+    scan = torch.cumsum(mark, dim=0, dtype=torch.int32)
+    tree = lbvh.lbvh_nodes(d, first, count, mark, scan, mins, maxs, mpl)
+    nl = int(tree.n_leaves)
+    t = {}
+    t["build scene box (amin, amax)"] = cuda_ms(lambda: (c.amin(dim=0), c.amax(dim=0)))
+    t["build_morton_keys kernel"] = cuda_ms(lambda: morton.morton_keys_cuda(c, lo, hi, 30))
+    t["build_morton_keys plain"] = cuda_ms(lambda: morton._morton_keys_plain(c, lo, hi, 30))
+    t["build key sort (torch.sort, stable)"] = cuda_ms(lambda: torch.sort(keys, stable=True))
+    t["build gather and permutation (spheres[perm], i32)"] = cuda_ms(
+        lambda: (spheres[perm], perm.to(torch.int32)))
+    t["build_deltas kernel (euclidean)"] = cuda_ms(
+        lambda: bd.deltas_cuda("euclidean", a=SPHERE.centroid(ss)))
+    t["build_deltas plain (euclidean)"] = cuda_ms(
+        lambda: bd.euclidean_deltas(ss, SPHERE.centroid, plain=True))
+    t["build boxes (sphere_aabb)"] = cuda_ms(lambda: SPHERE.aabb(ss))
+    t["build_lbvh_ranges kernel"] = cuda_ms(lambda: lbvh.lbvh_ranges(d, mpl))
+    t["build_lbvh_ranges plain (cartesian_tree_ranges, coalesce_leaves)"] = cuda_ms(
+        lambda: lbvh.coalesce_leaves(*lbvh.cartesian_tree_ranges(d), mpl, n), reps=3)
+    t["build prefix sum (torch.cumsum)"] = cuda_ms(
+        lambda: torch.cumsum(mark, dim=0, dtype=torch.int32))
+    t["build_lbvh_nodes kernel"] = cuda_ms(
+        lambda: lbvh.lbvh_nodes(d, first, count, mark, scan, mins, maxs, mpl))
+    t["build_lbvh plain (both phases)"] = cuda_ms(
+        lambda: lbvh.build_lbvh_plain(mins, maxs, d, mpl), reps=3)
+    t["build_sph_tree plain"] = cuda_ms(
+        lambda: build_sph_tree(spheres, mpl, plain=True), reps=3)
+    t["build_sph_tree plain (entry, 2048 spheres)"] = cuda_ms(
+        lambda: build_sph_tree(entry_spheres, 16, plain=True), reps=3)
+    t["build_primitive_tree plain (torus)"] = cuda_ms(
+        lambda: build_primitive_tree(tris, TRIANGLE, 8, "xor", plain=True), reps=3)
+    # operations: a key's 3 subtractions, divisions, products and
+    # conversions and its 30 bit operations; a delta's 8 (3 subtractions,
+    # 3 products, 2 sums); a climb's arrival about 12 integer operations
+    # (2 N - 1 a phase A, 2 n_leaves - 1 a phase B) and a box union 6 (a
+    # leaf's primitives, then a node's two children)
+    work = {
+        "build_morton_keys": (42 * n, nbytes(c, lo, hi, keys)),
+        "build_deltas": (8 * (n - 1), nbytes(SPHERE.centroid(ss), d)),
+        "build_lbvh_ranges": (12 * (2 * n - 1), nbytes(d, l, r, mark) + 8 * nl),
+        "build_lbvh_nodes": (12 * (2 * nl - 1) + 6 * (n + nl - 1),
+                             nbytes(mark, scan, mins, maxs, tree.children, tree.child_aabbs,
+                                    tree.leaves) + 8 * nl + 4 * (nl - 1) + 12),
+    }
+    torch_bytes = (nbytes(keys, keys_sorted, perm) + nbytes(spheres, perm, ss) + 4 * n
+                   + nbytes(ss, mins, maxs) + nbytes(mark, scan))
+    work["build"] = (sum(w[0] for w in work.values()),
+                     sum(w[1] for w in work.values()) + torch_bytes)
+    return t, work
+
+
 def both_routes(tag, rays, spheres, tree):
     """pallas_trace_sph on the default route (B6) and on
     broadphase="quarter" (B3), in both modes. Gates (path 2's): no
@@ -2721,17 +3001,22 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes):
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes,
+                 by_path=None):
     """One kernel of the JSON line, with its bound: the larger of its flops
-    over the FP32 peak and its bytes over the memory rate."""
+    over the FP32 peak and its bytes over the memory rate. ``by_path``:
+    its launches on each main path (``launches`` is then their sum)."""
     t_ops = flops / PEAK_FLOPS * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     log(f"bound {name}: {flops:.6g} flops -> {t_ops:.4f} ms, {n_bytes} bytes -> "
         f"{t_bytes:.4f} ms; kernel {ms:.3f} ms")
-    return {"name": name, "route": "cuda", "source": f"grace_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+    entry = {"name": name, "route": "cuda", "source": f"grace_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+    if by_path is not None:
+        entry["launches_by_path"] = by_path
+    return entry
 
 
 def main():
@@ -2802,8 +3087,14 @@ def run(dev, n_particles, side):
             log(f"resources bvh_walk_{kind} ({mode}, {route}): "
                 f"{json.dumps(wk.walk_resources(dev, kind, mode, route))}")
 
-    # 2. kernels vs plain versions at small and edge shapes; routes vs the
-    # engine; the driver entry's forward
+    # 2. the build's kernels vs the plain build (check_build); kernels vs
+    # plain versions at small and edge shapes; routes vs the engine; the
+    # driver entry's forward
+    t_check = time.perf_counter()
+    build_lines, build_errs = check_build(dev)
+    for line in build_lines:
+        log(f"check_build {line} OK")
+    log(f"check_build: {len(build_lines)} cases in {time.perf_counter() - t_check:.1f} s")
     small_checks(dev)
     splat_edge_checks(dev)
     training_small_checks(dev)
@@ -2819,6 +3110,7 @@ def run(dev, n_particles, side):
     torch.cuda.synchronize()
     pk.trace_quarter.launches = 0
     sp.splat_image.launches = 0
+    zero_build_counters()
     t0 = time.perf_counter()
     scene = bench_scene(spheres, side)
     sorted_spheres, tree, rays_s, inv, buckets = (
@@ -2830,8 +3122,9 @@ def run(dev, n_particles, side):
                                        broadphase="quarter")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    build_by_path = {1: build_counters()}
     launches = {"trace_quarter": pk.trace_quarter.launches,
-                "splat": sp.splat_image.launches}
+                "splat": sp.splat_image.launches, **build_by_path[1]}
     img_trace = trace_v[inv.long()].reshape(side, side)
     for name, a in (("splat image", img), ("trace image", img_trace)):
         if not bool(torch.isfinite(a).all()) or not bool((a != 0).any()):
@@ -2853,6 +3146,7 @@ def run(dev, n_particles, side):
     pk.trace_bitmask.launches = 0
     pk.trace_list.launches = 0
     pk.trace_list.launches_seg = 0
+    zero_build_counters()
     t0 = time.perf_counter()
     general = {"default": [pk.pallas_trace_sph(rays_s, sorted_spheres, tree,
                                                tile=TRACE_TILE, mode=m)
@@ -2868,6 +3162,7 @@ def run(dev, n_particles, side):
                        for m in ("cumulative", "hitcount")]
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
+    build_by_path[2] = build_counters()
     launches2 = {"trace_bitmask": pk.trace_bitmask.launches,
                  "trace_list": pk.trace_list.launches - pk.trace_list.launches_seg,
                  "trace_list_seg": pk.trace_list.launches_seg}
@@ -2950,10 +3245,12 @@ def run(dev, n_particles, side):
     torch.cuda.synchronize()
     for fn in (sg.splat_sortfree_fwd, sg.splat_sortfree_bwd, pr.render_fwd, pr.render_bwd):
         fn.launches = 0
+    zero_build_counters()
     t0 = time.perf_counter()
     steps = {"splat": splat_step(), "general": general_step()}
     torch.cuda.synchronize()
     wall3 = time.perf_counter() - t0
+    build_by_path[3] = build_counters()
     launches3 = {"splat_sortfree_fwd": sg.splat_sortfree_fwd.launches,
                  "splat_sortfree_bwd": sg.splat_sortfree_bwd.launches,
                  "render_fwd": pr.render_fwd.launches, "render_bwd": pr.render_bwd.launches}
@@ -3007,6 +3304,7 @@ def run(dev, n_particles, side):
     torch.cuda.synchronize()
     prc.records_quarter.launches = 0
     prc.records_bitmask.launches = 0
+    zero_build_counters()
     t0 = time.perf_counter()
     rec = prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP)
     rec_b = prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP,
@@ -3017,6 +3315,7 @@ def run(dev, n_particles, side):
                      per_ray_capacity=RECORD_CAP)
     torch.cuda.synchronize()
     wall4 = time.perf_counter() - t0
+    build_by_path[4] = build_counters()
     launches4 = {"records_quarter": prc.records_quarter.launches,
                  "records_bitmask": prc.records_bitmask.launches}
     if min(launches4.values()) < 1:
@@ -3035,12 +3334,14 @@ def run(dev, n_particles, side):
     torch.cuda.synchronize()
     pt.trace_tri.launches = 0
     pt.trace_tri.launches_any = 0
+    zero_build_counters()
     t0 = time.perf_counter()
     tri_img = mt.render_triangles(tris, resolution=side, engine="pallas")
     torch.cuda.synchronize()
     wall5 = time.perf_counter() - t0
+    build_by_path[5] = build_counters()
     launches5 = {"trace_tri closest": pt.trace_tri.launches - pt.trace_tri.launches_any,
-                 "trace_tri any": pt.trace_tri.launches_any}
+                 "trace_tri any": pt.trace_tri.launches_any, **build_by_path[5]}
     if min(launches5.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches5}")
     tri_state = triangle_gates(tris, tri_img, side)
@@ -3070,8 +3371,10 @@ def run(dev, n_particles, side):
             f"{int(visited.sum())} chunks visited OK")
 
     # 11. main path 6, a Gadget snapshot through random and HEALPix rays
+    zero_build_counters()
     path6 = snapshot_path(dev, particles)
-    launches6 = path6["launches"]
+    build_by_path[6] = build_counters()
+    launches6 = {**path6["launches"], **build_by_path[6]}
     if min(launches6.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches6}")
     for line in path6["lines"]:
@@ -3102,9 +3405,11 @@ def run(dev, n_particles, side):
 
     # 11b. main path 7, the sharded routes on one NCCL rank
     t7 = time.perf_counter()
+    zero_build_counters()
     path7 = sharded_path(dev, scene, time_routes=True)
     wall7 = time.perf_counter() - t7
-    launches7 = path7["launches"]
+    build_by_path[7] = build_counters()
+    launches7 = {**path7["launches"], **build_by_path[7]}
     if min(launches7.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches7}")
     for line in path7["lines"]:
@@ -3112,8 +3417,10 @@ def run(dev, n_particles, side):
     log(path7_line(path7["times"], launches7, wall7))
 
     # 11c. main path 8, the generic engine's walk on the card
+    zero_build_counters()
     path8 = engine_path(dev, scene, tris, entry_args, side)
-    launches8 = path8["launches"]
+    build_by_path[8] = build_counters()
+    launches8 = {**path8["launches"], **build_by_path[8]}
     if min(launches8.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches8}")
     if path8["plain_calls"] != 0:
@@ -3307,6 +3614,9 @@ def run(dev, n_particles, side):
         f"abs err {walk_err:.3g}; torus ids, t and occlusion bit-equal OK")
     t["render_triangles (xla, whole)"] = cuda_ms(
         lambda: mt.render_triangles(tris, resolution=side, engine="xla"), reps=3)
+    # the build (csrc/build.cu): its steps alone and the plain build
+    bt, build_work = build_times(spheres, entry_args[0], tris)
+    t.update(bt)
     for k, v in t.items():
         log(f"time {k}: {v:.3f} ms")
 
@@ -3352,6 +3662,14 @@ def run(dev, n_particles, side):
         f"hits ({FLOPS_HIT_LERP} flops), most node tests on one ray {most_s}; bvh_walk_tri on "
         f"the torus's primary rays {nodes_t} node tests, {tested_t} triangle tests "
         f"({FLOPS_MT} flops), most node tests on one ray {most_t}")
+    ops_b, bytes_b = build_work["build"]
+    log(f"bound build: build_sph_tree on the bench scene moves {bytes_b} bytes (the spheres, "
+        f"keys, sorted keys and permutation, sorted spheres, boxes, deltas, split ranges, marks "
+        f"and their scan, the tree: each read once and written once; CUB's radix passes are "
+        f"not counted) -> {bytes_b / PEAK_BYTES * 1e3:.4f} ms; {ops_b} operations -> "
+        f"{ops_b / PEAK_FLOPS * 1e3:.4f} ms; the build {t['build_sph_tree']:.3f} ms, plain "
+        f"{t['build_sph_tree plain']:.3f} ms")
+    log(f"build kernels' launches by main path: {json.dumps(build_by_path)}")
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -3431,6 +3749,23 @@ def run(dev, n_particles, side):
                      nbytes(torus["rays"].origins, torus["rays"].directions,
                             torus["rays"].lengths, tri8[0], tri8[1].children,
                             tri8[1].child_aabbs, tri8[1].leaves) + torus["rays"].n_rays * 8),
+        # the build (not TPU kernels: grace_tpu's plain XLA build), bench scene
+        *[kernel_entry(name, "build.cu", replaces, sum(p[name] for p in build_by_path.values()),
+                       err, t[kernel_ms], t[plain_ms], *build_work[name],
+                       by_path={f"path {k}": v[name] for k, v in build_by_path.items()})
+          for name, replaces, err, kernel_ms, plain_ms in (
+              ("build_morton_keys", "grace_tpu/ops/morton.py:99", build_errs["keys"],
+               "build_morton_keys kernel", "build_morton_keys plain"),
+              ("build_deltas", "grace_tpu/build/deltas.py:26, grace_tpu/build/deltas.py:76",
+               build_errs["deltas"], "build_deltas kernel (euclidean)",
+               "build_deltas plain (euclidean)"),
+              ("build_lbvh_ranges", "grace_tpu/build/lbvh.py:105, grace_tpu/build/lbvh.py:130",
+               max(build_errs["split ranges l"], build_errs["split ranges r"]),
+               "build_lbvh_ranges kernel",
+               "build_lbvh_ranges plain (cartesian_tree_ranges, coalesce_leaves)"),
+              ("build_lbvh_nodes", "grace_tpu/build/lbvh.py:217",
+               max(build_errs[f] for f in BUILD_FIELDS), "build_lbvh_nodes kernel",
+               "build_lbvh plain (both phases)"))],
         # path 6's launches of B3 and B6, held and timed on its fan-out set
         *[kernel_entry(f"{k} (path 6)", f"{k}.cu", replaces, launches6[k], errs6[k],
                        k6[PATH6_FULL, k, "cumulative"], plain6[k], *work6[PATH6_FULL][k])

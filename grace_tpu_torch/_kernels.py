@@ -70,6 +70,13 @@ KERNELS = {
                  {"grace_walk_sph": "p" * 17 + "i" * 10,
                   "grace_walk_tri": "p" * 13 + "i" * 8,
                   "grace_walk_resources": "piii"}),
+    # the LBVH build: --fmad=false keeps the keys' and deltas' f32 rounding
+    # the plain build's
+    "build": ("build.cu", ["--fmad=false"],
+              {"grace_morton_keys": "pppp" + "iii",
+               "grace_deltas": "pppp" + "iiii",
+               "grace_lbvh_ranges": "ppppppp" + "iii",
+               "grace_lbvh_nodes": "p" * 15 + "ii"}),
     # The dense contractions that splat.cu and splat_sortfree.cu's forward
     # replaced, each with its file's flags: the references those kernels
     # are held bit-equal to on the card. No wrapper launches them.

@@ -13,6 +13,15 @@ Big leaves are the maximal subtrees of size <= max_per_leaf; the top tree
 over them is built the same way from the leaf-boundary deltas; child AABBs
 are range reductions over the Morton-sorted primitives. The output is the
 same tree, field for field, as ``grace_tpu``'s.
+
+That is the plain version, ``build_lbvh_plain``, which CPU tensors take.
+On CUDA tensors ``build_lbvh`` builds the same tree as the CUDA original
+does, with two bottom-up climbs coordinated by atomics
+(``csrc/build.cu``): ``lbvh_ranges`` (the ranges of every split and the
+big leaves at their slots), one prefix sum, and ``lbvh_nodes`` (the top
+tree, its boxes and padding), three launches and no host sync. Its tree
+is bit-equal to the plain build's, except where a delta equals the
+sentinel (ROADMAP C19).
 """
 
 from __future__ import annotations
@@ -22,8 +31,9 @@ from typing import List
 
 import torch
 
+from grace_tpu_torch import _kernels
 from grace_tpu_torch.build.deltas import delta_max_sentinel
-from grace_tpu_torch.core.errors import debug_assert, require
+from grace_tpu_torch.core.errors import debug_assert, debug_enabled, require
 from grace_tpu_torch.core.tree import Tree, encode_leaf_child
 
 
@@ -152,8 +162,36 @@ def _range_reduce(levels, a, b, op, ident: float):
     return acc
 
 
-def build_lbvh(prim_aabb_mins, prim_aabb_maxs, deltas, max_per_leaf: int) -> Tree:
-    """Build the BVH over Morton-sorted primitives.
+def _check_tree(tree: Tree) -> None:
+    """The GRACE_TPU_DEBUG output contracts the trace kernels rely on:
+    leaves tile [0, N) with counts in [1, max_per_leaf]; valid nodes have
+    non-empty child boxes."""
+    n = tree.leaf_capacity
+    leaf_first, leaf_count = tree.leaves[:, 0].long(), tree.leaves[:, 1].long()
+    n_leaves = tree.n_leaves.long()
+    kk = torch.arange(n, device=leaf_first.device)
+    leaf_valid = kk < n_leaves
+    debug_assert(
+        (leaf_first[0] == 0)
+        & torch.where(leaf_valid, (leaf_count >= 1) & (leaf_count <= tree.max_per_leaf),
+                      True).all(),
+        "leaf partition: counts out of [1, max_per_leaf] or nonzero start")
+    ends = leaf_first + leaf_count
+    nxt = torch.where(kk + 1 < n_leaves, leaf_first[torch.clamp(kk + 1, max=n - 1)], ends)
+    debug_assert(
+        torch.where(leaf_valid, nxt == ends, True).all()
+        & (ends[torch.clamp(n_leaves - 1, min=0)] == n),
+        "leaf partition: gaps or wrong terminal primitive")
+    node_valid = torch.arange(tree.capacity, device=kk.device) < n_leaves - 1
+    debug_assert(
+        torch.where(node_valid[:, None, None],
+                    tree.child_aabbs[:, :, 0, :] <= tree.child_aabbs[:, :, 1, :], True).all(),
+        "node child AABBs empty/inverted")
+
+
+def build_lbvh_plain(prim_aabb_mins, prim_aabb_maxs, deltas, max_per_leaf: int) -> Tree:
+    """build_lbvh's plain version, on any device: build the BVH over
+    Morton-sorted primitives.
 
     Args:
       prim_aabb_mins/maxs: f32[N, 3] AABBs of Morton-sorted primitives.
@@ -245,24 +283,6 @@ def build_lbvh(prim_aabb_mins, prim_aabb_maxs, deltas, max_per_leaf: int) -> Tre
         [torch.stack([lmin, lmax], dim=1), torch.stack([rmin, rmax], dim=1)], dim=1)
 
     leaves = torch.stack([leaf_first, leaf_count], dim=1)
-
-    # GRACE_TPU_DEBUG output contracts: leaves tile [0, N) with counts in
-    # [1, max_per_leaf]; valid nodes have non-empty child boxes.
-    debug_assert(
-        (leaf_first[0] == 0)
-        & torch.where(leaf_valid, (leaf_count >= 1) & (leaf_count <= max_per_leaf),
-                      True).all(),
-        "leaf partition: counts out of [1, max_per_leaf] or nonzero start")
-    ends = leaf_first + leaf_count
-    nxt = torch.where(kk + 1 < n_leaves, leaf_first[torch.clamp(kk + 1, max=n - 1)], ends)
-    debug_assert(
-        torch.where(leaf_valid, nxt == ends, True).all()
-        & (ends[torch.clamp(n_leaves - 1, min=0)] == n),
-        "leaf partition: gaps or wrong terminal primitive")
-    debug_assert(
-        torch.where(node_valid[:, None, None],
-                    child_aabbs[:, :, 0, :] <= child_aabbs[:, :, 1, :], True).all(),
-        "node child AABBs empty/inverted")
     i32 = lambda t: t.to(torch.int32)
     return Tree(
         children=i32(children),
@@ -273,3 +293,94 @@ def build_lbvh(prim_aabb_mins, prim_aabb_maxs, deltas, max_per_leaf: int) -> Tre
         n_leaves=i32(n_leaves),
         max_per_leaf=max_per_leaf,
     )
+
+
+def _is_float_deltas(deltas: torch.Tensor) -> int:
+    """1 for f32 deltas, 0 for int64 ones (the climbs' ``is_float``)."""
+    if deltas.dtype not in (torch.float32, torch.int64) or deltas.dim() != 1:
+        raise TypeError(f"build_lbvh on the card takes f32 or int64 deltas [N-1], got "
+                        f"{deltas.dtype} {tuple(deltas.shape)}")
+    return int(deltas.dtype == torch.float32)
+
+
+def lbvh_ranges(deltas: torch.Tensor, max_per_leaf: int):
+    """One launch of ``grace_lbvh_ranges`` (phase A): the primitive-level
+    climb over ``deltas`` [N-1]. Returns i32 (l [N-1], r [N-1], first [N],
+    count [N], mark [N]): every split's range, equal to
+    ``cartesian_tree_ranges``; the big leaves' first primitive and count at
+    their slots (the first primitive of a left child, the last of a right
+    child), where ``mark`` is 1."""
+    is_float = _is_float_deltas(deltas)
+    d = deltas.contiguous()
+    n, dev = d.shape[0] + 1, d.device
+    l, r, flags = (torch.empty(n - 1, dtype=torch.int32, device=dev) for _ in range(3))
+    first, count, mark = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3))
+    _kernels.launch("build", "grace_lbvh_ranges", dev, d.data_ptr(), l.data_ptr(), r.data_ptr(),
+                    first.data_ptr(), count.data_ptr(), mark.data_ptr(), flags.data_ptr(), n,
+                    max_per_leaf, is_float)
+    lbvh_ranges.launches += 1
+    return l, r, first, count, mark
+
+
+lbvh_ranges.launches = 0
+
+
+def lbvh_nodes(deltas, first, count, mark, scan, mins, maxs, max_per_leaf: int) -> Tree:
+    """One launch of ``grace_lbvh_nodes`` (phase B): the climb over the big
+    leaves that ``lbvh_ranges`` marked (``scan``: the inclusive prefix sum
+    of ``mark``), with the boxes of ``mins``, ``maxs`` f32[N, 3]. Returns
+    the Tree, padded as the plain build pads it."""
+    is_float = _is_float_deltas(deltas)
+    d = deltas.contiguous()
+    n, dev = d.shape[0] + 1, d.device
+    if any(t.shape != (n, 3) or t.dtype != torch.float32 for t in (mins, maxs)):
+        raise ValueError(f"build_lbvh: the primitives' boxes must be f32[{n}, 3]")
+    mins, maxs = (t.contiguous() for t in (mins, maxs))
+    i32 = dict(dtype=torch.int32, device=dev)
+    children = torch.empty((n - 1, 2), **i32)
+    child_aabbs = torch.empty((n - 1, 2, 2, 3), dtype=torch.float32, device=dev)
+    leaves = torch.empty((n, 2), **i32)
+    root, n_nodes, n_leaves = (torch.empty((), **i32) for _ in range(3))
+    flags = torch.empty(n - 1, **i32)
+    ends = torch.empty((n - 1, 4), **i32)
+    _kernels.launch("build", "grace_lbvh_nodes", dev,
+                    *[t.data_ptr() for t in (d, first, count, mark, scan, mins, maxs, children,
+                                             child_aabbs, leaves, root, n_nodes, n_leaves,
+                                             flags, ends)], n, is_float)
+    lbvh_nodes.launches += 1
+    return Tree(children=children, child_aabbs=child_aabbs, leaves=leaves, root=root,
+                n_nodes=n_nodes, n_leaves=n_leaves, max_per_leaf=max_per_leaf)
+
+
+lbvh_nodes.launches = 0
+
+
+def build_lbvh(prim_aabb_mins, prim_aabb_maxs, deltas, max_per_leaf: int,
+               plain: bool = False) -> Tree:
+    """Build the BVH over Morton-sorted primitives.
+
+    Args:
+      prim_aabb_mins/maxs: f32[N, 3] AABBs of Morton-sorted primitives.
+      deltas: [N-1] adjacent-pair deltas (int64 or f32); see build.deltas.
+      max_per_leaf: leaf capacity, 1 <= max_per_leaf < N.
+      plain: run ``build_lbvh_plain`` on any device (only the checks pass it).
+
+    Returns:
+      Tree with capacity N-1 internal nodes / N leaves: on CUDA tensors
+      from the two climbs of ``csrc/build.cu`` (``lbvh_ranges``, a prefix
+      sum, ``lbvh_nodes``), on CPU tensors from ``build_lbvh_plain``.
+    """
+    n = prim_aabb_mins.shape[0]
+    require(n >= 2, "build_lbvh requires at least 2 primitives")
+    require(1 <= max_per_leaf < n,
+            f"max_per_leaf {max_per_leaf} out of range for N={n}")
+    if plain or prim_aabb_mins.device.type == "cpu":
+        tree = build_lbvh_plain(prim_aabb_mins, prim_aabb_maxs, deltas, max_per_leaf)
+    else:
+        _, _, first, count, mark = lbvh_ranges(deltas, max_per_leaf)
+        scan = torch.cumsum(mark, dim=0, dtype=torch.int32)
+        tree = lbvh_nodes(deltas, first, count, mark, scan, prim_aabb_mins, prim_aabb_maxs,
+                          max_per_leaf)
+    if debug_enabled():
+        _check_tree(tree)
+    return tree

@@ -35,8 +35,14 @@ primitive, record buffers that overflow, weights on and off, triangles
 in both modes), the packet walk bit-equal to the per-ray walk in every
 mode (a ragged ray count, stacks of 64 and 4), every facade of the walk
 on the card without entering engine.trace, and the walk's resources and
-refusals. The edge scenes and
-checks are chip_smoke.py's.
+refusals; and the LBVH build (build.cu: keys, deltas and the two climbs)
+bit-equal to the plain build at every case of chip_smoke's check_build
+(the full-size scenes, 63-bit keys with XOR and surface-area deltas, all
+points identical, runs of equal keys, max_per_leaf 1 and 32, N = 2 and 3,
+signed zeros at the box edge), two entry builds bit-equal with no host
+sync, the valid tree where a delta is the sentinel, one launch of each
+kernel a build and the refusals. The edge scenes and checks are
+chip_smoke.py's.
 """
 
 import numpy as np
@@ -54,7 +60,8 @@ from grace_tpu_torch.trace import splat_grad as sg
 from grace_tpu_torch.trace import pallas_records as prc
 from grace_tpu_torch.trace import pallas_tri as pt
 from chip_smoke import (
-    EDGE_ORDERS, SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
+    BUILD_CASES, EDGE_ORDERS, build_case, build_counters, check_build_case,
+    check_sentinel_build, zero_build_counters, SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
     check_record_orders, check_records, check_walk_routes,
     check_render,
     check_render_bwd, check_sortfree, check_splat, check_tri, colocated_scene, fd_checks,
@@ -841,3 +848,45 @@ def test_walk_resources_and_rejections(dev):
     flags = wk._launch_sph(rays, ss, tree, "count", wk.MAX_STACK, None, None, None, 0, out)
     torch.cuda.synchronize()
     assert int(flags.max()) == 0 and torch.equal(out[0], wk.walk_sph(rays, ss, tree, "count"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", list(BUILD_CASES))
+def test_build_kernels_match_plain_build(dev, tag):
+    """build.cu against the plain build on the card, bit for bit: keys,
+    permutation, sorted primitives, deltas, phase A's ranges, every Tree
+    field; the entry twice (bit-equal) under sync debug mode "error"."""
+    check_build_case(tag, *build_case(tag, dev))
+
+
+@pytest.mark.cuda
+def test_build_sentinel_delta_gives_a_valid_tree(dev):
+    """A 63-bit XOR delta equal to the sentinel (ROADMAP C19): the climb's
+    tree is the valid one, the plain build's keeps grace_tpu's fault."""
+    check_sentinel_build(dev)
+
+
+@pytest.mark.cuda
+def test_build_launches_and_refusals(dev):
+    """Each entry launches each build kernel once; deltas of another dtype,
+    boxes of another shape and a leaf capacity the C entry refuses raise."""
+    from grace_tpu_torch.build import lbvh
+    from grace_tpu_torch.build.sph import build_primitive_tree, build_sph_tree
+    from grace_tpu_torch.ops.primitives import TRIANGLE
+
+    spheres, *_ = build_case("mpl 32 (3000 spheres)", dev)
+    tris = torch.rand((500, 3, 3), generator=torch.Generator().manual_seed(5)).to(dev)
+    for build, args in ((build_sph_tree, (spheres, 16)),
+                        (build_primitive_tree, (tris, TRIANGLE, 8, "xor"))):
+        zero_build_counters()
+        build(*args)
+        assert build_counters() == {"build_morton_keys": 1, "build_deltas": 1,
+                                    "build_lbvh_ranges": 1, "build_lbvh_nodes": 1}
+    mins, maxs = spheres[:, :3], spheres[:, :3] + 0.1
+    d = torch.zeros(spheres.shape[0] - 1, device=dev)
+    with pytest.raises(TypeError):
+        lbvh.build_lbvh(mins, maxs, d.double(), 16)
+    with pytest.raises(ValueError):
+        lbvh.build_lbvh(mins, maxs[:, :2], d, 16)
+    with pytest.raises(RuntimeError, match="grace_lbvh_ranges failed"):
+        lbvh.lbvh_ranges(d, spheres.shape[0])

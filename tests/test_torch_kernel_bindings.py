@@ -183,3 +183,59 @@ def test_walk_constants_agree():
         got = "".join("p" if "*" in p else "i" for p in params[:-2])
         assert got == kinds, entry
         assert params[-2].split() == ["int", "device"] and "stream" in params[-1]
+
+
+def test_build_constants_agree():
+    """build.cu's delta kinds and mantissa width are the wrapper's
+    (build/deltas.py), it keeps the plain build's f32 rounding
+    (--fmad=false) and torch.minimum's NaN rule, and its C entries take
+    the arguments the binding declares."""
+    from grace_tpu_torch.build import deltas as bd
+
+    src = _source("build")
+    names = {"euclidean": "kEuclidean", "surface_area": "kSurfaceArea", "xor30": "kXor30",
+             "xor63": "kXor63"}
+    for i, kind in enumerate(bd.KINDS):
+        assert re.search(rf"constexpr int {names[kind]} = {i};", src), kind
+    assert "constexpr int kMantissaBits = 26;" in src
+    assert _kernels.KERNELS["build"][1] == ["--fmad=false"]
+    assert "a != a ? a : (b != b ? b : fminf(a, b))" in src
+    assert set(_kernels.KERNELS["build"][2]) == {"grace_morton_keys", "grace_deltas",
+                                                 "grace_lbvh_ranges", "grace_lbvh_nodes"}
+    for entry, kinds in _kernels.KERNELS["build"][2].items():
+        params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1).split(",")
+        assert "".join("p" if "*" in p else "i" for p in params[:-2]) == kinds, entry
+        assert params[-2].split() == ["int", "device"] and "stream" in params[-1]
+
+
+@pytest.mark.parametrize("delta_kind,bits", [("euclidean", 30), ("surface_area", 63),
+                                             ("xor", 30), ("xor", 63)])
+def test_build_on_cpu_tensors_takes_the_plain_version(monkeypatch, delta_kind, bits):
+    """CPU tensors take every step's plain version: no kernel is launched
+    or counted, and the build equals the one that ``plain=True`` asks for."""
+    import numpy as np
+
+    from grace_tpu_torch.build import deltas as bd
+    from grace_tpu_torch.build import lbvh
+    from grace_tpu_torch.build.sph import build_primitive_tree, build_sph_tree
+    from grace_tpu_torch.ops import morton
+    from grace_tpu_torch.ops.primitives import TRIANGLE
+
+    def refuse(*args):
+        raise AssertionError("a CPU build launched a kernel")
+
+    monkeypatch.setattr(_kernels, "launch", refuse)
+    counters = (morton.morton_keys_cuda, bd.deltas_cuda, lbvh.lbvh_ranges, lbvh.lbvh_nodes)
+    for fn in counters:
+        monkeypatch.setattr(fn, "launches", 0)
+    rng = np.random.default_rng(3)
+    s = torch.from_numpy(np.concatenate([rng.random((500, 3)), 0.02 + 0.03 * rng.random(
+        (500, 1))], axis=1).astype(np.float32))
+    tris = torch.from_numpy(rng.random((300, 3, 3)).astype(np.float32))
+    for build, args in ((build_sph_tree, (s, 8, delta_kind, bits)),
+                        (build_primitive_tree, (tris, TRIANGLE, 4, delta_kind, bits))):
+        (sp, tree, perm), (sp_p, tree_p, perm_p) = build(*args), build(*args, plain=True)
+        assert torch.equal(sp, sp_p) and torch.equal(perm, perm_p)
+        for f in ("children", "child_aabbs", "leaves", "root", "n_nodes", "n_leaves"):
+            assert torch.equal(getattr(tree, f), getattr(tree_p, f)), f
+    assert all(fn.launches == 0 for fn in counters)
