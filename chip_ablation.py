@@ -2,9 +2,10 @@
 
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
                              [sortfree_bwd] [render_fwd] [paths] [statistics] [walk]
-                             [build] [--parent DIR]   (default: all parts)
+                             [build] [splat_prep] [--parent DIR]   (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
     python3 chip_ablation.py build --package DIR
+    python3 chip_ablation.py splat_prep --parent DIR
 
 Each variant is a copy of the kernel's sources with one constant, one wait
 or one device function replaced, built as the package builds its libraries
@@ -135,6 +136,21 @@ wrapper launches them (longest list first).
   on the torus (XOR deltas, 8) and render_triangles on both engines at
   512 x 512; each timed, with the device's busy share and its device
   operations (kernels, copies, memsets) over one call.
+
+  splat_prep: the splat's two setups and what they feed, through the
+  package's user functions only: bucket_prims_ortho (csrc/splat_prep.cu's
+  keys kernel, torch's stable sort and the pack kernel) and the sort-free
+  setup (grace_sortfree_setup; in a package without sortfree_setup, the
+  projection, slabs and packed overlaps it replaced) on the bench scene's
+  sorted particles, weights 1, the splat frame (build, rays + sort, bucket,
+  splat) and one sort-free training step (forward, L2 loss against 1.01 x
+  its image, backward, SGD 1e-6); each timed (CUDA events, median of 10
+  after a warm run) with the device's busy ms and device operations over
+  one call (torch.profiler); in a package with sortfree_setup also both
+  setups with the camera's constants computed anew each call instead of
+  taken from their cache. With --parent DIR, DIR's grace_tpu_torch and
+  this one run in turns (parent, this, this, parent), each in a process of
+  its own.
 
 Then each shipped kernel on the same inputs launched in other orders of
 its work units (ray tiles, segments), through the C entry point: as
@@ -1718,6 +1734,98 @@ def build_paths():
     return result
 
 
+def splat_prep_paths():
+    """The ``splat_prep`` part in this process, on whichever grace_tpu_torch
+    it imports: {call: {ms, busy_ms, wall_ms, device_ops}}."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace import splat_grad as sg
+    from grace_tpu_torch.trace.pallas_broadphase import pack_overlap_bits
+
+    dev = torch.device("cuda", 0)
+    spheres = torch.from_numpy(
+        make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
+    sorted_spheres, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+    weights = torch.ones(N_PARTICLES, device=dev)
+    cam = sg.OrthoCamera(CAM, LOOK, UP, VEXT, LENGTH, SIDE, SIDE)
+
+    def setup():
+        if hasattr(sg, "sortfree_setup"):
+            return sg.sortfree_setup(sorted_spheres, weights, cam, 32, 128)
+        proj = sg.project_ortho(sorted_spheres, weights, cam)
+        overlap = sg.projected_overlap(*proj, cam, 32, 128)
+        return (pack_overlap_bits(overlap), pack_overlap_bits(overlap.t()),
+                sg._coords(cam, dev), sg.pack_proj_slabs(*proj))
+
+    bucket = lambda s: sp.bucket_prims_ortho(s, CAM, LOOK, UP, VEXT, LENGTH, SIDE, SIDE,
+                                             tile_w=32, tile_h=128, chunk=512, band=32)
+
+    def frame():
+        s, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+        spatial_sort_rays(orthographic_projection_rays(SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH,
+                                                       device=dev))
+        return sp.splat_image(bucket(s), basis="deg8", tile_w=32, tile_h=128)
+
+    render = sg.make_splat_trainer(cam, basis="deg8", tile_w=32, tile_h=128)
+    target = 1.01 * sg.splat_forward_sortfree(sorted_spheres, weights, cam, 32, 128, "deg8")
+
+    def train_step():
+        s = sorted_spheres.detach().clone().requires_grad_(True)
+        w = weights.detach().clone().requires_grad_(True)
+        ((render(s, w) - target) ** 2).sum().div(SIDE * SIDE).backward()
+        return s.detach() - 1e-6 * s.grad, w.detach() - 1e-6 * w.grad
+
+    calls = [("bucket_prims_ortho", lambda: bucket(sorted_spheres)),
+             ("sort-free setup", setup), ("splat frame", frame),
+             ("sort-free train step", train_step)]
+    if hasattr(sg, "sortfree_setup"):
+        # the kernels with the camera's constants computed anew each call
+        # (their torch ops), not taken from the cache
+        def bucket_uncached():
+            with_cache = sp._cached_frame
+            sp._cached_frame = with_cache.__wrapped__
+            try:
+                return bucket(sorted_spheres)
+            finally:
+                sp._cached_frame = with_cache
+
+        def setup_uncached():
+            consts, spans, coords = sg._cached_setup_constants.__wrapped__(cam, 32, 128, dev)
+            return sg.sortfree_setup_cuda(sorted_spheres, weights, consts, spans, coords,
+                                          SIDE // 128, SIDE // 32)
+
+        calls += [("bucket_prims_ortho, constants uncached", bucket_uncached),
+                  ("sort-free setup, constants uncached", setup_uncached)]
+    result = {}
+    for label, fn in calls:
+        ms = cuda_ms(fn, reps=10)
+        print(f"splat_prep part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
+        result[label] = {"ms": ms, **device_busy(f"splat_prep part {label}", fn)}
+    return result
+
+
+def splat_prep_turns(parent_dir):
+    """The ``splat_prep`` part on DIR's package and on this one in turns
+    (parent, this, this, parent), each a process of its own. Returns
+    {"parent": [run, run], "this": [run, run]}."""
+    runs = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        cmd = [sys.executable, os.path.abspath(__file__), "splat_prep"]
+        if who == "parent":
+            cmd += ["--package", parent_dir]
+        out = subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
+        for line in out.splitlines()[:-1]:
+            print(f"{who}: {line}", flush=True)
+        runs[who].append(json.loads(out.splitlines()[-1])["splat_prep"])
+    for label in runs["this"][0]:
+        cells = [f"{who} " + ", ".join(f"{r[label]['ms']:.3f} ms ({r[label]['device_ops']} ops, "
+                                       f"busy {r[label]['busy_ms']:.3f} ms)" for r in runs[who])
+                 for who in ("parent", "this") if label in runs[who][0]]
+        print(f"splat_prep in turns, {label}: " + "; ".join(cells), flush=True)
+    return runs
+
+
 def f32_pair_sums(d):
     """An and Gn with the pair terms in f32 (dot products by ``matmul_f32``,
     acos, sin) and the sums in f64, the pair (i, i) dropped: the form the
@@ -1986,7 +2094,7 @@ def walk_ablations(parent_dir):
 
 
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
-         "paths", "statistics", "walk", "build")
+         "paths", "statistics", "walk", "build", "splat_prep")
 
 
 def main():
@@ -1996,7 +2104,7 @@ def main():
         sys.path.insert(0, os.path.abspath(args[i + 1]))
         del args[i:i + 2]
     parent = None
-    if "--parent" in args:  # the parent's kernels (records, sortfree_bwd, render_fwd, walk)
+    if "--parent" in args:  # the parent's kernels or package (records, ..., walk, splat_prep)
         i = args.index("--parent")
         parent = os.path.abspath(args[i + 1])
         del args[i:i + 2]
@@ -2063,6 +2171,8 @@ def main():
         summary["statistics"] = statistics_forms()
     if "build" in parts:
         summary["build"] = build_paths()
+    if "splat_prep" in parts:
+        summary["splat_prep"] = (splat_prep_turns(parent) if parent else splat_prep_paths())
     if "walk" in parts:
         summary["walk"] = walk_ablations(parent)
     if "trace_tri" in parts:

@@ -112,6 +112,18 @@ is the valid one and the plain build's keeps the reference's fault
 (ROADMAP C19). Every main path builds through those kernels; their
 launches are counted on each path.
 
+Then ``check_splat_prep`` holds the splat's two setups (csrc/splat_prep.cu:
+bucket_prims_ortho's keys kernel, counting sort and pack kernel, and
+the sort-free setup's projection, slabs and both overlap masks) to their
+plain versions bit for bit (every SplatBuckets field; masks, transposed
+masks, coords, slabs) at the cases of SPLAT_PREP_CASES: particle counts
+that are no multiple of chunk, 2 chunk or 128, fewer than 32 particles, 64
+segments, 128 tiles, band None to 64, weights None and given, dead
+particles, a whole-image particle and a far one that overflow, a 2^16
+clustered scene; and on the bench scene with weights None and 1. Main path
+1's bucket_prims_ortho and main path 3's trainer (forward and backward)
+launch them, counted there.
+
 The engine's walk is held bit-equal to the plain walk (engine.trace) at
 edge shapes first: a stack of 4 (on the rays whose overflowed walk ends),
 rays on box planes with zero direction components, rays that miss
@@ -155,8 +167,8 @@ splat contractions and the launch-order helpers too) with the card's name
 and power limit, the work each kernel's bound is computed from,
 a JSON line describing each kernel (the list kernel on quarter and on
 segment lists apart, the triangle kernel's two passes apart, the engine's
-walk for spheres and for triangles apart, the build's four kernels with
-their launches on each main path), and last a
+walk for spheres and for triangles apart, the build's four kernels and
+the splat setups' four with their launches on each main path), and last a
 JSON line with ``"ok": true``. Any failure raises, so
 the exit code is non-zero and no result line prints.
 """
@@ -1190,14 +1202,11 @@ def training_scene(dev, whole_image, n=3000, seed=11):
 
 def sortfree_inputs(spheres, weights, cam, tile_w, tile_h=128):
     """(masks, transposed masks, coords, slabs) of the sort-free splat, as
-    splat_forward_sortfree and splat_backward_sortfree prepare them."""
+    splat_forward_sortfree and splat_backward_sortfree prepare them
+    (sortfree_setup: csrc/splat_prep.cu on CUDA tensors)."""
     from grace_tpu_torch.trace import splat_grad as sg
-    from grace_tpu_torch.trace.pallas_broadphase import pack_overlap_bits
 
-    proj = sg.project_ortho(spheres, weights, cam)
-    overlap = sg.projected_overlap(*proj, cam, tile_w, tile_h)
-    return (pack_overlap_bits(overlap), pack_overlap_bits(overlap.t()),
-            sg._coords(cam, spheres.device), sg.pack_proj_slabs(*proj))
+    return sg.sortfree_setup(spheres, weights, cam, tile_w, tile_h)
 
 
 def check_sortfree(tag, inputs, g_image, basis, tile_w, bwd_rel, tile_h=128):
@@ -2233,6 +2242,184 @@ def build_times(spheres, entry_spheres, tris):
     return t, work
 
 
+# check_splat_prep's cases: tag -> (particles, image side, (tile_w, tile_h),
+# band, chunk, weighted, whole). The bucketed setup runs at (tile_w, tile_h,
+# band, chunk), the sort-free one at (tile_w, tile_h), both at the bench
+# camera. Every scene has dead particles (h = 0, behind the camera, past the
+# far plane; weights 0 and -1 where weighted); ``whole`` adds a particle that
+# covers the whole image and one beyond 2^31 band widths (ROADMAP C21), each
+# a footprint that overflows.
+SPLAT_PREP_SEED = 2027
+SPLAT_PREP_CASES = {
+    "n 3001 (no multiple of chunk, 2 chunk or 128; 24 segments), band 32":
+        (3001, 128, (32, 128), 32, 64, False, False),
+    "n 3001, band None, weights, a whole-image and a far particle (overflow)":
+        (3001, 128, (32, 128), None, 64, True, True),
+    "n 17 (< 32: one segment), 64 x 64, tile 16 x 64, band 16, chunk 8":
+        (17, 64, (16, 64), 16, 8, True, False),
+    "n 8192 (64 segments), tile 8 x 16 (128 tiles), band 16, overflow":
+        (8192, 128, (8, 16), 16, 64, False, True),
+    "n 3001, tile 8 x 64, band 64, weights": (3001, 128, (8, 64), 64, 64, True, False),
+    "clustered 2^16, 512 x 512, tile 16 x 128 (128 tiles), band 32, chunk 512":
+        (65536, 512, (16, 128), 32, 512, False, False),
+}
+SPLAT_PREP_OUTPUTS = ("slabs", "slab_lo", "n_slabs", "first", "last", "xcols", "yrows",
+                      "overflow", "masks", "masks_t", "coords", "sortfree slabs")
+
+
+def splat_prep_scene(tag):
+    """(spheres f32[n, 4], weights f32[n] or None) of check_splat_prep's
+    case ``tag`` as numpy arrays, drawn from SPLAT_PREP_SEED."""
+    n, _, _, _, _, weighted, whole = SPLAT_PREP_CASES[tag]
+    rng = np.random.default_rng(SPLAT_PREP_SEED + list(SPLAT_PREP_CASES).index(tag))
+    s = make_clustered_particles(rng, n)
+    s[0::97, 3] = 0.0           # h = 0
+    s[1::101, 2] = -3.0         # behind the camera
+    s[2::103, 2] = 50.0         # past the far plane
+    if whole:
+        s[n // 2] = (0.5, 0.5, 0.5, 5.0)
+        s[n // 3] = (3e9, 3e9, 0.5, 1e3)
+    w = None
+    if weighted:
+        w = (0.5 + rng.random(n)).astype(np.float32)
+        w[3::50] = 0.0
+        w[4::50] = -1.0
+    return s, w
+
+
+def splat_prep_both(spheres, weights, side, tiles, band, chunk, plain):
+    """E4's and E5's outputs (``SPLAT_PREP_OUTPUTS``, in order) at the bench
+    camera: bucket_prims_ortho and sortfree_setup (the kernels of
+    csrc/splat_prep.cu on CUDA tensors), or with ``plain`` their plain
+    versions on the same tensors."""
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    tile_w, tile_h = tiles
+    args = (CAM, LOOK, UP, VEXT, LENGTH, side, side)
+    cam = sg.OrthoCamera(*args)
+    if plain:
+        b = sp._bucket_prims_ortho_plain(spheres, *args, tile_w, tile_h, chunk, weights,
+                                         tile_h if band is None else band)
+        return (*b, *sg._sortfree_setup_plain(spheres, weights, cam, tile_w, tile_h))
+    b = sp.bucket_prims_ortho(spheres, *args, tile_w=tile_w, tile_h=tile_h, chunk=chunk,
+                              weights=weights, band=band)
+    return (*b, *sg.sortfree_setup(spheres, weights, cam, tile_w, tile_h))
+
+
+def check_splat_prep_case(tag, spheres, weights, side, tiles, band, chunk):
+    """csrc/splat_prep.cu against the plain versions on the same card
+    tensors, bit for bit: every SplatBuckets field of bucket_prims_ortho,
+    and sortfree_setup's masks, transposed masks, coords and slabs. Returns
+    ({output: max abs err}, overflow)."""
+    got = splat_prep_both(spheres, weights, side, tiles, band, chunk, plain=False)
+    want = splat_prep_both(spheres, weights, side, tiles, band, chunk, plain=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(SPLAT_PREP_OUTPUTS, got, want):
+        check_tensor_bits(f"{tag} {name}", g, w)
+        g, w = g.double(), w.double()
+        errs[name] = float(torch.where(g == w, 0.0, (g - w).abs()).max()) if w.numel() else 0.0
+    return errs, bool(got[7])
+
+
+def check_splat_prep(dev):
+    """The check_splat_prep phase: E4 and E5 bit-equal to their plain
+    versions at every case of SPLAT_PREP_CASES. Returns its lines."""
+    lines = []
+    for tag, (n, side, tiles, band, chunk, _, _) in SPLAT_PREP_CASES.items():
+        s, w = splat_prep_scene(tag)
+        spheres = torch.from_numpy(s).to(dev)
+        weights = None if w is None else torch.from_numpy(w).to(dev)
+        _, overflow = check_splat_prep_case(tag, spheres, weights, side, tiles, band, chunk)
+        lines.append(f"{tag}: every SplatBuckets field and the sort-free masks, transposed "
+                     f"masks, coords and slabs bit-equal to the plain versions (overflow "
+                     f"{overflow})")
+    return lines
+
+
+def prep_counters():
+    """The splat setups' launch counts (csrc/splat_prep.cu)."""
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    return {"splat_bucket_keys": sp.bucket_keys_cuda.launches,
+            "splat_bucket_sort": sp.bucket_sort_cuda.launches,
+            "splat_bucket_pack": sp.bucket_pack_cuda.launches,
+            "sortfree_setup": sg.sortfree_setup_cuda.launches}
+
+
+def zero_prep_counters():
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    for fn in (sp.bucket_keys_cuda, sp.bucket_sort_cuda, sp.bucket_pack_cuda,
+               sg.sortfree_setup_cuda):
+        fn.launches = 0
+
+
+def splat_prep_times(spheres, weights, cam, side):
+    """The setups' times (CUDA events, warm median, ms) on main paths 1 and
+    3's inputs: the bucketed setup whole and its three steps (the keys
+    kernel, the counting sort: two kernels and a scan, the pack kernel),
+    torch's stable sort of the same keys (the one PyTorch call that
+    computes the sort), the sort-free setup, and each setup's plain
+    version. Returns (times, {name: (operations, bytes)}): each kernel's
+    inputs read once and its outputs written once."""
+    from grace_tpu_torch.trace import splat as sp
+    from grace_tpu_torch.trace import splat_grad as sg
+
+    tile_w, tile_h = SPLAT_TILE["tile_w"], SPLAT_TILE["tile_h"]
+    args = (CAM, LOOK, UP, VEXT, LENGTH, side, side)
+    n = spheres.shape[0]
+    consts, _, _ = sp._bucket_constants(*args, tile_w, 32, spheres.device)
+    nbx, nty = side // 32, side // tile_w
+    n_keys = nbx * nty
+    keys, rows, overflow = sp.bucket_keys_cuda(spheres, None, consts, nbx, nty)
+    order, cursor, tiles = sp.bucket_sort_cuda(keys, n_keys + 1)
+    packed = sp.bucket_pack_cuda(order, cursor, tiles, rows, 512, n_keys)
+    sf_consts, spans, coords = sg._setup_constants(cam, tile_w, tile_h, spheres.device)
+    masks, masks_t, _, sf_slabs = sg.sortfree_setup_cuda(spheres, weights, sf_consts, spans,
+                                                         coords, side // tile_h, side // tile_w)
+    t = {}
+    t["bucket_prep kernel"] = cuda_ms(lambda: sp.bucket_prims_ortho(
+        spheres, *args, chunk=512, band=32, **SPLAT_TILE))
+    t["bucket_prep plain"] = cuda_ms(lambda: sp._bucket_prims_ortho_plain(
+        spheres, *args, tile_w, tile_h, 512, None, 32), reps=3)
+    t["splat_bucket_keys kernel"] = cuda_ms(
+        lambda: sp.bucket_keys_cuda(spheres, None, consts, nbx, nty))
+    t["splat_bucket_sort kernel (count, scan, scatter)"] = cuda_ms(
+        lambda: sp.bucket_sort_cuda(keys, n_keys + 1))
+    t["bucket key sort (torch.sort, stable)"] = cuda_ms(lambda: torch.sort(keys, stable=True))
+    t["splat_bucket_pack kernel"] = cuda_ms(
+        lambda: sp.bucket_pack_cuda(order, cursor, tiles, rows, 512, n_keys))
+    t["sortfree setup kernel"] = cuda_ms(
+        lambda: sg.sortfree_setup(spheres, weights, cam, tile_w, tile_h))
+    t["sortfree setup plain"] = cuda_ms(
+        lambda: sg._sortfree_setup_plain(spheres, weights, cam, tile_w, tile_h), reps=3)
+    # operations: a particle's 3 dot products (5 each), depth's 3
+    # subtractions, 2 products, 2 divisions and 4 comparisons of its scale,
+    # 4 quotients (3 each) and 4 floors, 4 keys (8 each); the sort's 2
+    # passes of a few integer operations a key (4 each) and its scan; the
+    # pack's ranges; the setup's projection (24) and box (8), and 4
+    # comparisons a (tile, segment) pair
+    n_tiles = masks.shape[0]
+    m = keys.shape[0]
+    work = {
+        "splat_bucket_keys": (83 * n, nbytes(spheres, consts, keys, rows, overflow)),
+        "splat_bucket_sort": (8 * m + cursor.numel(), nbytes(keys, order, cursor)),
+        "splat_bucket_pack": (8 * n_keys, nbytes(order, cursor, rows, *packed)),
+        "sortfree_setup": (32 * n + 4 * n_tiles * sf_slabs.shape[0],
+                           nbytes(spheres, weights, sf_consts, spans, sf_slabs, masks, masks_t)),
+    }
+    work["bucket_prep"] = tuple(sum(work[k][i] for k in ("splat_bucket_keys",
+                                                         "splat_bucket_sort",
+                                                         "splat_bucket_pack"))
+                                for i in (0, 1))
+    del overflow
+    return t, work
+
+
 def both_routes(tag, rays, spheres, tree):
     """pallas_trace_sph on the default route (B6) and on
     broadphase="quarter" (B3), in both modes. Gates (path 2's): no
@@ -3002,10 +3189,11 @@ def nbytes(*tensors):
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_bytes,
-                 by_path=None):
+                 by_path=None, library_ms=None):
     """One kernel of the JSON line, with its bound: the larger of its flops
     over the FP32 peak and its bytes over the memory rate. ``by_path``:
-    its launches on each main path (``launches`` is then their sum)."""
+    its launches on each main path (``launches`` is then their sum);
+    ``library_ms``: one PyTorch call's time for the same function."""
     t_ops = flops / PEAK_FLOPS * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     log(f"bound {name}: {flops:.6g} flops -> {t_ops:.4f} ms, {n_bytes} bytes -> "
@@ -3013,7 +3201,8 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_b
     entry = {"name": name, "route": "cuda", "source": f"grace_tpu_torch/csrc/{source}",
              "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "library_ms": library_ms}
     if by_path is not None:
         entry["launches_by_path"] = by_path
     return entry
@@ -3095,6 +3284,11 @@ def run(dev, n_particles, side):
     for line in build_lines:
         log(f"check_build {line} OK")
     log(f"check_build: {len(build_lines)} cases in {time.perf_counter() - t_check:.1f} s")
+    t_check = time.perf_counter()
+    for line in check_splat_prep(dev):
+        log(f"check_splat_prep {line} OK")
+    log(f"check_splat_prep: {len(SPLAT_PREP_CASES)} cases in "
+        f"{time.perf_counter() - t_check:.1f} s")
     small_checks(dev)
     splat_edge_checks(dev)
     training_small_checks(dev)
@@ -3111,6 +3305,7 @@ def run(dev, n_particles, side):
     pk.trace_quarter.launches = 0
     sp.splat_image.launches = 0
     zero_build_counters()
+    zero_prep_counters()
     t0 = time.perf_counter()
     scene = bench_scene(spheres, side)
     sorted_spheres, tree, rays_s, inv, buckets = (
@@ -3123,8 +3318,12 @@ def run(dev, n_particles, side):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     build_by_path = {1: build_counters()}
+    prep_by_path = {1: prep_counters()}
     launches = {"trace_quarter": pk.trace_quarter.launches,
-                "splat": sp.splat_image.launches, **build_by_path[1]}
+                "splat": sp.splat_image.launches, **build_by_path[1],
+                "splat_bucket_keys": prep_by_path[1]["splat_bucket_keys"],
+                "splat_bucket_sort": prep_by_path[1]["splat_bucket_sort"],
+                "splat_bucket_pack": prep_by_path[1]["splat_bucket_pack"]}
     img_trace = trace_v[inv.long()].reshape(side, side)
     for name, a in (("splat image", img), ("trace image", img_trace)):
         if not bool(torch.isfinite(a).all()) or not bool((a != 0).any()):
@@ -3147,6 +3346,7 @@ def run(dev, n_particles, side):
     pk.trace_list.launches = 0
     pk.trace_list.launches_seg = 0
     zero_build_counters()
+    zero_prep_counters()
     t0 = time.perf_counter()
     general = {"default": [pk.pallas_trace_sph(rays_s, sorted_spheres, tree,
                                                tile=TRACE_TILE, mode=m)
@@ -3163,6 +3363,7 @@ def run(dev, n_particles, side):
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
     build_by_path[2] = build_counters()
+    prep_by_path[2] = prep_counters()
     launches2 = {"trace_bitmask": pk.trace_bitmask.launches,
                  "trace_list": pk.trace_list.launches - pk.trace_list.launches_seg,
                  "trace_list_seg": pk.trace_list.launches_seg}
@@ -3211,6 +3412,15 @@ def run(dev, n_particles, side):
             f"(cumulative deg 14, hitcount): max abs err {errs[name]:.3g} "
             f"(max value {top:.3g}) OK")
     splat_err, top = check_splat("full", buckets, "deg8", **SPLAT_TILE)
+    prep_errs = {}
+    for label, w in (("weights None", None),
+                     ("weights 1", torch.ones(n_particles, device=dev))):
+        errs_w, _ = check_splat_prep_case(f"bench scene, {label}", sorted_spheres, w, side,
+                                          (SPLAT_TILE["tile_w"], SPLAT_TILE["tile_h"]), 32, 512)
+        prep_errs = {k: max(v, prep_errs.get(k, 0.0)) for k, v in errs_w.items()}
+        log(f"check_splat_prep bench scene ({n_particles} sorted particles, {side}x{side}, "
+            f"{label}): every SplatBuckets field and the sort-free masks, transposed masks, "
+            f"coords and slabs bit-equal to the plain versions OK")
     log(f"check splat kernel vs plain at {side}x{side}: max abs err {splat_err:.3g} "
         f"(max value {top:.3g}) OK")
 
@@ -3246,14 +3456,17 @@ def run(dev, n_particles, side):
     for fn in (sg.splat_sortfree_fwd, sg.splat_sortfree_bwd, pr.render_fwd, pr.render_bwd):
         fn.launches = 0
     zero_build_counters()
+    zero_prep_counters()
     t0 = time.perf_counter()
     steps = {"splat": splat_step(), "general": general_step()}
     torch.cuda.synchronize()
     wall3 = time.perf_counter() - t0
     build_by_path[3] = build_counters()
+    prep_by_path[3] = prep_counters()
     launches3 = {"splat_sortfree_fwd": sg.splat_sortfree_fwd.launches,
                  "splat_sortfree_bwd": sg.splat_sortfree_bwd.launches,
-                 "render_fwd": pr.render_fwd.launches, "render_bwd": pr.render_bwd.launches}
+                 "render_fwd": pr.render_fwd.launches, "render_bwd": pr.render_bwd.launches,
+                 "sortfree_setup": prep_by_path[3]["sortfree_setup"]}
     if min(launches3.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches3}")
     for name, (s1, w1, loss, _, ovf, finite) in steps.items():
@@ -3305,6 +3518,7 @@ def run(dev, n_particles, side):
     prc.records_quarter.launches = 0
     prc.records_bitmask.launches = 0
     zero_build_counters()
+    zero_prep_counters()
     t0 = time.perf_counter()
     rec = prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP)
     rec_b = prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP,
@@ -3316,6 +3530,7 @@ def run(dev, n_particles, side):
     torch.cuda.synchronize()
     wall4 = time.perf_counter() - t0
     build_by_path[4] = build_counters()
+    prep_by_path[4] = prep_counters()
     launches4 = {"records_quarter": prc.records_quarter.launches,
                  "records_bitmask": prc.records_bitmask.launches}
     if min(launches4.values()) < 1:
@@ -3335,11 +3550,13 @@ def run(dev, n_particles, side):
     pt.trace_tri.launches = 0
     pt.trace_tri.launches_any = 0
     zero_build_counters()
+    zero_prep_counters()
     t0 = time.perf_counter()
     tri_img = mt.render_triangles(tris, resolution=side, engine="pallas")
     torch.cuda.synchronize()
     wall5 = time.perf_counter() - t0
     build_by_path[5] = build_counters()
+    prep_by_path[5] = prep_counters()
     launches5 = {"trace_tri closest": pt.trace_tri.launches - pt.trace_tri.launches_any,
                  "trace_tri any": pt.trace_tri.launches_any, **build_by_path[5]}
     if min(launches5.values()) < 1:
@@ -3372,8 +3589,10 @@ def run(dev, n_particles, side):
 
     # 11. main path 6, a Gadget snapshot through random and HEALPix rays
     zero_build_counters()
+    zero_prep_counters()
     path6 = snapshot_path(dev, particles)
     build_by_path[6] = build_counters()
+    prep_by_path[6] = prep_counters()
     launches6 = {**path6["launches"], **build_by_path[6]}
     if min(launches6.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches6}")
@@ -3406,9 +3625,11 @@ def run(dev, n_particles, side):
     # 11b. main path 7, the sharded routes on one NCCL rank
     t7 = time.perf_counter()
     zero_build_counters()
+    zero_prep_counters()
     path7 = sharded_path(dev, scene, time_routes=True)
     wall7 = time.perf_counter() - t7
     build_by_path[7] = build_counters()
+    prep_by_path[7] = prep_counters()
     launches7 = {**path7["launches"], **build_by_path[7]}
     if min(launches7.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches7}")
@@ -3418,8 +3639,10 @@ def run(dev, n_particles, side):
 
     # 11c. main path 8, the generic engine's walk on the card
     zero_build_counters()
+    zero_prep_counters()
     path8 = engine_path(dev, scene, tris, entry_args, side)
     build_by_path[8] = build_counters()
+    prep_by_path[8] = prep_counters()
     launches8 = {**path8["launches"], **build_by_path[8]}
     if min(launches8.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches8}")
@@ -3436,9 +3659,8 @@ def run(dev, n_particles, side):
     t["build_sph_tree"] = cuda_ms(lambda: build_sph_tree(spheres, MAX_PER_LEAF), reps=3)
     t["rays+sort"] = cuda_ms(lambda: spatial_sort_rays(orthographic_projection_rays(
         side, side, CAM, LOOK, UP, VEXT, LENGTH, device=dev)))
-    t["bucket_prep"] = cuda_ms(lambda: sp.bucket_prims_ortho(
-        sorted_spheres, CAM, LOOK, UP, VEXT, LENGTH, side, side, chunk=512, band=32,
-        **SPLAT_TILE))
+    prep_t, prep_work = splat_prep_times(sorted_spheres, weights, cam, side)
+    t.update(prep_t)
     a8, b8 = (np.asarray(c, np.float32) for c in sp.SPLAT_BASES["deg8"][1:])
     t["splat kernel"] = cuda_ms(lambda: sp.splat_image(buckets, basis="deg8", **SPLAT_TILE))
     t["splat_key_order"] = cuda_ms(lambda: sp.splat_key_order(buckets.first, buckets.last))
@@ -3495,8 +3717,6 @@ def run(dev, n_particles, side):
         lambda: build_sph_tree(entry_args[0], max_per_leaf=16), reps=3)
     masks, masks_t, coords, slabs = sf_inputs
     deg8, a8c, b8c = sg._basis_coeffs("deg8")
-    t["sortfree setup (projection, overlap, masks)"] = cuda_ms(
-        lambda: sortfree_inputs(sorted_spheres, weights, cam, SPLAT_TILE["tile_w"]))
     t["splat_sortfree_fwd kernel"] = cuda_ms(lambda: sg.splat_sortfree_fwd(
         masks, coords, slabs, "deg8", 32, 128, side, side))
     t["sortfree_tile_order"] = cuda_ms(lambda: sg.sortfree_tile_order(masks))
@@ -3670,6 +3890,17 @@ def run(dev, n_particles, side):
         f"{ops_b / PEAK_FLOPS * 1e3:.4f} ms; the build {t['build_sph_tree']:.3f} ms, plain "
         f"{t['build_sph_tree plain']:.3f} ms")
     log(f"build kernels' launches by main path: {json.dumps(build_by_path)}")
+    for name, label, kernel_ms, plain_ms in (
+            ("bucket_prep", "bucket_prims_ortho (the keys kernel, the counting sort, the "
+             "pack kernel)", "bucket_prep kernel", "bucket_prep plain"),
+            ("sortfree_setup", "sortfree_setup (spheres and weights read, slabs and both "
+             "masks written)", "sortfree setup kernel", "sortfree setup plain")):
+        ops_p, bytes_p = prep_work[name]
+        log(f"bound {name.replace('_', ' ')}: {label} on the bench scene moves {bytes_p} bytes "
+            f"-> {bytes_p / PEAK_BYTES * 1e3:.4f} ms; {ops_p} operations -> "
+            f"{ops_p / PEAK_FLOPS * 1e3:.4f} ms; the call {t[kernel_ms]:.3f} ms, plain "
+            f"{t[plain_ms]:.3f} ms")
+    log(f"splat setup kernels' launches by main path: {json.dumps(prep_by_path)}")
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -3766,6 +3997,30 @@ def run(dev, n_particles, side):
               ("build_lbvh_nodes", "grace_tpu/build/lbvh.py:217",
                max(build_errs[f] for f in BUILD_FIELDS), "build_lbvh_nodes kernel",
                "build_lbvh plain (both phases)"))],
+        # the splat's two setups (not TPU kernels: grace_tpu's plain XLA), bench scene
+        # (the plain times are the whole plain setup's: it has no steps of
+        # the kernels' cut)
+        *[kernel_entry(name, "splat_prep.cu", replaces,
+                       sum(p[name] for p in prep_by_path.values()), err, t[kernel_ms],
+                       t[plain_ms], *prep_work[name],
+                       by_path={f"path {k}": v[name] for k, v in prep_by_path.items()},
+                       library_ms=library)
+          for name, replaces, err, kernel_ms, plain_ms, library in (
+              ("splat_bucket_keys", "grace_tpu/trace/splat.py:122",
+               max(prep_errs[f] for f in SPLAT_PREP_OUTPUTS[:8]), "splat_bucket_keys kernel",
+               "bucket_prep plain", None),
+              ("splat_bucket_sort", "grace_tpu/trace/splat.py:222",
+               max(prep_errs[f] for f in SPLAT_PREP_OUTPUTS[:8]),
+               "splat_bucket_sort kernel (count, scan, scatter)", "bucket_prep plain",
+               t["bucket key sort (torch.sort, stable)"]),
+              ("splat_bucket_pack", "grace_tpu/trace/splat.py:122, grace_tpu/trace/splat.py:74",
+               max(prep_errs[f] for f in SPLAT_PREP_OUTPUTS[:8]), "splat_bucket_pack kernel",
+               "bucket_prep plain", None),
+              ("sortfree_setup", "grace_tpu/trace/splat_grad.py:108, "
+               "grace_tpu/trace/splat_grad.py:131, grace_tpu/trace/splat_grad.py:141, "
+               "grace_tpu/trace/pallas_broadphase.py:59",
+               max(prep_errs[f] for f in SPLAT_PREP_OUTPUTS[8:]), "sortfree setup kernel",
+               "sortfree setup plain", None))],
         # path 6's launches of B3 and B6, held and timed on its fan-out set
         *[kernel_entry(f"{k} (path 6)", f"{k}.cu", replaces, launches6[k], errs6[k],
                        k6[PATH6_FULL, k, "cumulative"], plain6[k], *work6[PATH6_FULL][k])

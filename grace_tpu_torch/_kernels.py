@@ -77,6 +77,15 @@ KERNELS = {
                "grace_deltas": "pppp" + "iiii",
                "grace_lbvh_ranges": "ppppppp" + "iii",
                "grace_lbvh_nodes": "p" * 15 + "ii"}),
+    # the splat's two setups (bucketed keys and slabs; the sort-free
+    # projection, slabs and masks): --fmad=false keeps the projections'
+    # and quotients' f32 rounding the plain path's
+    "splat_prep": ("splat_prep.cu", ["--fmad=false"],
+                   {"grace_splat_bucket_keys": "pppppp" + "iiii",
+                    "grace_splat_bucket_count": "pp" + "iiii",
+                    "grace_splat_bucket_scatter": "ppp" + "iii",
+                    "grace_splat_bucket_pack": "pppppppp" + "iiiii",
+                    "grace_sortfree_setup": "ppppppp" + "iii"}),
     # The dense contractions that splat.cu and splat_sortfree.cu's forward
     # replaced, each with its file's flags: the references those kernels
     # are held bit-equal to on the card. No wrapper launches them.

@@ -70,6 +70,77 @@ def _camera_frame(camera_position, look_at, view_up, device=None):
     return view_dir, v, u
 
 
+class _OrthoFrame(NamedTuple):
+    """The camera's tensors that ``bucket_prims_ortho`` takes, f32 on one
+    device: the frame, the depth limit and the pixel-center maps."""
+
+    view_dir: torch.Tensor   # [3]
+    v: torch.Tensor          # [3] image x (columns)
+    u: torch.Tensor          # [3] image y (rows)
+    cam: torch.Tensor        # [3]
+    length: torch.Tensor     # []
+    xcols: torch.Tensor      # [W] pixel-center coordinates, ascending
+    yrows: torch.Tensor      # [H] descending
+    x0: torch.Tensor         # [] left edge of column 0
+    y0: torch.Tensor         # [] top edge of row 0
+    band_step: torch.Tensor  # [] dx * band
+    tile_step: torch.Tensor  # [] dyr * tile_w (negative: rows descend)
+
+
+def _ortho_frame(camera_position, look_at, view_up, vertical_extent, length, w_res, h_res,
+                 tile_w, band, device) -> _OrthoFrame:
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    view_dir, v, u = _camera_frame(camera_position, look_at, view_up, device)
+    cam = f32(camera_position)
+    vext = f32(vertical_extent)
+    half_w = 0.5 * vext * (w_res / h_res)
+    half_h = 0.5 * vext
+    # Pixel-center coordinates in the image plane (top-left pixel first).
+    cu = dot3(cam, v)
+    cv = dot3(cam, u)
+    i = torch.arange(w_res, dtype=torch.float32, device=device)
+    j = torch.arange(h_res, dtype=torch.float32, device=device)
+    xcols = fma(2.0 * (i + 0.5) / w_res - 1.0, half_w, cu)        # ascending
+    yrows = fma(1.0 - 2.0 * (j + 0.5) / h_res, half_h, cv)        # descending
+    dx = 2.0 * half_w / w_res
+    dyr = -2.0 * half_h / h_res
+    return _OrthoFrame(view_dir, v, u, cam, f32(length), xcols, yrows, xcols[0] - 0.5 * dx,
+                       yrows[0] - 0.5 * dyr, dx * band, dyr * tile_w)
+
+
+def _frozen(a):
+    """A hashable copy of a camera argument (floats), or None for a tensor."""
+    if isinstance(a, torch.Tensor):
+        return None
+    flat = np.asarray(a, dtype=np.float64).reshape(-1)
+    return tuple(float(x) for x in flat) if flat.size > 1 else float(flat[0])
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_frame(*args):
+    frame = _ortho_frame(*args)
+    consts = torch.cat([frame.view_dir, frame.v, frame.u, frame.cam,
+                        torch.stack([frame.length, frame.x0, frame.y0, frame.band_step,
+                                     frame.tile_step])])
+    return consts, frame.xcols[:, None], frame.yrows[:, None]
+
+
+BUCKET_CONSTS = 17  # f32 constants of grace_splat_bucket_keys (csrc/splat_prep.cu)
+
+
+def _bucket_constants(camera_position, look_at, view_up, vertical_extent, length, w_res,
+                      h_res, tile_w, band, device):
+    """(consts f32[17], xcols f32[W, 1], yrows f32[H, 1]) on ``device``:
+    ``_ortho_frame``'s tensors, computed by its torch ops once per camera
+    and device and cached (a camera given as tensors is not cached)."""
+    key = (*(_frozen(a) for a in (camera_position, look_at, view_up, vertical_extent,
+                                  length)), w_res, h_res, tile_w, band, torch.device(device))
+    if any(k is None for k in key[:5]):
+        return _cached_frame.__wrapped__(camera_position, look_at, view_up, vertical_extent,
+                                         length, w_res, h_res, tile_w, band, device)
+    return _cached_frame(*key)
+
+
 def bucket_prims_ortho(spheres, camera_position, look_at, view_up,
                        vertical_extent: float, length: float, resolution_x: int,
                        resolution_y: int, tile_w: int = 64, tile_h: int = 128,
@@ -81,6 +152,12 @@ def bucket_prims_ortho(spheres, camera_position, look_at, view_up,
     (default tile_h) splits each tile into tile_h/band column bands.
     Footprints are expanded to at most a 2x2 (row tile x band)
     neighbourhood; a particle needing more sets the overflow flag.
+
+    On CUDA tensors the keys and slabs come from ``csrc/splat_prep.cu``
+    (``grace_splat_bucket_keys``, a stable counting sort, then
+    ``grace_splat_bucket_pack``); the camera's tensors are cached per
+    camera and device, so ``xcols`` and ``yrows`` are shared between calls
+    (do not write into them). CPU tensors run ``_bucket_prims_ortho_plain``.
     """
     w_res, h_res = resolution_x, resolution_y
     if band is None:
@@ -89,35 +166,148 @@ def bucket_prims_ortho(spheres, camera_position, look_at, view_up,
         raise ValueError("resolution must be a multiple of the tile shape "
                          "and band must divide tile_h")
     dev = spheres.device
+    if dev.type == "cpu":
+        return _bucket_prims_ortho_plain(spheres, camera_position, look_at, view_up,
+                                         vertical_extent, length, w_res, h_res, tile_w, tile_h,
+                                         chunk, weights, band)
+    if dev.type != "cuda":
+        raise ValueError(f"bucket_prims_ortho: unsupported device {dev}")
+    return _bucket_prims_ortho_kernels(spheres, camera_position, look_at, view_up,
+                                       vertical_extent, length, w_res, h_res, tile_w, tile_h,
+                                       chunk, weights, band)
+
+
+def _bucket_prims_ortho_kernels(spheres, camera_position, look_at, view_up, vertical_extent,
+                                length, w_res, h_res, tile_w, tile_h, chunk, weights, band
+                                ) -> SplatBuckets:
+    """``bucket_prims_ortho``'s CUDA route (checked arguments, ``band``
+    resolved): the keys kernel, the counting sort, the pack kernel."""
+    dev = spheres.device
+    w = None if weights is None else torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    _kernels.check_tensors("bucket_prims_ortho", [], [spheres] + ([] if w is None else [w]))
+    n = spheres.shape[0]
+    if spheres.dim() != 2 or spheres.shape[1] != 4 or (w is not None and w.shape != (n,)):
+        raise ValueError(f"bucket_prims_ortho: spheres {tuple(spheres.shape)}, weights "
+                         f"{None if w is None else tuple(w.shape)}")
+    if 4 * n + 2 * chunk >= 2 ** 31:
+        raise ValueError(f"bucket_prims_ortho: {n} particles pass the kernels' i32 indices")
+    consts, xcols, yrows = _bucket_constants(camera_position, look_at, view_up,
+                                             vertical_extent, length, w_res, h_res, tile_w,
+                                             band, dev)
+    nbx = (w_res // tile_h) * (tile_h // band)
+    nty = h_res // tile_w
+    keys, rows, overflow = bucket_keys_cuda(spheres, w, consts, nbx, nty)
+    # Stable: instances of one key keep the torch.cat order (q * n + p).
+    order, cursor, tiles = bucket_sort_cuda(keys, nbx * nty + 1)
+    slabs, slab_lo, n_slabs, first, last = bucket_pack_cuda(order, cursor, tiles, rows, chunk,
+                                                            nbx * nty)
+    return SplatBuckets(slabs, slab_lo, n_slabs, first, last, xcols, yrows, overflow)
+
+
+def bucket_keys_cuda(spheres, weights, consts, nbx: int, nty: int):
+    """``csrc/splat_prep.cu``'s ``grace_splat_bucket_keys`` on checked CUDA
+    tensors: (keys i32[4 n], the instance key q * n + p, sentinel nbx * nty;
+    rows f32[n, 4], (pu, pv, invh, scale) as the slabs take them; overflow
+    bool[])."""
+    device = spheres.device
+    n = spheres.shape[0]
+    spheres = _kernels.aligned(spheres)
+    keys = torch.empty(4 * n, dtype=torch.int32, device=device)
+    rows = torch.empty((n, 4), dtype=torch.float32, device=device)
+    overflow = torch.empty((), dtype=torch.bool, device=device)
+    _kernels.launch("splat_prep", "grace_splat_bucket_keys", device, spheres.data_ptr(),
+                    None if weights is None else weights.contiguous().data_ptr(),
+                    consts.data_ptr(), keys.data_ptr(), rows.data_ptr(), overflow.data_ptr(),
+                    n, nbx, nty, nbx * nty)
+    bucket_keys_cuda.launches += 1
+    return keys, rows, overflow
+
+
+bucket_keys_cuda.launches = 0
+
+
+SORT_TILE = 1024         # instances a warp of the counting sort takes, at least
+SORT_COUNTS = 1 << 24    # (key, warp tile) counters of the counting sort, at most
+
+
+def sort_tiles(m: int, n_bins: int) -> tuple[int, int]:
+    """(tile, tiles) of the counting sort of m keys over n_bins values:
+    warp tiles of at least SORT_TILE instances (a multiple of 32), few
+    enough that n_bins x tiles counters stay near SORT_COUNTS."""
+    most = max(1, SORT_COUNTS // n_bins)
+    tile = max(SORT_TILE, 32 * -(-m // (32 * most)))
+    return tile, max(1, -(-m // tile))
+
+
+def bucket_sort_cuda(keys, n_bins: int):
+    """``csrc/splat_prep.cu``'s stable counting sort of keys i32[m] with
+    values in [0, n_bins): ``grace_splat_bucket_count``, an inclusive scan
+    of the counts (torch.cumsum) and ``grace_splat_bucket_scatter``.
+    Returns (order i32[m], the instances in stable key order; cursor
+    i32[n_bins * tiles], each (key, warp tile) pair's first slot, so
+    cursor[k * tiles] is key k's first; tiles)."""
+    device = keys.device
+    m = keys.shape[0]
+    tile, tiles = sort_tiles(m, n_bins)
+    counts = torch.empty(n_bins * tiles, dtype=torch.int32, device=device)
+    _kernels.launch("splat_prep", "grace_splat_bucket_count", device, keys.data_ptr(),
+                    counts.data_ptr(), m, tile, tiles, n_bins)
+    cursor = torch.cumsum(counts, 0, dtype=torch.int32)
+    order = torch.empty(m, dtype=torch.int32, device=device)
+    _kernels.launch("splat_prep", "grace_splat_bucket_scatter", device, keys.data_ptr(),
+                    cursor.data_ptr(), order.data_ptr(), m, tile, tiles)
+    bucket_sort_cuda.launches += 1
+    return order, cursor, tiles
+
+
+bucket_sort_cuda.launches = 0
+
+
+def bucket_pack_cuda(order, cursor, tiles: int, rows, chunk: int, n_keys: int):
+    """``csrc/splat_prep.cu``'s ``grace_splat_bucket_pack``: (slabs
+    f32[cap / (2 chunk), 8, chunk], slab_lo, n_slabs, first, last i32[n_keys])
+    from ``bucket_sort_cuda``'s order and cursors and ``bucket_keys_cuda``'s
+    rows."""
+    device = rows.device
+    n = rows.shape[0]
+    per_slab = 2 * chunk
+    cap = ((4 * n + per_slab - 1) // per_slab) * per_slab
+    slabs = torch.empty((cap // per_slab, 8, chunk), dtype=torch.float32, device=device)
+    ranges = torch.empty((4, n_keys), dtype=torch.int32, device=device)
+    first, last, slab_lo, n_slabs = ranges
+    _kernels.launch("splat_prep", "grace_splat_bucket_pack", device, order.data_ptr(),
+                    cursor.data_ptr(), rows.data_ptr(), slabs.data_ptr(), first.data_ptr(),
+                    last.data_ptr(), slab_lo.data_ptr(), n_slabs.data_ptr(), n, cap, chunk,
+                    n_keys, tiles)
+    bucket_pack_cuda.launches += 1
+    return slabs, slab_lo, n_slabs, first, last
+
+
+bucket_pack_cuda.launches = 0
+
+
+def _bucket_prims_ortho_plain(spheres, camera_position, look_at, view_up, vertical_extent,
+                              length, w_res, h_res, tile_w, tile_h, chunk, weights, band
+                              ) -> SplatBuckets:
+    """Plain PyTorch version of ``bucket_prims_ortho`` (checked arguments,
+    ``band`` resolved): grace_tpu's ops, one torch call each."""
+    dev = spheres.device
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     n = spheres.shape[0]
-    view_dir, v, u = _camera_frame(camera_position, look_at, view_up, dev)
-    cam = f32(camera_position)
-    vext = f32(vertical_extent)
-    half_w = 0.5 * vext * (w_res / h_res)
-    half_h = 0.5 * vext
+    frame = _ortho_frame(camera_position, look_at, view_up, vertical_extent, length, w_res,
+                         h_res, tile_w, band, dev)
 
     pos = spheres[:, :3]
     h = spheres[:, 3]
-    pu = dot3(pos, v)                       # image x (columns)
-    pv = dot3(pos, u)                       # image y (rows)
-    depth = dot3(pos - cam, view_dir)
-
-    # Pixel-center coordinates in the image plane (top-left pixel first).
-    cu = dot3(cam, v)
-    cv = dot3(cam, u)
-    i = torch.arange(w_res, dtype=torch.float32, device=dev)
-    j = torch.arange(h_res, dtype=torch.float32, device=dev)
-    xcols = fma(2.0 * (i + 0.5) / w_res - 1.0, half_w, cu)        # ascending
-    yrows = fma(1.0 - 2.0 * (j + 0.5) / h_res, half_h, cv)        # descending
-    dx = 2.0 * half_w / w_res
-    dyr = -2.0 * half_h / h_res
+    pu = dot3(pos, frame.v)                 # image x (columns)
+    pv = dot3(pos, frame.u)                 # image y (rows)
+    depth = dot3(pos - frame.cam, frame.view_dir)
 
     inv_h2 = torch.where(h > 0, 1.0 / torch.clamp(h * h, min=1e-30), 0.0)
     w_p = inv_h2 if weights is None else f32(weights) * inv_h2
     # Along-ray acceptance for a parallel bundle: the foot of the
     # perpendicular is at the particle depth, the same for every ray.
-    live = (h > 0) & (depth >= 0.0) & (depth < f32(length))
+    live = (h > 0) & (depth >= 0.0) & (depth < frame.length)
     scale = torch.where(live, w_p, 0.0)
 
     ntx = w_res // tile_h
@@ -125,12 +315,11 @@ def bucket_prims_ortho(spheres, camera_position, look_at, view_up,
     n_bands = tile_h // band
     nbx = ntx * n_bands
     floor_i = lambda a: torch.floor(a).to(torch.int64)
-    x0 = xcols[0] - 0.5 * dx
-    y0 = yrows[0] - 0.5 * dyr
-    cb_lo = floor_i((pu - h - x0) / (dx * band))
-    cb_hi = floor_i((pu + h - x0) / (dx * band))
-    rt_lo = floor_i(((pv + h) - y0) / (dyr * tile_w))   # rows descend
-    rt_hi = floor_i(((pv - h) - y0) / (dyr * tile_w))
+    x0, y0 = frame.x0, frame.y0
+    cb_lo = floor_i((pu - h - x0) / frame.band_step)
+    cb_hi = floor_i((pu + h - x0) / frame.band_step)
+    rt_lo = floor_i(((pv + h) - y0) / frame.tile_step)   # rows descend
+    rt_hi = floor_i(((pv - h) - y0) / frame.tile_step)
     overflow = (live & ((cb_hi - cb_lo > 1) | (rt_hi - rt_lo > 1))).any()
     cb_hi = torch.minimum(cb_hi, cb_lo + 1)
     rt_hi = torch.minimum(rt_hi, rt_lo + 1)
@@ -176,7 +365,7 @@ def bucket_prims_ortho(spheres, camera_position, look_at, view_up,
     n_slabs = torch.clamp(torch.div(last + per_slab - 1, per_slab,
                                     rounding_mode="floor") - slab_lo, min=0)
     return SplatBuckets(slabs, slab_lo.to(torch.int32), n_slabs.to(torch.int32),
-                        first, last, xcols[:, None], yrows[:, None], overflow)
+                        first, last, frame.xcols[:, None], frame.yrows[:, None], overflow)
 
 
 def _factor(t, coeffs):

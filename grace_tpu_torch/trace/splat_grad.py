@@ -39,7 +39,7 @@ from grace_tpu_torch.ops.vecmath import dot3, fma, matmul_f32
 from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
 from grace_tpu_torch.trace.pallas_broadphase import pack_overlap_bits
 from grace_tpu_torch.trace.pallas_kernel import _set_bits
-from grace_tpu_torch.trace.splat import _camera_frame, _factor, batch_size
+from grace_tpu_torch.trace.splat import _camera_frame, _factor, _frozen, batch_size
 
 SEG = 128  # particles per Morton segment = slab lane width
 
@@ -119,12 +119,27 @@ def pack_proj_slabs(pu, pv, invh, scale) -> torch.Tensor:
     return pt.reshape(8, n_pad // SEG, SEG).permute(1, 0, 2).contiguous()
 
 
+def _tile_spans(cam: OrthoCamera, tile_w: int, tile_h: int, device):
+    """(tx_lo, tx_hi f32[ntx], ty_lo, ty_hi f32[nty]): each pixel tile's
+    pixel-center span (tile (r, c) = r * ntx + c)."""
+    *_, x0, dx, y0, dy = _camera_numerics(cam, device)
+    ntx = cam.resolution_x // tile_h
+    nty = cam.resolution_y // tile_w
+    cols = torch.arange(ntx, dtype=torch.float32, device=device)
+    rows = torch.arange(nty, dtype=torch.float32, device=device)
+    f32 = lambda a: float(np.float32(a))
+    tx_lo = fma(cols, f32(tile_h * dx), x0)
+    tx_hi = fma(cols * tile_h + (tile_h - 1), dx, x0)
+    ty_hi = fma(rows, f32(tile_w * dy), y0)                 # dy < 0: top edge
+    ty_lo = fma(rows * tile_w + (tile_w - 1), dy, y0)
+    return tx_lo, tx_hi, ty_lo, ty_hi
+
+
 def projected_overlap(pu, pv, invh, scale, cam: OrthoCamera, tile_w: int, tile_h: int):
     """bool[n_tiles, n_segs]: segment projected bbox vs pixel tile, tiles
     row-major (tile (r, c) = r * ntx + c), against the tile's pixel-center
     span (the bbox holds the footprint radius, beyond which the basis is
     exactly zero)."""
-    *_, x0, dx, y0, dy = _camera_numerics(cam, pu.device)
     n = pu.shape[0]
     pad = ((n + SEG - 1) // SEG) * SEG - n
     live = scale > 0
@@ -136,18 +151,94 @@ def projected_overlap(pu, pv, invh, scale, cam: OrthoCamera, tile_w: int, tile_h
     seg_lo_v = bound(pv - h_eff, big).reshape(-1, SEG).amin(dim=1)
     seg_hi_v = bound(pv + h_eff, -big).reshape(-1, SEG).amax(dim=1)
 
-    ntx = cam.resolution_x // tile_h
-    nty = cam.resolution_y // tile_w
-    cols = torch.arange(ntx, dtype=torch.float32, device=pu.device)
-    rows = torch.arange(nty, dtype=torch.float32, device=pu.device)
-    f32 = lambda a: float(np.float32(a))
-    tx_lo = fma(cols, f32(tile_h * dx), x0)
-    tx_hi = fma(cols * tile_h + (tile_h - 1), dx, x0)
-    ty_hi = fma(rows, f32(tile_w * dy), y0)                 # dy < 0: top edge
-    ty_lo = fma(rows * tile_w + (tile_w - 1), dy, y0)
+    tx_lo, tx_hi, ty_lo, ty_hi = _tile_spans(cam, tile_w, tile_h, pu.device)
     ov_u = (seg_lo_u[None, :] <= tx_hi[:, None]) & (seg_hi_u[None, :] >= tx_lo[:, None])
     ov_v = (seg_lo_v[None, :] <= ty_hi[:, None]) & (seg_hi_v[None, :] >= ty_lo[:, None])
-    return (ov_v[:, None, :] & ov_u[None, :, :]).reshape(nty * ntx, -1)
+    return (ov_v[:, None, :] & ov_u[None, :, :]).reshape(tx_lo.shape[0] * ty_lo.shape[0], -1)
+
+
+SETUP_CONSTS = 13  # f32 constants of grace_sortfree_setup (csrc/splat_prep.cu)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_setup_constants(cam: OrthoCamera, tile_w: int, tile_h: int, device):
+    view_dir, v, u, c, *_ = _camera_numerics(cam, device)
+    # project_ortho compares depth with the Python float cam.length, which
+    # torch takes as an f32
+    length = torch.tensor([cam.length], dtype=torch.float32, device=device)
+    return (torch.cat([view_dir, v, u, c, length]),
+            torch.cat(_tile_spans(cam, tile_w, tile_h, device)), _coords(cam, device))
+
+
+def _setup_constants(cam: OrthoCamera, tile_w: int, tile_h: int, device):
+    """(consts f32[13]: view_dir, v, u, camera position, length; spans
+    f32[2 ntx + 2 nty]: ``_tile_spans``; coords f32[4]) on ``device``,
+    computed by the plain path's torch ops once per camera, tile shape and
+    device and cached."""
+    device = torch.device(device)
+    frozen = [_frozen(a) for a in cam]
+    if any(f is None for f in frozen):
+        return _cached_setup_constants.__wrapped__(cam, tile_w, tile_h, device)
+    return _cached_setup_constants(OrthoCamera(*frozen[:5], cam.resolution_x,
+                                               cam.resolution_y), tile_w, tile_h, device)
+
+
+def _sortfree_setup_plain(spheres, weights, cam: OrthoCamera, tile_w: int, tile_h: int):
+    """Plain PyTorch version of ``sortfree_setup``: project_ortho, then
+    pack_proj_slabs and the packed projected_overlap and its transpose."""
+    proj = project_ortho(spheres, weights, cam)
+    overlap = projected_overlap(*proj, cam, tile_w, tile_h)
+    return (pack_overlap_bits(overlap), pack_overlap_bits(overlap.t()),
+            _coords(cam, spheres.device), pack_proj_slabs(*proj))
+
+
+def sortfree_setup(spheres, weights, cam: OrthoCamera, tile_w: int = 32, tile_h: int = 128):
+    """The sort-free splat's inputs: (masks i32[n_tiles, ceil(n_segs / 32)],
+    masks_t i32[n_segs, ceil(n_tiles / 32)], coords f32[4], slabs
+    f32[n_segs, 8, 128]), as ``splat_sortfree_fwd`` and
+    ``splat_sortfree_bwd`` take them (slab rows 0-3 are ``project_ortho``'s
+    pu, pv, invh, scale). One launch of ``csrc/splat_prep.cu``'s
+    ``grace_sortfree_setup`` on CUDA tensors (the camera's constants cached
+    per camera, tile shape and device); CPU tensors run
+    ``_sortfree_setup_plain``."""
+    if cam.resolution_x % tile_h or cam.resolution_y % tile_w:
+        raise ValueError("resolution must be a multiple of the tile shape")
+    device = spheres.device
+    if device.type == "cpu":
+        return _sortfree_setup_plain(spheres, weights, cam, tile_w, tile_h)
+    if device.type != "cuda":
+        raise ValueError(f"sortfree_setup: unsupported device {device}")
+    _kernels.check_tensors("sortfree_setup", [],
+                           [spheres] + ([] if weights is None else [weights]))
+    n = spheres.shape[0]
+    if spheres.dim() != 2 or spheres.shape[1] != 4 or (
+            weights is not None and weights.shape != (n,)):
+        raise ValueError(f"sortfree_setup: spheres {tuple(spheres.shape)}, weights "
+                         f"{None if weights is None else tuple(weights.shape)}")
+    consts, spans, coords = _setup_constants(cam, tile_w, tile_h, device)
+    return sortfree_setup_cuda(spheres, weights, consts, spans, coords,
+                               cam.resolution_x // tile_h, cam.resolution_y // tile_w)
+
+
+def sortfree_setup_cuda(spheres, weights, consts, spans, coords, ntx: int, nty: int):
+    """``csrc/splat_prep.cu``'s ``grace_sortfree_setup`` on checked CUDA
+    tensors: ``sortfree_setup``'s four outputs (``coords`` passed through)."""
+    device = spheres.device
+    n = spheres.shape[0]
+    n_segs = (n + SEG - 1) // SEG
+    spheres = _kernels.aligned(spheres)
+    slabs = torch.empty((n_segs, 8, SEG), dtype=torch.float32, device=device)
+    masks = torch.empty((ntx * nty, (n_segs + 31) // 32), dtype=torch.int32, device=device)
+    masks_t = torch.empty((n_segs, (ntx * nty + 31) // 32), dtype=torch.int32, device=device)
+    _kernels.launch("splat_prep", "grace_sortfree_setup", device, spheres.data_ptr(),
+                    None if weights is None else weights.contiguous().data_ptr(),
+                    consts.data_ptr(), spans.data_ptr(), slabs.data_ptr(), masks.data_ptr(),
+                    masks_t.data_ptr(), n, ntx, nty)
+    sortfree_setup_cuda.launches += 1
+    return masks, masks_t, coords, slabs
+
+
+sortfree_setup_cuda.launches = 0
 
 
 def _poly_and_deriv(t, coeffs):
@@ -392,14 +483,10 @@ def splat_forward_sortfree(spheres, weights, cam: OrthoCamera, tile_w: int = 32,
     forward for moving scenes and training steps. Particles should be
     Morton-sorted (``build_sph_tree`` order); unsorted, the segment cull
     degrades towards every tile times every segment."""
-    if cam.resolution_x % tile_h or cam.resolution_y % tile_w:
-        raise ValueError("resolution must be a multiple of the tile shape")
     _basis_coeffs(basis)
-    pu, pv, invh, scale = project_ortho(spheres, weights, cam)
-    slabs = pack_proj_slabs(pu, pv, invh, scale)
-    masks = pack_overlap_bits(projected_overlap(pu, pv, invh, scale, cam, tile_w, tile_h))
-    return splat_sortfree_fwd(masks, _coords(cam, spheres.device), slabs, basis,
-                              tile_w, tile_h, cam.resolution_y, cam.resolution_x)
+    masks, _, coords, slabs = sortfree_setup(spheres, weights, cam, tile_w, tile_h)
+    return splat_sortfree_fwd(masks, coords, slabs, basis, tile_w, tile_h, cam.resolution_y,
+                              cam.resolution_x)
 
 
 def splat_backward_sortfree(spheres, weights, g_image, cam: OrthoCamera,
@@ -408,21 +495,21 @@ def splat_backward_sortfree(spheres, weights, g_image, cam: OrthoCamera,
 
     The per-segment tile lists are the transposed bitmask, walked inside
     the kernel, so the backward has no list capacity and cannot truncate."""
-    pu, pv, invh, scale = project_ortho(spheres, weights, cam)
-    slabs = pack_proj_slabs(pu, pv, invh, scale)
-    overlap = projected_overlap(pu, pv, invh, scale, cam, tile_w, tile_h)
-    masks_t = pack_overlap_bits(overlap.t())
-    grad = splat_sortfree_bwd(masks_t, _coords(cam, spheres.device), slabs,
-                              g_image.to(torch.float32), basis, tile_w, tile_h)
+    _, masks_t, coords, slabs = sortfree_setup(spheres, weights, cam, tile_w, tile_h)
+    grad = splat_sortfree_bwd(masks_t, coords, slabs, g_image.to(torch.float32), basis,
+                              tile_w, tile_h)
     n = spheres.shape[0]
     g_pu, g_pv, g_t2, g_s = grad.permute(1, 0, 2).reshape(8, -1)[:4, :n]
+    # project_ortho's invh and scale, from the slabs
+    invh, scale = slabs[:, 2:4].permute(1, 0, 2).reshape(2, -1)[:, :n]
     # Chain back through the projection, elementwise:
     #   pu = pos . v, pv = pos . u  -> g_pos = g_pu v + g_pv u
     #   t = ((x - p) invh)^2        -> d/dlog(invh) = 2t (= g_t2)
     #   invh = 1/h                  -> g_h += -g_t2 / h
     #   scale = w invh^2 [live]     -> g_w = g_s invh^2, g_h += -2 g_s w invh^3
     # "live" is scale > 0, as in grace_tpu.
-    _, v, u, *_ = _camera_numerics(cam, spheres.device)
+    consts = _setup_constants(cam, tile_w, tile_h, spheres.device)[0]
+    v, u = consts[3:6], consts[6:9]
     h = spheres[:, 3]
     live = scale > 0
     w = torch.ones_like(h) if weights is None else weights

@@ -41,8 +41,13 @@ bit-equal to the plain build at every case of chip_smoke's check_build
 points identical, runs of equal keys, max_per_leaf 1 and 32, N = 2 and 3,
 signed zeros at the box edge), two entry builds bit-equal with no host
 sync, the valid tree where a delta is the sentinel, one launch of each
-kernel a build and the refusals. The edge scenes and checks are
-chip_smoke.py's.
+kernel a build and the refusals; and the splat's two setups
+(splat_prep.cu: bucket_prims_ortho's keys kernel, counting sort and pack
+kernel, the sort-free setup) bit-equal to their plain versions at every case of chip_smoke's
+SPLAT_PREP_CASES (n not a multiple of chunk or 128, n < 32, 128 tiles,
+band None to 64, weights None and given, dead particles, overflow, a
+2^16-particle clustered scene), their launches on a frame and a training
+step and the refusals. The edge scenes and checks are chip_smoke.py's.
 """
 
 import numpy as np
@@ -62,6 +67,7 @@ from grace_tpu_torch.trace import pallas_tri as pt
 from chip_smoke import (
     BUILD_CASES, EDGE_ORDERS, build_case, build_counters, check_build_case,
     check_sentinel_build, zero_build_counters, SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
+    SPLAT_PREP_CASES, check_splat_prep_case, prep_counters, splat_prep_scene, zero_prep_counters,
     check_record_orders, check_records, check_walk_routes,
     check_render,
     check_render_bwd, check_sortfree, check_splat, check_tri, colocated_scene, fd_checks,
@@ -890,3 +896,51 @@ def test_build_launches_and_refusals(dev):
         lbvh.build_lbvh(mins, maxs[:, :2], d, 16)
     with pytest.raises(RuntimeError, match="grace_lbvh_ranges failed"):
         lbvh.lbvh_ranges(d, spheres.shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", list(SPLAT_PREP_CASES))
+def test_splat_prep_kernels_match_plain(dev, tag):
+    """splat_prep.cu against the plain versions on the card, bit for bit:
+    every SplatBuckets field and the sort-free masks, transposed masks,
+    coords and slabs."""
+    _, side, tiles, band, chunk, _, whole = SPLAT_PREP_CASES[tag]
+    s, w = splat_prep_scene(tag)
+    spheres = torch.from_numpy(s).to(dev)
+    weights = None if w is None else torch.from_numpy(w).to(dev)
+    _, overflow = check_splat_prep_case(tag, spheres, weights, side, tiles, band, chunk)
+    assert overflow == whole
+
+
+@pytest.mark.cuda
+def test_splat_prep_launches_and_refusals(dev):
+    """A bucketed frame launches the keys kernel, the counting sort and the
+    pack kernel once each, a training step the sort-free setup twice
+    (forward and backward), no
+    plain version on the card; spheres of another dtype or width and
+    weights of another length raise."""
+    tag = list(SPLAT_PREP_CASES)[0]
+    _, side, (tile_w, tile_h), band, chunk, _, _ = SPLAT_PREP_CASES[tag]
+    s, _ = splat_prep_scene(tag)
+    spheres = torch.from_numpy(s).to(dev)
+    cam = sg.OrthoCamera(CAM, LOOK, UP, 1.2, 6.0, side, side)
+    zero_prep_counters()
+    sp.render_ortho_splat(spheres, CAM, LOOK, UP, 1.2, 6.0, side, side, tile_w=tile_w,
+                          tile_h=tile_h, chunk=chunk, band=band)
+    x = spheres.clone().requires_grad_(True)
+    sg.make_splat_trainer(cam, tile_w, tile_h)(x, None).sum().backward()
+    torch.cuda.synchronize()
+    assert prep_counters() == {"splat_bucket_keys": 1, "splat_bucket_sort": 1,
+                               "splat_bucket_pack": 1, "sortfree_setup": 2}
+    args = (CAM, LOOK, UP, 1.2, 6.0, side, side)
+    with pytest.raises(TypeError):
+        sp.bucket_prims_ortho(spheres.double(), *args, tile_w=tile_w, tile_h=tile_h)
+    with pytest.raises(ValueError):
+        sp.bucket_prims_ortho(spheres[:, :3], *args, tile_w=tile_w, tile_h=tile_h)
+    with pytest.raises(ValueError):
+        sp.bucket_prims_ortho(spheres, *args, tile_w=tile_w, tile_h=tile_h,
+                              weights=torch.ones(3, device=dev))
+    with pytest.raises(TypeError):
+        sg.sortfree_setup(spheres.double(), None, cam, tile_w, tile_h)
+    with pytest.raises(ValueError):
+        sg.sortfree_setup(spheres, torch.ones(3, device=dev), cam, tile_w, tile_h)

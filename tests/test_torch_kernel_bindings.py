@@ -239,3 +239,29 @@ def test_build_on_cpu_tensors_takes_the_plain_version(monkeypatch, delta_kind, b
         for f in ("children", "child_aabbs", "leaves", "root", "n_nodes", "n_leaves"):
             assert torch.equal(getattr(tree, f), getattr(tree_p, f)), f
     assert all(fn.launches == 0 for fn in counters)
+
+
+def test_splat_prep_constants_agree():
+    """splat_prep.cu's segment width and constant layouts are the
+    wrappers': SEG particles a segment, the bucketed setup's 17 and the
+    sort-free setup's 13 f32 constants; its five entries build with
+    --fmad=false, as the plain path rounds every operation alone, and the
+    counting sort's entries refuse tiles that are no multiple of 32."""
+    src = _source("splat_prep")
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["kSeg"] == sg.SEG and consts["kSegsPerBlock"] == 32
+    assert consts["kTileStep"] + 1 == sp.BUCKET_CONSTS and consts["kLength"] + 1 == sg.SETUP_CONSTS
+    _, flags, entries = _kernels.KERNELS["splat_prep"]
+    assert flags == ["--fmad=false"]
+    assert set(entries) == {"grace_splat_bucket_keys", "grace_splat_bucket_count",
+                            "grace_splat_bucket_scatter", "grace_splat_bucket_pack",
+                            "grace_sortfree_setup"}
+    for entry in entries:
+        body = src[src.index(f'extern "C" int {entry}('):]
+        body = body[:body.index("cudaSetDevice")]
+        assert "cudaErrorInvalidValue" in body
+        if entry in ("grace_splat_bucket_count", "grace_splat_bucket_scatter"):
+            assert "tile % 32" in body
+    assert sp.sort_tiles(4 << 20, 257) == (sp.SORT_TILE, (4 << 20) // sp.SORT_TILE)
+    tile, tiles = sp.sort_tiles(4 << 20, 1 << 20)
+    assert tile % 32 == 0 and tiles * tile >= 4 << 20 and (1 << 20) * tiles <= 2 * sp.SORT_COUNTS
