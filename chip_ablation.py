@@ -2,10 +2,12 @@
 
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
                              [sortfree_bwd] [render_fwd] [paths] [statistics] [walk]
-                             [build] [splat_prep] [--parent DIR]   (default: all parts)
+                             [build] [splat_prep] [broadphase] [--parent DIR]
+                             (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
     python3 chip_ablation.py build --package DIR
     python3 chip_ablation.py splat_prep --parent DIR
+    python3 chip_ablation.py broadphase --parent DIR
 
 Each variant is a copy of the kernel's sources with one constant, one wait
 or one device function replaced, built as the package builds its libraries
@@ -146,11 +148,24 @@ wrapper launches them (longest list first).
   splat) and one sort-free training step (forward, L2 loss against 1.01 x
   its image, backward, SGD 1e-6); each timed (CUDA events, median of 10
   after a warm run) with the device's busy ms and device operations over
-  one call (torch.profiler); in a package with sortfree_setup also both
-  setups with the camera's constants computed anew each call instead of
-  taken from their cache. With --parent DIR, DIR's grace_tpu_torch and
+  one call (torch.profiler); in a package whose constants' caches are
+  ``_FRAME_CACHE`` and ``_SETUP_CACHE`` (this one) also both setups with
+  the camera's constants computed anew each call instead of taken from
+  their cache. With --parent DIR, DIR's grace_tpu_torch and
   this one run in turns (parent, this, this, parent), each in a process of
   its own.
+
+  broadphase: what the dense broadphase and the triangle lists feed,
+  through the package's user functions only: the quarter trace
+  (pallas_trace_sph, broadphase="quarter", tile 128), the default record
+  trace (512 a ray), the quarter masks and quarter_lists alone (tile 64
+  and 128), render_triangles(engine="pallas") on the torus at 512 x 512
+  and one fused-renderer training step (tile 128, max_chunks and
+  max_tiles_per_seg 2048) on the bench scene, each timed (CUDA events,
+  median of 10 after a warm run) with the device's busy ms and device
+  operations over one call; with --parent DIR, DIR's grace_tpu_torch and
+  this one in turns (parent, this, this, parent), each a process of its
+  own.
 
 Then each shipped kernel on the same inputs launched in other orders of
 its work units (ray tiles, segments), through the C entry point: as
@@ -1779,19 +1794,15 @@ def splat_prep_paths():
     calls = [("bucket_prims_ortho", lambda: bucket(sorted_spheres)),
              ("sort-free setup", setup), ("splat frame", frame),
              ("sort-free train step", train_step)]
-    if hasattr(sg, "sortfree_setup"):
+    if hasattr(sg, "_SETUP_CACHE"):
         # the kernels with the camera's constants computed anew each call
         # (their torch ops), not taken from the cache
         def bucket_uncached():
-            with_cache = sp._cached_frame
-            sp._cached_frame = with_cache.__wrapped__
-            try:
-                return bucket(sorted_spheres)
-            finally:
-                sp._cached_frame = with_cache
+            sp._FRAME_CACHE.clear()
+            return bucket(sorted_spheres)
 
         def setup_uncached():
-            consts, spans, coords = sg._cached_setup_constants.__wrapped__(cam, 32, 128, dev)
+            consts, spans, coords = sg._setup_constants_uncached(cam, 32, 128, dev)
             return sg.sortfree_setup_cuda(sorted_spheres, weights, consts, spans, coords,
                                           SIDE // 128, SIDE // 32)
 
@@ -1805,25 +1816,130 @@ def splat_prep_paths():
     return result
 
 
-def splat_prep_turns(parent_dir):
-    """The ``splat_prep`` part on DIR's package and on this one in turns
-    (parent, this, this, parent), each a process of its own. Returns
-    {"parent": [run, run], "this": [run, run]}."""
+def part_turns(part, parent_dir):
+    """Part ``part`` on DIR's package and on this one in turns (parent,
+    this, this, parent), each a process of its own. Returns {"parent":
+    [run, run], "this": [run, run]}."""
     runs = {"parent": [], "this": []}
     for who in ("parent", "this", "this", "parent"):
-        cmd = [sys.executable, os.path.abspath(__file__), "splat_prep"]
+        cmd = [sys.executable, os.path.abspath(__file__), part]
         if who == "parent":
             cmd += ["--package", parent_dir]
         out = subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
         for line in out.splitlines()[:-1]:
             print(f"{who}: {line}", flush=True)
-        runs[who].append(json.loads(out.splitlines()[-1])["splat_prep"])
+        runs[who].append(json.loads(out.splitlines()[-1])[part])
     for label in runs["this"][0]:
+        if "device_ops" not in runs["this"][0][label]:
+            continue   # a variant's own turns, printed by its run
         cells = [f"{who} " + ", ".join(f"{r[label]['ms']:.3f} ms ({r[label]['device_ops']} ops, "
                                        f"busy {r[label]['busy_ms']:.3f} ms)" for r in runs[who])
                  for who in ("parent", "this") if label in runs[who][0]]
-        print(f"splat_prep in turns, {label}: " + "; ".join(cells), flush=True)
+        print(f"{part} in turns, {label}: " + "; ".join(cells), flush=True)
     return runs
+
+
+def tri_list_variants(tris):
+    """csrc/tri_lists.cu as shipped and without its test against the
+    intervals' union (each segment then tested against the intervals one
+    by one), on render_triangles' primary and shadow rays of the torus
+    (512 x 512, tiles of 32, max_chunks 2048), through the package's
+    wrapper with its launch sent to each build: outputs bit-equal, times in
+    turns (shipped, variant, variant, shipped; CUDA events, median of 10).
+    Returns {label: {"ms": [..]}}."""
+    from grace_tpu_torch import _kernels
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.rays.gen import pinhole_camera_rays
+    from grace_tpu_torch.trace import pallas_tri as pt
+    from chip_smoke import torus_list_rays
+
+    sorted_tris, _, _ = mt.build_triangle_tree(tris)
+    cam, look, length = mt.auto_camera(sorted_tris, SIDE)
+    rays = pinhole_camera_rays(SIDE, SIDE, cam.tolist(), look.tolist(), (0.0, 1.0, 0.0),
+                               math.pi / 3, float(length), device=tris.device)
+    t, ids, _ = pt.pallas_trace_tri(rays, sorted_tris)
+    sets = torus_list_rays(rays, sorted_tris, t, ids, length)
+    seg_min, seg_max = pt.tri_segment_aabbs(sorted_tris)
+    dlls = {"shipped": build_variant("tri_lists", "tri_lists shipped", None),
+            "without the union test": build_variant(
+                "tri_lists", "tri_lists no union",
+                [swap("tri_lists.cu", "if (!(ubox[0][0] <= hi[0]", "if (false && !(ubox[0][0] <= hi[0]")])}
+
+    def lists(dll, rays):
+        real = _kernels.launch
+        _kernels.launch = lambda lib, entry, device, *a: call(getattr(dll, entry), a)
+        try:
+            return pt.tri_tile_lists_cuda(rays, seg_min, seg_max, 32, 2048)
+        finally:
+            _kernels.launch = real
+
+    result = {}
+    for name, key in (("primary", "rays_clipped"), ("shadow", "shadow_clipped")):
+        outs = {tag: lists(dll, sets[key]) for tag, dll in dlls.items()}
+        for a, b in zip(outs["shipped"], outs["without the union test"]):
+            if not torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                               b.view(torch.int32) if b.dtype == torch.float32 else b):
+                raise AssertionError(f"tri_lists variant differs on the {name} rays")
+        times = {tag: [] for tag in dlls}
+        for tag in ("shipped", "without the union test", "without the union test", "shipped"):
+            times[tag].append(cuda_ms(lambda: lists(dlls[tag], sets[key]), reps=10))
+        for tag, ms in times.items():
+            print(f"broadphase part tri_tile_lists {tag} (torus {name} rays): "
+                  + ", ".join(f"{m:.3f}" for m in ms) + " ms (CUDA events, median of 10, in "
+                  "turns; bit-equal)", flush=True)
+            result[f"tri_tile_lists {tag}, torus {name}"] = {"ms": ms}
+    return result
+
+
+def broadphase_paths():
+    """The ``broadphase`` part in this process, on whichever grace_tpu_torch
+    it imports: {call: {ms, busy_ms, wall_ms, device_ops}}."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import pallas_records as prc
+    from grace_tpu_torch.trace import pallas_render as pr
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    dev = torch.device("cuda", 0)
+    spheres = torch.from_numpy(
+        make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
+    ss, tree, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+    rays_s, _, _ = spatial_sort_rays(orthographic_projection_rays(
+        SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH, device=dev))
+    weights = torch.ones(N_PARTICLES, device=dev)
+    tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
+    fused = pr.make_fused_renderer(tile=TRACE_TILE, max_chunks=2048, max_tiles_per_seg=2048)
+    target = 1.01 * fused(rays_s, ss, weights).detach()
+
+    def fused_step():
+        s = ss.detach().clone().requires_grad_(True)
+        w = weights.detach().clone().requires_grad_(True)
+        ((fused(rays_s, s, w) - target) ** 2).sum().div(SIDE * SIDE).backward()
+        return s.detach() - 1e-6 * s.grad, w.detach() - 1e-6 * w.grad
+
+    result = {}
+    if hasattr(pt, "tri_tile_lists_cuda"):
+        result.update(tri_list_variants(tris))
+    for label, fn in (
+            ("quarter trace", lambda: pk.pallas_trace_sph(rays_s, ss, tree, tile=TRACE_TILE,
+                                                          broadphase="quarter")),
+            ("record trace, default (quarter) route",
+             lambda: prc.pallas_trace_sph_records(rays_s, ss, 512)),
+            ("quarter masks, tile 64", lambda: pb.dense_tile_masks_quarter(rays_s, ss, 64)),
+            ("quarter masks, tile 128",
+             lambda: pb.dense_tile_masks_quarter(rays_s, ss, TRACE_TILE)),
+            ("quarter_lists, tile 128, max_q 512",
+             lambda: pb.quarter_lists(rays_s, ss, TRACE_TILE, 512)),
+            ("render_triangles pallas", lambda: mt.render_triangles(tris, resolution=SIDE,
+                                                                    engine="pallas")),
+            ("fused train step", fused_step)):
+        ms = cuda_ms(fn, reps=10)
+        print(f"broadphase part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
+        result[label] = {"ms": ms, **device_busy(f"broadphase part {label}", fn)}
+    return result
 
 
 def f32_pair_sums(d):
@@ -2094,7 +2210,7 @@ def walk_ablations(parent_dir):
 
 
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
-         "paths", "statistics", "walk", "build", "splat_prep")
+         "paths", "statistics", "walk", "build", "splat_prep", "broadphase")
 
 
 def main():
@@ -2172,7 +2288,11 @@ def main():
     if "build" in parts:
         summary["build"] = build_paths()
     if "splat_prep" in parts:
-        summary["splat_prep"] = (splat_prep_turns(parent) if parent else splat_prep_paths())
+        summary["splat_prep"] = (part_turns("splat_prep", parent) if parent
+                                 else splat_prep_paths())
+    if "broadphase" in parts:
+        summary["broadphase"] = (part_turns("broadphase", parent) if parent
+                                 else broadphase_paths())
     if "walk" in parts:
         summary["walk"] = walk_ablations(parent)
     if "trace_tri" in parts:

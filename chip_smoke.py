@@ -107,10 +107,10 @@ every Tree field) on the bench scene, the entry's spheres, the torus,
 runs of equal keys, max_per_leaf 1 and 32, N = 2 and 3 and signed zeros
 at the box edge, and runs each entry build twice (bit-equal) under
 torch.cuda.set_sync_debug_mode("error"); where a delta equals the
-sentinel (two spheres at opposite corners, 63-bit keys) the climb's tree
-is the valid one and the plain build's keeps the reference's fault
-(ROADMAP C19). Every main path builds through those kernels; their
-launches are counted on each path.
+sentinel (two spheres at opposite corners, 63-bit keys) both give the
+valid tree, where the reference's build breaks (ROADMAP C19). Every
+main path builds through those kernels; their launches are counted on
+each path.
 
 Then ``check_splat_prep`` holds the splat's two setups (csrc/splat_prep.cu:
 bucket_prims_ortho's keys kernel, counting sort and pack kernel, and
@@ -123,6 +123,25 @@ particles, a whole-image particle and a far one that overflow, a 2^16
 clustered scene; and on the bench scene with weights None and 1. Main path
 1's bucket_prims_ortho and main path 3's trainer (forward and backward)
 launch them, counted there.
+
+Then ``check_broadphase`` holds the dense broadphase (csrc/broadphase.cu:
+the segment and tile boxes, the overlap words with their summary, the
+compaction into lists) to its plain versions at the cases of
+BROADPHASE_CASES (particle counts no multiple of 32 or 128, one and no
+segment, tile counts no multiple of 32, NaN particles, particles at -0
+and +0, zero-length rays, a tile of them, a NaN ray, a ragged summary
+word, every segment listed, the compaction at max_q equal to and one
+under the longest row, 1 and 0): boxes equal in value (their zero signs
+are torch's reduction order's, ROADMAP C20), words, summaries, lists,
+counts and flags bit-equal; again on the bench scene at tiles 128 and 64.
+``check_tri_lists`` holds the triangle lists (csrc/tri_lists.cu) to
+theirs at the cases of TRI_LIST_CASES (the tests' torus, a small
+max_chunks, a ragged last segment, K 8, tiles of clipped and zero-length
+rays listing 0, 1 and every segment, a listed key exactly BIG, keys past
+it and a NaN key, 11,719 segments on the device-memory sort) and on main
+path 5's primary and shadow rays at max_chunks 2048 and 16: ids,
+distances, counts and flags bit-equal. Every main path but 8 launches
+some of these kernels; each path's are counted and gated.
 
 The engine's walk is held bit-equal to the plain walk (engine.trace) at
 edge shapes first: a stack of 4 (on the rays whose overflowed walk ends),
@@ -167,8 +186,9 @@ splat contractions and the launch-order helpers too) with the card's name
 and power limit, the work each kernel's bound is computed from,
 a JSON line describing each kernel (the list kernel on quarter and on
 segment lists apart, the triangle kernel's two passes apart, the engine's
-walk for spheres and for triangles apart, the build's four kernels and
-the splat setups' four with their launches on each main path), and last a
+walk for spheres and for triangles apart, the build's four kernels, the
+splat setups' four, the broadphase's four and the triangle lists with
+their launches on each main path), and last a
 JSON line with ``"ok": true``. Any failure raises, so
 the exit code is non-zero and no result line prints.
 """
@@ -1928,13 +1948,29 @@ def triangle_gates(tris, img, side):
     n_edge, err = engine_subset_gate(rays[sub], sorted_tris, tree, t[sub], ids[sub])
     args, _ = tri_inputs(rays, sorted_tris, 32, 2048)
     rays_p = pk._pad_rays(rays, 32)
-    flat = sorted_tris.reshape(-1, 3)
     summary = (f"{int(hit.sum())} of {rays.n_rays} rays hit, {int(occ.sum())} any-hits equal "
                f"them; image in [{float(img.min()):.4g}, {float(img.max()):.4g}]; no overflow; "
                f"{ENGINE_SUBSET} rays vs engine: ids equal but on {n_edge} edge rays, t max "
                f"abs err {err:.3g}")
     return {"summary": summary, "args": args, "sorted_tris": sorted_tris, "rays_padded": rays_p,
-            "rays_clipped": pt.clip_rays_to_aabb(rays_p, flat.amin(dim=0), flat.amax(dim=0))}
+            **torus_list_rays(rays, sorted_tris, t, ids, length)}
+
+
+def torus_list_rays(rays, sorted_tris, t, ids, length):
+    """render_triangles' two ray sets as pallas_trace_tri lists them, padded
+    to tiles of 32 and clipped to the mesh box: {"rays_clipped": the
+    primary rays, "shadow_clipped": the shadow rays from its hits (t, ids:
+    the closest-hit pass) toward the light}."""
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.trace import pallas_kernel as pk
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    flat = sorted_tris.reshape(-1, 3)
+    clip = lambda r: pt.clip_rays_to_aabb(pk._pad_rays(r, 32), flat.amin(dim=0),
+                                          flat.amax(dim=0))
+    _, _, shadow = mt.shadow_inputs(rays, sorted_tris, mt.ClosestHit(t=t, tri=ids),
+                                    (0.3, 1.0, 0.6), length)
+    return {"rays_clipped": clip(rays), "shadow_clipped": clip(shadow)}
 
 
 def footprint_counts(spheres, weights, cam):
@@ -2108,22 +2144,21 @@ def build_case(tag, dev):
 
 def check_sentinel_build(dev):
     """Two spheres at opposite corners with 63-bit keys: their XOR delta is
-    the sentinel 0xFFFFFFFF (ROADMAP C19). The plain build (grace_tpu's
-    rule) leaves node 0's right child at node 0; the climb gives the valid
-    tree: both leaves under the root, every other field as the plain
-    build's."""
+    the sentinel 0xFFFFFFFF (ROADMAP C19). The climb gives the valid tree,
+    both leaves under the root, and the plain build, which takes the
+    climb's rule for the ends, the same tree bit for bit (grace_tpu's rule
+    would leave node 0's right child at node 0)."""
     from grace_tpu_torch.build.sph import build_sph_tree
 
     s = torch.tensor([[0, 0, 0, 0.1], [1, 1, 1, 0.1]], dtype=torch.float32, device=dev)
     _, plain, _ = build_sph_tree(s, 1, "xor", 63, plain=True)
     _, tree, _ = build_sph_tree(s, 1, "xor", 63)
-    if plain.children.tolist() != [[~0, 0]] or tree.children.tolist() != [[~0, ~1]]:
-        raise AssertionError(f"sentinel delta: children {tree.children.tolist()}, plain "
-                             f"{plain.children.tolist()}")
-    for f in ("child_aabbs", "leaves", "root", "n_nodes", "n_leaves"):
+    if tree.children.tolist() != [[~0, ~1]]:
+        raise AssertionError(f"sentinel delta: children {tree.children.tolist()}")
+    for f in BUILD_FIELDS:
         check_tensor_bits(f"sentinel delta {f}", getattr(tree, f), getattr(plain, f))
-    return "sentinel delta (two spheres at opposite corners, 63-bit xor): children [[~0, ~1]] " \
-           "(plain [[~0, 0]], C19), every other field bit-equal"
+    return "sentinel delta (two spheres at opposite corners, 63-bit xor): children [[~0, ~1]], " \
+           "every field bit-equal to the plain build (C19)"
 
 
 def check_build(dev):
@@ -2417,6 +2452,467 @@ def splat_prep_times(spheres, weights, cam, side):
                                                          "splat_bucket_pack"))
                                 for i in (0, 1))
     del overflow
+    return t, work
+
+
+# check_broadphase's edge cases: tag -> (particles, tiles, tile, kind). The
+# rays come in coherent tiles (a shared origin and direction, jittered) over
+# the clustered particles; "edges" adds NaN particles, particles at -0 and
+# +0 with radius 0, zero-length rays, a tile of only them and a NaN ray;
+# "wide" tiles span the whole box, so every segment is in some list.
+BROADPHASE_SEED = 2028
+BROADPHASE_CASES = {
+    "n 1000 (no multiple of 32 or 128), 40 tiles of 32 (no multiple of 32)": (1000, 40, 32, ""),
+    "n 1 (one segment), 8 tiles of 8": (1, 8, 8, ""),
+    "n 0 (no segment), 4 tiles of 32": (0, 4, 32, ""),
+    "n 3000, NaN particles, signed zeros, zero-length rays, a tile of them, a NaN ray":
+        (3000, 48, 32, "edges"),
+    "clustered 2^14, 64 tiles of 64": (16384, 64, 64, ""),
+    "n 40000 (1,250 quarters: a ragged summary word), 33 wide tiles of 16":
+        (40000, 33, 16, "wide"),
+}
+
+
+def broadphase_scene(tag):
+    """(spheres f32[n, 4], origins f32[R, 3], directions f32[R, 3], lengths
+    f32[R]) of check_broadphase's case ``tag`` as numpy arrays."""
+    n, n_tiles, tile, kind = BROADPHASE_CASES[tag]
+    rng = np.random.default_rng(BROADPHASE_SEED + list(BROADPHASE_CASES).index(tag))
+    s = make_clustered_particles(rng, n) if n else np.zeros((0, 4), np.float32)
+    r = n_tiles * tile
+    centre = np.repeat(rng.random((n_tiles, 3)), tile, axis=0)
+    aim = np.repeat(rng.standard_normal((n_tiles, 3)), tile, axis=0)
+    o = centre + 0.02 * rng.standard_normal((r, 3))
+    d = aim + 0.05 * rng.standard_normal((r, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ln = rng.uniform(0.05, 0.6, r)
+    if kind == "wide":
+        o = 0.5 + 0.01 * rng.standard_normal((r, 3))
+        d = rng.standard_normal((r, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        ln = np.full(r, 3.0)
+    o, d, ln = o.astype(np.float32), d.astype(np.float32), ln.astype(np.float32)
+    if kind == "edges":
+        s[::97, :3] = np.nan
+        s[1::89] = (-0.0, 0.5, 0.5, 0.0)
+        s[2::89] = (0.0, 0.5, -0.0, 0.0)
+        ln[5 * tile:6 * tile] = 0.0           # a tile of zero-length rays
+        ln[::7] = 0.0
+        ln[9 * tile:10 * tile:3] = -0.0
+        o[7 * tile + 3, 1] = np.nan           # a NaN ray: its tile's box overlaps nothing
+        o[11 * tile:12 * tile] = 0.0          # origins at the box edge
+        o[11 * tile:12 * tile:2, 0] = -0.0
+    return s, o, d, ln
+
+
+def _box_like(name, got, want):
+    """Boxes of the kernels against the plain version's: equal values, NaN
+    at the same places; -0 and +0 may differ, as torch's reductions' order
+    picks them (ROADMAP C20), and only comparisons read them. Returns the
+    number of zero-sign differences."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: shape or dtype differ")
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(nan_g, nan_w) or not bool(((got == want) | nan_w).all()):
+        raise AssertionError(f"{name}: {int(((got != want) & ~nan_w).sum())} values differ")
+    return int((got.view(torch.int32) != want.view(torch.int32))[~nan_w].sum())
+
+
+def broadphase_outputs(spheres, rays, tile, max_qs, plain):
+    """E6's outputs at one tile size: {name: tensor}. The boxes at both
+    granularities, the segment words, the quarter words with their summary,
+    quarter_lists and the compaction of the quarter words at each of
+    ``max_qs`` (the first, 512, also quarter_lists' max_q), dense_tile_segments
+    (2,048) and dense_segment_tiles (2,048), through the wrappers (the
+    kernels of csrc/broadphase.cu on CUDA tensors) or with ``plain`` the
+    plain versions on the same tensors."""
+    from grace_tpu_torch.trace import broadphase as bp
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+    from grace_tpu_torch.trace import pallas_render as pr
+
+    if plain:
+        tmin, tmax = bp._tile_aabbs_plain(rays, tile)
+        seg = {b: pb._segment_aabbs_plain(spheres, b) for b in (32, 128)}
+        words = pb._masks_for_tile_aabbs_plain(tmin, tmax, spheres)
+        q_words, q_summary = pb._dense_tile_masks_quarter_plain(rays, spheres, tile)
+        compact = pb._compact_mask_words_plain
+        q_lists = pb._quarter_lists_plain(rays, spheres, tile, max_qs[0])
+        s_lists = pb._dense_tile_segments_plain(rays, spheres, tile, 2048)
+        t_lists = pr._dense_segment_tiles_plain(rays, spheres, tile, 2048)
+    else:
+        tmin, tmax = bp.tile_aabbs(rays, tile)
+        seg = {b: pb.segment_aabbs(spheres, b) for b in (32, 128)}
+        words = pb.masks_for_tile_aabbs(tmin, tmax, spheres)
+        q_words, q_summary = pb.dense_tile_masks_quarter(rays, spheres, tile)
+        compact = pb.compact_mask_words
+        q_lists = pb.quarter_lists(rays, spheres, tile, max_qs[0])
+        s_lists = pb.dense_tile_segments(rays, spheres, tile, 2048)
+        t_lists = pr.dense_segment_tiles(rays, spheres, tile, 2048)
+    out = {"tile box min": tmin, "tile box max": tmax,
+           "segment words": words, "quarter words": q_words, "quarter summary": q_summary}
+    for b, (lo, hi) in seg.items():
+        out[f"segment box min ({b})"], out[f"segment box max ({b})"] = lo, hi
+    for what, lists in (("quarter_lists", q_lists), ("dense_tile_segments", s_lists),
+                        ("dense_segment_tiles", t_lists)):
+        for name, x in zip(("ids", "n", "overflow"), lists):
+            out[f"{what} {name}"] = x
+    for q in max_qs:
+        for name, x in zip(("ids", "n", "overflow"), compact(q_words, q)):
+            out[f"compact (max_q {q}) {name}"] = x
+    return out
+
+
+def compaction_limits(q_words):
+    """Row capacities for these quarter words: quarter_lists' default 512,
+    then the compaction's limits: the longest row's count (max_q equal to
+    it), one less (that row overflows), 1 and 0."""
+    from grace_tpu_torch.trace.pallas_broadphase import _popcount32
+
+    most = int(_popcount32(q_words).sum(dim=1).max()) if q_words.numel() else 0
+    return tuple(dict.fromkeys((512, most, max(most - 1, 0), 1, 0)))
+
+
+def check_broadphase_case(tag, spheres, rays, tile):
+    """csrc/broadphase.cu against the plain versions on the same tensors:
+    boxes equal in value (zero signs free), every word, summary word, list,
+    count and flag bit-equal. Returns ({output: max abs err}, the zero-sign
+    differences in the boxes, the capacities and the most listed quarters
+    and segments a row)."""
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+
+    q_words, _ = pb._dense_tile_masks_quarter_plain(rays, spheres, tile)
+    max_qs = compaction_limits(q_words)
+    got = broadphase_outputs(spheres, rays, tile, max_qs, plain=False)
+    want = broadphase_outputs(spheres, rays, tile, max_qs, plain=True)
+    errs, signs = {}, 0
+    for name, w in want.items():
+        g = got[name]
+        if "box" in name:
+            signs += _box_like(f"{tag} {name}", g, w)
+        else:
+            check_tensor_bits(f"{tag} {name}", g, w)
+        errs[name] = 0.0
+    most_s = int(want["dense_tile_segments n"].max()) if want["dense_tile_segments n"].numel() else 0
+    return errs, signs, max_qs, most_s
+
+
+def check_broadphase(dev, bench=None):
+    """The check_broadphase phase: every case of BROADPHASE_CASES and, with
+    ``bench`` = (sorted spheres, sorted rays), the bench scene at tiles 128
+    and 64. Returns its lines."""
+    from grace_tpu_torch.core.types import Rays
+
+    cases = []
+    for tag, (_, _, tile, _) in BROADPHASE_CASES.items():
+        s, o, d, ln = broadphase_scene(tag)
+        rays = Rays.from_arrays(o, d, ln, device=dev)
+        cases.append((tag, torch.from_numpy(s).to(dev), rays, tile))
+    if bench is not None:
+        for tile in (TRACE_TILE, 64):
+            cases.append((f"bench scene, tile {tile}", bench[0], bench[1], tile))
+    lines = []
+    for tag, spheres, rays, tile in cases:
+        _, signs, max_qs, most_s = check_broadphase_case(tag, spheres, rays, tile)
+        lines.append(f"{tag}: boxes equal ({signs} zero signs apart), segment and quarter "
+                     f"words, summary, quarter_lists, dense_tile_segments, dense_segment_tiles "
+                     f"and the compaction at max_q {list(max_qs)} bit-equal to the plain "
+                     f"versions (most listed segments a tile {most_s})")
+    return lines
+
+
+def broadphase_counters():
+    """The broadphase kernels' launch counts (csrc/broadphase.cu) and the
+    triangle lists' (csrc/tri_lists.cu)."""
+    from grace_tpu_torch.trace import broadphase as bp
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    return {"segment_boxes": pb.segment_boxes_cuda.launches,
+            "tile_boxes": bp.tile_boxes_cuda.launches,
+            "overlap_words": pb.overlap_words_cuda.launches,
+            "compact_words": pb.compact_words_cuda.launches,
+            "tri_tile_lists": pt.tri_tile_lists_cuda.launches}
+
+
+# The broadphase kernels each main path runs: path 1's quarter trace, path
+# 2's default, qlist and list routes, path 3's fused trainer (its lists both
+# ways), path 4's record routes, path 5's triangle lists, path 6's two
+# routes, path 7's sharded routes; path 8's walk runs none of them.
+BROADPHASE_BY_PATH = {1: ("tile_boxes", "segment_boxes", "overlap_words"),
+                      2: ("tile_boxes", "segment_boxes", "overlap_words", "compact_words"),
+                      3: ("tile_boxes", "segment_boxes", "overlap_words", "compact_words"),
+                      4: ("tile_boxes", "segment_boxes", "overlap_words"),
+                      5: ("tri_tile_lists",),
+                      6: ("tile_boxes", "segment_boxes", "overlap_words"),
+                      7: ("tile_boxes", "segment_boxes", "overlap_words"),
+                      8: ()}
+
+
+def gate_broadphase(path):
+    """The broadphase counters after main path ``path``; raises if a kernel
+    the path runs was launched no time."""
+    counts = broadphase_counters()
+    idle = [k for k in BROADPHASE_BY_PATH[path] if counts[k] < 1]
+    if idle:
+        raise AssertionError(f"main path {path}: broadphase kernels {idle} never launched: "
+                             f"{counts}")
+    return counts
+
+
+def zero_broadphase_counters():
+    from grace_tpu_torch.trace import broadphase as bp
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    for fn in (pb.segment_boxes_cuda, bp.tile_boxes_cuda, pb.overlap_words_cuda,
+               pb.compact_words_cuda, pt.tri_tile_lists_cuda):
+        fn.launches = 0
+
+
+# check_tri_lists' cases: tag -> (mesh, tiles, tile, max_chunks, intervals).
+# "torus": the tests' 4,096-triangle torus under 64 x 48 pinhole rays;
+# "random": 3,000 random triangles (a ragged last segment) and rays from
+# inside the box; "misses": a tile of rays that miss the box (clipped to 0
+# length), one of zero-length rays by an isolated segment, one of rays that
+# reach every segment; "extreme": directions of 1e-12 and lengths of 2 BIG,
+# so that one segment's key is exactly BIG and another's past it, and a
+# tile with an origin at +inf whose infinite segment's key is NaN (not
+# clipped); "big": 11,719 segments (1.5M triangles), past the shared-memory
+# sort.
+TRI_LIST_SEED = 2029
+TRI_LIST_CASES = {
+    "torus 64 x 32 (4,096 triangles), 96 tiles of 32 pinhole rays, max_chunks 2048":
+        ("torus", 96, 32, 2048, 16),
+    "torus, max_chunks 4 (overflow)": ("torus", 96, 32, 4, 16),
+    "random mesh of 3,000 (a ragged last segment), 64 tiles of 8, K 8, max_chunks 12":
+        ("random", 64, 8, 12, 8),
+    "misses: tiles of clipped and zero-length rays, n_segs 0, 1 and all, max_chunks 64":
+        ("misses", 24, 8, 64, 16),
+    "keys at and past BIG and a NaN key (far and infinite segments), max_chunks 4":
+        ("extreme", 2, 8, 4, 16),
+    "random mesh of 1,500,032 (11,719 segments: the device-memory sort), 16 wide tiles of 8":
+        ("big", 16, 8, 4224, 16),
+}
+
+
+def tri_list_scene(tag):
+    """(triangles f32[T, 3, 3], origins f32[R, 3], directions f32[R, 3],
+    lengths f32[R], clip) of check_tri_lists' case ``tag`` as numpy arrays;
+    ``clip``: clip the rays to the mesh box first, as pallas_trace_tri
+    does."""
+    mesh, n_tiles, tile, _, _ = TRI_LIST_CASES[tag]
+    rng = np.random.default_rng(TRI_LIST_SEED + list(TRI_LIST_CASES).index(tag))
+    r = n_tiles * tile
+    f32 = lambda a: np.asarray(a, np.float32)
+    if mesh == "torus":
+        tris = torus_mesh()
+        h, w = r // 64, 64
+        yy, xx = np.meshgrid((np.arange(h) + 0.5) / h - 0.5, (np.arange(w) + 0.5) / w - 0.5,
+                             indexing="ij")
+        d = np.stack([1.6 * xx, 1.2 * yy, -np.ones_like(xx)], -1).reshape(-1, 3)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        o = np.tile([0.1, 0.2, 3.0], (r, 1))
+        return tris, f32(o), f32(d), f32(np.full(r, 6.0)), True
+    if mesh in ("random", "big"):
+        tris = random_mesh(rng, 3000 if mesh == "random" else 11719 * 128)
+        o = rng.random((r, 3)) * 0.4 + 0.3
+        d = rng.standard_normal((r, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        return tris, f32(o), f32(d), f32(np.full(r, 5.0 if mesh == "big" else 0.6)), True
+    if mesh == "misses":
+        # 23 full segments in the unit box, then a last segment by (5, 5, 5)
+        tris = np.concatenate([random_mesh(rng, 2944),
+                               f32(5.0 + 0.05 * rng.standard_normal((56, 3, 3)))])
+        o = rng.random((r, 3)) * 0.4 + 0.3
+        d = rng.standard_normal((r, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        ln = np.full(r, 0.3)
+        o[:tile], d[:tile] = (-3.0, -3.0, -3.0), (-1.0, 0.0, 0.0)   # misses: length 0
+        o[tile:2 * tile], ln[tile:2 * tile] = 5.0, 0.0               # only the last segment
+        o[2 * tile:3 * tile], ln[2 * tile:3 * tile] = 0.5, 20.0     # every segment
+        d[2 * tile:3 * tile:2] = np.sqrt(1 / 3)
+        o[3 * tile:4 * tile:2] = (-3.0, -3.0, -3.0)                  # half the tile misses
+        d[3 * tile:4 * tile:2] = (-1.0, 0.0, 0.0)
+        return f32(tris), f32(o), f32(d), f32(ln), True
+    # extreme: a near segment, one whose key is BIG, one past BIG, an infinite one
+    near = random_mesh(rng, 128) * 0.5 + 0.25
+    far = lambda x: np.concatenate([x + 1e16 * rng.random((128, 3, 1)),
+                                    rng.random((128, 3, 2))], axis=-1)
+    inf = np.concatenate([np.full((128, 3, 1), np.inf), rng.random((128, 3, 2))], axis=-1)
+    tris = f32(np.concatenate([near, far(1.01e18), far(1.51e18), inf]))
+    o = np.concatenate([np.c_[np.zeros(tile), rng.uniform(0.2, 0.8, (tile, 2))],
+                        np.c_[np.full(tile, np.inf), rng.uniform(0.2, 0.8, (tile, 2))]])
+    d = np.tile([1e-12, 0.0, 0.0], (r, 1))
+    ln = np.concatenate([np.full(tile, f32(1e30) * f32(2)), np.ones(tile)])
+    return tris, f32(o), f32(d), f32(ln), False
+
+
+def tri_list_inputs(tag, dev):
+    """(rays, triangles) of case ``tag`` on ``dev``, clipped where the case
+    says."""
+    from grace_tpu_torch.core.types import Rays
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    tris, o, d, ln, clip = tri_list_scene(tag)
+    rays = Rays.from_arrays(o, d, ln, device=dev)
+    tris = torch.from_numpy(tris).to(dev)
+    if clip:
+        flat = tris.reshape(-1, 3)
+        rays = pt.clip_rays_to_aabb(rays, flat.amin(dim=0), flat.amax(dim=0))
+    return rays, tris
+
+
+def check_tri_lists_case(tag, rays, tris, tile, max_chunks, n_intervals=16):
+    """csrc/tri_lists.cu against _dense_tile_segments_tri_plain on the same
+    tensors: ids, counts and flags bit-equal, distances bit-equal (NaN where
+    the plain version's are). Returns (n_segs a tile, overflow)."""
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    got = pt._dense_tile_segments_tri(rays, tris, tile, max_chunks, n_intervals)
+    want = pt._dense_tile_segments_tri_plain(rays, tris, tile, max_chunks, n_intervals)
+    for name, g, w in zip(("seg_ids", "seg_dist", "n_segs", "overflow"), got, want):
+        if name == "seg_dist":
+            nan = torch.isnan(w)
+            check_equal(f"{tag} {name} NaN", torch.isnan(g), nan)
+            g, w = torch.where(nan, 0.0, g), torch.where(nan, 0.0, w)
+        check_tensor_bits(f"{tag} {name}", g, w)
+    return want[2], want[3]
+
+
+def check_tri_lists(dev, torus_sets=None, edge_cases=True):
+    """The check_tri_lists phase: every case of TRI_LIST_CASES (with
+    ``edge_cases``) and, with ``torus_sets`` = (sorted triangles, {name:
+    clipped rays}), main path 5's primary and shadow rays at max_chunks
+    2048 and 16. Returns its lines."""
+    cases = [(tag, *tri_list_inputs(tag, dev), tile, max_chunks, k)
+             for tag, (_, _, tile, max_chunks, k) in TRI_LIST_CASES.items() if edge_cases]
+    if torus_sets is not None:
+        tris, sets = torus_sets
+        cases += [(f"path 5 torus {name} rays, max_chunks {mc}", rays, tris, 32, mc, 16)
+                  for name, rays in sets.items() for mc in (2048, 16)]
+    lines = []
+    for tag, rays, tris, tile, max_chunks, k in cases:
+        n, ovf = check_tri_lists_case(tag, rays, tris, tile, max_chunks, k)
+        lines.append(f"{tag}: seg_ids, seg_dist, n_segs and overflow bit-equal to the plain "
+                     f"version (n_segs {int(n.min())} to {int(n.max())}, {int(ovf.sum())} "
+                     f"tiles overflow)")
+    return lines
+
+
+def tri_list_tests(rays, tris, tile, n_intervals=16, block=512):
+    """(box tests, listed segments) of the triangle lists on these rays: a
+    segment is tested against intervals 0..kfirst (all K where it is not
+    listed), the plain version's overlap in blocks of ``block`` tiles."""
+    from grace_tpu_torch.ops.vecmath import fma
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    seg_min, seg_max = pt.tri_segment_aabbs(tris)
+    K = n_intervals
+    n_tiles = rays.n_rays // tile
+    o = rays.origins.reshape(n_tiles, tile, 3)
+    d = rays.directions.reshape(n_tiles, tile, 3)
+    ln = torch.clamp(rays.lengths, min=0.0).reshape(n_tiles, tile)
+    frac = torch.arange(K + 1, dtype=torch.float32, device=o.device) / K
+    tests = listed = 0
+    for a0 in range(0, n_tiles, block):
+        sl = slice(a0, a0 + block)
+        pts = fma(d[sl][:, :, None, :], (ln[sl][:, :, None] * frac)[..., None],
+                  o[sl][:, :, None, :])
+        bmin, bmax = pts.amin(dim=1), pts.amax(dim=1)
+        imin = torch.minimum(bmin[:, :-1], bmin[:, 1:])
+        imax = torch.maximum(bmax[:, :-1], bmax[:, 1:])
+        ov = ((imin[:, :, None, :] <= seg_max[None, None]) &
+              (seg_min[None, None] <= imax[:, :, None, :])).all(dim=-1)
+        k_ids = torch.arange(K, device=o.device)[None, :, None]
+        kfirst = torch.where(ov, k_ids, K).amin(dim=1)
+        tests += int(torch.where(kfirst < K, kfirst + 1, K).sum())
+        listed += int((kfirst < K).sum())
+    return tests, listed
+
+
+def broadphase_times(spheres, rays, tris, tri_sets):
+    """E6's and E7's times (CUDA events, warm median, ms) on the main paths'
+    inputs: each broadphase kernel alone and its plain version at the
+    records' quarter granularity (tile 64), the public calls of both routes
+    at tile 64 and 128, and the triangle lists of path 5's primary and
+    shadow rays (kernel, the call with its two box reductions, the plain
+    version, and torch's stable sort of the same keys: the one PyTorch call
+    that does the list's sort). Returns (times, {kernel: (operations,
+    bytes)}): each input read once, each output written once."""
+    from grace_tpu_torch.trace import broadphase as bp
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+    from grace_tpu_torch.trace import pallas_render as pr
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    tile = 64
+    tmin, tmax = bp.tile_boxes_cuda(rays, tile)
+    seg_q = pb.segment_boxes_cuda(spheres, 32)
+    words, summ = pb.overlap_words_cuda(tmin, tmax, *seg_q, summary=True)
+    ids, n, ovf = pb.compact_words_cuda(words, 512)
+    t = {}
+    t["segment_boxes kernel (quarters)"] = cuda_ms(lambda: pb.segment_boxes_cuda(spheres, 32))
+    t["segment_boxes plain (quarters)"] = cuda_ms(lambda: pb._segment_aabbs_plain(spheres, 32))
+    t["tile_boxes kernel (tile 64)"] = cuda_ms(lambda: bp.tile_boxes_cuda(rays, tile))
+    t["tile_boxes plain (tile 64)"] = cuda_ms(lambda: bp._tile_aabbs_plain(rays, tile))
+    t["overlap_words kernel (quarter words and summary, tile 64)"] = cuda_ms(
+        lambda: pb.overlap_words_cuda(tmin, tmax, *seg_q, summary=True))
+    t["overlap_words plain (quarter words and summary, tile 64; with its segment boxes)"] = \
+        cuda_ms(lambda: pb.pack_overlap_bits(
+            pb._masks_for_tile_aabbs_plain(tmin, tmax, spheres, block=32) != 0), reps=3)
+    t["compact_words kernel (quarter words, max_q 512, tile 64)"] = cuda_ms(
+        lambda: pb.compact_words_cuda(words, 512))
+    t["compact_words plain (quarter words, max_q 512, tile 64)"] = cuda_ms(
+        lambda: pb._compact_mask_words_plain(words, 512), reps=3)
+    for tl in (64, TRACE_TILE):
+        t[f"dense_tile_masks_quarter kernels (tile {tl})"] = cuda_ms(
+            lambda: pb.dense_tile_masks_quarter(rays, spheres, tl))
+        t[f"dense_tile_masks_quarter plain (tile {tl})"] = cuda_ms(
+            lambda: pb._dense_tile_masks_quarter_plain(rays, spheres, tl), reps=3)
+        t[f"dense_tile_masks kernels (tile {tl})"] = cuda_ms(
+            lambda: pb.dense_tile_masks(rays, spheres, tl))
+        t[f"dense_tile_masks plain (tile {tl})"] = cuda_ms(
+            lambda: pb._dense_tile_masks_plain(rays, spheres, tl), reps=3)
+        t[f"quarter_lists kernels (tile {tl}, max_q 512)"] = cuda_ms(
+            lambda: pb.quarter_lists(rays, spheres, tl, 512))
+        t[f"quarter_lists plain (tile {tl}, max_q 512)"] = cuda_ms(
+            lambda: pb._quarter_lists_plain(rays, spheres, tl, 512), reps=3)
+    t["dense_tile_segments kernels (tile 128, max_chunks 2048)"] = cuda_ms(
+        lambda: pb.dense_tile_segments(rays, spheres, TRACE_TILE, 2048))
+    t["dense_tile_segments plain (tile 128, max_chunks 2048)"] = cuda_ms(
+        lambda: pb._dense_tile_segments_plain(rays, spheres, TRACE_TILE, 2048), reps=3)
+    t["dense_segment_tiles kernels (tile 128, max_tiles 2048)"] = cuda_ms(
+        lambda: pr.dense_segment_tiles(rays, spheres, pr.BWD_TILE, 2048))
+    t["dense_segment_tiles plain (tile 128, max_tiles 2048)"] = cuda_ms(
+        lambda: pr._dense_segment_tiles_plain(rays, spheres, pr.BWD_TILE, 2048), reps=3)
+    r = rays.n_rays
+    n_rows, n_cols = tmin.shape[0], seg_q[0].shape[0]
+    set_bits = int(n.sum())
+    work = {
+        "segment_boxes": (12 * spheres.shape[0], nbytes(spheres, *seg_q)),
+        "tile_boxes": (18 * r, nbytes(rays.origins, rays.directions, rays.lengths, tmin, tmax)),
+        "overlap_words": (6 * n_rows * n_cols, nbytes(tmin, tmax, *seg_q, words, summ)),
+        "compact_words": (3 * words.numel() + 2 * set_bits, nbytes(words, ids, n, ovf)),
+    }
+    seg_min, seg_max = pt.tri_segment_aabbs(tris)
+    for name, tri_rays in tri_sets.items():
+        out = pt.tri_tile_lists_cuda(tri_rays, seg_min, seg_max, 32, 2048)
+        t[f"tri_tile_lists kernel (torus {name})"] = cuda_ms(
+            lambda: pt.tri_tile_lists_cuda(tri_rays, seg_min, seg_max, 32, 2048))
+        t[f"_dense_tile_segments_tri (torus {name})"] = cuda_ms(
+            lambda: pt._dense_tile_segments_tri(tri_rays, tris, 32, 2048))
+        t[f"_dense_tile_segments_tri plain (torus {name})"] = cuda_ms(
+            lambda: pt._dense_tile_segments_tri_plain(tri_rays, tris, 32, 2048), reps=3)
+        if out[0].shape[1] == seg_min.shape[0]:
+            # every column written: the keys are the rows' distances put
+            # back at their ids
+            keys = torch.empty_like(out[1]).scatter_(1, out[0].long(), out[1])
+            t[f"tri lists' key sort (torch.sort, stable; torus {name})"] = cuda_ms(
+                lambda: torch.sort(keys, dim=1, stable=True))
+        tests, listed = tri_list_tests(tri_rays, tris, 32)
+        work[f"tri_tile_lists {name}"] = (
+            6 * tests + 30 * listed,
+            nbytes(tri_rays.origins, tri_rays.directions, tri_rays.lengths, seg_min, seg_max,
+                   *out))
     return t, work
 
 
@@ -3289,6 +3785,13 @@ def run(dev, n_particles, side):
         log(f"check_splat_prep {line} OK")
     log(f"check_splat_prep: {len(SPLAT_PREP_CASES)} cases in "
         f"{time.perf_counter() - t_check:.1f} s")
+    t_check = time.perf_counter()
+    for line in check_broadphase(dev):
+        log(f"check_broadphase {line} OK")
+    for line in check_tri_lists(dev):
+        log(f"check_tri_lists {line} OK")
+    log(f"check_broadphase, check_tri_lists: {len(BROADPHASE_CASES)} and {len(TRI_LIST_CASES)} "
+        f"cases in {time.perf_counter() - t_check:.1f} s")
     small_checks(dev)
     splat_edge_checks(dev)
     training_small_checks(dev)
@@ -3306,6 +3809,7 @@ def run(dev, n_particles, side):
     sp.splat_image.launches = 0
     zero_build_counters()
     zero_prep_counters()
+    zero_broadphase_counters()
     t0 = time.perf_counter()
     scene = bench_scene(spheres, side)
     sorted_spheres, tree, rays_s, inv, buckets = (
@@ -3319,6 +3823,7 @@ def run(dev, n_particles, side):
     wall = time.perf_counter() - t0
     build_by_path = {1: build_counters()}
     prep_by_path = {1: prep_counters()}
+    bp_by_path = {1: gate_broadphase(1)}
     launches = {"trace_quarter": pk.trace_quarter.launches,
                 "splat": sp.splat_image.launches, **build_by_path[1],
                 "splat_bucket_keys": prep_by_path[1]["splat_bucket_keys"],
@@ -3347,6 +3852,7 @@ def run(dev, n_particles, side):
     pk.trace_list.launches_seg = 0
     zero_build_counters()
     zero_prep_counters()
+    zero_broadphase_counters()
     t0 = time.perf_counter()
     general = {"default": [pk.pallas_trace_sph(rays_s, sorted_spheres, tree,
                                                tile=TRACE_TILE, mode=m)
@@ -3364,6 +3870,7 @@ def run(dev, n_particles, side):
     wall2 = time.perf_counter() - t0
     build_by_path[2] = build_counters()
     prep_by_path[2] = prep_counters()
+    bp_by_path[2] = gate_broadphase(2)
     launches2 = {"trace_bitmask": pk.trace_bitmask.launches,
                  "trace_list": pk.trace_list.launches - pk.trace_list.launches_seg,
                  "trace_list_seg": pk.trace_list.launches_seg}
@@ -3423,6 +3930,14 @@ def run(dev, n_particles, side):
             f"coords and slabs bit-equal to the plain versions OK")
     log(f"check splat kernel vs plain at {side}x{side}: max abs err {splat_err:.3g} "
         f"(max value {top:.3g}) OK")
+    for tile in (TRACE_TILE, 64):
+        _, signs, max_qs, most_s = check_broadphase_case(
+            f"bench scene, tile {tile}", sorted_spheres, rays_s, tile)
+        log(f"check_broadphase bench scene ({n_particles} sorted particles, {side}x{side} sorted "
+            f"rays, tile {tile}): boxes equal ({signs} zero signs apart), segment and quarter "
+            f"words, summary, quarter_lists, dense_tile_segments, dense_segment_tiles and the "
+            f"compaction at max_q {list(max_qs)} bit-equal to the plain versions (most listed "
+            f"segments a tile {most_s}) OK")
 
     # 6. main path 3, training on the same scene: one step of each trainer
     from grace_tpu_torch.trace import pallas_render as pr
@@ -3457,12 +3972,14 @@ def run(dev, n_particles, side):
         fn.launches = 0
     zero_build_counters()
     zero_prep_counters()
+    zero_broadphase_counters()
     t0 = time.perf_counter()
     steps = {"splat": splat_step(), "general": general_step()}
     torch.cuda.synchronize()
     wall3 = time.perf_counter() - t0
     build_by_path[3] = build_counters()
     prep_by_path[3] = prep_counters()
+    bp_by_path[3] = gate_broadphase(3)
     launches3 = {"splat_sortfree_fwd": sg.splat_sortfree_fwd.launches,
                  "splat_sortfree_bwd": sg.splat_sortfree_bwd.launches,
                  "render_fwd": pr.render_fwd.launches, "render_bwd": pr.render_bwd.launches,
@@ -3519,6 +4036,7 @@ def run(dev, n_particles, side):
     prc.records_bitmask.launches = 0
     zero_build_counters()
     zero_prep_counters()
+    zero_broadphase_counters()
     t0 = time.perf_counter()
     rec = prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP)
     rec_b = prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP,
@@ -3531,6 +4049,7 @@ def run(dev, n_particles, side):
     wall4 = time.perf_counter() - t0
     build_by_path[4] = build_counters()
     prep_by_path[4] = prep_counters()
+    bp_by_path[4] = gate_broadphase(4)
     launches4 = {"records_quarter": prc.records_quarter.launches,
                  "records_bitmask": prc.records_bitmask.launches}
     if min(launches4.values()) < 1:
@@ -3551,12 +4070,14 @@ def run(dev, n_particles, side):
     pt.trace_tri.launches_any = 0
     zero_build_counters()
     zero_prep_counters()
+    zero_broadphase_counters()
     t0 = time.perf_counter()
     tri_img = mt.render_triangles(tris, resolution=side, engine="pallas")
     torch.cuda.synchronize()
     wall5 = time.perf_counter() - t0
     build_by_path[5] = build_counters()
     prep_by_path[5] = prep_counters()
+    bp_by_path[5] = gate_broadphase(5)
     launches5 = {"trace_tri closest": pt.trace_tri.launches - pt.trace_tri.launches_any,
                  "trace_tri any": pt.trace_tri.launches_any, **build_by_path[5]}
     if min(launches5.values()) < 1:
@@ -3586,13 +4107,19 @@ def run(dev, n_particles, side):
         log(f"check trace_tri kernel vs plain on all {visited.shape[0]} tiles ({mode}): ids "
             f"equal, {hits} hits, t max abs err {errs['tri ' + mode]:.3g}, "
             f"{int(visited.sum())} chunks visited OK")
+    torus_sets = (tri_state["sorted_tris"], {"primary": tri_state["rays_clipped"],
+                                             "shadow": tri_state["shadow_clipped"]})
+    for line in check_tri_lists(dev, torus_sets, edge_cases=False):
+        log(f"check_tri_lists {line} OK")
 
     # 11. main path 6, a Gadget snapshot through random and HEALPix rays
     zero_build_counters()
     zero_prep_counters()
+    zero_broadphase_counters()
     path6 = snapshot_path(dev, particles)
     build_by_path[6] = build_counters()
     prep_by_path[6] = prep_counters()
+    bp_by_path[6] = gate_broadphase(6)
     launches6 = {**path6["launches"], **build_by_path[6]}
     if min(launches6.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches6}")
@@ -3626,10 +4153,12 @@ def run(dev, n_particles, side):
     t7 = time.perf_counter()
     zero_build_counters()
     zero_prep_counters()
+    zero_broadphase_counters()
     path7 = sharded_path(dev, scene, time_routes=True)
     wall7 = time.perf_counter() - t7
     build_by_path[7] = build_counters()
     prep_by_path[7] = prep_counters()
+    bp_by_path[7] = gate_broadphase(7)
     launches7 = {**path7["launches"], **build_by_path[7]}
     if min(launches7.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches7}")
@@ -3640,9 +4169,11 @@ def run(dev, n_particles, side):
     # 11c. main path 8, the generic engine's walk on the card
     zero_build_counters()
     zero_prep_counters()
+    zero_broadphase_counters()
     path8 = engine_path(dev, scene, tris, entry_args, side)
     build_by_path[8] = build_counters()
     prep_by_path[8] = prep_counters()
+    bp_by_path[8] = gate_broadphase(8)
     launches8 = {**path8["launches"], **build_by_path[8]}
     if min(launches8.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches8}")
@@ -3837,6 +4368,11 @@ def run(dev, n_particles, side):
     # the build (csrc/build.cu): its steps alone and the plain build
     bt, build_work = build_times(spheres, entry_args[0], tris)
     t.update(bt)
+    # the broadphase (csrc/broadphase.cu) and the triangle lists
+    # (csrc/tri_lists.cu): each kernel alone, its plain version, the calls
+    bpt, bp_work = broadphase_times(sorted_spheres, rays_s, tri_state["sorted_tris"],
+                                    torus_sets[1])
+    t.update(bpt)
     for k, v in t.items():
         log(f"time {k}: {v:.3f} ms")
 
@@ -3901,6 +4437,10 @@ def run(dev, n_particles, side):
             f"{ops_p / PEAK_FLOPS * 1e3:.4f} ms; the call {t[kernel_ms]:.3f} ms, plain "
             f"{t[plain_ms]:.3f} ms")
     log(f"splat setup kernels' launches by main path: {json.dumps(prep_by_path)}")
+    for name, (ops_b, bytes_b) in bp_work.items():
+        log(f"work {name}: {ops_b} operations -> {ops_b / PEAK_FLOPS * 1e3:.4f} ms, {bytes_b} "
+            f"bytes -> {bytes_b / PEAK_BYTES * 1e3:.4f} ms")
+    log(f"broadphase kernels' launches by main path: {json.dumps(bp_by_path)}")
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -4021,6 +4561,33 @@ def run(dev, n_particles, side):
                "grace_tpu/trace/pallas_broadphase.py:59",
                max(prep_errs[f] for f in SPLAT_PREP_OUTPUTS[8:]), "sortfree setup kernel",
                "sortfree setup plain", None))],
+        # the dense broadphase and the triangle lists (not TPU kernels:
+        # grace_tpu's plain XLA), on the bench scene at the records' tile 64
+        # and on path 5's primary rays
+        *[kernel_entry(name, "broadphase.cu", replaces,
+                       sum(p[name] for p in bp_by_path.values()), 0.0, t[kernel_ms],
+                       t[plain_ms], *bp_work[name],
+                       by_path={f"path {k}": v[name] for k, v in bp_by_path.items()})
+          for name, replaces, kernel_ms, plain_ms in (
+              ("segment_boxes", "grace_tpu/trace/pallas_broadphase.py:43",
+               "segment_boxes kernel (quarters)", "segment_boxes plain (quarters)"),
+              ("tile_boxes", "grace_tpu/trace/broadphase.py:38", "tile_boxes kernel (tile 64)",
+               "tile_boxes plain (tile 64)"),
+              ("overlap_words", "grace_tpu/trace/pallas_broadphase.py:249, "
+               "grace_tpu/trace/pallas_broadphase.py:59, grace_tpu/trace/pallas_render.py:218",
+               "overlap_words kernel (quarter words and summary, tile 64)",
+               "overlap_words plain (quarter words and summary, tile 64; with its segment "
+               "boxes)"),
+              ("compact_words", "grace_tpu/trace/pallas_broadphase.py:138",
+               "compact_words kernel (quarter words, max_q 512, tile 64)",
+               "compact_words plain (quarter words, max_q 512, tile 64)"))],
+        kernel_entry("tri_tile_lists", "tri_lists.cu", "grace_tpu/trace/pallas_tri.py:89",
+                     sum(p["tri_tile_lists"] for p in bp_by_path.values()), 0.0,
+                     t["tri_tile_lists kernel (torus primary)"],
+                     t["_dense_tile_segments_tri plain (torus primary)"],
+                     *bp_work["tri_tile_lists primary"],
+                     by_path={f"path {k}": v["tri_tile_lists"] for k, v in bp_by_path.items()},
+                     library_ms=t.get("tri lists' key sort (torch.sort, stable; torus primary)")),
         # path 6's launches of B3 and B6, held and timed on its fan-out set
         *[kernel_entry(f"{k} (path 6)", f"{k}.cu", replaces, launches6[k], errs6[k],
                        k6[PATH6_FULL, k, "cumulative"], plain6[k], *work6[PATH6_FULL][k])

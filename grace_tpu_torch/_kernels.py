@@ -86,6 +86,16 @@ KERNELS = {
                     "grace_splat_bucket_scatter": "ppp" + "iii",
                     "grace_splat_bucket_pack": "pppppppp" + "iiiii",
                     "grace_sortfree_setup": "ppppppp" + "iii"}),
+    # the dense broadphase (segment and tile boxes, overlap words, their
+    # compaction) and the triangle trace's segment lists: --fmad=false keeps
+    # the endpoints' and distances' rounding the plain versions'
+    "broadphase": ("broadphase.cu", ["--fmad=false"],
+                   {"grace_segment_boxes": "ppp" + "ii",
+                    "grace_tile_boxes": "ppppp" + "ii",
+                    "grace_overlap_words": "pppppp" + "ii",
+                    "grace_compact_words": "pppp" + "iii"}),
+    "tri_lists": ("tri_lists.cu", ["--fmad=false"],
+                  {"grace_tri_tile_lists": "p" * 11 + "i" * 6}),
     # The dense contractions that splat.cu and splat_sortfree.cu's forward
     # replaced, each with its file's flags: the references those kernels
     # are held bit-equal to on the card. No wrapper launches them.

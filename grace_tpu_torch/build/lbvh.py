@@ -19,9 +19,10 @@ On CUDA tensors ``build_lbvh`` builds the same tree as the CUDA original
 does, with two bottom-up climbs coordinated by atomics
 (``csrc/build.cu``): ``lbvh_ranges`` (the ranges of every split and the
 big leaves at their slots), one prefix sum, and ``lbvh_nodes`` (the top
-tree, its boxes and padding), three launches and no host sync. Its tree
-is bit-equal to the plain build's, except where a delta equals the
-sentinel (ROADMAP C19).
+tree, its boxes and padding), three launches and no host sync. Both
+builds count the ends of a delta sequence as larger than any delta, so
+their trees are bit-equal, also where a delta equals the sentinel, where
+grace_tpu's build breaks (ROADMAP C19).
 """
 
 from __future__ import annotations
@@ -227,14 +228,19 @@ def build_lbvh_plain(prim_aabb_mins, prim_aabb_maxs, deltas, max_per_leaf: int) 
     L = torch.where(node_valid, L, 0)
     R = torch.where(node_valid, R, 0)
 
-    def ld_at(idx):
-        inside = (idx >= 0) & (idx < n_leaves - 1)
-        return torch.where(inside, ld[torch.clamp(idx, 0, cap - 1)],
-                           torch.full_like(ld[:1], sent))
+    def ld_below(i, j):
+        """ld[i] < ld[j], where the ends (i or j outside [0, n_leaves - 1))
+        count as larger than any delta, as csrc/build.cu's climb takes
+        them. grace_tpu compares the sentinel by value here, which breaks
+        the tree where a delta equals it (ROADMAP C19); on every other
+        input the two rules agree."""
+        inside = lambda idx: (idx >= 0) & (idx < n_leaves - 1)
+        below = ld[torch.clamp(i, 0, cap - 1)] < ld[torch.clamp(j, 0, cap - 1)]
+        return inside(i) & (~inside(j) | below)
 
     # Parent rule: the boundary with the smaller delta becomes the parent;
     # ties go right.
-    is_right_child = ld_at(L - 1) < ld_at(R)
+    is_right_child = ld_below(L - 1, R)
     parent = torch.where(is_right_child, L - 1, R)
     is_root = node_valid & (L == 0) & (R == n_leaves - 1)
     root = torch.argmax(is_root.to(torch.int32))
@@ -247,7 +253,7 @@ def build_lbvh_plain(prim_aabb_mins, prim_aabb_maxs, deltas, max_per_leaf: int) 
     # Leaf children: leaf k (range [k, k]) uses the same parent rule.
     kk = torch.arange(n, dtype=torch.int64, device=dev)
     leaf_valid = kk < n_leaves
-    leaf_is_right = ld_at(kk - 1) < ld_at(kk)
+    leaf_is_right = ld_below(kk - 1, kk)
     leaf_parent = torch.where(leaf_is_right, kk - 1, kk)
     enc = encode_leaf_child(kk)
     _scatter_drop(children[:, 0],

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from grace_tpu_torch import _kernels
 from grace_tpu_torch.core.tree import Tree
 from grace_tpu_torch.core.types import Rays
 from grace_tpu_torch.ops.vecmath import fma
@@ -26,15 +27,54 @@ class TileChunks(NamedTuple):
     overflow: torch.Tensor  # bool[n_tiles]: list truncated (results incomplete)
 
 
-def tile_aabbs(rays: Rays, tile: int):
-    """Per-tile AABB of all ray segments (hull of origin/terminus points)."""
-    if rays.n_rays % tile:
+def _on_cpu(t: torch.Tensor) -> bool:
+    """The broadphase wrappers' route: CPU tensors take the plain versions,
+    every other tensor the kernels (which refuse a device but CUDA)."""
+    return t.device.type == "cpu"
+
+
+def _check_tile(rays: Rays, tile: int) -> None:
+    if tile < 1 or rays.n_rays % tile:
         raise ValueError("ray count must be a multiple of the tile size")
+
+
+def _tile_aabbs_plain(rays: Rays, tile: int):
+    """Plain PyTorch version of ``tile_aabbs``."""
+    _check_tile(rays, tile)
     o = rays.origins.reshape(-1, tile, 3)
     e = fma(rays.directions, rays.lengths[:, None], rays.origins).reshape(-1, tile, 3)
     mins = torch.minimum(o.amin(dim=1), e.amin(dim=1))
     maxs = torch.maximum(o.amax(dim=1), e.amax(dim=1))
     return mins, maxs
+
+
+def tile_aabbs(rays: Rays, tile: int):
+    """Per-tile AABB of all ray segments (hull of origin/terminus points):
+    (mins, maxs) f32[n_rays / tile, 3]. One launch of ``csrc/broadphase.cu``'s
+    ``grace_tile_boxes`` on CUDA tensors; CPU tensors run
+    ``_tile_aabbs_plain``."""
+    if _on_cpu(rays.origins):
+        return _tile_aabbs_plain(rays, tile)
+    return tile_boxes_cuda(rays, tile)
+
+
+def tile_boxes_cuda(rays: Rays, tile: int):
+    """``csrc/broadphase.cu``'s ``grace_tile_boxes``: ``tile_aabbs`` of rays
+    whose count is a multiple of ``tile``."""
+    device = _kernels.check_tensors("tile_aabbs", [],
+                                    [rays.origins, rays.directions, rays.lengths])
+    _check_tile(rays, tile)
+    n_tiles = rays.n_rays // tile
+    o, d, ln = (t.contiguous() for t in (rays.origins, rays.directions, rays.lengths))
+    tmin = torch.empty((n_tiles, 3), dtype=torch.float32, device=device)
+    tmax = torch.empty((n_tiles, 3), dtype=torch.float32, device=device)
+    _kernels.launch("broadphase", "grace_tile_boxes", device, o.data_ptr(), d.data_ptr(),
+                    ln.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n_tiles, tile)
+    tile_boxes_cuda.launches += 1
+    return tmin, tmax
+
+
+tile_boxes_cuda.launches = 0
 
 
 def collect_tile_chunks(rays: Rays, tree: Tree, tile: int, max_chunks: int,

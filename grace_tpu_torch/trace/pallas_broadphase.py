@@ -3,11 +3,19 @@
 
 Every ray tile's AABB is tested against every ``block``-primitive segment
 of the Morton-sorted particle array, and the overlaps are packed into i32
-bitmask words (bit s of word w = segment w*32+s). Segments are processed
-``seg_block`` at a time, so the dense bool matrix is never larger than
-n_tiles x seg_block. ``compact_mask_words`` turns words into per-tile
-ascending id lists (``quarter_lists``, ``dense_tile_segments``). Words,
-summaries and lists are bit-exact with ``grace_tpu``.
+bitmask words (bit s of word w = segment w*32+s). ``compact_mask_words``
+turns words into per-tile ascending id lists (``quarter_lists``,
+``dense_tile_segments``). Words, summaries and lists are bit-exact with
+``grace_tpu``.
+
+On CUDA tensors each step is a kernel of ``csrc/broadphase.cu``:
+``segment_aabbs`` (``grace_segment_boxes``), the overlap words with their
+summary (``grace_overlap_words``: a lane a segment, a ballot a word, no
+dense intermediate) and the compaction (``grace_compact_words``: a warp a
+row); ``tile_aabbs`` is ``grace_tile_boxes`` (``trace/broadphase.py``).
+CPU tensors take the plain versions, ``_<name>_plain``: the dense bool
+matrix, ``seg_block`` segments at a time, packed to words, and a
+compaction that ranks every bit.
 """
 
 from __future__ import annotations
@@ -16,18 +24,18 @@ from typing import Tuple
 
 import torch
 
+from grace_tpu_torch import _kernels
 from grace_tpu_torch.core.types import Rays
 from grace_tpu_torch.ops.primitives import sphere_aabb
-from grace_tpu_torch.trace.broadphase import tile_aabbs
+from grace_tpu_torch.trace.broadphase import _on_cpu, _tile_aabbs_plain, tile_aabbs
 
 SEG = 128
 _F32_MAX = torch.finfo(torch.float32).max
 
 
-def segment_aabbs(spheres: torch.Tensor, block: int = SEG
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """AABBs of each ``block``-primitive segment of the sorted particle
-    array, padded to a SEG multiple with empty boxes. ``block`` divides SEG."""
+def _segment_aabbs_plain(spheres: torch.Tensor, block: int = SEG
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``segment_aabbs``."""
     n = spheres.shape[0]
     n_pad = ((n + SEG - 1) // SEG) * SEG
     mins, maxs = sphere_aabb(spheres)
@@ -35,6 +43,64 @@ def segment_aabbs(spheres: torch.Tensor, block: int = SEG
     seg_min = pad(mins, _F32_MAX).reshape(-1, block, 3).amin(dim=1)
     seg_max = pad(maxs, -_F32_MAX).reshape(-1, block, 3).amax(dim=1)
     return seg_min, seg_max
+
+
+def segment_aabbs(spheres: torch.Tensor, block: int = SEG
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """AABBs of each ``block``-primitive segment of the sorted particle
+    array, padded to a SEG multiple with empty boxes. ``block`` divides SEG
+    (32 or 128 on CUDA tensors)."""
+    if _on_cpu(spheres):
+        return _segment_aabbs_plain(spheres, block)
+    return segment_boxes_cuda(spheres, block)
+
+
+def segment_boxes_cuda(spheres: torch.Tensor, block: int):
+    """``csrc/broadphase.cu``'s ``grace_segment_boxes``: ``segment_aabbs``."""
+    device = _kernels.check_tensors("segment_aabbs", [], [spheres])
+    if spheres.dim() != 2 or spheres.shape[1] != 4:
+        raise ValueError(f"segment_aabbs: spheres {tuple(spheres.shape)}, expected [n, 4]")
+    if block not in (32, SEG):
+        raise ValueError(f"segment_aabbs: block {block}, the kernel takes 32 or {SEG}")
+    n = spheres.shape[0]
+    n_boxes = (n + SEG - 1) // SEG * (SEG // block)
+    spheres = _kernels.aligned(spheres)
+    seg_min = torch.empty((n_boxes, 3), dtype=torch.float32, device=device)
+    seg_max = torch.empty((n_boxes, 3), dtype=torch.float32, device=device)
+    _kernels.launch("broadphase", "grace_segment_boxes", device, spheres.data_ptr(),
+                    seg_min.data_ptr(), seg_max.data_ptr(), n, block)
+    segment_boxes_cuda.launches += 1
+    return seg_min, seg_max
+
+
+segment_boxes_cuda.launches = 0
+
+
+def overlap_words_cuda(row_min, row_max, col_min, col_max, summary: bool = False):
+    """``csrc/broadphase.cu``'s ``grace_overlap_words``: the i32 overlap
+    words [rows, ceil(cols / 32)] of row boxes against column boxes (bit s
+    of word w: column w*32+s), and with ``summary`` their summary words
+    [rows, ceil(words / 32)] (bit w of word s: word s*32+w is nonzero).
+    The test is symmetric, so rows and columns may be tiles or segments."""
+    device = _kernels.check_tensors("overlap_words", [], [row_min, row_max, col_min, col_max])
+    n_rows, n_cols = row_min.shape[0], col_min.shape[0]
+    if (row_max.shape != (n_rows, 3) or row_min.shape != (n_rows, 3)
+            or col_min.shape != (n_cols, 3) or col_max.shape != (n_cols, 3)):
+        raise ValueError("overlap_words: boxes must be [n, 3] (min, max) pairs, got "
+                         f"{[tuple(t.shape) for t in (row_min, row_max, col_min, col_max)]}")
+    n_words = (n_cols + 31) // 32
+    boxes = [t.contiguous() for t in (row_min, row_max, col_min, col_max)]
+    words = torch.empty((n_rows, n_words), dtype=torch.int32, device=device)
+    summ = (torch.empty((n_rows, (n_words + 31) // 32), dtype=torch.int32, device=device)
+            if summary else None)
+    _kernels.launch("broadphase", "grace_overlap_words", device,
+                    *[t.data_ptr() for t in boxes], words.data_ptr(),
+                    None if summ is None else summ.data_ptr(), n_rows, n_cols)
+    overlap_words_cuda.launches += 1
+    return (words, summ) if summary else words
+
+
+overlap_words_cuda.launches = 0
 
 
 def pack_overlap_bits(overlap: torch.Tensor) -> torch.Tensor:
@@ -51,11 +117,11 @@ def pack_overlap_bits(overlap: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= (1 << 31), words - (1 << 32), words).to(torch.int32)
 
 
-def masks_for_tile_aabbs(tmin, tmax, spheres, seg_block: int = 8192,
-                         block: int = SEG) -> torch.Tensor:
-    """Overlap words of precomputed ray-tile AABBs against ``block``-
-    primitive segments, ``seg_block`` segments at a time."""
-    seg_min, seg_max = segment_aabbs(spheres, block=block)
+def _masks_for_tile_aabbs_plain(tmin, tmax, spheres, seg_block: int = 8192,
+                                block: int = SEG) -> torch.Tensor:
+    """Plain PyTorch version of ``masks_for_tile_aabbs``: the dense bool
+    matrix ``seg_block`` segments at a time, packed to words."""
+    seg_min, seg_max = _segment_aabbs_plain(spheres, block=block)
 
     def block_words(s_min, s_max):
         overlap = (
@@ -77,10 +143,32 @@ def masks_for_tile_aabbs(tmin, tmax, spheres, seg_block: int = 8192,
     return torch.cat(words, dim=1)[:, : (n_segs + 31) // 32]
 
 
+def masks_for_tile_aabbs(tmin, tmax, spheres, seg_block: int = 8192,
+                         block: int = SEG) -> torch.Tensor:
+    """Overlap words of precomputed ray-tile AABBs against ``block``-
+    primitive segments: i32[n_tiles, ceil(n_segs/32)]. On CUDA tensors
+    ``segment_aabbs`` and one overlap-words launch (``seg_block``, the
+    plain version's working set, is not used)."""
+    if _on_cpu(spheres):
+        return _masks_for_tile_aabbs_plain(tmin, tmax, spheres, seg_block, block)
+    return overlap_words_cuda(tmin, tmax, *segment_aabbs(spheres, block))
+
+
+def _dense_tile_masks_plain(rays: Rays, spheres, tile: int, seg_block: int = 8192):
+    tmin, tmax = _tile_aabbs_plain(rays, tile)
+    return _masks_for_tile_aabbs_plain(tmin, tmax, spheres, seg_block)
+
+
 def dense_tile_masks(rays: Rays, spheres, tile: int, seg_block: int = 8192):
     """Seg-128 bitmask broadphase: i32[n_tiles, ceil(n_segs/32)] words."""
     tmin, tmax = tile_aabbs(rays, tile)
     return masks_for_tile_aabbs(tmin, tmax, spheres, seg_block)
+
+
+def _dense_tile_masks_quarter_plain(rays: Rays, spheres, tile: int, seg_block: int = 8192):
+    tmin, tmax = _tile_aabbs_plain(rays, tile)
+    words = _masks_for_tile_aabbs_plain(tmin, tmax, spheres, seg_block, block=32)
+    return words, pack_overlap_bits(words != 0)
 
 
 def dense_tile_masks_quarter(rays: Rays, spheres, tile: int, seg_block: int = 8192):
@@ -90,11 +178,14 @@ def dense_tile_masks_quarter(rays: Rays, spheres, tile: int, seg_block: int = 81
                                                w*32+q overlaps the tile box
       summary i32[n_tiles, ceil(words / 32)]   bit w of summary word s =
                                                word s*32+w is nonzero
+
+    On CUDA tensors the words and the summary come from one overlap-words
+    launch.
     """
+    if _on_cpu(spheres):
+        return _dense_tile_masks_quarter_plain(rays, spheres, tile, seg_block)
     tmin, tmax = tile_aabbs(rays, tile)
-    words = masks_for_tile_aabbs(tmin, tmax, spheres, seg_block, block=32)
-    summary = pack_overlap_bits(words != 0)
-    return words, summary
+    return overlap_words_cuda(tmin, tmax, *segment_aabbs(spheres, 32), summary=True)
 
 
 def _popcount32(v: torch.Tensor) -> torch.Tensor:
@@ -106,18 +197,11 @@ def _popcount32(v: torch.Tensor) -> torch.Tensor:
     return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
-def compact_mask_words(words: torch.Tensor, max_q: int, rows: int = 1024):
-    """Set-bit compaction of bitmask words into per-tile id lists.
-
-    ``grace_tpu``'s form is gather-free one-hot matmuls, a TPU workaround;
-    here the bits are unpacked and each set bit is scattered to its rank
-    (a running count along the row), ``rows`` tiles at a time to bound the
-    [rows, n_words * 32] intermediates.
-
-    Returns (ids i32[T, max_q]: the set-bit ids (bit b of word w is id
-    w*32+b) in ascending order, the first max_q kept, zero-padded;
-    n i32[T] = min(count, max_q); overflow bool[T] = count > max_q).
-    """
+def _compact_mask_words_plain(words: torch.Tensor, max_q: int, rows: int = 1024):
+    """Plain PyTorch version of ``compact_mask_words``: the bits are
+    unpacked and each set bit is scattered to its rank (a running count
+    along the row), ``rows`` tiles at a time to bound the [rows, n_words *
+    32] intermediates."""
     n_tiles, n_words = words.shape
     dev = words.device
     shifts = torch.arange(32, dtype=torch.int32, device=dev)
@@ -135,6 +219,50 @@ def compact_mask_words(words: torch.Tensor, max_q: int, rows: int = 1024):
     return ids[:, :max_q].contiguous(), torch.clamp(counts, max=max_q), counts > max_q
 
 
+def compact_mask_words(words: torch.Tensor, max_q: int, rows: int = 1024):
+    """Set-bit compaction of bitmask words into per-tile id lists.
+
+    ``grace_tpu``'s form is gather-free one-hot matmuls, a TPU workaround;
+    on CUDA tensors it is one launch of ``grace_compact_words`` (a warp a
+    row: popcounts and a warp prefix sum place each word's bits), on CPU
+    tensors ``_compact_mask_words_plain`` (``rows`` tiles at a time).
+
+    Returns (ids i32[T, max_q]: the set-bit ids (bit b of word w is id
+    w*32+b) in ascending order, the first max_q kept, zero-padded;
+    n i32[T] = min(count, max_q); overflow bool[T] = count > max_q).
+    """
+    if _on_cpu(words):
+        return _compact_mask_words_plain(words, max_q, rows)
+    return compact_words_cuda(words, max_q)
+
+
+def compact_words_cuda(words: torch.Tensor, max_q: int):
+    """``csrc/broadphase.cu``'s ``grace_compact_words``:
+    ``compact_mask_words``'s three outputs."""
+    device = _kernels.check_tensors("compact_mask_words", [words], [])
+    if words.dim() != 2 or max_q < 0:
+        raise ValueError(f"compact_mask_words: words {tuple(words.shape)}, max_q {max_q}")
+    n_rows, n_words = words.shape
+    words = words.contiguous()
+    ids = torch.empty((n_rows, max_q), dtype=torch.int32, device=device)
+    n = torch.empty(n_rows, dtype=torch.int32, device=device)
+    overflow = torch.empty(n_rows, dtype=torch.bool, device=device)
+    _kernels.launch("broadphase", "grace_compact_words", device, words.data_ptr(),
+                    ids.data_ptr(), n.data_ptr(), overflow.data_ptr(), n_rows, n_words, max_q)
+    compact_words_cuda.launches += 1
+    return ids, n, overflow
+
+
+compact_words_cuda.launches = 0
+
+
+def _quarter_lists_plain(rays: Rays, spheres, tile: int, max_q: int = 512,
+                         seg_block: int = 8192):
+    tmin, tmax = _tile_aabbs_plain(rays, tile)
+    words = _masks_for_tile_aabbs_plain(tmin, tmax, spheres, seg_block, block=32)
+    return _compact_mask_words_plain(words, max_q)
+
+
 def quarter_lists(rays: Rays, spheres, tile: int, max_q: int = 512,
                   seg_block: int = 8192):
     """Per-tile ascending quarter-id lists (the ``broadphase="qlist"``
@@ -143,6 +271,12 @@ def quarter_lists(rays: Rays, spheres, tile: int, max_q: int = 512,
     tmin, tmax = tile_aabbs(rays, tile)
     words = masks_for_tile_aabbs(tmin, tmax, spheres, seg_block, block=32)
     return compact_mask_words(words, max_q)
+
+
+def _dense_tile_segments_plain(rays: Rays, spheres, tile: int, max_chunks: int):
+    tmin, tmax = _tile_aabbs_plain(rays, tile)
+    return _compact_mask_words_plain(_masks_for_tile_aabbs_plain(tmin, tmax, spheres),
+                                     max_chunks)
 
 
 def dense_tile_segments(rays: Rays, spheres, tile: int, max_chunks: int):

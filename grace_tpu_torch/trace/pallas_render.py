@@ -32,9 +32,10 @@ from grace_tpu_torch.core.types import Rays
 from grace_tpu_torch.ops.vecmath import fma
 from grace_tpu_torch.sph.kernel_integrals import (
     cubic_spline_line_integral_poly, cubic_spline_line_integral_poly_grad, poly_constants)
-from grace_tpu_torch.trace.broadphase import tile_aabbs
+from grace_tpu_torch.trace.broadphase import _on_cpu, _tile_aabbs_plain, tile_aabbs
 from grace_tpu_torch.trace.pallas_broadphase import (
-    compact_mask_words, dense_tile_segments, pack_overlap_bits, segment_aabbs)
+    _compact_mask_words_plain, _segment_aabbs_plain, compact_mask_words, dense_tile_segments,
+    overlap_words_cuda, pack_overlap_bits, segment_aabbs)
 from grace_tpu_torch.trace.pallas_kernel import (MAX_TILE, _impact, _pack_rays,
                                                  list_tile_order)
 
@@ -88,21 +89,38 @@ def _pack_prims_sub(spheres: torch.Tensor, weights):
     return full.reshape(n_pad // SEG, SEG, 8), n_pad
 
 
-def dense_segment_tiles(rays: Rays, spheres, tile: int, max_tiles: int,
-                        seg_block: int = 8192):
-    """Transpose of the dense cull: per segment, the ascending ids of the
-    ray tiles whose AABB overlaps it. The overlaps are packed into words
-    along tiles and compacted by ``compact_mask_words``, ``seg_block``
-    segments at a time. Returns (tile_ids i32[n_segs, max_tiles], n_tiles
-    i32[n_segs] = min(count, max_tiles), overflow bool[n_segs])."""
-    tmin, tmax = tile_aabbs(rays, tile)
-    seg_min, seg_max = segment_aabbs(spheres)
+def _dense_segment_tiles_plain(rays: Rays, spheres, tile: int, max_tiles: int,
+                               seg_block: int = 8192):
+    """Plain PyTorch version of ``dense_segment_tiles``: the overlaps
+    packed into words along tiles and compacted, ``seg_block`` segments at
+    a time."""
+    tmin, tmax = _tile_aabbs_plain(rays, tile)
+    seg_min, seg_max = _segment_aabbs_plain(spheres)
+    if seg_min.shape[0] == 0:
+        return _compact_mask_words_plain(
+            torch.zeros((0, 0), dtype=torch.int32, device=spheres.device), max_tiles)
     parts = []
     for s in range(0, seg_min.shape[0], seg_block):
         s_min, s_max = seg_min[s:s + seg_block], seg_max[s:s + seg_block]
         overlap = ((tmin[None] <= s_max[:, None]) & (s_min[:, None] <= tmax[None])).all(dim=-1)
-        parts.append(compact_mask_words(pack_overlap_bits(overlap), max_tiles))
+        parts.append(_compact_mask_words_plain(pack_overlap_bits(overlap), max_tiles))
     return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def dense_segment_tiles(rays: Rays, spheres, tile: int, max_tiles: int,
+                        seg_block: int = 8192):
+    """Transpose of the dense cull: per segment, the ascending ids of the
+    ray tiles whose AABB overlaps it. Returns (tile_ids i32[n_segs,
+    max_tiles], n_tiles i32[n_segs] = min(count, max_tiles), overflow
+    bool[n_segs]). On CUDA tensors the boxes, the words along tiles (one
+    overlap-words launch, segments as rows) and their compaction are
+    ``csrc/broadphase.cu``'s kernels; CPU tensors run
+    ``_dense_segment_tiles_plain``."""
+    if _on_cpu(spheres):
+        return _dense_segment_tiles_plain(rays, spheres, tile, max_tiles, seg_block)
+    tmin, tmax = tile_aabbs(rays, tile)
+    seg_min, seg_max = segment_aabbs(spheres)
+    return compact_mask_words(overlap_words_cuda(seg_min, seg_max, tmin, tmax), max_tiles)
 
 
 @functools.lru_cache(maxsize=None)

@@ -16,8 +16,11 @@ launches ``csrc/tri.cu``. Two stages, as there:
               no ray of the tile can find a closer hit past the next chunk
               of segments.
 
-On a CPU tensor the kernel wrapper (``trace_tri``) runs its plain PyTorch
-version, ``_tri_plain``.
+On a CUDA tensor the lists are one launch of ``csrc/tri_lists.cu`` (a block
+a tile: the hulls, a thread a segment, a bitonic sort of the listed
+segments) and the trace one of ``csrc/tri.cu``; on a CPU tensor each
+wrapper runs its plain PyTorch version (``_dense_tile_segments_tri_plain``,
+``_tri_plain``).
 
 Layouts: triangles as f32[n_segs, 16, 128] slabs, rows v0.xyz, e1.xyz,
 e2.xyz and 7 zero rows (zero padding triangles are degenerate and never
@@ -33,6 +36,7 @@ import torch
 from grace_tpu_torch import _kernels
 from grace_tpu_torch.core.types import Rays
 from grace_tpu_torch.ops.vecmath import fma, sqrt
+from grace_tpu_torch.trace.broadphase import _on_cpu
 from grace_tpu_torch.trace.pallas_kernel import MAX_TILE, SEG, _pack_rays, _pad_rays
 
 EPS = 1e-7
@@ -44,6 +48,12 @@ MODES = ("closest", "any")
 # overlap tensor (elements) and of the plain kernel's lockstep tiles.
 CULL_BLOCK_ELEMENTS = 1 << 26
 PLAIN_BLOCK_TILES = 256
+# The list kernel (csrc/tri_lists.cu): the most intervals it takes, the
+# most entries of a tile's sort buffer it keeps in shared memory, and the
+# scratch rows (blocks) of its device-memory route beyond that.
+MAX_INTERVALS = 64
+SHARED_SORT = 4096
+SORT_SLOTS = 1024
 
 
 def _pack_tris(tris: torch.Tensor):
@@ -85,7 +95,62 @@ def clip_rays_to_aabb(rays: Rays, bmin, bmax) -> Rays:
 
 def _dense_tile_segments_tri(rays: Rays, tris, tile: int, max_chunks: int,
                              n_intervals: int = N_CULL_INTERVALS):
-    """Per-tile triangle-segment lists, front to back.
+    """Per-tile triangle-segment lists, front to back (the description is
+    ``_dense_tile_segments_tri_plain``'s). On CUDA tensors the segment boxes
+    are two torch reductions (``tri_segment_aabbs``) and the lists one launch
+    of ``csrc/tri_lists.cu`` (``tri_tile_lists_cuda``); CPU tensors run
+    ``_dense_tile_segments_tri_plain``."""
+    if _on_cpu(rays.origins):
+        return _dense_tile_segments_tri_plain(rays, tris, tile, max_chunks, n_intervals)
+    seg_min, seg_max = tri_segment_aabbs(tris)
+    return tri_tile_lists_cuda(rays, seg_min, seg_max, tile, max_chunks, n_intervals)
+
+
+def tri_tile_lists_cuda(rays: Rays, seg_min, seg_max, tile: int, max_chunks: int,
+                        n_intervals: int = N_CULL_INTERVALS):
+    """``csrc/tri_lists.cu``'s ``grace_tri_tile_lists``: the outputs of
+    ``_dense_tile_segments_tri`` from the segment boxes. A tile's listed
+    segments are sorted in shared memory while next_pow2(segments) <=
+    ``SHARED_SORT``, else in a scratch of ``SORT_SLOTS`` rows in device
+    memory (the same network, the same bits)."""
+    device = _kernels.check_tensors("tri_tile_lists", [],
+                                    [rays.origins, rays.directions, rays.lengths, seg_min,
+                                     seg_max])
+    n_rays, n_segs, K = rays.origins.shape[0], seg_min.shape[0], n_intervals
+    if tile < 1 or n_rays % tile:
+        raise ValueError("ray count must be a multiple of the tile size")
+    if not 1 <= K <= MAX_INTERVALS:
+        raise ValueError(f"n_intervals {K}: the kernel takes 1 to {MAX_INTERVALS}")
+    if max_chunks < 0 or seg_max.shape != seg_min.shape or seg_min.shape[1:] != (3,):
+        raise ValueError(f"tri_tile_lists: max_chunks {max_chunks}, boxes "
+                         f"{tuple(seg_min.shape)} and {tuple(seg_max.shape)}")
+    n_tiles = n_rays // tile
+    # frac as the plain version computes it, on the same device
+    frac = torch.arange(K + 1, dtype=torch.float32, device=device) / K
+    cap = 1 << max(0, n_segs - 1).bit_length()
+    slots = 0 if cap <= SHARED_SORT else min(n_tiles, SORT_SLOTS)
+    scratch = torch.empty(max(1, slots * cap), dtype=torch.int64, device=device)
+    ins = [t.contiguous() for t in (seg_min, seg_max, rays.origins, rays.directions,
+                                    rays.lengths)]
+    seg_ids = torch.empty((n_tiles, max_chunks), dtype=torch.int32, device=device)
+    seg_dist = torch.empty((n_tiles, max_chunks), dtype=torch.float32, device=device)
+    n = torch.empty(n_tiles, dtype=torch.int32, device=device)
+    overflow = torch.empty(n_tiles, dtype=torch.bool, device=device)
+    _kernels.launch("tri_lists", "grace_tri_tile_lists", device,
+                    *[t.data_ptr() for t in ins], frac.data_ptr(), seg_ids.data_ptr(),
+                    seg_dist.data_ptr(), n.data_ptr(), overflow.data_ptr(),
+                    scratch.data_ptr(), n_tiles, tile, n_segs, K, max_chunks, slots)
+    tri_tile_lists_cuda.launches += 1
+    return seg_ids, seg_dist, n, overflow
+
+
+tri_tile_lists_cuda.launches = 0
+
+
+def _dense_tile_segments_tri_plain(rays: Rays, tris, tile: int, max_chunks: int,
+                                   n_intervals: int = N_CULL_INTERVALS):
+    """Plain PyTorch version of ``_dense_tile_segments_tri``: per-tile
+    triangle-segment lists, front to back.
 
     Each ray's [0, len] is cut into ``n_intervals`` equal parameter
     intervals; a segment is listed for a tile when its AABB meets the box

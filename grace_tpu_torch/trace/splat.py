@@ -24,6 +24,7 @@ Camera conventions match ``rays.gen.orthographic_projection_rays``: pixel
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple
 
@@ -109,15 +110,44 @@ def _ortho_frame(camera_position, look_at, view_up, vertical_extent, length, w_r
 
 
 def _frozen(a):
-    """A hashable copy of a camera argument (floats), or None for a tensor."""
+    """A hashable key of a camera argument, or None for a tensor: each value
+    with its type and bytes. ``np.float32(x) == x`` and the two hash alike,
+    yet arithmetic on them rounds apart (NumPy 2 keeps an np.float32 in
+    f32), so the type is part of the key; the bytes keep -0 apart from +0."""
     if isinstance(a, torch.Tensor):
         return None
-    flat = np.asarray(a, dtype=np.float64).reshape(-1)
-    return tuple(float(x) for x in flat) if flat.size > 1 else float(flat[0])
+    if isinstance(a, (tuple, list)):
+        parts = tuple(_frozen(x) for x in a)
+        return None if any(p is None for p in parts) else (type(a), parts)
+    arr = np.asarray(a)
+    if arr.dtype == object:
+        return None
+    return type(a), arr.dtype.str, arr.shape, arr.tobytes()
 
 
-@functools.lru_cache(maxsize=64)
-def _cached_frame(*args):
+def _f32_key(a):
+    """A hashable key of a camera argument that ``_ortho_frame`` takes as an
+    f32 tensor: the bytes of its f32 values (None for a tensor)."""
+    if isinstance(a, torch.Tensor):
+        return None
+    return np.asarray(a, dtype=np.float32).tobytes()
+
+
+def _memo(cache: collections.OrderedDict, key, compute, size: int = 64):
+    """``compute()``, kept in ``cache`` under ``key`` (the ``size`` latest
+    keys); a key holding None is not cached."""
+    if key is None or any(k is None for k in key):
+        return compute()
+    if key in cache:
+        cache.move_to_end(key)
+        return cache[key]
+    value = cache[key] = compute()
+    if len(cache) > size:
+        cache.popitem(last=False)
+    return value
+
+
+def _frame_constants(*args):
     frame = _ortho_frame(*args)
     consts = torch.cat([frame.view_dir, frame.v, frame.u, frame.cam,
                         torch.stack([frame.length, frame.x0, frame.y0, frame.band_step,
@@ -126,19 +156,20 @@ def _cached_frame(*args):
 
 
 BUCKET_CONSTS = 17  # f32 constants of grace_splat_bucket_keys (csrc/splat_prep.cu)
+_FRAME_CACHE: collections.OrderedDict = collections.OrderedDict()
 
 
 def _bucket_constants(camera_position, look_at, view_up, vertical_extent, length, w_res,
                       h_res, tile_w, band, device):
     """(consts f32[17], xcols f32[W, 1], yrows f32[H, 1]) on ``device``:
-    ``_ortho_frame``'s tensors, computed by its torch ops once per camera
-    and device and cached (a camera given as tensors is not cached)."""
-    key = (*(_frozen(a) for a in (camera_position, look_at, view_up, vertical_extent,
-                                  length)), w_res, h_res, tile_w, band, torch.device(device))
-    if any(k is None for k in key[:5]):
-        return _cached_frame.__wrapped__(camera_position, look_at, view_up, vertical_extent,
-                                         length, w_res, h_res, tile_w, band, device)
-    return _cached_frame(*key)
+    ``_ortho_frame``'s tensors, computed by its torch ops from the caller's
+    camera once per camera and device and cached (a camera given as tensors
+    is not cached). ``_ortho_frame`` takes every camera value as an f32
+    tensor first, so the key is those f32 values."""
+    args = (camera_position, look_at, view_up, vertical_extent, length)
+    key = (*(_f32_key(a) for a in args), w_res, h_res, tile_w, band, torch.device(device))
+    return _memo(_FRAME_CACHE, key,
+                 lambda: _frame_constants(*args, w_res, h_res, tile_w, band, device))
 
 
 def bucket_prims_ortho(spheres, camera_position, look_at, view_up,

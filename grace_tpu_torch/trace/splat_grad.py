@@ -28,6 +28,7 @@ runs its plain PyTorch version.
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple
 
@@ -39,7 +40,7 @@ from grace_tpu_torch.ops.vecmath import dot3, fma, matmul_f32
 from grace_tpu_torch.sph.kernel_integrals import SPLAT_BASES
 from grace_tpu_torch.trace.pallas_broadphase import pack_overlap_bits
 from grace_tpu_torch.trace.pallas_kernel import _set_bits
-from grace_tpu_torch.trace.splat import _camera_frame, _factor, _frozen, batch_size
+from grace_tpu_torch.trace.splat import _camera_frame, _factor, _frozen, _memo, batch_size
 
 SEG = 128  # particles per Morton segment = slab lane width
 
@@ -160,11 +161,13 @@ def projected_overlap(pu, pv, invh, scale, cam: OrthoCamera, tile_w: int, tile_h
 SETUP_CONSTS = 13  # f32 constants of grace_sortfree_setup (csrc/splat_prep.cu)
 
 
-@functools.lru_cache(maxsize=64)
-def _cached_setup_constants(cam: OrthoCamera, tile_w: int, tile_h: int, device):
+_SETUP_CACHE: collections.OrderedDict = collections.OrderedDict()
+
+
+def _setup_constants_uncached(cam: OrthoCamera, tile_w: int, tile_h: int, device):
     view_dir, v, u, c, *_ = _camera_numerics(cam, device)
-    # project_ortho compares depth with the Python float cam.length, which
-    # torch takes as an f32
+    # project_ortho compares depth with cam.length, which torch takes as an
+    # f32
     length = torch.tensor([cam.length], dtype=torch.float32, device=device)
     return (torch.cat([view_dir, v, u, c, length]),
             torch.cat(_tile_spans(cam, tile_w, tile_h, device)), _coords(cam, device))
@@ -173,14 +176,16 @@ def _cached_setup_constants(cam: OrthoCamera, tile_w: int, tile_h: int, device):
 def _setup_constants(cam: OrthoCamera, tile_w: int, tile_h: int, device):
     """(consts f32[13]: view_dir, v, u, camera position, length; spans
     f32[2 ntx + 2 nty]: ``_tile_spans``; coords f32[4]) on ``device``,
-    computed by the plain path's torch ops once per camera, tile shape and
-    device and cached."""
+    computed by the plain path's torch ops from the caller's camera, once
+    per camera, tile shape and device, and cached. The key holds each
+    camera value with its type: ``_camera_numerics`` computes in the type
+    of ``vertical_extent`` (f32 for an np.float32), so a float and an
+    np.float32 of one value are two cameras. A camera given as tensors is
+    not cached."""
     device = torch.device(device)
-    frozen = [_frozen(a) for a in cam]
-    if any(f is None for f in frozen):
-        return _cached_setup_constants.__wrapped__(cam, tile_w, tile_h, device)
-    return _cached_setup_constants(OrthoCamera(*frozen[:5], cam.resolution_x,
-                                               cam.resolution_y), tile_w, tile_h, device)
+    key = (*(_frozen(a) for a in cam), tile_w, tile_h, device)
+    return _memo(_SETUP_CACHE, key,
+                 lambda: _setup_constants_uncached(cam, tile_w, tile_h, device))
 
 
 def _sortfree_setup_plain(spheres, weights, cam: OrthoCamera, tile_w: int, tile_h: int):

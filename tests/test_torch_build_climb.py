@@ -338,21 +338,38 @@ def test_climb_ties(case):
 def test_sentinel_delta_gives_a_valid_tree():
     """A 63-bit XOR delta can equal the sentinel 0xFFFFFFFF (two points at
     opposite corners). grace_tpu's build then loses the second leaf and
-    leaves node 0's right child pointing at node 0 (ROADMAP C19), and the
-    port's plain build is the same; the climb, whose ends are larger than
-    any delta, gives the valid tree."""
+    leaves node 0's right child pointing at node 0 (ROADMAP C19). The
+    climb, whose ends are larger than any delta, gives the valid tree, and
+    the port's plain build (the CPU route, build_lbvh_plain) takes the
+    climb's rule and gives the same tree, field for field; float deltas
+    at +inf (the float sentinel) likewise."""
     s = np.array([[0, 0, 0, 0.1], [1, 1, 1, 0.1]], np.float32)
     mins, maxs, d = sorted_scene(s, "xor63")
     assert d.tolist() == [td.U32_SENTINEL]
     want_j = jax_build(mins, maxs, d, 1)
-    assert_trees_bit_equal(plain_build(mins, maxs, d, 1), want_j, "plain vs grace_tpu")
     assert want_j["children"].tolist() == [[~0, 0]]
+    plain = plain_build(mins, maxs, d, 1)
     for seed in ORDERS:
         _, tree = climb_build(mins, maxs, d, 1, seed)
         assert tree["children"].tolist() == [[~0, ~1]] and tree["root"] == 0
         assert tree["leaves"].tolist() == [[0, 1], [1, 1]] and tree["n_leaves"] == 2
         assert np.array_equal(tree["child_aabbs"][0, :, 0], mins)
         assert np.array_equal(tree["child_aabbs"][0, :, 1], maxs)
+        assert_trees_bit_equal(plain, tree, "plain vs climb")
+    # every field but the broken child is grace_tpu's
+    for f in TREE_FIELDS[1:]:
+        assert np.array_equal(plain[f], want_j[f]), f
+    # deltas equal to the sentinel inside a longer sequence: leaves of 2
+    # primitives whose boundary deltas tie with the ends
+    rng = np.random.default_rng(19)
+    for d_kind, sent in (("xor63", td.U32_SENTINEL), ("euclidean", np.inf)):
+        mins, maxs, d = sorted_scene(spheres(rng, 40), d_kind)
+        d = d.copy()
+        d[[5, 17, 30]] = sent
+        plain = plain_build(mins, maxs, d, 2)
+        for seed in ORDERS:
+            assert_trees_bit_equal(plain, climb_build(mins, maxs, d, 2, seed)[1],
+                                   f"plain vs climb, {d_kind} sentinels")
 
 
 @pytest.mark.parametrize("bits", [30, 63])

@@ -47,7 +47,12 @@ kernel, the sort-free setup) bit-equal to their plain versions at every case of 
 SPLAT_PREP_CASES (n not a multiple of chunk or 128, n < 32, 128 tiles,
 band None to 64, weights None and given, dead particles, overflow, a
 2^16-particle clustered scene), their launches on a frame and a training
-step and the refusals. The edge scenes and checks are chip_smoke.py's.
+step and the refusals; and the dense broadphase and the triangle lists
+(broadphase.cu, tri_lists.cu) against their plain versions at every case
+of chip_smoke's BROADPHASE_CASES and TRI_LIST_CASES (boxes equal in value,
+everything else bit-equal), the lists' device-memory sort forced on the
+torus, their launches on a quarter, a qlist and a triangle trace and the
+refusals. The edge scenes and checks are chip_smoke.py's.
 """
 
 import numpy as np
@@ -68,6 +73,8 @@ from chip_smoke import (
     BUILD_CASES, EDGE_ORDERS, build_case, build_counters, check_build_case,
     check_sentinel_build, zero_build_counters, SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
     SPLAT_PREP_CASES, check_splat_prep_case, prep_counters, splat_prep_scene, zero_prep_counters,
+    BROADPHASE_CASES, TRI_LIST_CASES, broadphase_counters, broadphase_scene,
+    check_broadphase_case, check_tri_lists_case, tri_list_inputs, zero_broadphase_counters,
     check_record_orders, check_records, check_walk_routes,
     check_render,
     check_render_bwd, check_sortfree, check_splat, check_tri, colocated_scene, fd_checks,
@@ -868,7 +875,7 @@ def test_build_kernels_match_plain_build(dev, tag):
 @pytest.mark.cuda
 def test_build_sentinel_delta_gives_a_valid_tree(dev):
     """A 63-bit XOR delta equal to the sentinel (ROADMAP C19): the climb's
-    tree is the valid one, the plain build's keeps grace_tpu's fault."""
+    tree is the valid one, and the plain build's the same, bit for bit."""
     check_sentinel_build(dev)
 
 
@@ -944,3 +951,76 @@ def test_splat_prep_launches_and_refusals(dev):
         sg.sortfree_setup(spheres.double(), None, cam, tile_w, tile_h)
     with pytest.raises(ValueError):
         sg.sortfree_setup(spheres, torch.ones(3, device=dev), cam, tile_w, tile_h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", list(BROADPHASE_CASES))
+def test_broadphase_kernels_match_plain(dev, tag):
+    """broadphase.cu against the plain versions on the card: boxes equal
+    (zero signs free), every word, summary word, list, count and flag bit
+    for bit."""
+    from grace_tpu_torch.core.types import Rays
+
+    s, o, d, ln = broadphase_scene(tag)
+    rays = Rays.from_arrays(o, d, ln, device=dev)
+    check_broadphase_case(tag, torch.from_numpy(s).to(dev), rays, BROADPHASE_CASES[tag][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", list(TRI_LIST_CASES))
+def test_tri_lists_kernel_matches_plain(dev, tag):
+    """tri_lists.cu against _dense_tile_segments_tri_plain on the card: ids,
+    counts and flags bit for bit, distances too (NaN where the plain
+    version's are)."""
+    _, _, tile, max_chunks, k = TRI_LIST_CASES[tag]
+    rays, tris = tri_list_inputs(tag, dev)
+    check_tri_lists_case(tag, rays, tris, tile, max_chunks, k)
+
+
+@pytest.mark.cuda
+def test_tri_lists_device_memory_route(dev, monkeypatch):
+    """The device-memory sort forced on the torus (fewer scratch rows than
+    tiles): the same bits as the plain version."""
+    monkeypatch.setattr(pt, "SHARED_SORT", 4)
+    monkeypatch.setattr(pt, "SORT_SLOTS", 5)
+    tag = list(TRI_LIST_CASES)[0]
+    _, _, tile, max_chunks, k = TRI_LIST_CASES[tag]
+    rays, tris = tri_list_inputs(tag, dev)
+    check_tri_lists_case(tag, rays, tris, tile, max_chunks, k)
+
+
+@pytest.mark.cuda
+def test_broadphase_launches_and_refusals(dev, scene):
+    """A quarter trace launches the tile, segment and overlap kernels once
+    each, a qlist trace adds the compaction, a triangle trace the list
+    kernel, and no plain version runs on the card; the wrappers refuse what
+    the kernels do not take."""
+    ss, rays = scene
+    zero_broadphase_counters()
+    pk.pallas_trace_sph(rays, ss, tile=64, broadphase="quarter")
+    assert broadphase_counters() == {"segment_boxes": 1, "tile_boxes": 1, "overlap_words": 1,
+                                     "compact_words": 0, "tri_tile_lists": 0}
+    pk.pallas_trace_sph(rays, ss, tile=64, broadphase="qlist", max_chunks=512)
+    tris = torch.from_numpy(random_mesh(np.random.default_rng(4), 500)).to(dev)
+    pt.pallas_trace_tri(rays, tris)
+    torch.cuda.synchronize()
+    assert broadphase_counters() == {"segment_boxes": 2, "tile_boxes": 2, "overlap_words": 2,
+                                     "compact_words": 1, "tri_tile_lists": 1}
+    from grace_tpu_torch.trace import broadphase as bp
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+
+    with pytest.raises(ValueError, match="block"):
+        pb.segment_aabbs(ss, 64)
+    with pytest.raises(TypeError):
+        pb.segment_aabbs(ss.double(), 32)
+    with pytest.raises(TypeError):
+        pb.compact_mask_words(torch.zeros((4, 2), dtype=torch.int64, device=dev), 8)
+    with pytest.raises(ValueError, match="multiple"):
+        bp.tile_aabbs(pk._pad_rays(rays, 64)[:100], 64)
+    with pytest.raises(ValueError, match="intervals"):
+        pt.pallas_trace_tri(rays, tris, n_cull_intervals=pt.MAX_INTERVALS + 1)
+    # an unaligned sphere view is copied to an aligned one, not refused
+    odd = torch.empty(ss.numel() + 1, device=dev)[1:].view(-1, 4)
+    odd.copy_(ss)
+    assert odd.data_ptr() % 16
+    assert torch.equal(pb.segment_aabbs(odd, 32)[0], pb.segment_aabbs(ss, 32)[0])

@@ -265,3 +265,31 @@ def test_splat_prep_constants_agree():
     assert sp.sort_tiles(4 << 20, 257) == (sp.SORT_TILE, (4 << 20) // sp.SORT_TILE)
     tile, tiles = sp.sort_tiles(4 << 20, 1 << 20)
     assert tile % 32 == 0 and tiles * tile >= 4 << 20 and (1 << 20) * tiles <= 2 * sp.SORT_COUNTS
+
+
+def test_broadphase_constants_agree():
+    """broadphase.cu's segment width and tri_lists.cu's interval limit,
+    shared-memory sort size and BIG are the wrappers'; both libraries build
+    with --fmad=false (the endpoints' and distances' rounding is the plain
+    versions'), and every entry refuses what it does not take before it
+    touches the device."""
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+
+    bp_src, tri_src = _source("broadphase"), _source("tri_lists")
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);",
+                                                     bp_src + tri_src)}
+    assert consts["kSeg"] == pb.SEG
+    assert consts["kMaxIntervals"] == pt.MAX_INTERVALS and consts["kSharedSort"] == pt.SHARED_SORT
+    assert float(re.search(r"kBig = ([0-9.e+-]+)f;", tri_src).group(1)) == pt.BIG
+    assert pt.N_CULL_INTERVALS <= pt.MAX_INTERVALS and pt.SORT_SLOTS >= 1
+    for name, entries in (("broadphase", {"grace_segment_boxes", "grace_tile_boxes",
+                                          "grace_overlap_words", "grace_compact_words"}),
+                          ("tri_lists", {"grace_tri_tile_lists"})):
+        _, flags, declared = _kernels.KERNELS[name]
+        assert flags == ["--fmad=false"] and set(declared) == entries
+        src = _source(name)
+        for entry in entries:
+            body = src[src.index(f'extern "C" int {entry}('):]
+            assert "cudaErrorInvalidValue" in body[:body.index("cudaSetDevice")]
+    # the list kernel's shared buffer fits the default 48 KB with its masks
+    assert pt.SHARED_SORT * 8 + 2 * 4 * (pt.SHARED_SORT // 32) <= 48 * 1024
