@@ -2,12 +2,14 @@
 
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
                              [sortfree_bwd] [render_fwd] [paths] [statistics] [walk]
-                             [build] [splat_prep] [broadphase] [--parent DIR]
+                             [build] [splat_prep] [broadphase] [record_sort]
+                             [--parent DIR]
                              (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
     python3 chip_ablation.py build --package DIR
     python3 chip_ablation.py splat_prep --parent DIR
     python3 chip_ablation.py broadphase --parent DIR
+    python3 chip_ablation.py records --parent DIR   (record_sort alone: no kernel variants)
 
 Each variant is a copy of the kernel's sources with one constant, one wait
 or one device function replaced, built as the package builds its libraries
@@ -74,7 +76,17 @@ wrapper launches them (longest list first).
   integral, no sentinel fill, counts only); each variant's resources; then
   the whole record trace on both routes with the device's busy share, and
   the two launch-order helpers at tile 64 beside the same order on the i64
-  popcount.
+  popcount. Then the record_sort part.
+
+  record_sort: the records' post-processing (csrc/segsort.cu) through the
+  package's user functions only, on main path 4's records (the bench
+  scene's sorted rays, 512 a ray): sort_records_by_distance,
+  records_to_flat, sort_by_distance of trace_sph(engine="pallas")'s flat
+  layout with its total_hits, and the record trace alone, with the row
+  sort and as trace_sph with the CSR sort; each timed (CUDA events, median
+  of 10 after a warm run) with the device's busy ms and device operations
+  over one call; with --parent DIR, DIR's grace_tpu_torch and this one in
+  turns (parent, this, this, parent), each a process of its own.
 
   sortfree_bwd: grace_splat_sortfree_bwd (B12, csrc/splat_sortfree.cu) on
   main path 3's backward inputs (the bench scene, tiles of 32 x 128, deg8,
@@ -1239,6 +1251,11 @@ def record_call(route, args, order, out, cap, parent=False):
              *outs, n_tiles, r_pad // n_tiles, args[0].shape[1], prims.shape[1] // 128, cap, 14])
 
 
+def _read(path):
+    with open(path) as f:
+        return f.read()
+
+
 def record_ablations(sorted_spheres, rays_s, parent_dir):
     """B16 and B15 on main path 4's inputs (the bench scene's sorted rays,
     tile 64, 512 records a ray): the parent's kernel (from ``parent_dir``'s
@@ -1257,8 +1274,14 @@ def record_ablations(sorted_spheres, rays_s, parent_dir):
     variants = record_variants(shipped)
     entry = {"quarter": "grace_records_quarter", "bitmask": "grace_records_bitmask"}
     builds = {}   # variant -> build_variant's arguments; built at once, one nvcc each
-    if parent_dir is not None:
-        parent_csrc = os.path.join(parent_dir, "grace_tpu_torch", "csrc")
+    parent_csrc = parent_dir and os.path.join(parent_dir, "grace_tpu_torch", "csrc")
+    if parent_dir is not None and _read(os.path.join(parent_csrc, "records.cu")) == _read(
+            os.path.join(_kernels.CSRC, "records.cu")):
+        # a parent whose records.cu is this one: no parent rows (PARENT_RECORD_ENTRIES
+        # are the entries of records.cu before its order argument)
+        print("records: the parent's records.cu is this one; variants held to the first "
+              "variant", flush=True)
+    elif parent_dir is not None:
         builds["parent"] = ("records", "records-parent", None, parent_csrc,
                             PARENT_RECORD_ENTRIES)
         builds["parent, mask then append"] = (
@@ -1942,6 +1965,49 @@ def broadphase_paths():
     return result
 
 
+def record_sort_paths():
+    """The ``record_sort`` part in this process, on whichever
+    grace_tpu_torch it imports: main path 4's records (the bench scene's
+    sorted rays, 512 a ray, the default route) through the package's user
+    functions: sort_records_by_distance, records_to_flat, sort_by_distance
+    of trace_sph(engine="pallas")'s flat layout with its total_hits, and
+    the record trace alone, with the row sort, and trace_sph with the CSR
+    sort. {call: {ms, busy_ms, wall_ms, device_ops}}."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.ops.segops import sort_by_distance
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+    from grace_tpu_torch.trace import pallas_records as prc
+    from grace_tpu_torch.trace.sph import trace_sph
+
+    dev = torch.device("cuda", 0)
+    spheres = torch.from_numpy(
+        make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
+    ss, tree, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+    rays_s, _, _ = spatial_sort_rays(orthographic_projection_rays(
+        SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH, device=dev))
+    rec = prc.pallas_trace_sph_records(rays_s, ss, 512)
+    total = int(rec.counts.sum())
+    flat = trace_sph(rays_s, ss, tree, capacity=total, engine="pallas", per_ray_capacity=512)
+    csr = lambda f: sort_by_distance(f.distances, f.offsets, f.indices, f.integrals,
+                                     total_hits=f.total_hits)
+    trace = lambda: prc.pallas_trace_sph_records(rays_s, ss, 512)
+    flat_trace = lambda: trace_sph(rays_s, ss, tree, capacity=total, engine="pallas",
+                                   per_ray_capacity=512)
+    result = {}
+    for label, fn in (
+            ("sort_records_by_distance (path 4's rows)", lambda: prc.sort_records_by_distance(rec)),
+            ("records_to_flat (path 4's rows)", lambda: prc.records_to_flat(rec, total)),
+            ("sort_by_distance (trace_sph's flat layout)", lambda: csr(flat)),
+            ("record trace", trace),
+            ("record trace + sort_records_by_distance",
+             lambda: prc.sort_records_by_distance(trace())),
+            ("trace_sph(engine=pallas) + sort_by_distance", lambda: csr(flat_trace()))):
+        ms = cuda_ms(fn, reps=10)
+        print(f"record_sort part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
+        result[label] = {"ms": ms, **device_busy(f"record_sort part {label}", fn)}
+    return result
+
+
 def f32_pair_sums(d):
     """An and Gn with the pair terms in f32 (dot products by ``matmul_f32``,
     acos, sin) and the sums in f64, the pair (i, i) dropped: the form the
@@ -2210,7 +2276,7 @@ def walk_ablations(parent_dir):
 
 
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
-         "paths", "statistics", "walk", "build", "splat_prep", "broadphase")
+         "paths", "statistics", "walk", "build", "splat_prep", "broadphase", "record_sort")
 
 
 def main():
@@ -2255,6 +2321,9 @@ def main():
         summary.update(splat_ablations(sorted_spheres, torch.ones(N_PARTICLES, device=dev)))
     if "records" in parts:
         summary.update(record_ablations(sorted_spheres, rays_s, parent))
+    if "records" in parts or "record_sort" in parts:
+        summary["record_sort"] = (part_turns("record_sort", parent) if parent
+                                  else record_sort_paths())
     if "sortfree_bwd" in parts:
         summary["splat_sortfree_bwd"] = sortfree_bwd_ablations(
             sorted_spheres, torch.ones(N_PARTICLES, device=dev), parent)

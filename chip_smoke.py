@@ -29,11 +29,17 @@ kernels' launch counters set to 0 just before it:
      trace, no overflow and no NaN poison;
   4. per-hit records: pallas_trace_sph_records with 512 records a ray on
      the default (quarter) route (CUDA) and the bitmask route (CUDA),
-     sort_records_by_distance and trace_sph(engine="pallas"); counts equal
-     the quarter trace's hit counts on every ray, rows that did not
-     overflow sum to its column density (rtol 1e-5, atol 1e-6 x max), the
-     routes are bit-equal, sorted rows non-decreasing, flat offsets the
-     exclusive cumsum;
+     sort_records_by_distance (CUDA, csrc/segsort.cu's row sort),
+     trace_sph(engine="pallas") (its flat layout by segsort.cu's
+     records_to_flat) and segops.sort_by_distance of that layout with its
+     total_hits (segsort.cu's segmented sort), the original's
+     trace-then-sort flow; counts equal the quarter trace's hit counts on
+     every ray, rows that did not overflow sum to its column density
+     (rtol 1e-5, atol 1e-6 x max), the routes are bit-equal, sorted rows
+     non-decreasing, flat offsets the exclusive cumsum, and the CSR sort
+     of the flat layout bit-equal to the flat layout of the sorted rows
+     (``segsort_gate``); then each of the three against its plain version
+     on the card, bit for bit, on these records;
   5. triangles: render_triangles(engine="pallas") at 512x512 (build,
      auto_camera, pinhole rays, the closest-hit and the shadow any-hit pass
      on CUDA); every phase finite, the image in [0, 1], no list overflow,
@@ -143,6 +149,20 @@ path 5's primary and shadow rays at max_chunks 2048 and 16: ids,
 distances, counts and flags bit-equal. Every main path but 8 launches
 some of these kernels; each path's are counted and gated.
 
+Then ``check_segsort`` holds the records' post-processing
+(csrc/segsort.cu: the row sort, the CSR sort by distance, the flat
+layout) at the cases of SEGSORT_ROW_CASES, SEGSORT_FLAT_CASES and
+SEGSORT_CSR_CASES (keys of every special value of the order, ties,
+sentinel slots mid-row, real +inf, rows that overflowed, widths 128 to
+2,048 (past a warp: chunks merged); capacities equal to, below and past
+the total, sentinel slots with other sentinels; empty, repeated,
+unordered, negative, past-H and near-2^31 offsets, total_hits 0, inside
+and past H, segments of 3,000, a 1.2M-entry pseudo-segment, nine arrays)
+to grace_tpu's order, bit for bit: to the plain versions run on the CPU,
+which the CPU tests hold to grace_tpu; where the card's plain versions
+(torch.sort on the card) depart, the departures are counted and logged
+(ROADMAP C25), not failed. Main path 4 runs all three, counted there.
+
 The engine's walk is held bit-equal to the plain walk (engine.trace) at
 edge shapes first: a stack of 4 (on the rays whose overflowed walk ends),
 rays on box planes with zero direction components, rays that miss
@@ -187,8 +207,9 @@ and power limit, the work each kernel's bound is computed from,
 a JSON line describing each kernel (the list kernel on quarter and on
 segment lists apart, the triangle kernel's two passes apart, the engine's
 walk for spheres and for triangles apart, the build's four kernels, the
-splat setups' four, the broadphase's four and the triangle lists with
-their launches on each main path), and last a
+splat setups' four, the broadphase's four, the triangle lists and the
+records' three post-processing entries with their launches on each main
+path), and last a
 JSON line with ``"ok": true``. Any failure raises, so
 the exit code is non-zero and no result line prints.
 """
@@ -2916,6 +2937,363 @@ def broadphase_times(spheres, rays, tris, tri_sets):
     return t, work
 
 
+# check_segsort's cases (csrc/segsort.cu). Keys with every special value
+# of the order (SPECIAL_BITS: +0, -0, +inf, -inf, NaN of both signs and a
+# payload NaN, subnormals, which tie with zero (ROADMAP C24), and the
+# smallest normals, which do not) and many exact ties; record rows
+# with sentinel slots in the middle and at the tail, real +inf distances,
+# rows that overflowed; CSR offsets repeated, unordered, negative, past H
+# and near 2^31, total_hits 0, inside and past H.
+SEGSORT_SEED = 2030
+SPECIAL_BITS = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000,
+                         0xFFC00000, 0x7F800001, 0x00000001, 0x80000001, 0x007FFFFF,
+                         0x00800000, 0x80800000],
+                        np.uint32).view(np.float32)
+# rows: tag -> (kind, rows, width). "edges": special keys, ties, sentinel
+# slots anywhere; "records": rows as the record kernels write them (the
+# first min(count, width) slots hold records, the rest the sentinels),
+# counts up to 1.5 width (rows that overflowed).
+SEGSORT_ROW_CASES = {
+    "edges: ties, sentinel slots mid-row, +-inf, NaNs of both signs, -0 and +0; 256 rows of 128":
+        ("edges", 256, 128),
+    "records as the kernels write them, 512 wide, counts to 768 (overflowed rows)":
+        ("records", 300, 512),
+    "edges, 384 wide (no power of two)": ("edges", 96, 384),
+    "edges, 1,024 wide (32 a lane)": ("edges", 40, 1024),
+    "edges, 2,048 wide (past a warp: chunks of 1,024 merged)": ("edges", 24, 2048),
+}
+# flat layouts: tag -> (rows, width, capacity past the kept total,
+# sentinels or None, sentinel slots); the rows are "records" rows.
+SEGSORT_FLAT_CASES = {
+    "capacity the kept total": (300, 128, 0, None, False),
+    "capacity below the total (records dropped)": (300, 128, -5000, None, False),
+    "capacity past the total (a tail of sentinels)": (300, 128, 777, None, False),
+    "sentinel slots, sentinels (-7, 2.5, NaN), capacity below the total":
+        (300, 128, -123, (-7, 2.5, float("nan")), True),
+    "sentinel slots, sentinels (3, -0.0, inf), capacity past the total":
+        (257, 256, 1000, (3, -0.0, float("inf")), True),
+    "no rows, capacity 100": (0, 128, 100, None, False),
+    "one row of 512 that overflowed, capacity 0": (1, 512, None, None, False),
+}
+# CSR: tag -> (H, kind, total_hits, f32 and i32 data arrays). "edges":
+# special keys; "rays": segments of ray-like lengths. total_hits: None,
+# an int, or "half" (H // 2), "past" (H + 100).
+SEGSORT_CSR_CASES = {
+    "edges; empty, repeated, unordered, negative, past-H and near-2^31 offsets; no total":
+        (3000, "edges", None, (1, 1)),
+    "edges, total_hits 0 (every entry in the pseudo-segment)": (3000, "edges", 0, (1, 0)),
+    "edges, total_hits past H": (3000, "edges", "past", (0, 1)),
+    "segments of up to 3,000 (past a warp's 1,024), total_hits inside":
+        (20000, "long", "half", (1, 1)),
+    "a trailing pseudo-segment of 1,200,000 entries, three data arrays":
+        (1_300_000, "rays", 100_000, (2, 1)),
+    "nine arrays (two launches of eight)": (5000, "rays", "half", (4, 3)),
+    "one segment (offsets [0]), no total": (4000, "one", None, (0, 0)),
+    "no offsets, total_hits inside (one segment: the pseudo-segment's id is 0)":
+        (1000, "none", 400, (0, 0)),
+}
+
+
+def _segsort_rng(cases, tag):
+    salt = (SEGSORT_ROW_CASES, SEGSORT_FLAT_CASES, SEGSORT_CSR_CASES).index(cases)
+    return np.random.default_rng([SEGSORT_SEED, salt, list(cases).index(tag)])
+
+
+def _special_keys(rng, n):
+    """f32[n] keys: a quarter from SPECIAL_BITS, a quarter exact ties, the
+    rest uniform in [0, 4)."""
+    d = (4 * rng.random(n)).astype(np.float32)
+    kind = rng.integers(0, 4, n)
+    d[kind == 0] = rng.choice(SPECIAL_BITS, int((kind == 0).sum()))
+    d[kind == 1] = rng.choice(np.array([0.5, 1.0, 2.0], np.float32), int((kind == 1).sum()))
+    return d
+
+
+def segsort_rows(tag):
+    """(counts i32[R], indices i32[R, C], integrals f32[R, C], distances
+    f32[R, C]) of SEGSORT_ROW_CASES' case ``tag`` as numpy arrays."""
+    kind, n_rows, width = SEGSORT_ROW_CASES[tag]
+    return _record_rows(_segsort_rng(SEGSORT_ROW_CASES, tag), kind, n_rows, width)
+
+
+def _record_rows(rng, kind, n_rows, width):
+    counts = rng.integers(0, width + width // 2 + 1, n_rows).astype(np.int32)
+    counts[:3] = (0, width, width + 1)[:n_rows]
+    valid = np.arange(width)[None, :] < np.minimum(counts, width)[:, None]
+    idx = np.where(valid, rng.integers(0, 1 << 20, (n_rows, width)), -1).astype(np.int32)
+    intg = np.where(valid, rng.random((n_rows, width)), 0.0).astype(np.float32)
+    dist = np.where(valid, 4 * rng.random((n_rows, width)), -1.0).astype(np.float32)
+    if kind == "edges":
+        dist = _special_keys(rng, n_rows * width).reshape(n_rows, width)
+        idx[rng.random((n_rows, width)) < 0.1] = -1     # sentinel slots anywhere
+        idx[valid & (rng.random((n_rows, width)) < 0.05)] = -1
+        dist[rng.random((n_rows, width)) < 0.03] = np.inf   # real +inf: ties with sentinels
+        if n_rows > 5:
+            idx[3] = -1                                  # a row of sentinels only
+            dist[4] = 1.5                                # a row of one distance
+            idx[5, ::2] = -1
+    return counts, idx, intg, dist
+
+
+def segsort_flat(tag):
+    """(rows as segsort_rows gives them, capacity, sentinel keyword
+    arguments) of SEGSORT_FLAT_CASES' case ``tag``."""
+    n_rows, width, extra, sentinels, slots = SEGSORT_FLAT_CASES[tag]
+    rows = _record_rows(_segsort_rng(SEGSORT_FLAT_CASES, tag), "records", n_rows, width)
+    kept = int(np.minimum(rows[0], width).sum()) + (n_rows if slots else 0)
+    capacity = 0 if extra is None else max(kept + extra, 0)
+    kw = dict(sentinel_slots=slots)
+    if sentinels is not None:
+        kw.update(index_sentinel=sentinels[0], value_sentinel=sentinels[1],
+                  distance_sentinel=sentinels[2])
+    return rows, capacity, kw
+
+
+def segsort_csr(tag):
+    """(distances f32[H], offsets i32[R], indices i32[H], data arrays,
+    total_hits) of SEGSORT_CSR_CASES' case ``tag`` as numpy arrays (and an
+    int or None)."""
+    n, kind, total, (n_f, n_i) = SEGSORT_CSR_CASES[tag]
+    rng = _segsort_rng(SEGSORT_CSR_CASES, tag)
+    if kind in ("edges", "long", "rays"):
+        most = {"edges": 40, "long": 3000, "rays": 600}[kind]
+        lengths = rng.integers(0, most + 1, n)
+        lengths[rng.random(n) < 0.2] = 0                 # empty segments
+        starts = np.cumsum(np.concatenate([[0], lengths]))
+        limit = total if kind == "rays" and isinstance(total, int) else n
+        offsets = starts[starts < limit].astype(np.int64)   # rays' starts inside the hits
+    elif kind == "one":
+        offsets = np.zeros(1, np.int64)
+    else:
+        offsets = np.zeros(0, np.int64)
+    if kind == "edges":
+        k = offsets.shape[0]
+        shuffle = rng.random(k) < 0.2                    # unordered starts
+        offsets[shuffle] = rng.permutation(offsets[shuffle])
+        offsets[0] = 0
+        extra = np.array([-5, -1, n, n + 7, 2**31 - 1, 2**31 - 2, offsets[k // 2],
+                          offsets[k // 3]])
+        offsets = np.concatenate([offsets, extra[rng.permutation(extra.shape[0])]])
+    dist = _special_keys(rng, n) if kind == "edges" else (
+        (4 * rng.random(n)).astype(np.float32))
+    if kind != "edges":
+        dist[rng.random(n) < 0.05] = 1.0                 # ties
+    idx = rng.integers(0, 1 << 20, n).astype(np.int32)
+    data = [rng.random(n).astype(np.float32) for _ in range(n_f)] + [
+        rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32) for _ in range(n_i)]
+    total = {"half": n // 2, "past": n + 100}.get(total, total)
+    return dist, offsets.astype(np.int32), idx, data, total
+
+
+def record_result(rows, dev):
+    """A RecordTraceResult of numpy rows on ``dev``."""
+    from grace_tpu_torch.trace.pallas_records import RecordTraceResult
+
+    return RecordTraceResult(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in rows))
+
+
+def segsort_outputs(kind, args, plain):
+    """One entry of csrc/segsort.cu on ``args`` (tensors on one device),
+    or with ``plain`` its plain version: "rows" (a RecordTraceResult) ->
+    the sorted result's fields, "flat" ((rec, capacity, kwargs)) -> the five
+    outputs, "csr" ((dist, offsets, idx, data, total)) -> the sorted
+    arrays."""
+    from grace_tpu_torch.ops import segops
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    if kind == "rows":
+        fn = prc._sort_records_by_distance_plain if plain else prc.sort_rows_cuda
+        return list(fn(args))
+    if kind == "flat":
+        rec, capacity, kw = args
+        fn = prc._records_to_flat_plain if plain else prc.records_to_flat_cuda
+        return list(fn(rec, capacity, **kw))
+    dist, offsets, idx, data, total = args
+    fn = segops._sort_by_distance_plain if plain else segops.segmented_sort_cuda
+    return list(fn(dist, offsets, idx, *data, total_hits=total))
+
+
+def segsort_case_args(kind, tag, dev):
+    """The arguments of ``segsort_outputs`` for case ``tag`` on ``dev``."""
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if kind == "rows":
+        return record_result(segsort_rows(tag), dev)
+    if kind == "flat":
+        rows, capacity, kw = segsort_flat(tag)
+        return record_result(rows, dev), capacity, kw
+    dist, offsets, idx, data, total = segsort_csr(tag)
+    return to(dist), to(offsets), to(idx), [to(a) for a in data], total
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _on_host(a):
+    """``a`` with every tensor in it (in tuples, lists and named tuples)
+    copied to the CPU."""
+    if isinstance(a, torch.Tensor):
+        return a.cpu()
+    if isinstance(a, (tuple, list)):
+        items = [_on_host(x) for x in a]
+        return type(a)(*items) if hasattr(a, "_fields") else type(a)(items)
+    return a
+
+
+def check_segsort_case(kind, tag, args, reference=True):
+    """csrc/segsort.cu's entry ``kind`` against grace_tpu's order, bit for
+    bit: the kernel's outputs equal the plain version's run on the CPU
+    (which the CPU tests hold to grace_tpu) where ``reference``, and are
+    compared with the plain version on the card: returns the number of
+    outputs' slots where the card's plain version departs from them (its
+    torch.sort's order of NaNs, ROADMAP C25) and the kernel's
+    outputs. Without ``reference`` the card's plain version must agree."""
+    got = segsort_outputs(kind, args, plain=False)
+    want = segsort_outputs(kind, args, plain=True)
+    if reference:
+        ref = segsort_outputs(kind, _on_host(args), plain=True)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            check_tensor_bits(f"{kind} {tag}: output {i} vs grace_tpu's order", g.cpu(), r)
+    apart = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if reference:
+            apart += int((_bits(g) != _bits(w)).sum())
+        else:
+            check_tensor_bits(f"{kind} {tag}: output {i} vs the plain version", g, w)
+    return apart, got
+
+
+def check_segsort(dev):
+    """The check_segsort phase: every case of SEGSORT_ROW_CASES,
+    SEGSORT_FLAT_CASES and SEGSORT_CSR_CASES through the three entries,
+    held to grace_tpu's order (the plain version on the CPU) and compared
+    with the plain version on the card. Returns (lines, {case: slots where
+    the card's plain version departs})."""
+    lines, departures = [], {}
+    for kind, cases in (("rows", SEGSORT_ROW_CASES), ("flat", SEGSORT_FLAT_CASES),
+                        ("csr", SEGSORT_CSR_CASES)):
+        for tag in cases:
+            apart, _ = check_segsort_case(kind, tag, segsort_case_args(kind, tag, dev))
+            if apart:
+                departures[f"{kind} {tag}"] = apart
+            lines.append(f"{kind} {tag}: bit-equal to grace_tpu's order (the plain version on "
+                         f"the CPU); the card's plain version "
+                         + (f"departs at {apart} slots (ROADMAP C25)" if apart else "agrees"))
+    return lines, departures
+
+
+def torch_sort_orders(dev):
+    """The order in which torch.sort(stable=True) puts SPECIAL_BITS (each
+    twice, shuffled, with 1 and -1) on ``dev`` and on the CPU, as the keys'
+    bits: where the card's departs, so do the plain versions on the card
+    (ROADMAP C25)."""
+    keys = np.concatenate([SPECIAL_BITS, SPECIAL_BITS, np.float32([1.0, -1.0])])
+    keys = torch.from_numpy(keys[np.random.default_rng(SEGSORT_SEED).permutation(keys.shape[0])])
+    bits = lambda t: [f"{int(b) & 0xFFFFFFFF:08x}" for b in keys.view(torch.int32)[t.cpu()]]
+    return (bits(torch.sort(keys.to(dev), stable=True).indices),
+            bits(torch.sort(keys, stable=True).indices))
+
+
+def segsort_gate(rec, rec_sorted, flat, flat_sorted):
+    """Main path 4's gate of the three entries: the CSR sort (E9) of
+    trace_sph's flat layout equals the flat layout (E10) of the sorted rows
+    (E8), bit for bit, on every ray but the last where records were dropped
+    (there total_hits, the sum of the unclamped counts, puts the fill
+    entries past the kept records in the last ray's segment); both are
+    stable sorts of the same keys from the same ascending-index order.
+    Returns a summary."""
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    n = flat.indices.shape[0]
+    ref = prc.records_to_flat(rec_sorted, n)
+    check_equal("E9 vs E10(E8): offsets", flat.offsets, ref[0])
+    kept = torch.clamp(rec.counts, max=rec.capacity)
+    n_kept = int(kept.sum())
+    stop = n_kept
+    if n_kept < n and rec.counts.shape[0]:
+        stop = int(flat.offsets[-1])   # the last ray's segment holds the fill entries
+    for name, a, b in zip(("distances", "indices", "integrals"), flat_sorted,
+                          (ref[4], ref[2], ref[3])):
+        check_tensor_bits(f"E9 vs E10(E8): {name}", a[:stop], b[:stop])
+    return (f"the CSR sort of trace_sph's flat layout bit-equal to the flat layout of the "
+            f"sorted rows on {stop} of {n_kept} kept records"
+            + (f" (the last ray's {n_kept - stop} left out: {n - n_kept} fill entries join "
+               "its segment)" if stop < n_kept else ""))
+
+
+def segsort_counters():
+    """csrc/segsort.cu's launch counts."""
+    from grace_tpu_torch.ops import segops
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    return {"sort_rows": prc.sort_rows_cuda.launches,
+            "segmented_sort": segops.segmented_sort_cuda.launches,
+            "records_to_flat": prc.records_to_flat_cuda.launches}
+
+
+def zero_segsort_counters():
+    from grace_tpu_torch.ops import segops
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    for fn in (prc.sort_rows_cuda, segops.segmented_sort_cuda, prc.records_to_flat_cuda):
+        fn.launches = 0
+
+
+# The segsort entries each main path runs: path 4 all three (the sorted
+# rows, trace_sph(engine="pallas")'s flat layout, its CSR sort); path 8's
+# row sort is its records gate's reference, after its window.
+SEGSORT_BY_PATH = {4: ("sort_rows", "segmented_sort", "records_to_flat")}
+
+
+def gate_segsort(path):
+    """The segsort counters after main path ``path``; raises if an entry
+    the path runs was launched no time."""
+    counts = segsort_counters()
+    idle = [k for k in SEGSORT_BY_PATH.get(path, ()) if counts[k] < 1]
+    if idle:
+        raise AssertionError(f"main path {path}: segsort kernels {idle} never launched: "
+                             f"{counts}")
+    return counts
+
+
+def segsort_times(rec, flat):
+    """E8-E10's times (CUDA events, warm median, ms) on main path 4's
+    records: each entry and its plain version, torch.sort of the row keys
+    alone (E8's library call). Returns (times, {kernel: (operations,
+    bytes)}): each input read once, each output written once; the
+    operations are the n log2 n compares a comparison sort needs a
+    segment."""
+    from grace_tpu_torch.ops import segops
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    n_rows, width = rec.indices.shape
+    key = torch.where(rec.indices == prc.INDEX_SENTINEL, torch.inf, rec.distances)
+    args = (flat.distances, flat.offsets, flat.indices, flat.integrals)
+    t = {"sort_rows kernel": cuda_ms(lambda: prc.sort_rows_cuda(rec)),
+         "sort_rows plain": cuda_ms(lambda: prc._sort_records_by_distance_plain(rec), reps=3),
+         "sort_rows library (torch.sort of the keys, stable)": cuda_ms(
+             lambda: torch.sort(key, dim=1, stable=True)),
+         "records_to_flat kernel": cuda_ms(
+             lambda: prc.records_to_flat_cuda(rec, flat.indices.shape[0])),
+         "records_to_flat plain": cuda_ms(
+             lambda: prc._records_to_flat_plain(rec, flat.indices.shape[0]), reps=3),
+         "segmented_sort kernel (path 4's flat layout)": cuda_ms(
+             lambda: segops.segmented_sort_cuda(*args, total_hits=flat.total_hits)),
+         "segmented_sort plain (path 4's flat layout)": cuda_ms(
+             lambda: segops._sort_by_distance_plain(*args, total_hits=flat.total_hits), reps=3)}
+    del key
+    h = flat.indices.shape[0]
+    kept = torch.clamp(rec.counts, max=width).double()
+    seg_len = torch.clamp(kept, min=1)
+    compares = int((kept * torch.log2(seg_len)).sum())
+    rows = nbytes(rec.indices, rec.integrals, rec.distances)
+    work = {"sort_rows": (n_rows * width * int(np.log2(max(width, 2))), 2 * rows),
+            "segmented_sort": (compares, 2 * 12 * h + nbytes(flat.offsets, flat.total_hits)),
+            "records_to_flat": (0, 12 * int(kept.sum()) + nbytes(rec.counts)
+                                + 12 * h + 2 * nbytes(flat.offsets))}
+    return t, work
+
+
 def both_routes(tag, rays, spheres, tree):
     """pallas_trace_sph on the default route (B6) and on
     broadphase="quarter" (B3), in both modes. Gates (path 2's): no
@@ -3792,6 +4170,16 @@ def run(dev, n_particles, side):
         log(f"check_tri_lists {line} OK")
     log(f"check_broadphase, check_tri_lists: {len(BROADPHASE_CASES)} and {len(TRI_LIST_CASES)} "
         f"cases in {time.perf_counter() - t_check:.1f} s")
+    t_check = time.perf_counter()
+    seg_lines, seg_departures = check_segsort(dev)
+    for line in seg_lines:
+        log(f"check_segsort {line} OK")
+    log(f"check_segsort: {len(seg_lines)} cases in {time.perf_counter() - t_check:.1f} s; the "
+        f"card's plain versions depart from grace_tpu's order on {len(seg_departures)} of them "
+        f"{json.dumps(seg_departures)}")
+    card_order, cpu_order = torch_sort_orders(dev)
+    log(f"torch.sort(stable=True) of the special keys, by their bits: on the card "
+        f"{' '.join(card_order)}; on the CPU {' '.join(cpu_order)}")
     small_checks(dev)
     splat_edge_checks(dev)
     training_small_checks(dev)
@@ -3810,6 +4198,7 @@ def run(dev, n_particles, side):
     zero_build_counters()
     zero_prep_counters()
     zero_broadphase_counters()
+    zero_segsort_counters()
     t0 = time.perf_counter()
     scene = bench_scene(spheres, side)
     sorted_spheres, tree, rays_s, inv, buckets = (
@@ -3824,6 +4213,7 @@ def run(dev, n_particles, side):
     build_by_path = {1: build_counters()}
     prep_by_path = {1: prep_counters()}
     bp_by_path = {1: gate_broadphase(1)}
+    seg_by_path = {1: gate_segsort(1)}
     launches = {"trace_quarter": pk.trace_quarter.launches,
                 "splat": sp.splat_image.launches, **build_by_path[1],
                 "splat_bucket_keys": prep_by_path[1]["splat_bucket_keys"],
@@ -3853,6 +4243,7 @@ def run(dev, n_particles, side):
     zero_build_counters()
     zero_prep_counters()
     zero_broadphase_counters()
+    zero_segsort_counters()
     t0 = time.perf_counter()
     general = {"default": [pk.pallas_trace_sph(rays_s, sorted_spheres, tree,
                                                tile=TRACE_TILE, mode=m)
@@ -3871,6 +4262,7 @@ def run(dev, n_particles, side):
     build_by_path[2] = build_counters()
     prep_by_path[2] = prep_counters()
     bp_by_path[2] = gate_broadphase(2)
+    seg_by_path[2] = gate_segsort(2)
     launches2 = {"trace_bitmask": pk.trace_bitmask.launches,
                  "trace_list": pk.trace_list.launches - pk.trace_list.launches_seg,
                  "trace_list_seg": pk.trace_list.launches_seg}
@@ -3973,6 +4365,7 @@ def run(dev, n_particles, side):
     zero_build_counters()
     zero_prep_counters()
     zero_broadphase_counters()
+    zero_segsort_counters()
     t0 = time.perf_counter()
     steps = {"splat": splat_step(), "general": general_step()}
     torch.cuda.synchronize()
@@ -3980,6 +4373,7 @@ def run(dev, n_particles, side):
     build_by_path[3] = build_counters()
     prep_by_path[3] = prep_counters()
     bp_by_path[3] = gate_broadphase(3)
+    seg_by_path[3] = gate_segsort(3)
     launches3 = {"splat_sortfree_fwd": sg.splat_sortfree_fwd.launches,
                  "splat_sortfree_bwd": sg.splat_sortfree_bwd.launches,
                  "render_fwd": pr.render_fwd.launches, "render_bwd": pr.render_bwd.launches,
@@ -4028,6 +4422,7 @@ def run(dev, n_particles, side):
     errs["render_fwd"], errs["render_bwd"] = check_render("full", fwd_args, bwd_args)
 
     # 8. main path 4, per-hit records on main path 1's scene and sorted rays
+    from grace_tpu_torch.ops.segops import sort_by_distance
     from grace_tpu_torch.trace import pallas_records as prc
     from grace_tpu_torch.trace.sph import trace_sph
 
@@ -4037,6 +4432,7 @@ def run(dev, n_particles, side):
     zero_build_counters()
     zero_prep_counters()
     zero_broadphase_counters()
+    zero_segsort_counters()
     t0 = time.perf_counter()
     rec = prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP)
     rec_b = prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP,
@@ -4045,20 +4441,34 @@ def run(dev, n_particles, side):
     total_hits = int(rec.counts.sum())
     flat = trace_sph(rays_s, sorted_spheres, tree, capacity=total_hits, engine="pallas",
                      per_ray_capacity=RECORD_CAP)
+    flat_sorted = sort_by_distance(flat.distances, flat.offsets, flat.indices, flat.integrals,
+                                   total_hits=flat.total_hits)
     torch.cuda.synchronize()
     wall4 = time.perf_counter() - t0
     build_by_path[4] = build_counters()
     prep_by_path[4] = prep_counters()
     bp_by_path[4] = gate_broadphase(4)
+    seg_by_path[4] = gate_segsort(4)
     launches4 = {"records_quarter": prc.records_quarter.launches,
-                 "records_bitmask": prc.records_bitmask.launches}
+                 "records_bitmask": prc.records_bitmask.launches, **seg_by_path[4]}
     if min(launches4.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches4}")
     rec_stats = records_gates(rec, rec_b, rec_sorted, flat, quarter_hc, trace_v)
-    del rec_b, rec_sorted, flat
+    seg_stats = segsort_gate(rec, rec_sorted, flat, flat_sorted)
+    del rec_b, rec_sorted, flat_sorted
     log(f"main path 4 (per-hit records, {n_particles} particles, {side}x{side} rays, "
         f"capacity {RECORD_CAP}): {wall4:.2f} s wall; {total_hits} hits, counts equal the "
-        f"quarter trace's on every ray; {rec_stats}; launches {launches4}")
+        f"quarter trace's on every ray; {rec_stats}; {seg_stats}; launches {launches4}")
+    # the three segsort entries against their plain versions on the card, on
+    # path 4's records, bit for bit
+    for kind, args in (("rows", rec), ("flat", (rec, total_hits, {})),
+                       ("csr", (flat.distances, flat.offsets, flat.indices, [flat.integrals],
+                                flat.total_hits))):
+        check_segsort_case(kind, "path 4", args, reference=False)
+    log(f"check_segsort path 4: sort_rows on {rec.indices.shape[0]} rows of {RECORD_CAP}, "
+        f"records_to_flat into {total_hits} entries, segmented_sort of the flat layout "
+        f"({flat.offsets.shape[0]} rays' segments, the longest {int(rec.counts.max())} "
+        f"clamped to {RECORD_CAP}) bit-equal to their plain versions OK")
 
     # 9. main path 5, triangles: render_triangles on the CUDA kernel
     from grace_tpu_torch.models import triangle as mt
@@ -4071,6 +4481,7 @@ def run(dev, n_particles, side):
     zero_build_counters()
     zero_prep_counters()
     zero_broadphase_counters()
+    zero_segsort_counters()
     t0 = time.perf_counter()
     tri_img = mt.render_triangles(tris, resolution=side, engine="pallas")
     torch.cuda.synchronize()
@@ -4078,6 +4489,7 @@ def run(dev, n_particles, side):
     build_by_path[5] = build_counters()
     prep_by_path[5] = prep_counters()
     bp_by_path[5] = gate_broadphase(5)
+    seg_by_path[5] = gate_segsort(5)
     launches5 = {"trace_tri closest": pt.trace_tri.launches - pt.trace_tri.launches_any,
                  "trace_tri any": pt.trace_tri.launches_any, **build_by_path[5]}
     if min(launches5.values()) < 1:
@@ -4116,10 +4528,12 @@ def run(dev, n_particles, side):
     zero_build_counters()
     zero_prep_counters()
     zero_broadphase_counters()
+    zero_segsort_counters()
     path6 = snapshot_path(dev, particles)
     build_by_path[6] = build_counters()
     prep_by_path[6] = prep_counters()
     bp_by_path[6] = gate_broadphase(6)
+    seg_by_path[6] = gate_segsort(6)
     launches6 = {**path6["launches"], **build_by_path[6]}
     if min(launches6.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches6}")
@@ -4154,11 +4568,13 @@ def run(dev, n_particles, side):
     zero_build_counters()
     zero_prep_counters()
     zero_broadphase_counters()
+    zero_segsort_counters()
     path7 = sharded_path(dev, scene, time_routes=True)
     wall7 = time.perf_counter() - t7
     build_by_path[7] = build_counters()
     prep_by_path[7] = prep_counters()
     bp_by_path[7] = gate_broadphase(7)
+    seg_by_path[7] = gate_segsort(7)
     launches7 = {**path7["launches"], **build_by_path[7]}
     if min(launches7.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches7}")
@@ -4170,10 +4586,12 @@ def run(dev, n_particles, side):
     zero_build_counters()
     zero_prep_counters()
     zero_broadphase_counters()
+    zero_segsort_counters()
     path8 = engine_path(dev, scene, tris, entry_args, side)
     build_by_path[8] = build_counters()
     prep_by_path[8] = prep_counters()
     bp_by_path[8] = gate_broadphase(8)
+    seg_by_path[8] = gate_segsort(8)
     launches8 = {**path8["launches"], **build_by_path[8]}
     if min(launches8.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches8}")
@@ -4287,6 +4705,16 @@ def run(dev, n_particles, side):
     t["sort_records_by_distance"] = cuda_ms(lambda: prc.sort_records_by_distance(rec), reps=3)
     t["pallas_trace_sph_records (default route)"] = cuda_ms(
         lambda: prc.pallas_trace_sph_records(rays_s, sorted_spheres, RECORD_CAP), reps=3)
+    t["pallas_trace_sph_records (default route) + sort_records_by_distance"] = cuda_ms(
+        lambda: prc.sort_records_by_distance(prc.pallas_trace_sph_records(
+            rays_s, sorted_spheres, RECORD_CAP)), reps=3)
+    t["trace_sph (engine pallas) + sort_by_distance"] = cuda_ms(
+        lambda: sort_by_distance(*(lambda f: (f.distances, f.offsets, f.indices, f.integrals))(
+            trace_sph(rays_s, sorted_spheres, tree, capacity=total_hits, engine="pallas",
+                      per_ray_capacity=RECORD_CAP)), total_hits=total_hits), reps=3)
+    seg_t, seg_work = segsort_times(rec, flat)
+    t.update(seg_t)
+    del flat
     t["build_primitive_tree (torus)"] = cuda_ms(lambda: mt.build_triangle_tree(tris), reps=3)
     prim_rays = tri_state["rays_padded"]
     flat_tris = tri_state["sorted_tris"].reshape(-1, 3)
@@ -4441,6 +4869,10 @@ def run(dev, n_particles, side):
         log(f"work {name}: {ops_b} operations -> {ops_b / PEAK_FLOPS * 1e3:.4f} ms, {bytes_b} "
             f"bytes -> {bytes_b / PEAK_BYTES * 1e3:.4f} ms")
     log(f"broadphase kernels' launches by main path: {json.dumps(bp_by_path)}")
+    for name, (ops_s, bytes_s) in seg_work.items():
+        log(f"work {name}: {ops_s} compares -> {ops_s / PEAK_FLOPS * 1e3:.4f} ms, {bytes_s} "
+            f"bytes -> {bytes_s / PEAK_BYTES * 1e3:.4f} ms")
+    log(f"segsort kernels' launches by main path: {json.dumps(seg_by_path)}")
     log(f"whole run {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -4588,6 +5020,19 @@ def run(dev, n_particles, side):
                      *bp_work["tri_tile_lists primary"],
                      by_path={f"path {k}": v["tri_tile_lists"] for k, v in bp_by_path.items()},
                      library_ms=t.get("tri lists' key sort (torch.sort, stable; torus primary)")),
+        # the records' post-processing (not TPU kernels: grace_tpu's plain
+        # XLA), on main path 4's records
+        *[kernel_entry(name, "segsort.cu", replaces, sum(p[name] for p in seg_by_path.values()),
+                       0.0, t[f"{name} kernel" + extra], t[f"{name} plain" + extra],
+                       *seg_work[name],
+                       by_path={f"path {k}": v[name] for k, v in seg_by_path.items()},
+                       library_ms=library)
+          for name, replaces, extra, library in (
+              ("sort_rows", "grace_tpu/trace/pallas_records.py:729", "",
+               t["sort_rows library (torch.sort of the keys, stable)"]),
+              ("segmented_sort", "grace_tpu/ops/segops.py:70, grace_tpu/ops/segops.py:24, "
+               "grace_tpu/ops/segops.py:57", " (path 4's flat layout)", None),
+              ("records_to_flat", "grace_tpu/trace/pallas_records.py:741", "", None))],
         # path 6's launches of B3 and B6, held and timed on its fan-out set
         *[kernel_entry(f"{k} (path 6)", f"{k}.cu", replaces, launches6[k], errs6[k],
                        k6[PATH6_FULL, k, "cumulative"], plain6[k], *work6[PATH6_FULL][k])

@@ -4,26 +4,61 @@
 Segments are given by CSR start offsets (``offsets[0] == 0``, repeated
 offsets for empty segments). Sorts are stable, so ties keep their input
 order as ``jax.lax.sort`` (stable by default) keeps them; a sort on
-(segment, key) is two stable passes, key first, then segment.
+(segment, key) is two stable passes, key first, then segment. f32 keys
+compare as XLA compares them: -0 with +0 and subnormals with zero, every
+NaN after +inf.
+
+``sort_by_distance`` on CUDA tensors is ``csrc/segsort.cu``'s segmented
+sort (``segmented_sort_cuda``): head flags and segment starts, a warp a
+segment sorting in registers, longer segments in chunks merged in device
+memory, every payload gathered in the same launches. CPU tensors take
+``_sort_by_distance_plain``. The other sorts and scans here stay plain.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
+from grace_tpu_torch import _kernels
+
+SEG_CHUNK = 1024      # csrc/segsort.cu kMaxChunk: the longest segment a warp sorts
+HEAD_TILE = 1024      # kTile: head flags a warp counts
+MAX_PAYLOADS = 8      # kMaxPayloads: arrays one launch gathers
+MERGE_TILE = 256      # kMergeTile: outputs a merge block takes at a time
+WARP_RUN = 512        # kWarpRun: the longest segment sorted by one warp alone; longer
+                      # ones take the long route (chunks of up to SEG_CHUNK, merged)
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    """The segmented sorts' route: CPU tensors take the plain versions,
+    every other tensor the kernels (which refuse a device but CUDA)."""
+    return t.device.type == "cpu"
+
 
 def offsets_to_segments(offsets, n_elements: int) -> torch.Tensor:
     """Per-element segment ids i32[n] from CSR segment-start offsets i32[S].
-    Empty segments (repeated offsets) are skipped; offsets outside
-    [0, n) are dropped."""
+    Empty segments (repeated offsets) are skipped. A negative offset counts
+    from the end, as ``grace_tpu``'s scatter indexes (ROADMAP C23); offsets
+    outside [0, n) after that are dropped."""
     offsets = torch.as_tensor(offsets).to(torch.int64)
     starts = offsets[1:]
+    starts = torch.where(starts < 0, starts + n_elements, starts)
     starts = starts[(starts >= 0) & (starts < n_elements)]
     marks = torch.zeros(n_elements, dtype=torch.int32, device=offsets.device)
     marks.index_add_(0, starts, torch.ones_like(starts, dtype=torch.int32))
     return torch.cumsum(marks, dim=0, dtype=torch.int32)
+
+
+def _compare_form(keys: torch.Tensor) -> torch.Tensor:
+    """The keys as ``grace_tpu``'s sorts compare them: XLA compares f32 with
+    subnormals flushed to zero, so a subnormal key ties with +-0 (ROADMAP
+    C24). Other dtypes as they are."""
+    if keys.dtype != torch.float32:
+        return keys
+    return torch.where(keys.abs() < torch.finfo(torch.float32).tiny, 0.0, keys)
 
 
 def order_by_index(order, values) -> torch.Tensor:
@@ -34,14 +69,14 @@ def order_by_index(order, values) -> torch.Tensor:
 def sort_and_map(keys) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stable argsort: (sorted keys, map i32)."""
     keys = torch.as_tensor(keys)
-    order = torch.argsort(keys, stable=True)
+    order = torch.argsort(_compare_form(keys), stable=True)
     return keys[order], order.to(torch.int32)
 
 
 def sort_by_key(keys, *values):
     """Stable sort of ``keys``, carrying one or more value arrays."""
     keys = torch.as_tensor(keys)
-    order = torch.argsort(keys, stable=True)
+    order = torch.argsort(_compare_form(keys), stable=True)
     return (keys[order],) + tuple(torch.as_tensor(v)[order] for v in values)
 
 
@@ -51,7 +86,7 @@ def segmented_sort(segment_ids, keys, *payloads):
     Returns the sorted keys, or (keys, *payloads) when payloads are given."""
     seg = torch.as_tensor(segment_ids).to(torch.int32)
     keys = torch.as_tensor(keys)
-    by_key = torch.argsort(keys, stable=True)
+    by_key = torch.argsort(_compare_form(keys), stable=True)
     order = by_key[torch.argsort(seg[by_key], stable=True)]
     out = (keys[order],) + tuple(torch.as_tensor(p)[order] for p in payloads)
     return out if payloads else out[0]
@@ -66,13 +101,24 @@ def sort_by_distance(distances, offsets, indices, *data, total_hits=None):
         larger than the true hit count.
       offsets: i32[R] CSR segment starts per ray.
       indices: i32[H] per-hit primitive indices.
-      *data: further per-hit arrays to reorder.
-      total_hits: number of valid entries; entries past it form a trailing
-        pseudo-segment, so capacity padding never enters the last ray's
-        segment. Defaults to H.
+      *data: further per-hit arrays to reorder (f32 or i32 on CUDA).
+      total_hits: number of valid entries (an int or a 0-d tensor, read on
+        the device); entries past it form a trailing pseudo-segment, so
+        capacity padding never enters the last ray's segment. Defaults to H.
 
-    Returns (sorted_distances, sorted_indices, *sorted_data).
+    Returns (sorted_distances, sorted_indices, *sorted_data). CUDA tensors
+    launch ``segmented_sort_cuda``; anything else runs
+    ``_sort_by_distance_plain``.
     """
+    if not isinstance(distances, torch.Tensor) or _on_cpu(distances):
+        return _sort_by_distance_plain(distances, offsets, indices, *data,
+                                       total_hits=total_hits)
+    return segmented_sort_cuda(distances, offsets, indices, *data, total_hits=total_hits)
+
+
+def _sort_by_distance_plain(distances, offsets, indices, *data, total_hits=None):
+    """Plain PyTorch version of ``sort_by_distance``: segment ids from
+    ``offsets_to_segments``, then ``segmented_sort``."""
     h = distances.shape[0]
     seg = offsets_to_segments(offsets, h)
     if total_hits is not None:
@@ -81,6 +127,121 @@ def sort_by_distance(distances, offsets, indices, *data, total_hits=None):
         seg = torch.where(pos < torch.as_tensor(total_hits, device=seg.device), seg,
                           n_seg).to(torch.int32)
     return segmented_sort(seg, distances, indices, *data)
+
+
+def _pointer_table(srcs, dsts):
+    """The host array of source then destination addresses that the
+    segmented sort's entries take (kept alive by the caller)."""
+    ptrs = [t.data_ptr() for t in srcs] + [t.data_ptr() for t in dsts]
+    return (ctypes.c_uint64 * len(ptrs))(*ptrs)
+
+
+def _merge_rounds(n: int, chunk: int) -> int:
+    """Merge rounds that make any segment of at most n entries one run
+    from sorted chunks of ``chunk``."""
+    rounds = 0
+    while chunk << rounds < n:
+        rounds += 1
+    return rounds
+
+
+def _segsort_launch(keys, mask, offsets, total, payloads, chunk):
+    """csrc/segsort.cu's segmented sort: ``payloads`` (4-byte arrays of
+    ``keys``' length H, on its CUDA device) reordered by a stable sort of
+    ``keys`` (f32[H]; where ``mask`` i32[H] is -1 the key is +inf) within
+    the segments that ``offsets`` (i32, ``offsets[0]`` ignored) and
+    ``total`` (None, or i32[1] in [0, H]) open. Segments longer than
+    min(``chunk``, WARP_RUN) take the long route: sorted in chunks of
+    ``chunk`` (a power of two, MERGE_TILE / 2 to SEG_CHUNK) and merged.
+    Returns the sorted payloads, new tensors."""
+    device, n = keys.device, keys.shape[0]
+    outs = [torch.empty_like(p) for p in payloads]
+    launch = lambda entry, *args: _kernels.launch("segsort", entry, device, *args)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    head = torch.zeros(n, dtype=torch.uint8, device=device)
+    launch("grace_seg_heads", ptr(offsets), ptr(total), head.data_ptr(), offsets.shape[0], n)
+    counts = torch.empty(-(-n // HEAD_TILE), dtype=torch.int32, device=device)
+    launch("grace_seg_count", head.data_ptr(), counts.data_ptr(), n)
+    incl = torch.cumsum(counts, dim=0, dtype=torch.int32)
+    starts = torch.empty(n + 1, dtype=torch.int32, device=device)
+    launch("grace_seg_starts", head.data_ptr(), incl.data_ptr(), starts.data_ptr(), n)
+    n_seg = incl[-1:]
+    max_segs = min(n, offsets.shape[0] + 1)
+    run = min(chunk, WARP_RUN)
+    n_max = n // (run + 1) + 1
+    rounds = _merge_rounds(n, chunk)
+    for g in range(0, len(payloads), MAX_PAYLOADS):
+        srcs, dsts = payloads[g:g + MAX_PAYLOADS], outs[g:g + MAX_PAYLOADS]
+        table = _pointer_table(srcs, dsts)
+        long_start = torch.zeros(n_max, dtype=torch.int32, device=device)
+        long_len = torch.zeros(n_max, dtype=torch.int32, device=device)
+        n_long = torch.zeros(1, dtype=torch.int32, device=device)
+        launch("grace_segmented_sort", keys.data_ptr(), ptr(mask), starts.data_ptr(),
+               n_seg.data_ptr(), ctypes.addressof(table), long_start.data_ptr(),
+               long_len.data_ptr(), n_long.data_ptr(), len(srcs), max_segs, chunk)
+        if n <= run:
+            continue   # no segment is longer than a warp's run
+        chunk_end = torch.cumsum((long_len + (chunk - 1)) // chunk, dim=0, dtype=torch.int32)
+        tile_end = torch.cumsum((long_len + (MERGE_TILE - 1)) // MERGE_TILE, dim=0,
+                                dtype=torch.int32)
+        elem_end = torch.cumsum(long_len, dim=0, dtype=torch.int32)
+        bufs = [torch.empty(n, dtype=torch.int64, device=device) for _ in range(2)]
+        launch("grace_seg_chunks", keys.data_ptr(), ptr(mask), long_start.data_ptr(),
+               long_len.data_ptr(), chunk_end.data_ptr(), n_long.data_ptr(),
+               bufs[0].data_ptr(), n_max, chunk, n)
+        for r in range(rounds):
+            launch("grace_seg_merge", long_start.data_ptr(), long_len.data_ptr(),
+                   tile_end.data_ptr(), n_long.data_ptr(), bufs[r % 2].data_ptr(),
+                   bufs[(r + 1) % 2].data_ptr(), n_max, chunk << r, n)
+        launch("grace_seg_gather", long_start.data_ptr(), long_len.data_ptr(),
+               elem_end.data_ptr(), n_long.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+               ctypes.addressof(table), n_max, len(srcs), chunk, n)
+    return outs
+
+
+def segmented_sort_cuda(distances, offsets, indices, *data, total_hits=None):
+    """``csrc/segsort.cu``'s segmented sort (E9): ``sort_by_distance`` on
+    CUDA tensors, bit-equal to ``_sort_by_distance_plain``. ``offsets``
+    (i32 or i64, any values, as ``offsets_to_segments`` reads them) and
+    ``total_hits`` (an int or a tensor) are moved to the device and read
+    there, without a host sync."""
+    payloads = [distances, indices, *data]
+    device = _kernels.check_tensors("sort_by_distance", [indices], [distances])
+    n = distances.shape[0]
+    for name, t in zip(("distances", "indices", *(f"data[{i}]" for i in range(len(data)))),
+                       payloads):
+        if t.device != device or t.shape != (n,):
+            raise ValueError(f"sort_by_distance: {name} {tuple(t.shape)} on {t.device}, "
+                             f"expected [{n}] on {device}")
+        if t.dtype not in (torch.float32, torch.int32):
+            raise TypeError(f"sort_by_distance: {name} is {t.dtype}; the kernel takes f32 "
+                            "or i32 arrays")
+    offsets = torch.as_tensor(offsets, device=device)
+    if total_hits is not None and offsets.shape[0] == 0:
+        total_hits = None   # no offsets: the pseudo-segment's id 0 is the only segment's
+    if offsets.dim() != 1 or offsets.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"sort_by_distance: offsets must be i32 or i64 [R], got "
+                        f"{offsets.dtype} {tuple(offsets.shape)}")
+    if n >= 1 << 31:
+        raise ValueError(f"sort_by_distance: {n} entries; the kernel takes fewer than 2^31")
+    if n == 0:
+        return tuple(t.clone() for t in payloads)
+    if offsets.dtype == torch.int64:   # every value outside [-n, n) opens no segment
+        offsets = offsets.clamp(-n - 1, n)
+    offsets = offsets.to(torch.int32).contiguous()
+    total = None
+    if total_hits is not None:
+        total = torch.as_tensor(total_hits, device=device).reshape(1)
+        if total.is_floating_point():
+            total = torch.ceil(total)   # pos < t where t is not whole
+        total = total.to(torch.int64).clamp(0, n).to(torch.int32)
+    out = _segsort_launch(distances.contiguous(), None, offsets, total,
+                          [t.contiguous() for t in payloads], SEG_CHUNK)
+    segmented_sort_cuda.launches += 1
+    return tuple(out)
+
+
+segmented_sort_cuda.launches = 0
 
 
 def exclusive_segmented_scan(offsets, values) -> torch.Tensor:

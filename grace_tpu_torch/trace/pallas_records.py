@@ -23,6 +23,14 @@ Broadphase as ``grace_tpu``'s: 32-primitive quarter words
 (``dense_tile_masks``). The slabs live in device memory for any scene, so
 one kernel per broadphase serves the TPU's resident and streaming kernels.
 
+The records' post-processing is ``csrc/segsort.cu`` on CUDA tensors:
+``sort_records_by_distance`` (``sort_rows_cuda``: a warp a row, a
+bitonic network in registers over the prefix that holds records; rows
+wider than ``segops.SEG_CHUNK`` take the segmented sort's chunks and
+merges) and ``records_to_flat``
+(``records_to_flat_cuda``: a warp a row, no boolean indexing, no host
+sync).
+
 On a CPU tensor each kernel wrapper runs its plain PyTorch version.
 """
 
@@ -32,8 +40,11 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+import numpy as np
+
 from grace_tpu_torch import _kernels
 from grace_tpu_torch.core.types import Rays
+from grace_tpu_torch.ops import segops
 from grace_tpu_torch.sph.kernel_integrals import HORNER1_DEG, cubic_spline_line_integral_horner1
 from grace_tpu_torch.trace.pallas_broadphase import dense_tile_masks, dense_tile_masks_quarter
 from grace_tpu_torch.trace.pallas_kernel import (
@@ -345,12 +356,63 @@ def pallas_trace_sph_records(
 def sort_records_by_distance(rec: RecordTraceResult) -> RecordTraceResult:
     """Per-ray distance sort of the record rows: one stable sort along the
     row, with the sentinel slots keyed to +inf so they stay at the tail and
-    equal distances keep their column order."""
+    equal distances keep their column order. CUDA tensors launch
+    ``sort_rows_cuda``, CPU tensors run ``_sort_records_by_distance_plain``."""
+    if segops._on_cpu(rec.distances):
+        return _sort_records_by_distance_plain(rec)
+    return sort_rows_cuda(rec)
+
+
+def _sort_records_by_distance_plain(rec: RecordTraceResult) -> RecordTraceResult:
+    """Plain PyTorch version of ``sort_records_by_distance``."""
     key = torch.where(rec.indices == INDEX_SENTINEL, torch.inf, rec.distances)
-    order = torch.sort(key, dim=1, stable=True).indices
+    order = torch.sort(segops._compare_form(key), dim=1, stable=True).indices
     take = lambda x: torch.gather(x, 1, order)
     return RecordTraceResult(rec.counts, take(rec.indices), take(rec.integrals),
                              take(rec.distances))
+
+
+def _check_rows(name, rec: RecordTraceResult):
+    """The record rows' checks of the segsort wrappers; returns (device,
+    rows, width)."""
+    device = _kernels.check_tensors(name, [rec.counts, rec.indices],
+                                    [rec.integrals, rec.distances])
+    n, c = rec.indices.shape if rec.indices.dim() == 2 else (-1, -1)
+    if (c < 0 or rec.counts.shape != (n,) or rec.integrals.shape != (n, c)
+            or rec.distances.shape != (n, c)):
+        raise ValueError(f"{name}: inconsistent record shapes "
+                         f"{[tuple(t.shape) for t in rec]}")
+    if n * (c + 1) >= 1 << 31:
+        raise ValueError(f"{name}: {n} rows of {c}; the kernels take fewer than 2^31 slots")
+    return device, n, c
+
+
+def sort_rows_cuda(rec: RecordTraceResult) -> RecordTraceResult:
+    """``csrc/segsort.cu``'s row sort (E8, ``grace_sort_rows``):
+    ``sort_records_by_distance`` on CUDA tensors, a warp a row of up to
+    ``segops.SEG_CHUNK`` slots, sorting only the prefix that ends with the
+    row's last record (the sentinel tail keeps its place; the bits of a
+    whole-row sort); wider rows go through the segmented sort's launches
+    with one segment a row (its chunks and merges)."""
+    device, n, c = _check_rows("sort_records_by_distance", rec)
+    idx, intg, dist = (t.contiguous() for t in rec[1:])
+    if n == 0 or c == 0:
+        return RecordTraceResult(rec.counts, idx.clone(), intg.clone(), dist.clone())
+    if c <= segops.SEG_CHUNK:
+        outs = [torch.empty_like(t) for t in (idx, intg, dist)]
+        _kernels.launch("segsort", "grace_sort_rows", device, dist.data_ptr(), idx.data_ptr(),
+                        intg.data_ptr(), *[t.data_ptr() for t in outs], n, c)
+    else:
+        offsets = torch.arange(0, n * c, c, dtype=torch.int32, device=device)
+        outs = segops._segsort_launch(dist.reshape(-1), idx.reshape(-1), offsets, None,
+                                      [t.reshape(-1) for t in (idx, intg, dist)],
+                                      segops.SEG_CHUNK)
+        outs = [t.reshape(n, c) for t in outs]
+    sort_rows_cuda.launches += 1
+    return RecordTraceResult(rec.counts, *outs)
+
+
+sort_rows_cuda.launches = 0
 
 
 def records_to_flat(
@@ -367,7 +429,23 @@ def records_to_flat(
     distances f32[capacity]); records past ``capacity`` are dropped.
 
     ``sentinel_slots=True`` reserves one pre-filled slot after each ray's
-    records, the ``trace_with_sentinels_sph`` layout."""
+    records, the ``trace_with_sentinels_sph`` layout. CUDA tensors launch
+    ``records_to_flat_cuda``, CPU tensors run ``_records_to_flat_plain``."""
+    args = (rec, capacity, index_sentinel, value_sentinel, distance_sentinel, sentinel_slots)
+    if segops._on_cpu(rec.distances):
+        return _records_to_flat_plain(*args)
+    return records_to_flat_cuda(*args)
+
+
+def _records_to_flat_plain(
+    rec: RecordTraceResult,
+    capacity: int,
+    index_sentinel: int = INDEX_SENTINEL,
+    value_sentinel: float = VALUE_SENTINEL,
+    distance_sentinel: float = DISTANCE_SENTINEL,
+    sentinel_slots: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``records_to_flat``."""
     c = rec.capacity
     counts = torch.clamp(rec.counts, max=c)
     stride = counts + (1 if sentinel_slots else 0)
@@ -384,3 +462,45 @@ def records_to_flat(
         buf[dest[valid]] = vals[valid]
         out.append(buf)
     return (offsets, counts, *out)
+
+
+def _f32_bits(v: float) -> int:
+    """The i32 bit pattern of ``v`` rounded to f32, as ``torch.full`` fills."""
+    with np.errstate(over="ignore"):
+        return int(np.float32(v).view(np.int32))
+
+
+def records_to_flat_cuda(rec: RecordTraceResult, capacity: int,
+                         index_sentinel: int = INDEX_SENTINEL,
+                         value_sentinel: float = VALUE_SENTINEL,
+                         distance_sentinel: float = DISTANCE_SENTINEL,
+                         sentinel_slots: bool = False):
+    """``csrc/segsort.cu``'s flat layout (E10, ``grace_records_to_flat``):
+    ``records_to_flat`` on CUDA tensors, bit-equal to
+    ``_records_to_flat_plain``. The offsets are the plain version's
+    (``torch.cumsum`` in int64, cast to int32; rows of fewer than 2^31
+    slots in all, so they do not wrap); a warp a row copies its records
+    and sentinel slot, and the kernel writes the tail: every position of
+    the three buffers once."""
+    device, n, c = _check_rows("records_to_flat", rec)
+    capacity = int(capacity)
+    if not 0 <= capacity < 1 << 31:
+        raise ValueError(f"records_to_flat: capacity {capacity} outside [0, 2^31)")
+    if not -(1 << 31) <= int(index_sentinel) < 1 << 31:
+        raise ValueError(f"records_to_flat: index_sentinel {index_sentinel} is no i32")
+    slots = 1 if sentinel_slots else 0
+    counts = torch.clamp(rec.counts, max=c)
+    stride = counts + slots
+    offsets = (torch.cumsum(stride, dim=0) - stride).to(torch.int32)
+    bufs = [torch.empty(capacity, dtype=d, device=device)
+            for d in (torch.int32, torch.float32, torch.float32)]
+    rows = [t.contiguous() for t in rec[1:]]
+    _kernels.launch("segsort", "grace_records_to_flat", device, counts.data_ptr(),
+                    offsets.data_ptr(), *[t.data_ptr() for t in rows],
+                    *[t.data_ptr() for t in bufs], n, c, capacity, slots, int(index_sentinel),
+                    _f32_bits(value_sentinel), _f32_bits(distance_sentinel))
+    records_to_flat_cuda.launches += 1
+    return (offsets, counts, *bufs)
+
+
+records_to_flat_cuda.launches = 0

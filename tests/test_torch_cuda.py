@@ -52,7 +52,12 @@ step and the refusals; and the dense broadphase and the triangle lists
 of chip_smoke's BROADPHASE_CASES and TRI_LIST_CASES (boxes equal in value,
 everything else bit-equal), the lists' device-memory sort forced on the
 torus, their launches on a quarter, a qlist and a triangle trace and the
-refusals. The edge scenes and checks are chip_smoke.py's.
+refusals; and the records' post-processing (segsort.cu: the row sort, the
+CSR sort by distance, the flat layout) at every case of chip_smoke's
+SEGSORT_ROW_CASES, SEGSORT_FLAT_CASES and SEGSORT_CSR_CASES, bit-equal to
+grace_tpu's order (the plain version on the CPU), the long route forced
+with chunks of 128, their launches without a host sync and the refusals.
+The edge scenes and checks are chip_smoke.py's.
 """
 
 import numpy as np
@@ -76,6 +81,8 @@ from chip_smoke import (
     BROADPHASE_CASES, TRI_LIST_CASES, broadphase_counters, broadphase_scene,
     check_broadphase_case, check_tri_lists_case, tri_list_inputs, zero_broadphase_counters,
     check_record_orders, check_records, check_walk_routes,
+    SEGSORT_CSR_CASES, SEGSORT_FLAT_CASES, SEGSORT_ROW_CASES, check_segsort_case,
+    segsort_case_args, segsort_counters, segsort_gate, zero_segsort_counters,
     check_render,
     check_render_bwd, check_sortfree, check_splat, check_tri, colocated_scene, fd_checks,
     make_clustered_particles, random_mesh, records_inputs, records_scene,
@@ -1024,3 +1031,69 @@ def test_broadphase_launches_and_refusals(dev, scene):
     odd.copy_(ss)
     assert odd.data_ptr() % 16
     assert torch.equal(pb.segment_aabbs(odd, 32)[0], pb.segment_aabbs(ss, 32)[0])
+
+
+SEGSORT_ALL = ([("rows", t) for t in SEGSORT_ROW_CASES] + [("flat", t) for t in SEGSORT_FLAT_CASES]
+               + [("csr", t) for t in SEGSORT_CSR_CASES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,tag", SEGSORT_ALL)
+def test_segsort_kernels_match_grace_tpu_order(dev, kind, tag):
+    """segsort.cu's entries bit-equal to the plain version run on the CPU
+    (grace_tpu's order, which the CPU tests hold it to); the card's plain
+    version is only compared: where its torch.sort departs (NaNs),
+    that is the card's library, not the kernel (ROADMAP C25)."""
+    check_segsort_case(kind, tag, segsort_case_args(kind, tag, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,tag", [("rows", list(SEGSORT_ROW_CASES)[1]),
+                                      ("rows", list(SEGSORT_ROW_CASES)[2]),
+                                      ("csr", list(SEGSORT_CSR_CASES)[0]),
+                                      ("csr", list(SEGSORT_CSR_CASES)[3]),
+                                      ("csr", list(SEGSORT_CSR_CASES)[5])])
+def test_segsort_long_route_small_chunks(dev, kind, tag, monkeypatch):
+    """The long route forced with chunks of 128 (several merge rounds): the
+    same bits."""
+    from grace_tpu_torch.ops import segops
+
+    monkeypatch.setattr(segops, "SEG_CHUNK", 128)
+    check_segsort_case(kind, tag, segsort_case_args(kind, tag, dev))
+
+
+@pytest.mark.cuda
+def test_segsort_launches_without_a_host_sync(dev, scene):
+    """sort_records_by_distance, records_to_flat, trace_sph(engine="pallas")
+    and sort_by_distance with a device total_hits launch one wrapper each,
+    under torch.cuda.set_sync_debug_mode("error"); the wrappers refuse
+    what the kernels do not take."""
+    from grace_tpu_torch.ops import segops
+    from grace_tpu_torch.trace.sph import trace_sph
+
+    ss, rays = scene
+    rec = prc.pallas_trace_sph_records(rays, ss, 128)
+    total = rec.counts.sum(dtype=torch.int32)
+    capacity = int(total)
+    torch.cuda.synchronize()
+    zero_segsort_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srt = prc.sort_records_by_distance(rec)
+        flat = prc.records_to_flat(rec, capacity)
+        got = segops.sort_by_distance(flat[4], flat[0], flat[2], flat[3], total_hits=total)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    tr = trace_sph(rays, ss, None, capacity=capacity, engine="pallas", per_ray_capacity=128)
+    torch.cuda.synchronize()
+    assert segsort_counters() == {"sort_rows": 1, "segmented_sort": 1, "records_to_flat": 2}
+    assert "bit-equal" in segsort_gate(rec, srt, tr, got)
+    assert torch.equal(tr.indices, flat[2]) and torch.equal(tr.offsets, flat[0])
+    with pytest.raises(TypeError):
+        prc.sort_records_by_distance(rec._replace(distances=rec.distances.double()))
+    with pytest.raises(ValueError, match="capacity"):
+        prc.records_to_flat(rec, -1)
+    with pytest.raises(TypeError):
+        segops.sort_by_distance(flat[4], flat[0].double(), flat[2])
+    with pytest.raises(TypeError):
+        segops.sort_by_distance(flat[4], flat[0], flat[2], flat[3].double())

@@ -293,3 +293,29 @@ def test_broadphase_constants_agree():
             assert "cudaErrorInvalidValue" in body[:body.index("cudaSetDevice")]
     # the list kernel's shared buffer fits the default 48 KB with its masks
     assert pt.SHARED_SORT * 8 + 2 * 4 * (pt.SHARED_SORT // 32) <= 48 * 1024
+
+
+def test_segsort_constants_agree():
+    """segsort.cu's longest warp run, head tile and payload count are the
+    wrappers' (segops.SEG_CHUNK, HEAD_TILE, MAX_PAYLOADS); its nine entries
+    take no float arithmetic (no flags) and refuse what they do not take
+    before they touch the device; the row sort's wrapper routes rows wider
+    than a warp's run to the segmented sort's launches."""
+    from grace_tpu_torch.ops import segops as so
+
+    src = _source("segsort")
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["kMaxChunk"] == so.SEG_CHUNK and consts["kTile"] == so.HEAD_TILE
+    assert consts["kMaxPayloads"] == so.MAX_PAYLOADS and consts["kMergeTile"] == so.MERGE_TILE
+    assert consts["kMinChunk"] * 2 == so.MERGE_TILE and consts["kWarpRun"] == so.WARP_RUN
+    _, flags, entries = _kernels.KERNELS["segsort"]
+    assert flags == []
+    assert set(entries) == {"grace_sort_rows", "grace_seg_heads", "grace_seg_count",
+                            "grace_seg_starts", "grace_segmented_sort", "grace_seg_chunks",
+                            "grace_seg_merge", "grace_seg_gather", "grace_records_to_flat"}
+    for entry in entries:
+        body = src[src.index(f'extern "C" int {entry}('):]
+        assert "cudaErrorInvalidValue" in body[:body.index("cudaSetDevice")]
+    assert so._merge_rounds(so.SEG_CHUNK, so.SEG_CHUNK) == 0
+    assert so._merge_rounds(so.SEG_CHUNK + 1, so.SEG_CHUNK) == 1
+    assert so.SEG_CHUNK << so._merge_rounds(1_300_000, so.SEG_CHUNK) >= 1_300_000
