@@ -2,11 +2,13 @@
 
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
                              [sortfree_bwd] [render_fwd] [paths] [statistics] [walk]
-                             [build] [splat_prep] [broadphase] [record_sort]
-                             [--parent DIR]
+                             [build] [climbs] [splat_prep] [broadphase] [record_sort]
+                             [feeds] [--parent DIR [--rounds K]]
                              (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
     python3 chip_ablation.py build --package DIR
+    python3 chip_ablation.py build --parent DIR
+    python3 chip_ablation.py feeds --parent DIR --rounds 5   (10 runs a side)
     python3 chip_ablation.py splat_prep --parent DIR
     python3 chip_ablation.py broadphase --parent DIR
     python3 chip_ablation.py records --parent DIR   (record_sort alone: no kernel variants)
@@ -143,13 +145,38 @@ wrapper launches them (longest list first).
   kernel (cuobjdump -sass).
 
   build: the LBVH build and what it feeds, through the package's user
-  functions only (so --package DIR times another checkout's, e.g. the
-  parent's plain build): build_sph_tree on the bench scene (max_per_leaf
-  32) and on its Morton-sorted particles (path 6's form), on the driver
-  entry's 2,048 spheres (16) with the entry forward, build_primitive_tree
+  functions and its build wrappers (so --package DIR times another
+  checkout's, e.g. the parent's): the steps after the key sort on the
+  bench scene (max_per_leaf 32: the gather with the permutation's cast,
+  the boxes and the deltas, one launch where the package has
+  gather_deltas_cuda; phase A; phase B), build_sph_tree on the bench
+  scene and on its Morton-sorted particles (path 6's form), on
+  `__graft_entry__`'s 2,048 spheres (16) with its forward, build_primitive_tree
   on the torus (XOR deltas, 8) and render_triangles on both engines at
   512 x 512; each timed, with the device's busy share and its device
-  operations (kernels, copies, memsets) over one call.
+  operations (kernels, copies, memsets) over one call; with --parent DIR,
+  DIR's grace_tpu_torch and this one in turns (parent, this, this,
+  parent), each a process of its own.
+
+  feeds: what the build feeds, through the package's user functions only:
+  the entry's forward (`__graft_entry__`: 2,048 spheres, 1,024 rays), the
+  torus build and render_triangles on both engines at 512 x 512, each timed (CUDA
+  events, median of 10 after a warm run) with the device's busy ms and
+  device operations over one call; and render_triangles(engine="xla")
+  cut into its steps (the torus build, auto_camera with its host read,
+  the rays, the closest-hit walk, the shadow rays, the any-hit walk and
+  the shading), each step's host wall time with a synchronize after it
+  (median of 10). With --parent DIR, DIR's grace_tpu_torch and this one
+  in turns (parent, this, this, parent) --rounds times (default 1), each
+  run a process of its own.
+
+  climbs: csrc/build.cu's two climbs on the bench scene's inputs as
+  shipped and in variants (phase B without its device stage, without the
+  leaves' boxes, with relaxed device arrivals, with 32 lanes a leaf, with
+  lanes up to max_per_leaf, with plain box loads in both stages;
+  phase A without its device stage), each built
+  apart and timed in turns at the
+  default block and at 256 and 512; the leave-outs are timed only.
 
   splat_prep: the splat's two setups and what they feed, through the
   package's user functions only: bucket_prims_ortho (csrc/splat_prep.cu's
@@ -1747,14 +1774,38 @@ def build_paths():
     from grace_tpu_torch.ops.primitives import TRIANGLE
     from chip_smoke import entry_forward
 
+    from grace_tpu_torch.build import deltas as bd
+    from grace_tpu_torch.build import lbvh
+    from grace_tpu_torch.ops import morton
+    from grace_tpu_torch.ops.primitives import SPHERE
+
     dev = torch.device("cuda", 0)
     spheres = torch.from_numpy(
         make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
     sorted_spheres, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
     entry = entry_inputs(dev)
     tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
+    # the build's steps after the key sort, on the bench scene
+    c = spheres[:, :3]
+    keys = morton.morton_keys_from_centroids(c, c.amin(dim=0), c.amax(dim=0))
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    if hasattr(bd, "gather_deltas_cuda"):
+        def gather():
+            return bd.gather_deltas_cuda(spheres, "sphere", perm, keys_sorted, "euclidean")
+    else:   # a package from before the one-launch gather
+        def gather():
+            sp = spheres[perm]
+            return (sp, perm.to(torch.int32), *SPHERE.aabb(sp),
+                    bd.euclidean_deltas(sp, SPHERE.centroid))
+    _, _, mins, maxs, d = gather()
+    first, count, mark = lbvh.lbvh_ranges(d, MAX_PER_LEAF)[2:5]
+    scan = torch.cumsum(mark, dim=0, dtype=torch.int32)
     result = {}
     for label, fn in (
+            ("step gather, cast, boxes and deltas, bench scene", gather),
+            ("step build_lbvh_ranges, bench scene", lambda: lbvh.lbvh_ranges(d, MAX_PER_LEAF)),
+            ("step build_lbvh_nodes, bench scene", lambda: lbvh.lbvh_nodes(
+                d, first, count, mark, scan, mins, maxs, MAX_PER_LEAF)),
             ("build_sph_tree, bench scene", lambda: build_sph_tree(spheres, MAX_PER_LEAF)),
             ("build_sph_tree, sorted bench particles (path 6)",
              lambda: build_sph_tree(sorted_spheres, MAX_PER_LEAF)),
@@ -1769,6 +1820,183 @@ def build_paths():
         ms = cuda_ms(fn, reps=10)
         print(f"build part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
         result[label] = {"ms": ms, **device_busy(f"build part {label}", fn)}
+    return result
+
+
+def feed_paths():
+    """The ``feeds`` part in this process, on whichever grace_tpu_torch it
+    imports: {call: {ms, busy_ms, wall_ms, device_ops}} and, for
+    render_triangles(engine="xla")'s steps, {step: {ms}} (host wall time
+    with a synchronize after each step, median of 10 after a warm run)."""
+    from grace_tpu_torch.build.sph import build_primitive_tree
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.ops.primitives import TRIANGLE
+    from grace_tpu_torch.rays.gen import pinhole_camera_rays
+    from chip_smoke import entry_forward
+
+    dev = torch.device("cuda", 0)
+    entry = entry_inputs(dev)
+    tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
+    result = {}
+    for label, fn in (
+            ("entry forward", lambda: entry_forward(*entry)),
+            ("build_primitive_tree, torus", lambda: build_primitive_tree(tris, TRIANGLE, 8,
+                                                                         "xor")),
+            ("render_triangles xla", lambda: mt.render_triangles(tris, resolution=SIDE,
+                                                                 engine="xla")),
+            ("render_triangles pallas", lambda: mt.render_triangles(tris, resolution=SIDE,
+                                                                    engine="pallas"))):
+        ms = cuda_ms(fn, reps=10)
+        print(f"feeds part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
+        result[label] = {"ms": ms, **device_busy(f"feeds part {label}", fn)}
+
+    def xla_steps():
+        """render_triangles(engine="xla") step by step, as the model runs it:
+        {step: host ms with a synchronize after it}."""
+        out, state = {}, {}
+
+        def step(name, fn):
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - start) * 1e3
+
+        step("build_triangle_tree", lambda: state.update(
+            zip(("st", "tree"), mt.build_triangle_tree(tris, 8)[:2])))
+
+        def camera():
+            cam, look, length = mt.auto_camera(state["st"], SIDE)
+            state.update(cam=cam.tolist(), look=look.tolist(), length=length)
+
+        step("auto_camera and its host read", camera)
+        step("pinhole rays", lambda: state.update(rays=pinhole_camera_rays(
+            SIDE, SIDE, state["cam"], state["look"], (0.0, 1.0, 0.0), math.pi / 3,
+            float(state["length"]), device=dev)))
+        step("closest-hit walk", lambda: state.update(
+            hit=mt.trace_closest_hit(state["rays"], state["st"], state["tree"])))
+        step("shadow rays", lambda: state.update(shadow=mt.shadow_inputs(
+            state["rays"], state["st"], state["hit"], (0.3, 1.0, 0.6), state["length"])))
+        step("any-hit walk", lambda: state.update(
+            occluded=mt.trace_any_hit(state["shadow"][2], state["st"], state["tree"])))
+        step("shading", lambda: torch.where(state["shadow"][0], 0.15 + torch.where(
+            state["occluded"], 0.0, state["shadow"][1]) * 0.85, 0.0))
+        return out
+
+    xla_steps()
+    runs = [xla_steps() for _ in range(10)]
+    for name in runs[0]:
+        ms = statistics.median(r[name] for r in runs)
+        print(f"feeds part render_triangles xla step {name}: {ms:.3f} ms (host wall with a "
+              "synchronize after it, median of 10)", flush=True)
+        result[f"render_triangles xla step {name}"] = {"ms": ms}
+    return result
+
+
+# Leave-out and variant builds of csrc/build.cu's climbs, timed on the bench
+# scene's phase A and B inputs. The leave-outs give wrong trees and are
+# timed only: what each part of a climb costs.
+NODES_STAGE2 = """    for (int q = t; q < sh.n_tops; q += nt) {
+        int lo = top_lo[q], hi = top_hi[q];
+        const int a = fsh[lo - kb]"""
+RANGES_STAGE2 = """    for (int q = t; q < sh.n_tops; q += nt) {
+        int lo = top_lo[q], hi = top_hi[q];
+        D dl = lo > 0"""
+BOX_LOADS = """        bmin[k] = torch_min(load_volatile(box + k), load_volatile(box + 6 + k));
+        bmax[k] = torch_max(load_volatile(box + 3 + k), load_volatile(box + 9 + k));"""
+CLIMB_VARIANTS = {
+    "as shipped": None,
+    "phase B without its device stage (leave-out)": [
+        swap("build.cu", NODES_STAGE2, NODES_STAGE2.replace("q < sh.n_tops", "q < 0"))],
+    "phase B without the leaves' boxes (leave-out)": [
+        swap("build.cu", "for (int i0 = warp * per_warp; i0 < k;",
+             "for (int i0 = warp * per_warp; i0 < 0;")],
+    "phase B with relaxed device arrivals, no fences (racy)": [
+        swap("build.cu", "if (arrive_device(&flags[p]) == 0u) break;",
+             "if (atomicAdd(&flags[p], 1u) == 0u) break;")],
+    "phase B, 32 lanes a leaf whatever max_per_leaf": [
+        swap("build.cu", "while (group < 8 && 4 * group < max_per_leaf) group <<= 1;",
+             "group = 32;")],
+    "phase B, lanes a leaf up to max_per_leaf (a row a lane)": [
+        swap("build.cu", "while (group < 8 && 4 * group < max_per_leaf) group <<= 1;",
+             "while (group < 32 && group < max_per_leaf) group <<= 1;")],
+    "phase B's block stage reading the boxes with plain loads": [
+        swap("build.cu", BOX_LOADS, BOX_LOADS.replace("load_volatile(", "*("))],
+    "phase A without its device stage (leave-out)": [
+        swap("build.cu", RANGES_STAGE2, RANGES_STAGE2.replace("q < sh.n_tops", "q < 0"))],
+}
+
+
+def climb_ablations():
+    """The ``climbs`` part: CLIMB_VARIANTS of csrc/build.cu, each built apart
+    and its two climbs launched on the bench scene's inputs (max_per_leaf
+    32, the default block, and blocks of 256 and 512), timed in turns
+    (every variant in order, then in reverse; CUDA events, median of 10);
+    the trees of the lane-group and load variants held bit-equal to the
+    shipped one."""
+    from grace_tpu_torch.build import deltas as bd
+    from grace_tpu_torch.build import lbvh
+    from grace_tpu_torch.ops import morton
+
+    dev = torch.device("cuda", 0)
+    spheres = torch.from_numpy(
+        make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
+    c = spheres[:, :3]
+    keys = morton.morton_keys_from_centroids(c, c.amin(dim=0), c.amax(dim=0))
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    _, _, mins, maxs, d = bd.gather_deltas_cuda(spheres, "sphere", perm, keys_sorted,
+                                                "euclidean")
+    n, mpl = N_PARTICLES, MAX_PER_LEAF
+    _, _, first, count, mark = lbvh.lbvh_ranges(d, mpl)
+    scan = torch.cumsum(mark, dim=0, dtype=torch.int32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def checked(rc):
+        if rc != 0:
+            raise RuntimeError(f"climbs: a variant's launch failed with CUDA error {rc}")
+
+    def ranges_call(dll, block):
+        outs = [torch.empty(m, **i32) for m in (n - 1, n - 1, n, n, 3 * n - 2)]
+        return lambda: checked(dll.grace_lbvh_ranges(
+            d.data_ptr(), *[t.data_ptr() for t in outs], n, mpl, 1, block, 0, stream))
+
+    def nodes_call(dll, block, out, flags, ends):
+        return lambda: checked(dll.grace_lbvh_nodes(
+            *[t.data_ptr() for t in (d, first, count, mark, scan, mins, maxs, *out, flags,
+                                     ends)], n, mpl, 1, block, 0, stream))
+
+    def tree_out():
+        return [torch.empty((n - 1, 2), **i32),
+                torch.empty((n - 1, 2, 2, 3), dtype=torch.float32, device=dev),
+                torch.empty((n, 2), **i32), *(torch.empty((), **i32) for _ in range(3))]
+
+    dlls = {v: build_variant("build", f"climbs-{i}", edits)
+            for i, (v, edits) in enumerate(CLIMB_VARIANTS.items())}
+    flags, ends = torch.empty(n - 1, **i32), torch.empty((n - 1, 6), **i32)
+    result = {}
+    for block in (0, 256, 512):
+        outs = {v: tree_out() for v in dlls}
+        calls = {}
+        for v, dll in dlls.items():
+            calls[v, "ranges"] = ranges_call(dll, block)
+            calls[v, "nodes"] = nodes_call(dll, block, outs[v], flags, ends)
+        times = {}
+        for v in list(dlls) + list(dlls)[::-1]:
+            for phase in ("ranges", "nodes"):
+                times.setdefault((v, phase), []).append(cuda_ms(calls[v, phase], reps=10))
+        torch.cuda.synchronize()
+        for v in ("phase B, 32 lanes a leaf whatever max_per_leaf",
+                  "phase B, lanes a leaf up to max_per_leaf (a row a lane)",
+                  "phase B's block stage reading the boxes with plain loads"):
+            for f, (a, b) in enumerate(zip(outs[v], outs["as shipped"])):
+                bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+                if not torch.equal(bits(a), bits(b)):
+                    raise AssertionError(f"climbs: {v} output {f} differs from the shipped one")
+        for (v, phase), ms in times.items():
+            label = f"climbs block {block or 'default'} {phase} {v}"
+            print(f"{label}: {', '.join(f'{x:.3f}' for x in ms)} ms (CUDA events, median of "
+                  "10, in turns)", flush=True)
+            result[label] = ms
     return result
 
 
@@ -1839,12 +2067,12 @@ def splat_prep_paths():
     return result
 
 
-def part_turns(part, parent_dir):
+def part_turns(part, parent_dir, rounds=1):
     """Part ``part`` on DIR's package and on this one in turns (parent,
-    this, this, parent), each a process of its own. Returns {"parent":
-    [run, run], "this": [run, run]}."""
+    this, this, parent; ``rounds`` times), each a process of its own.
+    Returns {"parent": [run, ...], "this": [run, ...]}."""
     runs = {"parent": [], "this": []}
-    for who in ("parent", "this", "this", "parent"):
+    for who in ("parent", "this", "this", "parent") * rounds:
         cmd = [sys.executable, os.path.abspath(__file__), part]
         if who == "parent":
             cmd += ["--package", parent_dir]
@@ -1852,13 +2080,26 @@ def part_turns(part, parent_dir):
         for line in out.splitlines()[:-1]:
             print(f"{who}: {line}", flush=True)
         runs[who].append(json.loads(out.splitlines()[-1])[part])
+    def cell(x):
+        return f"{x['ms']:.3f} ms" + (f" ({x['device_ops']} ops, busy {x['busy_ms']:.3f} ms)"
+                                      if "device_ops" in x else "")
+
     for label in runs["this"][0]:
-        if "device_ops" not in runs["this"][0][label]:
+        if "ms" not in runs["this"][0][label]:
             continue   # a variant's own turns, printed by its run
-        cells = [f"{who} " + ", ".join(f"{r[label]['ms']:.3f} ms ({r[label]['device_ops']} ops, "
-                                       f"busy {r[label]['busy_ms']:.3f} ms)" for r in runs[who])
+        cells = [f"{who} " + ", ".join(cell(r[label]) for r in runs[who])
                  for who in ("parent", "this") if label in runs[who][0]]
         print(f"{part} in turns, {label}: " + "; ".join(cells), flush=True)
+        if rounds > 1:
+            med = {who: statistics.median(r[label]["ms"] for r in runs[who])
+                   for who in ("parent", "this") if label in runs[who][0]}
+            pairs = [b[label]["ms"] - a[label]["ms"] for a, b in zip(runs["parent"], runs["this"])
+                     if label in a]
+            print(f"{part} in turns, {label}: median of the runs parent "
+                  + ", ".join(f"{who} {m:.3f} ms" for who, m in med.items())
+                  + f"; this minus parent, run by run: "
+                  + ", ".join(f"{x:+.3f}" for x in pairs)
+                  + f" ({sum(x > 0 for x in pairs)} of {len(pairs)} slower)", flush=True)
     return runs
 
 
@@ -2276,7 +2517,8 @@ def walk_ablations(parent_dir):
 
 
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
-         "paths", "statistics", "walk", "build", "splat_prep", "broadphase", "record_sort")
+         "paths", "statistics", "walk", "build", "climbs", "splat_prep", "broadphase",
+         "record_sort", "feeds")
 
 
 def main():
@@ -2289,6 +2531,11 @@ def main():
     if "--parent" in args:  # the parent's kernels or package (records, ..., walk, splat_prep)
         i = args.index("--parent")
         parent = os.path.abspath(args[i + 1])
+        del args[i:i + 2]
+    rounds = 1
+    if "--rounds" in args:  # rounds of turns (parent, this, this, parent) with --parent
+        i = args.index("--rounds")
+        rounds = int(args[i + 1])
         del args[i:i + 2]
     parts = args or list(PARTS)
     if not set(parts) <= set(PARTS):
@@ -2355,7 +2602,11 @@ def main():
     if "statistics" in parts:
         summary["statistics"] = statistics_forms()
     if "build" in parts:
-        summary["build"] = build_paths()
+        summary["build"] = part_turns("build", parent) if parent else build_paths()
+    if "feeds" in parts:
+        summary["feeds"] = part_turns("feeds", parent, rounds) if parent else feed_paths()
+    if "climbs" in parts:
+        summary["climbs"] = climb_ablations()
     if "splat_prep" in parts:
         summary["splat_prep"] = (part_turns("splat_prep", parent) if parent
                                  else splat_prep_paths())

@@ -106,12 +106,16 @@ kernels' launch counters set to 0 just before it:
      rays beside B6's.
 
 Before any other check, ``check_build`` holds the LBVH build's kernels
-(csrc/build.cu: Morton keys, deltas, the two climbs) to the plain build
-bit for bit (keys, permutation, sorted primitives, deltas, split ranges,
-every Tree field) on the bench scene, the entry's spheres, the torus,
-63-bit keys with XOR and with surface-area deltas, all points identical,
-runs of equal keys, max_per_leaf 1 and 32, N = 2 and 3 and signed zeros
-at the box edge, and runs each entry build twice (bit-equal) under
+(csrc/build.cu: Morton keys, deltas, the gather with boxes and deltas,
+the two climbs) to the plain build bit for bit (keys, permutation, sorted
+primitives, deltas, split ranges, every Tree field, the climbs also at
+blocks of 32 and 100 items; the gather's rows, permutation, boxes and
+deltas against prims[perm], perm.to(int32), kind.aabb and the plain
+deltas) on the bench scene, the entry's spheres, the torus, 63-bit keys
+with XOR and with surface-area deltas, all points identical, runs of
+equal keys, max_per_leaf 1 and 32, N = 2 and 3, signed zeros at the box
+edge, triangles with signed zeros and tied vertices and triangles with
+surface-area deltas, and runs each entry build twice (bit-equal) under
 torch.cuda.set_sync_debug_mode("error"); where a delta equals the
 sentinel (two spheres at opposite corners, 63-bit keys) both give the
 valid tree, where the reference's build breaks (ROADMAP C19). Every
@@ -206,7 +210,7 @@ splat contractions and the launch-order helpers too) with the card's name
 and power limit, the work each kernel's bound is computed from,
 a JSON line describing each kernel (the list kernel on quarter and on
 segment lists apart, the triangle kernel's two passes apart, the engine's
-walk for spheres and for triangles apart, the build's four kernels, the
+walk for spheres and for triangles apart, the build's five kernels, the
 splat setups' four, the broadphase's four, the triangle lists and the
 records' three post-processing entries with their launches on each main
 path), and last a
@@ -2094,6 +2098,9 @@ def check_build_case(tag, prims, kind, max_per_leaf, delta_kind="euclidean", bit
         if w.numel():
             g, w64 = got[name].double(), w.double()
             errs[name] = float(torch.where(g == w64, 0.0, (g - w64).abs()).max())
+    errs["gather"] = check_gather(tag, prims, kind, delta_kind, bits, want)
+    for block in CLIMB_BLOCKS:
+        check_climbs(f"{tag} block {block}", want, kind, max_per_leaf, block)
     torch.cuda.set_sync_debug_mode("error")
     try:
         runs = [entry_build(prims, kind, max_per_leaf, delta_kind, bits) for _ in range(2)]
@@ -2105,6 +2112,54 @@ def check_build_case(tag, prims, kind, max_per_leaf, delta_kind="euclidean", bit
         for f in BUILD_FIELDS:
             check_tensor_bits(f"{tag} entry run {i} {f}", getattr(tree, f), got[f])
     return int(got["n_leaves"]), int(got["root"]), errs
+
+
+# the climbs' blocks check_build also runs (the kernel's default is 1024, less
+# for small N):
+# small blocks send most splits to the device-scope stage, 100 divides no size
+CLIMB_BLOCKS = (32, 100)
+
+
+def check_gather(tag, prims, kind, delta_kind, bits, want):
+    """grace_gather_deltas (E2 in one launch) against the torch steps it
+    replaces on the same card tensors, bit for bit: prims[perm],
+    perm.to(int32), kind.aabb of the sorted rows and the plain deltas
+    (``want``: the plain stages). Returns its max abs err (0: bit-equal)."""
+    from grace_tpu_torch.build import deltas as bd
+
+    gather, kernel_kind = bd.gather_for(kind, delta_kind, bits)
+    keys_sorted, perm = torch.sort(want["keys"], stable=True)
+    sp, perm32, mins, maxs, d = bd.gather_deltas_cuda(prims, gather, perm, keys_sorted,
+                                                      kernel_kind)
+    sp2, perm2, none_min, none_max, none_d = bd.gather_deltas_cuda(prims, gather, perm,
+                                                                   boxes=False)
+    if none_min is not None or none_d is not None:
+        raise AssertionError(f"{tag} gather: boxes or deltas where none were asked for")
+    want_min, want_max = kind.aabb(want["sorted primitives"])
+    for name, g, w in (("sorted rows", sp, want["sorted primitives"]),
+                       ("permutation", perm32, want["permutation"]),
+                       ("rows without boxes", sp2, sp), ("permutation without boxes", perm2,
+                                                         perm32),
+                       ("box minima", mins, want_min), ("box maxima", maxs, want_max),
+                       ("deltas", d, want["deltas"])):
+        check_tensor_bits(f"{tag} gather {name}", g, w)
+    return 0.0
+
+
+def check_climbs(tag, want, kind, max_per_leaf, block):
+    """Both climbs at ``block`` items a block against the plain stages
+    ``want``, bit for bit: phase A's split ranges and every Tree field."""
+    from grace_tpu_torch.build import lbvh
+
+    d = want["deltas"]
+    mins, maxs = kind.aabb(want["sorted primitives"])
+    l, r, first, count, mark = lbvh.lbvh_ranges(d, max_per_leaf, _block=block)
+    check_tensor_bits(f"{tag} split ranges l", l, want["split ranges l"])
+    check_tensor_bits(f"{tag} split ranges r", r, want["split ranges r"])
+    scan = torch.cumsum(mark, dim=0, dtype=torch.int32)
+    tree = lbvh.lbvh_nodes(d, first, count, mark, scan, mins, maxs, max_per_leaf, _block=block)
+    for f in BUILD_FIELDS:
+        check_tensor_bits(f"{tag} {f}", getattr(tree, f), want[f])
 
 
 def signed_zero_spheres(rng, n):
@@ -2133,6 +2188,9 @@ BUILD_CASES = {
     "N = 2, mpl 1": ("random", 2, 1, "euclidean", 30),
     "N = 3, mpl 1": ("random", 3, 1, "euclidean", 30),
     "signed zeros at the box edge (1000 spheres)": ("signed_zeros", 1000, 4, "euclidean", 30),
+    "triangles with signed zeros and tied vertices (3000, mpl 4, euclidean)":
+        ("tri_zeros", 3000, 4, "euclidean", 30),
+    "triangles, surface area (3000, mpl 8)": ("triangles", 3000, 8, "surface_area", 30),
 }
 
 
@@ -2154,6 +2212,11 @@ def build_case(tag, dev):
         prims = np.concatenate([rng.random((n, 3)), 0.01 + 0.05 * rng.random((n, 1))], axis=1)
     elif scene == "identical":
         prims = np.tile([[0.3, 0.6, 0.2, 0.05]], (n, 1))
+    elif scene in ("triangles", "tri_zeros"):
+        prims, kind = random_mesh(rng, n), TRIANGLE
+        if scene == "tri_zeros":     # +0 / -0 coordinates, some tied within a triangle
+            zero = rng.random(prims.shape) < 0.3
+            prims[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
     elif scene == "equal_keys":       # 30 points, 100 copies each: runs of zero deltas
         prims = np.concatenate([np.repeat(rng.random((30, 3)), n // 30, axis=0),
                                 np.full((n, 1), 0.02)], axis=1)[rng.permutation(n)]
@@ -2192,7 +2255,10 @@ def check_build(dev):
         bench_errs = bench_errs or errs
         lines.append(f"{tag}: keys, permutation, sorted primitives, deltas, split ranges and "
                      f"every tree field bit-equal to the plain build ({n_leaves} leaves, root "
-                     f"{root}); the entry twice, bit-equal, no host sync")
+                     f"{root}), also with the climbs at blocks {CLIMB_BLOCKS} besides the "
+                     f"default; grace_gather_deltas' rows, permutation, boxes and deltas bit-equal "
+                     f"to prims[perm], perm.to(int32), kind.aabb and the plain deltas; the entry "
+                     f"twice, bit-equal, no host sync")
     lines.append(check_sentinel_build(dev))
     p, m = torch.zeros(1, device=dev), -torch.zeros(1, device=dev)
     signs = [f"{float(f(a, b)):+}" for f in (torch.minimum, torch.maximum)
@@ -2210,6 +2276,7 @@ def build_counters():
 
     return {"build_morton_keys": morton.morton_keys_cuda.launches,
             "build_deltas": bd.deltas_cuda.launches,
+            "build_gather_deltas": bd.gather_deltas_cuda.launches,
             "build_lbvh_ranges": lbvh.lbvh_ranges.launches,
             "build_lbvh_nodes": lbvh.lbvh_nodes.launches}
 
@@ -2219,8 +2286,16 @@ def zero_build_counters():
     from grace_tpu_torch.build import lbvh
     from grace_tpu_torch.ops import morton
 
-    for fn in (morton.morton_keys_cuda, bd.deltas_cuda, lbvh.lbvh_ranges, lbvh.lbvh_nodes):
+    for fn in (morton.morton_keys_cuda, bd.deltas_cuda, bd.gather_deltas_cuda, lbvh.lbvh_ranges,
+               lbvh.lbvh_nodes):
         fn.launches = 0
+
+
+def path_build_counters(counts):
+    """The build kernels a main path runs, out of ``build_counters()``: all
+    but grace_deltas, the public delta functions' kernel, since the build
+    takes its deltas from grace_gather_deltas."""
+    return {k: v for k, v in counts.items() if k != "build_deltas"}
 
 
 def build_times(spheres, entry_spheres, tris):
@@ -2228,11 +2303,11 @@ def build_times(spheres, entry_spheres, tris):
     build_sph_tree alone on the bench scene at the main path's
     max_per_leaf, kernels and the torch calls between them, each kernel's
     plain version, and the plain build at each full size (the bench, the
-    entry's 2,048 spheres, the torus). Returns (times, {kernel and "build":
-    (operations, bytes)}): each kernel's inputs read once and outputs
-    written once; the whole build's adds the torch calls' (the sort as one
-    read of the keys and one write of the sorted keys and permutation: CUB's
-    radix passes are not counted)."""
+    entry's 2,048 spheres, the torus). Returns
+    (times, {kernel and "build": (operations, bytes)}): each kernel's inputs
+    read once and outputs written once; the whole build's adds the torch
+    calls' (the sort as one read of the keys and one write of the sorted
+    keys and permutation: CUB's radix passes are not counted)."""
     from grace_tpu_torch.build import deltas as bd
     from grace_tpu_torch.build import lbvh
     from grace_tpu_torch.build.sph import build_primitive_tree, build_sph_tree
@@ -2244,25 +2319,34 @@ def build_times(spheres, entry_spheres, tris):
     lo, hi = c.amin(dim=0), c.amax(dim=0)
     keys = morton.morton_keys_cuda(c, lo, hi, 30)
     keys_sorted, perm = torch.sort(keys, stable=True)
-    ss = spheres[perm]
-    d = bd.deltas_cuda("euclidean", a=SPHERE.centroid(ss))
-    mins, maxs = SPHERE.aabb(ss)
+    ss, perm32, mins, maxs, d = bd.gather_deltas_cuda(spheres, "sphere", perm, keys_sorted,
+                                                      "euclidean")
     l, r, first, count, mark = lbvh.lbvh_ranges(d, mpl)
     scan = torch.cumsum(mark, dim=0, dtype=torch.int32)
     tree = lbvh.lbvh_nodes(d, first, count, mark, scan, mins, maxs, mpl)
     nl = int(tree.n_leaves)
+
+    def torch_gather():
+        sp = spheres[perm]
+        return sp, perm.to(torch.int32), SPHERE.aabb(sp), bd.deltas_cuda(
+            "euclidean", a=SPHERE.centroid(sp))
+
     t = {}
     t["build scene box (amin, amax)"] = cuda_ms(lambda: (c.amin(dim=0), c.amax(dim=0)))
     t["build_morton_keys kernel"] = cuda_ms(lambda: morton.morton_keys_cuda(c, lo, hi, 30))
     t["build_morton_keys plain"] = cuda_ms(lambda: morton._morton_keys_plain(c, lo, hi, 30))
     t["build key sort (torch.sort, stable)"] = cuda_ms(lambda: torch.sort(keys, stable=True))
-    t["build gather and permutation (spheres[perm], i32)"] = cuda_ms(
-        lambda: (spheres[perm], perm.to(torch.int32)))
+    t["build_gather_deltas kernel (euclidean)"] = cuda_ms(
+        lambda: bd.gather_deltas_cuda(spheres, "sphere", perm, keys_sorted, "euclidean"))
+    t["build_gather_deltas plain (spheres[perm], i32, sphere_aabb, plain deltas)"] = cuda_ms(
+        lambda: (spheres[perm], perm.to(torch.int32), SPHERE.aabb(ss),
+                 bd.euclidean_deltas(ss, SPHERE.centroid, plain=True)))
+    t["build gather, cast, boxes and grace_deltas (the steps the gather kernel replaced)"] = \
+        cuda_ms(torch_gather)
     t["build_deltas kernel (euclidean)"] = cuda_ms(
         lambda: bd.deltas_cuda("euclidean", a=SPHERE.centroid(ss)))
     t["build_deltas plain (euclidean)"] = cuda_ms(
         lambda: bd.euclidean_deltas(ss, SPHERE.centroid, plain=True))
-    t["build boxes (sphere_aabb)"] = cuda_ms(lambda: SPHERE.aabb(ss))
     t["build_lbvh_ranges kernel"] = cuda_ms(lambda: lbvh.lbvh_ranges(d, mpl))
     t["build_lbvh_ranges plain (cartesian_tree_ranges, coalesce_leaves)"] = cuda_ms(
         lambda: lbvh.coalesce_leaves(*lbvh.cartesian_tree_ranges(d), mpl, n), reps=3)
@@ -2280,21 +2364,22 @@ def build_times(spheres, entry_spheres, tris):
         lambda: build_primitive_tree(tris, TRIANGLE, 8, "xor", plain=True), reps=3)
     # operations: a key's 3 subtractions, divisions, products and
     # conversions and its 30 bit operations; a delta's 8 (3 subtractions,
-    # 3 products, 2 sums); a climb's arrival about 12 integer operations
-    # (2 N - 1 a phase A, 2 n_leaves - 1 a phase B) and a box union 6 (a
-    # leaf's primitives, then a node's two children)
+    # 3 products, 2 sums) and a sphere's box 6; a climb's arrival about 12
+    # integer operations (2 N - 1 a phase A, 2 n_leaves - 1 a phase B) and a
+    # box union 6 (a leaf's primitives, then a node's two children)
     work = {
         "build_morton_keys": (42 * n, nbytes(c, lo, hi, keys)),
         "build_deltas": (8 * (n - 1), nbytes(SPHERE.centroid(ss), d)),
+        "build_gather_deltas": (14 * n, nbytes(perm, spheres, ss, perm32, mins, maxs, d)),
         "build_lbvh_ranges": (12 * (2 * n - 1), nbytes(d, l, r, mark) + 8 * nl),
         "build_lbvh_nodes": (12 * (2 * nl - 1) + 6 * (n + nl - 1),
                              nbytes(mark, scan, mins, maxs, tree.children, tree.child_aabbs,
                                     tree.leaves) + 8 * nl + 4 * (nl - 1) + 12),
     }
-    torch_bytes = (nbytes(keys, keys_sorted, perm) + nbytes(spheres, perm, ss) + 4 * n
-                   + nbytes(ss, mins, maxs) + nbytes(mark, scan))
-    work["build"] = (sum(w[0] for w in work.values()),
-                     sum(w[1] for w in work.values()) + torch_bytes)
+    torch_bytes = nbytes(c) + nbytes(keys, keys_sorted, perm) + nbytes(mark, scan) + 24
+    on_path = ("build_morton_keys", "build_gather_deltas", "build_lbvh_ranges", "build_lbvh_nodes")
+    work["build"] = (sum(work[k][0] for k in on_path),
+                     sum(work[k][1] for k in on_path) + torch_bytes)
     return t, work
 
 
@@ -4145,6 +4230,12 @@ def run(dev, n_particles, side):
         log(f"resources {label}: {json.dumps(_kernels.resources(name, entry, dev, *ints))}")
     from grace_tpu_torch.trace import walk as wk
 
+    from grace_tpu_torch.build import lbvh
+
+    for kernel in lbvh.RESOURCE_KERNELS:
+        for is_float in ((True, False) if kernel.startswith("lbvh") else (True,)):
+            label = f"build_{kernel}" + ("" if is_float else " (int64 deltas)")
+            log(f"resources {label}: {json.dumps(lbvh.build_resources(dev, kernel, is_float))}")
     for kind, mode in (("sph", "cumulative"), ("tri", "closest"), ("tri", "any")):
         for route in wk.ROUTES:
             log(f"resources bvh_walk_{kind} ({mode}, {route}): "
@@ -4215,7 +4306,7 @@ def run(dev, n_particles, side):
     bp_by_path = {1: gate_broadphase(1)}
     seg_by_path = {1: gate_segsort(1)}
     launches = {"trace_quarter": pk.trace_quarter.launches,
-                "splat": sp.splat_image.launches, **build_by_path[1],
+                "splat": sp.splat_image.launches, **path_build_counters(build_by_path[1]),
                 "splat_bucket_keys": prep_by_path[1]["splat_bucket_keys"],
                 "splat_bucket_sort": prep_by_path[1]["splat_bucket_sort"],
                 "splat_bucket_pack": prep_by_path[1]["splat_bucket_pack"]}
@@ -4491,7 +4582,8 @@ def run(dev, n_particles, side):
     bp_by_path[5] = gate_broadphase(5)
     seg_by_path[5] = gate_segsort(5)
     launches5 = {"trace_tri closest": pt.trace_tri.launches - pt.trace_tri.launches_any,
-                 "trace_tri any": pt.trace_tri.launches_any, **build_by_path[5]}
+                 "trace_tri any": pt.trace_tri.launches_any,
+                 **path_build_counters(build_by_path[5])}
     if min(launches5.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches5}")
     tri_state = triangle_gates(tris, tri_img, side)
@@ -4534,7 +4626,7 @@ def run(dev, n_particles, side):
     prep_by_path[6] = prep_counters()
     bp_by_path[6] = gate_broadphase(6)
     seg_by_path[6] = gate_segsort(6)
-    launches6 = {**path6["launches"], **build_by_path[6]}
+    launches6 = {**path6["launches"], **path_build_counters(build_by_path[6])}
     if min(launches6.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches6}")
     for line in path6["lines"]:
@@ -4575,7 +4667,7 @@ def run(dev, n_particles, side):
     prep_by_path[7] = prep_counters()
     bp_by_path[7] = gate_broadphase(7)
     seg_by_path[7] = gate_segsort(7)
-    launches7 = {**path7["launches"], **build_by_path[7]}
+    launches7 = {**path7["launches"], **path_build_counters(build_by_path[7])}
     if min(launches7.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches7}")
     for line in path7["lines"]:
@@ -4592,7 +4684,7 @@ def run(dev, n_particles, side):
     prep_by_path[8] = prep_counters()
     bp_by_path[8] = gate_broadphase(8)
     seg_by_path[8] = gate_segsort(8)
-    launches8 = {**path8["launches"], **build_by_path[8]}
+    launches8 = {**path8["launches"], **path_build_counters(build_by_path[8])}
     if min(launches8.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches8}")
     if path8["plain_calls"] != 0:
@@ -4962,6 +5054,12 @@ def run(dev, n_particles, side):
               ("build_deltas", "grace_tpu/build/deltas.py:26, grace_tpu/build/deltas.py:76",
                build_errs["deltas"], "build_deltas kernel (euclidean)",
                "build_deltas plain (euclidean)"),
+              ("build_gather_deltas", "grace_tpu/build/sph.py:60, grace_tpu/build/sph.py:134, "
+               "grace_tpu/ops/primitives.py:32, grace_tpu/ops/primitives.py:57, "
+               "grace_tpu/build/deltas.py:76, grace_tpu/build/deltas.py:89",
+               max(build_errs["gather"], build_errs["deltas"]),
+               "build_gather_deltas kernel (euclidean)",
+               "build_gather_deltas plain (spheres[perm], i32, sphere_aabb, plain deltas)"),
               ("build_lbvh_ranges", "grace_tpu/build/lbvh.py:105, grace_tpu/build/lbvh.py:130",
                max(build_errs["split ranges l"], build_errs["split ranges r"]),
                "build_lbvh_ranges kernel",

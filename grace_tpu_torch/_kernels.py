@@ -70,13 +70,15 @@ KERNELS = {
                  {"grace_walk_sph": "p" * 17 + "i" * 10,
                   "grace_walk_tri": "p" * 13 + "i" * 8,
                   "grace_walk_resources": "piii"}),
-    # the LBVH build: --fmad=false keeps the keys' and deltas' f32 rounding
-    # the plain build's
+    # the LBVH build: --fmad=false keeps the keys', boxes' and deltas' f32
+    # rounding the plain build's
     "build": ("build.cu", ["--fmad=false"],
               {"grace_morton_keys": "pppp" + "iii",
                "grace_deltas": "pppp" + "iiii",
-               "grace_lbvh_ranges": "ppppppp" + "iii",
-               "grace_lbvh_nodes": "p" * 15 + "ii"}),
+               "grace_gather_deltas": "pppppppp" + "iii",
+               "grace_lbvh_ranges": "pppppp" + "iiii",
+               "grace_lbvh_nodes": "p" * 15 + "iiii",
+               "grace_build_resources": "pii"}),
     # the splat's two setups (bucketed keys and slabs; the sort-free
     # projection, slabs and masks): --fmad=false keeps the projections'
     # and quotients' f32 rounding the plain path's

@@ -12,7 +12,11 @@ ROADMAP C19).
 Each delta function launches ``csrc/build.cu``'s ``grace_deltas``
 (``deltas_cuda``) on CUDA tensors and runs its plain version on CPU
 tensors, or where ``plain`` (which only the checks pass); both give the
-same bits.
+same bits. The build's own path takes ``gather_deltas_cuda``
+(``grace_gather_deltas``): the sort's gather of spheres or triangles, the
+int32 permutation, the sorted rows' boxes and their deltas in one launch,
+bit-equal to ``prims[perm]``, ``perm.to(int32)``, ``kind.aabb`` and the
+delta functions here.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from grace_tpu_torch import _kernels
-from grace_tpu_torch.ops.primitives import AabbFn, CentroidFn
+from grace_tpu_torch.ops.primitives import SPHERE, TRIANGLE, AabbFn, CentroidFn, PrimitiveKind
 from grace_tpu_torch.ops.vecmath import dot3, fma
 
 U32_SENTINEL = 0xFFFFFFFF
@@ -61,6 +65,64 @@ def deltas_cuda(kind: str, a=None, b=None, keys=None) -> torch.Tensor:
 
 
 deltas_cuda.launches = 0
+
+
+# grace_gather_deltas' primitive kinds: spheres f32[N, 4], triangles f32[N, 3, 3]
+GATHER_PRIMS = {"sphere": (4,), "triangle": (3, 3)}
+
+
+def gather_deltas_cuda(prims: torch.Tensor, prim: str, perm: torch.Tensor, keys=None,
+                       kind=None, boxes: bool = True):
+    """One launch of ``grace_gather_deltas``: ``prims`` (``prim``, a key of
+    ``GATHER_PRIMS``) taken in the order of the stable sort's int64
+    ``perm``. Returns (sorted prims, perm i32[N], box minima, box maxima
+    f32[N, 3] or None where not ``boxes``, deltas [N-1] of ``kind``
+    (``KINDS``; the XOR kinds from the sorted int64 ``keys``) or None)."""
+    shape = GATHER_PRIMS[prim]
+    if prims.dtype != torch.float32 or tuple(prims.shape[1:]) != shape:
+        raise ValueError(f"gather_deltas: {prim} rows must be f32[N, {', '.join(map(str, shape))}]")
+    n, dev = prims.shape[0], prims.device
+    if perm.shape != (n,) or perm.dtype != torch.int64 or perm.device != dev:
+        raise ValueError(f"gather_deltas: perm must be int64[{n}] on {dev}")
+    k = -1 if kind is None else KINDS.index(kind)
+    if kind is not None and kind.startswith("xor"):
+        if keys is None or keys.shape != (n,) or keys.dtype != torch.int64:
+            raise ValueError(f"gather_deltas: {kind} deltas need the sorted keys int64[{n}]")
+        keys = keys.contiguous()
+    else:
+        keys = None
+    prims = _kernels.aligned(prims) if prim == "sphere" else prims.contiguous()
+    perm = perm.contiguous()
+    sorted_prims = torch.empty_like(prims)
+    perm32 = torch.empty(n, dtype=torch.int32, device=dev)
+    mins, maxs = ((torch.empty((n, 3), dtype=torch.float32, device=dev) for _ in range(2))
+                  if boxes else (None, None))
+    out = (None if kind is None else
+           torch.empty(max(n - 1, 0), dtype=torch.int64 if keys is not None else torch.float32,
+                       device=dev))
+    if n == 0:
+        return sorted_prims, perm32, mins, maxs, out
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    _kernels.launch("build", "grace_gather_deltas", dev,
+                    *[ptr(t) for t in (prims, perm, keys, sorted_prims, perm32, mins, maxs, out)],
+                    n, list(GATHER_PRIMS).index(prim), k)
+    gather_deltas_cuda.launches += 1
+    return sorted_prims, perm32, mins, maxs, out
+
+
+gather_deltas_cuda.launches = 0
+
+
+def gather_for(kind: PrimitiveKind, delta_kind: str, bits: int):
+    """``gather_deltas_cuda``'s (prim, kind) for a build over primitives of
+    ``kind`` with ``delta_kind`` deltas ("euclidean", "surface_area" or
+    "xor" of ``bits``-bit keys), or None where it takes no such rows."""
+    prim = {SPHERE: "sphere", TRIANGLE: "triangle"}.get(kind)
+    if prim is None:
+        return None
+    if delta_kind not in ("euclidean", "surface_area", "xor"):
+        raise ValueError(f"unknown delta_kind {delta_kind!r}")
+    return prim, f"xor{bits}" if delta_kind == "xor" else delta_kind
 
 
 def _on_card(t: torch.Tensor, plain: bool) -> bool:

@@ -19,14 +19,19 @@ On CUDA tensors ``build_lbvh`` builds the same tree as the CUDA original
 does, with two bottom-up climbs coordinated by atomics
 (``csrc/build.cu``): ``lbvh_ranges`` (the ranges of every split and the
 big leaves at their slots), one prefix sum, and ``lbvh_nodes`` (the top
-tree, its boxes and padding), three launches and no host sync. Both
-builds count the ends of a delta sequence as larger than any delta, so
-their trees are bit-equal, also where a delta equals the sentinel, where
-grace_tpu's build breaks (ROADMAP C19).
+tree, its boxes and padding), two memsets, three launches and no host
+sync. Each climb runs a block over consecutive items (up to 1024 primitives
+in phase A, the leaves of as many primitive slots in phase B): the splits
+whose range lies inside the block complete in shared memory, the others at
+device scope; phase B's threads hold only leaves, and a warp unions each
+leaf's box in order. Both builds count the ends of a delta sequence as
+larger than any delta, so their trees are bit-equal, also where a delta
+equals the sentinel, where grace_tpu's build breaks (ROADMAP C19).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import List
 
@@ -309,33 +314,38 @@ def _is_float_deltas(deltas: torch.Tensor) -> int:
     return int(deltas.dtype == torch.float32)
 
 
-def lbvh_ranges(deltas: torch.Tensor, max_per_leaf: int):
+def lbvh_ranges(deltas: torch.Tensor, max_per_leaf: int, _block: int = 0):
     """One launch of ``grace_lbvh_ranges`` (phase A): the primitive-level
     climb over ``deltas`` [N-1]. Returns i32 (l [N-1], r [N-1], first [N],
     count [N], mark [N]): every split's range, equal to
     ``cartesian_tree_ranges``; the big leaves' first primitive and count at
     their slots (the first primitive of a left child, the last of a right
-    child), where ``mark`` is 1."""
+    child), where ``mark`` is 1. ``_block`` (primitives a block; 0: the
+    kernel's default) exists for the tests, whose small blocks send most
+    splits to the device-scope stage."""
     is_float = _is_float_deltas(deltas)
     d = deltas.contiguous()
     n, dev = d.shape[0] + 1, d.device
-    l, r, flags = (torch.empty(n - 1, dtype=torch.int32, device=dev) for _ in range(3))
-    first, count, mark = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3))
-    _kernels.launch("build", "grace_lbvh_ranges", dev, d.data_ptr(), l.data_ptr(), r.data_ptr(),
-                    first.data_ptr(), count.data_ptr(), mark.data_ptr(), flags.data_ptr(), n,
-                    max_per_leaf, is_float)
+    l, r = (torch.empty(n - 1, dtype=torch.int32, device=dev) for _ in range(2))
+    first, count = (torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2))
+    scratch = torch.empty(3 * n - 2, dtype=torch.int32, device=dev)   # u64 flags, then mark
+    _kernels.launch("build", "grace_lbvh_ranges", dev,
+                    *[t.data_ptr() for t in (d, l, r, first, count, scratch)],
+                    n, max_per_leaf, is_float, _block)
     lbvh_ranges.launches += 1
-    return l, r, first, count, mark
+    return l, r, first, count, scratch[2 * (n - 1):]
 
 
 lbvh_ranges.launches = 0
 
 
-def lbvh_nodes(deltas, first, count, mark, scan, mins, maxs, max_per_leaf: int) -> Tree:
+def lbvh_nodes(deltas, first, count, mark, scan, mins, maxs, max_per_leaf: int,
+               _block: int = 0) -> Tree:
     """One launch of ``grace_lbvh_nodes`` (phase B): the climb over the big
     leaves that ``lbvh_ranges`` marked (``scan``: the inclusive prefix sum
     of ``mark``), with the boxes of ``mins``, ``maxs`` f32[N, 3]. Returns
-    the Tree, padded as the plain build pads it."""
+    the Tree, padded as the plain build pads it. ``_block`` (primitive slots
+    a block; 0: the kernel's default) exists for the tests."""
     is_float = _is_float_deltas(deltas)
     d = deltas.contiguous()
     n, dev = d.shape[0] + 1, d.device
@@ -348,17 +358,31 @@ def lbvh_nodes(deltas, first, count, mark, scan, mins, maxs, max_per_leaf: int) 
     leaves = torch.empty((n, 2), **i32)
     root, n_nodes, n_leaves = (torch.empty((), **i32) for _ in range(3))
     flags = torch.empty(n - 1, **i32)
-    ends = torch.empty((n - 1, 4), **i32)
+    ends = torch.empty((n - 1, 6), **i32)
     _kernels.launch("build", "grace_lbvh_nodes", dev,
                     *[t.data_ptr() for t in (d, first, count, mark, scan, mins, maxs, children,
                                              child_aabbs, leaves, root, n_nodes, n_leaves,
-                                             flags, ends)], n, is_float)
+                                             flags, ends)], n, max_per_leaf, is_float, _block)
     lbvh_nodes.launches += 1
     return Tree(children=children, child_aabbs=child_aabbs, leaves=leaves, root=root,
                 n_nodes=n_nodes, n_leaves=n_leaves, max_per_leaf=max_per_leaf)
 
 
 lbvh_nodes.launches = 0
+
+# grace_build_resources' kernels
+RESOURCE_KERNELS = ("morton_keys", "deltas", "gather_deltas", "lbvh_ranges", "lbvh_nodes")
+
+
+def build_resources(device, kernel: str, is_float: bool = True) -> dict:
+    """What one launch of build kernel ``kernel`` (``RESOURCE_KERNELS``)
+    holds on ``device`` (the climbs with f32 deltas where ``is_float``):
+    ``_kernels.RESOURCE_FIELDS`` and ``local_bytes`` a thread."""
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    out = (ctypes.c_int * len(fields))()
+    _kernels.launch("build", "grace_build_resources", torch.device(device),
+                    ctypes.addressof(out), RESOURCE_KERNELS.index(kernel), int(is_float))
+    return dict(zip(fields, out))
 
 
 def build_lbvh(prim_aabb_mins, prim_aabb_maxs, deltas, max_per_leaf: int,

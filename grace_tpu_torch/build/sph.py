@@ -12,9 +12,14 @@ keep ``grace_tpu``'s order.
 
 On CUDA tensors the keys, the deltas and the tree come from the kernels of
 ``csrc/build.cu`` (``ops.morton``, ``build.deltas``, ``build.lbvh``); the
-scene box (``amin`` / ``amax``), the stable key sort and the gather of the
-sorted primitives stay torch calls. CPU tensors, and ``plain=True`` (which
-only the checks pass), take every step's plain version.
+scene box (``amin`` / ``amax``) and the stable key sort stay torch calls.
+After the sort one launch (``deltas.gather_deltas_cuda``) writes the
+sorted spheres or triangles, the int32 permutation, their boxes and the
+deltas, which go straight to ``build_lbvh``; other primitive kinds
+(``deltas.gather_for``) keep the torch gather, ``kind.aabb`` and
+``build.deltas``. CPU tensors, and
+``plain=True`` (which only the checks pass), take every step's plain
+version.
 """
 
 from __future__ import annotations
@@ -49,6 +54,10 @@ def sort_by_morton(spheres, aabb_min=None, aabb_max=None, bits: int = 30, plain:
     permutation i32[N])."""
     keys = morton_keys_sph(spheres, aabb_min, aabb_max, bits=bits, plain=plain)
     keys_sorted, perm = torch.sort(keys, stable=True)
+    if deltas_mod._on_card(spheres, plain):
+        sorted_spheres, perm32, *_ = deltas_mod.gather_deltas_cuda(spheres, "sphere", perm,
+                                                                   boxes=False)
+        return keys_sorted, sorted_spheres, perm32
     return keys_sorted, spheres[perm], perm.to(torch.int32)
 
 
@@ -75,30 +84,33 @@ def albvh_sph(sorted_spheres, d, max_per_leaf: int, plain: bool = False) -> Tree
 def build_sph_tree(spheres, max_per_leaf: int, delta_kind: str = "euclidean",
                    bits: int = 30, aabb_min=None, aabb_max=None, plain: bool = False
                    ) -> Tuple[torch.Tensor, Tree, torch.Tensor]:
-    """One-call SPH build. Returns (sorted_spheres, tree, permutation)."""
-    keys, sorted_spheres, perm = sort_by_morton(spheres, aabb_min, aabb_max, bits, plain)
-    if delta_kind == "euclidean":
-        d = euclidean_deltas_sph(sorted_spheres, plain)
-    elif delta_kind == "surface_area":
-        d = surface_area_deltas_sph(sorted_spheres, plain)
-    elif delta_kind == "xor":
-        d = xor_deltas_sph(keys, bits, plain)
-    else:
-        raise ValueError(f"unknown delta_kind {delta_kind!r}")
-    tree = albvh_sph(sorted_spheres, d, max_per_leaf, plain)
-    return sorted_spheres, tree, perm
+    """One-call SPH build: ``build_primitive_tree`` over spheres. Returns
+    (sorted_spheres, tree, permutation)."""
+    return build_primitive_tree(spheres, SPHERE, max_per_leaf, delta_kind, bits, aabb_min,
+                                aabb_max, plain)
 
 
 def build_primitive_tree(prims, kind: PrimitiveKind, max_per_leaf: int,
-                         delta_kind: str = "xor", bits: int = 30, plain: bool = False
+                         delta_kind: str = "xor", bits: int = 30, aabb_min=None,
+                         aabb_max=None, plain: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Generic-primitive build: Morton keys of ``kind.centroid`` within the
-    centroids' bounds -> stable sort -> deltas -> LBVH over ``kind.aabb``.
-    Returns (sorted_prims, tree, permutation i32[N])."""
+    scene box (default: the centroids' bounds) -> stable sort -> deltas ->
+    LBVH over ``kind.aabb``. Returns (sorted_prims, tree, permutation
+    i32[N])."""
     centroids = kind.centroid(prims)
-    keys = morton.morton_keys_from_centroids(centroids, centroids.amin(dim=0),
-                                             centroids.amax(dim=0), bits=bits, plain=plain)
+    if aabb_min is None:
+        aabb_min = centroids.amin(dim=0)
+    if aabb_max is None:
+        aabb_max = centroids.amax(dim=0)
+    keys = morton.morton_keys_from_centroids(centroids, aabb_min, aabb_max, bits=bits,
+                                             plain=plain)
     keys_sorted, perm = torch.sort(keys, stable=True)
+    gather = deltas_mod.gather_for(kind, delta_kind, bits)
+    if gather is not None and deltas_mod._on_card(prims, plain):
+        sorted_prims, perm32, mins, maxs, d = deltas_mod.gather_deltas_cuda(
+            prims, gather[0], perm, keys_sorted, gather[1])
+        return sorted_prims, build_lbvh(mins, maxs, d, max_per_leaf), perm32
     sorted_prims = prims[perm]
     if delta_kind == "xor":
         d = xor_deltas_sph(keys_sorted, bits, plain)

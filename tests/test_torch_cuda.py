@@ -35,7 +35,8 @@ primitive, record buffers that overflow, weights on and off, triangles
 in both modes), the packet walk bit-equal to the per-ray walk in every
 mode (a ragged ray count, stacks of 64 and 4), every facade of the walk
 on the card without entering engine.trace, and the walk's resources and
-refusals; and the LBVH build (build.cu: keys, deltas and the two climbs)
+refusals; and the LBVH build (build.cu: keys, deltas, the gather with
+boxes and deltas, and the two climbs, also at blocks of 2 to 1024 items)
 bit-equal to the plain build at every case of chip_smoke's check_build
 (the full-size scenes, 63-bit keys with XOR and surface-area deltas, all
 points identical, runs of equal keys, max_per_leaf 1 and 32, N = 2 and 3,
@@ -75,8 +76,9 @@ from grace_tpu_torch.trace import splat_grad as sg
 from grace_tpu_torch.trace import pallas_records as prc
 from grace_tpu_torch.trace import pallas_tri as pt
 from chip_smoke import (
-    BUILD_CASES, EDGE_ORDERS, build_case, build_counters, check_build_case,
-    check_sentinel_build, zero_build_counters, SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
+    BUILD_CASES, EDGE_ORDERS, build_case, build_counters, build_stages, check_build_case,
+    check_climbs, check_gather, check_sentinel_build, zero_build_counters,
+    SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
     SPLAT_PREP_CASES, check_splat_prep_case, prep_counters, splat_prep_scene, zero_prep_counters,
     BROADPHASE_CASES, TRI_LIST_CASES, broadphase_counters, broadphase_scene,
     check_broadphase_case, check_tri_lists_case, tri_list_inputs, zero_broadphase_counters,
@@ -900,8 +902,9 @@ def test_build_launches_and_refusals(dev):
                         (build_primitive_tree, (tris, TRIANGLE, 8, "xor"))):
         zero_build_counters()
         build(*args)
-        assert build_counters() == {"build_morton_keys": 1, "build_deltas": 1,
-                                    "build_lbvh_ranges": 1, "build_lbvh_nodes": 1}
+        assert build_counters() == {"build_morton_keys": 1, "build_deltas": 0,
+                                    "build_gather_deltas": 1, "build_lbvh_ranges": 1,
+                                    "build_lbvh_nodes": 1}
     mins, maxs = spheres[:, :3], spheres[:, :3] + 0.1
     d = torch.zeros(spheres.shape[0] - 1, device=dev)
     with pytest.raises(TypeError):
@@ -910,6 +913,62 @@ def test_build_launches_and_refusals(dev):
         lbvh.build_lbvh(mins, maxs[:, :2], d, 16)
     with pytest.raises(RuntimeError, match="grace_lbvh_ranges failed"):
         lbvh.lbvh_ranges(d, spheres.shape[0])
+    with pytest.raises(RuntimeError, match="grace_lbvh_ranges failed"):
+        lbvh.lbvh_ranges(d, 16, _block=2048)
+    _, _, first, count, mark = lbvh.lbvh_ranges(d, 16)
+    with pytest.raises(RuntimeError, match="grace_lbvh_nodes failed"):
+        lbvh.lbvh_nodes(d, first, count, mark, mark.cumsum(0, dtype=torch.int32), mins,
+                        maxs, 16, _block=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [2, 32, 64, 100, 256, 1024])
+@pytest.mark.parametrize("tag", ["mpl 1 (3000 spheres)", "runs of equal keys, xor (3000)",
+                                 "63-bit keys, surface area (3000 spheres)"])
+def test_build_climbs_at_every_block(dev, tag, block):
+    """Both climbs with `block` items a block (2: nearly every split at
+    device scope; 1024: the default) bit-equal to the plain build: split
+    ranges and every Tree field."""
+    prims, kind, mpl, delta_kind, bits = build_case(tag, dev)
+    want = build_stages(prims, kind, mpl, delta_kind, bits, plain=True)
+    check_climbs(f"{tag} block {block}", want, kind, mpl, block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta_kind,bits", [("euclidean", 30), ("surface_area", 30),
+                                             ("xor", 30), ("xor", 63)])
+@pytest.mark.parametrize("prim", ["sphere", "triangle"])
+def test_build_gather_deltas_match_torch(dev, prim, delta_kind, bits):
+    """grace_gather_deltas bit-equal to prims[perm], perm.to(int32),
+    kind.aabb and the plain deltas, for spheres and triangles (with signed
+    zeros and tied vertices) and every delta kind; rows past a warp's end
+    (n = 1,000,003 spheres, 997 triangles); unaligned spheres refused by
+    the C entry."""
+    from grace_tpu_torch import _kernels
+    from grace_tpu_torch.ops.primitives import SPHERE, TRIANGLE
+
+    rng = np.random.default_rng(7)
+    if prim == "sphere":
+        kind = SPHERE
+        prims = np.concatenate([rng.random((1_000_003, 3)), 0.01 * rng.random((1_000_003, 1))],
+                               1).astype(np.float32)
+    else:
+        kind = TRIANGLE
+        prims = rng.random((997, 3, 3)).astype(np.float32)
+        zero = rng.random(prims.shape) < 0.3
+        prims[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    prims = torch.from_numpy(prims).to(dev)
+    want = build_stages(prims, kind, 8, delta_kind, bits, plain=True)
+    assert check_gather(f"{prim} {delta_kind} {bits}", prims, kind, delta_kind, bits,
+                        want) == 0.0
+    if prim == "sphere":
+        rows = torch.zeros(17 * 4 + 1, device=dev)[1:].view(17, 4)
+        out = [torch.empty(17 * k, device=dev) for k in (4, 1, 3, 3)]
+        perm = torch.arange(17, device=dev)
+        with pytest.raises(RuntimeError, match="grace_gather_deltas failed"):
+            _kernels.launch("build", "grace_gather_deltas", dev, rows.data_ptr(),
+                            perm.data_ptr(), 0, out[0].data_ptr(), out[1].data_ptr(),
+                            out[2].data_ptr(), out[3].data_ptr(), 0, 17, 0, -1)
 
 
 @pytest.mark.cuda

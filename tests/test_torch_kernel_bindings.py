@@ -201,11 +201,110 @@ def test_build_constants_agree():
     assert _kernels.KERNELS["build"][1] == ["--fmad=false"]
     assert "a != a ? a : (b != b ? b : fminf(a, b))" in src
     assert set(_kernels.KERNELS["build"][2]) == {"grace_morton_keys", "grace_deltas",
-                                                 "grace_lbvh_ranges", "grace_lbvh_nodes"}
+                                                 "grace_gather_deltas", "grace_lbvh_ranges",
+                                                 "grace_lbvh_nodes", "grace_build_resources"}
     for entry, kinds in _kernels.KERNELS["build"][2].items():
         params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1).split(",")
         assert "".join("p" if "*" in p else "i" for p in params[:-2]) == kinds, entry
         assert params[-2].split() == ["int", "device"] and "stream" in params[-1]
+
+
+def test_build_entries_take_the_wrappers_arguments(monkeypatch):
+    """The gather, the two climbs and the resource query get the arguments
+    their C entries declare: the primitive and delta kinds at build.cu's
+    values (no deltas: -1, no boxes and no keys: null pointers), the
+    climb's 64-bit flags and mark in one buffer of 3N - 2 ints, phase B's
+    own flags and max_per_leaf, the default block 0 (build.cu's
+    default_block, at most kBlock = 1024) unless a test asks for another."""
+    import ctypes
+
+    from grace_tpu_torch.build import deltas as bd
+    from grace_tpu_torch.build import lbvh
+
+    src = _source("build")
+    assert "constexpr int kSphere = 0;" in src and "constexpr int kTriangle = 1;" in src
+    assert list(bd.GATHER_PRIMS) == ["sphere", "triangle"]
+    assert "constexpr int kBlock = 1024;" in src
+    assert src.count("if (block == 0) block = default_block(n);") == 2
+    fns = src[src.index("const void* fns[5]"):]
+    fns = re.findall(r"(\w+)_kernel\b", fns[:fns.index("};")])
+    assert list(dict.fromkeys(fns)) == ["morton_keys", "deltas", "gather_deltas", "ranges",
+                                        "nodes"]
+    assert lbvh.RESOURCE_KERNELS == ("morton_keys", "deltas", "gather_deltas", "lbvh_ranges",
+                                     "lbvh_nodes")
+    calls = []
+    monkeypatch.setattr(_kernels, "launch", lambda name, entry, dev, *args: calls.append(
+        (entry, args)))
+
+    def check(entry, args):
+        kinds = _kernels.KERNELS["build"][2][entry]
+        assert len(args) == len(kinds), entry
+        for a, k in zip(args, kinds):
+            assert isinstance(a, int), (entry, a)
+        return args
+
+    n = 37
+    spheres = torch.rand((n, 4))
+    tris = torch.rand((n, 3, 3))
+    perm = torch.randperm(n)
+    keys = torch.arange(n, dtype=torch.int64)
+    for prim, rows, kind, boxes in (("sphere", spheres, "euclidean", True),
+                                    ("triangle", tris, "xor63", True),
+                                    ("sphere", spheres, None, False)):
+        out = bd.gather_deltas_cuda(rows, prim, perm, keys, kind, boxes)
+        args = check(*calls.pop())
+        assert args[-3:] == (n, list(bd.GATHER_PRIMS).index(prim),
+                             -1 if kind is None else bd.KINDS.index(kind))
+        assert (args[2] == 0) == (kind is None or not kind.startswith("xor"))
+        assert (args[5] == 0) == (args[6] == 0) == (not boxes)
+        assert (args[7] == 0) == (kind is None)
+        assert out[0].shape == rows.shape and out[1].dtype == torch.int32
+        assert out[4] is None if kind is None else out[4].shape == (n - 1,)
+    with pytest.raises(ValueError):
+        bd.gather_deltas_cuda(tris, "sphere", perm)
+    with pytest.raises(ValueError):
+        bd.gather_deltas_cuda(spheres, "sphere", perm.int())
+    with pytest.raises(ValueError):
+        bd.gather_deltas_cuda(spheres, "sphere", perm, None, "xor30")
+    d = torch.rand(n - 1)
+    l, r, first, count, mark = lbvh.lbvh_ranges(d, 4)
+    args = check(*calls.pop())
+    assert args[-4:] == (n, 4, 1, 0)
+    assert args[5] == mark.data_ptr() - 8 * (n - 1) and mark.shape == (n,)
+    assert mark.untyped_storage().nbytes() == 4 * (3 * n - 2)
+    lbvh.lbvh_ranges(d, 4, _block=32)
+    assert check(*calls.pop())[-4:] == (n, 4, 1, 32)
+    mins = torch.rand((n, 3))
+    lbvh.lbvh_nodes(d.long(), first, count, mark, mark, mins, mins, 4, _block=64)
+    args = check(*calls.pop())
+    assert args[-4:] == (n, 4, 0, 64)
+    lbvh.lbvh_nodes(d, first, count, mark, mark, mins, mins, 4)
+    args = check(*calls.pop())
+    assert args[-4:] == (n, 4, 1, 0)
+    monkeypatch.setattr(ctypes, "addressof", lambda out: 1)
+    with pytest.raises(ValueError):
+        lbvh.build_resources("cpu", "lbvh_climb")
+    lbvh.build_resources("cpu", "lbvh_nodes", False)
+    assert check(*calls.pop())[1:] == (4, 0)
+
+
+@pytest.mark.parametrize("delta_kind,bits", [("euclidean", 30), ("surface_area", 63),
+                                             ("xor", 30), ("xor", 63)])
+def test_gather_for_maps_the_build_kinds(delta_kind, bits):
+    """Spheres and triangles take the one-launch gather with grace_deltas'
+    kind of ``delta_kind`` (XOR by the key bits); other primitive kinds take
+    none; an unknown delta kind is refused."""
+    from grace_tpu_torch.build import deltas as bd
+    from grace_tpu_torch.ops.primitives import SPHERE, TRIANGLE
+
+    for kind, prim in ((SPHERE, "sphere"), (TRIANGLE, "triangle")):
+        got = bd.gather_for(kind, delta_kind, bits)
+        assert got[0] == prim and got[0] in bd.GATHER_PRIMS and got[1] in bd.KINDS
+        assert got[1] == (f"xor{bits}" if delta_kind == "xor" else delta_kind)
+        with pytest.raises(ValueError):
+            bd.gather_for(kind, "morton", bits)
+    other = SPHERE._replace(centroid=lambda p: p[:, :3])
+    assert bd.gather_for(other, delta_kind, bits) is None
 
 
 @pytest.mark.parametrize("delta_kind,bits", [("euclidean", 30), ("surface_area", 63),
@@ -225,7 +324,8 @@ def test_build_on_cpu_tensors_takes_the_plain_version(monkeypatch, delta_kind, b
         raise AssertionError("a CPU build launched a kernel")
 
     monkeypatch.setattr(_kernels, "launch", refuse)
-    counters = (morton.morton_keys_cuda, bd.deltas_cuda, lbvh.lbvh_ranges, lbvh.lbvh_nodes)
+    counters = (morton.morton_keys_cuda, bd.deltas_cuda, bd.gather_deltas_cuda, lbvh.lbvh_ranges,
+                lbvh.lbvh_nodes)
     for fn in counters:
         monkeypatch.setattr(fn, "launches", 0)
     rng = np.random.default_rng(3)
