@@ -3,7 +3,7 @@
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
                              [sortfree_bwd] [render_fwd] [paths] [statistics] [walk]
                              [build] [climbs] [splat_prep] [broadphase] [record_sort]
-                             [feeds] [--parent DIR [--rounds K]]
+                             [segsort] [feeds] [--parent DIR [--rounds K]]
                              (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
     python3 chip_ablation.py build --package DIR
@@ -12,6 +12,7 @@
     python3 chip_ablation.py splat_prep --parent DIR
     python3 chip_ablation.py broadphase --parent DIR
     python3 chip_ablation.py records --parent DIR   (record_sort alone: no kernel variants)
+    python3 chip_ablation.py segsort   (variants of csrc/segsort.cu on path 4's records)
 
 Each variant is a copy of the kernel's sources with one constant, one wait
 or one device function replaced, built as the package builds its libraries
@@ -87,8 +88,19 @@ wrapper launches them (longest list first).
   layout with its total_hits, and the record trace alone, with the row
   sort and as trace_sph with the CSR sort; each timed (CUDA events, median
   of 10 after a warm run) with the device's busy ms and device operations
-  over one call; with --parent DIR, DIR's grace_tpu_torch and this one in
-  turns (parent, this, this, parent), each a process of its own.
+  over one call (the segsort calls' kernels all listed by name); with
+  --parent DIR, DIR's grace_tpu_torch and this one in turns (parent, this,
+  this, parent), each a process of its own.
+
+  segsort: E8 (sort_rows_cuda) and E9 (segmented_sort_cuda) on main path
+  4's records with variants of csrc/segsort.cu bound in the package's
+  place (segsort_variants: no staging ahead, 4-byte payload stores, the
+  long route's smaller grids, other network sizes, every run on the u64
+  network, the network run twice; leave-outs of the sort, the payload
+  writes and the network's steps across and inside lanes), each compared
+  variant bit-equal to the shipped kernels' outputs, all timed in turns,
+  with each variant's sort kernel resources and how path 4's runs spread
+  over E and how many are in order already.
 
   sortfree_bwd: grace_splat_sortfree_bwd (B12, csrc/splat_sortfree.cu) on
   main path 3's backward inputs (the bench scene, tiles of 32 x 128, deg8,
@@ -233,9 +245,10 @@ import torch
 
 from chip_smoke import (CAM, LENGTH, LOOK, MAX_PER_LEAF, N_PARTICLES, SIDE, SNAPSHOT_SEED,
                         SNAPSHOT_SIZES, TORUS, TRACE_TILE, UP, VEXT, _popcount_rows, check_close,
-                        cuda_ms, entry_inputs, make_clustered_particles, packet_summary,
-                        records_inputs, render_inputs, route_inputs, sortfree_fwd_dense,
-                        sortfree_inputs, splat_dense, torus_mesh, tri_inputs, walk_outputs)
+                        cuda_ms, entry_inputs, make_clustered_particles, order_key_torch,
+                        packet_summary, records_inputs, render_inputs, route_inputs,
+                        sortfree_fwd_dense, sortfree_inputs, splat_dense, torus_mesh, tri_inputs,
+                        walk_outputs)
 
 def swap(file, old, new):
     """An edit of ``file`` that replaces its one occurrence of ``old``."""
@@ -1738,11 +1751,12 @@ def user_paths(sorted_spheres, weights, rays_s):
     return result
 
 
-def device_busy(label, fn):
+def device_busy(label, fn, longest=6):
     """The device's busy share over one warm fn() (torch.profiler: the sum
     of its kernels' times over the wall time, both with the profiler on),
-    and its six longest kernels. Returns {busy_ms, wall_ms, device_ops}:
-    device_ops counts its kernels, copies and memsets."""
+    and its ``longest`` longest kernels by name (None: all, with their
+    counts). Returns {busy_ms, wall_ms, device_ops}: device_ops counts its
+    kernels, copies and memsets."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1755,13 +1769,15 @@ def device_busy(label, fn):
         wall = (time.perf_counter() - start) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_name = {}
+    by_name, count = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        count[e.name] = count.get(e.name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:longest]
     print(f"{label}: device busy {busy:.3f} ms of {wall:.3f} ms wall ({busy / wall:.1%}, "
           f"profiler on), {len(kernels)} kernels; longest: "
-          + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in top), flush=True)
+          + "; ".join(f"{n[:60]} {ms:.3f} ms" + ("" if longest else f" x{count[n]}")
+                      for n, ms in top), flush=True)
     return {"busy_ms": busy, "wall_ms": wall, "device_ops": len(kernels)}
 
 
@@ -2206,21 +2222,96 @@ def broadphase_paths():
     return result
 
 
-def record_sort_paths():
-    """The ``record_sort`` part in this process, on whichever
-    grace_tpu_torch it imports: main path 4's records (the bench scene's
-    sorted rays, 512 a ray, the default route) through the package's user
-    functions: sort_records_by_distance, records_to_flat, sort_by_distance
-    of trace_sph(engine="pallas")'s flat layout with its total_hits, and
-    the record trace alone, with the row sort, and trace_sph with the CSR
-    sort. {call: {ms, busy_ms, wall_ms, device_ops}}."""
+SEGSORT = "segsort.cu"
+
+
+SORT_TWICE = [swap(SEGSORT, "    warp_bitonic<E>(p, lane);\n",
+                   "    warp_bitonic<E>(p, lane);\n    warp_bitonic<E>(p, lane);\n")]
+
+
+# write_payloads' body between the ragged ends as 4-byte stores
+SCALAR_WRITES = """    for (int q = head + lane; q < body; q += 32) {
+        const int src = vs[pad(q)];
+#pragma unroll
+        for (int k = 0; k < kMaxPayloads; ++k) {
+            if (k >= a.n_payloads) break;
+            const int off = (a.palign[k] + static_cast<int>(s & 3)) & 3;
+            a.dst[k][s + q] = buf[a.slot[k] * stage_words(W) + off + src];
+        }
+    }
+"""
+
+
+def segsort_variants():
+    """segsort.cu's variants, (name, edits, compared with the shipped
+    kernels' outputs on path 4): the shipped kernels; the next run not
+    staged ahead; the payloads written 4 bytes a lane (not 16); the long
+    route's grids of two blocks an SM (not eight); the u32 network at E =
+    8 for runs of up to 256, and at E = 4, 8 or 16 by length (not 16 for
+    every run); every run through the u64 network (the u32 network's
+    fallback); the network run twice (its own cost); and leave-outs, timed only: no sort, no payload writes, the
+    network's steps across lanes, its steps inside lanes."""
+    return [
+        ("shipped", None, True),
+        ("no staging ahead (each run's copies waited for before its sort)",
+         [swap(SEGSORT, "        cp_async_commit();\n        if (len_i > cap) {",
+               "        cp_async_commit();\n        cp_async_wait<0>();\n        __syncwarp();\n"
+               "        if (len_i > cap) {")], True),
+        ("payloads written 4 bytes a lane",
+         [swap_between(SEGSORT, "    for (int q = head + 4 * lane; q < body; q += 128) {",
+                       "}\n\n// Persistent warps over the runs", SCALAR_WRITES)], True),
+        ("the long route's grids of two blocks an SM (not eight)",
+         [swap(SEGSORT, "constexpr int kLongBlocksPerSm = 8;", "constexpr int kLongBlocksPerSm = 2;")],
+         True),
+        ("E = 8 for the runs of up to 256 (two u32 network sizes)",
+         [swap(SEGSORT, "        if (narrow) {\n            network_sort<16, unsigned, kKeys>",
+               "        if (m <= 256) {\n            network_sort<8, unsigned, kKeys>(m, keep, "
+               "shift, lane, ks, vs, lo, bits);\n        } else if (narrow) {\n"
+               "            network_sort<16, unsigned, kKeys>")], True),
+        ("E = 4, 8 or 16 by the run's length (three u32 network sizes)",
+         [swap(SEGSORT, "        if (narrow) {\n            network_sort<16, unsigned, kKeys>",
+               "        if (m <= 128) {\n            network_sort<4, unsigned, kKeys>(m, keep, "
+               "shift, lane, ks, vs, lo, bits);\n        } else if (m <= 256) {\n"
+               "            network_sort<8, unsigned, kKeys>(m, keep, shift, lane, ks, vs, lo, "
+               "bits);\n        } else if (narrow) {\n"
+               "            network_sort<16, unsigned, kKeys>")], True),
+        ("the u64 network for every run (key << 32 | position)",
+         [swap(SEGSORT, "    if (hi - lo <= (kPadKey >> bits)) {",
+               "    if (false && hi - lo <= (kPadKey >> bits)) {")], True),
+        ("the network run twice", SORT_TWICE, True),
+        ("leave-out: no sort (every run taken as in order)",
+         [swap(SEGSORT, "    if (keys_in_order(m, lane, ks, lo, hi)) {",
+               "    if (true || keys_in_order(m, lane, ks, lo, hi)) {")], False),
+        ("leave-out: no payload writes",
+         [swap(SEGSORT, "            a.dst[k][s + q] = buf[a.slot[k] * stage_words(W) + off + src];",
+               "            if (src > 0xffff) a.dst[k][s + q] = buf[a.slot[k] * stage_words(W) + "
+               "off + src];"),
+          swap(SEGSORT, "            *reinterpret_cast<uint4*>(a.dst[k] + s + q) =\n",
+               "            if (s0 > 0xffff) *reinterpret_cast<uint4*>(a.dst[k] + s + q) =\n")],
+         False),
+        ("leave-out: the network's steps across lanes",
+         [swap(SEGSORT, "            v[e] = keep_side(v[e], __shfl_xor_sync(kFull, v[e], J / E), low);\n",
+               ""),
+          swap(SEGSORT, "            v[e] = keep_side(v[e], a, low);\n"
+               "            if (E - 1 - e != e) v[E - 1 - e] = keep_side(v[E - 1 - e], b, low);\n",
+               "            (void)a;\n            (void)b;\n")], False),
+        ("leave-out: the network's steps inside lanes",
+         [swap(SEGSORT, "            if ((e & J) == 0) order_pair(v[e], v[e | J]);\n", ""),
+          swap(SEGSORT, "            if ((e & (K / 2)) == 0) order_pair(v[e], v[e ^ (K - 1)]);\n",
+               "")], False),
+    ]
+
+
+def path4_records(dev):
+    """Main path 4's records on ``dev``: the bench scene's sorted rays
+    through the default record trace (512 a ray) and trace_sph's flat
+    layout. Returns (rec, flat, total hits, (rays, sorted spheres,
+    tree))."""
     from grace_tpu_torch.build.sph import build_sph_tree
-    from grace_tpu_torch.ops.segops import sort_by_distance
     from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
     from grace_tpu_torch.trace import pallas_records as prc
     from grace_tpu_torch.trace.sph import trace_sph
 
-    dev = torch.device("cuda", 0)
     spheres = torch.from_numpy(
         make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
     ss, tree, _ = build_sph_tree(spheres, MAX_PER_LEAF)
@@ -2229,6 +2320,122 @@ def record_sort_paths():
     rec = prc.pallas_trace_sph_records(rays_s, ss, 512)
     total = int(rec.counts.sum())
     flat = trace_sph(rays_s, ss, tree, capacity=total, engine="pallas", per_ray_capacity=512)
+    return rec, flat, total, (rays_s, ss, tree)
+
+
+def segsort_ablations():
+    """E8 (sort_rows_cuda) and E9 (segmented_sort_cuda) on main path 4's
+    records with each variant of segsort.cu (segsort_variants) bound in
+    the package's place: each compared variant's outputs bit-equal to the
+    shipped kernels', all timed in turns (CUDA events, median of 10), with
+    each variant's sort kernel resources; and how path 4's runs spread
+    over lengths (32, 64, ..., 512 keys), how many are in order already,
+    how wide the unsorted rows' keys span (the packed network's premise)
+    and how many keys tie."""
+    from grace_tpu_torch import _kernels
+    from grace_tpu_torch.ops import segops
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    dev = torch.device("cuda", 0)
+    rec, flat, total, _ = path4_records(dev)
+    order = segops.RESOURCE_KERNELS
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    variants = segsort_variants()
+    dlls = build_all({name: ("segsort", f"segsort_{i}", edits)
+                      for i, (name, edits, _) in enumerate(variants)})
+    # the runs: each row's record prefix, each segment of the flat layout
+    valid = rec.indices != prc.INDEX_SENTINEL
+    cols = torch.arange(rec.indices.shape[1], device=dev)
+    m = torch.where(valid, cols + 1, 0).amax(dim=1)
+    seg_len = torch.diff(torch.cat([flat.offsets.long(), torch.tensor([total], device=dev)]))
+    for label, lens in (("E8 row prefixes", m), ("E9 segments", seg_len)):
+        e = torch.clamp(torch.ceil(torch.log2(torch.clamp((lens + 31) // 32, min=1).double())),
+                        min=0).long()
+        hist = {f"m <= {32 << k}": int((e == k).sum()) for k in range(6) if int((e == k).sum())}
+        print(f"segsort part: {label}: {lens.shape[0]} runs, by length {json.dumps(hist)}, "
+              f"longer than 512: {int((lens > 512).sum())}", flush=True)
+    key = torch.where(valid, rec.distances, torch.inf)
+    in_order = ((torch.diff(key, dim=1) >= 0) | ~valid[:, 1:]).all(dim=1)
+    print(f"segsort part: E8 rows whose record prefix is in order: {int(in_order.sum())} of "
+          f"{rec.indices.shape[0]}", flush=True)
+    # the packed network's premise: each unsorted row's span of order keys
+    okey = order_key_torch(key.contiguous())
+    lo = torch.where(valid, okey, 1 << 33).amin(dim=1)
+    hi = torch.where(valid, okey, -1).amax(dim=1)
+    span = torch.where(~in_order & (m > 1), hi - lo, -1)
+    bits = torch.where(span >= 0, torch.ceil(torch.log2(span.double() + 1)), -1).long()
+    spans = {b: int((bits == b).sum()) for b in torch.unique(bits[bits >= 0]).tolist()}
+    ties = ((okey[:, 1:] == okey[:, :-1]) & valid[:, 1:]).sum()
+    repeated = torch.sort(torch.where(valid, okey, (1 << 40) + cols), dim=1).values
+    repeated = ((repeated[:, 1:] == repeated[:, :-1]) & (repeated[:, 1:] < 1 << 33)).any(dim=1)
+    print(f"segsort part: E8's unsorted rows by the bits of their order keys' span "
+          f"{json.dumps(spans)}; adjacent records with equal keys {int(ties)}, rows with a "
+          f"repeated key {int(repeated.sum())}", flush=True)
+    args = (flat.distances, flat.offsets, flat.indices, flat.integrals)
+    calls = {"E8 sort_rows (path 4's rows)": lambda: prc.sort_rows_cuda(rec),
+             "E9 segmented_sort (path 4's flat layout)": lambda: segops.segmented_sort_cuda(
+                 *args, total_hits=flat.total_hits)}
+    shipped_lib = _kernels.load("segsort")
+    result = {}
+    try:
+        want = {}
+        for name, _, compared in variants:
+            _kernels._LIBS["segsort"] = dlls[name]
+            out = (ctypes.c_int * len(fields))()
+            call(dlls[name].grace_segsort_resources,
+                 [ctypes.addressof(out), order.index("sort_rows (512)"), 3])
+            print(f"segsort part {name}: sort kernel {json.dumps(dict(zip(fields, out)))}",
+                  flush=True)
+            for label, fn in calls.items():
+                got = fn()
+                torch.cuda.synchronize()
+                if name == "shipped":
+                    want[label] = got
+                elif compared:
+                    for g, w in zip(got, want[label]):
+                        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                            raise AssertionError(f"segsort part {name} {label}: bits differ")
+        times = {(name, label): [] for name, _, _ in variants for label in calls}
+        names = [name for name, _, _ in variants]
+        for _ in range(5):
+            for name in names + names[::-1]:
+                _kernels._LIBS["segsort"] = dlls[name]
+                for label, fn in calls.items():
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    fn()
+                    end.record()
+                    torch.cuda.synchronize()
+                    times[name, label].append(start.elapsed_time(end))
+        for (name, label), x in times.items():
+            compared = dict((n, c) for n, _, c in variants)[name]
+            ms = statistics.median(x)
+            result[f"{label}: {name}"] = ms
+            print(f"segsort part {label}: {name}: {ms:.3f} ms (median of {len(x)}; min "
+                  f"{min(x):.3f}, max {max(x):.3f}); "
+                  + ("bits equal to the shipped" if compared else "not compared"), flush=True)
+    finally:
+        _kernels._LIBS["segsort"] = shipped_lib
+    return result
+
+
+def record_sort_paths():
+    """The ``record_sort`` part in this process, on whichever
+    grace_tpu_torch it imports: main path 4's records (the bench scene's
+    sorted rays, 512 a ray, the default route) through the package's user
+    functions: sort_records_by_distance, records_to_flat, sort_by_distance
+    of trace_sph(engine="pallas")'s flat layout with its total_hits, and
+    the record trace alone, with the row sort, and trace_sph with the CSR
+    sort. {call: {ms, busy_ms, wall_ms, device_ops}}."""
+    from grace_tpu_torch.ops.segops import sort_by_distance
+    from grace_tpu_torch.trace import pallas_records as prc
+    from grace_tpu_torch.trace.sph import trace_sph
+
+    rec, flat, total, (rays_s, ss, tree) = path4_records(torch.device("cuda", 0))
+    kept = int(torch.clamp(rec.counts, max=512).sum())
+    print(f"record_sort part: {total} entries, {kept} kept records, the last ray's segment "
+          f"from {int(flat.offsets[-1])} ({int(rec.counts[-1])} hits)", flush=True)
     csr = lambda f: sort_by_distance(f.distances, f.offsets, f.indices, f.integrals,
                                      total_hits=f.total_hits)
     trace = lambda: prc.pallas_trace_sph_records(rays_s, ss, 512)
@@ -2245,7 +2452,8 @@ def record_sort_paths():
             ("trace_sph(engine=pallas) + sort_by_distance", lambda: csr(flat_trace()))):
         ms = cuda_ms(fn, reps=10)
         print(f"record_sort part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
-        result[label] = {"ms": ms, **device_busy(f"record_sort part {label}", fn)}
+        longest = None if label.startswith(("sort_", "records_")) else 6
+        result[label] = {"ms": ms, **device_busy(f"record_sort part {label}", fn, longest)}
     return result
 
 
@@ -2518,7 +2726,7 @@ def walk_ablations(parent_dir):
 
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
          "paths", "statistics", "walk", "build", "climbs", "splat_prep", "broadphase",
-         "record_sort", "feeds")
+         "record_sort", "segsort", "feeds")
 
 
 def main():
@@ -2571,6 +2779,8 @@ def main():
     if "records" in parts or "record_sort" in parts:
         summary["record_sort"] = (part_turns("record_sort", parent) if parent
                                   else record_sort_paths())
+    if "segsort" in parts:
+        summary["segsort"] = segsort_ablations()
     if "sortfree_bwd" in parts:
         summary["splat_sortfree_bwd"] = sortfree_bwd_ablations(
             sorted_spheres, torch.ones(N_PARTICLES, device=dev), parent)

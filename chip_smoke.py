@@ -157,12 +157,17 @@ Then ``check_segsort`` holds the records' post-processing
 (csrc/segsort.cu: the row sort, the CSR sort by distance, the flat
 layout) at the cases of SEGSORT_ROW_CASES, SEGSORT_FLAT_CASES and
 SEGSORT_CSR_CASES (keys of every special value of the order, ties,
-sentinel slots mid-row, real +inf, rows that overflowed, widths 128 to
-2,048 (past a warp: chunks merged); capacities equal to, below and past
-the total, sentinel slots with other sentinels; empty, repeated,
-unordered, negative, past-H and near-2^31 offsets, total_hits 0, inside
-and past H, segments of 3,000, a 1.2M-entry pseudo-segment, nine arrays)
-to grace_tpu's order, bit for bit: to the plain versions run on the CPU,
+sentinel slots mid-row, real +inf, rows that overflowed, rows whose
+records are in order already, widths 128 to 2,048 (past a warp: chunks
+merged); capacities equal to, below and past the total, sentinel slots
+with other sentinels; empty, repeated, unordered, negative, past-H and
+near-2^31 offsets, total_hits 0, inside and past H, segments of 3,000, a
+1.2M-entry pseudo-segment, nine arrays; capacity padding of equal
+sentinel keys in the last ray's segment and as a segment of its own,
+long segments in order but for a pair across a chunk boundary or for
+their last element, keys that tie only in the order, descending
+segments, lengths around 1, 32, 512 and 1,024) to grace_tpu's order, bit
+for bit: to the plain versions run on the CPU,
 which the CPU tests hold to grace_tpu; where the card's plain versions
 (torch.sort on the card) depart, the departures are counted and logged
 (ROADMAP C25), not failed. Main path 4 runs all three, counted there.
@@ -205,8 +210,10 @@ splat edge scene.
 
 Prints a ``resources`` line for each kernel redesigned for the card
 (registers a thread, shared bytes and threads a block, resident blocks and
-warps an SM), stage and kernel times (CUDA events, warm, median; the dense
-splat contractions and the launch-order helpers too) with the card's name
+warps an SM; the build's, the walk's and segsort.cu's kernels also local
+bytes a thread, which must be 0 for segsort.cu's), stage and kernel
+times (CUDA events, warm, median; the dense splat contractions and the
+launch-order helpers too) with the card's name
 and power limit, the work each kernel's bound is computed from,
 a JSON line describing each kernel (the list kernel on quarter and on
 segment lists apart, the triangle kernel's two passes apart, the engine's
@@ -3027,17 +3034,27 @@ def broadphase_times(spheres, rays, tris, tri_sets):
 # payload NaN, subnormals, which tie with zero (ROADMAP C24), and the
 # smallest normals, which do not) and many exact ties; record rows
 # with sentinel slots in the middle and at the tail, real +inf distances,
-# rows that overflowed; CSR offsets repeated, unordered, negative, past H
-# and near 2^31, total_hits 0, inside and past H.
+# rows that overflowed, rows whose record prefix is in order already; CSR
+# offsets repeated, unordered, negative, past H and near 2^31, total_hits
+# 0, inside and past H; runs that are in order already or all but (the
+# kernels copy a run in order), keys that tie only in the order, the
+# lengths around each power of two a warp sorts.
 SEGSORT_SEED = 2030
 SPECIAL_BITS = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000,
                          0xFFC00000, 0x7F800001, 0x00000001, 0x80000001, 0x007FFFFF,
                          0x00800000, 0x80800000],
-                        np.uint32).view(np.float32)
+                         np.uint32).view(np.float32)
+# keys that tie only in the order: +0, -0 and subnormals of both signs
+# (all +0 there), then NaNs of other signs and payloads (all one NaN)
+TIE_BITS = np.array([0x00000000, 0x80000000, 0x00000001, 0x80000001, 0x007FFFFF, 0x807FFFFF,
+                     0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF, 0x7FFFFFFF], np.uint32)
 # rows: tag -> (kind, rows, width). "edges": special keys, ties, sentinel
 # slots anywhere; "records": rows as the record kernels write them (the
 # first min(count, width) slots hold records, the rest the sentinels),
-# counts up to 1.5 width (rows that overflowed).
+# counts up to 1.5 width (rows that overflowed); "sorted": "records" rows
+# whose records are in order (in a quarter of the rows the last record a
+# NaN, in a quarter ties to 0 at the start, in a quarter the last pair
+# swapped).
 SEGSORT_ROW_CASES = {
     "edges: ties, sentinel slots mid-row, +-inf, NaNs of both signs, -0 and +0; 256 rows of 128":
         ("edges", 256, 128),
@@ -3046,6 +3063,10 @@ SEGSORT_ROW_CASES = {
     "edges, 384 wide (no power of two)": ("edges", 96, 384),
     "edges, 1,024 wide (32 a lane)": ("edges", 40, 1024),
     "edges, 2,048 wide (past a warp: chunks of 1,024 merged)": ("edges", 24, 2048),
+    "records whose prefix is in order already (some ending in NaNs, some with ties, some "
+    "with one pair swapped), 512 wide": ("sorted", 200, 512),
+    "records of distances in [1, 2) with ties, as the bench's rows span (the packed network; "
+    "spans at its limit and one past it), 512 wide": ("octave", 200, 512),
 }
 # flat layouts: tag -> (rows, width, capacity past the kept total,
 # sentinels or None, sentinel slots); the rows are "records" rows.
@@ -3061,8 +3082,15 @@ SEGSORT_FLAT_CASES = {
     "one row of 512 that overflowed, capacity 0": (1, 512, None, None, False),
 }
 # CSR: tag -> (H, kind, total_hits, f32 and i32 data arrays). "edges":
-# special keys; "rays": segments of ray-like lengths. total_hits: None,
-# an int, or "half" (H // 2), "past" (H + 100).
+# special keys; "rays": segments of ray-like lengths; "padded": rays'
+# records then capacity padding (distance -1, index -1) past the kept
+# total, as trace_sph writes it (its last ray's segment takes the padding;
+# "padded_gap": the last ray has no records, so the padding is a segment
+# of equal keys of its own); "swap", "last": segments in order but for one
+# pair across a chunk boundary or for their last element; "ties": keys
+# that tie only in the order (+-0, subnormals; NaNs of other bits);
+# "descending"; "lengths": 1, 2, 31-33, 511-513 and 1,023-1,025. total_hits:
+# None, an int, or "half" (H // 2), "past" (H + 100), "all" (H).
 SEGSORT_CSR_CASES = {
     "edges; empty, repeated, unordered, negative, past-H and near-2^31 offsets; no total":
         (3000, "edges", None, (1, 1)),
@@ -3076,6 +3104,19 @@ SEGSORT_CSR_CASES = {
     "one segment (offsets [0]), no total": (4000, "one", None, (0, 0)),
     "no offsets, total_hits inside (one segment: the pseudo-segment's id is 0)":
         (1000, "none", 400, (0, 0)),
+    "about 60,000 padding entries of equal sentinel keys after the last ray's records, "
+    "total_hits H (as trace_sph writes them)": (90_000, "padded", "all", (1, 0)),
+    "the last ray without records: its segment about 60,000 sentinel keys, in order":
+        (90_000, "padded_gap", "all", (1, 0)),
+    "long segments in order but for one pair across a chunk boundary (1,023 and 1,024)":
+        (6000, "swap", None, (1, 0)),
+    "long segments in order but for their last element": (4000, "last", None, (0, 1)),
+    "segments of keys that tie only in the order (+-0, subnormals; NaNs of other bits)":
+        (8000, "ties", None, (1, 0)),
+    "descending segments, short and long, with ties": (6000, "descending", "half", (0, 1)),
+    "segment lengths 1, 2, 31-33, 511-513 and 1,023-1,025": (8000, "lengths", None, (1, 1)),
+    "segments of distances in [1, 2) with ties, up to 1,024 long (the packed network; spans "
+    "at its limit and one past it)": (30_000, "octave", "half", (1, 0)),
 }
 
 
@@ -3092,6 +3133,27 @@ def _special_keys(rng, n):
     d[kind == 0] = rng.choice(SPECIAL_BITS, int((kind == 0).sum()))
     d[kind == 1] = rng.choice(np.array([0.5, 1.0, 2.0], np.float32), int((kind == 1).sum()))
     return d
+
+
+def _octave_keys(rng, shape, lens, first=0):
+    """f32 keys in [1, 2), the spans of the bench's records: a quarter of
+    them repeat the key before (ties); of runs first + r (lens[r] keys,
+    along the last axis) every three the second holds 1 and
+    nextafter(2, 0) (a span of 2^23 - 1, the packed network's limit for
+    512 positions), the third also 2 (one past it)."""
+    d = (1.0 + rng.random(shape)).astype(np.float32)
+    d = d.reshape(-1, shape[-1])
+    tie = rng.random(d.shape) < 0.25
+    tie[:, 0] = False
+    for _ in range(3):
+        d[:, 1:] = np.where(tie[:, 1:], d[:, :-1], d[:, 1:])
+    for r, ln in enumerate(np.broadcast_to(lens, d.shape[:1])):
+        if ln >= 3 and (first + r) % 3:
+            d[r, int(rng.integers(0, ln))] = 1.0
+            d[r, int(rng.integers(0, ln))] = np.nextafter(np.float32(2), np.float32(0))
+            if (first + r) % 3 == 2:
+                d[r, int(rng.integers(0, ln))] = 2.0
+    return d.reshape(shape)
 
 
 def segsort_rows(tag):
@@ -3117,6 +3179,21 @@ def _record_rows(rng, kind, n_rows, width):
             idx[3] = -1                                  # a row of sentinels only
             dist[4] = 1.5                                # a row of one distance
             idx[5, ::2] = -1
+    if kind == "octave":
+        dist = np.where(valid, _octave_keys(rng, dist.shape, np.minimum(counts, width)), -1.0)
+        dist = dist.astype(np.float32)
+    if kind == "sorted":   # each row's records in order (the sentinels' -1 stays at the tail)
+        dist = np.where(valid, np.sort(np.where(valid, dist, np.inf), axis=1), -1.0)
+        dist = dist.astype(np.float32)
+        last = np.minimum(counts, width) - 1
+        rows = np.arange(n_rows)
+        nan_rows = (rows % 4 == 1) & (last >= 0)         # a NaN last record, as a sort leaves it
+        dist[rows[nan_rows], last[nan_rows]] = np.float32(np.nan)
+        tie_rows = (rows % 4 == 2) & (last >= 8)         # ties at the row's start
+        dist[rows[tie_rows], :8] = np.minimum(dist[rows[tie_rows], :8], 0.0)
+        swap = (rows % 4 == 3) & (last >= 1)             # one pair out of order
+        a, b = dist[rows[swap], last[swap] - 1], dist[rows[swap], last[swap]]
+        dist[rows[swap], last[swap] - 1], dist[rows[swap], last[swap]] = b, a
     return counts, idx, intg, dist
 
 
@@ -3140,6 +3217,10 @@ def segsort_csr(tag):
     int or None)."""
     n, kind, total, (n_f, n_i) = SEGSORT_CSR_CASES[tag]
     rng = _segsort_rng(SEGSORT_CSR_CASES, tag)
+    ordered = {"swap": 1, "last": 1, "descending": -1}.get(kind, 0)
+    octave = kind == "octave"
+    if octave:   # distances in [1, 2), as the bench's, in segments of up to 1,024
+        kind = "lengths"
     if kind in ("edges", "long", "rays"):
         most = {"edges": 40, "long": 3000, "rays": 600}[kind]
         lengths = rng.integers(0, most + 1, n)
@@ -3147,6 +3228,22 @@ def segsort_csr(tag):
         starts = np.cumsum(np.concatenate([[0], lengths]))
         limit = total if kind == "rays" and isinstance(total, int) else n
         offsets = starts[starts < limit].astype(np.int64)   # rays' starts inside the hits
+    elif kind in ("padded", "padded_gap"):   # rays' records, then the capacity padding
+        lengths = rng.integers(1, 513, 120)
+        if kind == "padded_gap":
+            lengths[-1] = 0
+        offsets = np.cumsum(np.concatenate([[0], lengths[:-1]])).astype(np.int64)
+        kept = int(lengths.sum())
+    elif kind in ("swap", "last", "ties", "descending", "lengths"):
+        lengths = {"swap": [100, 200, 5000, 700], "last": [2500, 1500],
+                   "lengths": rng.permutation([1, 2, 31, 32, 33, 511, 512, 513, 1023, 1024,
+                                               1025]).tolist()}.get(kind, [])
+        lengths = [] if octave else lengths
+        while sum(lengths) < n:
+            lengths.append(int(rng.integers(1, 1025 if octave else 41 if kind == "lengths"
+                                            else 1201)))
+        lengths[-1] -= sum(lengths) - n
+        offsets = np.cumsum(np.concatenate([[0], lengths[:-1]])).astype(np.int64)
     elif kind == "one":
         offsets = np.zeros(1, np.int64)
     else:
@@ -3159,14 +3256,40 @@ def segsort_csr(tag):
         extra = np.array([-5, -1, n, n + 7, 2**31 - 1, 2**31 - 2, offsets[k // 2],
                           offsets[k // 3]])
         offsets = np.concatenate([offsets, extra[rng.permutation(extra.shape[0])]])
-    dist = _special_keys(rng, n) if kind == "edges" else (
+    dist = _special_keys(rng, n) if kind in ("edges", "lengths") else (
         (4 * rng.random(n)).astype(np.float32))
-    if kind != "edges":
+    if kind not in ("edges", "lengths"):
         dist[rng.random(n) < 0.05] = 1.0                 # ties
     idx = rng.integers(0, 1 << 20, n).astype(np.int32)
+    bounds = list(zip(offsets.tolist(), offsets[1:].tolist() + [n]))
+    if ordered:   # each segment in order (descending: reversed), then the case's fault
+        for a, b in bounds:
+            dist[a:b] = np.sort(dist[a:b])[::ordered]
+            if kind == "swap" and b - a > 1024:
+                dist[a + 1023], dist[a + 1024] = dist[a + 1024], dist[a + 1023]
+            if kind == "last" and b - a > 1:
+                dist[b - 1] = dist[a] - 1.0
+    if kind == "ties":   # zeros that tie, NaNs that tie, both in order, and mixes
+        zeros, nans = TIE_BITS[:6].view(np.float32), TIE_BITS[6:].view(np.float32)
+        mixed = np.concatenate([zeros, nans, np.float32([1.0, -1.0])])
+        for j, (a, b) in enumerate(bounds):
+            half = a + (b - a) // 2
+            if j % 4 == 0:
+                dist[a:b] = rng.choice(zeros, b - a)
+            elif j % 4 == 1:
+                dist[a:b] = rng.choice(nans, b - a)
+            elif j % 4 == 2:   # zeros then NaNs: in order
+                dist[a:half], dist[half:b] = rng.choice(zeros, half - a), rng.choice(nans, b - half)
+            else:              # NaNs before 1.0 and the like: out of order
+                dist[a:b] = rng.choice(mixed, b - a)
+    if octave:
+        for j, (a, b) in enumerate(bounds):
+            dist[a:b] = _octave_keys(rng, (b - a,), b - a, j)
+    if kind in ("padded", "padded_gap"):
+        dist[kept:], idx[kept:] = -1.0, -1               # records_to_flat's fill
     data = [rng.random(n).astype(np.float32) for _ in range(n_f)] + [
         rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32) for _ in range(n_i)]
-    total = {"half": n // 2, "past": n + 100}.get(total, total)
+    total = {"half": n // 2, "past": n + 100, "all": n}.get(total, total)
     return dist, offsets.astype(np.int32), idx, data, total
 
 
@@ -3341,13 +3464,39 @@ def gate_segsort(path):
     return counts
 
 
+def order_key_torch(d):
+    """The kernels' order key of f32 ``d`` as int64 in [0, 2^32)
+    (segsort.cu's order_bits): NaN -> 0x7FC00000, -0 and subnormals -> +0,
+    then all bits flipped for a negative and the sign bit set for the
+    rest."""
+    b = d.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = torch.where(torch.isnan(d), 0x7FC00000, torch.where((b & 0x7F800000) == 0, 0, b))
+    return torch.where((b & 0x80000000) != 0, b ^ 0xFFFFFFFF, b | 0x80000000)
+
+
+def csr_sort_keys(flat):
+    """E9's library call's keys on a flat layout, built outside its timed
+    window: int64 segment << 32 | the order key, the segments
+    offsets_to_segments's with the entries past total_hits in a last
+    pseudo-segment, as the plain version numbers them."""
+    from grace_tpu_torch.ops import segops
+
+    n = flat.distances.shape[0]
+    seg = segops.offsets_to_segments(flat.offsets, n).to(torch.int64)
+    pos = torch.arange(n, device=seg.device)
+    seg = torch.where(pos < torch.as_tensor(flat.total_hits, device=seg.device), seg,
+                      flat.offsets.shape[0])
+    return seg << 32 | order_key_torch(flat.distances)
+
+
 def segsort_times(rec, flat):
     """E8-E10's times (CUDA events, warm median, ms) on main path 4's
     records: each entry and its plain version, torch.sort of the row keys
-    alone (E8's library call). Returns (times, {kernel: (operations,
-    bytes)}): each input read once, each output written once; the
-    operations are the n log2 n compares a comparison sort needs a
-    segment."""
+    alone (E8's library call) and of the flat layout's int64 keys segment
+    << 32 | order key (E9's; both keys built outside the timed window).
+    Returns (times, {kernel: (operations, bytes)}): each input read once,
+    each output written once; the operations are the n log2 n compares a
+    comparison sort needs a segment."""
     from grace_tpu_torch.ops import segops
     from grace_tpu_torch.trace import pallas_records as prc
 
@@ -3366,6 +3515,10 @@ def segsort_times(rec, flat):
              lambda: segops.segmented_sort_cuda(*args, total_hits=flat.total_hits)),
          "segmented_sort plain (path 4's flat layout)": cuda_ms(
              lambda: segops._sort_by_distance_plain(*args, total_hits=flat.total_hits), reps=3)}
+    del key
+    key = csr_sort_keys(flat)
+    t["segmented_sort library (torch.sort of the int64 keys segment << 32 | order key, "
+      "stable)"] = cuda_ms(lambda: torch.sort(key, stable=True))
     del key
     h = flat.indices.shape[0]
     kept = torch.clamp(rec.counts, max=width).double()
@@ -4240,6 +4393,13 @@ def run(dev, n_particles, side):
         for route in wk.ROUTES:
             log(f"resources bvh_walk_{kind} ({mode}, {route}): "
                 f"{json.dumps(wk.walk_resources(dev, kind, mode, route))}")
+    from grace_tpu_torch.ops import segops
+
+    for kernel in segops.RESOURCE_KERNELS:   # the sort kernels with path 4's three arrays
+        res = segops.segsort_resources(dev, kernel)
+        log(f"resources segsort {kernel}: {json.dumps(res)}")
+        if res["local_bytes"]:
+            raise AssertionError(f"segsort.cu's {kernel} kernel uses local memory: {res}")
 
     # 2. the build's kernels vs the plain build (check_build); kernels vs
     # plain versions at small and edge shapes; routes vs the engine; the
@@ -5129,7 +5289,9 @@ def run(dev, n_particles, side):
               ("sort_rows", "grace_tpu/trace/pallas_records.py:729", "",
                t["sort_rows library (torch.sort of the keys, stable)"]),
               ("segmented_sort", "grace_tpu/ops/segops.py:70, grace_tpu/ops/segops.py:24, "
-               "grace_tpu/ops/segops.py:57", " (path 4's flat layout)", None),
+               "grace_tpu/ops/segops.py:57", " (path 4's flat layout)",
+               t["segmented_sort library (torch.sort of the int64 keys segment << 32 | order "
+                 "key, stable)"]),
               ("records_to_flat", "grace_tpu/trace/pallas_records.py:741", "", None))],
         # path 6's launches of B3 and B6, held and timed on its fan-out set
         *[kernel_entry(f"{k} (path 6)", f"{k}.cu", replaces, launches6[k], errs6[k],

@@ -99,18 +99,22 @@ KERNELS = {
     "tri_lists": ("tri_lists.cu", ["--fmad=false"],
                   {"grace_tri_tile_lists": "p" * 11 + "i" * 6}),
     # the per-hit records' post-processing: the record rows' sort, the CSR
-    # sort by distance (heads, starts, a warp a segment; long segments in
-    # chunks, merged, gathered) and the flat layout; no float arithmetic
+    # sort by distance (heads, starts, a warp a segment; long segments
+    # checked for order, the others in chunks, merged, gathered) and the
+    # flat layout; no float arithmetic
     "segsort": ("segsort.cu", [],
                 {"grace_sort_rows": "pppppp" + "ii",
                  "grace_seg_heads": "ppp" + "ii",
                  "grace_seg_count": "pp" + "i",
                  "grace_seg_starts": "ppp" + "i",
                  "grace_segmented_sort": "pppppppp" + "iii",
-                 "grace_seg_chunks": "ppppppp" + "iii",
-                 "grace_seg_merge": "pppppp" + "iii",
-                 "grace_seg_gather": "ppppppp" + "iiii",
-                 "grace_records_to_flat": "pppppppp" + "iiiiiii"}),
+                 "grace_seg_long_scan": "ppppp" + "ii",
+                 "grace_seg_check": "ppppppp" + "ii",
+                 "grace_seg_chunks": "p" * 9 + "iii",
+                 "grace_seg_merge": "p" * 9 + "iii",
+                 "grace_seg_gather": "p" * 8 + "iiii",
+                 "grace_records_to_flat": "pppppppp" + "iiiiiii",
+                 "grace_segsort_resources": "pii"}),
     # The dense contractions that splat.cu and splat_sortfree.cu's forward
     # replaced, each with its file's flags: the references those kernels
     # are held bit-equal to on the card. No wrapper launches them.

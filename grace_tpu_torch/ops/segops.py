@@ -9,10 +9,13 @@ compare as XLA compares them: -0 with +0 and subnormals with zero, every
 NaN after +inf.
 
 ``sort_by_distance`` on CUDA tensors is ``csrc/segsort.cu``'s segmented
-sort (``segmented_sort_cuda``): head flags and segment starts, a warp a
-segment sorting in registers, longer segments in chunks merged in device
-memory, every payload gathered in the same launches. CPU tensors take
-``_sort_by_distance_plain``. The other sorts and scans here stay plain.
+sort (``segmented_sort_cuda``): head flags and segment starts, persistent
+warps each sorting a segment (a stable merge sort of u32 keys, skipped
+where the segment is in order) while the next one's arrays load, longer
+segments checked for order and the others sorted in chunks merged in
+device memory, every payload written in the same launches. CPU tensors
+take ``_sort_by_distance_plain``. The other sorts and scans here stay
+plain.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from grace_tpu_torch import _kernels
 
 SEG_CHUNK = 1024      # csrc/segsort.cu kMaxChunk: the longest segment a warp sorts
-HEAD_TILE = 1024      # kTile: head flags a warp counts
+HEAD_TILE = 1024      # kTile: positions (head bits) a warp counts
 MAX_PAYLOADS = 8      # kMaxPayloads: arrays one launch gathers
 MERGE_TILE = 256      # kMergeTile: outputs a merge block takes at a time
 WARP_RUN = 512        # kWarpRun: the longest segment sorted by one warp alone; longer
@@ -151,14 +154,15 @@ def _segsort_launch(keys, mask, offsets, total, payloads, chunk):
     ``keys`` (f32[H]; where ``mask`` i32[H] is -1 the key is +inf) within
     the segments that ``offsets`` (i32, ``offsets[0]`` ignored) and
     ``total`` (None, or i32[1] in [0, H]) open. Segments longer than
-    min(``chunk``, WARP_RUN) take the long route: sorted in chunks of
-    ``chunk`` (a power of two, MERGE_TILE / 2 to SEG_CHUNK) and merged.
+    min(``chunk``, WARP_RUN) take the long route: checked for order (a
+    segment in order is copied), the others sorted in chunks of ``chunk``
+    (a power of two, MERGE_TILE / 2 to SEG_CHUNK) and merged.
     Returns the sorted payloads, new tensors."""
     device, n = keys.device, keys.shape[0]
     outs = [torch.empty_like(p) for p in payloads]
     launch = lambda entry, *args: _kernels.launch("segsort", entry, device, *args)
     ptr = lambda t: None if t is None else t.data_ptr()
-    head = torch.zeros(n, dtype=torch.uint8, device=device)
+    head = torch.zeros(-(-n // 32), dtype=torch.int32, device=device)   # head bits
     launch("grace_seg_heads", ptr(offsets), ptr(total), head.data_ptr(), offsets.shape[0], n)
     counts = torch.empty(-(-n // HEAD_TILE), dtype=torch.int32, device=device)
     launch("grace_seg_count", head.data_ptr(), counts.data_ptr(), n)
@@ -173,29 +177,37 @@ def _segsort_launch(keys, mask, offsets, total, payloads, chunk):
     for g in range(0, len(payloads), MAX_PAYLOADS):
         srcs, dsts = payloads[g:g + MAX_PAYLOADS], outs[g:g + MAX_PAYLOADS]
         table = _pointer_table(srcs, dsts)
-        long_start = torch.zeros(n_max, dtype=torch.int32, device=device)
-        long_len = torch.zeros(n_max, dtype=torch.int32, device=device)
-        n_long = torch.zeros(1, dtype=torch.int32, device=device)
+        # the long list, zeroed at once: its count, starts, lengths and order flags
+        zeroed = torch.zeros(4 + 3 * n_max, dtype=torch.int32, device=device)
+        n_long = zeroed[:1]
+        long_start, long_len, unsorted = (zeroed[4 + j * n_max:4 + (j + 1) * n_max]
+                                          for j in range(3))
         launch("grace_segmented_sort", keys.data_ptr(), ptr(mask), starts.data_ptr(),
                n_seg.data_ptr(), ctypes.addressof(table), long_start.data_ptr(),
                long_len.data_ptr(), n_long.data_ptr(), len(srcs), max_segs, chunk)
         if n <= run:
             continue   # no segment is longer than a warp's run
-        chunk_end = torch.cumsum((long_len + (chunk - 1)) // chunk, dim=0, dtype=torch.int32)
-        tile_end = torch.cumsum((long_len + (MERGE_TILE - 1)) // MERGE_TILE, dim=0,
-                                dtype=torch.int32)
-        elem_end = torch.cumsum(long_len, dim=0, dtype=torch.int32)
-        bufs = [torch.empty(n, dtype=torch.int64, device=device) for _ in range(2)]
+        elem_end, chunk_end, tile_end = torch.empty(3, n_max, dtype=torch.int32, device=device)
+        launch("grace_seg_long_scan", long_len.data_ptr(), n_long.data_ptr(),
+               elem_end.data_ptr(), chunk_end.data_ptr(), tile_end.data_ptr(), n_max, chunk)
+        launch("grace_seg_check", keys.data_ptr(), ptr(mask), long_start.data_ptr(),
+               long_len.data_ptr(), elem_end.data_ptr(), n_long.data_ptr(),
+               unsorted.data_ptr(), n_max, n)
+        # u32 order keys (held in i32 tensors) and i32 positions, two of each
+        bufs = torch.empty(4, n, dtype=torch.int32, device=device)
         launch("grace_seg_chunks", keys.data_ptr(), ptr(mask), long_start.data_ptr(),
                long_len.data_ptr(), chunk_end.data_ptr(), n_long.data_ptr(),
-               bufs[0].data_ptr(), n_max, chunk, n)
+               unsorted.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), n_max, chunk, n)
         for r in range(rounds):
+            i, o = 2 * (r % 2), 2 * ((r + 1) % 2)
             launch("grace_seg_merge", long_start.data_ptr(), long_len.data_ptr(),
-                   tile_end.data_ptr(), n_long.data_ptr(), bufs[r % 2].data_ptr(),
-                   bufs[(r + 1) % 2].data_ptr(), n_max, chunk << r, n)
+                   tile_end.data_ptr(), n_long.data_ptr(), unsorted.data_ptr(),
+                   bufs[i].data_ptr(), bufs[i + 1].data_ptr(), bufs[o].data_ptr(),
+                   bufs[o + 1].data_ptr(), n_max, chunk << r, n)
         launch("grace_seg_gather", long_start.data_ptr(), long_len.data_ptr(),
-               elem_end.data_ptr(), n_long.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
-               ctypes.addressof(table), n_max, len(srcs), chunk, n)
+               elem_end.data_ptr(), n_long.data_ptr(), unsorted.data_ptr(),
+               bufs[1].data_ptr(), bufs[3].data_ptr(), ctypes.addressof(table), n_max,
+               len(srcs), chunk, n)
     return outs
 
 
@@ -242,6 +254,26 @@ def segmented_sort_cuda(distances, offsets, indices, *data, total_hits=None):
 
 
 segmented_sort_cuda.launches = 0
+
+# csrc/segsort.cu's kernels in grace_segsort_resources' numbering: the sort
+# kernel for record rows of up to 512 and of up to 1,024 (E8) and for
+# segments (E9), E9's head bits, counts, starts, the long route's scans,
+# check, chunks, merge and gather, and E10.
+RESOURCE_KERNELS = ("sort_rows (512)", "sort_rows (1,024)", "sort_segments", "seg_heads",
+                    "seg_count", "seg_starts", "seg_long_scan", "seg_check", "seg_chunks",
+                    "seg_merge", "seg_gather", "records_to_flat")
+
+
+def segsort_resources(device, kernel: str, n_stage: int = 3) -> dict:
+    """What one launch of segsort kernel ``kernel`` (``RESOURCE_KERNELS``)
+    holds on ``device``: ``_kernels.RESOURCE_FIELDS`` (a sort kernel's
+    shared bytes with its dynamic stage for ``n_stage`` staged arrays,
+    three on main path 4) and ``local_bytes`` a thread."""
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    out = (ctypes.c_int * len(fields))()
+    _kernels.launch("segsort", "grace_segsort_resources", torch.device(device),
+                    ctypes.addressof(out), RESOURCE_KERNELS.index(kernel), n_stage)
+    return dict(zip(fields, out))
 
 
 def exclusive_segmented_scan(offsets, values) -> torch.Tensor:

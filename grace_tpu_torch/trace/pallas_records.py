@@ -389,11 +389,13 @@ def _check_rows(name, rec: RecordTraceResult):
 
 def sort_rows_cuda(rec: RecordTraceResult) -> RecordTraceResult:
     """``csrc/segsort.cu``'s row sort (E8, ``grace_sort_rows``):
-    ``sort_records_by_distance`` on CUDA tensors, a warp a row of up to
-    ``segops.SEG_CHUNK`` slots, sorting only the prefix that ends with the
-    row's last record (the sentinel tail keeps its place; the bits of a
-    whole-row sort); wider rows go through the segmented sort's launches
-    with one segment a row (its chunks and merges)."""
+    ``sort_records_by_distance`` on CUDA tensors, persistent warps each
+    sorting a row of up to ``segops.SEG_CHUNK`` slots while the next row
+    loads, only over the prefix that ends with the row's last record (a
+    stable merge sort of u32 keys, skipped where the prefix is in order;
+    the sentinel tail keeps its place: the bits of a whole-row sort);
+    wider rows go through the segmented sort's launches with one segment
+    a row (its order check, chunks and merges)."""
     device, n, c = _check_rows("sort_records_by_distance", rec)
     idx, intg, dist = (t.contiguous() for t in rec[1:])
     if n == 0 or c == 0:

@@ -57,7 +57,8 @@ refusals; and the records' post-processing (segsort.cu: the row sort, the
 CSR sort by distance, the flat layout) at every case of chip_smoke's
 SEGSORT_ROW_CASES, SEGSORT_FLAT_CASES and SEGSORT_CSR_CASES, bit-equal to
 grace_tpu's order (the plain version on the CPU), the long route forced
-with chunks of 128, their launches without a host sync and the refusals.
+with chunks of 128 (also on capacity padding), their launches without a
+host sync, the refusals, and each kernel's resources (no local bytes).
 The edge scenes and checks are chip_smoke.py's.
 """
 
@@ -1111,10 +1112,13 @@ def test_segsort_kernels_match_grace_tpu_order(dev, kind, tag):
                                       ("rows", list(SEGSORT_ROW_CASES)[2]),
                                       ("csr", list(SEGSORT_CSR_CASES)[0]),
                                       ("csr", list(SEGSORT_CSR_CASES)[3]),
-                                      ("csr", list(SEGSORT_CSR_CASES)[5])])
+                                      ("csr", list(SEGSORT_CSR_CASES)[5]),
+                                      ("csr", list(SEGSORT_CSR_CASES)[8]),
+                                      ("csr", list(SEGSORT_CSR_CASES)[9])])
 def test_segsort_long_route_small_chunks(dev, kind, tag, monkeypatch):
-    """The long route forced with chunks of 128 (several merge rounds): the
-    same bits."""
+    """The long route forced with chunks of 128 (several merge rounds; the
+    capacity padding in the last ray's segment merged, as a segment of its
+    own copied): the same bits."""
     from grace_tpu_torch.ops import segops
 
     monkeypatch.setattr(segops, "SEG_CHUNK", 128)
@@ -1156,3 +1160,23 @@ def test_segsort_launches_without_a_host_sync(dev, scene):
         segops.sort_by_distance(flat[4], flat[0].double(), flat[2])
     with pytest.raises(TypeError):
         segops.sort_by_distance(flat[4], flat[0], flat[2], flat[3].double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_stage", [3, 10])
+@pytest.mark.parametrize("kernel", ["sort_rows (512)", "sort_rows (1,024)", "sort_segments",
+                                    "seg_heads", "seg_count", "seg_starts", "seg_long_scan",
+                                    "seg_check", "seg_chunks", "seg_merge", "seg_gather",
+                                    "records_to_flat"])
+def test_segsort_resources(dev, kernel, n_stage):
+    """Every segsort.cu kernel keeps its state in registers and shared
+    memory (no local bytes) and fits on an SM; the sort kernels with
+    path 4's three staged arrays and with the most (keys, mask and eight
+    payloads) hold at least a block an SM."""
+    from grace_tpu_torch.ops import segops
+
+    res = segops.segsort_resources(dev, kernel, n_stage)
+    assert res["local_bytes"] == 0, res
+    assert res["blocks_per_sm"] >= 1 and res["threads"] % 32 == 0, res
+    if kernel.startswith("sort"):
+        assert res["shared_bytes"] <= 227 * 1024, res

@@ -397,10 +397,12 @@ def test_broadphase_constants_agree():
 
 def test_segsort_constants_agree():
     """segsort.cu's longest warp run, head tile and payload count are the
-    wrappers' (segops.SEG_CHUNK, HEAD_TILE, MAX_PAYLOADS); its nine entries
-    take no float arithmetic (no flags) and refuse what they do not take
-    before they touch the device; the row sort's wrapper routes rows wider
-    than a warp's run to the segmented sort's launches."""
+    wrappers' (segops.SEG_CHUNK, HEAD_TILE, MAX_PAYLOADS); its eleven launch
+    entries and its resources query take no float arithmetic (no flags)
+    and refuse what they do not take before they touch the device; the
+    query numbers the kernels as segops.RESOURCE_KERNELS; the row sort's
+    wrapper routes rows wider than a warp's run to the segmented sort's
+    launches."""
     from grace_tpu_torch.ops import segops as so
 
     src = _source("segsort")
@@ -411,8 +413,14 @@ def test_segsort_constants_agree():
     _, flags, entries = _kernels.KERNELS["segsort"]
     assert flags == []
     assert set(entries) == {"grace_sort_rows", "grace_seg_heads", "grace_seg_count",
-                            "grace_seg_starts", "grace_segmented_sort", "grace_seg_chunks",
-                            "grace_seg_merge", "grace_seg_gather", "grace_records_to_flat"}
+                            "grace_seg_starts", "grace_segmented_sort", "grace_seg_long_scan",
+                            "grace_seg_check",
+                            "grace_seg_chunks", "grace_seg_merge", "grace_seg_gather",
+                            "grace_records_to_flat", "grace_segsort_resources"}
+    query = src[src.index('extern "C" int grace_segsort_resources('):]
+    assert f"kernel > {len(so.RESOURCE_KERNELS) - 1}" in query
+    assert len(re.findall(r"reinterpret_cast<const void\*>\((\w+)", query)) == len(
+        so.RESOURCE_KERNELS)
     for entry in entries:
         body = src[src.index(f'extern "C" int {entry}('):]
         assert "cudaErrorInvalidValue" in body[:body.index("cudaSetDevice")]

@@ -6,28 +6,41 @@ CUDA kernels (``csrc/segsort.cu``) as numpy models.
   ``grace_tpu`` (jitted on the CPU), bit for bit, at every case of
   chip_smoke's ``SEGSORT_ROW_CASES`` (keys of every special value of the
   order, exact ties, sentinel slots mid-row and at the tail, real +inf
-  distances, rows that overflowed, widths 128 to 2,048),
+  distances, rows that overflowed, rows already in order, distances in
+  one octave as the bench's rows span, widths 128 to 2,048),
   ``SEGSORT_FLAT_CASES`` (capacity equal to, below and past the kept total,
   sentinel slots with other sentinels, no rows, an overflowed row at
   capacity 0) and ``SEGSORT_CSR_CASES`` (empty, repeated, unordered,
   negative, past-H and near-2^31 offsets; total_hits 0, inside and past
   H; segments past a warp's 1,024; a trailing pseudo-segment of 1.2M
-  entries; nine data arrays; one segment; no offsets). The order key as
-  a stable numpy sort equals ``lax.sort``'s order of the special values.
+  entries; nine data arrays; one segment; no offsets; capacity padding of
+  equal keys in the last ray's segment and as a segment of its own; long
+  segments in order but for a pair across a chunk boundary or for their
+  last element; keys that tie only in the order; descending segments;
+  lengths around 1, 32, 512 and 1,024). The order key as a stable numpy
+  sort equals ``lax.sort``'s order of the special values; chip_smoke's E9
+  library keys give the plain version's order.
 - numpy models of the C entries, written as the kernels index their
-  threads (a warp's 32 E keys in registers: strides below E inside a
-  lane, the others by shuffles; a record row sorted only over the prefix
-  that ends with its last record, its NaNs moved past the tail of
-  sentinel slots; head flags, a warp a tile of 1,024 flags
-  counted and placed by ballots; a warp a segment, long segments appended
-  in any order, their chunks sorted, merged pairwise a tile of 256
-  outputs at a time and gathered; a warp a row copying its records, its sentinel slot and the
-  tail), run through the port's own wrappers with the ctypes launch
-  replaced by the model (which reads and writes the tensors' host
-  memory), bit-equal to the plain versions at every case above; the long
-  route forced at a small size (chunks of 128, so rows of 384 and 512 and
-  the CSR cases take several merge rounds, the merge in tiles of 256
-  outputs with their co-ranks found by a warp's 32-way search).
+  threads (a run checked for order, then its keys packed into distinct
+  u32 or u64 values and sorted by a warp's bitonic network of ascending
+  comparators, lane l holding elements l E ... l E + E - 1: strides below
+  E inside a lane, the others by shuffles, each phase's mirror step
+  across lanes from register E - 1 - e; a record row sorted only over the
+  prefix that ends with its last record, its NaNs moved past the tail of
+  sentinel slots; head bits, a warp a tile of 1,024 positions and a word
+  a lane; a warp a segment, long segments appended in any order, the long
+  list scanned, each checked for order, the unsorted ones' chunks sorted,
+  merged pairwise a tile of 256 outputs at a time with the left run first
+  on ties, and gathered, the others copied; a warp a row copying its
+  records, its sentinel slot and the tail), run through the port's own
+  wrappers with the ctypes launch replaced by the model (which reads and
+  writes the tensors' host memory), bit-equal to the plain versions at
+  every case above; the long route forced at a small size (chunks of 128,
+  so rows of 384 and 512 and the CSR cases take several merge rounds, the
+  merge in tiles of 256 outputs with their co-ranks found by a warp's
+  32-way search); the warp sort's model against numpy's stable argsort at
+  every network size and on both packings; the order check's flags on
+  the long segments.
 - The public functions take the kernels where the tensors are not on the
   CPU (the route test made to say so), ``trace_sph`` and
   ``trace_with_sentinels_sph`` included, and main path 4's gate (the CSR
@@ -46,8 +59,8 @@ import torch
 import grace_tpu.ops.segops as jso
 import grace_tpu.trace.pallas_records as jpr
 from chip_smoke import (SEGSORT_CSR_CASES, SEGSORT_FLAT_CASES, SEGSORT_ROW_CASES,
-                        SPECIAL_BITS, records_scene, segsort_csr, segsort_flat, segsort_gate,
-                        segsort_outputs, segsort_rows)
+                        SPECIAL_BITS, csr_sort_keys, order_key_torch, records_scene, segsort_csr,
+                        segsort_flat, segsort_gate, segsort_outputs, segsort_rows)
 from grace_tpu_torch import _kernels
 from grace_tpu_torch.ops import segops as tso
 from grace_tpu_torch.trace import pallas_records as tpr
@@ -187,58 +200,115 @@ def _view(ptr, ctype, count):
     return np.ctypeslib.as_array((ctype * count).from_address(ptr))
 
 
-def _keys(keys, mask, pos):
-    """sort_key: (order bits << 32) | position; a sentinel index keys +inf."""
+PAD_KEY = np.uint32(0xFFFFFFFF)
+
+
+def _order_keys(keys, mask, pos):
+    """key_at: the order keys of elements ``pos`` (a mask of -1 keys +inf)."""
     k = keys[pos]
     if mask is not None:
         k = np.where(mask[pos] == -1, np.float32(np.inf), k)
-    return (_order_bits(k).astype(U64) << U64(32)) | pos.astype(U64)
+    return _order_bits(k)
+
+
+def _take(x, i):
+    return np.take_along_axis(x, i, axis=1)
 
 
 def _warp_bitonic(v):
-    """warp_bitonic on runs v u64[m, 32, E] (lane, register): the steps with
-    J >= E exchange with lane ^ (J / E) (keep_min where the lane's bit and
-    the direction agree), the others swap registers e and e | J."""
-    m, lanes, e_n = v.shape
-    lane = np.arange(32)[:, None]
-    e = np.arange(e_n)[None, :]
+    """warp_bitonic on runs v u32[R, 32, E] (lane, register), every
+    comparator ascending: phase K = 2, 4, ..., 32 E compares element i with
+    its mirror i ^ (K - 1) (inside the lane where K <= E; else lane ^ (K / E
+    - 1), register E - 1 - e, the lane keeping the min where it holds the
+    lower index), then half_clean J = K / 4, ..., 1 (inside the lane where J
+    < E, else lane ^ (J / E))."""
+    e_n = v.shape[2]
+    lane = np.arange(32)
+
+    def cross(v, w, low):
+        return np.where(low[None, :, None], np.minimum(v, w), np.maximum(v, w))
+
+    def inside(v, j, partner):
+        v = v.copy()
+        lo = np.flatnonzero((np.arange(e_n) & j) == 0)
+        a, b = v[:, :, lo], v[:, :, partner(lo)]
+        v[:, :, lo], v[:, :, partner(lo)] = np.minimum(a, b), np.maximum(a, b)
+        return v
+
     k = 2
     while k <= 32 * e_n:
-        j = k // 2
+        if k <= e_n:
+            v = inside(v, k // 2, lambda e: e ^ (k - 1))
+        else:
+            v = cross(v, v[:, lane ^ (k // e_n - 1), ::-1], (lane & (k // e_n // 2)) == 0)
+        j = k // 4
         while j >= 1:
             if j >= e_n:
-                w = v[:, lane[:, 0] ^ (j // e_n), :]
-                keep_min = ((lane & (j // e_n)) == 0) == (((lane * e_n) & k) == 0)
-                v = np.where(keep_min, np.minimum(v, w), np.maximum(v, w))
+                v = cross(v, v[:, lane ^ (j // e_n), :], (lane & (j // e_n)) == 0)
             else:
-                lo = np.flatnonzero((np.arange(e_n) & j) == 0)
-                a, b = v[:, :, lo], v[:, :, lo | j]
-                ascending = ((lane * e_n + e[:, lo]) & k) == 0
-                swap = (a > b) == ascending
-                v[:, :, lo], v[:, :, lo | j] = np.where(swap, b, a), np.where(swap, a, b)
+                v = inside(v, j, lambda e: e | j)
             j //= 2
         k *= 2
     return v
 
 
-def _sort_runs(keys, mask, starts, lens):
-    """network_for on every run [starts[r], starts[r] + lens[r]): the
-    sorted keys of each run (a list of u64 arrays), E = the next power of
-    two of ceil(len / 32) a lane, the pads ~0. (The kernels stage the keys
-    and payloads through shared memory so that global accesses are
-    coalesced; that moves no bit.)"""
-    out = [np.zeros(0, U64)] * len(starts)
-    per_lane = np.maximum(1, -(-np.asarray(lens) // 32))
-    e_of = 1 << np.ceil(np.log2(per_lane)).astype(int)
-    for e_n in np.unique(e_of):
-        runs = np.flatnonzero(e_of == e_n)
-        i = np.arange(32 * e_n)
-        s, ln = np.asarray(starts)[runs][:, None], np.asarray(lens)[runs][:, None]
-        pos = np.where(i < ln, s + i, 0)
-        v = np.where(i < ln, _keys(keys, mask, pos.ravel()).reshape(pos.shape), ~U64(0))
-        v = _warp_bitonic(v.reshape(-1, 32, e_n)).reshape(-1, 32 * e_n)
-        for row, r in enumerate(runs):
-            out[r] = v[row, :lens[r]]
+def _keys_in_order(runs):
+    """keys_in_order on each run: every key, read striped, not above the
+    next one; and the run's min and max."""
+    return [(bool((x[1:] >= x[:-1]).all()), int(x.min()), int(x.max())) if x.shape[0]
+            else (True, 0, 0) for x in runs]
+
+
+def _network_sort(keys, lens, e_n, wide, lo, bits):
+    """network_sort on runs of order keys u32[R, 32 E] (run r's first
+    lens[r] are its keys), E = e_n a lane: each key packed into a distinct
+    value in the stable order, the u32 (key - lo) << bits | position, or
+    with ``wide`` the u64 key << 32 | position (pads ~0), sorted by
+    warp_bitonic and unpacked. Returns (keys, run indices) [R, 32 E]."""
+    r, w = keys.shape
+    valid = np.arange(w)[None, :] < lens[:, None]
+    pos = np.arange(w, dtype=np.uint64)[None, :]
+    k = keys.astype(np.uint64)
+    if wide:
+        packed = np.where(valid, k << U64(32) | pos, ~U64(0))
+    else:
+        packed = np.where(valid, (k - lo[:, None]) << bits[:, None] | pos, U64(0xFFFFFFFF))
+    out = _warp_bitonic(packed.reshape(r, 32, e_n)).reshape(r, w)
+    if wide:
+        return (out >> U64(32)).astype(np.uint32), (out & U64(0xFFFFFFFF)).astype(np.int64)
+    return ((lo[:, None] + (out >> bits[:, None])).astype(np.uint32),
+            (out & ((U64(1) << bits[:, None]) - U64(1))).astype(np.int64))
+
+
+def _sort_runs(runs):
+    """sort_keys_for on each run of order keys (a list of u32 arrays): a
+    run in order keeps its order; else the u32 network, E = 16 (32 past
+    512 keys: only the kernels whose runs reach 1,024 see those), where
+    the span and the positions fit in 32 bits, else the u64 network (E = 4
+    for runs of up to 128). Each run's (sorted keys, run indices)."""
+    lens = np.array([x.shape[0] for x in runs], int)
+    out = [(x.copy(), np.arange(x.shape[0])) for x in runs]
+    shape = _keys_in_order(runs)
+    groups = {}
+    for j, ((in_order, lo, hi), m) in enumerate(zip(shape, lens)):
+        if in_order:
+            continue
+        bits = int(m - 1).bit_length()
+        narrow = m <= 512
+        if hi - lo <= 0xFFFFFFFF >> bits:
+            key = (16 if narrow else 32, False)
+        else:
+            key = (4 if m <= 128 else 16 if narrow else 32, True)
+        groups.setdefault(key, []).append(j)
+    for (e_n, wide), idx in groups.items():
+        keys = np.full((len(idx), 32 * e_n), 0xFFFFFFFF, np.uint32)
+        for row, j in enumerate(idx):
+            keys[row, :lens[j]] = runs[j]
+        lo = np.array([shape[j][1] for j in idx], np.uint64)
+        bits = np.array([int(lens[j] - 1).bit_length() for j in idx], np.uint64)
+        k, v = _network_sort(keys, lens[idx], e_n, wide, lo, bits)
+        for row, j in enumerate(idx):
+            out[j] = (k[row, :lens[j]], v[row, :lens[j]])
     return out
 
 
@@ -249,64 +319,69 @@ def _payloads(host_ptrs, n_payloads, n):
 
 
 def _model_sort_rows(dist, idx, intg, o_idx, o_intg, o_dist, n_rows, width):
-    """grace_sort_rows: a warp a row, keyed by the distances with the
-    sentinel slots at +inf; the network only over the prefix that ends with
-    the row's last record, its NaNs moved past the tail of sentinel slots;
-    the three arrays gathered by the positions."""
+    """grace_sort_rows: a warp a row (staged, which moves no bit), keyed by
+    the distances with the sentinel slots at +inf; sort_keys only over the
+    prefix that ends with the row's last record, its NaNs placed past the
+    tail of sentinel slots; the three arrays written in that order."""
     n = n_rows * width
     keys, mask = _view(dist, ctypes.c_float, n), _view(idx, ctypes.c_int32, n)
     rows = mask.reshape(n_rows, width) != -1
     last = np.where(rows.any(axis=1), width - 1 - np.argmax(rows[:, ::-1], axis=1), -1)
     m = last + 1
     nans = (np.isnan(keys.reshape(n_rows, width)) & rows).sum(axis=1)
+    order = _order_keys(keys, mask, np.arange(n)).reshape(n_rows, width)
+    runs = _sort_runs([order[r, :m[r]] for r in range(n_rows)])
     src = np.empty((n_rows, width), np.int64)
-    runs = _sort_runs(keys, mask, np.arange(n_rows) * width, m)
-    for r in range(n_rows):
-        order = (runs[r].astype(np.int64) & 0xFFFFFFFF) - r * width
+    for r, (_, pos) in enumerate(runs):
         keep = m[r] - nans[r]
-        src[r, :keep] = order[:keep]
+        place = np.where(np.arange(m[r]) < keep, np.arange(m[r]), np.arange(m[r]) + width - m[r])
+        src[r, place] = pos
         src[r, keep:width - nans[r]] = np.arange(m[r], width)
-        src[r, width - nans[r]:] = order[keep:]
     src = (src + np.arange(n_rows)[:, None] * width).ravel()
     for s_ptr, d_ptr in ((idx, o_idx), (intg, o_intg), (dist, o_dist)):
         _view(d_ptr, ctypes.c_uint32, n)[:] = _view(s_ptr, ctypes.c_uint32, n)[src]
 
 
 def _model_seg_heads(offsets, total, head, n_off, n):
+    """Head bits (bit p % 32 of u32 word p / 32): position 0, total where
+    inside, every offsets[1:] inside (0, total) (a negative one counted
+    from the end)."""
     off = _view(offsets, ctypes.c_int32, n_off).astype(np.int64)
     th = int(_view(total, ctypes.c_int32, 1)[0]) if total else n
-    h = _view(head, ctypes.c_uint8, n)
-    h[0] = 1
-    if 0 < th < n:
-        h[th] = 1
+    words = _view(head, ctypes.c_uint32, -(-n // 32))
     o = off[1:]
     o = np.where(o < 0, o + n, o)
-    h[o[(o > 0) & (o < th)]] = 1
+    pos = np.concatenate([[0], [th] if 0 < th < n else [], o[(o > 0) & (o < th)]]).astype(np.int64)
+    np.bitwise_or.at(words, pos >> 5, (np.uint32(1) << (pos & 31).astype(np.uint32)))
 
 
 def _model_seg_count(head, counts, n):
-    """A warp a tile of 1,024 flags: 32 ballots."""
+    """A warp a tile of 1,024 positions, a word a lane: the lanes' popcounts
+    summed."""
     tiles = -(-n // tso.HEAD_TILE)
-    flags = np.zeros(tiles * tso.HEAD_TILE, bool)
-    flags[:n] = _view(head, ctypes.c_uint8, n) != 0
-    _view(counts, ctypes.c_int32, tiles)[:] = flags.reshape(tiles, -1).sum(axis=1)
+    words = np.zeros(tiles * 32, np.uint32)
+    words[:-(-n // 32)] = _view(head, ctypes.c_uint32, -(-n // 32))
+    pop = np.unpackbits(words.view(np.uint8)).reshape(tiles, -1).sum(axis=1)
+    _view(counts, ctypes.c_int32, tiles)[:] = pop
 
 
 def _model_seg_starts(head, incl, starts, n):
-    """A warp a tile: the heads placed by their ballot rank after the
-    scan's base; the last tile's warp writes starts[n_seg] = n."""
+    """A warp a tile, a word a lane: each lane's heads, lowest bit first,
+    after the scan's base and the heads of the lanes below; the last
+    tile's warp writes starts[n_seg] = n."""
     tiles = -(-n // tso.HEAD_TILE)
     inc = _view(incl, ctypes.c_int32, tiles)
     st = _view(starts, ctypes.c_int32, int(inc[-1]) + 1)
-    flags = _view(head, ctypes.c_uint8, n) != 0
+    words = _view(head, ctypes.c_uint32, -(-n // 32))
     for w in range(tiles):
         base = int(inc[w - 1]) if w else 0
-        for it in range(tso.HEAD_TILE // 32):
-            p = w * tso.HEAD_TILE + it * 32 + np.arange(32)
-            vote = np.zeros(32, bool)
-            vote[p < n] = flags[p[p < n]]
-            st[base:base + int(vote.sum())] = p[vote]
-            base += int(vote.sum())
+        for lane in range(32):
+            word = w * 32 + lane
+            bits = int(words[word]) if word * 32 < n else 0
+            while bits:
+                st[base] = word * 32 + (bits & -bits).bit_length() - 1
+                base += 1
+                bits &= bits - 1
     st[int(inc[-1])] = n
 
 
@@ -315,9 +390,10 @@ _ARRIVALS = np.random.default_rng(1)
 
 def _model_segmented_sort(keys, mask, starts, n_seg, host_ptrs, long_start, long_len, n_long,
                           n_payloads, max_segs, chunk):
-    """A warp a segment of up to min(chunk, WARP_RUN): longer ones appended
-    at the counter, in an arbitrary (here random) order, the others sorted
-    and gathered."""
+    """Persistent warps over the segments (each staged, which moves no
+    bit): one of more than min(chunk, WARP_RUN) is appended at the
+    counter, in an arbitrary (here random) order; the others go through
+    sort_keys and every payload is written in that order."""
     ns = int(_view(n_seg, ctypes.c_int32, 1)[0])
     assert ns <= max_segs
     st = _view(starts, ctypes.c_int32, ns + 1).astype(np.int64)
@@ -326,7 +402,7 @@ def _model_segmented_sort(keys, mask, starts, n_seg, host_ptrs, long_start, long
     m = _view(mask, ctypes.c_int32, n) if mask else None
     srcs, dsts = _payloads(host_ptrs, n_payloads, n)
     lens = np.diff(st)
-    run = min(chunk, tso.WARP_RUN)   # a kMaxE = 16 kernel's longest run
+    run = min(chunk, tso.WARP_RUN)   # a sort_kernel<16>'s longest run
     long = np.flatnonzero(lens > run)
     n_l = _view(n_long, ctypes.c_int32, 1)
     l_s = _view(long_start, ctypes.c_int32, n // (run + 1) + 1)
@@ -335,11 +411,10 @@ def _model_segmented_sort(keys, mask, starts, n_seg, host_ptrs, long_start, long
         l_s[n_l[0]], l_n[n_l[0]] = st[i], lens[i]
         n_l[0] += 1
     short = np.flatnonzero(lens <= run)
-    runs = _sort_runs(k, m, st[short], lens[short])
-    for i, run in zip(short, runs):
-        src = run.astype(np.int64) & 0xFFFFFFFF
+    runs = _sort_runs([_order_keys(k, m, np.arange(st[i], st[i + 1])) for i in short])
+    for i, (_, pos) in zip(short, runs):
         for s_arr, d_arr in zip(srcs, dsts):
-            d_arr[st[i]:st[i] + lens[i]] = s_arr[src]
+            d_arr[st[i]:st[i] + lens[i]] = s_arr[st[i] + pos]
 
 
 def _long_list(n_long, n_max):
@@ -349,29 +424,62 @@ def _long_list(n_long, n_max):
     return n_l
 
 
-def _model_seg_chunks(keys, mask, long_start, long_len, chunk_end, n_long, buf, n_max, chunk,
-                      n):
-    """A warp a chunk g < chunk_end[n_long - 1]: its entry by binary search
-    over the first n_long entries, its keys sorted into buf at their
-    positions."""
-    ends = _view(chunk_end, ctypes.c_int32, _long_list(n_long, n_max))
-    l_s, l_n = _view(long_start, ctypes.c_int32, n_max), _view(long_len, ctypes.c_int32, n_max)
+def _long_items(ends_ptr, n_long, n_max):
+    """Items g < ends[n_long - 1] of the long list and their entries (the
+    kernels' binary search over the first n_long entries)."""
+    ends = _view(ends_ptr, ctypes.c_int32, _long_list(n_long, n_max)).astype(np.int64)
     g = np.arange(int(ends[-1]) if ends.shape[0] else 0)
-    i = np.searchsorted(ends, g, side="right")
+    return g, np.searchsorted(ends, g, side="right"), ends
+
+
+def _model_seg_long_scan(long_len, n_long, elem_end, chunk_end, tile_end, n_max, chunk):
+    """One block over the first n_long entries: the inclusive scans of
+    long_len, ceil(long_len / chunk) and ceil(long_len / MERGE_TILE)."""
+    n_l = _long_list(n_long, n_max)
+    ln = _view(long_len, ctypes.c_int32, n_max)[:n_l].astype(np.int64)
+    for ptr, per in ((elem_end, 1), (chunk_end, chunk), (tile_end, tso.MERGE_TILE)):
+        _view(ptr, ctypes.c_int32, n_max)[:n_l] = np.cumsum(-(-ln // per))
+
+
+def _model_seg_check(keys, mask, long_start, long_len, elem_end, n_long, unsorted, n_max, n):
+    """A thread an element of the long segments: its entry flagged where
+    the element and the next one of its segment are out of order."""
+    l_s, l_n = _view(long_start, ctypes.c_int32, n_max), _view(long_len, ctypes.c_int32, n_max)
+    k, i, ends = _long_items(elem_end, n_long, n_max)
+    local = k - (ends[i] - l_n[i])
+    nxt = local + 1 < l_n[i]
+    p = l_s[i][nxt].astype(np.int64) + local[nxt]
+    kk = _view(keys, ctypes.c_float, n)
+    mm = _view(mask, ctypes.c_int32, n) if mask else None
+    bad = _order_keys(kk, mm, p) > _order_keys(kk, mm, p + 1)
+    _view(unsorted, ctypes.c_int32, n_max)[i[nxt][bad]] = 1
+
+
+def _model_seg_chunks(keys, mask, long_start, long_len, chunk_end, n_long, unsorted, okey, opos,
+                      n_max, chunk, n):
+    """A warp a chunk g < chunk_end[n_long - 1] of an unsorted entry: its
+    order keys through sort_keys, sorted keys to okey and positions to
+    opos at the chunk's place; the chunks of an entry in order are left."""
+    l_s, l_n = _view(long_start, ctypes.c_int32, n_max), _view(long_len, ctypes.c_int32, n_max)
+    g, i, ends = _long_items(chunk_end, n_long, n_max)
+    keep = _view(unsorted, ctypes.c_int32, n_max)[i] != 0
+    g, i = g[keep], i[keep]
     c = g - (ends[i] - (l_n[i] + chunk - 1) // chunk)
     s = l_s[i].astype(np.int64) + c * chunk
     ln = np.minimum(chunk, l_n[i] - c * chunk)
     k = _view(keys, ctypes.c_float, n)
     m = _view(mask, ctypes.c_int32, n) if mask else None
-    out = _view(buf, ctypes.c_uint64, n)
-    for start, length, run in zip(s, ln, _sort_runs(k, m, s, ln)):
-        out[start:start + length] = run
+    out_k, out_p = _view(okey, ctypes.c_uint32, n), _view(opos, ctypes.c_int32, n)
+    runs = _sort_runs([_order_keys(k, m, np.arange(a, a + b)) for a, b in zip(s, ln)])
+    for start, length, (rk, pos) in zip(s, ln, runs):
+        out_k[start:start + length] = rk
+        out_p[start:start + length] = start + pos
 
 
 def _warp_co_rank(A, B, na, nb, k):
     """warp_co_rank for arrays of tiles: the smallest i with
-    !(A[i] < B[k - i - 1]), by 32 probes a step, then one ballot. A and B
-    are functions of (tile, index) -> u64."""
+    !(A[i] <= B[k - i - 1]), by 32 probes a step, then one ballot. A and B
+    are functions of (tile, index) -> u32."""
     lo, hi = np.maximum(k - nb, 0), np.minimum(k, na)
     lane = np.arange(32)[None, :]
 
@@ -379,7 +487,7 @@ def _warp_co_rank(A, B, na, nb, k):
         ok = i < hi[:, None]
         safe_i = np.where(ok, i, 0)
         safe_j = np.where(ok, k[:, None] - i - 1, 0)
-        return (ok & (A(safe_i) < B(safe_j))).sum(axis=1)
+        return (ok & (A(safe_i) <= B(safe_j))).sum(axis=1)
 
     while (hi - lo > 32).any():
         wide = hi - lo > 32
@@ -390,20 +498,22 @@ def _warp_co_rank(A, B, na, nb, k):
     return lo + ballot(lo[:, None] + lane)
 
 
-def _model_seg_merge(long_start, long_len, tile_end, n_long, src, dst, n_max, width, n):
-    """A block a tile of MERGE_TILE outputs of one pair of runs: its two
-    co-ranks by warp_co_rank, the tile's elements of both runs staged, each
-    placed at its index in its part + the other part's elements below it."""
+def _model_seg_merge(long_start, long_len, tile_end, n_long, unsorted, ikey, ipos, okey, opos,
+                     n_max, width, n):
+    """A block a tile of MERGE_TILE outputs of one pair of runs of an
+    unsorted entry: its two co-ranks by warp_co_rank, the tile's keys and
+    positions of both runs staged, an A key placed after the B keys below
+    it and a B key after the A keys up to it (the left run first on
+    ties)."""
     T = tso.MERGE_TILE
-    ends = _view(tile_end, ctypes.c_int32, _long_list(n_long, n_max)).astype(np.int64)
     l_s, l_n = _view(long_start, ctypes.c_int32, n_max), _view(long_len, ctypes.c_int32, n_max)
-    x_in, x_out = _view(src, ctypes.c_uint64, n), _view(dst, ctypes.c_uint64, n)
-    g = np.arange(int(ends[-1]) if ends.shape[0] else 0)
-    i = np.searchsorted(ends, g, side="right")
+    g, i, ends = _long_items(tile_end, n_long, n_max)
     ln, s = l_n[i].astype(np.int64), l_s[i].astype(np.int64)
     k0 = (g - (ends[i] - (ln + T - 1) // T)) * T
-    live = ln > width   # a segment that is one run already stays where it is
-    g, i, ln, s, k0 = g[live], i[live], ln[live], s[live], k0[live]
+    live = (ln > width) & (_view(unsorted, ctypes.c_int32, n_max)[i] != 0)
+    g, ln, s, k0 = g[live], ln[live], s[live], k0[live]
+    x_in, p_in = _view(ikey, ctypes.c_uint32, n), _view(ipos, ctypes.c_int32, n)
+    x_out, p_out = _view(okey, ctypes.c_uint32, n), _view(opos, ctypes.c_int32, n)
     p0 = k0 // (2 * width) * (2 * width)
     na = np.minimum(ln - p0, width)
     nb = np.minimum(ln - p0 - na, width)
@@ -414,28 +524,30 @@ def _model_seg_merge(long_start, long_len, tile_end, n_long, src, dst, n_max, wi
     kk1 = np.minimum(kk0 + T, na + nb)
     i0, i1 = _warp_co_rank(A, B, na, nb, kk0), _warp_co_rank(A, B, na, nb, kk1)
     for t in range(g.shape[0]):
-        part_a = x_in[base_a[t] + i0[t]:base_a[t] + i1[t]]
-        part_b = x_in[base_b[t] + kk0[t] - i0[t]:base_b[t] + kk1[t] - i1[t]]
+        sa = slice(base_a[t] + i0[t], base_a[t] + i1[t])
+        sb = slice(base_b[t] + kk0[t] - i0[t], base_b[t] + kk1[t] - i1[t])
         out0 = s[t] + p0[t] + kk0[t]
-        x_out[out0 + np.arange(part_a.shape[0]) + np.searchsorted(part_b, part_a)] = part_a
-        x_out[out0 + np.arange(part_b.shape[0]) + np.searchsorted(part_a, part_b)] = part_b
+        at_a = out0 + np.arange(i1[t] - i0[t]) + np.searchsorted(x_in[sb], x_in[sa], "left")
+        at_b = (out0 + np.arange(sb.stop - sb.start)
+                + np.searchsorted(x_in[sa], x_in[sb], "right"))
+        x_out[at_a], p_out[at_a] = x_in[sa], p_in[sa]
+        x_out[at_b], p_out[at_b] = x_in[sb], p_in[sb]
 
 
-def _model_seg_gather(long_start, long_len, elem_end, n_long, src0, src1, host_ptrs, n_max,
-                      n_payloads, chunk, n):
-    """Each long segment's keys from the buffer its last merge round wrote
-    (rounds % 2), the payloads gathered by their positions."""
-    ends = _view(elem_end, ctypes.c_int32, _long_list(n_long, n_max)).astype(np.int64)
+def _model_seg_gather(long_start, long_len, elem_end, n_long, unsorted, pos0, pos1, host_ptrs,
+                      n_max, n_payloads, chunk, n):
+    """Each unsorted long segment's positions from the buffer its last
+    merge round wrote (rounds % 2), each segment in order copied; the
+    payloads gathered by them."""
     l_s, l_n = _view(long_start, ctypes.c_int32, n_max), _view(long_len, ctypes.c_int32, n_max)
-    k = np.arange(int(ends[-1]) if ends.shape[0] else 0)
-    i = np.searchsorted(ends, k, side="right")
+    k, i, ends = _long_items(elem_end, n_long, n_max)
     p = l_s[i] + (k - (ends[i] - l_n[i]))
     rounds = np.array([tso._merge_rounds(int(x), chunk) for x in l_n[i]], int)
-    keys = np.where(rounds % 2 == 1, _view(src1, ctypes.c_uint64, n)[p],
-                    _view(src0, ctypes.c_uint64, n)[p])
-    pos = keys.astype(np.int64) & 0xFFFFFFFF
+    merged = np.where(rounds % 2 == 1, _view(pos1, ctypes.c_int32, n)[p],
+                      _view(pos0, ctypes.c_int32, n)[p])
+    src = np.where(_view(unsorted, ctypes.c_int32, n_max)[i] != 0, merged, p)
     for s_arr, d_arr in zip(*_payloads(host_ptrs, n_payloads, n)):
-        d_arr[p] = s_arr[pos]
+        d_arr[p] = s_arr[src]
 
 
 POISON = np.uint32(0x7FBADBAD)
@@ -475,7 +587,9 @@ def _model_records_to_flat(counts, offsets, idx, intg, dist, o_idx, o_intg, o_di
 
 MODELS = {"grace_sort_rows": _model_sort_rows, "grace_seg_heads": _model_seg_heads,
           "grace_seg_count": _model_seg_count, "grace_seg_starts": _model_seg_starts,
-          "grace_segmented_sort": _model_segmented_sort, "grace_seg_chunks": _model_seg_chunks,
+          "grace_segmented_sort": _model_segmented_sort,
+          "grace_seg_long_scan": _model_seg_long_scan, "grace_seg_check": _model_seg_check,
+          "grace_seg_chunks": _model_seg_chunks,
           "grace_seg_merge": _model_seg_merge, "grace_seg_gather": _model_seg_gather,
           "grace_records_to_flat": _model_records_to_flat}
 
@@ -548,13 +662,95 @@ def test_segmented_sort_model_matches_plain(tag, model_launch):
     assert model_launch.count("grace_segmented_sort") == -(-n_arrays // tso.MAX_PAYLOADS)
 
 
-@pytest.mark.parametrize("tag", [CSR[0], CSR[1], CSR[3], CSR[5]])
+@pytest.mark.parametrize("tag", [CSR[0], CSR[1], CSR[3], CSR[5], CSR[8], CSR[9]])
 def test_segmented_sort_model_small_chunks(tag, model_launch, monkeypatch):
     """Chunks of 128: more segments take the long route and several merge
-    rounds; the same bits."""
+    rounds (the capacity padding in the last ray's segment merged, as a
+    segment of its own copied); the same bits."""
     monkeypatch.setattr(tso, "SEG_CHUNK", 128)
     _kernel_vs_plain("csr", tag)
     assert model_launch.count("grace_seg_merge") >= 5
+
+
+@pytest.mark.parametrize("e_n", [1, 2, 4, 8, 16, 32])
+def test_warp_sort_model_is_a_stable_sort(e_n):
+    """sort_keys' design (the in-order check; the bitonic network on the
+    u32 (key - min) << bits | position where span and positions fit in 32
+    bits, else on the u64 key << 32 | position) is a stable sort of u32
+    keys on runs of 32 e_n keys (E = 16 a lane, 32 past 512: the shorter
+    runs with pads): runs of heavy ties, keys over the whole u32 range
+    (the u64 network), a span just fitting and one bit too wide, runs
+    shorter than 32 E (pads ~0 last), runs in order, descending and all
+    equal, each equal to numpy's stable argsort."""
+    rng = np.random.default_rng(e_n)
+    w = 32 * e_n
+    runs = [rng.integers(0, 4, w), rng.integers(0, 1 << 32, w), np.sort(rng.integers(0, 9, w)),
+            np.sort(rng.integers(0, 9, w))[::-1], np.full(w, 7), rng.integers(0, 3, w // 2 + 1),
+            np.append(np.sort(rng.integers(1, 9, w - 1)), 0),
+            7 + rng.integers(0, 2, w) * (0xFFFFFFFF >> (w - 1).bit_length()),
+            7 + rng.integers(0, 2, w) * ((0xFFFFFFFF >> (w - 1).bit_length()) + 1)]
+    for keys in runs:
+        keys = keys.astype(np.uint32)
+        got_k, got_v = _sort_runs([keys])[0]
+        want = np.argsort(keys, kind="stable")
+        assert np.array_equal(got_v, want) and np.array_equal(got_k, keys[want])
+
+
+def _flags_of(model_launch, monkeypatch, kind, tag):
+    """The long list and grace_seg_check's flags of case ``tag``, the
+    kernel route against the plain version as _kernel_vs_plain runs it."""
+    seen = []
+
+    def check(*args):
+        _model_seg_check(*args)
+        n_max = args[7]
+        n_l = _long_list(args[5], n_max)
+        seen.append((_view(args[2], ctypes.c_int32, n_l).copy(),
+                     _view(args[3], ctypes.c_int32, n_l).copy(),
+                     _view(args[6], ctypes.c_int32, n_l).copy()))
+
+    monkeypatch.setitem(MODELS, "grace_seg_check", check)
+    _kernel_vs_plain(kind, tag)
+    (starts, lens, flags), = seen
+    order = np.argsort(starts)
+    return starts[order], lens[order], flags[order]
+
+
+@pytest.mark.parametrize("tag,want", [(CSR[8], [1]), (CSR[9], [0]), (CSR[10], [1, 0]),
+                                      (CSR[11], [1, 1]), (CSR[12], None)])
+def test_long_route_checks_each_segment_for_order(tag, want, model_launch, monkeypatch):
+    """grace_seg_check flags exactly the long segments whose order keys
+    are not non-decreasing: the padding after the last ray's records is
+    out of order, the last ray's padding alone is in order (its chunks
+    are neither sorted nor merged, and it is copied), one pair swapped
+    across a chunk boundary or a smaller last element is out of order;
+    keys that tie only in the order are in order."""
+    dist, *_ = segsort_csr(tag)
+    starts, lens, flags = _flags_of(model_launch, monkeypatch, "csr", tag)
+    keys = _order_bits(dist)
+    direct = [int((np.diff(keys[a:a + b].astype(np.int64)) < 0).any())
+              for a, b in zip(starts, lens)]
+    assert flags.tolist() == direct
+    if want is not None:
+        assert flags.tolist() == want
+    else:   # the ties case has long segments in order and out of it
+        assert set(flags.tolist()) == {0, 1}
+
+
+@pytest.mark.parametrize("tag", [CSR[0], CSR[3], CSR[8], CSR[12]])
+def test_library_keys_give_the_plain_order(tag):
+    """chip_smoke's E9 library call, torch.sort of the int64 keys segment
+    << 32 | order key (csr_sort_keys, order_key_torch), orders the flat
+    layout as the plain version does: the same function, bit for bit."""
+    dist, offsets, idx, _, total = _csr_args(tag)
+    flat = tsph.SphTraceResult(offsets, None, idx, None, dist,
+                               dist.shape[0] if total is None else total)
+    order = torch.sort(csr_sort_keys(flat), stable=True).indices
+    got = (dist[order], idx[order])
+    want = tso._sort_by_distance_plain(dist, offsets, idx, total_hits=total)
+    for g, w in zip(got, want):
+        _bits_equal(g.numpy(), w.numpy(), f"csr {tag}")
+    assert np.array_equal(order_key_torch(dist).numpy(), _order_bits(dist.numpy()))
 
 
 def test_wrappers_launch_the_kernels(model_launch, monkeypatch):
