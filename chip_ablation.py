@@ -202,21 +202,37 @@ wrapper launches them (longest list first).
   one call (torch.profiler); in a package whose constants' caches are
   ``_FRAME_CACHE`` and ``_SETUP_CACHE`` (this one) also both setups with
   the camera's constants computed anew each call instead of taken from
-  their cache. With --parent DIR, DIR's grace_tpu_torch and
-  this one run in turns (parent, this, this, parent), each in a process of
-  its own.
+  their cache. In a package with the sort-free setup's resources query
+  (this one) first the setup's kernel as shipped and with each lane's slab
+  values written as four 4-byte stores instead of one float4 a row, on
+  the bench, bit-equal and timed in turns, and the sort-free setup's
+  kernel's device time (torch.profiler over 20 calls). With --parent DIR,
+  DIR's grace_tpu_torch and this one run in turns (parent, this, this,
+  parent; --rounds K times), each in a process of its own.
 
   broadphase: what the dense broadphase and the triangle lists feed,
-  through the package's user functions only: the quarter trace
+  through the package's user functions only: E6's overlap words alone
+  (tile 64 against quarters, with the summary; also its kernel's device
+  time, torch.profiler over 20 calls), the quarter trace
   (pallas_trace_sph, broadphase="quarter", tile 128), the default record
   trace (512 a ray), the quarter masks and quarter_lists alone (tile 64
   and 128), render_triangles(engine="pallas") on the torus at 512 x 512
   and one fused-renderer training step (tile 128, max_chunks and
   max_tiles_per_seg 2048) on the bench scene, each timed (CUDA events,
   median of 10 after a warm run) with the device's busy ms and device
-  operations over one call; with --parent DIR, DIR's grace_tpu_torch and
-  this one in turns (parent, this, this, parent), each a process of its
-  own.
+  operations over one call. First, in a package with the overlap kernel's
+  resources query (this one), the overlap words as shipped and in
+  variants (the hull cull left out: every word fine-tested; at most 128,
+  64 and 32 rows a block; 4 and 16 warps a block; two and eight blocks an
+  SM; rows in contiguous groups; candidates two at a time; the hulls by
+  integer reductions; and, timed only, the strip's staging and hulls
+  alone, the staging alone, no word stores, no fine test) on the bench at
+  tile 64 and 128 against quarters with the summary and segments against
+  tiles, and the triangle lists with and without their union test,
+  bit-equal and timed in turns. With --parent DIR, DIR's grace_tpu_torch
+  and this one in turns (parent, this, this, parent; --rounds K times),
+  each a process of its own; the variants run in the first of this
+  one's processes only (--no-variants in the others).
 
 Then each shipped kernel on the same inputs launched in other orders of
 its work units (ray tiles, segments), through the C entry point: as
@@ -245,8 +261,9 @@ import torch
 
 from chip_smoke import (CAM, LENGTH, LOOK, MAX_PER_LEAF, N_PARTICLES, SIDE, SNAPSHOT_SEED,
                         SNAPSHOT_SIZES, TORUS, TRACE_TILE, UP, VEXT, _popcount_rows, check_close,
-                        cuda_ms, entry_inputs, make_clustered_particles, order_key_torch,
-                        packet_summary, records_inputs, render_inputs, route_inputs,
+                        cuda_ms, entry_inputs, kernel_device_ms, make_clustered_particles,
+                        order_key_torch, packet_summary, records_inputs, render_inputs,
+                        route_inputs,
                         sortfree_fwd_dense, sortfree_inputs, splat_dense, torus_mesh, tri_inputs,
                         walk_outputs)
 
@@ -2016,6 +2033,181 @@ def climb_ablations():
     return result
 
 
+NO_VARIANTS = False
+
+
+def routed(dll, fn):
+    """fn() with the package's kernel launches sent to library ``dll``."""
+    from grace_tpu_torch import _kernels
+
+    real = _kernels.launch
+    _kernels.launch = lambda lib, entry, device, *a: call(getattr(dll, entry), a)
+    try:
+        return fn()
+    finally:
+        _kernels.launch = real
+
+
+def kernel_variants(part, lib_name, variants, calls, kernel, rounds=2, not_compared=()):
+    """Library ``lib_name`` built as shipped and in ``variants`` ({name:
+    edits}), each of ``calls`` ({call: fn}) run through the package's
+    wrapper with its launch sent to each build: outputs bit-equal to the
+    shipped build's (but for the leave-outs in ``not_compared``, which
+    give other outputs); then timed in turns (shipped, the variants, the
+    variants backwards, shipped; ``rounds`` times): the call (CUDA events,
+    median of 10) and the device time of the CUDA kernel whose name holds
+    ``kernel`` (torch.profiler, 20 calls). Returns {f"{variant}, {call}":
+    {"variant_ms": [..], "device_ms": [..]}}; a package whose sources lack
+    a variant's text (the parent's) gets {}, as does a run with
+    --no-variants."""
+    if NO_VARIANTS:
+        return {}
+    builds = {"shipped": (lib_name, f"{part} shipped", None)}
+    builds.update({name: (lib_name, f"{part} variant {i}", edits)
+                   for i, (name, edits) in enumerate(variants.items())})
+    try:
+        dlls = build_all(builds)
+    except AssertionError as e:
+        print(f"{part} part: no variants in this package ({e})", flush=True)
+        return {}
+    as_bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    result = {}
+    for label, fn in calls.items():
+        want = [as_bits(x).clone() for x in routed(dlls["shipped"], fn)]
+        for name, dll in dlls.items():
+            got = routed(dll, fn)
+            if name in not_compared:
+                continue
+            if not all(torch.equal(as_bits(g), w) for g, w in zip(got, want)):
+                raise AssertionError(f"{part} {label}: variant {name!r} differs from shipped")
+        times = {name: [] for name in dlls}
+        device = {name: [] for name in dlls}
+        names = list(dlls)
+        for _ in range(rounds):
+            for name in names + names[::-1]:
+                times[name].append(cuda_ms(lambda: routed(dlls[name], fn), reps=10))
+                device[name].append(kernel_device_ms(lambda: routed(dlls[name], fn), kernel,
+                                                     reps=20))
+        for name, ms in times.items():
+            dev_ms = ", ".join("not measured" if m is None else f"{m:.4f}"
+                               for m in device[name])
+            print(f"{part} part {name}, {label}: device {dev_ms} ms (profiler, 20 calls each); "
+                  f"call " + ", ".join(f"{m:.3f}" for m in ms)
+                  + " ms (CUDA events, median of 10 each); in turns, "
+                  + ("a leave-out, not compared" if name in not_compared
+                     else "bit-equal to shipped"), flush=True)
+            result[f"{name}, {label}"] = {"variant_ms": ms, "device_ms": device[name]}
+    return result
+
+
+# E6's overlap words (csrc/broadphase.cu): the hull cull left out (every
+# word of a row fine-tested, its ballot taken; the cull's share), at most
+# 128, 64 and 32 rows a block (more blocks, more staging of each strip), 4
+# and 16 warps a block (16 also with at most 512 rows), at least two and eight blocks an SM instead of four, rows
+# in contiguous groups instead of interleaved, one candidate word at a
+# time instead of two, the hulls by integer reductions; and four leave-outs
+# (OVERLAP_LEAVE_OUTS, wrong words, timed only): the strip's staging and
+# hulls alone (no row loop), no word stores, no fine test (the words all
+# 0), the staging alone
+OVERLAP_LEAVE_OUTS = ("leave-out: staging and hulls only", "leave-out: no word stores",
+                      "leave-out: no fine test", "leave-out: staging only")
+# the hulls by the integer min / max reductions of sm_80 on order-keeping
+# keys (a float's bits with the lower 31 flipped where negative; a NaN the
+# reduction's identity, so NaNs drop and a word of them gives a NaN)
+HULL_BY_REDUX = """        float h[6];
+        for (int a = 0; a < 6; ++a) {
+            const float x = cols[a / 3][3 * (32 * j + lane) + a % 3];
+            const int bits = __float_as_int(x);
+            const int key = bits ^ ((bits >> 31) & 0x7fffffff);
+            const int r = a < 3 ? __reduce_min_sync(kFull, isnan(x) ? 0x7fffffff : key)
+                                : __reduce_max_sync(kFull, isnan(x) ? int(0x80000000) : key);
+            h[a] = __int_as_float(r ^ ((r >> 31) & 0x7fffffff));
+        }
+"""
+OVERLAP_VARIANTS = {
+    OVERLAP_LEAVE_OUTS[0]: [swap("broadphase.cu",
+                                 "    const bool word_here = lane < strip_words;\n",
+                                 "    if (n_here > 0) return;\n"
+                                 "    const bool word_here = lane < strip_words;\n")],
+    OVERLAP_LEAVE_OUTS[1]: [swap(
+        "broadphase.cu",
+        "        if (word_here) words[row * n_words + w0 + lane] = static_cast<int>(mine);\n", "")],
+    OVERLAP_LEAVE_OUTS[2]: [swap("broadphase.cu", "        while (cand) {",
+                                 "        while (false && cand) {")],
+    OVERLAP_LEAVE_OUTS[3]: [swap("broadphase.cu",
+                                 "    __syncthreads();\n    for (int j = warp; j < kStripWords;",
+                                 "    __syncthreads();\n    if (n_here > 0) return;\n"
+                                 "    for (int j = warp; j < kStripWords;")],
+    "hulls by integer reductions": [swap("broadphase.cu", """        float h[6];
+        for (int a = 0; a < 6; ++a) h[a] = cols[a / 3][3 * (32 * j + lane) + a % 3];
+        for (int o = 16; o > 0; o >>= 1) {
+            for (int a = 0; a < 3; ++a) h[a] = fminf(h[a], __shfl_xor_sync(kFull, h[a], o));
+            for (int a = 3; a < 6; ++a) h[a] = fmaxf(h[a], __shfl_xor_sync(kFull, h[a], o));
+        }
+""", HULL_BY_REDUX)],
+    "no cull (every word fine-tested)": [swap(
+        "broadphase.cu", "        unsigned mine = 0u;\n        while (cand) {",
+        "        cand = __ballot_sync(kFull, word_here);\n"
+        "        unsigned mine = 0u;\n        while (cand) {")],
+    "at most 128 rows a block": [swap("broadphase.cu", "constexpr int kMaxRows = 256;",
+                                      "constexpr int kMaxRows = 128;")],
+    "at most 64 rows a block": [swap("broadphase.cu", "constexpr int kMaxRows = 256;",
+                                     "constexpr int kMaxRows = 64;")],
+    "at most 32 rows a block": [swap("broadphase.cu", "constexpr int kMaxRows = 256;",
+                                     "constexpr int kMaxRows = 32;")],
+    "4 warps a block": [swap("broadphase.cu", "constexpr int kWordWarps = 8;",
+                             "constexpr int kWordWarps = 4;")],
+    "16 warps a block": [swap("broadphase.cu", "constexpr int kWordWarps = 8;",
+                              "constexpr int kWordWarps = 16;")],
+    "16 warps a block, at most 512 rows": [
+        swap("broadphase.cu", "constexpr int kWordWarps = 8;", "constexpr int kWordWarps = 16;"),
+        swap("broadphase.cu", "constexpr int kMaxRows = 256;", "constexpr int kMaxRows = 512;")],
+    "two blocks an SM (at least 264 blocks)": [swap(
+        "broadphase.cu", "constexpr int kMinBlocks = 528;", "constexpr int kMinBlocks = 264;")],
+    "eight blocks an SM (at least 1,056 blocks)": [swap(
+        "broadphase.cu", "constexpr int kMinBlocks = 528;", "constexpr int kMinBlocks = 1056;")],
+    "rows in contiguous groups": [
+        swap("broadphase.cu", "    const int n_here = (n_rows - g + n_groups - 1) / n_groups;",
+             "    const int n_here = min(n_rows - g * ((n_rows + n_groups - 1) / n_groups),\n"
+             "                           (n_rows + n_groups - 1) / n_groups);"),
+        swap("broadphase.cu", "3LL * (g + (i / 2) * n_groups);",
+             "3LL * (g * ((n_rows + n_groups - 1) / n_groups) + i / 2);"),
+        swap("broadphase.cu", "const long long row = g + static_cast<long long>(i) * n_groups;",
+             "const long long row = g * ((n_rows + n_groups - 1) / n_groups) + i;")],
+    "candidates two at a time": [swap(
+        "broadphase.cu", """            const int j = __ffs(cand) - 1;
+            cand &= cand - 1u;
+            const unsigned word = __ballot_sync(kFull, column_overlaps(cols, j, lane, lo, hi));
+            if (lane == j) mine = word;
+""", """            const int j0 = __ffs(cand) - 1;
+            cand &= cand - 1u;
+            const int j1 = cand ? __ffs(cand) - 1 : j0;
+            cand &= cand - 1u;
+            const unsigned word0 = __ballot_sync(kFull, column_overlaps(cols, j0, lane, lo, hi));
+            const unsigned word1 = __ballot_sync(kFull, column_overlaps(cols, j1, lane, lo, hi));
+            if (lane == j0) mine = word0;
+            if (lane == j1) mine = word1;
+""")],
+}
+
+# E5's setup (csrc/splat_prep.cu): each lane's four slab values a row
+# written as four 4-byte stores instead of one float4
+SETUP_SCALAR_STORES = [swap("splat_prep.cu", """        slab[0] = make_float4(pu[0], pu[1], pu[2], pu[3]);
+        slab[32] = make_float4(pv[0], pv[1], pv[2], pv[3]);
+        slab[64] = make_float4(inv_h[0], inv_h[1], inv_h[2], inv_h[3]);
+        slab[96] = make_float4(scale[0], scale[1], scale[2], scale[3]);
+        for (int r = 4; r < 8; ++r) slab[32 * r] = zero;
+""", """        volatile float* f = reinterpret_cast<float*>(slab);
+        for (int k = 0; k < kLanePrims; ++k) {
+            f[k] = pu[k];
+            f[128 + k] = pv[k];
+            f[256 + k] = inv_h[k];
+            f[384 + k] = scale[k];
+            for (int r = 4; r < 8; ++r) f[128 * r + k] = zero.x;
+        }
+""")]
+
+
 def splat_prep_paths():
     """The ``splat_prep`` part in this process, on whichever grace_tpu_torch
     it imports: {call: {ms, busy_ms, wall_ms, device_ops}}."""
@@ -2076,10 +2268,21 @@ def splat_prep_paths():
         calls += [("bucket_prims_ortho, constants uncached", bucket_uncached),
                   ("sort-free setup, constants uncached", setup_uncached)]
     result = {}
+    if hasattr(sg, "sortfree_setup_resources"):
+        consts, spans, coords = sg._setup_constants(cam, 32, 128, dev)
+        result.update(kernel_variants(
+            "splat_prep", "splat_prep", {"4-byte slab stores": SETUP_SCALAR_STORES},
+            {"sort-free setup (bench, weights 1)": lambda: sg.sortfree_setup_cuda(
+                sorted_spheres, weights, consts, spans, coords, SIDE // 128, SIDE // 32)},
+            "sortfree_setup_kernel"))
     for label, fn in calls:
         ms = cuda_ms(fn, reps=10)
         print(f"splat_prep part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
         result[label] = {"ms": ms, **device_busy(f"splat_prep part {label}", fn)}
+        if label == "sort-free setup":
+            result[label]["kernel_ms"] = kernel_device_ms(fn, "sortfree_setup_kernel", reps=20)
+            print(f"splat_prep part {label}: kernel {result[label]['kernel_ms']} ms "
+                  f"(profiler, 20 calls)", flush=True)
     return result
 
 
@@ -2092,13 +2295,17 @@ def part_turns(part, parent_dir, rounds=1):
         cmd = [sys.executable, os.path.abspath(__file__), part]
         if who == "parent":
             cmd += ["--package", parent_dir]
+        elif runs["this"]:
+            cmd += ["--no-variants"]   # the kernel variants run in the first only
         out = subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
         for line in out.splitlines()[:-1]:
             print(f"{who}: {line}", flush=True)
         runs[who].append(json.loads(out.splitlines()[-1])[part])
     def cell(x):
-        return f"{x['ms']:.3f} ms" + (f" ({x['device_ops']} ops, busy {x['busy_ms']:.3f} ms)"
-                                      if "device_ops" in x else "")
+        return (f"{x['ms']:.3f} ms"
+                + (f" ({x['device_ops']} ops, busy {x['busy_ms']:.3f} ms)"
+                   if "device_ops" in x else "")
+                + (f" [kernel {x['kernel_ms']:.4f} ms]" if x.get("kernel_ms") else ""))
 
     for label in runs["this"][0]:
         if "ms" not in runs["this"][0][label]:
@@ -2111,7 +2318,7 @@ def part_turns(part, parent_dir, rounds=1):
                    for who in ("parent", "this") if label in runs[who][0]}
             pairs = [b[label]["ms"] - a[label]["ms"] for a, b in zip(runs["parent"], runs["this"])
                      if label in a]
-            print(f"{part} in turns, {label}: median of the runs parent "
+            print(f"{part} in turns, {label}: median of the runs: "
                   + ", ".join(f"{who} {m:.3f} ms" for who, m in med.items())
                   + f"; this minus parent, run by run: "
                   + ", ".join(f"{x:+.3f}" for x in pairs)
@@ -2126,8 +2333,9 @@ def tri_list_variants(tris):
     (512 x 512, tiles of 32, max_chunks 2048), through the package's
     wrapper with its launch sent to each build: outputs bit-equal, times in
     turns (shipped, variant, variant, shipped; CUDA events, median of 10).
-    Returns {label: {"ms": [..]}}."""
-    from grace_tpu_torch import _kernels
+    Returns {label: {"variant_ms": [..]}} ({} with --no-variants)."""
+    if NO_VARIANTS:
+        return {}
     from grace_tpu_torch.models import triangle as mt
     from grace_tpu_torch.rays.gen import pinhole_camera_rays
     from grace_tpu_torch.trace import pallas_tri as pt
@@ -2146,12 +2354,7 @@ def tri_list_variants(tris):
                 [swap("tri_lists.cu", "if (!(ubox[0][0] <= hi[0]", "if (false && !(ubox[0][0] <= hi[0]")])}
 
     def lists(dll, rays):
-        real = _kernels.launch
-        _kernels.launch = lambda lib, entry, device, *a: call(getattr(dll, entry), a)
-        try:
-            return pt.tri_tile_lists_cuda(rays, seg_min, seg_max, 32, 2048)
-        finally:
-            _kernels.launch = real
+        return routed(dll, lambda: pt.tri_tile_lists_cuda(rays, seg_min, seg_max, 32, 2048))
 
     result = {}
     for name, key in (("primary", "rays_clipped"), ("shadow", "shadow_clipped")):
@@ -2167,7 +2370,7 @@ def tri_list_variants(tris):
             print(f"broadphase part tri_tile_lists {tag} (torus {name} rays): "
                   + ", ".join(f"{m:.3f}" for m in ms) + " ms (CUDA events, median of 10, in "
                   "turns; bit-equal)", flush=True)
-            result[f"tri_tile_lists {tag}, torus {name}"] = {"ms": ms}
+            result[f"tri_tile_lists {tag}, torus {name}"] = {"variant_ms": ms}
     return result
 
 
@@ -2201,9 +2404,27 @@ def broadphase_paths():
         return s.detach() - 1e-6 * s.grad, w.detach() - 1e-6 * w.grad
 
     result = {}
+    if hasattr(pb, "overlap_words_resources"):
+        from grace_tpu_torch.trace import broadphase as bp
+
+        seg = {b: pb.segment_boxes_cuda(ss, b) for b in (32, 128)}
+        tiles = {t: bp.tile_boxes_cuda(rays_s, t) for t in (64, TRACE_TILE)}
+        calls = {
+            "overlap words, tile 64 x quarters, summary": lambda: pb.overlap_words_cuda(
+                *tiles[64], *seg[32], summary=True),
+            "overlap words, tile 128 x quarters, summary": lambda: pb.overlap_words_cuda(
+                *tiles[TRACE_TILE], *seg[32], summary=True),
+            "overlap words, segments x tile 128": lambda: (pb.overlap_words_cuda(
+                *seg[128], *tiles[TRACE_TILE]),)}
+        result.update(kernel_variants("broadphase", "broadphase", OVERLAP_VARIANTS, calls,
+                                      "overlap_words_kernel", not_compared=OVERLAP_LEAVE_OUTS))
     if hasattr(pt, "tri_tile_lists_cuda"):
         result.update(tri_list_variants(tris))
+    tmin64, tmax64 = pb.tile_aabbs(rays_s, 64)
+    seg_q = pb.segment_aabbs(ss, 32)
     for label, fn in (
+            ("overlap words, tile 64 x quarters, summary (E6's call)",
+             lambda: pb.overlap_words_cuda(tmin64, tmax64, *seg_q, summary=True)),
             ("quarter trace", lambda: pk.pallas_trace_sph(rays_s, ss, tree, tile=TRACE_TILE,
                                                           broadphase="quarter")),
             ("record trace, default (quarter) route",
@@ -2219,6 +2440,10 @@ def broadphase_paths():
         ms = cuda_ms(fn, reps=10)
         print(f"broadphase part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
         result[label] = {"ms": ms, **device_busy(f"broadphase part {label}", fn)}
+        if "E6's call" in label:
+            result[label]["kernel_ms"] = kernel_device_ms(fn, "overlap_words_kernel", reps=20)
+            print(f"broadphase part {label}: kernel {result[label]['kernel_ms']} ms "
+                  f"(profiler, 20 calls)", flush=True)
     return result
 
 
@@ -2745,6 +2970,10 @@ def main():
         i = args.index("--rounds")
         rounds = int(args[i + 1])
         del args[i:i + 2]
+    global NO_VARIANTS
+    if "--no-variants" in args:  # the kernel variants of the splat_prep and broadphase parts
+        args.remove("--no-variants")
+        NO_VARIANTS = True
     parts = args or list(PARTS)
     if not set(parts) <= set(PARTS):
         raise SystemExit(f"usage: chip_ablation.py [{' | '.join(PARTS)} ...]")
@@ -2818,10 +3047,10 @@ def main():
     if "climbs" in parts:
         summary["climbs"] = climb_ablations()
     if "splat_prep" in parts:
-        summary["splat_prep"] = (part_turns("splat_prep", parent) if parent
+        summary["splat_prep"] = (part_turns("splat_prep", parent, rounds) if parent
                                  else splat_prep_paths())
     if "broadphase" in parts:
-        summary["broadphase"] = (part_turns("broadphase", parent) if parent
+        summary["broadphase"] = (part_turns("broadphase", parent, rounds) if parent
                                  else broadphase_paths())
     if "walk" in parts:
         summary["walk"] = walk_ablations(parent)

@@ -128,9 +128,10 @@ the sort-free setup's projection, slabs and both overlap masks) to their
 plain versions bit for bit (every SplatBuckets field; masks, transposed
 masks, coords, slabs) at the cases of SPLAT_PREP_CASES: particle counts
 that are no multiple of chunk, 2 chunk or 128, fewer than 32 particles, 64
-segments, 128 tiles, band None to 64, weights None and given, dead
-particles, a whole-image particle and a far one that overflow, a 2^16
-clustered scene; and on the bench scene with weights None and 1. Main path
+segments, 40 segments (two mask words, the last ragged), 128 tiles, band
+None to 64, weights None and given, dead particles, a whole-image
+particle and a far one that overflow, a 2^16 clustered scene; and on the
+bench scene with weights None and 1. Main path
 1's bucket_prims_ortho and main path 3's trainer (forward and backward)
 launch them, counted there.
 
@@ -140,10 +141,21 @@ compaction into lists) to its plain versions at the cases of
 BROADPHASE_CASES (particle counts no multiple of 32 or 128, one and no
 segment, tile counts no multiple of 32, NaN particles, particles at -0
 and +0, zero-length rays, a tile of them, a NaN ray, a ragged summary
-word, every segment listed, the compaction at max_q equal to and one
+word, every segment listed, a word of 32 NaN quarters and a NaN quarter
+beside overlapping ones, 1,100 tiles (segments x tiles words over two
+strips of the overlap kernel), the compaction at max_q equal to and one
 under the longest row, 1 and 0): boxes equal in value (their zero signs
-are torch's reduction order's, ROADMAP C20), words, summaries, lists,
-counts and flags bit-equal; again on the bench scene at tiles 128 and 64.
+are torch's reduction order's, ROADMAP C20), words (tiles x quarters,
+tiles x segments, segments x tiles), summaries, lists, counts and flags
+bit-equal; the overlap words on given boxes at the cases of
+OVERLAP_BOX_CASES (NaN columns beside overlapping ones, a word of NaN
+columns, NaN rows, boxes touching at -0 and +0, a ragged last word and
+strip, fewer than 32 columns, no rows, no columns), summary on and off,
+bit-equal to overlap_words_reference; again on the bench scene at tiles
+128 and 64, where it also prints how sparse the overlap words are (pairs,
+set bits, nonzero words and the words the overlap kernel's hull cull
+keeps, at tiles 64 and 128 against quarters and segments and segments
+against tiles) and fails if a nonzero word is not among those kept.
 ``check_tri_lists`` holds the triangle lists (csrc/tri_lists.cu) to
 theirs at the cases of TRI_LIST_CASES (the tests' torus, a small
 max_chunks, a ragged last segment, K 8, tiles of clipped and zero-length
@@ -210,11 +222,14 @@ splat edge scene.
 
 Prints a ``resources`` line for each kernel redesigned for the card
 (registers a thread, shared bytes and threads a block, resident blocks and
-warps an SM; the build's, the walk's and segsort.cu's kernels also local
-bytes a thread, which must be 0 for segsort.cu's), stage and kernel
+warps an SM; the build's, the walk's, segsort.cu's and the overlap words'
+and sort-free setup's kernels also local bytes a thread, which must be 0
+for the last three's), stage and kernel
 times (CUDA events, warm, median; the dense splat contractions and the
-launch-order helpers too) with the card's name
-and power limit, the work each kernel's bound is computed from,
+launch-order helpers too; the overlap words' and sort-free setup's
+kernels also by device time, torch.profiler) with the card's name
+and power limit, the work each kernel's bound is computed from (the
+overlap words both as all pairs and as the hull cull's tests),
 a JSON line describing each kernel (the list kernel on quarter and on
 segment lists apart, the triangle kernel's two passes apart, the engine's
 walk for spheres and for triangles apart, the build's five kernels, the
@@ -334,6 +349,39 @@ def cuda_ms(fn, reps=5, warm=1):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_device_ms(fn, kernel, reps=10, tries=3):
+    """Device time of the one launch a call of fn() makes of the CUDA
+    kernel whose name holds ``kernel``, from torch.profiler over ``reps``
+    warm calls (ms); None where no window of ``tries`` held all ``reps``
+    launches (the profiler sometimes returns a window without some or all
+    of its device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(us) == reps:
+            return sum(us) / 1e3 / reps
+    return None
+
+
+def log_device_ms(t, label, fn, kernel):
+    """kernel_device_ms into t[label], or a line saying it was not measured
+    (fn makes one launch of ``kernel``)."""
+    ms = kernel_device_ms(fn, kernel)
+    if ms is None:
+        log(f"time {label}: not measured (the profiler saw no device time of {kernel})")
+    else:
+        t[label] = ms
 
 
 def check_close(name, got, want, rtol, atol):
@@ -2410,6 +2458,8 @@ SPLAT_PREP_CASES = {
     "n 3001, tile 8 x 64, band 64, weights": (3001, 128, (8, 64), 64, 64, True, False),
     "clustered 2^16, 512 x 512, tile 16 x 128 (128 tiles), band 32, chunk 512":
         (65536, 512, (16, 128), 32, 512, False, False),
+    "n 5000 (40 segments: two mask words, the last ragged), tile 32 x 64, band 32, weights":
+        (5000, 128, (32, 64), 32, 64, True, False),
 }
 SPLAT_PREP_OUTPUTS = ("slabs", "slab_lo", "n_slabs", "first", "last", "xcols", "yrows",
                       "overflow", "masks", "masks_t", "coords", "sortfree slabs")
@@ -2545,6 +2595,9 @@ def splat_prep_times(spheres, weights, cam, side):
         lambda: sg.sortfree_setup(spheres, weights, cam, tile_w, tile_h))
     t["sortfree setup plain"] = cuda_ms(
         lambda: sg._sortfree_setup_plain(spheres, weights, cam, tile_w, tile_h), reps=3)
+    log_device_ms(t, "sortfree setup device (profiler; the kernel alone)",
+                  lambda: sg.sortfree_setup(spheres, weights, cam, tile_w, tile_h),
+                  "sortfree_setup_kernel")
     # operations: a particle's 3 dot products (5 each), depth's 3
     # subtractions, 2 products, 2 divisions and 4 comparisons of its scale,
     # 4 quotients (3 each) and 4 floors, 4 keys (8 each); the sort's 2
@@ -2572,7 +2625,11 @@ def splat_prep_times(spheres, weights, cam, side):
 # rays come in coherent tiles (a shared origin and direction, jittered) over
 # the clustered particles; "edges" adds NaN particles, particles at -0 and
 # +0 with radius 0, zero-length rays, a tile of only them and a NaN ray;
-# "wide" tiles span the whole box, so every segment is in some list.
+# "wide" tiles span the whole box, so every segment is in some list;
+# "nanwords" adds to wide tiles a word of 32 NaN quarters, a NaN quarter in
+# a word whose other quarters overlap every tile, and a NaN ray. With
+# 1,100 tiles the segments x tiles words (dense_segment_tiles) span two
+# strips of the overlap kernel, the last ragged.
 BROADPHASE_SEED = 2028
 BROADPHASE_CASES = {
     "n 1000 (no multiple of 32 or 128), 40 tiles of 32 (no multiple of 32)": (1000, 40, 32, ""),
@@ -2583,6 +2640,9 @@ BROADPHASE_CASES = {
     "clustered 2^14, 64 tiles of 64": (16384, 64, 64, ""),
     "n 40000 (1,250 quarters: a ragged summary word), 33 wide tiles of 16":
         (40000, 33, 16, "wide"),
+    "n 4000, a word of 32 NaN quarters, a NaN quarter beside overlapping ones, a NaN ray, "
+    "40 wide tiles of 16": (4000, 40, 16, "nanwords"),
+    "n 5000, 1,100 tiles of 8 (segments x tiles: 35 words, two strips)": (5000, 1100, 8, ""),
 }
 
 
@@ -2599,7 +2659,7 @@ def broadphase_scene(tag):
     d = aim + 0.05 * rng.standard_normal((r, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     ln = rng.uniform(0.05, 0.6, r)
-    if kind == "wide":
+    if kind in ("wide", "nanwords"):
         o = 0.5 + 0.01 * rng.standard_normal((r, 3))
         d = rng.standard_normal((r, 3))
         d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -2615,7 +2675,106 @@ def broadphase_scene(tag):
         o[7 * tile + 3, 1] = np.nan           # a NaN ray: its tile's box overlaps nothing
         o[11 * tile:12 * tile] = 0.0          # origins at the box edge
         o[11 * tile:12 * tile:2, 0] = -0.0
+    if kind == "nanwords":
+        s[1024:2048, 0] = np.nan              # quarters 32-63: a word of NaN boxes
+        s[5, 1] = np.nan                      # quarter 0 NaN, quarters 1-31 overlap
+        o[3 * tile + 2, 2] = np.nan           # a NaN ray: its tile's box overlaps nothing
     return s, o, d, ln
+
+
+# check_broadphase's overlap-word cases on given boxes: tag -> (rows,
+# columns, kind), each with the summary on and off, held to
+# overlap_words_reference. Boxes are random in the unit cube; "nan" sets
+# NaN coordinates in single columns of words whose other columns overlap
+# every row (a wide column beside each), NaN in every column of a word (in
+# min, max or both), and NaN rows; "zeros" puts rows and columns that
+# touch only at -0 and +0 (a row's min +0 or -0 against a column's max -0
+# or +0, and the other way round). 1,100 columns are 35 words: a ragged
+# last word and a ragged last strip of the kernel's 32 words.
+OVERLAP_BOX_SEED = 2031
+OVERLAP_BOX_CASES = {
+    "300 rows x 1,100 columns: NaN columns beside overlapping ones, a word of NaN columns, "
+    "NaN rows": (300, 1100, "nan"),
+    "70 x 96: boxes that touch at -0 and +0": (70, 96, "zeros"),
+    "45 rows x 7 columns (< 32)": (45, 7, ""),
+    "no rows (0 x 50)": (0, 50, ""),
+    "no columns (10 x 0)": (10, 0, ""),
+}
+
+
+def overlap_box_scene(tag):
+    """(row_min, row_max, col_min, col_max) f32[., 3] of the overlap-word
+    case ``tag`` as numpy arrays."""
+    n_rows, n_cols, kind = OVERLAP_BOX_CASES[tag]
+    rng = np.random.default_rng(OVERLAP_BOX_SEED + list(OVERLAP_BOX_CASES).index(tag))
+
+    def boxes(n):
+        c = rng.random((n, 3))
+        h = 0.01 + 0.09 * rng.random((n, 3))
+        return (c - h).astype(np.float32), (c + h).astype(np.float32)
+
+    rmin, rmax = boxes(n_rows)
+    cmin, cmax = boxes(n_cols)
+    if kind == "nan":
+        cmin[0::32, 0] = np.nan               # column 32 w of each word: NaN
+        cmax[2::32, 1] = np.nan               # column 32 w + 2: NaN
+        cmin[1::32], cmax[1::32] = -1.0, 2.0  # column 32 w + 1 overlaps every row
+        word = slice(3 * 32, 4 * 32)          # word 3: NaN in every column
+        cmin[word, 2] = np.nan
+        cmax[word][::2, 0] = np.nan
+        rmin[7, 0] = np.nan                   # NaN rows
+        rmax[40] = np.nan
+    if kind == "zeros":
+        rmin[::2, 0], rmin[1::2, 0] = 0.0, -0.0
+        cmax[::3, 0], cmax[1::3, 0], cmax[2::3, 0] = -0.0, 0.0, -0.0
+        cmin[:, 0] = -0.5
+        rmax[:, 0] = 0.5
+        rmax[::5, 1], cmin[::7, 1] = -0.0, 0.0
+        rmin[::5, 1], cmax[::7, 1] = -0.5, 0.5
+    return rmin, rmax, cmin, cmax
+
+
+def overlap_words_reference(row_min, row_max, col_min, col_max):
+    """The overlap words of row boxes against column boxes (both min, max
+    f32[., 3] tensors) and their summary words by the plain versions' means:
+    the dense bool matrix of the broadphase's test (min <= max' and min' <=
+    max on every axis), packed by pack_overlap_bits, and the summary the
+    packing of the words being nonzero."""
+    from grace_tpu_torch.trace.pallas_broadphase import pack_overlap_bits
+
+    n_rows, n_words = row_min.shape[0], -(-col_min.shape[0] // 32)
+    if n_rows == 0:
+        empty = lambda w: torch.zeros((0, w), dtype=torch.int32, device=row_min.device)
+        return empty(n_words), empty(-(-n_words // 32))
+    overlap = ((row_min[:, None] <= col_max[None]) & (col_min[None] <= row_max[:, None])).all(-1)
+    words = pack_overlap_bits(overlap)
+    return words, pack_overlap_bits(words != 0)
+
+
+def overlap_word_counts(row_min, row_max, col_min, col_max, words):
+    """How sparse overlap words are: (pairs, set bits, nonzero words,
+    candidate words), the candidates being the words whose column hull
+    (each axis' min and max over the word's columns, NaNs dropped, NaN
+    where all are) overlaps the row, as overlap_words_kernel culls them.
+    Raises if a nonzero word is no candidate (the cull would drop its
+    bits)."""
+    from grace_tpu_torch.trace.pallas_broadphase import _popcount32
+
+    n_rows, n_cols = row_min.shape[0], col_min.shape[0]
+    n_words = words.shape[1]
+    nan = torch.full((n_words * 32 - n_cols, 3), float("nan"), device=col_min.device)
+    hulls = []
+    for cols, fill, reduce in ((col_min, float("inf"), torch.amin),
+                               (col_max, float("-inf"), torch.amax)):
+        c = torch.cat([cols, nan]).reshape(n_words, 32, 3)
+        hull = reduce(torch.where(torch.isnan(c), fill, c), dim=1)
+        hulls.append(torch.where(torch.isnan(c).all(dim=1), float("nan"), hull))
+    near = ((row_min[:, None] <= hulls[1][None]) & (hulls[0][None] <= row_max[:, None])).all(-1)
+    nonzero = words != 0
+    if bool((nonzero & ~near).any()):
+        raise AssertionError(f"{int((nonzero & ~near).sum())} nonzero words outside the cull")
+    return (n_rows * n_cols, int(_popcount32(words).sum()), int(nonzero.sum()),
+            int(near.sum()))
 
 
 def _box_like(name, got, want):
@@ -2634,6 +2793,8 @@ def _box_like(name, got, want):
 def broadphase_outputs(spheres, rays, tile, max_qs, plain):
     """E6's outputs at one tile size: {name: tensor}. The boxes at both
     granularities, the segment words, the quarter words with their summary,
+    the segments x tiles words with their summary (overlap_words_reference
+    for the plain versions),
     quarter_lists and the compaction of the quarter words at each of
     ``max_qs`` (the first, 512, also quarter_lists' max_q), dense_tile_segments
     (2,048) and dense_segment_tiles (2,048), through the wrappers (the
@@ -2652,6 +2813,7 @@ def broadphase_outputs(spheres, rays, tile, max_qs, plain):
         q_lists = pb._quarter_lists_plain(rays, spheres, tile, max_qs[0])
         s_lists = pb._dense_tile_segments_plain(rays, spheres, tile, 2048)
         t_lists = pr._dense_segment_tiles_plain(rays, spheres, tile, 2048)
+        st_words = overlap_words_reference(*seg[128], tmin, tmax)
     else:
         tmin, tmax = bp.tile_aabbs(rays, tile)
         seg = {b: pb.segment_aabbs(spheres, b) for b in (32, 128)}
@@ -2661,8 +2823,10 @@ def broadphase_outputs(spheres, rays, tile, max_qs, plain):
         q_lists = pb.quarter_lists(rays, spheres, tile, max_qs[0])
         s_lists = pb.dense_tile_segments(rays, spheres, tile, 2048)
         t_lists = pr.dense_segment_tiles(rays, spheres, tile, 2048)
+        st_words = pb.overlap_words_cuda(*seg[128], tmin, tmax, summary=True)
     out = {"tile box min": tmin, "tile box max": tmax,
-           "segment words": words, "quarter words": q_words, "quarter summary": q_summary}
+           "segment words": words, "quarter words": q_words, "quarter summary": q_summary,
+           "segment-tile words": st_words[0], "segment-tile summary": st_words[1]}
     for b, (lo, hi) in seg.items():
         out[f"segment box min ({b})"], out[f"segment box max ({b})"] = lo, hi
     for what, lists in (("quarter_lists", q_lists), ("dense_tile_segments", s_lists),
@@ -2726,10 +2890,55 @@ def check_broadphase(dev, bench=None):
     lines = []
     for tag, spheres, rays, tile in cases:
         _, signs, max_qs, most_s = check_broadphase_case(tag, spheres, rays, tile)
-        lines.append(f"{tag}: boxes equal ({signs} zero signs apart), segment and quarter "
-                     f"words, summary, quarter_lists, dense_tile_segments, dense_segment_tiles "
-                     f"and the compaction at max_q {list(max_qs)} bit-equal to the plain "
-                     f"versions (most listed segments a tile {most_s})")
+        lines.append(f"{tag}: boxes equal ({signs} zero signs apart), segment, quarter and "
+                     f"segments x tiles words and summaries, quarter_lists, "
+                     f"dense_tile_segments, dense_segment_tiles and the compaction at max_q "
+                     f"{list(max_qs)} bit-equal to the plain versions (most listed segments a "
+                     f"tile {most_s})")
+    lines += check_overlap_boxes(dev)
+    return lines
+
+
+def check_overlap_boxes(dev):
+    """overlap_words_cuda against overlap_words_reference at every case of
+    OVERLAP_BOX_CASES, with the summary on and off: words and summary
+    words bit-equal. Returns its lines."""
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+
+    lines = []
+    for tag in OVERLAP_BOX_CASES:
+        boxes = [torch.from_numpy(b).to(dev) for b in overlap_box_scene(tag)]
+        want = overlap_words_reference(*boxes)
+        check_tensor_bits(f"{tag} words", pb.overlap_words_cuda(*boxes), want[0])
+        got = pb.overlap_words_cuda(*boxes, summary=True)
+        for name, g, w in zip(("words", "summary"), got, want):
+            check_tensor_bits(f"{tag} {name} (summary on)", g, w)
+        lines.append(f"overlap boxes {tag}: words (summary off and on) and summary words "
+                     f"bit-equal to overlap_words_reference")
+    return lines
+
+
+def bench_word_counts(spheres, rays):
+    """overlap_word_counts on the bench scene: tiles 64 and 128 against
+    quarters and segments, and segments against tiles (dense_segment_tiles'
+    orientation). Returns its lines."""
+    from grace_tpu_torch.trace import broadphase as bp
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+
+    lines = []
+    seg = {b: pb.segment_boxes_cuda(spheres, b) for b in (32, 128)}
+    for tile in (64, TRACE_TILE):
+        tiles = bp.tile_boxes_cuda(rays, tile)
+        for rows, cols, what in ((tiles, seg[32], f"tile {tile} x quarters"),
+                                 (tiles, seg[128], f"tile {tile} x segments of 128"),
+                                 (seg[128], tiles, f"segments of 128 x tile {tile}")):
+            words = pb.overlap_words_cuda(*rows, *cols)
+            pairs, bits, nonzero, near = overlap_word_counts(*rows, *cols, words)
+            lines.append(f"overlap words on the bench scene, {what} ({rows[0].shape[0]} x "
+                         f"{cols[0].shape[0]}, {words.shape[1]} words a row): {pairs} pairs, "
+                         f"{bits} set bits ({bits / max(pairs, 1):.2%}), {nonzero} nonzero words "
+                         f"({nonzero / max(words.numel(), 1):.2%}), {near} candidate words "
+                         f"({near / max(words.numel(), 1):.2%}; every nonzero word a candidate)")
     return lines
 
 
@@ -2969,6 +3178,10 @@ def broadphase_times(spheres, rays, tris, tri_sets):
     t["tile_boxes plain (tile 64)"] = cuda_ms(lambda: bp._tile_aabbs_plain(rays, tile))
     t["overlap_words kernel (quarter words and summary, tile 64)"] = cuda_ms(
         lambda: pb.overlap_words_cuda(tmin, tmax, *seg_q, summary=True))
+    log_device_ms(t, "overlap_words device (profiler; the kernel alone, quarter words and "
+                  "summary, tile 64)",
+                  lambda: pb.overlap_words_cuda(tmin, tmax, *seg_q, summary=True),
+                  "overlap_words_kernel")
     t["overlap_words plain (quarter words and summary, tile 64; with its segment boxes)"] = \
         cuda_ms(lambda: pb.pack_overlap_bits(
             pb._masks_for_tile_aabbs_plain(tmin, tmax, spheres, block=32) != 0), reps=3)
@@ -3000,10 +3213,16 @@ def broadphase_times(spheres, rays, tris, tri_sets):
     r = rays.n_rays
     n_rows, n_cols = tmin.shape[0], seg_q[0].shape[0]
     set_bits = int(n.sum())
+    # the overlap words' work: a hull test a (row, word) and the fine test
+    # on the candidate words' columns (6 compares each); the earlier design
+    # tested every (row, column) pair
+    candidates = overlap_word_counts(tmin, tmax, *seg_q, words)[3]
     work = {
         "segment_boxes": (12 * spheres.shape[0], nbytes(spheres, *seg_q)),
         "tile_boxes": (18 * r, nbytes(rays.origins, rays.directions, rays.lengths, tmin, tmax)),
-        "overlap_words": (6 * n_rows * n_cols, nbytes(tmin, tmax, *seg_q, words, summ)),
+        "overlap_words": (6 * n_rows * words.shape[1] + 6 * 32 * candidates,
+                          nbytes(tmin, tmax, *seg_q, words, summ)),
+        "overlap_words (all pairs)": (6 * n_rows * n_cols, nbytes(tmin, tmax, *seg_q, words, summ)),
         "compact_words": (3 * words.numel() + 2 * set_bits, nbytes(words, ids, n, ovf)),
     }
     seg_min, seg_max = pt.tri_segment_aabbs(tris)
@@ -4395,6 +4614,11 @@ def run(dev, n_particles, side):
                 f"{json.dumps(wk.walk_resources(dev, kind, mode, route))}")
     from grace_tpu_torch.ops import segops
 
+    for label, res in (("overlap_words (csrc/broadphase.cu)", pb.overlap_words_resources(dev)),
+                       ("sortfree_setup (csrc/splat_prep.cu)", sg.sortfree_setup_resources(dev))):
+        log(f"resources {label}: {json.dumps(res)}")
+        if res["local_bytes"]:
+            raise AssertionError(f"the {label} kernel uses local memory: {res}")
     for kernel in segops.RESOURCE_KERNELS:   # the sort kernels with path 4's three arrays
         res = segops.segsort_resources(dev, kernel)
         log(f"resources segsort {kernel}: {json.dumps(res)}")
@@ -4581,6 +4805,8 @@ def run(dev, n_particles, side):
             f"words, summary, quarter_lists, dense_tile_segments, dense_segment_tiles and the "
             f"compaction at max_q {list(max_qs)} bit-equal to the plain versions (most listed "
             f"segments a tile {most_s}) OK")
+    for line in bench_word_counts(sorted_spheres, rays_s):
+        log(line)
 
     # 6. main path 3, training on the same scene: one step of each trainer
     from grace_tpu_torch.trace import pallas_render as pr
@@ -5120,6 +5346,13 @@ def run(dev, n_particles, side):
     for name, (ops_b, bytes_b) in bp_work.items():
         log(f"work {name}: {ops_b} operations -> {ops_b / PEAK_FLOPS * 1e3:.4f} ms, {bytes_b} "
             f"bytes -> {bytes_b / PEAK_BYTES * 1e3:.4f} ms")
+    ops_all, bytes_w = bp_work["overlap_words (all pairs)"]
+    ops_cull = bp_work["overlap_words"][0]
+    log(f"bound overlap_words (quarter words and summary, tile 64): all pairs {ops_all} "
+        f"operations -> {ops_all / PEAK_FLOPS * 1e3:.4f} ms; the hull cull's {ops_cull} "
+        f"operations -> {ops_cull / PEAK_FLOPS * 1e3:.4f} ms; bytes (words, summary, boxes) "
+        f"{bytes_w} -> {bytes_w / PEAK_BYTES * 1e3:.4f} ms; the call "
+        f"{t['overlap_words kernel (quarter words and summary, tile 64)']:.3f} ms")
     log(f"broadphase kernels' launches by main path: {json.dumps(bp_by_path)}")
     for name, (ops_s, bytes_s) in seg_work.items():
         log(f"work {name}: {ops_s} compares -> {ops_s / PEAK_FLOPS * 1e3:.4f} ms, {bytes_s} "

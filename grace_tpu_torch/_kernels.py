@@ -87,7 +87,8 @@ KERNELS = {
                     "grace_splat_bucket_count": "pp" + "iiii",
                     "grace_splat_bucket_scatter": "ppp" + "iii",
                     "grace_splat_bucket_pack": "pppppppp" + "iiiii",
-                    "grace_sortfree_setup": "ppppppp" + "iii"}),
+                    "grace_sortfree_setup": "ppppppp" + "iii",
+                    "grace_sortfree_setup_resources": "p"}),
     # the dense broadphase (segment and tile boxes, overlap words, their
     # compaction) and the triangle trace's segment lists: --fmad=false keeps
     # the endpoints' and distances' rounding the plain versions'
@@ -95,6 +96,7 @@ KERNELS = {
                    {"grace_segment_boxes": "ppp" + "ii",
                     "grace_tile_boxes": "ppppp" + "ii",
                     "grace_overlap_words": "pppppp" + "ii",
+                    "grace_overlap_words_resources": "p",
                     "grace_compact_words": "pppp" + "iii"}),
     "tri_lists": ("tri_lists.cu", ["--fmad=false"],
                   {"grace_tri_tile_lists": "p" * 11 + "i" * 6}),

@@ -27,15 +27,32 @@
 // -0 == +0.
 //
 // overlap_words_kernel: rows x columns of boxes, both (min, max) f32[., 3]:
-// bit s of word w of row r is 1 where box r overlaps column box w*32+s
-// (min <= max' and min' <= max on every axis, a symmetric test, so one
-// kernel serves tiles x segments and segments x tiles). A block of 32
-// warps owns 32 consecutive words (one summary word) and kRows rows; lane l
-// of warp w holds column (32 (32 b + w) + l)'s box in registers, the rows'
-// boxes are staged in shared memory, and each (row, word) is one
-// __ballot_sync. Columns past the last give 0 bits. The optional summary
-// sets bit w of summary word s where word 32 s + w is nonzero, a shared
-// atomicOr a warp and row.
+// bit s of word w of row r is 1 where box r overlaps column box w*32+s (min
+// <= max' and min' <= max on every axis, a symmetric test, so one kernel
+// serves tiles x segments and segments x tiles). On the bench scene 3-7% of
+// the words have a column hull that overlaps the row, and a ballot for every
+// (row, word) is bound by issuing the ballots. So a block owns one strip of
+// 32 aligned words (1,024 columns, one summary word) and up to kMaxRows
+// rows: it stages the strip's column boxes in shared memory as they lie in
+// device memory (16-byte loads, all in flight at once; NaN past the last
+// column; a lane a column reads floats 3 c + a, an odd stride, without bank
+// conflicts) and its rows' boxes as two float4 each, and reduces each of the
+// 32 words' hulls (a warp a word, a lane a column; lane l of every warp then
+// holds word l's hull). The hulls drop NaNs (fminf / fmaxf): a NaN column
+// box overlaps nothing, and its neighbours in the word still may; with NaNs
+// dropped a hull holds every non-NaN box on each axis, so a row that misses
+// the hull misses every column of the word (a word of NaN boxes has a NaN
+// hull: no candidate). Rows go round-robin to the warps; for each row a warp
+// tests the row once against the 32 hulls (one ballot: the candidate words),
+// runs the fine test only on the candidates (lane c tests column 32 j + c,
+// one ballot a word, lane j keeps word j), stores the 32 words as one
+// coalesced 128-byte row, and writes the summary word as a ballot of the
+// final words being nonzero. Candidates bunch in the rows and strips of
+// dense regions, and the slowest blocks set the kernel's end, so the blocks
+// are small and many: the rows a block are the most (256, 128, 64 or 32)
+// that still give four blocks an SM of the H100's 132, and a block takes
+// every G-th row of the G groups (rows g, g + G, ...), which spreads the
+// rows of one dense region over the strip's blocks.
 //
 // compact_words_kernel: one warp a row of words: 32 words at a time, their
 // popcounts' warp prefix sum places each word's set bits, written in
@@ -44,8 +61,9 @@
 // A warp stops reading once its count passes max_q.
 //
 // What bounds them: memory. Each sphere, ray, box and word is read once
-// and each output written once (the column boxes once for every kRows rows,
-// from L2); the overlap tests are a few operations a (row, column) pair.
+// and each output written once (the column boxes once for every block of
+// rows, from L2); the overlap tests are a few operations a (row, word) and
+// a (row, column) pair of the candidate words.
 
 #include <cstdint>
 
@@ -56,8 +74,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSeg = 128;              // pallas_broadphase.SEG: boxes pad to it
 constexpr float kF32Max = 3.402823466e+38f;
-constexpr int kWordWarps = 32;         // words (warps) an overlap block: one summary word
-constexpr int kRows = 64;              // rows an overlap block
+constexpr int kStripWords = 32;        // words an overlap block: one summary word
+constexpr int kStripCols = 32 * kStripWords;
+constexpr int kWordWarps = 8;          // warps an overlap block
+constexpr int kMaxRows = 256;          // rows an overlap block, at most
+constexpr int kMinRows = 32;           // ... and at least
+constexpr int kMinBlocks = 528;        // four blocks an SM of the H100's 132
+constexpr int kStageVecs = 3 * kStripCols / 4;   // float4s of each of the strip's arrays
+constexpr int kStageLoads = (kStageVecs + kWordWarps * 32 - 1) / (kWordWarps * 32);
 constexpr unsigned kFull = 0xffffffffu;
 
 int grid(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
@@ -142,50 +166,112 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+// Row box (lo, hi) against column 32 j + lane of the strip staged in cols.
+__device__ __forceinline__ bool column_overlaps(const float (*cols)[3 * kStripCols], int j,
+                                                int lane, float4 lo, float4 hi) {
+    const float* cmin = cols[0] + 3 * (32 * j + lane);
+    const float* cmax = cols[1] + 3 * (32 * j + lane);
+    return (lo.x <= cmax[0]) & (cmin[0] <= hi.x) & (lo.y <= cmax[1]) & (cmin[1] <= hi.y) &
+           (lo.z <= cmax[2]) & (cmin[2] <= hi.z);
+}
+
 __global__ void __launch_bounds__(kWordWarps * 32)
     overlap_words_kernel(const float* __restrict__ row_min, const float* __restrict__ row_max,
                          const float* __restrict__ col_min, const float* __restrict__ col_max,
                          int* __restrict__ words, int* __restrict__ summary, int n_rows,
                          int n_cols) {
-    __shared__ float rows[kRows][6];
-    __shared__ unsigned sums[kRows];
+    // the strip's column boxes as they lie in device memory, [column][axis]
+    // (min, then max): lane c reads floats 3 c + a, an odd stride, so a warp
+    // reads 32 columns without bank conflicts
+    __shared__ __align__(16) float cols[2][3 * kStripCols];
+    __shared__ float4 rows[kMaxRows][2];    // (min, max) of the block's rows
+    __shared__ float hull[6][kStripWords];
+    const float kNaN = __int_as_float(0x7fc00000);
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int n_words = (n_cols + 31) / 32;
-    const int w = blockIdx.x * kWordWarps + warp;
-    const int r0 = blockIdx.y * kRows;
-    const int c = 32 * w + lane;
-    float cmin[3], cmax[3];
-    const bool have = c < n_cols;
-    for (int a = 0; a < 3; ++a) {
-        cmin[a] = have ? col_min[3LL * c + a] : 0.0f;
-        cmax[a] = have ? col_max[3LL * c + a] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < kRows * 6; i += kWordWarps * 32) {
-        const int r = r0 + i / 6, k = i % 6;
-        if (r < n_rows) rows[i / 6][k] = k < 3 ? row_min[3LL * r + k] : row_max[3LL * r + k - 3];
-    }
-    if (threadIdx.x < kRows) sums[threadIdx.x] = 0u;
-    __syncthreads();
-    const int n_here = n_rows - r0 < kRows ? n_rows - r0 : kRows;
-    if (w < n_words) {
-        for (int i = 0; i < n_here; ++i) {
-            const float* rb = rows[i];
-            const bool bit = have && rb[0] <= cmax[0] && cmin[0] <= rb[3] && rb[1] <= cmax[1] &&
-                             cmin[1] <= rb[4] && rb[2] <= cmax[2] && cmin[2] <= rb[5];
-            const unsigned word = __ballot_sync(kFull, bit);
-            if (lane == 0) {
-                words[static_cast<long long>(r0 + i) * n_words + w] = static_cast<int>(word);
-                if (summary && word) atomicOr(&sums[i], 1u << warp);
+    const int n_words = (n_cols + 31) / 32, n_sum = (n_words + 31) / 32;
+    const int strip = blockIdx.x;
+    const int c0 = strip * kStripCols, w0 = strip * kStripWords;
+    // rows g, g + G, g + 2 G, ... of G row groups: the spatially sorted rows
+    // whose words have the most candidates lie together, and interleaved
+    // they spread over the strip's blocks
+    const int g = blockIdx.y, n_groups = gridDim.y;
+    const int n_here = (n_rows - g + n_groups - 1) / n_groups;
+    const int strip_cols = n_cols - c0 < kStripCols ? n_cols - c0 : kStripCols;
+    const int strip_words = n_words - w0 < kStripWords ? n_words - w0 : kStripWords;
+    // every load of the strip in flight at once: kStageLoads float4s of
+    // each array a thread, NaN past the last column
+    const int n_floats = 3 * strip_cols;
+    float4 v[2][kStageLoads];
+    for (int b = 0; b < 2; ++b) {
+        const float* src = (b ? col_max : col_min) + 3LL * c0;
+        for (int k = 0; k < kStageLoads; ++k) {
+            const int e = 4 * (threadIdx.x + k * kWordWarps * 32);
+            if (e >= 4 * kStageVecs) break;
+            if (e + 3 < n_floats) {
+                v[b][k] = reinterpret_cast<const float4*>(src)[e / 4];
+            } else {
+                v[b][k] = make_float4(e < n_floats ? src[e] : kNaN,
+                                      e + 1 < n_floats ? src[e + 1] : kNaN,
+                                      e + 2 < n_floats ? src[e + 2] : kNaN, kNaN);
             }
         }
     }
-    if (!summary) return;
-    __syncthreads();
-    const int n_sum = (n_words + 31) / 32;
-    if (threadIdx.x < n_here) {
-        summary[static_cast<long long>(r0 + threadIdx.x) * n_sum + blockIdx.x] =
-            static_cast<int>(sums[threadIdx.x]);
+    for (int b = 0; b < 2; ++b) {
+        for (int k = 0; k < kStageLoads; ++k) {
+            const int q = threadIdx.x + k * kWordWarps * 32;
+            if (q < kStageVecs) reinterpret_cast<float4*>(cols[b])[q] = v[b][k];
+        }
     }
+    for (int i = threadIdx.x; i < 2 * n_here; i += kWordWarps * 32) {
+        const float* b = (i % 2 ? row_max : row_min) + 3LL * (g + (i / 2) * n_groups);
+        rows[i / 2][i % 2] = make_float4(b[0], b[1], b[2], 0.0f);
+    }
+    __syncthreads();
+    for (int j = warp; j < kStripWords; j += kWordWarps) {
+        float h[6];
+        for (int a = 0; a < 6; ++a) h[a] = cols[a / 3][3 * (32 * j + lane) + a % 3];
+        for (int o = 16; o > 0; o >>= 1) {
+            for (int a = 0; a < 3; ++a) h[a] = fminf(h[a], __shfl_xor_sync(kFull, h[a], o));
+            for (int a = 3; a < 6; ++a) h[a] = fmaxf(h[a], __shfl_xor_sync(kFull, h[a], o));
+        }
+        if (lane == 0) {
+            for (int a = 0; a < 6; ++a) hull[a][j] = h[a];
+        }
+    }
+    __syncthreads();
+    float h[6];
+    for (int a = 0; a < 6; ++a) h[a] = hull[a][lane];
+    const bool word_here = lane < strip_words;
+    for (int i = warp; i < n_here; i += kWordWarps) {
+        const float4 lo = rows[i][0], hi = rows[i][1];
+        unsigned cand = __ballot_sync(kFull, word_here & (lo.x <= h[3]) & (h[0] <= hi.x) &
+                                                 (lo.y <= h[4]) & (h[1] <= hi.y) &
+                                                 (lo.z <= h[5]) & (h[2] <= hi.z));
+        unsigned mine = 0u;
+        while (cand) {
+            const int j = __ffs(cand) - 1;
+            cand &= cand - 1u;
+            const unsigned word = __ballot_sync(kFull, column_overlaps(cols, j, lane, lo, hi));
+            if (lane == j) mine = word;
+        }
+        const long long row = g + static_cast<long long>(i) * n_groups;
+        if (word_here) words[row * n_words + w0 + lane] = static_cast<int>(mine);
+        if (summary) {
+            const unsigned nonzero = __ballot_sync(kFull, mine != 0u);
+            if (lane == 0) summary[row * n_sum + strip] = static_cast<int>(nonzero);
+        }
+    }
+}
+
+// Rows an overlap block: the most of kMaxRows, halved down to kMinRows,
+// that still give kMinBlocks blocks.
+int overlap_block_rows(int n_rows, int n_strips) {
+    int rows = kMaxRows;
+    while (rows > kMinRows &&
+           static_cast<long long>(n_strips) * ((n_rows + rows - 1) / rows) < kMinBlocks) {
+        rows /= 2;
+    }
+    return rows;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -265,8 +351,8 @@ extern "C" int grace_tile_boxes(const float* origins, const float* dirs, const f
 
 // Overlap words i32[n_rows, ceil(n_cols / 32)] of row boxes (row_min,
 // row_max f32[n_rows, 3]) against column boxes (col_min, col_max f32[n_cols,
-// 3]), and where summary is not null its summary words i32[n_rows,
-// ceil(ceil(n_cols / 32) / 32)].
+// 3], 16-byte aligned), and where summary is not null its summary words
+// i32[n_rows, ceil(ceil(n_cols / 32) / 32)].
 extern "C" int grace_overlap_words(const float* row_min, const float* row_max,
                                    const float* col_min, const float* col_max, int* words,
                                    int* summary, int n_rows, int n_cols, int device,
@@ -274,17 +360,46 @@ extern "C" int grace_overlap_words(const float* row_min, const float* row_max,
     if (n_rows < 0 || n_cols < 0 ||
         (n_rows > 0 && (!row_min || !row_max)) ||
         (n_cols > 0 && (!col_min || !col_max)) ||
-        (n_rows > 0 && n_cols > 0 && !words)) {
+        (n_rows > 0 && n_cols > 0 && !words) ||
+        reinterpret_cast<uintptr_t>(col_min) % 16 || reinterpret_cast<uintptr_t>(col_max) % 16) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int n_words = (n_cols + 31) / 32;
     if (n_rows == 0 || n_words == 0) return static_cast<int>(cudaGetLastError());
-    const dim3 blocks((n_words + kWordWarps - 1) / kWordWarps, (n_rows + kRows - 1) / kRows);
+    const int n_strips = (n_words + kStripWords - 1) / kStripWords;
+    const int rows = overlap_block_rows(n_rows, n_strips);
+    const dim3 blocks(n_strips, (n_rows + rows - 1) / rows);
+    if (blocks.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
     overlap_words_kernel<<<blocks, kWordWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         row_min, row_max, col_min, col_max, words, summary, n_rows, n_cols);
     return static_cast<int>(cudaGetLastError());
+}
+
+// What one launch of overlap_words_kernel holds (out i32[6]: registers a
+// thread, shared bytes a block, threads a block, resident blocks and warps
+// an SM, local bytes a thread).
+extern "C" int grace_overlap_words_resources(int* out, int device, void* stream) {
+    (void)stream;
+    if (!out) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes attr;
+    int blocks = 0;
+    err = cudaFuncGetAttributes(&attr, overlap_words_kernel);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, overlap_words_kernel,
+                                                            kWordWarps * 32, 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[2] = kWordWarps * 32;
+    out[3] = blocks;
+    out[4] = blocks * kWordWarps;
+    out[5] = static_cast<int>(attr.localSizeBytes);
+    return 0;
 }
 
 // Set-bit compaction of words i32[n_rows, n_words]: ids i32[n_rows, max_q]

@@ -49,17 +49,22 @@
 // writes key k's range [first, last) from the cursors, slab_lo and
 // n_slabs: no pad, stack, repeat or searchsorted launch.
 //
-// sortfree_setup_kernel: a block of 8 warps owns 32 segments of 128
-// particles, one mask word. A warp projects a segment (four particles a
-// lane, project_ortho's arithmetic), writes its (8, 128) slab rows 0-3 and
-// zeroes rows 4-7 and the padding, and reduces the segment's live-masked
-// box (h_eff = 1 / clamp(invh, 1e-30), the +-3.4e38 sentinels of dead and
-// padding particles). The boxes go to shared memory; then one __ballot_sync
-// over the 32 segments against a tile's pixel-centre span gives that
-// tile's word of the masks, and one over 32 tiles against a segment's box
-// a word of the transposed masks. Min and max of the box are exact (the
-// sentinels keep NaN out), and the overlap compares them, so -0 and +0
-// give the same bits.
+// sortfree_setup_kernel: a block of 32 warps owns 32 segments of 128
+// particles, one mask word, and a warp owns a segment, so that 32 warps an
+// SM are in flight: a lane's loads and f64 arithmetic are a chain of
+// dependent steps, whose latency only many warps hide. Lane l owns
+// particles 4 l .. 4 l + 3: it
+// issues their four 16-byte sphere loads (and their weights) before any
+// arithmetic, projects them with project_ortho's arithmetic, and writes
+// each of the eight slab rows (pu, pv, invh, scale, then four of zeros) as
+// one float4, a coalesced 512-byte row a warp. The warp then reduces the
+// segment's live-masked box (h_eff = 1 / clamp(invh, 1e-30), the +-3.4e38
+// sentinels of dead and padding particles). The boxes go to shared memory;
+// then one __ballot_sync over the 32 segments against a tile's pixel-centre
+// span gives that tile's word of the masks, and one over 32 tiles against
+// a segment's box a word of the transposed masks. Min and max of the box
+// are exact (the sentinels keep NaN out), and the overlap compares them, so
+// neither the lanes' order nor -0 and +0 change a bit.
 //
 // What bounds them: memory. Each particle is read once and each output
 // written once: at 2^20 particles E4 moves ~150 MB (spheres 16 MB, keys
@@ -77,8 +82,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSeg = 128;            // particles a segment (splat_grad.SEG)
-constexpr int kSetupWarps = 8;       // warps a setup block
 constexpr int kSegsPerBlock = 32;    // segments a setup block: one mask word
+constexpr int kSetupWarps = kSegsPerBlock;  // warps a setup block: a warp a segment
+constexpr int kLanePrims = kSeg / 32;       // particles a lane: one float4 of a slab row
+static_assert(kLanePrims == 4, "a lane's particles fill one float4 of each slab row");
 constexpr float kBig = 3.4e38f;      // projected_overlap's box sentinel
 constexpr float kTiny = 1e-30f;      // the clamps' floor, as f32
 
@@ -270,60 +277,63 @@ __device__ __forceinline__ bool overlaps(const float* box, const float* tx_lo,
 __global__ void __launch_bounds__(kSetupWarps * 32)
     sortfree_setup_kernel(const float4* __restrict__ spheres, const float* __restrict__ weights,
                           const float* __restrict__ consts, const float* __restrict__ spans,
-                          float* __restrict__ slabs, int* __restrict__ masks,
+                          float4* __restrict__ slabs, int* __restrict__ masks,
                           int* __restrict__ masks_t, int n, int n_segs, int ntx, int nty) {
     __shared__ float boxes[kSegsPerBlock][4];
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int word = blockIdx.x;
     const int seg0 = word * kSegsPerBlock;
-    for (int j = warp; j < kSegsPerBlock; j += kSetupWarps) {
-        const int seg = seg0 + j;
-        float lo_u = kBig, hi_u = -kBig, lo_v = kBig, hi_v = -kBig;
-        if (seg < n_segs) {
-            float* slab = slabs + static_cast<long long>(seg) * 8 * kSeg;
-            for (int i = 0; i < kSeg / 32; ++i) {
-                const int k = lane + 32 * i;
-                const int p = seg * kSeg + k;
-                float pu = 0.0f, pv = 0.0f, inv_h = 0.0f, scale = 0.0f;
-                if (p < n) {
-                    const float4 s = spheres[p];
-                    const float h = s.w;
-                    pu = dot3(s.x, s.y, s.z, consts + kV);
-                    pv = dot3(s.x, s.y, s.z, consts + kU);
-                    const float depth = dot3(s.x - consts[kCam], s.y - consts[kCam + 1],
-                                             s.z - consts[kCam + 2], consts + kViewDir);
-                    inv_h = h > 0.0f ? 1.0f / h : 0.0f;
-                    const bool live = h > 0.0f && depth >= 0.0f && depth < consts[kLength];
-                    const float w = weights ? weights[p] : 1.0f;
-                    scale = live ? (w * inv_h) * inv_h : 0.0f;
-                    if (scale > 0.0f) {
-                        const float h_eff = 1.0f / fmaxf(inv_h, kTiny);
-                        lo_u = fminf(lo_u, pu - h_eff);
-                        hi_u = fmaxf(hi_u, pu + h_eff);
-                        lo_v = fminf(lo_v, pv - h_eff);
-                        hi_v = fmaxf(hi_v, pv + h_eff);
-                    }
+    const int seg = seg0 + warp;
+    float lo_u = kBig, hi_u = -kBig, lo_v = kBig, hi_v = -kBig;
+    if (seg < n_segs) {
+        const int p0 = seg * kSeg + kLanePrims * lane;
+        float4 s[kLanePrims];
+        float w[kLanePrims];
+        for (int k = 0; k < kLanePrims; ++k) {
+            s[k] = p0 + k < n ? spheres[p0 + k] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+        for (int k = 0; k < kLanePrims; ++k) {
+            w[k] = weights && p0 + k < n ? weights[p0 + k] : 1.0f;
+        }
+        float pu[kLanePrims], pv[kLanePrims], inv_h[kLanePrims], scale[kLanePrims];
+        for (int k = 0; k < kLanePrims; ++k) {
+            pu[k] = pv[k] = inv_h[k] = scale[k] = 0.0f;
+            if (p0 + k < n) {
+                const float h = s[k].w;
+                pu[k] = dot3(s[k].x, s[k].y, s[k].z, consts + kV);
+                pv[k] = dot3(s[k].x, s[k].y, s[k].z, consts + kU);
+                const float depth = dot3(s[k].x - consts[kCam], s[k].y - consts[kCam + 1],
+                                         s[k].z - consts[kCam + 2], consts + kViewDir);
+                inv_h[k] = h > 0.0f ? 1.0f / h : 0.0f;
+                const bool live = h > 0.0f && depth >= 0.0f && depth < consts[kLength];
+                scale[k] = live ? (w[k] * inv_h[k]) * inv_h[k] : 0.0f;
+                if (scale[k] > 0.0f) {
+                    const float h_eff = 1.0f / fmaxf(inv_h[k], kTiny);
+                    lo_u = fminf(lo_u, pu[k] - h_eff);
+                    hi_u = fmaxf(hi_u, pu[k] + h_eff);
+                    lo_v = fminf(lo_v, pv[k] - h_eff);
+                    hi_v = fmaxf(hi_v, pv[k] + h_eff);
                 }
-                slab[k] = pu;
-                slab[kSeg + k] = pv;
-                slab[2 * kSeg + k] = inv_h;
-                slab[3 * kSeg + k] = scale;
-                slab[4 * kSeg + k] = 0.0f;
-                slab[5 * kSeg + k] = 0.0f;
-                slab[6 * kSeg + k] = 0.0f;
-                slab[7 * kSeg + k] = 0.0f;
             }
-            lo_u = warp_min(lo_u);
-            hi_u = warp_max(hi_u);
-            lo_v = warp_min(lo_v);
-            hi_v = warp_max(hi_v);
         }
-        if (lane == 0) {
-            boxes[j][0] = lo_u;
-            boxes[j][1] = hi_u;
-            boxes[j][2] = lo_v;
-            boxes[j][3] = hi_v;
-        }
+        // slab row r of the segment is float4s 32 r .. 32 r + 31
+        float4* slab = slabs + static_cast<long long>(seg) * 8 * (kSeg / 4) + lane;
+        const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        slab[0] = make_float4(pu[0], pu[1], pu[2], pu[3]);
+        slab[32] = make_float4(pv[0], pv[1], pv[2], pv[3]);
+        slab[64] = make_float4(inv_h[0], inv_h[1], inv_h[2], inv_h[3]);
+        slab[96] = make_float4(scale[0], scale[1], scale[2], scale[3]);
+        for (int r = 4; r < 8; ++r) slab[32 * r] = zero;
+        lo_u = warp_min(lo_u);
+        hi_u = warp_max(hi_u);
+        lo_v = warp_min(lo_v);
+        hi_v = warp_max(hi_v);
+    }
+    if (lane == 0) {
+        boxes[warp][0] = lo_u;
+        boxes[warp][1] = hi_u;
+        boxes[warp][2] = lo_v;
+        boxes[warp][3] = hi_v;
     }
     __syncthreads();
     const float* tx_lo = spans;
@@ -341,17 +351,14 @@ __global__ void __launch_bounds__(kSetupWarps * 32)
         const unsigned bits = __ballot_sync(0xffffffffu, bit);
         if (lane == 0) masks[static_cast<long long>(t) * words + word] = static_cast<int>(bits);
     }
-    // transposed masks: segment seg's word q of tiles 32 q + lane
-    for (int j = warp; j < kSegsPerBlock && seg0 + j < n_segs; j += kSetupWarps) {
-        for (int q = 0; q < words_t; ++q) {
-            const int t = 32 * q + lane;
-            const bool bit =
-                t < n_tiles && overlaps(boxes[j], tx_lo, tx_hi, ty_lo, ty_hi, t / ntx, t % ntx);
-            const unsigned bits = __ballot_sync(0xffffffffu, bit);
-            if (lane == 0) {
-                masks_t[static_cast<long long>(seg0 + j) * words_t + q] = static_cast<int>(bits);
-            }
-        }
+    // transposed masks: this warp's segment's word q of tiles 32 q + lane
+    if (seg >= n_segs) return;
+    for (int q = 0; q < words_t; ++q) {
+        const int t = 32 * q + lane;
+        const bool bit =
+            t < n_tiles && overlaps(boxes[warp], tx_lo, tx_hi, ty_lo, ty_hi, t / ntx, t % ntx);
+        const unsigned bits = __ballot_sync(0xffffffffu, bit);
+        if (lane == 0) masks_t[static_cast<long long>(seg) * words_t + q] = static_cast<int>(bits);
     }
 }
 
@@ -449,7 +456,7 @@ extern "C" int grace_sortfree_setup(const float* spheres, const float* weights,
     const int n_segs = (n + kSeg - 1) / kSeg;
     if (n < 0 || ntx < 1 || nty < 1 || !consts || !spans ||
         (n > 0 && (!spheres || !slabs || !masks || !masks_t)) ||
-        reinterpret_cast<uintptr_t>(spheres) % 16) {
+        reinterpret_cast<uintptr_t>(spheres) % 16 || reinterpret_cast<uintptr_t>(slabs) % 16) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
@@ -457,7 +464,32 @@ extern "C" int grace_sortfree_setup(const float* spheres, const float* weights,
     if (n == 0) return static_cast<int>(cudaGetLastError());
     const int blocks = (n_segs + kSegsPerBlock - 1) / kSegsPerBlock;
     sortfree_setup_kernel<<<blocks, kSetupWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(spheres), weights, consts, spans, slabs, masks, masks_t,
-        n, n_segs, ntx, nty);
+        reinterpret_cast<const float4*>(spheres), weights, consts, spans,
+        reinterpret_cast<float4*>(slabs), masks, masks_t, n, n_segs, ntx, nty);
     return static_cast<int>(cudaGetLastError());
+}
+
+// What one launch of sortfree_setup_kernel holds (out i32[6]: registers a
+// thread, shared bytes a block, threads a block, resident blocks and warps
+// an SM, local bytes a thread).
+extern "C" int grace_sortfree_setup_resources(int* out, int device, void* stream) {
+    (void)stream;
+    if (!out) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes attr;
+    int blocks = 0;
+    err = cudaFuncGetAttributes(&attr, sortfree_setup_kernel);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sortfree_setup_kernel,
+                                                            kSetupWarps * 32, 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[2] = kSetupWarps * 32;
+    out[3] = blocks;
+    out[4] = blocks * kSetupWarps;
+    out[5] = static_cast<int>(attr.localSizeBytes);
+    return 0;
 }

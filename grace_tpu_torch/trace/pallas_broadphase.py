@@ -10,7 +10,8 @@ turns words into per-tile ascending id lists (``quarter_lists``,
 
 On CUDA tensors each step is a kernel of ``csrc/broadphase.cu``:
 ``segment_aabbs`` (``grace_segment_boxes``), the overlap words with their
-summary (``grace_overlap_words``: a lane a segment, a ballot a word, no
+summary (``grace_overlap_words``: a block a strip of 32 words, each row
+tested against the words' hulls first and a ballot a candidate word, no
 dense intermediate) and the compaction (``grace_compact_words``: a warp a
 row); ``tile_aabbs`` is ``grace_tile_boxes`` (``trace/broadphase.py``).
 CPU tensors take the plain versions, ``_<name>_plain``: the dense bool
@@ -20,6 +21,7 @@ compaction that ranks every bit.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -89,7 +91,8 @@ def overlap_words_cuda(row_min, row_max, col_min, col_max, summary: bool = False
         raise ValueError("overlap_words: boxes must be [n, 3] (min, max) pairs, got "
                          f"{[tuple(t.shape) for t in (row_min, row_max, col_min, col_max)]}")
     n_words = (n_cols + 31) // 32
-    boxes = [t.contiguous() for t in (row_min, row_max, col_min, col_max)]
+    boxes = [t.contiguous() for t in (row_min, row_max)] + [
+        _kernels.aligned(t) for t in (col_min, col_max)]
     words = torch.empty((n_rows, n_words), dtype=torch.int32, device=device)
     summ = (torch.empty((n_rows, (n_words + 31) // 32), dtype=torch.int32, device=device)
             if summary else None)
@@ -101,6 +104,16 @@ def overlap_words_cuda(row_min, row_max, col_min, col_max, summary: bool = False
 
 
 overlap_words_cuda.launches = 0
+
+
+def overlap_words_resources(device) -> dict:
+    """What one launch of ``grace_overlap_words``' kernel holds on
+    ``device``: ``_kernels.RESOURCE_FIELDS`` and ``local_bytes`` a thread."""
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    out = (ctypes.c_int * len(fields))()
+    _kernels.launch("broadphase", "grace_overlap_words_resources", torch.device(device),
+                    ctypes.addressof(out))
+    return dict(zip(fields, out))
 
 
 def pack_overlap_bits(overlap: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ runs its plain PyTorch version.
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -244,6 +245,16 @@ def sortfree_setup_cuda(spheres, weights, consts, spans, coords, ntx: int, nty: 
 
 
 sortfree_setup_cuda.launches = 0
+
+
+def sortfree_setup_resources(device) -> dict:
+    """What one launch of ``grace_sortfree_setup``'s kernel holds on
+    ``device``: ``_kernels.RESOURCE_FIELDS`` and ``local_bytes`` a thread."""
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    out = (ctypes.c_int * len(fields))()
+    _kernels.launch("splat_prep", "grace_sortfree_setup_resources", torch.device(device),
+                    ctypes.addressof(out))
+    return dict(zip(fields, out))
 
 
 def _poly_and_deriv(t, coeffs):

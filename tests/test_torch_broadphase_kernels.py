@@ -15,8 +15,9 @@ grace_tpu, and the design of their CUDA kernels (``csrc/broadphase.cu``,
   boxes equal in value (zero signs are the reductions' order's, C20),
   distances bit-equal with NaN where grace_tpu's are.
 - numpy models of the five C entries, written as the kernels index their
-  threads (a warp a box and a tile, lanes over its members; a lane a
-  column and a ballot a word, the summary an OR of the block's 32 warps;
+  threads (a warp a box and a tile, lanes over its members; a block a
+  strip of 32 words, each row tested against the words' hulls, a ballot
+  a candidate word, the summary a ballot of the words;
   a warp a row of words, popcounts and a warp prefix sum; a block a tile,
   a warp a hull, a thread a segment, the listed segments pushed in any
   order and sorted by a bitonic network, the segments whose key is BIG
@@ -45,8 +46,9 @@ import grace_tpu.trace.pallas_render as jpr
 import grace_tpu.trace.pallas_tri as jpt
 import grace_tpu.trace.splat_grad as jsg
 from grace_tpu.core.types import Rays as JRays
-from chip_smoke import (BROADPHASE_CASES, CAM, LOOK, TRI_LIST_CASES, UP, broadphase_scene,
-                        compaction_limits, tri_list_scene)
+from chip_smoke import (BROADPHASE_CASES, CAM, LOOK, OVERLAP_BOX_CASES, TRI_LIST_CASES, UP,
+                        broadphase_scene, compaction_limits, overlap_box_scene,
+                        overlap_words_reference, tri_list_scene)
 from grace_tpu_torch import _kernels
 from grace_tpu_torch.core.types import Rays
 import grace_tpu_torch.trace.broadphase as tbp
@@ -60,6 +62,7 @@ F32 = np.float32
 F32_MAX = np.finfo(np.float32).max
 BP_CASES = list(BROADPHASE_CASES)
 TRI_CASES = list(TRI_LIST_CASES)
+BOX_CASES = list(OVERLAP_BOX_CASES)
 
 
 def _bp_inputs(tag):
@@ -271,29 +274,74 @@ def _ballot(bits):
         np.uint32).view(np.int32)
 
 
-def _model_overlap_words(row_min, row_max, col_min, col_max, words, summary, n_rows, n_cols):
-    """grace_overlap_words: block (bx, by) = words 32 bx .. 32 bx + 31 of
-    rows 64 by .. 64 by + 63; lane l of warp w tests column 32 (32 bx + w) +
-    l against each row, one ballot a (row, word); lane 0 ORs bit w into the
-    row's summary word when its word is nonzero."""
+# overlap_words_kernel's blocks: a strip of 32 words (1,024 columns) and
+# up to 256 rows, halved down to 32 while fewer than four blocks an SM of
+# the H100's 132 (overlap_block_rows in csrc/broadphase.cu)
+STRIP_WORDS, MAX_ROWS, MIN_ROWS, MIN_BLOCKS = 32, 256, 32, 4 * 132
+
+
+def _block_rows(n_rows, n_strips):
+    rows = MAX_ROWS
+    while rows > MIN_ROWS and n_strips * -(-n_rows // rows) < MIN_BLOCKS:
+        rows //= 2
+    return rows
+
+
+def _model_overlap_words(row_min, row_max, col_min, col_max, words, summary, n_rows, n_cols,
+                         stats=None):
+    """grace_overlap_words: block (s, g) = strip s (words 32 s .. 32 s + 31,
+    its 1,024 columns staged from 16-byte aligned boxes as they lie, NaN
+    past the last) and rows g, g + G, ... of the G = ceil(rows / R) groups
+    (R = _block_rows); warp j reduces word j's hull by a butterfly of
+    fminf (mins) and fmaxf (maxes), which drops NaNs; each row is tested
+    against the 32 hulls (lane l: word l; the ballot gives the candidates),
+    then only candidate words get the fine test (lane c: column 32 j + c,
+    one ballot), the other words are 0, and the summary word is the ballot
+    of the final words being nonzero. The model also holds the cull exact:
+    no word it skips has a set bit. ``stats`` (a dict) takes the
+    candidate and nonzero word counts."""
+    assert col_min % 16 == 0 and col_max % 16 == 0
     n_words = -(-n_cols // 32)
-    rmin = _view(row_min, ctypes.c_float, 3 * n_rows).reshape(n_rows, 1, 3)
-    rmax = _view(row_max, ctypes.c_float, 3 * n_rows).reshape(n_rows, 1, 3)
-    pad = lambda a: np.concatenate([a, np.zeros((n_words * 32 - n_cols, 3), F32)])
-    cmin = pad(_view(col_min, ctypes.c_float, 3 * n_cols).reshape(n_cols, 3))[None]
-    cmax = pad(_view(col_max, ctypes.c_float, 3 * n_cols).reshape(n_cols, 3))[None]
-    have = (np.arange(n_words * 32) < n_cols)[None]
-    bit = have.copy()
-    for a in range(3):
-        bit = bit & (rmin[..., a] <= cmax[..., a]) & (cmin[..., a] <= rmax[..., a])
-    w = _ballot(bit.reshape(n_rows, n_words, 32))
-    _view(words, ctypes.c_int32, n_rows * n_words).reshape(n_rows, n_words)[:] = w
-    if summary:
-        blocks = -(-n_words // 32)
-        nz = np.zeros((n_rows, blocks * 32), bool)
-        nz[:, :n_words] = w != 0
-        _view(summary, ctypes.c_int32, n_rows * blocks).reshape(n_rows, blocks)[:] = \
-            _ballot(nz.reshape(n_rows, blocks, 32))
+    n_strips = -(-n_words // STRIP_WORDS)
+    rows = np.concatenate([_view(p, ctypes.c_float, 3 * n_rows).reshape(n_rows, 3)
+                           for p in (row_min, row_max)], axis=1)
+    cols = np.concatenate([_view(p, ctypes.c_float, 3 * n_cols).reshape(n_cols, 3)
+                           for p in (col_min, col_max)], axis=1)
+    out = _view(words, ctypes.c_int32, n_rows * n_words).reshape(n_rows, n_words)
+    summ = (_view(summary, ctypes.c_int32, n_rows * n_strips).reshape(n_rows, n_strips)
+            if summary else None)
+    if n_rows == 0 or n_words == 0:
+        return                                 # the entry launches nothing
+    n_groups = -(-n_rows // _block_rows(n_rows, n_strips))
+    for s in range(n_strips):
+        strip = np.full((STRIP_WORDS * 32, 6), np.nan, F32)
+        take = cols[s * STRIP_WORDS * 32:(s + 1) * STRIP_WORDS * 32]
+        strip[:take.shape[0]] = take
+        by_word = strip.reshape(STRIP_WORDS, 32, 6)                 # [word, lane, axis]
+        lanes = np.moveaxis(by_word, -1, 0)[:, :, None, :]           # [axis, word, 1, 32]
+        hull = np.concatenate([_warp_reduce(np.fmin, lanes[:3]),
+                               _warp_reduce(np.fmax, lanes[3:])]).T  # [word, axis]
+        strip_words = min(STRIP_WORDS, n_words - s * STRIP_WORDS)
+        word_here = np.arange(STRIP_WORDS) < strip_words
+        for g in range(n_groups):
+            at = np.arange(g, n_rows, n_groups)                      # the block's rows
+            assert at.shape[0] <= MAX_ROWS
+            blk = rows[at]                                           # [m, 6]
+            with np.errstate(invalid="ignore"):
+                near = word_here[None] & np.all(
+                    (blk[:, None, :3] <= hull[None, :, 3:])
+                    & (hull[None, :, :3] <= blk[:, None, 3:]), axis=-1)  # [m, word]
+                fine = np.all((blk[:, None, None, :3] <= by_word[None, :, :, 3:])
+                              & (by_word[None, :, :, :3] <= blk[:, None, None, 3:]), axis=-1)
+            fine_words = _ballot(fine)                               # [m, word]
+            assert not (fine_words[~near] != 0).any(), "the cull dropped a set bit"
+            mine = np.where(near, fine_words, 0).astype(np.int32)
+            out[at, s * STRIP_WORDS:s * STRIP_WORDS + strip_words] = mine[:, :strip_words]
+            if summ is not None:
+                summ[at, s] = _ballot(mine != 0)
+            if stats is not None:
+                stats["candidates"] = stats.get("candidates", 0) + int(near.sum())
+                stats["nonzero"] = stats.get("nonzero", 0) + int((mine != 0).sum())
 
 
 def _model_compact_words(words, ids, n, overflow, n_rows, n_words, max_q):
@@ -474,6 +522,8 @@ def _kernel_outputs(spheres, rays, tile, max_qs):
     out["segment words"] = tpb.overlap_words_cuda(tmin, tmax, *seg)
     out["quarter words"], out["quarter summary"] = tpb.overlap_words_cuda(
         tmin, tmax, *quarter, summary=True)
+    out["segment-tile words"], out["segment-tile summary"] = tpb.overlap_words_cuda(
+        *seg, tmin, tmax, summary=True)
     lists = {"quarter_lists": tpb.compact_words_cuda(out["quarter words"], max_qs[0]),
              "dense_tile_segments": tpb.compact_words_cuda(out["segment words"], 2048),
              "dense_segment_tiles": tpb.compact_words_cuda(
@@ -498,7 +548,7 @@ def test_broadphase_kernels_model_matches_plain(tag, model_launch):
                 tpb.compact_words_cuda)
     before = [fn.launches for fn in counters]
     got = _kernel_outputs(spheres, rays, tile, max_qs)
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 2, 3, 3 + len(max_qs)]
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 2, 4, 3 + len(max_qs)]
     assert set(model_launch) == {"grace_tile_boxes", "grace_segment_boxes",
                                  "grace_overlap_words", "grace_compact_words"}
     assert set(got) == set(want)
@@ -600,6 +650,71 @@ def test_broadphase_wrappers_refuse_what_the_kernels_do_not_take():
     meta = torch.empty((8, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tpb.segment_aabbs(meta, 32)
+
+
+@pytest.mark.parametrize("tag", BOX_CASES)
+def test_overlap_box_reference_matches_grace_tpu(tag):
+    """chip_smoke's overlap_words_reference, which the card's checks hold the
+    overlap kernel to on given boxes, is grace_tpu's test and packing."""
+    boxes = overlap_box_scene(tag)
+    words, summary = overlap_words_reference(*(torch.from_numpy(b) for b in boxes))
+    rmin, rmax, cmin, cmax = (jax.numpy.asarray(b) for b in boxes)
+    if rmin.shape[0] == 0 or cmin.shape[0] == 0:
+        assert words.shape == (rmin.shape[0], -(-cmin.shape[0] // 32))
+        assert summary.shape == (rmin.shape[0], -(-words.shape[1] // 32))
+        return
+    overlap = ((rmin[:, None] <= cmax[None]) & (cmin[None] <= rmax[:, None])).all(-1)
+    j_words = jpb.pack_overlap_bits(overlap)
+    _bits_equal(words, j_words, "words")
+    _bits_equal(summary, jpb.pack_overlap_bits(j_words != 0), "summary")
+
+
+@pytest.mark.parametrize("summary", [False, True])
+@pytest.mark.parametrize("tag", BOX_CASES)
+def test_overlap_words_model_box_cases(tag, summary, model_launch):
+    """The overlap kernel's design on given boxes: NaN columns beside
+    overlapping ones, a word of NaN columns, NaN rows, boxes touching at -0
+    and +0, a ragged last word and strip, rows past a block's rows, fewer
+    than 32 columns, no rows, no columns; words and summary bit-equal to
+    overlap_words_reference. The NaN case culls most words, and the
+    overlapping columns beside NaN ones keep theirs."""
+    boxes = [torch.from_numpy(b) for b in overlap_box_scene(tag)]
+    want = overlap_words_reference(*boxes)
+    stats = {}
+    real = MODELS["grace_overlap_words"]
+    MODELS["grace_overlap_words"] = lambda *a: real(*a, stats=stats)
+    try:
+        got = tpb.overlap_words_cuda(*boxes, summary=summary)
+    finally:
+        MODELS["grace_overlap_words"] = real
+    assert model_launch == ["grace_overlap_words"]
+    if summary:
+        _bits_equal(got[0], want[0], "words")
+        _bits_equal(got[1], want[1], "summary")
+    else:
+        _bits_equal(got, want[0], "words")
+    if OVERLAP_BOX_CASES[tag][2] == "nan":
+        w = want[0].numpy()
+        assert (w[:, 3] == 0).all() and (w[7] == 0).all() and (w[40] == 0).all()
+        live = np.setdiff1d(np.arange(w.shape[0]), [7, 40])
+        assert ((w[live][:, np.arange(w.shape[1]) != 3] >> 1) & 1 == 1).all()
+        assert stats["nonzero"] <= stats["candidates"] < w.size
+
+
+def test_overlap_block_rows_cover_ragged_groups():
+    """The row groups of the model's blocks are the kernel's (its
+    constants), with groups of unequal size, and every size of the halving
+    (256 down to 32) is reached."""
+    import re
+
+    src = open(_kernels.CSRC + "/broadphase.cu").read()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (consts["kStripWords"], consts["kMaxRows"], consts["kMinRows"],
+            consts["kMinBlocks"]) == (STRIP_WORDS, MAX_ROWS, MIN_ROWS, MIN_BLOCKS)
+    assert _block_rows(300, 2) == 32 and 300 % 32
+    assert _block_rows(8192, 32) == 256 and _block_rows(4096, 32) == 128
+    assert _block_rows(2048, 32) == 64 and _block_rows(2048, 8) == 32
+    assert _block_rows(8192, 2) == 32 and _block_rows(10, 1) == 32
 
 
 # ---- ROADMAP C22: the sort-free setup's cached camera constants --------------

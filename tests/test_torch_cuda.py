@@ -50,8 +50,9 @@ band None to 64, weights None and given, dead particles, overflow, a
 2^16-particle clustered scene), their launches on a frame and a training
 step and the refusals; and the dense broadphase and the triangle lists
 (broadphase.cu, tri_lists.cu) against their plain versions at every case
-of chip_smoke's BROADPHASE_CASES and TRI_LIST_CASES (boxes equal in value,
-everything else bit-equal), the lists' device-memory sort forced on the
+of chip_smoke's BROADPHASE_CASES, OVERLAP_BOX_CASES and TRI_LIST_CASES
+(boxes equal in value, everything else bit-equal), the overlap and
+sort-free setup kernels' resources, the lists' device-memory sort forced on the
 torus, their launches on a quarter, a qlist and a triangle trace and the
 refusals; and the records' post-processing (segsort.cu: the row sort, the
 CSR sort by distance, the flat layout) at every case of chip_smoke's
@@ -82,7 +83,8 @@ from chip_smoke import (
     SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
     SPLAT_PREP_CASES, check_splat_prep_case, prep_counters, splat_prep_scene, zero_prep_counters,
     BROADPHASE_CASES, TRI_LIST_CASES, broadphase_counters, broadphase_scene,
-    check_broadphase_case, check_tri_lists_case, tri_list_inputs, zero_broadphase_counters,
+    check_broadphase_case, check_overlap_boxes, check_tri_lists_case, tri_list_inputs,
+    zero_broadphase_counters,
     check_record_orders, check_records, check_walk_routes,
     SEGSORT_CSR_CASES, SEGSORT_FLAT_CASES, SEGSORT_ROW_CASES, check_segsort_case,
     segsort_case_args, segsort_counters, segsort_gate, zero_segsort_counters,
@@ -1091,6 +1093,23 @@ def test_broadphase_launches_and_refusals(dev, scene):
     odd.copy_(ss)
     assert odd.data_ptr() % 16
     assert torch.equal(pb.segment_aabbs(odd, 32)[0], pb.segment_aabbs(ss, 32)[0])
+
+
+@pytest.mark.cuda
+def test_overlap_words_box_cases_and_resources(dev):
+    """The overlap kernel on given boxes (NaN columns and rows, a word of
+    NaN columns, boxes touching at -0 and +0, ragged words and strips, no
+    rows, no columns), summary on and off, bit-equal to
+    overlap_words_reference; the overlap and sort-free setup kernels hold
+    no local memory (8 warps a block with the strip staged; 32 warps, a warp
+    a segment)."""
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+
+    check_overlap_boxes(dev)
+    res = pb.overlap_words_resources(dev)
+    assert res["local_bytes"] == 0 and res["threads"] == 256 and res["blocks_per_sm"] >= 2, res
+    res = sg.sortfree_setup_resources(dev)
+    assert res["local_bytes"] == 0 and res["threads"] == 1024 and res["blocks_per_sm"] >= 1, res
 
 
 SEGSORT_ALL = ([("rows", t) for t in SEGSORT_ROW_CASES] + [("flat", t) for t in SEGSORT_FLAT_CASES]

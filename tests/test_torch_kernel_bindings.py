@@ -346,16 +346,19 @@ def test_splat_prep_constants_agree():
     wrappers': SEG particles a segment, the bucketed setup's 17 and the
     sort-free setup's 13 f32 constants; its five entries build with
     --fmad=false, as the plain path rounds every operation alone, and the
-    counting sort's entries refuse tiles that are no multiple of 32."""
+    counting sort's entries refuse tiles that are no multiple of 32; the
+    sort-free setup's block is 32 warps, a warp a segment, with a query of
+    its resources."""
     src = _source("splat_prep")
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert consts["kSeg"] == sg.SEG and consts["kSegsPerBlock"] == 32
+    assert "kSetupWarps = kSegsPerBlock;" in src
     assert consts["kTileStep"] + 1 == sp.BUCKET_CONSTS and consts["kLength"] + 1 == sg.SETUP_CONSTS
     _, flags, entries = _kernels.KERNELS["splat_prep"]
     assert flags == ["--fmad=false"]
     assert set(entries) == {"grace_splat_bucket_keys", "grace_splat_bucket_count",
                             "grace_splat_bucket_scatter", "grace_splat_bucket_pack",
-                            "grace_sortfree_setup"}
+                            "grace_sortfree_setup", "grace_sortfree_setup_resources"}
     for entry in entries:
         body = src[src.index(f'extern "C" int {entry}('):]
         body = body[:body.index("cudaSetDevice")]
@@ -383,7 +386,8 @@ def test_broadphase_constants_agree():
     assert float(re.search(r"kBig = ([0-9.e+-]+)f;", tri_src).group(1)) == pt.BIG
     assert pt.N_CULL_INTERVALS <= pt.MAX_INTERVALS and pt.SORT_SLOTS >= 1
     for name, entries in (("broadphase", {"grace_segment_boxes", "grace_tile_boxes",
-                                          "grace_overlap_words", "grace_compact_words"}),
+                                          "grace_overlap_words", "grace_compact_words",
+                                          "grace_overlap_words_resources"}),
                           ("tri_lists", {"grace_tri_tile_lists"})):
         _, flags, declared = _kernels.KERNELS[name]
         assert flags == ["--fmad=false"] and set(declared) == entries

@@ -12,7 +12,8 @@ the design of their CUDA kernels (``csrc/splat_prep.cu``) as numpy models.
   round grouped as __match_any_sync groups them, counted forwards and
   scattered backwards from the scanned counts; a slab instance a thread,
   the key ranges from the cursors; a warp a segment, the box reduced over
-  its lanes, one ballot word per tile row and per transposed row), run through
+  its lanes, four particles and one float4 of each slab row a lane, one
+  ballot word per tile row and per transposed row), run through
   the port's own wrappers with the ctypes launch replaced by the model
   (which reads and writes the tensors' host memory), bit-equal to the plain
   versions.
@@ -248,10 +249,14 @@ def _model_bucket_pack(order, cursor, rows, slabs, first, last, slab_lo, n_slabs
 
 def _model_sortfree_setup(spheres, weights, consts, spans, slabs, masks, masks_t, n, ntx,
                           nty):
-    """grace_sortfree_setup: block b = segments 32 b .. 32 b + 31 (word b);
-    a warp projects a segment, four particles a lane, and reduces its box;
-    one ballot over the block's 32 segments per tile, one over 32 tiles per
-    segment."""
+    """grace_sortfree_setup: block b = segments 32 b .. 32 b + 31 (word b),
+    warp j = segment 32 b + j; lane l projects particles 4 l .. 4 l + 3 of
+    it (all four loaded first) and writes each slab row's float4 l (slab
+    row r of the segment is float4s 32 r .. 32 r + 31: rows 4-7 zeros); the
+    warp reduces the live-masked box over its lanes (each lane's four, then
+    the butterfly); then one ballot over the block's 32 segments per tile,
+    and warp j one ballot over 32 tiles per word of its segment's
+    transposed row."""
     seg = tsg.SEG
     n_segs = -(-n // seg)
     blocks = -(-n_segs // 32)
@@ -262,29 +267,38 @@ def _model_sortfree_setup(spheres, weights, consts, spans, slabs, masks, masks_t
     sp_ = _view(spans, ctypes.c_float, 2 * ntx + 2 * nty)
     tx_lo, tx_hi = sp_[:ntx], sp_[ntx:2 * ntx]
     ty_lo, ty_hi = sp_[2 * ntx:2 * ntx + nty], sp_[2 * ntx + nty:]
-    out = _view(slabs, ctypes.c_float, n_segs * 8 * seg).reshape(n_segs, 8, seg)
+    assert slabs % 16 == 0
+    float4s = _view(slabs, ctypes.c_float, n_segs * 8 * seg).reshape(n_segs, 8, 32, 4)
     words = _view(masks, ctypes.c_int32, n_tiles * blocks).reshape(n_tiles, blocks)
     words_tr = _view(masks_t, ctypes.c_int32, n_segs * words_t).reshape(n_segs, words_t)
     big = F32(3.4e38)
+    # lane l of warp j holds particles 4 l + k of segment j: [segment, lane, k]
+    held = np.zeros((n_segs * seg, 4), F32)
+    held[:n] = s
+    held = held.reshape(n_segs, 32, 4, 4)
+    have = (np.arange(n_segs * seg) < n).reshape(n_segs, 32, 4)
+    w = np.ones(n_segs * seg, F32)
+    if weights is not None:
+        w[:n] = _view(weights, ctypes.c_float, n)
+    w = w.reshape(n_segs, 32, 4)
     with np.errstate(all="ignore"):
-        pu, pv, depth, h = _project(s, c)
+        pu, pv, depth, h = _project(held.reshape(-1, 4), c)
+        pu, pv, depth, h = (a.reshape(n_segs, 32, 4) for a in (pu, pv, depth, h))
         inv_h = np.where(h > 0, F32(1) / h, F32(0))
         live = (h > 0) & (depth >= 0) & (depth < c[12])
-        w = np.ones(n, F32) if weights is None else _view(weights, ctypes.c_float, n)
         scale = np.where(live, (w * inv_h) * inv_h, F32(0))
         h_eff = F32(1) / np.fmax(inv_h, F32(1e-30))
-    pad = lambda a, v: np.concatenate([a, np.full(n_segs * seg - n, v, F32)]).reshape(-1, seg)
-    rows = [pad(a, 0) for a in (pu, pv, inv_h, scale)]
-    out[:] = 0
-    for r in range(4):
-        out[:, r] = rows[r]
-    on = scale > 0
-    # each warp's lanes hold particles lane + 32 i; the reduction is exact
-    # (fminf / fmaxf, no NaN), so the lane order does not matter
+    rows = [np.where(have, a, F32(0)) for a in (pu, pv, inv_h, scale)]
+    for r in range(8):
+        float4s[:, r] = rows[r] if r < 4 else F32(0)
+    on = have & (rows[3] > 0)
+    # the reduction is exact (fminf / fmaxf, no NaN): a lane's four, then
+    # the butterfly over the lanes
     box = np.full((blocks * 32, 4), (big, -big, big, -big), F32)
     for k, (a, v, red) in enumerate(((pu - h_eff, big, np.fmin), (pu + h_eff, -big, np.fmax),
                                      (pv - h_eff, big, np.fmin), (pv + h_eff, -big, np.fmax))):
-        box[:n_segs, k] = red.reduce(pad(np.where(on, a, v), v), axis=1)
+        per_lane = red.reduce(np.where(on, a, v), axis=2)          # [segment, lane]
+        box[:n_segs, k] = _warp_butterfly(red, per_lane)
     t = np.arange(n_tiles)
     r, col = t // ntx, t % ntx
     over = ((box[None, :, 0] <= tx_hi[col][:, None]) & (box[None, :, 1] >= tx_lo[col][:, None])
@@ -296,6 +310,15 @@ def _model_sortfree_setup(spheres, weights, consts, spans, slabs, masks, masks_t
     tiles = np.zeros((blocks * 32, words_t * 32), bool)
     tiles[:, :n_tiles] = over.T
     words_tr[:] = ballot(tiles.reshape(blocks * 32, words_t, 32))[:n_segs]
+
+
+def _warp_butterfly(op, lanes):
+    """A shuffle butterfly over the last axis (32 lanes) -> [...]."""
+    o = 16
+    while o:
+        lanes = op(lanes, lanes[..., np.arange(32) ^ o])
+        o >>= 1
+    return lanes[..., 0]
 
 
 MODELS = {"grace_splat_bucket_keys": _model_bucket_keys,
