@@ -3,7 +3,8 @@
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
                              [sortfree_bwd] [render_fwd] [paths] [statistics] [walk]
                              [build] [climbs] [splat_prep] [broadphase] [record_sort]
-                             [segsort] [feeds] [--parent DIR [--rounds K]]
+                             [segsort] [feeds] [records_flat]
+                             [--parent DIR [--rounds K]]
                              (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
     python3 chip_ablation.py build --package DIR
@@ -13,6 +14,7 @@
     python3 chip_ablation.py broadphase --parent DIR
     python3 chip_ablation.py records --parent DIR   (record_sort alone: no kernel variants)
     python3 chip_ablation.py segsort   (variants of csrc/segsort.cu on path 4's records)
+    python3 chip_ablation.py records_flat --parent DIR --rounds 2   (E10 in turns, variants)
 
 Each variant is a copy of the kernel's sources with one constant, one wait
 or one device function replaced, built as the package builds its libraries
@@ -91,6 +93,22 @@ wrapper launches them (longest list first).
   over one call (the segsort calls' kernels all listed by name); with
   --parent DIR, DIR's grace_tpu_torch and this one in turns (parent, this,
   this, parent), each a process of its own.
+
+  records_flat: E10 (records_to_flat, csrc/segsort.cu) through the
+  package's user functions only, on main path 4's records:
+  records_to_flat (with its kernel's device time, torch.profiler over 20
+  calls, and the host's time a call, 50 calls enqueued),
+  trace_sph(engine="pallas") and it with sort_by_distance, each timed
+  (CUDA events, median of 10 after a warm run) with the device's busy ms
+  and device operations over one call; with --parent DIR, DIR's
+  grace_tpu_torch and this one in turns (parent, this, this, parent;
+  --rounds K times), each a process of its own. In this package's first
+  process, first E10's variants (flat_variants: 4-byte stores, the
+  wrapper's torch scan, a one-block scan launch, rows a block, threads a
+  block, registers, chunk width; leave-outs of the copies and of the
+  tail) bound in the package's place, bit-equal to the shipped kernel's
+  five outputs and timed in turns: the call, E10's kernel and the call's
+  device time and operations (torch.profiler).
 
   segsort: E8 (sort_rows_cuda) and E9 (segmented_sort_cuda) on main path
   4's records with variants of csrc/segsort.cu bound in the package's
@@ -2682,6 +2700,299 @@ def record_sort_paths():
     return result
 
 
+# E10's variants (csrc/segsort.cu's records_flat_kernel). Each record a
+# 4-byte store by the lane that loaded it, in place of the body's
+# realigned 16-byte vectors (the loads stay 16 bytes, all before any store):
+FLAT_SCALAR_STORES = """#pragma unroll
+            for (int t = 0; t < kFlatVecs; ++t) {
+                const int c0 = 4 * (cb / 4 + lane + 32 * t);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    if (c0 + e < n) {
+#pragma unroll
+                        for (int k = 0; k < 3; ++k) a.dst[k][off + c0 + e] = lane_of(v[k][t], e);
+                    }
+                }
+            }
+        }
+"""
+
+# The copy taking its offsets from the offsets array (filled before the
+# launch) instead of the fused scan and look-back; the tail's total from
+# the last row's offset.
+FLAT_READS_OFFSETS = [
+    swap(SEGSORT, "                const unsigned base = look_back(a.state + 1, t, agg, lane);",
+         "                const unsigned base = 0;"),
+    swap(SEGSORT, "                const int off = static_cast<int>(s_base + below + incl - stride);",
+         "                const int off = a.offsets[r0 + tid];"),
+    swap(SEGSORT, """        unsigned long long w = kInclusive;   // no rows: total 0
+        if (n_ranges > 0) {
+            do {
+                w = load_state(a.state + n_ranges);
+            } while ((w >> 32) != 2);
+        }""", """        unsigned long long w = 0;
+        if (n_ranges > 0) {
+            w = static_cast<unsigned>(a.offsets[a.n_rows - 1]) +
+                static_cast<unsigned>(min(a.counts[a.n_rows - 1], a.width)) + a.slots;
+        }"""),
+]
+
+# A one-block scan launched before the copy (PR 19's grace_seg_long_scan's
+# form, 16 rows a thread a round): the offsets and clamped counts.
+FLAT_SCAN_KERNEL = """__global__ void __launch_bounds__(1024) flat_scan_kernel(const __grid_constant__ FlatArgs a) {
+    constexpr int kItems = 16;
+    __shared__ unsigned s_w[32];
+    __shared__ unsigned s_carry;
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    if (tid == 0) s_carry = 0;
+    __syncwarp();
+    __syncthreads();
+    for (long long b = 0; b < a.n_rows; b += 1024LL * kItems) {
+        unsigned v[kItems];
+        unsigned sum = 0;
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+            const long long r = b + static_cast<long long>(tid) * kItems + i;
+            v[i] = r < a.n_rows ? static_cast<unsigned>(min(a.counts[r], a.width)) + a.slots : 0u;
+            sum += v[i];
+        }
+        unsigned incl = sum;
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+            const unsigned x = __shfl_up_sync(kFull, incl, d);
+            if (lane >= d) incl += x;
+        }
+        if (lane == 31) s_w[warp] = incl;
+        __syncwarp();
+        __syncthreads();
+        unsigned below = 0, all = 0;
+        for (int w = 0; w < 32; ++w) {
+            all += s_w[w];
+            below += w < warp ? s_w[w] : 0u;
+        }
+        unsigned run = s_carry + below + incl - sum;
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+            const long long r = b + static_cast<long long>(tid) * kItems + i;
+            if (r < a.n_rows) {
+                a.offsets[r] = static_cast<int>(run);
+                a.kept[r] = min(a.counts[r], a.width);
+            }
+            run += v[i];
+        }
+        __syncwarp();
+        __syncthreads();
+        if (tid == 0) s_carry += all;
+        __syncwarp();
+        __syncthreads();
+    }
+}
+
+"""
+FLAT_TWO_LAUNCHES = FLAT_READS_OFFSETS + [
+    swap(SEGSORT, "// E10: rows (idx i32, intg, dist f32 [n_rows, width]) into the flat",
+         FLAT_SCAN_KERNEL + "// E10: rows (idx i32, intg, dist f32 [n_rows, width]) into the flat"),
+    swap(SEGSORT, "    fn<<<grid, kFlatThreads, 0, s>>>(a);",
+         "    if (n_rows > 0) flat_scan_kernel<<<1, 1024, 0, s>>>(a);\n"
+         "    fn<<<grid, kFlatThreads, 0, s>>>(a);")]
+
+
+def flat_const(name, value):
+    """An edit of segsort.cu that sets ``constexpr int name`` (E10's) to ``value``."""
+    return csrc_const(SEGSORT, name, value)
+
+
+def flat_variants():
+    """E10's variants, (name, edits, rows a block, the wrapper's torch scan
+    before the launch, compared with the shipped kernel's outputs): as
+    shipped (blocks of 512 threads, 128 rows a block); 4-byte stores in
+    place of the realigned vectors; the wrapper's torch scan (clamp, add,
+    cumsum, subtract, cast) in place of the fused one; a one-block scan
+    launch in front of the copy in place of the look-back; 256 and 64 rows
+    a block; blocks of 256 threads (128 and 256 rows: the first form) and
+    of 128; two blocks an SM (64 registers at most); chunks of 256 columns
+    (two vectors an array a lane); and the leave-outs, timed only: no row
+    copies (the scan, the look-back and the tail), no tail."""
+    rows = 128
+    return [
+        ("shipped", None, rows, False, True),
+        ("4-byte stores (no realignment)",
+         [swap_between(SEGSORT, "#pragma unroll\n            for (int t = 0; t < kFlatVecs; ++t) {\n"
+                       "                const int m = cb / 4 + lane + 32 * t;",
+                       "    } else {\n        for (int c = lane; c < n; c += 32) {",
+                       FLAT_SCALAR_STORES)], rows, False, True),
+        ("the wrapper's torch scan (5 operations) before the copy", FLAT_READS_OFFSETS, rows,
+         True, True),
+        ("a one-block scan launch before the copy (two launches)", FLAT_TWO_LAUNCHES, rows,
+         False, True),
+        ("256 rows a block", None, 256, False, True),
+        ("64 rows a block", None, 64, False, True),
+        ("blocks of 256 threads", [flat_const("kFlatThreads", 256)], rows, False, True),
+        ("blocks of 256 threads, 256 rows (the first form)", [flat_const("kFlatThreads", 256)],
+         256, False, True),
+        ("blocks of 128 threads", [flat_const("kFlatThreads", 128)], rows, False, True),
+        ("two blocks an SM (64 registers at most)",
+         [swap(SEGSORT, "__launch_bounds__(kFlatThreads)\n    records_flat_kernel",
+               "__launch_bounds__(kFlatThreads, 2)\n    records_flat_kernel")], rows, False, True),
+        ("chunks of 256 columns", [flat_const("kFlatVecs", 2)], rows, False, True),
+        ("leave-out: no row copies",
+         [swap(SEGSORT, "                copy_row<kVec>(a, r0 + i, s_off[i], s_kept[i], lane);",
+               "                (void)i;")], rows, False, False),
+        ("leave-out: no tail",
+         [swap(SEGSORT, "    if (lo >= hi) return false;", "    return false;")], rows, False,
+         False),
+    ]
+
+
+def flat_torch_scan(rec, capacity, rows):
+    """records_to_flat_cuda's launch with the offsets computed before it by
+    the parent's five torch operations (clamp, add, cumsum, subtract,
+    cast), for the variant whose kernel reads them."""
+    from grace_tpu_torch import _kernels
+    from grace_tpu_torch.trace import pallas_records as prc
+
+    dev = rec.indices.device
+    n, c = rec.indices.shape
+    counts = torch.clamp(rec.counts, max=c)
+    stride = counts + 0
+    offsets = (torch.cumsum(stride, dim=0) - stride).to(torch.int32)
+    kept = torch.empty_like(offsets)
+    bufs = [torch.empty(capacity, dtype=d, device=dev)
+            for d in (torch.int32, torch.float32, torch.float32)]
+    state = torch.empty(1 + -(-n // rows), dtype=torch.int64, device=dev)
+    _kernels.launch("segsort", "grace_records_to_flat", dev, rec.counts.data_ptr(),
+                    *[t.data_ptr() for t in rec[1:]], offsets.data_ptr(), kept.data_ptr(),
+                    *[t.data_ptr() for t in bufs], state.data_ptr(), n, c, capacity, 0,
+                    prc.INDEX_SENTINEL, prc._f32_bits(prc.VALUE_SENTINEL),
+                    prc._f32_bits(prc.DISTANCE_SENTINEL), rows)
+    return (offsets, kept, *bufs)
+
+
+def records_flat_ablations():
+    """E10 (records_to_flat_cuda) on main path 4's records with each
+    variant of segsort.cu (flat_variants) bound in the package's place:
+    each compared variant's five outputs bit-equal to the shipped
+    kernel's; all timed in turns (shipped, the variants, the variants
+    backwards, shipped; 3 times): the call (CUDA events), the E10 kernel's
+    device time and the call's device time and operations (torch.profiler,
+    over 10 calls); each variant's resources. Returns {variant: {..}}."""
+    from grace_tpu_torch import _kernels
+    from grace_tpu_torch.ops import segops
+    from grace_tpu_torch.trace import pallas_records as prc
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    rec, _, total, _ = path4_records(dev)
+    variants = flat_variants()
+    dlls = build_all({name: ("segsort", f"records_flat_{i}", edits)
+                      for i, (name, edits, _, _, _) in enumerate(variants)})
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    calls = {name: ((lambda r=rows: flat_torch_scan(rec, total, r)) if torch_scan else
+                    (lambda r=rows: prc.records_to_flat_cuda(rec, total, _rows=r)))
+             for name, _, rows, torch_scan, _ in variants}
+
+    def profiled(fn, reps=10):
+        """(E10 kernel ms, all device ms, device operations) a call."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern = sum(e.time_range.elapsed_us() for e in ev if "records_flat_kernel" in e.name)
+        return kern / 1e3 / reps, sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps, (
+            len(ev) / reps)
+
+    shipped_lib = _kernels.load("segsort")
+    result = {name: {"ms": [], "kernel_ms": [], "device_ms": []} for name in calls}
+    try:
+        want = None
+        for name, _, _, _, compared in variants:
+            _kernels._LIBS["segsort"] = dlls[name]
+            out = (ctypes.c_int * len(fields))()
+            call(dlls[name].grace_segsort_resources,
+                 [ctypes.addressof(out), segops.RESOURCE_KERNELS.index("records_to_flat"), 3])
+            result[name]["resources"] = dict(zip(fields, out))
+            got = calls[name]()
+            torch.cuda.synchronize()
+            if name == "shipped":
+                want = [t.view(torch.int32) if t.dtype == torch.float32 else t for t in got]
+            elif compared:
+                for g, w in zip(got, want):
+                    g = g.view(torch.int32) if g.dtype == torch.float32 else g
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"records_flat part {name}: bits differ")
+            del got
+            print(f"records_flat part {name}: resources {json.dumps(result[name]['resources'])}; "
+                  + ("bits equal to the shipped" if compared else "not compared"), flush=True)
+        names = list(calls)
+        for _ in range(3):
+            for name in names + names[::-1]:
+                _kernels._LIBS["segsort"] = dlls[name]
+                result[name]["ms"].append(cuda_ms(calls[name], reps=10))
+                kern, busy, ops = profiled(calls[name])
+                result[name]["kernel_ms"].append(kern)
+                result[name]["device_ms"].append(busy)
+                result[name]["device_ops"] = ops
+        for name, r in result.items():
+            print(f"records_flat part {name}: call " + ", ".join(f"{x:.4f}" for x in r["ms"])
+                  + " ms (CUDA events, median of 10 each); E10 kernel "
+                  + ", ".join(f"{x:.4f}" for x in r["kernel_ms"]) + " ms; the call's device "
+                  + ", ".join(f"{x:.4f}" for x in r["device_ms"])
+                  + f" ms over {r['device_ops']:g} operations (profiler, 10 calls each)",
+                  flush=True)
+    finally:
+        _kernels._LIBS["segsort"] = shipped_lib
+    return result
+
+
+def records_flat_paths():
+    """The ``records_flat`` part in this process, on whichever
+    grace_tpu_torch it imports: main path 4's records through
+    records_to_flat and trace_sph(engine="pallas") (+ sort_by_distance),
+    each timed (CUDA events, median of 10 after a warm run) with the
+    device's busy ms and device operations over one call, and E10's
+    kernel device time (torch.profiler over 20 calls); in a package with
+    E10's private rows a block (this one), first its variants
+    (records_flat_ablations; not with --no-variants)."""
+    import inspect
+
+    from grace_tpu_torch.ops.segops import sort_by_distance
+    from grace_tpu_torch.trace import pallas_records as prc
+    from grace_tpu_torch.trace.sph import trace_sph
+
+    result = {}
+    if "_rows" in inspect.signature(prc.records_to_flat_cuda).parameters and not NO_VARIANTS:
+        result["variants"] = records_flat_ablations()
+    rec, _, total, (rays_s, ss, tree) = path4_records(torch.device("cuda", 0))
+    flat_trace = lambda: trace_sph(rays_s, ss, tree, capacity=total, engine="pallas",
+                                   per_ray_capacity=512)
+    csr = lambda f: sort_by_distance(f.distances, f.offsets, f.indices, f.integrals,
+                                     total_hits=f.total_hits)
+    for label, fn in (("records_to_flat (path 4's rows)", lambda: prc.records_to_flat(rec, total)),
+                      ("trace_sph(engine=pallas)", flat_trace),
+                      ("trace_sph(engine=pallas) + sort_by_distance", lambda: csr(flat_trace()))):
+        ms = cuda_ms(fn, reps=10)
+        print(f"records_flat part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
+        result[label] = {"ms": ms, **device_busy(f"records_flat part {label}", fn,
+                                                 None if label.startswith("records_") else 6)}
+        if label.startswith("records_"):
+            result[label]["kernel_ms"] = kernel_device_ms(fn, "records_flat_kernel", reps=20)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(50):
+                fn()
+            host = (time.perf_counter() - start) / 50 * 1e3
+            torch.cuda.synchronize()
+            result[label]["host_ms"] = host
+            print(f"records_flat part {label}: kernel {result[label]['kernel_ms']} ms "
+                  f"(profiler, 20 calls); host {host:.4f} ms a call (50 calls enqueued, "
+                  f"perf_counter)", flush=True)
+    return result
+
+
 def f32_pair_sums(d):
     """An and Gn with the pair terms in f32 (dot products by ``matmul_f32``,
     acos, sin) and the sums in f64, the pair (i, i) dropped: the form the
@@ -2951,7 +3262,7 @@ def walk_ablations(parent_dir):
 
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
          "paths", "statistics", "walk", "build", "climbs", "splat_prep", "broadphase",
-         "record_sort", "segsort", "feeds")
+         "record_sort", "segsort", "feeds", "records_flat")
 
 
 def main():
@@ -3010,6 +3321,9 @@ def main():
                                   else record_sort_paths())
     if "segsort" in parts:
         summary["segsort"] = segsort_ablations()
+    if "records_flat" in parts:
+        summary["records_flat"] = (part_turns("records_flat", parent, rounds) if parent
+                                   else records_flat_paths())
     if "sortfree_bwd" in parts:
         summary["splat_sortfree_bwd"] = sortfree_bwd_ablations(
             sorted_spheres, torch.ones(N_PARTICLES, device=dev), parent)

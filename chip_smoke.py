@@ -374,6 +374,29 @@ def kernel_device_ms(fn, kernel, reps=10, tries=3):
     return None
 
 
+def device_ops(fn, reps=10, tries=8):
+    """The device operations (kernels, copies, memsets) of one warm fn(),
+    by name, from torch.profiler over ``reps`` calls; a window whose count
+    is no multiple of ``reps`` is taken again, up to ``tries`` times. (In
+    the smoke's timing phase the profiler's first windows came back
+    without device events, and windows of one short call always did.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names and len(names) % reps == 0:
+            break
+    return names[:len(names) // reps]
+
+
 def log_device_ms(t, label, fn, kernel):
     """kernel_device_ms into t[label], or a line saying it was not measured
     (fn makes one launch of ``kernel``)."""
@@ -3287,18 +3310,37 @@ SEGSORT_ROW_CASES = {
     "records of distances in [1, 2) with ties, as the bench's rows span (the packed network; "
     "spans at its limit and one past it), 512 wide": ("octave", 200, 512),
 }
-# flat layouts: tag -> (rows, width, capacity past the kept total,
-# sentinels or None, sentinel slots); the rows are "records" rows.
+# flat layouts: tag -> (rows, width, capacity past the kept total (None:
+# capacity 0; "mid-vector": the capacity ends inside a row's 16-byte body
+# vector), sentinels or None, sentinel slots, rows, rows an E10 block
+# scans (None: the wrapper's FLAT_ROWS)). Rows "records" as the record kernels
+# write them; "ragged": counts of 0-5, width - 3 to width + 2 and random
+# ones, so that rows of 0, 1-3 and all width records start at every
+# destination word mod 4, every column of them random.
 SEGSORT_FLAT_CASES = {
-    "capacity the kept total": (300, 128, 0, None, False),
-    "capacity below the total (records dropped)": (300, 128, -5000, None, False),
-    "capacity past the total (a tail of sentinels)": (300, 128, 777, None, False),
+    "capacity the kept total": (300, 128, 0, None, False, "records", None),
+    "capacity below the total (records dropped)": (300, 128, -5000, None, False, "records", None),
+    "capacity past the total (a tail of sentinels)": (300, 128, 777, None, False, "records", None),
     "sentinel slots, sentinels (-7, 2.5, NaN), capacity below the total":
-        (300, 128, -123, (-7, 2.5, float("nan")), True),
+        (300, 128, -123, (-7, 2.5, float("nan")), True, "records", None),
     "sentinel slots, sentinels (3, -0.0, inf), capacity past the total":
-        (257, 256, 1000, (3, -0.0, float("inf")), True),
-    "no rows, capacity 100": (0, 128, 100, None, False),
-    "one row of 512 that overflowed, capacity 0": (1, 512, None, None, False),
+        (257, 256, 1000, (3, -0.0, float("inf")), True, "records", None),
+    "no rows, capacity 100": (0, 128, 100, None, False, "records", None),
+    "one row of 512 that overflowed, capacity 0": (1, 512, None, None, False, "records", None),
+    "ragged rows at every destination alignment, 512 wide, 7 rows a block (86 blocks' "
+    "look-back)": (600, 512, 0, None, False, "ragged", 7),
+    "ragged rows, 512 wide, sentinel slots, capacity past the total, 5 rows a block":
+        (333, 512, 4099, (-2, 0.5, 7.0), True, "ragged", 5),
+    "ragged rows, 130 wide (no multiple of 4: 4-byte copies), sentinel slots, 3 rows a block":
+        (301, 130, 321, None, True, "ragged", 3),
+    "ragged rows, 3 wide, capacity the total": (77, 3, 0, None, False, "ragged", None),
+    "ragged rows, 1,100 wide (three chunks of a row)": (90, 1100, 9, None, False, "ragged", 32),
+    "ragged rows, 512 wide, capacity ending inside a row's body vector":
+        (500, 512, "mid-vector", None, False, "ragged", 19),
+    "ragged rows, 512 wide, capacity 0 (offsets and counts only), 64 rows a block":
+        (400, 512, None, None, True, "ragged", 64),
+    "ragged rows, 4 wide, capacity below the total, sentinel slots":
+        (1000, 4, -777, None, True, "ragged", None),
 }
 # CSR: tag -> (H, kind, total_hits, f32 and i32 data arrays). "edges":
 # special keys; "rays": segments of ray-like lengths; "padded": rays'
@@ -3417,16 +3459,38 @@ def _record_rows(rng, kind, n_rows, width):
 
 
 def segsort_flat(tag):
-    """(rows as segsort_rows gives them, capacity, sentinel keyword
-    arguments) of SEGSORT_FLAT_CASES' case ``tag``."""
-    n_rows, width, extra, sentinels, slots = SEGSORT_FLAT_CASES[tag]
-    rows = _record_rows(_segsort_rng(SEGSORT_FLAT_CASES, tag), "records", n_rows, width)
-    kept = int(np.minimum(rows[0], width).sum()) + (n_rows if slots else 0)
-    capacity = 0 if extra is None else max(kept + extra, 0)
+    """(rows as segsort_rows gives them, capacity, keyword arguments: the
+    sentinels, and ``_rows`` where the case forces the rows an E10 block
+    scans, which only the kernel's wrapper takes) of SEGSORT_FLAT_CASES'
+    case ``tag``."""
+    n_rows, width, extra, sentinels, slots, kind, block = SEGSORT_FLAT_CASES[tag]
+    rng = _segsort_rng(SEGSORT_FLAT_CASES, tag)
+    rows = _record_rows(rng, "records", n_rows, width)
+    if kind == "ragged":
+        counts = np.concatenate([np.arange(6), np.arange(width - 3, width + 3)])
+        counts = counts[counts >= 0]
+        pick = rng.random(n_rows) < 0.8
+        rows = (np.where(pick, rng.choice(counts, n_rows),
+                         rng.integers(0, width + 1, n_rows)).astype(np.int32),
+                rng.integers(-(1 << 31), 1 << 31, (n_rows, width)).astype(np.int32),
+                rng.random((n_rows, width)).astype(np.float32),
+                (4 * rng.random((n_rows, width))).astype(np.float32))
+    kept = np.minimum(rows[0], width).astype(np.int64) + (1 if slots else 0)
+    if extra is None:
+        capacity = 0
+    elif extra == "mid-vector":   # inside the body of the middle row with the most records
+        offsets = np.cumsum(kept) - kept
+        r = n_rows // 2 + int(np.argmax(kept[n_rows // 2:]))
+        head = (4 - int(offsets[r]) % 4) % 4
+        capacity = int(offsets[r]) + head + 4 * (int(kept[r]) // 8) + 2
+    else:
+        capacity = max(int(kept.sum()) + extra, 0)
     kw = dict(sentinel_slots=slots)
     if sentinels is not None:
         kw.update(index_sentinel=sentinels[0], value_sentinel=sentinels[1],
                   distance_sentinel=sentinels[2])
+    if block is not None:
+        kw["_rows"] = block
     return rows, capacity, kw
 
 
@@ -3533,6 +3597,8 @@ def segsort_outputs(kind, args, plain):
         return list(fn(args))
     if kind == "flat":
         rec, capacity, kw = args
+        if plain:
+            kw = {k: v for k, v in kw.items() if k != "_rows"}
         fn = prc._records_to_flat_plain if plain else prc.records_to_flat_cuda
         return list(fn(rec, capacity, **kw))
     dist, offsets, idx, data, total = args
@@ -3601,6 +3667,8 @@ def check_segsort(dev):
                         ("csr", SEGSORT_CSR_CASES)):
         for tag in cases:
             apart, _ = check_segsort_case(kind, tag, segsort_case_args(kind, tag, dev))
+            if apart and kind == "flat":   # no sort in it: the card's plain version agrees
+                raise AssertionError(f"flat {tag}: the card's plain version departs at {apart}")
             if apart:
                 departures[f"{kind} {tag}"] = apart
             lines.append(f"{kind} {tag}: bit-equal to grace_tpu's order (the plain version on "
@@ -3739,6 +3807,17 @@ def segsort_times(rec, flat):
     t["segmented_sort library (torch.sort of the int64 keys segment << 32 | order key, "
       "stable)"] = cuda_ms(lambda: torch.sort(key, stable=True))
     del key
+    # E10's call: its kernel's device time, its device operations (the
+    # state's memset and the kernel), and the launch's resources
+    flat_call = lambda: prc.records_to_flat_cuda(rec, flat.indices.shape[0])
+    ops = device_ops(flat_call)   # first: its windows wait out the empty ones
+    log_device_ms(t, "records_to_flat device (profiler; the kernel alone)", flat_call,
+                  "records_flat_kernel")
+    log(f"records_to_flat: {len(ops)} device operations a call: "
+        + "; ".join(name[:60] for name in ops))
+    kernel = "records_to_flat" if width % 4 == 0 else "records_to_flat (scalar rows)"
+    log(f"resources segsort {kernel} (path 4's launch, {prc.FLAT_ROWS} rows a block): "
+        f"{json.dumps(segops.segsort_resources(rec.indices.device, kernel))}")
     h = flat.indices.shape[0]
     kept = torch.clamp(rec.counts, max=width).double()
     seg_len = torch.clamp(kept, min=1)
@@ -4937,13 +5016,17 @@ def run(dev, n_particles, side):
         f"capacity {RECORD_CAP}): {wall4:.2f} s wall; {total_hits} hits, counts equal the "
         f"quarter trace's on every ray; {rec_stats}; {seg_stats}; launches {launches4}")
     # the three segsort entries against their plain versions on the card, on
-    # path 4's records, bit for bit
+    # path 4's records, bit for bit; E10 also against its plain version run
+    # on the CPU (no sort in it: the card's plain version must agree too)
     for kind, args in (("rows", rec), ("flat", (rec, total_hits, {})),
                        ("csr", (flat.distances, flat.offsets, flat.indices, [flat.integrals],
                                 flat.total_hits))):
-        check_segsort_case(kind, "path 4", args, reference=False)
+        apart, _ = check_segsort_case(kind, "path 4", args, reference=kind == "flat")
+        if apart:
+            raise AssertionError(f"path 4 {kind}: the card's plain version departs at {apart}")
     log(f"check_segsort path 4: sort_rows on {rec.indices.shape[0]} rows of {RECORD_CAP}, "
-        f"records_to_flat into {total_hits} entries, segmented_sort of the flat layout "
+        f"records_to_flat into {total_hits} entries (also against its plain version on the "
+        f"CPU), segmented_sort of the flat layout "
         f"({flat.offsets.shape[0]} rays' segments, the longest {int(rec.counts.max())} "
         f"clamped to {RECORD_CAP}) bit-equal to their plain versions OK")
 

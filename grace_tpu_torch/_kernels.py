@@ -115,7 +115,7 @@ KERNELS = {
                  "grace_seg_chunks": "p" * 9 + "iii",
                  "grace_seg_merge": "p" * 9 + "iii",
                  "grace_seg_gather": "p" * 8 + "iiii",
-                 "grace_records_to_flat": "pppppppp" + "iiiiiii",
+                 "grace_records_to_flat": "p" * 10 + "i" * 8,
                  "grace_segsort_resources": "pii"}),
     # The dense contractions that splat.cu and splat_sortfree.cu's forward
     # replaced, each with its file's flags: the references those kernels

@@ -85,16 +85,30 @@
 // grace_seg_count (a warp a tile of kTile positions, a word a lane),
 // torch.cumsum and grace_seg_starts (each lane its word's set bits).
 //
-// records_to_flat (E10, grace_records_to_flat): a warp a row copies its
-// first min(count, cap) columns to offsets + col where that is below the
-// capacity, coalesced; the offsets are torch.cumsum's (int64, cast to
-// int32, as the plain version; rows of fewer than 2^31 slots with the
-// sentinel slots, so the cast never wraps). The kernel writes every
-// position once: the records, each sentinel slot, and the tail past the
-// last row (no fill pass first).
+// records_to_flat (E10, grace_records_to_flat), one launch after a memset
+// of its state: the offsets' scan and the copy. Persistent blocks of 16
+// warps take tickets in order; a ticket is a range of 128 rows (on path
+// 4 0.555 ms against 0.58 for 256 rows in blocks of 8 warps: chip_ablation.py
+// records_flat), whose counts a thread a row clamps and scans, and whose
+// prefix warp 0 takes from the
+// ranges before by a decoupled look-back (each range publishes its own
+// sum at once and its inclusive sum after its look-back, flag and sum in
+// one 64-bit word); the scan is u32, the low bits of the plain version's
+// int64 cumsum, which its cast to int32 keeps. A warp copies a row: where
+// the width is a multiple of 4 (path 4's 512) every lane loads its share
+// of the row's records as 16-byte vectors, all before any store (a row of
+// 512 at once: 4 vectors an array a lane, 12 loads in flight). The
+// destination offsets + col starts at any word, so the body goes out as
+// aligned 16-byte vectors, each made in registers from two lanes' loaded
+// vectors (a shuffle and a select on offsets % 4), and the ragged head and
+// tail (3 words at most each) as 4-byte stores. TMA's bulk copies do not
+// fit: both ends of one must be 16-byte aligned, and the destination is
+// not. Other widths copy 4 bytes a column. Tickets past the ranges fill
+// the tail [total, capacity) in chunks of 8,192, 16 bytes a store. Every
+// position is written once: the records, each sentinel slot (by lane 0 of
+// the row's warp), the tail.
 
 #include <cstdint>
-#include <cstring>
 
 #include "async_copy.cuh"
 #include "common.cuh"
@@ -108,7 +122,6 @@ constexpr int kTile = 1024;           // segops.HEAD_TILE: positions (head bits)
                                       // a u32 word a lane
 constexpr int kMaxPayloads = 8;       // segops.MAX_PAYLOADS: arrays one launch gathers
 constexpr int kMaxStaged = kMaxPayloads + 2;   // with the keys and the mask
-constexpr int kMaxBlocks = 1 << 16;   // grid-stride loops past this many blocks
 constexpr int kLongBlocksPerSm = 8;   // the long route's grid-stride grids (they end at
                                       // once where no segment is long and out of order)
 constexpr int kScanThreads = 1024;    // the long list's scan: one block
@@ -118,6 +131,14 @@ constexpr int kWarpRun = 512;         // segops.WARP_RUN: the segmented sort's l
 constexpr int kSortSmem = 112 * 1024; // a sort block's shared memory at most: two blocks an SM
 constexpr int kSortWarps = 7;         // a sort block's warps at most (146 registers a thread)
 constexpr int kChunkWarps = 4;        // warps a block of grace_seg_chunks
+constexpr int kFlatThreads = 512;     // an E10 block: a range of up to 512 rows (128 from
+                                      // the wrapper), a thread a row's count, a warp a
+                                      // row's copy
+constexpr int kFlatWarps = kFlatThreads / 32;
+constexpr int kFlatVecs = 4;          // 16-byte vectors a lane loads of each array a row chunk
+constexpr int kFlatChunk = 4 * 32 * kFlatVecs;   // a row chunk's columns: 512
+constexpr int kTailChunk = 4 * 4 * kFlatThreads; // E10's tail positions a ticket: 8,192
+constexpr int kMaxDevices = 64;       // E10's resident blocks kept for devices below this
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kPadKey = 0xffffffffu;   // above every order key (a NaN's is 0xffc00000)
 
@@ -136,11 +157,6 @@ struct SortArgs {
     int palign[kMaxPayloads];
     int n_stage, n_payloads, mask_slot, mask_align;
 };
-
-int blocks_for(long long threads) {
-    const long long b = (threads + kThreads - 1) / kThreads;
-    return static_cast<int>(b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b));
-}
 
 // The order-preserving u32 of a key, as lax.sort orders f32: -0 with +0
 // and every subnormal with them (XLA compares with subnormals flushed),
@@ -799,45 +815,283 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-// A warp a row: its first counts[r] (clamped) columns to offsets[r] + col
-// below the capacity, and its sentinel slot; then the tail [total,
-// capacity). The offsets are an exclusive scan of counts + slots, so the
-// rows, slots and tail cover each position once.
-__global__ void __launch_bounds__(kThreads)
-    records_flat_kernel(const int32_t* __restrict__ counts, const int32_t* __restrict__ offsets,
-                        const int32_t* __restrict__ idx, const float* __restrict__ intg,
-                        const float* __restrict__ dist, int32_t* __restrict__ o_idx,
-                        float* __restrict__ o_intg, float* __restrict__ o_dist, int n_rows,
-                        int width, long long capacity, int slots, int idx_fill, float val_fill,
-                        float dist_fill) {
-    const int lane = threadIdx.x % 32;
-    const long long warps = static_cast<long long>(gridDim.x) * kWarps;
-    for (long long r = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-         r < n_rows; r += warps) {
-        const int kept = counts[r];
-        const long long off = offsets[r];
-        const long long row = r * width;
-        for (int c = lane; c < kept && off + c < capacity; c += 32) {
-            if (off + c < 0) continue;   // (counts are hit counts, >= 0: never)
-            o_idx[off + c] = idx[row + c];
-            o_intg[off + c] = intg[row + c];
-            o_dist[off + c] = dist[row + c];
+// E10's arguments: the rows' counts and the three row arrays (i32 and f32
+// alike: bits are copied), the outputs (offsets, clamped counts, the
+// three flat buffers), the look-back state (word 0 the ticket counter,
+// word 1 + k range k's published sum) and each buffer's fill bits.
+struct FlatArgs {
+    const int32_t* counts;
+    const uint32_t* src[3];
+    int32_t* offsets;
+    int32_t* kept;
+    uint32_t* dst[3];
+    unsigned long long* state;
+    uint32_t fill[3];
+    int n_rows, width, capacity, slots, range_rows;
+};
+
+// A range's published sum: (flag << 32) | the u32 sum, in one 64-bit word,
+// so a reader never sees a flag without its value.
+constexpr unsigned long long kAggregate = 1ull << 32;   // the range's own sum
+constexpr unsigned long long kInclusive = 2ull << 32;   // the sum of it and every range before
+
+__device__ __forceinline__ unsigned long long load_state(const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void store_state(unsigned long long* p, unsigned long long v) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// The decoupled look-back of range t (warp 0 of its block; st the ranges'
+// words): publishes the range's sum `agg`, then reads its predecessors 32
+// at a time (lane l range k - l, a range before 0 counting as an
+// inclusive 0), waits while any of them has published nothing, adds the
+// sums up to the nearest inclusive one and stops there, else moves 32
+// back; publishes its own inclusive sum. Returns the sum of the ranges
+// before t (mod 2^32: the int64 scan's low bits). Tickets are taken in
+// order, so every range it waits for is held by a running block.
+__device__ __forceinline__ unsigned look_back(unsigned long long* st, long long t, unsigned agg,
+                                              int lane) {
+    if (t == 0) {
+        if (lane == 0) store_state(st, kInclusive | agg);
+        return 0u;
+    }
+    if (lane == 0) store_state(st + t, kAggregate | agg);
+    unsigned base = 0;
+    for (long long k = t - 1;; k -= 32) {
+        unsigned long long w;
+        do {
+            w = k - lane >= 0 ? load_state(st + k - lane) : kInclusive;
+        } while (__any_sync(kFull, (w >> 32) == 0));
+        const unsigned inclusive = __ballot_sync(kFull, (w >> 32) == 2);
+        const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+        base += __reduce_add_sync(kFull, lane <= stop ? static_cast<unsigned>(w) : 0u);
+        if (inclusive) break;
+    }
+    if (lane == 0) store_state(st + t, kInclusive | (base + agg));
+    return base;
+}
+
+// A block barrier for E10, after the warp's lanes reconverge. Lanes part
+// before each of its barriers (thread 0 takes the ticket, lane 31 writes
+// its warp's sum, warp 0 looks back, lanes copy different columns), and
+// __syncthreads is an aligned bar.sync, after which the compiler takes the
+// warp as converged and issues the scan's shuffles without a warp sync.
+// (With a store by thread 0 before the loop, which the compiler merged
+// into the first ticket's branch, the 4-byte instance built for blocks of
+// 512 threads had no reconvergence point around that branch, and its scan
+// ran lane 0 apart from lanes 1-31: row 0's count was lost.)
+__device__ __forceinline__ void block_sync() {
+    __syncwarp();
+    __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t lane_of(const uint4& v, int e) {
+    return e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
+}
+
+// Output words h .. h + 3 of the pair (a, b): the 16-byte vector that
+// starts h words into a (h is a row's, so the warp takes one branch).
+__device__ __forceinline__ uint4 realign(const uint4& a, const uint4& b, int h) {
+    switch (h) {
+        case 1: return make_uint4(a.y, a.z, a.w, b.x);
+        case 2: return make_uint4(a.z, a.w, b.x, b.y);
+        case 3: return make_uint4(a.w, b.x, b.y, b.z);
+        default: return a;
+    }
+}
+
+// Row r's records (its first n = kept columns, clipped to the capacity) to
+// off + column, by its warp; then its sentinel slot. A negative offset
+// (counts that are no hit counts) compares as past the capacity, so no
+// store leaves the buffers.
+//
+// kVec (width % 4 == 0, rows 16-byte aligned): the row in chunks of
+// kFlatChunk columns; lane l loads vectors l + 32 t (t < kFlatVecs) of
+// each array, lane 0 also the next chunk's first, every load before any
+// store. The destination starts at any word, so the body goes out as
+// aligned vectors from off + h (h = (4 - off % 4) % 4): body vector M
+// takes words h .. 3 of source vector M and 0 .. h - 1 of M + 1, the
+// latter from lane l + 1 by a shuffle (lane 31 from lane 0's next
+// vector). The ragged head (columns below h) and tail (past the last
+// whole vector) are 4-byte stores by the lanes that hold them.
+// Else a 4-byte load and store a column, 32 columns a step.
+template <bool kVec>
+__device__ __forceinline__ void copy_row(const FlatArgs& a, long long r, int off, int kept,
+                                         int lane) {
+    const int n = kept <= 0 || static_cast<unsigned>(off) >= static_cast<unsigned>(a.capacity)
+                      ? 0
+                      : min(kept, a.capacity - off);
+    const long long row = r * a.width;
+    if constexpr (kVec) {
+        const int h = (4 - (off & 3)) & 3;
+        const int nb = n > h ? (n - h) >> 2 : 0;   // whole body vectors
+        const int tail = h + 4 * nb;               // the first column past them
+        const long long body = static_cast<long long>(off) + h;
+        for (int cb = 0; cb < n; cb += kFlatChunk) {
+            uint4 v[3][kFlatVecs + 1];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                const uint4* s = reinterpret_cast<const uint4*>(a.src[k] + row + cb);
+#pragma unroll
+                for (int t = 0; t <= kFlatVecs; ++t) {
+                    const int q = t < kFlatVecs ? lane + 32 * t : 32 * kFlatVecs;
+                    const bool load = (t < kFlatVecs || lane == 0) && cb + 4 * q < n;
+                    v[k][t] = load ? __ldg(s + q) : make_uint4(0u, 0u, 0u, 0u);
+                }
+            }
+#pragma unroll
+            for (int t = 0; t < kFlatVecs; ++t) {
+                const int m = cb / 4 + lane + 32 * t;   // body vector m, source vector m
+#pragma unroll
+                for (int k = 0; k < 3; ++k) {
+                    uint4 out = v[k][t];
+                    if (h) {
+                        const uint4 give = lane == 0 ? v[k][t + 1] : v[k][t];
+                        uint4 b;
+                        b.x = __shfl_sync(kFull, give.x, (lane + 1) & 31);
+                        b.y = __shfl_sync(kFull, give.y, (lane + 1) & 31);
+                        b.z = __shfl_sync(kFull, give.z, (lane + 1) & 31);
+                        out = realign(v[k][t], b, h);
+                    }
+                    if (m < nb) *reinterpret_cast<uint4*>(a.dst[k] + body + 4LL * m) = out;
+                }
+                const int c0 = 4 * m;   // the columns this lane holds: c0 .. c0 + 3
+                if (c0 < min(h, n) || (c0 + 3 >= tail && c0 < n)) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int c = c0 + e;
+                        if (c < n && (c < h || c >= tail)) {
+#pragma unroll
+                            for (int k = 0; k < 3; ++k) a.dst[k][off + c] = lane_of(v[k][t], e);
+                        }
+                    }
+                }
+            }
         }
-        if (slots && lane == 0 && off + kept >= 0 && off + kept < capacity) {
-            o_idx[off + kept] = idx_fill;
-            o_intg[off + kept] = val_fill;
-            o_dist[off + kept] = dist_fill;
+    } else {
+        for (int c = lane; c < n; c += 32) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) a.dst[k][off + c] = a.src[k][row + c];
         }
     }
-    const long long total =
-        n_rows > 0 ? static_cast<long long>(offsets[n_rows - 1]) + counts[n_rows - 1] + slots : 0;
-    const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-    for (long long q = (total > 0 ? total : 0) + static_cast<long long>(blockIdx.x) * kThreads +
-                       threadIdx.x;
-         q < capacity; q += stride) {
-        o_idx[q] = idx_fill;
-        o_intg[q] = val_fill;
-        o_dist[q] = dist_fill;
+    const long long slot = static_cast<long long>(off) + kept;
+    if (a.slots && lane == 0 &&
+        static_cast<unsigned long long>(slot) < static_cast<unsigned long long>(a.capacity)) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) a.dst[k][slot] = a.fill[k];
+    }
+}
+
+// Tail ticket c: chunk total / kTailChunk + c of kTailChunk positions,
+// its part in [total, capacity) filled, 16 bytes a store between its
+// ragged ends; total is the last range's inclusive sum (thread 0 waits
+// for it: once, later tickets find it published). False where the chunk
+// starts past the capacity: no tail is left for this block. Called by
+// the whole block.
+__device__ __forceinline__ bool fill_tail(const FlatArgs& a, long long c, long long n_ranges,
+                                          int* s_total) {
+    if (threadIdx.x == 0) {
+        unsigned long long w = kInclusive;   // no rows: total 0
+        if (n_ranges > 0) {
+            do {
+                w = load_state(a.state + n_ranges);
+            } while ((w >> 32) != 2);
+        }
+        *s_total = max(static_cast<int>(static_cast<unsigned>(w)), 0);
+    }
+    block_sync();
+    const long long total = *s_total;
+    const long long chunk = total / kTailChunk + c;
+    const long long lo = max(total, chunk * kTailChunk);
+    const long long hi = min(chunk * kTailChunk + kTailChunk, static_cast<long long>(a.capacity));
+    if (lo >= hi) return false;
+#pragma unroll
+    for (int i = 0; i < kTailChunk / (4 * kFlatThreads); ++i) {
+        const long long p = chunk * kTailChunk + 4 * (threadIdx.x + kFlatThreads * i);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            const uint32_t f = a.fill[k];
+            if (p >= lo && p + 4 <= hi) {
+                *reinterpret_cast<uint4*>(a.dst[k] + p) = make_uint4(f, f, f, f);
+            } else {
+                for (long long q = max(p, lo); q < min(p + 4, hi); ++q) a.dst[k][q] = f;
+            }
+        }
+    }
+    return true;
+}
+
+// E10: persistent blocks take tickets from a counter in order. Ticket t
+// below n_ranges is range t, rows [t R, t R + R) (R = range_rows, at most
+// kFlatThreads): a thread a row clamps its count to the width and scans
+// count + slots over the block (u32: the int64 scan's low bits, which the
+// cast to int32 keeps), warp 0 takes the sum of the ranges before by the
+// look-back, the offsets and clamped counts are written, and the block's
+// warps copy the rows, row i by warp i % kFlatWarps. Later tickets fill
+// the tail past the last row, a chunk each. Records, sentinel slots and
+// tail cover each position of the buffers once.
+template <bool kVec>
+__global__ void __launch_bounds__(kFlatThreads)
+    records_flat_kernel(const __grid_constant__ FlatArgs a) {
+    __shared__ unsigned s_ticket, s_base;
+    __shared__ int s_total;
+    __shared__ unsigned s_warp[kFlatWarps];
+    __shared__ int32_t s_off[kFlatThreads], s_kept[kFlatThreads];
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const long long n_ranges =
+        (static_cast<long long>(a.n_rows) + a.range_rows - 1) / a.range_rows;
+    for (;;) {
+        if (tid == 0) s_ticket = atomicAdd(reinterpret_cast<unsigned*>(a.state), 1u);
+        block_sync();
+        const long long t = s_ticket;
+        if (t >= n_ranges) {
+            if (!fill_tail(a, t - n_ranges, n_ranges, &s_total)) break;
+        } else {
+            const long long r0 = t * a.range_rows;
+            const int rows = static_cast<int>(min(static_cast<long long>(a.range_rows),
+                                                  a.n_rows - r0));
+            int kept = 0;
+            unsigned stride = 0, incl = 0;
+            if (tid < rows) {
+                kept = min(a.counts[r0 + tid], a.width);
+                stride = static_cast<unsigned>(kept) + static_cast<unsigned>(a.slots);
+            }
+            incl = stride;
+#pragma unroll
+            for (int d = 1; d < 32; d *= 2) {
+                const unsigned x = __shfl_up_sync(kFull, incl, d);
+                if (lane >= d) incl += x;
+            }
+            if (lane == 31) s_warp[warp] = incl;
+            block_sync();
+            unsigned agg = 0, below = 0;
+#pragma unroll
+            for (int w = 0; w < kFlatWarps; ++w) {
+                agg += s_warp[w];
+                below += w < warp ? s_warp[w] : 0u;
+            }
+            if (warp == 0) {
+                const unsigned base = look_back(a.state + 1, t, agg, lane);
+                if (lane == 0) s_base = base;
+            }
+            block_sync();
+            if (tid < rows) {
+                const int off = static_cast<int>(s_base + below + incl - stride);
+                a.offsets[r0 + tid] = off;
+                a.kept[r0 + tid] = kept;
+                s_off[tid] = off;
+                s_kept[tid] = kept;
+            }
+            block_sync();
+            for (int i = warp; i < rows; i += kFlatWarps) {
+                copy_row<kVec>(a, r0 + i, s_off[i], s_kept[i], lane);
+            }
+        }
+        block_sync();   // the ticket and the range's offsets read before they change
     }
 }
 
@@ -906,12 +1160,6 @@ cudaError_t launch_sort(const SortArgs& a, const int32_t* starts, const int32_t*
     sort_kernel<kMaxE, kRows><<<grid, 32 * warps, bytes, stream>>>(
         a, starts, n_seg, long_start, long_len, n_long, n_rows, width, cap);
     return cudaGetLastError();
-}
-
-float as_float(int bits) {
-    float f;
-    std::memcpy(&f, &bits, sizeof(f));
-    return f;
 }
 
 bool valid_chunk(int chunk) {
@@ -1142,16 +1390,17 @@ extern "C" int grace_seg_gather(const int32_t* long_start, const int32_t* long_l
 // thread): 0 sort_kernel<16, true> (E8's rows up to 512), 1
 // sort_kernel<32, true> (E8's rows up to 1,024), 2 sort_kernel<16, false>
 // (E9's segments), 3 heads, 4 count, 5 starts, 6 the long list's scan, 7
-// check, 8 chunks, 9 merge, 10 gather, 11 records_to_flat.
+// check, 8 chunks, 9 merge, 10 gather, 11 records_to_flat (16-byte rows), 12
+// records_to_flat (rows of a width that is no multiple of 4).
 extern "C" int grace_segsort_resources(int* out, int kernel, int n_stage, int device,
                                        void* stream) {
     (void)stream;
-    if (!out || kernel < 0 || kernel > 11 || n_stage < 1 || n_stage > kMaxStaged) {
+    if (!out || kernel < 0 || kernel > 12 || n_stage < 1 || n_stage > kMaxStaged) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const void* fns[12] = {reinterpret_cast<const void*>(sort_kernel<16, true>),
+    const void* fns[13] = {reinterpret_cast<const void*>(sort_kernel<16, true>),
                            reinterpret_cast<const void*>(sort_kernel<32, true>),
                            reinterpret_cast<const void*>(sort_kernel<16, false>),
                            reinterpret_cast<const void*>(seg_heads_kernel),
@@ -1162,9 +1411,10 @@ extern "C" int grace_segsort_resources(int* out, int kernel, int n_stage, int de
                            reinterpret_cast<const void*>(seg_chunks_kernel),
                            reinterpret_cast<const void*>(seg_merge_kernel),
                            reinterpret_cast<const void*>(seg_gather_kernel),
-                           reinterpret_cast<const void*>(records_flat_kernel)};
-    int threads[12] = {0, 0, 0, kThreads, kThreads, kThreads, kScanThreads, kThreads,
-                       32 * kChunkWarps, kMergeTile, kThreads, kThreads};
+                           reinterpret_cast<const void*>(records_flat_kernel<true>),
+                           reinterpret_cast<const void*>(records_flat_kernel<false>)};
+    int threads[13] = {0, 0, 0, kThreads, kThreads, kThreads, kScanThreads, kThreads,
+                       32 * kChunkWarps, kMergeTile, kThreads, kFlatThreads, kFlatThreads};
     int dynamic = 0;
     if (kernel < 3) {
         const int warps =
@@ -1193,27 +1443,76 @@ extern "C" int grace_segsort_resources(int* out, int kernel, int n_stage, int de
 }
 
 // E10: rows (idx i32, intg, dist f32 [n_rows, width]) into the flat
-// buffers o_* [capacity] at offsets i32[n_rows], counts i32[n_rows]
-// (clamped to width) a row; slots: one sentinel slot after each row. The
-// offsets are the exclusive scan of counts + slots (n_rows (width + slots)
-// < 2^31). The fills are i32 and f32 bit patterns.
-extern "C" int grace_records_to_flat(const int32_t* counts, const int32_t* offsets,
-                                     const int32_t* idx, const float* intg, const float* dist,
-                                     int32_t* o_idx, float* o_intg, float* o_dist, int n_rows,
-                                     int width, int capacity, int slots, int idx_fill,
-                                     int val_bits, int dist_bits, int device, void* stream) {
+// buffers o_* [capacity]; offsets i32[n_rows] and kept i32[n_rows] are
+// written: counts (hit counts, >= 0) clamped to the width, and the
+// exclusive scan of kept + slots (one sentinel slot after each row where
+// slots is 1; n_rows (width + slots) < 2^31, so the int64 scan's cast to
+// int32 never wraps). state: 1 + ceil(n_rows / range_rows) u64 words,
+// zeroed here. The fills are i32 and f32 bit patterns. Rows of a width
+// that is a multiple of 4 are read 16 bytes at a time and must be 16-byte
+// aligned, as the buffers must be.
+extern "C" int grace_records_to_flat(const int32_t* counts, const int32_t* idx, const float* intg,
+                                     const float* dist, int32_t* offsets, int32_t* kept,
+                                     int32_t* o_idx, float* o_intg, float* o_dist,
+                                     unsigned long long* state, int n_rows, int width,
+                                     int capacity, int slots, int idx_fill, int val_bits,
+                                     int dist_bits, int range_rows, int device, void* stream) {
+    const bool vec = width % 4 == 0;
+    auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
     if (n_rows < 0 || width < 0 || capacity < 0 || (slots != 0 && slots != 1) ||
+        range_rows < 1 || range_rows > kFlatThreads || !state ||
         static_cast<long long>(n_rows) * (width + slots) >= (1LL << 31) ||
-        (n_rows > 0 && (!counts || !offsets || (width > 0 && (!idx || !intg || !dist)))) ||
-        (capacity > 0 && (!o_idx || !o_intg || !o_dist))) {
+        (n_rows > 0 && (!counts || !offsets || !kept)) ||
+        (n_rows > 0 && width > 0 &&
+         (!idx || !intg || !dist ||
+          (vec && (misaligned(idx) || misaligned(intg) || misaligned(dist))))) ||
+        (capacity > 0 && (!o_idx || !o_intg || !o_dist || misaligned(o_idx) ||
+                          misaligned(o_intg) || misaligned(o_dist)))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (capacity == 0) return static_cast<int>(cudaGetLastError());
-    const long long threads = 32LL * n_rows > capacity ? 32LL * n_rows : capacity;
-    records_flat_kernel<<<blocks_for(threads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        counts, offsets, idx, intg, dist, o_idx, o_intg, o_dist, n_rows, width, capacity, slots,
-        idx_fill, as_float(val_bits), as_float(dist_bits));
+    if (n_rows == 0 && capacity == 0) return static_cast<int>(cudaGetLastError());
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const long long n_ranges = (static_cast<long long>(n_rows) + range_rows - 1) / range_rows;
+    err = cudaMemsetAsync(state, 0, sizeof(unsigned long long) * (1 + n_ranges), s);
+    const auto fn = vec ? records_flat_kernel<true> : records_flat_kernel<false>;
+    // the blocks the card holds at once (asked once a device and instance),
+    // or fewer where the tickets are fewer
+    static int resident[kMaxDevices][2];
+    int most = device < kMaxDevices ? resident[device][vec] : 0;
+    if (err == cudaSuccess && most == 0) {
+        int per_sm = 0, sms = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kFlatThreads, 0);
+        if (err == cudaSuccess) {
+            err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+        }
+        most = (per_sm > 0 ? per_sm : 1) * sms;
+        if (err == cudaSuccess && device < kMaxDevices) resident[device][vec] = most;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long tickets = n_ranges + (static_cast<long long>(capacity) + kTailChunk - 1) /
+                                             kTailChunk + 1;
+    const int grid = static_cast<int>(tickets < most ? tickets : most);
+    FlatArgs a{};
+    a.counts = counts;
+    a.src[0] = reinterpret_cast<const uint32_t*>(idx);
+    a.src[1] = reinterpret_cast<const uint32_t*>(intg);
+    a.src[2] = reinterpret_cast<const uint32_t*>(dist);
+    a.offsets = offsets;
+    a.kept = kept;
+    a.dst[0] = reinterpret_cast<uint32_t*>(o_idx);
+    a.dst[1] = reinterpret_cast<uint32_t*>(o_intg);
+    a.dst[2] = reinterpret_cast<uint32_t*>(o_dist);
+    a.state = state;
+    a.fill[0] = static_cast<uint32_t>(idx_fill);
+    a.fill[1] = static_cast<uint32_t>(val_bits);
+    a.fill[2] = static_cast<uint32_t>(dist_bits);
+    a.n_rows = n_rows;
+    a.width = width;
+    a.capacity = capacity;
+    a.slots = slots;
+    a.range_rows = range_rows;
+    fn<<<grid, kFlatThreads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
 }

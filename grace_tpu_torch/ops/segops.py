@@ -258,10 +258,11 @@ segmented_sort_cuda.launches = 0
 # csrc/segsort.cu's kernels in grace_segsort_resources' numbering: the sort
 # kernel for record rows of up to 512 and of up to 1,024 (E8) and for
 # segments (E9), E9's head bits, counts, starts, the long route's scans,
-# check, chunks, merge and gather, and E10.
+# check, chunks, merge and gather, and E10 on rows read 16 bytes at a time
+# (a width that is a multiple of 4) and on the others.
 RESOURCE_KERNELS = ("sort_rows (512)", "sort_rows (1,024)", "sort_segments", "seg_heads",
                     "seg_count", "seg_starts", "seg_long_scan", "seg_check", "seg_chunks",
-                    "seg_merge", "seg_gather", "records_to_flat")
+                    "seg_merge", "seg_gather", "records_to_flat", "records_to_flat (scalar rows)")
 
 
 def segsort_resources(device, kernel: str, n_stage: int = 3) -> dict:

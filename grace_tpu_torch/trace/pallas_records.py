@@ -466,6 +466,12 @@ def _records_to_flat_plain(
     return (offsets, counts, *out)
 
 
+# The rows an E10 block scans and copies, and the most it takes
+# (csrc/segsort.cu's kFlatThreads).
+FLAT_ROWS = 128
+_FLAT_MAX_ROWS = 512
+
+
 def _f32_bits(v: float) -> int:
     """The i32 bit pattern of ``v`` rounded to f32, as ``torch.full`` fills."""
     with np.errstate(over="ignore"):
@@ -476,31 +482,39 @@ def records_to_flat_cuda(rec: RecordTraceResult, capacity: int,
                          index_sentinel: int = INDEX_SENTINEL,
                          value_sentinel: float = VALUE_SENTINEL,
                          distance_sentinel: float = DISTANCE_SENTINEL,
-                         sentinel_slots: bool = False):
+                         sentinel_slots: bool = False, _rows: int = FLAT_ROWS):
     """``csrc/segsort.cu``'s flat layout (E10, ``grace_records_to_flat``):
     ``records_to_flat`` on CUDA tensors, bit-equal to
-    ``_records_to_flat_plain``. The offsets are the plain version's
-    (``torch.cumsum`` in int64, cast to int32; rows of fewer than 2^31
-    slots in all, so they do not wrap); a warp a row copies its records
-    and sentinel slot, and the kernel writes the tail: every position of
-    the three buffers once."""
+    ``_records_to_flat_plain``, in one launch after a memset of its
+    look-back state. The kernel clamps the counts and scans them with the
+    sentinel slots (the low 32 bits of the plain version's int64 cumsum,
+    which its cast keeps; rows of fewer than 2^31 slots in all, so they do
+    not wrap), a block ``_rows`` rows (``FLAT_ROWS``; others only to test
+    the look-back over many blocks and to time other ranges) taking its
+    prefix from the blocks before. A warp copies a row: 16-byte loads of
+    the whole row where the width is a multiple of 4, stores realigned in
+    registers to 16 bytes (the destination starts at any word, which also
+    rules out TMA's bulk copies: both their ends must be 16-byte aligned),
+    else 4 bytes a column. Later blocks fill the tail: every position of
+    the three buffers is written once."""
     device, n, c = _check_rows("records_to_flat", rec)
     capacity = int(capacity)
     if not 0 <= capacity < 1 << 31:
         raise ValueError(f"records_to_flat: capacity {capacity} outside [0, 2^31)")
     if not -(1 << 31) <= int(index_sentinel) < 1 << 31:
         raise ValueError(f"records_to_flat: index_sentinel {index_sentinel} is no i32")
-    slots = 1 if sentinel_slots else 0
-    counts = torch.clamp(rec.counts, max=c)
-    stride = counts + slots
-    offsets = (torch.cumsum(stride, dim=0) - stride).to(torch.int32)
+    if not 1 <= _rows <= _FLAT_MAX_ROWS:
+        raise ValueError(f"records_to_flat: {_rows} rows a block outside [1, {_FLAT_MAX_ROWS}]")
+    rows = [_kernels.aligned(t) if c % 4 == 0 else t.contiguous() for t in rec[1:]]
+    offsets, counts = (torch.empty(n, dtype=torch.int32, device=device) for _ in range(2))
     bufs = [torch.empty(capacity, dtype=d, device=device)
             for d in (torch.int32, torch.float32, torch.float32)]
-    rows = [t.contiguous() for t in rec[1:]]
-    _kernels.launch("segsort", "grace_records_to_flat", device, counts.data_ptr(),
-                    offsets.data_ptr(), *[t.data_ptr() for t in rows],
-                    *[t.data_ptr() for t in bufs], n, c, capacity, slots, int(index_sentinel),
-                    _f32_bits(value_sentinel), _f32_bits(distance_sentinel))
+    state = torch.empty(1 + -(-n // _rows), dtype=torch.int64, device=device)
+    _kernels.launch("segsort", "grace_records_to_flat", device, rec.counts.contiguous().data_ptr(),
+                    *[t.data_ptr() for t in rows], offsets.data_ptr(), counts.data_ptr(),
+                    *[t.data_ptr() for t in bufs], state.data_ptr(), n, c, capacity,
+                    1 if sentinel_slots else 0, int(index_sentinel), _f32_bits(value_sentinel),
+                    _f32_bits(distance_sentinel), _rows)
     records_to_flat_cuda.launches += 1
     return (offsets, counts, *bufs)
 

@@ -1182,11 +1182,31 @@ def test_segsort_launches_without_a_host_sync(dev, scene):
 
 
 @pytest.mark.cuda
+def test_records_to_flat_is_a_memset_and_one_launch(dev, scene):
+    """records_to_flat on CUDA tensors makes two device operations, the
+    look-back state's memset and E10's kernel (no torch scan before it),
+    and gives the same bits with the look-back forced over many blocks."""
+    from chip_smoke import device_ops
+
+    ss, rays = scene
+    rec = prc.pallas_trace_sph_records(rays, ss, 128)
+    capacity = int(rec.counts.sum()) + 3
+    ops = device_ops(lambda: prc.records_to_flat(rec, capacity))
+    assert len(ops) == 2 and sum("records_flat_kernel" in n for n in ops) == 1, ops
+    want = prc._records_to_flat_plain(rec, capacity, sentinel_slots=True)
+    for rows in (1, 5, prc.FLAT_ROWS, 512):
+        got = prc.records_to_flat_cuda(rec, capacity, sentinel_slots=True, _rows=rows)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                               w.view(torch.int32) if w.dtype == torch.float32 else w), rows
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_stage", [3, 10])
 @pytest.mark.parametrize("kernel", ["sort_rows (512)", "sort_rows (1,024)", "sort_segments",
                                     "seg_heads", "seg_count", "seg_starts", "seg_long_scan",
                                     "seg_check", "seg_chunks", "seg_merge", "seg_gather",
-                                    "records_to_flat"])
+                                    "records_to_flat", "records_to_flat (scalar rows)"])
 def test_segsort_resources(dev, kernel, n_stage):
     """Every segsort.cu kernel keeps its state in registers and shared
     memory (no local bytes) and fits on an SM; the sort kernels with

@@ -49,6 +49,8 @@ CUDA kernels (``csrc/segsort.cu``) as numpy models.
 """
 
 import ctypes
+import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -110,6 +112,7 @@ def _jax_outputs(kind, tag):
         return list(jax.jit(jpr.sort_records_by_distance)(rec))
     if kind == "flat":
         rows, capacity, kw = segsort_flat(tag)
+        kw.pop("_rows", None)   # the kernel's rows a block
         rec = jpr.RecordTraceResult(*(jnp.asarray(a) for a in rows))
         fn = jax.jit(lambda r: jpr.records_to_flat(r, capacity, **kw))
         return list(fn(rec))
@@ -553,36 +556,155 @@ def _model_seg_gather(long_start, long_len, elem_end, n_long, unsorted, pos0, po
 POISON = np.uint32(0x7FBADBAD)
 
 
-def _model_records_to_flat(counts, offsets, idx, intg, dist, o_idx, o_intg, o_dist, n_rows,
-                           width, capacity, slots, idx_fill, val_bits, dist_bits):
-    """A warp a row: columns below the kept count to offsets + col below the
-    capacity, the sentinel slot; then the tail from the last row's end. The
-    outputs are poisoned first and every position must be written once."""
+FLAT_THREADS, FLAT_VECS, TAIL_CHUNK = 512, 4, 8192   # segsort.cu's kFlat*, kTailChunk
+AGGREGATE, INCLUSIVE = 1 << 32, 2 << 32
+M32 = 0xFFFFFFFF
+LOOK_BACK_WAVE = 40   # ranges that publish their sums before any of them looks back
+
+
+def _model_look_back(words, t):
+    """look_back's warp over the published words of the ranges before t:
+    32 at a time (lane l range k - l, a range before 0 an inclusive 0),
+    sums up to the nearest inclusive word. Returns (the sum of the ranges
+    before t mod 2^32, windows read)."""
+    base, k, windows = 0, t - 1, 0
+    while True:
+        js = k - np.arange(32)
+        w = [INCLUSIVE if j < 0 else int(words[j]) for j in js]
+        flags = [x >> 32 for x in w]
+        assert 0 not in flags, "a predecessor had published nothing"
+        windows += 1
+        stop = flags.index(2) if 2 in flags else 31
+        base = (base + sum(x & M32 for x in w[:stop + 1])) & M32
+        if 2 in flags:
+            return base, windows
+        k -= 32
+
+
+def _model_copy_row(srcs, dsts, writes, row, off, kept, width, capacity, slots, fills):
+    """copy_row: a warp copies a row's records (16-byte vectors where the
+    width is a multiple of 4, realigned to the destination's 16 bytes by
+    a shuffle from the next lane; 4-byte stores for the ragged ends; else
+    4 bytes a column), then lane 0 its sentinel slot."""
+    n = 0 if kept <= 0 or (off & M32) >= capacity else min(kept, capacity - off)
+    lanes = np.arange(32)
+    if width % 4 == 0:
+        h = (4 - off % 4) % 4
+        nb = (n - h) >> 2 if n > h else 0
+        tail = h + 4 * nb
+        for cb in range(0, n, 32 * 4 * FLAT_VECS):
+            q = lanes[None, :] + 32 * np.arange(FLAT_VECS + 1)[:, None]
+            q[FLAT_VECS] = 32 * FLAT_VECS   # lane 0's vector of the next chunk
+            load = cb + 4 * q < n
+            load[FLAT_VECS, 1:] = False
+            cols = cb + 4 * q[..., None] + np.arange(4)
+            assert (cols[load] < width).all() and ((row + cb + 4 * q[load]) % 4 == 0).all()
+            for src, dst, wr in zip(srcs, dsts, writes):
+                v = np.zeros((FLAT_VECS + 1, 32, 4), np.uint32)
+                v[load] = src[row + cols[load]]
+                for t in range(FLAT_VECS):
+                    give = v[t].copy()
+                    give[0] = v[t + 1][0]
+                    b = give[(lanes + 1) % 32]           # the shuffle from lane l + 1
+                    out = np.concatenate([v[t][:, h:], b[:, :h]], axis=1)
+                    m = cb // 4 + lanes + 32 * t
+                    pos = off + h + 4 * m[m < nb]
+                    assert (pos % 4 == 0).all(), "a vector store off 16 bytes"
+                    dst[pos[:, None] + np.arange(4)] = out[m < nb]
+                    np.add.at(wr, (pos[:, None] + np.arange(4)).ravel(), 1)
+                    c = 4 * m[:, None] + np.arange(4)
+                    ends = (c < n) & ((c < h) | (c >= tail))   # the ragged head and tail
+                    dst[off + c[ends]] = v[t][ends]
+                    np.add.at(wr, off + c[ends], 1)
+    else:
+        c = np.arange(n)
+        for src, dst, wr in zip(srcs, dsts, writes):
+            dst[off + c] = src[row + c]
+            np.add.at(wr, off + c, 1)
+    slot = off + kept
+    if slots and 0 <= slot < capacity:
+        for dst, f in zip(dsts, fills):
+            dst[slot] = f
+        writes[:, slot] += 1
+
+
+def _model_fill_tail(dsts, writes, fills, total, c, capacity):
+    """fill_tail: ticket c's chunk of TAIL_CHUNK positions, its part in
+    [total, capacity), 16 bytes a store between the ragged ends; False
+    where the chunk starts past the capacity."""
+    chunk = total // TAIL_CHUNK + c
+    lo, hi = max(total, chunk * TAIL_CHUNK), min(chunk * TAIL_CHUNK + TAIL_CHUNK, capacity)
+    if lo >= hi:
+        return False
+    p = chunk * TAIL_CHUNK + 4 * np.arange(TAIL_CHUNK // 4)
+    whole = (p >= lo) & (p + 4 <= hi)
+    ends = (p[~whole][:, None] + np.arange(4)).ravel()
+    pos = np.concatenate([(p[whole][:, None] + np.arange(4)).ravel(),
+                          ends[(ends >= lo) & (ends < hi)]])
+    assert (p[whole] % 4 == 0).all()
+    for dst, f in zip(dsts, fills):
+        dst[pos.astype(np.int64)] = f
+    np.add.at(writes, (slice(None), pos.astype(np.int64)), 1)
+    return True
+
+
+def _model_records_to_flat(counts, idx, intg, dist, offsets, kept, o_idx, o_intg, o_dist, state,
+                           n_rows, width, capacity, slots, idx_fill, val_bits, dist_bits,
+                           range_rows, stats=None):
+    """grace_records_to_flat: the state zeroed; tickets in order, ticket t
+    below the ranges' count range t of range_rows rows (a thread a row:
+    clamp, u32 scan, the look-back; the offsets and counts; a warp a row's
+    copy), the later ones the tail's chunks. The ranges run in waves of
+    LOOK_BACK_WAVE that publish their sums first and look back last one
+    first, so a look-back reads windows of aggregates before it meets an
+    inclusive sum. The outputs are poisoned first and every position must
+    be written once (a 16-byte store counts its four)."""
+    assert 1 <= range_rows <= FLAT_THREADS
+    n_ranges = -(-n_rows // range_rows)
+    words = _view(state, ctypes.c_uint64, 1 + n_ranges)
+    words[:] = 0                                            # the memset
     cnt = _view(counts, ctypes.c_int32, n_rows).astype(np.int64)
-    off = _view(offsets, ctypes.c_int32, n_rows).astype(np.int64)
+    o_off, o_kept = _view(offsets, ctypes.c_int32, n_rows), _view(kept, ctypes.c_int32, n_rows)
     srcs = [_view(p, ctypes.c_uint32, n_rows * width) for p in (idx, intg, dist)]
     dsts = [_view(p, ctypes.c_uint32, capacity) for p in (o_idx, o_intg, o_dist)]
     fills = [np.int32(idx_fill).view(np.uint32), np.int32(val_bits).view(np.uint32),
              np.int32(dist_bits).view(np.uint32)]
-    writes = np.zeros(capacity, int)
-    for d in dsts:
+    writes = np.zeros((3, capacity), int)   # stores into each position of each buffer
+    rows_written = np.zeros(n_rows, int)
+    for d in dsts + [o_off.view(np.uint32), o_kept.view(np.uint32)]:
         d[:] = POISON
-    for r in range(n_rows):
-        c = np.arange(cnt[r])
-        c = c[off[r] + c < capacity]
-        for s_arr, d_arr in zip(srcs, dsts):
-            d_arr[off[r] + c] = s_arr[r * width + c]
-        writes[off[r] + c] += 1
-        q = off[r] + cnt[r]
-        if slots and q < capacity:
-            for d_arr, f in zip(dsts, fills):
-                d_arr[q] = f
-            writes[q] += 1
-    total = off[-1] + cnt[-1] + slots if n_rows else 0
-    for d_arr, f in zip(dsts, fills):
-        d_arr[total:] = f
-    writes[total:] += 1
+    ranges = words[1:]
+    for w0 in range(0, n_ranges, LOOK_BACK_WAVE):
+        wave = range(w0, min(w0 + LOOK_BACK_WAVE, n_ranges))
+        scans = {}
+        for t in wave:   # each range's scan, its sum published
+            r0 = t * range_rows
+            k = np.minimum(cnt[r0:r0 + range_rows], width)
+            stride = (k + slots) & M32
+            incl = np.cumsum(stride) & M32
+            scans[t] = (k, stride, incl)
+            agg = int(incl[-1])
+            ranges[t] = (INCLUSIVE if t == 0 else AGGREGATE) | agg
+        for t in reversed(wave):   # then the look-backs, the last range first
+            k, stride, incl = scans[t]
+            base, windows = (0, 0) if t == 0 else _model_look_back(ranges, t)
+            if stats is not None:
+                stats.append(windows)
+            ranges[t] = INCLUSIVE | ((base + int(incl[-1])) & M32)
+            r0 = t * range_rows
+            off = ((base + incl - stride) & M32).astype(np.uint32).view(np.int32)
+            o_off[r0:r0 + len(k)] = off
+            o_kept[r0:r0 + len(k)] = k
+            rows_written[r0:r0 + len(k)] += 1
+            for i in range(len(k)):
+                _model_copy_row(srcs, dsts, writes, (r0 + i) * width, int(off[i]), int(k[i]),
+                                width, capacity, slots, fills)
+    total = max(int(np.uint32(ranges[-1] & M32).view(np.int32)), 0) if n_ranges else 0
+    c = 0
+    while _model_fill_tail(dsts, writes, fills, total, c, capacity):
+        c += 1
     assert (writes == 1).all(), "a position written other than once"
+    assert (rows_written == 1).all(), "a row's offset and count written other than once"
 
 
 MODELS = {"grace_sort_rows": _model_sort_rows, "grace_seg_heads": _model_seg_heads,
@@ -651,6 +773,73 @@ def test_records_to_flat_model_matches_plain(tag, model_launch):
     _kernel_vs_plain("flat", tag)
     assert tpr.records_to_flat_cuda.launches == before + 1
     assert model_launch == ["grace_records_to_flat"]
+
+
+def _flat_layout_of(tag):
+    """(kept a row, offsets as the plain version scans them, width,
+    capacity, rows a block) of SEGSORT_FLAT_CASES' case ``tag``."""
+    rows, capacity, kw = segsort_flat(tag)
+    width = rows[1].shape[1]
+    kept = np.minimum(rows[0].astype(np.int64), width)
+    stride = kept + int(kw["sentinel_slots"])
+    return kept, np.cumsum(stride) - stride, width, capacity, kw.get("_rows", tpr.FLAT_ROWS)
+
+
+def test_flat_cases_reach_their_edges():
+    """The flat cases hold what the E10 kernel's edges need: rows of 0, 1,
+    2, 3 and width records starting at each of the four destination words
+    mod 4 (on 16-byte rows, and on rows of a width no multiple of 4);
+    rows past a 512-column chunk; a capacity ending inside a row's body
+    vector, below the total, past it and 0; row counts no multiple of the
+    rows a block; more than 32 blocks behind a look-back."""
+    seen_vec, seen_scalar = set(), set()
+    cut = past = below = zero = ragged_ranges = 0
+    for tag in FLAT:
+        kept, off, width, capacity, block = _flat_layout_of(tag)
+        if SEGSORT_FLAT_CASES[tag][5] != "ragged":
+            continue
+        kind = np.select([kept <= 3, kept == width], [kept, np.full_like(kept, -1)], 99)
+        pairs = {(int(k), int(o) % 4) for k, o in zip(kind, off) if k != 99}
+        (seen_vec if width % 4 == 0 else seen_scalar).update(pairs)
+        total = int(kept.sum() + SEGSORT_FLAT_CASES[tag][4] * kept.shape[0])
+        zero += capacity == 0
+        below += 0 < capacity < total
+        past += capacity > total
+        ragged_ranges = max(ragged_ranges, -(-kept.shape[0] // block))
+        assert kept.shape[0] % block, tag     # the last block holds fewer rows
+        r = np.searchsorted(off, capacity, side="right") - 1
+        if 0 < capacity < total and off[r] < capacity < off[r] + kept[r]:
+            h = (4 - off[r] % 4) % 4
+            inside = capacity - off[r] - h
+            cut += inside > 0 and inside % 4 and inside < 4 * ((kept[r] - h) // 4)
+    every = {(k, a) for k in (0, 1, 2, 3, -1) for a in range(4)}
+    assert every <= seen_vec and every <= seen_scalar
+    assert any(_flat_layout_of(t)[2] > 512 and _flat_layout_of(t)[2] % 4 == 0 for t in FLAT)
+    assert cut and past and below and zero and ragged_ranges > 32
+
+
+def test_flat_model_constants_are_the_kernels():
+    """The model's block, vector and tail-chunk sizes are segsort.cu's, and
+    the wrapper's rows a block fit a block."""
+    src = open(_kernels.CSRC + "/segsort.cu").read()
+    consts = {name: v for name, v in re.findall(r"constexpr int (\w+) = ([^;]+);", src)}
+    assert int(consts["kFlatThreads"]) == FLAT_THREADS == tpr._FLAT_MAX_ROWS
+    assert int(consts["kFlatVecs"]) == FLAT_VECS
+    assert consts["kTailChunk"] == "4 * 4 * kFlatThreads" and TAIL_CHUNK == 16 * FLAT_THREADS
+    assert 1 <= tpr.FLAT_ROWS <= FLAT_THREADS
+
+
+def test_flat_look_back_reads_past_a_window(model_launch, monkeypatch):
+    """Forced to 7 rows a block, the flat layout's look-backs (the model
+    publishes a wave of 40 ranges' sums before any looks back) read more
+    than one window of 32 predecessors and meet the inclusive sum behind
+    it: the same bits."""
+    stats = []
+    monkeypatch.setitem(MODELS, "grace_records_to_flat",
+                        functools.partial(_model_records_to_flat, stats=stats))
+    tag = next(t for t in FLAT if SEGSORT_FLAT_CASES[t][6] == 7)
+    _kernel_vs_plain("flat", tag)
+    assert len(stats) == -(-SEGSORT_FLAT_CASES[tag][0] // 7) and max(stats) >= 2
 
 
 @pytest.mark.parametrize("tag", CSR)
