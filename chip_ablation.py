@@ -3,7 +3,7 @@
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
                              [sortfree_bwd] [render_fwd] [paths] [statistics] [walk]
                              [build] [climbs] [splat_prep] [broadphase] [record_sort]
-                             [segsort] [feeds] [records_flat]
+                             [segsort] [feeds] [records_flat] [tri_lists]
                              [--parent DIR [--rounds K]]
                              (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
@@ -15,6 +15,7 @@
     python3 chip_ablation.py records --parent DIR   (record_sort alone: no kernel variants)
     python3 chip_ablation.py segsort   (variants of csrc/segsort.cu on path 4's records)
     python3 chip_ablation.py records_flat --parent DIR --rounds 2   (E10 in turns, variants)
+    python3 chip_ablation.py tri_lists --parent DIR   (E7 in turns, variants)
 
 Each variant is a copy of the kernel's sources with one constant, one wait
 or one device function replaced, built as the package builds its libraries
@@ -246,11 +247,35 @@ wrapper launches them (longest list first).
   integer reductions; and, timed only, the strip's staging and hulls
   alone, the staging alone, no word stores, no fine test) on the bench at
   tile 64 and 128 against quarters with the summary and segments against
-  tiles, and the triangle lists with and without their union test,
-  bit-equal and timed in turns. With --parent DIR, DIR's grace_tpu_torch
+  tiles, bit-equal and timed in turns. With --parent DIR, DIR's grace_tpu_torch
   and this one in turns (parent, this, this, parent; --rounds K times),
   each a process of its own; the variants run in the first of this
   one's processes only (--no-variants in the others).
+
+  tri_lists: E7 (tri_tile_lists_cuda, csrc/tri_lists.cu) through the
+  package's user functions only, on render_triangles' primary and shadow
+  rays of the torus (512 x 512, tiles of 32, max_chunks 2048, as
+  pallas_trace_tri lists them): the wrapper's call (CUDA events, median
+  of 10 after a warm run) with its kernel's device time (torch.profiler,
+  20 calls) and the call's device operations and busy ms, and
+  render_triangles(engine="pallas"); with --parent DIR, DIR's
+  grace_tpu_torch and this one in turns (parent, this, this, parent;
+  --rounds K times), each a process of its own. First, in each side's
+  first process, the kernel's variants bound in the package's place,
+  each compared one bit-equal to its package's shipped kernel and all
+  timed in turns by the kernel's device time: in this package
+  (tri_variants) boxes from device memory, 4-byte row stores, warp
+  buffers of 128, 64 and 32 entries, one block an SM at 128 registers, 8
+  warps a block at three and four blocks an SM, 32 warps a block, a grid
+  of one block an SM, blocks that are not persistent (a warp a tile,
+  every block staging the boxes), row stores not streaming, the hulls by two
+  redux.sync a (k, axis) (the first form), tiles by a grid stride,
+  without the word hulls, without the union tests, and the leave-outs no
+  sort, no row writes, nothing listed, the hulls alone (also without
+  their folds, and with f32 fmas) and no tiles; in the
+  parent's (a block a tile: PARENT_TRI_VARIANTS) its boxes staged once a
+  block in 396 persistent blocks, and the leave-outs no sort and no row
+  writes.
 
 Then each shipped kernel on the same inputs launched in other orders of
 its work units (ray tiles, segments), through the C entry point: as
@@ -2313,9 +2338,14 @@ def part_turns(part, parent_dir, rounds=1):
         cmd = [sys.executable, os.path.abspath(__file__), part]
         if who == "parent":
             cmd += ["--package", parent_dir]
-        elif runs["this"]:
-            cmd += ["--no-variants"]   # the kernel variants run in the first only
-        out = subprocess.run(cmd, capture_output=True, text=True, check=True).stdout
+        if runs[who]:
+            cmd += ["--no-variants"]   # the kernel variants run in each side's first only
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            print(f"{who}: {' '.join(cmd)} failed ({res.returncode}):\n{res.stdout[-4000:]}"
+                  f"\n{res.stderr[-8000:]}", flush=True)
+            res.check_returncode()
+        out = res.stdout
         for line in out.splitlines()[:-1]:
             print(f"{who}: {line}", flush=True)
         runs[who].append(json.loads(out.splitlines()[-1])[part])
@@ -2342,54 +2372,6 @@ def part_turns(part, parent_dir, rounds=1):
                   + ", ".join(f"{x:+.3f}" for x in pairs)
                   + f" ({sum(x > 0 for x in pairs)} of {len(pairs)} slower)", flush=True)
     return runs
-
-
-def tri_list_variants(tris):
-    """csrc/tri_lists.cu as shipped and without its test against the
-    intervals' union (each segment then tested against the intervals one
-    by one), on render_triangles' primary and shadow rays of the torus
-    (512 x 512, tiles of 32, max_chunks 2048), through the package's
-    wrapper with its launch sent to each build: outputs bit-equal, times in
-    turns (shipped, variant, variant, shipped; CUDA events, median of 10).
-    Returns {label: {"variant_ms": [..]}} ({} with --no-variants)."""
-    if NO_VARIANTS:
-        return {}
-    from grace_tpu_torch.models import triangle as mt
-    from grace_tpu_torch.rays.gen import pinhole_camera_rays
-    from grace_tpu_torch.trace import pallas_tri as pt
-    from chip_smoke import torus_list_rays
-
-    sorted_tris, _, _ = mt.build_triangle_tree(tris)
-    cam, look, length = mt.auto_camera(sorted_tris, SIDE)
-    rays = pinhole_camera_rays(SIDE, SIDE, cam.tolist(), look.tolist(), (0.0, 1.0, 0.0),
-                               math.pi / 3, float(length), device=tris.device)
-    t, ids, _ = pt.pallas_trace_tri(rays, sorted_tris)
-    sets = torus_list_rays(rays, sorted_tris, t, ids, length)
-    seg_min, seg_max = pt.tri_segment_aabbs(sorted_tris)
-    dlls = {"shipped": build_variant("tri_lists", "tri_lists shipped", None),
-            "without the union test": build_variant(
-                "tri_lists", "tri_lists no union",
-                [swap("tri_lists.cu", "if (!(ubox[0][0] <= hi[0]", "if (false && !(ubox[0][0] <= hi[0]")])}
-
-    def lists(dll, rays):
-        return routed(dll, lambda: pt.tri_tile_lists_cuda(rays, seg_min, seg_max, 32, 2048))
-
-    result = {}
-    for name, key in (("primary", "rays_clipped"), ("shadow", "shadow_clipped")):
-        outs = {tag: lists(dll, sets[key]) for tag, dll in dlls.items()}
-        for a, b in zip(outs["shipped"], outs["without the union test"]):
-            if not torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
-                               b.view(torch.int32) if b.dtype == torch.float32 else b):
-                raise AssertionError(f"tri_lists variant differs on the {name} rays")
-        times = {tag: [] for tag in dlls}
-        for tag in ("shipped", "without the union test", "without the union test", "shipped"):
-            times[tag].append(cuda_ms(lambda: lists(dlls[tag], sets[key]), reps=10))
-        for tag, ms in times.items():
-            print(f"broadphase part tri_tile_lists {tag} (torus {name} rays): "
-                  + ", ".join(f"{m:.3f}" for m in ms) + " ms (CUDA events, median of 10, in "
-                  "turns; bit-equal)", flush=True)
-            result[f"tri_tile_lists {tag}, torus {name}"] = {"variant_ms": ms}
-    return result
 
 
 def broadphase_paths():
@@ -2436,8 +2418,6 @@ def broadphase_paths():
                 *seg[128], *tiles[TRACE_TILE]),)}
         result.update(kernel_variants("broadphase", "broadphase", OVERLAP_VARIANTS, calls,
                                       "overlap_words_kernel", not_compared=OVERLAP_LEAVE_OUTS))
-    if hasattr(pt, "tri_tile_lists_cuda"):
-        result.update(tri_list_variants(tris))
     tmin64, tmax64 = pb.tile_aabbs(rays_s, 64)
     seg_q = pb.segment_aabbs(ss, 32)
     for label, fn in (
@@ -2463,6 +2443,307 @@ def broadphase_paths():
             print(f"broadphase part {label}: kernel {result[label]['kernel_ms']} ms "
                   f"(profiler, 20 calls)", flush=True)
     return result
+
+
+# E7's variants (csrc/tri_lists.cu): (edits, the wrapper's private limits,
+# the scratch rows it allocates, compared with the shipped kernel's bits)
+TRI = "tri_lists.cu"
+TRI_LEAVE_OUTS = ("leave-out: no sort", "leave-out: no row writes",
+                  "leave-out: nothing listed (hulls, union tests, a row of ids)",
+                  "leave-out: the hulls alone", "leave-out: the hulls alone without folds",
+                  "leave-out: the hulls alone with f32 fmas",
+                  "leave-out: no tiles (the launch, staging, word hulls)")
+# E7's hulls as the first form of this design: two redux.sync a (k, axis)
+# on order-preserving ints, lanes over the rays (in place of the rows
+# folded in shared memory)
+TRI_HULLS_BY_REDUX = """    const long long r0 = t * a.tile;
+    const bool one = a.tile <= 32, have = lane < a.tile;
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f}, ln = 0.0f;
+    if (one && have) {
+        const long long r = r0 + lane;
+        for (int x = 0; x < 3; ++x) {
+            o[x] = a.origins[3 * r + x];
+            d[x] = a.dirs[3 * r + x];
+        }
+        ln = clamp0(a.lengths[r]);
+    }
+    float prev_lo[3], prev_hi[3];
+    float u_lo[3] = {INFINITY, INFINITY, INFINITY}, u_hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+    for (int k = 0; k <= K; ++k) {
+        const float fk = a.frac[k];
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+            float lo = INFINITY, hi = -INFINITY;
+            if (one) {
+                if (have) lo = hi = fma_f64(d[x], ln * fk, o[x]);
+            } else {
+                for (int i = lane; i < a.tile; i += 32) {
+                    const long long r = r0 + i;
+                    const float v = fma_f64(a.dirs[3 * r + x], clamp0(a.lengths[r]) * fk,
+                                            a.origins[3 * r + x]);
+                    lo = nan_min(lo, v);
+                    hi = nan_max(hi, v);
+                }
+            }
+            lo = warp_min(lo);
+            hi = from_order_int(__reduce_max_sync(kFull, isnan(hi) ? INT_MAX : order_int(hi)));
+            if (k > 0) {
+                const float il = nan_min(prev_lo[x], lo), ih = nan_max(prev_hi[x], hi);
+                if (lane == 0) {
+                    iv[8 * (k - 1) + x] = il;
+                    iv[8 * (k - 1) + 4 + x] = ih;
+                }
+                u_lo[x] = fminf(u_lo[x], il);
+                u_hi[x] = fmaxf(u_hi[x], ih);
+            }
+            prev_lo[x] = lo;
+            prev_hi[x] = hi;
+        }
+    }
+    float omin[3], omax[3];
+#pragma unroll
+    for (int x = 0; x < 3; ++x) {
+        float lo = INFINITY, hi = -INFINITY;
+        for (int i = lane; i < a.tile; i += 32) {
+            const float v = a.origins[3 * (r0 + i) + x];
+            lo = nan_min(lo, v);
+            hi = nan_max(hi, v);
+        }
+        omin[x] = warp_min(lo);
+        omax[x] = from_order_int(__reduce_max_sync(kFull, isnan(hi) ? INT_MAX : order_int(hi)));
+    }
+    float ln_min = INFINITY;
+    for (int i = lane; i < a.tile; i += 32) ln_min = nan_min(ln_min, clamp0(a.lengths[r0 + i]));
+    ln_min = warp_min(ln_min);
+    __syncwarp();
+
+"""
+
+
+def tri_variants():
+    """This package's list kernel as shipped and in its variants."""
+    warps = lambda n: swap(TRI, "constexpr int kWarps = 16;", f"constexpr int kWarps = {n};")
+    blocks = lambda n: swap(TRI, "constexpr int kMinBlocks = 2;",
+                            f"constexpr int kMinBlocks = {n};")
+    grid_line = ("    long long warps = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms * "
+                 "p.warps;")
+    no_hulls = swap(TRI, "        unsigned c = __ballot_sync(kFull, cand);",
+                    "        unsigned c = __ballot_sync(kFull, w < n_words);")
+    hulls_alone = swap(TRI, "    // 2. the segments. The union against each word's hull",
+                       "    if (K > 0) return;\n    // 2. the segments. The union against each "
+                       "word's hull")
+    return {
+        "shipped": (None, {}, None, True),
+        "boxes from device memory": (None, {"_stage": 0}, None, True),
+        "4-byte row stores": ([swap(TRI, "    p.vec = max_chunks % 4 == 0;",
+                                    "    p.vec = false;")], {}, None, True),
+        "warp buffer 128": (None, {"_warp_buf": 128}, None, True),
+        "warp buffer 64": (None, {"_warp_buf": 64}, None, True),
+        "warp buffer 32": (None, {"_warp_buf": 32}, None, True),
+        "one block an SM (128 registers)": ([blocks(1)], {}, None, True),
+        "8 warps a block, three blocks an SM": ([warps(8), blocks(3)], {}, None, True),
+        "8 warps a block, four blocks an SM": ([warps(8), blocks(4)], {}, None, True),
+        "32 warps a block": ([warps(32), blocks(1)], {}, None, True),
+        "a grid of one block an SM": ([swap(TRI, grid_line, grid_line.replace(
+            "(per_sm > 0 ? per_sm : 1)", "(1)"))], {}, None, True),
+        "not persistent (a warp a tile, every block staging)": ([swap(
+            TRI, grid_line, "    long long warps = n_tiles;")], {}, 1 << 14, True),
+        "row stores not streaming (st.global)": ([swap(
+            TRI, "            __stcs(reinterpret_cast<int4*>(ids) + v, vi);   // streaming: "
+            "read by the next kernel\n"
+            "            __stcs(reinterpret_cast<float4*>(dist) + v, vd);",
+            "            reinterpret_cast<int4*>(ids)[v] = vi;\n"
+            "            reinterpret_cast<float4*>(dist)[v] = vd;")], {}, None, True),
+        "hulls by redux.sync (the first form)": ([swap_between(
+            TRI, "    const long long r0 = t * a.tile;\n    for (int g0 = 0;",
+            "    // 2. the segments. The union against", TRI_HULLS_BY_REDUX)], {}, None, True),
+        "tiles by a grid stride (no tickets)": ([swap(
+            TRI, "        unsigned long long next = 0;\n"
+            "        if (lane == 0) next = atomicAdd(a.tickets, 1ull);\n"
+            "        t = a.n_warps + static_cast<long long>(__shfl_sync(kFull, next, 0));",
+            "        t += a.n_warps;")], {}, None, True),
+        "without the word hulls": ([no_hulls], {}, None, True),
+        "without the union tests (hulls and boxes)": ([no_hulls, swap(
+            TRI, "            const bool near = s < S && u_lo[0] <= bmax[3 * s] &&",
+            "            const bool near = s < S;\n            const bool unused = "
+            "u_lo[0] <= bmax[3 * s] &&")], {}, None, True),
+        TRI_LEAVE_OUTS[0]: ([swap(TRI, "    warp_bitonic<E>(v, lane);\n    __syncwarp();",
+                                  "    __syncwarp();"),
+                             swap(TRI, "        warp_bitonic<8>(v, lane);\n        chunk_store",
+                                  "        chunk_store"),
+                             swap(TRI, "            half_clean<8, kChunk / 2>(v, lane);\n", ""),
+                             swap(TRI, "            for (int q = lane; q < w / 2; q += 32) {",
+                                  "            for (int q = lane; false; q += 32) {")],
+                            {}, None, False),
+        TRI_LEAVE_OUTS[1]: ([swap(TRI, "for (int v = lane; 4 * v < a.max_chunks; v += 32) {",
+                                  "for (int v = lane; false; v += 32) {")], {}, None, False),
+        TRI_LEAVE_OUTS[2]: ([swap(TRI, "const unsigned word = __ballot_sync(kFull, near);",
+                                  "const unsigned word = __ballot_sync(kFull, near && K < 0);")],
+                            {}, None, False),
+        TRI_LEAVE_OUTS[3]: ([hulls_alone], {}, None, False),
+        TRI_LEAVE_OUTS[4]: ([hulls_alone, swap(
+            TRI, "if (lane < 3 * (g1 - g0)) {   // two folds side by side",
+            "if (lane < 3 * (g1 - g0) && K < 0) {   // two folds side by side")],
+            {}, None, False),
+        TRI_LEAVE_OUTS[5]: ([hulls_alone, swap(
+            TRI, "g <= K ? fma_f64(d[x], tk, o[x]) : o[x];",
+            "g <= K ? fmaf(d[x], tk, o[x]) : o[x];")],
+            {}, None, False),
+        TRI_LEAVE_OUTS[6]: ([swap(
+            TRI, "    for (long long t = g; t < a.n_tiles;) {",
+            "    for (long long t = g; t < a.n_tiles && a.K < 0;) {")],
+            {}, None, False),
+    }
+
+
+# The parent's list kernel (a block a tile): its boxes staged once a block
+# in dynamic shared memory, in 396 persistent blocks (3 an SM; the same
+# bits); and the leave-outs no sort and no row writes.
+PARENT_TRI_STAGE = [
+    swap(TRI, "    const int keep = max_chunks < n_segs ? max_chunks : n_segs;\n",
+         "    const int keep = max_chunks < n_segs ? max_chunks : n_segs;\n"
+         "    float* sbox = reinterpret_cast<float*>(prefix + n_words);\n"
+         "    for (int i = tid; i < 3 * n_segs; i += kThreads) {\n"
+         "        sbox[i] = seg_min[i];\n"
+         "        sbox[3 * n_segs + i] = seg_max[i];\n"
+         "    }\n"
+         "    __syncthreads();\n"),
+    swap(TRI, "lo[a] = seg_min[3LL * s + a];\n                hi[a] = seg_max[3LL * s + a];",
+         "lo[a] = sbox[3 * s + a];\n                hi[a] = sbox[3 * n_segs + 3 * s + a];"),
+    swap(TRI, "                        sizeof(int) * 2 * static_cast<size_t>(n_words);",
+         "                        sizeof(int) * 2 * static_cast<size_t>(n_words) +\n"
+         "                        sizeof(float) * 6 * static_cast<size_t>(n_segs);"),
+    swap(TRI, "        smem > 48 * 1024 || !frac ||", "        smem > 200 * 1024 || !frac ||"),
+    swap(TRI, "    const int blocks = shared_sort ? n_tiles :",
+         "    const int blocks = shared_sort ? (n_tiles < 396 ? n_tiles : 396) :"),
+    swap(TRI, "    tri_lists_kernel<<<blocks, kThreads, smem,",
+         "    cudaFuncSetAttribute(tri_lists_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
+         "                         static_cast<int>(smem));\n"
+         "    tri_lists_kernel<<<blocks, kThreads, smem,"),
+]
+PARENT_TRI_VARIANTS = {
+    "parent as shipped": (None, {}, None, True),
+    "parent, boxes staged once a block (396 persistent blocks)": (PARENT_TRI_STAGE, {}, None,
+                                                                   True),
+    "parent, " + TRI_LEAVE_OUTS[0]: ([swap(TRI, "        for (int k = 2; k <= width; k <<= 1) {",
+                                           "        for (int k = 2; false && k <= width; "
+                                           "k <<= 1) {")], {}, None, False),
+    "parent, " + TRI_LEAVE_OUTS[1]: ([
+        swap(TRI, "for (int i = tid; i < m; i += kThreads) {\n            const int c = i < lt",
+             "for (int i = tid; i < m && max_chunks < 0; i += kThreads) {\n"
+             "            const int c = i < lt"),
+        swap(TRI, "for (int w = warp; w < n_words && lt + prefix[w] < keep; w += kWarps) {",
+             "for (int w = warp; w < n_words && max_chunks < 0; w += kWarps) {"),
+        swap(TRI, "        for (int c = keep + tid; c < max_chunks; c += kThreads) {",
+             "        for (int c = keep + tid; c < 0; c += kThreads) {")], {}, None, False),
+}
+
+
+def tri_list_ablations(sets, seg_boxes, variants):
+    """E7 in each of ``variants`` ({name: (edits, private limits, scratch
+    rows or None, compared)}) bound in the package's place through its
+    wrapper, on each ray set ({name: clipped rays}): each compared
+    variant's four outputs bit-equal to the first's; then timed in turns
+    (the variants, the variants backwards; twice): the kernel's device time
+    (torch.profiler, 20 calls) and the call (CUDA events, median of 10).
+    Returns {f"{variant}, {set}": {"device_ms": [..], "ms": [..]}}."""
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    def build_or_none(i, name):
+        try:
+            return build_variant("tri_lists", f"tri_lists_{i}", variants[name][0])
+        except RuntimeError as e:   # a variant that does not build is reported, not timed
+            print(f"tri_lists part {name}: did not build: {str(e)[-2000:]}", flush=True)
+            return None
+
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        built = list(pool.map(build_or_none, range(len(variants)), variants))
+    dlls = {name: dll for name, dll in zip(variants, built) if dll is not None}
+    names = list(dlls)
+    shipped_slots = pt.SORT_SLOTS
+
+    def call(name, rays):
+        _, limits, slots, _ = variants[name]
+        pt.SORT_SLOTS = slots or shipped_slots
+        try:
+            return routed(dlls[name], lambda: pt.tri_tile_lists_cuda(
+                rays, *seg_boxes, 32, 2048, **limits))
+        finally:
+            pt.SORT_SLOTS = shipped_slots
+
+    as_bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    result = {}
+    for set_name, rays in sets.items():
+        want = [as_bits(x).clone() for x in call(names[0], rays)]
+        for name in names[1:]:
+            got = call(name, rays)
+            torch.cuda.synchronize()
+            if variants[name][3] and not all(torch.equal(as_bits(g), w)
+                                             for g, w in zip(got, want)):
+                raise AssertionError(f"tri_lists variant {name!r} differs on the {set_name} rays")
+        times = {name: {"device_ms": [], "ms": []} for name in names}
+        for _ in range(2):
+            for name in names + names[::-1]:
+                fn = lambda: call(name, rays)
+                times[name]["device_ms"].append(kernel_device_ms(fn, "tri_lists_kernel",
+                                                                 reps=20))
+                times[name]["ms"].append(cuda_ms(fn, reps=10))
+        for name, r in times.items():
+            dev_ms = ", ".join("not measured" if m is None else f"{m:.4f}"
+                               for m in r["device_ms"])
+            print(f"tri_lists part {name}, torus {set_name}: kernel {dev_ms} ms (profiler, 20 "
+                  f"calls each); call " + ", ".join(f"{m:.3f}" for m in r["ms"])
+                  + " ms (CUDA events, median of 10 each); in turns, "
+                  + ("bit-equal to " + names[0] if variants[name][3] else
+                     "a leave-out, not compared"), flush=True)
+            result[f"{name}, {set_name}"] = r
+    return result
+
+
+def tri_lists_paths():
+    """The ``tri_lists`` part in this process, on whichever grace_tpu_torch
+    it imports: E7's call on path 5's primary and shadow rays with its
+    kernel's device time and the call's device operations, and
+    render_triangles(engine="pallas"); first (not with --no-variants) the
+    kernel's variants: this package's (tri_variants) where its wrapper
+    takes the private limits, else the parent's (PARENT_TRI_VARIANTS)."""
+    import inspect
+
+    from grace_tpu_torch.models import triangle as mt
+    from grace_tpu_torch.rays.gen import pinhole_camera_rays
+    from grace_tpu_torch.trace import pallas_tri as pt
+    from chip_smoke import torus_list_rays
+
+    dev = torch.device("cuda", 0)
+    tris = torch.from_numpy(torus_mesh(**TORUS)).to(dev)
+    sorted_tris, _, _ = mt.build_triangle_tree(tris)
+    cam, look, length = mt.auto_camera(sorted_tris, SIDE)
+    rays = pinhole_camera_rays(SIDE, SIDE, cam.tolist(), look.tolist(), (0.0, 1.0, 0.0),
+                               math.pi / 3, float(length), device=dev)
+    t, ids, _ = pt.pallas_trace_tri(rays, sorted_tris)
+    clipped = torus_list_rays(rays, sorted_tris, t, ids, length)
+    sets = {"primary": clipped["rays_clipped"], "shadow": clipped["shadow_clipped"]}
+    seg_boxes = pt.tri_segment_aabbs(sorted_tris)
+    result = {}
+    if not NO_VARIANTS:
+        ours = "_warp_buf" in inspect.signature(pt.tri_tile_lists_cuda).parameters
+        result["variants"] = tri_list_ablations(sets, seg_boxes,
+                                                tri_variants() if ours else PARENT_TRI_VARIANTS)
+    calls = [(f"tri_tile_lists_cuda (torus {name})",
+              lambda r=r: pt.tri_tile_lists_cuda(r, *seg_boxes, 32, 2048))
+             for name, r in sets.items()]
+    calls.append(("render_triangles pallas",
+                  lambda: mt.render_triangles(tris, resolution=SIDE, engine="pallas")))
+    for label, fn in calls:
+        ms = cuda_ms(fn, reps=10)
+        print(f"tri_lists part {label}: {ms:.3f} ms (CUDA events, median of 10)", flush=True)
+        result[label] = {"ms": ms, **device_busy(f"tri_lists part {label}", fn)}
+        if label.startswith("tri_tile_lists"):
+            result[label]["kernel_ms"] = kernel_device_ms(fn, "tri_lists_kernel", reps=20)
+            print(f"tri_lists part {label}: kernel {result[label]['kernel_ms']} ms "
+                  f"(profiler, 20 calls)", flush=True)
+    return result
+
 
 
 SEGSORT = "segsort.cu"
@@ -3262,7 +3543,7 @@ def walk_ablations(parent_dir):
 
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
          "paths", "statistics", "walk", "build", "climbs", "splat_prep", "broadphase",
-         "record_sort", "segsort", "feeds", "records_flat")
+         "record_sort", "segsort", "feeds", "records_flat", "tri_lists")
 
 
 def main():
@@ -3324,6 +3605,9 @@ def main():
     if "records_flat" in parts:
         summary["records_flat"] = (part_turns("records_flat", parent, rounds) if parent
                                    else records_flat_paths())
+    if "tri_lists" in parts:
+        summary["tri_lists"] = (part_turns("tri_lists", parent, rounds) if parent
+                                else tri_lists_paths())
     if "sortfree_bwd" in parts:
         summary["splat_sortfree_bwd"] = sortfree_bwd_ablations(
             sorted_spheres, torch.ones(N_PARTICLES, device=dev), parent)

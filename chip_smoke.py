@@ -285,6 +285,7 @@ FLOPS_HIT_FAST_BWD = 122
 FLOPS_MT = 55
 RECORD_CAP = 512          # grace_tpu's record workload capacity
 TORUS = dict(n_u=512, n_v=256)   # grace_tpu's triangle workload: 262,144 triangles
+TORUS_SEGMENTS = 2 * TORUS["n_u"] * TORUS["n_v"] // 128   # its 128-triangle segments
 ENGINE_SUBSET = 4096      # rays of the triangle image held against the engine
 WALK_SUBSET = 64          # path 8: every 64th bench ray against the plain walk
 # Flops of the engine's walk (csrc/bvh_walk.cu): the slab test of one child
@@ -372,6 +373,32 @@ def kernel_device_ms(fn, kernel, reps=10, tries=3):
         if len(us) == reps:
             return sum(us) / 1e3 / reps
     return None
+
+
+def kernel_device_ms_seen(fn, kernel, reps=20, tries=10):
+    """The mean device time of the launches of ``kernel`` that the
+    profiler's windows hold (ms; each window ``reps`` warm calls of fn(),
+    one launch each), the windows taken until one holds all ``reps`` or
+    ``tries`` have run; (ms, launches seen), ms None where none was seen.
+    kernel_device_ms wants a whole window, which in the smoke's timing
+    phase some kernels' windows never were."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        seen += us
+        if len(us) == reps:
+            break
+    return (sum(seen) / 1e3 / len(seen) if seen else None), len(seen)
 
 
 def device_ops(fn, reps=10, tries=8):
@@ -3017,13 +3044,20 @@ def zero_broadphase_counters():
 # check_tri_lists' cases: tag -> (mesh, tiles, tile, max_chunks, intervals).
 # "torus": the tests' 4,096-triangle torus under 64 x 48 pinhole rays;
 # "random": 3,000 random triangles (a ragged last segment) and rays from
-# inside the box; "misses": a tile of rays that miss the box (clipped to 0
-# length), one of zero-length rays by an isolated segment, one of rays that
-# reach every segment; "extreme": directions of 1e-12 and lengths of 2 BIG,
-# so that one segment's key is exactly BIG and another's past it, and a
-# tile with an origin at +inf whose infinite segment's key is NaN (not
-# clipped); "big": 11,719 segments (1.5M triangles), past the shared-memory
-# sort.
+# inside the box; "ragged": 12,000 (94 segments, slabs along x) and short
+# rays from inside (rows whose BIG group spans three words around the
+# listed segments and passes keep = 94, inside a 16-byte vector; 37 tiles,
+# no multiple of a block's warps); "misses": a
+# tile of rays that miss the box (clipped to 0 length), one of zero-length
+# rays by an isolated segment, one of rays that reach every segment;
+# "extreme": directions of 1e-12 and lengths of 2 BIG, so that one
+# segment's key is exactly BIG and another's past it, and a tile with an
+# origin at +inf whose infinite segment's key is NaN (not clipped); "big":
+# 11,719 segments (1.5M triangles), past the staged boxes and the warp's
+# buffer. TRI_LIST_FORCED: the kernel's private limits a case sets
+# (tri_tile_lists_cuda's _warp_buf and _stage), the routes past the warp's
+# buffer (the device scratch's sort) and past the staged boxes (boxes read
+# from device memory) at a small size.
 TRI_LIST_SEED = 2029
 TRI_LIST_CASES = {
     "torus 64 x 32 (4,096 triangles), 96 tiles of 32 pinhole rays, max_chunks 2048":
@@ -3037,6 +3071,20 @@ TRI_LIST_CASES = {
         ("extreme", 2, 8, 4, 16),
     "random mesh of 1,500,032 (11,719 segments: the device-memory sort), 16 wide tiles of 8":
         ("big", 16, 8, 4224, 16),
+    "torus, max_chunks 50 (rows of 4-byte stores: 32 segments, then pads)":
+        ("torus", 96, 32, 50, 16),
+    "random mesh of 12,000 (94 segments, slabs along x), 37 tiles of 32, max_chunks 96":
+        ("ragged", 37, 32, 96, 16),
+    "torus, max_chunks 2048, a warp's buffer of 4 entries (the device scratch's sort)":
+        ("torus", 96, 32, 2048, 16),
+    "torus, max_chunks 2048, boxes staged up to 16 segments (its 32 from device memory)":
+        ("torus", 96, 32, 2048, 16),
+}
+TRI_LIST_FORCED = {
+    "torus, max_chunks 2048, a warp's buffer of 4 entries (the device scratch's sort)":
+        {"_warp_buf": 4},
+    "torus, max_chunks 2048, boxes staged up to 16 segments (its 32 from device memory)":
+        {"_stage": 16},
 }
 
 
@@ -3058,12 +3106,16 @@ def tri_list_scene(tag):
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         o = np.tile([0.1, 0.2, 3.0], (r, 1))
         return tris, f32(o), f32(d), f32(np.full(r, 6.0)), True
-    if mesh in ("random", "big"):
-        tris = random_mesh(rng, 3000 if mesh == "random" else 11719 * 128)
+    if mesh in ("random", "ragged", "big"):
+        count, length = {"random": (3000, 0.6), "ragged": (12000, 0.1),
+                         "big": (11719 * 128, 5.0)}[mesh]
+        tris = random_mesh(rng, count)
+        if mesh == "ragged":   # segments as slabs along x: short rays list a few
+            tris = tris[np.argsort(tris[:, :, 0].mean(axis=1), kind="stable")]
         o = rng.random((r, 3)) * 0.4 + 0.3
         d = rng.standard_normal((r, 3))
         d /= np.linalg.norm(d, axis=1, keepdims=True)
-        return tris, f32(o), f32(d), f32(np.full(r, 5.0 if mesh == "big" else 0.6)), True
+        return tris, f32(o), f32(d), f32(np.full(r, length)), True
     if mesh == "misses":
         # 23 full segments in the unit box, then a last segment by (5, 5, 5)
         tris = np.concatenate([random_mesh(rng, 2944),
@@ -3109,11 +3161,18 @@ def tri_list_inputs(tag, dev):
 
 def check_tri_lists_case(tag, rays, tris, tile, max_chunks, n_intervals=16):
     """csrc/tri_lists.cu against _dense_tile_segments_tri_plain on the same
-    tensors: ids, counts and flags bit-equal, distances bit-equal (NaN where
-    the plain version's are). Returns (n_segs a tile, overflow)."""
+    tensors (with the case's TRI_LIST_FORCED limits, through
+    tri_tile_lists_cuda): ids, counts and flags bit-equal, distances
+    bit-equal (NaN where the plain version's are). Returns (n_segs a tile,
+    overflow)."""
     from grace_tpu_torch.trace import pallas_tri as pt
 
-    got = pt._dense_tile_segments_tri(rays, tris, tile, max_chunks, n_intervals)
+    forced = TRI_LIST_FORCED.get(tag)
+    if forced:
+        got = pt.tri_tile_lists_cuda(rays, *pt.tri_segment_aabbs(tris), tile, max_chunks,
+                                     n_intervals, **forced)
+    else:
+        got = pt._dense_tile_segments_tri(rays, tris, tile, max_chunks, n_intervals)
     want = pt._dense_tile_segments_tri_plain(rays, tris, tile, max_chunks, n_intervals)
     for name, g, w in zip(("seg_ids", "seg_dist", "n_segs", "overflow"), got, want):
         if name == "seg_dist":
@@ -3145,9 +3204,11 @@ def check_tri_lists(dev, torus_sets=None, edge_cases=True):
 
 
 def tri_list_tests(rays, tris, tile, n_intervals=16, block=512):
-    """(box tests, listed segments) of the triangle lists on these rays: a
-    segment is tested against intervals 0..kfirst (all K where it is not
-    listed), the plain version's overlap in blocks of ``block`` tiles."""
+    """(box tests, listed segments, listed segments a tile i64[tiles], the
+    union test's passes) of the triangle lists on these rays: a segment
+    that passes the intervals' union is tested against intervals
+    0..kfirst (all K where it is not listed), the plain version's overlap
+    in blocks of ``block`` tiles."""
     from grace_tpu_torch.ops.vecmath import fma
     from grace_tpu_torch.trace import pallas_tri as pt
 
@@ -3158,7 +3219,8 @@ def tri_list_tests(rays, tris, tile, n_intervals=16, block=512):
     d = rays.directions.reshape(n_tiles, tile, 3)
     ln = torch.clamp(rays.lengths, min=0.0).reshape(n_tiles, tile)
     frac = torch.arange(K + 1, dtype=torch.float32, device=o.device) / K
-    tests = listed = 0
+    tests = listed = near = 0
+    per_tile = []
     for a0 in range(0, n_tiles, block):
         sl = slice(a0, a0 + block)
         pts = fma(d[sl][:, :, None, :], (ln[sl][:, :, None] * frac)[..., None],
@@ -3170,9 +3232,15 @@ def tri_list_tests(rays, tris, tile, n_intervals=16, block=512):
               (seg_min[None, None] <= imax[:, :, None, :])).all(dim=-1)
         k_ids = torch.arange(K, device=o.device)[None, :, None]
         kfirst = torch.where(ov, k_ids, K).amin(dim=1)
-        tests += int(torch.where(kfirst < K, kfirst + 1, K).sum())
-        listed += int((kfirst < K).sum())
-    return tests, listed
+        # the union without NaN bounds (fminf / fmaxf over the intervals)
+        umin = torch.where(torch.isnan(imin), float("inf"), imin).amin(dim=1)
+        umax = torch.where(torch.isnan(imax), float("-inf"), imax).amax(dim=1)
+        union = ((umin[:, None, :] <= seg_max[None]) & (seg_min[None] <= umax[:, None, :])).all(-1)
+        tests += int(torch.where(kfirst < K, kfirst + 1, K)[union].sum()) + union.numel()
+        near += int(union.sum())
+        per_tile.append((kfirst < K).sum(dim=1))
+        listed += int(per_tile[-1].sum())
+    return tests, listed, torch.cat(per_tile), near
 
 
 def broadphase_times(spheres, rays, tris, tri_sets):
@@ -3180,10 +3248,12 @@ def broadphase_times(spheres, rays, tris, tri_sets):
     inputs: each broadphase kernel alone and its plain version at the
     records' quarter granularity (tile 64), the public calls of both routes
     at tile 64 and 128, and the triangle lists of path 5's primary and
-    shadow rays (kernel, the call with its two box reductions, the plain
-    version, and torch's stable sort of the same keys: the one PyTorch call
-    that does the list's sort). Returns (times, {kernel: (operations,
-    bytes)}): each input read once, each output written once."""
+    shadow rays (the wrapper's call, its kernel's device time, the call
+    with its two box reductions, the plain version, and torch's stable sort
+    of the same keys: the one PyTorch call that does the list's sort).
+    Returns (times, {kernel: (operations, bytes)}: each input read once,
+    each output written once, lines: the lists' device operations a call
+    and what they list a tile)."""
     from grace_tpu_torch.trace import broadphase as bp
     from grace_tpu_torch.trace import pallas_broadphase as pb
     from grace_tpu_torch.trace import pallas_render as pr
@@ -3249,10 +3319,23 @@ def broadphase_times(spheres, rays, tris, tri_sets):
         "compact_words": (3 * words.numel() + 2 * set_bits, nbytes(words, ids, n, ovf)),
     }
     seg_min, seg_max = pt.tri_segment_aabbs(tris)
+    lines = []
     for name, tri_rays in tri_sets.items():
         out = pt.tri_tile_lists_cuda(tri_rays, seg_min, seg_max, 32, 2048)
-        t[f"tri_tile_lists kernel (torus {name})"] = cuda_ms(
-            lambda: pt.tri_tile_lists_cuda(tri_rays, seg_min, seg_max, 32, 2048))
+        lists = lambda: pt.tri_tile_lists_cuda(tri_rays, seg_min, seg_max, 32, 2048)
+        t[f"tri_tile_lists kernel (torus {name})"] = cuda_ms(lists)
+        # (the profiler drops some windows' device events in this phase: the
+        # launches it saw, and the longest operation list of three)
+        ms, seen = kernel_device_ms_seen(lists, "tri_lists_kernel")
+        label = f"tri_tile_lists device (profiler; the kernel alone, torus {name})"
+        if ms is None:
+            log(f"time {label}: not measured (the profiler saw no device time of the kernel)")
+        else:
+            t[label] = ms
+            lines.append(f"{label}: the mean of {seen} launches the profiler saw")
+        ops = max((device_ops(lists) for _ in range(3)), key=len)
+        lines.append(f"tri_tile_lists (torus {name}): {len(ops)} device operations a call "
+                     f"({', '.join(n[:48] for n in ops)})")
         t[f"_dense_tile_segments_tri (torus {name})"] = cuda_ms(
             lambda: pt._dense_tile_segments_tri(tri_rays, tris, 32, 2048))
         t[f"_dense_tile_segments_tri plain (torus {name})"] = cuda_ms(
@@ -3263,12 +3346,19 @@ def broadphase_times(spheres, rays, tris, tri_sets):
             keys = torch.empty_like(out[1]).scatter_(1, out[0].long(), out[1])
             t[f"tri lists' key sort (torch.sort, stable; torus {name})"] = cuda_ms(
                 lambda: torch.sort(keys, dim=1, stable=True))
-        tests, listed = tri_list_tests(tri_rays, tris, 32)
+        tests, listed, per_tile, near = tri_list_tests(tri_rays, tris, 32)
+        lines.append(f"tri_tile_lists (torus {name}): {per_tile.shape[0]} tiles of 32, "
+                     f"{seg_min.shape[0]} segments; listed a tile mean "
+                     f"{float(per_tile.double().mean()):.2f}, max {int(per_tile.max())}, "
+                     f"{int((per_tile == 0).sum())} tiles list none; {near} pass the union "
+                     f"test ({near / per_tile.shape[0]:.1f} a tile), {tests} box tests")
+        # the bytes: the rays, the boxes and frac read once, the four
+        # outputs written once (the kernel reads the boxes once a block)
         work[f"tri_tile_lists {name}"] = (
             6 * tests + 30 * listed,
             nbytes(tri_rays.origins, tri_rays.directions, tri_rays.lengths, seg_min, seg_max,
-                   *out))
-    return t, work
+                   *out) + 4 * (pt.N_CULL_INTERVALS + 1))
+    return t, work, lines
 
 
 # check_segsort's cases (csrc/segsort.cu). Keys with every special value
@@ -4698,6 +4788,17 @@ def run(dev, n_particles, side):
         log(f"resources {label}: {json.dumps(res)}")
         if res["local_bytes"]:
             raise AssertionError(f"the {label} kernel uses local memory: {res}")
+    # the triangle lists' four instances at path 5's shapes (2,048 segments,
+    # 16 intervals): 16-byte and 4-byte rows, boxes staged and from device
+    # memory
+    from grace_tpu_torch.trace import pallas_tri as pt
+
+    for label, max_chunks, stage in (("16-byte rows, staged boxes", 2048, None),
+                                     ("4-byte rows, staged boxes", 2046, None),
+                                     ("16-byte rows, boxes from device memory", 2048, 0),
+                                     ("4-byte rows, boxes from device memory", 2046, 0)):
+        res = pt.tri_tile_lists_resources(dev, TORUS_SEGMENTS, max_chunks, _stage=stage)
+        log(f"resources tri_tile_lists ({label}; csrc/tri_lists.cu): {json.dumps(res)}")
     for kernel in segops.RESOURCE_KERNELS:   # the sort kernels with path 4's three arrays
         res = segops.segsort_resources(dev, kernel)
         log(f"resources segsort {kernel}: {json.dumps(res)}")
@@ -5359,9 +5460,11 @@ def run(dev, n_particles, side):
     t.update(bt)
     # the broadphase (csrc/broadphase.cu) and the triangle lists
     # (csrc/tri_lists.cu): each kernel alone, its plain version, the calls
-    bpt, bp_work = broadphase_times(sorted_spheres, rays_s, tri_state["sorted_tris"],
-                                    torus_sets[1])
+    bpt, bp_work, bp_lines = broadphase_times(sorted_spheres, rays_s, tri_state["sorted_tris"],
+                                              torus_sets[1])
     t.update(bpt)
+    for line in bp_lines:
+        log(line)
     for k, v in t.items():
         log(f"time {k}: {v:.3f} ms")
 

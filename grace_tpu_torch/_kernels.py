@@ -99,7 +99,8 @@ KERNELS = {
                     "grace_overlap_words_resources": "p",
                     "grace_compact_words": "pppp" + "iii"}),
     "tri_lists": ("tri_lists.cu", ["--fmad=false"],
-                  {"grace_tri_tile_lists": "p" * 11 + "i" * 6}),
+                  {"grace_tri_tile_lists": "p" * 12 + "i" * 8,
+                   "grace_tri_tile_lists_resources": "p" + "i" * 5}),
     # the per-hit records' post-processing: the record rows' sort, the CSR
     # sort by distance (heads, starts, a warp a segment; long segments
     # checked for order, the others in chunks, merged, gathered) and the

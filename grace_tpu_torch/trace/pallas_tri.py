@@ -16,9 +16,10 @@ launches ``csrc/tri.cu``. Two stages, as there:
               no ray of the tile can find a closer hit past the next chunk
               of segments.
 
-On a CUDA tensor the lists are one launch of ``csrc/tri_lists.cu`` (a block
-a tile: the hulls, a thread a segment, a bitonic sort of the listed
-segments) and the trace one of ``csrc/tri.cu``; on a CPU tensor each
+On a CUDA tensor the lists are one launch of ``csrc/tri_lists.cu`` (a warp
+a tile against segment boxes staged once a block: the hulls, a lane a
+segment, the listed segments sorted in the warp, the row written once) and
+the trace one of ``csrc/tri.cu``; on a CPU tensor each
 wrapper runs its plain PyTorch version (``_dense_tile_segments_tri_plain``,
 ``_tri_plain``).
 
@@ -29,6 +30,7 @@ hit); rays as ``pallas_kernel._pack_rays`` rows.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -48,12 +50,18 @@ MODES = ("closest", "any")
 # overlap tensor (elements) and of the plain kernel's lockstep tiles.
 CULL_BLOCK_ELEMENTS = 1 << 26
 PLAIN_BLOCK_TILES = 256
-# The list kernel (csrc/tri_lists.cu): the most intervals it takes, the
-# most entries of a tile's sort buffer it keeps in shared memory, and the
-# scratch rows (blocks) of its device-memory route beyond that.
+# The list kernel (csrc/tri_lists.cu): the most intervals it takes; the
+# most segment boxes a block stages in shared memory (past them it reads
+# them from device memory); the most entries a warp sorts in registers
+# (a tile that lists more sorts in its warp's row of a device scratch);
+# and that scratch's rows (the most warps that take tiles where it is in
+# use: 132 SMs x 32 resident warps of an H100 at the torus's 2,048
+# segments) and entries.
 MAX_INTERVALS = 64
-SHARED_SORT = 4096
-SORT_SLOTS = 1024
+STAGE_SEGS = 4096
+WARP_BUF = 256
+SORT_SLOTS = 4224
+SORT_SCRATCH = 1 << 24
 
 
 def _pack_tris(tris: torch.Tensor):
@@ -107,12 +115,17 @@ def _dense_tile_segments_tri(rays: Rays, tris, tile: int, max_chunks: int,
 
 
 def tri_tile_lists_cuda(rays: Rays, seg_min, seg_max, tile: int, max_chunks: int,
-                        n_intervals: int = N_CULL_INTERVALS):
+                        n_intervals: int = N_CULL_INTERVALS, _warp_buf=None, _stage=None):
     """``csrc/tri_lists.cu``'s ``grace_tri_tile_lists``: the outputs of
-    ``_dense_tile_segments_tri`` from the segment boxes. A tile's listed
-    segments are sorted in shared memory while next_pow2(segments) <=
-    ``SHARED_SORT``, else in a scratch of ``SORT_SLOTS`` rows in device
-    memory (the same network, the same bits)."""
+    ``_dense_tile_segments_tri`` from the segment boxes. Persistent blocks
+    stage the boxes in shared memory up to ``STAGE_SEGS`` segments (else
+    read them from device memory); a warp a tile (the tiles by a ticket
+    counter the C entry zeroes: a memset, then the launch) sorts up to
+    ``WARP_BUF`` listed segments in registers, more in its row of a device
+    scratch (the same bits). ``_warp_buf`` and ``_stage`` force smaller
+    limits (the tests' routes past them)."""
+    warp_buf = WARP_BUF if _warp_buf is None else _warp_buf
+    stage = STAGE_SEGS if _stage is None else _stage
     device = _kernels.check_tensors("tri_tile_lists", [],
                                     [rays.origins, rays.directions, rays.lengths, seg_min,
                                      seg_max])
@@ -128,10 +141,11 @@ def tri_tile_lists_cuda(rays: Rays, seg_min, seg_max, tile: int, max_chunks: int
     # frac as the plain version computes it, on the same device
     frac = torch.arange(K + 1, dtype=torch.float32, device=device) / K
     cap = 1 << max(0, n_segs - 1).bit_length()
-    slots = 0 if cap <= SHARED_SORT else min(n_tiles, SORT_SLOTS)
+    slots = min(n_tiles, SORT_SLOTS, max(1, SORT_SCRATCH // cap)) if n_segs > warp_buf else 0
     scratch = torch.empty(max(1, slots * cap), dtype=torch.int64, device=device)
-    ins = [t.contiguous() for t in (seg_min, seg_max, rays.origins, rays.directions,
-                                    rays.lengths)]
+    tickets = torch.empty(1, dtype=torch.int64, device=device)   # zeroed by the C entry
+    ins = [_kernels.aligned(seg_min), _kernels.aligned(seg_max)] + [
+        t.contiguous() for t in (rays.origins, rays.directions, rays.lengths)]
     seg_ids = torch.empty((n_tiles, max_chunks), dtype=torch.int32, device=device)
     seg_dist = torch.empty((n_tiles, max_chunks), dtype=torch.float32, device=device)
     n = torch.empty(n_tiles, dtype=torch.int32, device=device)
@@ -139,12 +153,28 @@ def tri_tile_lists_cuda(rays: Rays, seg_min, seg_max, tile: int, max_chunks: int
     _kernels.launch("tri_lists", "grace_tri_tile_lists", device,
                     *[t.data_ptr() for t in ins], frac.data_ptr(), seg_ids.data_ptr(),
                     seg_dist.data_ptr(), n.data_ptr(), overflow.data_ptr(),
-                    scratch.data_ptr(), n_tiles, tile, n_segs, K, max_chunks, slots)
+                    scratch.data_ptr(), tickets.data_ptr(), n_tiles, tile, n_segs, K,
+                    max_chunks, slots, warp_buf, stage)
     tri_tile_lists_cuda.launches += 1
     return seg_ids, seg_dist, n, overflow
 
 
 tri_tile_lists_cuda.launches = 0
+
+
+def tri_tile_lists_resources(device, n_segs: int, max_chunks: int,
+                             n_intervals: int = N_CULL_INTERVALS, _stage=None):
+    """What one launch of the list kernel at these shapes holds on
+    ``device`` (``_kernels.RESOURCE_FIELDS`` and ``local_bytes``), for the
+    instance the call takes: 16-byte rows where ``max_chunks`` is a
+    multiple of 4, boxes staged up to ``STAGE_SEGS`` (or ``_stage``)
+    segments."""
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    out = (ctypes.c_int * len(fields))()
+    _kernels.launch("tri_lists", "grace_tri_tile_lists_resources", torch.device(device),
+                    ctypes.addressof(out), n_segs, n_intervals, max_chunks, WARP_BUF,
+                    STAGE_SEGS if _stage is None else _stage)
+    return dict(zip(fields, out))
 
 
 def _dense_tile_segments_tri_plain(rays: Rays, tris, tile: int, max_chunks: int,

@@ -11,23 +11,30 @@ grace_tpu, and the design of their CUDA kernels (``csrc/broadphase.cu``,
   longest row, 1 and 0) and ``TRI_LIST_CASES`` (the tests' torus, a small
   max_chunks, a ragged last segment, K 8, tiles of clipped and zero-length
   rays listing 0, 1 and every segment, keys at and past BIG and a NaN key,
-  11,719 segments, 1.5M triangles): words, summaries, lists, counts and flags bit-equal,
+  11,719 segments, 1.5M triangles, rows of 4-byte stores, a BIG group
+  across three words cut by keep inside a vector, 37 tiles of 32, and the
+  routes past the warp's buffer and the staged boxes forced small):
+  words, summaries, lists, counts and flags bit-equal,
   boxes equal in value (zero signs are the reductions' order's, C20),
   distances bit-equal with NaN where grace_tpu's are.
 - numpy models of the five C entries, written as the kernels index their
   threads (a warp a box and a tile, lanes over its members; a block a
   strip of 32 words, each row tested against the words' hulls, a ballot
   a candidate word, the summary a ballot of the words;
-  a warp a row of words, popcounts and a warp prefix sum; a block a tile,
-  a warp a hull, a thread a segment, the listed segments pushed in any
-  order and sorted by a bitonic network, the segments whose key is BIG
-  placed by word counts and ballots), run through the port's own wrappers
-  with the ctypes launch replaced by the model (which reads and writes the
-  tensors' host memory), bit-equal to the plain versions (boxes and the
-  zero signs as above), on the cases above, on clustered particles
-  (2^14) and on the tests' torus; the triangle lists also on the
-  device-memory route, forced at a small size with fewer scratch rows
-  than tiles.
+  a warp a row of words, popcounts and a warp prefix sum; for the lists,
+  persistent blocks staging the boxes and the words' hulls once, a warp a
+  tile taken by a grid stride, the hulls by redux on order-preserving
+  ints, the union against the word hulls (held exact) and then the
+  boxes, the near segments queued and run 32 at a time with ballot
+  appends, the warp's register network or the scratch's chunked one, the
+  row written output-stationary as 16- or 4-byte stores, every tile
+  taken and every column written once), run through the port's own
+  wrappers with the ctypes launch replaced by the model (which reads and
+  writes the tensors' host memory), bit-equal to the plain versions
+  (boxes and the zero signs as above), on the cases above, on clustered
+  particles (2^14) and on the tests' torus; the triangle lists also with
+  the module's limits forced small (a warp's buffer of 4 entries, boxes
+  staged up to 8 segments, fewer scratch rows than tiles).
 - ROADMAP C22: the sort-free setup's cached camera constants equal
   ``_camera_numerics`` / ``_tile_spans`` of the caller's camera and
   ``grace_tpu``'s, for np.float32 extents and lengths, after a float
@@ -35,6 +42,7 @@ grace_tpu, and the design of their CUDA kernels (``csrc/broadphase.cu``,
 """
 
 import ctypes
+import warnings
 
 import jax
 import numpy as np
@@ -46,7 +54,8 @@ import grace_tpu.trace.pallas_render as jpr
 import grace_tpu.trace.pallas_tri as jpt
 import grace_tpu.trace.splat_grad as jsg
 from grace_tpu.core.types import Rays as JRays
-from chip_smoke import (BROADPHASE_CASES, CAM, LOOK, OVERLAP_BOX_CASES, TRI_LIST_CASES, UP,
+from chip_smoke import (BROADPHASE_CASES, CAM, LOOK, OVERLAP_BOX_CASES, TRI_LIST_CASES,
+                        TRI_LIST_FORCED, UP,
                         broadphase_scene, compaction_limits, overlap_box_scene,
                         overlap_words_reference, tri_list_scene)
 from grace_tpu_torch import _kernels
@@ -180,6 +189,15 @@ def test_tri_cases_reach_their_edges():
     assert ids[1, :4].tolist() == [0, 1, 2, 3] and torch.isnan(dist[1, 3])
     n, _, segs, _ = n_all["big"]
     assert segs == 11719 and int(n.max()) > 4096
+    # rows that list segments of all three words, their BIG group on both
+    # sides of them, holding columns 92 and 93: keep = 94 cuts it inside
+    # the vector of columns 92-95
+    n, dist, segs, ids = n_all["ragged"]
+    assert segs == 94 and int(n.max()) > 64
+    big_ids = torch.where(dist == F32(tpt.BIG), ids, -1)
+    assert bool(((big_ids[:, :94] >= 0) & (big_ids[:, :94] < 32)).any(dim=1).logical_and(
+        (big_ids[:, :94] >= 64).any(dim=1)).any())
+    assert bool(((dist[:, 92] == F32(tpt.BIG)) & (dist[:, 93] == F32(tpt.BIG))).any())
 
 
 # ---- numpy models of the C entries -------------------------------------------
@@ -380,109 +398,355 @@ def _order_bits(key):
     return np.where(np.isnan(key), np.uint32(0xFFFFFFFF), b)
 
 
-def _bitonic(buf, width):
-    """The kernel's network over buf[:width] (a power of 2), in place."""
-    k = 2
-    while k <= width:
-        j = k >> 1
-        while j:
-            i = np.arange(width)
+def _scratch_sort(row, w):
+    """scratch_sort: row[:w] (w a power of 2 past 256) in place, a chunk of
+    256 through the warp's network (descending where bit 8 of its start is
+    set: ascending on the complemented values), then each phase k >= 512:
+    its steps j >= 256 over the row, its steps j < 256 in each chunk in the
+    direction bit k of the chunk's start gives."""
+    chunk, ones = 256, np.uint64(0xFFFFFFFFFFFFFFFF)
+
+    def steps(x, k, js):
+        for j in js:
+            i = np.arange(x.shape[0])
             p = i ^ j
             sel = p > i
             i, p = i[sel], p[sel]
-            a, b = buf[i].copy(), buf[p].copy()
+            a, b = x[i].copy(), x[p].copy()
             swap = (a > b) == ((i & k) == 0)
-            buf[i[swap]], buf[p[swap]] = b[swap], a[swap]
-            j >>= 1
-        k <<= 1
+            x[i[swap]], x[p[swap]] = b[swap], a[swap]
+
+    for c in range(0, w, chunk):
+        flip = ones if c & chunk else np.uint64(0)
+        x = (row[c:c + chunk] ^ flip).reshape(32, 8)
+        row[c:c + chunk] = _warp_bitonic(x).reshape(-1) ^ flip
+    k = 2 * chunk
+    while k <= w:
+        steps(row[:w], k, [j for j in (k >> np.arange(1, 32)) if j >= chunk])
+        for c in range(0, w, chunk):
+            flip = ones if c & k else np.uint64(0)
+            x = row[c:c + chunk] ^ flip
+            steps(x, 2 * chunk, [128, 64, 32, 16, 8, 4, 2, 1])   # every step ascending
+            row[c:c + chunk] = x ^ flip
+        k *= 2
 
 
-def _model_tri_tile_lists(seg_min, seg_max, origins, dirs, lengths, frac, seg_ids, seg_dist, n,
-                          overflow, scratch, n_tiles, tile, n_segs, K, max_chunks, slots):
-    """grace_tri_tile_lists: block b takes tiles b, b + grid, ...; a warp a
-    hull task, lanes over the tile's rays; a thread a segment, its buffer
-    entry pushed at an atomic counter (here in a random order); the
-    bitonic network; the sorted entries around the BIG group, which a warp
-    places 32 ids a step by the word counts' prefix sum and a ballot; the
-    pads. slots > 0: the buffer is block b's row of the scratch."""
-    rng = np.random.default_rng(n_tiles + n_segs)
-    cap = 1 << max(0, n_segs - 1).bit_length()
-    if slots == 0:
-        assert cap <= tpt.SHARED_SORT
-        grid, buf_all = n_tiles, np.zeros((n_tiles, cap), np.uint64)
-    else:
-        grid = min(n_tiles, slots)
-        buf_all = _view(scratch, ctypes.c_uint64, slots * cap).reshape(slots, cap)
-    r = n_tiles * tile
-    smin = _view(seg_min, ctypes.c_float, 3 * n_segs).reshape(n_segs, 3)
-    smax = _view(seg_max, ctypes.c_float, 3 * n_segs).reshape(n_segs, 3)
-    o = _view(origins, ctypes.c_float, 3 * r).reshape(n_tiles, tile, 3)
-    d = _view(dirs, ctypes.c_float, 3 * r).reshape(n_tiles, tile, 3)
-    ln = _view(lengths, ctypes.c_float, r).reshape(n_tiles, tile)
-    fr = _view(frac, ctypes.c_float, K + 1)
-    ids_o = _view(seg_ids, ctypes.c_int32, n_tiles * max_chunks).reshape(n_tiles, max_chunks)
-    dist_o = _view(seg_dist, ctypes.c_float, n_tiles * max_chunks).reshape(n_tiles, max_chunks)
-    n_o, ovf_o = _view(n, ctypes.c_int32, n_tiles), _view(overflow, ctypes.c_uint8, n_tiles)
-    keep = min(max_chunks, n_segs)
+def _warp_bitonic(v):
+    """warp_bitonic on v u64[32, E] (lane, register): element i = lane E +
+    e; phase K = 2, 4, ..., 32 E compares i with its mirror i ^ (K - 1)
+    (inside the lane where K <= E, else lane ^ (K / E - 1), register E - 1
+    - e), then J = K / 4, ..., 1 (inside the lane where J < E, else lane ^
+    (J / E)); the lane holding the lower index keeps the smaller value."""
+    e_n, lane = v.shape[1], np.arange(32)
+
+    def cross(v, w, low):
+        return np.where(low[:, None], np.minimum(v, w), np.maximum(v, w))
+
+    def inside(v, j, partner):
+        v = v.copy()
+        lo = np.flatnonzero((np.arange(e_n) & j) == 0)
+        a, b = v[:, lo], v[:, partner(lo)]
+        v[:, lo], v[:, partner(lo)] = np.minimum(a, b), np.maximum(a, b)
+        return v
+
+    k = 2
+    while k <= 32 * e_n:
+        if k <= e_n:
+            v = inside(v, k // 2, lambda e: e ^ (k - 1))
+        else:
+            v = cross(v, v[lane ^ (k // e_n - 1), ::-1], (lane & (k // e_n // 2)) == 0)
+        j = k // 4
+        while j >= 1:
+            if j >= e_n:
+                v = cross(v, v[lane ^ (j // e_n), :], (lane & (j // e_n)) == 0)
+            else:
+                v = inside(v, j, lambda e: e | j)
+            j //= 2
+        k *= 2
+    return v
+
+
+# The list kernel's launch as the C entry plans it (plan_for): warps a
+# block (16, fewer where a warp's area does not fit beside the staged
+# boxes and the word hulls in the card's 227 KB a block), each warp's area
+# (its buffer, pushed words, prefixes and queue, or the hulls' rows where
+# larger; the intervals; the hulls' table); the model's card holds 3 such
+# blocks.
+TRI_WARPS, TRI_SMEM, MODEL_RESIDENT_BLOCKS = 16, 232448, 3
+PAD64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+TRI_ROUTES = set()   # the routes the model's launches took
+
+
+def _tri_plan(n_segs, K, max_chunks, warp_buf, stage):
+    """(vec, staged, warps a block, floats of each staged array)."""
+    n_words = -(-n_segs // 32)
+    staged = n_segs <= stage
+    stage_floats = -(-3 * n_segs // 4) * 4 if staged else 0
+    lists = max(8 * warp_buf + 8 * n_words + 4 * 64, 4 * 34 * 3 * 7)   # or the hulls' rows
+    area = -(-(-(-lists // 16) * 16 + 32 * K + 24 * (K + 2)) // 16) * 16
+    block = -(-(8 * stage_floats + 24 * n_words) // 16) * 16   # the boxes, the word hulls
+    warps = min(TRI_WARPS, (TRI_SMEM - block) // area)
+    assert warps >= 1
+    return max_chunks % 4 == 0, staged, warps, stage_floats
+
+
+def _order_int(x):
+    """order_int: a float's order-preserving int32 (-0 below +0)."""
+    b = np.asarray(x, F32).view(np.int32)
+    return b ^ ((b >> 31) & np.int32(0x7FFFFFFF))
+
+
+def _from_order_int(k):
+    k = np.asarray(k, np.int32)
+    return (k ^ ((k >> 31) & np.int32(0x7FFFFFFF))).view(F32)
+
+
+def _redux(v, is_min):
+    """warp_min / warp_max of the lanes' values v f32[32]: one reduction of
+    the order-preserving ints, NaN mapped to the reduction's extreme."""
+    ext = np.iinfo(np.int32).min if is_min else np.iinfo(np.int32).max
+    k = np.where(np.isnan(v), np.int32(ext), _order_int(v))
+    return _from_order_int(k.min() if is_min else k.max())
+
+
+def _fminf(a, b):
+    """fminf: a NaN operand dropped, -0 below +0."""
+    return F32(np.where(np.isnan(a), b, np.where(np.isnan(b), a, _fmin(a, b))))
+
+
+def _fmaxf(a, b):
+    return F32(np.where(np.isnan(a), b, np.where(np.isnan(b), a, _fmax(a, b))))
+
+
+def _big_id(mask, pre, n_words, r, w):
+    """big_id: the r-th id of the BIG group, from the lane's word cursor w;
+    returns (id, cursor)."""
+    w = max(w, r >> 5)
+    while w + 1 < n_words and 32 * (w + 1) - int(pre[w + 1]) <= r:
+        w += 1
+    n = r - (32 * w - int(pre[w]))
+    if mask[w] == 0:
+        return 32 * w + n, w
+    clear = ~int(mask[w]) & 0xFFFFFFFF
+    for _ in range(n):
+        clear &= clear - 1
+    return 32 * w + (clear & -clear).bit_length() - 1, w
+
+
+def _model_tri_tile(t, rays, boxes, hulls, fr, K, S, max_chunks, warp_buf, srow, outs,
+                    written):
+    """list_tile: one warp's tile t."""
+    o, d, ln = rays
+    smin, smax = boxes
+    ids_o, dist_o, n_o, ovf_o = outs
     big = F32(tpt.BIG)
     clamp0 = lambda v: np.where(np.isnan(v), v, _fmax(v, F32(0))).astype(F32)
-    n_words = -(-n_segs // 32)
-    with np.errstate(all="ignore"):
-        for t in range(n_tiles):
-            buf = buf_all[t % grid]
-            lt = clamp0(ln[t])                                       # [tile]
-            pts = _fma_f64(d[t][None], (lt[None, :] * fr[:, None])[..., None], o[t][None])
-            hull = lambda v, op, init: np.moveaxis(
-                _warp_reduce(op, np.moveaxis(_lanes(v, init, v.shape[-1]), -1, 0)), 0, -1)
-            bmin, bmax = hull(pts, _nan_min, np.inf), hull(pts, _nan_max, -np.inf)  # [K+1, 3]
-            omin, omax = hull(o[t], _nan_min, np.inf), hull(o[t], _nan_max, -np.inf)
-            ln_min = hull(lt[:, None], _nan_min, np.inf)[0]
-            imin, imax = _nan_min(bmin[:-1], bmin[1:]), _nan_max(bmax[:-1], bmax[1:])
-            # the intervals' union without NaN bounds, then the intervals
-            umin = np.where(np.isnan(imin), np.inf, imin).min(axis=0)
-            umax = np.where(np.isnan(imax), -np.inf, imax).max(axis=0)
-            near = np.all((umin <= smax) & (smin <= umax), axis=1)
-            kfirst = np.full(n_segs, K)
-            for k in range(K - 1, -1, -1):
-                hit = near & np.all((imin[k] <= smax) & (smin <= imax[k]), axis=1)
-                kfirst = np.where(hit, k, kfirst)
-            listed = np.flatnonzero(kfirst < K)
-            g = clamp0(_nan_max(smin[listed] - omax, omin - smax[listed]))
-            g2 = _fma_f64(g[:, 2], g[:, 2], _fma_f64(g[:, 0], g[:, 0], g[:, 1] * g[:, 1]))
-            root = np.sqrt(g2.astype(np.float64)).astype(F32)
-            key = _nan_max(root, (fr[kfirst[listed]] * ln_min).astype(F32))
-            push = key != big
-            n_lt = int((key < big).sum())
-            entries = (_order_bits(key[push]).astype(np.uint64) << np.uint64(32)) | \
-                listed[push].astype(np.uint64)
-            m = entries.shape[0]
-            buf[:m] = entries[rng.permutation(m)]
-            width = 1 << max(0, m - 1).bit_length()
-            buf[m:width] = np.uint64(~np.uint64(0))
-            _bitonic(buf, width)
-            mask = np.zeros(n_words * 32, bool)
-            mask[listed[push]] = True
-            valid = np.arange(n_words * 32) < n_segs
-            in_big = (~mask & valid).reshape(n_words, 32)
-            prefix = np.cumsum(in_big.sum(axis=1)) - in_big.sum(axis=1)
-            n_big = n_segs - m
-            for i in range(m):
-                c = i if i < n_lt else i + n_big
-                if c < keep:
-                    e = int(buf[i])
+    tile = ln.shape[1]
+
+    def hull(values, is_min):
+        """values f32[tile]: each lane's nan_min / nan_max over its rays
+        (lane, lane + 32, ...; the identity where it has none), then the
+        warp's redux."""
+        op, ident = (_nan_min, F32(np.inf)) if is_min else (_nan_max, F32(-np.inf))
+        v = np.full(-(-tile // 32) * 32, ident, F32)
+        v[:tile] = values
+        acc = np.full(32, ident, F32)
+        for row in v.reshape(-1, 32):
+            acc = op(acc, row)
+        return _redux(acc, is_min)
+
+    # 1. the hulls; the intervals written by lane 0, their union in every lane
+    lt_ = clamp0(ln[t])
+    iv = np.zeros((K, 6), F32)
+    u_lo, u_hi = np.full(3, np.inf, F32), np.full(3, -np.inf, F32)
+    prev = None
+    for k in range(K + 1):
+        pts = _fma_f64(d[t], (lt_ * fr[k]).astype(F32)[:, None], o[t])       # [tile, 3]
+        cur = [(hull(pts[:, x], True), hull(pts[:, x], False)) for x in range(3)]
+        if k:
+            for x in range(3):
+                il, ih = _nan_min(prev[x][0], cur[x][0]), _nan_max(prev[x][1], cur[x][1])
+                iv[k - 1, x], iv[k - 1, 3 + x] = il, ih
+                u_lo[x], u_hi[x] = _fminf(u_lo[x], il), _fmaxf(u_hi[x], ih)
+        prev = cur
+    omin = np.array([hull(o[t][:, x], True) for x in range(3)], F32)
+    omax = np.array([hull(o[t][:, x], False) for x in range(3)], F32)
+    ln_min = hull(lt_, True)
+
+    # 2. the union against each word's hull (NaN bounds dropped), then the
+    # boxes of the words whose hull it meets; the near segments queue in
+    # word order and go 32 at a time (a lane each): kfirst, the key, ballot
+    # appends, each word's pushed bits or'ed in; then the words' prefixes
+    n_words = -(-S // 32)
+    hl, hh = hulls
+    cand = np.all((u_lo <= hh) & (hl <= u_hi), axis=1)
+    near_all = np.all((u_lo <= smax) & (smin <= u_hi), axis=1)
+    assert not (near_all & ~np.repeat(cand, 32)[:S]).any(), "the word hulls cull a near box"
+    queue = [s for w in np.flatnonzero(cand) for s in range(32 * w, min(32 * w + 32, S))
+             if near_all[s]]
+    buf = np.zeros(warp_buf, np.uint64)
+    mask = np.zeros(n_words, np.uint64)
+    m = n_listed = n_lt = 0
+    for b0 in range(0, len(queue), 32):
+        sv = np.array(queue[b0:b0 + 32])
+        lo, hi = smin[sv], smax[sv]
+        kfirst = np.full(sv.shape[0], K)
+        for k in range(K - 1, -1, -1):
+            hit = np.all((iv[k, :3] <= hi) & (lo <= iv[k, 3:]), axis=1)
+            kfirst = np.where(hit, k, kfirst)
+        listed = kfirst < K
+        g = clamp0(_nan_max(lo - omax, omin - hi))
+        g2 = _fma_f64(g[:, 2], g[:, 2], _fma_f64(g[:, 0], g[:, 0], g[:, 1] * g[:, 1]))
+        root = np.sqrt(g2.astype(np.float64)).astype(F32)
+        key = _nan_max(root, (fr[kfirst] * ln_min).astype(F32))
+        push = listed & (key != big)
+        n_listed += int(listed.sum())
+        n_lt += int((listed & (key < big)).sum())
+        for rank, lane in enumerate(np.flatnonzero(push)):
+            p = m + rank
+            e = (np.uint64(_order_bits(key[lane:lane + 1])[0]) << np.uint64(32)) | np.uint64(
+                sv[lane])
+            if p < warp_buf:
+                buf[p] = e
+            else:
+                srow[p] = e
+            mask[sv[lane] >> 5] |= np.uint64(1 << (int(sv[lane]) & 31))
+        m += int(push.sum())
+    counts = np.array([bin(int(x)).count("1") for x in mask], np.int64)
+    pre = np.cumsum(counts) - counts
+    assert counts.sum() == m
+
+    # 3. the sort: in registers (E = 1, 2, 4, 8) up to warp_buf, else in
+    # the scratch row over next_pow2(m) (in registers up to 256)
+
+    def register_sort(x, m, e_n):
+        v = np.full(32 * e_n, PAD64, np.uint64)
+        v[:m] = x[:m]
+        x[:m] = _warp_bitonic(v.reshape(32, e_n)).reshape(-1)[:m]
+
+    TRI_ROUTES.add("scratch sort" if m > warp_buf else "register sort")
+    if m > warp_buf:
+        srow[:warp_buf] = buf
+        w = 1 << max(0, m - 1).bit_length()
+        srow[m:w] = PAD64
+        if w <= 256:
+            register_sort(srow, m, 8)
+        else:
+            TRI_ROUTES.add("scratch chunks")
+            _scratch_sort(srow, w)
+        sorted_ = srow
+    else:
+        sorted_ = buf
+        if m > 1:
+            register_sort(buf, m, next(e for e in (1, 2, 4, 8) if m <= 32 * e))
+    assert m < 2 or np.all(sorted_[:m - 1] < sorted_[1:m]), "the network did not sort"
+
+    # 4. the row, output-stationary: a lane's vectors (or columns) in order,
+    # each column a sorted entry, a BIG-group id, or a pad
+    keep, n_big = min(max_chunks, S), S - m
+    vec = max_chunks % 4 == 0
+    width = 4 if vec else 1
+    units = -(-max_chunks // width)
+    for lane in range(32):
+        w = 0
+        for u in range(lane, units, 32):
+            cols = np.arange(u * width, u * width + width)
+            written[t, cols] += 1
+            r = u * width - n_lt
+            if vec and r >= 0 and r + 3 < n_big and u * width + 3 < keep:
+                # clear_run: four ids of one word without pushed bits
+                first, w = _big_id(mask, pre, n_words, r, w)
+                n = r - (32 * w - int(pre[w]))
+                if mask[w] == 0 and n + 3 < 32:
+                    TRI_ROUTES.add("clear runs")
+                    ids_o[t, cols], dist_o[t, cols] = first + np.arange(4), big
+                    continue
+            for c in cols:
+                if c >= keep:
+                    ids_o[t, c], dist_o[t, c] = 0, big
+                elif n_lt <= c < n_lt + n_big:
+                    ids_o[t, c], w = _big_id(mask, pre, n_words, c - n_lt, w)
+                    dist_o[t, c] = big
+                else:
+                    e = int(sorted_[c if c < n_lt else c - n_big])
                     ids_o[t, c] = e & 0xFFFFFFFF
                     hi = np.uint32(e >> 32)
                     dist_o[t, c] = (np.uint32(0x7FFFFFFF).view(F32) if hi == 0xFFFFFFFF
                                     else hi.view(F32))
-            for w in range(n_words):
-                if n_lt + prefix[w] >= keep:
-                    break
-                lanes = np.flatnonzero(in_big[w])
-                c = n_lt + prefix[w] + np.arange(lanes.shape[0])
-                ok = c < keep
-                ids_o[t, c[ok]], dist_o[t, c[ok]] = 32 * w + lanes[ok], big
-            ids_o[t, keep:], dist_o[t, keep:] = 0, big
-            n_o[t], ovf_o[t] = min(listed.shape[0], max_chunks), listed.shape[0] > max_chunks
+    n_o[t], ovf_o[t] = min(n_listed, max_chunks), n_listed > max_chunks
+
+
+def _model_tri_tile_lists(seg_min, seg_max, origins, dirs, lengths, frac, seg_ids, seg_dist, n,
+                          overflow, scratch, tickets, n_tiles, tile, n_segs, K, max_chunks,
+                          slots, warp_buf, stage):
+    """grace_tri_tile_lists: persistent blocks (the model's card holds
+    MODEL_RESIDENT_BLOCKS; no more warps than tiles, nor than scratch rows
+    where a tile may spill), each staging the boxes once (16-byte loads,
+    then the tail) where n_segs <= stage; warp g takes tile g, then tile G
+    + its ticket (here the warps finish in a random order; the ticket
+    counter starts at 0: the C entry zeroes it), list_tile in its own
+    scratch row; every tile taken once, every column below max_chunks
+    written once."""
+    assert 1 <= warp_buf <= tpt.WARP_BUF and 0 <= stage <= tpt.STAGE_SEGS
+    vec, staged, warps, stage_floats = _tri_plan(n_segs, K, max_chunks, warp_buf, stage)
+    TRI_ROUTES.update({"16-byte rows" if vec else "4-byte rows",
+                       "staged boxes" if staged else "boxes from device memory"})
+    spills = n_segs > warp_buf
+    assert not spills or slots >= 1
+    total = min(MODEL_RESIDENT_BLOCKS * warps, n_tiles)
+    if spills:
+        total = min(total, slots)
+    grid = -(-total // warps)
+    cap = 1 << max(0, n_segs - 1).bit_length()
+    rows = _view(scratch, ctypes.c_uint64, slots * cap).reshape(slots, cap) if spills else None
+    r = n_tiles * tile
+    flat_min = _view(seg_min, ctypes.c_float, 3 * n_segs)
+    flat_max = _view(seg_max, ctypes.c_float, 3 * n_segs)
+    if staged:   # the block's copy: float4 loads, then the tail
+        assert seg_min % 16 == 0 and seg_max % 16 == 0
+        sh = np.full((2, stage_floats), np.nan, F32)
+        body = 3 * n_segs // 4 * 4
+        for i, src in enumerate((flat_min, flat_max)):
+            sh[i, :body] = src[:body].reshape(-1, 4).reshape(-1)
+            sh[i, body:3 * n_segs] = src[body:]
+        flat_min, flat_max = sh[0, :3 * n_segs], sh[1, :3 * n_segs]
+    boxes = flat_min.reshape(n_segs, 3), flat_max.reshape(n_segs, 3)
+    # each word's hull, once a block: min and max of its boxes, NaNs dropped
+    n_words = -(-n_segs // 32)
+    pad = np.full((32 * n_words - n_segs, 3), np.nan, F32)
+    with np.errstate(all="ignore"), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        hulls = (np.nanmin(np.concatenate([boxes[0], pad]).reshape(n_words, 32, 3), axis=1),
+                 np.nanmax(np.concatenate([boxes[1], pad]).reshape(n_words, 32, 3), axis=1))
+    rays = (_view(origins, ctypes.c_float, 3 * r).reshape(n_tiles, tile, 3),
+            _view(dirs, ctypes.c_float, 3 * r).reshape(n_tiles, tile, 3),
+            _view(lengths, ctypes.c_float, r).reshape(n_tiles, tile))
+    fr = _view(frac, ctypes.c_float, K + 1)
+    if vec and n_tiles and max_chunks:
+        assert seg_ids % 16 == 0 and seg_dist % 16 == 0
+    outs = (_view(seg_ids, ctypes.c_int32, n_tiles * max_chunks).reshape(n_tiles, max_chunks),
+            _view(seg_dist, ctypes.c_float, n_tiles * max_chunks).reshape(n_tiles, max_chunks),
+            _view(n, ctypes.c_int32, n_tiles), _view(overflow, ctypes.c_uint8, n_tiles))
+    written = np.zeros((n_tiles, max_chunks), np.int64)
+    taken = np.zeros(n_tiles, np.int64)
+    assert tickets and grid * warps >= total
+    rng = np.random.default_rng(n_tiles + 7 * n_segs)
+    ticket = 0
+    with np.errstate(all="ignore"):
+        current = {g: g for g in range(total)}   # the warps still taking tiles
+        while current:
+            for g in rng.permutation(sorted(current)):
+                t = current[g]
+                if t >= n_tiles:
+                    del current[g]
+                    continue
+                taken[t] += 1
+                _model_tri_tile(t, rays, boxes, hulls, fr, K, n_segs, max_chunks, warp_buf,
+                                rows[g] if spills else None, outs, written)
+                current[g] = total + ticket
+                ticket += 1
+    assert (taken == 1).all(), "a tile taken other than once"
+    assert (written == 1).all(), "a column written other than once"
 
 
 MODELS = {"grace_segment_boxes": _model_segment_boxes,
@@ -596,23 +860,40 @@ def test_tri_lists_model_matches_plain(tag, model_launch):
     rays, tris, tile, max_chunks, k = _tri_inputs(tag)
     want = tpt._dense_tile_segments_tri_plain(rays, tris, tile, max_chunks, k)
     before = tpt.tri_tile_lists_cuda.launches
-    got = tpt.tri_tile_lists_cuda(rays, *tpt.tri_segment_aabbs(tris), tile, max_chunks, k)
+    forced = TRI_LIST_FORCED.get(tag, {})
+    TRI_ROUTES.clear()
+    got = tpt.tri_tile_lists_cuda(rays, *tpt.tri_segment_aabbs(tris), tile, max_chunks, k,
+                                  **forced)
     assert model_launch == ["grace_tri_tile_lists"]
     assert tpt.tri_tile_lists_cuda.launches == before + 1
+    # the routes the case is for
+    assert ("16-byte rows" if max_chunks % 4 == 0 else "4-byte rows") in TRI_ROUTES
+    if "_warp_buf" in forced or tris.shape[0] > 128 * tpt.STAGE_SEGS:
+        assert "scratch sort" in TRI_ROUTES
+    if "_stage" in forced or tris.shape[0] > 128 * tpt.STAGE_SEGS:
+        assert "boxes from device memory" in TRI_ROUTES
+    if tris.shape[0] > 128 * tpt.STAGE_SEGS:
+        assert "scratch chunks" in TRI_ROUTES
+    if max_chunks == 2048:
+        assert "clear runs" in TRI_ROUTES
     for a, b, name in zip(got, want, ("seg_ids", "seg_dist", "n_segs", "overflow")):
         _bits_equal(a, b, name)
 
 
 @pytest.mark.parametrize("tag", [TRI_CASES[0], TRI_CASES[2], TRI_CASES[4]])
 def test_tri_lists_model_device_memory_route(tag, model_launch, monkeypatch):
-    """The route past the shared-memory sort, forced at a small size: a
-    scratch of 3 rows for more tiles, the blocks striding over them; the
-    same bits."""
-    monkeypatch.setattr(tpt, "SHARED_SORT", 4)
+    """The routes past the warp's buffer and past the staged boxes, forced
+    at a small size through the module's limits: a warp's buffer of 4
+    entries, boxes staged up to 8 segments, a scratch of 3 rows for more
+    tiles (3 warps take every tile); the same bits."""
+    monkeypatch.setattr(tpt, "WARP_BUF", 4)
+    monkeypatch.setattr(tpt, "STAGE_SEGS", 8)
     monkeypatch.setattr(tpt, "SORT_SLOTS", 3)
     rays, tris, tile, max_chunks, k = _tri_inputs(tag)
     want = tpt._dense_tile_segments_tri_plain(rays, tris, tile, max_chunks, k)
+    TRI_ROUTES.clear()
     got = tpt.tri_tile_lists_cuda(rays, *tpt.tri_segment_aabbs(tris), tile, max_chunks, k)
+    assert {"scratch sort", "boxes from device memory"} <= TRI_ROUTES or tris.shape[0] <= 8 * 128
     for a, b, name in zip(got, want, ("seg_ids", "seg_dist", "n_segs", "overflow")):
         _bits_equal(a, b, name)
 

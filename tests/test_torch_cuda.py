@@ -1048,9 +1048,12 @@ def test_tri_lists_kernel_matches_plain(dev, tag):
 
 @pytest.mark.cuda
 def test_tri_lists_device_memory_route(dev, monkeypatch):
-    """The device-memory sort forced on the torus (fewer scratch rows than
-    tiles): the same bits as the plain version."""
-    monkeypatch.setattr(pt, "SHARED_SORT", 4)
+    """The device scratch's sort and the boxes from device memory forced on
+    the torus through the module's limits (a warp's buffer of 4 entries,
+    boxes staged up to 8 segments, fewer scratch rows than tiles): the same
+    bits as the plain version."""
+    monkeypatch.setattr(pt, "WARP_BUF", 4)
+    monkeypatch.setattr(pt, "STAGE_SEGS", 8)
     monkeypatch.setattr(pt, "SORT_SLOTS", 5)
     tag = list(TRI_LIST_CASES)[0]
     _, _, tile, max_chunks, k = TRI_LIST_CASES[tag]

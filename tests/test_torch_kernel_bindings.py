@@ -372,31 +372,45 @@ def test_splat_prep_constants_agree():
 
 def test_broadphase_constants_agree():
     """broadphase.cu's segment width and tri_lists.cu's interval limit,
-    shared-memory sort size and BIG are the wrappers'; both libraries build
-    with --fmad=false (the endpoints' and distances' rounding is the plain
-    versions'), and every entry refuses what it does not take before it
-    touches the device."""
+    staged boxes, warp buffer and BIG are the wrappers'; both libraries
+    build with --fmad=false (the endpoints' and distances' rounding is the
+    plain versions'), every entry (the list kernel's resources query too)
+    refuses what it does not take before it touches the device, and the
+    list kernel's staged boxes and warp areas at the limits fit a block's
+    227 KB of shared memory."""
     from grace_tpu_torch.trace import pallas_broadphase as pb
 
     bp_src, tri_src = _source("broadphase"), _source("tri_lists")
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);",
                                                      bp_src + tri_src)}
     assert consts["kSeg"] == pb.SEG
-    assert consts["kMaxIntervals"] == pt.MAX_INTERVALS and consts["kSharedSort"] == pt.SHARED_SORT
+    assert consts["kMaxIntervals"] == pt.MAX_INTERVALS
+    assert consts["kStageSegs"] == pt.STAGE_SEGS and consts["kWarpBuf"] == pt.WARP_BUF
     assert float(re.search(r"kBig = ([0-9.e+-]+)f;", tri_src).group(1)) == pt.BIG
     assert pt.N_CULL_INTERVALS <= pt.MAX_INTERVALS and pt.SORT_SLOTS >= 1
+    assert pt.SORT_SCRATCH >= 1 << max(0, pt.STAGE_SEGS - 1).bit_length()
     for name, entries in (("broadphase", {"grace_segment_boxes", "grace_tile_boxes",
                                           "grace_overlap_words", "grace_compact_words",
                                           "grace_overlap_words_resources"}),
-                          ("tri_lists", {"grace_tri_tile_lists"})):
+                          ("tri_lists", {"grace_tri_tile_lists",
+                                         "grace_tri_tile_lists_resources"})):
         _, flags, declared = _kernels.KERNELS[name]
         assert flags == ["--fmad=false"] and set(declared) == entries
         src = _source(name)
         for entry in entries:
             body = src[src.index(f'extern "C" int {entry}('):]
             assert "cudaErrorInvalidValue" in body[:body.index("cudaSetDevice")]
-    # the list kernel's shared buffer fits the default 48 KB with its masks
-    assert pt.SHARED_SORT * 8 + 2 * 4 * (pt.SHARED_SORT // 32) <= 48 * 1024
+    # a block's boxes (two f32 arrays of 3 S) and word hulls (6 f32 a 32
+    # segments) and one warp's area (its u64 buffer, a pushed word and a
+    # prefix a 32 segments, a queue of 64 ids, or the hulls' rows where
+    # larger; 8 f32 an interval, 6 a hull) at STAGE_SEGS, WARP_BUF and
+    # MAX_INTERVALS: at least one warp fits
+    n_words = pt.STAGE_SEGS // 32
+    area = (max(8 * pt.WARP_BUF + 8 * n_words + 4 * 64,
+                4 * consts["kHullRow"] * 3 * consts["kHullGroups"])
+            + 32 * pt.MAX_INTERVALS + 24 * (pt.MAX_INTERVALS + 2))
+    assert 2 * 4 * 3 * pt.STAGE_SEGS + 24 * n_words + area <= 232448
+    assert consts["kWarps"] * 32 <= 1024
 
 
 def test_segsort_constants_agree():
