@@ -211,14 +211,30 @@ wrapper launches them (longest list first).
 
   splat_prep: the splat's two setups and what they feed, through the
   package's user functions only: bucket_prims_ortho (csrc/splat_prep.cu's
-  keys kernel, torch's stable sort and the pack kernel) and the sort-free
-  setup (grace_sortfree_setup; in a package without sortfree_setup, the
-  projection, slabs and packed overlaps it replaced) on the bench scene's
-  sorted particles, weights 1, the splat frame (build, rays + sort, bucket,
-  splat) and one sort-free training step (forward, L2 loss against 1.01 x
-  its image, backward, SGD 1e-6); each timed (CUDA events, median of 10
-  after a warm run) with the device's busy ms and device operations over
-  one call (torch.profiler); in a package whose constants' caches are
+  E4: in this package its two passes; in a package whose E4 is a
+  counting sort, its keys kernel, the sort and its pack kernel) and the
+  sort-free setup (grace_sortfree_setup; in a package without
+  sortfree_setup, the projection, slabs and packed overlaps it replaced)
+  on the bench scene's sorted particles, weights 1, the splat frame
+  (build, rays + sort, bucket, splat) and one sort-free training step
+  (forward, L2 loss against 1.01 x its image, backward, SGD 1e-6); each
+  timed (CUDA events, median of 10 after a warm run) with the device's
+  busy ms and device operations over one call (torch.profiler), and
+  bucket_prims_ortho's operations each with its device time (the mean of
+  20 calls) and the call's host share (the call less its busy time). First
+  (not with --no-variants) E4's variants bound in the package's place
+  through _bucket_prims_ortho_kernels, each compared one bit-equal to the
+  package's first and all timed in turns by the call's device time, its
+  operations summed (prep_ablations): in this package (prep_variants)
+  blocks of 1,024, 2,048 and 8,192 particles, 128 threads a block, 1, 2
+  and 8 particles a thread loaded at once, per-warp counters
+  summed in warp order, the keys and rows kept in device memory between
+  the passes, pass 2 at four blocks an SM, streaming slab stores, and the
+  leave-outs no slab writes, no counting, no warp offsets, no scatter; in
+  a package whose E4 is a counting sort (PARENT_PREP_VARIANTS) its counts
+  and cursors in shared memory and the leave-outs no pack gather, no slab
+  writes. In a
+  package whose constants' caches are
   ``_FRAME_CACHE`` and ``_SETUP_CACHE`` (this one) also both setups with
   the camera's constants computed anew each call instead of taken from
   their cache. In a package with the sort-free setup's resources query
@@ -304,7 +320,8 @@ import torch
 
 from chip_smoke import (CAM, LENGTH, LOOK, MAX_PER_LEAF, N_PARTICLES, SIDE, SNAPSHOT_SEED,
                         SNAPSHOT_SIZES, TORUS, TRACE_TILE, UP, VEXT, _popcount_rows, check_close,
-                        cuda_ms, entry_inputs, kernel_device_ms, make_clustered_particles,
+                        cuda_ms, device_op_ms, entry_inputs, kernel_device_ms,
+                        make_clustered_particles,
                         order_key_torch, packet_summary, records_inputs, render_inputs,
                         route_inputs,
                         sortfree_fwd_dense, sortfree_inputs, splat_dense, torus_mesh, tri_inputs,
@@ -2251,6 +2268,415 @@ SETUP_SCALAR_STORES = [swap("splat_prep.cu", """        slab[0] = make_float4(pu
 """)]
 
 
+# E4 as a counting sort (keys, count, cumsum, scatter, pack; from --parent):
+# the counting sort's counters and cursors kept in shared memory, a warp's
+# column read once and written once (the bench's 257 bins only: bit-equal
+# there); and two leave-outs, timed only: the pack's rows read in order
+# (no order read, no gather), and no slab writes
+PARENT_SHARED_SORT = """constexpr int kBins = 257;   // the bench's 256 keys and the sentinel
+
+__global__ void __launch_bounds__(kThreads)
+    bucket_count_kernel(const int* __restrict__ keys, int* __restrict__ counts, int m, int tile,
+                        int tiles) {
+    __shared__ int s_counts[kThreads / 32][kBins];
+    const int w = (blockIdx.x * kThreads + threadIdx.x) / 32, lane = threadIdx.x % 32;
+    int* mine = s_counts[threadIdx.x / 32];
+    for (int k = lane; k < kBins; k += 32) mine[k] = 0;
+    __syncwarp();
+    if (w >= tiles) return;
+    const int start = w * tile;
+    const int end = m - start < tile ? m : start + tile;
+    for (int base = start; base < end; base += 32) {
+        const int i = base + lane;
+        const int key = i < end ? keys[i] : -1;
+        const unsigned peers = __match_any_sync(kFull, key);
+        if (key >= 0 && lane == __ffs(peers) - 1) mine[key] += __popc(peers);
+        __syncwarp();
+    }
+    for (int k = lane; k < kBins; k += 32) counts[static_cast<long long>(k) * tiles + w] = mine[k];
+}
+
+__global__ void __launch_bounds__(kThreads)
+    bucket_scatter_kernel(const int* __restrict__ keys, int* __restrict__ cursor,
+                          int* __restrict__ order, int m, int tile, int tiles) {
+    __shared__ int s_cursor[kThreads / 32][kBins];
+    const int w = (blockIdx.x * kThreads + threadIdx.x) / 32, lane = threadIdx.x % 32;
+    if (w >= tiles) return;
+    int* mine = s_cursor[threadIdx.x / 32];
+    for (int k = lane; k < kBins; k += 32) mine[k] = cursor[static_cast<long long>(k) * tiles + w];
+    __syncwarp();
+    const int start = w * tile;
+    const int end = m - start < tile ? m : start + tile;
+    for (int base = start + ((end - start - 1) & ~31); base >= start; base -= 32) {
+        const int i = base + lane;
+        const int key = i < end ? keys[i] : -1;
+        const unsigned peers = __match_any_sync(kFull, key);
+        const int leader = __ffs(peers) - 1;
+        const int size = __popc(peers);
+        int top = 0;
+        if (key >= 0 && lane == leader) {
+            top = mine[key];
+            mine[key] = top - size;
+        }
+        top = __shfl_sync(kFull, top, leader);
+        if (key >= 0) order[top - size + __popc(peers & ((1u << lane) - 1u))] = i;
+        __syncwarp();
+    }
+    for (int k = lane; k < kBins; k += 32) cursor[static_cast<long long>(k) * tiles + w] = mine[k];
+}
+
+"""
+PARENT_PREP_VARIANTS = {
+    "parent": ([], True),
+    "parent, counts and cursors in shared memory": ([swap_between(
+        "splat_prep.cu", "__global__ void __launch_bounds__(kThreads)\n    bucket_count_kernel(",
+        "__global__ void __launch_bounds__(kThreads)\n    bucket_pack_kernel(",
+        PARENT_SHARED_SORT)], True),
+    "parent, leave-out: no pack gather (rows read in order)": ([swap(
+        "splat_prep.cu", "        if (g < 4 * n) v = rows[order[g] % n];\n",
+        "        if (g < 4 * n) v = rows[g % n];\n")], False),
+    "parent, leave-out: no slab writes": ([swap("splat_prep.cu", """        slabs[base] = v.x;
+        slabs[base + chunk] = v.y;
+        slabs[base + 2 * chunk] = v.z;
+        slabs[base + 3 * chunk] = v.w;
+""", "        if (v.x == 1.0e-37f && v.y == 3.0e-37f) slabs[base] = v.z;\n")], False),
+}
+
+
+PREP = "splat_prep.cu"
+
+
+def prep_const(name, shipped, value):
+    return swap(PREP, f"constexpr int {name} = {shipped};", f"constexpr int {name} = {value};")
+
+
+# E4's pass 1 counting into a warp's own counters in shared memory (no
+# atomics: one round's group leaders hold distinct keys), summed in warp
+# order as the block writes its column (the bench's 257 bins: 4 x 257 x 8
+# warps fit 48 KB)
+PER_WARP_COUNTS = [
+    swap(PREP, "        bucket_keys_kernel<true><<<blocks, kPrepThreads, shared, s>>>(",
+         "        bucket_keys_kernel<true><<<blocks, kPrepThreads, shared * kPrepWarps, s>>>("),
+    swap(PREP, "            s_counts[i] = 0;\n",
+         "            for (int v = 0; v < kPrepWarps; ++v) s_counts[v * 4 * n_bins + i] = 0;\n"),
+    swap(PREP, "                        atomicAdd(&s_counts[q * n_bins + key], __popc(peers));\n",
+         "                        s_counts[(threadIdx.x / 32 * 4 + q) * n_bins + key] +=\n"
+         "                            __popc(peers);\n"),
+    swap(PREP, "            over |= valid && a.over;\n",
+         "            over |= valid && a.over;\n            __syncwarp();\n"),
+    swap(PREP, "            counts[counter(i % n_bins, i / n_bins, tiles)] = s_counts[i];\n",
+         "            int sum = 0;\n"
+         "            for (int v = 0; v < kPrepWarps; ++v) sum += s_counts[v * 4 * n_bins + i];\n"
+         "            counts[counter(i % n_bins, i / n_bins, tiles)] = sum;\n")]
+# E4 with pass 1's keys and rows kept in device memory (a static scratch
+# of 2^21 particles: the bench's 2^20 fit) and read back by pass 2 instead
+# of recomputed from the spheres
+KEYS_KEPT = [
+    swap(PREP, "// Block b's counter of (bin, q)",
+         "__device__ int4 g_kept_keys[1 << 21];\n__device__ float4 g_kept_rows[1 << 21];\n\n"
+         "// Block b's counter of (bin, q)"),
+    swap(PREP, "            over |= valid && a.over;\n",
+         "            over |= valid && a.over;\n"
+         "            if (valid) {\n"
+         "                const int p = base + k * kPrepThreads + threadIdx.x;\n"
+         "                g_kept_keys[p] = make_int4(a.key[0], a.key[1], a.key[2], a.key[3]);\n"
+         "                g_kept_rows[p] = a.row;\n"
+         "            }\n"),
+    swap(PREP, """            const Particle a = particle_keys(s[k], w[k], weights != nullptr, consts, nbx, nty,
+                                             n_keys);
+            int key[4], rank[4], size[4];
+""", """            Particle a;
+            if (valid) {
+                const int p = base + k * kPrepThreads + threadIdx.x;
+                const int4 kept = g_kept_keys[p];
+                a.key[0] = kept.x;
+                a.key[1] = kept.y;
+                a.key[2] = kept.z;
+                a.key[3] = kept.w;
+                a.row = g_kept_rows[p];
+            }
+            int key[4], rank[4], size[4];
+""")]
+# E4's pass 2 with its slab writes staged (the bench's shared-memory route,
+# chunk a multiple of 4): a batch's rounds keep each instance's slot and
+# row in registers; then a block scan of the batch's (q, bin) counts gives
+# each run its place in a 64 KB stage (a component's 4,096 floats each),
+# the rows go there, and a warp a run writes the run's aligned quads of
+# each slab row as float4s, its edge slots as 4-byte stores
+STAGED_PACK = """template <bool kShared>
+__global__ void __launch_bounds__(kPrepThreads)
+    bucket_pack_kernel(const float4* __restrict__ spheres, const float* __restrict__ weights,
+                       const float* __restrict__ consts, int* counts, float* __restrict__ slabs,
+                       int* __restrict__ ranges, unsigned char* __restrict__ overflow, int n,
+                       int cap, int chunk, int tile, int nbx, int nty, int n_keys) {
+    constexpr int kBatch = 4 * kLoads * kPrepThreads;   // a batch's instances
+    extern __shared__ unsigned long long s_prep[];
+    __shared__ unsigned s_sums[kPrepWarps];
+    const int n_bins = n_keys + 1, tiles = 4 * gridDim.x, pairs = 4 * n_bins;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const unsigned below = (1u << lane) - 1u;
+    const unsigned long long lower_warps = (1ull << (8 * warp)) - 1ull;
+    unsigned long long* state =
+        reinterpret_cast<unsigned long long*>(counts + static_cast<long long>(n_bins + 1) * tiles);
+    unsigned long long* words = s_prep;
+    int* s_cursor = reinterpret_cast<int*>(s_prep + pairs);
+    int* s_count = s_cursor + pairs;     // the batch's instances a pair
+    int* s_delta = s_count + pairs;      // slot - stage position of the pair's run
+    float* stage = reinterpret_cast<float*>(s_delta + pairs);   // [4][kBatch]
+    const Tile t(n, tile);
+    const int gt = blockIdx.x * kPrepThreads + threadIdx.x, stride = gridDim.x * kPrepThreads;
+    for (int g = 4 * n + gt; g < cap; g += stride) {
+        write_row(slabs, g, chunk, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    }
+    scan_counters(counts, state, ranges, overflow, n_keys, tiles, chunk);
+    for (int i = threadIdx.x; i < pairs; i += kPrepThreads) {
+        s_cursor[i] = __ldcg(&counts[counter(i % n_bins, i / n_bins, tiles)]);
+        words[i] = 0ull;
+    }
+    block_sync();
+    const int per = (pairs + kPrepThreads - 1) / kPrepThreads;
+    for (int base = t.p0; base < t.p1; base += kLoads * kPrepThreads) {
+        for (int i = threadIdx.x; i < pairs; i += kPrepThreads) s_count[i] = 0;
+        float4 s[kLoads];
+        float w[kLoads];
+        load_particles(spheres, weights, base, t.p1, s, w);
+        float4 row[kLoads];
+        int slot[kLoads][4], pair[kLoads][4];
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+            const bool valid = base + k * kPrepThreads + static_cast<int>(threadIdx.x) < t.p1;
+            const Particle a = particle_keys(s[k], w[k], weights != nullptr, consts, nbx, nty,
+                                             n_keys);
+            row[k] = a.row;
+            int key[4], rank[4], size[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                key[q] = valid ? a.key[q] : -1;
+                const unsigned peers = __match_any_sync(kFull, key[q]);
+                rank[q] = __popc(peers & below);
+                size[q] = __popc(peers);
+                if (key[q] >= 0 && rank[q] == 0) {
+                    reinterpret_cast<unsigned char*>(words + q * n_bins + key[q])[warp] =
+                        static_cast<unsigned char>(size[q]);
+                }
+            }
+            block_sync();
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                pair[k][q] = key[q] < 0 ? -1 : q * n_bins + key[q];
+                slot[k][q] = 0;
+                if (key[q] < 0) continue;
+                const unsigned long long word = words[pair[k][q]];
+                slot[k][q] = s_cursor[pair[k][q]] + rank[q] +
+                             static_cast<int>(((word & lower_warps) * 0x0101010101010101ull) >> 56);
+            }
+            block_sync();
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                if (key[q] < 0 || rank[q] != 0) continue;
+                reinterpret_cast<unsigned char*>(words + pair[k][q])[warp] = 0;
+                atomicAdd(&s_cursor[pair[k][q]], size[q]);
+                atomicAdd(&s_count[pair[k][q]], size[q]);
+            }
+        }
+        block_sync();
+        // each pair's run in the stage: an exclusive scan of the batch's counts
+        const int i0 = min(static_cast<int>(threadIdx.x) * per, pairs), i1 = min(i0 + per, pairs);
+        unsigned mine = 0;
+        for (int i = i0; i < i1; ++i) mine += static_cast<unsigned>(s_count[i]);
+        unsigned incl = mine;
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+            const unsigned x = __shfl_up_sync(kFull, incl, d);
+            if (lane >= d) incl += x;
+        }
+        if (lane == 31) s_sums[warp] = incl;
+        block_sync();
+        unsigned run = incl - mine;
+        for (int v = 0; v < warp; ++v) run += s_sums[v];
+        for (int i = i0; i < i1; ++i) {
+            run += static_cast<unsigned>(s_count[i]);
+            s_delta[i] = s_cursor[i] - static_cast<int>(run);   // slot - position, after the run
+        }
+        block_sync();
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                if (pair[k][q] < 0) continue;
+                const int at = slot[k][q] - s_delta[pair[k][q]];
+                stage[at] = row[k].x;
+                stage[kBatch + at] = row[k].y;
+                stage[2 * kBatch + at] = row[k].z;
+                stage[3 * kBatch + at] = row[k].w;
+            }
+        }
+        block_sync();
+        // a warp a run: its aligned quads as float4s, its edges as 4-byte stores
+        for (int i = warp; i < pairs; i += kPrepWarps) {
+            const int count = s_count[i];
+            if (count == 0) continue;
+            const int s1 = s_cursor[i], s0 = s1 - count, delta = s_delta[i];
+            const int a0 = (s0 + 3) & ~3, a1 = s1 & ~3;
+            const bool quads = a0 < a1;
+            const int e0 = quads ? a0 : s1;   // scalar slots: [s0, e0) and [e1, s1)
+            const int e1 = quads ? a1 : s1;
+            for (int g = s0 + lane; g < e0; g += 32) {
+                write_row(slabs, g, chunk, make_float4(stage[g - delta], stage[kBatch + g - delta],
+                                                       stage[2 * kBatch + g - delta],
+                                                       stage[3 * kBatch + g - delta]));
+            }
+            for (int g = e1 + lane; g < s1; g += 32) {
+                write_row(slabs, g, chunk, make_float4(stage[g - delta], stage[kBatch + g - delta],
+                                                       stage[2 * kBatch + g - delta],
+                                                       stage[3 * kBatch + g - delta]));
+            }
+            for (int g = a0 + 4 * lane; quads && g < a1; g += 128) {
+                float* at = slabs + static_cast<long long>(g / chunk) * 4 * chunk + g % chunk;
+                const float* src = stage + g - delta;
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    *reinterpret_cast<float4*>(at + c * chunk) =
+                        make_float4(src[c * kBatch], src[c * kBatch + 1], src[c * kBatch + 2],
+                                    src[c * kBatch + 3]);
+                }
+            }
+        }
+        block_sync();
+    }
+}
+
+"""
+STAGED_STORES = [
+    swap_between(PREP, "template <bool kShared>\n__global__ void __launch_bounds__(kPrepThreads)\n"
+                 "    bucket_pack_kernel(", "__device__ __forceinline__ float warp_min(float v) {",
+                 STAGED_PACK),
+    swap(PREP, """        bucket_pack_kernel<true><<<blocks, kPrepThreads, shared, s>>>(""",
+         """        const int staged = 80 * (n_keys + 1) + 16 * 4 * kLoads * kPrepThreads;
+        cudaFuncSetAttribute(bucket_pack_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, staged);
+        bucket_pack_kernel<true><<<blocks, kPrepThreads, staged, s>>>(""")]
+PREP_LEAVE_OUTS = ("leave-out: no slab writes", "leave-out: no counting (pass 1 without its "
+                   "groups and adds)", "leave-out: no warp offsets (pass 2 without its words' "
+                   "byte sums)", "leave-out: no scatter (each row written at its instance's "
+                   "own position, q n + p)")
+
+
+def prep_variants():
+    """E4's variants on the bench, {name: (edits, private arguments,
+    compared)}: blocks of 1,024, 2,048 and 8,192 particles (shipped 4,096);
+    128 threads a block (shipped 256); 1, 2 and 8 particles a thread
+    loaded at once (shipped 4); pass 1's counts in per-warp counters summed
+    in warp order (shipped: shared atomics); the keys and rows kept in
+    device memory between the passes (shipped: recomputed); pass 2 held to
+    64 registers for four blocks an SM; streaming slab stores; and four
+    leave-outs, timed only."""
+    return {
+        "shipped": ([], {}, True),
+        **{f"blocks of {t} particles": ([], {"_tile": t}, True) for t in (1024, 2048, 8192)},
+        "128 threads a block": ([prep_const("kPrepThreads", 256, 128)], {}, True),
+        **{f"{v} particles a thread loaded at once": ([prep_const("kLoads", 4, v)], {}, True)
+           for v in (1, 2, 8)},
+        "per-warp counters summed in warp order": (PER_WARP_COUNTS, {}, True),
+        "keys and rows kept in device memory": (KEYS_KEPT, {}, True),
+        "pass 2 at four blocks an SM (at most 64 registers)": ([swap(
+            PREP, "template <bool kShared>\n__global__ void __launch_bounds__(kPrepThreads)\n"
+            "    bucket_pack_kernel(", "template <bool kShared>\n__global__ void "
+            "__launch_bounds__(kPrepThreads, 4)\n    bucket_pack_kernel(")], {}, True),
+        "staged slab stores (a batch's runs staged in shared memory, float4 quads)": (
+            STAGED_STORES, {}, True),
+        "streaming slab stores (st.global.cs)": ([swap(PREP, """    at[0] = v.x;
+    at[chunk] = v.y;
+    at[2 * chunk] = v.z;
+    at[3 * chunk] = v.w;
+""", """    __stcs(at, v.x);
+    __stcs(at + chunk, v.y);
+    __stcs(at + 2 * chunk, v.z);
+    __stcs(at + 3 * chunk, v.w);
+""")], {}, True),
+        PREP_LEAVE_OUTS[0]: ([swap(PREP, """    at[0] = v.x;
+    at[chunk] = v.y;
+    at[2 * chunk] = v.z;
+    at[3 * chunk] = v.w;
+""", "    if (v.x == 1.0e-37f && v.y == 3.0e-37f) at[0] = v.z;\n")], {}, False),
+        PREP_LEAVE_OUTS[1]: ([swap(PREP, """                const unsigned peers = __match_any_sync(kFull, key);
+                if (key >= 0 && lane == __ffs(peers) - 1) {""", """                const unsigned peers = 1u;
+                if (key == -7 && lane == __ffs(peers) - 1) {""")], {}, False),
+        PREP_LEAVE_OUTS[2]: ([swap(PREP, "((word & lower_warps) * 0x0101010101010101ull) >> 56",
+                                   "0")], {}, False),
+        PREP_LEAVE_OUTS[3]: ([swap(PREP, "write_row(slabs, cursor + offset + rank[q], chunk, a.row);",
+                                   "write_row(slabs, q * n + base + k * kPrepThreads + "
+                                   "threadIdx.x + 0 * (cursor + offset), chunk, a.row);")], {},
+                             False),
+    }
+
+
+def call_device_ms(fn, reps=20):
+    """The device time of one warm fn(), all its operations summed (ms;
+    torch.profiler over ``reps`` calls), and those operations [(name,
+    ms)]; (None, []) where no window held them."""
+    ops = device_op_ms(fn, reps=reps)
+    return (sum(ms for _, ms in ops) if ops else None), ops
+
+
+def prep_ablations(spheres, variants, rounds=2):
+    """E4 in each of ``variants`` ({name: (edits, compared)}, or {name:
+    (edits, private arguments, compared)}) bound in the package's place
+    through ``_bucket_prims_ortho_kernels`` on the bench's sorted particles
+    (512 x 512, tile 32 x 128, band 32, chunk 512): each compared variant's
+    SplatBuckets bit-equal to the first's; then timed in turns (the
+    variants, the variants backwards; ``rounds`` times): the call's device
+    time, its operations summed (torch.profiler, 20 calls), and the call
+    (CUDA events, median of 10); each variant's operations with their
+    device times printed once. Returns {variant: {"device_ms": [..], "ms":
+    [..], "ops": [(name, ms)]}}."""
+    from grace_tpu_torch.trace import splat as sp
+
+    variants = {name: v if len(v) == 3 else (v[0], {}, v[1]) for name, v in variants.items()}
+
+    def build_or_none(i, name):
+        try:
+            return build_variant("splat_prep", f"splat_prep_e4_{i}", variants[name][0])
+        except (RuntimeError, AssertionError, ValueError) as e:   # reported, not timed
+            print(f"splat_prep part {name}: did not build: {str(e)[-2000:]}", flush=True)
+            return None
+
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        built = list(pool.map(build_or_none, range(len(variants)), variants))
+    dlls = {name: dll for name, dll in zip(variants, built) if dll is not None}
+    names = list(dlls)
+
+    def call(name):
+        return routed(dlls[name], lambda: sp._bucket_prims_ortho_kernels(
+            spheres, CAM, LOOK, UP, VEXT, LENGTH, SIDE, SIDE, 32, 128, 512, None, 32,
+            **variants[name][1]))
+
+    as_bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    want = [as_bits(x).clone() for x in call(names[0])]
+    for name in names[1:]:
+        got = call(name)
+        torch.cuda.synchronize()
+        if variants[name][2] and not all(torch.equal(as_bits(g), w) for g, w in zip(got, want)):
+            raise AssertionError(f"splat_prep variant {name!r} differs from {names[0]!r}")
+    result = {name: {"device_ms": [], "ms": [], "ops": []} for name in names}
+    for _ in range(rounds):
+        for name in names + names[::-1]:
+            fn = lambda: call(name)
+            ms, ops = call_device_ms(fn)
+            result[name]["device_ms"].append(ms)
+            result[name]["ops"] = result[name]["ops"] or ops
+            result[name]["ms"].append(cuda_ms(fn, reps=10))
+    for name, r in result.items():
+        dev_ms = ", ".join("not measured" if m is None else f"{m:.4f}" for m in r["device_ms"])
+        print(f"splat_prep part E4 {name}: device {dev_ms} ms (its operations summed, profiler, "
+              f"20 calls each); call " + ", ".join(f"{m:.3f}" for m in r["ms"])
+              + " ms (CUDA events, median of 10 each); in turns, "
+              + (f"bit-equal to {names[0]}" if variants[name][2] else "a leave-out, not compared")
+              + "; operations: " + "; ".join(f"{n[:48]} {ms:.4f}" for n, ms in r["ops"]),
+              flush=True)
+    return result
+
+
 def splat_prep_paths():
     """The ``splat_prep`` part in this process, on whichever grace_tpu_torch
     it imports: {call: {ms, busy_ms, wall_ms, device_ops}}."""
@@ -2311,6 +2737,10 @@ def splat_prep_paths():
         calls += [("bucket_prims_ortho, constants uncached", bucket_uncached),
                   ("sort-free setup, constants uncached", setup_uncached)]
     result = {}
+    if not NO_VARIANTS:
+        result["E4 variants"] = prep_ablations(
+            sorted_spheres, PARENT_PREP_VARIANTS if hasattr(sp, "bucket_sort_cuda")
+            else prep_variants())
     if hasattr(sg, "sortfree_setup_resources"):
         consts, spans, coords = sg._setup_constants(cam, 32, 128, dev)
         result.update(kernel_variants(
@@ -2326,6 +2756,14 @@ def splat_prep_paths():
             result[label]["kernel_ms"] = kernel_device_ms(fn, "sortfree_setup_kernel", reps=20)
             print(f"splat_prep part {label}: kernel {result[label]['kernel_ms']} ms "
                   f"(profiler, 20 calls)", flush=True)
+        if label == "bucket_prims_ortho":
+            busy, ops = call_device_ms(fn)
+            result[label]["ops_ms"] = ops
+            print(f"splat_prep part {label}: {len(ops)} device operations, "
+                  + "; ".join(f"{n[:48]} {ms:.4f}" for n, ms in ops)
+                  + (f"; busy {busy:.4f} ms, host share {result[label]['ms'] - busy:.4f} ms "
+                     f"of the call" if busy is not None else "; not measured")
+                  + " (profiler, 20 calls)", flush=True)
     return result
 
 

@@ -123,15 +123,17 @@ main path builds through those kernels; their launches are counted on
 each path.
 
 Then ``check_splat_prep`` holds the splat's two setups (csrc/splat_prep.cu:
-bucket_prims_ortho's keys kernel, counting sort and pack kernel, and
-the sort-free setup's projection, slabs and both overlap masks) to their
-plain versions bit for bit (every SplatBuckets field; masks, transposed
-masks, coords, slabs) at the cases of SPLAT_PREP_CASES: particle counts
-that are no multiple of chunk, 2 chunk or 128, fewer than 32 particles, 64
-segments, 40 segments (two mask words, the last ragged), 128 tiles, band
-None to 64, weights None and given, dead particles, a whole-image
-particle and a far one that overflow, a 2^16 clustered scene; and on the
-bench scene with weights None and 1. Main path
+bucket_prims_ortho's two passes, keys with counts and then the stable
+scatter into the slabs, and the sort-free setup's projection, slabs and
+both overlap masks) to their plain versions bit for bit (every
+SplatBuckets field; masks, transposed masks, coords, slabs) at the cases
+of SPLAT_PREP_CASES: particle counts that are no multiple of chunk, 2
+chunk, 128 or the block tile, fewer than 32 particles, 64 segments, 40
+segments (two mask words, the last ragged), 128 tiles, band None to 64,
+weights None and given, dead particles, a whole-image particle and a far
+one that overflow, a 2^16 clustered scene, Morton-sorted particles at
+path 1's 256 keys, 4,096 keys (E4's counters in device memory); and on
+the bench scene with weights None and 1. Main path
 1's bucket_prims_ortho and main path 3's trainer (forward and backward)
 launch them, counted there.
 
@@ -422,6 +424,31 @@ def device_ops(fn, reps=10, tries=8):
         if names and len(names) % reps == 0:
             break
     return names[:len(names) // reps]
+
+
+def device_op_ms(fn, reps=20, tries=8):
+    """The device operations of one warm fn() with their device times:
+    [(name, ms)] in launch order, each the mean over ``reps`` calls from
+    torch.profiler; a window whose count is no multiple of ``reps`` is
+    taken again, up to ``tries`` times ([] where none was)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events and len(events) % reps == 0:
+            per = len(events) // reps
+            return [(events[i].name,
+                     sum(events[r * per + i].time_range.elapsed_us() for r in range(reps))
+                     / 1e3 / reps) for i in range(per)]
+    return []
 
 
 def log_device_ms(t, label, fn, kernel):
@@ -2489,27 +2516,32 @@ def build_times(spheres, entry_spheres, tris):
 
 
 # check_splat_prep's cases: tag -> (particles, image side, (tile_w, tile_h),
-# band, chunk, weighted, whole). The bucketed setup runs at (tile_w, tile_h,
-# band, chunk), the sort-free one at (tile_w, tile_h), both at the bench
-# camera. Every scene has dead particles (h = 0, behind the camera, past the
-# far plane; weights 0 and -1 where weighted); ``whole`` adds a particle that
-# covers the whole image and one beyond 2^31 band widths (ROADMAP C21), each
-# a footprint that overflows.
+# band, chunk, weighted, whole, morton). The bucketed setup runs at (tile_w,
+# tile_h, band, chunk), the sort-free one at (tile_w, tile_h), both at the
+# bench camera. Every scene has dead particles (h = 0, behind the camera,
+# past the far plane; weights 0 and -1 where weighted); ``whole`` adds a
+# particle that covers the whole image and one beyond 2^31 band widths
+# (ROADMAP C21), each a footprint that overflows; ``morton`` sorts the
+# clustered particles by their Morton keys first, as path 1's build does.
 SPLAT_PREP_SEED = 2027
 SPLAT_PREP_CASES = {
     "n 3001 (no multiple of chunk, 2 chunk or 128; 24 segments), band 32":
-        (3001, 128, (32, 128), 32, 64, False, False),
+        (3001, 128, (32, 128), 32, 64, False, False, False),
     "n 3001, band None, weights, a whole-image and a far particle (overflow)":
-        (3001, 128, (32, 128), None, 64, True, True),
+        (3001, 128, (32, 128), None, 64, True, True, False),
     "n 17 (< 32: one segment), 64 x 64, tile 16 x 64, band 16, chunk 8":
-        (17, 64, (16, 64), 16, 8, True, False),
+        (17, 64, (16, 64), 16, 8, True, False, False),
     "n 8192 (64 segments), tile 8 x 16 (128 tiles), band 16, overflow":
-        (8192, 128, (8, 16), 16, 64, False, True),
-    "n 3001, tile 8 x 64, band 64, weights": (3001, 128, (8, 64), 64, 64, True, False),
+        (8192, 128, (8, 16), 16, 64, False, True, False),
+    "n 3001, tile 8 x 64, band 64, weights": (3001, 128, (8, 64), 64, 64, True, False, False),
     "clustered 2^16, 512 x 512, tile 16 x 128 (128 tiles), band 32, chunk 512":
-        (65536, 512, (16, 128), 32, 512, False, False),
+        (65536, 512, (16, 128), 32, 512, False, False, False),
     "n 5000 (40 segments: two mask words, the last ragged), tile 32 x 64, band 32, weights":
-        (5000, 128, (32, 64), 32, 64, True, False),
+        (5000, 128, (32, 64), 32, 64, True, False, False),
+    "Morton-sorted clustered 20,000 (no multiple of the block tile), 512 x 512, tile 32 x 128, "
+    "band 32 (256 keys, path 1's), chunk 512": (20000, 512, (32, 128), 32, 512, False, False, True),
+    "n 3001, 512 x 512, tile 8 x 16, band 8 (4,096 keys: the counters in device memory), "
+    "weights, overflow": (3001, 512, (8, 16), 8, 64, True, True, False),
 }
 SPLAT_PREP_OUTPUTS = ("slabs", "slab_lo", "n_slabs", "first", "last", "xcols", "yrows",
                       "overflow", "masks", "masks_t", "coords", "sortfree slabs")
@@ -2518,9 +2550,13 @@ SPLAT_PREP_OUTPUTS = ("slabs", "slab_lo", "n_slabs", "first", "last", "xcols", "
 def splat_prep_scene(tag):
     """(spheres f32[n, 4], weights f32[n] or None) of check_splat_prep's
     case ``tag`` as numpy arrays, drawn from SPLAT_PREP_SEED."""
-    n, _, _, _, _, weighted, whole = SPLAT_PREP_CASES[tag]
+    n, _, _, _, _, weighted, whole, morton = SPLAT_PREP_CASES[tag]
     rng = np.random.default_rng(SPLAT_PREP_SEED + list(SPLAT_PREP_CASES).index(tag))
     s = make_clustered_particles(rng, n)
+    if morton:
+        from grace_tpu_torch.build.sph import sort_by_morton
+
+        s = sort_by_morton(torch.from_numpy(s))[1].numpy().copy()
     s[0::97, 3] = 0.0           # h = 0
     s[1::101, 2] = -3.0         # behind the camera
     s[2::103, 2] = 50.0         # past the far plane
@@ -2575,7 +2611,7 @@ def check_splat_prep(dev):
     """The check_splat_prep phase: E4 and E5 bit-equal to their plain
     versions at every case of SPLAT_PREP_CASES. Returns its lines."""
     lines = []
-    for tag, (n, side, tiles, band, chunk, _, _) in SPLAT_PREP_CASES.items():
+    for tag, (n, side, tiles, band, chunk, *_) in SPLAT_PREP_CASES.items():
         s, w = splat_prep_scene(tag)
         spheres = torch.from_numpy(s).to(dev)
         weights = None if w is None else torch.from_numpy(w).to(dev)
@@ -2592,7 +2628,6 @@ def prep_counters():
     from grace_tpu_torch.trace import splat_grad as sg
 
     return {"splat_bucket_keys": sp.bucket_keys_cuda.launches,
-            "splat_bucket_sort": sp.bucket_sort_cuda.launches,
             "splat_bucket_pack": sp.bucket_pack_cuda.launches,
             "sortfree_setup": sg.sortfree_setup_cuda.launches}
 
@@ -2601,46 +2636,87 @@ def zero_prep_counters():
     from grace_tpu_torch.trace import splat as sp
     from grace_tpu_torch.trace import splat_grad as sg
 
-    for fn in (sp.bucket_keys_cuda, sp.bucket_sort_cuda, sp.bucket_pack_cuda,
-               sg.sortfree_setup_cuda):
+    for fn in (sp.bucket_keys_cuda, sp.bucket_pack_cuda, sg.sortfree_setup_cuda):
         fn.launches = 0
+
+
+def distinct_per_run(keys, run):
+    """(mean, max) distinct values among each ``run`` consecutive entries
+    of keys (the last run ragged)."""
+    m = keys.shape[0]
+    pad = -m % run
+    rows = torch.cat([keys, keys[-1:].expand(pad)]).view(-1, run) if pad else keys.view(-1, run)
+    rows = torch.sort(rows, dim=1).values
+    distinct = 1 + (rows[:, 1:] != rows[:, :-1]).sum(1)
+    return float(distinct.double().mean()), int(distinct.max())
 
 
 def splat_prep_times(spheres, weights, cam, side):
     """The setups' times (CUDA events, warm median, ms) on main paths 1 and
-    3's inputs: the bucketed setup whole and its three steps (the keys
-    kernel, the counting sort: two kernels and a scan, the pack kernel),
-    torch's stable sort of the same keys (the one PyTorch call that
-    computes the sort), the sort-free setup, and each setup's plain
-    version. Returns (times, {name: (operations, bytes)}): each kernel's
-    inputs read once and its outputs written once."""
+    3's inputs: the bucketed setup whole, each of its passes alone (with
+    its kernel's device time, torch.profiler) and the call's device
+    operations, torch's stable sort of the same keys (the one PyTorch call
+    that computes the sort), the sort-free setup, and each setup's plain
+    version; the instances' figures. Returns (times, {name: (operations,
+    bytes)}): each kernel's inputs read once and its outputs written once;
+    ``bucket_prep`` the function's own (spheres read; slabs, ranges and
+    overflow written)."""
     from grace_tpu_torch.trace import splat as sp
     from grace_tpu_torch.trace import splat_grad as sg
 
     tile_w, tile_h = SPLAT_TILE["tile_w"], SPLAT_TILE["tile_h"]
     args = (CAM, LOOK, UP, VEXT, LENGTH, side, side)
     n = spheres.shape[0]
-    consts, _, _ = sp._bucket_constants(*args, tile_w, 32, spheres.device)
+    dev = spheres.device
+    consts, _, _ = sp._bucket_constants(*args, tile_w, 32, dev)
     nbx, nty = side // 32, side // tile_w
     n_keys = nbx * nty
-    keys, rows, overflow = sp.bucket_keys_cuda(spheres, None, consts, nbx, nty)
-    order, cursor, tiles = sp.bucket_sort_cuda(keys, n_keys + 1)
-    packed = sp.bucket_pack_cuda(order, cursor, tiles, rows, 512, n_keys)
-    sf_consts, spans, coords = sg._setup_constants(cam, tile_w, tile_h, spheres.device)
+    tile, blocks = sp.bucket_blocks(n, n_keys)
+    counts = torch.empty(sp.bucket_scratch(n_keys, blocks), dtype=torch.int32, device=dev)
+    sp.bucket_keys_cuda(spheres, None, consts, counts, nbx, nty, tile)
+    slabs, ranges, overflow = sp.bucket_pack_cuda(spheres, None, consts, counts, 512, nbx, nty,
+                                                  tile)
+    frame = sp._ortho_frame(*args, tile_w, 32, dev)
+    keys = sp._bucket_keys_plain(spheres, frame, None, side, side, tile_w, tile_h, 32)[0]
+    real = int((keys < n_keys).sum())
+    warp_mean, warp_max = distinct_per_run(keys, 32)
+    block_mean, block_max = distinct_per_run(keys, tile)
+    log(f"bucket prep instances on the bench ({n} particles, {n_keys} keys): {real} real, "
+        f"{4 * n - real} sentinel; distinct keys a warp (32 consecutive instances) {warp_mean:.2f} "
+        f"(at most {warp_max}), a block tile ({tile}) {block_mean:.2f} (at most {block_max}); "
+        f"the largest key {int((ranges[1] - ranges[0]).max())} instances; {blocks} blocks")
+    for name, res in sp.bucket_resources(dev, n_keys).items():
+        log(f"resources {name} (bench, {n_keys} keys; csrc/splat_prep.cu): {json.dumps(res)}")
+        if res["local_bytes"]:
+            raise AssertionError(f"the {name} kernel uses local memory: {res}")
+    sf_consts, spans, coords = sg._setup_constants(cam, tile_w, tile_h, dev)
     masks, masks_t, _, sf_slabs = sg.sortfree_setup_cuda(spheres, weights, sf_consts, spans,
                                                          coords, side // tile_h, side // tile_w)
+    bucket = lambda: sp.bucket_prims_ortho(spheres, *args, chunk=512, band=32, **SPLAT_TILE)
+    keys_pass = lambda: sp.bucket_keys_cuda(spheres, None, consts, counts, nbx, nty, tile)
+
+    def passes():   # pass 2 scans pass 1's counts in place, so it runs after pass 1
+        keys_pass()
+        return sp.bucket_pack_cuda(spheres, None, consts, counts, 512, nbx, nty, tile)
+
     t = {}
-    t["bucket_prep kernel"] = cuda_ms(lambda: sp.bucket_prims_ortho(
-        spheres, *args, chunk=512, band=32, **SPLAT_TILE))
+    t["bucket_prep kernel"] = cuda_ms(bucket)
     t["bucket_prep plain"] = cuda_ms(lambda: sp._bucket_prims_ortho_plain(
         spheres, *args, tile_w, tile_h, 512, None, 32), reps=3)
-    t["splat_bucket_keys kernel"] = cuda_ms(
-        lambda: sp.bucket_keys_cuda(spheres, None, consts, nbx, nty))
-    t["splat_bucket_sort kernel (count, scan, scatter)"] = cuda_ms(
-        lambda: sp.bucket_sort_cuda(keys, n_keys + 1))
+    t["splat_bucket_keys kernel"] = cuda_ms(keys_pass)
+    t["splat_bucket passes (keys, then pack)"] = cuda_ms(passes)
     t["bucket key sort (torch.sort, stable)"] = cuda_ms(lambda: torch.sort(keys, stable=True))
-    t["splat_bucket_pack kernel"] = cuda_ms(
-        lambda: sp.bucket_pack_cuda(order, cursor, tiles, rows, 512, n_keys))
+    for label, fn, kernel in (("splat_bucket_keys", keys_pass, "bucket_keys_kernel"),
+                              ("splat_bucket_pack", passes, "bucket_pack_kernel")):
+        log_device_ms(t, f"{label} device (profiler; the kernel alone)", fn, kernel)
+    # pass 2 alone: its kernel's device time, else both passes (a bound from above)
+    t["splat_bucket_pack kernel"] = t.get("splat_bucket_pack device (profiler; the kernel "
+                                          "alone)", t["splat_bucket passes (keys, then pack)"])
+    ops = device_op_ms(bucket)
+    log(f"bucket_prims_ortho: {len(ops)} device operations a call, "
+        + "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in ops)
+        + (f"; busy {sum(ms for _, ms in ops):.4f} ms (profiler, 20 calls)" if ops
+           else " (not measured: the profiler saw none)"))
     t["sortfree setup kernel"] = cuda_ms(
         lambda: sg.sortfree_setup(spheres, weights, cam, tile_w, tile_h))
     t["sortfree setup plain"] = cuda_ms(
@@ -2650,24 +2726,20 @@ def splat_prep_times(spheres, weights, cam, side):
                   "sortfree_setup_kernel")
     # operations: a particle's 3 dot products (5 each), depth's 3
     # subtractions, 2 products, 2 divisions and 4 comparisons of its scale,
-    # 4 quotients (3 each) and 4 floors, 4 keys (8 each); the sort's 2
-    # passes of a few integer operations a key (4 each) and its scan; the
-    # pack's ranges; the setup's projection (24) and box (8), and 4
-    # comparisons a (tile, segment) pair
+    # 4 quotients (3 each) and 4 floors, 4 keys (8 each), counted in each
+    # pass that computes them; a few integer operations an instance to
+    # count it (4) and to rank it (8); the counters' scan (read and written
+    # in place) and the ranges; the sort-free setup's
+    # projection (24) and box (8), and 4 comparisons a (tile, segment) pair
     n_tiles = masks.shape[0]
-    m = keys.shape[0]
     work = {
-        "splat_bucket_keys": (83 * n, nbytes(spheres, consts, keys, rows, overflow)),
-        "splat_bucket_sort": (8 * m + cursor.numel(), nbytes(keys, order, cursor)),
-        "splat_bucket_pack": (8 * n_keys, nbytes(order, cursor, rows, *packed)),
+        "splat_bucket_keys": (83 * n + 16 * n, nbytes(spheres, consts, counts)),
+        "splat_bucket_pack": (83 * n + 32 * n + 8 * n_keys + 2 * counts.numel(),
+                              nbytes(spheres, consts, counts, counts, slabs, ranges, overflow)),
         "sortfree_setup": (32 * n + 4 * n_tiles * sf_slabs.shape[0],
                            nbytes(spheres, weights, sf_consts, spans, sf_slabs, masks, masks_t)),
+        "bucket_prep": (83 * n, nbytes(spheres, slabs, ranges, overflow)),
     }
-    work["bucket_prep"] = tuple(sum(work[k][i] for k in ("splat_bucket_keys",
-                                                         "splat_bucket_sort",
-                                                         "splat_bucket_pack"))
-                                for i in (0, 1))
-    del overflow
     return t, work
 
 
@@ -4872,7 +4944,6 @@ def run(dev, n_particles, side):
     launches = {"trace_quarter": pk.trace_quarter.launches,
                 "splat": sp.splat_image.launches, **path_build_counters(build_by_path[1]),
                 "splat_bucket_keys": prep_by_path[1]["splat_bucket_keys"],
-                "splat_bucket_sort": prep_by_path[1]["splat_bucket_sort"],
                 "splat_bucket_pack": prep_by_path[1]["splat_bucket_pack"]}
     img_trace = trace_v[inv.long()].reshape(side, side)
     for name, a in (("splat image", img), ("trace image", img_trace)):
@@ -5519,8 +5590,8 @@ def run(dev, n_particles, side):
         f"{t['build_sph_tree plain']:.3f} ms")
     log(f"build kernels' launches by main path: {json.dumps(build_by_path)}")
     for name, label, kernel_ms, plain_ms in (
-            ("bucket_prep", "bucket_prims_ortho (the keys kernel, the counting sort, the "
-             "pack kernel)", "bucket_prep kernel", "bucket_prep plain"),
+            ("bucket_prep", "bucket_prims_ortho (the function's own bytes: spheres read; "
+             "slabs, ranges and overflow written)", "bucket_prep kernel", "bucket_prep plain"),
             ("sortfree_setup", "sortfree_setup (spheres and weights read, slabs and both "
              "masks written)", "sortfree setup kernel", "sortfree setup plain")):
         ops_p, bytes_p = prep_work[name]
@@ -5655,16 +5726,13 @@ def run(dev, n_particles, side):
                        by_path={f"path {k}": v[name] for k, v in prep_by_path.items()},
                        library_ms=library)
           for name, replaces, err, kernel_ms, plain_ms, library in (
-              ("splat_bucket_keys", "grace_tpu/trace/splat.py:122",
-               max(prep_errs[f] for f in SPLAT_PREP_OUTPUTS[:8]), "splat_bucket_keys kernel",
-               "bucket_prep plain", None),
-              ("splat_bucket_sort", "grace_tpu/trace/splat.py:222",
-               max(prep_errs[f] for f in SPLAT_PREP_OUTPUTS[:8]),
-               "splat_bucket_sort kernel (count, scan, scatter)", "bucket_prep plain",
-               t["bucket key sort (torch.sort, stable)"]),
-              ("splat_bucket_pack", "grace_tpu/trace/splat.py:122, grace_tpu/trace/splat.py:74",
+              ("splat_bucket_keys", "grace_tpu/trace/splat.py:122, grace_tpu/trace/splat.py:235, "
+               "grace_tpu/trace/splat.py:239", max(prep_errs[f] for f in SPLAT_PREP_OUTPUTS[:8]),
+               "splat_bucket_keys kernel", "bucket_prep plain", None),
+              ("splat_bucket_pack", "grace_tpu/trace/splat.py:235, grace_tpu/trace/splat.py:239, "
+               "grace_tpu/trace/splat.py:74, grace_tpu/trace/splat.py:122",
                max(prep_errs[f] for f in SPLAT_PREP_OUTPUTS[:8]), "splat_bucket_pack kernel",
-               "bucket_prep plain", None),
+               "bucket_prep plain", t["bucket key sort (torch.sort, stable)"]),
               ("sortfree_setup", "grace_tpu/trace/splat_grad.py:108, "
                "grace_tpu/trace/splat_grad.py:131, grace_tpu/trace/splat_grad.py:141, "
                "grace_tpu/trace/pallas_broadphase.py:59",

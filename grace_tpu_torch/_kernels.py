@@ -79,14 +79,14 @@ KERNELS = {
                "grace_lbvh_ranges": "pppppp" + "iiii",
                "grace_lbvh_nodes": "p" * 15 + "iiii",
                "grace_build_resources": "pii"}),
-    # the splat's two setups (bucketed keys and slabs; the sort-free
-    # projection, slabs and masks): --fmad=false keeps the projections'
-    # and quotients' f32 rounding the plain path's
+    # the splat's two setups (bucketed: keys and counts, then the counts'
+    # scan and the slabs;
+    # the sort-free projection, slabs and masks): --fmad=false keeps the
+    # projections' and quotients' f32 rounding the plain path's
     "splat_prep": ("splat_prep.cu", ["--fmad=false"],
-                   {"grace_splat_bucket_keys": "pppppp" + "iiii",
-                    "grace_splat_bucket_count": "pp" + "iiii",
-                    "grace_splat_bucket_scatter": "ppp" + "iii",
-                    "grace_splat_bucket_pack": "pppppppp" + "iiiii",
+                   {"grace_splat_bucket_keys": "pppp" + "iiiii",
+                    "grace_splat_bucket_pack": "ppppppp" + "iiiiiii",
+                    "grace_splat_bucket_resources": "pi",
                     "grace_sortfree_setup": "ppppppp" + "iii",
                     "grace_sortfree_setup_resources": "p"}),
     # the dense broadphase (segment and tile boxes, overlap words, their

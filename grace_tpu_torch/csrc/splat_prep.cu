@@ -12,42 +12,67 @@
 // overlap and on its transpose). The port ran them as chains of a few
 // dozen small torch launches over 2^20 particles and 4 x 2^20 instances.
 //
-// bucket_keys_kernel: one thread a particle. pu, pv and depth are the
-// port's vecmath.dot3 (x * x in f32, then two multiply-adds that each take
-// the exact f64 product plus the sum, rounded once to f32: fma_f64), the
-// reciprocals IEEE divisions (torch's 1.0 / t is reciprocal(t) * 1.0),
-// --fmad=false keeps every other operation rounded alone. The band and
-// row-tile quotients are floored and converted to int64 as torch's
-// .to(torch.int64) does on the card (cvt.rzi: saturating, NaN -> 0), and
-// the int64 arithmetic after them wraps as torch's does. It writes the
-// four keys at q * n + p (q = 2 rr + cc, the torch.cat order) with the
-// sentinel n_keys, the particle's (pu, pv, invh, scale) as the slabs take
+// E4, two launches; a block owns a tile of
+// `tile` consecutive particles (BUCKET_TILE, grown where the counters
+// would pass BUCKET_COUNTS) in both, and with it four tiles of the instance
+// order, q * n + p0 .. q * n + p1 (tile q * blocks + b of block b).
+//
+// particle_keys: a particle's four keys, slab row and overflow. pu, pv and
+// depth are the port's vecmath.dot3 (x * x in f32, then two multiply-adds
+// that each take the exact f64 product plus the sum, rounded once to f32:
+// fma_f64), the reciprocals IEEE divisions (torch's 1.0 / t is
+// reciprocal(t) * 1.0), --fmad=false keeps every other operation rounded
+// alone. The band and row-tile quotients are floored and converted to
+// int64 as torch's .to(torch.int64) does on the card (cvt.rzi: saturating,
+// NaN -> 0), and the int64 arithmetic after them wraps as torch's does.
+// Instance q = 2 rr + cc (the torch.cat order) takes key rt * nbx + cb or
+// the sentinel n_keys; the row is (pu, pv, invh, scale) as the slabs take
 // them (unweighted: invh masked by the depth cull and scale = invh^2, as
-// the plain path derives it after the sort), and sets the overflow byte.
+// the plain path derives it after the sort).
 //
-// bucket_count_kernel, bucket_scatter_kernel: a stable counting sort of
-// the 4 n keys over their n_keys + 1 values (on an H100, torch.sort's
-// radix sort took 13 of the setup's 17 launches and most of its device
-// time for these 9-bit keys). A warp
-// owns a tile of `tile` consecutive instances. Counting, it takes 32 at a
-// time; __match_any_sync groups the lanes of one key and the group's
-// first lane adds the group's size to counts[key * tiles + warp]. An
-// inclusive scan of the counts in that (key-major) order (torch.cumsum)
-// gives each (key, warp) pair the end of its slots. Scattering, the warp
-// walks its tile backwards, 32 at a time: the group's first lane moves
-// the pair's cursor down by the group's size, and lane l of the group
-// writes its instance at the new cursor plus the group's lanes below l.
-// Only the owning warp touches a pair's counter or cursor (__syncwarp
-// orders its lanes' accesses from one round to the next), so every
-// position is fixed: instances of one key land in ascending instance
-// order, as a stable sort puts them. After the scatter each cursor holds
-// its pair's first slot, so cursor[k * tiles] is key k's first instance.
+// bucket_keys_kernel (pass 1): a thread loads its next kLoads particles
+// (16-byte sphere loads, then the weights) before any arithmetic, takes
+// their keys, and for each q groups the warp's 32 lanes by key
+// (__match_any_sync); the group's first lane adds its size to the block's
+// (q, bin) counter, in shared memory up to kSharedBins bins, else in the
+// block's own column of the device counters.
+// Integer sums: any order gives the same counts. The block then writes its
+// column, counts[bin * tiles + q * blocks + b] (key-major, as the scan
+// takes them), every counter once, so nothing is zeroed first; an extra
+// row bin = n_bins holds the block's overflow flag. It also zeroes pass
+// 2's scan state.
 //
-// bucket_pack_kernel: one thread a slab instance g (4 slab positions): it
-// gathers particle order[g] mod n's row and writes it into the
-// (n_slabs_cap, 8, chunk) slabs, zeros past 4 n. Thread k < n_keys also
-// writes key k's range [first, last) from the cursors, slab_lo and
-// n_slabs: no pad, stack, repeat or searchsorted launch.
+// scan_counters, at the start of pass 2: the counters' exclusive scan in
+// place gives each (bin, tile) pair its first slot. The blocks take rows
+// (a bin's counters) by ticket, scan them and chain them by a decoupled
+// look-back, and write each key's range [first, last), slab_lo and n_slabs
+// and, from the flag row's total (the number of blocks that overflowed),
+// the overflow byte; then every block waits for the last row. Each ticket
+// goes to a running block, which waits only on lower tickets, so no block
+// waits on one that cannot run.
+//
+// bucket_pack_kernel (pass 2): the block recomputes its particles' keys
+// and rows in the same order (the same device function under the same
+// flags: the same bits), with cursors at its pairs' first slots. A round
+// is kPrepThreads consecutive particles; for each q a lane's rank is the
+// __popc of its lower peers, its warp's offset the sizes of its key's
+// groups in the round's lower warps: each group's first lane writes its
+// size into byte `warp` of the key's 8-byte word, and a lane sums the
+// bytes below its warp's (a multiply by 0x0101...01: at most 7 x 32 <
+// 256), one load and no loop. So instances of one key take their slots in
+// instance order, as a stable sort puts them. Each writes its row's four
+// floats at its slot's slab position; after the round the groups' first
+// lanes move the cursors on and clear their bytes. Past kSharedBins bins
+// the words and cursors live in device memory (a scratch past the scan
+// state, the block's column of the counters). The grid also zeroes the
+// slab columns [4 n, cap): no order tensor, no row gather, no memset, no
+// launch between the passes.
+//
+// What bounds E4: memory. The function reads the spheres (16 B a
+// particle, the weights 4 B) and writes the slabs (64 B a particle):
+// ~84 MB at 2^20 particles. Pass 2 reads the spheres again (16.8 MB,
+// cheaper than keeping keys and rows, 67 MB written and read); the
+// counters are 4 (n_bins + 1) a block (0.5 MB on the bench).
 //
 // sortfree_setup_kernel: a block of 32 warps owns 32 segments of 128
 // particles, one mask word, and a warp owns a segment, so that 32 warps an
@@ -66,13 +91,10 @@
 // are exact (the sentinels keep NaN out), and the overlap compares them, so
 // neither the lanes' order nor -0 and +0 change a bit.
 //
-// What bounds them: memory. Each particle is read once and each output
-// written once: at 2^20 particles E4 moves ~150 MB (spheres 16 MB, keys
-// 16 MB written and read twice, order 16 MB written and read, rows 16 MB
-// gathered, slabs 64 MB, the counts a few MB) and E5 ~52 MB (spheres 16
-// MB, slabs 32 MB, masks). The design keeps each step one launch over all
-// particles, with the camera's constants in a small device tensor and no
-// host round trip.
+// What bounds E5: memory. Each particle is read once and each output
+// written once: at 2^20 particles ~52 MB (spheres 16 MB, slabs 32 MB,
+// masks), one launch over all particles, with the camera's constants in a
+// small device tensor and no host round trip.
 
 #include <cstdint>
 
@@ -80,7 +102,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kSeg = 128;            // particles a segment (splat_grad.SEG)
 constexpr int kSegsPerBlock = 32;    // segments a setup block: one mask word
 constexpr int kSetupWarps = kSegsPerBlock;  // warps a setup block: a warp a segment
@@ -101,8 +122,6 @@ constexpr int kX0 = 13;
 constexpr int kY0 = 14;
 constexpr int kBandStep = 15;
 constexpr int kTileStep = 16;
-
-int grid(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
 
 // vecmath.fma: the exact f64 product plus c, rounded to f64, then to f32.
 __device__ __forceinline__ float fma_f64(float a, float b, float c) {
@@ -131,14 +150,23 @@ __device__ __forceinline__ long long wrap_sub(long long a, long long b) {
                                   static_cast<unsigned long long>(b));
 }
 
-__global__ void __launch_bounds__(kThreads)
-    bucket_keys_kernel(const float4* __restrict__ spheres, const float* __restrict__ weights,
-                       const float* __restrict__ consts, int* __restrict__ keys,
-                       float4* __restrict__ rows, unsigned char* __restrict__ overflow, int n,
-                       int nbx, int nty, int n_keys) {
-    const int p = blockIdx.x * kThreads + threadIdx.x;
-    if (p >= n) return;
-    const float4 s = spheres[p];
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPrepThreads = 256;   // threads a block of E4's two passes
+constexpr int kPrepWarps = kPrepThreads / 32;
+static_assert(kPrepWarps <= 8, "a key's warp counts, a byte a warp, fill one 8-byte word");
+constexpr int kLoads = 4;           // particles a thread loads before any arithmetic
+constexpr int kSharedBins = 1000;   // bins a block holds in 48 KB of shared memory, at most
+
+struct Particle {
+    int key[4];   // instance q's key, the sentinel n_keys where it draws nothing
+    float4 row;   // (pu, pv, invh, scale) as the slabs take them
+    bool over;    // a live footprint wider than a 2 x 2 neighbourhood
+};
+
+__device__ __forceinline__ Particle particle_keys(float4 s, float w, bool weighted,
+                                                  const float* __restrict__ consts, int nbx,
+                                                  int nty, int n_keys) {
+    Particle a;
     const float h = s.w;
     const float pu = dot3(s.x, s.y, s.z, consts + kV);
     const float pv = dot3(s.x, s.y, s.z, consts + kU);
@@ -146,7 +174,7 @@ __global__ void __launch_bounds__(kThreads)
                              s.z - consts[kCam + 2], consts + kViewDir);
     const bool positive = h > 0.0f;
     const float inv_h2 = positive ? 1.0f / fmaxf(h * h, kTiny) : 0.0f;
-    const float w_p = weights ? weights[p] * inv_h2 : inv_h2;
+    const float w_p = weighted ? w * inv_h2 : inv_h2;
     const bool live = positive && depth >= 0.0f && depth < consts[kLength];
     const float scale = live ? w_p : 0.0f;
 
@@ -156,103 +184,340 @@ __global__ void __launch_bounds__(kThreads)
     long long cb_hi = floor_i64(((pu + h) - x0) / band_step);
     const long long rt_lo = floor_i64(((pv + h) - y0) / tile_step);   // rows descend
     long long rt_hi = floor_i64(((pv - h) - y0) / tile_step);
-    if (live && (wrap_sub(cb_hi, cb_lo) > 1 || wrap_sub(rt_hi, rt_lo) > 1)) *overflow = 1;
+    a.over = live && (wrap_sub(cb_hi, cb_lo) > 1 || wrap_sub(rt_hi, rt_lo) > 1);
     const long long cb_next = wrap_add(cb_lo, 1), rt_next = wrap_add(rt_lo, 1);
     cb_hi = cb_hi < cb_next ? cb_hi : cb_next;
     rt_hi = rt_hi < rt_next ? rt_hi : rt_next;
+#pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
         for (int cc = 0; cc < 2; ++cc) {
             const long long cb = wrap_add(cb_lo, cc), rt = wrap_add(rt_lo, rr);
             const bool ok = cb <= cb_hi && rt <= rt_hi && cb >= 0 && cb < nbx && rt >= 0 &&
                             rt < nty && scale > 0.0f;
-            keys[static_cast<long long>(rr * 2 + cc) * n + p] =
-                ok ? static_cast<int>(rt * nbx + cb) : n_keys;
+            a.key[rr * 2 + cc] = ok ? static_cast<int>(rt * nbx + cb) : n_keys;
         }
     }
     const float invh = positive ? 1.0f / fmaxf(h, kTiny) : 0.0f;
-    float invh_s, scale_s;
-    if (weights) {
-        invh_s = invh;
-        scale_s = scale;
+    if (weighted) {
+        a.row = make_float4(pu, pv, invh, scale);
     } else {
-        invh_s = live ? invh : 0.0f;
-        scale_s = invh_s * invh_s;
+        const float invh_s = live ? invh : 0.0f;
+        a.row = make_float4(pu, pv, invh_s, invh_s * invh_s);
     }
-    rows[p] = make_float4(pu, pv, invh_s, scale_s);
+    return a;
 }
 
-constexpr unsigned kFull = 0xffffffffu;
+// Block b's counter of (bin, q) among the key-major counters of 4 x
+// gridDim.x tiles.
+__device__ __forceinline__ long long counter(int bin, int q, int tiles) {
+    return static_cast<long long>(bin) * tiles + q * gridDim.x + blockIdx.x;
+}
 
-__global__ void __launch_bounds__(kThreads)
-    bucket_count_kernel(const int* __restrict__ keys, int* __restrict__ counts, int m, int tile,
-                        int tiles) {
-    const int w = (blockIdx.x * kThreads + threadIdx.x) / 32, lane = threadIdx.x % 32;
-    if (w >= tiles) return;
-    const int start = w * tile;
-    const int end = m - start < tile ? m : start + tile;
-    for (int base = start; base < end; base += 32) {
-        const int i = base + lane;
-        const int key = i < end ? keys[i] : -1;
-        const unsigned peers = __match_any_sync(kFull, key);
-        if (key >= 0 && lane == __ffs(peers) - 1) {
-            counts[static_cast<long long>(key) * tiles + w] += __popc(peers);
+// A block's particles [p0, p1) and the loop over them, kLoads rounds of
+// kPrepThreads at a time: each thread's spheres and weights loaded first.
+struct Tile {
+    int p0, p1;
+    __device__ Tile(int n, int tile) {
+        const long long lo = static_cast<long long>(blockIdx.x) * tile;
+        p0 = static_cast<int>(lo < n ? lo : n);
+        p1 = static_cast<int>(lo + tile < n ? lo + tile : n);
+    }
+};
+
+__device__ __forceinline__ void load_particles(const float4* __restrict__ spheres,
+                                               const float* __restrict__ weights, int base,
+                                               int p1, float4* s, float* w) {
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+        const int p = base + k * kPrepThreads + threadIdx.x;
+        s[k] = p < p1 ? spheres[p] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+        const int p = base + k * kPrepThreads + threadIdx.x;
+        w[k] = weights && p < p1 ? weights[p] : 1.0f;
+    }
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kPrepThreads)
+    bucket_keys_kernel(const float4* __restrict__ spheres, const float* __restrict__ weights,
+                       const float* __restrict__ consts, int* __restrict__ counts, int n,
+                       int tile, int nbx, int nty, int n_keys) {
+    extern __shared__ int s_counts[];   // [4][n_bins] where kShared
+    const int n_bins = n_keys + 1, tiles = 4 * gridDim.x;
+    const int lane = threadIdx.x % 32;
+    const Tile t(n, tile);
+    for (int i = threadIdx.x; i < 4 * n_bins; i += kPrepThreads) {
+        if (kShared) {
+            s_counts[i] = 0;
+        } else {
+            counts[counter(i % n_bins, i / n_bins, tiles)] = 0;
         }
-        __syncwarp();
     }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    bucket_scatter_kernel(const int* __restrict__ keys, int* __restrict__ cursor,
-                          int* __restrict__ order, int m, int tile, int tiles) {
-    const int w = (blockIdx.x * kThreads + threadIdx.x) / 32, lane = threadIdx.x % 32;
-    if (w >= tiles) return;
-    const int start = w * tile;
-    const int end = m - start < tile ? m : start + tile;
-    for (int base = start + ((end - start - 1) & ~31); base >= start; base -= 32) {
-        const int i = base + lane;
-        const int key = i < end ? keys[i] : -1;
-        const unsigned peers = __match_any_sync(kFull, key);
-        const int leader = __ffs(peers) - 1;
-        const int size = __popc(peers);
-        int top = 0;
-        if (key >= 0 && lane == leader) {
-            int* c = cursor + static_cast<long long>(key) * tiles + w;
-            top = *c;
-            *c = top - size;
+    __syncthreads();
+    bool over = false;
+    for (int base = t.p0; base < t.p1; base += kLoads * kPrepThreads) {
+        float4 s[kLoads];
+        float w[kLoads];
+        load_particles(spheres, weights, base, t.p1, s, w);
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+            const bool valid = base + k * kPrepThreads + static_cast<int>(threadIdx.x) < t.p1;
+            const Particle a = particle_keys(s[k], w[k], weights != nullptr, consts, nbx, nty,
+                                             n_keys);
+            over |= valid && a.over;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int key = valid ? a.key[q] : -1;
+                const unsigned peers = __match_any_sync(kFull, key);
+                if (key >= 0 && lane == __ffs(peers) - 1) {
+                    if (kShared) {
+                        atomicAdd(&s_counts[q * n_bins + key], __popc(peers));
+                    } else {
+                        atomicAdd(&counts[counter(key, q, tiles)], __popc(peers));
+                    }
+                }
+            }
         }
-        top = __shfl_sync(kFull, top, leader);
-        if (key >= 0) order[top - size + __popc(peers & ((1u << lane) - 1u))] = i;
-        __syncwarp();
+    }
+    over = __syncthreads_or(over);
+    if (kShared) {
+        for (int i = threadIdx.x; i < 4 * n_bins; i += kPrepThreads) {
+            counts[counter(i % n_bins, i / n_bins, tiles)] = s_counts[i];
+        }
+    }
+    if (threadIdx.x < 4) counts[counter(n_bins, threadIdx.x, tiles)] = threadIdx.x == 0 && over;
+    // pass 2's scan state, past the counters: the tickets and each row's word
+    unsigned long long* state =
+        reinterpret_cast<unsigned long long*>(counts + static_cast<long long>(n_bins + 1) * tiles);
+    if (threadIdx.x == 0) {
+        for (int r = blockIdx.x; r < n_bins + 2; r += gridDim.x) state[r] = 0ull;
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    bucket_pack_kernel(const int* __restrict__ order, const int* __restrict__ cursor,
-                       const float4* __restrict__ rows, float* __restrict__ slabs,
-                       int* __restrict__ first, int* __restrict__ last,
-                       int* __restrict__ slab_lo, int* __restrict__ n_slabs, int n, int cap,
-                       int chunk, int n_keys, int tiles) {
-    const int g = blockIdx.x * kThreads + threadIdx.x;
-    if (g < cap) {
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (g < 4 * n) v = rows[order[g] % n];
-        // chunk ci = g / chunk is rows 4 (ci % 2) .. +3 of slab ci / 2
-        const long long base = static_cast<long long>(g / chunk) * 4 * chunk + g % chunk;
-        slabs[base] = v.x;
-        slabs[base + chunk] = v.y;
-        slabs[base + 2 * chunk] = v.z;
-        slabs[base + 3 * chunk] = v.w;
+// Instance g's row into the (cap / (2 chunk), 8, chunk) slabs: chunk
+// ci = g / chunk is rows 4 (ci % 2) .. +3 of slab ci / 2.
+__device__ __forceinline__ void write_row(float* __restrict__ slabs, int g, int chunk,
+                                          float4 v) {
+    float* at = slabs + static_cast<long long>(g / chunk) * 4 * chunk + g % chunk;
+    at[0] = v.x;
+    at[chunk] = v.y;
+    at[2 * chunk] = v.z;
+    at[3 * chunk] = v.w;
+}
+
+// A row's published sum: (flag << 32) | the sum, in one 64-bit word, so a
+// reader never sees a flag without its value.
+constexpr unsigned long long kAggregate = 1ull << 32;   // the row's own sum
+constexpr unsigned long long kInclusive = 2ull << 32;   // the sum of it and every row before
+
+__device__ __forceinline__ unsigned long long load_state(const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void store_state(unsigned long long* p, unsigned long long v) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// The decoupled look-back of row t (warp 0 of its block; st the rows'
+// words): publishes the row's sum `agg`, then reads its predecessors 32
+// at a time (lane l row t - 1 - l, a row before 0 counting as an
+// inclusive 0), waits while any of them has published nothing, adds the
+// sums up to the nearest inclusive one and stops there, else moves 32
+// back; publishes its own inclusive sum. Returns the sum of the rows
+// before t. Rows are taken by ticket in order, so every row it waits for
+// is held by a running block.
+__device__ __forceinline__ unsigned look_back(unsigned long long* st, int t, unsigned agg,
+                                              int lane) {
+    if (t == 0) {
+        if (lane == 0) store_state(st, kInclusive | agg);
+        return 0u;
     }
-    if (g < n_keys) {
-        const int per_slab = 2 * chunk;
-        const int f = cursor[static_cast<long long>(g) * tiles];
-        const int l = cursor[static_cast<long long>(g + 1) * tiles];
-        const int lo = f / per_slab;
-        const int count = (l + per_slab - 1) / per_slab - lo;
-        first[g] = f;
-        last[g] = l;
-        slab_lo[g] = lo;
-        n_slabs[g] = count > 0 ? count : 0;
+    if (lane == 0) store_state(st + t, kAggregate | agg);
+    unsigned base = 0;
+    for (int k = t - 1;; k -= 32) {
+        unsigned long long w;
+        do {
+            w = k - lane >= 0 ? load_state(st + k - lane) : kInclusive;
+        } while (__any_sync(kFull, (w >> 32) == 0));
+        const unsigned inclusive = __ballot_sync(kFull, (w >> 32) == 2);
+        const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+        base += __reduce_add_sync(kFull, lane <= stop ? static_cast<unsigned>(w) : 0u);
+        if (inclusive) break;
+    }
+    if (lane == 0) store_state(st + t, kInclusive | (base + agg));
+    return base;
+}
+
+// A block barrier after the warp's lanes reconverge (lanes part before
+// several of them: thread 0 takes the ticket, warp 0 looks back).
+__device__ __forceinline__ void block_sync() {
+    __syncwarp();
+    __syncthreads();
+}
+
+// The counters' exclusive scan in place, key-major, by the blocks of pass
+// 2 together: a block takes a row (a bin's tiles counters; the flag row
+// last) by ticket, sums its entries (each thread a run of them, then a
+// warp scan and the warps' sums in shared memory), takes the rows before
+// it by look_back and writes each entry's exclusive prefix; the row's
+// range (first, last, slab_lo, n_slabs) where it is a key's, the overflow
+// byte where it is the flag row's. Then every block waits until each row
+// is written. state[0] holds the tickets and the rows done, state[1 + r]
+// row r's word (pass 1 zeroed them).
+__device__ __forceinline__ void scan_counters(int* counts, unsigned long long* state,
+                                              int* ranges, unsigned char* overflow, int n_keys,
+                                              int tiles, int chunk) {
+    __shared__ int s_row;
+    __shared__ unsigned s_base;
+    __shared__ unsigned s_warp[kPrepWarps];
+    unsigned* tickets = reinterpret_cast<unsigned*>(state);   // [0] taken, [1] rows done
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int rows = n_keys + 2, per = (tiles + kPrepThreads - 1) / kPrepThreads;
+    for (;;) {
+        if (threadIdx.x == 0) s_row = static_cast<int>(atomicAdd(tickets, 1u));
+        block_sync();
+        const int row = s_row;
+        if (row >= rows) break;
+        int* entries = counts + static_cast<long long>(row) * tiles;
+        const int j0 = min(static_cast<int>(threadIdx.x) * per, tiles), j1 = min(j0 + per, tiles);
+        unsigned mine = 0;
+        for (int j = j0; j < j1; ++j) mine += static_cast<unsigned>(entries[j]);
+        unsigned incl = mine;
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+            const unsigned x = __shfl_up_sync(kFull, incl, d);
+            if (lane >= d) incl += x;
+        }
+        if (lane == 31) s_warp[warp] = incl;
+        block_sync();
+        unsigned agg = 0, below = 0;
+#pragma unroll
+        for (int v = 0; v < kPrepWarps; ++v) {
+            agg += s_warp[v];
+            below += v < warp ? s_warp[v] : 0u;
+        }
+        if (warp == 0) {
+            const unsigned base = look_back(state + 1, row, agg, lane);
+            if (lane == 0) s_base = base;
+        }
+        block_sync();
+        unsigned run = s_base + below + incl - mine;
+        for (int j = j0; j < j1; ++j) {
+            const int v = entries[j];
+            entries[j] = static_cast<int>(run);
+            run += static_cast<unsigned>(v);
+        }
+        if (threadIdx.x == 0 && row < n_keys) {
+            const int per_slab = 2 * chunk;
+            const int f = static_cast<int>(s_base), l = static_cast<int>(s_base + agg);
+            const int lo = f / per_slab;
+            const int count = (l + per_slab - 1) / per_slab - lo;
+            ranges[row] = f;
+            ranges[n_keys + row] = l;
+            ranges[2 * n_keys + row] = lo;
+            ranges[3 * n_keys + row] = count > 0 ? count : 0;
+        }
+        if (threadIdx.x == 0 && row == n_keys + 1) *overflow = agg != 0;
+        __threadfence();
+        block_sync();   // the row written, and s_row read, before the next ticket
+        if (threadIdx.x == 0) atomicAdd(tickets + 1, 1u);
+    }
+    if (threadIdx.x == 0) {
+        unsigned done;
+        do {
+            asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(done) : "l"(tickets + 1)
+                         : "memory");
+        } while (done < static_cast<unsigned>(rows));
+        __threadfence();
+    }
+    block_sync();
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kPrepThreads)
+    bucket_pack_kernel(const float4* __restrict__ spheres, const float* __restrict__ weights,
+                       const float* __restrict__ consts, int* counts, float* __restrict__ slabs,
+                       int* __restrict__ ranges, unsigned char* __restrict__ overflow, int n,
+                       int cap, int chunk, int tile, int nbx, int nty, int n_keys) {
+    // where kShared: the block's warp counts [4][n_bins] (u64: a byte a
+    // warp) and cursors [4][n_bins] (i32); else the warp counts in the
+    // block's part of the scratch past the scan state, and the cursors in
+    // the block's own column of the scanned counters
+    extern __shared__ unsigned long long s_prep[];
+    const int n_bins = n_keys + 1, tiles = 4 * gridDim.x;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const unsigned below = (1u << lane) - 1u;
+    const unsigned long long lower_warps = (1ull << (8 * warp)) - 1ull;
+    unsigned long long* state =
+        reinterpret_cast<unsigned long long*>(counts + static_cast<long long>(n_bins + 1) * tiles);
+    unsigned long long* words =
+        kShared ? s_prep : state + n_bins + 2 + static_cast<long long>(blockIdx.x) * 4 * n_bins;
+    int* s_cursor = reinterpret_cast<int*>(s_prep + 4 * n_bins);
+    const Tile t(n, tile);
+    // the grid's zero columns past 4 n, then the counters' scan
+    const int gt = blockIdx.x * kPrepThreads + threadIdx.x, stride = gridDim.x * kPrepThreads;
+    for (int g = 4 * n + gt; g < cap; g += stride) {
+        write_row(slabs, g, chunk, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    }
+    scan_counters(counts, state, ranges, overflow, n_keys, tiles, chunk);
+    for (int i = threadIdx.x; i < 4 * n_bins; i += kPrepThreads) {
+        if (kShared) s_cursor[i] = __ldcg(&counts[counter(i % n_bins, i / n_bins, tiles)]);
+        words[i] = 0ull;
+    }
+    __syncthreads();
+    for (int base = t.p0; base < t.p1; base += kLoads * kPrepThreads) {
+        float4 s[kLoads];
+        float w[kLoads];
+        load_particles(spheres, weights, base, t.p1, s, w);
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+            const bool valid = base + k * kPrepThreads + static_cast<int>(threadIdx.x) < t.p1;
+            const Particle a = particle_keys(s[k], w[k], weights != nullptr, consts, nbx, nty,
+                                             n_keys);
+            int key[4], rank[4], size[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                key[q] = valid ? a.key[q] : -1;
+                const unsigned peers = __match_any_sync(kFull, key[q]);
+                rank[q] = __popc(peers & below);
+                size[q] = __popc(peers);
+                if (key[q] >= 0 && rank[q] == 0) {
+                    reinterpret_cast<unsigned char*>(words + q * n_bins + key[q])[warp] =
+                        static_cast<unsigned char>(size[q]);
+                }
+            }
+            block_sync();
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                if (key[q] < 0) continue;
+                const long long at = q * n_bins + key[q];
+                // the key's groups in the round's lower warps: the bytes
+                // below this warp's, summed (at most 7 x 32 < 256)
+                const unsigned long long word = kShared ? words[at] : __ldcg(words + at);
+                const int offset =
+                    static_cast<int>(((word & lower_warps) * 0x0101010101010101ull) >> 56);
+                const int cursor = kShared ? s_cursor[at] : __ldcg(&counts[counter(key[q], q,
+                                                                                  tiles)]);
+                write_row(slabs, cursor + offset + rank[q], chunk, a.row);
+            }
+            block_sync();
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                if (key[q] < 0 || rank[q] != 0) continue;
+                const long long at = q * n_bins + key[q];
+                reinterpret_cast<unsigned char*>(words + at)[warp] = 0;
+                if (kShared) {
+                    atomicAdd(&s_cursor[at], size[q]);
+                } else {
+                    atomicAdd(&counts[counter(key[q], q, tiles)], size[q]);
+                }
+            }
+        }
     }
 }
 
@@ -364,85 +629,136 @@ __global__ void __launch_bounds__(kSetupWarps * 32)
 
 }  // namespace
 
-// Keys i32[4 n] (key of instance q * n + p, sentinel n_keys), rows
-// f32[n, 4] (pu, pv, invh, scale as the slabs take them) and the overflow
-// byte (zeroed here, in the stream) of n spheres f32[n, 4] (16-byte
-// aligned); weights f32[n] or null; consts f32[17].
+namespace {
+
+// Blocks of E4's passes over n particles in tiles of `tile` (one for no
+// particle), or 0 where the counters, 4 (n_keys + 2) a block, or the
+// counts' scan would pass an i32.
+int prep_blocks(int n, int tile, int n_keys) {
+    const long long blocks = n > tile ? (static_cast<long long>(n) + tile - 1) / tile : 1;
+    const long long counters = 4LL * (static_cast<long long>(n_keys) + 2) * blocks;
+    return counters + 4LL * n < (1LL << 31) ? static_cast<int>(blocks) : 0;
+}
+
+bool prep_valid(int n, int tile, int nbx, int nty, int n_keys) {
+    return n >= 0 && tile >= 1 && nbx >= 1 && nty >= 1 &&
+           static_cast<long long>(nbx) * nty == n_keys && prep_blocks(n, tile, n_keys) > 0;
+}
+
+// Dynamic shared bytes of a block of pass 1 (`per_bin` 16: 4 counters a
+// bin) or pass 2 (48: 4 cursors and 4 words of warp counts a bin) where
+// n_bins fit (kSharedBins), else none (they stay in device memory).
+int prep_shared(int n_bins, int per_bin) { return n_bins <= kSharedBins ? per_bin * n_bins : 0; }
+
+}  // namespace
+
+// Pass 1 over n spheres f32[n, 4] (16-byte aligned), weights f32[n] or
+// null, consts f32[17]: counts i32[(n_keys + 2) x 4 blocks], key-major,
+// block b's (bin, q) counter at bin * 4 blocks + q * blocks + b (bin
+// n_keys the sentinel, bin n_keys + 1 the blocks' overflow flags), blocks
+// = ceil(n / tile) (at least 1); then pass 2's scan state, 2 (n_keys + 3)
+// i32 (8-byte aligned), zeroed.
 extern "C" int grace_splat_bucket_keys(const float* spheres, const float* weights,
-                                       const float* consts, int* keys, float* rows,
-                                       unsigned char* overflow, int n, int nbx, int nty,
-                                       int n_keys, int device, void* stream) {
-    if (n < 0 || nbx < 1 || nty < 1 || n_keys != nbx * nty || !consts || !overflow ||
-        (n > 0 && (!spheres || !keys || !rows)) ||
-        reinterpret_cast<uintptr_t>(spheres) % 16 || reinterpret_cast<uintptr_t>(rows) % 16) {
+                                       const float* consts, int* counts, int n, int tile,
+                                       int nbx, int nty, int n_keys, int device, void* stream) {
+    if (!prep_valid(n, tile, nbx, nty, n_keys) || !consts || !counts || (n > 0 && !spheres) ||
+        reinterpret_cast<uintptr_t>(spheres) % 16 || reinterpret_cast<uintptr_t>(counts) % 8) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const auto s = static_cast<cudaStream_t>(stream);
-    err = cudaMemsetAsync(overflow, 0, 1, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (n == 0) return static_cast<int>(cudaGetLastError());
-    bucket_keys_kernel<<<grid(n), kThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(spheres), weights, consts, keys,
-        reinterpret_cast<float4*>(rows), overflow, n, nbx, nty, n_keys);
+    const int blocks = prep_blocks(n, tile, n_keys), shared = prep_shared(n_keys + 1, 16);
+    const auto* sp = reinterpret_cast<const float4*>(spheres);
+    if (shared > 0) {
+        bucket_keys_kernel<true><<<blocks, kPrepThreads, shared, s>>>(sp, weights, consts, counts,
+                                                                      n, tile, nbx, nty, n_keys);
+    } else {
+        bucket_keys_kernel<false><<<blocks, kPrepThreads, 0, s>>>(sp, weights, consts, counts, n,
+                                                                  tile, nbx, nty, n_keys);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
-// The counting sort's first pass over keys i32[m] (values in [0, n_bins)):
-// counts i32[n_bins * tiles] (zeroed here, in the stream), key-major, of
-// warp tiles of `tile` instances (tile a multiple of 32, tiles * tile >= m).
-extern "C" int grace_splat_bucket_count(const int* keys, int* counts, int m, int tile,
-                                        int tiles, int n_bins, int device, void* stream) {
-    if (m < 0 || tile < 32 || tile % 32 || tiles < 1 || static_cast<long long>(tiles) * tile < m ||
-        n_bins < 1 || !counts || (m > 0 && !keys)) {
+// Pass 2: slabs f32[cap / (2 chunk), 8, chunk], ranges i32[4, n_keys]
+// (first, last, slab_lo, n_slabs) and the overflow byte from the same
+// spheres, weights, consts, tile and keys and grace_splat_bucket_keys'
+// counts with its scan state, which it scans in place (scratch), followed
+// past kSharedBins bins by 8 (n_keys + 1) i32 a block (its words of warp
+// counts).
+extern "C" int grace_splat_bucket_pack(const float* spheres, const float* weights,
+                                       const float* consts, int* counts, float* slabs,
+                                       int* ranges, unsigned char* overflow, int n, int cap,
+                                       int chunk, int tile, int nbx, int nty, int n_keys,
+                                       int device, void* stream) {
+    if (!prep_valid(n, tile, nbx, nty, n_keys) || chunk < 1 || cap < 4LL * n ||
+        cap % (2LL * chunk) || !consts || !counts || !ranges || !overflow ||
+        (n > 0 && !spheres) || (cap > 0 && !slabs) || reinterpret_cast<uintptr_t>(spheres) % 16 ||
+        reinterpret_cast<uintptr_t>(counts) % 8) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const auto s = static_cast<cudaStream_t>(stream);
-    err = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(n_bins) * tiles, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    bucket_count_kernel<<<grid(32LL * tiles), kThreads, 0, s>>>(keys, counts, m, tile, tiles);
+    const int blocks = prep_blocks(n, tile, n_keys), shared = prep_shared(n_keys + 1, 48);
+    const auto* sp = reinterpret_cast<const float4*>(spheres);
+    if (shared > 0) {
+        bucket_pack_kernel<true><<<blocks, kPrepThreads, shared, s>>>(
+            sp, weights, consts, counts, slabs, ranges, overflow, n, cap, chunk, tile, nbx, nty,
+            n_keys);
+    } else {
+        bucket_pack_kernel<false><<<blocks, kPrepThreads, 0, s>>>(
+            sp, weights, consts, counts, slabs, ranges, overflow, n, cap, chunk, tile, nbx, nty,
+            n_keys);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
-// The counting sort's scatter: order i32[m], the instances in stable key
-// order, from the inclusive scan of grace_splat_bucket_count's counts in
-// cursor (each left at its (key, tile) pair's first slot).
-extern "C" int grace_splat_bucket_scatter(const int* keys, int* cursor, int* order, int m,
-                                          int tile, int tiles, int device, void* stream) {
-    if (m < 0 || tile < 32 || tile % 32 || tiles < 1 || static_cast<long long>(tiles) * tile < m ||
-        !cursor || (m > 0 && (!keys || !order))) {
-        return static_cast<int>(cudaErrorInvalidValue);
+namespace {
+
+template <typename Kernel>
+cudaError_t kernel_resources(Kernel kernel, int threads, int dynamic, int* out) {
+    cudaFuncAttributes attr;
+    int blocks = 0;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dynamic);
     }
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    bucket_scatter_kernel<<<grid(32LL * tiles), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        keys, cursor, order, m, tile, tiles);
-    return static_cast<int>(cudaGetLastError());
+    if (err != cudaSuccess) return err;
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.sharedSizeBytes) + dynamic;
+    out[2] = threads;
+    out[3] = blocks;
+    out[4] = blocks * threads / 32;
+    out[5] = static_cast<int>(attr.localSizeBytes);
+    return cudaSuccess;
 }
 
-// Slabs f32[cap / (2 chunk), 8, chunk] and the key ranges first, last,
-// slab_lo, n_slabs i32[n_keys] from the sorted instances order i32[4 n],
-// the scattered cursors i32[(n_keys + 1) * tiles] and the rows of
-// grace_splat_bucket_keys.
-extern "C" int grace_splat_bucket_pack(const int* order, const int* cursor, const float* rows,
-                                       float* slabs, int* first, int* last, int* slab_lo,
-                                       int* n_slabs, int n, int cap, int chunk, int n_keys,
-                                       int tiles, int device, void* stream) {
-    if (n < 0 || chunk < 1 || n_keys < 1 || tiles < 1 || cap < 4LL * n || cap % (2 * chunk) ||
-        !cursor || !first || !last || !slab_lo || !n_slabs ||
-        (n > 0 && (!order || !rows || !slabs)) || reinterpret_cast<uintptr_t>(rows) % 16) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+}  // namespace
+
+// What a launch of each of E4's passes holds at n_bins bins (out i32[12]:
+// pass 1, then pass 2, each registers a thread, shared bytes a block
+// (static and dynamic), threads a block, resident blocks and warps an SM,
+// local bytes a thread).
+extern "C" int grace_splat_bucket_resources(int* out, int n_bins, int device, void* stream) {
+    (void)stream;
+    if (!out || n_bins < 2) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int threads = cap > n_keys ? cap : n_keys;
-    bucket_pack_kernel<<<grid(threads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        order, cursor, reinterpret_cast<const float4*>(rows), slabs, first, last, slab_lo,
-        n_slabs, n, cap, chunk, n_keys, tiles);
-    return static_cast<int>(cudaGetLastError());
+    if (n_bins <= kSharedBins) {
+        err = kernel_resources(bucket_keys_kernel<true>, kPrepThreads, prep_shared(n_bins, 16),
+                               out);
+        if (err == cudaSuccess) {
+            err = kernel_resources(bucket_pack_kernel<true>, kPrepThreads,
+                                   prep_shared(n_bins, 48), out + 6);
+        }
+    } else {
+        err = kernel_resources(bucket_keys_kernel<false>, kPrepThreads, 0, out);
+        if (err == cudaSuccess) {
+            err = kernel_resources(bucket_pack_kernel<false>, kPrepThreads, 0, out + 6);
+        }
+    }
+    return static_cast<int>(err);
 }
 
 // The sort-free setup of n spheres f32[n, 4] (16-byte aligned), weights

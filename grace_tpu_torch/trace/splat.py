@@ -25,6 +25,7 @@ Camera conventions match ``rays.gen.orthographic_projection_rays``: pixel
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -185,8 +186,9 @@ def bucket_prims_ortho(spheres, camera_position, look_at, view_up,
     neighbourhood; a particle needing more sets the overflow flag.
 
     On CUDA tensors the keys and slabs come from ``csrc/splat_prep.cu``
-    (``grace_splat_bucket_keys``, a stable counting sort, then
-    ``grace_splat_bucket_pack``); the camera's tensors are cached per
+    (``grace_splat_bucket_keys``: keys and counts, then
+    ``grace_splat_bucket_pack``: the counts' scan and a stable scatter of
+    the instances into the slabs); the camera's tensors are cached per
     camera and device, so ``xcols`` and ``yrows`` are shared between calls
     (do not write into them). CPU tensors run ``_bucket_prims_ortho_plain``.
     """
@@ -208,11 +210,37 @@ def bucket_prims_ortho(spheres, camera_position, look_at, view_up,
                                        chunk, weights, band)
 
 
+BUCKET_TILE = 4096        # particles a block of E4's two passes (csrc/splat_prep.cu)
+BUCKET_COUNTS = 1 << 24   # (bin, block tile) counters, at most
+BUCKET_SHARED_BINS = 1000  # bins a block holds in shared memory, at most (kSharedBins)
+
+
+def bucket_blocks(n: int, n_keys: int, tile: int = BUCKET_TILE) -> tuple[int, int]:
+    """(tile, blocks) of E4's passes over n particles and n_keys keys:
+    blocks of ``tile`` particles, grown so that the 4 (n_keys + 2)
+    counters a block stay within BUCKET_COUNTS; one block for no
+    particle."""
+    most = max(1, BUCKET_COUNTS // (4 * (n_keys + 2)))
+    tile = max(tile, -(-n // most))
+    return tile, max(1, -(-n // tile))
+
+
+def bucket_scratch(n_keys: int, blocks: int) -> int:
+    """The i32 scratch of E4's passes: the counters, 4 (n_keys + 2) a
+    block; pass 2's scan state, 2 (n_keys + 3); past BUCKET_SHARED_BINS
+    bins its words of warp counts, 8 bytes a (q, bin) a block."""
+    n_bins = n_keys + 1
+    words = 0 if n_bins <= BUCKET_SHARED_BINS else 8 * n_bins * blocks
+    return 4 * (n_bins + 1) * blocks + 2 * (n_bins + 2) + words
+
+
 def _bucket_prims_ortho_kernels(spheres, camera_position, look_at, view_up, vertical_extent,
-                                length, w_res, h_res, tile_w, tile_h, chunk, weights, band
-                                ) -> SplatBuckets:
+                                length, w_res, h_res, tile_w, tile_h, chunk, weights, band,
+                                _tile: int = BUCKET_TILE) -> SplatBuckets:
     """``bucket_prims_ortho``'s CUDA route (checked arguments, ``band``
-    resolved): the keys kernel, the counting sort, the pack kernel."""
+    resolved): pass 1 (keys and counts), pass 2 (the counts' scan, the
+    slabs, the ranges and the overflow flag), with no host sync. ``_tile``
+    (particles a block) is for the tests and the ablations."""
     dev = spheres.device
     w = None if weights is None else torch.as_tensor(weights, dtype=torch.float32, device=dev)
     _kernels.check_tensors("bucket_prims_ortho", [], [spheres] + ([] if w is None else [w]))
@@ -227,94 +255,68 @@ def _bucket_prims_ortho_kernels(spheres, camera_position, look_at, view_up, vert
                                              band, dev)
     nbx = (w_res // tile_h) * (tile_h // band)
     nty = h_res // tile_w
-    keys, rows, overflow = bucket_keys_cuda(spheres, w, consts, nbx, nty)
-    # Stable: instances of one key keep the torch.cat order (q * n + p).
-    order, cursor, tiles = bucket_sort_cuda(keys, nbx * nty + 1)
-    slabs, slab_lo, n_slabs, first, last = bucket_pack_cuda(order, cursor, tiles, rows, chunk,
-                                                            nbx * nty)
+    spheres = _kernels.aligned(spheres)
+    w = None if w is None else w.contiguous()
+    tile, blocks = bucket_blocks(n, nbx * nty, _tile)
+    counts = torch.empty(bucket_scratch(nbx * nty, blocks), dtype=torch.int32, device=dev)
+    bucket_keys_cuda(spheres, w, consts, counts, nbx, nty, tile)
+    # Stable: each (bin, block tile) pair's slots follow the pairs before it
+    # in key-major order, tile q * blocks + b holding instances q * n + p.
+    slabs, ranges, overflow = bucket_pack_cuda(spheres, w, consts, counts, chunk, nbx, nty, tile)
+    first, last, slab_lo, n_slabs = ranges
     return SplatBuckets(slabs, slab_lo, n_slabs, first, last, xcols, yrows, overflow)
 
 
-def bucket_keys_cuda(spheres, weights, consts, nbx: int, nty: int):
-    """``csrc/splat_prep.cu``'s ``grace_splat_bucket_keys`` on checked CUDA
-    tensors: (keys i32[4 n], the instance key q * n + p, sentinel nbx * nty;
-    rows f32[n, 4], (pu, pv, invh, scale) as the slabs take them; overflow
-    bool[])."""
-    device = spheres.device
-    n = spheres.shape[0]
-    spheres = _kernels.aligned(spheres)
-    keys = torch.empty(4 * n, dtype=torch.int32, device=device)
-    rows = torch.empty((n, 4), dtype=torch.float32, device=device)
-    overflow = torch.empty((), dtype=torch.bool, device=device)
-    _kernels.launch("splat_prep", "grace_splat_bucket_keys", device, spheres.data_ptr(),
-                    None if weights is None else weights.contiguous().data_ptr(),
-                    consts.data_ptr(), keys.data_ptr(), rows.data_ptr(), overflow.data_ptr(),
-                    n, nbx, nty, nbx * nty)
+def bucket_keys_cuda(spheres, weights, consts, counts, nbx: int, nty: int, tile: int):
+    """``csrc/splat_prep.cu``'s ``grace_splat_bucket_keys`` (pass 1) on
+    checked CUDA tensors (spheres 16-byte aligned, weights contiguous or
+    None) into counts i32[bucket_scratch(nbx nty, blocks)]: the counters of
+    ``bucket_blocks``' blocks of ``tile`` particles, key-major, the last row
+    the blocks' overflow flags, then pass 2's scan state, zeroed."""
+    _kernels.launch("splat_prep", "grace_splat_bucket_keys", spheres.device, spheres.data_ptr(),
+                    None if weights is None else weights.data_ptr(), consts.data_ptr(),
+                    counts.data_ptr(), spheres.shape[0], tile, nbx, nty, nbx * nty)
     bucket_keys_cuda.launches += 1
-    return keys, rows, overflow
 
 
 bucket_keys_cuda.launches = 0
 
 
-SORT_TILE = 1024         # instances a warp of the counting sort takes, at least
-SORT_COUNTS = 1 << 24    # (key, warp tile) counters of the counting sort, at most
-
-
-def sort_tiles(m: int, n_bins: int) -> tuple[int, int]:
-    """(tile, tiles) of the counting sort of m keys over n_bins values:
-    warp tiles of at least SORT_TILE instances (a multiple of 32), few
-    enough that n_bins x tiles counters stay near SORT_COUNTS."""
-    most = max(1, SORT_COUNTS // n_bins)
-    tile = max(SORT_TILE, 32 * -(-m // (32 * most)))
-    return tile, max(1, -(-m // tile))
-
-
-def bucket_sort_cuda(keys, n_bins: int):
-    """``csrc/splat_prep.cu``'s stable counting sort of keys i32[m] with
-    values in [0, n_bins): ``grace_splat_bucket_count``, an inclusive scan
-    of the counts (torch.cumsum) and ``grace_splat_bucket_scatter``.
-    Returns (order i32[m], the instances in stable key order; cursor
-    i32[n_bins * tiles], each (key, warp tile) pair's first slot, so
-    cursor[k * tiles] is key k's first; tiles)."""
-    device = keys.device
-    m = keys.shape[0]
-    tile, tiles = sort_tiles(m, n_bins)
-    counts = torch.empty(n_bins * tiles, dtype=torch.int32, device=device)
-    _kernels.launch("splat_prep", "grace_splat_bucket_count", device, keys.data_ptr(),
-                    counts.data_ptr(), m, tile, tiles, n_bins)
-    cursor = torch.cumsum(counts, 0, dtype=torch.int32)
-    order = torch.empty(m, dtype=torch.int32, device=device)
-    _kernels.launch("splat_prep", "grace_splat_bucket_scatter", device, keys.data_ptr(),
-                    cursor.data_ptr(), order.data_ptr(), m, tile, tiles)
-    bucket_sort_cuda.launches += 1
-    return order, cursor, tiles
-
-
-bucket_sort_cuda.launches = 0
-
-
-def bucket_pack_cuda(order, cursor, tiles: int, rows, chunk: int, n_keys: int):
-    """``csrc/splat_prep.cu``'s ``grace_splat_bucket_pack``: (slabs
-    f32[cap / (2 chunk), 8, chunk], slab_lo, n_slabs, first, last i32[n_keys])
-    from ``bucket_sort_cuda``'s order and cursors and ``bucket_keys_cuda``'s
-    rows."""
-    device = rows.device
-    n = rows.shape[0]
+def bucket_pack_cuda(spheres, weights, consts, counts, chunk: int, nbx: int, nty: int,
+                     tile: int):
+    """``csrc/splat_prep.cu``'s ``grace_splat_bucket_pack`` (pass 2): (slabs
+    f32[cap / (2 chunk), 8, chunk], ranges i32[4, n_keys] (first, last,
+    slab_lo, n_slabs), overflow bool[]) from pass 1's inputs and its
+    counts, which it scans in place (scratch)."""
+    device = spheres.device
+    n = spheres.shape[0]
+    n_keys = nbx * nty
     per_slab = 2 * chunk
     cap = ((4 * n + per_slab - 1) // per_slab) * per_slab
     slabs = torch.empty((cap // per_slab, 8, chunk), dtype=torch.float32, device=device)
     ranges = torch.empty((4, n_keys), dtype=torch.int32, device=device)
-    first, last, slab_lo, n_slabs = ranges
-    _kernels.launch("splat_prep", "grace_splat_bucket_pack", device, order.data_ptr(),
-                    cursor.data_ptr(), rows.data_ptr(), slabs.data_ptr(), first.data_ptr(),
-                    last.data_ptr(), slab_lo.data_ptr(), n_slabs.data_ptr(), n, cap, chunk,
-                    n_keys, tiles)
+    overflow = torch.empty((), dtype=torch.bool, device=device)
+    _kernels.launch("splat_prep", "grace_splat_bucket_pack", device, spheres.data_ptr(),
+                    None if weights is None else weights.data_ptr(), consts.data_ptr(),
+                    counts.data_ptr(), slabs.data_ptr(), ranges.data_ptr(), overflow.data_ptr(),
+                    n, cap, chunk, tile, nbx, nty, n_keys)
     bucket_pack_cuda.launches += 1
-    return slabs, slab_lo, n_slabs, first, last
+    return slabs, ranges, overflow
 
 
 bucket_pack_cuda.launches = 0
+
+
+def bucket_resources(device, n_keys: int) -> dict:
+    """What one launch of each of E4's passes holds on ``device`` at n_keys
+    keys: {"splat_bucket_keys": ..., "splat_bucket_pack": ...}, each
+    ``_kernels.RESOURCE_FIELDS`` and ``local_bytes`` a thread."""
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    out = (ctypes.c_int * (2 * len(fields)))()
+    _kernels.launch("splat_prep", "grace_splat_bucket_resources", torch.device(device),
+                    ctypes.addressof(out), n_keys + 1)
+    return {name: dict(zip(fields, out[i * len(fields):(i + 1) * len(fields)]))
+            for i, name in enumerate(("splat_bucket_keys", "splat_bucket_pack"))}
 
 
 def _bucket_prims_ortho_plain(spheres, camera_position, look_at, view_up, vertical_extent,
@@ -322,12 +324,48 @@ def _bucket_prims_ortho_plain(spheres, camera_position, look_at, view_up, vertic
                               ) -> SplatBuckets:
     """Plain PyTorch version of ``bucket_prims_ortho`` (checked arguments,
     ``band`` resolved): grace_tpu's ops, one torch call each."""
-    dev = spheres.device
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     n = spheres.shape[0]
     frame = _ortho_frame(camera_position, look_at, view_up, vertical_extent, length, w_res,
-                         h_res, tile_w, band, dev)
+                         h_res, tile_w, band, spheres.device)
+    tile_ids, n_keys, pu, pv, invh, live, scale, overflow = _bucket_keys_plain(
+        spheres, frame, weights, w_res, h_res, tile_w, tile_h, band)
 
+    # Stable sort: instances of one key keep the torch.cat order above.
+    key_s, order = torch.sort(tile_ids, stable=True)
+    tiled = lambda a: a.repeat(4)[order]
+    pu_s, pv_s = tiled(pu), tiled(pv)
+    if weights is None:
+        # scale = invh^2 is derivable from the sorted invh once dead
+        # particles carry invh = 0.
+        invh_s = tiled(torch.where(live, invh, 0.0))
+        scale_s = invh_s * invh_s
+    else:
+        invh_s, scale_s = tiled(invh), tiled(scale)
+
+    first = _sorted_first_counts(key_s, n_keys)
+    last = first[1:]
+    first = first[:-1]
+
+    # Two `chunk`-sized pieces per (8, chunk) slab: rows 0-3 = chunk 2s
+    # (pu, pv, invh, scale), rows 4-7 = chunk 2s+1.
+    per_slab = 2 * chunk
+    cap = ((4 * n + per_slab - 1) // per_slab) * per_slab
+    comp = [torch.nn.functional.pad(a, (0, cap - 4 * n)).reshape(-1, chunk)
+            for a in (pu_s, pv_s, invh_s, scale_s)]
+    slabs = torch.stack(comp, dim=1).reshape(-1, 8, chunk)
+    slab_lo = torch.div(first, per_slab, rounding_mode="floor")
+    n_slabs = torch.clamp(torch.div(last + per_slab - 1, per_slab,
+                                    rounding_mode="floor") - slab_lo, min=0)
+    return SplatBuckets(slabs, slab_lo.to(torch.int32), n_slabs.to(torch.int32),
+                        first, last, frame.xcols[:, None], frame.yrows[:, None], overflow)
+
+
+def _bucket_keys_plain(spheres, frame: _OrthoFrame, weights, w_res, h_res, tile_w, tile_h,
+                       band):
+    """The plain version's instance keys: (keys i64[4 n], instance q * n +
+    p, the sentinel n_keys where it draws nothing; n_keys; each particle's
+    pu, pv, invh, live and scale; overflow bool[])."""
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=spheres.device)
     pos = spheres[:, :3]
     h = spheres[:, 3]
     pu = dot3(pos, frame.v)                 # image x (columns)
@@ -368,35 +406,7 @@ def _bucket_prims_ortho_plain(spheres, camera_position, look_at, view_up, vertic
             insts.append(torch.where(ok, rt * nbx + cb, n_keys))
     tile_ids = torch.cat(insts)                               # [4n]
     invh = torch.where(h > 0, 1.0 / torch.clamp(h, min=1e-30), 0.0)
-
-    # Stable sort: instances of one key keep the torch.cat order above.
-    key_s, order = torch.sort(tile_ids, stable=True)
-    tiled = lambda a: a.repeat(4)[order]
-    pu_s, pv_s = tiled(pu), tiled(pv)
-    if weights is None:
-        # scale = invh^2 is derivable from the sorted invh once dead
-        # particles carry invh = 0.
-        invh_s = tiled(torch.where(live, invh, 0.0))
-        scale_s = invh_s * invh_s
-    else:
-        invh_s, scale_s = tiled(invh), tiled(scale)
-
-    first = _sorted_first_counts(key_s, n_keys)
-    last = first[1:]
-    first = first[:-1]
-
-    # Two `chunk`-sized pieces per (8, chunk) slab: rows 0-3 = chunk 2s
-    # (pu, pv, invh, scale), rows 4-7 = chunk 2s+1.
-    per_slab = 2 * chunk
-    cap = ((4 * n + per_slab - 1) // per_slab) * per_slab
-    comp = [torch.nn.functional.pad(a, (0, cap - 4 * n)).reshape(-1, chunk)
-            for a in (pu_s, pv_s, invh_s, scale_s)]
-    slabs = torch.stack(comp, dim=1).reshape(-1, 8, chunk)
-    slab_lo = torch.div(first, per_slab, rounding_mode="floor")
-    n_slabs = torch.clamp(torch.div(last + per_slab - 1, per_slab,
-                                    rounding_mode="floor") - slab_lo, min=0)
-    return SplatBuckets(slabs, slab_lo.to(torch.int32), n_slabs.to(torch.int32),
-                        first, last, frame.xcols[:, None], frame.yrows[:, None], overflow)
+    return tile_ids, n_keys, pu, pv, invh, live, scale, overflow
 
 
 def _factor(t, coeffs):

@@ -43,11 +43,13 @@ points identical, runs of equal keys, max_per_leaf 1 and 32, N = 2 and 3,
 signed zeros at the box edge), two entry builds bit-equal with no host
 sync, the valid tree where a delta is the sentinel, one launch of each
 kernel a build and the refusals; and the splat's two setups
-(splat_prep.cu: bucket_prims_ortho's keys kernel, counting sort and pack
-kernel, the sort-free setup) bit-equal to their plain versions at every case of chip_smoke's
+(splat_prep.cu: bucket_prims_ortho's two passes, the sort-free setup)
+bit-equal to their plain versions at every case of chip_smoke's
 SPLAT_PREP_CASES (n not a multiple of chunk or 128, n < 32, 128 tiles,
 band None to 64, weights None and given, dead particles, overflow, a
-2^16-particle clustered scene), their launches on a frame and a training
+2^16-particle clustered scene, Morton-sorted particles at path 1's 256
+keys, 4,096 keys with the counters in device memory), the bucketed
+setup's resources, their launches on a frame and a training
 step and the refusals; and the dense broadphase and the triangle lists
 (broadphase.cu, tri_lists.cu) against their plain versions at every case
 of chip_smoke's BROADPHASE_CASES, OVERLAP_BOX_CASES and TRI_LIST_CASES
@@ -980,7 +982,7 @@ def test_splat_prep_kernels_match_plain(dev, tag):
     """splat_prep.cu against the plain versions on the card, bit for bit:
     every SplatBuckets field and the sort-free masks, transposed masks,
     coords and slabs."""
-    _, side, tiles, band, chunk, _, whole = SPLAT_PREP_CASES[tag]
+    _, side, tiles, band, chunk, _, whole, _ = SPLAT_PREP_CASES[tag]
     s, w = splat_prep_scene(tag)
     spheres = torch.from_numpy(s).to(dev)
     weights = None if w is None else torch.from_numpy(w).to(dev)
@@ -990,13 +992,12 @@ def test_splat_prep_kernels_match_plain(dev, tag):
 
 @pytest.mark.cuda
 def test_splat_prep_launches_and_refusals(dev):
-    """A bucketed frame launches the keys kernel, the counting sort and the
-    pack kernel once each, a training step the sort-free setup twice
-    (forward and backward), no
+    """A bucketed frame launches the keys pass and the pack pass once each,
+    a training step the sort-free setup twice (forward and backward), no
     plain version on the card; spheres of another dtype or width and
     weights of another length raise."""
     tag = list(SPLAT_PREP_CASES)[0]
-    _, side, (tile_w, tile_h), band, chunk, _, _ = SPLAT_PREP_CASES[tag]
+    _, side, (tile_w, tile_h), band, chunk, *_ = SPLAT_PREP_CASES[tag]
     s, _ = splat_prep_scene(tag)
     spheres = torch.from_numpy(s).to(dev)
     cam = sg.OrthoCamera(CAM, LOOK, UP, 1.2, 6.0, side, side)
@@ -1006,8 +1007,8 @@ def test_splat_prep_launches_and_refusals(dev):
     x = spheres.clone().requires_grad_(True)
     sg.make_splat_trainer(cam, tile_w, tile_h)(x, None).sum().backward()
     torch.cuda.synchronize()
-    assert prep_counters() == {"splat_bucket_keys": 1, "splat_bucket_sort": 1,
-                               "splat_bucket_pack": 1, "sortfree_setup": 2}
+    assert prep_counters() == {"splat_bucket_keys": 1, "splat_bucket_pack": 1,
+                               "sortfree_setup": 2}
     args = (CAM, LOOK, UP, 1.2, 6.0, side, side)
     with pytest.raises(TypeError):
         sp.bucket_prims_ortho(spheres.double(), *args, tile_w=tile_w, tile_h=tile_h)
@@ -1020,6 +1021,10 @@ def test_splat_prep_launches_and_refusals(dev):
         sg.sortfree_setup(spheres.double(), None, cam, tile_w, tile_h)
     with pytest.raises(ValueError):
         sg.sortfree_setup(spheres, torch.ones(3, device=dev), cam, tile_w, tile_h)
+    for n_keys in (256, 4096):   # counters in shared memory, and in device memory
+        for name, res in sp.bucket_resources(dev, n_keys).items():
+            assert res["local_bytes"] == 0 and res["threads"] == 256, (name, res)
+            assert res["blocks_per_sm"] >= 1, (name, res)
 
 
 @pytest.mark.cuda

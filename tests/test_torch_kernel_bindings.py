@@ -344,11 +344,15 @@ def test_build_on_cpu_tensors_takes_the_plain_version(monkeypatch, delta_kind, b
 def test_splat_prep_constants_agree():
     """splat_prep.cu's segment width and constant layouts are the
     wrappers': SEG particles a segment, the bucketed setup's 17 and the
-    sort-free setup's 13 f32 constants; its five entries build with
-    --fmad=false, as the plain path rounds every operation alone, and the
-    counting sort's entries refuse tiles that are no multiple of 32; the
-    sort-free setup's block is 32 warps, a warp a segment, with a query of
-    its resources."""
+    sort-free setup's 13 f32 constants; its entries build with
+    --fmad=false, as the plain path rounds every operation alone, and each
+    refuses what it does not take before it touches the device; E4's two
+    passes take whole warps (at most 8, a byte each in a key's word of
+    warp counts), their cursors and words fit the 48 KB a block gets
+    without asking up to BUCKET_SHARED_BINS bins, bucket_blocks keeps
+    the counters within BUCKET_COUNTS and the resources query gives both
+    passes; the sort-free setup's block is 32 warps, a warp a segment, with
+    a query of its resources."""
     src = _source("splat_prep")
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert consts["kSeg"] == sg.SEG and consts["kSegsPerBlock"] == 32
@@ -356,18 +360,24 @@ def test_splat_prep_constants_agree():
     assert consts["kTileStep"] + 1 == sp.BUCKET_CONSTS and consts["kLength"] + 1 == sg.SETUP_CONSTS
     _, flags, entries = _kernels.KERNELS["splat_prep"]
     assert flags == ["--fmad=false"]
-    assert set(entries) == {"grace_splat_bucket_keys", "grace_splat_bucket_count",
-                            "grace_splat_bucket_scatter", "grace_splat_bucket_pack",
-                            "grace_sortfree_setup", "grace_sortfree_setup_resources"}
+    assert set(entries) == {"grace_splat_bucket_keys", "grace_splat_bucket_pack",
+                            "grace_splat_bucket_resources", "grace_sortfree_setup",
+                            "grace_sortfree_setup_resources"}
     for entry in entries:
         body = src[src.index(f'extern "C" int {entry}('):]
         body = body[:body.index("cudaSetDevice")]
         assert "cudaErrorInvalidValue" in body
-        if entry in ("grace_splat_bucket_count", "grace_splat_bucket_scatter"):
-            assert "tile % 32" in body
-    assert sp.sort_tiles(4 << 20, 257) == (sp.SORT_TILE, (4 << 20) // sp.SORT_TILE)
-    tile, tiles = sp.sort_tiles(4 << 20, 1 << 20)
-    assert tile % 32 == 0 and tiles * tile >= 4 << 20 and (1 << 20) * tiles <= 2 * sp.SORT_COUNTS
+    threads = consts["kPrepThreads"]
+    assert threads % 32 == 0 and threads // 32 <= 8 and consts["kLoads"] >= 1
+    # pass 2's 4 cursors (i32) and 4 words of warp counts (u64) a bin
+    assert consts["kSharedBins"] == sp.BUCKET_SHARED_BINS
+    assert 48 * consts["kSharedBins"] <= 48 * 1024
+    assert sp.bucket_blocks(1 << 20, 256) == (sp.BUCKET_TILE, (1 << 20) // sp.BUCKET_TILE)
+    assert sp.bucket_blocks(0, 256) == (sp.BUCKET_TILE, 1)
+    tile, blocks = sp.bucket_blocks(1 << 20, 1 << 20)
+    assert tile * blocks >= 1 << 20 and 4 * ((1 << 20) + 2) * blocks <= 2 * sp.BUCKET_COUNTS
+    assert entries["grace_splat_bucket_resources"] == "pi"
+    assert "out + 6" in src[src.index('extern "C" int grace_splat_bucket_resources('):]
 
 
 def test_broadphase_constants_agree():

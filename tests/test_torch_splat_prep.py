@@ -7,22 +7,28 @@ the design of their CUDA kernels (``csrc/splat_prep.cu``) as numpy models.
   segment counts that are and are not multiples of 32; 128 tiles; band
   None, 16, 32 and 64; weights None and given; dead particles; overflow),
   every output bit-equal.
-- numpy models of the five C entries, written as the kernels index their
-  threads (a particle a thread; the counting sort's warp tiles, 32 keys a
-  round grouped as __match_any_sync groups them, counted forwards and
-  scattered backwards from the scanned counts; a slab instance a thread,
-  the key ranges from the cursors; a warp a segment, the box reduced over
-  its lanes, four particles and one float4 of each slab row a lane, one
-  ballot word per tile row and per transposed row), run through
-  the port's own wrappers with the ctypes launch replaced by the model
-  (which reads and writes the tensors' host memory), bit-equal to the plain
-  versions.
+- numpy models of the three launch entries, written as the kernels index
+  their threads (E4: a block a tile of particles in rounds of its
+  threads, each warp's 32 keys grouped as __match_any_sync groups them;
+  pass 1 counting each group into the block's counters, pass 2 ranking
+  each instance by its group's lower lanes and its key's groups in the
+  round's lower warps, writing its row at its slot, the ranges and the
+  overflow byte from the scan, every slab column written once; E5: a warp
+  a segment, the box reduced over its lanes, four particles and one float4
+  of each slab row a lane, one ballot word per tile row and per transposed
+  row), run through the port's own wrappers with the ctypes launch
+  replaced by the model (which reads and writes the tensors' host memory),
+  bit-equal to the plain versions; E4 also at block tiles forced small
+  (ragged blocks, fewer than 32 particles, none, one key over many
+  blocks, the counters in device memory).
 - ROADMAP C21: grace_tpu converts the band quotients to int32 (saturating),
   the port to int64, so a live particle beyond 2^31 band widths whose
   footprint spans bands is flagged by the port and not by grace_tpu.
 """
 
 import ctypes
+import os
+import re
 
 import jax
 import numpy as np
@@ -33,7 +39,8 @@ import grace_tpu.trace.splat as js
 import grace_tpu.trace.splat_grad as jsg
 from grace_tpu.core.types import make_spheres
 from grace_tpu.trace.pallas_broadphase import pack_overlap_bits as j_pack
-from chip_smoke import CAM, LENGTH, LOOK, SPLAT_PREP_CASES, UP, VEXT, splat_prep_scene
+from chip_smoke import (CAM, LENGTH, LOOK, SPLAT_PREP_CASES, UP, VEXT,
+                        make_clustered_particles, splat_prep_scene)
 from grace_tpu_torch import _kernels
 import grace_tpu_torch.trace.splat as ts
 import grace_tpu_torch.trace.splat_grad as tsg
@@ -44,7 +51,7 @@ F32 = np.float32
 
 
 def _case(tag):
-    n, side, (tile_w, tile_h), band, chunk, _, _ = SPLAT_PREP_CASES[tag]
+    n, side, (tile_w, tile_h), band, chunk, *_ = SPLAT_PREP_CASES[tag]
     s, w = splat_prep_scene(tag)
     return s, w, side, tile_w, tile_h, band, chunk
 
@@ -132,16 +139,28 @@ def _project(s, consts):
     return pu, pv, depth, h
 
 
-def _model_bucket_keys(spheres, weights, consts, keys, rows, overflow, n, nbx, nty, n_keys):
-    """grace_splat_bucket_keys: thread p = particle p (vectorized over p)."""
+def _prep_constants():
+    """csrc/splat_prep.cu's E4 block shape: (threads a block, particles a
+    thread loads at once, bins counted in shared memory at most)."""
+    with open(os.path.join(_kernels.CSRC, "splat_prep.cu")) as f:
+        src = f.read()
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    return consts["kPrepThreads"], consts["kLoads"], consts["kSharedBins"]
+
+
+THREADS, LOADS, SHARED_BINS = _prep_constants()
+WARPS = THREADS // 32
+
+
+def _particles(spheres, weights, consts, n, nbx, nty, n_keys):
+    """particle_keys (vectorized over p): (keys [4, n], instance q = 2 rr
+    + cc, sentinel n_keys; rows f32[n, 4], (pu, pv, invh, scale) as the
+    slabs take them; over bool[n], a live footprint past 2 x 2 keys)."""
     s = _view(spheres, ctypes.c_float, 4 * n).reshape(n, 4)
     c = _view(consts, ctypes.c_float, ts.BUCKET_CONSTS)
-    out_keys = _view(keys, ctypes.c_int32, 4 * n)
-    out_rows = _view(rows, ctypes.c_float, 4 * n).reshape(n, 4)
-    flag = _view(overflow, ctypes.c_uint8, 1)
-    flag[0] = 0                                              # the entry's memset
+    keys = np.full((4, n), n_keys, np.int64)
     if n == 0:
-        return
+        return keys, np.zeros((0, 4), F32), np.zeros(0, bool)
     with np.errstate(all="ignore"):
         pu, pv, depth, h = _project(s, c)
         positive = h > 0
@@ -152,8 +171,7 @@ def _model_bucket_keys(spheres, weights, consts, keys, rows, overflow, n, nbx, n
         q = lambda a, step: np.floor(a / step).astype(np.int64)
         cb_lo, cb_hi = q((pu - h) - c[13], c[15]), q((pu + h) - c[13], c[15])
         rt_lo, rt_hi = q((pv + h) - c[14], c[16]), q((pv - h) - c[14], c[16])
-        if (live & ((cb_hi - cb_lo > 1) | (rt_hi - rt_lo > 1))).any():
-            flag[0] = 1
+        over = live & ((cb_hi - cb_lo > 1) | (rt_hi - rt_lo > 1))
         cb_hi = np.minimum(cb_hi, cb_lo + 1)
         rt_hi = np.minimum(rt_hi, rt_lo + 1)
         for rr in range(2):
@@ -161,90 +179,156 @@ def _model_bucket_keys(spheres, weights, consts, keys, rows, overflow, n, nbx, n
                 cb, rt = cb_lo + cc, rt_lo + rr
                 ok = ((cb <= cb_hi) & (rt <= rt_hi) & (cb >= 0) & (cb < nbx) & (rt >= 0)
                       & (rt < nty) & (scale > 0))
-                out_keys[(rr * 2 + cc) * n:(rr * 2 + cc + 1) * n] = np.where(
-                    ok, rt * nbx + cb, n_keys)
+                keys[rr * 2 + cc] = np.where(ok, rt * nbx + cb, n_keys)
         invh = np.where(positive, F32(1) / np.fmax(h, F32(1e-30)), F32(0))
         if weights is None:
             invh_s = np.where(live, invh, F32(0))
             scale_s = invh_s * invh_s
         else:
             invh_s, scale_s = invh, scale
-    out_rows[:] = np.stack([pu, pv, invh_s, scale_s], axis=1)
+    return keys, np.stack([pu, pv, invh_s, scale_s], axis=1), over
 
 
-def _tile_rounds(keys, m, tile, tiles):
-    """keys i32[m] as [tiles, tile / 32, 32]: warp tile w's round r, lane l
-    (-1 past m, as the kernels' idle lanes)."""
-    padded = np.full(tiles * tile, -1, np.int64)
-    padded[:m] = keys
-    return padded.reshape(tiles, tile // 32, 32)
+def _block_rounds(n, tile, blocks):
+    """Block b's particles as its rounds: (p [blocks, rounds, WARPS, 32],
+    particle b tile + r THREADS + 32 w + l of round r, warp w, lane l;
+    valid, p inside the block's tile and below n). The kernels run a
+    block's rounds LOADS at a time (each thread's particles loaded first);
+    a round past the block's particles is a no-op in both passes."""
+    rounds = max(1, -(-min(tile, n) // THREADS))
+    p = (np.arange(blocks)[:, None, None, None] * tile
+         + np.arange(rounds)[None, :, None, None] * THREADS
+         + np.arange(WARPS)[None, None, :, None] * 32 + np.arange(32))
+    end = np.minimum((np.arange(blocks) + 1) * tile, n)[:, None, None, None]
+    return p, p < end
+
+
+def _round_keys(keys, q, p, valid):
+    """Instance q's keys of a round's lanes [blocks, WARPS, 32] (-1 for
+    the lanes past the block's particles)."""
+    if keys.shape[1] == 0:
+        return np.full(p.shape, -1, np.int64)
+    return np.where(valid, keys[q][np.minimum(p, keys.shape[1] - 1)], -1)
 
 
 def _match(k):
-    """__match_any_sync over each row of k [tiles, 32]: (group size, the
+    """__match_any_sync over each row of k [rows, 32]: (group size, the
     lane's rank among its group's lower lanes, is the group's first lane)."""
     eq = k[:, :, None] == k[:, None, :]
     lower = np.tril(np.ones((32, 32), bool), -1)          # lane j < lane l
     return eq.sum(-1), (eq & lower[None]).sum(-1), ~(eq & lower[None]).any(-1)
 
 
-def _model_bucket_count(keys, counts, m, tile, tiles, n_bins):
-    """grace_splat_bucket_count: warp w takes its tile 32 at a time, the
-    first lane of each key's group adds the group's size to counts[key *
-    tiles + w]."""
-    out = _view(counts, ctypes.c_int32, n_bins * tiles)
-    out[:] = 0                                               # the entry's memset
-    k = _tile_rounds(_view(keys, ctypes.c_int32, m), m, tile, tiles)
-    acc = np.zeros((n_bins, tiles), np.int64)
-    for r in range(tile // 32):
-        size, _, first = _match(k[:, r])
-        w, lane = np.nonzero(first & (k[:, r] >= 0))
-        np.add.at(acc, (k[w, r, lane], w), size[w, lane])
-    out[:] = acc.reshape(-1)
+def _groups(k):
+    """__match_any_sync over each warp of k [blocks, WARPS, 32]: (group
+    size, the lane's rank among its group's lower lanes, the lane leads a
+    group of a key >= 0)."""
+    size, rank, first = (a.reshape(k.shape) for a in _match(k.reshape(-1, 32)))
+    return size, rank, first & (k >= 0)
 
 
-def _model_bucket_scatter(keys, cursor, order, m, tile, tiles):
-    """grace_splat_bucket_scatter: warp w walks its tile backwards, 32 at a
-    time; each key's first lane reads the (key, w) cursor and moves it down
-    by the group's size, and every lane writes at the new cursor plus its
-    rank among the group's lower lanes."""
-    k = _tile_rounds(_view(keys, ctypes.c_int32, m), m, tile, tiles)
-    # the rows of the keys present (the model knows no n_bins)
-    cur = _view(cursor, ctypes.c_int32, (int(k.max(initial=0)) + 1) * tiles).reshape(-1, tiles)
-    out = _view(order, ctypes.c_int32, m)
-    index = np.arange(tiles * tile).reshape(k.shape)
-    for r in range(tile // 32 - 1, -1, -1):
-        size, rank, first = _match(k[:, r])
-        valid = k[:, r] >= 0
-        w = np.broadcast_to(np.arange(tiles)[:, None], valid.shape)
-        top = cur[np.where(valid, k[:, r], 0), w]            # every lane reads before the move
-        out[(top - size + rank)[valid]] = index[:, r][valid]
-        lw, lane = np.nonzero(first & valid)
-        cur[k[lw, r, lane], lw] -= size[lw, lane]
+def _model_bucket_keys(spheres, weights, consts, counts, n, tile, nbx, nty, n_keys):
+    """grace_splat_bucket_keys (pass 1): block b takes particles b tile ..
+    (b + 1) tile a round of THREADS at a time; for each q a warp's lanes
+    grouped by key, each group's first lane adds its size to the block's
+    (q, bin) counter (in shared memory up to SHARED_BINS bins, else the
+    block's own column of the device counters: the same sums); then the
+    block's column, key-major: counts[bin * tiles + q * blocks + b], and
+    its overflow flag in row n_keys + 1; the blocks zero pass 2's scan
+    state after the counters."""
+    blocks = max(1, -(-n // tile))
+    n_bins = n_keys + 1
+    flat = _view(counts, ctypes.c_int32, (n_bins + 1) * 4 * blocks + 2 * (n_bins + 2))
+    flat[(n_bins + 1) * 4 * blocks:] = 0
+    out = flat[:(n_bins + 1) * 4 * blocks].reshape(n_bins + 1, 4, blocks)
+    keys, _, over = _particles(spheres, weights, consts, n, nbx, nty, n_keys)
+    p, valid = _block_rounds(n, tile, blocks)
+    column = np.zeros((blocks, 4, n_bins), np.int64)
+    for r in range(p.shape[1]):
+        for q in range(4):
+            k = _round_keys(keys, q, p[:, r], valid[:, r])
+            size, _, lead = _groups(k)
+            b, w, lane = np.nonzero(lead)
+            np.add.at(column, (b, q, k[b, w, lane]), size[b, w, lane])
+    out[:n_bins] = column.transpose(2, 1, 0)
+    flags = np.zeros(blocks, bool)
+    np.logical_or.at(flags, np.arange(n) // tile, over)
+    out[n_bins] = 0
+    out[n_bins, 0] = flags
 
 
-def _model_bucket_pack(order, cursor, rows, slabs, first, last, slab_lo, n_slabs, n, cap,
-                       chunk, n_keys, tiles):
-    """grace_splat_bucket_pack: thread g = slab instance g (its 4 slab
-    positions); threads g < n_keys also write key g's range from the
-    cursors (cursor[k * tiles] is key k's first instance)."""
-    src = _view(order, ctypes.c_int32, 4 * n)
-    cur = _view(cursor, ctypes.c_int32, (n_keys + 1) * tiles)
-    r = _view(rows, ctypes.c_float, 4 * n).reshape(n, 4)
+def _model_bucket_pack(spheres, weights, consts, counts, slabs, ranges, overflow, n, cap, chunk,
+                       tile, nbx, nty, n_keys):
+    """grace_splat_bucket_pack (pass 2): the counters' exclusive scan in
+    place, key-major (the rows by ticket, chained by their look-back
+    words: the same sums in row order), each key's range and, from the
+    flag row's total, the overflow byte; block b's cursors start at its
+    pairs' first slots, the scanned counts[c] (c = bin * tiles + q *
+    blocks + b); a
+    round's instance of key k takes the cursor plus the sizes of k's groups
+    in the round's lower warps (the bytes below its warp's in k's word of
+    warp counts) plus its rank among its group's lower lanes, and writes
+    its row at that slot's slab position; then each group's first lane
+    moves the cursor on by the group's size and clears its byte. The grid
+    zeroes the columns [4 n, cap). Every slab column below cap is written
+    exactly once. Past SHARED_BINS bins the cursors end in the block's
+    column of the counters and the words (all clear) in the scratch after
+    the scan state."""
+    blocks = max(1, -(-n // tile))
+    tiles, n_bins = 4 * blocks, n_keys + 1
+    rows_n = n_bins + 1                                          # the flag row last
+    words = 0 if n_bins <= SHARED_BINS else 8 * n_bins * blocks
+    flat = _view(counts, ctypes.c_int32, rows_n * tiles + 2 * (n_bins + 2) + words)
+    cnt = flat[:rows_n * tiles]
+    totals = cnt.reshape(rows_n, tiles).astype(np.int64).sum(1)
+    inclusive = np.cumsum(totals)
+    sc = (np.cumsum(cnt.astype(np.int64)) - cnt).astype(np.int64)   # exclusive, in place
+    cnt[:] = sc
+    state = flat[rows_n * tiles:rows_n * tiles + 2 * (n_bins + 2)].view(np.uint64)
+    state[0] = (rows_n + blocks) | rows_n << 32                 # tickets taken, rows done
+    state[1:] = (2 << 32) | inclusive.astype(np.uint64)           # each row's inclusive word
     out = _view(slabs, ctypes.c_float, 4 * cap)
-    g = np.arange(cap)
-    v = np.zeros((cap, 4), F32)
-    if n:
-        v[:4 * n] = r[src % n]
+    keys, rows, _ = _particles(spheres, weights, consts, n, nbx, nty, n_keys)
+    pair = (np.arange(n_bins)[None, :, None] * tiles + np.arange(4)[:, None, None] * blocks
+            + np.arange(blocks))                                     # [q, bin, b]
+    cursor = sc[pair].transpose(2, 0, 1).copy()
+    p, valid = _block_rounds(n, tile, blocks)
+    lower = np.arange(WARPS)[None, :] < np.arange(WARPS)[:, None]   # [w, v]: v below w
+    at = np.broadcast_to(np.arange(blocks)[:, None, None], p.shape[:1] + p.shape[2:])
+    written = np.zeros(cap, np.int64)
+    for r in range(p.shape[1]):
+        for q in range(4):
+            k = _round_keys(keys, q, p[:, r], valid[:, r])
+            size, rank, lead = _groups(k)
+            # the lower warps' counts: the sizes of the lane's key's groups
+            listed = ((k[:, :, :, None, None] == k[:, None, None, :, :])
+                      & lead[:, None, None, :, :] & lower[None, :, None, :, None])
+            g = (cursor[at, q, np.maximum(k, 0)] + (listed * size[:, None, None]).sum((3, 4))
+                 + rank)
+            on = k >= 0
+            g, src = g[on], p[:, r][on]
+            base = (g // chunk) * 4 * chunk + g % chunk
+            for comp in range(4):
+                out[base + comp * chunk] = rows[src, comp]
+            np.add.at(written, g, 1)
+            b, w, lane = np.nonzero(lead)
+            np.add.at(cursor, (b, q, k[b, w, lane]), size[b, w, lane])
+    g = np.arange(4 * n, cap)
     base = (g // chunk) * 4 * chunk + g % chunk
     for comp in range(4):
-        out[base + comp * chunk] = v[:, comp]
-    f, l = cur[np.arange(n_keys) * tiles], cur[np.arange(1, n_keys + 1) * tiles]
+        out[base + comp * chunk] = 0
+    written[g] += 1
+    assert (written == 1).all(), "a slab column below cap written other than once"
+    if n_bins > SHARED_BINS:   # the cursors and words lived in device memory
+        cnt[pair.transpose(2, 0, 1).reshape(-1)] = cursor.reshape(-1)
+        flat[rows_n * tiles + 2 * (n_bins + 2):] = 0
+    k = np.arange(n_keys)
+    f, last = inclusive[k] - totals[k], inclusive[k]
     per_slab = 2 * chunk
     lo = f // per_slab
-    for ptr, vals in ((first, f), (last, l), (slab_lo, lo),
-                      (n_slabs, np.maximum((l + per_slab - 1) // per_slab - lo, 0))):
-        _view(ptr, ctypes.c_int32, n_keys)[:] = vals
+    out_ranges = _view(ranges, ctypes.c_int32, 4 * n_keys).reshape(4, n_keys)
+    out_ranges[:] = (f, last, lo, np.maximum((last + per_slab - 1) // per_slab - lo, 0))
+    _view(overflow, ctypes.c_uint8, 1)[0] = totals[-1] != 0
 
 
 def _model_sortfree_setup(spheres, weights, consts, spans, slabs, masks, masks_t, n, ntx,
@@ -322,8 +406,6 @@ def _warp_butterfly(op, lanes):
 
 
 MODELS = {"grace_splat_bucket_keys": _model_bucket_keys,
-          "grace_splat_bucket_count": _model_bucket_count,
-          "grace_splat_bucket_scatter": _model_bucket_scatter,
           "grace_splat_bucket_pack": _model_bucket_pack,
           "grace_sortfree_setup": _model_sortfree_setup}
 
@@ -346,23 +428,31 @@ def model_launch(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("tag", CASES)
-def test_bucket_kernels_model_matches_plain(tag, model_launch):
-    s, w, side, tile_w, tile_h, band, chunk = _case(tag)
-    st, wt = _torch(s, w)
-    want = _plain_buckets(s, w, side, tile_w, tile_h, band, chunk)
-    counters = (ts.bucket_keys_cuda, ts.bucket_sort_cuda, ts.bucket_pack_cuda)
+def _check_bucket_model(st, wt, side, tile_w, tile_h, band, chunk, calls, **private):
+    """The kernels' route, models in the launch's place, against the plain
+    version: two launches, each counted once, every field bit-equal."""
+    want = ts._bucket_prims_ortho_plain(st, CAM, LOOK, UP, VEXT, LENGTH, side, side, tile_w,
+                                        tile_h, chunk, wt, band)
+    counters = (ts.bucket_keys_cuda, ts.bucket_pack_cuda)
     before = [fn.launches for fn in counters]
     got = ts._bucket_prims_ortho_kernels(st, CAM, LOOK, UP, VEXT, LENGTH, side, side, tile_w,
-                                         tile_h, chunk, wt, tile_h if band is None else band)
-    assert model_launch == ["grace_splat_bucket_keys", "grace_splat_bucket_count",
-                            "grace_splat_bucket_scatter", "grace_splat_bucket_pack"]
+                                         tile_h, chunk, wt, band, **private)
+    assert calls == ["grace_splat_bucket_keys", "grace_splat_bucket_pack"]
     assert [fn.launches for fn in counters] == [b + 1 for b in before]
     for f in ts.SplatBuckets._fields:
         a, b = getattr(got, f), getattr(want, f)
         assert a.dtype == b.dtype and a.shape == b.shape, f
         a, b = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (a, b))
         assert torch.equal(a, b), f
+    return want
+
+
+@pytest.mark.parametrize("tag", CASES)
+def test_bucket_kernels_model_matches_plain(tag, model_launch):
+    s, w, side, tile_w, tile_h, band, chunk = _case(tag)
+    st, wt = _torch(s, w)
+    _check_bucket_model(st, wt, side, tile_w, tile_h, tile_h if band is None else band, chunk,
+                        model_launch)
 
 
 @pytest.mark.parametrize("tag", CASES)
@@ -441,20 +531,39 @@ def test_setups_refuse_other_devices_and_shapes():
                                        VEXT, LENGTH, 64, 64, 32, 64, 128, None, 32)
 
 
-@pytest.mark.parametrize("tile,m,n_bins", [(32, 1000, 7), (64, 4099, 257), (1024, 31, 3),
-                                           (96, 0, 5)])
-def test_counting_sort_model_is_stable(tile, m, n_bins, model_launch, monkeypatch):
-    """The counting sort's design, at warp tiles of other sizes (ragged last
-    tiles, a tile of fewer than 32 keys, no keys): the order of
-    torch.sort(stable=True), and cursor[k * tiles] is the first instance
-    of key k."""
-    monkeypatch.setattr(ts, "SORT_TILE", tile)
-    rng = np.random.default_rng(m + n_bins)
-    keys = torch.from_numpy(np.minimum(rng.geometric(0.3, m) - 1, n_bins - 1).astype(np.int32))
-    order, cursor, tiles = ts.bucket_sort_cuda(keys, n_bins)
-    assert model_launch == ["grace_splat_bucket_count", "grace_splat_bucket_scatter"]
-    assert tiles == max(1, -(-m // tile)) and cursor.shape == (n_bins * tiles,)
-    want_keys, want = torch.sort(keys, stable=True)
-    assert torch.equal(order, want.to(torch.int32))
-    firsts = torch.searchsorted(want_keys, torch.arange(n_bins, dtype=torch.int32))
-    assert torch.equal(cursor[::tiles].long(), firsts)
+def _one_key_scene(n):
+    """n small live particles inside one (row tile, band) key of the
+    64 x 64 bench camera at tile 16 x 64, band 16."""
+    rng = np.random.default_rng(n)
+    pos = 0.5 + 0.004 * rng.random((n, 3), dtype=np.float32)
+    return np.concatenate([pos, np.full((n, 1), 0.002, F32)], axis=1)
+
+
+SMALL_BLOCKS = {
+    # tag: (particles, block tile, image side, (tile_w, tile_h), band, chunk)
+    "ragged last block: 1,000 particles in blocks of 96": (1000, 96, 128, (32, 128), 32, 64),
+    "fewer than 32 particles: 17 in blocks of 5": (17, 5, 64, (16, 64), 16, 8),
+    "no particle": (0, 32, 64, (16, 64), 16, 8),
+    "one key's run over 47 blocks: 3,000 particles in one key, blocks of 64":
+        (3000, 64, 64, (16, 64), 16, 64),
+    "4,096 keys (counters in device memory), 2,000 particles in blocks of 160":
+        (2000, 160, 512, (8, 16), 8, 64),
+}
+
+
+@pytest.mark.parametrize("tag", list(SMALL_BLOCKS))
+def test_bucket_model_small_blocks(tag, model_launch):
+    """The two passes at block tiles far below BUCKET_TILE: ragged last
+    blocks, a block of fewer than 32 particles, no particle, a key whose
+    instances run over many blocks, and the counters in device memory;
+    bit-equal to the plain version in every field."""
+    n, tile, side, (tile_w, tile_h), band, chunk = SMALL_BLOCKS[tag]
+    if tag.startswith("one key"):
+        s = _one_key_scene(n)
+    else:
+        s = make_clustered_particles(np.random.default_rng(n + tile), n)
+    assert ts.bucket_blocks(n, (side // band) * (side // tile_w), tile)[0] == tile
+    want = _check_bucket_model(torch.from_numpy(s), None, side, tile_w, tile_h, band, chunk,
+                               model_launch, _tile=tile)
+    if tag.startswith("one key"):
+        assert int((want.last - want.first).max()) == n
