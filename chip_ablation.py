@@ -246,27 +246,41 @@ wrapper launches them (longest list first).
   parent; --rounds K times), each in a process of its own.
 
   broadphase: what the dense broadphase and the triangle lists feed,
-  through the package's user functions only: E6's overlap words alone
-  (tile 64 against quarters, with the summary; also its kernel's device
-  time, torch.profiler over 20 calls), the quarter trace
-  (pallas_trace_sph, broadphase="quarter", tile 128), the default record
-  trace (512 a ray), the quarter masks and quarter_lists alone (tile 64
-  and 128), render_triangles(engine="pallas") on the torus at 512 x 512
-  and one fused-renderer training step (tile 128, max_chunks and
-  max_tiles_per_seg 2048) on the bench scene, each timed (CUDA events,
-  median of 10 after a warm run) with the device's busy ms and device
-  operations over one call. First, in a package with the overlap kernel's
-  resources query (this one), the overlap words as shipped and in
-  variants (the hull cull left out: every word fine-tested; at most 128,
-  64 and 32 rows a block; 4 and 16 warps a block; two and eight blocks an
-  SM; rows in contiguous groups; candidates two at a time; the hulls by
-  integer reductions; and, timed only, the strip's staging and hulls
-  alone, the staging alone, no word stores, no fine test) on the bench at
-  tile 64 and 128 against quarters with the summary and segments against
-  tiles, bit-equal and timed in turns. With --parent DIR, DIR's grace_tpu_torch
-  and this one in turns (parent, this, this, parent; --rounds K times),
-  each a process of its own; the variants run in the first of this
-  one's processes only (--no-variants in the others).
+  through the package's user functions only: E6's boxes (the segment
+  boxes at blocks 32 and 128, the tile boxes at tiles 128 and 64, both
+  sets as the dense callers take them: one launch where the package has
+  broadphase_boxes_cuda, else two), the dense calls
+  (dense_tile_masks_quarter at tiles 128 and 64, dense_tile_masks,
+  quarter_lists, dense_tile_segments, dense_segment_tiles; tile 128),
+  each with its call (CUDA events, median of 10), its host time
+  (time.perf_counter around the call, no synchronisation, median of 50)
+  and its device operations with their times (torch.profiler, 20 calls);
+  E6's overlap words alone (tile 64 against quarters, with the summary;
+  also its kernel's device time), the quarter trace (pallas_trace_sph,
+  broadphase="quarter", tile 128), the default record trace (512 a ray),
+  the quarter masks and quarter_lists alone (tile 64 and 128),
+  render_triangles(engine="pallas") on the torus at 512 x 512 and one
+  fused-renderer training step (tile 128, max_chunks and max_tiles_per_seg
+  2048) on the bench scene, each timed (CUDA events, median of 10 after a
+  warm run) with the device's busy ms and device operations over one call.
+  First, in a package with the overlap kernel's resources query (this one
+  and its parent), the overlap words as shipped and in variants (the hull
+  cull left out: every word fine-tested; at most 128, 64 and 32 rows a
+  block; 4 and 16 warps a block; two and eight blocks an SM; rows in
+  contiguous groups; candidates two at a time; the hulls by integer
+  reductions; and, timed only, the strip's staging and hulls alone, the
+  staging alone, no word stores, no fine test) on the bench at tile 64
+  and 128 against quarters with the summary and segments against tiles,
+  bit-equal and timed in turns; then, in a package with the
+  one-launch boxes (this one), the box kernel as shipped and in variants
+  (BOX_VARIANTS: reductions by shuffles, 4-byte rays at every tile,
+  16-byte rays from tile 4, a tile over up to 8 warps, 16-byte stores;
+  timed only, no reductions) on the bench at quarters and tile 128 and at
+  segments and tile 64, bit-equal and timed in turns by the kernel's
+  device time. With --parent DIR, DIR's grace_tpu_torch and this one in
+  turns (parent, this, this, parent; --rounds K times), each a process of
+  its own; the variants run in the first of each side's processes only
+  (--no-variants in the others).
 
   tri_lists: E7 (tri_tile_lists_cuda, csrc/tri_lists.cu) through the
   package's user functions only, on render_triangles' primary and shadow
@@ -2250,6 +2264,144 @@ OVERLAP_VARIANTS = {
 """)],
 }
 
+# E6's boxes (csrc/broadphase.cu, boxes_kernel): the reductions by a
+# five-round shuffle butterfly a value (the earlier kernels' form, on the
+# same ints) instead of redux.sync; the tile part from 4-byte loads at
+# every tile (tile 128: a lane four rays, one at a time), and from 16-byte
+# loads from tile 4 on (tile 64: half the lanes four rays each); a tile
+# over up to 8 warps (a thread a ray from 4-byte loads, the tile's warps
+# combined in shared memory: TILE_WARPS, 4 warps at tile 128, 2 at 64); the
+# runs written as 16-byte stores from the first aligned float; and a leave-out (BOX_LEAVE_OUTS,
+# wrong boxes, timed only): no reductions (each lane's own fold stored)
+BOX_LEAVE_OUTS = ("leave-out: no reductions",)
+BOX_REDUX = """    for (int a = 0; a < 3; ++a) {
+        f.lo[a] = __reduce_min_sync(kFull, f.lo[a]);
+        f.hi[a] = __reduce_max_sync(kFull, f.hi[a]);
+    }
+    f.nan = __reduce_or_sync(kFull, f.nan);
+"""
+BOX_SCALAR = [swap("broadphase.cu", "const bool vec = tile % 4 == 0 && tile >= kVecTile &&",
+                   "const bool vec = false && tile % 4 == 0 &&")]
+TILE_WARPS_PART = """constexpr int kMaxTileWarps = 8;
+
+__device__ __forceinline__ void fold_fold(Fold& f, const Fold& g) {
+    for (int a = 0; a < 3; ++a) {
+        f.lo[a] = min(f.lo[a], g.lo[a]);
+        f.hi[a] = max(f.hi[a], g.hi[a]);
+    }
+    f.nan |= g.nan;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void tile_part(const BoxArgs& a, int blk,
+                                          float (*stage)[kStageFloats], Fold* part) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int threads = 32 * a.tile_warps, tiles_here = kBoxWarps / a.tile_warps;
+    const long long t = static_cast<long long>(blk) * tiles_here + threadIdx.x / threads;
+    Fold f = empty_fold();
+    if (t < a.n_tiles) {
+        const int units = kVec ? a.tile / 4 : a.tile;
+        for (int j = threadIdx.x % threads; j < units; j += threads) {
+            if constexpr (kVec) {
+                const long long r = t * a.tile + 4LL * j;
+                const float4* o4 = reinterpret_cast<const float4*>(a.origins) + 3 * r / 4;
+                const float4* d4 = reinterpret_cast<const float4*>(a.dirs) + 3 * r / 4;
+                const float4 ov[3] = {o4[0], o4[1], o4[2]}, dv[3] = {d4[0], d4[1], d4[2]};
+                const float4 lv = reinterpret_cast<const float4*>(a.lengths)[r / 4];
+                float o[12], d[12];
+#pragma unroll
+                for (int k = 0; k < 3; ++k) {
+                    o[4 * k] = ov[k].x, o[4 * k + 1] = ov[k].y, o[4 * k + 2] = ov[k].z;
+                    o[4 * k + 3] = ov[k].w;
+                    d[4 * k] = dv[k].x, d[4 * k + 1] = dv[k].y, d[4 * k + 2] = dv[k].z;
+                    d[4 * k + 3] = dv[k].w;
+                }
+                const float len[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    for (int x = 0; x < 3; ++x) {
+                        fold_point(f, x, o[3 * q + x]);
+                        fold_point(f, x, fma_f64(d[3 * q + x], len[q], o[3 * q + x]));
+                    }
+                }
+            } else {
+                const long long r = t * a.tile + j;
+                const float len = a.lengths[r];
+                for (int x = 0; x < 3; ++x) {
+                    const float o = a.origins[3 * r + x];
+                    fold_point(f, x, o);
+                    fold_point(f, x, fma_f64(a.dirs[3 * r + x], len, o));
+                }
+            }
+        }
+    }
+    warp_fold(f);
+    if (lane == 0) part[warp] = f;
+    __syncthreads();
+    if (threadIdx.x < tiles_here && blk * static_cast<long long>(tiles_here) + threadIdx.x <
+                                        a.n_tiles) {
+        Fold g = part[threadIdx.x * a.tile_warps];
+        for (int w = 1; w < a.tile_warps; ++w) fold_fold(g, part[threadIdx.x * a.tile_warps + w]);
+        store_fold(g, stage[0] + 3 * threadIdx.x, stage[1] + 3 * threadIdx.x);
+    }
+    __syncthreads();
+    const long long first = static_cast<long long>(blk) * tiles_here;
+    const int count = static_cast<int>(min(static_cast<long long>(tiles_here), a.n_tiles - first));
+    write_run(a.tmin + 3 * first, stage[0], 3 * count);
+    write_run(a.tmax + 3 * first, stage[1], 3 * count);
+}
+
+int tile_warps(int units) {
+    int w = 1;
+    while (2 * w <= kMaxTileWarps && 64 * w <= units) w *= 2;
+    return w;
+}
+
+
+"""
+TILE_WARPS = BOX_SCALAR + [
+    swap_between("broadphase.cu", "// A warp a tile: a lane folds its units",
+                 "// Both box sets in one launch", TILE_WARPS_PART),
+    swap("broadphase.cu", "    int tile;\n", "    int tile, tile_warps;\n"),
+    swap("broadphase.cu", """    __shared__ float stage[2][kStageFloats];
+    if""", """    __shared__ float stage[2][kStageFloats];
+    __shared__ Fold part[kBoxWarps];
+    if"""),
+    swap("broadphase.cu", "tile_part<kVec>(a, blockIdx.x - a.seg_blocks, stage);",
+         "tile_part<kVec>(a, blockIdx.x - a.seg_blocks, stage, part);"),
+    swap("broadphase.cu",
+         "    const long long blocks = a.seg_blocks + (a.n_tiles + kBoxWarps - 1) / kBoxWarps;",
+         """    a.tile_warps = tile_warps(vec ? tile / 4 : tile);
+    const int tiles_a_block = kBoxWarps / a.tile_warps;
+    const long long blocks = a.seg_blocks + (a.n_tiles + tiles_a_block - 1) / tiles_a_block;""")]
+BOX_VARIANTS = {
+    "reductions by shuffles": [swap("broadphase.cu", BOX_REDUX, """    for (int o = 16; o > 0; o >>= 1) {
+        for (int a = 0; a < 3; ++a) {
+            f.lo[a] = min(f.lo[a], __shfl_xor_sync(kFull, f.lo[a], o));
+            f.hi[a] = max(f.hi[a], __shfl_xor_sync(kFull, f.hi[a], o));
+        }
+        f.nan |= __shfl_xor_sync(kFull, f.nan, o);
+    }
+""")],
+    "4-byte rays at every tile": BOX_SCALAR,
+    "16-byte rays from tile 4": [swap("broadphase.cu", "constexpr int kVecTile = 128;",
+                                      "constexpr int kVecTile = 4;")],
+    "a thread a ray, up to 8 warps a tile": TILE_WARPS,
+    "16-byte stores": [swap("broadphase.cu", """    for (int k = threadIdx.x; k < m; k += kThreads) dst[k] = src[k];
+""", """    const int head = min(m, static_cast<int>((16 - reinterpret_cast<uintptr_t>(dst) % 16) % 16 / 4));
+    const int quads = (m - head) / 4;
+    for (int q = threadIdx.x; q < quads; q += kThreads) {
+        const float* s = src + head + 4 * q;
+        reinterpret_cast<float4*>(dst + head)[q] = make_float4(s[0], s[1], s[2], s[3]);
+    }
+    for (int k = threadIdx.x; k < m - 4 * quads; k += kThreads) {
+        const int e = k < head ? k : 4 * quads + k;   // the head, then the tail
+        dst[e] = src[e];
+    }
+""")],
+    BOX_LEAVE_OUTS[0]: [swap("broadphase.cu", BOX_REDUX, "")],
+}
+
 # E5's setup (csrc/splat_prep.cu): each lane's four slab values a row
 # written as four 4-byte stores instead of one float4
 SETUP_SCALAR_STORES = [swap("splat_prep.cu", """        slab[0] = make_float4(pu[0], pu[1], pu[2], pu[3]);
@@ -2619,6 +2771,36 @@ def call_device_ms(fn, reps=20):
     return (sum(ms for _, ms in ops) if ops else None), ops
 
 
+def host_ms(fn, reps=50):
+    """The host's time of one warm fn() (ms, median of ``reps``):
+    time.perf_counter around the call, no synchronisation inside it (the
+    device drained between calls)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - start) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def timed_call(label, fn):
+    """fn()'s call (CUDA events, median of 10), its host time (host_ms)
+    and its device operations with their times (call_device_ms), printed
+    under ``label``. Returns {ms, host_ms, busy_ms, device_ops, ops_ms}."""
+    ms, host = cuda_ms(fn, reps=10), host_ms(fn)
+    busy, ops = call_device_ms(fn)
+    print(f"{label}: call {ms:.4f} ms (CUDA events, median of 10), host {host:.4f} ms "
+          f"(perf_counter, median of 50); {len(ops)} device operations, "
+          + "; ".join(f"{n[:56]} {m:.4f}" for n, m in ops)
+          + (f"; busy {busy:.4f} ms" if busy is not None else "; not measured")
+          + " (profiler, 20 calls)", flush=True)
+    return {"ms": ms, "host_ms": host, "busy_ms": busy if busy is not None else float("nan"),
+            "device_ops": len(ops), "ops_ms": ops}
+
+
 def prep_ablations(spheres, variants, rounds=2):
     """E4 in each of ``variants`` ({name: (edits, compared)}, or {name:
     (edits, private arguments, compared)}) bound in the package's place
@@ -2789,7 +2971,8 @@ def part_turns(part, parent_dir, rounds=1):
         runs[who].append(json.loads(out.splitlines()[-1])[part])
     def cell(x):
         return (f"{x['ms']:.3f} ms"
-                + (f" ({x['device_ops']} ops, busy {x['busy_ms']:.3f} ms)"
+                + (f" (host {x['host_ms']:.3f})" if "host_ms" in x else "")
+                + (f" ({x['device_ops']} ops, busy {x['busy_ms']:.4f} ms)"
                    if "device_ops" in x else "")
                 + (f" [kernel {x['kernel_ms']:.4f} ms]" if x.get("kernel_ms") else ""))
 
@@ -2842,11 +3025,11 @@ def broadphase_paths():
         return s.detach() - 1e-6 * s.grad, w.detach() - 1e-6 * w.grad
 
     result = {}
-    if hasattr(pb, "overlap_words_resources"):
-        from grace_tpu_torch.trace import broadphase as bp
+    from grace_tpu_torch.trace import broadphase as bp
 
-        seg = {b: pb.segment_boxes_cuda(ss, b) for b in (32, 128)}
-        tiles = {t: bp.tile_boxes_cuda(rays_s, t) for t in (64, TRACE_TILE)}
+    if hasattr(pb, "overlap_words_resources"):
+        seg = {b: pb.segment_aabbs(ss, b) for b in (32, 128)}
+        tiles = {t: bp.tile_aabbs(rays_s, t) for t in (64, TRACE_TILE)}
         calls = {
             "overlap words, tile 64 x quarters, summary": lambda: pb.overlap_words_cuda(
                 *tiles[64], *seg[32], summary=True),
@@ -2856,8 +3039,45 @@ def broadphase_paths():
                 *seg[128], *tiles[TRACE_TILE]),)}
         result.update(kernel_variants("broadphase", "broadphase", OVERLAP_VARIANTS, calls,
                                       "overlap_words_kernel", not_compared=OVERLAP_LEAVE_OUTS))
+    if hasattr(pb, "broadphase_boxes_cuda"):
+        flat = lambda boxes: (*boxes[0], *boxes[1])
+        calls = {
+            "boxes, quarters and tile 128": lambda: flat(pb.broadphase_boxes_cuda(
+                rays_s, TRACE_TILE, ss, 32)),
+            "boxes, segments and tile 64": lambda: flat(pb.broadphase_boxes_cuda(
+                rays_s, 64, ss, 128))}
+        result.update(kernel_variants("boxes", "broadphase", BOX_VARIANTS, calls, "boxes_kernel",
+                                      not_compared=BOX_LEAVE_OUTS))
+    # E6's boxes through the public functions (one part each) and both
+    # sets as the dense callers take them: a package with the one-launch
+    # wrapper makes one call, the earlier one the two
+    both = getattr(pb, "broadphase_boxes_cuda", None)
+    for label, fn in (
+            ("segment boxes, quarters (block 32)", lambda: pb.segment_aabbs(ss, 32)),
+            ("segment boxes, segments (block 128)", lambda: pb.segment_aabbs(ss, 128)),
+            ("tile boxes, tile 128", lambda: bp.tile_aabbs(rays_s, TRACE_TILE)),
+            ("tile boxes, tile 64", lambda: bp.tile_aabbs(rays_s, 64)),
+            ("both box sets, quarters and tile 128",
+             (lambda: both(rays_s, TRACE_TILE, ss, 32)) if both else
+             (lambda: (bp.tile_aabbs(rays_s, TRACE_TILE), pb.segment_aabbs(ss, 32)))),
+            ("both box sets, segments and tile 128",
+             (lambda: both(rays_s, TRACE_TILE, ss, 128)) if both else
+             (lambda: (bp.tile_aabbs(rays_s, TRACE_TILE), pb.segment_aabbs(ss, 128))))):
+        result[label] = timed_call(f"broadphase part {label}", fn)
     tmin64, tmax64 = pb.tile_aabbs(rays_s, 64)
     seg_q = pb.segment_aabbs(ss, 32)
+    for label, fn in (
+            ("dense_tile_masks_quarter, tile 128",
+             lambda: pb.dense_tile_masks_quarter(rays_s, ss, TRACE_TILE)),
+            ("dense_tile_masks_quarter, tile 64", lambda: pb.dense_tile_masks_quarter(rays_s, ss, 64)),
+            ("dense_tile_masks, tile 128", lambda: pb.dense_tile_masks(rays_s, ss, TRACE_TILE)),
+            ("quarter_lists, tile 128, max_q 512 (ops)",
+             lambda: pb.quarter_lists(rays_s, ss, TRACE_TILE, 512)),
+            ("dense_tile_segments, tile 128, max_chunks 2048",
+             lambda: pb.dense_tile_segments(rays_s, ss, TRACE_TILE, 2048)),
+            ("dense_segment_tiles, tile 128, max_tiles 2048",
+             lambda: pr.dense_segment_tiles(rays_s, ss, pr.BWD_TILE, 2048))):
+        result[label] = timed_call(f"broadphase part {label}", fn)
     for label, fn in (
             ("overlap words, tile 64 x quarters, summary (E6's call)",
              lambda: pb.overlap_words_cuda(tmin64, tmax64, *seg_q, summary=True)),

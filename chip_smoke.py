@@ -138,7 +138,7 @@ the bench scene with weights None and 1. Main path
 launch them, counted there.
 
 Then ``check_broadphase`` holds the dense broadphase (csrc/broadphase.cu:
-the segment and tile boxes, the overlap words with their summary, the
+both box sets in one launch, the overlap words with their summary, the
 compaction into lists) to its plain versions at the cases of
 BROADPHASE_CASES (particle counts no multiple of 32 or 128, one and no
 segment, tile counts no multiple of 32, NaN particles, particles at -0
@@ -153,7 +153,11 @@ bit-equal; the overlap words on given boxes at the cases of
 OVERLAP_BOX_CASES (NaN columns beside overlapping ones, a word of NaN
 columns, NaN rows, boxes touching at -0 and +0, a ragged last word and
 strip, fewer than 32 columns, no rows, no columns), summary on and off,
-bit-equal to overlap_words_reference; again on the bench scene at tiles
+bit-equal to overlap_words_reference; the boxes alone at the cases of
+BOX_SET_CASES (tiles 4 to 1,024 on the 16- and 4-byte ray routes, rays off
+a 16-byte boundary, NaN in spheres and rays, +-0, +-inf and F32_MAX, no
+spheres, no rays) at blocks 32 and 128, both parts in one launch and each
+through tile_aabbs and segment_aabbs; again on the bench scene at tiles
 128 and 64, where it also prints how sparse the overlap words are (pairs,
 set bits, nonzero words and the words the overlap kernel's hull cull
 keeps, at tiles 64 and 128 against quarters and segments and segments
@@ -224,18 +228,20 @@ splat edge scene.
 
 Prints a ``resources`` line for each kernel redesigned for the card
 (registers a thread, shared bytes and threads a block, resident blocks and
-warps an SM; the build's, the walk's, segsort.cu's and the overlap words'
-and sort-free setup's kernels also local bytes a thread, which must be 0
-for the last three's), stage and kernel
+warps an SM; the build's, the walk's, segsort.cu's, the overlap words',
+the boxes' (both ray routes) and the sort-free setup's kernels also local
+bytes a thread, which must be 0 for the last four's), stage and kernel
 times (CUDA events, warm, median; the dense splat contractions and the
-launch-order helpers too; the overlap words' and sort-free setup's
-kernels also by device time, torch.profiler) with the card's name
+launch-order helpers too; the overlap words', the boxes' (both parts and
+each alone) and the sort-free setup's kernels also by device time,
+torch.profiler) with the card's name
 and power limit, the work each kernel's bound is computed from (the
 overlap words both as all pairs and as the hull cull's tests),
 a JSON line describing each kernel (the list kernel on quarter and on
 segment lists apart, the triangle kernel's two passes apart, the engine's
 walk for spheres and for triangles apart, the build's five kernels, the
-splat setups' four, the broadphase's four, the triangle lists and the
+splat setups' four, the broadphase's three (the boxes' one with its
+parts), the triangle lists and the
 records' three post-processing entries with their launches on each main
 path), and last a
 JSON line with ``"ok": true``. Any failure raises, so
@@ -2804,6 +2810,115 @@ def broadphase_scene(tag):
     return s, o, d, ln
 
 
+# check_broadphase's box cases (grace_broadphase_boxes, both parts in one
+# launch, at blocks 32 and 128): tag -> (particles, tiles, tile, kind,
+# offset). Tiles 128 (NaN among them) and 512 (four units a lane) take
+# the 16-byte ray route; tiles 4, 6, 32, 48 and 64, and rays that start `offset` rays into
+# a larger tensor (bases not 16-byte aligned; tile 1,024: 32 rays a lane),
+# the 4-byte route. "nan": NaN in spheres'
+# centres and radii and in rays' origins, directions and lengths; "extreme":
+# centres and radii at +-0, +-inf and F32_MAX (c - r and c + r overflow or
+# are inf - inf), origins at +-0 and +-inf, directions of +-inf against
+# lengths of 0 (an endpoint inf * 0) and F32_MAX lengths (an endpoint past
+# f32). No spheres, and no rays.
+BOX_SET_SEED = 2032
+BOX_SET_CASES = {
+    "n 1000, 50 tiles of 4": (1000, 50, 4, "", 0),
+    "n 300, 9 tiles of 32": (300, 9, 32, "", 0),
+    "n 2049, 35 tiles of 128, NaN in spheres and rays": (2049, 35, 128, "nan", 0),
+    "n 128, 30 tiles of 128": (128, 30, 128, "", 0),
+    "n 900, 5 tiles of 512": (900, 5, 512, "", 0),
+    "n 777, 21 tiles of 6 (4-byte rays)": (777, 21, 6, "", 0),
+    "n 1500, 20 tiles of 64 one ray into a larger tensor (4-byte rays)": (1500, 20, 64, "", 1),
+    "n 4100, 3 tiles of 1,024 two rays in (4-byte rays)": (4100, 3, 1024, "", 2),
+    "n 640, 11 tiles of 48, +-0, +-inf and F32_MAX": (640, 11, 48, "extreme", 0),
+    "no spheres, 16 tiles of 8": (0, 16, 8, "", 0),
+    "n 500, no rays": (500, 0, 32, "", 0),
+}
+
+
+def box_set_scene(tag):
+    """(spheres f32[n, 4], origins f32[R + offset, 3], directions, lengths
+    f32[R + offset]) of box case ``tag`` as numpy arrays; the case's rays
+    are the last R."""
+    n, n_tiles, tile, kind, offset = BOX_SET_CASES[tag]
+    rng = np.random.default_rng(BOX_SET_SEED + list(BOX_SET_CASES).index(tag))
+    s = make_clustered_particles(rng, n) if n else np.zeros((0, 4), np.float32)
+    r = n_tiles * tile + offset
+    o = rng.random((r, 3)).astype(np.float32)
+    d = rng.standard_normal((r, 3)).astype(np.float32)
+    ln = rng.uniform(0.0, 0.5, r).astype(np.float32)
+    f32_max = np.finfo(np.float32).max
+    if kind == "nan":
+        s[3::101, 1], s[50::211, 3] = np.nan, np.nan
+        o[offset + 5, 0] = d[offset + 3 * tile + 7, 2] = ln[offset + 9 * tile + 1] = np.nan
+    if kind == "extreme":
+        s[0, :3], s[1, :3], s[2, 3] = -0.0, 0.0, 0.0
+        s[5] = (np.inf, 0.5, -np.inf, 0.1)
+        s[40] = (np.inf, 0.5, 0.5, np.inf)           # c - r = inf - inf
+        s[200] = (0.5, -f32_max, 0.5, f32_max)       # c - r past -F32_MAX
+        s[300] = (f32_max, 0.5, -0.0, 1.0)
+        o[:tile, 0] = -0.0                           # a tile of -0 and +0
+        o[tile:2 * tile:2, 0] = 0.0
+        o[2 * tile + 3] = (np.inf, -np.inf, 0.5)
+        d[3 * tile + 1] = (np.inf, -np.inf, 0.0)
+        ln[3 * tile + 1] = 0.0                       # inf * 0: a NaN endpoint
+        d[4 * tile + 2] = (-np.inf, 0.5, 0.5)
+        ln[5 * tile:6 * tile] = f32_max              # endpoints past f32
+        ln[6 * tile + 4] = -0.0
+    return s, o, d, ln
+
+
+def box_set_inputs(tag, dev):
+    """(spheres, rays, tile) of box case ``tag`` on ``dev``: the rays the
+    last R of a larger tensor where the case has an offset."""
+    from grace_tpu_torch.core.types import Rays
+
+    s, o, d, ln = box_set_scene(tag)
+    offset = BOX_SET_CASES[tag][4]
+    rays = Rays.from_arrays(o, d, ln, device=dev)[offset:]
+    return torch.from_numpy(s).to(dev), rays, BOX_SET_CASES[tag][2]
+
+
+def box_set_outputs(spheres, rays, tile, block, plain):
+    """{name: tensor} of a box case: both parts through broadphase_boxes_cuda
+    (or the plain versions), and each part alone through the public
+    tile_aabbs and segment_aabbs (the kernels on CUDA tensors)."""
+    from grace_tpu_torch.trace import broadphase as bp
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+
+    if plain:
+        tiles, segs = bp._tile_aabbs_plain(rays, tile), pb._segment_aabbs_plain(spheres, block)
+        alone = tiles + segs
+    else:
+        tiles, segs = pb.broadphase_boxes_cuda(rays, tile, spheres, block)
+        alone = bp.tile_aabbs(rays, tile) + pb.segment_aabbs(spheres, block)
+    names = ("tile box min", "tile box max", "segment box min", "segment box max")
+    out = dict(zip(names, tiles + segs))
+    out.update(zip((f"{k} (alone)" for k in names), alone))
+    return out
+
+
+def check_box_set_case(tag, dev):
+    """grace_broadphase_boxes against the plain versions at box case ``tag``
+    and blocks 32 and 128: boxes equal in value, NaN at the same places
+    (zero signs free, counted). Returns its lines."""
+    spheres, rays, tile = box_set_inputs(tag, dev)
+    lines = []
+    for block in (32, 128):
+        got = box_set_outputs(spheres, rays, tile, block, plain=False)
+        want = box_set_outputs(spheres, rays, tile, block, plain=True)
+        signs = sum(_box_like(f"{tag} block {block} {k}", got[k], w) for k, w in want.items())
+        lines.append(f"boxes {tag}, block {block}: both parts in one launch and each alone "
+                     f"equal to the plain versions ({signs} zero signs apart)")
+    return lines
+
+
+def check_box_sets(dev):
+    """check_box_set_case at every case of BOX_SET_CASES. Returns its lines."""
+    return [line for tag in BOX_SET_CASES for line in check_box_set_case(tag, dev)]
+
+
 # check_broadphase's overlap-word cases on given boxes: tag -> (rows,
 # columns, kind), each with the summary on and off, held to
 # overlap_words_reference. Boxes are random in the unit cube; "nan" sets
@@ -3017,6 +3132,7 @@ def check_broadphase(dev, bench=None):
                      f"dense_tile_segments, dense_segment_tiles and the compaction at max_q "
                      f"{list(max_qs)} bit-equal to the plain versions (most listed segments a "
                      f"tile {most_s})")
+    lines += check_box_sets(dev)
     lines += check_overlap_boxes(dev)
     return lines
 
@@ -3048,9 +3164,9 @@ def bench_word_counts(spheres, rays):
     from grace_tpu_torch.trace import pallas_broadphase as pb
 
     lines = []
-    seg = {b: pb.segment_boxes_cuda(spheres, b) for b in (32, 128)}
+    seg = {b: pb.segment_aabbs(spheres, b) for b in (32, 128)}
     for tile in (64, TRACE_TILE):
-        tiles = bp.tile_boxes_cuda(rays, tile)
+        tiles = bp.tile_aabbs(rays, tile)
         for rows, cols, what in ((tiles, seg[32], f"tile {tile} x quarters"),
                                  (tiles, seg[128], f"tile {tile} x segments of 128"),
                                  (seg[128], tiles, f"segments of 128 x tile {tile}")):
@@ -3067,12 +3183,10 @@ def bench_word_counts(spheres, rays):
 def broadphase_counters():
     """The broadphase kernels' launch counts (csrc/broadphase.cu) and the
     triangle lists' (csrc/tri_lists.cu)."""
-    from grace_tpu_torch.trace import broadphase as bp
     from grace_tpu_torch.trace import pallas_broadphase as pb
     from grace_tpu_torch.trace import pallas_tri as pt
 
-    return {"segment_boxes": pb.segment_boxes_cuda.launches,
-            "tile_boxes": bp.tile_boxes_cuda.launches,
+    return {"broadphase_boxes": pb.broadphase_boxes_cuda.launches,
             "overlap_words": pb.overlap_words_cuda.launches,
             "compact_words": pb.compact_words_cuda.launches,
             "tri_tile_lists": pt.tri_tile_lists_cuda.launches}
@@ -3081,14 +3195,15 @@ def broadphase_counters():
 # The broadphase kernels each main path runs: path 1's quarter trace, path
 # 2's default, qlist and list routes, path 3's fused trainer (its lists both
 # ways), path 4's record routes, path 5's triangle lists, path 6's two
-# routes, path 7's sharded routes; path 8's walk runs none of them.
-BROADPHASE_BY_PATH = {1: ("tile_boxes", "segment_boxes", "overlap_words"),
-                      2: ("tile_boxes", "segment_boxes", "overlap_words", "compact_words"),
-                      3: ("tile_boxes", "segment_boxes", "overlap_words", "compact_words"),
-                      4: ("tile_boxes", "segment_boxes", "overlap_words"),
+# routes, path 7's sharded routes; path 8's walk runs none of them. The
+# boxes are one launch for both sets.
+BROADPHASE_BY_PATH = {1: ("broadphase_boxes", "overlap_words"),
+                      2: ("broadphase_boxes", "overlap_words", "compact_words"),
+                      3: ("broadphase_boxes", "overlap_words", "compact_words"),
+                      4: ("broadphase_boxes", "overlap_words"),
                       5: ("tri_tile_lists",),
-                      6: ("tile_boxes", "segment_boxes", "overlap_words"),
-                      7: ("tile_boxes", "segment_boxes", "overlap_words"),
+                      6: ("broadphase_boxes", "overlap_words"),
+                      7: ("broadphase_boxes", "overlap_words"),
                       8: ()}
 
 
@@ -3104,12 +3219,11 @@ def gate_broadphase(path):
 
 
 def zero_broadphase_counters():
-    from grace_tpu_torch.trace import broadphase as bp
     from grace_tpu_torch.trace import pallas_broadphase as pb
     from grace_tpu_torch.trace import pallas_tri as pt
 
-    for fn in (pb.segment_boxes_cuda, bp.tile_boxes_cuda, pb.overlap_words_cuda,
-               pb.compact_words_cuda, pt.tri_tile_lists_cuda):
+    for fn in (pb.broadphase_boxes_cuda, pb.overlap_words_cuda, pb.compact_words_cuda,
+               pt.tri_tile_lists_cuda):
         fn.launches = 0
 
 
@@ -3317,8 +3431,10 @@ def tri_list_tests(rays, tris, tile, n_intervals=16, block=512):
 
 def broadphase_times(spheres, rays, tris, tri_sets):
     """E6's and E7's times (CUDA events, warm median, ms) on the main paths'
-    inputs: each broadphase kernel alone and its plain version at the
-    records' quarter granularity (tile 64), the public calls of both routes
+    inputs: the boxes at path 1's quarter trace (quarters and tile 128;
+    both parts in one launch and each alone, with their device times by
+    the profiler), each other broadphase kernel alone and its plain version
+    at the records' quarter granularity (tile 64), the public calls of both routes
     at tile 64 and 128, and the triangle lists of path 5's primary and
     shadow rays (the wrapper's call, its kernel's device time, the call
     with its two box reductions, the plain version, and torch's stable sort
@@ -3332,15 +3448,30 @@ def broadphase_times(spheres, rays, tris, tri_sets):
     from grace_tpu_torch.trace import pallas_tri as pt
 
     tile = 64
-    tmin, tmax = bp.tile_boxes_cuda(rays, tile)
-    seg_q = pb.segment_boxes_cuda(spheres, 32)
+    tmin, tmax = bp.tile_aabbs(rays, tile)
+    seg_q = pb.segment_aabbs(spheres, 32)
     words, summ = pb.overlap_words_cuda(tmin, tmax, *seg_q, summary=True)
     ids, n, ovf = pb.compact_words_cuda(words, 512)
     t = {}
-    t["segment_boxes kernel (quarters)"] = cuda_ms(lambda: pb.segment_boxes_cuda(spheres, 32))
-    t["segment_boxes plain (quarters)"] = cuda_ms(lambda: pb._segment_aabbs_plain(spheres, 32))
-    t["tile_boxes kernel (tile 64)"] = cuda_ms(lambda: bp.tile_boxes_cuda(rays, tile))
-    t["tile_boxes plain (tile 64)"] = cuda_ms(lambda: bp._tile_aabbs_plain(rays, tile))
+    tiles_128 = bp.tile_aabbs(rays, TRACE_TILE)
+    for label, fn, plain in (
+            ("quarters and tile 128", lambda: pb.broadphase_boxes_cuda(rays, TRACE_TILE, spheres, 32),
+             lambda: (bp._tile_aabbs_plain(rays, TRACE_TILE), pb._segment_aabbs_plain(spheres, 32))),
+            ("segment part, quarters", lambda: pb.segment_aabbs(spheres, 32),
+             lambda: pb._segment_aabbs_plain(spheres, 32)),
+            ("tile part, tile 128", lambda: bp.tile_aabbs(rays, TRACE_TILE),
+             lambda: bp._tile_aabbs_plain(rays, TRACE_TILE))):
+        t[f"broadphase_boxes kernel ({label})"] = cuda_ms(fn)
+        # (the profiler drops some windows' device events in this phase: the
+        # mean of the launches it saw)
+        ms, seen = kernel_device_ms_seen(fn, "boxes_kernel")
+        device = f"broadphase_boxes device (profiler; the kernel alone, {label})"
+        if ms is None:
+            log(f"time {device}: not measured (the profiler saw no device time of the kernel)")
+        else:
+            t[device] = ms
+            log(f"{device}: the mean of {seen} launches the profiler saw")
+        t[f"broadphase_boxes plain ({label})"] = cuda_ms(plain)
     t["overlap_words kernel (quarter words and summary, tile 64)"] = cuda_ms(
         lambda: pb.overlap_words_cuda(tmin, tmax, *seg_q, summary=True))
     log_device_ms(t, "overlap_words device (profiler; the kernel alone, quarter words and "
@@ -3382,9 +3513,14 @@ def broadphase_times(spheres, rays, tris, tri_sets):
     # on the candidate words' columns (6 compares each); the earlier design
     # tested every (row, column) pair
     candidates = overlap_word_counts(tmin, tmax, *seg_q, words)[3]
+    # the boxes' work: c - r and c + r and 6 folds a sphere; 3 f64
+    # products and sums and 12 folds a ray
+    seg_work = (12 * spheres.shape[0], nbytes(spheres, *seg_q))
+    tile_work = (18 * r, nbytes(rays.origins, rays.directions, rays.lengths, *tiles_128))
     work = {
-        "segment_boxes": (12 * spheres.shape[0], nbytes(spheres, *seg_q)),
-        "tile_boxes": (18 * r, nbytes(rays.origins, rays.directions, rays.lengths, tmin, tmax)),
+        "broadphase_boxes": (seg_work[0] + tile_work[0], seg_work[1] + tile_work[1]),
+        "broadphase_boxes (segment part)": seg_work,
+        "broadphase_boxes (tile part)": tile_work,
         "overlap_words": (6 * n_rows * words.shape[1] + 6 * 32 * candidates,
                           nbytes(tmin, tmax, *seg_q, words, summ)),
         "overlap_words (all pairs)": (6 * n_rows * n_cols, nbytes(tmin, tmax, *seg_q, words, summ)),
@@ -4780,6 +4916,37 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_b
     return entry
 
 
+def boxes_entry(t, work, by_path):
+    """E6's boxes in the kernels line: one entry for the one launch (both
+    parts at path 1's quarters and tile 128), with "device_ms" by the
+    profiler and "parts": each part alone, its call, device and plain
+    times and its bound (the checks held both parts equal to the plain
+    versions: max_abs_err 0)."""
+    def bound(name):
+        flops, n_bytes = work[name]
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+        return {"bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    label = "quarters and tile 128"
+    entry = kernel_entry("broadphase_boxes", "broadphase.cu",
+                         "grace_tpu/trace/pallas_broadphase.py:43, "
+                         "grace_tpu/trace/broadphase.py:38",
+                         sum(p["broadphase_boxes"] for p in by_path.values()), 0.0,
+                         t[f"broadphase_boxes kernel ({label})"],
+                         t[f"broadphase_boxes plain ({label})"], *work["broadphase_boxes"],
+                         by_path={f"path {k}": v["broadphase_boxes"] for k, v in by_path.items()})
+    device = lambda label: t.get(f"broadphase_boxes device (profiler; the kernel alone, {label})")
+    entry["device_ms"] = device(label)
+    entry["parts"] = {
+        part: {"max_abs_err": 0.0, "ms": t[f"broadphase_boxes kernel ({label})"],
+               "device_ms": device(label), "plain_ms": t[f"broadphase_boxes plain ({label})"],
+               **bound(f"broadphase_boxes ({part})")}
+        for part, label in (("segment part", "segment part, quarters"),
+                            ("tile part", "tile part, tile 128"))}
+    return entry
+
+
 def main():
     global _GPU
     if not torch.cuda.is_available():
@@ -4856,6 +5023,10 @@ def run(dev, n_particles, side):
     from grace_tpu_torch.ops import segops
 
     for label, res in (("overlap_words (csrc/broadphase.cu)", pb.overlap_words_resources(dev)),
+                       ("broadphase_boxes (16-byte rays; csrc/broadphase.cu)",
+                        pb.broadphase_boxes_resources(dev)),
+                       ("broadphase_boxes (4-byte rays; csrc/broadphase.cu)",
+                        pb.broadphase_boxes_resources(dev, vec=False)),
                        ("sortfree_setup (csrc/splat_prep.cu)", sg.sortfree_setup_resources(dev))):
         log(f"resources {label}: {json.dumps(res)}")
         if res["local_bytes"]:
@@ -5741,15 +5912,12 @@ def run(dev, n_particles, side):
         # the dense broadphase and the triangle lists (not TPU kernels:
         # grace_tpu's plain XLA), on the bench scene at the records' tile 64
         # and on path 5's primary rays
+        boxes_entry(t, bp_work, bp_by_path),
         *[kernel_entry(name, "broadphase.cu", replaces,
                        sum(p[name] for p in bp_by_path.values()), 0.0, t[kernel_ms],
                        t[plain_ms], *bp_work[name],
                        by_path={f"path {k}": v[name] for k, v in bp_by_path.items()})
           for name, replaces, kernel_ms, plain_ms in (
-              ("segment_boxes", "grace_tpu/trace/pallas_broadphase.py:43",
-               "segment_boxes kernel (quarters)", "segment_boxes plain (quarters)"),
-              ("tile_boxes", "grace_tpu/trace/broadphase.py:38", "tile_boxes kernel (tile 64)",
-               "tile_boxes plain (tile 64)"),
               ("overlap_words", "grace_tpu/trace/pallas_broadphase.py:249, "
                "grace_tpu/trace/pallas_broadphase.py:59, grace_tpu/trace/pallas_render.py:218",
                "overlap_words kernel (quarter words and summary, tile 64)",

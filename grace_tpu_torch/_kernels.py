@@ -89,12 +89,12 @@ KERNELS = {
                     "grace_splat_bucket_resources": "pi",
                     "grace_sortfree_setup": "ppppppp" + "iii",
                     "grace_sortfree_setup_resources": "p"}),
-    # the dense broadphase (segment and tile boxes, overlap words, their
-    # compaction) and the triangle trace's segment lists: --fmad=false keeps
+    # the dense broadphase (both box sets in one launch, overlap words,
+    # their compaction) and the triangle trace's segment lists: --fmad=false keeps
     # the endpoints' and distances' rounding the plain versions'
     "broadphase": ("broadphase.cu", ["--fmad=false"],
-                   {"grace_segment_boxes": "ppp" + "ii",
-                    "grace_tile_boxes": "ppppp" + "ii",
+                   {"grace_broadphase_boxes": "pppppppp" + "iiii",
+                    "grace_broadphase_boxes_resources": "pi",
                     "grace_overlap_words": "pppppp" + "ii",
                     "grace_overlap_words_resources": "p",
                     "grace_compact_words": "pppp" + "iii"}),

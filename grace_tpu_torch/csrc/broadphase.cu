@@ -11,20 +11,37 @@
 // [tiles, seg_block] bool matrix a block of 8,192 segments, packed through a
 // [tiles, words, 32] int64 tensor, and a compaction that unpacks every bit.
 //
-// segment_boxes_kernel: one warp a box of `block` (32 or 128) consecutive
-// spheres, a sphere a lane (four for 128): c - r and c + r, padded past n
-// to a multiple of 128 with (+F32_MAX, -F32_MAX), reduced over the warp.
-//
-// tile_boxes_kernel: one warp a tile of `tile` rays: the hull of the
-// origins and the endpoints, each endpoint as vecmath.fma computes it (the
-// exact f64 product of direction and length plus the origin, rounded to f64
-// and then to f32: fma_f64).
-//
-// The reductions keep torch.amin / amax's and torch.minimum / maximum's
-// NaN rule: a NaN operand wins (fminf / fmaxf would drop it, and a NaN box
-// must overlap nothing). Which zero of -0 and +0 a tie gives is torch's
-// reduction order's (ROADMAP C20); the boxes feed only comparisons, where
-// -0 == +0.
+// boxes_kernel: both box sets in one launch, the grid's first blocks the
+// segment boxes, the rest the tile boxes (either part may be empty; the
+// dense callers need both, so one launch replaces the two kernels of
+// grace_segment_boxes and grace_tile_boxes, which read the spheres a warp a
+// box with loads one loop trip at a time and the rays a warp a tile in
+// 4-byte loads, 2,048 warps at tile 128, and reduced each value by a
+// five-round NaN-testing shuffle butterfly). Bound by bytes: 2^20 spheres
+// are 16.8 MB, 512^2 rays 7.3 MB. So every load is in flight before any
+// arithmetic, and a value costs one instruction to reduce:
+// - segments: a warp takes a segment of 128 spheres, a lane four 16-byte
+//   loads; c - r and c + r (past n the padding's +F32_MAX and -F32_MAX to a
+//   multiple of 128); each quarter's box (block 32) or the segment's
+//   (block 128, folded in the lane first) reduced over the warp by
+//   redux.sync on order-keeping ints (a float's bits with the lower 31
+//   flipped where negative), one a value;
+// - tiles: a warp a tile; a lane four rays from three float4s of origins
+//   and of directions and one of lengths where the tile gives every lane
+//   four (tile % 4 == 0, tile >= 128) and the bases are 16-byte aligned,
+//   else a ray at a time from 4-byte loads (tile 64: two a lane); each
+//   origin and endpoint folded in, the endpoint as vecmath.fma computes it
+//   (the exact f64 product of direction and length plus the origin,
+//   rounded to f64 and then to f32: fma_f64); redux.sync over the warp.
+//   A tile spread over up to 8 warps (a thread a ray, the warps combined
+//   in shared memory) measured slower (chip_ablation.py's box variants);
+// - a block stages its boxes in shared memory and writes each array as one
+//   coalesced run.
+// The NaN rule is torch.amin / amax's and torch.minimum / maximum's: a NaN
+// operand wins (a NaN box must overlap nothing), by a NaN bit a value that
+// one redux.sync of or gathers. Which zero of -0 and +0 a tie gives is free
+// (ROADMAP C20: the ints order -0 below +0); the boxes feed only
+// comparisons, where -0 == +0.
 //
 // overlap_words_kernel: rows x columns of boxes, both (min, max) f32[., 3]:
 // bit s of word w of row r is 1 where box r overlaps column box w*32+s (min
@@ -65,6 +82,7 @@
 // rows, from L2); the overlap tests are a few operations a (row, word) and
 // a (row, column) pair of the candidate words.
 
+#include <climits>
 #include <cstdint>
 
 #include "common.cuh"
@@ -83,28 +101,12 @@ constexpr int kMinBlocks = 528;        // four blocks an SM of the H100's 132
 constexpr int kStageVecs = 3 * kStripCols / 4;   // float4s of each of the strip's arrays
 constexpr int kStageLoads = (kStageVecs + kWordWarps * 32 - 1) / (kWordWarps * 32);
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBoxWarps = kThreads / 32;   // warps a box block
+constexpr int kSegLoads = kSeg / 32;   // 16-byte sphere loads a lane: a warp a segment
+constexpr int kStageFloats = 3 * kBoxWarps * kSegLoads;   // a block's boxes, 32 quarters
+constexpr int kVecTile = 128;         // tiles from here on: 16-byte ray loads
 
 int grid(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
-
-// torch.minimum / maximum on the card: a NaN operand wins, else fminf /
-// fmaxf.
-__device__ __forceinline__ float nan_min(float a, float b) {
-    return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-    return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
-}
-
-__device__ __forceinline__ float warp_nan_min(float v) {
-    for (int o = 16; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(kFull, v, o));
-    return v;
-}
-
-__device__ __forceinline__ float warp_nan_max(float v) {
-    for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(kFull, v, o));
-    return v;
-}
 
 // vecmath.fma: the exact f64 product plus c, rounded to f64, then to f32.
 __device__ __forceinline__ float fma_f64(float a, float b, float c) {
@@ -112,57 +114,187 @@ __device__ __forceinline__ float fma_f64(float a, float b, float c) {
                              static_cast<double>(c));
 }
 
-__global__ void __launch_bounds__(kThreads)
-    segment_boxes_kernel(const float4* __restrict__ spheres, float* __restrict__ seg_min,
-                         float* __restrict__ seg_max, int n, int block, int n_boxes) {
-    const int box = (blockIdx.x * kThreads + threadIdx.x) / 32, lane = threadIdx.x % 32;
-    if (box >= n_boxes) return;
-    float lo[3] = {INFINITY, INFINITY, INFINITY}, hi[3] = {-INFINITY, -INFINITY, -INFINITY};
-    for (int i = lane; i < block; i += 32) {
-        const long long p = static_cast<long long>(box) * block + i;
-        // the padding's boxes, (+F32_MAX, -F32_MAX), past n
-        float4 s = make_float4(kF32Max, kF32Max, kF32Max, 0.0f);
-        if (p < n) s = spheres[p];
-        const float c[3] = {s.x, s.y, s.z};
-        for (int a = 0; a < 3; ++a) {
-            lo[a] = nan_min(lo[a], p < n ? c[a] - s.w : kF32Max);
-            hi[a] = nan_max(hi[a], p < n ? c[a] + s.w : -kF32Max);
-        }
-    }
+// A float's order as an int: its bits with the lower 31 flipped where the
+// sign is set (an involution). -0 orders below +0.
+__device__ __forceinline__ int ordered(float x) {
+    const int b = __float_as_int(x);
+    return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float unordered(int k) {
+    return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
+// A box being folded: the ordered ints of its mins and maxes, and a NaN
+// bit a value (bit a: the min of axis a, bit 3 + a: the max).
+struct Fold {
+    int lo[3], hi[3];
+    unsigned nan;
+};
+
+__device__ __forceinline__ Fold empty_fold() {
+    return {{INT_MAX, INT_MAX, INT_MAX}, {INT_MIN, INT_MIN, INT_MIN}, 0u};
+}
+
+// min lo_v and max hi_v into axis a
+__device__ __forceinline__ void fold_in(Fold& f, int a, float lo_v, float hi_v) {
+    f.lo[a] = min(f.lo[a], ordered(lo_v));
+    f.hi[a] = max(f.hi[a], ordered(hi_v));
+    f.nan |= (isnan(lo_v) ? 1u << a : 0u) | (isnan(hi_v) ? 8u << a : 0u);
+}
+
+// a point (min and max alike) into axis a
+__device__ __forceinline__ void fold_point(Fold& f, int a, float v) {
+    const int k = ordered(v);
+    f.lo[a] = min(f.lo[a], k);
+    f.hi[a] = max(f.hi[a], k);
+    f.nan |= isnan(v) ? 9u << a : 0u;
+}
+
+// The warp's fold: one redux.sync a value, every lane gets it.
+__device__ __forceinline__ void warp_fold(Fold& f) {
     for (int a = 0; a < 3; ++a) {
-        lo[a] = warp_nan_min(lo[a]);
-        hi[a] = warp_nan_max(hi[a]);
+        f.lo[a] = __reduce_min_sync(kFull, f.lo[a]);
+        f.hi[a] = __reduce_max_sync(kFull, f.hi[a]);
     }
-    if (lane < 3) {
-        seg_min[3LL * box + lane] = lane == 0 ? lo[0] : (lane == 1 ? lo[1] : lo[2]);
-        seg_max[3LL * box + lane] = lane == 0 ? hi[0] : (lane == 1 ? hi[1] : hi[2]);
+    f.nan = __reduce_or_sync(kFull, f.nan);
+}
+
+// The box as floats: NaN where an input of the value was NaN (torch's
+// rule: a NaN operand wins).
+__device__ __forceinline__ void store_fold(const Fold& f, float* mins, float* maxs) {
+    const float kNaN = __int_as_float(0x7fc00000);
+    for (int a = 0; a < 3; ++a) {
+        mins[a] = (f.nan >> a) & 1u ? kNaN : unordered(f.lo[a]);
+        maxs[a] = (f.nan >> (3 + a)) & 1u ? kNaN : unordered(f.hi[a]);
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    tile_boxes_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
-                      const float* __restrict__ lengths, float* __restrict__ tmin,
-                      float* __restrict__ tmax, int n_tiles, int tile) {
-    const int t = (blockIdx.x * kThreads + threadIdx.x) / 32, lane = threadIdx.x % 32;
-    if (t >= n_tiles) return;
-    float lo[3] = {INFINITY, INFINITY, INFINITY}, hi[3] = {-INFINITY, -INFINITY, -INFINITY};
-    for (int i = lane; i < tile; i += 32) {
-        const long long r = static_cast<long long>(t) * tile + i;
-        const float len = lengths[r];
-        for (int a = 0; a < 3; ++a) {
-            const float o = origins[3 * r + a];
-            const float e = fma_f64(dirs[3 * r + a], len, o);
-            lo[a] = nan_min(lo[a], nan_min(o, e));
-            hi[a] = nan_max(hi[a], nan_max(o, e));
+// The block writes m floats of shared `src` to `dst` as one coalesced run
+// of 4-byte stores (16-byte stores from the first aligned float on
+// measured slower).
+__device__ __forceinline__ void write_run(float* dst, const float* src, int m) {
+    for (int k = threadIdx.x; k < m; k += kThreads) dst[k] = src[k];
+}
+
+struct BoxArgs {
+    const float4* spheres;
+    const float *origins, *dirs, *lengths;
+    float *seg_min, *seg_max, *tmin, *tmax;
+    long long n, n_segs, n_boxes, n_tiles;
+    int quarters;      // block 32: four boxes a segment
+    int seg_blocks;    // the grid's first blocks: the segment part
+    int tile;
+};
+
+// A warp a segment of kSeg spheres: a lane's kSegLoads 16-byte loads, all
+// in flight before any arithmetic; c - r and c + r (past n the padding's
+// +F32_MAX and -F32_MAX); each quarter's box (block 32) or the segment's
+// folded and reduced over the warp; the block's boxes staged in shared
+// memory and written as two runs.
+__device__ __forceinline__ void segment_part(const BoxArgs& a, int blk,
+                                             float (*stage)[kStageFloats]) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const long long seg = static_cast<long long>(blk) * kBoxWarps + warp;
+    if (seg < a.n_segs) {
+        float4 s[kSegLoads];
+#pragma unroll
+        for (int k = 0; k < kSegLoads; ++k) {
+            const long long p = kSeg * seg + 32 * k + lane;
+            s[k] = p < a.n ? a.spheres[p] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+        Fold f = empty_fold();
+#pragma unroll
+        for (int k = 0; k < kSegLoads; ++k) {
+            const bool live = kSeg * seg + 32 * k + lane < a.n;
+            const float c[3] = {s[k].x, s[k].y, s[k].z};
+            if (a.quarters) f = empty_fold();
+            for (int x = 0; x < 3; ++x) {
+                fold_in(f, x, live ? c[x] - s[k].w : kF32Max, live ? c[x] + s[k].w : -kF32Max);
+            }
+            if (a.quarters) {
+                warp_fold(f);
+                const int box = kSegLoads * warp + k;
+                if (lane == 0) store_fold(f, stage[0] + 3 * box, stage[1] + 3 * box);
+            }
+        }
+        if (!a.quarters) {
+            warp_fold(f);
+            if (lane == 0) store_fold(f, stage[0] + 3 * warp, stage[1] + 3 * warp);
         }
     }
-    for (int a = 0; a < 3; ++a) {
-        lo[a] = warp_nan_min(lo[a]);
-        hi[a] = warp_nan_max(hi[a]);
+    __syncthreads();
+    const long long per_block = a.quarters ? kBoxWarps * kSegLoads : kBoxWarps;
+    const long long first = blk * per_block;
+    const int count = static_cast<int>(min(per_block, a.n_boxes - first));
+    write_run(a.seg_min + 3 * first, stage[0], 3 * count);
+    write_run(a.seg_max + 3 * first, stage[1], 3 * count);
+}
+
+// A warp a tile: a lane folds its units (kVec: 4 rays from three float4s
+// of origins and of directions and one of lengths; else a ray from 4-byte
+// loads), each ray's origin and endpoint; the warp's fold by redux.sync;
+// the block's tiles staged and written as two runs.
+template <bool kVec>
+__device__ __forceinline__ void tile_part(const BoxArgs& a, int blk,
+                                          float (*stage)[kStageFloats]) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const long long t = static_cast<long long>(blk) * kBoxWarps + warp;
+    if (t < a.n_tiles) {
+        Fold f = empty_fold();
+        const int units = kVec ? a.tile / 4 : a.tile;
+        for (int j = lane; j < units; j += 32) {
+            if constexpr (kVec) {
+                const long long r = t * a.tile + 4LL * j;
+                const float4* o4 = reinterpret_cast<const float4*>(a.origins) + 3 * r / 4;
+                const float4* d4 = reinterpret_cast<const float4*>(a.dirs) + 3 * r / 4;
+                const float4 ov[3] = {o4[0], o4[1], o4[2]}, dv[3] = {d4[0], d4[1], d4[2]};
+                const float4 lv = reinterpret_cast<const float4*>(a.lengths)[r / 4];
+                float o[12], d[12];
+#pragma unroll
+                for (int k = 0; k < 3; ++k) {
+                    o[4 * k] = ov[k].x, o[4 * k + 1] = ov[k].y, o[4 * k + 2] = ov[k].z;
+                    o[4 * k + 3] = ov[k].w;
+                    d[4 * k] = dv[k].x, d[4 * k + 1] = dv[k].y, d[4 * k + 2] = dv[k].z;
+                    d[4 * k + 3] = dv[k].w;
+                }
+                const float len[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    for (int x = 0; x < 3; ++x) {
+                        fold_point(f, x, o[3 * q + x]);
+                        fold_point(f, x, fma_f64(d[3 * q + x], len[q], o[3 * q + x]));
+                    }
+                }
+            } else {
+                const long long r = t * a.tile + j;
+                const float len = a.lengths[r];
+                for (int x = 0; x < 3; ++x) {
+                    const float o = a.origins[3 * r + x];
+                    fold_point(f, x, o);
+                    fold_point(f, x, fma_f64(a.dirs[3 * r + x], len, o));
+                }
+            }
+        }
+        warp_fold(f);
+        if (lane == 0) store_fold(f, stage[0] + 3 * warp, stage[1] + 3 * warp);
     }
-    if (lane < 3) {
-        tmin[3LL * t + lane] = lane == 0 ? lo[0] : (lane == 1 ? lo[1] : lo[2]);
-        tmax[3LL * t + lane] = lane == 0 ? hi[0] : (lane == 1 ? hi[1] : hi[2]);
+    __syncthreads();
+    const long long first = static_cast<long long>(blk) * kBoxWarps;
+    const int count = static_cast<int>(min(static_cast<long long>(kBoxWarps), a.n_tiles - first));
+    write_run(a.tmin + 3 * first, stage[0], 3 * count);
+    write_run(a.tmax + 3 * first, stage[1], 3 * count);
+}
+
+// Both box sets in one launch: the grid's first seg_blocks blocks the
+// segment part, the rest the tile part.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) boxes_kernel(const BoxArgs a) {
+    __shared__ float stage[2][kStageFloats];
+    if (static_cast<int>(blockIdx.x) < a.seg_blocks) {
+        segment_part(a, blockIdx.x, stage);
+    } else {
+        tile_part<kVec>(a, blockIdx.x - a.seg_blocks, stage);
     }
 }
 
@@ -309,44 +441,72 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Boxes (seg_min, seg_max f32[ceil(n / 128) * 128 / block, 3]) of each
-// `block` (32 or 128) consecutive spheres f32[n, 4] (16-byte aligned), the
-// padding past n empty (+F32_MAX, -F32_MAX).
-extern "C" int grace_segment_boxes(const float* spheres, float* seg_min, float* seg_max, int n,
-                                   int block, int device, void* stream) {
-    if (n < 0 || (block != 32 && block != kSeg) || (n > 0 && !spheres) ||
-        reinterpret_cast<uintptr_t>(spheres) % 16) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const int n_boxes = (n + kSeg - 1) / kSeg * (kSeg / block);
-    if (n_boxes > 0 && (!seg_min || !seg_max)) {
+// Both box sets in one launch. The segment boxes (seg_min, seg_max
+// f32[ceil(n / 128) * 128 / block, 3]) of each `block` (32 or 128)
+// consecutive spheres f32[n, 4] (16-byte aligned), the padding past n empty
+// (+F32_MAX, -F32_MAX); the tile boxes (tmin, tmax f32[n_tiles, 3]) of rays
+// (origins, directions f32[n_tiles * tile, 3], lengths f32[n_tiles *
+// tile]): the hull of each tile's origins and endpoints, read as 16-byte
+// vectors where tile % 4 == 0 and the three bases are 16-byte aligned.
+// Either part may be empty (n = 0, n_tiles = 0).
+extern "C" int grace_broadphase_boxes(const float* spheres, const float* origins,
+                                      const float* dirs, const float* lengths, float* seg_min,
+                                      float* seg_max, float* tmin, float* tmax, int n, int block,
+                                      int n_tiles, int tile, int device, void* stream) {
+    if (n < 0 || n_tiles < 0 || tile < 1 || (block != 32 && block != kSeg) ||
+        (n > 0 && (!spheres || reinterpret_cast<uintptr_t>(spheres) % 16 || !seg_min ||
+                   !seg_max)) ||
+        (n_tiles > 0 && (!origins || !dirs || !lengths || !tmin || !tmax))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (n_boxes == 0) return static_cast<int>(cudaGetLastError());
-    segment_boxes_kernel<<<grid(32LL * n_boxes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(spheres), seg_min, seg_max, n, block, n_boxes);
+    BoxArgs a = {reinterpret_cast<const float4*>(spheres), origins, dirs, lengths, seg_min,
+                 seg_max, tmin, tmax};
+    a.n = n;
+    a.n_segs = (n + kSeg - 1) / kSeg;
+    a.n_boxes = a.n_segs * (kSeg / block);
+    a.n_tiles = n_tiles;
+    a.quarters = block == 32;
+    a.seg_blocks = static_cast<int>((a.n_segs + kBoxWarps - 1) / kBoxWarps);
+    a.tile = tile;
+    // 16-byte rays where every lane gets four rays: a tile of 64 gives
+    // half the lanes four each, and a lane two rays from 4-byte loads
+    // takes less time
+    const bool vec = tile % 4 == 0 && tile >= kVecTile &&
+                     reinterpret_cast<uintptr_t>(origins) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(dirs) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(lengths) % 16 == 0;
+    const long long blocks = a.seg_blocks + (a.n_tiles + kBoxWarps - 1) / kBoxWarps;
+    if (blocks == 0) return static_cast<int>(cudaGetLastError());
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    void (*kernel)(const BoxArgs) = vec ? boxes_kernel<true> : boxes_kernel<false>;
+    kernel<<<static_cast<int>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
 
-// Tile boxes (tmin, tmax f32[n_tiles, 3]) of rays (origins, directions
-// f32[n_tiles * tile, 3], lengths f32[n_tiles * tile]): the hull of each
-// tile's origins and endpoints.
-extern "C" int grace_tile_boxes(const float* origins, const float* dirs, const float* lengths,
-                                float* tmin, float* tmax, int n_tiles, int tile, int device,
-                                void* stream) {
-    if (n_tiles < 0 || tile < 1 ||
-        (n_tiles > 0 && (!origins || !dirs || !lengths ||
-                         !tmin || !tmax))) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+// What one launch of boxes_kernel holds (out i32[6], as
+// grace_overlap_words_resources), on the 16-byte route where vec != 0.
+extern "C" int grace_broadphase_boxes_resources(int* out, int vec, int device, void* stream) {
+    (void)stream;
+    if (!out) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (n_tiles == 0) return static_cast<int>(cudaGetLastError());
-    tile_boxes_kernel<<<grid(32LL * n_tiles), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        origins, dirs, lengths, tmin, tmax, n_tiles, tile);
-    return static_cast<int>(cudaGetLastError());
+    void (*kernel)(const BoxArgs) = vec ? boxes_kernel<true> : boxes_kernel<false>;
+    cudaFuncAttributes attr;
+    int blocks = 0;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[2] = kThreads;
+    out[3] = blocks;
+    out[4] = blocks * kBoxWarps;
+    out[5] = static_cast<int>(attr.localSizeBytes);
+    return 0;
 }
 
 // Overlap words i32[n_rows, ceil(n_cols / 32)] of row boxes (row_min,

@@ -43,8 +43,9 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from grace_tpu_torch.build.sph import build_sph_tree
 from grace_tpu_torch.core.types import Rays
-from grace_tpu_torch.trace.broadphase import tile_aabbs
-from grace_tpu_torch.trace.pallas_broadphase import masks_for_tile_aabbs
+from grace_tpu_torch.trace.broadphase import _on_cpu, tile_aabbs
+from grace_tpu_torch.trace.pallas_broadphase import (broadphase_boxes_cuda, masks_for_tile_aabbs,
+                                                     overlap_words_cuda)
 from grace_tpu_torch.trace.pallas_kernel import pallas_trace_sph
 from grace_tpu_torch.trace.render import find_hits, integrate_hits
 from grace_tpu_torch.trace.splat import SplatBuckets, splat_image
@@ -176,19 +177,25 @@ def ring_pallas_render(mesh: DeviceMesh, rays: Rays, spheres, tile: int = 64):
     fused bitmask trace at each step against the resident shard. The
     broadphase is hoisted out of the ring: the tile AABBs of every block
     are gathered over "space" and this shard's masks built for all of
-    them first (rays in whole tiles only; otherwise each step culls).
+    them first (rays in whole tiles only; otherwise each step culls). On
+    CUDA tensors this shard's segment boxes come once, with the tile boxes
+    in one launch, and each block's masks are one overlap-words launch.
     Returns (values f32[R_local], overflow bool[])."""
     group = mesh.get_group("space")
     n_space = mesh.size(1)
     idx = mesh.get_local_rank("space")
     masks_all = None
     if rays.n_rays % tile == 0:
-        tmin, tmax = tile_aabbs(rays, tile)
+        if _on_cpu(spheres):
+            (tmin, tmax), segs = tile_aabbs(rays, tile), None
+        else:
+            (tmin, tmax), segs = broadphase_boxes_cuda(rays, tile, spheres)
         tmin_all = [torch.empty_like(tmin) for _ in range(n_space)]
         tmax_all = [torch.empty_like(tmax) for _ in range(n_space)]
         dist.all_gather(tmin_all, tmin.contiguous(), group=group)
         dist.all_gather(tmax_all, tmax.contiguous(), group=group)
-        masks_all = [masks_for_tile_aabbs(a, b, spheres) for a, b in zip(tmin_all, tmax_all)]
+        masks_all = [masks_for_tile_aabbs(a, b, spheres) if segs is None
+                     else overlap_words_cuda(a, b, *segs) for a, b in zip(tmin_all, tmax_all)]
     block = rays
     acc = torch.zeros(rays.n_rays, dtype=torch.float32, device=rays.device)
     ovf = torch.zeros((), dtype=torch.bool, device=rays.device)

@@ -14,7 +14,6 @@ from typing import NamedTuple
 
 import torch
 
-from grace_tpu_torch import _kernels
 from grace_tpu_torch.core.tree import Tree
 from grace_tpu_torch.core.types import Rays
 from grace_tpu_torch.ops.vecmath import fma
@@ -50,31 +49,15 @@ def _tile_aabbs_plain(rays: Rays, tile: int):
 
 def tile_aabbs(rays: Rays, tile: int):
     """Per-tile AABB of all ray segments (hull of origin/terminus points):
-    (mins, maxs) f32[n_rays / tile, 3]. One launch of ``csrc/broadphase.cu``'s
-    ``grace_tile_boxes`` on CUDA tensors; CPU tensors run
+    (mins, maxs) f32[n_rays / tile, 3]. On CUDA tensors one launch of
+    ``csrc/broadphase.cu``'s ``grace_broadphase_boxes`` with no spheres
+    (``pallas_broadphase.broadphase_boxes_cuda``); CPU tensors run
     ``_tile_aabbs_plain``."""
     if _on_cpu(rays.origins):
         return _tile_aabbs_plain(rays, tile)
-    return tile_boxes_cuda(rays, tile)
+    from grace_tpu_torch.trace.pallas_broadphase import broadphase_boxes_cuda
 
-
-def tile_boxes_cuda(rays: Rays, tile: int):
-    """``csrc/broadphase.cu``'s ``grace_tile_boxes``: ``tile_aabbs`` of rays
-    whose count is a multiple of ``tile``."""
-    device = _kernels.check_tensors("tile_aabbs", [],
-                                    [rays.origins, rays.directions, rays.lengths])
-    _check_tile(rays, tile)
-    n_tiles = rays.n_rays // tile
-    o, d, ln = (t.contiguous() for t in (rays.origins, rays.directions, rays.lengths))
-    tmin = torch.empty((n_tiles, 3), dtype=torch.float32, device=device)
-    tmax = torch.empty((n_tiles, 3), dtype=torch.float32, device=device)
-    _kernels.launch("broadphase", "grace_tile_boxes", device, o.data_ptr(), d.data_ptr(),
-                    ln.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n_tiles, tile)
-    tile_boxes_cuda.launches += 1
-    return tmin, tmax
-
-
-tile_boxes_cuda.launches = 0
+    return broadphase_boxes_cuda(rays, tile, None)[0]
 
 
 def collect_tile_chunks(rays: Rays, tree: Tree, tile: int, max_chunks: int,

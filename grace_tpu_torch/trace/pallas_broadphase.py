@@ -8,15 +8,15 @@ turns words into per-tile ascending id lists (``quarter_lists``,
 ``dense_tile_segments``). Words, summaries and lists are bit-exact with
 ``grace_tpu``.
 
-On CUDA tensors each step is a kernel of ``csrc/broadphase.cu``:
-``segment_aabbs`` (``grace_segment_boxes``), the overlap words with their
-summary (``grace_overlap_words``: a block a strip of 32 words, each row
-tested against the words' hulls first and a ballot a candidate word, no
-dense intermediate) and the compaction (``grace_compact_words``: a warp a
-row); ``tile_aabbs`` is ``grace_tile_boxes`` (``trace/broadphase.py``).
-CPU tensors take the plain versions, ``_<name>_plain``: the dense bool
-matrix, ``seg_block`` segments at a time, packed to words, and a
-compaction that ranks every bit.
+On CUDA tensors each step is a kernel of ``csrc/broadphase.cu``: both
+box sets in one launch (``broadphase_boxes_cuda``, ``grace_broadphase_boxes``;
+``segment_aabbs`` and ``tile_aabbs`` launch it with the other part empty),
+the overlap words with their summary (``grace_overlap_words``: a block a
+strip of 32 words, each row tested against the words' hulls first and a
+ballot a candidate word, no dense intermediate) and the compaction
+(``grace_compact_words``: a warp a row). CPU tensors take the plain
+versions, ``_<name>_plain``: the dense bool matrix, ``seg_block`` segments
+at a time, packed to words, and a compaction that ranks every bit.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 from grace_tpu_torch import _kernels
 from grace_tpu_torch.core.types import Rays
 from grace_tpu_torch.ops.primitives import sphere_aabb
-from grace_tpu_torch.trace.broadphase import _on_cpu, _tile_aabbs_plain, tile_aabbs
+from grace_tpu_torch.trace.broadphase import _check_tile, _on_cpu, _tile_aabbs_plain, tile_aabbs
 
 SEG = 128
 _F32_MAX = torch.finfo(torch.float32).max
@@ -54,28 +54,63 @@ def segment_aabbs(spheres: torch.Tensor, block: int = SEG
     (32 or 128 on CUDA tensors)."""
     if _on_cpu(spheres):
         return _segment_aabbs_plain(spheres, block)
-    return segment_boxes_cuda(spheres, block)
+    return broadphase_boxes_cuda(None, 1, spheres, block)[1]
 
 
-def segment_boxes_cuda(spheres: torch.Tensor, block: int):
-    """``csrc/broadphase.cu``'s ``grace_segment_boxes``: ``segment_aabbs``."""
-    device = _kernels.check_tensors("segment_aabbs", [], [spheres])
-    if spheres.dim() != 2 or spheres.shape[1] != 4:
-        raise ValueError(f"segment_aabbs: spheres {tuple(spheres.shape)}, expected [n, 4]")
+def broadphase_boxes_cuda(rays: Rays | None, tile: int, spheres: torch.Tensor | None,
+                          block: int = SEG):
+    """``csrc/broadphase.cu``'s ``grace_broadphase_boxes``: ``tile_aabbs(rays,
+    tile)`` and ``segment_aabbs(spheres, block)`` in one launch, as
+    ``((tmin, tmax), (seg_min, seg_max))``, the four views of one allocation
+    (each 16-byte aligned: the overlap words stage their column boxes so).
+    ``rays`` or ``spheres`` None leaves that part empty."""
+    parts = ([] if spheres is None else [spheres]) + (
+        [] if rays is None else [rays.origins, rays.directions, rays.lengths])
+    device = _kernels.check_tensors("broadphase_boxes", [], parts)
     if block not in (32, SEG):
         raise ValueError(f"segment_aabbs: block {block}, the kernel takes 32 or {SEG}")
-    n = spheres.shape[0]
+    n = n_tiles = 0
+    inputs = [None] * 4   # spheres, origins, directions, lengths
+    if spheres is not None:
+        if spheres.dim() != 2 or spheres.shape[1] != 4:
+            raise ValueError(f"segment_aabbs: spheres {tuple(spheres.shape)}, expected [n, 4]")
+        inputs[0] = _kernels.aligned(spheres)
+        n = spheres.shape[0]
+    if rays is not None:
+        _check_tile(rays, tile)
+        n_tiles = rays.n_rays // tile
+        inputs[1:] = [t.contiguous() for t in parts[-3:]]
     n_boxes = (n + SEG - 1) // SEG * (SEG // block)
-    spheres = _kernels.aligned(spheres)
-    seg_min = torch.empty((n_boxes, 3), dtype=torch.float32, device=device)
-    seg_max = torch.empty((n_boxes, 3), dtype=torch.float32, device=device)
-    _kernels.launch("broadphase", "grace_segment_boxes", device, spheres.data_ptr(),
-                    seg_min.data_ptr(), seg_max.data_ptr(), n, block)
-    segment_boxes_cuda.launches += 1
-    return seg_min, seg_max
+    # each set in whole float4s (rows padded to a multiple of 4), the rows
+    # past a set's own cut off only where there are any
+    rows = (-(-n_boxes // 4) * 4, -(-n_tiles // 4) * 4)
+    buf = torch.empty((2 * (rows[0] + rows[1]), 3), dtype=torch.float32, device=device)
+    seg_min, seg_max, tmin, tmax = buf.split_with_sizes([rows[0], rows[0], rows[1], rows[1]])
+    if rows[0] != n_boxes:
+        seg_min, seg_max = seg_min[:n_boxes], seg_max[:n_boxes]
+    if rows[1] != n_tiles:
+        tmin, tmax = tmin[:n_tiles], tmax[:n_tiles]
+    if n_boxes or n_tiles:
+        _kernels.launch("broadphase", "grace_broadphase_boxes", device,
+                        *(None if t is None else t.data_ptr() for t in inputs),
+                        *(t.data_ptr() for t in (seg_min, seg_max, tmin, tmax)), n, block,
+                        n_tiles, tile)
+        broadphase_boxes_cuda.launches += 1
+    return (tmin, tmax), (seg_min, seg_max)
 
 
-segment_boxes_cuda.launches = 0
+broadphase_boxes_cuda.launches = 0
+
+
+def broadphase_boxes_resources(device, vec: bool = True) -> dict:
+    """What one launch of ``grace_broadphase_boxes``' kernel holds on
+    ``device`` (its 16-byte ray route, or with ``vec`` False the 4-byte
+    one): ``_kernels.RESOURCE_FIELDS`` and ``local_bytes`` a thread."""
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    out = (ctypes.c_int * len(fields))()
+    _kernels.launch("broadphase", "grace_broadphase_boxes_resources", torch.device(device),
+                    ctypes.addressof(out), int(vec))
+    return dict(zip(fields, out))
 
 
 def overlap_words_cuda(row_min, row_max, col_min, col_max, summary: bool = False):
@@ -173,9 +208,13 @@ def _dense_tile_masks_plain(rays: Rays, spheres, tile: int, seg_block: int = 819
 
 
 def dense_tile_masks(rays: Rays, spheres, tile: int, seg_block: int = 8192):
-    """Seg-128 bitmask broadphase: i32[n_tiles, ceil(n_segs/32)] words."""
-    tmin, tmax = tile_aabbs(rays, tile)
-    return masks_for_tile_aabbs(tmin, tmax, spheres, seg_block)
+    """Seg-128 bitmask broadphase: i32[n_tiles, ceil(n_segs/32)] words. On
+    CUDA tensors both box sets in one launch, then one overlap-words
+    launch."""
+    if _on_cpu(spheres):
+        return _dense_tile_masks_plain(rays, spheres, tile, seg_block)
+    tiles, segs = broadphase_boxes_cuda(rays, tile, spheres, SEG)
+    return overlap_words_cuda(*tiles, *segs)
 
 
 def _dense_tile_masks_quarter_plain(rays: Rays, spheres, tile: int, seg_block: int = 8192):
@@ -192,13 +231,13 @@ def dense_tile_masks_quarter(rays: Rays, spheres, tile: int, seg_block: int = 81
       summary i32[n_tiles, ceil(words / 32)]   bit w of summary word s =
                                                word s*32+w is nonzero
 
-    On CUDA tensors the words and the summary come from one overlap-words
-    launch.
+    On CUDA tensors both box sets come from one launch, the words and the
+    summary from one overlap-words launch.
     """
     if _on_cpu(spheres):
         return _dense_tile_masks_quarter_plain(rays, spheres, tile, seg_block)
-    tmin, tmax = tile_aabbs(rays, tile)
-    return overlap_words_cuda(tmin, tmax, *segment_aabbs(spheres, 32), summary=True)
+    tiles, quarters = broadphase_boxes_cuda(rays, tile, spheres, 32)
+    return overlap_words_cuda(*tiles, *quarters, summary=True)
 
 
 def _popcount32(v: torch.Tensor) -> torch.Tensor:
@@ -281,9 +320,10 @@ def quarter_lists(rays: Rays, spheres, tile: int, max_q: int = 512,
     """Per-tile ascending quarter-id lists (the ``broadphase="qlist"``
     product): quarter-granularity cull, then set-bit compaction. Returns
     (q_ids i32[n_tiles, max_q], n_q i32[n_tiles], overflow bool[n_tiles])."""
-    tmin, tmax = tile_aabbs(rays, tile)
-    words = masks_for_tile_aabbs(tmin, tmax, spheres, seg_block, block=32)
-    return compact_mask_words(words, max_q)
+    if _on_cpu(spheres):
+        return _quarter_lists_plain(rays, spheres, tile, max_q, seg_block)
+    tiles, quarters = broadphase_boxes_cuda(rays, tile, spheres, 32)
+    return compact_words_cuda(overlap_words_cuda(*tiles, *quarters), max_q)
 
 
 def _dense_tile_segments_plain(rays: Rays, spheres, tile: int, max_chunks: int):
@@ -296,6 +336,7 @@ def dense_tile_segments(rays: Rays, spheres, tile: int, max_chunks: int):
     """Per-tile ascending, unique 128-primitive segment ids by dense
     culling. Returns (seg_ids i32[n_tiles, max_chunks], n_segs
     i32[n_tiles], overflow bool[n_tiles])."""
-    tmin, tmax = tile_aabbs(rays, tile)
-    words = masks_for_tile_aabbs(tmin, tmax, spheres)
-    return compact_mask_words(words, max_chunks)
+    if _on_cpu(spheres):
+        return _dense_tile_segments_plain(rays, spheres, tile, max_chunks)
+    tiles, segs = broadphase_boxes_cuda(rays, tile, spheres, SEG)
+    return compact_words_cuda(overlap_words_cuda(*tiles, *segs), max_chunks)

@@ -32,10 +32,10 @@ from grace_tpu_torch.core.types import Rays
 from grace_tpu_torch.ops.vecmath import fma
 from grace_tpu_torch.sph.kernel_integrals import (
     cubic_spline_line_integral_poly, cubic_spline_line_integral_poly_grad, poly_constants)
-from grace_tpu_torch.trace.broadphase import _on_cpu, _tile_aabbs_plain, tile_aabbs
+from grace_tpu_torch.trace.broadphase import _on_cpu, _tile_aabbs_plain
 from grace_tpu_torch.trace.pallas_broadphase import (
-    _compact_mask_words_plain, _segment_aabbs_plain, compact_mask_words, dense_tile_segments,
-    overlap_words_cuda, pack_overlap_bits, segment_aabbs)
+    _compact_mask_words_plain, _segment_aabbs_plain, broadphase_boxes_cuda, compact_words_cuda,
+    dense_tile_segments, overlap_words_cuda, pack_overlap_bits)
 from grace_tpu_torch.trace.pallas_kernel import (MAX_TILE, _impact, _pack_rays,
                                                  list_tile_order)
 
@@ -112,15 +112,14 @@ def dense_segment_tiles(rays: Rays, spheres, tile: int, max_tiles: int,
     """Transpose of the dense cull: per segment, the ascending ids of the
     ray tiles whose AABB overlaps it. Returns (tile_ids i32[n_segs,
     max_tiles], n_tiles i32[n_segs] = min(count, max_tiles), overflow
-    bool[n_segs]). On CUDA tensors the boxes, the words along tiles (one
-    overlap-words launch, segments as rows) and their compaction are
-    ``csrc/broadphase.cu``'s kernels; CPU tensors run
+    bool[n_segs]). On CUDA tensors both box sets (one launch), the words
+    along tiles (one overlap-words launch, segments as rows) and their
+    compaction are ``csrc/broadphase.cu``'s kernels; CPU tensors run
     ``_dense_segment_tiles_plain``."""
     if _on_cpu(spheres):
         return _dense_segment_tiles_plain(rays, spheres, tile, max_tiles, seg_block)
-    tmin, tmax = tile_aabbs(rays, tile)
-    seg_min, seg_max = segment_aabbs(spheres)
-    return compact_mask_words(overlap_words_cuda(seg_min, seg_max, tmin, tmax), max_tiles)
+    tiles, segs = broadphase_boxes_cuda(rays, tile, spheres, SEG)
+    return compact_words_cuda(overlap_words_cuda(*segs, *tiles), max_tiles)
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,8 +17,10 @@ grace_tpu, and the design of their CUDA kernels (``csrc/broadphase.cu``,
   words, summaries, lists, counts and flags bit-equal,
   boxes equal in value (zero signs are the reductions' order's, C20),
   distances bit-equal with NaN where grace_tpu's are.
-- numpy models of the five C entries, written as the kernels index their
-  threads (a warp a box and a tile, lanes over its members; a block a
+- numpy models of the four C entries, written as the kernels index their
+  threads (both box sets in one launch: a warp a segment of 128 spheres
+  and a warp a tile, folds on order-keeping ints by redux.sync with a NaN
+  bit a value, the four outputs views of one allocation; a block a
   strip of 32 words, each row tested against the words' hulls, a ballot
   a candidate word, the summary a ballot of the words;
   a warp a row of words, popcounts and a warp prefix sum; for the lists,
@@ -32,7 +34,10 @@ grace_tpu, and the design of their CUDA kernels (``csrc/broadphase.cu``,
   wrappers with the ctypes launch replaced by the model (which reads and
   writes the tensors' host memory), bit-equal to the plain versions
   (boxes and the zero signs as above), on the cases above, on clustered
-  particles (2^14) and on the tests' torus; the triangle lists also with
+  particles (2^14), on the tests' torus and, for the boxes, at
+  ``BOX_SET_CASES`` (both ray routes, rays off a 16-byte boundary, NaN,
+  +-0, +-inf and F32_MAX, no spheres, no rays; the plain segment boxes
+  there also against grace_tpu's); the triangle lists also with
   the module's limits forced small (a warp's buffer of 4 entries, boxes
   staged up to 8 segments, fewer scratch rows than tiles).
 - ROADMAP C22: the sort-free setup's cached camera constants equal
@@ -54,8 +59,8 @@ import grace_tpu.trace.pallas_render as jpr
 import grace_tpu.trace.pallas_tri as jpt
 import grace_tpu.trace.splat_grad as jsg
 from grace_tpu.core.types import Rays as JRays
-from chip_smoke import (BROADPHASE_CASES, CAM, LOOK, OVERLAP_BOX_CASES, TRI_LIST_CASES,
-                        TRI_LIST_FORCED, UP,
+from chip_smoke import (BOX_SET_CASES, BROADPHASE_CASES, CAM, LOOK, OVERLAP_BOX_CASES,
+                        TRI_LIST_CASES, TRI_LIST_FORCED, UP, box_set_inputs, box_set_outputs,
                         broadphase_scene, compaction_limits, overlap_box_scene,
                         overlap_words_reference, tri_list_scene)
 from grace_tpu_torch import _kernels
@@ -257,33 +262,134 @@ def _fma_f64(a, b, c):
     return (f64(a) * f64(b) + f64(c)).astype(F32)
 
 
-def _model_segment_boxes(spheres, seg_min, seg_max, n, block):
-    """grace_segment_boxes: warp b = box b, lane l = spheres b * block + l,
-    l + 32, ...; past n the padding's (+F32_MAX, -F32_MAX)."""
-    assert spheres % 16 == 0 and block in (32, 128)
-    n_boxes = -(-n // 128) * (128 // block)
-    s = _view(spheres, ctypes.c_float, 4 * n).reshape(n, 4)
-    lo = np.concatenate([s[:, :3] - s[:, 3:], np.full((n_boxes * block - n, 3), F32_MAX, F32)])
-    hi = np.concatenate([s[:, :3] + s[:, 3:], np.full((n_boxes * block - n, 3), -F32_MAX, F32)])
-    for ptr, v, op, init in ((seg_min, lo, _nan_min, np.inf), (seg_max, hi, _nan_max, -np.inf)):
-        lanes = np.moveaxis(_lanes(v.reshape(n_boxes, block, 3), init, 3), -1, 0)
-        _view(ptr, ctypes.c_float, 3 * n_boxes).reshape(n_boxes, 3)[:] = \
-            np.moveaxis(_warp_reduce(op, lanes), 0, -1)
+# boxes_kernel's plan (csrc/broadphase.cu): blocks of 8 warps; a warp a
+# segment of 128 spheres (a lane 4 of them) or a tile; 16-byte rays from
+# tile 128 on
+BOX_WARPS, SEG_LOADS, VEC_TILE = 8, 4, 128
+I32_MAX, I32_MIN = np.int32(2 ** 31 - 1), np.int32(-2 ** 31)
 
 
-def _model_tile_boxes(origins, dirs, lengths, tmin, tmax, n_tiles, tile):
-    """grace_tile_boxes: warp t = tile t, lanes over its rays; each ray's
-    origin and endpoint (fma_f64) folded in, then the butterfly."""
-    r = n_tiles * tile
-    o = _view(origins, ctypes.c_float, 3 * r).reshape(n_tiles, tile, 3)
-    d = _view(dirs, ctypes.c_float, 3 * r).reshape(n_tiles, tile, 3)
-    ln = _view(lengths, ctypes.c_float, r).reshape(n_tiles, tile, 1)
-    e = _fma_f64(d, ln, o)
-    for ptr, op, init in ((tmin, _nan_min, np.inf), (tmax, _nan_max, -np.inf)):
-        per_ray = op(o, e)
-        lanes = np.moveaxis(_lanes(per_ray, init, 3), -1, 0)
-        _view(ptr, ctypes.c_float, 3 * n_tiles).reshape(n_tiles, 3)[:] = \
-            np.moveaxis(_warp_reduce(op, lanes), 0, -1)
+def _ordered(x):
+    """The kernel's order-keeping ints of f32 values: the bits with the
+    lower 31 flipped where the sign is set."""
+    b = np.asarray(x, F32).view(np.int32)
+    return b ^ ((b >> 31) & np.int32(0x7FFFFFFF))
+
+
+def _unordered(k):
+    k = np.asarray(k, np.int32)
+    return (k ^ ((k >> 31) & np.int32(0x7FFFFFFF))).view(F32)
+
+
+def _fold(lo, hi, nan, axis):
+    """Fold (ordered mins, ordered maxes, NaN bits) over ``axis``: integer
+    min and max (redux.sync's), NaN bits or'ed."""
+    return lo.min(axis=axis), hi.max(axis=axis), np.bitwise_or.reduce(nan, axis=axis)
+
+
+def _nan_bits(lo_v, hi_v):
+    """A fold's NaN bits of values [..., 3]: bit a the min of axis a, bit 3 +
+    a the max."""
+    ax = np.arange(3, dtype=np.uint32)
+    return ((np.isnan(lo_v).astype(np.uint32) << ax).sum(-1)
+            | (np.isnan(hi_v).astype(np.uint32) << (ax + 3)).sum(-1)).astype(np.uint32)
+
+
+def _store_fold(lo, hi, nan):
+    """store_fold: the box as floats, NaN where a value's bit is set."""
+    bit = lambda v: ((nan[..., None] >> np.arange(v, v + 3, dtype=np.uint32)) & 1) == 1
+    return (np.where(bit(0), F32(np.nan), _unordered(lo)),
+            np.where(bit(3), F32(np.nan), _unordered(hi)))
+
+
+def _write_run(ptr, values):
+    """write_run: a block's staged floats to device address ``ptr`` as one
+    run, a thread a float at a time."""
+    _view(ptr, ctypes.c_float, values.size)[:] = values
+
+
+def _model_broadphase_boxes(spheres, origins, dirs, lengths, seg_min, seg_max, tmin, tmax, n,
+                            block, n_tiles, tile):
+    """grace_broadphase_boxes: the grid's first ceil(segments / 8) blocks
+    the segment part, the rest the tile part; the four outputs views of
+    one allocation in order, each 16-byte aligned.
+
+    Segments: warp g of block b takes segment 8 b + g, lane l its spheres
+    128 s + 32 k + l (k < 4; past n the padding's +F32_MAX, -F32_MAX);
+    quarter k's box (block 32) is the warp's fold of the lanes' k-th
+    values, the segment's (block 128) the warp's fold of each lane's fold
+    of its four; a fold is redux.sync's integer min and max on ordered ints
+    and an or of the NaN bits. Tiles: warp g of block b takes tile 8 b + g
+    (after the segment part's blocks), lane l units l, l + 32, ... (4 rays
+    from 16-byte loads where tile % 4 == 0, tile >= 128 and the three bases
+    are 16-byte aligned, else a ray), each origin and endpoint (fma_f64)
+    folded in; then the warp's fold. Each block writes its staged boxes as
+    two runs."""
+    n_segs = -(-n // 128)
+    n_boxes = n_segs * (128 // block)
+    ptrs = (seg_min, seg_max, tmin, tmax)
+    rows = (n_boxes + (-n_boxes % 4), n_boxes + (-n_boxes % 4), n_tiles + (-n_tiles % 4))
+    live = (n_boxes > 0,) * 2 + (n_tiles > 0,) * 2
+    assert all(p % 16 == 0 for p, on in zip(ptrs, live) if on), "16-byte aligned outputs"
+    assert all(ptrs[i + 1] - ptrs[i] == 12 * rows[i] for i in range(3)
+               if live[i] and live[i + 1]), "views of one allocation, in order"
+    assert block in (32, 128) and tile >= 1
+    # the segment part
+    if n:
+        assert spheres % 16 == 0
+        s = np.full((n_segs * 128, 4), F32(0), F32)
+        s[:n] = _view(spheres, ctypes.c_float, 4 * n).reshape(n, 4)
+        live = (np.arange(n_segs * 128) < n)[:, None]
+        with np.errstate(invalid="ignore", over="ignore"):
+            lo_v = np.where(live, s[:, :3] - s[:, 3:], F32_MAX).astype(F32)
+            hi_v = np.where(live, s[:, :3] + s[:, 3:], -F32_MAX).astype(F32)
+        shape = (n_segs, SEG_LOADS, 32)                     # [segment, load k, lane]
+        lo, hi = _ordered(lo_v).reshape(shape + (3,)), _ordered(hi_v).reshape(shape + (3,))
+        nan = _nan_bits(lo_v, hi_v).reshape(shape)
+        if block == 128:                                    # the lane's four first
+            lo, hi, nan = (x[:, None] for x in _fold(lo, hi, nan, 1))
+        lo, hi, nan = _fold(lo, hi, nan, 2)                 # the warp's redux.sync
+        box_min, box_max = (x.reshape(n_boxes, 3) for x in _store_fold(lo, hi, nan))
+        per_block = BOX_WARPS * (n_boxes // n_segs)
+        for first in range(0, n_boxes, per_block):          # a block's two runs
+            for ptr, v in ((seg_min, box_min), (seg_max, box_max)):
+                _write_run(ptr + 12 * first, v[first:first + per_block].reshape(-1))
+    # the tile part
+    if n_tiles:
+        r = n_tiles * tile
+        vec = tile % 4 == 0 and tile >= VEC_TILE and all(
+            p % 16 == 0 for p in (origins, dirs, lengths))
+        per_unit = 4 if vec else 1
+        units = tile // per_unit
+        o = _view(origins, ctypes.c_float, 3 * r).reshape(n_tiles, tile, 3)
+        d = _view(dirs, ctypes.c_float, 3 * r).reshape(n_tiles, tile, 3)
+        ln = _view(lengths, ctypes.c_float, r).reshape(n_tiles, tile, 1)
+        with np.errstate(invalid="ignore", over="ignore"):
+            e = _fma_f64(d, ln, o)
+        pts = np.stack([o, e], axis=2)                      # [tile, ray, point, axis]
+        keys = _ordered(pts)
+        nan = np.bitwise_or.reduce(_nan_bits(pts, pts), axis=2)
+        lo, hi, nan = keys.min(axis=2), keys.max(axis=2), nan
+        # a unit's rays, then a lane's units (l, l + 32, ...; idle lanes
+        # hold the empty fold)
+        unit = lambda x: x.reshape(n_tiles, units, per_unit, *x.shape[2:])
+        lo, hi, nan = _fold(unit(lo), unit(hi), unit(nan), 2)
+        m = -(-units // 32)
+        pad = lambda x, v: np.concatenate(
+            [x, np.full((n_tiles, m * 32 - units) + x.shape[2:], v, x.dtype)], axis=1)
+        lo, hi, nan = (pad(x, v).reshape(n_tiles, m, 32, *x.shape[2:])
+                       for x, v in ((lo, I32_MAX), (hi, I32_MIN), (nan, np.uint32(0))))
+        lo, hi, nan = _fold(lo, hi, nan, 1)                 # [tile, lane, ...]
+        lo, hi, nan = _fold(lo, hi, nan, 1)                 # the warp's redux.sync
+        box_min, box_max = _store_fold(lo, hi, nan)
+        for first in range(0, n_tiles, BOX_WARPS):
+            for ptr, v in ((tmin, box_min), (tmax, box_max)):
+                _write_run(ptr + 12 * first, v[first:first + BOX_WARPS].reshape(-1))
+    BOX_ROUTES.add(("16-byte rays" if n_tiles and vec else "4-byte rays" if n_tiles else "no rays",
+                    f"block {block}" if n else "no spheres"))
+
+
+BOX_ROUTES = set()
 
 
 def _ballot(bits):
@@ -749,8 +855,7 @@ def _model_tri_tile_lists(seg_min, seg_max, origins, dirs, lengths, frac, seg_id
     assert (written == 1).all(), "a column written other than once"
 
 
-MODELS = {"grace_segment_boxes": _model_segment_boxes,
-          "grace_tile_boxes": _model_tile_boxes,
+MODELS = {"grace_broadphase_boxes": _model_broadphase_boxes,
           "grace_overlap_words": _model_overlap_words,
           "grace_compact_words": _model_compact_words,
           "grace_tri_tile_lists": _model_tri_tile_lists}
@@ -775,12 +880,13 @@ def model_launch(monkeypatch):
 
 
 def _kernel_outputs(spheres, rays, tile, max_qs):
-    """broadphase_outputs' names through the kernels' wrappers."""
-    tmin, tmax = tbp.tile_boxes_cuda(rays, tile)
-    out = {"tile box min": tmin, "tile box max": tmax}
+    """broadphase_outputs' names through the kernels' wrappers: both box
+    sets from one launch at each block."""
+    out = {}
     for b in (32, 128):
-        out[f"segment box min ({b})"], out[f"segment box max ({b})"] = \
-            tpb.segment_boxes_cuda(spheres, b)
+        (tmin, tmax), (out[f"segment box min ({b})"], out[f"segment box max ({b})"]) = \
+            tpb.broadphase_boxes_cuda(rays, tile, spheres, b)
+        out["tile box min"], out["tile box max"] = tmin, tmax
     seg = (out["segment box min (128)"], out["segment box max (128)"])
     quarter = (out["segment box min (32)"], out["segment box max (32)"])
     out["segment words"] = tpb.overlap_words_cuda(tmin, tmax, *seg)
@@ -808,13 +914,12 @@ def test_broadphase_kernels_model_matches_plain(tag, model_launch):
     q_words, _ = tpb._dense_tile_masks_quarter_plain(rays, spheres, tile)
     max_qs = compaction_limits(q_words)
     want = broadphase_outputs(spheres, rays, tile, max_qs, plain=True)
-    counters = (tbp.tile_boxes_cuda, tpb.segment_boxes_cuda, tpb.overlap_words_cuda,
-                tpb.compact_words_cuda)
+    counters = (tpb.broadphase_boxes_cuda, tpb.overlap_words_cuda, tpb.compact_words_cuda)
     before = [fn.launches for fn in counters]
     got = _kernel_outputs(spheres, rays, tile, max_qs)
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 2, 4, 3 + len(max_qs)]
-    assert set(model_launch) == {"grace_tile_boxes", "grace_segment_boxes",
-                                 "grace_overlap_words", "grace_compact_words"}
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 4, 3 + len(max_qs)]
+    assert set(model_launch) == {"grace_broadphase_boxes", "grace_overlap_words",
+                                 "grace_compact_words"}
     assert set(got) == set(want)
     for name, w in want.items():
         (_boxes_equal if "box" in name else _bits_equal)(got[name], w, name)
@@ -823,8 +928,9 @@ def test_broadphase_kernels_model_matches_plain(tag, model_launch):
 @pytest.mark.parametrize("tag", BP_CASES)
 def test_broadphase_wrappers_launch_the_kernels(tag, model_launch, monkeypatch):
     """The public functions on a tensor that is not on the CPU take the
-    kernel route, each step one launch: run here on CPU tensors by making
-    the wrappers' device test say "not the CPU"."""
+    kernel route, each step one launch and both box sets one launch where
+    a caller needs both: run here on CPU tensors by making the wrappers'
+    device test say "not the CPU"."""
     from chip_smoke import broadphase_outputs
 
     spheres, rays, tile = _bp_inputs(tag)
@@ -838,21 +944,78 @@ def test_broadphase_wrappers_launch_the_kernels(tag, model_launch, monkeypatch):
                       (tpb, "_masks_for_tile_aabbs_plain"), (tpb, "_compact_mask_words_plain"),
                       (tpr, "_dense_segment_tiles_plain")):
         monkeypatch.setattr(mod, name, plain_route)
-    got = {}
-    tmin, tmax = tpb.tile_aabbs(rays, tile)
-    got["segment words"] = tpb.masks_for_tile_aabbs(tmin, tmax, spheres)
-    assert torch.equal(tpb.dense_tile_masks(rays, spheres, tile), got["segment words"])
-    got["quarter words"], got["quarter summary"] = tpb.dense_tile_masks_quarter(rays, spheres,
-                                                                               tile)
-    for what, xs in (("quarter_lists", tpb.quarter_lists(rays, spheres, tile, max_qs[0])),
-                     ("dense_tile_segments", tpb.dense_tile_segments(rays, spheres, tile, 2048)),
-                     ("dense_segment_tiles", tpr.dense_segment_tiles(rays, spheres, tile, 2048)),
+    got, calls = {}, {}
+
+    def run(name, fn):
+        k = len(model_launch)
+        out = fn()
+        calls[name] = model_launch[k:]
+        return out
+
+    tmin, tmax = run("tile_aabbs", lambda: tpb.tile_aabbs(rays, tile))
+    got["segment words"] = run("masks_for_tile_aabbs",
+                               lambda: tpb.masks_for_tile_aabbs(tmin, tmax, spheres))
+    assert torch.equal(run("dense_tile_masks", lambda: tpb.dense_tile_masks(rays, spheres, tile)),
+                       got["segment words"])
+    got["quarter words"], got["quarter summary"] = run(
+        "dense_tile_masks_quarter", lambda: tpb.dense_tile_masks_quarter(rays, spheres, tile))
+    for what, fn in (("quarter_lists", lambda: tpb.quarter_lists(rays, spheres, tile, max_qs[0])),
+                     ("dense_tile_segments",
+                      lambda: tpb.dense_tile_segments(rays, spheres, tile, 2048)),
+                     ("dense_segment_tiles",
+                      lambda: tpr.dense_segment_tiles(rays, spheres, tile, 2048)),
                      (f"compact (max_q {max_qs[-1]})",
-                      tpb.compact_mask_words(got["quarter words"], max_qs[-1]))):
-        for name, x in zip(("ids", "n", "overflow"), xs):
+                      lambda: tpb.compact_mask_words(got["quarter words"], max_qs[-1]))):
+        for name, x in zip(("ids", "n", "overflow"), run(what.split(" ")[0], fn)):
             got[f"{what} {name}"] = x
     for name, x in got.items():
         _bits_equal(x, want[name], name)
+    # one launch of the boxes a call (none for no spheres alone), then the
+    # words and the compaction
+    boxes, words, compact = "grace_broadphase_boxes", "grace_overlap_words", "grace_compact_words"
+    assert calls == {"tile_aabbs": [boxes],
+                     "masks_for_tile_aabbs": ([boxes] if spheres.shape[0] else []) + [words],
+                     "dense_tile_masks": [boxes, words], "dense_tile_masks_quarter": [boxes, words],
+                     "quarter_lists": [boxes, words, compact],
+                     "dense_tile_segments": [boxes, words, compact],
+                     "dense_segment_tiles": [boxes, words, compact], "compact": [compact]}
+
+
+@pytest.mark.parametrize("block", [32, 128])
+@pytest.mark.parametrize("tag", list(BOX_SET_CASES))
+def test_broadphase_boxes_model_cases(tag, block, model_launch, monkeypatch):
+    """The boxes' one launch at chip_smoke's BOX_SET_CASES (tiles 4 to 1,024 on
+    both ray routes, rays that start off a 16-byte boundary, NaN in
+    spheres and rays, +-0, +-inf and F32_MAX, no spheres, no rays), both
+    parts and each alone through the public functions (the device test
+    made to say "not the CPU"), equal to the plain versions with NaN at the
+    same places; one launch a call with work, on the route the case is for."""
+    spheres, rays, tile = box_set_inputs(tag, "cpu")
+    want = box_set_outputs(spheres, rays, tile, block, plain=True)
+    for mod in (tbp, tpb):
+        monkeypatch.setattr(mod, "_on_cpu", lambda t: False)
+    BOX_ROUTES.clear()
+    got = box_set_outputs(spheres, rays, tile, block, plain=False)
+    for name, w in want.items():
+        _boxes_equal(got[name], w, name)
+    n, n_tiles, _, _, offset = BOX_SET_CASES[tag]
+    assert model_launch == ["grace_broadphase_boxes"] * (1 + (n_tiles > 0) + (n > 0))
+    vec = tile % 4 == 0 and tile >= VEC_TILE and offset == 0
+    assert ("16-byte rays" if vec else "4-byte rays", f"block {block}") in BOX_ROUTES or not (
+        n and n_tiles)
+
+
+@pytest.mark.parametrize("tag", list(BOX_SET_CASES))
+def test_box_cases_plain_match_grace_tpu(tag):
+    """The plain segment boxes at the box cases (NaN, +-inf and overflowing
+    spheres among them) against grace_tpu's, jitted, at both blocks: equal
+    values, NaN at the same places."""
+    spheres, _, _ = box_set_inputs(tag, "cpu")
+    js = jax.numpy.asarray(spheres.numpy())
+    for block in (32, 128):
+        for a, b in zip(tpb._segment_aabbs_plain(spheres, block),
+                        jax.jit(jpb.segment_aabbs, static_argnums=1)(js, block)):
+            _boxes_equal(a, b, f"segment boxes {block}")
 
 
 @pytest.mark.parametrize("tag", TRI_CASES)
@@ -921,11 +1084,13 @@ def test_tri_lists_wrapper_launches_the_kernel(model_launch, monkeypatch):
 def test_broadphase_wrappers_refuse_what_the_kernels_do_not_take():
     spheres, rays, tile = _bp_inputs(BP_CASES[0])
     with pytest.raises(ValueError, match="block"):
-        tpb.segment_boxes_cuda(spheres, 64)
+        tpb.broadphase_boxes_cuda(rays, tile, spheres, 64)
     with pytest.raises(ValueError, match="spheres"):
-        tpb.segment_boxes_cuda(spheres[:, :3], 32)
+        tpb.broadphase_boxes_cuda(None, 1, spheres[:, :3], 32)
     with pytest.raises(ValueError, match="multiple"):
-        tbp.tile_boxes_cuda(rays, tile + 1)
+        tpb.broadphase_boxes_cuda(rays, tile + 1, spheres)
+    with pytest.raises(ValueError, match="several devices"):
+        tpb.broadphase_boxes_cuda(rays, tile, torch.empty((8, 4), device="meta"))
     with pytest.raises(TypeError):
         tpb.compact_words_cuda(torch.zeros((4, 2), dtype=torch.int64), 8)
     meta = torch.empty((8, 4), device="meta")

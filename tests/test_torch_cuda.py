@@ -84,8 +84,8 @@ from chip_smoke import (
     check_climbs, check_gather, check_sentinel_build, zero_build_counters,
     SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
     SPLAT_PREP_CASES, check_splat_prep_case, prep_counters, splat_prep_scene, zero_prep_counters,
-    BROADPHASE_CASES, TRI_LIST_CASES, broadphase_counters, broadphase_scene,
-    check_broadphase_case, check_overlap_boxes, check_tri_lists_case, tri_list_inputs,
+    BOX_SET_CASES, BROADPHASE_CASES, TRI_LIST_CASES, broadphase_counters, broadphase_scene,
+    check_box_set_case, check_broadphase_case, check_overlap_boxes, check_tri_lists_case, tri_list_inputs,
     zero_broadphase_counters,
     check_record_orders, check_records, check_walk_routes,
     SEGSORT_CSR_CASES, SEGSORT_FLAT_CASES, SEGSORT_ROW_CASES, check_segsort_case,
@@ -1041,6 +1041,20 @@ def test_broadphase_kernels_match_plain(dev, tag):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tag", list(BOX_SET_CASES))
+def test_broadphase_boxes_match_plain(dev, tag):
+    """The boxes' one launch on the card at both blocks: both parts and each
+    alone equal to the plain versions, NaN at the same places (zero signs
+    free); the kernel holds no local memory on either ray route."""
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+
+    check_box_set_case(tag, dev)
+    for vec in (True, False):
+        res = pb.broadphase_boxes_resources(dev, vec)
+        assert res["local_bytes"] == 0 and res["threads"] == 256, res
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tag", list(TRI_LIST_CASES))
 def test_tri_lists_kernel_matches_plain(dev, tag):
     """tri_lists.cu against _dense_tile_segments_tri_plain on the card: ids,
@@ -1068,20 +1082,20 @@ def test_tri_lists_device_memory_route(dev, monkeypatch):
 
 @pytest.mark.cuda
 def test_broadphase_launches_and_refusals(dev, scene):
-    """A quarter trace launches the tile, segment and overlap kernels once
-    each, a qlist trace adds the compaction, a triangle trace the list
-    kernel, and no plain version runs on the card; the wrappers refuse what
-    the kernels do not take."""
+    """A quarter trace launches the boxes (both sets in one launch) and the
+    overlap kernel once each, a qlist trace adds the compaction, a triangle
+    trace the list kernel, and no plain version runs on the card; the
+    wrappers refuse what the kernels do not take."""
     ss, rays = scene
     zero_broadphase_counters()
     pk.pallas_trace_sph(rays, ss, tile=64, broadphase="quarter")
-    assert broadphase_counters() == {"segment_boxes": 1, "tile_boxes": 1, "overlap_words": 1,
+    assert broadphase_counters() == {"broadphase_boxes": 1, "overlap_words": 1,
                                      "compact_words": 0, "tri_tile_lists": 0}
     pk.pallas_trace_sph(rays, ss, tile=64, broadphase="qlist", max_chunks=512)
     tris = torch.from_numpy(random_mesh(np.random.default_rng(4), 500)).to(dev)
     pt.pallas_trace_tri(rays, tris)
     torch.cuda.synchronize()
-    assert broadphase_counters() == {"segment_boxes": 2, "tile_boxes": 2, "overlap_words": 2,
+    assert broadphase_counters() == {"broadphase_boxes": 2, "overlap_words": 2,
                                      "compact_words": 1, "tri_tile_lists": 1}
     from grace_tpu_torch.trace import broadphase as bp
     from grace_tpu_torch.trace import pallas_broadphase as pb

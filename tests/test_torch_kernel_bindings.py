@@ -399,8 +399,9 @@ def test_broadphase_constants_agree():
     assert float(re.search(r"kBig = ([0-9.e+-]+)f;", tri_src).group(1)) == pt.BIG
     assert pt.N_CULL_INTERVALS <= pt.MAX_INTERVALS and pt.SORT_SLOTS >= 1
     assert pt.SORT_SCRATCH >= 1 << max(0, pt.STAGE_SEGS - 1).bit_length()
-    for name, entries in (("broadphase", {"grace_segment_boxes", "grace_tile_boxes",
-                                          "grace_overlap_words", "grace_compact_words",
+    for name, entries in (("broadphase", {"grace_broadphase_boxes", "grace_overlap_words",
+                                          "grace_compact_words",
+                                          "grace_broadphase_boxes_resources",
                                           "grace_overlap_words_resources"}),
                           ("tri_lists", {"grace_tri_tile_lists",
                                          "grace_tri_tile_lists_resources"})):
