@@ -3,7 +3,8 @@
     python3 chip_ablation.py [trace] [render_bwd] [trace_tri] [splat] [records]
                              [sortfree_bwd] [render_fwd] [paths] [statistics] [walk]
                              [build] [climbs] [splat_prep] [broadphase] [record_sort]
-                             [segsort] [feeds] [records_flat] [tri_lists]
+                             [segsort] [feeds] [records_flat] [tri_lists] [morton]
+                             [compaction]
                              [--parent DIR [--rounds K]]
                              (default: all parts)
     python3 chip_ablation.py paths --package DIR   (DIR/grace_tpu_torch, e.g. another checkout)
@@ -16,6 +17,8 @@
     python3 chip_ablation.py segsort   (variants of csrc/segsort.cu on path 4's records)
     python3 chip_ablation.py records_flat --parent DIR --rounds 2   (E10 in turns, variants)
     python3 chip_ablation.py tri_lists --parent DIR   (E7 in turns, variants)
+    python3 chip_ablation.py morton compaction --parent DIR --rounds 2   (E2's keys, E6's
+                             compaction in turns, variants)
 
 Each variant is a copy of the kernel's sources with one constant, one wait
 or one device function replaced, built as the package builds its libraries
@@ -306,6 +309,28 @@ wrapper launches them (longest list first).
   parent's (a block a tile: PARENT_TRI_VARIANTS) its boxes staged once a
   block in 396 persistent blocks, and the leave-outs no sort and no row
   writes.
+
+  morton: E2's keys (csrc/build.cu) on the bench scene and main path 1's
+  rays: morton_keys_sph (its box folded in the launch), spatial_sort_rays,
+  the keys at a given box, the 63-bit keys, rays + sort and build_sph_tree,
+  each call's ms, host ms, device operations with their times and the keys
+  kernel's device time; with --parent DIR, DIR's grace_tpu_torch and this
+  one in turns; in this package's first process the kernel's variants
+  (KEYS_VARIANTS: every item read again after the grid barrier, 16 held,
+  6 blocks an SM, the f64 clamp conversion, the 30-bit spread in 64-bit
+  ints, the partial boxes folded by block 0 behind a second barrier; the
+  leave-outs without the barrier and with each block's own box) bit-
+  equal to the shipped kernel and timed in turns by device time, and the
+  folding grid capped at 132 blocks.
+
+  compaction: E6's compaction (csrc/broadphase.cu) at the main paths'
+  shapes (path 2's qlist and list rows, path 3's dense_tile_segments and
+  dense_segment_tiles, the quarter words at tile 64 and max_q 512): each
+  call and the kernel's device time, set bits and the byte bound; with
+  --parent DIR in turns; the kernel's variants (COMPACT_VARIANTS: 4-byte
+  padding stores, 16-byte padding stores not streaming, 4-byte word
+  loads, no group's loads ahead; the leave-out without padding). The
+  broadphase part runs it too.
 
 Then each shipped kernel on the same inputs launched in other orders of
 its work units (ray tiles, segments), through the C entry point: as
@@ -2141,7 +2166,7 @@ def kernel_variants(part, lib_name, variants, calls, kernel, rounds=2, not_compa
                    for i, (name, edits) in enumerate(variants.items())})
     try:
         dlls = build_all(builds)
-    except AssertionError as e:
+    except (AssertionError, ValueError) as e:   # a variant's text is not in the sources
         print(f"{part} part: no variants in this package ({e})", flush=True)
         return {}
     as_bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -3100,6 +3125,186 @@ def broadphase_paths():
             result[label]["kernel_ms"] = kernel_device_ms(fn, "overlap_words_kernel", reps=20)
             print(f"broadphase part {label}: kernel {result[label]['kernel_ms']} ms "
                   f"(profiler, 20 calls)", flush=True)
+    # E6's compaction at the main paths' shapes, with its variants
+    result.update({f"compaction: {k}": v for k, v in compaction_paths().items()})
+    return result
+
+
+# E2's keys (csrc/build.cu): every held item reread after the grid's
+# barrier instead of kept in registers, or 16 held; 6 blocks an SM (the
+# first form, whose 792 blocks each fold 792 partial boxes); the f64 clamp
+# conversion in place of the saturating cvt.rzi (the same bits:
+# chip_smoke's keys checks); the 30-bit spread in 64-bit ints; the partial
+# boxes folded by block 0 alone behind a second grid barrier; and two
+# leave-outs (KEYS_LEAVE_OUTS, wrong keys, timed only): no grid barrier,
+# and each block's own box (no barrier, no partial boxes)
+KEY_FOLD = "        cooperative_groups::this_grid().sync();\n"
+KEY_FOLD_END = "        if (threadIdx.x < 3) box[3 + threadIdx.x] = span"
+KEYS_LEAVE_OUTS = ("leave-out: no grid barrier", "leave-out: each block's own box")
+KEYS_VARIANTS = {
+    "reread (no item held across the barrier)": [
+        swap("build.cu", "constexpr int kHeld = 4;", "constexpr int kHeld = 0;")],
+    "16 items held": [swap("build.cu", "constexpr int kHeld = 4;", "constexpr int kHeld = 16;")],
+    "6 blocks an SM (the first form)": [
+        swap("build.cu", "constexpr int kFoldBlocksPerSm = 2;", "constexpr int kFoldBlocksPerSm = 6;")],
+    "f64 clamp conversion": [
+        swap("build.cu", "    return __float2uint_rz(v);\n",
+             "    return v != v ? 0u : static_cast<unsigned>(fmin(fmax(static_cast<double>(v), "
+             "0.0), 4294967295.0));\n")],
+    "30-bit spread in 64-bit ints": [
+        swap("build.cu", "        return (spread10(u[2]) << 2) | (spread10(u[1]) << 1) | "
+             "spread10(u[0]);",
+             "        return static_cast<unsigned long long>((spread21(u[2] & 1023u) << 2) | "
+             "(spread21(u[1] & 1023u) << 1) | spread21(u[0] & 1023u));")],
+    "block 0 folds the partial boxes, two barriers": [
+        swap_between("build.cu", KEY_FOLD, KEY_FOLD_END, KEY_FOLD + """\
+        if (blockIdx.x == 0) {
+            float all[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
+            for (int b = threadIdx.x; b < gridDim.x; b += kThreads) {
+                float part[6];
+                for (int k = 0; k < 6; ++k) part[k] = __ldcg(a.parts + 6 * b + k);
+                fold_box(all, part);
+            }
+            block_box(all, warps, box);
+            if (threadIdx.x < 6) a.parts[threadIdx.x] = box[threadIdx.x];
+        }
+""" + KEY_FOLD + """\
+        if (threadIdx.x < 6) box[threadIdx.x] = __ldcg(a.parts + threadIdx.x);
+        __syncthreads();
+""")],
+    "leave-out: no grid barrier": [swap("build.cu", KEY_FOLD, "")],
+    "leave-out: each block's own box": [swap_between("build.cu", KEY_FOLD, KEY_FOLD_END, "")],
+}
+
+
+def keys_paths():
+    """The ``morton`` part in this process, on whichever grace_tpu_torch it
+    imports (E2's keys): ``morton_keys_sph`` on the bench's 2^20 clustered
+    particles (the box folded in the call), ``spatial_sort_rays`` on main
+    path 1's 512^2 orthographic rays, the keys alone at a given box, and
+    ``build_sph_tree``; each call's CUDA-event and host ms, device
+    operations with their times, and the keys kernel's device time
+    (torch.profiler); in this package's first process the keys kernel's
+    variants (KEYS_VARIANTS) in turns by device time."""
+    from grace_tpu_torch.build.sph import build_sph_tree, morton_keys_sph
+    from grace_tpu_torch.ops import morton
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+
+    dev = torch.device("cuda", 0)
+    spheres = torch.from_numpy(
+        make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
+    rays = orthographic_projection_rays(SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH, device=dev)
+    c = spheres[:, :3]
+    lo, hi = c.amin(dim=0), c.amax(dim=0)
+    result = {}
+    calls = {
+        "morton_keys_sph, bench scene (box in the call)": lambda: (morton_keys_sph(spheres),),
+        "spatial_sort_rays, 512^2 rays": lambda: spatial_sort_rays(rays)[1:],
+        "keys at a given box, bench scene": lambda: (morton.morton_keys_cuda(c, lo, hi, 30),),
+        "63-bit keys, bench scene (box in the call)": lambda: (
+            morton_keys_sph(spheres, bits=63),)}
+    if hasattr(morton, "ray_keys_cuda"):
+        calls["ray keys alone, 512^2 rays (box in the call)"] = lambda: (morton.ray_keys_cuda(
+            rays.origins, rays.directions, rays.lengths),)
+    result.update(kernel_variants("morton", "build", KEYS_VARIANTS, calls, "morton_keys",
+                                  not_compared=KEYS_LEAVE_OUTS))
+    if hasattr(morton, "ray_keys_cuda"):   # the folding grid capped at other sizes
+        for blocks in (132,):
+            calls[f"morton_keys_sph, bench scene, the grid capped at {blocks} blocks"] = (
+                lambda b=blocks: (morton.morton_keys_cuda(c, None, None, 30, _blocks=b),))
+    for label, fn in list(calls.items()) + [
+            ("rays + sort, 512^2 (orthographic_projection_rays, spatial_sort_rays)",
+             lambda: spatial_sort_rays(orthographic_projection_rays(
+                 SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH, device=dev))),
+            ("build_sph_tree, bench scene", lambda: build_sph_tree(spheres, MAX_PER_LEAF))]:
+        result[label] = timed_call(f"morton part {label}", fn)
+        kernel = kernel_device_ms(fn, "morton_keys", reps=20)
+        result[label]["kernel_ms"] = kernel
+        print(f"morton part {label}: keys kernel "
+              + ("not measured" if kernel is None else f"{kernel:.4f} ms")
+              + " (profiler, 20 calls)", flush=True)
+    return result
+
+
+# E6's compaction (csrc/broadphase.cu): the padding as 4-byte stores (a
+# lane a slot), the padding's 16-byte stores not streaming, the words as
+# 4-byte loads (the route of rows that are no multiple of 4 words), no
+# group's loads ahead; and a leave-out, no padding (wrong ids past n)
+COMPACT_LEAVE_OUTS = ("leave-out: no padding",)
+PAD_4_BYTES = """__device__ __forceinline__ void pad_row(int* dst, int n, int max_q, int lane) {
+    for (int k = n + lane; k < max_q; k += 32) dst[k] = 0;
+}
+"""
+COMPACT_VARIANTS = {
+    "4-byte padding stores": [swap_function("broadphase.cu", "pad_row", PAD_4_BYTES)],
+    "16-byte padding stores, not streaming": [
+        swap("broadphase.cu", "        __stcs(reinterpret_cast<int4*>(dst + head) + k, make_int4(0, 0, 0, 0));",
+             "        reinterpret_cast<int4*>(dst + head)[k] = make_int4(0, 0, 0, 0);")],
+    "4-byte word loads": [
+        swap("broadphase.cu", "    const bool vec = n_words % 4 == 0 &&",
+             "    const bool vec = false && n_words % 4 == 0 &&")],
+    "no loads ahead": [
+        swap("broadphase.cu", "constexpr int kAhead = 1;", "constexpr int kAhead = 0;")],
+    "leave-out: no padding": [swap_function(
+        "broadphase.cu", "pad_row",
+        "__device__ __forceinline__ void pad_row(int* dst, int n, int max_q, int lane) {}\n")],
+}
+
+
+def compaction_paths():
+    """The ``compaction`` part in this process, on whichever
+    grace_tpu_torch it imports (E6's compaction): ``compact_words_cuda``
+    at each main-path shape (the bench's sorted 2^20 spheres, 512^2 sorted
+    rays): path 2's qlist (quarter words at tile 128, max_q 2048) and list
+    rows (segment words at tile 128, 2048), path 3's ``dense_tile_segments``
+    (the same words) and ``dense_segment_tiles`` (8,192 segment rows of tile
+    words, max_tiles 2048), and chip_smoke's case (quarter words at tile
+    64, max_q 512); each call's CUDA-event and host ms, its device
+    operations and the kernel's device time (torch.profiler), the set bits
+    and bytes; in this package's first process the kernel's variants
+    (COMPACT_VARIANTS) in turns by device time."""
+    from grace_tpu_torch.build.sph import build_sph_tree
+    from grace_tpu_torch.rays.gen import orthographic_projection_rays, spatial_sort_rays
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+    from grace_tpu_torch.trace import pallas_render as pr
+
+    dev = torch.device("cuda", 0)
+    spheres = torch.from_numpy(
+        make_clustered_particles(np.random.default_rng(2026), N_PARTICLES)).to(dev)
+    ss, _, _ = build_sph_tree(spheres, MAX_PER_LEAF)
+    rays_s, _, _ = spatial_sort_rays(orthographic_projection_rays(
+        SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH, device=dev))
+    q128 = pb.dense_tile_masks_quarter(rays_s, ss, TRACE_TILE)[0]
+    q64 = pb.dense_tile_masks_quarter(rays_s, ss, 64)[0]
+    seg = pb.dense_tile_masks(rays_s, ss, TRACE_TILE)
+    tmin, tmax = pb.tile_aabbs(rays_s, pr.BWD_TILE)
+    smin, smax = pb.segment_aabbs(ss, 128)
+    seg_tiles = pb.overlap_words_cuda(smin, smax, tmin, tmax)
+    shapes = {"path 2 qlist (quarter words, tile 128, max_q 2048)": (q128, 2048),
+              "path 2 list and path 3 dense_tile_segments (segment words, tile 128, 2048)":
+                  (seg, 2048),
+              "path 3 dense_segment_tiles (8,192 segment rows, max_tiles 2048)": (seg_tiles, 2048),
+              "chip_smoke case (quarter words, tile 64, max_q 512)": (q64, 512)}
+    calls = {label: (lambda w=w, q=q: pb.compact_words_cuda(w, q))
+             for label, (w, q) in shapes.items()}
+    result = {}
+    result.update(kernel_variants("compaction", "broadphase", COMPACT_VARIANTS, calls,
+                                  "compact_words", not_compared=COMPACT_LEAVE_OUTS))
+    for label, fn in calls.items():
+        w, q = shapes[label]
+        ids, n, ovf = fn()
+        bits = int(_popcount_rows(w).sum())
+        n_bytes = 4 * w.numel() + 4 * ids.numel() + 4 * n.numel() + ovf.numel()
+        result[label] = timed_call(f"compaction part {label}", fn)
+        kernel = kernel_device_ms(fn, "compact_words", reps=20)
+        result[label].update(kernel_ms=kernel, set_bits=bits, bytes=n_bytes,
+                             bound_ms=n_bytes / 3.35e9, listed=int(n.sum()),
+                             overflowed=int(ovf.sum()))
+        print(f"compaction part {label}: words {tuple(w.shape)}, {bits} set bits, "
+              f"{int(n.sum())} listed, {int(ovf.sum())} rows overflowed; {n_bytes} bytes, "
+              f"bound {n_bytes / 3.35e9:.4f} ms; kernel "
+              + ("not measured" if kernel is None else f"{kernel:.4f} ms")
+              + " (profiler, 20 calls)", flush=True)
     return result
 
 
@@ -4201,7 +4406,7 @@ def walk_ablations(parent_dir):
 
 PARTS = ("trace", "render_bwd", "trace_tri", "splat", "records", "sortfree_bwd", "render_fwd",
          "paths", "statistics", "walk", "build", "climbs", "splat_prep", "broadphase",
-         "record_sort", "segsort", "feeds", "records_flat", "tri_lists")
+         "record_sort", "segsort", "feeds", "records_flat", "tri_lists", "morton", "compaction")
 
 
 def main():
@@ -4308,6 +4513,12 @@ def main():
     if "broadphase" in parts:
         summary["broadphase"] = (part_turns("broadphase", parent, rounds) if parent
                                  else broadphase_paths())
+    if "morton" in parts:
+        summary["morton"] = (part_turns("morton", parent, rounds) if parent
+                             else keys_paths())
+    if "compaction" in parts:
+        summary["compaction"] = (part_turns("compaction", parent, rounds) if parent
+                                 else compaction_paths())
     if "walk" in parts:
         summary["walk"] = walk_ablations(parent)
     if "trace_tri" in parts:

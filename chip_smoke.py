@@ -120,7 +120,16 @@ torch.cuda.set_sync_debug_mode("error"); where a delta equals the
 sentinel (two spheres at opposite corners, 63-bit keys) both give the
 valid tree, where the reference's build breaks (ROADMAP C19). Every
 main path builds through those kernels; their launches are counted on
-each path.
+each path. ``check_keys`` then holds the keys' one launch (its box folded
+in the launch, or given) to the plain versions bit for bit at the cases
+of KEY_CASES (16-byte sphere rows, centroids, strided rows and rays by
+their midpoints; grids capped at 1-3 blocks, whose items pass the ones
+held in registers; given and scalar boxes; NaN in one axis, -0 and +0 at
+the box's edges and an axis of zeros, +-inf, identical points; the
+conversion's edges at scale 1: NaN, +-inf, negatives, -0, subnormals,
+values past 2^32, which hold cvt.rzi's saturation to the plain f64
+clamp; 0, 1 and 257 points; the rays' order, inverse and sorted rays too)
+and spatial_sort_rays on main path 1's 512^2 rays.
 
 Then ``check_splat_prep`` holds the splat's two setups (csrc/splat_prep.cu:
 bucket_prims_ortho's two passes, keys with counts and then the stable
@@ -161,7 +170,13 @@ through tile_aabbs and segment_aabbs; again on the bench scene at tiles
 128 and 64, where it also prints how sparse the overlap words are (pairs,
 set bits, nonzero words and the words the overlap kernel's hull cull
 keeps, at tiles 64 and 128 against quarters and segments and segments
-against tiles) and fails if a nonzero word is not among those kept.
+against tiles) and fails if a nonzero word is not among those kept; the
+compaction alone at the cases of COMPACT_CASES (rows of every bit at
+max_q equal to, one under and one over their count, counts at max_q - 1,
+max_q and max_q + 1, rows of ids off 16-byte lines, 4-byte word loads,
+no words, no rows, max_q 0) and at the main paths' shapes (path 2's qlist
+and list rows, path 3's dense_tile_segments and dense_segment_tiles, the
+quarter words at tile 64), ids, n and flags bit-equal.
 ``check_tri_lists`` holds the triangle lists (csrc/tri_lists.cu) to
 theirs at the cases of TRI_LIST_CASES (the tests' torus, a small
 max_chunks, a ragged last segment, K 8, tiles of clipped and zero-length
@@ -229,19 +244,25 @@ splat edge scene.
 Prints a ``resources`` line for each kernel redesigned for the card
 (registers a thread, shared bytes and threads a block, resident blocks and
 warps an SM; the build's, the walk's, segsort.cu's, the overlap words',
-the boxes' (both ray routes) and the sort-free setup's kernels also local
-bytes a thread, which must be 0 for the last four's), stage and kernel
-times (CUDA events, warm, median; the dense splat contractions and the
-launch-order helpers too; the overlap words', the boxes' (both parts and
-each alone) and the sort-free setup's kernels also by device time,
-torch.profiler) with the card's name
+the boxes' (both ray routes), the compaction's (both load routes) and
+the sort-free setup's kernels also local bytes a thread, which must be 0
+for the keys' and the last five's), stage and kernel times (CUDA events,
+warm, median; the dense splat contractions and the launch-order helpers
+too; the overlap words', the boxes' (both parts and each alone), the
+keys' (the build's call, a given box, path 1's rays), the compaction's
+(at each main-path shape) and the sort-free setup's kernels also by
+device time, torch.profiler, "not measured" where no profiler window held
+a launch; the device operations of morton_keys_sph and
+spatial_sort_rays) with the card's name
 and power limit, the work each kernel's bound is computed from (the
 overlap words both as all pairs and as the hull cull's tests),
 a JSON line describing each kernel (the list kernel on quarter and on
 segment lists apart, the triangle kernel's two passes apart, the engine's
-walk for spheres and for triangles apart, the build's five kernels, the
+walk for spheres and for triangles apart, the build's five kernels (the
+keys' with their device time, a given box's and path 1's rays'), the
 splat setups' four, the broadphase's three (the boxes' one with its
-parts), the triangle lists and the
+parts, the compaction's with each main-path shape), the triangle lists
+and the
 records' three post-processing entries with their launches on each main
 path), and last a
 JSON line with ``"ok": true``. Any failure raises, so
@@ -2181,7 +2202,9 @@ BUILD_FIELDS = ("children", "child_aabbs", "leaves", "root", "n_nodes", "n_leave
 
 def build_stages(prims, kind, max_per_leaf, delta_kind, bits, plain):
     """Every stage of the build, through the public functions (the kernels
-    of csrc/build.cu, or with ``plain`` every step's plain version): keys,
+    of csrc/build.cu, or with ``plain`` every step's plain version): keys
+    (their box the centroids' own: folded in the keys' launch, or
+    torch.amin / amax),
     the stable sort, the sorted primitives, the deltas, phase A's split
     ranges (``lbvh_ranges``, or ``cartesian_tree_ranges``) and the tree."""
     from grace_tpu_torch.build import deltas as bd
@@ -2189,9 +2212,7 @@ def build_stages(prims, kind, max_per_leaf, delta_kind, bits, plain):
     from grace_tpu_torch.build.sph import xor_deltas_sph
     from grace_tpu_torch.ops import morton
 
-    c = kind.centroid(prims)
-    keys = morton.morton_keys_from_centroids(c, c.amin(dim=0), c.amax(dim=0), bits=bits,
-                                             plain=plain)
+    keys = morton.morton_keys_from_centroids(kind.centroid(prims), bits=bits, plain=plain)
     keys_sorted, perm = torch.sort(keys, stable=True)
     sp = prims[perm]
     if delta_kind == "xor":
@@ -2406,6 +2427,188 @@ def check_build(dev):
     return lines, bench_errs
 
 
+# check_keys' cases (grace_morton_keys, E2's keys): tag -> (source, n,
+# bits, box, blocks, kind). source: "spheres" f32[n, 4] (a 16-byte load a
+# row), "centroids" f32[n, 3], "strided" (rows 1, 3, 5, ... of f32[2n + 1,
+# 5]: 10 floats a row, off a 16-byte boundary), "rays" (their midpoints);
+# box: None (folded in the launch), "given" (f32[3]), "scalar" (f32[]),
+# "unit" (lo 0 and hi the span: scale 1, so the key's bits show the
+# conversion of each value); blocks: the folding grid's cap (None: the
+# wrapper's; at 1 or 2 blocks some items are read again after the grid
+# barrier);
+# kind: "nan" (a NaN in one axis: that axis 0), "zeros" (-0 and +0 at the
+# box's edges, an axis of +-0 alone: hi = lo = +-0, every value NaN, so
+# 0), "identical", "inf" (+-inf in the points: the span inf or -inf),
+# "edges" (NaN, +-inf, negatives, -0, subnormals, values at and past 2^32,
+# 2^21, 2^10), "ties" (runs of equal rays).
+KEY_SEED = 2033
+KEY_CASES = {
+    "clustered 5000 spheres, 30-bit": ("spheres", 5000, 30, None, None, ""),
+    "clustered 5000 spheres, 63-bit": ("spheres", 5000, 63, None, None, ""),
+    "5000 spheres, 1 block (items past the registers read again)":
+        ("spheres", 5000, 30, None, 1, ""),
+    "9001 centroids, 63-bit, 2 blocks": ("centroids", 9001, 63, None, 2, ""),
+    "777 strided centroids, given box": ("strided", 777, 30, "given", None, ""),
+    "777 strided centroids, box in the launch": ("strided", 777, 63, None, None, ""),
+    "1 sphere": ("spheres", 1, 30, None, None, ""),
+    "257 spheres (a ragged block)": ("spheres", 257, 63, None, None, ""),
+    "no sphere": ("spheres", 0, 30, None, None, ""),
+    "NaN in one axis": ("spheres", 1000, 30, None, None, "nan"),
+    "-0 and +0 at the box edges, an axis of zeros": ("spheres", 1000, 63, None, 3, "zeros"),
+    "identical points": ("spheres", 600, 30, None, None, "identical"),
+    "+-inf in the points": ("centroids", 500, 30, None, None, "inf"),
+    "conversion edges at scale 1, 30-bit": ("centroids", 57, 30, "unit", None, "edges"),
+    "conversion edges at scale 1, 63-bit": ("centroids", 57, 63, "unit", None, "edges"),
+    "conversion edges, box in the launch": ("spheres", 57, 63, None, None, "edges"),
+    "scalar box": ("spheres", 900, 30, "scalar", None, ""),
+    "4000 rays with ties": ("rays", 4000, 30, None, None, "ties"),
+    "4000 rays with ties, 3 blocks": ("rays", 4000, 30, None, 3, "ties"),
+    "3000 rays, given box": ("rays", 3000, 30, "given", None, ""),
+    "rays, a NaN origin": ("rays", 700, 30, None, None, "nan"),
+    "rays of zero length, -0 and +0 directions": ("rays", 513, 30, None, None, "zeros"),
+    "1 ray": ("rays", 1, 30, None, None, ""),
+}
+# the values whose conversion to uint32 is at an edge
+KEY_EDGES = np.array([np.nan, np.inf, -np.inf, -1.0, -0.0, 0.0, 1e-45, 1e-40, -1e-40,
+                      0.99999994, 1.0, 1023.0, 1023.9999, 1024.0, 2097151.0, 2097152.0,
+                      2.0 ** 31, 4294967040.0, 2.0 ** 32, 3e38], np.float32)
+
+
+def key_scene(tag):
+    """Case ``tag``'s numpy inputs: {"points" f32[n, 3], "spheres" f32[n,
+    4] | "strided" f32[2n + 1, 5] | "origins", "directions", "lengths",
+    "box" (lo, hi) or None}."""
+    src, n, bits, box, _, kind = KEY_CASES[tag]
+    rng = np.random.default_rng(KEY_SEED + list(KEY_CASES).index(tag))
+    out = {}
+    if src == "rays":
+        o = rng.random((n, 3)).astype(np.float32)
+        d = rng.standard_normal((n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        ln = (0.2 + rng.random(n)).astype(np.float32)
+        if kind == "ties":            # runs of equal rays keep their input order
+            for a in range(0, n - 60, 400):
+                o[a:a + 50], d[a:a + 50], ln[a:a + 50] = o[a + 50], d[a + 50], ln[a + 50]
+        elif kind == "nan":
+            o[7, 1] = np.nan
+        elif kind == "zeros":
+            ln[::3] = 0.0
+            d[::5, 0] = -0.0
+            d[1::5, 2] = 0.0
+            o[::7, 0] = -0.0
+        out.update(origins=o, directions=d, lengths=ln)
+        pts = (o.astype(np.float64) + (np.float32(0.5) * ln)[:, None].astype(np.float64)
+               * d.astype(np.float64)).astype(np.float32)
+    else:
+        pts = make_clustered_particles(rng, n)[:, :3] if n else np.zeros((0, 3), np.float32)
+        if kind == "nan":
+            pts[::111, 0] = np.nan
+        elif kind == "zeros":
+            pts[:, 0] = np.where(rng.random(n) < 0.3, -0.0, pts[:, 0]).astype(np.float32)
+            pts[::2, 0] = np.where(rng.random((n + 1) // 2) < 0.5, -0.0, 0.0)
+            pts[:, 1] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+        elif kind == "identical":
+            pts[:] = (0.3, 0.6, 0.2)
+        elif kind == "inf":
+            pts[3, 1], pts[9, 2] = np.inf, -np.inf
+        elif kind == "edges":
+            e = np.resize(KEY_EDGES, n)
+            pts = np.stack([e, np.roll(e, 5), np.roll(e, 11)], axis=1).astype(np.float32)
+        pts = np.ascontiguousarray(pts, np.float32)
+        if src == "strided":
+            big = rng.random((2 * n + 1, 5)).astype(np.float32)
+            big[1::2, :3] = pts
+            out["strided"] = big
+        else:
+            out["spheres"] = np.concatenate([pts, 0.01 + 0.05 * rng.random((n, 1))],
+                                            axis=1).astype(np.float32)
+    out["points"] = pts
+    span = np.float32((1 << 10) - 1 if bits == 30 else (1 << 21) - 1)
+    if box == "given":
+        lo = (np.nanmin(pts, axis=0) - 0.1).astype(np.float32)
+        out["box"] = (lo, (np.nanmax(pts, axis=0) + 0.25).astype(np.float32))
+    elif box == "scalar":
+        out["box"] = (np.float32(-0.5), np.float32(1.5))
+    elif box == "unit":
+        out["box"] = (np.zeros(3, np.float32), np.full(3, span, np.float32))
+    else:
+        out["box"] = None
+    return out
+
+
+def key_outputs(tag, dev, plain):
+    """Case ``tag`` through the port on ``dev``: {"keys"} (the rays' also
+    "order", "inverse" and the sorted rays' arrays): with ``plain`` each
+    step's plain version (the box by torch.amin / amax, the midpoints by
+    vecmath.fma, the order's inverse by a second stable argsort), else the
+    kernel route: the public calls (morton_keys_sph, morton_keys_cuda,
+    spatial_sort_rays), or at a capped grid the wrappers with ``_blocks``."""
+    from grace_tpu_torch.build.sph import morton_keys_sph
+    from grace_tpu_torch.core.types import Rays
+    from grace_tpu_torch.ops import morton
+    from grace_tpu_torch.rays import gen
+
+    src, n, bits, box, blocks, _ = KEY_CASES[tag]
+    a = key_scene(tag)
+    lo, hi = (None, None) if a["box"] is None else (
+        torch.tensor(np.asarray(x), device=dev) for x in a["box"])
+    if src == "rays":
+        rays = Rays.from_arrays(a["origins"], a["directions"], a["lengths"], device=dev)
+        if plain:
+            keys = gen._midpoint_keys(rays, lo, hi, plain=True)
+            order = torch.argsort(keys, stable=True)
+            inv = torch.argsort(order, stable=True).to(torch.int32)
+            srt, order = rays[order], order.to(torch.int32)
+        else:
+            keys = (morton.ray_keys_cuda(rays.origins, rays.directions, rays.lengths, lo, hi,
+                                         _blocks=blocks) if blocks
+                    else gen._midpoint_keys(rays, lo, hi))
+            srt, order, inv = gen.spatial_sort_rays(rays, lo, hi)
+        return {"keys": keys, "order": order, "inverse": inv, "sorted origins": srt.origins,
+                "sorted directions": srt.directions, "sorted lengths": srt.lengths}
+    if src == "strided":
+        points = torch.from_numpy(a["strided"]).to(dev)[1::2, :3]
+    elif src == "spheres":
+        spheres = torch.from_numpy(a["spheres"]).to(dev)
+        points = spheres[:, :3]
+    else:
+        points = torch.from_numpy(a["points"]).to(dev)
+    if plain and n == 0:
+        return {"keys": torch.zeros(0, dtype=torch.int64, device=dev)}
+    if src == "spheres" and box is None and not blocks:
+        return {"keys": morton_keys_sph(spheres, bits=bits, plain=plain)}
+    if plain:
+        return {"keys": morton.morton_keys_from_centroids(points, lo, hi, bits, plain=True)}
+    return {"keys": morton.morton_keys_cuda(points, lo, hi, bits, _blocks=blocks)}
+
+
+def check_keys(dev, rays=None):
+    """The keys' kernel against the plain versions on the card at every
+    case of KEY_CASES, bit for bit (the sorts' order, inverse and sorted
+    rays too), and with ``rays`` (main path 1's) spatial_sort_rays'
+    outputs likewise. Returns its lines."""
+    from grace_tpu_torch.rays import gen
+
+    lines = []
+    for tag in KEY_CASES:
+        got, want = key_outputs(tag, dev, False), key_outputs(tag, dev, True)
+        for name, w in want.items():
+            check_tensor_bits(f"keys {tag} {name}", got[name], w)
+        lines.append(f"{tag}: {', '.join(want)} bit-equal to the plain versions")
+    if rays is not None:
+        keys = gen._midpoint_keys(rays, None, None, plain=True)
+        order = torch.argsort(keys, stable=True)
+        srt, o32, inv = gen.spatial_sort_rays(rays)
+        for name, g, w in (("keys", gen._midpoint_keys(rays, None, None), keys),
+                           ("order", o32, order.to(torch.int32)),
+                           ("inverse", inv, torch.argsort(order, stable=True).to(torch.int32)),
+                           ("sorted origins", srt.origins, rays.origins[order])):
+            check_tensor_bits(f"keys path 1's rays {name}", g, w)
+        lines.append(f"main path 1's {rays.n_rays} rays: spatial_sort_rays' keys, order, "
+                     f"inverse and sorted rays bit-equal to the plain chain")
+    return lines
+
+
 def build_counters():
     """The build kernels' launch counts (csrc/build.cu)."""
     from grace_tpu_torch.build import deltas as bd
@@ -2448,14 +2651,19 @@ def build_times(spheres, entry_spheres, tris):
     keys and permutation: CUB's radix passes are not counted)."""
     from grace_tpu_torch.build import deltas as bd
     from grace_tpu_torch.build import lbvh
-    from grace_tpu_torch.build.sph import build_primitive_tree, build_sph_tree
+    from grace_tpu_torch.build.sph import build_primitive_tree, build_sph_tree, morton_keys_sph
     from grace_tpu_torch.ops import morton
     from grace_tpu_torch.ops.primitives import SPHERE, TRIANGLE
+    from grace_tpu_torch.rays.gen import (_midpoint_keys, orthographic_projection_rays,
+                                          spatial_sort_rays)
 
     n, mpl = spheres.shape[0], MAX_PER_LEAF
     c = SPHERE.centroid(spheres)
     lo, hi = c.amin(dim=0), c.amax(dim=0)
-    keys = morton.morton_keys_cuda(c, lo, hi, 30)
+    keys = morton_keys_sph(spheres)
+    rays = orthographic_projection_rays(SIDE, SIDE, CAM, LOOK, UP, VEXT, LENGTH,
+                                        device=spheres.device)
+    ray_keys = lambda: morton.ray_keys_cuda(rays.origins, rays.directions, rays.lengths)
     keys_sorted, perm = torch.sort(keys, stable=True)
     ss, perm32, mins, maxs, d = bd.gather_deltas_cuda(spheres, "sphere", perm, keys_sorted,
                                                       "euclidean")
@@ -2470,9 +2678,33 @@ def build_times(spheres, entry_spheres, tris):
             "euclidean", a=SPHERE.centroid(sp))
 
     t = {}
-    t["build scene box (amin, amax)"] = cuda_ms(lambda: (c.amin(dim=0), c.amax(dim=0)))
-    t["build_morton_keys kernel"] = cuda_ms(lambda: morton.morton_keys_cuda(c, lo, hi, 30))
-    t["build_morton_keys plain"] = cuda_ms(lambda: morton._morton_keys_plain(c, lo, hi, 30))
+    # the keys: the build's call (the box folded in the one launch), at a
+    # given box, and main path 1's rays by their midpoints; each kernel's
+    # device time by the profiler (the mean of the launches its windows saw)
+    for label, fn, plain in (
+            ("", lambda: morton_keys_sph(spheres), lambda: morton_keys_sph(spheres, plain=True)),
+            (" (given box)", lambda: morton.morton_keys_cuda(c, lo, hi, 30),
+             lambda: morton._morton_keys_plain(c, lo, hi, 30)),
+            (" (path 1's rays)", ray_keys,
+             lambda: _midpoint_keys(rays, None, None, plain=True))):
+        t[f"build_morton_keys kernel{label}"] = cuda_ms(fn)
+        t[f"build_morton_keys plain{label}"] = cuda_ms(plain)
+        ms, seen = kernel_device_ms_seen(fn, "morton_keys_kernel")
+        device = f"build_morton_keys device (profiler; the kernel alone{label})"
+        if ms is None:
+            log(f"time {device}: not measured (the profiler saw no device time of the kernel)")
+        else:
+            t[device] = ms
+            log(f"{device}: the mean of {seen} launches the profiler saw")
+    for label, fn in (("morton_keys_sph (bench scene, no box)", lambda: morton_keys_sph(spheres)),
+                      ("spatial_sort_rays (path 1's 512^2 rays)",
+                       lambda: spatial_sort_rays(rays))):
+        names = device_ops(fn)
+        kinds = {}
+        for name in names:
+            short = name.split("(")[0].split("<")[0].split("::")[-1].strip() or name[:40]
+            kinds[short] = kinds.get(short, 0) + 1
+        log(f"{label}: {len(names)} device operations: {json.dumps(kinds)}")
     t["build key sort (torch.sort, stable)"] = cuda_ms(lambda: torch.sort(keys, stable=True))
     t["build_gather_deltas kernel (euclidean)"] = cuda_ms(
         lambda: bd.gather_deltas_cuda(spheres, "sphere", perm, keys_sorted, "euclidean"))
@@ -2500,13 +2732,15 @@ def build_times(spheres, entry_spheres, tris):
         lambda: build_sph_tree(entry_spheres, 16, plain=True), reps=3)
     t["build_primitive_tree plain (torus)"] = cuda_ms(
         lambda: build_primitive_tree(tris, TRIANGLE, 8, "xor", plain=True), reps=3)
-    # operations: a key's 3 subtractions, divisions, products and
-    # conversions and its 30 bit operations; a delta's 8 (3 subtractions,
+    # operations: a key's 3 subtractions, products and conversions, its 30
+    # bit operations and 6 box folds (a ray's midpoint 10 more); a delta's 8 (3 subtractions,
     # 3 products, 2 sums) and a sphere's box 6; a climb's arrival about 12
     # integer operations (2 N - 1 a phase A, 2 n_leaves - 1 a phase B) and a
     # box union 6 (a leaf's primitives, then a node's two children)
     work = {
-        "build_morton_keys": (42 * n, nbytes(c, lo, hi, keys)),
+        "build_morton_keys": (45 * n, nbytes(spheres, keys)),
+        "build_morton_keys (path 1's rays)": (
+            55 * rays.n_rays, nbytes(rays.origins, rays.directions, rays.lengths, ray_keys())),
         "build_deltas": (8 * (n - 1), nbytes(SPHERE.centroid(ss), d)),
         "build_gather_deltas": (14 * n, nbytes(perm, spheres, ss, perm32, mins, maxs, d)),
         "build_lbvh_ranges": (12 * (2 * n - 1), nbytes(d, l, r, mark) + 8 * nl),
@@ -2514,7 +2748,8 @@ def build_times(spheres, entry_spheres, tris):
                              nbytes(mark, scan, mins, maxs, tree.children, tree.child_aabbs,
                                     tree.leaves) + 8 * nl + 4 * (nl - 1) + 12),
     }
-    torch_bytes = nbytes(c) + nbytes(keys, keys_sorted, perm) + nbytes(mark, scan) + 24
+    # the torch calls between the kernels: the key sort and the marks' scan
+    torch_bytes = nbytes(keys, keys_sorted, perm) + nbytes(mark, scan)
     on_path = ("build_morton_keys", "build_gather_deltas", "build_lbvh_ranges", "build_lbvh_nodes")
     work["build"] = (sum(work[k][0] for k in on_path),
                      sum(work[k][1] for k in on_path) + torch_bytes)
@@ -3086,6 +3321,104 @@ def compaction_limits(q_words):
     return tuple(dict.fromkeys((512, most, max(most - 1, 0), 1, 0)))
 
 
+# check_compaction's cases (grace_compact_words): tag -> (rows, words a
+# row, max_q, density, offset). density: the share of set bits, "full"
+# (every bit), "at" (rows whose counts are max_q - 1, max_q and max_q + 1,
+# the others random); offset: the words start that many ints into a larger
+# tensor (off a 16-byte boundary: the 4-byte loads), as do rows of a width
+# that is no multiple of 4. A max_q that is no multiple of 4 starts the
+# rows of ids anywhere in a 16-byte line (unaligned heads and tails).
+COMPACT_SEED = 2034
+COMPACT_CASES = {
+    "41 rows x 256 words, max_q 2048": (41, 256, 2048, 0.02, 0),
+    "every bit, 9 rows x 20 words, max_q 640 (each row exactly full)": (9, 20, 640, "full", 0),
+    "every bit, max_q 639 (each row overflows by one)": (9, 20, 639, "full", 0),
+    "every bit, max_q 641": (9, 20, 641, "full", 0),
+    "counts at max_q - 1, max_q, max_q + 1, max_q 101": (12, 64, 101, "at", 0),
+    "counts at max_q +- 1, max_q 128 (aligned rows)": (12, 64, 128, "at", 0),
+    "max_q 0": (10, 64, 0, 0.1, 0),
+    "no words": (10, 0, 13, 0.0, 0),
+    "no rows": (0, 64, 512, 0.1, 0),
+    "37 words a row (4-byte loads), max_q 361": (21, 37, 361, 0.3, 0),
+    "words off a 16-byte boundary, max_q 514": (17, 128, 514, 0.05, 1),
+    "half the bits, 6 x 1,024 words, max_q 4,099 (overflows)": (6, 1024, 4099, 0.5, 0),
+    "one word a row, max_q 3": (33, 1, 3, 0.5, 0),
+    "2,050 rows x 5 words, max_q 7 (a ragged last block)": (2050, 5, 7, 0.03, 0),
+    "300 rows x 1,024 words, max_q 512 (sparse)": (300, 1024, 512, 0.003, 0),
+}
+
+
+def compact_scene(tag):
+    """Case ``tag``'s words: (flat i32[offset + rows * words], offset)."""
+    rows, n_words, max_q, density, offset = COMPACT_CASES[tag]
+    rng = np.random.default_rng(COMPACT_SEED + list(COMPACT_CASES).index(tag))
+    if density == "full":
+        bits = np.ones((rows, n_words * 32), bool)
+    elif density == "at":
+        bits = rng.random((rows, n_words * 32)) < 0.3
+        for r, count in enumerate((max_q - 1, max_q, max_q + 1) * (rows // 3)):
+            bits[r] = False
+            bits[r, rng.choice(n_words * 32, count, replace=False)] = True
+    else:
+        bits = rng.random((rows, n_words * 32)) < density
+    words = (bits.reshape(rows, n_words, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(axis=2).astype(np.uint32).view(np.int32)
+    flat = np.concatenate([rng.integers(-9, 9, offset).astype(np.int32), words.reshape(-1)])
+    return flat, offset
+
+
+def compact_inputs(tag, dev):
+    """Case ``tag``'s words i32[rows, words] on ``dev`` (a view ``offset``
+    ints into its storage) and max_q."""
+    rows, n_words, max_q, _, _ = COMPACT_CASES[tag]
+    flat, offset = compact_scene(tag)
+    return torch.from_numpy(flat).to(dev)[offset:].view(rows, n_words), max_q
+
+
+def check_compaction(dev, shapes=None, tags=tuple(COMPACT_CASES)):
+    """grace_compact_words against the plain version on the card, ids, n
+    and flags bit for bit, at the cases ``tags`` of COMPACT_CASES and at
+    ``shapes`` ({label: (words, max_q)}: the main paths'). Returns its
+    lines."""
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+
+    cases = {tag: compact_inputs(tag, dev) for tag in tags}
+    cases.update(shapes or {})
+    lines = []
+    for tag, (words, max_q) in cases.items():
+        got = pb.compact_words_cuda(words, max_q)
+        want = pb._compact_mask_words_plain(words, max_q)
+        for name, g, w in zip(("ids", "n", "overflow"), got, want):
+            check_tensor_bits(f"compaction {tag} {name}", g, w)
+        lines.append(f"{tag}: words {tuple(words.shape)}, max_q {max_q}: ids, n and overflow "
+                     f"bit-equal to the plain version ({int(want[1].sum())} ids, "
+                     f"{int(want[2].sum())} rows overflowed)")
+    return lines
+
+
+def compaction_shapes(spheres, rays):
+    """The compaction's main-path inputs on the bench scene (sorted 2^20
+    spheres, sorted 512^2 rays): {label: (words, max_q)}: path 2's qlist
+    (quarter words at tile 128, max_q 2048), path 2's list rows and path
+    3's dense_tile_segments (segment words at tile 128, 2048), path 3's
+    dense_segment_tiles (8,192 segment rows of tile words, 2048) and the
+    timing phase's case (quarter words at tile 64, max_q 512)."""
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+    from grace_tpu_torch.trace import pallas_render as pr
+
+    tiles = pb.tile_aabbs(rays, pr.BWD_TILE)
+    segs = pb.segment_aabbs(spheres, 128)
+    return {
+        "path 2 qlist (quarter words, tile 128, max_q 2048)":
+            (pb.dense_tile_masks_quarter(rays, spheres, TRACE_TILE)[0], 2048),
+        "path 2 list, path 3 dense_tile_segments (segment words, tile 128, max_chunks 2048)":
+            (pb.dense_tile_masks(rays, spheres, TRACE_TILE), 2048),
+        "path 3 dense_segment_tiles (segment rows of tile words, max_tiles 2048)":
+            (pb.overlap_words_cuda(*segs, *tiles), 2048),
+        "quarter words, tile 64, max_q 512": (pb.dense_tile_masks_quarter(rays, spheres, 64)[0],
+                                               512)}
+
+
 def check_broadphase_case(tag, spheres, rays, tile):
     """csrc/broadphase.cu against the plain versions on the same tensors:
     boxes equal in value (zero signs free), every word, summary word, list,
@@ -3134,6 +3467,7 @@ def check_broadphase(dev, bench=None):
                      f"tile {most_s})")
     lines += check_box_sets(dev)
     lines += check_overlap_boxes(dev)
+    lines += check_compaction(dev)
     return lines
 
 
@@ -3485,6 +3819,22 @@ def broadphase_times(spheres, rays, tris, tri_sets):
         lambda: pb.compact_words_cuda(words, 512))
     t["compact_words plain (quarter words, max_q 512, tile 64)"] = cuda_ms(
         lambda: pb._compact_mask_words_plain(words, 512), reps=3)
+    # the compaction at each main-path shape: the call and the kernel's
+    # device time (the mean of the launches the profiler's windows saw)
+    shape_work = {}
+    for label, (w, q) in compaction_shapes(spheres, rays).items():
+        fn = lambda w=w, q=q: pb.compact_words_cuda(w, q)
+        t[f"compact_words kernel ({label})"] = cuda_ms(fn)
+        ms, seen = kernel_device_ms_seen(fn, "compact_words_kernel")
+        device = f"compact_words device (profiler; the kernel alone, {label})"
+        if ms is None:
+            log(f"time {device}: not measured (the profiler saw no device time of the kernel)")
+        else:
+            t[device] = ms
+            log(f"{device}: the mean of {seen} launches the profiler saw")
+        out = fn()
+        shape_work[f"compact_words ({label})"] = (3 * w.numel() + 2 * int(out[1].sum()),
+                                                  nbytes(w, *out))
     for tl in (64, TRACE_TILE):
         t[f"dense_tile_masks_quarter kernels (tile {tl})"] = cuda_ms(
             lambda: pb.dense_tile_masks_quarter(rays, spheres, tl))
@@ -3525,6 +3875,7 @@ def broadphase_times(spheres, rays, tris, tri_sets):
                           nbytes(tmin, tmax, *seg_q, words, summ)),
         "overlap_words (all pairs)": (6 * n_rows * n_cols, nbytes(tmin, tmax, *seg_q, words, summ)),
         "compact_words": (3 * words.numel() + 2 * set_bits, nbytes(words, ids, n, ovf)),
+        **shape_work,
     }
     seg_min, seg_max = pt.tri_segment_aabbs(tris)
     lines = []
@@ -4916,6 +5267,48 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, flops, n_b
     return entry
 
 
+def with_extra(entry, extra):
+    """``entry`` with the keys of ``extra`` (if any) added."""
+    entry.update(extra or {})
+    return entry
+
+
+def _bound(work):
+    flops, n_bytes = work
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def keys_extra(t, work):
+    """E2's keys beyond the build's call: the kernel's device time in it
+    (the box folded in the launch), the given-box launch, and main path 1's
+    rays (their midpoints' keys, the box in the launch); None where the
+    profiler saw no launch (not measured)."""
+    device = lambda label: t.get(f"build_morton_keys device (profiler; the kernel alone{label})")
+    return {"device_ms": device(""),
+            "given_box": {"ms": t["build_morton_keys kernel (given box)"],
+                          "device_ms": device(" (given box)"),
+                          "plain_ms": t["build_morton_keys plain (given box)"]},
+            "rays": {"ms": t["build_morton_keys kernel (path 1's rays)"],
+                     "device_ms": device(" (path 1's rays)"),
+                     "plain_ms": t["build_morton_keys plain (path 1's rays)"],
+                     **_bound(work["build_morton_keys (path 1's rays)"])}}
+
+
+def compact_extra(t, work):
+    """E6's compaction at each main-path shape: the call, the kernel's
+    device time (None: not measured) and the bound; "device_ms" that of
+    the entry's own case."""
+    shapes = [k[len("compact_words ("):-1] for k in work if k.startswith("compact_words (")]
+    device = lambda label: t.get(f"compact_words device (profiler; the kernel alone, {label})")
+    return {"device_ms": device("quarter words, tile 64, max_q 512"),
+            "shapes": {label: {"ms": t[f"compact_words kernel ({label})"],
+                               "device_ms": device(label),
+                               **_bound(work[f"compact_words ({label})"])}
+                       for label in shapes}}
+
+
 def boxes_entry(t, work, by_path):
     """E6's boxes in the kernels line: one entry for the one launch (both
     parts at path 1's quarters and tile 128), with "device_ms" by the
@@ -5015,7 +5408,10 @@ def run(dev, n_particles, side):
     for kernel in lbvh.RESOURCE_KERNELS:
         for is_float in ((True, False) if kernel.startswith("lbvh") else (True,)):
             label = f"build_{kernel}" + ("" if is_float else " (int64 deltas)")
-            log(f"resources {label}: {json.dumps(lbvh.build_resources(dev, kernel, is_float))}")
+            res = lbvh.build_resources(dev, kernel, is_float)
+            log(f"resources {label}: {json.dumps(res)}")
+            if kernel.startswith("morton") and res["local_bytes"]:
+                raise AssertionError(f"the {label} kernel uses local memory: {res}")
     for kind, mode in (("sph", "cumulative"), ("tri", "closest"), ("tri", "any")):
         for route in wk.ROUTES:
             log(f"resources bvh_walk_{kind} ({mode}, {route}): "
@@ -5027,6 +5423,10 @@ def run(dev, n_particles, side):
                         pb.broadphase_boxes_resources(dev)),
                        ("broadphase_boxes (4-byte rays; csrc/broadphase.cu)",
                         pb.broadphase_boxes_resources(dev, vec=False)),
+                       ("compact_words (16-byte word loads; csrc/broadphase.cu)",
+                        pb.compact_words_resources(dev)),
+                       ("compact_words (4-byte word loads; csrc/broadphase.cu)",
+                        pb.compact_words_resources(dev, vec=False)),
                        ("sortfree_setup (csrc/splat_prep.cu)", sg.sortfree_setup_resources(dev))):
         log(f"resources {label}: {json.dumps(res)}")
         if res["local_bytes"]:
@@ -5056,6 +5456,12 @@ def run(dev, n_particles, side):
     for line in build_lines:
         log(f"check_build {line} OK")
     log(f"check_build: {len(build_lines)} cases in {time.perf_counter() - t_check:.1f} s")
+    t_check = time.perf_counter()
+    key_lines = check_keys(dev, orthographic_projection_rays(side, side, CAM, LOOK, UP, VEXT,
+                                                             LENGTH, device=dev))
+    for line in key_lines:
+        log(f"check_keys {line} OK")
+    log(f"check_keys: {len(key_lines)} cases in {time.perf_counter() - t_check:.1f} s")
     t_check = time.perf_counter()
     for line in check_splat_prep(dev):
         log(f"check_splat_prep {line} OK")
@@ -5227,6 +5633,8 @@ def run(dev, n_particles, side):
             f"words, summary, quarter_lists, dense_tile_segments, dense_segment_tiles and the "
             f"compaction at max_q {list(max_qs)} bit-equal to the plain versions (most listed "
             f"segments a tile {most_s}) OK")
+    for line in check_compaction(dev, compaction_shapes(sorted_spheres, rays_s), tags=()):
+        log(f"check_compaction bench scene, {line} OK")
     for line in bench_word_counts(sorted_spheres, rays_s):
         log(line)
 
@@ -5866,9 +6274,11 @@ def run(dev, n_particles, side):
                             torus["rays"].lengths, tri8[0], tri8[1].children,
                             tri8[1].child_aabbs, tri8[1].leaves) + torus["rays"].n_rays * 8),
         # the build (not TPU kernels: grace_tpu's plain XLA build), bench scene
-        *[kernel_entry(name, "build.cu", replaces, sum(p[name] for p in build_by_path.values()),
-                       err, t[kernel_ms], t[plain_ms], *build_work[name],
-                       by_path={f"path {k}": v[name] for k, v in build_by_path.items()})
+        *[with_extra(kernel_entry(name, "build.cu", replaces,
+                                  sum(p[name] for p in build_by_path.values()),
+                                  err, t[kernel_ms], t[plain_ms], *build_work[name],
+                                  by_path={f"path {k}": v[name] for k, v in build_by_path.items()}),
+                     keys_extra(t, build_work) if name == "build_morton_keys" else None)
           for name, replaces, err, kernel_ms, plain_ms in (
               ("build_morton_keys", "grace_tpu/ops/morton.py:99", build_errs["keys"],
                "build_morton_keys kernel", "build_morton_keys plain"),
@@ -5913,10 +6323,11 @@ def run(dev, n_particles, side):
         # grace_tpu's plain XLA), on the bench scene at the records' tile 64
         # and on path 5's primary rays
         boxes_entry(t, bp_work, bp_by_path),
-        *[kernel_entry(name, "broadphase.cu", replaces,
-                       sum(p[name] for p in bp_by_path.values()), 0.0, t[kernel_ms],
-                       t[plain_ms], *bp_work[name],
-                       by_path={f"path {k}": v[name] for k, v in bp_by_path.items()})
+        *[with_extra(kernel_entry(name, "broadphase.cu", replaces,
+                                  sum(p[name] for p in bp_by_path.values()), 0.0, t[kernel_ms],
+                                  t[plain_ms], *bp_work[name],
+                                  by_path={f"path {k}": v[name] for k, v in bp_by_path.items()}),
+                     compact_extra(t, bp_work) if name == "compact_words" else None)
           for name, replaces, kernel_ms, plain_ms in (
               ("overlap_words", "grace_tpu/trace/pallas_broadphase.py:249, "
                "grace_tpu/trace/pallas_broadphase.py:59, grace_tpu/trace/pallas_render.py:218",

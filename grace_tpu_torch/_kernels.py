@@ -73,7 +73,7 @@ KERNELS = {
     # the LBVH build: --fmad=false keeps the keys', boxes' and deltas' f32
     # rounding the plain build's
     "build": ("build.cu", ["--fmad=false"],
-              {"grace_morton_keys": "pppp" + "iii",
+              {"grace_morton_keys": "ppppppp" + "iiiii",
                "grace_deltas": "pppp" + "iiii",
                "grace_gather_deltas": "pppppppp" + "iii",
                "grace_lbvh_ranges": "pppppp" + "iiii",
@@ -97,7 +97,8 @@ KERNELS = {
                     "grace_broadphase_boxes_resources": "pi",
                     "grace_overlap_words": "pppppp" + "ii",
                     "grace_overlap_words_resources": "p",
-                    "grace_compact_words": "pppp" + "iii"}),
+                    "grace_compact_words": "pppp" + "iii",
+                    "grace_compact_words_resources": "pi"}),
     "tri_lists": ("tri_lists.cu", ["--fmad=false"],
                   {"grace_tri_tile_lists": "p" * 12 + "i" * 8,
                    "grace_tri_tile_lists_resources": "p" + "i" * 5}),

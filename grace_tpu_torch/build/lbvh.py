@@ -371,7 +371,8 @@ def lbvh_nodes(deltas, first, count, mark, scan, mins, maxs, max_per_leaf: int,
 lbvh_nodes.launches = 0
 
 # grace_build_resources' kernels
-RESOURCE_KERNELS = ("morton_keys", "deltas", "gather_deltas", "lbvh_ranges", "lbvh_nodes")
+RESOURCE_KERNELS = ("morton_keys", "deltas", "gather_deltas", "lbvh_ranges", "lbvh_nodes",
+                    "morton_keys_rays")
 
 
 def build_resources(device, kernel: str, is_float: bool = True) -> dict:

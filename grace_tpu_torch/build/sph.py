@@ -12,7 +12,8 @@ keep ``grace_tpu``'s order.
 
 On CUDA tensors the keys, the deltas and the tree come from the kernels of
 ``csrc/build.cu`` (``ops.morton``, ``build.deltas``, ``build.lbvh``); the
-scene box (``amin`` / ``amax``) and the stable key sort stay torch calls.
+keys' launch folds the scene box when none is given; the stable key sort
+stays a torch call.
 After the sort one launch (``deltas.gather_deltas_cuda``) writes the
 sorted spheres or triangles, the int32 permutation, their boxes and the
 deltas, which go straight to ``build_lbvh``; other primitive kinds
@@ -38,14 +39,10 @@ from grace_tpu_torch.ops.primitives import SPHERE, PrimitiveKind
 def morton_keys_sph(spheres, aabb_min=None, aabb_max=None, bits: int = 30,
                     plain: bool = False):
     """30/63-bit Morton keys of sphere centers (int64). The scene AABB
-    defaults to the centroids' bounds."""
-    centroids = SPHERE.centroid(spheres)
-    if aabb_min is None:
-        aabb_min = centroids.amin(dim=0)
-    if aabb_max is None:
-        aabb_max = centroids.amax(dim=0)
-    return morton.morton_keys_from_centroids(centroids, aabb_min, aabb_max, bits=bits,
-                                             plain=plain)
+    defaults to the centroids' bounds: on CUDA tensors one launch reads the
+    spheres' rows, folds that box and writes the keys."""
+    return morton.morton_keys_from_centroids(SPHERE.centroid(spheres), aabb_min, aabb_max,
+                                             bits=bits, plain=plain)
 
 
 def sort_by_morton(spheres, aabb_min=None, aabb_max=None, bits: int = 30, plain: bool = False
@@ -98,13 +95,8 @@ def build_primitive_tree(prims, kind: PrimitiveKind, max_per_leaf: int,
     scene box (default: the centroids' bounds) -> stable sort -> deltas ->
     LBVH over ``kind.aabb``. Returns (sorted_prims, tree, permutation
     i32[N])."""
-    centroids = kind.centroid(prims)
-    if aabb_min is None:
-        aabb_min = centroids.amin(dim=0)
-    if aabb_max is None:
-        aabb_max = centroids.amax(dim=0)
-    keys = morton.morton_keys_from_centroids(centroids, aabb_min, aabb_max, bits=bits,
-                                             plain=plain)
+    keys = morton.morton_keys_from_centroids(kind.centroid(prims), aabb_min, aabb_max,
+                                             bits=bits, plain=plain)
     keys_sorted, perm = torch.sort(keys, stable=True)
     gather = deltas_mod.gather_for(kind, delta_kind, bits)
     if gather is not None and deltas_mod._on_card(prims, plain):

@@ -71,11 +71,26 @@
 // every G-th row of the G groups (rows g, g + G, ...), which spreads the
 // rows of one dense region over the strip's blocks.
 //
-// compact_words_kernel: one warp a row of words: 32 words at a time, their
-// popcounts' warp prefix sum places each word's set bits, written in
-// ascending id (bit b of word w is id 32 w + b) up to max_q; the row is
-// zero-padded to max_q, n = min(count, max_q), overflow = count > max_q.
-// A warp stops reading once its count passes max_q.
+// compact_words_kernel: a warp a row of words, four rows a block (2,048
+// rows of the main paths give 512 blocks, about four an SM; 8,192 rows
+// 2,048). The ids of the main paths are mostly padding: max_q is 2,048
+// where a row holds tens to hundreds of ids, so dense_segment_tiles writes
+// 64 MB of zeros beside 0.75 MB of ids, and the earlier kernel (a lane's
+// word's ids into its own run of slots) touched up to 32 sectors a store.
+// Here a row goes 128 words at a time, a lane four words from one 16-byte
+// load (4-byte loads where the rows are no multiple of 4 words), the next
+// group's loads issued before this one is compacted; the four words'
+// popcounts' warp prefix sum places the group's ids, and slot total + s
+// goes to lane s % 32, which finds the lane holding the group's s-th set
+// bit by a binary search over the lanes' inclusive counts (five shuffles)
+// and its bit by rank, so consecutive lanes store consecutive slots (bit b
+// of word w is id 32 w + b, ascending, up to max_q). The padding past n =
+// min(count, max_q) is 4-byte stores up to the first 16-byte boundary,
+// then streaming 16-byte stores, then the last slots (rows of a max_q that
+// is no multiple of 4 start anywhere in a 16-byte line); overflow = count
+// > max_q. A warp stops reading once its count passes max_q. Counting a
+// row first and writing its padding before its ids, and several rows a
+// warp by a grid stride, measured slower (chip_ablation.py).
 //
 // What bounds them: memory. Each sphere, ray, box and word is read once
 // and each output written once (the column boxes once for every block of
@@ -105,8 +120,6 @@ constexpr int kBoxWarps = kThreads / 32;   // warps a box block
 constexpr int kSegLoads = kSeg / 32;   // 16-byte sphere loads a lane: a warp a segment
 constexpr int kStageFloats = 3 * kBoxWarps * kSegLoads;   // a block's boxes, 32 quarters
 constexpr int kVecTile = 128;         // tiles from here on: 16-byte ray loads
-
-int grid(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
 
 // vecmath.fma: the exact f64 product plus c, rounded to f64, then to f32.
 __device__ __forceinline__ float fma_f64(float a, float b, float c) {
@@ -406,37 +419,121 @@ int overlap_block_rows(int n_rows, int n_strips) {
     return rows;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    compact_words_kernel(const int* __restrict__ words, int* __restrict__ ids,
-                         int* __restrict__ n_out, unsigned char* __restrict__ overflow,
-                         int n_rows, int n_words, int max_q) {
-    const int row = (blockIdx.x * kThreads + threadIdx.x) / 32, lane = threadIdx.x % 32;
-    if (row >= n_rows) return;
-    const int* src = words + static_cast<long long>(row) * n_words;
-    int* dst = ids + static_cast<long long>(row) * max_q;
+// A group of 128 words of a row, lane l's words 4 l .. 4 l + 3 (0 past
+// n_words): one 16-byte load a lane where the row's words are 16-byte
+// aligned, else four 4-byte loads.
+template <bool kVec>
+__device__ __forceinline__ uint4 load_group(const int* src, int base, int n_words, int lane) {
+    const int w = base + 4 * lane;
+    if constexpr (kVec) {
+        if (w >= n_words) return make_uint4(0u, 0u, 0u, 0u);
+        const int4 v = __ldg(reinterpret_cast<const int4*>(src + w));
+        return make_uint4(v.x, v.y, v.z, v.w);
+    } else {
+        uint4 v;
+        v.x = w < n_words ? __ldg(src + w) : 0u;
+        v.y = w + 1 < n_words ? __ldg(src + w + 1) : 0u;
+        v.z = w + 2 < n_words ? __ldg(src + w + 2) : 0u;
+        v.w = w + 3 < n_words ? __ldg(src + w + 3) : 0u;
+        return v;
+    }
+}
+
+// The position of the r-th set bit (r from 0) of a word with more than r:
+// the largest p with fewer than r + 1 set bits below it.
+__device__ __forceinline__ int nth_bit(unsigned word, int r) {
+    int p = 0;
+    for (int step = 16; step; step >>= 1) {
+        if (__popc(word & ((1u << (p + step)) - 1u)) <= r) p += step;
+    }
+    return p;
+}
+
+// Slots n .. max_q - 1 of a row set to 0: 4-byte stores up to the first
+// 16-byte boundary, 16-byte stores, then the last 0-3 slots. The lists'
+// readers stop at n, so the 16-byte stores are streaming (evict first).
+__device__ __forceinline__ void pad_row(int* dst, int n, int max_q, int lane) {
+    const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(dst + n) >> 2) & 3);
+    const int head = min(n + ((4 - mis) & 3), max_q);
+    if (lane < head - n) dst[n + lane] = 0;
+    const int body = (max_q - head) / 4;
+    for (int k = lane; k < body; k += 32)
+        __stcs(reinterpret_cast<int4*>(dst + head) + k, make_int4(0, 0, 0, 0));
+    const int tail = head + 4 * body;
+    if (lane < max_q - tail) dst[tail + lane] = 0;
+}
+
+// groups of 128 words loaded ahead of the one being compacted (0 or 1)
+constexpr int kAhead = 1;
+constexpr int kCompactWarps = 4;   // rows a block: a warp a row
+// One row: its ids into dst (ascending, the first max_q), the padding past
+// n = min(count, max_q), n and the overflow byte (count > max_q).
+template <bool kVec>
+__device__ __forceinline__ void compact_row(const int* src, int* dst, int* n_out,
+                                            unsigned char* overflow, int n_words, int max_q,
+                                            int lane) {
     int total = 0;
-    for (int base = 0; base < n_words && total <= max_q; base += 32) {
-        const int w = base + lane;
-        unsigned word = w < n_words ? static_cast<unsigned>(src[w]) : 0u;
-        const int count = __popc(word);
+    uint4 cur = load_group<kVec>(src, 0, n_words, lane);
+    for (int base = 0; base < n_words && total <= max_q; base += 128) {
+        uint4 next = make_uint4(0u, 0u, 0u, 0u);
+        if (kAhead) next = load_group<kVec>(src, base + 128, n_words, lane);
+        const int count = __popc(cur.x) + __popc(cur.y) + __popc(cur.z) + __popc(cur.w);
         int incl = count;
         for (int o = 1; o < 32; o <<= 1) {
             const int v = __shfl_up_sync(kFull, incl, o);
             if (lane >= o) incl += v;
         }
-        int at = total + incl - count;
-        while (word && at < max_q) {
-            dst[at++] = 32 * w + __ffs(word) - 1;
-            word &= word - 1u;
+        const int group = __shfl_sync(kFull, incl, 31);
+        const int excl = incl - count;
+        const int take = min(group, max_q - total);
+        // slot total + s goes to lane s % 32: the lane L that holds the
+        // group's s-th set bit is the number of lanes whose inclusive count
+        // is at most s; its bit is the (s - excl[L])-th of its four words
+        for (int s0 = 0; s0 < take; s0 += 32) {
+            const int s = s0 + lane;
+            int at = 0;
+            for (int step = 16; step; step >>= 1) {
+                if (__shfl_sync(kFull, incl, at + step - 1) <= s) at += step;
+            }
+            int r = s - __shfl_sync(kFull, excl, at);
+            const unsigned w4[4] = {__shfl_sync(kFull, cur.x, at), __shfl_sync(kFull, cur.y, at),
+                                    __shfl_sync(kFull, cur.z, at), __shfl_sync(kFull, cur.w, at)};
+            if (s < take) {
+                unsigned w = w4[0];
+                int j = 0;
+#pragma unroll
+                for (int q = 1; q < 4; ++q) {
+                    const int c = __popc(w);
+                    if (r >= c) {
+                        r -= c;
+                        w = w4[q];
+                        j = q;
+                    }
+                }
+                dst[total + s] = 32 * (base + 4 * at + j) + nth_bit(w, r);
+            }
         }
-        total += __shfl_sync(kFull, incl, 31);
+        total += group;
+        cur = kAhead ? next : load_group<kVec>(src, base + 128, n_words, lane);
     }
-    const int n = total < max_q ? total : max_q;
-    for (int k = n + lane; k < max_q; k += 32) dst[k] = 0;
+    const int n = min(total, max_q);
+    pad_row(dst, n, max_q, lane);
     if (lane == 0) {
-        n_out[row] = n;
-        overflow[row] = total > max_q;
+        *n_out = n;
+        *overflow = total > max_q;
     }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kCompactWarps * 32)
+    compact_words_kernel(const int* __restrict__ words, int* __restrict__ ids,
+                         int* __restrict__ n_out, unsigned char* __restrict__ overflow,
+                         int n_rows, int n_words, int max_q) {
+    const int row = blockIdx.x * kCompactWarps + threadIdx.x / 32;
+    if (row >= n_rows) return;
+    compact_row<kVec>(words + static_cast<long long>(row) * n_words,
+                      ids + static_cast<long long>(row) * max_q, n_out + row, overflow + row,
+                      n_words, max_q, threadIdx.x % 32);
 }
 
 }  // namespace
@@ -570,13 +667,43 @@ extern "C" int grace_compact_words(const int* words, int* ids, int* n, unsigned 
                                    void* stream) {
     if (n_rows < 0 || n_words < 0 || max_q < 0 ||
         (n_rows > 0 && (!n || !overflow || (n_words > 0 && !words) ||
-                        (max_q > 0 && !ids)))) {
+                        (max_q > 0 && !ids))) ||
+        reinterpret_cast<uintptr_t>(ids) % 4) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n_rows == 0) return static_cast<int>(cudaGetLastError());
-    compact_words_kernel<<<grid(32LL * n_rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        words, ids, n, overflow, n_rows, n_words, max_q);
+    const bool vec = n_words % 4 == 0 && reinterpret_cast<uintptr_t>(words) % 16 == 0;
+    const int blocks = (n_rows + kCompactWarps - 1) / kCompactWarps;
+    (vec ? compact_words_kernel<true> : compact_words_kernel<false>)
+        <<<blocks, kCompactWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+            words, ids, n, overflow, n_rows, n_words, max_q);
     return static_cast<int>(cudaGetLastError());
+}
+
+// What one launch of compact_words_kernel holds (out i32[6], as
+// grace_overlap_words_resources), on the 16-byte route where vec != 0.
+extern "C" int grace_compact_words_resources(int* out, int vec, int device, void* stream) {
+    (void)stream;
+    if (!out) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    void (*kernel)(const int*, int*, int*, unsigned char*, int, int, int) =
+        vec ? compact_words_kernel<true> : compact_words_kernel<false>;
+    cudaFuncAttributes attr;
+    int blocks = 0;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kCompactWarps * 32,
+                                                            0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[2] = kCompactWarps * 32;
+    out[3] = blocks;
+    out[4] = blocks * kCompactWarps;
+    out[5] = static_cast<int>(attr.localSizeBytes);
+    return 0;
 }

@@ -12,12 +12,24 @@
 // original builds it (albvh.cuh:76-234 and :303-670): two Apetrei climbs
 // coordinated by atomics, their lower levels inside a block.
 //
-// morton_keys_kernel: one thread a centroid. Per axis scale = span / (max -
-// min) and u = uint32(scale * (c - min)), each operation rounded in f32
-// (--fmad=false: no contraction); the conversion truncates toward zero,
-// saturates at [0, 2^32 - 1] and maps NaN to 0 (a degenerate axis gives inf *
-// 0 = NaN, so 0); then the bits are spread (10 or 21 a axis) and interleaved
-// z, y, x. 63-bit keys are one int64 value, (hi << 32) | lo.
+// morton_keys_kernel (E2's keys): per axis scale = span / (max - min) and u =
+// uint32(scale * (c - min)), each operation rounded in f32 (--fmad=false: no
+// contraction); the conversion truncates toward zero, saturates at [0, 2^32
+// - 1] and maps NaN to 0 (a degenerate axis gives inf * 0 = NaN, so 0); then
+// the bits are spread (10 a axis in 32-bit ints, 21 in 64-bit) and
+// interleaved z, y, x. 63-bit keys are one int64 value, (hi << 32) | lo. It
+// reads the caller's own rows: spheres as one 16-byte load a row, rays as
+// origins, directions and lengths with the midpoint o + 0.5 l d formed in
+// registers as vecmath.fma forms it. Without a given box the box is folded
+// in the same launch: a cooperative grid of resident blocks (two an SM,
+// fewer where cudaOccupancyMaxActiveBlocksPerMultiprocessor allows fewer),
+// each block's partial box, one grid barrier, then every block folds the
+// partial boxes and keys its items, the first four a thread still in
+// registers. Before it the build
+// made three device operations of the keys (torch.amin, torch.amax and a
+// kernel that read the box and divided in every thread) and
+// spatial_sort_rays about ten (the midpoints' f64 chain, the box, the
+// keys). Bound by bytes: 2^20 spheres' 16 MB read and 8 MB of keys written.
 //
 // gather_deltas_kernel (E2 on the build's path): one thread a sorted row j. It
 // reads the stable sort's int64 permutation and the unsorted row perm[j] (a
@@ -115,6 +127,7 @@
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda/atomic>
 
 #include "common.cuh"
@@ -169,18 +182,19 @@ __device__ __forceinline__ float fma_f64(float a, float b, float c) {
 }
 
 // morton.f32_to_u32: truncate toward zero, saturate at [0, 2^32 - 1], NaN -> 0.
-__device__ __forceinline__ unsigned long long f32_to_u32(float v) {
-    if (v != v) return 0ull;
-    const double x = fmin(fmax(static_cast<double>(v), 0.0), 4294967295.0);
-    return static_cast<unsigned long long>(x);
+// cvt.rzi.u32.f32 saturates and takes NaN to 0 (chip_smoke.py's key checks
+// hold it to the f64 clamp on NaN, +-inf, negatives, -0, subnormals and
+// values past 2^32).
+__device__ __forceinline__ unsigned to_u32(float v) {
+    return __float2uint_rz(v);
 }
 
-__device__ __forceinline__ unsigned long long spread10(unsigned long long x) {
-    x &= (1ull << 10) - 1;
-    x = (x | (x << 16)) & 0x030000FFull;
-    x = (x | (x << 8)) & 0x0300F00Full;
-    x = (x | (x << 4)) & 0x030C30C3ull;
-    x = (x | (x << 2)) & 0x09249249ull;
+__device__ __forceinline__ unsigned spread10(unsigned x) {
+    x &= (1u << 10) - 1;
+    x = (x | (x << 16)) & 0x030000FFu;
+    x = (x | (x << 8)) & 0x0300F00Fu;
+    x = (x | (x << 4)) & 0x030C30C3u;
+    x = (x | (x << 2)) & 0x09249249u;
     return x;
 }
 
@@ -194,26 +208,191 @@ __device__ __forceinline__ unsigned long long spread21(unsigned long long x) {
     return x;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    morton_keys_kernel(const float* __restrict__ centroids, const float* __restrict__ box_min,
-                       const float* __restrict__ box_max, long long* __restrict__ keys, int n,
-                       int stride, int bits) {
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i >= n) return;
-    const float span = bits == 30 ? 1023.0f : 2097151.0f;
-    unsigned long long u[3];
-    for (int k = 0; k < 3; ++k) {
-        const float lo = box_min[k];
-        const float scale = span / (box_max[k] - lo);
-        u[k] = f32_to_u32(scale * (centroids[static_cast<long long>(i) * stride + k] - lo));
-    }
-    unsigned long long key;
-    if (bits == 30) {
-        key = (spread10(u[2]) << 2) | (spread10(u[1]) << 1) | spread10(u[0]);
+// What the keys read: centroids at `stride` floats a row (scalar loads),
+// spheres f32[n, 4] at a 16-byte aligned base (one 16-byte load a row), or
+// rays (origins and directions at `stride` floats a row, lengths f32[n]).
+constexpr int kCentroids = 0;
+constexpr int kSpheres = 1;
+constexpr int kRays = 2;
+
+struct KeyArgs {
+    const float* rows;      // centroids, spheres or ray origins
+    const float* dirs;      // ray directions (kRays)
+    const float* lengths;   // ray lengths (kRays)
+    const float* box_min;   // the given box, f32[3] or a scalar (box_stride 0)
+    const float* box_max;
+    float* parts;           // without a box: 6 floats a block, its partial box
+    long long* keys;
+    int n, stride, box_stride;
+};
+
+// Item i's point: the centroid, or the ray's midpoint as vecmath.fma takes
+// it (0.5 l in f32, then the exact f64 product with d plus o, rounded to
+// f64 and then to f32).
+template <int kSrc>
+__device__ __forceinline__ void key_point(const KeyArgs& a, long long i, float* c) {
+    if constexpr (kSrc == kSpheres) {
+        const float4 s = __ldg(reinterpret_cast<const float4*>(a.rows) + i);
+        c[0] = s.x;
+        c[1] = s.y;
+        c[2] = s.z;
+    } else if constexpr (kSrc == kCentroids) {
+        const float* p = a.rows + i * a.stride;
+        for (int k = 0; k < 3; ++k) c[k] = __ldg(p + k);
     } else {
-        key = (spread21(u[2]) << 2) | (spread21(u[1]) << 1) | spread21(u[0]);
+        const long long r = i * a.stride;
+        const float h = 0.5f * __ldg(a.lengths + i);
+        for (int k = 0; k < 3; ++k) c[k] = fma_f64(h, __ldg(a.dirs + r + k), __ldg(a.rows + r + k));
     }
-    keys[i] = static_cast<long long>(key);
+}
+
+// box = (min xyz, max xyz) in torch.amin / amax's rule: a NaN sticks.
+__device__ __forceinline__ void fold_point(float* box, const float* c) {
+    for (int k = 0; k < 3; ++k) {
+        box[k] = amin_step(box[k], c[k]);
+        box[3 + k] = amax_step(box[3 + k], c[k]);
+    }
+}
+
+__device__ __forceinline__ void fold_box(float* box, const float* other) {
+    for (int k = 0; k < 3; ++k) {
+        box[k] = amin_step(box[k], other[k]);
+        box[3 + k] = amax_step(box[3 + k], other[3 + k]);
+    }
+}
+
+constexpr int kKeyWarps = kThreads / 32;
+
+// The block's box into out[6] (every thread's box folded over the warp by
+// shuffles, then the warps in shared memory). Ends with a barrier.
+__device__ __forceinline__ void block_box(float* box, float (*warps)[6], float* out) {
+    for (int o = 16; o; o >>= 1) {
+        float other[6];
+        for (int k = 0; k < 6; ++k) other[k] = __shfl_xor_sync(0xffffffffu, box[k], o);
+        fold_box(box, other);
+    }
+    if (threadIdx.x % 32 == 0) {
+        for (int k = 0; k < 6; ++k) warps[threadIdx.x / 32][k] = box[k];
+    }
+    __syncthreads();
+    if (threadIdx.x < 6) {
+        float v = warps[0][threadIdx.x];
+        for (int w = 1; w < kKeyWarps; ++w) {
+            v = threadIdx.x < 3 ? amin_step(v, warps[w][threadIdx.x])
+                                : amax_step(v, warps[w][threadIdx.x]);
+        }
+        out[threadIdx.x] = v;
+    }
+    __syncthreads();
+}
+
+template <int kBits>
+__device__ __forceinline__ long long key_of(const float* c, const float* lo, const float* scale) {
+    unsigned u[3];
+    for (int k = 0; k < 3; ++k) u[k] = to_u32(scale[k] * (c[k] - lo[k]));
+    if constexpr (kBits == 30) {
+        return (spread10(u[2]) << 2) | (spread10(u[1]) << 1) | spread10(u[0]);
+    } else {
+        return static_cast<long long>((spread21(u[2]) << 2) | (spread21(u[1]) << 1) |
+                                      spread21(u[0]));
+    }
+}
+
+// Blocks an SM of a launch that folds its box, and the items a thread
+// keeps in registers across the grid's barrier (the rest are read again
+// after it, from L2: 2^20 spheres are 16 MB). Every block folds all
+// blocks' partial boxes after the barrier, G^2 reads for G blocks: at the
+// 6 blocks an SM that 40 registers allow, 792 blocks read 15 MB and took
+// 0.014 ms of the launch's 0.025; 264 blocks read 1.7 MB. Holding 16 items
+// a thread took the same time on 2^20 spheres and more on 512^2 rays (0.0103
+// ms against 0.0080; chip_ablation.py's keys variants).
+constexpr int kFoldBlocksPerSm = 2;
+constexpr int kHeld = 4;
+
+// The keys of a.n items. With a given box (kFold false) a thread a key,
+// the block's lo and span / (hi - lo) computed once. Without one (kFold) a
+// cooperative grid of resident blocks: item i goes to thread i % (blocks x
+// threads); each thread folds its items' points into its box (the first
+// kHeld kept in registers), each block writes its partial box, the grid
+// waits at one barrier, then every block folds all partial boxes (so every
+// block has the same box: min and max are exact, and the zero sign of an
+// edge, which the order may change, moves no key) and writes its keys.
+template <int kSrc, bool kFold, int kBits>
+__global__ void __launch_bounds__(kThreads, kFoldBlocksPerSm) morton_keys_kernel(const KeyArgs a) {
+    __shared__ float warps[kKeyWarps][6];
+    __shared__ float box[6];
+    const float span = kBits == 30 ? 1023.0f : 2097151.0f;
+    const long long step = static_cast<long long>(gridDim.x) * kThreads;
+    const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+    float held[kHeld > 0 ? kHeld : 1][3];
+    if constexpr (kFold) {
+        float mine[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+        for (int k = 0; k < kHeld; ++k) {
+            if (first + k * step < a.n) key_point<kSrc>(a, first + k * step, held[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kHeld; ++k) {
+            if (first + k * step < a.n) fold_point(mine, held[k]);
+        }
+        for (long long i = first + kHeld * step; i < a.n; i += step) {
+            float c[3];
+            key_point<kSrc>(a, i, c);
+            fold_point(mine, c);
+        }
+        block_box(mine, warps, box);
+        if (threadIdx.x < 6) a.parts[6 * blockIdx.x + threadIdx.x] = box[threadIdx.x];
+        cooperative_groups::this_grid().sync();
+        float all[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
+        for (int b = threadIdx.x; b < gridDim.x; b += kThreads) {
+            float part[6];
+            for (int k = 0; k < 6; ++k) part[k] = __ldcg(a.parts + 6 * b + k);
+            fold_box(all, part);
+        }
+        block_box(all, warps, box);
+        if (threadIdx.x < 3) box[3 + threadIdx.x] = span / (box[3 + threadIdx.x] - box[threadIdx.x]);
+    } else if (threadIdx.x < 3) {
+        const float lo = a.box_min[threadIdx.x * a.box_stride];
+        box[threadIdx.x] = lo;
+        box[3 + threadIdx.x] = span / (a.box_max[threadIdx.x * a.box_stride] - lo);
+    }
+    __syncthreads();   // box: lo, then span / (hi - lo), once a block
+    float lo[3], scale[3];
+    for (int k = 0; k < 3; ++k) {
+        lo[k] = box[k];
+        scale[k] = box[3 + k];
+    }
+    long long i = first;
+    if constexpr (kFold) {
+#pragma unroll
+        for (int k = 0; k < kHeld; ++k) {
+            if (first + k * step < a.n) a.keys[first + k * step] = key_of<kBits>(held[k], lo, scale);
+        }
+        i += kHeld * step;
+    }
+    for (; i < a.n; i += step) {
+        float c[3];
+        key_point<kSrc>(a, i, c);
+        a.keys[i] = key_of<kBits>(c, lo, scale);
+    }
+}
+
+using KeyKernel = void (*)(const KeyArgs);
+
+template <int kSrc, bool kFold>
+KeyKernel key_kernel_bits(int bits) {
+    return bits == 30 ? morton_keys_kernel<kSrc, kFold, 30> : morton_keys_kernel<kSrc, kFold, 63>;
+}
+
+template <bool kFold>
+KeyKernel key_kernel_src(int src, int bits) {
+    return src == kSpheres ? key_kernel_bits<kSpheres, kFold>(bits)
+           : src == kRays  ? key_kernel_bits<kRays, kFold>(bits)
+                           : key_kernel_bits<kCentroids, kFold>(bits);
+}
+
+KeyKernel key_kernel(int src, bool fold, int bits) {
+    return fold ? key_kernel_src<true>(src, bits) : key_kernel_src<false>(src, bits);
 }
 
 // The delta of two adjacent keys: XOR of 30-bit keys, compressed XOR of
@@ -792,21 +971,62 @@ int climb_threads(int block, int most) { return min(most, (block + 31) / 32 * 32
 
 }  // namespace
 
-// Morton keys i64[n] of centroids f32[n, 3] (`stride` floats a row) in the
-// box box_min f32[3], box_max f32[3]; bits 30 or 63.
-extern "C" int grace_morton_keys(const float* centroids, const float* box_min,
-                                 const float* box_max, long long* keys, int n, int stride,
-                                 int bits, int device, void* stream) {
-    if (n < 0 || stride < 3 || (bits != 30 && bits != 63) || !centroids || !box_min ||
-        !box_max || !keys) {
+// Resident blocks an SM of each keys kernel that folds its box, by device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, asked once).
+constexpr int kMaxDevices = 64;
+int key_blocks_per_sm[kMaxDevices][3][2];
+int sm_count[kMaxDevices];
+
+// Morton keys i64[n] (bits 30 or 63) of n points: centroids (rows, `stride`
+// floats a row; spheres f32[n, 4] where stride is 4 and the base 16-byte
+// aligned) where dirs is null, else the midpoints o + 0.5 l d of rays
+// (origins rows and directions dirs at `stride` floats a row, lengths f32[n]),
+// in the box (box_min, box_max: f32[3], or a scalar where box_stride is 0)
+// or, where both are null, in the points' own box, folded in the same
+// launch by a cooperative grid of at most max_blocks resident blocks, their
+// partial boxes in parts f32[6 max_blocks].
+extern "C" int grace_morton_keys(const float* rows, const float* dirs, const float* lengths,
+                                 const float* box_min, const float* box_max, float* parts,
+                                 long long* keys, int n, int stride, int box_stride, int bits,
+                                 int max_blocks, int device, void* stream) {
+    const bool fold = !box_min;
+    if (n < 0 || stride < 3 || (bits != 30 && bits != 63) || (!box_min) != (!box_max) ||
+        (n > 0 && (!rows || !keys)) || (dirs && !lengths) ||
+        (!fold && box_stride != 0 && box_stride != 1) || (fold && (!parts || max_blocks < 1)) ||
+        device < 0 || device >= kMaxDevices) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n == 0) return static_cast<int>(cudaGetLastError());
-    morton_keys_kernel<<<grid(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        centroids, box_min, box_max, keys, n, stride, bits);
-    return static_cast<int>(cudaGetLastError());
+    const int src = dirs ? kRays
+                    : (stride == 4 && reinterpret_cast<uintptr_t>(rows) % 16 == 0) ? kSpheres
+                                                                                   : kCentroids;
+    const KeyArgs a = {rows, dirs, lengths, box_min, box_max, parts, keys, n, stride, box_stride};
+    const KeyKernel kernel = key_kernel(src, fold, bits);
+    if (!fold) {
+        kernel<<<grid(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+        return static_cast<int>(cudaGetLastError());
+    }
+    int& per_sm = key_blocks_per_sm[device][src][bits == 30];
+    if (per_sm == 0) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+        if (err == cudaSuccess) {
+            err = cudaDeviceGetAttribute(&sm_count[device], cudaDevAttrMultiProcessorCount,
+                                         device);
+        }
+        if (err != cudaSuccess || per_sm < 1) {
+            per_sm = 0;
+            return static_cast<int>(err != cudaSuccess ? err : cudaErrorInvalidConfiguration);
+        }
+    }
+    const int blocks = min(min(min(per_sm, kFoldBlocksPerSm) * sm_count[device], grid(n)),
+                           max_blocks);
+    void* args[] = {const_cast<KeyArgs*>(&a)};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
+                                      dim3(kThreads), args, 0,
+                                      static_cast<cudaStream_t>(stream));
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The n - 1 adjacent deltas of n sorted primitives into out (f32 for kind
@@ -932,25 +1152,27 @@ extern "C" int grace_lbvh_nodes(const void* d, const int32_t* first, const int32
 }
 
 // What one launch of build kernel `kernel` holds (0 keys, 1 deltas, 2
-// gather_deltas, 3 ranges, 4 nodes; the climbs with f32 deltas where
-// is_float, at their default block): out = registers a thread, shared bytes
-// a block, threads a block, resident blocks and warps an SM, local bytes a
-// thread.
+// gather_deltas, 3 ranges, 4 nodes, 5 the rays' keys; the keys 30-bit,
+// their box folded in the launch, 0 on 16-byte sphere rows; the climbs with
+// f32 deltas where is_float, at their default block): out = registers a
+// thread, shared bytes a block, threads a block, resident blocks and warps
+// an SM, local bytes a thread.
 extern "C" int grace_build_resources(int* out, int kernel, int is_float, int device,
                                      void* stream) {
     (void)stream;
-    if (!out || kernel < 0 || kernel > 4) return static_cast<int>(cudaErrorInvalidValue);
+    if (!out || kernel < 0 || kernel > 5) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const void* fns[5] = {
-        reinterpret_cast<const void*>(morton_keys_kernel),
+    const void* fns[6] = {
+        reinterpret_cast<const void*>(morton_keys_kernel<kSpheres, true, 30>),
         reinterpret_cast<const void*>(deltas_kernel),
         reinterpret_cast<const void*>(gather_deltas_kernel),
         is_float ? reinterpret_cast<const void*>(ranges_kernel<float>)
                  : reinterpret_cast<const void*>(ranges_kernel<long long>),
         is_float ? reinterpret_cast<const void*>(nodes_kernel<float>)
-                 : reinterpret_cast<const void*>(nodes_kernel<long long>)};
-    const int threads[5] = {kThreads, kThreads, kThreads, kRangeThreads, kNodeThreads};
+                 : reinterpret_cast<const void*>(nodes_kernel<long long>),
+        reinterpret_cast<const void*>(morton_keys_kernel<kRays, true, 30>)};
+    const int threads[6] = {kThreads, kThreads, kThreads, kRangeThreads, kNodeThreads, kThreads};
     cudaFuncAttributes attr;
     int blocks = 0;
     err = cudaFuncGetAttributes(&attr, fns[kernel]);

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from grace_tpu_torch.core.types import Octants, Rays, RaySortType, creation_device, octant_signs
+from grace_tpu_torch.ops import morton
 from grace_tpu_torch.ops.morton import morton_key_30bit_from_unit, morton_keys_from_centroids
 from grace_tpu_torch.ops.vecmath import cross, fma, normalize3_unfused, sqrt, tan_f32
 
@@ -55,20 +56,35 @@ def _div(x: torch.Tensor, s) -> torch.Tensor:
     return x / _f32(s, x.device)
 
 
+def _midpoint_keys(rays: Rays, aabb_min, aabb_max, plain: bool = False) -> torch.Tensor:
+    """30-bit Morton keys of the rays' midpoints ``o + 0.5 l d`` (as
+    ``vecmath.fma`` forms them) in the box, default the midpoints' own: on
+    CUDA tensors one launch (``morton.ray_keys_cuda``) that reads the rays
+    and, without a box, folds it; on CPU tensors, and where ``plain``
+    (which only the checks pass), the plain chain."""
+    if not (plain or morton._on_cpu(rays.origins)):
+        if (aabb_min is None) != (aabb_max is None):   # one edge given: torch's other
+            mid = fma(0.5 * rays.lengths[:, None], rays.directions, rays.origins)
+            aabb_min = mid.amin(dim=0) if aabb_min is None else aabb_min
+            aabb_max = mid.amax(dim=0) if aabb_max is None else aabb_max
+        return morton.ray_keys_cuda(rays.origins, rays.directions, rays.lengths, aabb_min,
+                                    aabb_max)
+    mid = fma(0.5 * rays.lengths[:, None], rays.directions, rays.origins)
+    return morton_keys_from_centroids(mid, aabb_min, aabb_max, bits=30, plain=True)
+
+
 def spatial_sort_rays(rays: Rays, aabb_min=None, aabb_max=None):
     """Sort rays by the 30-bit Morton key of their segment midpoint.
 
     Returns (sorted_rays, order, inverse_order): original_values =
-    traced_values[inverse_order]."""
-    mid = fma(0.5 * rays.lengths[:, None], rays.directions, rays.origins)
-    if aabb_min is None:
-        aabb_min = mid.amin(dim=0)
-    if aabb_max is None:
-        aabb_max = mid.amax(dim=0)
-    keys = morton_keys_from_centroids(mid, aabb_min, aabb_max, bits=30)
-    order = torch.argsort(keys, stable=True)
-    inv = torch.argsort(order, stable=True)
-    return rays[order], order.to(torch.int32), inv.to(torch.int32)
+    traced_values[inverse_order]. The inverse is the scatter
+    ``inv[order] = arange(R)``, the same bits as a stable argsort of
+    ``order`` with one launch instead of a sort."""
+    order = torch.argsort(_midpoint_keys(rays, aabb_min, aabb_max), stable=True)
+    n = order.shape[0]
+    inv = torch.empty(n, dtype=torch.int32, device=order.device).scatter_(
+        0, order, torch.arange(n, dtype=torch.int32, device=order.device))
+    return rays[order], order.to(torch.int32), inv
 
 
 def _uniform_rays(normals, origin, length, sort: bool) -> Rays:
@@ -126,8 +142,8 @@ def one_to_many_rays(origin, points, sort_type: RaySortType = RaySortType.NoSort
     if sort_type == RaySortType.DirectionSort:
         return _sort_rays_by_keys(rays, ray_dir_morton_keys(d))
     if sort_type == RaySortType.EndPointSort:
-        if aabb_min is None or aabb_max is None:
-            aabb_min, aabb_max = points.amin(dim=0), points.amax(dim=0)
+        if aabb_min is None or aabb_max is None:   # the points' own box
+            aabb_min = aabb_max = None
         return _sort_rays_by_keys(rays, morton_keys_from_centroids(points, aabb_min,
                                                                    aabb_max, bits=30))
     raise ValueError(f"unknown sort_type {sort_type}")

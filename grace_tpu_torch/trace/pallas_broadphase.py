@@ -14,7 +14,9 @@ box sets in one launch (``broadphase_boxes_cuda``, ``grace_broadphase_boxes``;
 the overlap words with their summary (``grace_overlap_words``: a block a
 strip of 32 words, each row tested against the words' hulls first and a
 ballot a candidate word, no dense intermediate) and the compaction
-(``grace_compact_words``: a warp a row). CPU tensors take the plain
+(``grace_compact_words``: a warp a row, 128 words a group from 16-byte
+loads, consecutive slots from consecutive lanes, the padding as streaming
+16-byte stores). CPU tensors take the plain
 versions, ``_<name>_plain``: the dense bool matrix, ``seg_block`` segments
 at a time, packed to words, and a compaction that ranks every bit.
 """
@@ -306,6 +308,18 @@ def compact_words_cuda(words: torch.Tensor, max_q: int):
 
 
 compact_words_cuda.launches = 0
+
+
+def compact_words_resources(device, vec: bool = True) -> dict:
+    """What one launch of ``grace_compact_words``' kernel holds on
+    ``device`` (its 16-byte word loads, or with ``vec`` False the 4-byte
+    ones of rows that are no multiple of 4 words): ``_kernels.RESOURCE_FIELDS``
+    and ``local_bytes`` a thread."""
+    fields = _kernels.RESOURCE_FIELDS + ("local_bytes",)
+    out = (ctypes.c_int * len(fields))()
+    _kernels.launch("broadphase", "grace_compact_words_resources", torch.device(device),
+                    ctypes.addressof(out), int(vec))
+    return dict(zip(fields, out))
 
 
 def _quarter_lists_plain(rays: Rays, spheres, tile: int, max_q: int = 512,

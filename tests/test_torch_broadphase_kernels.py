@@ -59,8 +59,9 @@ import grace_tpu.trace.pallas_render as jpr
 import grace_tpu.trace.pallas_tri as jpt
 import grace_tpu.trace.splat_grad as jsg
 from grace_tpu.core.types import Rays as JRays
-from chip_smoke import (BOX_SET_CASES, BROADPHASE_CASES, CAM, LOOK, OVERLAP_BOX_CASES,
-                        TRI_LIST_CASES, TRI_LIST_FORCED, UP, box_set_inputs, box_set_outputs,
+from chip_smoke import (BOX_SET_CASES, BROADPHASE_CASES, CAM, COMPACT_CASES, LOOK,
+                        OVERLAP_BOX_CASES, TRI_LIST_CASES, TRI_LIST_FORCED, UP, box_set_inputs,
+                        box_set_outputs, compact_inputs,
                         broadphase_scene, compaction_limits, overlap_box_scene,
                         overlap_words_reference, tri_list_scene)
 from grace_tpu_torch import _kernels
@@ -468,34 +469,85 @@ def _model_overlap_words(row_min, row_max, col_min, col_max, words, summary, n_r
                 stats["nonzero"] = stats.get("nonzero", 0) + int((mine != 0).sum())
 
 
+COMPACT_ROUTES = set()   # the compaction's routes the models took
+
+
+def _popc(x):
+    return np.bitwise_count(np.asarray(x, np.uint32)).astype(np.int64)
+
+
+def _model_nth_bit(word, r):
+    """nth_bit: the largest p with at most r set bits below it (lanes at once)."""
+    p = np.zeros_like(r)
+    for step in (16, 8, 4, 2, 1):
+        mask = ((np.uint64(1) << (p + step).astype(np.uint64)) - np.uint64(1)).astype(np.uint32)
+        p = np.where(_popc(word & mask) <= r, p + step, p)
+    return p
+
+
 def _model_compact_words(words, ids, n, overflow, n_rows, n_words, max_q):
-    """grace_compact_words: warp r = row r; 32 words a round, the words'
-    popcounts' warp prefix sum places each lane's bits, written lowest
-    first while below max_q; the warp stops once its count passes max_q;
-    the row's tail is zeroed."""
+    """grace_compact_words: a warp a row; 128 words a group, lane l's
+    words 4 l .. 4 l + 3 (one 16-byte load where the rows are 16-byte
+    aligned); the four words' popcounts' inclusive warp sum; the group's
+    slots 32 at a time, slot total + s by lane s % 32, which finds the lane
+    holding the s-th set bit by a binary search over the inclusive counts
+    and its bit by rank; the warp stops once its count passes max_q; the
+    padding past n = min(count, max_q): 4-byte stores up to the first
+    16-byte boundary, 16-byte stores (their addresses asserted aligned),
+    the last 0-3 slots. Each slot of a row is asserted written exactly
+    once."""
     w_all = _view(words, ctypes.c_int32, n_rows * n_words).reshape(n_rows, n_words)
     out = _view(ids, ctypes.c_int32, n_rows * max_q).reshape(n_rows, max_q)
     n_out = _view(n, ctypes.c_int32, n_rows)
     ovf = _view(overflow, ctypes.c_uint8, n_rows)
-    for r in range(n_rows):
+    COMPACT_ROUTES.add("16-byte loads" if n_words % 4 == 0 and words % 16 == 0
+                       else "4-byte loads")
+    lane = np.arange(32)
+    for row in range(n_rows):
+        written = np.zeros(max_q, np.int64)
         total, base = 0, 0
         while base < n_words and total <= max_q:
-            chunk = np.zeros(32, np.uint32)
-            m = min(32, n_words - base)
-            chunk[:m] = w_all[r, base:base + m].view(np.uint32)
-            bits = (chunk[:, None] >> np.arange(32, dtype=np.uint32)) & 1
-            count = bits.sum(axis=1).astype(np.int64)
-            at = total + np.cumsum(count) - count
-            for lane in range(32):
-                for b in np.flatnonzero(bits[lane]):
-                    if at[lane] < max_q:
-                        out[r, at[lane]] = 32 * (base + lane) + b
-                        at[lane] += 1
-            total += int(count.sum())
-            base += 32
+            w4 = np.pad(w_all[row, base:base + 128].view(np.uint32),
+                        (0, max(0, base + 128 - n_words))).reshape(32, 4)
+            count = _popc(w4).sum(axis=1)
+            incl = np.cumsum(count)
+            excl = incl - count
+            take = min(int(incl[31]), max_q - total)
+            for s0 in range(0, take, 32):
+                s = s0 + lane
+                at = np.zeros(32, np.int64)
+                for step in (16, 8, 4, 2, 1):
+                    at = np.where(incl[at + step - 1] <= s, at + step, at)
+                r = s - excl[at]
+                word, j = w4[at, 0], np.zeros(32, np.int64)
+                for q in (1, 2, 3):
+                    c = _popc(word)
+                    move = r >= c
+                    r, word, j = np.where(move, r - c, r), np.where(move, w4[at, q], word), \
+                        np.where(move, q, j)
+                live = s < take
+                bit = _model_nth_bit(word, r)
+                out[row, total + s[live]] = (32 * (base + 4 * at + j) + bit)[live]
+                written[total + s[live]] += 1
+            total += int(incl[31])
+            base += 128
+        if base < n_words:
+            COMPACT_ROUTES.add("stopped past max_q")
         k = min(total, max_q)
-        out[r, k:] = 0
-        n_out[r], ovf[r] = k, total > max_q
+        addr = ids + 4 * (row * max_q + k)
+        head = min(k + (4 - (addr >> 2) % 4) % 4, max_q)
+        body = (max_q - head) // 4
+        assert body == 0 or (ids + 4 * (row * max_q + head)) % 16 == 0
+        if head > k:
+            COMPACT_ROUTES.add("4-byte head")
+        if body:
+            COMPACT_ROUTES.add("16-byte padding")
+        if head + 4 * body < max_q:
+            COMPACT_ROUTES.add("4-byte tail")
+        out[row, k:] = 0
+        written[k:] += 1
+        assert (written == 1).all(), "a slot written other than once"
+        n_out[row], ovf[row] = k, total > max_q
 
 
 def _order_bits(key):
@@ -1003,6 +1055,38 @@ def test_broadphase_boxes_model_cases(tag, block, model_launch, monkeypatch):
     vec = tile % 4 == 0 and tile >= VEC_TILE and offset == 0
     assert ("16-byte rays" if vec else "4-byte rays", f"block {block}") in BOX_ROUTES or not (
         n and n_tiles)
+
+
+@pytest.mark.parametrize("tag", list(COMPACT_CASES))
+def test_compaction_cases_model_match_grace_tpu(tag, model_launch):
+    """The compaction's one launch (the numpy model of grace_compact_words
+    through compact_words_cuda) at chip_smoke's COMPACT_CASES: rows of
+    every bit at max_q equal to, one under and one over their count, rows
+    counting max_q - 1, max_q and max_q + 1, max_q 0, 3, 7, 101, 361, 514
+    and 4,099 (rows of ids off 16-byte lines: unaligned heads and tails),
+    no words, no rows, widths of 1, 5 and 37 words and words off a 16-byte
+    boundary (4-byte loads), rows past 128 words. Ids, n and overflow
+    bit-equal to the plain version and to grace_tpu's compact_mask_words."""
+    words, max_q = compact_inputs(tag, "cpu")
+    want = tpb._compact_mask_words_plain(words, max_q)
+    got = tpb.compact_words_cuda(words, max_q)
+    assert model_launch == ["grace_compact_words"]
+    for name, g, w in zip(("ids", "n", "overflow"), got, want):
+        _bits_equal(g, w, f"{tag} {name}")
+    if words.shape[1] and words.shape[0]:   # grace_tpu's compaction takes no row of no words
+        j = jax.jit(jpb.compact_mask_words, static_argnums=1)(_np(words.contiguous()), max_q)
+        for name, g, w in zip(("ids", "n", "overflow"), got, j):
+            _bits_equal(g, w, f"{tag} {name} against grace_tpu")
+
+
+def test_compaction_cases_reach_their_routes(model_launch):
+    """Across COMPACT_CASES the model takes both load widths, stops a row
+    past max_q, and writes 4-byte heads, 16-byte padding and 4-byte tails."""
+    COMPACT_ROUTES.clear()
+    for tag in COMPACT_CASES:
+        tpb.compact_words_cuda(*compact_inputs(tag, "cpu"))
+    assert COMPACT_ROUTES == {"16-byte loads", "4-byte loads", "stopped past max_q",
+                              "4-byte head", "16-byte padding", "4-byte tail"}
 
 
 @pytest.mark.parametrize("tag", list(BOX_SET_CASES))

@@ -158,3 +158,109 @@ def test_import_hygiene():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("clean")
+
+
+# ---- E2's keys kernel (csrc/build.cu) as a numpy model --------------------
+
+from chip_smoke import KEY_CASES, key_outputs, key_scene  # noqa: E402
+from tests.helper.morton_model import HELD, ROUTES, THREADS, model_launch  # noqa: E402,F401
+
+POINT_CASES = [t for t, c in KEY_CASES.items() if c[0] != "rays"]
+
+
+def _grace_tpu_keys(tag):
+    """grace_tpu's keys of case ``tag``: morton_keys_sph (its box by
+    jnp.min / jnp.max) or, at a given box, morton_keys_from_centroids;
+    63-bit keys as one int64."""
+    import grace_tpu.build.sph as jb
+
+    _, _, bits, box, _, _ = KEY_CASES[tag]
+    a = key_scene(tag)
+    pts = a["points"]
+    if box is None:
+        spheres = np.concatenate([pts, np.full((pts.shape[0], 1), 0.02, np.float32)], axis=1)
+        k = jax.jit(jb.morton_keys_sph, static_argnames="bits")(spheres, bits=bits)
+    else:
+        k = jax.jit(jm.morton_keys_from_centroids, static_argnames="bits")(pts, *a["box"],
+                                                                           bits=bits)
+    if bits == 63:
+        return (np.asarray(k[0]).astype(np.int64) << 32) | np.asarray(k[1]).astype(np.int64)
+    return np.asarray(k).astype(np.int64)
+
+
+@pytest.mark.parametrize("tag", POINT_CASES)
+def test_key_cases_model_match_grace_tpu(tag, model_launch):
+    """The keys' one launch (the numpy model of grace_morton_keys, run
+    through the port's public functions and wrappers with the device test
+    made to say "not the CPU") at chip_smoke's KEY_CASES: 16-byte sphere
+    rows, centroids and strided rows; the box folded in the launch (also
+    with the grid capped at 1-3 blocks, where items are read again after
+    the barrier), given as f32[3] or a scalar; NaN in one axis (that axis 0),
+    -0 and +0 at the box's edges and an axis of zeros, +-inf, identical
+    points, the conversion's edges (NaN, +-inf, negatives, -0, subnormals,
+    values past 2^32, 2^21, 2^10) at scale 1; 1, 257 and no points. Keys
+    bit-equal to the port's plain version and to grace_tpu's, one launch a
+    call with points, on the route the case is for."""
+    src, n, bits, box, blocks, _ = KEY_CASES[tag]
+    got = key_outputs(tag, torch.device("cpu"), plain=False)["keys"]
+    want = key_outputs(tag, torch.device("cpu"), plain=True)["keys"]
+    assert model_launch == (["grace_morton_keys"] if n else [])
+    assert np.array_equal(got.numpy(), want.numpy())
+    if n:
+        assert np.array_equal(got.numpy(), _grace_tpu_keys(tag))
+        route = ROUTES[-1]
+        assert route[:2] == ("spheres" if src == "spheres" else "centroids",
+                             "fold" if box is None else "given")
+        assert ("reread" in route) == bool(blocks and n > HELD * THREADS * blocks)
+
+
+def test_key_cases_reach_their_edges():
+    """The cases hold what they are for: the conversion's edges at scale 1
+    give the saturating bits (a NaN, -0, a negative or a subnormal 0, 2^32
+    and past it all ones, 1023.9999 -> 1023); the NaN case zeroes only its
+    axis; a case reads items again after the barrier; the zeros case has
+    both signs at the box's lower x edge and an axis of zeros alone."""
+    a = key_scene("conversion edges at scale 1, 63-bit")
+    assert a["box"][0].tolist() == [0, 0, 0] and a["box"][1][0] == 2097151
+    keys = key_outputs("conversion edges at scale 1, 63-bit", torch.device("cpu"),
+                       plain=True)["keys"].numpy()
+    from tests.helper.morton_model import spread
+    x = keys & spread(np.full(keys.shape, (1 << 21) - 1, np.int64), 63)
+    v = a["points"][:, 0]
+    for value, want in ((np.nan, 0), (-1.0, 0), (1e-40, 0), (-0.0, 0), (2.0 ** 32, (1 << 21) - 1),
+                        (3e38, (1 << 21) - 1), (2097152.0, 0), (1023.9999, 1023)):
+        hit = np.isnan(v) if np.isnan(value) else (v == value) & (np.signbit(v) == np.signbit(value))
+        assert hit.any() and (x[hit] == spread(np.int64(want), 63)).all(), value
+    k = key_outputs("NaN in one axis", torch.device("cpu"), plain=True)["keys"].numpy()
+    assert (k & spread(np.int64(1023), 30)).sum() == 0 and (k >> 1).any()
+    assert any(c[4] and c[1] > HELD * THREADS * c[4] for c in KEY_CASES.values())
+    z = key_scene("-0 and +0 at the box edges, an axis of zeros")["points"]
+    assert np.signbit(z[:, 0][z[:, 0] == 0]).any() and (~np.signbit(z[:, 0][z[:, 0] == 0])).any()
+    assert (z[:, 1] == 0).all() and np.signbit(z[:, 1]).any() and (~np.signbit(z[:, 1])).any()
+
+
+def test_keys_launch_arguments(model_launch, monkeypatch):
+    """morton_keys_sph without a box is one launch on the sphere rows (no
+    amin / amax, no copy), with a scratch of six floats a block; a box
+    given on one side takes the centroids' other edge; the wrappers refuse
+    other widths, types and bits."""
+    import grace_tpu_torch.build.sph as tb
+
+    s = torch.from_numpy(key_scene("clustered 5000 spheres, 30-bit")["spheres"])
+    seen = []
+    launch = tm._launch_keys
+    monkeypatch.setattr(tm, "_launch_keys", lambda rows, *a, **k: (
+        seen.append((rows.data_ptr(), rows.stride(0))), launch(rows, *a, **k))[1])
+    keys = tb.morton_keys_sph(s)
+    lo = s[:, :3].amin(dim=0) + 0.01
+    half = tm.morton_keys_cuda(s[:, :3], lo, None, 30)
+    assert seen[0] == (s.data_ptr(), 4) and model_launch == ["grace_morton_keys"] * 2
+    assert torch.equal(keys, tb.morton_keys_sph(s, plain=True))
+    assert torch.equal(half, tm._morton_keys_plain(s[:, :3], lo, s[:, :3].amax(dim=0), 30))
+    for bad in (lambda: tm.morton_keys_cuda(s, None, None, 30),
+                lambda: tm.morton_keys_cuda(s[:, :3].double(), None, None, 30),
+                lambda: tm.morton_keys_cuda(s[:, :3], None, None, 31),
+                lambda: tm.morton_keys_cuda(s[:, :3], torch.zeros(2), torch.ones(2), 30),
+                lambda: tm.ray_keys_cuda(s[:, :3], s[:, :3], s[:7, 0])):
+        with pytest.raises((ValueError, TypeError)):
+            bad()

@@ -81,6 +81,7 @@ from grace_tpu_torch.trace import pallas_records as prc
 from grace_tpu_torch.trace import pallas_tri as pt
 from chip_smoke import (
     BUILD_CASES, EDGE_ORDERS, build_case, build_counters, build_stages, check_build_case,
+    KEY_CASES, check_keys, key_outputs, COMPACT_CASES, check_compaction,
     check_climbs, check_gather, check_sentinel_build, zero_build_counters,
     SORTFREE_BWD_EDGE_ROWS, SORTFREE_EDGE_CASES, SPLAT_EDGE_CASES,
     SPLAT_PREP_CASES, check_splat_prep_case, prep_counters, splat_prep_scene, zero_prep_counters,
@@ -1038,6 +1039,65 @@ def test_broadphase_kernels_match_plain(dev, tag):
     s, o, d, ln = broadphase_scene(tag)
     rays = Rays.from_arrays(o, d, ln, device=dev)
     check_broadphase_case(tag, torch.from_numpy(s).to(dev), rays, BROADPHASE_CASES[tag][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", list(KEY_CASES))
+def test_build_keys_match_plain(dev, tag):
+    """E2's keys in one launch on the card at every key case (the box
+    folded in the launch, also at grids capped at 1-3 blocks; given as
+    f32[3] or a scalar; NaN, +-0 and +-inf points; the conversion's edges
+    at scale 1, which hold cvt.rzi's saturation to the plain f64 clamp;
+    rays by their midpoints, with order, inverse and sorted rays): bit for
+    bit against the plain versions on the card."""
+    got, want = key_outputs(tag, dev, False), key_outputs(tag, dev, True)
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and torch.equal(
+            g.view(torch.int32) if g.dtype == torch.float32 else g,
+            w.view(torch.int32) if w.dtype == torch.float32 else w), (tag, name)
+
+
+@pytest.mark.cuda
+def test_build_keys_one_launch_and_resources(dev):
+    """morton_keys_sph and spatial_sort_rays' keys are one launch each
+    (no amin / amax); path 1's 512^2 rays sort bit-equal to the plain
+    chain; the folding kernels hold no local memory."""
+    from grace_tpu_torch.build import lbvh
+    from grace_tpu_torch.build.sph import morton_keys_sph
+    from grace_tpu_torch.ops import morton
+
+    spheres = torch.from_numpy(make_clustered_particles(np.random.default_rng(3), 100_000)).to(dev)
+    rays = orthographic_projection_rays(512, 512, CAM, LOOK, UP, 1.2, 6.0, device=dev)
+    before = morton.morton_keys_cuda.launches
+    morton_keys_sph(spheres)
+    spatial_sort_rays(rays)
+    assert morton.morton_keys_cuda.launches - before == 2
+    assert len(check_keys(dev, rays)) == len(KEY_CASES) + 1
+    for kernel in ("morton_keys", "morton_keys_rays"):
+        res = lbvh.build_resources(dev, kernel)
+        assert res["local_bytes"] == 0 and res["blocks_per_sm"] >= 1, (kernel, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", list(COMPACT_CASES))
+def test_compaction_matches_plain(dev, tag):
+    """E6's compaction on the card at every compaction case (rows of every
+    bit at max_q equal to, under and over their count; counts at max_q -
+    1, max_q, max_q + 1; unaligned rows of ids; 4-byte word loads; no
+    words, no rows, max_q 0): ids, n and overflow bit for bit."""
+    check_compaction(dev, tags=(tag,))
+
+
+@pytest.mark.cuda
+def test_compaction_resources(dev):
+    """Both load routes of the compaction hold no local memory; four warps
+    a block."""
+    from grace_tpu_torch.trace import pallas_broadphase as pb
+
+    for vec in (True, False):
+        res = pb.compact_words_resources(dev, vec)
+        assert res["local_bytes"] == 0 and res["threads"] == 128, res
 
 
 @pytest.mark.cuda

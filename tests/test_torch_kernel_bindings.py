@@ -226,12 +226,22 @@ def test_build_entries_take_the_wrappers_arguments(monkeypatch):
     assert list(bd.GATHER_PRIMS) == ["sphere", "triangle"]
     assert "constexpr int kBlock = 1024;" in src
     assert src.count("if (block == 0) block = default_block(n);") == 2
-    fns = src[src.index("const void* fns[5]"):]
+    fns = src[src.index("const void* fns[6]"):]
     fns = re.findall(r"(\w+)_kernel\b", fns[:fns.index("};")])
     assert list(dict.fromkeys(fns)) == ["morton_keys", "deltas", "gather_deltas", "ranges",
                                         "nodes"]
     assert lbvh.RESOURCE_KERNELS == ("morton_keys", "deltas", "gather_deltas", "lbvh_ranges",
-                                     "lbvh_nodes")
+                                     "lbvh_nodes", "morton_keys_rays")
+    # the keys: the wrappers' block and grid cap are build.cu's; a folding
+    # grid of 132 SMs' resident blocks fits the cap; their launch is
+    # cooperative, with one grid barrier
+    from grace_tpu_torch.ops import morton
+
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["kThreads"] == morton.KEY_THREADS
+    assert 132 * consts["kFoldBlocksPerSm"] <= morton.KEY_BLOCKS and consts["kHeld"] >= 0
+    assert src.count("cooperative_groups::this_grid().sync()") == 1
+    assert "cudaLaunchCooperativeKernel" in src
     calls = []
     monkeypatch.setattr(_kernels, "launch", lambda name, entry, dev, *args: calls.append(
         (entry, args)))
@@ -394,6 +404,9 @@ def test_broadphase_constants_agree():
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);",
                                                      bp_src + tri_src)}
     assert consts["kSeg"] == pb.SEG
+    # the compaction: a warp a row, 0 or 1 group of 128 words loaded ahead
+    assert consts["kCompactWarps"] >= 1 and consts["kAhead"] in (0, 1)
+    assert _kernels.KERNELS["broadphase"][2]["grace_compact_words_resources"] == "pi"
     assert consts["kMaxIntervals"] == pt.MAX_INTERVALS
     assert consts["kStageSegs"] == pt.STAGE_SEGS and consts["kWarpBuf"] == pt.WARP_BUF
     assert float(re.search(r"kBig = ([0-9.e+-]+)f;", tri_src).group(1)) == pt.BIG
@@ -402,7 +415,8 @@ def test_broadphase_constants_agree():
     for name, entries in (("broadphase", {"grace_broadphase_boxes", "grace_overlap_words",
                                           "grace_compact_words",
                                           "grace_broadphase_boxes_resources",
-                                          "grace_overlap_words_resources"}),
+                                          "grace_overlap_words_resources",
+                                          "grace_compact_words_resources"}),
                           ("tri_lists", {"grace_tri_tile_lists",
                                          "grace_tri_tile_lists_resources"})):
         _, flags, declared = _kernels.KERNELS[name]
@@ -411,6 +425,8 @@ def test_broadphase_constants_agree():
         for entry in entries:
             body = src[src.index(f'extern "C" int {entry}('):]
             assert "cudaErrorInvalidValue" in body[:body.index("cudaSetDevice")]
+            params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1).split(",")
+            assert "".join("p" if "*" in p else "i" for p in params[:-2]) == declared[entry], entry
     # a block's boxes (two f32 arrays of 3 S) and word hulls (6 f32 a 32
     # segments) and one warp's area (its u64 buffer, a pushed word and a
     # prefix a 32 segments, a queue of 64 ids, or the hulls' rows where

@@ -57,14 +57,27 @@ def _random_rays(rng, n):
     return o, d, ln
 
 
-@pytest.mark.parametrize("kind", ["ortho", "random"])
+@pytest.mark.parametrize("kind", ["ortho", "random", "given box", "tied keys"])
 def test_spatial_sort_exact(kind):
+    """The order, its inverse (a scatter) and the sorted rays bit-equal to
+    grace_tpu's; also at a given box and where most keys tie (zero-length rays at a
+    few points: runs of equal keys keep their input order)."""
+    box = ()
     if kind == "ortho":
         arrs = _rays_np(jg.orthographic_projection_rays(64, 48, CAM, LOOK, UP, 1.2, 6.0))
     else:
         arrs = _random_rays(np.random.default_rng(5), 3000)
-    rj, oj, ij = jax.jit(jg.spatial_sort_rays)(JRays.from_arrays(*arrs))
-    rt, ot, it = tg.spatial_sort_rays(convert.rays_from_numpy(*arrs, device="cpu"))
+    if kind == "given box":
+        box = (np.float32([-0.5, 0.0, -0.25]), np.float32([1.5, 1.25, 1.0]))
+    elif kind == "tied keys":
+        arrs[0][:] = arrs[0][400 * np.random.default_rng(6).integers(0, 7, 3000)]
+        arrs[2][:] = 0.0
+    rj, oj, ij = jax.jit(jg.spatial_sort_rays)(JRays.from_arrays(*arrs), *box)
+    rt, ot, it = tg.spatial_sort_rays(convert.rays_from_numpy(*arrs, device="cpu"),
+                                      *(torch.from_numpy(b) for b in box))
+    if kind == "tied keys":
+        keys = tg._midpoint_keys(convert.rays_from_numpy(*arrs, device="cpu"), None, None)
+        assert len(torch.unique(keys)) == 7
     assert np.array_equal(np.asarray(oj), ot.numpy())
     assert np.array_equal(np.asarray(ij), it.numpy())
     for a, b in zip(_rays_np(rj), (rt.origins, rt.directions, rt.lengths)):
@@ -102,3 +115,41 @@ def test_creators_default_to_the_card():
     assert tt.make_spheres(torch.zeros(4, 3), torch.ones(4)).device.type == "cpu"
     assert tg.orthographic_projection_rays(8, 8, CAM, LOOK, UP, 1.2, 6.0,
                                            device="cpu").origins.device.type == "cpu"
+
+
+# ---- the rays' keys in one launch (csrc/build.cu's grace_morton_keys) -------
+
+from chip_smoke import KEY_CASES, key_outputs, key_scene  # noqa: E402
+from tests.helper.morton_model import ROUTES, model_launch  # noqa: E402,F401 (fixture)
+
+RAY_CASES = [t for t, c in KEY_CASES.items() if c[0] == "rays"]
+
+
+@pytest.mark.parametrize("tag", RAY_CASES)
+def test_ray_key_cases_model_match_grace_tpu(tag, model_launch):
+    """spatial_sort_rays on the kernel route (the numpy model of
+    grace_morton_keys reading the rays themselves: the midpoint formed in
+    the launch as vecmath.fma forms it, the box folded in it or given;
+    the device test made to say "not the CPU") at chip_smoke's ray cases:
+    runs of equal rays, a grid capped at 3 blocks, a given box, a NaN
+    origin, zero lengths with -0 and +0 directions, one ray. One launch
+    a call; keys, order, inverse and sorted rays bit-equal to the
+    plain chain, and order, inverse and sorted rays to grace_tpu's."""
+    box = KEY_CASES[tag][3]
+    got = key_outputs(tag, torch.device("cpu"), plain=False)
+    assert model_launch == ["grace_morton_keys"] * 2   # the keys alone, then the sort's
+    assert ROUTES[-1] == ("rays", "fold" if box is None else "given")
+    want = key_outputs(tag, torch.device("cpu"), plain=True)
+    for name, w in want.items():
+        g = got[name].numpy()
+        assert g.dtype == w.numpy().dtype and np.array_equal(
+            g.view(np.int32) if g.dtype == np.float32 else g,
+            w.numpy().view(np.int32) if g.dtype == np.float32 else w.numpy()), name
+    a = key_scene(tag)
+    args = () if a["box"] is None else a["box"]
+    rj, oj, ij = jax.jit(jg.spatial_sort_rays)(
+        JRays.from_arrays(a["origins"], a["directions"], a["lengths"]), *args)
+    assert np.array_equal(np.asarray(oj), got["order"].numpy())
+    assert np.array_equal(np.asarray(ij), got["inverse"].numpy())
+    for j, name in zip(_rays_np(rj), ("origins", "directions", "lengths")):
+        assert np.array_equal(j.view(np.int32), got[f"sorted {name}"].numpy().view(np.int32))
